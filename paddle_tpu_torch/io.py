@@ -1,6 +1,12 @@
-"""The decode bundle: weights by JAX name plus the serving geometry.
+"""Weights across the two packages, and the decode bundle.
 
-Counterpart of ``paddle_tpu/io.py`` ``export_decode_model``. The JAX
+``params_from_numpy`` and ``scope_from_numpy`` take the JAX package's
+state as numpy arrays by name: the parameters of a model, or the whole
+persistable state of a trained program (parameters and optimizer
+accumulators) as a port ``Scope``.
+
+The decode bundle is the counterpart of ``paddle_tpu/io.py``
+``export_decode_model``. The JAX
 bundle holds StableHLO executables, which PyTorch cannot load; the port's
 bundle holds what builds the model instead: ``serving.json`` with the
 same ``decode`` section and prefill bucket specs (plus a ``format`` tag
@@ -17,12 +23,14 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .core.types import device_dtype, resolve_device
+from .core.scope import Scope
+from .core.types import (device_dtype, normalize_dtype, resolve_device,
+                         torch_dtype)
 from .models.transformer import CONFIG_KEYS, TransformerLM, param_shapes
 from .serving.batcher import env_int
 
-__all__ = ["FORMAT", "params_from_numpy", "export_decode_model",
-           "load_decode_bundle"]
+__all__ = ["FORMAT", "params_from_numpy", "scope_from_numpy",
+           "export_decode_model", "load_decode_bundle"]
 
 #: format tag of a port decode bundle's serving.json
 FORMAT = "paddle_tpu_torch.decode/1"
@@ -48,6 +56,21 @@ def params_from_numpy(arrays: Mapping[str, np.ndarray],
         a = np.ascontiguousarray(a, dtype=np.float32)
         out[name] = torch.from_numpy(a if a.flags.writeable else a.copy())
     return out
+
+
+def scope_from_numpy(arrays: Mapping[str, np.ndarray], device=None
+                     ) -> Scope:
+    """{var name: array} -> a Scope of tensors on `device` (the first CUDA
+    device by default), each in its device dtype (64-bit narrowed). Feed
+    it the JAX scope's persistable vars to start both packages from one
+    state."""
+    device = resolve_device(device)
+    scope = Scope()
+    for name, a in arrays.items():
+        a = np.array(a, copy=True)
+        scope.set_var(name, torch.from_numpy(a).to(
+            device=device, dtype=torch_dtype(normalize_dtype(a.dtype))))
+    return scope
 
 
 def export_decode_model(dirname: str, model_cfg: Dict, *,

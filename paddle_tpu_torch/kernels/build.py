@@ -26,7 +26,8 @@ __all__ = ["CSRC", "BUILD_DIR", "SOURCES", "nvcc_path", "build", "library"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("flash_attention.cu", "paged_attention.cu")
+SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu",
+           "paged_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

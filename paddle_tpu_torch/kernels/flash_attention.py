@@ -1,21 +1,29 @@
-"""Flash attention and paged decode attention: CUDA kernels and their
-plain PyTorch versions.
+"""Flash attention (forward and backward) and paged decode attention: CUDA
+kernels and their plain PyTorch versions.
 
 Counterpart of ``paddle_tpu/kernels/flash_attention.py``. Layouts are the
 JAX package's: q, k, v are [batch, seq, heads, head_dim] ("BSHD"); the
 paged pools are [num_blocks, block_size, heads, head_dim] with block 0
 reserved as the null block.
 
-Two kernels, each written by hand for Hopper in ``paddle_tpu_torch/csrc``
+Four kernels, each written by hand for Hopper in ``paddle_tpu_torch/csrc``
 (the note at the top of each source says what bounds it and what its
 design does about that):
 
 * ``flash_attention_fwd`` (csrc/flash_attention.cu) replaces the Pallas
-  forward ``_flash_fwd``; ``dot_product_attention`` dispatches to it.
+  forward ``_flash_fwd``;
+* ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv``
+  (csrc/flash_attention_bwd.cu) replace the two Pallas backward kernels
+  of ``_flash_bwd_pallas``; ``flash_attention_bwd`` runs both;
 * ``paged_decode_attention`` (csrc/paged_attention.cu) replaces the Pallas
   ``_paged_attention_pallas``.
 
+``FlashAttention`` is the ``torch.autograd.Function`` of the pair (the
+JAX package's ``custom_vjp``), and ``dot_product_attention`` dispatches
+to it on a CUDA tensor, so training runs all three flash kernels.
+
 Each wrapper runs its plain version (``flash_attention_fwd_reference``,
+``flash_attention_bwd_dq_reference``, ``flash_attention_bwd_dkv_reference``,
 ``paged_attention_reference``) only for tensors on the CPU. For a CUDA
 tensor it launches the kernel or raises; there is no fallback. Each keeps
 a plain integer ``launches`` count, raised by one per kernel launch.
@@ -36,7 +44,12 @@ import torch
 from . import build
 
 __all__ = ["DEFAULT_MASK_VALUE", "mha_reference", "flash_attention_fwd",
-           "flash_attention_fwd_reference", "dot_product_attention",
+           "flash_attention_fwd_reference", "flash_attention_bwd_delta",
+           "flash_attention_bwd_dq_reference",
+           "flash_attention_bwd_dkv_reference",
+           "flash_attention_bwd_reference", "flash_attention_bwd_dq",
+           "flash_attention_bwd_dkv", "flash_attention_bwd",
+           "FlashAttention", "dot_product_attention",
            "paged_attention_reference", "paged_decode_attention",
            "paged_kv_update"]
 
@@ -83,6 +96,76 @@ def flash_attention_fwd_reference(q, k, v, *, causal: bool = False,
                      torch.softmax(s, dim=-1).to(v.dtype), v)
     b, h, sq = s.shape[:3]
     return o, torch.logsumexp(s, dim=-1).reshape(b * h, sq)
+
+
+def flash_attention_bwd_delta(o, do) -> torch.Tensor:
+    """delta = rowsum(dO * O) of each query row: [B*H, Sq] float32, the
+    backward kernels' layout of lse."""
+    b, sq, h, _ = o.shape
+    return (do.float() * o.float()).sum(-1).permute(0, 2, 1).reshape(
+        b * h, sq).contiguous()
+
+
+def _bwd_chunks(q, k, v, do, lse, delta, causal: bool, scale: float,
+                block_q: int = 128):
+    """The chunked scan of the JAX package's ``_flash_bwd_rule``: for each
+    block of query rows [i0, i1), p = exp(s - lse) and
+    ds = p * (dp - delta) over all keys, [B, H, rows, Sk] float32."""
+    b, sq, h, _ = q.shape
+    sk = k.shape[1]
+    kf, vf = k.float(), v.float()
+    lse4 = lse.reshape(b, h, sq, 1)
+    delta4 = delta.reshape(b, h, sq, 1)
+    ki = torch.arange(sk, device=q.device)[None, :]
+    for i0 in range(0, sq, block_q):
+        i1 = min(sq, i0 + block_q)
+        qc, doc = q[:, i0:i1].float(), do[:, i0:i1].float()
+        s = torch.einsum("bqhd,bkhd->bhqk", qc, kf) * scale
+        if causal:
+            qpos = torch.arange(i0, i1, device=q.device)[:, None] + (sk - sq)
+            s = torch.where(ki <= qpos, s, DEFAULT_MASK_VALUE)
+        p = torch.exp(s - lse4[:, :, i0:i1])
+        dp = torch.einsum("bqhd,bkhd->bhqk", doc, vf)
+        yield qc, doc, p, p * (dp - delta4[:, :, i0:i1])
+
+
+def flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, *,
+                                     causal: bool = False,
+                                     scale: Optional[float] = None
+                                     ) -> torch.Tensor:
+    """What the dQ kernel returns: dQ = dS K * scale, [B, Sq, H, D]."""
+    scale = _default_scale(q, scale)
+    kf = k.float()
+    return torch.cat([torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+                      for _, _, _, ds in _bwd_chunks(q, k, v, do, lse, delta,
+                                                     causal, scale)],
+                     dim=1).to(q.dtype)
+
+
+def flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, *,
+                                      causal: bool = False,
+                                      scale: Optional[float] = None
+                                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What the dK/dV kernel returns: dK = dS^T Q * scale, dV = P^T dO,
+    each [B, Sk, H, D], summed over the query blocks."""
+    scale = _default_scale(q, scale)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    for qc, doc, p, ds in _bwd_chunks(q, k, v, do, lse, delta, causal, scale):
+        dv = dv + torch.einsum("bhqk,bqhd->bkhd", p, doc)
+        dk = dk + torch.einsum("bhqk,bqhd->bkhd", ds, qc) * scale
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_reference(q, k, v, o, lse, do, *,
+                                  causal: bool = False,
+                                  scale: Optional[float] = None):
+    """Plain backward of the flash forward: (dQ, dK, dV) from the saved
+    O and lse [B*H, Sq]."""
+    delta = flash_attention_bwd_delta(o, do)
+    kw = dict(causal=causal, scale=scale)
+    return (flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, **kw),
+            *flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, **kw))
 
 
 def paged_attention_reference(q, k_pool, v_pool, block_tables, context_lens,
@@ -143,6 +226,22 @@ _I = ctypes.c_int
 def _flash_fn():
     fn = build.library("flash_attention.cu").flash_attention_fwd_f32
     fn.argtypes = [_P] * 5 + [_I] * 5 + [ctypes.c_float, _I, _P]
+    fn.restype = _I
+    return fn
+
+
+@functools.cache
+def _bwd_dq_fn():
+    fn = build.library("flash_attention_bwd.cu").flash_attention_bwd_dq_f32
+    fn.argtypes = [_P] * 7 + [_I] * 5 + [ctypes.c_float, _I, _P]
+    fn.restype = _I
+    return fn
+
+
+@functools.cache
+def _bwd_dkv_fn():
+    fn = build.library("flash_attention_bwd.cu").flash_attention_bwd_dkv_f32
+    fn.argtypes = [_P] * 8 + [_I] * 5 + [ctypes.c_float, _I, _P]
     fn.restype = _I
     return fn
 
@@ -222,6 +321,118 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False,
 flash_attention_fwd.launches = 0
 
 
+def _check_bwd(q, k, v, do, lse, delta, causal: bool):
+    """The backward kernels' contract: the forward kernel's inputs, dO
+    like q, lse and delta [B*H, Sq] float32."""
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        _check_cuda(name, t, q.device, torch.float32, 4)
+    for name, t in (("lse", lse), ("delta", delta)):
+        _check_cuda(name, t, q.device, torch.float32, 2)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    _require(k.shape == v.shape and k.shape[0] == b and k.shape[2:] == (h, d),
+             f"k/v shapes {tuple(k.shape)}, {tuple(v.shape)} do not match "
+             f"q {tuple(q.shape)}")
+    _require(do.shape == q.shape, f"do {tuple(do.shape)} is not shaped as q "
+                                  f"{tuple(q.shape)}")
+    _require(lse.shape == (b * h, sq) and delta.shape == (b * h, sq),
+             f"lse {tuple(lse.shape)} and delta {tuple(delta.shape)} must be "
+             f"[B*H, Sq] = {(b * h, sq)}")
+    _require(d in (64, 128, 256), f"head_dim {d} not in (64, 128, 256)")
+    _require(sq > 0 and sk > 0 and b * h > 0, "empty attention")
+    if causal and sq > sk:
+        raise ValueError(f"causal attention with sq={sq} > sk={sk} has no "
+                         "kernel; use mha_reference")
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = False,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """dQ of flash attention from the forward's lse and delta (see
+    ``flash_attention_bwd_delta``). CPU tensors run
+    ``flash_attention_bwd_dq_reference``; CUDA tensors run the dQ kernel
+    of csrc/flash_attention_bwd.cu under the forward kernel's contract."""
+    scale = _default_scale(q, scale)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
+                                                causal=causal, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd_dq: no kernel for {q.device}")
+    _check_bwd(q, k, v, do, lse, delta, causal)
+    b, sq, h, d = q.shape
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        _launch("flash_attention_bwd_dq", _bwd_dq_fn(), q.data_ptr(),
+                k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dq.data_ptr(), b, h, sq, k.shape[1], d,
+                scale, int(bool(causal)), stream)
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *,
+                            causal: bool = False,
+                            scale: Optional[float] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV) of flash attention. CPU tensors run
+    ``flash_attention_bwd_dkv_reference``; CUDA tensors run the dK/dV
+    kernel of csrc/flash_attention_bwd.cu."""
+    scale = _default_scale(q, scale)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                 causal=causal, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd_dkv: no kernel for {q.device}")
+    _check_bwd(q, k, v, do, lse, delta, causal)
+    b, sq, h, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        _launch("flash_attention_bwd_dkv", _bwd_dkv_fn(), q.data_ptr(),
+                k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq,
+                k.shape[1], d, scale, int(bool(causal)), stream)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
+                        scale: Optional[float] = None):
+    """(dQ, dK, dV) of the flash forward from its saved O and lse: delta
+    as one PyTorch expression (as the JAX package computes it outside
+    Pallas), then the dQ kernel and the dK/dV kernel."""
+    delta = flash_attention_bwd_delta(o, do)
+    kw = dict(causal=causal, scale=scale)
+    return (flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw),
+            *flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw))
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its backward: the forward kernel saves O and
+    lse, the backward kernels recompute the probabilities from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: Optional[float]):
+        scale = _default_scale(q, scale)
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
                            *, scale: Optional[float] = None) -> torch.Tensor:
     """One query token per slot against its pages: q [S, H, D] -> [S, H, D].
@@ -272,7 +483,8 @@ paged_decode_attention.launches = 0
 
 def dot_product_attention(q, k, v, bias=None, *, causal: bool = False,
                           scale: Optional[float] = None) -> torch.Tensor:
-    """Public entry: the flash kernel on CUDA, ``mha_reference`` on CPU.
+    """Public entry: ``FlashAttention`` (the forward kernel, and the two
+    backward kernels under autograd) on CUDA, ``mha_reference`` on CPU.
 
     A bias (additive mask) has no kernel: the kernel handles the causal
     structure itself and arbitrary bias tiles would defeat the block skip.
@@ -282,4 +494,4 @@ def dot_product_attention(q, k, v, bias=None, *, causal: bool = False,
     if bias is not None:
         raise ValueError("dot_product_attention: a bias has no CUDA kernel "
                          "(not ported)")
-    return flash_attention_fwd(q, k, v, causal=causal, scale=scale)[0]
+    return FlashAttention.apply(q, k, v, causal, scale)

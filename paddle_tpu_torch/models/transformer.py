@@ -1,16 +1,20 @@
-"""Decoder-only Transformer LM.
+"""Decoder-only Transformer LM: the program builders and the module.
 
 Counterpart of ``paddle_tpu/models/transformer.py``: pre-LN blocks
 x + MHA(LN(x)), x + FFN(LN(x)), learned positional embeddings, an
 untied lm head. Parameters carry the JAX package's names (``tok_emb``,
 ``pos_emb``, ``attn{i}_*``, ``ffn{i}_{in,out}_{w,b}``,
 ``ln{1,2}_{i}_{scale,bias}``, ``ln_f_*``, ``lm_head_*``) in its layouts,
-so one set of weights runs in both packages.
+so one set of weights runs in both packages and in both forms here.
 
-``forward`` is ``transformer_lm`` with ``pos_table_len=max_context`` and
-``collect_kv``: the prefill. ``decode_step`` is
-``transformer_decode_step``: one token per slot against the paged pools,
-which it updates in place.
+* ``transformer_lm`` / ``transformer_lm_loss`` build the program the
+  Executor trains (``paddle_tpu_torch.Executor``), as the JAX package's
+  builders do.
+* ``TransformerLM`` is the serving module. ``forward`` is
+  ``transformer_lm`` with ``pos_table_len=max_context`` that also
+  returns each layer's K/V: the prefill. ``decode_step`` is
+  ``transformer_decode_step``: one token per slot against the paged
+  pools, which it updates in place.
 """
 
 from __future__ import annotations
@@ -20,10 +24,16 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 from torch import nn
 
-from ..layers.attention import MultiHeadAttention
+from ..initializer import NormalInitializer
+from ..layers import io as L_io
+from ..layers import nn as L
+from ..layers import tensor as L_tensor
+from ..layers.attention import MultiHeadAttention, multi_head_attention
 from ..ops import nn_ops
+from ..param_attr import ParamAttr
 
-__all__ = ["TransformerLM", "param_shapes", "CONFIG_KEYS"]
+__all__ = ["transformer_lm", "transformer_lm_loss", "TransformerLM",
+           "param_shapes", "CONFIG_KEYS"]
 
 #: the keys of a model configuration (``TransformerLM`` arguments)
 CONFIG_KEYS = ("vocab_size", "n_layers", "d_model", "n_heads", "d_ff",
@@ -45,6 +55,88 @@ def param_shapes(cfg: Dict) -> Dict[str, Tuple[int, ...]]:
     out["lm_head_w"], out["lm_head_b"] = (d, v), (v,)
     return out
 
+
+# ---------------------------------------------------------------------------
+# program builders
+# ---------------------------------------------------------------------------
+
+def _ffn(x, d_model, d_ff, idx):
+    h = L.fc(x, size=d_ff, num_flatten_dims=2, act="gelu",
+             param_attr=ParamAttr(name=f"ffn{idx}_in_w"),
+             bias_attr=ParamAttr(name=f"ffn{idx}_in_b"), name=f"ffn{idx}_in")
+    return L.fc(h, size=d_model, num_flatten_dims=2,
+                param_attr=ParamAttr(name=f"ffn{idx}_out_w"),
+                bias_attr=ParamAttr(name=f"ffn{idx}_out_b"),
+                name=f"ffn{idx}_out")
+
+
+def transformer_lm(src_ids, vocab_size, n_layers=2, d_model=128, n_heads=4,
+                   d_ff=512, max_len=2048, dropout_rate=0.0,
+                   causal=True, sp_mode="none", tp_shard=False,
+                   remat=False, pos_table_len=None):
+    """src_ids: [B, S] int64 var. Returns logits [B, S, vocab_size].
+
+    pos_table_len: rows of the ``pos_emb`` parameter (default: S), the
+    first S used. dropout, remat, tp_shard and sp_mode other than "none"
+    are not ported and raise. The JAX builder's collect_kv is not taken:
+    the serving module returns each layer's K/V itself."""
+    if dropout_rate:
+        raise NotImplementedError(f"transformer_lm(dropout_rate="
+                                  f"{dropout_rate}): dropout is not ported")
+    if remat:
+        raise NotImplementedError(f"transformer_lm(remat={remat!r}): "
+                                  "activation recomputation is not ported")
+    seq_len = int(src_ids.shape[1])
+    if seq_len > max_len:
+        raise ValueError(f"sequence length {seq_len} exceeds max_len "
+                         f"{max_len}; raise max_len")
+    pos_rows = seq_len if pos_table_len is None else int(pos_table_len)
+    if seq_len > pos_rows:
+        raise ValueError(f"sequence length {seq_len} exceeds the "
+                         f"pos_table_len {pos_rows} rows of pos_emb")
+    emb = L.embedding(src_ids, [vocab_size, d_model],
+                      param_attr=ParamAttr(
+                          name="tok_emb",
+                          initializer=NormalInitializer(scale=0.02)))
+    pos = L_tensor.create_parameter([pos_rows, d_model], dtype="float32",
+                                    name="pos_emb",
+                                    default_initializer=NormalInitializer(
+                                        scale=0.02))
+    if pos_rows != seq_len:
+        pos = L.slice(pos, axes=[0], starts=[0], ends=[seq_len])
+    x = L.elementwise_add(emb, pos)
+    for i in range(n_layers):
+        ln1 = L.layer_norm(x, begin_norm_axis=2, name=f"ln1_{i}",
+                           param_attr=ParamAttr(name=f"ln1_{i}_scale"),
+                           bias_attr=ParamAttr(name=f"ln1_{i}_bias"))
+        att = multi_head_attention(ln1, num_heads=n_heads, causal=causal,
+                                   sp_mode=sp_mode, tp_shard=tp_shard,
+                                   name=f"attn{i}")
+        x = L.elementwise_add(x, att)
+        ln2 = L.layer_norm(x, begin_norm_axis=2, name=f"ln2_{i}",
+                           param_attr=ParamAttr(name=f"ln2_{i}_scale"),
+                           bias_attr=ParamAttr(name=f"ln2_{i}_bias"))
+        x = L.elementwise_add(x, _ffn(ln2, d_model, d_ff, i))
+    x = L.layer_norm(x, begin_norm_axis=2, name="ln_f",
+                     param_attr=ParamAttr(name="ln_f_scale"),
+                     bias_attr=ParamAttr(name="ln_f_bias"))
+    return L.fc(x, size=vocab_size, num_flatten_dims=2,
+                param_attr=ParamAttr(name="lm_head_w"),
+                bias_attr=ParamAttr(name="lm_head_b"), name="lm_head")
+
+
+def transformer_lm_loss(vocab_size=1000, seq_len=128, **kw):
+    """Build the data vars and the LM loss. Returns (avg_cost, logits)."""
+    src = L_io.data("src_ids", [seq_len], dtype="int64")
+    tgt = L_io.data("tgt_ids", [seq_len, 1], dtype="int64")
+    logits = transformer_lm(src, vocab_size, **kw)
+    loss = L.softmax_with_cross_entropy(logits, tgt)
+    return L.mean(loss), logits
+
+
+# ---------------------------------------------------------------------------
+# the serving module
+# ---------------------------------------------------------------------------
 
 def _param(shape, device, dtype) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),

@@ -1,8 +1,9 @@
 """Attention ops on tensors.
 
 Counterpart of ``paddle_tpu/ops/attention_ops.py``: the single-device
-branch of ``scaled_dot_product_attention`` and the two paged decode ops.
-The kernels they reach are in ``kernels/flash_attention.py``.
+branch of ``scaled_dot_product_attention`` (a plain function and the
+registered op of the Program path) and the two paged decode ops. The
+kernels they reach are in ``kernels/flash_attention.py``.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from typing import Optional
 
 import torch
 
+from ..core.registry import register_op
 from ..kernels.flash_attention import (dot_product_attention,
                                        paged_decode_attention,
                                        paged_kv_update)
@@ -31,6 +33,24 @@ def scaled_dot_product_attention(q, k, v, bias: Optional[torch.Tensor] = None,
             "parallelism is not ported")
     return dot_product_attention(q, k, v, bias, causal=causal,
                                  scale=scale or None)
+
+
+def _sdpa_infer(op, block):
+    q = block.var(op.input("Q")[0])
+    out = block.var(op.output("Out")[0])
+    out.shape, out.dtype = q.shape, q.dtype
+
+
+@register_op("scaled_dot_product_attention", infer_shape=_sdpa_infer)
+def _sdpa_op(ctx, ins, attrs):
+    """Q, K, V [B, S, H, D], optional BiasMask; attrs causal, scale (0.0:
+    1/sqrt(D)), sp_mode ("none" only)."""
+    bias = ins["BiasMask"][0] if ins.get("BiasMask") else None
+    return {"Out": [scaled_dot_product_attention(
+        ins["Q"][0], ins["K"][0], ins["V"][0], bias,
+        causal=bool(attrs.get("causal", False)),
+        scale=attrs.get("scale", 0.0),
+        sp_mode=attrs.get("sp_mode", "none"))]}
 
 
 def paged_kv_write(k_pool, v_pool, k, v, block_tables, context_lens):

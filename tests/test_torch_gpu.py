@@ -6,10 +6,12 @@ a machine with a card and without JAX they run with
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 Each kernel is held against its plain PyTorch version on the card, at the
-serving path's shapes and at small ragged ones; the plain versions are
-held against the JAX package by tests/test_torch_flash_attention.py.
+serving and training paths' shapes and at small ragged ones; the plain
+versions are held against the JAX package by
+tests/test_torch_flash_attention.py and tests/test_torch_flash_backward.py.
 Tolerance: float32 on both sides with TF32 off, sums in another order,
-so atol = rtol = 1e-5.
+so atol = rtol = 1e-5; the backward kernels 1e-4, since each dK/dV entry
+sums up to S products in another order.
 """
 
 import numpy as np
@@ -21,6 +23,7 @@ from paddle_tpu_torch.kernels import flash_attention as fa
 pytestmark = pytest.mark.gpu
 
 TOL = dict(atol=1e-5, rtol=1e-5)
+BWD_TOL = dict(atol=1e-4, rtol=1e-4)
 
 
 @pytest.fixture
@@ -55,6 +58,49 @@ def test_flash_kernel_matches_plain(cuda, b, sq, sk, h, d, causal):
     torch.testing.assert_close(
         fa.dot_product_attention(q, k, v, causal=causal),
         fa.mha_reference(q, k, v, causal=causal), **TOL)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d,causal", [
+    (1, 128, 128, 8, 256, True),
+    (1, 1024, 1024, 8, 256, True),   # the training path's shape, per batch
+    (2, 77, 77, 3, 64, True),        # ragged, partial tiles
+    (1, 5, 300, 2, 128, True),       # sq < sk: bottom-right causal
+    (2, 100, 33, 2, 256, False),     # sq > sk, not causal
+])
+def test_flash_backward_kernels_match_plain(cuda, b, sq, sk, h, d, causal):
+    gen = torch.Generator().manual_seed(sq * 5 + sk)
+    q, do = _randn(gen, b, sq, h, d), _randn(gen, b, sq, h, d)
+    k, v = _randn(gen, b, sk, h, d), _randn(gen, b, sk, h, d)
+    o, lse = fa.flash_attention_fwd_reference(q, k, v, causal=causal)
+    delta = fa.flash_attention_bwd_delta(o, do)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                        causal=causal)
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                            causal=causal)
+    for got, ref in zip((dq, dk, dv), want):
+        torch.testing.assert_close(got, ref, **BWD_TOL)
+
+
+def test_flash_autograd_on_the_card_matches_plain_autograd(cuda):
+    """dot_product_attention on CUDA goes through FlashAttention: one
+    forward and one launch of each backward kernel per call, gradients
+    equal to autograd through mha_reference."""
+    gen = torch.Generator().manual_seed(9)
+    q, k, v, do = (_randn(gen, 2, 200, 4, 128) for _ in range(4))
+    counts = (fa.flash_attention_fwd.launches,
+              fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    fa.dot_product_attention(*leaves, causal=True).backward(do)
+    refs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    fa.mha_reference(*refs, causal=True).backward(do)
+    for got, ref in zip(leaves, refs):
+        torch.testing.assert_close(got.grad, ref.grad, **BWD_TOL)
+    assert (fa.flash_attention_fwd.launches,
+            fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches) == tuple(c + 1 for c in
+                                                          counts)
 
 
 def _paged_case(gen, s, h, d, nb, bs, lens):
@@ -94,14 +140,23 @@ def test_wrappers_never_fall_back(cuda, monkeypatch):
         raise AssertionError("plain version called for a CUDA tensor")
 
     for name in ("mha_reference", "flash_attention_fwd_reference",
+                 "flash_attention_bwd_dq_reference",
+                 "flash_attention_bwd_dkv_reference",
+                 "flash_attention_bwd_reference",
                  "paged_attention_reference"):
         monkeypatch.setattr(fa, name, boom)
     gen = torch.Generator().manual_seed(0)
     q = _randn(gen, 1, 64, 2, 128)
     n_flash = fa.flash_attention_fwd.launches
-    fa.dot_product_attention(q, q, q, causal=True)
+    n_bwd = (fa.flash_attention_bwd_dq.launches,
+             fa.flash_attention_bwd_dkv.launches)
+    leaf = q.clone().requires_grad_(True)
+    fa.dot_product_attention(leaf, q, q, causal=True).sum().backward()
     fa.flash_attention_fwd(q, q, q)
     assert fa.flash_attention_fwd.launches == n_flash + 2
+    assert (fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches) == (n_bwd[0] + 1,
+                                                     n_bwd[1] + 1)
     n_paged = fa.paged_decode_attention.launches
     fa.paged_decode_attention(*_paged_case(gen, 2, 2, 128, 6, 8, [9, 0]))
     assert fa.paged_decode_attention.launches == n_paged + 1
@@ -179,3 +234,51 @@ def test_decode_model_cuda_matches_cpu(cuda, tmp_path):
     assert fa.paged_decode_attention.launches == n_paged + 6 * 2
     for pc, pg in zip(models[0]._pools, models[1]._pools):
         torch.testing.assert_close(pg.cpu(), pc, atol=1e-4, rtol=1e-4)
+
+
+def test_training_on_the_card_matches_the_cpu(cuda):
+    """The same program and startup state on the card and on the CPU:
+    two Adam steps agree (float32 through two layers, sums in other
+    orders): losses within rtol 1e-4, every state element within 1e-5,
+    and each parameter's update and each Adam moment within 1e-3 as rms,
+    as tests/test_torch_executor.py holds the port to the JAX package
+    (the key biases, whose gradient is zero in exact arithmetic, by the
+    1e-5 alone). Each step launched the backward kernels once per
+    layer."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.transformer import transformer_lm_loss
+
+    cfg = dict(vocab_size=300, seq_len=64, n_layers=2, d_model=256,
+               n_heads=2, d_ff=512, max_len=64)
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        avg, _ = transformer_lm_loss(**cfg)
+        pt.optimizer.AdamOptimizer(learning_rate=1e-4).minimize(avg)
+    cpu_exe, cpu_scope = pt.Executor(pt.CPUPlace()), pt.Scope()
+    cpu_exe.run(startup, scope=cpu_scope)
+    gpu_exe, gpu_scope = pt.Executor(), pt.Scope()
+    names = sorted(cpu_scope.local_var_names())
+    start = {n: cpu_scope.get_numpy(n) for n in names}
+    for n in names:
+        gpu_scope.set_var(n, cpu_scope.find_var(n).to(gpu_exe.device))
+    rng = np.random.RandomState(0)
+    n_bwd = fa.flash_attention_bwd_dkv.launches
+    for _ in range(2):
+        src = rng.randint(0, 64, (2, 64)).astype(np.int64)
+        feed = {"src_ids": src, "tgt_ids": src[..., None]}
+        lc, = cpu_exe.run(main, feed=feed, fetch_list=[avg], scope=cpu_scope)
+        lg, = gpu_exe.run(main, feed=feed, fetch_list=[avg], scope=gpu_scope)
+        np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    assert fa.flash_attention_bwd_dkv.launches == n_bwd + 2 * 2
+
+    def rms(a):
+        return float(np.sqrt(np.mean(np.square(a.astype(np.float64)))))
+
+    for n in names:
+        got, want = gpu_scope.get_numpy(n), cpu_scope.get_numpy(n)
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0, err_msg=n)
+        if n.split("_moment")[0].endswith("_k_b"):
+            continue
+        if not ("_moment" in n or "_pow_acc" in n):
+            got, want = got - start[n], want - start[n]
+        assert rms(got - want) <= 1e-3 * rms(want), n

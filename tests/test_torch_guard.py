@@ -85,6 +85,7 @@ def test_importing_every_module_loads_no_jax():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert "paddle_tpu_torch.serving.decode.engine" in report["imported"]
     assert "paddle_tpu_torch.kernels.flash_attention" in report["imported"]
+    assert "paddle_tpu_torch.core.executor" in report["imported"]
     assert report["loaded"] == []
 
 
@@ -98,6 +99,18 @@ def test_default_device_raises_without_a_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda:0")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_default_executor_raises_without_a_card():
+    import paddle_tpu_torch as pt
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pt.Executor()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pt.Executor(pt.CUDAPlace(0))
+    assert pt.Executor(pt.CPUPlace()).device == torch.device("cpu")
 
 
 def test_chip_smoke_fails_without_a_card():
