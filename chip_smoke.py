@@ -14,7 +14,11 @@ no result line:
    S 1024 for a training step), and time the kernel, the plain version,
    PyTorch's scaled_dot_product_attention forward (flash forward) and
    its backward less its forward (flash backward), beside each kernel's
-   bound;
+   bound; then the three conv-epilogue kernels (channel stats, apply,
+   apply with an addend) at every epilogue shape of ResNet-50 at batch
+   128, taken from the fused training program, each timed beside its
+   plain version, its bound and a PyTorch yardstick (torch.var_mean for
+   the stats, F.batch_norm in training mode for stats + apply);
 4. serve the Transformer LM at full width (vocab 32000, 6 layers,
    d_model 2048, 8 heads, d_ff 8192, context 1024, 8 slots, 16-token
    blocks, random weights from --seed) through DecodeEngine: 12 requests,
@@ -31,13 +35,29 @@ no result line:
 6. take two Adam steps of one reduced program (2 layers, d_model 256,
    2 heads, sequence 128, batch 2) from one startup state on the card and
    on the CPU, and hold losses, state and each update together;
-7. print the kernels' JSON line, the card line and the result line.
+7. train ResNet-50 at full width (224 px, 1000 classes, batch 128,
+   Momentum at lr 0.005, float32, bench.py bench_resnet's feeds) through
+   resnet.get_model and the Executor, whose fusion pass makes 17
+   fused_conv2d ops: startup, one warm-up step and RESNET_STEPS timed
+   steps on one feed, launch counts read around them and held to the
+   fused program's epilogue counts, finite and falling losses, peak
+   memory, images/s and device time by class for one step; then the
+   inference clone (every BN folded into its conv) gives finite
+   predictions;
+8. take two Momentum steps of ResNet-50 at 64 px, 102 classes, batch 4
+   from one startup state on the card and on the CPU, and hold losses,
+   state and each update together;
+9. print the kernels' JSON line, the card line and the result line.
+
+cudnn.benchmark stays at its default (off); TF32 is off for products
+and convolutions.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -86,6 +106,26 @@ FLASH_SHAPES = ((1, 128), (1, 1024), (1, 333), (8, 1024))
 LINE_SHAPE = (8, 1024)
 REDUCED = dict(vocab_size=32000, n_layers=2, d_model=256, n_heads=2,
                d_ff=1024, seq_len=128, batch=2)
+# the conv-epilogue kernels vs their plain versions, float32 on the card:
+# apply is one fma and at most one add per element; the stats kernel's
+# sums of up to 1.6 M elements run in another order than the plain
+# version's: the sum of squares within STATS_RTOL of the plain one, the
+# sum (which can sit near zero) within STATS_RTOL * sum(|a|), and the
+# derived variance within STATS_RTOL * E[a^2] (E[a^2] - mean^2 cancels)
+EPI_ATOL = EPI_RTOL = 1e-5
+STATS_RTOL = 1e-5
+# bench.py bench_resnet's TPU arm (bench.py:411-456), in float32
+RESNET = dict(data_set="imagenet", depth=50, batch=128, image=224, lr=0.005)
+RESNET_STEPS = 6
+# card vs CPU: ResNet-50 at 64 px, flowers' 102 classes, batch 4. The
+# model is chaotic at init: its first-step gradients move by about as
+# much (a few % median relative rms) between the card and the CPU as on
+# the CPU alone when the images move by PERTURB (phase 8 prints both);
+# the card may differ from the CPU by SPREAD times what that
+# perturbation does, and need not come closer than the LM's limits
+# (LOSS_RTOL, PARAM_ATOL, STATE_RTOL)
+RESNET_REDUCED = dict(image=64, class_dim=102, batch=4)
+PERTURB, SPREAD = 3e-7, 3.0
 
 
 def card_line() -> str:
@@ -315,6 +355,12 @@ def teacher_forced(np, engine, prompt, generated):
 
 def kernel_class(name: str) -> str:
     n = name.lower()
+    if "stats_partial_kernel" in n or "stats_final_kernel" in n:
+        return "fused_conv_channel_stats (port kernel)"
+    if "apply_kernel<true" in n:
+        return "fused_conv_apply_add (port kernel)"
+    if "apply_kernel<false" in n:
+        return "fused_conv_apply (port kernel)"
     if "paged_decode" in n:
         return "paged_decode_attention (port kernel)"
     if "flash_fwd" in n:
@@ -323,6 +369,9 @@ def kernel_class(name: str) -> str:
         return "flash_attention_bwd_dq (port kernel)"
     if "flash_bwd_dkv" in n:
         return "flash_attention_bwd_dkv (port kernel)"
+    if re.search(r"conv(?!ert)|fprop|dgrad|wgrad|implicit|winograd|"
+                 r"nchwtonhwc|nhwctonchw", n):
+        return "conv (cuDNN)"
     if "gemm" in n or "gemv" in n:
         return "matmul (cuBLAS)"
     if "memcpy" in n or "memset" in n:
@@ -602,6 +651,10 @@ def program_vs_module(np, torch, pt, scope, card):
     del model
 
 
+def rms(np, a):
+    return float(np.sqrt(np.mean(np.square(a.astype(np.float64)))))
+
+
 def card_vs_cpu(np, torch, card, seed: int):
     """One reduced program from one startup state: two Adam steps on the
     card and on the CPU agree."""
@@ -627,9 +680,6 @@ def card_vs_cpu(np, torch, card, seed: int):
         if not loss_diff[-1] <= LOSS_RTOL * abs(float(lc[0])):
             raise RuntimeError(f"step {i}: card loss {lg[0]} vs CPU {lc[0]}")
 
-    def rms(a):
-        return float(np.sqrt(np.mean(np.square(a.astype(np.float64)))))
-
     worst, worst_rel = 0.0, 0.0
     for n in names:
         got, want = gpu_scope.get_numpy(n), cpu_scope.get_numpy(n)
@@ -639,11 +689,12 @@ def card_vs_cpu(np, torch, card, seed: int):
             got, want = got - start[n], want - start[n]
         if n.split("_moment")[0].endswith("_k_b"):
             continue
-        if rms(want) > 0:
-            worst_rel = max(worst_rel, rms(got - want) / rms(want))
-        if not rms(got - want) <= STATE_RTOL * rms(want):
+        if rms(np, want) > 0:
+            worst_rel = max(worst_rel, rms(np, got - want) / rms(np, want))
+        if not rms(np, got - want) <= STATE_RTOL * rms(np, want):
             raise RuntimeError(f"{n}: card vs CPU rms diff "
-                               f"{rms(got - want):.3e}, rms {rms(want):.3e}")
+                               f"{rms(np, got - want):.3e}, rms "
+                               f"{rms(np, want):.3e}")
     print(f"card vs CPU, reduced program, 2 Adam steps: loss diffs "
           f"{loss_diff} (tol rtol {LOSS_RTOL}), largest state diff "
           f"{worst:.3e} (tol atol {PARAM_ATOL}), largest relative rms diff "
@@ -651,6 +702,326 @@ def card_vs_cpu(np, torch, card, seed: int):
           f"[{card}]")
     if not worst <= PARAM_ATOL:
         raise RuntimeError("card and CPU states disagree")
+
+
+def resnet_varied(np, i, batch, image, center=0.0):
+    """bench.py bench_resnet varied(i): uniform images, labels a function
+    of one pixel (so the loss can fall); `center` is subtracted from the
+    images after the labels are taken."""
+    vrng = np.random.RandomState(1000 + i)
+    data = vrng.rand(batch, 3, image, image).astype("float32")
+    label = (data[:, 0, 0, 0] * 9.999).astype("int64")
+    return {"data": data - np.float32(center), "label": label.reshape(-1, 1)}
+
+
+def build_resnet50(pt, seed):
+    """The full-width training program through the user's entry point,
+    and its fused form as the Executor runs it (the pass's memo)."""
+    from paddle_tpu_torch.analysis import fuse
+    from paddle_tpu_torch.models import resnet
+
+    main_prog, startup = pt.Program(), pt.Program()
+    main_prog.random_seed = startup.random_seed = seed
+    with pt.program_guard(main_prog, startup):
+        avg, acc, predict, _ = resnet.get_model(
+            data_set=RESNET["data_set"], depth=RESNET["depth"],
+            fused_xent=True, learning_rate=RESNET["lr"])
+    fused = fuse.maybe_fuse(main_prog, protect=[avg.name, acc.name])
+    return dict(main=main_prog, startup=startup, avg=avg, acc=acc,
+                predict=predict, fused=fused)
+
+
+def epilogue_ops(fused, batch):
+    """[(shape [N, C, H, W], relu, with_add)] of the fused_conv2d ops."""
+    out = []
+    for op in fused.global_block.ops:
+        if op.type == "fused_conv2d":
+            shape = fused.global_block.var(op.output("Output")[0]).shape
+            out.append(((batch,) + tuple(shape[1:]),
+                        op.attrs.get("act") == "relu",
+                        bool(op.input("Addend"))))
+    return out
+
+
+def epilogue_launches_per_step(fused):
+    ops = epilogue_ops(fused, 1)
+    with_add = sum(1 for _, _, add in ops if add)
+    return {"channel_stats": len(ops), "apply_epilogue": len(ops) - with_add,
+            "apply_epilogue_add": with_add}
+
+
+def check_epilogue(torch, F, fc, card, ops):
+    """The three epilogue kernels vs their plain versions at every
+    distinct epilogue shape of the path; the kernels line reports stats
+    and apply at the first op's shape (the stem) and apply + add at the
+    first shortcut's, the largest of each on the path."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    shapes = list(dict.fromkeys(shape for shape, _, _ in ops))
+    relu_of = {}
+    for shape, relu, add in ops:
+        if not add:
+            relu_of.setdefault(shape, relu)
+    line = {"channel_stats": ops[0][0], "apply_epilogue": ops[0][0],
+            "apply_epilogue_add": next(sh for sh, _, add in ops if add)}
+    rows, errs = {}, {k: [] for k in line}
+    for shape in shapes:
+        n, c, h, w = shape
+        s, m = h * w, n * h * w
+        a = torch.randn(n, c, s, device="cuda", generator=gen) + 0.5
+        d = torch.randn(n, c, s, device="cuda", generator=gen)
+        gamma = torch.rand(c, device="cuda", generator=gen) + 0.5
+        beta = 0.1 * torch.randn(c, device="cuda", generator=gen)
+        ssum, ssq = fc.channel_stats(a)
+        rsum, rsq = fc.channel_stats_reference(a)
+        abs_sum = a.abs().sum(dim=(0, 2))
+        var_k = ssq / m - torch.square(ssum / m)
+        var_p = rsq / m - torch.square(rsum / m)
+        torch.cuda.synchronize()
+        ok = (bool(((ssum - rsum).abs() <= STATS_RTOL * abs_sum).all())
+              and bool(((ssq - rsq).abs() <= STATS_RTOL * rsq).all())
+              and bool(((var_k - var_p).abs() <= STATS_RTOL * rsq / m)
+                       .all()))
+        if not ok:
+            raise RuntimeError(f"channel_stats disagrees with its plain "
+                               f"version at {shape}")
+        errs["channel_stats"].append(float(torch.maximum(
+            (ssum - rsum).abs().max(), (ssq - rsq).abs().max())) / m)
+        inv = torch.rsqrt(torch.clamp_min(var_p, 0.0) + 1e-5)
+        scale_c = gamma * inv
+        shift_c = beta - rsum / m * scale_c
+        relu = relu_of.get(shape, True)
+        y = fc.apply_epilogue(a, scale_c, shift_c, relu)
+        ry = fc.apply_epilogue_reference(a, scale_c, shift_c, None, relu)
+        y2 = fc.apply_epilogue_add(a, scale_c, shift_c, d, True)
+        ry2 = fc.apply_epilogue_reference(a, scale_c, shift_c, d, True)
+        torch.cuda.synchronize()
+        errs["apply_epilogue"].append(max_err(torch, y, ry, EPI_ATOL,
+                                              EPI_RTOL))
+        errs["apply_epilogue_add"].append(max_err(torch, y2, ry2, EPI_ATOL,
+                                                  EPI_RTOL))
+        del y, ry, y2, ry2
+        elems = n * c * s
+        bounds = {"channel_stats": bound_ms(4 * elems + 8 * c, 3 * elems),
+                  "apply_epilogue": bound_ms(8 * elems + 8 * c,
+                                             (2 + relu) * elems),
+                  "apply_epilogue_add": bound_ms(12 * elems + 8 * c,
+                                                 4 * elems)}
+        calls = {"channel_stats": (lambda: fc.channel_stats(a),
+                                   lambda: fc.channel_stats_reference(a)),
+                 "apply_epilogue": (
+                     lambda: fc.apply_epilogue(a, scale_c, shift_c, relu),
+                     lambda: fc.apply_epilogue_reference(
+                         a, scale_c, shift_c, None, relu)),
+                 "apply_epilogue_add": (
+                     lambda: fc.apply_epilogue_add(a, scale_c, shift_c, d),
+                     lambda: fc.apply_epilogue_reference(a, scale_c,
+                                                         shift_c, d, True))}
+        ms = {k: cuda_ms(torch, f, 20) for k, (f, _) in calls.items()}
+        plain = {k: cuda_ms(torch, r, 5) for k, (_, r) in calls.items()}
+        a4 = a.view(n, c, h, w)
+        lib = {"channel_stats": cuda_ms(
+                   torch, lambda: torch.var_mean(a, dim=(0, 2)), 20),
+               "apply_epilogue": cuda_ms(
+                   torch, lambda: F.batch_norm(a4, None, None, gamma, beta,
+                                               True, 0.1, 1e-5), 20),
+               "apply_epilogue_add": None}
+        print(f"conv epilogue {list(shape)}: stats {ms['channel_stats']:.4f}"
+              f" ms (plain {plain['channel_stats']:.4f}, var_mean "
+              f"{lib['channel_stats']:.4f}, bound "
+              f"{bounds['channel_stats'][0]:.4f}), apply{' relu' * relu} "
+              f"{ms['apply_epilogue']:.4f} ms (plain "
+              f"{plain['apply_epilogue']:.4f}, bound "
+              f"{bounds['apply_epilogue'][0]:.4f}), apply+add relu "
+              f"{ms['apply_epilogue_add']:.4f} ms (plain "
+              f"{plain['apply_epilogue_add']:.4f}, bound "
+              f"{bounds['apply_epilogue_add'][0]:.4f}); stats + apply "
+              f"{ms['channel_stats'] + ms['apply_epilogue']:.4f} ms vs "
+              f"F.batch_norm {lib['apply_epilogue']:.4f} ms; max_abs_err "
+              f"E[a], E[a^2] {errs['channel_stats'][-1]:.3e} (tol rtol "
+              f"{STATS_RTOL}), apply {errs['apply_epilogue'][-1]:.3e}, "
+              f"add {errs['apply_epilogue_add'][-1]:.3e} (tol atol "
+              f"{EPI_ATOL} rtol {EPI_RTOL}) [{card}]")
+        for k, sh in line.items():
+            if sh == shape:
+                rows[k] = dict(ms=ms[k], plain_ms=plain[k],
+                               bound_ms=bounds[k][0], bound_by=bounds[k][1],
+                               library_ms=lib[k])
+        del a, d, a4
+    for k in rows:
+        rows[k]["max_abs_err"] = max(errs[k])
+    return rows
+
+
+EPILOGUE_KERNELS = ("channel_stats", "apply_epilogue", "apply_epilogue_add")
+
+
+def resnet_path(np, torch, fc, card, built):
+    """Full-width ResNet-50 training through the Executor; returns the
+    epilogue kernels' launch counts of the run (startup, warm-up and
+    timed steps)."""
+    import paddle_tpu_torch as pt
+
+    b, img = RESNET["batch"], RESNET["image"]
+    main_prog, avg, acc = built["main"], built["avg"], built["acc"]
+    n_params = sum(int(np.prod(v.shape)) for v in
+                   main_prog.global_block.all_parameters())
+    exe, scope = pt.Executor(), pt.Scope()
+    # one upload of the fixed feed, as bench.py's loop feeds one batch
+    feed = {k: torch.from_numpy(v).to(exe.device)
+            for k, v in resnet_varied(np, 0, b, img).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for name in EPILOGUE_KERNELS:
+        getattr(fc, name).launches = 0
+    t0 = time.perf_counter()
+    exe.run(built["startup"], scope=scope)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    losses, accs, step_s = [], [], []
+    for _ in range(1 + RESNET_STEPS):
+        t0 = time.perf_counter()
+        loss, a = exe.run(main_prog, feed=feed, fetch_list=[avg, acc],
+                          scope=scope)
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss[0]))
+        accs.append(float(a[0]))
+    launches = {name: getattr(fc, name).launches for name in EPILOGUE_KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms = 1e3 * sum(step_s[1:]) / RESNET_STEPS
+    print(f"resnet path: ResNet-50, {n_params} parameters, batch {b}, {img} "
+          f"px, startup {t_init:.2f} s, losses {losses}, accuracies {accs}, "
+          f"warm-up step {1e3 * step_s[0]:.1f} ms, {RESNET_STEPS} timed steps "
+          f"{[round(1e3 * x, 1) for x in step_s[1:]]} ms: {ms:.3f} ms per "
+          f"step, {b / ms * 1e3:.1f} images/s, peak memory {peak_gb:.2f} GB "
+          f"[{card}]")
+    print(f"resnet path launches: {launches}")
+    want = {k: v * (1 + RESNET_STEPS) for k, v in
+            epilogue_launches_per_step(built["fused"]).items()}
+    if launches != want:
+        raise RuntimeError(f"epilogue launches {launches} on the ResNet "
+                           f"path, expected {want} (the fused program's "
+                           f"fused_conv2d counts x {1 + RESNET_STEPS} steps)")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"ResNet losses are not finite and falling: "
+                           f"{losses}")
+    wall, by_name = profiled(torch, lambda: exe.run(
+        main_prog, feed=feed, fetch_list=[avg], scope=scope), 1)
+    print_profile(f"ResNet-50 training step (batch {b}, {img} px)", wall,
+                  by_name, card)
+    name = built["predict"].name
+    test = main_prog.clone(for_test=True).prune([name])
+    pred, = exe.run(test, feed={"data": feed["data"]}, fetch_list=[name],
+                    scope=scope, return_numpy=False)
+    train_fwd = main_prog.prune([name])
+    pred_train, = exe.run(train_fwd, feed={"data": feed["data"]},
+                          fetch_list=[name], scope=scope, return_numpy=False)
+    rows_ok = bool(((pred.sum(dim=1) - 1).abs() <= 1e-4).all())
+    agree = float((pred.argmax(1) == pred_train.argmax(1)).float().mean())
+    print(f"resnet inference clone (BN folded into the convs): predictions "
+          f"{tuple(pred.shape)}, finite {bool(torch.isfinite(pred).all())}, "
+          f"rows sum to 1 within 1e-4: {rows_ok}; argmax agreement with the "
+          f"training-mode forward {agree:.3f} (information) [{card}]")
+    if not (bool(torch.isfinite(pred).all()) and rows_ok
+            and tuple(pred.shape) == (b, 1000)):
+        raise RuntimeError("the inference clone's predictions are not "
+                           "finite probabilities")
+    return launches
+
+
+def resnet_card_vs_cpu(np, torch, card, seed: int):
+    """ResNet-50 at 64 px, batch 4, from one startup state on the card and
+    on the CPU. This model is chaotic at init: moving its images by
+    PERTURB (relative) moves its first-step gradients by a few % (rms),
+    about as much as the card differs from the CPU. So the card is held
+    to SPREAD times what that perturbation does on the CPU,
+    with the LM's limits as the floor: the step-0 loss (the forward, from
+    one state) within LOSS_RTOL; the first step's gradients, and the
+    parameters' updates, velocities and running stats after two Momentum
+    steps, as relative rms differences (the largest and the median over
+    the vars) and elementwise. The second step's loss, one sample of the
+    chaos, is printed beside the perturbed run's. The images are centred
+    (the bench's uniform pixels less 0.5)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import resnet
+
+    r = RESNET_REDUCED
+    main_prog, startup = pt.Program(), pt.Program()
+    main_prog.random_seed = startup.random_seed = seed
+    with pt.program_guard(main_prog, startup):
+        x = pt.layers.data("data", [3, r["image"], r["image"]])
+        label = pt.layers.data("label", [1], dtype="int64")
+        logits = resnet.resnet_imagenet(x, r["class_dim"], depth=50,
+                                        head_act=None)
+        predict = pt.layers.softmax(logits)
+        avg = pt.layers.mean(pt.layers.softmax_with_cross_entropy(logits,
+                                                                  label))
+        pt.layers.accuracy(input=predict, label=label)
+        pt.optimizer.MomentumOptimizer(learning_rate=RESNET["lr"],
+                                       momentum=0.9).minimize(avg)
+    params = [p.name for p in main_prog.global_block.all_parameters()]
+    cpu, gpu = pt.Executor(pt.CPUPlace()), pt.Executor()
+    scope0 = pt.Scope()
+    cpu.run(startup, scope=scope0)
+    names = sorted(scope0.local_var_names())
+    start = {n: scope0.get_numpy(n) for n in names}
+    runs = {"cpu": cpu, "card": gpu, "cpu, perturbed": cpu}
+    losses, grads, ends = {k: [] for k in runs}, {}, {}
+    for key, exe in runs.items():
+        sc = pt.Scope()
+        for n in names:
+            sc.set_var(n, scope0.find_var(n).to(exe.device, copy=True))
+        for i in range(2):
+            feed = resnet_varied(np, i, r["batch"], r["image"], center=0.5)
+            if key == "cpu, perturbed":
+                feed["data"] = feed["data"] * np.float32(1 + PERTURB)
+            out = exe.run(main_prog, feed=feed, fetch_list=[avg] + (
+                [p + "@GRAD" for p in params] if i == 0 else []), scope=sc)
+            losses[key].append(float(out[0][0]))
+            if i == 0:
+                grads[key] = dict(zip(params, out[1:]))
+        ends[key] = {n: sc.get_numpy(n) for n in names}
+
+    def diffs(got, want, base=None):
+        """(largest elementwise diff, largest and median relative rms
+        diff over the vars; of the updates where `base` is given)"""
+        worst, rels = 0.0, []
+        for n, b in want.items():
+            a = got[n]
+            worst = max(worst, float(np.abs(a - b).max()))
+            if base is not None and n in params:
+                a, b = a - base[n], b - base[n]
+            if rms(np, b) > 0:
+                rels.append(rms(np, a - b) / rms(np, b))
+        return worst, max(rels), float(np.median(rels))
+
+    measured = {what: {key: diffs(src[key], src["cpu"], base)
+                       for key in ("card", "cpu, perturbed")}
+                for what, src, base in (("first-step gradients", grads,
+                                         None),
+                                        ("state after 2 steps", ends,
+                                         start))}
+    loss0 = abs(losses["card"][0] - losses["cpu"][0])
+    print(f"card vs CPU, ResNet-50 at {r['image']} px, batch {r['batch']}, 2 "
+          f"Momentum steps: losses {losses}; step-0 loss diff {loss0:.3e} "
+          f"(tol rtol {LOSS_RTOL}) [{card}]")
+    bad = [] if loss0 <= LOSS_RTOL * abs(losses["cpu"][0]) else [
+        "step-0 loss"]
+    for what, m in measured.items():
+        (c_abs, c_max, c_med), (p_abs, p_max, p_med) = (
+            m["card"], m["cpu, perturbed"])
+        lim = (max(PARAM_ATOL, SPREAD * p_abs),
+               max(STATE_RTOL, SPREAD * p_max),
+               max(STATE_RTOL, SPREAD * p_med))
+        print(f"  {what}: card - CPU largest elementwise {c_abs:.3e}, "
+              f"relative rms largest {c_max:.3e} median {c_med:.3e}; CPU "
+              f"with images x (1 + {PERTURB}) - CPU: {p_abs:.3e}, {p_max:.3e}"
+              f", {p_med:.3e}; limits {lim[0]:.3e}, {lim[1]:.3e}, "
+              f"{lim[2]:.3e}")
+        if not (c_abs <= lim[0] and c_max <= lim[1] and c_med <= lim[2]):
+            bad.append(what)
+    if bad:
+        raise RuntimeError(f"ResNet card and CPU disagree beyond the "
+                           f"chaos of a {PERTURB} input change: {bad}")
 
 
 def main() -> int:
@@ -682,11 +1053,17 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
 
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import fused_conv as fc
+
+    built = build_resnet50(pt, args.seed)
     dq_row, dkv_row = check_flash_bwd(torch, F, fa, card)
     rows = {"flash_attention_fwd": check_flash(torch, F, fa, card),
             "paged_decode_attention": check_paged(torch, fa, card),
             "flash_attention_bwd_dq": dq_row,
             "flash_attention_bwd_dkv": dkv_row}
+    rows.update(check_epilogue(torch, F, fc, card,
+                               epilogue_ops(built["fused"], RESNET["batch"])))
     launches = main_path(np, torch, fa, card, args.seed)
     trained = train_path(np, torch, fa, card, args.seed)
     # the forward kernel runs on both main paths
@@ -694,6 +1071,8 @@ def main() -> int:
     launches.update(flash_attention_bwd_dq=trained["flash_attention_bwd_dq"],
                     flash_attention_bwd_dkv=trained["flash_attention_bwd_dkv"])
     card_vs_cpu(np, torch, card, args.seed)
+    launches.update(resnet_path(np, torch, fc, card, built))
+    resnet_card_vs_cpu(np, torch, card, args.seed)
 
     meta = {"flash_attention_fwd": (
                 "paddle_tpu_torch/csrc/flash_attention.cu",
@@ -706,7 +1085,13 @@ def main() -> int:
                 "paddle_tpu/kernels/flash_attention.py:279"),
             "flash_attention_bwd_dkv": (
                 "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
-                "paddle_tpu/kernels/flash_attention.py:298")}
+                "paddle_tpu/kernels/flash_attention.py:298"),
+            "channel_stats": ("paddle_tpu_torch/csrc/fused_conv.cu",
+                              "paddle_tpu/kernels/fused_conv.py:85"),
+            "apply_epilogue": ("paddle_tpu_torch/csrc/fused_conv.cu",
+                               "paddle_tpu/kernels/fused_conv.py:137"),
+            "apply_epilogue_add": ("paddle_tpu_torch/csrc/fused_conv.cu",
+                                   "paddle_tpu/kernels/fused_conv.py:147")}
     kernels = [dict(name=name, route="cuda", source=meta[name][0],
                     replaces=meta[name][1], launches=launches[name], **row)
                for name, row in rows.items()]

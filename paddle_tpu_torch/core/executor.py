@@ -4,7 +4,8 @@ Counterpart of ``paddle_tpu/core/executor.py``. ``run`` feeds the
 program, runs its step (core/lowering.py) on the executor's device and
 writes the new persistable state back to the scope; ``run_loop`` runs
 ``n_steps`` steps in a host loop (the JAX package's ``lax.scan``) and
-stacks the fetches. The executor runs on the first CUDA device unless it
+stacks the fetches. Both run the conv-epilogue fusion pass first
+(analysis/fuse.py), as the JAX package's ``_run_impl`` does. The executor runs on the first CUDA device unless it
 is given ``CPUPlace()``; without a card the default raises.
 """
 
@@ -15,6 +16,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from ..analysis import fuse as conv_fuse
 from .lowering import build_step_fn
 from .program import Program, VarDesc, default_main_program
 from .scope import Scope, global_scope
@@ -112,6 +114,11 @@ class Executor:
         scope = scope if scope is not None else global_scope()
         fetch_names = [self._fetch_name(f) for f in (fetch_list or [])]
         feed_t = self._prep_feed(program, feed or {})
+        # conv-epilogue fusion pre-pass (analysis/fuse.py): conv2d →
+        # batch_norm (→ add) (→ relu) chains become fused_conv2d on a
+        # clone, memoized per (fingerprint, fetch set); PT_FUSE=0 runs
+        # the caller's program as it is
+        program = conv_fuse.maybe_fuse(program, protect=fetch_names)
         state = self._state_for(program, scope)
         step, _ = build_step_fn(program, list(feed_t), fetch_names,
                                 sorted(state), self.device)

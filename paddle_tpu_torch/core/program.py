@@ -8,19 +8,24 @@ program in both packages: the same ops in order and the same var names
 (the weight carry between them depends on it).
 
 A Program is a description only. The port's Executor (core/executor.py)
-runs it op by op through torch (core/lowering.py); there is no compile
-step and so no fingerprint cache, and no clone, prune or JSON loading,
-which the ported slices do not use.
+runs it op by op through torch (core/lowering.py). ``clone`` (with
+``for_test``), the dict/JSON round trip and the memoized ``fingerprint``
+serve the conv-fusion pass (analysis/fuse.py), which rewrites a clone
+and keys its memo by the fingerprint; ``clone(for_test=True)`` and
+``prune`` make an inference program out of a training one.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 from typing import Any, Dict, List, Optional, Sequence
 
 from .types import VarKind, normalize_dtype
 
-__all__ = ["unique_name", "reset_unique_names", "remat_scope", "VarDesc",
-           "OpDesc", "Block", "Program", "default_main_program",
+__all__ = ["unique_name", "reset_unique_names", "remat_scope",
+           "op_block_refs", "sub_block_var_names", "VarDesc", "OpDesc",
+           "Block", "Program", "default_main_program",
            "default_startup_program", "switch_main_program",
            "switch_startup_program", "program_guard"]
 
@@ -85,6 +90,37 @@ def current_remat_policy() -> Optional[str]:
     return _remat_stack[-1][1] if _remat_stack else None
 
 
+def op_block_refs(op) -> List[int]:
+    """Block indices an op references through its BLOCK-typed attrs
+    (sub_block / true_block / false_block / sub_blocks)."""
+    refs: List[int] = []
+    for key in ("sub_block", "true_block", "false_block"):
+        if key in op.attrs:
+            refs.append(op.attrs[key])
+    refs.extend(op.attrs.get("sub_blocks", ()))
+    return refs
+
+
+def sub_block_var_names(program: "Program", op) -> set:
+    """Every var name any reachable sub-block of `op` reads or writes
+    (sub-block ops read outer vars the control-flow op does not declare).
+    Invalid block indices are skipped."""
+    names: set = set()
+    todo = [bi for bi in op_block_refs(op)
+            if isinstance(bi, int) and 0 <= bi < len(program.blocks)]
+    seen: set = set()
+    while todo:
+        bi = todo.pop()
+        if bi in seen:
+            continue
+        seen.add(bi)
+        for sop in program.blocks[bi].ops:
+            names |= set(sop.input_names()) | set(sop.output_names())
+            todo.extend(bj for bj in op_block_refs(sop)
+                        if isinstance(bj, int) and 0 <= bj < len(program.blocks))
+    return names
+
+
 # ---------------------------------------------------------------------------
 # Descriptors
 # ---------------------------------------------------------------------------
@@ -133,6 +169,19 @@ class VarDesc:
             "wire_codec": self.wire_codec,
         }
 
+    @staticmethod
+    def from_dict(d: dict) -> "VarDesc":
+        v = VarDesc(d["name"], d["shape"], d["dtype"], d.get("kind", VarKind.DENSE),
+                    d.get("persistable", False), d.get("is_parameter", False),
+                    d.get("stop_gradient", False), d.get("lod_level", 0))
+        v.trainable = d.get("trainable", True)
+        v.is_data = d.get("is_data", False)
+        sh = d.get("sharding")
+        v.sharding = tuple(sh) if sh is not None else None
+        v.seq_len_var = d.get("seq_len_var")
+        v.wire_codec = d.get("wire_codec")
+        return v
+
     def __repr__(self):
         return (f"Var({self.name}: {self.dtype}{list(self.shape)}"
                 f"{' param' if self.is_parameter else ''}"
@@ -169,6 +218,10 @@ class OpDesc:
         return {"type": self.type, "inputs": self.inputs, "outputs": self.outputs,
                 "attrs": self.attrs}
 
+    @staticmethod
+    def from_dict(d: dict) -> "OpDesc":
+        return OpDesc(d["type"], d["inputs"], d["outputs"], d["attrs"])
+
     def __repr__(self):
         ins = ", ".join(f"{k}={v}" for k, v in self.inputs.items())
         outs = ", ".join(f"{k}={v}" for k, v in self.outputs.items())
@@ -193,6 +246,7 @@ class Block:
             return self.vars[name]
         v = VarDesc(name, **kwargs)
         self.vars[name] = v
+        self.program.invalidate_cache()
         return v
 
     def var(self, name: str) -> VarDesc:
@@ -233,6 +287,7 @@ class Block:
             if pol is not None:
                 op.attrs.setdefault("remat_policy", pol)
         self.ops.append(op)
+        self.program.invalidate_cache()
         from .registry import get_op  # local import to avoid a cycle
         impl = get_op(type)
         if impl is not None and impl.infer_shape is not None:
@@ -252,12 +307,28 @@ class Program:
     """A computation description: blocks of ops over named vars."""
 
     def __init__(self):
+        self._fp_cache: Optional[str] = None
         self.blocks: List[Block] = [Block(self, 0)]
         self._seed: Optional[int] = None
         self._block_stack: List[int] = [0]
         # mixed precision: recorded as in the JAX package; the port's
         # lowering runs float32 only and refuses a program that sets it
-        self.amp_dtype: Optional[str] = None
+        self._amp_dtype: Optional[str] = None
+
+    @property
+    def amp_dtype(self) -> Optional[str]:
+        return self._amp_dtype
+
+    @amp_dtype.setter
+    def amp_dtype(self, value: Optional[str]):
+        self._amp_dtype = value
+        self.invalidate_cache()
+
+    def invalidate_cache(self):
+        """Drop the memoized fingerprint after a structural mutation.
+        Block.append_op/create_var call it; a pass that edits descriptors
+        in place must call it itself."""
+        self._fp_cache = None
 
     @property
     def global_block(self) -> Block:
@@ -266,10 +337,78 @@ class Program:
     def current_block(self) -> Block:
         return self.blocks[self._block_stack[-1]]
 
+    # -- transforms ---------------------------------------------------------
+    def clone(self, for_test: bool = False) -> "Program":
+        """Deep copy; for_test sets every op's is_test attr."""
+        p = Program.from_dict(self.to_dict())
+        if for_test:
+            for b in p.blocks:
+                for op in b.ops:
+                    if "is_test" in op.attrs:
+                        op.attrs["is_test"] = True
+                    if op.type == "dropout":
+                        op.attrs["is_test"] = True
+        p._seed = self._seed
+        return p
+
+    def prune(self, targets: Sequence[str], feeds: Sequence[str] = ()
+              ) -> "Program":
+        """A clone that keeps only the block-0 ops the targets need (and
+        ops flagged __side_effect__); sub-blocks of kept ops stay whole."""
+        p = self.clone()
+        blk = p.global_block
+        needed = set(targets)
+        kept: List[OpDesc] = []
+        sub_names_union: set = set()
+        for op in reversed(blk.ops):
+            if op.type in ("feed", "fetch"):
+                continue
+            if set(op.output_names()) & needed or \
+                    op.attrs.get("__side_effect__", False):
+                kept.append(op)
+                needed |= set(op.input_names())
+                names = sub_block_var_names(p, op)
+                needed |= names
+                sub_names_union |= names
+        kept.reverse()
+        blk.ops = kept
+        used = set(feeds) | set(targets) | sub_names_union
+        for op in kept:
+            used |= set(op.input_names()) | set(op.output_names())
+        blk.vars = {n: v for n, v in blk.vars.items() if n in used}
+        p.invalidate_cache()
+        return p
+
     # -- serialization ------------------------------------------------------
     def to_dict(self) -> dict:
-        return {"version": 1, "seed": self._seed, "amp_dtype": self.amp_dtype,
+        return {"version": 1, "seed": self._seed, "amp_dtype": self._amp_dtype,
                 "blocks": [b.to_dict() for b in self.blocks]}
+
+    @staticmethod
+    def from_dict(d: dict) -> "Program":
+        p = Program()
+        p._seed = d.get("seed")
+        p._amp_dtype = d.get("amp_dtype")
+        p.blocks = []
+        for bd in d["blocks"]:
+            b = Block(p, bd["idx"], bd["parent_idx"])
+            for vd in bd["vars"]:
+                b.vars[vd["name"]] = VarDesc.from_dict(vd)
+            b.ops = [OpDesc.from_dict(od) for od in bd["ops"]]
+            p.blocks.append(b)
+        if not p.blocks:
+            p.blocks = [Block(p, 0)]
+        return p
+
+    def to_json(self, indent=None) -> str:
+        return json.dumps(self.to_dict(), indent=indent)
+
+    def fingerprint(self) -> str:
+        """Content hash of the IR, memoized until invalidate_cache()."""
+        if self._fp_cache is None:
+            self._fp_cache = hashlib.sha256(
+                self.to_json().encode()).hexdigest()[:16]
+        return self._fp_cache
 
     def __str__(self):
         lines = []

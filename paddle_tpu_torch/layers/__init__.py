@@ -3,11 +3,16 @@ the attention module the served model uses."""
 
 from .attention import MultiHeadAttention, fused_attention, multi_head_attention
 from .io import data
-from .nn import (elementwise_add, embedding, fc, layer_norm, mean, reshape,
-                 slice, softmax_with_cross_entropy)
+from .metric import accuracy
+from .nn import (batch_norm, conv2d, cross_entropy, elementwise_add,
+                 embedding, fc, fused_bottleneck, layer_norm, mean, pool2d,
+                 relu, reshape, slice, softmax, softmax_with_cross_entropy,
+                 topk)
 from .tensor import create_parameter, fill_constant
 
 __all__ = ["MultiHeadAttention", "fused_attention", "multi_head_attention",
-           "data", "elementwise_add", "embedding", "fc", "layer_norm", "mean",
-           "reshape", "slice", "softmax_with_cross_entropy",
+           "data", "accuracy", "batch_norm", "conv2d", "cross_entropy",
+           "elementwise_add", "embedding", "fc", "fused_bottleneck",
+           "layer_norm", "mean", "pool2d", "relu", "reshape", "slice",
+           "softmax", "softmax_with_cross_entropy", "topk",
            "create_parameter", "fill_constant"]

@@ -1,11 +1,13 @@
 """Neural-network layer functions that build program ops.
 
 Counterpart of the layers of ``paddle_tpu/layers/nn.py`` that the
-Transformer LM builds: ``fc``, ``embedding``, ``layer_norm``,
+Transformer LM and ResNet build: ``fc``, ``embedding``, ``layer_norm``,
 ``softmax_with_cross_entropy``, ``mean``, ``reshape``,
-``elementwise_add`` and ``slice``. Each appends ops to the default main
-program through LayerHelper, with the JAX package's op types, attrs and
-names, and returns the output VarDesc.
+``elementwise_add``, ``slice``, ``conv2d``, ``pool2d``, ``batch_norm``,
+``fused_bottleneck``, ``cross_entropy``, ``softmax``, ``relu`` and
+``topk``. Each appends ops to the default main program through
+LayerHelper, with the JAX package's op types, attrs and names, and
+returns the output VarDesc.
 """
 
 from __future__ import annotations
@@ -15,12 +17,14 @@ from typing import Optional, Sequence
 import numpy as np
 
 from ..core.program import VarDesc
-from ..initializer import ConstantInitializer
+from ..initializer import ConstantInitializer, NormalInitializer
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
 __all__ = ["fc", "embedding", "layer_norm", "softmax_with_cross_entropy",
-           "mean", "reshape", "elementwise_add", "slice"]
+           "mean", "reshape", "elementwise_add", "slice", "conv2d", "pool2d",
+           "batch_norm", "fused_bottleneck", "cross_entropy", "softmax",
+           "relu", "topk"]
 
 
 def _fresh_attr(attr) -> ParamAttr:
@@ -150,3 +154,170 @@ def slice(input, axes, starts, ends):
     helper.append_op("slice", {"Input": input}, {"Out": out},
                      {"axes": list(axes), "starts": list(starts), "ends": list(ends)})
     return out
+
+
+def _pair(v):
+    return list(v) if isinstance(v, (list, tuple)) else [v, v]
+
+
+def cross_entropy(input, label, soft_label: bool = False) -> VarDesc:
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op("cross_entropy", {"X": input, "Label": label}, {"Y": out},
+                     {"soft_label": soft_label})
+    return out
+
+
+def conv2d(input, num_filters: int, filter_size, stride=1, padding=0,
+           dilation=1, groups=None, param_attr=None, bias_attr=None,
+           use_cudnn: bool = True, use_mkldnn: bool = False, act=None,
+           name=None) -> VarDesc:
+    """NCHW convolution; the filter starts from normal(0, sqrt(2 /
+    fan_in)). use_cudnn and use_mkldnn are recorded and ignored."""
+    helper = LayerHelper("conv2d", param_attr=param_attr, bias_attr=bias_attr,
+                         act=act, name=name)
+    dtype = input.dtype
+    num_channels = input.shape[1]
+    groups = groups or 1
+    if isinstance(filter_size, int):
+        filter_size = [filter_size, filter_size]
+    filter_shape = [num_filters, num_channels // groups] + list(filter_size)
+    fan_in = (num_channels // groups) * filter_size[0] * filter_size[1]
+    w = helper.create_parameter(
+        helper.param_attr, filter_shape, dtype,
+        default_initializer=NormalInitializer(0.0, (2.0 / fan_in) ** 0.5))
+    pre_bias = helper.create_tmp_variable(dtype)
+    helper.append_op("conv2d", {"Input": input, "Filter": w},
+                     {"Output": pre_bias},
+                     {"strides": _pair(stride), "paddings": _pair(padding),
+                      "dilations": _pair(dilation), "groups": groups,
+                      "use_cudnn": use_cudnn})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2) \
+        if bias_attr is not False else pre_bias
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type: str = "max", pool_stride=1,
+           pool_padding=0, global_pooling: bool = False, use_cudnn=True,
+           ceil_mode: bool = False, name=None, exclusive=True) -> VarDesc:
+    helper = LayerHelper("pool2d", name=name)
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op("pool2d", {"X": input}, {"Out": out},
+                     {"pooling_type": pool_type, "ksize": _pair(pool_size),
+                      "strides": _pair(pool_stride),
+                      "paddings": _pair(pool_padding),
+                      "global_pooling": global_pooling, "ceil_mode": ceil_mode,
+                      "exclusive": exclusive})
+    return out
+
+
+def _bn_state_vars(helper, pshape, dtype, param_attr, bias_attr,
+                   moving_mean_name=None, moving_variance_name=None):
+    """The one definition of batch-norm state (scale and bias parameters,
+    persistable float32 running mean and variance, the saved-stat tmp
+    vars), shared by batch_norm and fused_bottleneck, in the JAX
+    package's creation order (the var names depend on it)."""
+    scale = helper.create_parameter(
+        param_attr, pshape, dtype,
+        default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(bias_attr, pshape, dtype, is_bias=True)
+    mean = helper.create_global_variable(
+        name=moving_mean_name, dtype="float32", shape=pshape,
+        persistable=True)
+    mean.stop_gradient = True
+    helper.set_variable_initializer(mean, ConstantInitializer(0.0))
+    variance = helper.create_global_variable(
+        name=moving_variance_name, dtype="float32", shape=pshape,
+        persistable=True)
+    variance.stop_gradient = True
+    helper.set_variable_initializer(variance, ConstantInitializer(1.0))
+    saved_mean = helper.create_tmp_variable("float32", stop_gradient=True)
+    saved_var = helper.create_tmp_variable("float32", stop_gradient=True)
+    return scale, bias, mean, variance, saved_mean, saved_var
+
+
+def batch_norm(input, act=None, is_test: bool = False, momentum: float = 0.9,
+               epsilon: float = 1e-5, param_attr=None, bias_attr=None,
+               data_layout: str = "NCHW", in_place: bool = False, name=None,
+               moving_mean_name=None, moving_variance_name=None,
+               do_model_average_for_mean_and_var=False) -> VarDesc:
+    """Batch norm; the running mean and variance are persistable vars
+    that MeanOut/VarianceOut rebind each step. A relu act folds into the
+    op (fuse_with_relu)."""
+    helper = LayerHelper("batch_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    channels = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    scale, bias, mean, variance, saved_mean, saved_var = _bn_state_vars(
+        helper, [channels], dtype, helper.param_attr, helper.bias_attr,
+        moving_mean_name, moving_variance_name)
+    out = helper.create_tmp_variable(dtype)
+    fuse_relu = act == "relu"
+    helper.append_op("batch_norm",
+                     {"X": input, "Scale": scale, "Bias": bias,
+                      "Mean": mean, "Variance": variance},
+                     {"Y": out, "MeanOut": mean, "VarianceOut": variance,
+                      "SavedMean": saved_mean, "SavedVariance": saved_var},
+                     {"momentum": momentum, "epsilon": epsilon,
+                      "is_test": is_test, "data_layout": data_layout,
+                      "fuse_with_relu": fuse_relu})
+    return out if fuse_relu else helper.append_activation(out)
+
+
+def fused_bottleneck(input, ch_out, momentum: float = 0.9,
+                     epsilon: float = 1e-5, is_test: bool = False,
+                     name=None) -> VarDesc:
+    """A stride-1 ResNet rest block (conv1x1-BN-relu, conv3x3-BN-relu,
+    conv1x1-BN, + input, relu) as one op, in train and inference graphs
+    alike (is_test switches the math), so the two share parameter
+    names."""
+    helper = LayerHelper("fused_bottleneck", name=name)
+    dtype = input.dtype
+    cin = input.shape[1]
+    if ch_out * 4 != cin:
+        raise ValueError(f"rest block: input channels {cin} != 4 * {ch_out}")
+
+    def conv_w(cout, cink, k):
+        return helper.create_parameter(
+            ParamAttr(), [cout, cink, k, k], dtype,
+            default_initializer=NormalInitializer(
+                0.0, (2.0 / (cink * k * k)) ** 0.5))
+
+    def bn_vars(c):
+        return _bn_state_vars(helper, [c], dtype, ParamAttr(), ParamAttr())
+
+    w1 = conv_w(ch_out, cin, 1)
+    w2 = conv_w(ch_out, ch_out, 3)
+    w3 = conv_w(cin, ch_out, 1)
+    bns = (bn_vars(ch_out), bn_vars(ch_out), bn_vars(cin))
+    out = helper.create_tmp_variable(dtype)
+    inputs = {"X": input, "W1": w1, "W2": w2, "W3": w3}
+    outputs = {"Out": out}
+    for k, bn in zip(("1", "2", "3"), bns):
+        scale, bias, mean, var, saved_m, saved_v = bn
+        inputs.update({"Scale" + k: scale, "Bias" + k: bias, "Mean" + k: mean,
+                       "Variance" + k: var})
+        outputs.update({"MeanOut" + k: mean, "VarOut" + k: var,
+                        "SavedMean" + k: saved_m, "SavedVar" + k: saved_v})
+    helper.append_op("fused_bottleneck", inputs, outputs,
+                     {"momentum": momentum, "epsilon": epsilon,
+                      "is_test": is_test})
+    return out
+
+
+def softmax(input, use_cudnn=True, name=None):
+    return _unary("softmax", input)
+
+
+def relu(x, name=None):
+    return _unary("relu", x)
+
+
+def topk(input, k):
+    helper = LayerHelper("top_k")
+    values = helper.create_tmp_variable(input.dtype)
+    indices = helper.create_tmp_variable("int64")
+    indices.stop_gradient = True
+    helper.append_op("top_k", {"X": input}, {"Out": values, "Indices": indices},
+                     {"k": k})
+    return values, indices

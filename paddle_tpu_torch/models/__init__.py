@@ -1,5 +1,7 @@
-"""Model definitions."""
+"""Model definitions: the Transformer LM (``transformer``) and ResNet
+(``resnet``)."""
 
+from . import resnet
 from .transformer import TransformerLM
 
-__all__ = ["TransformerLM"]
+__all__ = ["TransformerLM", "resnet"]

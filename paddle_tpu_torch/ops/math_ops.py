@@ -2,7 +2,8 @@
 
 Counterparts in ``paddle_tpu/ops/math_ops.py``: ``elementwise_add``
 (Paddle's axis broadcast), ``mul`` (flatten at ``x_num_col_dims`` /
-``y_num_col_dims``, the core of ``layers.fc``) and ``mean``.
+``y_num_col_dims``, the core of ``layers.fc``), ``mean``, and the
+metric ops ``top_k`` and ``accuracy``.
 """
 
 from __future__ import annotations
@@ -74,3 +75,35 @@ def _mean_infer(op, block):
 def mean(ctx, ins, attrs):
     """Mean of every element, as a [1] tensor (the loss head)."""
     return {"Out": [ins["X"][0].mean().reshape(1)]}
+
+
+def _topk_infer(op, block):
+    x = block.var(op.input("X")[0])
+    shape = tuple(x.shape[:-1]) + (op.attrs["k"],)
+    out = block.var(op.output("Out")[0])
+    idx = block.var(op.output("Indices")[0])
+    out.shape, out.dtype = shape, x.dtype
+    idx.shape, idx.dtype = shape, "int64"
+
+
+@register_op("top_k", infer_shape=_topk_infer)
+def top_k(ctx, ins, attrs):
+    """The k largest along the last dim, largest first; the indices in
+    int32, the device width of the int64 var (as the JAX package)."""
+    vals, idx = torch.topk(ins["X"][0], attrs["k"], dim=-1)
+    return {"Out": [vals], "Indices": [idx.to(torch.int32)]}
+
+
+@register_op("accuracy")
+def accuracy(ctx, ins, attrs):
+    """The fraction of rows whose top-k indices hold the label, with the
+    count of such rows and the row count."""
+    idx = ins["Indices"][0]
+    label = ins["Label"][0].reshape(-1, 1).to(idx.dtype)
+    correct = (idx == label).any(dim=1)
+    total = correct.shape[0]
+    num = correct.sum(dtype=torch.int32)
+    return {"Accuracy": [(num.float() / float(total)).reshape(1)],
+            "Correct": [num.reshape(1)],
+            "Total": [torch.full((1,), total, dtype=torch.int32,
+                                 device=idx.device)]}

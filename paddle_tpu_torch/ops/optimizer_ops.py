@@ -1,7 +1,8 @@
 """Optimizer update ops, registered by the JAX package's names.
 
-Counterparts of ``sgd`` and ``adam`` in
-``paddle_tpu/ops/optimizer_ops.py`` (dense gradients, float32 moments).
+Counterparts of ``sgd``, ``momentum`` and ``adam`` in
+``paddle_tpu/ops/optimizer_ops.py`` (dense gradients, float32 state; a
+row-sparse gradient is not ported and raises).
 Each returns the updated tensors and the lowering rebinds the
 persistable names, as in the JAX package; the lowering runs them under
 ``torch.no_grad()``.
@@ -22,6 +23,24 @@ def _p(ins, slot):
 def sgd(ctx, ins, attrs):
     p, g, lr = _p(ins, "Param"), _p(ins, "Grad"), _p(ins, "LearningRate")
     return {"ParamOut": [p - lr * g]}
+
+
+@register_op("momentum")
+def momentum(ctx, ins, attrs):
+    """v' = mu·v + g; p' = p − lr·v', or p − (g + mu·v')·lr with
+    use_nesterov."""
+    p, g, lr = _p(ins, "Param"), _p(ins, "Grad"), _p(ins, "LearningRate")
+    v = _p(ins, "Velocity")
+    if g.layout != torch.strided:
+        raise NotImplementedError("momentum with a row-sparse gradient is "
+                                  "not ported")
+    mu = attrs["mu"]
+    v_new = mu * v.float() + g
+    if attrs.get("use_nesterov", False):
+        p_new = p - (g + mu * v_new) * lr
+    else:
+        p_new = p - lr * v_new
+    return {"ParamOut": [p_new], "VelocityOut": [v_new.to(v.dtype)]}
 
 
 @register_op("adam")

@@ -1,12 +1,13 @@
 """Optimizers: minimize = append_backward + accumulators + update ops.
 
 Counterpart of ``paddle_tpu/optimizer.py`` (``Optimizer``,
-``SGDOptimizer``, ``AdamOptimizer``). ``minimize`` appends the backward
-boundary, the gradient clip and regularization ops, then one update op
-per parameter; accumulators are persistable vars initialized by the
-startup program, under the JAX package's names. Gradient clipping,
-weight decay, bf16 moments (``PT_OPT_STATE_DTYPE``) and the step guard
-(``PT_GUARD``) are not ported and raise.
+``SGDOptimizer``, ``MomentumOptimizer``, ``AdamOptimizer``).
+``minimize`` appends the backward boundary, the gradient clip and
+regularization ops, then one update op per parameter; accumulators are
+persistable vars initialized by the startup program, under the JAX
+package's names. Gradient clipping, weight decay, bf16 optimizer state
+(``PT_OPT_STATE_DTYPE``) and the step guard (``PT_GUARD``) are not
+ported and raise.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from .core.program import VarDesc, default_main_program, unique_name
 from .initializer import ConstantInitializer
 from .layer_helper import LayerHelper
 
-__all__ = ["Optimizer", "SGDOptimizer", "AdamOptimizer", "SGD", "Adam",
+__all__ = ["Optimizer", "SGDOptimizer", "MomentumOptimizer", "AdamOptimizer",
+           "SGD", "Momentum", "Adam",
            "append_gradient_clip_ops", "append_regularization_ops"]
 
 _OFF = ("", "0", "off", "none", "false")
@@ -151,6 +153,40 @@ class SGDOptimizer(Optimizer):
             {"ParamOut": param_and_grad[0]})
 
 
+def _require_f32_state():
+    if os.environ.get("PT_OPT_STATE_DTYPE", "").strip().lower() not in \
+            _OFF + ("float32", "f32", "fp32"):
+        raise NotImplementedError("PT_OPT_STATE_DTYPE (low-precision "
+                                  "optimizer state) is not ported; unset it")
+
+
+class MomentumOptimizer(Optimizer):
+    _velocity_acc_str = "velocity"
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False,
+                 **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.type = "momentum"
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        _require_f32_state()
+        for p in parameters:
+            self._add_accumulator(self._velocity_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        velocity = self._get_accumulator(self._velocity_acc_str,
+                                         param_and_grad[0])
+        return block.append_op(
+            "momentum",
+            {"Param": param_and_grad[0], "Grad": param_and_grad[1],
+             "Velocity": velocity,
+             "LearningRate": self._create_param_lr(param_and_grad)},
+            {"ParamOut": param_and_grad[0], "VelocityOut": velocity},
+            {"mu": self._momentum, "use_nesterov": self._use_nesterov})
+
+
 class AdamOptimizer(Optimizer):
     _moment1_acc_str = "moment1"
     _moment2_acc_str = "moment2"
@@ -162,10 +198,7 @@ class AdamOptimizer(Optimizer):
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
 
     def _create_accumulators(self, block, parameters):
-        if os.environ.get("PT_OPT_STATE_DTYPE", "").strip().lower() not in \
-                _OFF + ("float32", "f32", "fp32"):
-            raise NotImplementedError("PT_OPT_STATE_DTYPE (low-precision "
-                                      "moments) is not ported; unset it")
+        _require_f32_state()
         for p in parameters:
             self._add_accumulator(self._moment1_acc_str, p)
             self._add_accumulator(self._moment2_acc_str, p)
@@ -192,4 +225,5 @@ class AdamOptimizer(Optimizer):
 
 
 SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer

@@ -8,10 +8,13 @@ a machine with a card and without JAX they run with
 Each kernel is held against its plain PyTorch version on the card, at the
 serving and training paths' shapes and at small ragged ones; the plain
 versions are held against the JAX package by
-tests/test_torch_flash_attention.py and tests/test_torch_flash_backward.py.
-Tolerance: float32 on both sides with TF32 off, sums in another order,
-so atol = rtol = 1e-5; the backward kernels 1e-4, since each dK/dV entry
-sums up to S products in another order.
+tests/test_torch_flash_attention.py, tests/test_torch_flash_backward.py
+and tests/test_torch_fused_conv.py. Tolerance: float32 on both sides with
+TF32 off (products and convolutions), sums in another order, so atol =
+rtol = 1e-5; the backward kernels 1e-4, since each dK/dV entry sums up to
+S products in another order; the channel sums as chip_smoke.py holds
+them (the sum of squares within rtol 1e-5, the sum within 1e-5 of the
+sum of |a|).
 """
 
 import numpy as np
@@ -19,6 +22,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.kernels import flash_attention as fa
+from paddle_tpu_torch.kernels import fused_conv as fc
 
 pytestmark = pytest.mark.gpu
 
@@ -30,10 +34,13 @@ BWD_TOL = dict(atol=1e-4, rtol=1e-4)
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    prev = torch.backends.cuda.matmul.allow_tf32
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     yield torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = prev
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = prev
 
 
 def _randn(gen, *shape):
@@ -280,5 +287,132 @@ def test_training_on_the_card_matches_the_cpu(cuda):
         if n.split("_moment")[0].endswith("_k_b"):
             continue
         if not ("_moment" in n or "_pow_acc" in n):
+            got, want = got - start[n], want - start[n]
+        assert rms(got - want) <= 1e-3 * rms(want), n
+
+
+@pytest.mark.parametrize("n,c,s", [
+    (128, 64, 12544),    # the ResNet-50 stem at batch 128
+    (128, 1024, 196),    # stage 3: rows start mid-vector
+    (128, 2048, 49),     # stage 4
+    (4, 3, 49), (3, 5, 7), (1, 1, 1), (2, 7, 13),
+])
+def test_epilogue_kernels_match_plain(cuda, n, c, s):
+    gen = torch.Generator().manual_seed(n + c + s)
+    a = _randn(gen, n, c, s) + 0.5
+    d = _randn(gen, n, c, s)
+    ssum, ssq = fc.channel_stats(a)
+    rsum, rsq = fc.channel_stats_reference(a)
+    assert bool(((ssum - rsum).abs() <= 1e-5 * a.abs().sum(dim=(0, 2)))
+                .all())
+    torch.testing.assert_close(ssq, rsq, atol=0, rtol=1e-5)
+    sc, sh = _randn(gen, c).abs() + 0.5, _randn(gen, c)
+    for relu in (False, True):
+        torch.testing.assert_close(
+            fc.apply_epilogue(a, sc, sh, relu),
+            fc.apply_epilogue_reference(a, sc, sh, None, relu), **TOL)
+        torch.testing.assert_close(
+            fc.apply_epilogue_add(a, sc, sh, d, relu),
+            fc.apply_epilogue_reference(a, sc, sh, d, relu), **TOL)
+
+
+def test_epilogue_wrappers_never_fall_back(cuda, monkeypatch):
+    """With the plain versions patched to raise, FusedConvEpilogue on the
+    card runs forward and backward and counts one launch of each kernel
+    it uses."""
+    def boom(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    monkeypatch.setattr(fc, "channel_stats_reference", boom)
+    monkeypatch.setattr(fc, "apply_epilogue_reference", boom)
+    gen = torch.Generator().manual_seed(3)
+    a = _randn(gen, 4, 8, 7, 7).requires_grad_(True)
+    add = _randn(gen, 4, 8, 7, 7)
+    g, b, m, v = (_randn(gen, 8).abs() + 0.5, _randn(gen, 8),
+                  torch.zeros(8).cuda(), torch.ones(8).cuda())
+    before = (fc.channel_stats.launches, fc.apply_epilogue.launches,
+              fc.apply_epilogue_add.launches)
+    y = fc.fused_conv_epilogue(a, g, b, m, v, None, 1e-5, 0.9, True)[0]
+    y2 = fc.fused_conv_epilogue(a, g, b, m, v, add, 1e-5, 0.9, True)[0]
+    (y.sum() + y2.sum()).backward()
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(a.grad).all())
+    assert (fc.channel_stats.launches, fc.apply_epilogue.launches,
+            fc.apply_epilogue_add.launches) == (before[0] + 2,
+                                                before[1] + 1,
+                                                before[2] + 1)
+
+
+def test_epilogue_kernels_refuse_what_they_do_not_take(cuda):
+    gen = torch.Generator().manual_seed(4)
+    a = _randn(gen, 2, 3, 8)
+    sc = torch.ones(3).cuda()
+    with pytest.raises(TypeError):
+        fc.channel_stats(a.double())
+    with pytest.raises(ValueError):
+        fc.channel_stats(a.transpose(0, 1))
+    with pytest.raises(ValueError):
+        fc.apply_epilogue(a, sc[:2], sc)
+    flat = torch.zeros(2 * 3 * 8 + 1).cuda()
+    with pytest.raises(ValueError, match="aligned"):
+        fc.apply_epilogue(flat[1:].view(2, 3, 8), sc, sc)
+    with pytest.raises(ValueError):
+        fc.apply_epilogue_add(a, sc, sc, a[:1])
+
+
+def test_resnet_step_on_the_card_matches_the_cpu(cuda):
+    """A narrow bottleneck ResNet (stem, max pool, projection blocks of
+    stride 1 and 2, fused_bottleneck rest blocks, 32 px, batch 4) from
+    one startup state: two Momentum steps on the card and on the CPU
+    agree (losses within rtol 1e-4; every state element within 1e-5;
+    each update, velocity and running stat within 1e-3 as rms), and each
+    card step launched every epilogue kernel once per fused_conv2d op."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.analysis import fuse
+    from paddle_tpu_torch.models import resnet
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        x = pt.layers.data("data", [3, 32, 32])
+        label = pt.layers.data("label", [1], dtype="int64")
+        h = resnet.conv_bn_layer(x, 16, 3, 1, 1)
+        h = pt.layers.pool2d(h, pool_size=3, pool_type="max", pool_stride=2,
+                             pool_padding=1)
+        h = resnet.layer_warp(resnet.bottleneck, h, 8, 2, 1)
+        h = resnet.layer_warp(resnet.bottleneck, h, 16, 2, 2)
+        h = pt.layers.pool2d(h, pool_size=8, pool_type="avg",
+                             global_pooling=True)
+        logits = pt.layers.fc(h, size=10)
+        avg = pt.layers.mean(pt.layers.softmax_with_cross_entropy(logits,
+                                                                  label))
+        pt.optimizer.MomentumOptimizer(learning_rate=0.05,
+                                       momentum=0.9).minimize(avg)
+    fused = fuse.maybe_fuse(main, protect=[avg.name])
+    n_ops = sum(op.type == "fused_conv2d" for op in fused.global_block.ops)
+    params = {p.name for p in main.global_block.all_parameters()}
+    cpu_exe, cpu_scope = pt.Executor(pt.CPUPlace()), pt.Scope()
+    cpu_exe.run(startup, scope=cpu_scope)
+    gpu_exe, gpu_scope = pt.Executor(), pt.Scope()
+    names = sorted(cpu_scope.local_var_names())
+    start = {n: cpu_scope.get_numpy(n) for n in names}
+    for n in names:
+        gpu_scope.set_var(n, cpu_scope.find_var(n).to(gpu_exe.device))
+    rng = np.random.RandomState(0)
+    n_stats = fc.channel_stats.launches
+    for _ in range(2):
+        data = rng.rand(4, 3, 32, 32).astype(np.float32) - 0.5
+        feed = {"data": data, "label": rng.randint(0, 10, (4, 1))}
+        lc, = cpu_exe.run(main, feed=feed, fetch_list=[avg], scope=cpu_scope)
+        lg, = gpu_exe.run(main, feed=feed, fetch_list=[avg], scope=gpu_scope)
+        np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    assert fc.channel_stats.launches == n_stats + 2 * n_ops
+
+    def rms(a):
+        return float(np.sqrt(np.mean(np.square(a.astype(np.float64)))))
+
+    for n in names:
+        got, want = gpu_scope.get_numpy(n), cpu_scope.get_numpy(n)
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0, err_msg=n)
+        if n in params:
             got, want = got - start[n], want - start[n]
         assert rms(got - want) <= 1e-3 * rms(want), n
