@@ -47,7 +47,25 @@ no result line:
 8. take two Momentum steps of ResNet-50 at 64 px, 102 classes, batch 4
    from one startup state on the card and on the CPU, and hold losses,
    state and each update together;
-9. print the kernels' JSON line, the card line and the result line.
+9. train the stacked dynamic LSTM at full width (vocab 30000, embedding
+   512, hidden 512, 2 classes, batch 64, sequence 100, Adam at lr 1e-3,
+   float32, bench.py bench_lstm's varied feeds) through
+   stacked_dynamic_lstm.get_model(use_fused=True) and the Executor:
+   startup, one warm-up step and LSTM_STEPS timed steps on one repeated
+   feed (finite, falling losses), LSTM_STEPS steps on the next varied
+   feeds, one ragged step (padded ids with explicit lengths), launch
+   counts held to one forward and one backward call a step, peak memory,
+   tokens/s and device time by class for one step; then the inference
+   clone gives finite predictions;
+10. take two Adam steps of a reduced LSTM (vocab 1000, embedding 64,
+   hidden 128, batch 8, ragged sequences up to 24) from one startup
+   state on the card and on the CPU, and hold losses, state and each
+   update together;
+11. print the kernels' JSON line, the card line and the result line.
+
+Phase 3 also holds the two LSTM kernels against their plain versions at
+the bench shape (T 100, B 64, H 512), full-length and ragged, timed
+beside their bounds and torch.nn.LSTM (cuDNN) as the yardstick.
 
 cudnn.benchmark stays at its default (off); TF32 is off for products
 and convolutions.
@@ -57,6 +75,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import subprocess
 import sys
@@ -126,6 +145,13 @@ RESNET_STEPS = 6
 # (LOSS_RTOL, PARAM_ATOL, STATE_RTOL)
 RESNET_REDUCED = dict(image=64, class_dim=102, batch=4)
 PERTURB, SPREAD = 3e-7, 3.0
+# bench.py bench_lstm's TPU arm (bench.py:611-663), in float32
+LSTM = dict(dict_size=30000, emb_dim=512, lstm_size=512, batch=64,
+            seq_len=100)
+LSTM_STEPS = 6
+# card vs CPU: a reduced LSTM on ragged sequences, at the LM's limits
+LSTM_REDUCED = dict(dict_size=1000, emb_dim=64, lstm_size=128, batch=8,
+                    seq_len=24)
 
 
 def card_line() -> str:
@@ -355,6 +381,10 @@ def teacher_forced(np, engine, prompt, generated):
 
 def kernel_class(name: str) -> str:
     n = name.lower()
+    if "lstm_fwd_step_kernel" in n:
+        return "lstm_seq_fwd (port kernel)"
+    if "lstm_gemm_kernel" in n or "lstm_bwd_" in n:
+        return "lstm_seq_bwd (port kernel)"
     if "stats_partial_kernel" in n or "stats_final_kernel" in n:
         return "fused_conv_channel_stats (port kernel)"
     if "apply_kernel<true" in n:
@@ -379,9 +409,13 @@ def kernel_class(name: str) -> str:
     return "other PyTorch kernels"
 
 
-def profiled(torch, fn, n: int):
-    """(wall ms per call, {kernel name: device ms per call}) over n calls
-    under torch.profiler; each call ends in a host sync of its own."""
+def profiled(torch, fn, n: int, labels=()):
+    """(wall ms per call, {kernel name: device ms per call}, {label:
+    device ms per call}) over n calls under torch.profiler; each call
+    ends in a host sync of its own. A label is the name of a
+    torch.profiler.record_function range: its device time is that of the
+    kernels launched inside it (the range's own device-side marker is
+    not a kernel and is left out)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -394,15 +428,22 @@ def profiled(torch, fn, n: int):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_name = {}
+    by_name, by_label = {}, {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.name in labels:
+            if e.device_type == DeviceType.CPU:
+                by_label[e.name] = (by_label.get(e.name, 0.0)
+                                    + e.device_time_total / 1e3 / n)
+        elif e.device_type == DeviceType.CUDA:
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3 / n)
-    return 1e3 * wall / n, by_name
+    return 1e3 * wall / n, by_name, by_label
 
 
-def print_profile(what: str, wall_ms: float, by_name: dict, card: str):
+def print_profile(what: str, wall_ms: float, by_name: dict, card: str,
+                  carved=None):
+    """carved: {class: device ms} taken out of "other PyTorch kernels"
+    (kernels that a label, not a name, attributes)."""
     if not by_name:
         print(f"profile {what}: wall {wall_ms:.3f} ms per call; the "
               f"profiler saw no device time [{card}]")
@@ -413,6 +454,10 @@ def print_profile(what: str, wall_ms: float, by_name: dict, card: str):
     classes = {}
     for name, ms in by_name.items():
         classes[kernel_class(name)] = classes.get(kernel_class(name), 0) + ms
+    for cls, ms in (carved or {}).items():
+        classes[cls] = ms
+        classes["other PyTorch kernels"] = classes.get(
+            "other PyTorch kernels", 0.0) - ms
     for cls, ms in sorted(classes.items(), key=lambda kv: -kv[1]):
         print(f"  {cls}: {ms:.3f} ms ({ms / wall_ms:.3f} of wall)")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
@@ -428,7 +473,7 @@ def profile_main_path(np, torch, engine, card, seed: int, steps: int = 10):
     rng = np.random.default_rng(seed + 2)
     for bound in BUCKETS:
         toks = rng.integers(1, MODEL["vocab_size"], bound).tolist()
-        wall, by_name = profiled(torch, lambda: model.prefill(toks), 3)
+        wall, by_name, _ = profiled(torch, lambda: model.prefill(toks), 3)
         print_profile(f"prefill bucket {bound}", wall, by_name, card)
     lens = rng.integers(64, MODEL["max_context"] - steps - 2,
                         model.slots).astype(np.int32)
@@ -449,7 +494,7 @@ def profile_main_path(np, torch, engine, card, seed: int, steps: int = 10):
                 rng.integers(1, MODEL["vocab_size"], model.slots),
                 state["lens"], tables)
 
-        wall, by_name = profiled(torch, step, steps)
+        wall, by_name, _ = profiled(torch, step, steps)
     finally:
         for blk in blocks:
             pool.free(blk)
@@ -604,7 +649,7 @@ def train_path(np, torch, fa, card, seed: int):
         raise RuntimeError(f"training losses are not finite and falling: "
                            f"{losses}")
     feed = lm_probe_feeds(np, 1 + TRAIN_STEPS, b, s, MODEL["vocab_size"])
-    wall, by_name = profiled(torch, lambda: exe.run(
+    wall, by_name, _ = profiled(torch, lambda: exe.run(
         main_prog, feed=feed, fetch_list=[avg], scope=scope), 1)
     print_profile(f"training step (batch {b}, sequence {s})", wall, by_name,
                   card)
@@ -655,6 +700,29 @@ def rms(np, a):
     return float(np.sqrt(np.mean(np.square(a.astype(np.float64)))))
 
 
+def hold_updates(np, names, start, got_scope, want_scope,
+                 skip=lambda n: False):
+    """(largest elementwise state diff, largest relative rms diff of an
+    update or accumulator) of the card's scope against the CPU's; raises
+    where an update or accumulator is further than STATE_RTOL (rms) from
+    the CPU's. Vars that `skip` names count in the first only."""
+    worst, worst_rel = 0.0, 0.0
+    for n in names:
+        got, want = got_scope.get_numpy(n), want_scope.get_numpy(n)
+        worst = max(worst, float(np.abs(got - want).max()))
+        if not ("_moment" in n or "_pow_acc" in n):
+            got, want = got - start[n], want - start[n]
+        if skip(n):
+            continue
+        if rms(np, want) > 0:
+            worst_rel = max(worst_rel, rms(np, got - want) / rms(np, want))
+        if not rms(np, got - want) <= STATE_RTOL * rms(np, want):
+            raise RuntimeError(f"{n}: card vs CPU rms diff "
+                               f"{rms(np, got - want):.3e}, rms "
+                               f"{rms(np, want):.3e}")
+    return worst, worst_rel
+
+
 def card_vs_cpu(np, torch, card, seed: int):
     """One reduced program from one startup state: two Adam steps on the
     card and on the CPU agree."""
@@ -679,22 +747,10 @@ def card_vs_cpu(np, torch, card, seed: int):
         loss_diff.append(abs(float(lg[0]) - float(lc[0])))
         if not loss_diff[-1] <= LOSS_RTOL * abs(float(lc[0])):
             raise RuntimeError(f"step {i}: card loss {lg[0]} vs CPU {lc[0]}")
-
-    worst, worst_rel = 0.0, 0.0
-    for n in names:
-        got, want = gpu_scope.get_numpy(n), cpu_scope.get_numpy(n)
-        worst = max(worst, float(np.abs(got - want).max()))
-        is_acc = "_moment" in n or "_pow_acc" in n
-        if not is_acc:
-            got, want = got - start[n], want - start[n]
-        if n.split("_moment")[0].endswith("_k_b"):
-            continue
-        if rms(np, want) > 0:
-            worst_rel = max(worst_rel, rms(np, got - want) / rms(np, want))
-        if not rms(np, got - want) <= STATE_RTOL * rms(np, want):
-            raise RuntimeError(f"{n}: card vs CPU rms diff "
-                               f"{rms(np, got - want):.3e}, rms "
-                               f"{rms(np, want):.3e}")
+    # the key biases: zero gradient in exact arithmetic (see LOSS_RTOL)
+    worst, worst_rel = hold_updates(
+        np, names, start, gpu_scope, cpu_scope,
+        skip=lambda n: n.split("_moment")[0].endswith("_k_b"))
     print(f"card vs CPU, reduced program, 2 Adam steps: loss diffs "
           f"{loss_diff} (tol rtol {LOSS_RTOL}), largest state diff "
           f"{worst:.3e} (tol atol {PARAM_ATOL}), largest relative rms diff "
@@ -904,7 +960,7 @@ def resnet_path(np, torch, fc, card, built):
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise RuntimeError(f"ResNet losses are not finite and falling: "
                            f"{losses}")
-    wall, by_name = profiled(torch, lambda: exe.run(
+    wall, by_name, _ = profiled(torch, lambda: exe.run(
         main_prog, feed=feed, fetch_list=[avg], scope=scope), 1)
     print_profile(f"ResNet-50 training step (batch {b}, {img} px)", wall,
                   by_name, card)
@@ -1024,6 +1080,309 @@ def resnet_card_vs_cpu(np, torch, card, seed: int):
                            f"chaos of a {PERTURB} input change: {bad}")
 
 
+def lstm_case(torch, t, b, h, lens, seed):
+    """Inputs of the LSTM kernels on the card: x ~ N(0, 1) (a pre-projected
+    input), W ~ U(+-sqrt(6 / (H + 4H))) (the model's Xavier init), small
+    biases, initial states that are not zero, the mask of `lens` (None:
+    full length), cotangents ~ N(0, 1)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    lim = (6.0 / (5 * h)) ** 0.5
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    w = (torch.rand(h, 4 * h, device="cuda", generator=gen) * 2 - 1) * lim
+    if lens is None:
+        mask = torch.ones(t, b, device="cuda")
+    else:
+        steps = torch.arange(t, device="cuda")[:, None]
+        mask = (steps < torch.as_tensor(lens, device="cuda")[None, :]).float()
+    return dict(x=randn(t, b, 4 * h), w=w, b=0.1 * randn(4 * h), mask=mask,
+                r0=0.5 * randn(b, h), c0=randn(b, h), drs=randn(t, b, h),
+                dcs=randn(t, b, h))
+
+
+def check_lstm(np, torch, fl, card, seed: int):
+    """The two LSTM kernels vs their plain versions at the bench shape,
+    full length and ragged (lengths drawn in [1, T]); each timed beside
+    its plain version, its bound and torch.nn.LSTM (cuDNN: the forward,
+    and the backward less the forward; it also computes the input
+    projection, so it is an upper yardstick). The kernels line reports
+    the full-length shape."""
+    t, b, h = LSTM["seq_len"], LSTM["batch"], LSTM["lstm_size"]
+    rng = np.random.default_rng(seed + 11)
+    ragged = rng.integers(1, t + 1, b)
+    ragged[:2] = (1, t)
+    rows, errs = {}, {"lstm_seq_fwd": [], "lstm_seq_bwd": []}
+    for what, lens in (("full length", None), ("ragged", ragged.tolist())):
+        d = lstm_case(torch, t, b, h, lens, seed + 12)
+        fwd_args = [d[k] for k in ("x", "w", "b", "mask", "r0", "c0")]
+        rs, cs = fl.lstm_seq_fwd(*fwd_args)
+        rrs, rcs = fl.lstm_seq_fwd_reference(*fwd_args)
+        torch.cuda.synchronize()
+        errs["lstm_seq_fwd"].append(max(max_err(torch, rs, rrs),
+                                        max_err(torch, cs, rcs)))
+        r_prevs = torch.cat([d["r0"][None], rrs[:-1]])
+        c_prevs = torch.cat([d["c0"][None], rcs[:-1]])
+        bwd_args = fwd_args[:4] + [r_prevs, c_prevs, d["drs"], d["dcs"]]
+        got = fl.lstm_seq_bwd(*bwd_args)
+        want = fl.lstm_seq_bwd_reference(*bwd_args)
+        torch.cuda.synchronize()
+        errs["lstm_seq_bwd"].append(max(
+            max_err(torch, g, w_, BWD_ATOL, BWD_RTOL)
+            for g, w_ in zip(got, want)))
+        # the products this run's data needs: the rows a sequence reaches
+        live = t * b if lens is None else int(sum(lens))
+        prod = 2 * live * h * 4 * h
+        # fwd: x, w, b, mask, r0, c0 in; rs, cs out. bwd: x, w, b, mask,
+        # r_prevs, c_prevs, drs, dcs in; dx, dw, db, dr0, dc0 out
+        f_bytes = 4 * (t * b * 4 * h + h * 4 * h + 4 * h + t * b + 2 * b * h
+                       + 2 * t * b * h)
+        b_bytes = 4 * (2 * t * b * 4 * h + 2 * h * 4 * h + 2 * 4 * h + t * b
+                       + 4 * t * b * h + 2 * b * h)
+        bounds = {"lstm_seq_fwd": bound_ms(f_bytes, prod),
+                  "lstm_seq_bwd": bound_ms(b_bytes, 3 * prod)}
+        calls = {"lstm_seq_fwd": (lambda: fl.lstm_seq_fwd(*fwd_args),
+                                  lambda: fl.lstm_seq_fwd_reference(
+                                      *fwd_args)),
+                 "lstm_seq_bwd": (lambda: fl.lstm_seq_bwd(*bwd_args),
+                                  lambda: fl.lstm_seq_bwd_reference(
+                                      *bwd_args))}
+        ms = {k: cuda_ms(torch, f, 10) for k, (f, _) in calls.items()}
+        plain = {k: cuda_ms(torch, r, 3) for k, (_, r) in calls.items()}
+        lstm = torch.nn.LSTM(h, h).cuda()
+        inp = d["x"][:, :, :h].contiguous().requires_grad_(True)
+        h0 = (d["r0"][None].contiguous(), d["c0"][None].contiguous())
+        gout = d["drs"]
+        lib_fwd = cuda_ms(torch, lambda: lstm(inp, h0), 10)
+        lib_both = cuda_ms(torch, lambda: torch.autograd.grad(
+            lstm(inp, h0)[0], [inp] + list(lstm.parameters()), gout), 10)
+        lib = {"lstm_seq_fwd": lib_fwd, "lstm_seq_bwd": lib_both - lib_fwd}
+        del lstm, inp
+        print(f"lstm kernels T={t} B={b} H={h} {what} ({live} live rows): "
+              f"fwd {ms['lstm_seq_fwd']:.4f} ms (plain "
+              f"{plain['lstm_seq_fwd']:.4f}, nn.LSTM fwd "
+              f"{lib['lstm_seq_fwd']:.4f}, bound "
+              f"{bounds['lstm_seq_fwd'][0]:.4f} "
+              f"{bounds['lstm_seq_fwd'][1]}; {t} launches), bwd "
+              f"{ms['lstm_seq_bwd']:.4f} ms (plain "
+              f"{plain['lstm_seq_bwd']:.4f}, nn.LSTM bwd "
+              f"{lib['lstm_seq_bwd']:.4f} [fwd+bwd {lib_both:.4f}], bound "
+              f"{bounds['lstm_seq_bwd'][0]:.4f} "
+              f"{bounds['lstm_seq_bwd'][1]}; {2 * t + 4} launches); "
+              f"max_abs_err fwd {errs['lstm_seq_fwd'][-1]:.3e} (tol atol "
+              f"{KERNEL_ATOL} rtol {KERNEL_RTOL}), bwd "
+              f"{errs['lstm_seq_bwd'][-1]:.3e} (tol atol {BWD_ATOL} rtol "
+              f"{BWD_RTOL}) [{card}]")
+        if lens is None:
+            for k in calls:
+                rows[k] = dict(ms=ms[k], plain_ms=plain[k],
+                               bound_ms=bounds[k][0], bound_by=bounds[k][1],
+                               library_ms=lib[k])
+    for k in rows:
+        rows[k]["max_abs_err"] = max(errs[k])
+    return rows
+
+
+def lstm_varied(np, i, batch, seqlen, vocab):
+    """bench.py bench_lstm varied(i): random ids, the label the parity of
+    the last word, drawn from a 16-token pool."""
+    vrng = np.random.RandomState(5000 + i)
+    words = vrng.randint(0, vocab, (batch, seqlen)).astype("int64")
+    words[:, -1] = vrng.randint(0, 16, batch)
+    label = (words[:, -1:] % 2).astype("int64")
+    return {"words": words, "label": label}
+
+
+def build_lstm(pt, cfg, seed):
+    from paddle_tpu_torch.models import stacked_dynamic_lstm as sdl
+
+    main_prog, startup = pt.Program(), pt.Program()
+    main_prog.random_seed = startup.random_seed = seed
+    with pt.program_guard(main_prog, startup):
+        loss, acc, logit, _ = sdl.get_model(
+            dict_size=cfg["dict_size"], lstm_size=cfg["lstm_size"],
+            emb_dim=cfg["emb_dim"], use_fused=True)
+    return main_prog, startup, loss, logit
+
+
+LSTM_KERNELS = ("lstm_seq_fwd", "lstm_seq_bwd")
+
+
+def lstm_path(np, torch, fl, card, seed: int):
+    """Full-width stacked-LSTM training through the Executor; returns the
+    LSTM kernels' launch counts of the run (training steps and the
+    inference clone)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core import registry
+
+    b, t = LSTM["batch"], LSTM["seq_len"]
+    main_prog, startup, loss, logit = build_lstm(pt, LSTM, seed)
+    n_params = sum(int(np.prod(v.shape)) for v in
+                   main_prog.global_block.all_parameters())
+    exe, scope = pt.Executor(), pt.Scope()
+    feed0 = lstm_varied(np, 0, b, t, LSTM["dict_size"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for name in LSTM_KERNELS:
+        getattr(fl, name).launches = 0
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    state0 = {n: scope.find_var(n).clone() for n in scope.local_var_names()}
+
+    def step(feed, sc=scope):
+        return float(exe.run(main_prog, feed=feed, fetch_list=[loss],
+                             scope=sc)[0][0])
+
+    losses, step_s = [], []
+    for _ in range(1 + LSTM_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step(feed0))
+        step_s.append(time.perf_counter() - t0)
+    varied = [step(lstm_varied(np, i, b, t, LSTM["dict_size"]))
+              for i in range(1, 1 + LSTM_STEPS)]
+    rng = np.random.default_rng(seed + 13)
+    lens = rng.integers(1, t + 1, b).astype(np.int32)
+    lens[:2] = (1, t)
+    ragged = dict(lstm_varied(np, 1 + LSTM_STEPS, b, t, LSTM["dict_size"]),
+                  **{"words@SEQ_LEN": lens})
+    ragged_loss = step(ragged)
+    n_steps = 2 + 2 * LSTM_STEPS
+    launches = {name: getattr(fl, name).launches for name in LSTM_KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms = 1e3 * sum(step_s[1:]) / LSTM_STEPS
+    print(f"lstm path: stacked dynamic LSTM, {n_params} parameters, batch "
+          f"{b}, sequence {t}, startup {t_init:.2f} s, losses on one feed "
+          f"{losses}, warm-up step {1e3 * step_s[0]:.1f} ms, {LSTM_STEPS} "
+          f"timed steps {[round(1e3 * x, 2) for x in step_s[1:]]} ms: "
+          f"{ms:.3f} ms per step, {b * t / ms * 1e3:.1f} tokens/s, peak "
+          f"memory {peak_gb:.2f} GB; losses on varied feeds 1-{LSTM_STEPS} "
+          f"{varied}; ragged step (lengths {int(lens.min())}..."
+          f"{int(lens.max())}, {int(lens.sum())} tokens) loss {ragged_loss} "
+          f"[{card}]")
+    print(f"lstm path launches over {n_steps} steps: {launches}")
+    for name, n in launches.items():
+        if n != n_steps:
+            raise RuntimeError(f"{name} was launched {n} times on the LSTM "
+                               f"path, expected {n_steps} (one a step)")
+    every = losses + varied + [ragged_loss]
+    # Adam at lr 1e-3 on one repeated batch fits it within a few steps and
+    # can overshoot after that (see the plain replay below): the losses
+    # must fall from the first, not every step
+    if not all(np.isfinite(every)) or not min(losses[1:]) < losses[0]:
+        raise RuntimeError(f"LSTM losses are not finite and falling on one "
+                           f"feed: {every}")
+    # the same steps from the same state through the plain path (the scan
+    # in PyTorch ops, PT_FUSED_LSTM=never) on the card: the first loss is
+    # one forward from one state
+    replay = pt.Scope()
+    for n, v in state0.items():
+        replay.set_var(n, v)
+    os.environ["PT_FUSED_LSTM"] = "never"
+    try:
+        plain = [step(feed0, replay) for _ in range(1 + LSTM_STEPS)]
+    finally:
+        del os.environ["PT_FUSED_LSTM"]
+    del replay, state0
+    print(f"lstm path, the same steps through the plain path (scan in "
+          f"PyTorch ops): losses {plain}; largest relative loss diff "
+          f"{max(abs(a - b) / abs(b) for a, b in zip(losses, plain)):.3e}, "
+          f"first step {abs(losses[0] - plain[0]) / abs(plain[0]):.3e} (tol "
+          f"rtol {LOSS_RTOL}) [{card}]")
+    if not abs(losses[0] - plain[0]) <= LOSS_RTOL * abs(plain[0]):
+        raise RuntimeError("the kernel path and the plain path disagree on "
+                           "the first LSTM step")
+    # Adam's kernels carry no name of their own: a record_function range
+    # around each adam op attributes them
+    adam = registry.get_op("adam")
+    compute = adam.compute
+
+    def labelled(ctx, ins, attrs):
+        with torch.profiler.record_function("adam op"):
+            return compute(ctx, ins, attrs)
+
+    adam.compute = labelled
+    try:
+        wall, by_name, by_label = profiled(torch, lambda: step(feed0), 1,
+                                           labels=("adam op",))
+    finally:
+        adam.compute = compute
+    adam_ms = by_label.get("adam op", 0.0)
+    print_profile(f"LSTM training step (batch {b}, sequence {t})", wall,
+                  by_name, card,
+                  carved={"Adam (9 adam ops)": adam_ms} if adam_ms else None)
+    if not adam_ms:
+        print("  Adam (9 adam ops): not measured (the profiler attributed "
+              "no device time to the adam op ranges)")
+    name = logit.name
+    test = main_prog.clone(for_test=True).prune([name])
+    before = fl.lstm_seq_fwd.launches
+    pred, = exe.run(test, feed={"words": feed0["words"]}, fetch_list=[name],
+                    scope=scope, return_numpy=False)
+    rows_ok = bool(((pred.sum(dim=1) - 1).abs() <= 1e-5).all())
+    acc = float((pred.argmax(1).cpu().numpy()
+                 == feed0["label"][:, 0]).mean())
+    print(f"lstm inference clone: predictions {tuple(pred.shape)}, finite "
+          f"{bool(torch.isfinite(pred).all())}, rows sum to 1 within 1e-5: "
+          f"{rows_ok}, accuracy on the training feed {acc:.3f} "
+          f"(information), forward launches {fl.lstm_seq_fwd.launches - before}"
+          f" [{card}]")
+    if not (bool(torch.isfinite(pred).all()) and rows_ok
+            and tuple(pred.shape) == (b, 2)
+            and fl.lstm_seq_fwd.launches == before + 1):
+        raise RuntimeError("the LSTM inference clone did not give finite "
+                           "probabilities through the forward kernel")
+    launches["lstm_seq_fwd"] += 1
+    return launches
+
+
+def lstm_ragged_feed(np, i, cfg):
+    rng = np.random.RandomState(9000 + i)
+    lens = rng.randint(1, cfg["seq_len"] + 1, cfg["batch"])
+    lens[0], lens[1] = 1, cfg["seq_len"]
+    words = [rng.randint(0, cfg["dict_size"], (n, 1)).astype("int64")
+             for n in lens]
+    return {"words": words,
+            "label": rng.randint(0, 2, (cfg["batch"], 1)).astype("int64")}
+
+
+def lstm_card_vs_cpu(np, torch, card, seed: int):
+    """The reduced LSTM from one startup state: two Adam steps on ragged
+    list feeds on the card (the kernels) and on the CPU (their plain
+    versions) agree at the LM's limits."""
+    import paddle_tpu_torch as pt
+
+    main_prog, startup, loss, _ = build_lstm(pt, LSTM_REDUCED, seed)
+    cpu, gpu = pt.Executor(pt.CPUPlace()), pt.Executor()
+    cpu_scope, gpu_scope = pt.Scope(), pt.Scope()
+    cpu.run(startup, scope=cpu_scope)
+    names = sorted(cpu_scope.local_var_names())
+    start = {n: cpu_scope.get_numpy(n) for n in names}
+    for name in names:
+        gpu_scope.set_var(name, cpu_scope.find_var(name).to(gpu.device))
+    losses = []
+    for i in range(2):
+        feed = lstm_ragged_feed(np, i, LSTM_REDUCED)
+        lc, = cpu.run(main_prog, feed=feed, fetch_list=[loss],
+                      scope=cpu_scope)
+        lg, = gpu.run(main_prog, feed=feed, fetch_list=[loss],
+                      scope=gpu_scope)
+        losses.append((float(lg[0]), float(lc[0])))
+        if not abs(float(lg[0]) - float(lc[0])) <= LOSS_RTOL * abs(
+                float(lc[0])):
+            raise RuntimeError(f"step {i}: card loss {lg[0]} vs CPU {lc[0]}")
+    worst, worst_rel = hold_updates(np, names, start, gpu_scope, cpu_scope)
+    print(f"card vs CPU, reduced LSTM {LSTM_REDUCED}, 2 Adam steps on ragged "
+          f"feeds: losses (card, CPU) {losses} (tol rtol {LOSS_RTOL}), "
+          f"largest state diff {worst:.3e} (tol atol {PARAM_ATOL}), largest "
+          f"relative rms diff of an update or accumulator {worst_rel:.3e} "
+          f"(tol {STATE_RTOL}) [{card}]")
+    if not worst <= PARAM_ATOL:
+        raise RuntimeError("LSTM card and CPU states disagree")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1055,6 +1414,7 @@ def main() -> int:
 
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.kernels import fused_conv as fc
+    from paddle_tpu_torch.kernels import fused_lstm as fl
 
     built = build_resnet50(pt, args.seed)
     dq_row, dkv_row = check_flash_bwd(torch, F, fa, card)
@@ -1064,6 +1424,7 @@ def main() -> int:
             "flash_attention_bwd_dkv": dkv_row}
     rows.update(check_epilogue(torch, F, fc, card,
                                epilogue_ops(built["fused"], RESNET["batch"])))
+    rows.update(check_lstm(np, torch, fl, card, args.seed))
     launches = main_path(np, torch, fa, card, args.seed)
     trained = train_path(np, torch, fa, card, args.seed)
     # the forward kernel runs on both main paths
@@ -1073,6 +1434,8 @@ def main() -> int:
     card_vs_cpu(np, torch, card, args.seed)
     launches.update(resnet_path(np, torch, fc, card, built))
     resnet_card_vs_cpu(np, torch, card, args.seed)
+    launches.update(lstm_path(np, torch, fl, card, args.seed))
+    lstm_card_vs_cpu(np, torch, card, args.seed)
 
     meta = {"flash_attention_fwd": (
                 "paddle_tpu_torch/csrc/flash_attention.cu",
@@ -1091,7 +1454,11 @@ def main() -> int:
             "apply_epilogue": ("paddle_tpu_torch/csrc/fused_conv.cu",
                                "paddle_tpu/kernels/fused_conv.py:137"),
             "apply_epilogue_add": ("paddle_tpu_torch/csrc/fused_conv.cu",
-                                   "paddle_tpu/kernels/fused_conv.py:147")}
+                                   "paddle_tpu/kernels/fused_conv.py:147"),
+            "lstm_seq_fwd": ("paddle_tpu_torch/csrc/fused_lstm.cu",
+                             "paddle_tpu/kernels/fused_lstm.py:78"),
+            "lstm_seq_bwd": ("paddle_tpu_torch/csrc/fused_lstm.cu",
+                             "paddle_tpu/kernels/fused_lstm.py:207")}
     kernels = [dict(name=name, route="cuda", source=meta[name][0],
                     replaces=meta[name][1], launches=launches[name], **row)
                for name, row in rows.items()]

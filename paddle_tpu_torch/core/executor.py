@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..analysis import fuse as conv_fuse
+from ..lod import LoDTensor, pad_sequences
 from .lowering import build_step_fn
 from .program import Program, VarDesc, default_main_program
 from .scope import Scope, global_scope
@@ -59,22 +60,56 @@ class Executor:
     def _fetch_name(f) -> str:
         return f.name if isinstance(f, VarDesc) else str(f)
 
-    def _prep_feed(self, program: Program, feed: Dict[str, object]
-                   ) -> Dict[str, torch.Tensor]:
+    def _prep_feed(self, program: Program, feed: Dict[str, object],
+                   per_step: bool = False) -> Dict[str, torch.Tensor]:
         """Each feed as a tensor on the device in its var's (narrowed)
-        dtype. Ragged list feeds are not ported."""
+        dtype. A sequence var's feed may be a LoDTensor or a list of
+        sequences: it is padded (lod.pad_sequences) and its @SEQ_LEN
+        companion gets the lengths. A padded feed without its companion
+        gets full lengths: [B] = T, or [N, B] = T with per_step (arrays
+        with a leading [n_steps] axis, run_loop's per_step_feeds, which
+        takes no ragged feed). An explicit companion feed is used as
+        given."""
+        block = program.global_block
         out = {}
-        for name, val in feed.items():
-            if isinstance(val, (list, tuple)):
-                raise NotImplementedError(
-                    f"feed {name!r}: ragged list feeds are not ported; feed "
-                    "a padded array")
-            block = program.global_block
+
+        def put(name, val):
             t = val if isinstance(val, torch.Tensor) else torch.from_numpy(
                 np.ascontiguousarray(val))
             want = (torch_dtype(block.var(name).dtype) if block.has_var(name)
                     else torch_dtype(str(t.dtype).rsplit(".", 1)[-1]))
             out[name] = t.to(device=self.device, dtype=want)
+
+        for name, val in feed.items():
+            var = block.var(name) if block.has_var(name) else None
+            seq_len_name = getattr(var, "seq_len_var", None)
+            if isinstance(val, (LoDTensor, list, tuple)) and per_step:
+                raise ValueError(
+                    f"per-step feed {name!r}: ragged LoDTensor/list feeds "
+                    "are not supported with per_step_feeds=True; pass a "
+                    "padded [n_steps, B, T, ...] array (+ explicit "
+                    f"{seq_len_name!r} lengths if sequences are not full)")
+            if isinstance(val, LoDTensor):
+                if val.lod_level > 1:
+                    raise NotImplementedError(
+                        f"feed {name!r}: nested (level-{val.lod_level}) "
+                        "LoDTensor feeds are not supported by the executor "
+                        "— call to_padded() yourself and feed the dense "
+                        "array plus per-level length arrays explicitly")
+                val, lens = val.to_padded()
+                if seq_len_name:
+                    put(seq_len_name, lens)
+            elif seq_len_name and isinstance(val, (list, tuple)):
+                dt = np.dtype(str(torch_dtype(var.dtype)).rsplit(".", 1)[-1])
+                val, lens = pad_sequences(val, dtype=dt)
+                put(seq_len_name, lens)
+            elif seq_len_name and seq_len_name not in feed:
+                # full-length sequences: [B, T, ...] -> lens [B] = T; with
+                # a leading step axis, [N, B, T, ...] -> lens [N, B] = T
+                shape = tuple(val.shape)
+                lead = shape[:2] if per_step else shape[:1]
+                put(seq_len_name, np.full(lead, shape[len(lead)], np.int32))
+            put(name, val)
         return out
 
     def _state_for(self, program: Program, scope: Scope
@@ -103,7 +138,8 @@ class Executor:
         return torch.Generator(device=self.device).manual_seed(
             (int(seed) << 32) + self._run_counter)
 
-    def _prepare(self, program, feed, fetch_list, scope, lazy, guard):
+    def _prepare(self, program, feed, fetch_list, scope, lazy, guard,
+                 per_step=False):
         if lazy:
             raise NotImplementedError("Executor.run(lazy=True): lazy fetch "
                                       "handles are not ported")
@@ -113,7 +149,7 @@ class Executor:
         program = program if program is not None else default_main_program()
         scope = scope if scope is not None else global_scope()
         fetch_names = [self._fetch_name(f) for f in (fetch_list or [])]
-        feed_t = self._prep_feed(program, feed or {})
+        feed_t = self._prep_feed(program, feed or {}, per_step)
         # conv-epilogue fusion pre-pass (analysis/fuse.py): conv2d →
         # batch_norm (→ add) (→ relu) chains become fused_conv2d on a
         # clone, memoized per (fingerprint, fetch set); PT_FUSE=0 runs
@@ -155,7 +191,7 @@ class Executor:
         [n_steps] axis) at step i. Returns each fetch stacked to
         [n_steps, ...]."""
         program, scope, feed_t, state, step = self._prepare(
-            program, feed, fetch_list, scope, lazy, guard)
+            program, feed, fetch_list, scope, lazy, guard, per_step_feeds)
         gen = self._generator(program)
         per_step = []
         for i in range(n_steps):

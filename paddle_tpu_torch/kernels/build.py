@@ -7,11 +7,18 @@ in ``paddle_tpu_torch/_build/`` under a name that carries a hash of the
 sources and flags, so an edited kernel is rebuilt and a stale library is
 never loaded. ``build()`` compiles several sources at once, one ``nvcc``
 process each; ``library()`` builds one on demand.
+
+The kernel wrappers share the rest: ``bind`` gives a typed entry point
+of a library, ``on_card`` decides between the plain version (a CPU
+tensor) and the kernel (a CUDA tensor), ``check`` refuses what a kernel
+does not take, ``launch`` raises on a launch error, ``sm_count`` sizes
+grids.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -22,12 +29,15 @@ import time
 from pathlib import Path
 from typing import Dict, Sequence
 
-__all__ = ["CSRC", "BUILD_DIR", "SOURCES", "nvcc_path", "build", "library"]
+import torch
+
+__all__ = ["CSRC", "BUILD_DIR", "SOURCES", "nvcc_path", "build", "library",
+           "bind", "sm_count", "on_card", "check", "launch"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu",
-           "paged_attention.cu", "fused_conv.cu")
+           "paged_attention.cu", "fused_conv.cu", "fused_lstm.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -95,3 +105,50 @@ def library(source: str) -> ctypes.CDLL:
                 build([source])
             lib = _loaded[source] = ctypes.CDLL(str(target))
         return lib
+
+
+@functools.cache
+def bind(source: str, symbol: str, argtypes: tuple):
+    """Entry point `symbol` of the library of `source`, with its argument
+    types and an int (cudaError_t) result."""
+    fn = getattr(library(source), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def on_card(name: str, t: torch.Tensor) -> bool:
+    """False for a CPU tensor (the plain version runs), True for a CUDA
+    one; any other device raises."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {t.device}")
+    return True
+
+
+def check(name: str, t: torch.Tensor, device: torch.device, shape) -> None:
+    """Raise unless t is a contiguous float32 tensor of `shape` on
+    `device`."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} is {t.dtype}; the kernel takes float32")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def launch(name: str, fn, *args) -> None:
+    """Call an entry point; raise if it reports a CUDA error."""
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{err}")

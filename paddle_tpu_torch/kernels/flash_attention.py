@@ -35,7 +35,6 @@ scatter, not Pallas: here it writes the pools IN PLACE.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 from typing import Optional, Tuple
 
@@ -220,38 +219,7 @@ def paged_kv_update(k_pool, v_pool, k_new, v_new, block_tables,
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-
-
-@functools.cache
-def _flash_fn():
-    fn = build.library("flash_attention.cu").flash_attention_fwd_f32
-    fn.argtypes = [_P] * 5 + [_I] * 5 + [ctypes.c_float, _I, _P]
-    fn.restype = _I
-    return fn
-
-
-@functools.cache
-def _bwd_dq_fn():
-    fn = build.library("flash_attention_bwd.cu").flash_attention_bwd_dq_f32
-    fn.argtypes = [_P] * 7 + [_I] * 5 + [ctypes.c_float, _I, _P]
-    fn.restype = _I
-    return fn
-
-
-@functools.cache
-def _bwd_dkv_fn():
-    fn = build.library("flash_attention_bwd.cu").flash_attention_bwd_dkv_f32
-    fn.argtypes = [_P] * 8 + [_I] * 5 + [ctypes.c_float, _I, _P]
-    fn.restype = _I
-    return fn
-
-
-@functools.cache
-def _paged_fn():
-    fn = build.library("paged_attention.cu").paged_decode_attention_f32
-    fn.argtypes = [_P] * 6 + [_I] * 6 + [ctypes.c_float, _P]
-    fn.restype = _I
-    return fn
+_F = ctypes.c_float
 
 
 def _require(ok: bool, what: str) -> None:
@@ -272,13 +240,6 @@ def _check_cuda(name: str, t: torch.Tensor, device: torch.device,
         _require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
 
 
-def _launch(name: str, fn, *args) -> None:
-    err = fn(*args)
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
-                           f"{err}")
-
-
 def flash_attention_fwd(q, k, v, *, causal: bool = False,
                         scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -290,11 +251,9 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False,
     with sq <= sk (the JAX dispatch routes causal sq > sk to the reference,
     whose semantics the kernel's zero-sum guard does not share)."""
     scale = _default_scale(q, scale)
-    if q.device.type == "cpu":
+    if not build.on_card("flash_attention_fwd", q):
         return flash_attention_fwd_reference(q, k, v, causal=causal,
                                              scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_fwd: no kernel for {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_cuda(name, t, q.device, torch.float32, 4)
     b, sq, h, d = q.shape
@@ -311,9 +270,11 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False,
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        _launch("flash_attention_fwd", _flash_fn(), q.data_ptr(),
-                k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), b,
-                h, sq, sk, d, scale, int(bool(causal)), stream)
+        fn = build.bind("flash_attention.cu", "flash_attention_fwd_f32",
+                        (_P,) * 5 + (_I,) * 5 + (_F, _I, _P))
+        build.launch("flash_attention_fwd", fn, q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h, sq, sk,
+                     d, scale, int(bool(causal)), stream)
     flash_attention_fwd.launches += 1
     return o, lse
 
@@ -352,20 +313,21 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = False,
     ``flash_attention_bwd_dq_reference``; CUDA tensors run the dQ kernel
     of csrc/flash_attention_bwd.cu under the forward kernel's contract."""
     scale = _default_scale(q, scale)
-    if q.device.type == "cpu":
+    if not build.on_card("flash_attention_bwd_dq", q):
         return flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
                                                 causal=causal, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_bwd_dq: no kernel for {q.device}")
     _check_bwd(q, k, v, do, lse, delta, causal)
     b, sq, h, d = q.shape
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        _launch("flash_attention_bwd_dq", _bwd_dq_fn(), q.data_ptr(),
-                k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), dq.data_ptr(), b, h, sq, k.shape[1], d,
-                scale, int(bool(causal)), stream)
+        fn = build.bind("flash_attention_bwd.cu",
+                        "flash_attention_bwd_dq_f32",
+                        (_P,) * 7 + (_I,) * 5 + (_F, _I, _P))
+        build.launch("flash_attention_bwd_dq", fn, q.data_ptr(),
+                     k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                     delta.data_ptr(), dq.data_ptr(), b, h, sq, k.shape[1], d,
+                     scale, int(bool(causal)), stream)
     flash_attention_bwd_dq.launches += 1
     return dq
 
@@ -381,20 +343,21 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *,
     ``flash_attention_bwd_dkv_reference``; CUDA tensors run the dK/dV
     kernel of csrc/flash_attention_bwd.cu."""
     scale = _default_scale(q, scale)
-    if q.device.type == "cpu":
+    if not build.on_card("flash_attention_bwd_dkv", q):
         return flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
                                                  causal=causal, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_bwd_dkv: no kernel for {q.device}")
     _check_bwd(q, k, v, do, lse, delta, causal)
     b, sq, h, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        _launch("flash_attention_bwd_dkv", _bwd_dkv_fn(), q.data_ptr(),
-                k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq,
-                k.shape[1], d, scale, int(bool(causal)), stream)
+        fn = build.bind("flash_attention_bwd.cu",
+                        "flash_attention_bwd_dkv_f32",
+                        (_P,) * 8 + (_I,) * 5 + (_F, _I, _P))
+        build.launch("flash_attention_bwd_dkv", fn, q.data_ptr(),
+                     k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                     delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq,
+                     k.shape[1], d, scale, int(bool(causal)), stream)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
@@ -443,11 +406,9 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
     or 256 (the TPU kernel's head_dim % 128 == 0) and int32 tables and
     lengths."""
     scale = _default_scale(q, scale)
-    if q.device.type == "cpu":
+    if not build.on_card("paged_decode_attention", q):
         return paged_attention_reference(q, k_pool, v_pool, block_tables,
                                          context_lens, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_decode_attention: no kernel for {q.device}")
     _check_cuda("q", q, q.device, torch.float32, 3)
     _check_cuda("k_pool", k_pool, q.device, torch.float32, 4)
     _check_cuda("v_pool", v_pool, q.device, torch.float32, 4)
@@ -466,10 +427,13 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
         return out
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        _launch("paged_decode_attention", _paged_fn(), q.data_ptr(),
-                k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(),
-                context_lens.data_ptr(), out.data_ptr(), s_n, h, d, nb, bs,
-                block_tables.shape[1], scale, stream)
+        fn = build.bind("paged_attention.cu", "paged_decode_attention_f32",
+                        (_P,) * 6 + (_I,) * 6 + (_F, _P))
+        build.launch("paged_decode_attention", fn, q.data_ptr(),
+                     k_pool.data_ptr(), v_pool.data_ptr(),
+                     block_tables.data_ptr(), context_lens.data_ptr(),
+                     out.data_ptr(), s_n, h, d, nb, bs, block_tables.shape[1],
+                     scale, stream)
     paged_decode_attention.launches += 1
     return out
 

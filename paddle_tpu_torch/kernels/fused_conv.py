@@ -41,7 +41,6 @@ package's per-shape measurement behind the gate (``measure``,
 from __future__ import annotations
 
 import ctypes
-import functools
 import os
 from typing import Optional, Tuple
 
@@ -89,48 +88,15 @@ _I = ctypes.c_int
 _WARPS = 8   # warps per block in every kernel of csrc/fused_conv.cu
 
 
-@functools.cache
 def _fn(name: str, argtypes: tuple):
-    fn = getattr(build.library("fused_conv.cu"), name)
-    fn.argtypes = list(argtypes)
-    fn.restype = _I
-    return fn
-
-
-@functools.cache
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    return build.bind("fused_conv.cu", name, argtypes)
 
 
 def _check(name: str, t: torch.Tensor, device: torch.device, shape) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} is {t.dtype}; the kernel takes float32")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    build.check(name, t, device, shape)
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
 
-
-def _launch(name: str, fn, *args) -> None:
-    err = fn(*args)
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
-                           f"{err}")
-
-
-def _on_card(name: str, a: torch.Tensor) -> bool:
-    """False for a CPU tensor (the plain version runs), True for a CUDA
-    one; any other device raises."""
-    if a.device.type == "cpu":
-        return False
-    if a.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for {a.device}")
-    return True
 
 
 def _stats_split(n: int, c: int, sms: int) -> Tuple[int, int]:
@@ -150,18 +116,18 @@ def channel_stats(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     csrc/fused_conv.cu: float32, contiguous, 16-byte aligned; the sums
     are deterministic (partials per batch slice, then a fixed-order pass
     over them; no atomics)."""
-    if not _on_card("channel_stats", a):
+    if not build.on_card("channel_stats", a):
         return channel_stats_reference(a)
     if a.dim() != 3:
         raise ValueError(f"a must be [N, C, S], got {tuple(a.shape)}")
     n, c, s = a.shape
     _check("a", a, a.device, (n, c, s))
-    rows, parts = _stats_split(n, c, _sm_count(a.device))
+    rows, parts = _stats_split(n, c, build.sm_count(a.device))
     part = torch.empty((2, c, parts), dtype=torch.float32, device=a.device)
     out = torch.empty((2, c), dtype=torch.float32, device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        _launch("channel_stats",
+        build.launch("channel_stats",
                 _fn("fused_conv_channel_stats_f32", (_P,) * 3 + (_I,) * 5
                     + (_P,)),
                 a.data_ptr(), part.data_ptr(), out.data_ptr(), n, c, s, rows,
@@ -184,13 +150,13 @@ def _apply(name: str, symbol: str, a, scale_c, shift_c, addend, relu):
         _check("addend", addend, a.device, (n, c, s))
     y = torch.empty_like(a)
     rows = n * c
-    grid = max(1, min(-(-rows // _WARPS), 16 * _sm_count(a.device)))
+    grid = max(1, min(-(-rows // _WARPS), 16 * build.sm_count(a.device)))
     args = [a.data_ptr()] + ([addend.data_ptr()] if addend is not None
                              else []) + [scale_c.data_ptr(),
                                          shift_c.data_ptr(), y.data_ptr()]
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        _launch(name, _fn(symbol, (_P,) * len(args) + (_I,) * 5 + (_P,)),
+        build.launch(name, _fn(symbol, (_P,) * len(args) + (_I,) * 5 + (_P,)),
                 *args, n, c, s, int(bool(relu)), grid, stream)
     return y
 
@@ -203,7 +169,7 @@ def apply_epilogue(a: torch.Tensor, scale_c: torch.Tensor,
 
     CPU tensors run ``apply_epilogue_reference``; CUDA tensors the
     kernel (float32, contiguous, 16-byte aligned)."""
-    if not _on_card("apply_epilogue", a):
+    if not build.on_card("apply_epilogue", a):
         return apply_epilogue_reference(a, scale_c, shift_c, None, relu)
     y = _apply("apply_epilogue", "fused_conv_apply_f32", a, scale_c, shift_c,
                None, relu)
@@ -219,7 +185,7 @@ def apply_epilogue_add(a: torch.Tensor, scale_c: torch.Tensor,
                        relu: bool = True) -> torch.Tensor:
     """As ``apply_epilogue``, plus the residual addend [N, C, S] that the
     fusion pass absorbed: a·scale_c + shift_c + addend, ReLU if asked."""
-    if not _on_card("apply_epilogue_add", a):
+    if not build.on_card("apply_epilogue_add", a):
         return apply_epilogue_reference(a, scale_c, shift_c, addend, relu)
     y = _apply("apply_epilogue_add", "fused_conv_apply_add_f32", a, scale_c,
                shift_c, addend, relu)

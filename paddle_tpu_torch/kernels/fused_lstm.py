@@ -1,0 +1,246 @@
+"""Whole-sequence LSTM kernels (forward and backward) and their plain
+PyTorch versions.
+
+Counterpart of ``paddle_tpu/kernels/fused_lstm.py``. Time-major, as the
+TPU kernels are: x [T, B, 4H] holds the pre-projected inputs, w [H, 4H]
+the recurrent weight, b [4H] the gate bias, mask [T, B] the length mask,
+r0/c0 [B, H] the initial state; the gate order is i, c, f, o; rows past
+a sequence's length carry their state forward. The functions return the
+CARRY sequences (rs, cs) [T, B, H]: the op multiplies them by the mask,
+and the backward needs the carries, not the masked values.
+
+Two kernels, written by hand for Hopper in
+``paddle_tpu_torch/csrc/fused_lstm.cu`` (its header says what bounds
+them and what the design does about it):
+
+* ``lstm_seq_fwd`` replaces the Pallas ``lstm_seq_fwd`` (``_fwd_kernel``):
+  one launch per step, T in all;
+* ``lstm_seq_bwd`` replaces the Pallas ``lstm_seq_bwd`` (``_bwd_kernel``):
+  the gate recompute, two launches per step (the cell, then dgates W^T
+  in slices), dr0, dW and db: 2T + 4 launches.
+
+Each wrapper runs its plain version (``lstm_seq_fwd_reference``,
+``lstm_seq_bwd_reference``) only for tensors on the CPU; for a CUDA
+tensor it launches its kernel or raises, and counts the call in its
+``launches`` attribute.
+
+``LSTMSequence`` is the ``torch.autograd.Function`` of the JAX package's
+``lstm_sequence`` custom VJP, with its residuals: it saves the carry
+sequences, builds r_prevs / c_prevs by one concatenate and gives the
+mask a zero gradient.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from . import build
+
+__all__ = ["lstm_seq_fwd_reference", "lstm_seq_bwd_reference",
+           "lstm_seq_fwd", "lstm_seq_bwd", "LSTMSequence", "lstm_sequence"]
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _cell(gates: torch.Tensor, c: torch.Tensor, h: int):
+    """(i, f, o, cand, c_new) of one step from its gates [B, 4H]."""
+    i = torch.sigmoid(gates[:, :h])
+    cand = torch.tanh(gates[:, h:2 * h])
+    f = torch.sigmoid(gates[:, 2 * h:3 * h])
+    o = torch.sigmoid(gates[:, 3 * h:])
+    return i, f, o, cand, f * c + i * cand
+
+
+def lstm_seq_fwd_reference(x, w, b, mask, r0, c0
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward recurrence step by step: (rs, cs) [T, B, H]."""
+    h = w.shape[0]
+    r, c = r0, c0
+    rs, cs = [], []
+    for t in range(x.shape[0]):
+        gates = x[t] + r @ w + b
+        _, _, o, _, c_new = _cell(gates, c, h)
+        r_new = o * torch.tanh(c_new)
+        m = mask[t][:, None]
+        r = m * r_new + (1.0 - m) * r
+        c = m * c_new + (1.0 - m) * c
+        rs.append(r)
+        cs.append(c)
+    return torch.stack(rs), torch.stack(cs)
+
+
+def lstm_seq_bwd_reference(x, w, b, mask, r_prevs, c_prevs, drs, dcs):
+    """The reverse-time derivation of the TPU kernel (``_bwd_kernel``):
+    the gates recomputed from r_prevs, (dr, dc) carried from step to
+    step. Returns (dx [T, B, 4H], dw [H, 4H], db [4H], dr0, dc0)."""
+    t_len, _, h4 = x.shape
+    h = h4 // 4
+    gates_all = x + torch.matmul(r_prevs, w) + b
+    dr = torch.zeros_like(drs[0])
+    dc = torch.zeros_like(dcs[0])
+    dx = torch.empty_like(x)
+    for t in reversed(range(t_len)):
+        c_prev = c_prevs[t]
+        i, f, o, cand, c_new = _cell(gates_all[t], c_prev, h)
+        tc = torch.tanh(c_new)
+        m = mask[t][:, None]
+        d_rt = dr + drs[t]
+        d_ct = dc + dcs[t]
+        dr_new, dr_prev = d_rt * m, d_rt * (1.0 - m)
+        dc_new, dc_prev = d_ct * m, d_ct * (1.0 - m)
+        d_o = dr_new * tc
+        dc_new = dc_new + dr_new * o * (1.0 - tc * tc)
+        d_f, d_i, d_cand = dc_new * c_prev, dc_new * cand, dc_new * i
+        dc_prev = dc_prev + dc_new * f
+        dgates = torch.cat([d_i * i * (1.0 - i), d_cand * (1.0 - cand * cand),
+                            d_f * f * (1.0 - f), d_o * o * (1.0 - o)], dim=1)
+        dx[t] = dgates
+        dr = dr_prev + dgates @ w.t()
+        dc = dc_prev
+    rows = dx.reshape(-1, h4)
+    dw = r_prevs.reshape(-1, h).t() @ rows
+    return dx, dw, rows.sum(dim=0), dr, dc
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _fn(name: str, argtypes: tuple):
+    return build.bind("fused_lstm.cu", name, argtypes)
+
+
+def _shapes(x: torch.Tensor) -> Tuple[int, int, int]:
+    if x.dim() != 3 or x.shape[2] % 4 or min(x.shape) < 1:
+        raise ValueError(f"x must be [T, B, 4H] with T, B, H >= 1, got "
+                         f"{tuple(x.shape)}")
+    t, b, h4 = x.shape
+    return t, b, h4 // 4
+
+
+def _dr_slices(b: int, h: int, sms: int) -> int:
+    """K slices of the per-step dgates W^T product: enough 64 x 64 output
+    tiles x slices for about two blocks per SM, each slice at least 128
+    deep (at B 64, H 512: 8 tiles x 16 slices of 128)."""
+    tiles = -(-b // 64) * -(-h // 64)
+    return max(1, min(-(-2 * sms // tiles), 4 * h // 128))
+
+
+def lstm_seq_fwd(x, w, b, mask, r0, c0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [T, B, 4H], w [H, 4H], b [4H], mask [T, B], r0/c0 [B, H] ->
+    carry sequences (rs, cs) [T, B, H].
+
+    CPU tensors run ``lstm_seq_fwd_reference``. CUDA tensors run
+    csrc/fused_lstm.cu: float32, contiguous, any T, B, H >= 1."""
+    if not build.on_card("lstm_seq_fwd", x):
+        return lstm_seq_fwd_reference(x, w, b, mask, r0, c0)
+    t, bb, h = _shapes(x)
+    dev = x.device
+    build.check("x", x, dev, (t, bb, 4 * h))
+    build.check("w", w, dev, (h, 4 * h))
+    build.check("b", b, dev, (4 * h,))
+    build.check("mask", mask, dev, (t, bb))
+    build.check("r0", r0, dev, (bb, h))
+    build.check("c0", c0, dev, (bb, h))
+    rs = torch.empty((t, bb, h), dtype=torch.float32, device=dev)
+    cs = torch.empty_like(rs)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        build.launch("lstm_seq_fwd",
+                _fn("lstm_seq_fwd_f32", (_P,) * 8 + (_I,) * 3 + (_P,)),
+                x.data_ptr(), w.data_ptr(), b.data_ptr(), mask.data_ptr(),
+                r0.data_ptr(), c0.data_ptr(), rs.data_ptr(), cs.data_ptr(),
+                t, bb, h, stream)
+    lstm_seq_fwd.launches += 1
+    return rs, cs
+
+
+lstm_seq_fwd.launches = 0
+
+
+def lstm_seq_bwd(x, w, b, mask, r_prevs, c_prevs, drs, dcs):
+    """The inputs mirror the forward's residuals: r_prevs / c_prevs are
+    the carry sequences shifted by one (element t holds the carry of
+    step t-1, r0 / c0 at t = 0), drs / dcs the cotangents of rs / cs.
+    Returns (dx [T, B, 4H], dw [H, 4H], db [4H], dr0, dc0 [B, H]).
+
+    CPU tensors run ``lstm_seq_bwd_reference``. CUDA tensors run
+    csrc/fused_lstm.cu: float32, contiguous, any T, B, H >= 1; dw and db
+    are deterministic (fixed-order sums, no atomics)."""
+    if not build.on_card("lstm_seq_bwd", x):
+        return lstm_seq_bwd_reference(x, w, b, mask, r_prevs, c_prevs, drs,
+                                      dcs)
+    t, bb, h = _shapes(x)
+    dev = x.device
+    build.check("x", x, dev, (t, bb, 4 * h))
+    build.check("w", w, dev, (h, 4 * h))
+    build.check("b", b, dev, (4 * h,))
+    build.check("mask", mask, dev, (t, bb))
+    for name, v in (("r_prevs", r_prevs), ("c_prevs", c_prevs),
+                    ("drs", drs), ("dcs", dcs)):
+        build.check(name, v, dev, (t, bb, h))
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty((t, bb, 4 * h), **f32)
+    dw = torch.empty((h, 4 * h), **f32)
+    db = torch.empty((4 * h,), **f32)
+    dr0 = torch.empty((bb, h), **f32)
+    dc0 = torch.empty((bb, h), **f32)
+    slices = _dr_slices(bb, h, build.sm_count(dev))
+    gates = torch.empty_like(dx)
+    part = torch.empty((slices, bb, h), **f32)
+    drb = torch.empty((bb, h), **f32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        build.launch("lstm_seq_bwd",
+                _fn("lstm_seq_bwd_f32", (_P,) * 16 + (_I,) * 4 + (_P,)),
+                x.data_ptr(), w.data_ptr(), b.data_ptr(), mask.data_ptr(),
+                r_prevs.data_ptr(), c_prevs.data_ptr(), drs.data_ptr(),
+                dcs.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
+                dr0.data_ptr(), dc0.data_ptr(), gates.data_ptr(),
+                part.data_ptr(), drb.data_ptr(), t, bb, h, slices, stream)
+    lstm_seq_bwd.launches += 1
+    return dx, dw, db, dr0, dc0
+
+
+lstm_seq_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the differentiable sequence (fused_lstm.py :255-280)
+# ---------------------------------------------------------------------------
+
+class LSTMSequence(torch.autograd.Function):
+    """(rs, cs) = the carry sequences of the whole-sequence LSTM, through
+    ``lstm_seq_fwd``; the backward runs ``lstm_seq_bwd`` from the saved
+    carries."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, mask, r0, c0):
+        rs, cs = lstm_seq_fwd(x, w, b, mask, r0, c0)
+        ctx.save_for_backward(x, w, b, mask, r0, c0, rs, cs)
+        return rs, cs
+
+    @staticmethod
+    def backward(ctx, drs, dcs):
+        x, w, b, mask, r0, c0, rs, cs = ctx.saved_tensors
+        r_prevs = torch.cat([r0[None], rs[:-1]], dim=0)
+        c_prevs = torch.cat([c0[None], cs[:-1]], dim=0)
+        dx, dw, db, dr0, dc0 = lstm_seq_bwd(
+            x, w, b, mask, r_prevs, c_prevs, drs.contiguous(),
+            dcs.contiguous())
+        return (dx, dw.to(w.dtype), db.to(b.dtype), torch.zeros_like(mask),
+                dr0.to(r0.dtype), dc0.to(c0.dtype))
+
+
+def lstm_sequence(x, w, b, mask, r0, c0):
+    """Differentiable fused whole-sequence LSTM: (rs, cs) [T, B, H]."""
+    return LSTMSequence.apply(x, w, b, mask, r0, c0)

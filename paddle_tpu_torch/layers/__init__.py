@@ -8,6 +8,8 @@ from .nn import (batch_norm, conv2d, cross_entropy, elementwise_add,
                  embedding, fc, fused_bottleneck, layer_norm, mean, pool2d,
                  relu, reshape, slice, softmax, softmax_with_cross_entropy,
                  topk)
+from .sequence import (dynamic_gru, dynamic_lstm, dynamic_lstmp,
+                       sequence_first_step, sequence_last_step, sequence_pool)
 from .tensor import create_parameter, fill_constant
 
 __all__ = ["MultiHeadAttention", "fused_attention", "multi_head_attention",
@@ -15,4 +17,6 @@ __all__ = ["MultiHeadAttention", "fused_attention", "multi_head_attention",
            "elementwise_add", "embedding", "fc", "fused_bottleneck",
            "layer_norm", "mean", "pool2d", "relu", "reshape", "slice",
            "softmax", "softmax_with_cross_entropy", "topk",
+           "dynamic_gru", "dynamic_lstm", "dynamic_lstmp",
+           "sequence_first_step", "sequence_last_step", "sequence_pool",
            "create_parameter", "fill_constant"]

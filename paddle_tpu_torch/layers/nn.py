@@ -20,6 +20,7 @@ from ..core.program import VarDesc
 from ..initializer import ConstantInitializer, NormalInitializer
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
+from .sequence import propagate_seq
 
 __all__ = ["fc", "embedding", "layer_norm", "softmax_with_cross_entropy",
            "mean", "reshape", "elementwise_add", "slice", "conv2d", "pool2d",
@@ -37,7 +38,9 @@ def _fresh_attr(attr) -> ParamAttr:
 
 def fc(input, size: int, num_flatten_dims: int = 1, param_attr=None,
        bias_attr=None, act=None, is_test=False, name=None) -> VarDesc:
-    """Fully connected: mul + bias + act. An fc over several inputs (one
+    """Fully connected: mul + bias + act. Over a sequence var [B, T, D]
+    it is per timestep (the mul flattens at rank - 1) and the output
+    keeps the var's @SEQ_LEN companion. An fc over several inputs (one
     weight each, summed) is not ported."""
     helper = LayerHelper("fc", input=input, param_attr=param_attr,
                          bias_attr=bias_attr, act=act, name=name)
@@ -47,35 +50,39 @@ def fc(input, size: int, num_flatten_dims: int = 1, param_attr=None,
         raise NotImplementedError(f"fc over {len(inputs_list)} inputs (the "
                                   "sum op) is not ported")
     (input_var,) = inputs_list
-    if getattr(input_var, "seq_len_var", None):
-        raise NotImplementedError("fc over a ragged sequence var is not "
-                                  "ported")
-    param_shape = [int(np.prod(input_var.shape[num_flatten_dims:]))] + [size]
+    flatten = num_flatten_dims
+    is_seq = (getattr(input_var, "seq_len_var", None)
+              and len(input_var.shape) > 2 and num_flatten_dims == 1)
+    if is_seq:
+        # the reference's [T_total, D] row-major sequence fc becomes
+        # [B, T, D] with x_num_col_dims = 2
+        flatten = len(input_var.shape) - 1
+    param_shape = [int(np.prod(input_var.shape[flatten:]))] + [size]
     w = helper.create_parameter(_fresh_attr(param_attr), param_shape, dtype)
     pre_bias = helper.create_tmp_variable(dtype)
     helper.append_op("mul", {"X": input_var, "Y": w}, {"Out": pre_bias},
-                     {"x_num_col_dims": num_flatten_dims,
-                      "y_num_col_dims": 1})
+                     {"x_num_col_dims": flatten, "y_num_col_dims": 1})
     if bias_attr is not False:
-        pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims,
+        pre_act = helper.append_bias_op(pre_bias, dim_start=flatten,
                                         size=[size])
     else:
         pre_act = pre_bias
-    return helper.append_activation(pre_act)
+    out = helper.append_activation(pre_act)
+    if is_seq:
+        propagate_seq(input_var, out)
+    return out
 
 
 def embedding(input, size: Sequence[int], is_sparse: bool = False,
               is_distributed: bool = False, padding_idx: Optional[int] = None,
               param_attr=None, dtype: str = "float32") -> VarDesc:
-    """Embedding lookup. is_sparse builds as in the JAX package but its
-    op raises when run (SelectedRows gradients are not ported);
+    """Embedding lookup; over a sequence var the output [B, T, D] keeps
+    its @SEQ_LEN companion. is_sparse builds as in the JAX package but
+    its op raises when run (SelectedRows gradients are not ported);
     is_distributed (a vocab-sharded table) is not ported."""
     if is_distributed:
         raise NotImplementedError("embedding(is_distributed=True): sharded "
                                   "tables are not ported")
-    if getattr(input, "seq_len_var", None):
-        raise NotImplementedError("embedding over a ragged sequence var is "
-                                  "not ported")
     helper = LayerHelper("embedding", param_attr=param_attr)
     w = helper.create_parameter(helper.param_attr, size, dtype)
     tmp = helper.create_tmp_variable(dtype)
@@ -84,6 +91,10 @@ def embedding(input, size: Sequence[int], is_sparse: bool = False,
     helper.append_op("lookup_table", {"Ids": input, "W": w}, {"Out": tmp},
                      {"is_sparse": is_sparse, "is_distributed": is_distributed,
                       "padding_idx": padding_idx})
+    if getattr(input, "seq_len_var", None):
+        propagate_seq(input, tmp)
+        tmp.shape = tuple(input.shape[:2]) + (size[1],)
+        tmp.dtype = dtype
     return tmp
 
 

@@ -13,10 +13,12 @@ Counterparts of registered ops of the JAX package:
 * ``softmax_with_cross_entropy`` — ops/nn_ops.py, hard labels: the loss
   is logsumexp minus the picked logit, differentiated by autograd.
 
-The registered ``layer_norm``, ``gelu`` and ``softmax_with_cross_entropy``
-ops (below the plain functions) run them for the Executor.
+The registered ``layer_norm`` and ``softmax_with_cross_entropy`` ops
+(below the plain functions) run them for the Executor, and the JAX
+package's activation table (``_ACTIVATIONS``: relu, sigmoid, tanh, gelu
+and the rest) registers one op per entry.
 
-The ResNet path adds the registered ``relu``, ``softmax``,
+The ResNet path adds the registered ``softmax``,
 ``cross_entropy``, ``conv2d``, ``pool2d`` and ``batch_norm`` ops, and
 ``_bn_train``: training-mode batch norm as a ``torch.autograd.Function``
 with the JAX package's lean residuals (the input, scale, bias and two
@@ -143,11 +145,6 @@ def _layer_norm_op(ctx, ins, attrs):
             "Variance": [var.reshape(-1)]}
 
 
-@register_op("gelu", infer_shape=same_shape())
-def _gelu_op(ctx, ins, attrs):
-    return {"Out": [gelu(ins["X"][0], attrs.get("approximate", False))]}
-
-
 def _xent_infer(op, block):
     x = block.var(op.input("Logits")[0])
     out = block.var(op.output("Loss")[0])
@@ -166,13 +163,71 @@ def _softmax_with_cross_entropy_op(ctx, ins, attrs):
 
 
 # ---------------------------------------------------------------------------
-# activations, softmax and cross entropy (ops/nn_ops.py :29, :88, :573)
+# activations (ops/nn_ops.py :28-74): the JAX package's table, entry for
+# entry, each registered as an op of its name (X -> Out, same shape)
 # ---------------------------------------------------------------------------
 
-@register_op("relu", infer_shape=same_shape())
-def _relu_op(ctx, ins, attrs):
-    return {"Out": [torch.relu(ins["X"][0])]}
+def _where0(cond, x):
+    return torch.where(cond, x, torch.zeros_like(x))
 
+
+_ACTIVATIONS = {
+    "relu": lambda x, a: torch.relu(x),
+    "sigmoid": lambda x, a: torch.sigmoid(x),
+    "logsigmoid": lambda x, a: F.logsigmoid(x),
+    "tanh": lambda x, a: torch.tanh(x),
+    "tanh_shrink": lambda x, a: x - torch.tanh(x),
+    "exp": lambda x, a: torch.exp(x),
+    "log": lambda x, a: torch.log(x),
+    "sqrt": lambda x, a: torch.sqrt(x),
+    "rsqrt": lambda x, a: torch.rsqrt(x),
+    "abs": lambda x, a: torch.abs(x),
+    "ceil": lambda x, a: torch.ceil(x),
+    "floor": lambda x, a: torch.floor(x),
+    "round": lambda x, a: torch.round(x),
+    "reciprocal": lambda x, a: 1.0 / x,
+    "square": lambda x, a: torch.square(x),
+    "softplus": lambda x, a: torch.logaddexp(x, torch.zeros_like(x)),
+    "softsign": lambda x, a: x / (1 + torch.abs(x)),
+    "sin": lambda x, a: torch.sin(x),
+    "cos": lambda x, a: torch.cos(x),
+    "relu6": lambda x, a: torch.clamp(x, 0, a.get("threshold", 6.0)),
+    "leaky_relu": lambda x, a: torch.where(x >= 0, x,
+                                           a.get("alpha", 0.02) * x),
+    "elu": lambda x, a: torch.where(x >= 0, x, a.get("alpha", 1.0)
+                                    * (torch.exp(x) - 1)),
+    "brelu": lambda x, a: torch.clamp(x, a.get("t_min", 0.0),
+                                      a.get("t_max", 24.0)),
+    "soft_relu": lambda x, a: torch.log1p(torch.exp(torch.clamp(
+        x, -a.get("threshold", 40.0), a.get("threshold", 40.0)))),
+    "hard_sigmoid": lambda x, a: torch.clamp(
+        a.get("slope", 0.2) * x + a.get("offset", 0.5), 0, 1),
+    "thresholded_relu": lambda x, a: _where0(x > a.get("threshold", 1.0), x),
+    "hard_shrink": lambda x, a: _where0(
+        torch.abs(x) > a.get("threshold", 0.5), x),
+    "softshrink": lambda x, a: torch.sign(x) * torch.clamp_min(
+        torch.abs(x) - a.get("lambda", 0.5), 0.0),
+    "swish": lambda x, a: x * torch.sigmoid(a.get("beta", 1.0) * x),
+    "gelu": lambda x, a: gelu(x, a.get("approximate", False)),
+    "pow": lambda x, a: torch.pow(x, a.get("factor", 1.0)),
+    "stanh": lambda x, a: a.get("scale_b", 1.7159) * torch.tanh(
+        a.get("scale_a", 0.67) * x),
+}
+
+
+def _make_activation(name, fn):
+    def compute(ctx, ins, attrs):
+        return {"Out": [fn(ins["X"][0], attrs)]}
+    register_op(name, infer_shape=same_shape())(compute)
+
+
+for _n, _f in _ACTIVATIONS.items():
+    _make_activation(_n, _f)
+
+
+# ---------------------------------------------------------------------------
+# softmax and cross entropy (ops/nn_ops.py :88, :573)
+# ---------------------------------------------------------------------------
 
 @register_op("softmax", infer_shape=same_shape())
 def _softmax_op(ctx, ins, attrs):
@@ -275,9 +330,10 @@ def _pool2d_infer(op, block):
 def pool2d(x: torch.Tensor, attrs: dict) -> torch.Tensor:
     """Max pooling pads with -inf; average pooling divides by the count
     of real elements in the window (``exclusive``, the default) or by
-    the window size. ``ceil_mode`` gives the shape that the op's shape
-    inference declares (the JAX package's compute leaves it out).
-    Padding wider than half the window is not ported."""
+    the window size. The padding is symmetric and the output size is
+    floored whatever ``ceil_mode`` says, as the JAX package computes it
+    (its shape inference, which _pool2d_infer keeps, rounds up with
+    ``ceil_mode``). Padding wider than half the window is not ported."""
     ptype = attrs.get("pooling_type", "max")
     if attrs.get("global_pooling", False):
         if ptype == "max":
@@ -289,10 +345,9 @@ def pool2d(x: torch.Tensor, attrs: dict) -> torch.Tensor:
     if 2 * p[0] > k[0] or 2 * p[1] > k[1]:
         raise NotImplementedError(f"pool2d with paddings {p} wider than "
                                   f"half the window {k} is not ported")
-    ceil = bool(attrs.get("ceil_mode", False))
     if ptype == "max":
-        return F.max_pool2d(x, k, s, p, ceil_mode=ceil)
-    return F.avg_pool2d(x, k, s, p, ceil_mode=ceil,
+        return F.max_pool2d(x, k, s, p)
+    return F.avg_pool2d(x, k, s, p,
                         count_include_pad=not attrs.get("exclusive", True))
 
 

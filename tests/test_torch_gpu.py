@@ -8,13 +8,14 @@ a machine with a card and without JAX they run with
 Each kernel is held against its plain PyTorch version on the card, at the
 serving and training paths' shapes and at small ragged ones; the plain
 versions are held against the JAX package by
-tests/test_torch_flash_attention.py, tests/test_torch_flash_backward.py
-and tests/test_torch_fused_conv.py. Tolerance: float32 on both sides with
+tests/test_torch_flash_attention.py, tests/test_torch_flash_backward.py,
+tests/test_torch_fused_conv.py and tests/test_torch_lstm.py. Tolerance: float32 on both sides with
 TF32 off (products and convolutions), sums in another order, so atol =
 rtol = 1e-5; the backward kernels 1e-4, since each dK/dV entry sums up to
 S products in another order; the channel sums as chip_smoke.py holds
 them (the sum of squares within rtol 1e-5, the sum within 1e-5 of the
-sum of |a|).
+sum of |a|); the LSTM forward 1e-5 and its backward 1e-4 (dW sums T*B
+products in another order).
 """
 
 import numpy as np
@@ -23,6 +24,7 @@ import torch
 
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import fused_conv as fc
+from paddle_tpu_torch.kernels import fused_lstm as fl
 
 pytestmark = pytest.mark.gpu
 
@@ -414,5 +416,134 @@ def test_resnet_step_on_the_card_matches_the_cpu(cuda):
         got, want = gpu_scope.get_numpy(n), cpu_scope.get_numpy(n)
         np.testing.assert_allclose(got, want, atol=1e-5, rtol=0, err_msg=n)
         if n in params:
+            got, want = got - start[n], want - start[n]
+        assert rms(got - want) <= 1e-3 * rms(want), n
+
+
+def _lstm_case(gen, t, b, h, lens):
+    """LSTM kernel inputs on the card: the model's Xavier-scale W,
+    initial states that are not zero, the mask of `lens` (None: full)."""
+    lim = (6.0 / (5 * h)) ** 0.5
+    mask = torch.ones(t, b) if lens is None else (
+        torch.arange(t)[:, None] < torch.tensor(lens)[None, :]).float()
+    d = dict(x=torch.randn(t, b, 4 * h, generator=gen),
+             w=(torch.rand(h, 4 * h, generator=gen) * 2 - 1) * lim,
+             b=0.1 * torch.randn(4 * h, generator=gen), mask=mask,
+             r0=0.5 * torch.randn(b, h, generator=gen),
+             c0=torch.randn(b, h, generator=gen),
+             drs=torch.randn(t, b, h, generator=gen),
+             dcs=torch.randn(t, b, h, generator=gen))
+    return {k: v.cuda() for k, v in d.items()}
+
+
+@pytest.mark.parametrize("t,b,h,lens", [
+    (100, 64, 512, None),                       # the bench shape
+    (100, 64, 512, [1, 100] + [37] * 30 + [64] * 32),
+    (5, 3, 20, [5, 1, 3]),      # H not a multiple of the 16-unit tile
+    (1, 1, 8, None), (9, 17, 33, [9, 1] + [4] * 15),
+    (8, 4, 16, [3, 1, 5, 2]),   # trailing steps no sequence reaches
+])
+def test_lstm_kernels_match_plain(cuda, t, b, h, lens):
+    gen = torch.Generator().manual_seed(t + b + h)
+    d = _lstm_case(gen, t, b, h, lens)
+    fwd = [d[k] for k in ("x", "w", "b", "mask", "r0", "c0")]
+    rs, cs = fl.lstm_seq_fwd(*fwd)
+    rrs, rcs = fl.lstm_seq_fwd_reference(*fwd)
+    torch.testing.assert_close(rs, rrs, **TOL)
+    torch.testing.assert_close(cs, rcs, **TOL)
+    r_prevs = torch.cat([d["r0"][None], rrs[:-1]])
+    c_prevs = torch.cat([d["c0"][None], rcs[:-1]])
+    bwd = fwd[:4] + [r_prevs, c_prevs, d["drs"], d["dcs"]]
+    for got, want in zip(fl.lstm_seq_bwd(*bwd),
+                         fl.lstm_seq_bwd_reference(*bwd)):
+        torch.testing.assert_close(got, want, **BWD_TOL)
+    # dW and db are deterministic: no atomics, fixed-order sums
+    again = fl.lstm_seq_bwd(*bwd)
+    first = fl.lstm_seq_bwd(*bwd)
+    for x, y in zip(again, first):
+        assert torch.equal(x, y)
+
+
+def test_lstm_wrappers_never_fall_back(cuda, monkeypatch):
+    """With the plain versions patched to raise, LSTMSequence on the card
+    runs forward and backward and counts one launch of each kernel."""
+    def boom(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    monkeypatch.setattr(fl, "lstm_seq_fwd_reference", boom)
+    monkeypatch.setattr(fl, "lstm_seq_bwd_reference", boom)
+    gen = torch.Generator().manual_seed(5)
+    d = _lstm_case(gen, 6, 4, 32, [6, 1, 3, 5])
+    x = d["x"].requires_grad_(True)
+    before = (fl.lstm_seq_fwd.launches, fl.lstm_seq_bwd.launches)
+    rs, cs = fl.lstm_sequence(x, d["w"], d["b"], d["mask"], d["r0"],
+                              d["c0"])
+    (rs.sum() + 0.5 * cs.sum()).backward()
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(x.grad).all())
+    assert (fl.lstm_seq_fwd.launches, fl.lstm_seq_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+def test_lstm_kernels_refuse_what_they_do_not_take(cuda):
+    gen = torch.Generator().manual_seed(6)
+    d = _lstm_case(gen, 4, 2, 8, None)
+    fwd = [d[k] for k in ("x", "w", "b", "mask", "r0", "c0")]
+    with pytest.raises(TypeError):
+        fl.lstm_seq_fwd(*([fwd[0].double()] + fwd[1:]))
+    with pytest.raises(ValueError):
+        fl.lstm_seq_fwd(*([fwd[0].transpose(0, 1)] + fwd[1:]))
+    with pytest.raises(ValueError):
+        fl.lstm_seq_fwd(*(fwd[:1] + [fwd[1][:, :16]] + fwd[2:]))
+    with pytest.raises(ValueError):
+        fl.lstm_seq_fwd(*(fwd[:3] + [fwd[3][:2]] + fwd[4:]))
+    with pytest.raises(ValueError):
+        fl.lstm_seq_fwd(*(fwd[:4] + [fwd[4].cpu()] + fwd[5:]))
+    rp = torch.zeros(4, 2, 8).cuda()
+    with pytest.raises(ValueError):
+        fl.lstm_seq_bwd(*fwd[:4], rp, rp, rp, rp[:3])
+
+
+def test_lstm_step_on_the_card_matches_the_cpu(cuda):
+    """The narrow stacked LSTM (vocab 100, embedding 16, hidden 32,
+    batch 4) from one startup state: two Adam steps on ragged list feeds
+    on the card and on the CPU agree (losses within rtol 1e-4, every
+    state element within 1e-5, each update and moment within 1e-3 as
+    rms), and each card step launched each LSTM kernel once."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import stacked_dynamic_lstm as sdl
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        loss, _, _, _ = sdl.get_model(dict_size=100, lstm_size=32,
+                                      emb_dim=16, use_fused=True)
+    cpu_exe, cpu_scope = pt.Executor(pt.CPUPlace()), pt.Scope()
+    cpu_exe.run(startup, scope=cpu_scope)
+    gpu_exe, gpu_scope = pt.Executor(), pt.Scope()
+    names = sorted(cpu_scope.local_var_names())
+    start = {n: cpu_scope.get_numpy(n) for n in names}
+    for n in names:
+        gpu_scope.set_var(n, cpu_scope.find_var(n).to(gpu_exe.device))
+    rng = np.random.RandomState(0)
+    before = (fl.lstm_seq_fwd.launches, fl.lstm_seq_bwd.launches)
+    for _ in range(2):
+        lens = [1, 8] + list(rng.randint(1, 9, 2))
+        feed = {"words": [rng.randint(0, 100, (n, 1)) for n in lens],
+                "label": rng.randint(0, 2, (4, 1))}
+        lc, = cpu_exe.run(main, feed=feed, fetch_list=[loss],
+                          scope=cpu_scope)
+        lg, = gpu_exe.run(main, feed=feed, fetch_list=[loss],
+                          scope=gpu_scope)
+        np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    assert (fl.lstm_seq_fwd.launches, fl.lstm_seq_bwd.launches) == (
+        before[0] + 2, before[1] + 2)
+
+    def rms(a):
+        return float(np.sqrt(np.mean(np.square(a.astype(np.float64)))))
+
+    for n in names:
+        got, want = gpu_scope.get_numpy(n), cpu_scope.get_numpy(n)
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0, err_msg=n)
+        if not ("_moment" in n or "_pow_acc" in n):
             got, want = got - start[n], want - start[n]
         assert rms(got - want) <= 1e-3 * rms(want), n

@@ -87,7 +87,9 @@ def test_importing_every_module_loads_no_jax():
     assert "paddle_tpu_torch.kernels.flash_attention" in report["imported"]
     assert "paddle_tpu_torch.core.executor" in report["imported"]
     for name in ("analysis.fuse", "kernels.fused_conv", "ops.fused_ops",
-                 "models.resnet", "layers.metric"):
+                 "models.resnet", "layers.metric", "kernels.fused_lstm",
+                 "ops.rnn_ops", "ops.sequence_ops", "lod", "layers.sequence",
+                 "models.stacked_dynamic_lstm"):
         assert "paddle_tpu_torch." + name in report["imported"]
     assert report["loaded"] == []
 
