@@ -61,11 +61,26 @@ no result line:
    hidden 128, batch 8, ragged sequences up to 24) from one startup
    state on the card and on the CPU, and hold losses, state and each
    update together;
-11. print the kernels' JSON line, the card line and the result line.
+11. run ResNet-50's training-mode forward (the training program pruned
+   to its loss and accuracy, data and label fed, batch 128, 224 px) from
+   one startup state through the composition and with
+   PT_FUSED_BLOCK=always, which sends the 10 rest blocks the gate takes
+   through the bottleneck chain's kernels: hold the loss and the twelve
+   stat outputs of every rest block together (beside what a PERTURB
+   change of the images does to the composition), time a warm-up and
+   CHAIN_FORWARDS forwards of each, profile one of each by kernel class,
+   and hold the chain kernels' launch counts to 10 a forward;
+12. print the kernels' JSON line, the card line and the result line.
 
 Phase 3 also holds the two LSTM kernels against their plain versions at
 the bench shape (T 100, B 64, H 512), full-length and ragged, timed
 beside their bounds and torch.nn.LSTM (cuDNN) as the yardstick.
+Phase 3 also holds the four bottleneck-chain kernels against their
+plain versions at ResNet-50's three chain stages at batch 128 (Cin, C,
+H = 256, 64, 56 / 512, 128, 28 / 1024, 256, 14), each timed beside its
+plain version, its bound and a PyTorch yardstick (F.conv2d of the same
+product, product only, for the three convolutions; torch.bmm of h·hᵀ
+and the sum for the moments).
 
 cudnn.benchmark stays at its default (off); TF32 is off for products
 and convolutions.
@@ -152,6 +167,16 @@ LSTM_STEPS = 6
 # card vs CPU: a reduced LSTM on ragged sequences, at the LM's limits
 LSTM_REDUCED = dict(dict_size=1000, emb_dim=64, lstm_size=128, batch=8,
                     seq_len=24)
+# the bottleneck chain's stages in ResNet-50 (Cin, C, H) at RESNET's
+# batch; the kernels line reports the first. Outputs within KERNEL_ATOL /
+# KERNEL_RTOL of the plain versions, sums within STATS_RTOL of the sum of
+# their terms' magnitudes (M2 and the sum of h, whose terms are >= 0,
+# within STATS_RTOL of themselves)
+CHAIN_SHAPES = ((256, 64, 56), (512, 128, 28), (1024, 256, 14))
+CHAIN_KERNELS = ("conv1x1_stats", "conv3x3_norm_stats", "norm_relu_moments",
+                 "conv1x1_bn_residual")
+CHAIN_BLOCKS = 10       # rest blocks of ResNet-50 that the chain's gate takes
+CHAIN_FORWARDS = 6
 
 
 def card_line() -> str:
@@ -381,6 +406,14 @@ def teacher_forced(np, engine, prompt, generated):
 
 def kernel_class(name: str) -> str:
     n = name.lower()
+    for kernel in ("conv1x1_stats", "conv3x3_norm_stats",
+                   "conv1x1_bn_residual"):
+        if kernel + "_kernel" in n:
+            return f"{kernel} (port kernel)"
+    if "moments_kernel" in n or "moments_final_kernel" in n:
+        return "norm_relu_moments (port kernel)"
+    if "chain_stats_final_kernel" in n:
+        return "chain stats finalize (port kernel)"
     if "lstm_fwd_step_kernel" in n:
         return "lstm_seq_fwd (port kernel)"
     if "lstm_gemm_kernel" in n or "lstm_bwd_" in n:
@@ -1383,6 +1416,297 @@ def lstm_card_vs_cpu(np, torch, card, seed: int):
         raise RuntimeError("LSTM card and CPU states disagree")
 
 
+def chain_case(torch, n, cin, c, h, gen):
+    """Inputs of one chain stage: a block input >= 0 (it follows a ReLU),
+    He-scaled weights, BN scales around 1 and shifts that are not zero."""
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    return dict(x=torch.rand(n, cin, h * h, device="cuda", generator=gen),
+                w1=randn(c, cin) * (2 / cin) ** 0.5,
+                taps=randn(9, c, c) * (2 / (9 * c)) ** 0.5,
+                w3=randn(cin, c) * (2 / c) ** 0.5,
+                gam=[1 + 0.2 * randn(k) for k in (c, c, cin)],
+                bet=[0.2 * randn(k) for k in (c, c, cin)])
+
+
+def check_sums(torch, name, got, want, terms):
+    """A sum within STATS_RTOL of the sum of its terms' magnitudes;
+    returns (the largest difference, the largest share of its limit)."""
+    diff, lim = (got - want).abs(), STATS_RTOL * terms
+    if not bool((diff <= lim).all()):
+        raise RuntimeError(f"{name}: the kernel's sums disagree with the "
+                           f"plain version's beyond rtol {STATS_RTOL}")
+    return float(diff.max()), float((diff / lim.clamp_min(1e-30)).max())
+
+
+def check_chain(torch, F, fb, card):
+    """The four chain kernels vs their plain versions at each of
+    CHAIN_SHAPES, each stage's inputs made as the chain makes them (the
+    plain version of the kernel before); the kernels line reports the
+    first stage."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    n = RESNET["batch"]
+    rows, errs = {}, {k: [] for k in CHAIN_KERNELS}
+    for cin, c, h in CHAIN_SHAPES:
+        s, m = h * h, n * h * h
+        d = chain_case(torch, n, cin, c, h, gen)
+        x, w1, taps, w3 = d["x"], d["w1"], d["taps"], d["w3"]
+        a1, s1, q1 = fb.conv1x1_stats(x, w1)
+        ra1, rs1, rq1 = fb.conv1x1_stats_reference(x, w1)
+        torch.cuda.synchronize()
+        errs["conv1x1_stats"].append(max_err(torch, a1, ra1))
+        sums = {"conv1x1_stats": [
+            check_sums(torch, "conv1x1_stats", s1, rs1,
+                       ra1.abs().sum(dim=(0, 2))),
+            check_sums(torch, "conv1x1_stats", q1, rq1, rq1)]}
+        del a1
+        _, _, sc1, sh1 = fb._bn_fold(rs1, rq1, m, d["gam"][0], d["bet"][0])
+        a2, s2, q2 = fb.conv3x3_norm_stats(ra1, taps, sc1, sh1, h)
+        ra2, rs2, rq2 = fb.conv3x3_norm_stats_reference(ra1, taps, sc1, sh1,
+                                                        h)
+        torch.cuda.synchronize()
+        errs["conv3x3_norm_stats"].append(max_err(torch, a2, ra2))
+        sums["conv3x3_norm_stats"] = [
+            check_sums(torch, "conv3x3_norm_stats", s2, rs2,
+                       ra2.abs().sum(dim=(0, 2))),
+            check_sums(torch, "conv3x3_norm_stats", q2, rq2, rq2)]
+        del a2
+        _, _, sc2, sh2 = fb._bn_fold(rs2, rq2, m, d["gam"][1], d["bet"][1])
+        sum_h, m2h = fb.norm_relu_moments(ra2, sc2, sh2)
+        rsum_h, rm2h = fb.norm_relu_moments_reference(ra2, sc2, sh2)
+        torch.cuda.synchronize()
+        # h >= 0, so Σh and M2 are their terms' magnitudes summed
+        sums["norm_relu_moments"] = [
+            check_sums(torch, "norm_relu_moments", sum_h, rsum_h, rsum_h),
+            check_sums(torch, "norm_relu_moments", m2h, rm2h, rm2h)]
+        errs["norm_relu_moments"].append(
+            max(e for e, _ in sums["norm_relu_moments"]))
+        # bn3's affine from the plain moments, as bottleneck_rest_fwd
+        _, _, sc3, sh3 = fb._bn3_fold(w3, rsum_h, rm2h, m, d["gam"][2],
+                                      d["bet"][2])
+        res_args = (ra2, x, sc2, sh2, w3, sc3, sh3)
+        out = fb.conv1x1_bn_residual(*res_args)
+        rout = fb.conv1x1_bn_residual_reference(*res_args)
+        torch.cuda.synchronize()
+        errs["conv1x1_bn_residual"].append(max_err(torch, out, rout))
+        del out, rout
+        # bounds: each input read once, each output written once; the
+        # products (M2 is symmetric: C(C+1)/2 products a column), the
+        # loaders' normalize (3 a value), the statistics (3 a value) and
+        # the residual's epilogue (4 a value)
+        ea, ex = n * c * s, n * cin * s
+        bounds = {
+            "conv1x1_stats": bound_ms(4 * (ex + c * cin + ea + 2 * c),
+                                      2 * c * cin * m + 3 * ea),
+            "conv3x3_norm_stats": bound_ms(4 * (2 * ea + 9 * c * c + 4 * c),
+                                           18 * c * c * m + 6 * ea),
+            "norm_relu_moments": bound_ms(4 * (ea + 2 * c + c * (c + 1)),
+                                          c * (c + 1) * m + 4 * ea),
+            "conv1x1_bn_residual": bound_ms(
+                4 * (ea + 2 * ex + cin * c + 2 * c + 2 * cin),
+                2 * cin * c * m + 3 * ea + 4 * ex)}
+        calls = {
+            "conv1x1_stats": (lambda: fb.conv1x1_stats(x, w1),
+                              lambda: fb.conv1x1_stats_reference(x, w1)),
+            "conv3x3_norm_stats": (
+                lambda: fb.conv3x3_norm_stats(ra1, taps, sc1, sh1, h),
+                lambda: fb.conv3x3_norm_stats_reference(ra1, taps, sc1, sh1,
+                                                        h)),
+            "norm_relu_moments": (
+                lambda: fb.norm_relu_moments(ra2, sc2, sh2),
+                lambda: fb.norm_relu_moments_reference(ra2, sc2, sh2)),
+            "conv1x1_bn_residual": (
+                lambda: fb.conv1x1_bn_residual(*res_args),
+                lambda: fb.conv1x1_bn_residual_reference(*res_args))}
+        ms = {k: cuda_ms(torch, f, 10) for k, (f, _) in calls.items()}
+        plain = {k: cuda_ms(torch, r, 3) for k, (_, r) in calls.items()}
+        # yardsticks: the same product through cuDNN (TF32 off), on the
+        # materialized h where the kernel normalizes on load
+        h1 = fb._norm_relu(ra1, sc1, sh1).view(n, c, h, h)
+        h2 = fb._norm_relu(ra2, sc2, sh2)
+        w2 = taps.view(3, 3, c, c).permute(2, 3, 0, 1).contiguous()
+        lib = {"conv1x1_stats": cuda_ms(torch, lambda: F.conv2d(
+                   x.view(n, cin, h, h), w1.view(c, cin, 1, 1)), 10),
+               "conv3x3_norm_stats": cuda_ms(
+                   torch, lambda: F.conv2d(h1, w2, padding=1), 10),
+               "norm_relu_moments": cuda_ms(torch, lambda: (
+                   torch.bmm(h2, h2.transpose(1, 2)).sum(dim=0),
+                   h2.sum(dim=(0, 2))), 10),
+               "conv1x1_bn_residual": cuda_ms(torch, lambda: F.conv2d(
+                   h2.view(n, c, h, h), w3.view(cin, c, 1, 1)), 10)}
+        print(f"bottleneck chain stage Cin {cin}, C {c}, {h}x{h}, batch {n}: "
+              + "; ".join(
+                  f"{k} {ms[k]:.4f} ms (plain {plain[k]:.4f}, "
+                  f"{'bmm + sum' if k == 'norm_relu_moments' else 'conv2d'} "
+                  f"{lib[k]:.4f}, bound {bounds[k][0]:.4f} {bounds[k][1]}, "
+                  f"max_abs_err {errs[k][-1]:.3e})" for k in CHAIN_KERNELS)
+              + f"; chain {sum(ms.values()):.4f} ms vs bound "
+              f"{sum(b[0] for b in bounds.values()):.4f} ms; the 3x3's "
+              f"largest |a2| {float(ra2.abs().max()):.3f}; tol atol "
+              f"{KERNEL_ATOL} rtol {KERNEL_RTOL} [{card}]")
+        print(f"bottleneck chain stage Cin {cin}, C {c}, {h}x{h} sums (tol "
+              f"rtol {STATS_RTOL} of Σ|terms|), largest |kernel - plain| and"
+              f" largest share of the limit: " + "; ".join(
+                  f"{k} {what} {e:.3e} ({share:.3f})"
+                  for k, pair in sums.items()
+                  for what, (e, share) in zip(
+                      ("Σh, M2" if k == "norm_relu_moments" else "Σ, Σ²")
+                      .split(", "), pair)) + f" [{card}]")
+        if (cin, c, h) == CHAIN_SHAPES[0]:
+            for k in CHAIN_KERNELS:
+                rows[k] = dict(ms=ms[k], plain_ms=plain[k],
+                               bound_ms=bounds[k][0], bound_by=bounds[k][1],
+                               library_ms=lib[k])
+        del d, x, ra1, ra2, h1, h2, res_args, calls
+    for k in rows:
+        rows[k]["max_abs_err"] = max(errs[k])
+    return rows
+
+
+def block_host_ms(torch, fb, forward):
+    """Host time of each fused_bottleneck op in one forward of each
+    variant, on the host clock around the op's compute (which queues its
+    launches and syncs nowhere): {chain: [(ms, through the chain)]}."""
+    from paddle_tpu_torch.core import registry
+
+    op = registry.get_op("fused_bottleneck")
+    compute, host = op.compute, []
+
+    def timed(ctx, ins, attrs):
+        before = fb.conv1x1_stats.launches
+        t0 = time.perf_counter()
+        out = compute(ctx, ins, attrs)
+        host.append((1e3 * (time.perf_counter() - t0),
+                     fb.conv1x1_stats.launches > before))
+        return out
+
+    op.compute = timed
+    got = {}
+    try:
+        for chain_on in (False, True):
+            torch.cuda.synchronize()
+            host.clear()
+            forward(chain_on)
+            got[chain_on] = list(host)
+    finally:
+        op.compute = compute
+    return got
+
+
+def chain_path(np, torch, fb, card, built):
+    """ResNet-50's training-mode forward at full width, through the
+    composition and through the chain (PT_FUSED_BLOCK=always), from one
+    startup state; returns the chain kernels' launch counts."""
+    import paddle_tpu_torch as pt
+
+    b, img = RESNET["batch"], RESNET["image"]
+    avg, acc = built["avg"], built["acc"]
+    fwd = built["main"].prune([avg.name, acc.name])
+    ops = [op for op in fwd.global_block.ops if op.type == "fused_bottleneck"]
+    slots = [slot.format(k=k) for k in "123" for slot in
+             ("MeanOut{k}", "VarOut{k}", "SavedMean{k}", "SavedVar{k}")]
+    stat_names = [op.output(slot)[0] for op in ops for slot in slots]
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(built["startup"], scope=scope)
+    state0 = {name: scope.find_var(name).clone()
+              for name in scope.local_var_names()}
+    feed = {k: torch.from_numpy(v).to(exe.device)
+            for k, v in resnet_varied(np, 0, b, img).items()}
+    torch.cuda.synchronize()
+    prev = os.environ.get("PT_FUSED_BLOCK")
+
+    def forward(chain, fetch=(), data=None, restore=True):
+        """One training-mode forward; restore: from the startup state."""
+        if restore:
+            for name, v in state0.items():
+                scope.set_var(name, v.clone())
+        os.environ["PT_FUSED_BLOCK"] = "always" if chain else "never"
+        f = dict(feed, data=feed["data"] if data is None else data)
+        return exe.run(fwd, feed=f, fetch_list=[avg.name] + list(fetch),
+                       scope=scope)
+
+    def outputs(chain, data=None):
+        got = forward(chain, stat_names, data)
+        vals = dict(zip(stat_names, got[1:]))
+        for name in stat_names:
+            if name in state0:     # a running stat: its update this forward
+                vals[name] = vals[name] - state0[name].cpu().numpy()
+        return float(got[0][0]), vals
+
+    def rel_rms(got, want):
+        return max(rms(np, got[k] - want[k]) / max(rms(np, want[k]), 1e-30)
+                   for k in want)
+
+    try:
+        loss_c, comp = outputs(False)
+        loss_p, pert = outputs(False, feed["data"] * (1 + PERTURB))
+        for name in CHAIN_KERNELS:
+            getattr(fb, name).launches = 0
+        loss_k, chain = outputs(True)
+        n_fwd = 1
+        loss_lim = LOSS_RTOL * abs(loss_c)
+        stat_lim = max(STATE_RTOL, SPREAD * rel_rms(pert, comp))
+        d_loss, d_stats = abs(loss_k - loss_c), rel_rms(chain, comp)
+        print(f"chain path: ResNet-50 training-mode forward, batch {b}, {img} "
+              f"px, {len(ops)} rest blocks ({fb.conv1x1_stats.launches} "
+              f"through the chain), {len(stat_names)} stat outputs: "
+              f"loss composition {loss_c!r}, chain {loss_k!r} (diff "
+              f"{d_loss:.3e}, tol {loss_lim:.3e}); stat outputs (running "
+              f"stats as their updates) largest relative rms diff "
+              f"{d_stats:.3e} (tol {stat_lim:.3e}); the composition with "
+              f"images x (1 + {PERTURB}): loss diff {abs(loss_p - loss_c):.3e},"
+              f" stats {rel_rms(pert, comp):.3e} [{card}]")
+        if not (np.isfinite(loss_k) and d_loss <= loss_lim
+                and d_stats <= stat_lim):
+            raise RuntimeError("the chain's training-mode forward disagrees "
+                               "with the composition's")
+        times = {False: [], True: []}
+        for chain_on in (False, True):
+            forward(chain_on, restore=False)
+        n_fwd += 1
+        for _ in range(CHAIN_FORWARDS):
+            for chain_on in (False, True):
+                t0 = time.perf_counter()
+                forward(chain_on, restore=False)
+                times[chain_on].append(time.perf_counter() - t0)
+        n_fwd += CHAIN_FORWARDS
+        for chain_on, what in ((False, "composition"), (True, "chain")):
+            ms = 1e3 * sum(times[chain_on]) / CHAIN_FORWARDS
+            print(f"chain path: {what} forward {ms:.3f} ms "
+                  f"({[round(1e3 * t, 2) for t in times[chain_on]]}), "
+                  f"{b / ms * 1e3:.1f} images/s [{card}]")
+            wall, by_name, _ = profiled(
+                torch, lambda c=chain_on: forward(c, restore=False), 1)
+            print_profile(f"ResNet-50 training-mode forward, {what} (batch "
+                          f"{b}, {img} px)", wall, by_name, card)
+        n_fwd += 2
+        host = block_host_ms(torch, fb, lambda c: forward(c, restore=False))
+        n_fwd += 1
+        print(f"chain path: host ms of each fused_bottleneck op (its "
+              f"launches queued, no sync): composition "
+              f"{[round(t, 3) for t, _ in host[False]]}, chain "
+              f"{[round(t, 3) for t, _ in host[True]]}; the chain's blocks "
+              f"{sum(t for t, k in host[True] if k):.3f} ms against "
+              f"{sum(t for (t, _), (_, k) in zip(host[False], host[True]) if k):.3f}"
+              f" for the same blocks composed [{card}]")
+        launches = {name: getattr(fb, name).launches
+                    for name in CHAIN_KERNELS}
+    finally:
+        if prev is None:
+            os.environ.pop("PT_FUSED_BLOCK", None)
+        else:
+            os.environ["PT_FUSED_BLOCK"] = prev
+    print(f"chain path launches over {n_fwd} chain forwards: {launches}")
+    want = CHAIN_BLOCKS * n_fwd
+    for name, count in launches.items():
+        if count != want:
+            raise RuntimeError(f"{name} was launched {count} times on the "
+                               f"chain path, expected {want} ({CHAIN_BLOCKS} "
+                               f"a forward)")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1413,6 +1737,7 @@ def main() -> int:
                 print(f"  {src}: {line.strip()}")
 
     import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import fused_block as fb
     from paddle_tpu_torch.kernels import fused_conv as fc
     from paddle_tpu_torch.kernels import fused_lstm as fl
 
@@ -1425,6 +1750,7 @@ def main() -> int:
     rows.update(check_epilogue(torch, F, fc, card,
                                epilogue_ops(built["fused"], RESNET["batch"])))
     rows.update(check_lstm(np, torch, fl, card, args.seed))
+    rows.update(check_chain(torch, F, fb, card))
     launches = main_path(np, torch, fa, card, args.seed)
     trained = train_path(np, torch, fa, card, args.seed)
     # the forward kernel runs on both main paths
@@ -1436,6 +1762,7 @@ def main() -> int:
     resnet_card_vs_cpu(np, torch, card, args.seed)
     launches.update(lstm_path(np, torch, fl, card, args.seed))
     lstm_card_vs_cpu(np, torch, card, args.seed)
+    launches.update(chain_path(np, torch, fb, card, built))
 
     meta = {"flash_attention_fwd": (
                 "paddle_tpu_torch/csrc/flash_attention.cu",
@@ -1458,7 +1785,15 @@ def main() -> int:
             "lstm_seq_fwd": ("paddle_tpu_torch/csrc/fused_lstm.cu",
                              "paddle_tpu/kernels/fused_lstm.py:78"),
             "lstm_seq_bwd": ("paddle_tpu_torch/csrc/fused_lstm.cu",
-                             "paddle_tpu/kernels/fused_lstm.py:207")}
+                             "paddle_tpu/kernels/fused_lstm.py:207"),
+            "conv1x1_stats": ("paddle_tpu_torch/csrc/fused_block.cu",
+                              "paddle_tpu/kernels/fused_block.py:790"),
+            "conv3x3_norm_stats": ("paddle_tpu_torch/csrc/fused_block.cu",
+                                   "paddle_tpu/kernels/fused_block.py:653"),
+            "norm_relu_moments": ("paddle_tpu_torch/csrc/fused_block.cu",
+                                  "paddle_tpu/kernels/fused_block.py:714"),
+            "conv1x1_bn_residual": ("paddle_tpu_torch/csrc/fused_block.cu",
+                                    "paddle_tpu/kernels/fused_block.py:756")}
     kernels = [dict(name=name, route="cuda", source=meta[name][0],
                     replaces=meta[name][1], launches=launches[name], **row)
                for name, row in rows.items()]

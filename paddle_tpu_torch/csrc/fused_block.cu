@@ -1,0 +1,664 @@
+// Bottleneck-chain forward kernels for Hopper (sm_90a), float32.
+//
+// Replace the forward TPU kernels of paddle_tpu/kernels/fused_block.py, the
+// chain that runs a stride-1 ResNet rest block (1x1 conv + BN + ReLU, 3x3
+// conv + BN + ReLU, 1x1 conv + BN, + input, ReLU) with training-mode BN.
+// Activations are [N, C, S] with S = H*W:
+//   conv1x1_stats (Pallas body _k1_kernel): a1[n] = W1 x[n], W1 [C, Cin],
+//     and the per-channel sum and sum of squares of a1;
+//   conv3x3_norm_stats (_k2_kernel): a2 = the 3x3 same-padded conv of
+//     h1 = relu(a1 * scale + shift), taps [9, Cout, Cin] indexed
+//     [(dy+1)*3 + (dx+1)]: a2[p] = sum taps[t] h1[p + dy*W + dx], an
+//     out-of-image tap reading 0 (the conv pads h1, not a1); and the sums;
+//   norm_relu_moments (_moments_kernel): sum_h [C] and M2 = sum_{n,s} h h^T
+//     [C, C] of h = relu(a2 * scale + shift);
+//   conv1x1_bn_residual (_assemble_kernel): out[n] = relu((W3 h2[n]) * sc3
+//     + sh3 + x[n]), h2 = relu(a2 * sc2 + sh2), W3 [Cout, C].
+//
+// What bounds them on the H100: operations. At ResNet-50's three chain
+// stages (batch 128; Cin, C, S = 256, 64, 3136 / 512, 128, 784 / 1024,
+// 256, 196) every stage does the same products: 13.2 GFLOP in
+// conv1x1_stats (0.196 ms at the 67 TFLOP/s float32 peak), 29.6 in
+// conv3x3_norm_stats (0.442 ms), 3.3 in the moments (0.049 ms) and 13.2 in
+// conv1x1_bn_residual (0.196 ms; at 56x56 its 925 MB of traffic, 0.276 ms,
+// bound it instead).
+//
+// What the design does about it. The TPU kernels take a whole image a grid
+// step, roll it in VMEM for the 3x3 taps and carry the sums from step to
+// step of a sequential grid. Here every kernel is one tiled float32 SIMT
+// product on the CUDA cores (no tensor cores: TF32 would not hold the 1e-5
+// contract), out = A [M, K] x B [K, N*S], with the batch folded into the
+// columns so that S = 196 and 49 do not leave tiles empty:
+//   - a 256-thread block owns a BM x BN output tile (BM 64 or 128 by M,
+//     BN 128; the moments 64 x 64 or 128 x 128), each thread an 8 x 8 (or
+//     4 x 8, 4 x 4) micro-tile read from shared memory as float4;
+//   - K advances 8 deep, two shared-memory stages: the next stage's global
+//     loads are issued into registers before the current stage's products;
+//   - the loaders do the elementwise work on the way in: B of the 3x3 is
+//     normalize + ReLU of a1 at the tap's source pixel (0 outside the
+//     image), B of the last 1x1 normalize + ReLU of a2, so h1 and h2 never
+//     reach device memory; each thread loads one fixed column of B, whose
+//     (n, y, x) it decodes once;
+//   - the epilogues do the rest on the way out: a1 and a2 are written with
+//     each tile's per-channel partial sums into a [2, C, tiles] buffer
+//     (a fixed-order tree across the tile's threads), which a second
+//     kernel adds in tile order; the last 1x1 applies the bn3 affine, the
+//     residual and the ReLU;
+//   - the moments' K is N*S (25,088 to 401,408) against a C x C output, so
+//     it is cut into splits, each block writes its partial Gram matrix (and
+//     the row sums of h in column C) to [splits, C, C + 1], and a second
+//     kernel adds the splits in order.
+// No atomics anywhere: every result is deterministic.
+#include <climits>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;  // 16 x 16 threads
+constexpr int kBK = 8;         // depth of a k stage
+constexpr int kBN = 128;       // columns of a conv kernel's tile
+
+__device__ __forceinline__ float relu_affine(float v, float sc, float sh) {
+  return fmaxf(fmaf(v, sc, sh), 0.f);
+}
+
+// Shared memory of a BM x BN tile: two stages of A [kBK][BM + 4] and of B
+// [kBK][BN + 4] (the pad keeps the transposed stores free of bank
+// conflicts); the epilogue reuses it for [2][BM][16] row partials.
+template <int BM, int BN>
+struct Smem {
+  static constexpr int kA = kBK * (BM + 4);
+  static constexpr int kB = kBK * (BN + 4);
+  static constexpr int kStages = 2 * (kA + kB);
+  static constexpr int kRed = 2 * BM * 16;
+  static constexpr int kFloats = kStages > kRed ? kStages : kRed;
+};
+
+// Local row (column) of a thread's i-th micro-tile element: groups of 4
+// rows 64 apart, so that 8 neighbouring threads read 128 contiguous bytes.
+__device__ __forceinline__ int tile_pos(int i, int t) {
+  return (i >> 2) * 64 + t * 4 + (i & 3);
+}
+
+// acc += As^T Bs over one kBK-deep stage.
+template <int TM, int TN>
+__device__ __forceinline__ void mma_stage(float (&acc)[TM][TN],
+                                          const float* As, const float* Bs,
+                                          int ty, int tx) {
+  constexpr int BM = 16 * TM, BN = 16 * TN;
+#pragma unroll
+  for (int kk = 0; kk < kBK; ++kk) {
+    float a[TM], b[TN];
+#pragma unroll
+    for (int g = 0; g < TM / 4; ++g) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(As + kk * (BM + 4) + g * 64 + ty * 4);
+      a[4 * g] = v.x;
+      a[4 * g + 1] = v.y;
+      a[4 * g + 2] = v.z;
+      a[4 * g + 3] = v.w;
+    }
+#pragma unroll
+    for (int g = 0; g < TN / 4; ++g) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(Bs + kk * (BN + 4) + g * 64 + tx * 4);
+      b[4 * g] = v.x;
+      b[4 * g + 1] = v.y;
+      b[4 * g + 2] = v.z;
+      b[4 * g + 3] = v.w;
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Loaders. fetch(k0) reads stage k0 from device memory into registers;
+// store(s) writes them to a stage buffer. "Row" loaders fill a [rows][kBK]
+// tile (thread: k offset tid & 7, rows tid >> 3 + 32 r) and store it
+// transposed, [kBK][rows + 4]; "column" loaders fill a [kBK][BN] tile
+// (thread: one fixed column tid % BN, k offsets tid / BN + (256 / BN) r).
+// ---------------------------------------------------------------------------
+
+// A[m][k] = w[m * K + k]: a row-major weight [M, K].
+template <int TM>
+struct WeightA {
+  static constexpr int BM = 16 * TM, R = TM / 2;
+  const float* w;
+  int M, K, m0, kk, mr;
+  float reg[R];
+  __device__ WeightA(const float* w_, int M_, int K_, int m0_)
+      : w(w_), M(M_), K(K_), m0(m0_), kk(threadIdx.x & 7),
+        mr(threadIdx.x >> 3) {}
+  __device__ __forceinline__ void fetch(int k0) {
+    const int k = k0 + kk;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int m = m0 + mr + 32 * r;
+      reg[r] = (m < M && k < K) ? __ldg(w + (long)m * K + k) : 0.f;
+    }
+  }
+  __device__ __forceinline__ void store(float* s) const {
+#pragma unroll
+    for (int r = 0; r < R; ++r) s[kk * (BM + 4) + mr + 32 * r] = reg[r];
+  }
+};
+
+// A[m][k] = taps[k / Cin][m][k % Cin] (K = 9 Cin; Cin % kBK == 0, so a
+// stage lies inside one tap).
+template <int TM>
+struct TapsA {
+  static constexpr int BM = 16 * TM, R = TM / 2;
+  const float* taps;
+  int M, Cin, m0, kk, mr;
+  float reg[R];
+  __device__ TapsA(const float* t_, int M_, int Cin_, int m0_)
+      : taps(t_), M(M_), Cin(Cin_), m0(m0_), kk(threadIdx.x & 7),
+        mr(threadIdx.x >> 3) {}
+  __device__ __forceinline__ void fetch(int k0) {
+    const int tap = k0 / Cin;
+    const int ci = k0 - tap * Cin + kk;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int m = m0 + mr + 32 * r;
+      reg[r] = m < M ? __ldg(taps + ((long)tap * M + m) * Cin + ci) : 0.f;
+    }
+  }
+  __device__ __forceinline__ void store(float* s) const {
+#pragma unroll
+    for (int r = 0; r < R; ++r) s[kk * (BM + 4) + mr + 32 * r] = reg[r];
+  }
+};
+
+// B[k][j] = src[n, k, p] at column j = n * S + p, or relu(src * scale[k]
+// + shift[k]) with NORM: a [N, K, S] activation as K x (N*S).
+template <int TN, bool NORM>
+struct ActB {
+  static constexpr int BN = 16 * TN, R = TN / 2, KS = kThreads / BN;
+  const float* src;
+  const float* scale;
+  const float* shift;
+  int K, S, col, kr;
+  long base;
+  bool ok;
+  float reg[R];
+  __device__ ActB(const float* src_, const float* sc_, const float* sh_,
+                  int K_, int S_, int NS, int j0)
+      : src(src_), scale(sc_), shift(sh_), K(K_), S(S_),
+        col(threadIdx.x % BN), kr(threadIdx.x / BN) {
+    const int j = j0 + col;
+    ok = j < NS;
+    const int n = ok ? j / S : 0;
+    base = (long)n * K * S + (j - n * S);
+  }
+  __device__ __forceinline__ void fetch(int k0) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int k = k0 + kr + KS * r;
+      float v = 0.f;
+      if (ok && k < K) {
+        v = __ldg(src + base + (long)k * S);
+        if constexpr (NORM) v = relu_affine(v, __ldg(scale + k), __ldg(shift + k));
+      }
+      reg[r] = v;
+    }
+  }
+  __device__ __forceinline__ void store(float* s) const {
+#pragma unroll
+    for (int r = 0; r < R; ++r) s[(kr + KS * r) * (BN + 4) + col] = reg[r];
+  }
+};
+
+// B[k][j] of the 3x3: k = tap * Cin + ci, column j = (n, y, x);
+// relu(a1[n, ci, y+dy, x+dx] * scale[ci] + shift[ci]) inside the image, 0
+// outside (zero padding of h1).
+template <int TN>
+struct Conv3x3B {
+  static constexpr int BN = 16 * TN, R = TN / 2, KS = kThreads / BN;
+  const float* a;
+  const float* scale;
+  const float* shift;
+  int Cin, H, W, S, col, kr, y, x;
+  long base;
+  bool ok;
+  float reg[R];
+  __device__ Conv3x3B(const float* a_, const float* sc_, const float* sh_,
+                      int Cin_, int H_, int W_, int NS, int j0)
+      : a(a_), scale(sc_), shift(sh_), Cin(Cin_), H(H_), W(W_), S(H_ * W_),
+        col(threadIdx.x % BN), kr(threadIdx.x / BN) {
+    const int j = j0 + col;
+    ok = j < NS;
+    const int n = ok ? j / S : 0;
+    const int p = j - n * S;
+    y = p / W;
+    x = p - y * W;
+    base = (long)n * Cin * S;
+  }
+  __device__ __forceinline__ void fetch(int k0) {
+    const int tap = k0 / Cin;
+    const int ci0 = k0 - tap * Cin;
+    const int ty = tap / 3;
+    const int yy = y + ty - 1, xx = x + (tap - 3 * ty) - 1;
+    const bool in = ok && yy >= 0 && yy < H && xx >= 0 && xx < W;
+    const long off = base + (long)yy * W + xx;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int ci = ci0 + kr + KS * r;
+      reg[r] = in ? relu_affine(__ldg(a + off + (long)ci * S), __ldg(scale + ci),
+                                __ldg(shift + ci))
+                  : 0.f;
+    }
+  }
+  __device__ __forceinline__ void store(float* s) const {
+#pragma unroll
+    for (int r = 0; r < R; ++r) s[(kr + KS * r) * (BN + 4) + col] = reg[r];
+  }
+};
+
+// The moments' operands, a row loader for both sides: X[c][k] =
+// relu(a[n, c, p] * scale[c] + shift[c]) at k = n * S + p < NS.
+template <int T>
+struct ActRows {
+  static constexpr int BM = 16 * T, R = T / 2;
+  const float* a;
+  const float* scale;
+  const float* shift;
+  int C, S, NS, c0, kk, cr;
+  float reg[R];
+  __device__ ActRows(const float* a_, const float* sc_, const float* sh_,
+                     int C_, int S_, int NS_, int c0_)
+      : a(a_), scale(sc_), shift(sh_), C(C_), S(S_), NS(NS_), c0(c0_),
+        kk(threadIdx.x & 7), cr(threadIdx.x >> 3) {}
+  __device__ __forceinline__ void fetch(int k0) {
+    const int k = k0 + kk;
+    const int n = k / S;
+    const long base = (long)n * C * S + (k - n * S);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int c = c0 + cr + 32 * r;
+      reg[r] = (k < NS && c < C)
+                   ? relu_affine(__ldg(a + base + (long)c * S), __ldg(scale + c),
+                                 __ldg(shift + c))
+                   : 0.f;
+    }
+  }
+  __device__ __forceinline__ void store(float* s) const {
+#pragma unroll
+    for (int r = 0; r < R; ++r) s[kk * (BM + 4) + cr + 32 * r] = reg[r];
+  }
+};
+
+// acc = A B over k in [kb, ke), two shared-memory stages. With ROWSUM the
+// threads tid < BM also add up their row of every A stage into rowsum.
+template <int TM, int TN, bool ROWSUM, class LA, class LB>
+__device__ __forceinline__ void mainloop(float (&acc)[TM][TN], LA& la, LB& lb,
+                                         int kb, int ke, float* smem,
+                                         float& rowsum) {
+  constexpr int BM = 16 * TM;
+  using SM = Smem<BM, 16 * TN>;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  float* As = smem;
+  float* Bs = smem + 2 * SM::kA;
+  la.fetch(kb);
+  lb.fetch(kb);
+  la.store(As);
+  lb.store(Bs);
+  __syncthreads();
+  int buf = 0;
+  for (int k0 = kb; k0 < ke; k0 += kBK) {
+    const bool next = k0 + kBK < ke;
+    if (next) {
+      la.fetch(k0 + kBK);
+      lb.fetch(k0 + kBK);
+    }
+    const float* a = As + buf * SM::kA;
+    mma_stage<TM, TN>(acc, a, Bs + buf * SM::kB, ty, tx);
+    if constexpr (ROWSUM) {
+      if (tid < BM)
+#pragma unroll
+        for (int kk = 0; kk < kBK; ++kk) rowsum += a[kk * (BM + 4) + tid];
+    }
+    if (next) {
+      la.store(As + (buf ^ 1) * SM::kA);
+      lb.store(Bs + (buf ^ 1) * SM::kB);
+    }
+    __syncthreads();
+    buf ^= 1;
+  }
+}
+
+// The offsets n * M * S + p in an [N, M, S] tensor of a thread's TN tile
+// columns (column j = n * S + p), and whether each is inside N * S.
+template <int TN>
+__device__ __forceinline__ void column_offsets(long (&off)[TN], bool (&ok)[TN],
+                                               int j0, int M, int S, int NS) {
+  const int tx = threadIdx.x & 15;
+#pragma unroll
+  for (int j = 0; j < TN; ++j) {
+    const int jg = j0 + tile_pos(j, tx);
+    ok[j] = jg < NS;
+    const int n = ok[j] ? jg / S : 0;
+    off[j] = (long)n * M * S + (jg - n * S);
+  }
+}
+
+// Writes the tile of y [N, M, S] (column j = n * S + p) and its per-row
+// sum and sum of squares into part [2, M, T] at tile column jt.
+template <int TM, int TN>
+__device__ __forceinline__ void store_with_stats(const float (&acc)[TM][TN],
+                                                 float* __restrict__ y,
+                                                 float* __restrict__ part,
+                                                 int M, int S, int NS, int T,
+                                                 int m0, int j0, int jt,
+                                                 float* red) {
+  constexpr int BM = 16 * TM;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  long coff[TN];
+  bool cok[TN];
+  column_offsets<TN>(coff, cok, j0, M, S, NS);
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int lr = tile_pos(i, ty);
+    const int m = m0 + lr;
+    float s = 0.f, q = 0.f;
+    if (m < M) {
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        if (cok[j]) {
+          const float v = acc[i][j];
+          y[coff[j] + (long)m * S] = v;
+          s += v;
+          q = fmaf(v, v, q);
+        }
+      }
+    }
+    red[lr * 16 + tx] = s;
+    red[(BM + lr) * 16 + tx] = q;
+  }
+  __syncthreads();
+  if (tid < BM && m0 + tid < M) {
+    float s = 0.f, q = 0.f;
+    for (int t = 0; t < 16; ++t) {
+      s += red[tid * 16 + t];
+      q += red[(BM + tid) * 16 + t];
+    }
+    part[(long)(m0 + tid) * T + jt] = s;
+    part[((long)M + m0 + tid) * T + jt] = q;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Kernels. Conv grids: (M tiles, column tiles), M tiles fastest, so the
+// blocks that share a column tile of B run together and meet it in L2.
+// ---------------------------------------------------------------------------
+
+template <int TM, int TN>
+__global__ void __launch_bounds__(kThreads, 2)
+conv1x1_stats_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                     float* __restrict__ y, float* __restrict__ part, int M,
+                     int K, int S, int NS, int T) {
+  constexpr int BM = 16 * TM, BN = 16 * TN;
+  __shared__ __align__(16) float smem[Smem<BM, BN>::kFloats];
+  const int m0 = blockIdx.x * BM, jt = blockIdx.y, j0 = jt * BN;
+  WeightA<TM> la(w, M, K, m0);
+  ActB<TN, false> lb(x, nullptr, nullptr, K, S, NS, j0);
+  float acc[TM][TN];
+  float unused = 0.f;
+  mainloop<TM, TN, false>(acc, la, lb, 0, K, smem, unused);
+  store_with_stats<TM, TN>(acc, y, part, M, S, NS, T, m0, j0, jt, smem);
+}
+
+template <int TM, int TN>
+__global__ void __launch_bounds__(kThreads, 2)
+conv3x3_norm_stats_kernel(const float* __restrict__ a1,
+                          const float* __restrict__ taps,
+                          const float* __restrict__ scale,
+                          const float* __restrict__ shift,
+                          float* __restrict__ y, float* __restrict__ part,
+                          int M, int Cin, int H, int W, int NS, int T) {
+  constexpr int BM = 16 * TM, BN = 16 * TN;
+  __shared__ __align__(16) float smem[Smem<BM, BN>::kFloats];
+  const int m0 = blockIdx.x * BM, jt = blockIdx.y, j0 = jt * BN;
+  TapsA<TM> la(taps, M, Cin, m0);
+  Conv3x3B<TN> lb(a1, scale, shift, Cin, H, W, NS, j0);
+  float acc[TM][TN];
+  float unused = 0.f;
+  mainloop<TM, TN, false>(acc, la, lb, 0, 9 * Cin, smem, unused);
+  store_with_stats<TM, TN>(acc, y, part, M, H * W, NS, T, m0, j0, jt, smem);
+}
+
+template <int TM, int TN>
+__global__ void __launch_bounds__(kThreads, 2)
+conv1x1_bn_residual_kernel(const float* __restrict__ a2,
+                           const float* __restrict__ x,
+                           const float* __restrict__ w3,
+                           const float* __restrict__ sc2,
+                           const float* __restrict__ sh2,
+                           const float* __restrict__ sc3,
+                           const float* __restrict__ sh3,
+                           float* __restrict__ out, int M, int K, int S,
+                           int NS) {
+  constexpr int BM = 16 * TM, BN = 16 * TN;
+  __shared__ __align__(16) float smem[Smem<BM, BN>::kFloats];
+  const int m0 = blockIdx.x * BM, j0 = blockIdx.y * BN;
+  WeightA<TM> la(w3, M, K, m0);
+  ActB<TN, true> lb(a2, sc2, sh2, K, S, NS, j0);
+  float acc[TM][TN];
+  float unused = 0.f;
+  mainloop<TM, TN, false>(acc, la, lb, 0, K, smem, unused);
+  const int ty = threadIdx.x >> 4;
+  long coff[TN];
+  bool cok[TN];
+  column_offsets<TN>(coff, cok, j0, M, S, NS);
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = m0 + tile_pos(i, ty);
+    if (m >= M) continue;
+    const float s3 = __ldg(sc3 + m), h3 = __ldg(sh3 + m);
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      if (cok[j]) {
+        const long o = coff[j] + (long)m * S;
+        out[o] = fmaxf(fmaf(acc[i][j], s3, h3) + __ldg(x + o), 0.f);
+      }
+    }
+  }
+}
+
+// Block (tile, split): the T*16-square tile (tm, tn) of the split's partial
+// Gram matrix, part[split] [C, C + 1]; tiles with tn == 0 also write the
+// rows' sums of h into column C.
+template <int T>
+__global__ void __launch_bounds__(kThreads, 2)
+moments_kernel(const float* __restrict__ a2, const float* __restrict__ scale,
+               const float* __restrict__ shift, float* __restrict__ part,
+               int C, int S, int NS, int chunk, int tiles) {
+  constexpr int BM = 16 * T;
+  __shared__ __align__(16) float smem[Smem<BM, BM>::kFloats];
+  const int tm = blockIdx.x % tiles, tn = blockIdx.x / tiles;
+  const int m0 = tm * BM, n0 = tn * BM;
+  const int kb = blockIdx.y * chunk, ke = min(NS, kb + chunk);
+  ActRows<T> la(a2, scale, shift, C, S, NS, m0);
+  ActRows<T> lb(a2, scale, shift, C, S, NS, n0);
+  float acc[T][T];
+  float rowsum = 0.f;
+  if (tn == 0)
+    mainloop<T, T, true>(acc, la, lb, kb, ke, smem, rowsum);
+  else
+    mainloop<T, T, false>(acc, la, lb, kb, ke, smem, rowsum);
+  float* P = part + (long)blockIdx.y * C * (C + 1);
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+#pragma unroll
+  for (int i = 0; i < T; ++i) {
+    const int m = m0 + tile_pos(i, ty);
+    if (m >= C) continue;
+#pragma unroll
+    for (int j = 0; j < T; ++j) {
+      const int c = n0 + tile_pos(j, tx);
+      if (c < C) P[(long)m * (C + 1) + c] = acc[i][j];
+    }
+  }
+  if (tn == 0 && tid < BM && m0 + tid < C) P[(long)(m0 + tid) * (C + 1) + C] = rowsum;
+}
+
+// out[0][m] and out[1][m]: row m's T partials added in tile order (a warp
+// a row, each lane a strided run, then the lanes in order).
+__global__ void __launch_bounds__(kThreads)
+chain_stats_final_kernel(const float* __restrict__ part, float* __restrict__ out,
+                   int M, int T) {
+  __shared__ float red[2][kThreads];
+  const int lane = threadIdx.x & 31;
+  const int m = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  float s = 0.f, q = 0.f;
+  if (m < M) {
+    for (int t = lane; t < T; t += 32) {
+      s += part[(long)m * T + t];
+      q += part[((long)M + m) * T + t];
+    }
+  }
+  red[0][threadIdx.x] = s;
+  red[1][threadIdx.x] = q;
+  __syncthreads();
+  if (lane == 0 && m < M) {
+    float ts = 0.f, tq = 0.f;
+    for (int l = 0; l < 32; ++l) {
+      ts += red[0][threadIdx.x + l];
+      tq += red[1][threadIdx.x + l];
+    }
+    out[m] = ts;
+    out[M + m] = tq;
+  }
+}
+
+// out[e] = sum over the splits of part[split][e], in split order.
+__global__ void __launch_bounds__(kThreads)
+moments_final_kernel(const float* __restrict__ part, float* __restrict__ out,
+                    long E, int splits) {
+  const long e = (long)blockIdx.x * kThreads + threadIdx.x;
+  if (e >= E) return;
+  float s = 0.f;
+  for (int p = 0; p < splits; ++p) s += part[(long)p * E + e];
+  out[e] = s;
+}
+
+int finish_stats(const float* part, float* stats, int M, int T,
+                 cudaStream_t s) {
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  chain_stats_final_kernel<<<(M + 7) / 8, kThreads, 0, s>>>(part, stats, M, T);
+  return (int)cudaGetLastError();
+}
+
+bool tiles_ok(int M, int N, int S, int T) {
+  const long ns = (long)N * S;
+  return M > 0 && N > 0 && S > 0 && ns < INT_MAX &&
+         T == (int)((ns + kBN - 1) / kBN) && T <= 65535;
+}
+
+}  // namespace
+
+// x [N, Cin, S], w [C, Cin]; y [N, C, S], part [2, C, T] scratch, stats
+// [2, C] (sum, sum of squares); all float32, contiguous; T = ceil(N*S /
+// 128). Returns a cudaError_t (0 = launched).
+extern "C" int fused_block_conv1x1_stats_f32(const float* x, const float* w,
+                                             float* y, float* part,
+                                             float* stats, int N, int Cin,
+                                             int C, int S, int T,
+                                             void* stream) {
+  if (Cin <= 0 || !tiles_ok(C, N, S, T)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int NS = N * S;
+  if (C <= 64)
+    conv1x1_stats_kernel<4, 8><<<dim3((C + 63) / 64, T), kThreads, 0, s>>>(
+        x, w, y, part, C, Cin, S, NS, T);
+  else
+    conv1x1_stats_kernel<8, 8><<<dim3((C + 127) / 128, T), kThreads, 0, s>>>(
+        x, w, y, part, C, Cin, S, NS, T);
+  return finish_stats(part, stats, C, T, s);
+}
+
+// a1 [N, Cin, H*W], taps [9, Cout, Cin], scale/shift [Cin]; y [N, Cout,
+// H*W], part [2, Cout, T], stats [2, Cout]; Cin % 8 == 0; T = ceil(N*H*W /
+// 128).
+extern "C" int fused_block_conv3x3_norm_stats_f32(
+    const float* a1, const float* taps, const float* scale,
+    const float* shift, float* y, float* part, float* stats, int N, int Cin,
+    int Cout, int H, int W, int T, void* stream) {
+  if (Cin <= 0 || Cin % kBK || H <= 0 || W <= 0 ||
+      !tiles_ok(Cout, N, H * W, T))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int NS = N * H * W;
+  if (Cout <= 64)
+    conv3x3_norm_stats_kernel<4, 8>
+        <<<dim3((Cout + 63) / 64, T), kThreads, 0, s>>>(
+            a1, taps, scale, shift, y, part, Cout, Cin, H, W, NS, T);
+  else
+    conv3x3_norm_stats_kernel<8, 8>
+        <<<dim3((Cout + 127) / 128, T), kThreads, 0, s>>>(
+            a1, taps, scale, shift, y, part, Cout, Cin, H, W, NS, T);
+  return finish_stats(part, stats, Cout, T, s);
+}
+
+// a2 [N, C, S], scale/shift [C]; part [splits, C, C + 1] scratch, out
+// [C, C + 1]: M2 = sum h h^T in columns 0..C-1, sum h in column C. Split p
+// takes the columns n*S + s in [p * chunk, (p + 1) * chunk); chunk % 8 ==
+// 0 and the splits cover N*S exactly.
+extern "C" int fused_block_norm_relu_moments_f32(const float* a2,
+                                                 const float* scale,
+                                                 const float* shift,
+                                                 float* part, float* out,
+                                                 int N, int C, int S,
+                                                 int splits, int chunk,
+                                                 void* stream) {
+  const long ns = (long)N * S;
+  if (N <= 0 || C <= 0 || S <= 0 || ns >= INT_MAX || chunk <= 0 ||
+      chunk % kBK || splits <= 0 || splits > 65535 ||
+      (long)splits * chunk < ns || (long)(splits - 1) * chunk >= ns)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C <= 64) {
+    const int tiles = (C + 63) / 64;
+    moments_kernel<4><<<dim3(tiles * tiles, splits), kThreads, 0, s>>>(
+        a2, scale, shift, part, C, S, (int)ns, chunk, tiles);
+  } else {
+    const int tiles = (C + 127) / 128;
+    moments_kernel<8><<<dim3(tiles * tiles, splits), kThreads, 0, s>>>(
+        a2, scale, shift, part, C, S, (int)ns, chunk, tiles);
+  }
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const long E = (long)C * (C + 1);
+  moments_final_kernel<<<(int)((E + kThreads - 1) / kThreads), kThreads, 0,
+                        s>>>(part, out, E, splits);
+  return (int)cudaGetLastError();
+}
+
+// a2 [N, C, S], x [N, Cout, S], w3 [Cout, C], sc2/sh2 [C], sc3/sh3 [Cout];
+// out [N, Cout, S].
+extern "C" int fused_block_conv1x1_bn_residual_f32(
+    const float* a2, const float* x, const float* w3, const float* sc2,
+    const float* sh2, const float* sc3, const float* sh3, float* out, int N,
+    int C, int Cout, int S, void* stream) {
+  const long ns = (long)N * S;
+  if (C <= 0 || Cout <= 0 || N <= 0 || S <= 0 || ns >= INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const int T = (int)((ns + kBN - 1) / kBN);
+  if (T > 65535) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Cout <= 64)
+    conv1x1_bn_residual_kernel<4, 8>
+        <<<dim3((Cout + 63) / 64, T), kThreads, 0, s>>>(
+            a2, x, w3, sc2, sh2, sc3, sh3, out, Cout, C, S, (int)ns);
+  else
+    conv1x1_bn_residual_kernel<8, 8>
+        <<<dim3((Cout + 127) / 128, T), kThreads, 0, s>>>(
+            a2, x, w3, sc2, sh2, sc3, sh3, out, Cout, C, S, (int)ns);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,553 @@
+"""The ResNet bottleneck chain: a stride-1 rest block (1x1 conv + BN +
+ReLU, 3x3 conv + BN + ReLU, 1x1 conv + BN, + input, ReLU, every BN in
+training mode) as four forward kernels, and the plain PyTorch versions
+of its forward and backward.
+
+Counterpart of ``paddle_tpu/kernels/fused_block.py``, with its layouts:
+activations [N, C, S] with S = H·W, ``w1`` [C, Cin], ``taps`` [9, C, C]
+indexed [ky*3 + kx] as [Cout, Cin], ``w3`` [Cin, C]; statistics are
+float32 sums and sums of squares. The chain never materializes h1, h2 or
+a3: the 3x3 and the last 1x1 normalize their input on load, and bn3's
+statistics come analytically from the moments of h2 (mean(a3) = W3·mean
+(h2), E[a3²] = diag(W3 E[h2 h2ᵀ] W3ᵀ)).
+
+Four kernels, written by hand for Hopper in
+``paddle_tpu_torch/csrc/fused_block.cu`` (its header says what bounds
+them and what the design does about it):
+
+* ``conv1x1_stats`` replaces the Pallas ``conv1x1_stats`` (``_k1_kernel``);
+* ``conv3x3_norm_stats`` replaces ``conv3x3_norm_stats`` (``_k2_kernel``);
+* ``norm_relu_moments`` replaces ``norm_relu_moments``
+  (``_moments_kernel``);
+* ``conv1x1_bn_residual`` replaces ``conv1x1_bn_residual``
+  (``_assemble_kernel``).
+
+Each wrapper runs its plain version (``*_reference``) only for tensors
+on the CPU; for a CUDA tensor it launches its kernel or raises, and
+counts the call in its ``launches`` attribute. The backward's four TPU
+kernels (``bwd_reduce3``, ``bwd_apply3``, ``bwd_mid``, ``bwd_final``)
+have plain versions here and no CUDA kernel yet: on a CUDA tensor their
+wrappers raise ``NotImplementedError``.
+
+``bottleneck_rest_fwd`` / ``bottleneck_rest_bwd`` are line-for-line
+ports of the JAX package's; ``FusedBottleneckRest`` is the
+``torch.autograd.Function`` of its ``fused_bottleneck_rest`` custom VJP,
+returning (out, m1, v1, m2, v2, m3, v3), the batch statistics exact
+cotangent citizens.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import build
+
+__all__ = ["EPS_DEFAULT", "conv1x1_stats_reference",
+           "conv3x3_norm_stats_reference", "norm_relu_moments_reference",
+           "conv1x1_bn_residual_reference", "bwd_reduce3_reference",
+           "bwd_apply3_reference", "bwd_mid_reference",
+           "bwd_final_reference", "conv1x1_stats", "conv3x3_norm_stats",
+           "norm_relu_moments", "conv1x1_bn_residual", "bwd_reduce3",
+           "bwd_apply3", "bwd_mid", "bwd_final", "bottleneck_rest_fwd",
+           "bottleneck_rest_bwd", "FusedBottleneckRest",
+           "fused_bottleneck_rest"]
+
+EPS_DEFAULT = 1e-5
+
+
+def _col(v: torch.Tensor) -> torch.Tensor:
+    """[C] -> [1, C, 1], to broadcast a per-channel vector over [N, C, S]."""
+    return v.reshape(1, -1, 1)
+
+
+def _norm_relu(a: torch.Tensor, scale: torch.Tensor,
+               shift: torch.Tensor) -> torch.Tensor:
+    """relu(a·scale_c + shift_c) in float32, rounded to a's dtype."""
+    return torch.clamp_min(a.float() * _col(scale) + _col(shift),
+                           0.0).to(a.dtype)
+
+
+def _sums(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    yf = y.float()
+    return yf.sum(dim=(0, 2)), (yf * yf).sum(dim=(0, 2))
+
+
+# ---------------------------------------------------------------------------
+# plain versions of the forward kernels
+# ---------------------------------------------------------------------------
+
+def conv1x1_stats_reference(x: torch.Tensor, w: torch.Tensor):
+    """x [N, Cin, S], w [C, Cin] -> (y = W·x [N, C, S], Σy [C], Σy² [C])."""
+    y = torch.matmul(w, x)
+    return (y,) + _sums(y)
+
+
+def conv3x3_norm_stats_reference(x: torch.Tensor, taps: torch.Tensor,
+                                 scale: torch.Tensor, shift: torch.Tensor,
+                                 h_side: int):
+    """x [N, Cin, S] raw, taps [9, Cout, Cin], scale/shift [Cin]: the 3x3
+    same-padded conv of h = relu(x·scale + shift), as nine shifted K=Cin
+    products (h padded with zeros: an out-of-image tap reads 0), and its
+    sums. Returns (y [N, Cout, S], Σy [Cout], Σy² [Cout])."""
+    n, cin, s = x.shape
+    w_side = s // h_side
+    h = _norm_relu(x, scale, shift).reshape(n, cin, h_side, w_side)
+    hp = F.pad(h, (1, 1, 1, 1))
+    y = None
+    for ky in range(3):
+        for kx in range(3):
+            hs = hp[:, :, ky:ky + h_side, kx:kx + w_side].reshape(n, cin, s)
+            t = torch.matmul(taps[ky * 3 + kx], hs)
+            y = t if y is None else y + t
+    return (y,) + _sums(y)
+
+
+def norm_relu_moments_reference(x: torch.Tensor, scale: torch.Tensor,
+                                shift: torch.Tensor):
+    """x [N, C, S] raw -> (Σh [C], M2 = Σ_{n,s} h hᵀ [C, C]) of
+    h = relu(x·scale + shift), in float32."""
+    n, c, s = x.shape
+    h = _norm_relu(x, scale, shift).float().permute(1, 0, 2).reshape(c, n * s)
+    return h.sum(dim=1), h @ h.T
+
+
+def conv1x1_bn_residual_reference(x: torch.Tensor, residual: torch.Tensor,
+                                  scale2: torch.Tensor, shift2: torch.Tensor,
+                                  w: torch.Tensor, scale3: torch.Tensor,
+                                  shift3: torch.Tensor) -> torch.Tensor:
+    """x [N, C, S] raw a2, residual [N, Cout, S], w [Cout, C]:
+    relu((W·relu(x·scale2 + shift2))·scale3 + shift3 + residual)."""
+    a3 = torch.matmul(w, _norm_relu(x, scale2, shift2)).float()
+    y = a3 * _col(scale3) + _col(shift3) + residual.float()
+    return torch.clamp_min(y, 0.0).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# plain versions of the backward kernels
+# ---------------------------------------------------------------------------
+
+def bwd_reduce3_reference(dout, out, a2, scale2, shift2):
+    """g3 = dout·(out > 0), P = Σ_n g3 h2ᵀ [Cin, C], Σg3 [Cin]."""
+    g3 = torch.where(out > 0, dout, torch.zeros_like(dout))
+    g3f = g3.float()
+    h2 = _norm_relu(a2, scale2, shift2).float()
+    return g3, torch.einsum("nis,ncs->ic", g3f, h2), g3f.sum(dim=(0, 2))
+
+
+def bwd_apply3_reference(g3, a2, scale2, shift2, amat, bmat, v0, inv2, m2):
+    """g2 = (A·g3 + B·h2 + v0)·(h2 > 0) and bn2's Σg2, Σg2·x̂2."""
+    a2f = a2.float()
+    h2f = torch.clamp_min(a2f * _col(scale2) + _col(shift2), 0.0)
+    dh2 = (torch.matmul(amat.float(), g3.float())
+           + torch.matmul(bmat.float(), h2f.to(a2.dtype).float()) + _col(v0))
+    g2 = torch.where(h2f > 0, dh2, torch.zeros_like(dh2)).to(g3.dtype)
+    g2f = g2.float()
+    xhat2 = a2f * _col(inv2) + _col(-m2 * inv2)
+    return g2, g2f.sum(dim=(0, 2)), (g2f * xhat2).sum(dim=(0, 2))
+
+
+def bwd_mid_reference(g2, a2, a1, scale1, shift1, p2, q2, r2, inv1, m1,
+                      taps, h_side):
+    """da2 = g2·p2 + a2·q2 + r2 (bn2 folded); the 3x3's input gradient dh1
+    and its nine tap gradients; g1 = dh1·(h1 > 0) and bn1's Σg1, Σg1·x̂1.
+    Returns (g1 [N, C, S], dtaps [9, Cout, Cin], Σg1, Σg1·x̂1)."""
+    n, cout, s = g2.shape
+    cin = taps.shape[2]
+    w_side = s // h_side
+    a1f = a1.float()
+    da2 = (g2.float() * _col(p2) + a2.float() * _col(q2) + _col(r2))
+    da2 = da2.to(a1.dtype).float().reshape(n, cout, h_side, w_side)
+    h1f = torch.clamp_min(a1f * _col(scale1) + _col(shift1), 0.0)
+    h1 = h1f.to(a1.dtype).float().reshape(n, cin, h_side, w_side)
+    w2 = taps.float().reshape(3, 3, cout, cin).permute(2, 3, 0, 1)
+    dh1 = F.conv_transpose2d(da2, w2, padding=1).reshape(n, cin, s)
+    dw2 = torch.nn.grad.conv2d_weight(h1, tuple(w2.shape), da2, padding=1)
+    dtaps = dw2.permute(2, 3, 0, 1).reshape(9, cout, cin)
+    g1 = torch.where(h1f > 0, dh1, torch.zeros_like(dh1)).to(g2.dtype)
+    g1f = g1.float()
+    xhat1 = a1f * _col(inv1) + _col(-m1 * inv1)
+    return g1, dtaps, g1f.sum(dim=(0, 2)), (g1f * xhat1).sum(dim=(0, 2))
+
+
+def bwd_final_reference(g3, g1, a1, x, p1, q1, r1, w1):
+    """da1 = g1·p1 + a1·q1 + r1; dx = W1ᵀ·da1 + g3; dW1 = Σ_n da1 xᵀ."""
+    da1 = g1.float() * _col(p1) + a1.float() * _col(q1) + _col(r1)
+    da1 = da1.to(a1.dtype).float()
+    dx = torch.matmul(w1.float().T, da1) + g3.float()
+    return dx.to(g3.dtype), torch.einsum("ncs,nks->ck", da1, x.float())
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_BN = 128      # columns of a conv kernel's output tile (kBN in the source)
+_BK = 8        # depth of a k stage (kBK)
+
+
+def _fn(name: str, argtypes: tuple):
+    return build.bind("fused_block.cu", name, argtypes)
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _dims(name: str, t: torch.Tensor, n: int) -> None:
+    if t.dim() != n:
+        raise ValueError(f"{name} must have {n} dimensions, got "
+                         f"{tuple(t.shape)}")
+
+
+def _empty(device, *shape) -> torch.Tensor:
+    return torch.empty(shape, dtype=torch.float32, device=device)
+
+
+def _col_tiles(n: int, s: int) -> int:
+    return -(-n * s // _BN)
+
+
+def conv1x1_stats(x: torch.Tensor, w: torch.Tensor):
+    """x [N, Cin, S], w [C, Cin] -> (y = W·x [N, C, S], Σy [C], Σy² [C]).
+
+    CPU tensors run ``conv1x1_stats_reference``. CUDA tensors run the
+    kernel: float32, contiguous; the sums are deterministic (a partial
+    per output tile, then a fixed-order pass; no atomics)."""
+    if not build.on_card("conv1x1_stats", x):
+        return conv1x1_stats_reference(x, w)
+    _dims("x", x, 3)
+    _dims("w", w, 2)
+    n, cin, s = x.shape
+    c = w.shape[0]
+    build.check("x", x, x.device, (n, cin, s))
+    build.check("w", w, x.device, (c, cin))
+    t = _col_tiles(n, s)
+    y = _empty(x.device, n, c, s)
+    part, stats = _empty(x.device, 2, c, t), _empty(x.device, 2, c)
+    with torch.cuda.device(x.device):
+        build.launch("conv1x1_stats",
+                     _fn("fused_block_conv1x1_stats_f32",
+                         (_P,) * 5 + (_I,) * 5 + (_P,)),
+                     x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                     part.data_ptr(), stats.data_ptr(), n, cin, c, s, t,
+                     _stream(x.device))
+    conv1x1_stats.launches += 1
+    return y, stats[0], stats[1]
+
+
+conv1x1_stats.launches = 0
+
+
+def conv3x3_norm_stats(x: torch.Tensor, taps: torch.Tensor,
+                       scale: torch.Tensor, shift: torch.Tensor,
+                       h_side: int):
+    """x [N, Cin, S] raw pre-BN activations, taps [9, Cout, Cin]
+    ([ky*3 + kx]), scale/shift [Cin] float32, the folded BN applied with
+    ReLU on load -> (y [N, Cout, S] raw, Σy [Cout], Σy² [Cout]).
+
+    CPU tensors run ``conv3x3_norm_stats_reference``. CUDA tensors run
+    the kernel: float32, contiguous, Cin a multiple of 8, S = h_side ·
+    (S // h_side); deterministic sums."""
+    if not build.on_card("conv3x3_norm_stats", x):
+        return conv3x3_norm_stats_reference(x, taps, scale, shift, h_side)
+    _dims("x", x, 3)
+    _dims("taps", taps, 3)
+    n, cin, s = x.shape
+    cout = taps.shape[1]
+    if h_side <= 0 or s % h_side:
+        raise ValueError(f"S = {s} is not h_side = {h_side} rows")
+    if cin % _BK:
+        raise ValueError(f"Cin = {cin}: the kernel takes a multiple of "
+                         f"{_BK}")
+    build.check("x", x, x.device, (n, cin, s))
+    build.check("taps", taps, x.device, (9, cout, cin))
+    build.check("scale", scale, x.device, (cin,))
+    build.check("shift", shift, x.device, (cin,))
+    t = _col_tiles(n, s)
+    y = _empty(x.device, n, cout, s)
+    part, stats = _empty(x.device, 2, cout, t), _empty(x.device, 2, cout)
+    with torch.cuda.device(x.device):
+        build.launch("conv3x3_norm_stats",
+                     _fn("fused_block_conv3x3_norm_stats_f32",
+                         (_P,) * 7 + (_I,) * 6 + (_P,)),
+                     x.data_ptr(), taps.data_ptr(), scale.data_ptr(),
+                     shift.data_ptr(), y.data_ptr(), part.data_ptr(),
+                     stats.data_ptr(), n, cin, cout, h_side, s // h_side, t,
+                     _stream(x.device))
+    conv3x3_norm_stats.launches += 1
+    return y, stats[0], stats[1]
+
+
+conv3x3_norm_stats.launches = 0
+
+
+def _moment_splits(n: int, c: int, s: int, sms: int) -> Tuple[int, int]:
+    """(splits, chunk) of the moments' K = N·S: enough splits that the
+    square tiles x splits give about 4 blocks per SM, each split a
+    multiple of 8 columns."""
+    tile = 64 if c <= 64 else 128
+    tiles = (-(-c // tile)) ** 2
+    want = max(1, -(-4 * sms // tiles))
+    chunk = _BK * -(-n * s // (want * _BK))
+    return -(-n * s // chunk), chunk
+
+
+def norm_relu_moments(x: torch.Tensor, scale: torch.Tensor,
+                      shift: torch.Tensor):
+    """x [N, C, S] raw -> (Σh [C], M2 = Σ_{n,s} h hᵀ [C, C]) of
+    h = relu(x·scale + shift), the inputs of bn3's analytic statistics.
+
+    CPU tensors run ``norm_relu_moments_reference``. CUDA tensors run the
+    kernel: float32, contiguous; N·S split across blocks, the splits'
+    partials added in a fixed order (deterministic)."""
+    if not build.on_card("norm_relu_moments", x):
+        return norm_relu_moments_reference(x, scale, shift)
+    _dims("x", x, 3)
+    n, c, s = x.shape
+    build.check("x", x, x.device, (n, c, s))
+    build.check("scale", scale, x.device, (c,))
+    build.check("shift", shift, x.device, (c,))
+    splits, chunk = _moment_splits(n, c, s, build.sm_count(x.device))
+    part = _empty(x.device, splits, c, c + 1)
+    out = _empty(x.device, c, c + 1)
+    with torch.cuda.device(x.device):
+        build.launch("norm_relu_moments",
+                     _fn("fused_block_norm_relu_moments_f32",
+                         (_P,) * 5 + (_I,) * 5 + (_P,)),
+                     x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+                     part.data_ptr(), out.data_ptr(), n, c, s, splits, chunk,
+                     _stream(x.device))
+    norm_relu_moments.launches += 1
+    return out[:, c], out[:, :c]
+
+
+norm_relu_moments.launches = 0
+
+
+def conv1x1_bn_residual(x: torch.Tensor, residual: torch.Tensor,
+                        scale2: torch.Tensor, shift2: torch.Tensor,
+                        w: torch.Tensor, scale3: torch.Tensor,
+                        shift3: torch.Tensor) -> torch.Tensor:
+    """x [N, C, S] raw a2, residual [N, Cout, S] (the block input),
+    w [Cout, C]; scale2/shift2 [C] normalize x on load, scale3/shift3
+    [Cout] are bn3's affine -> the block output [N, Cout, S].
+
+    CPU tensors run ``conv1x1_bn_residual_reference``; CUDA tensors the
+    kernel (float32, contiguous)."""
+    if not build.on_card("conv1x1_bn_residual", x):
+        return conv1x1_bn_residual_reference(x, residual, scale2, shift2, w,
+                                             scale3, shift3)
+    _dims("x", x, 3)
+    _dims("w", w, 2)
+    n, c, s = x.shape
+    cout = w.shape[0]
+    build.check("x", x, x.device, (n, c, s))
+    build.check("residual", residual, x.device, (n, cout, s))
+    build.check("w", w, x.device, (cout, c))
+    for name, v, k in (("scale2", scale2, c), ("shift2", shift2, c),
+                       ("scale3", scale3, cout), ("shift3", shift3, cout)):
+        build.check(name, v, x.device, (k,))
+    out = _empty(x.device, n, cout, s)
+    with torch.cuda.device(x.device):
+        build.launch("conv1x1_bn_residual",
+                     _fn("fused_block_conv1x1_bn_residual_f32",
+                         (_P,) * 8 + (_I,) * 4 + (_P,)),
+                     x.data_ptr(), residual.data_ptr(), w.data_ptr(),
+                     scale2.data_ptr(), shift2.data_ptr(), scale3.data_ptr(),
+                     shift3.data_ptr(), out.data_ptr(), n, c, cout, s,
+                     _stream(x.device))
+    conv1x1_bn_residual.launches += 1
+    return out
+
+
+conv1x1_bn_residual.launches = 0
+
+
+def _backward_on_cpu(name: str, t: torch.Tensor) -> None:
+    """The backward kernels run their plain versions on the CPU; no CUDA
+    kernel exists for them yet, so a CUDA tensor raises."""
+    if build.on_card(name, t):
+        raise NotImplementedError(
+            f"{name}: the bottleneck chain's backward kernels (bwd_reduce3, "
+            "bwd_apply3, bwd_mid, bwd_final: rows 10-13 of the TPU kernel "
+            "table) are not ported to the card; train with PT_FUSED_BLOCK "
+            "unset (the composition)")
+
+
+def bwd_reduce3(dout, out, a2, scale2, shift2):
+    _backward_on_cpu("bwd_reduce3", dout)
+    return bwd_reduce3_reference(dout, out, a2, scale2, shift2)
+
+
+def bwd_apply3(g3, a2, scale2, shift2, amat, bmat, v0, inv2, m2):
+    _backward_on_cpu("bwd_apply3", g3)
+    return bwd_apply3_reference(g3, a2, scale2, shift2, amat, bmat, v0, inv2,
+                                m2)
+
+
+def bwd_mid(g2, a2, a1, scale1, shift1, p2, q2, r2, inv1, m1, taps, h_side):
+    _backward_on_cpu("bwd_mid", g2)
+    return bwd_mid_reference(g2, a2, a1, scale1, shift1, p2, q2, r2, inv1,
+                             m1, taps, h_side)
+
+
+def bwd_final(g3, g1, a1, x, p1, q1, r1, w1):
+    _backward_on_cpu("bwd_final", g3)
+    return bwd_final_reference(g3, g1, a1, x, p1, q1, r1, w1)
+
+
+# ---------------------------------------------------------------------------
+# the chain (fused_block.py :61-138, :501-565)
+# ---------------------------------------------------------------------------
+
+def _bn_affine(mean, var, gamma, beta, eps):
+    scale = torch.rsqrt(var + eps) * gamma
+    return mean, var, scale, beta - mean * scale
+
+
+def _bn_fold(ssum, ssq, m_count, gamma, beta, eps=EPS_DEFAULT):
+    """Training-mode BN from Σ and Σ² over m_count values: (mean, var,
+    scale, shift), the affine a conv kernel's successor applies."""
+    mean = ssum / m_count
+    var = torch.clamp_min(ssq / m_count - mean * mean, 0.0)
+    return _bn_affine(mean, var, gamma, beta, eps)
+
+
+def _bn3_fold(w3, sum_h, m2h, m_count, gamma, beta, eps=EPS_DEFAULT):
+    """bn3's (mean, var, scale, shift) without a3: the last conv is
+    linear, so mean(a3) = W3·mean(h2) and E[a3²] = diag(W3 E[h2 h2ᵀ] W3ᵀ),
+    from the moments Σh2 and M2 over m_count values."""
+    w3f = w3.float()
+    mean = w3f @ (sum_h / m_count)
+    e2 = ((w3f @ (m2h / m_count)) * w3f).sum(dim=1)
+    var = torch.clamp_min(e2 - mean * mean, 0.0)
+    return _bn_affine(mean, var, gamma, beta, eps)
+
+
+def bottleneck_rest_fwd(x, w1, taps2, w3, g1, b1, g2, b2, g3, b3, h_side,
+                        eps=EPS_DEFAULT):
+    """Forward of a stride-1 rest block without a shortcut conv.
+
+    x [N, Cin, S] block input (S = h_side²); w1 [C, Cin]; taps2 [9, C, C];
+    w3 [Cin, C]; g/b the BN scales and biases (float32). Returns (out
+    [N, Cin, S], batch stats (m1, v1, m2, v2, m3, v3), aux) with aux =
+    (a1, a2, Σh2, M2, sc1, sh1, sc2, sh2), what the backward needs."""
+    n, _, s = x.shape
+    m_count = n * s
+
+    a1, s1, q1 = conv1x1_stats(x, w1)
+    m1, v1, sc1, sh1 = _bn_fold(s1, q1, m_count, g1, b1, eps)
+
+    a2, s2, q2 = conv3x3_norm_stats(a1, taps2, sc1, sh1, h_side)
+    m2, v2, sc2, sh2 = _bn_fold(s2, q2, m_count, g2, b2, eps)
+
+    sum_h, m2h = norm_relu_moments(a2, sc2, sh2)
+    m3, v3, sc3, sh3 = _bn3_fold(w3, sum_h, m2h, m_count, g3, b3, eps)
+
+    out = conv1x1_bn_residual(a2, x, sc2, sh2, w3, sc3, sh3)
+    return out, (m1, v1, m2, v2, m3, v3), (a1, a2, sum_h, m2h, sc1, sh1,
+                                            sc2, sh2)
+
+
+def _bn_affine_consts(sc, inv, m, sum_g, sum_gx, m_count, gm, gv):
+    """The p/q/r constants of the folded BN backward: da = g·p + a·q + r
+    (fused_block.py :141-157)."""
+    c1 = sum_g / m_count
+    c2 = sum_gx / m_count
+    p = sc
+    q = -sc * c2 * inv + 2.0 * gv / m_count
+    r = -sc * c1 + sc * c2 * m * inv + gm / m_count - 2.0 * m * gv / m_count
+    return p, q, r
+
+
+def bottleneck_rest_bwd(res, dout, stat_cots, h_side, eps=EPS_DEFAULT):
+    """The chain's backward from the forward's residuals res = (x, a1, a2,
+    out, w1, taps, w3, γ1, γ2, γ3, m1, v1, m2, v2, m3, v3, Σh2, M2, sc1,
+    sh1, sc2, sh2) and the cotangents of out and of the six batch stats.
+    Returns (dx, dW1, dtaps, dW3, dγ1, dβ1, dγ2, dβ2, dγ3, dβ3)."""
+    (x, a1, a2, out, w1, taps, w3, gam1, gam2, gam3,
+     m1, v1, m2, v2, m3, v3, sum_h_raw, m2_raw, sc1, sh1, sc2, sh2) = res
+    n, _, s = x.shape
+    m_count = float(n * s)
+    gm1, gv1, gm2, gv2, gm3, gv3 = [t.float() for t in stat_cots]
+    inv1 = torch.rsqrt(v1 + eps)
+    inv2 = torch.rsqrt(v2 + eps)
+    inv3 = torch.rsqrt(v3 + eps)
+    w3f = w3.float()
+
+    # bn3, analytic: a3 never existed
+    g3t, p_mat, sum_g3 = bwd_reduce3(dout, out, a2, sc2, sh2)
+    sum_g3a3 = (w3f * p_mat).sum(dim=1)
+    sum_g3x3 = inv3 * (sum_g3a3 - m3 * sum_g3)
+    dgam3, dbeta3 = sum_g3x3, sum_g3
+    p3, q3, r3 = _bn_affine_consts(inv3 * gam3, inv3, m3, sum_g3, sum_g3x3,
+                                   m_count, gm3, gv3)
+    amat = (w3f * p3[:, None]).T.to(w3.dtype)
+    bmat = (w3f.T @ (w3f * q3[:, None])).to(w3.dtype)
+    v0 = w3f.T @ r3
+    dw3 = (p3[:, None] * p_mat + q3[:, None] * (w3f @ m2_raw)
+           + r3[:, None] * sum_h_raw[None, :])
+
+    # bn2 and the last 1x1's transpose
+    g2, sum_g2, sum_g2x2 = bwd_apply3(g3t, a2, sc2, sh2, amat, bmat, v0,
+                                      inv2, m2)
+    dgam2, dbeta2 = sum_g2x2, sum_g2
+    p2, q2, r2 = _bn_affine_consts(inv2 * gam2, inv2, m2, sum_g2, sum_g2x2,
+                                   m_count, gm2, gv2)
+
+    # the 3x3's transpose, its tap gradients and bn1's reductions
+    g1, dtaps, sum_g1, sum_g1x1 = bwd_mid(g2, a2, a1, sc1, sh1, p2, q2, r2,
+                                          inv1, m1, taps, h_side)
+    dgam1, dbeta1 = sum_g1x1, sum_g1
+    p1, q1, r1 = _bn_affine_consts(inv1 * gam1, inv1, m1, sum_g1, sum_g1x1,
+                                   m_count, gm1, gv1)
+
+    # the first 1x1's transpose, the residual and dW1
+    dx, dw1 = bwd_final(g3t, g1, a1, x, p1, q1, r1, w1)
+
+    return (dx, dw1.to(w1.dtype), dtaps.to(taps.dtype), dw3.to(w3.dtype),
+            dgam1.to(gam1.dtype), dbeta1.to(gam1.dtype),
+            dgam2.to(gam2.dtype), dbeta2.to(gam2.dtype),
+            dgam3.to(gam3.dtype), dbeta3.to(gam3.dtype))
+
+
+class FusedBottleneckRest(torch.autograd.Function):
+    """The differentiable chain: (out, m1, v1, m2, v2, m3, v3). The six
+    batch statistics have exact cotangents (they feed the running stats
+    at the op). The backward runs ``bottleneck_rest_bwd`` from the
+    forward's residuals; on the card it raises until its kernels exist."""
+
+    @staticmethod
+    def forward(ctx, x, w1, taps, w3, g1, b1, g2, b2, g3, b3, h_side, eps):
+        out, stats, aux = bottleneck_rest_fwd(x, w1, taps, w3, g1, b1, g2, b2,
+                                              g3, b3, h_side, eps)
+        a1, a2, sum_h, m2h, sc1, sh1, sc2, sh2 = aux
+        ctx.save_for_backward(x, a1, a2, out, w1, taps, w3, g1, g2, g3,
+                              *stats, sum_h, m2h, sc1, sh1, sc2, sh2)
+        ctx.h_side, ctx.eps = h_side, eps
+        ctx.set_materialize_grads(False)
+        return (out,) + stats
+
+    @staticmethod
+    def backward(ctx, dout, *stat_cots):
+        res = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros_like(res[3])
+        cots = [torch.zeros_like(st) if g is None else g
+                for g, st in zip(stat_cots, res[10:16])]
+        return bottleneck_rest_bwd(res, dout, cots, ctx.h_side,
+                                   ctx.eps) + (None, None)
+
+
+def fused_bottleneck_rest(x, w1, taps, w3, g1, b1, g2, b2, g3, b3, h_side,
+                          eps=EPS_DEFAULT):
+    """The chain through ``FusedBottleneckRest``: (out, m1, v1, m2, v2,
+    m3, v3)."""
+    return FusedBottleneckRest.apply(x, w1, taps, w3, g1, b1, g2, b2, g3, b3,
+                                     h_side, eps)

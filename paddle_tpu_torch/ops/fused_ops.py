@@ -10,11 +10,14 @@ kernels of kernels/fused_conv.py through ``FusedConvEpilogue``, or the
 ``_bn_train`` composition with ``PT_FUSE_EPILOGUE=never``.
 
 ``fused_bottleneck`` is a stride-1 ResNet rest block (conv1x1 + BN +
-ReLU, conv3x3 + BN + ReLU, conv1x1 + BN, + input, ReLU) as one op. It
-runs the composition of the individual ops, which is what the JAX
-package runs by default too; the JAX package's Pallas chain behind
-``PT_FUSED_BLOCK=always`` is not ported, and asking for it on the card
-raises.
+ReLU, conv3x3 + BN + ReLU, conv1x1 + BN, + input, ReLU) as one op. By
+default it runs the composition of the individual ops, as the JAX
+package does. With ``PT_FUSED_BLOCK=always`` on the card, the blocks
+the JAX package's gate takes (H == W, N >= 8, S >= CHAIN_MIN_S (196),
+Cin % 128 == 0, C % 64 == 0) run the bottleneck chain of
+kernels/fused_block.py (``_chain_block``); the others compose. The
+chain's backward has no kernel yet, so a training step through it
+raises on the card.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.registry import register_op
+from ..kernels import fused_block as _fb
 from ..kernels import fused_conv as _fc
 from .nn_ops import _bn_train, _conv2d_infer, conv2d
 
@@ -32,15 +36,11 @@ __all__ = ["fused_block_enabled", "compose_block"]
 
 
 def fused_block_enabled(device: torch.device) -> bool:
-    """The JAX package's gate of the bottleneck chain kernels: never on
-    its default; PT_FUSED_BLOCK=always asks for them. The chain is not
-    ported, so asking for it on a CUDA device raises; elsewhere the JAX
-    package composes too."""
-    mode = os.environ.get("PT_FUSED_BLOCK", "auto")
-    if mode in ("1", "always") and device.type == "cuda":
-        raise NotImplementedError("PT_FUSED_BLOCK=always: the bottleneck "
-                                  "chain kernels are not ported; unset it")
-    return False
+    """The JAX package's gate of the bottleneck chain: off by default;
+    PT_FUSED_BLOCK=always (or 1) takes it on the card. Elsewhere (the
+    CPU) the op composes, as the JAX package does off the TPU."""
+    return (os.environ.get("PT_FUSED_BLOCK", "auto") in ("1", "always")
+            and device.type == "cuda")
 
 
 def _conv(h, w, pad):
@@ -59,6 +59,40 @@ def compose_block(x, w1, w2, w3, bn_params, eps, momentum):
                                        momentum, False)
     out = torch.clamp_min(h3 + x, 0.0)
     return out, (nm1, nv1, sm1, sv1, nm2, nv2, sm2, sv2, nm3, nv3, sm3, sv3)
+
+
+def _chain_block(x, w1, w2, w3, bn_params, eps, momentum):
+    """The rest block through the bottleneck chain (FusedBottleneckRest):
+    (out, the twelve stat outputs in compose_block's order), the running
+    stats updated with the chain's batch stats."""
+    n, cin, hh, ww = x.shape
+    c = w1.shape[0]
+    taps = w2.permute(2, 3, 0, 1).contiguous().reshape(9, c, c)
+    (g1, b1, _, _), (g2, b2, _, _), (g3, b3, _, _) = bn_params
+    outs = _fb.fused_bottleneck_rest(
+        x.contiguous().reshape(n, cin, hh * ww), w1.reshape(c, cin), taps,
+        w3.reshape(cin, c), g1.float(), b1.float(), g2.float(), b2.float(),
+        g3.float(), b3.float(), hh, eps)
+    stats = []
+    for k, (_, _, mean_in, var_in) in enumerate(bn_params):
+        sm, sv = outs[1 + 2 * k], outs[2 + 2 * k]
+        stats += [momentum * mean_in + (1 - momentum) * sm,
+                  momentum * var_in + (1 - momentum) * sv, sm, sv]
+    return outs[0].reshape(n, cin, hh, ww), tuple(stats)
+
+
+# the least H·W the chain takes: the JAX package's default (its
+# PT_FUSED_BLOCK_MIN_S); 7² blocks compose
+CHAIN_MIN_S = 196
+
+
+def _chain_takes(x, w1) -> bool:
+    """The JAX package's shape gate of the chain
+    (paddle_tpu/ops/fused_ops.py:212-214), on top of fused_block_enabled."""
+    n, cin, hh, ww = x.shape
+    return (fused_block_enabled(x.device) and hh == ww and n >= 8
+            and hh * ww >= CHAIN_MIN_S and cin % 128 == 0
+            and w1.shape[0] % 64 == 0)
 
 
 def _folded(w, scale, bias, mean, var, eps):
@@ -153,8 +187,8 @@ def fused_bottleneck(ctx, ins, attrs):
         for _, _, m, v in bn_params:
             stats += [m, v, m, v]
     else:
-        fused_block_enabled(x.device)
-        out, stats = compose_block(x, w1, w2, w3, bn_params, eps, momentum)
+        block = _chain_block if _chain_takes(x, w1) else compose_block
+        out, stats = block(x, w1, w2, w3, bn_params, eps, momentum)
     outs = {"Out": [out]}
     for i, k in enumerate(("1", "2", "3")):
         for j, slot in enumerate(_BN_OUT_SLOTS):

@@ -9,13 +9,15 @@ Each kernel is held against its plain PyTorch version on the card, at the
 serving and training paths' shapes and at small ragged ones; the plain
 versions are held against the JAX package by
 tests/test_torch_flash_attention.py, tests/test_torch_flash_backward.py,
-tests/test_torch_fused_conv.py and tests/test_torch_lstm.py. Tolerance: float32 on both sides with
+tests/test_torch_fused_conv.py, tests/test_torch_lstm.py and
+tests/test_torch_fused_block.py. Tolerance: float32 on both sides with
 TF32 off (products and convolutions), sums in another order, so atol =
 rtol = 1e-5; the backward kernels 1e-4, since each dK/dV entry sums up to
 S products in another order; the channel sums as chip_smoke.py holds
 them (the sum of squares within rtol 1e-5, the sum within 1e-5 of the
 sum of |a|); the LSTM forward 1e-5 and its backward 1e-4 (dW sums T*B
-products in another order).
+products in another order); the bottleneck chain's outputs 1e-5 and
+its sums as the channel sums.
 """
 
 import numpy as np
@@ -23,6 +25,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.kernels import flash_attention as fa
+from paddle_tpu_torch.kernels import fused_block as fb
 from paddle_tpu_torch.kernels import fused_conv as fc
 from paddle_tpu_torch.kernels import fused_lstm as fl
 
@@ -547,3 +550,175 @@ def test_lstm_step_on_the_card_matches_the_cpu(cuda):
         if not ("_moment" in n or "_pow_acc" in n):
             got, want = got - start[n], want - start[n]
         assert rms(got - want) <= 1e-3 * rms(want), n
+
+
+def _chain_case(gen, n, cin, c, h):
+    """Inputs of the chain's kernels on the card: a block input >= 0,
+    He-scaled weights, a raw a (for the kernels that normalize it) and BN
+    affines with shifts that are not zero."""
+    d = dict(x=torch.rand(n, cin, h * h, generator=gen),
+             w1=torch.randn(c, cin, generator=gen) * (2 / cin) ** 0.5,
+             taps=torch.randn(9, c, c, generator=gen) * (2 / (9 * c)) ** 0.5,
+             w3=torch.randn(cin, c, generator=gen) * (2 / c) ** 0.5,
+             a=torch.randn(n, c, h * h, generator=gen) + 0.3,
+             sc=torch.rand(c, generator=gen) + 0.5,
+             sh=0.3 * torch.randn(c, generator=gen) + 0.2,
+             sc3=torch.rand(cin, generator=gen) + 0.5,
+             sh3=0.3 * torch.randn(cin, generator=gen),
+             g=[1 + 0.2 * torch.randn(k, generator=gen) for k in (c, c, cin)],
+             b=[0.2 * torch.randn(k, generator=gen) for k in (c, c, cin)])
+    return {k: ([t.cuda() for t in v] if isinstance(v, list) else v.cuda())
+            for k, v in d.items()}
+
+
+def _sums_close(got, want, terms):
+    assert bool(((got - want).abs() <= 1e-5 * terms).all())
+
+
+@pytest.mark.parametrize("n,cin,c,h", [
+    (2, 256, 64, 56),    # S 3136: the 56x56 stage
+    (4, 256, 64, 14),    # S 196: rows start mid-vector
+    (3, 256, 96, 7),     # S 49, C not a multiple of the 64-row tile
+    (8, 256, 96, 14),
+])
+def test_chain_kernels_match_plain(cuda, n, cin, c, h):
+    gen = torch.Generator().manual_seed(n + cin + c + h)
+    d = _chain_case(gen, n, cin, c, h)
+    y, s1, q1 = fb.conv1x1_stats(d["x"], d["w1"])
+    ry, rs1, rq1 = fb.conv1x1_stats_reference(d["x"], d["w1"])
+    torch.testing.assert_close(y, ry, **TOL)
+    _sums_close(s1, rs1, ry.abs().sum(dim=(0, 2)))
+    torch.testing.assert_close(q1, rq1, atol=0, rtol=1e-5)
+    args = (d["a"], d["taps"], d["sc"], d["sh"], h)
+    y2, s2, q2 = fb.conv3x3_norm_stats(*args)
+    ry2, rs2, rq2 = fb.conv3x3_norm_stats_reference(*args)
+    torch.testing.assert_close(y2, ry2, **TOL)
+    _sums_close(s2, rs2, ry2.abs().sum(dim=(0, 2)))
+    torch.testing.assert_close(q2, rq2, atol=0, rtol=1e-5)
+    sum_h, m2h = fb.norm_relu_moments(d["a"], d["sc"], d["sh"])
+    rsum_h, rm2h = fb.norm_relu_moments_reference(d["a"], d["sc"], d["sh"])
+    torch.testing.assert_close(sum_h, rsum_h, atol=0, rtol=1e-5)
+    torch.testing.assert_close(m2h, rm2h, atol=1e-6, rtol=1e-5)
+    args = (d["a"], d["x"], d["sc"], d["sh"], d["w3"], d["sc3"], d["sh3"])
+    torch.testing.assert_close(fb.conv1x1_bn_residual(*args),
+                               fb.conv1x1_bn_residual_reference(*args), **TOL)
+    # deterministic: fixed-order sums, no atomics
+    again = fb.norm_relu_moments(d["a"], d["sc"], d["sh"])
+    assert torch.equal(again[1], m2h) and torch.equal(again[0], sum_h)
+    assert torch.equal(fb.conv1x1_stats(d["x"], d["w1"])[2], q1)
+
+
+def test_chain_wrappers_never_fall_back(cuda, monkeypatch):
+    """With the four plain versions patched to raise, the chain's forward
+    runs on the card through its kernels, one launch of each."""
+    def boom(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    names = ("conv1x1_stats", "conv3x3_norm_stats", "norm_relu_moments",
+             "conv1x1_bn_residual")
+    for name in names:
+        monkeypatch.setattr(fb, name + "_reference", boom)
+    gen = torch.Generator().manual_seed(8)
+    d = _chain_case(gen, 2, 128, 64, 14)
+    before = [getattr(fb, name).launches for name in names]
+    out, stats, _ = fb.bottleneck_rest_fwd(d["x"], d["w1"], d["taps"],
+                                           d["w3"], d["g"][0], d["b"][0],
+                                           d["g"][1], d["b"][1], d["g"][2],
+                                           d["b"][2], 14)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    assert [getattr(fb, name).launches for name in names] == [
+        k + 1 for k in before]
+
+
+def test_chain_kernels_refuse_what_they_do_not_take(cuda):
+    gen = torch.Generator().manual_seed(9)
+    d = _chain_case(gen, 2, 16, 8, 7)
+    with pytest.raises(TypeError):
+        fb.conv1x1_stats(d["x"].double(), d["w1"])
+    with pytest.raises(ValueError):
+        fb.conv1x1_stats(d["x"].transpose(0, 1), d["w1"])
+    with pytest.raises(ValueError):
+        fb.conv1x1_stats(d["x"], d["w1"][:, :8])
+    with pytest.raises(ValueError):
+        fb.conv3x3_norm_stats(d["a"], d["taps"].transpose(1, 2), d["sc"],
+                              d["sh"], 7)
+    with pytest.raises(ValueError):
+        fb.conv3x3_norm_stats(d["a"][:, :6], d["taps"][:, :, :6],
+                              d["sc"][:6], d["sh"][:6], 7)  # Cin % 8
+    with pytest.raises(TypeError):
+        fb.norm_relu_moments(d["a"], d["sc"].double(), d["sh"])
+    with pytest.raises(ValueError):
+        fb.conv1x1_bn_residual(d["a"], d["x"][:1], d["sc"], d["sh"],
+                               d["w3"], d["sc3"], d["sh3"])
+
+
+def _chain_op_ins(x, w1, w2, w3, bn):
+    ins = {"X": [x], "W1": [w1], "W2": [w2], "W3": [w3]}
+    for k, params in zip("123", bn):
+        for slot, v in zip(("Scale", "Bias", "Mean", "Variance"), params):
+            ins[slot + k] = [v]
+    return ins
+
+
+def test_fused_bottleneck_op_takes_the_chain(cuda, monkeypatch):
+    """The fused_bottleneck op (N 8, Cin 128, C 64, H 14) with
+    PT_FUSED_BLOCK=always runs the chain's kernels and agrees with
+    compose_block: the output within 1e-4 and the twelve stat outputs
+    within 1e-4 relative (the chain takes bn3's stats analytically)."""
+    from paddle_tpu_torch.core.registry import ExecContext, require_op
+    from paddle_tpu_torch.ops import fused_ops
+
+    monkeypatch.setenv("PT_FUSED_BLOCK", "always")
+    gen = torch.Generator().manual_seed(10)
+    n, cin, c, h = 8, 128, 64, 14
+    x = torch.rand(n, cin, h, h, generator=gen).cuda()
+    w1 = (torch.randn(c, cin, 1, 1, generator=gen) * (2 / cin) ** 0.5).cuda()
+    w2 = (torch.randn(c, c, 3, 3, generator=gen) * (2 / (9 * c)) ** 0.5
+          ).cuda()
+    w3 = (torch.randn(cin, c, 1, 1, generator=gen) * (2 / c) ** 0.5).cuda()
+    bn = [tuple(t.cuda() for t in (
+        1 + 0.2 * torch.randn(k, generator=gen),
+        0.2 * torch.randn(k, generator=gen),
+        0.1 * torch.randn(k, generator=gen),
+        torch.rand(k, generator=gen) + 0.5)) for k in (c, c, cin)]
+    before = fb.conv3x3_norm_stats.launches
+    outs = require_op("fused_bottleneck").compute(
+        ExecContext(torch.Generator(), torch.device("cuda")),
+        _chain_op_ins(x, w1, w2, w3, bn), {"epsilon": 1e-5, "momentum": 0.9})
+    want, want_st = fused_ops.compose_block(x, w1, w2, w3, bn, 1e-5, 0.9)
+    torch.cuda.synchronize()
+    assert fb.conv3x3_norm_stats.launches == before + 1
+    torch.testing.assert_close(outs["Out"][0], want, atol=1e-4, rtol=1e-4)
+    slots = [s.format(k=k) for k in "123" for s in fused_ops._BN_OUT_SLOTS]
+    for slot, w in zip(slots, want_st):
+        torch.testing.assert_close(outs[slot][0], w, atol=1e-5, rtol=1e-4)
+
+
+def test_training_through_the_chain_raises_on_the_card(cuda, monkeypatch):
+    """A training step of a fused_bottleneck program with
+    PT_FUSED_BLOCK=always runs the chain's forward and raises in its
+    backward: those kernels are not ported, and nothing falls back."""
+    import paddle_tpu_torch as pt
+
+    monkeypatch.setenv("PT_FUSED_BLOCK", "always")
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        data = pt.layers.data("data", [256, 14, 14])
+        label = pt.layers.data("label", [1], dtype="int64")
+        h = pt.layers.fused_bottleneck(data, 64)
+        h = pt.layers.pool2d(h, pool_type="avg", global_pooling=True)
+        logits = pt.layers.fc(h, size=10)
+        avg = pt.layers.mean(pt.layers.softmax_with_cross_entropy(logits,
+                                                                  label))
+        pt.optimizer.MomentumOptimizer(learning_rate=0.05,
+                                       momentum=0.9).minimize(avg)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(0)
+    feed = {"data": rng.rand(8, 256, 14, 14).astype(np.float32),
+            "label": rng.randint(0, 10, (8, 1))}
+    before = fb.conv1x1_bn_residual.launches
+    with pytest.raises(NotImplementedError, match="rows 10-13"):
+        exe.run(main, feed=feed, fetch_list=[avg], scope=scope)
+    assert fb.conv1x1_bn_residual.launches == before + 1

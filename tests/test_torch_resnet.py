@@ -234,11 +234,15 @@ def test_what_is_not_ported_raises(what, monkeypatch):
                 tres.get_model(data_set="imagenet", depth=50,
                                dtype="bfloat16")
     elif what == "fused_block":
-        monkeypatch.setenv("PT_FUSED_BLOCK", "always")
-        with pytest.raises(NotImplementedError, match="not ported"):
-            fused_ops.fused_block_enabled(torch.device("cuda"))
-        # off the card the JAX package composes too
-        assert fused_ops.fused_block_enabled(torch.device("cpu")) is False
+        # the JAX package's gate: open for always (or 1) on the card
+        # only; off the card the op composes, as the JAX package does
+        for mode, on_card in (("always", True), ("1", True), ("auto", False),
+                              ("never", False), ("0", False)):
+            monkeypatch.setenv("PT_FUSED_BLOCK", mode)
+            assert fused_ops.fused_block_enabled(
+                torch.device("cuda")) is on_card
+            assert fused_ops.fused_block_enabled(
+                torch.device("cpu")) is False
     elif what == "sparse_momentum":
         grad = torch.sparse_coo_tensor([[1]], [1.0], (4,),
                                        check_invariants=True)
