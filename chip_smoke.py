@@ -70,7 +70,19 @@ no result line:
    change of the images does to the composition), time a warm-up and
    CHAIN_FORWARDS forwards of each, profile one of each by kernel class,
    and hold the chain kernels' launch counts to 10 a forward;
-12. print the kernels' JSON line, the card line and the result line.
+12. train ResNet-50 at full width (phase 7's program, feed and startup
+   state) through the composition and with PT_FUSED_BLOCK=always, which
+   sends the 10 rest blocks the gate takes through the chain's four
+   forward and four backward kernels: one Momentum step of each from the
+   startup state, the losses within LOSS_RTOL and every var's update
+   (parameters, velocities, running stats) held to SPREAD times what a
+   PERTURB change of the images does to the composition's step (as phase
+   8 holds the card to the CPU); then a warm-up and RESNET_STEPS timed
+   steps of each in turns (finite, falling losses through the chain),
+   peak memory, a profiled step of each by kernel class, the host time
+   of the fused_bottleneck ops' forwards and of the chain's backwards,
+   and the eight chain kernels' launch counts held to 10 a step;
+13. print the kernels' JSON line, the card line and the result line.
 
 Phase 3 also holds the two LSTM kernels against their plain versions at
 the bench shape (T 100, B 64, H 512), full-length and ragged, timed
@@ -80,7 +92,12 @@ plain versions at ResNet-50's three chain stages at batch 128 (Cin, C,
 H = 256, 64, 56 / 512, 128, 28 / 1024, 256, 14), each timed beside its
 plain version, its bound and a PyTorch yardstick (F.conv2d of the same
 product, product only, for the three convolutions; torch.bmm of h·hᵀ
-and the sum for the moments).
+and the sum for the moments); then the chain's four backward kernels at
+the same stages, on the inputs the chain makes (the forward, a random
+cotangent, each kernel fed by its plain predecessors), each timed
+beside its plain version, its bound and the same products on
+materialized operands (torch.matmul / bmm; cuDNN's dgrad + wgrad for
+the 3x3).
 
 cudnn.benchmark stays at its default (off); TF32 is off for products
 and convolutions.
@@ -177,6 +194,12 @@ CHAIN_KERNELS = ("conv1x1_stats", "conv3x3_norm_stats", "norm_relu_moments",
                  "conv1x1_bn_residual")
 CHAIN_BLOCKS = 10       # rest blocks of ResNet-50 that the chain's gate takes
 CHAIN_FORWARDS = 6
+# the chain's backward kernels, in the order bottleneck_rest_bwd calls
+# them: g3 bitwise, the other elementwise outputs (sums of at most 9C or
+# Cin + C products) within BWD_ATOL / BWD_RTOL of the plain versions,
+# the sums over N·S within STATS_RTOL of the sum of their terms'
+# magnitudes
+CHAIN_BWD_KERNELS = ("bwd_reduce3", "bwd_apply3", "bwd_mid", "bwd_final")
 
 
 def card_line() -> str:
@@ -407,13 +430,13 @@ def teacher_forced(np, engine, prompt, generated):
 def kernel_class(name: str) -> str:
     n = name.lower()
     for kernel in ("conv1x1_stats", "conv3x3_norm_stats",
-                   "conv1x1_bn_residual"):
-        if kernel + "_kernel" in n:
-            return f"{kernel} (port kernel)"
-    if "moments_kernel" in n or "moments_final_kernel" in n:
-        return "norm_relu_moments (port kernel)"
-    if "chain_stats_final_kernel" in n:
-        return "chain stats finalize (port kernel)"
+                   "conv1x1_bn_residual", "moments", "bwd_reduce3",
+                   "bwd_apply3", "bwd_mid", "bwd_final"):
+        if kernel + "_" in n:
+            return (f"{kernel.replace('moments', 'norm_relu_moments')} "
+                    f"(port kernel)")
+    if "chain_stats_final_kernel" in n or "split_sum_kernel" in n:
+        return "chain sums finalize (port kernel)"
     if "lstm_fwd_step_kernel" in n:
         return "lstm_seq_fwd (port kernel)"
     if "lstm_gemm_kernel" in n or "lstm_bwd_" in n:
@@ -1017,6 +1040,34 @@ def resnet_path(np, torch, fc, card, built):
     return launches
 
 
+def state_diffs(np, got, want, base=None, updated=()):
+    """(largest elementwise diff, largest and median relative rms diff
+    over the vars of `want`; for the vars in `updated`, of their updates
+    from `base`)"""
+    worst, rels = 0.0, []
+    for n, b in want.items():
+        a = got[n]
+        worst = max(worst, float(np.abs(a - b).max()))
+        if base is not None and n in updated:
+            a, b = a - base[n], b - base[n]
+        if rms(np, b) > 0:
+            rels.append(rms(np, a - b) / rms(np, b))
+    return worst, max(rels), float(np.median(rels))
+
+
+def hold_to_perturbation(np, what, got, perturbed):
+    """Print a state_diffs triple beside the perturbed run's and return
+    whether it is within SPREAD times it (the LM's limits the floor)."""
+    (c_abs, c_max, c_med), (p_abs, p_max, p_med) = got, perturbed
+    lim = (max(PARAM_ATOL, SPREAD * p_abs), max(STATE_RTOL, SPREAD * p_max),
+           max(STATE_RTOL, SPREAD * p_med))
+    print(f"  {what}: largest elementwise {c_abs:.3e}, relative rms "
+          f"largest {c_max:.3e} median {c_med:.3e}; with images x (1 + "
+          f"{PERTURB}): {p_abs:.3e}, {p_max:.3e}, {p_med:.3e}; limits "
+          f"{lim[0]:.3e}, {lim[1]:.3e}, {lim[2]:.3e}")
+    return c_abs <= lim[0] and c_max <= lim[1] and c_med <= lim[2]
+
+
 def resnet_card_vs_cpu(np, torch, card, seed: int):
     """ResNet-50 at 64 px, batch 4, from one startup state on the card and
     on the CPU. This model is chaotic at init: moving its images by
@@ -1070,20 +1121,8 @@ def resnet_card_vs_cpu(np, torch, card, seed: int):
                 grads[key] = dict(zip(params, out[1:]))
         ends[key] = {n: sc.get_numpy(n) for n in names}
 
-    def diffs(got, want, base=None):
-        """(largest elementwise diff, largest and median relative rms
-        diff over the vars; of the updates where `base` is given)"""
-        worst, rels = 0.0, []
-        for n, b in want.items():
-            a = got[n]
-            worst = max(worst, float(np.abs(a - b).max()))
-            if base is not None and n in params:
-                a, b = a - base[n], b - base[n]
-            if rms(np, b) > 0:
-                rels.append(rms(np, a - b) / rms(np, b))
-        return worst, max(rels), float(np.median(rels))
-
-    measured = {what: {key: diffs(src[key], src["cpu"], base)
+    measured = {what: {key: state_diffs(np, src[key], src["cpu"], base,
+                                        params)
                        for key in ("card", "cpu, perturbed")}
                 for what, src, base in (("first-step gradients", grads,
                                          None),
@@ -1096,17 +1135,8 @@ def resnet_card_vs_cpu(np, torch, card, seed: int):
     bad = [] if loss0 <= LOSS_RTOL * abs(losses["cpu"][0]) else [
         "step-0 loss"]
     for what, m in measured.items():
-        (c_abs, c_max, c_med), (p_abs, p_max, p_med) = (
-            m["card"], m["cpu, perturbed"])
-        lim = (max(PARAM_ATOL, SPREAD * p_abs),
-               max(STATE_RTOL, SPREAD * p_max),
-               max(STATE_RTOL, SPREAD * p_med))
-        print(f"  {what}: card - CPU largest elementwise {c_abs:.3e}, "
-              f"relative rms largest {c_max:.3e} median {c_med:.3e}; CPU "
-              f"with images x (1 + {PERTURB}) - CPU: {p_abs:.3e}, {p_max:.3e}"
-              f", {p_med:.3e}; limits {lim[0]:.3e}, {lim[1]:.3e}, "
-              f"{lim[2]:.3e}")
-        if not (c_abs <= lim[0] and c_max <= lim[1] and c_med <= lim[2]):
+        if not hold_to_perturbation(np, f"{what}, card - CPU", m["card"],
+                                    m["cpu, perturbed"]):
             bad.append(what)
     if bad:
         raise RuntimeError(f"ResNet card and CPU disagree beyond the "
@@ -1564,14 +1594,195 @@ def check_chain(torch, F, fb, card):
     return rows
 
 
-def block_host_ms(torch, fb, forward):
-    """Host time of each fused_bottleneck op in one forward of each
-    variant, on the host clock around the op's compute (which queues its
-    launches and syncs nowhere): {chain: [(ms, through the chain)]}."""
+def chain_bwd_inputs(torch, fb, d, dout, h):
+    """{kernel: args} of the four backward wrappers in one run of
+    bottleneck_rest_bwd on the chain's forward of d (a chain_case), a
+    cotangent dout of out and zero stat cotangents, with the wrappers
+    replaced by their plain versions: each kernel's inputs as its plain
+    predecessors make them."""
+    g, b = d["gam"], d["bet"]
+    out, stats, aux = fb.bottleneck_rest_fwd(d["x"], d["w1"], d["taps"],
+                                             d["w3"], g[0], b[0], g[1], b[1],
+                                             g[2], b[2], h)
+    a1, a2, sum_h, m2h, sc1, sh1, sc2, sh2 = aux
+    res = (d["x"], a1, a2, out, d["w1"], d["taps"], d["w3"], g[0], g[1],
+           g[2], *stats, sum_h, m2h, sc1, sh1, sc2, sh2)
+    args, wrappers = {}, {k: getattr(fb, k) for k in CHAIN_BWD_KERNELS}
+
+    def plain(name):
+        def call(*a):
+            args[name] = a
+            return getattr(fb, name + "_reference")(*a)
+        return call
+
+    try:
+        for k in CHAIN_BWD_KERNELS:
+            setattr(fb, k, plain(k))
+        fb.bottleneck_rest_bwd(res, dout, [torch.zeros_like(s) for s in stats],
+                               h)
+    finally:
+        for k, w in wrappers.items():
+            setattr(fb, k, w)
+    return args
+
+
+def bwd_terms(torch, fb, name, args, want):
+    """The sum of each summed output's terms' magnitudes, in the order the
+    wrapper returns its outputs (None for an elementwise output)."""
+    def col(v):
+        return v.reshape(1, -1, 1)
+
+    if name == "bwd_reduce3":
+        g3 = want[0].abs()
+        h2 = fb._norm_relu(*args[2:5])
+        return None, torch.einsum("nis,ncs->ic", g3, h2), g3.sum(dim=(0, 2))
+    if name == "bwd_apply3":
+        a2, inv2, m2 = args[1], args[7], args[8]
+        gx = (want[0] * (a2 * col(inv2) + col(-m2 * inv2))).abs()
+        return None, want[0].abs().sum(dim=(0, 2)), gx.sum(dim=(0, 2))
+    if name == "bwd_mid":
+        g2, a2, a1, sc1, sh1, p2, q2, r2, inv1, m1, taps, h = args
+        n, c, s = g2.shape
+        da2 = (g2 * col(p2) + a2 * col(q2) + col(r2)).abs()
+        h1 = fb._norm_relu(a1, sc1, sh1).view(n, c, h, s // h)
+        dw = torch.nn.grad.conv2d_weight(h1, (c, c, 3, 3),
+                                         da2.view(n, c, h, s // h), padding=1)
+        gx = (want[0] * (a1 * col(inv1) + col(-m1 * inv1))).abs()
+        return (None, dw.permute(2, 3, 0, 1).reshape(9, c, c),
+                want[0].abs().sum(dim=(0, 2)), gx.sum(dim=(0, 2)))
+    g3, g1, a1, x, p1, q1, r1, _ = args
+    da1 = (g1 * col(p1) + a1 * col(q1) + col(r1)).abs()
+    return None, torch.einsum("ncs,nks->ck", da1, x)
+
+
+BWD_OUTPUTS = {"bwd_reduce3": ("g3", "P", "Σg3"),
+               "bwd_apply3": ("g2", "Σg2", "Σg2·x̂2"),
+               "bwd_mid": ("g1", "dtaps", "Σg1", "Σg1·x̂1"),
+               "bwd_final": ("dx", "dW1")}
+
+
+def check_chain_bwd(torch, fb, card):
+    """The four backward kernels vs their plain versions at each of
+    CHAIN_SHAPES, on the inputs the chain makes (chain_bwd_inputs), each
+    timed beside its plain version, its bound and a library yardstick of
+    the same products on materialized operands (cuBLAS for rows 10, 11
+    and 13; cuDNN's dgrad + wgrad for row 12; TF32 off); the kernels line
+    reports the first stage and the largest raw |kernel - plain| over
+    the stages and outputs."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    n = RESNET["batch"]
+    rows, errs = {}, {k: [] for k in CHAIN_BWD_KERNELS}
+
+    def col(v):
+        return v.reshape(1, -1, 1)
+
+    for cin, c, h in CHAIN_SHAPES:
+        s, m = h * h, n * h * h
+        d = chain_case(torch, n, cin, c, h, gen)
+        dout = torch.randn(n, cin, s, device="cuda", generator=gen)
+        args = chain_bwd_inputs(torch, fb, d, dout, h)
+        del d
+        notes = []
+        for name, a in args.items():
+            got = getattr(fb, name)(*a)
+            want = getattr(fb, name + "_reference")(*a)
+            torch.cuda.synchronize()
+            worst = 0.0
+            for what, gt, wt, terms in zip(BWD_OUTPUTS[name], got, want,
+                                           bwd_terms(torch, fb, name, a,
+                                                     want)):
+                if terms is not None:
+                    e, share = check_sums(torch, f"{name} {what}", gt, wt,
+                                          terms)
+                    notes.append(f"{name} {what} {e:.3e} ({share:.3f} of "
+                                 f"the limit)")
+                elif what == "g3":
+                    if not torch.equal(gt, wt):
+                        raise RuntimeError("bwd_reduce3: g3 is not the plain "
+                                           "version's, bit for bit")
+                    e = 0.0
+                    notes.append("g3 bitwise")
+                else:
+                    e = max_err(torch, gt, wt, BWD_ATOL, BWD_RTOL)
+                    notes.append(f"{name} {what} {e:.3e}")
+                worst = max(worst, e)
+            errs[name].append(worst)
+            del got, want
+        # bounds: each input read once, each output written once; the
+        # products, the loaders' elementwise work (a normalize 3 a value,
+        # a fold 4, a mask 1) and the epilogues' (mask 2, bias 1, the two
+        # sums 5)
+        ea, ex = n * c * s, n * cin * s
+        bounds = {
+            "bwd_reduce3": bound_ms(4 * (3 * ex + ea + 2 * c + cin * c + cin),
+                                    2 * cin * c * m + 3 * ea + 2 * ex),
+            "bwd_apply3": bound_ms(4 * (ex + 2 * ea + c * cin + c * c + 7 * c),
+                                   2 * c * (cin + c) * m + 11 * ea),
+            "bwd_mid": bound_ms(4 * (4 * ea + 18 * c * c + 9 * c),
+                                36 * c * c * m + 14 * ea),
+            "bwd_final": bound_ms(4 * (3 * ex + 2 * ea + 2 * c * cin + 3 * c),
+                                  4 * c * cin * m + 4 * ea + ex)}
+        ms = {k: cuda_ms(torch, lambda k=k: getattr(fb, k)(*args[k]), 10)
+              for k in CHAIN_BWD_KERNELS}
+        plain = {k: cuda_ms(torch, lambda k=k: getattr(
+            fb, k + "_reference")(*args[k]), 3) for k in CHAIN_BWD_KERNELS}
+        # yardsticks on materialized operands
+        g3, a2, sc2, sh2, amat, bmat = args["bwd_apply3"][:6]
+        h2 = fb._norm_relu(a2, sc2, sh2)
+        ab, gh = torch.cat([amat, bmat], 1), torch.cat([g3, h2], 1)
+        g2, _, a1, sc1, sh1, p2, q2, r2 = args["bwd_mid"][:8]
+        taps = args["bwd_mid"][10]
+        da2 = (g2 * col(p2) + a2 * col(q2) + col(r2)).view(n, c, h, h)
+        h1 = fb._norm_relu(a1, sc1, sh1).view(n, c, h, h)
+        w2 = taps.view(3, 3, c, c).permute(2, 3, 0, 1).contiguous()
+        _, g1, _, x, p1, q1, r1, w1 = args["bwd_final"]
+        da1 = g1 * col(p1) + a1 * col(q1) + col(r1)
+        lib = {"bwd_reduce3": cuda_ms(torch, lambda: torch.bmm(
+                   g3, h2.transpose(1, 2)).sum(dim=0), 10),
+               "bwd_apply3": cuda_ms(torch, lambda: torch.matmul(ab, gh), 10),
+               "bwd_mid": cuda_ms(torch, lambda: (
+                   torch.nn.grad.conv2d_input(h1.shape, w2, da2, padding=1),
+                   torch.nn.grad.conv2d_weight(h1, w2.shape, da2, padding=1)),
+                   10),
+               "bwd_final": cuda_ms(torch, lambda: (
+                   torch.matmul(w1.T, da1),
+                   torch.bmm(da1, x.transpose(1, 2)).sum(dim=0)), 10)}
+        yard = {"bwd_reduce3": "bmm + sum", "bwd_apply3": "matmul",
+                "bwd_mid": "cuDNN dgrad + wgrad",
+                "bwd_final": "matmul + bmm + sum"}
+        print(f"bottleneck chain backward stage Cin {cin}, C {c}, {h}x{h}, "
+              f"batch {n}: " + "; ".join(
+                  f"{k} {ms[k]:.4f} ms (plain {plain[k]:.4f}, {yard[k]} "
+                  f"{lib[k]:.4f}, bound {bounds[k][0]:.4f} {bounds[k][1]})"
+                  for k in CHAIN_BWD_KERNELS)
+              + f"; backward {sum(ms.values()):.4f} ms vs bound "
+              f"{sum(b[0] for b in bounds.values()):.4f} ms [{card}]")
+        print(f"bottleneck chain backward stage Cin {cin}, C {c}, {h}x{h}, "
+              f"largest |kernel - plain| (elementwise tol atol {BWD_ATOL} "
+              f"rtol {BWD_RTOL}; sums rtol {STATS_RTOL} of Σ|terms|): "
+              + "; ".join(notes) + f" [{card}]")
+        if (cin, c, h) == CHAIN_SHAPES[0]:
+            for k in CHAIN_BWD_KERNELS:
+                rows[k] = dict(ms=ms[k], plain_ms=plain[k],
+                               bound_ms=bounds[k][0], bound_by=bounds[k][1],
+                               library_ms=lib[k])
+        del args, g3, a2, h2, ab, gh, g2, a1, da2, h1, g1, x, da1
+    for k in rows:
+        rows[k]["max_abs_err"] = max(errs[k])
+    return rows
+
+
+def block_host_ms(torch, fb, run):
+    """Host time of each fused_bottleneck op in one run of each variant,
+    on the host clock around the op's compute (which queues its launches
+    and syncs nowhere): {chain: [(ms, through the chain)]}; and of each
+    chain block's backward (bottleneck_rest_bwd, which syncs nowhere
+    either): {chain: [ms]}."""
     from paddle_tpu_torch.core import registry
 
     op = registry.get_op("fused_bottleneck")
-    compute, host = op.compute, []
+    compute, backward, host, host_bwd = (op.compute, fb.bottleneck_rest_bwd,
+                                         [], [])
 
     def timed(ctx, ins, attrs):
         before = fb.conv1x1_stats.launches
@@ -1581,17 +1792,24 @@ def block_host_ms(torch, fb, forward):
                      fb.conv1x1_stats.launches > before))
         return out
 
-    op.compute = timed
-    got = {}
+    def timed_bwd(*args):
+        t0 = time.perf_counter()
+        out = backward(*args)
+        host_bwd.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    op.compute, fb.bottleneck_rest_bwd = timed, timed_bwd
+    got, got_bwd = {}, {}
     try:
         for chain_on in (False, True):
             torch.cuda.synchronize()
             host.clear()
-            forward(chain_on)
-            got[chain_on] = list(host)
+            host_bwd.clear()
+            run(chain_on)
+            got[chain_on], got_bwd[chain_on] = list(host), list(host_bwd)
     finally:
-        op.compute = compute
-    return got
+        op.compute, fb.bottleneck_rest_bwd = compute, backward
+    return got, got_bwd
 
 
 def chain_path(np, torch, fb, card, built):
@@ -1681,7 +1899,8 @@ def chain_path(np, torch, fb, card, built):
             print_profile(f"ResNet-50 training-mode forward, {what} (batch "
                           f"{b}, {img} px)", wall, by_name, card)
         n_fwd += 2
-        host = block_host_ms(torch, fb, lambda c: forward(c, restore=False))
+        host, _ = block_host_ms(torch, fb,
+                                lambda c: forward(c, restore=False))
         n_fwd += 1
         print(f"chain path: host ms of each fused_bottleneck op (its "
               f"launches queued, no sync): composition "
@@ -1704,6 +1923,134 @@ def chain_path(np, torch, fb, card, built):
             raise RuntimeError(f"{name} was launched {count} times on the "
                                f"chain path, expected {want} ({CHAIN_BLOCKS} "
                                f"a forward)")
+    return launches
+
+
+def chain_train_path(np, torch, fb, card, built):
+    """ResNet-50 training at full width through the composition and
+    through the chain (PT_FUSED_BLOCK=always), from one startup state;
+    returns the eight chain kernels' launch counts of the phase."""
+    import paddle_tpu_torch as pt
+
+    b, img = RESNET["batch"], RESNET["image"]
+    main_prog, avg = built["main"], built["avg"]
+    exe, scope0 = pt.Executor(), pt.Scope()
+    exe.run(built["startup"], scope=scope0)
+    names = sorted(scope0.local_var_names())
+    start = {n: scope0.find_var(n).clone() for n in names}
+    start_np = {n: v.cpu().numpy() for n, v in start.items()}
+    del scope0
+    feed = {k: torch.from_numpy(v).to(exe.device)
+            for k, v in resnet_varied(np, 0, b, img).items()}
+    kernels = CHAIN_KERNELS + CHAIN_BWD_KERNELS
+    prev = os.environ.get("PT_FUSED_BLOCK")
+
+    def fresh():
+        sc = pt.Scope()
+        for n in names:
+            sc.set_var(n, start[n].clone())
+        return sc
+
+    def step(chain, sc, data=None):
+        """One Momentum step; the loss fetch syncs."""
+        os.environ["PT_FUSED_BLOCK"] = "always" if chain else "never"
+        f = feed if data is None else dict(feed, data=data)
+        loss, = exe.run(main_prog, feed=f, fetch_list=[avg], scope=sc)
+        return float(loss[0])
+
+    def one_step(chain, data=None):
+        sc = fresh()
+        loss = step(chain, sc, data)
+        return loss, {n: sc.get_numpy(n) for n in names}
+
+    try:
+        for name in kernels:
+            getattr(fb, name).launches = 0
+        # agreement: one step of each from the startup state, beside what
+        # a PERTURB change of the images does to the composition's step
+        loss_c, comp = one_step(False)
+        loss_p, pert = one_step(False, feed["data"] * (1 + PERTURB))
+        loss_k, chain = one_step(True)
+        n_chain = 1
+        loss_lim = LOSS_RTOL * abs(loss_c)
+        print(f"chain train path: ResNet-50, batch {b}, {img} px, one "
+              f"Momentum step from one startup state: loss composition "
+              f"{loss_c!r}, chain {loss_k!r} (diff {abs(loss_k - loss_c):.3e}"
+              f", tol {loss_lim:.3e}), images x (1 + {PERTURB}) "
+              f"{loss_p!r}; every var's update, chain - composition "
+              f"[{card}]")
+        ok = hold_to_perturbation(
+            np, "updates (parameters, velocities, running stats)",
+            state_diffs(np, chain, comp, start_np, names),
+            state_diffs(np, pert, comp, start_np, names))
+        if not (np.isfinite(loss_k) and abs(loss_k - loss_c) <= loss_lim
+                and ok):
+            raise RuntimeError("the chain's training step disagrees with "
+                               "the composition's beyond the chaos of a "
+                               f"{PERTURB} input change")
+        del comp, pert, chain
+        # timing: a warm-up and RESNET_STEPS steps of each, in turns, each
+        # on its own state; peak memory of each step, reset before it
+        scopes = {False: fresh(), True: fresh()}
+        losses = {False: [], True: []}
+        times = {False: [], True: []}
+        peak = {False: 0.0, True: 0.0}
+        for i in range(1 + RESNET_STEPS):
+            for chain_on in (False, True):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                losses[chain_on].append(step(chain_on, scopes[chain_on]))
+                if i:
+                    times[chain_on].append(time.perf_counter() - t0)
+                peak[chain_on] = max(peak[chain_on],
+                                     torch.cuda.max_memory_allocated() / 1e9)
+        n_chain += 1 + RESNET_STEPS
+        for chain_on, what in ((False, "composition"), (True, "chain")):
+            ms = 1e3 * sum(times[chain_on]) / RESNET_STEPS
+            print(f"chain train path: {what} losses {losses[chain_on]}, "
+                  f"{RESNET_STEPS} timed steps "
+                  f"{[round(1e3 * t, 2) for t in times[chain_on]]} ms: "
+                  f"{ms:.3f} ms per step, {b / ms * 1e3:.1f} images/s, peak "
+                  f"memory {peak[chain_on]:.2f} GB (both states resident) "
+                  f"[{card}]")
+        if not (all(np.isfinite(losses[True]))
+                and losses[True][-1] < losses[True][0]):
+            raise RuntimeError(f"the chain's losses are not finite and "
+                               f"falling: {losses[True]}")
+        for chain_on, what in ((False, "composition"), (True, "chain")):
+            wall, by_name, _ = profiled(
+                torch, lambda c=chain_on: step(c, scopes[c]), 1)
+            print_profile(f"ResNet-50 training step, {what} (batch {b}, "
+                          f"{img} px)", wall, by_name, card)
+        n_chain += 2      # profiled() runs its step twice
+        host, host_bwd = block_host_ms(torch, fb,
+                                       lambda c: step(c, scopes[c]))
+        n_chain += 1
+        same = [t for (t, _), (_, k) in zip(host[False], host[True]) if k]
+        print(f"chain train path: host ms of each fused_bottleneck op's "
+              f"forward (its launches queued, no sync): composition "
+              f"{[round(t, 3) for t, _ in host[False]]}, chain "
+              f"{[round(t, 3) for t, _ in host[True]]}; the chain's blocks "
+              f"{sum(t for t, k in host[True] if k):.3f} ms against "
+              f"{sum(same):.3f} for the same blocks composed; the chain "
+              f"blocks' backward (bottleneck_rest_bwd) "
+              f"{[round(t, 3) for t in host_bwd[True]]}, "
+              f"{sum(host_bwd[True]):.3f} ms [{card}]")
+        launches = {name: getattr(fb, name).launches for name in kernels}
+    finally:
+        if prev is None:
+            os.environ.pop("PT_FUSED_BLOCK", None)
+        else:
+            os.environ["PT_FUSED_BLOCK"] = prev
+    print(f"chain train path launches over {n_chain} chain steps: "
+          f"{launches}")
+    want = CHAIN_BLOCKS * n_chain
+    for name, count in launches.items():
+        if count != want:
+            raise RuntimeError(f"{name} was launched {count} times on the "
+                               f"chain's training path, expected {want} "
+                               f"({CHAIN_BLOCKS} a step)")
     return launches
 
 
@@ -1751,6 +2098,7 @@ def main() -> int:
                                epilogue_ops(built["fused"], RESNET["batch"])))
     rows.update(check_lstm(np, torch, fl, card, args.seed))
     rows.update(check_chain(torch, F, fb, card))
+    rows.update(check_chain_bwd(torch, fb, card))
     launches = main_path(np, torch, fa, card, args.seed)
     trained = train_path(np, torch, fa, card, args.seed)
     # the forward kernel runs on both main paths
@@ -1762,7 +2110,10 @@ def main() -> int:
     resnet_card_vs_cpu(np, torch, card, args.seed)
     launches.update(lstm_path(np, torch, fl, card, args.seed))
     lstm_card_vs_cpu(np, torch, card, args.seed)
-    launches.update(chain_path(np, torch, fb, card, built))
+    forward = chain_path(np, torch, fb, card, built)
+    # the forward kernels run on both chain paths
+    launches.update({k: forward.get(k, 0) + v for k, v in
+                     chain_train_path(np, torch, fb, card, built).items()})
 
     meta = {"flash_attention_fwd": (
                 "paddle_tpu_torch/csrc/flash_attention.cu",
@@ -1793,7 +2144,15 @@ def main() -> int:
             "norm_relu_moments": ("paddle_tpu_torch/csrc/fused_block.cu",
                                   "paddle_tpu/kernels/fused_block.py:714"),
             "conv1x1_bn_residual": ("paddle_tpu_torch/csrc/fused_block.cu",
-                                    "paddle_tpu/kernels/fused_block.py:756")}
+                                    "paddle_tpu/kernels/fused_block.py:756"),
+            "bwd_reduce3": ("paddle_tpu_torch/csrc/fused_block_bwd.cu",
+                            "paddle_tpu/kernels/fused_block.py:192"),
+            "bwd_apply3": ("paddle_tpu_torch/csrc/fused_block_bwd.cu",
+                           "paddle_tpu/kernels/fused_block.py:261"),
+            "bwd_mid": ("paddle_tpu_torch/csrc/fused_block_bwd.cu",
+                        "paddle_tpu/kernels/fused_block.py:399"),
+            "bwd_final": ("paddle_tpu_torch/csrc/fused_block_bwd.cu",
+                          "paddle_tpu/kernels/fused_block.py:466")}
     kernels = [dict(name=name, route="cuda", source=meta[name][0],
                     replaces=meta[name][1], launches=launches[name], **row)
                for name, row in rows.items()]

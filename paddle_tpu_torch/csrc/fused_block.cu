@@ -48,79 +48,14 @@
 //     it is cut into splits, each block writes its partial Gram matrix (and
 //     the row sums of h in column C) to [splits, C, C + 1], and a second
 //     kernel adds the splits in order.
-// No atomics anywhere: every result is deterministic.
-#include <climits>
-#include <cuda_runtime.h>
+// No atomics anywhere: every result is deterministic. The tile machinery
+// and the finalizing passes are in fused_block.cuh, shared with the
+// backward (fused_block_bwd.cu).
+#include "fused_block.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // 16 x 16 threads
-constexpr int kBK = 8;         // depth of a k stage
-constexpr int kBN = 128;       // columns of a conv kernel's tile
-
-__device__ __forceinline__ float relu_affine(float v, float sc, float sh) {
-  return fmaxf(fmaf(v, sc, sh), 0.f);
-}
-
-// Shared memory of a BM x BN tile: two stages of A [kBK][BM + 4] and of B
-// [kBK][BN + 4] (the pad keeps the transposed stores free of bank
-// conflicts); the epilogue reuses it for [2][BM][16] row partials.
-template <int BM, int BN>
-struct Smem {
-  static constexpr int kA = kBK * (BM + 4);
-  static constexpr int kB = kBK * (BN + 4);
-  static constexpr int kStages = 2 * (kA + kB);
-  static constexpr int kRed = 2 * BM * 16;
-  static constexpr int kFloats = kStages > kRed ? kStages : kRed;
-};
-
-// Local row (column) of a thread's i-th micro-tile element: groups of 4
-// rows 64 apart, so that 8 neighbouring threads read 128 contiguous bytes.
-__device__ __forceinline__ int tile_pos(int i, int t) {
-  return (i >> 2) * 64 + t * 4 + (i & 3);
-}
-
-// acc += As^T Bs over one kBK-deep stage.
-template <int TM, int TN>
-__device__ __forceinline__ void mma_stage(float (&acc)[TM][TN],
-                                          const float* As, const float* Bs,
-                                          int ty, int tx) {
-  constexpr int BM = 16 * TM, BN = 16 * TN;
-#pragma unroll
-  for (int kk = 0; kk < kBK; ++kk) {
-    float a[TM], b[TN];
-#pragma unroll
-    for (int g = 0; g < TM / 4; ++g) {
-      const float4 v =
-          *reinterpret_cast<const float4*>(As + kk * (BM + 4) + g * 64 + ty * 4);
-      a[4 * g] = v.x;
-      a[4 * g + 1] = v.y;
-      a[4 * g + 2] = v.z;
-      a[4 * g + 3] = v.w;
-    }
-#pragma unroll
-    for (int g = 0; g < TN / 4; ++g) {
-      const float4 v =
-          *reinterpret_cast<const float4*>(Bs + kk * (BN + 4) + g * 64 + tx * 4);
-      b[4 * g] = v.x;
-      b[4 * g + 1] = v.y;
-      b[4 * g + 2] = v.z;
-      b[4 * g + 3] = v.w;
-    }
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Loaders. fetch(k0) reads stage k0 from device memory into registers;
-// store(s) writes them to a stage buffer. "Row" loaders fill a [rows][kBK]
-// tile (thread: k offset tid & 7, rows tid >> 3 + 32 r) and store it
-// transposed, [kBK][rows + 4]; "column" loaders fill a [kBK][BN] tile
-// (thread: one fixed column tid % BN, k offsets tid / BN + (256 / BN) r).
-// ---------------------------------------------------------------------------
+// Loaders of the forward (the header says how a loader maps threads).
 
 // A[m][k] = w[m * K + k]: a row-major weight [M, K].
 template <int TM>
@@ -257,97 +192,6 @@ struct Conv3x3B {
   }
 };
 
-// The moments' operands, a row loader for both sides: X[c][k] =
-// relu(a[n, c, p] * scale[c] + shift[c]) at k = n * S + p < NS.
-template <int T>
-struct ActRows {
-  static constexpr int BM = 16 * T, R = T / 2;
-  const float* a;
-  const float* scale;
-  const float* shift;
-  int C, S, NS, c0, kk, cr;
-  float reg[R];
-  __device__ ActRows(const float* a_, const float* sc_, const float* sh_,
-                     int C_, int S_, int NS_, int c0_)
-      : a(a_), scale(sc_), shift(sh_), C(C_), S(S_), NS(NS_), c0(c0_),
-        kk(threadIdx.x & 7), cr(threadIdx.x >> 3) {}
-  __device__ __forceinline__ void fetch(int k0) {
-    const int k = k0 + kk;
-    const int n = k / S;
-    const long base = (long)n * C * S + (k - n * S);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int c = c0 + cr + 32 * r;
-      reg[r] = (k < NS && c < C)
-                   ? relu_affine(__ldg(a + base + (long)c * S), __ldg(scale + c),
-                                 __ldg(shift + c))
-                   : 0.f;
-    }
-  }
-  __device__ __forceinline__ void store(float* s) const {
-#pragma unroll
-    for (int r = 0; r < R; ++r) s[kk * (BM + 4) + cr + 32 * r] = reg[r];
-  }
-};
-
-// acc = A B over k in [kb, ke), two shared-memory stages. With ROWSUM the
-// threads tid < BM also add up their row of every A stage into rowsum.
-template <int TM, int TN, bool ROWSUM, class LA, class LB>
-__device__ __forceinline__ void mainloop(float (&acc)[TM][TN], LA& la, LB& lb,
-                                         int kb, int ke, float* smem,
-                                         float& rowsum) {
-  constexpr int BM = 16 * TM;
-  using SM = Smem<BM, 16 * TN>;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-  float* As = smem;
-  float* Bs = smem + 2 * SM::kA;
-  la.fetch(kb);
-  lb.fetch(kb);
-  la.store(As);
-  lb.store(Bs);
-  __syncthreads();
-  int buf = 0;
-  for (int k0 = kb; k0 < ke; k0 += kBK) {
-    const bool next = k0 + kBK < ke;
-    if (next) {
-      la.fetch(k0 + kBK);
-      lb.fetch(k0 + kBK);
-    }
-    const float* a = As + buf * SM::kA;
-    mma_stage<TM, TN>(acc, a, Bs + buf * SM::kB, ty, tx);
-    if constexpr (ROWSUM) {
-      if (tid < BM)
-#pragma unroll
-        for (int kk = 0; kk < kBK; ++kk) rowsum += a[kk * (BM + 4) + tid];
-    }
-    if (next) {
-      la.store(As + (buf ^ 1) * SM::kA);
-      lb.store(Bs + (buf ^ 1) * SM::kB);
-    }
-    __syncthreads();
-    buf ^= 1;
-  }
-}
-
-// The offsets n * M * S + p in an [N, M, S] tensor of a thread's TN tile
-// columns (column j = n * S + p), and whether each is inside N * S.
-template <int TN>
-__device__ __forceinline__ void column_offsets(long (&off)[TN], bool (&ok)[TN],
-                                               int j0, int M, int S, int NS) {
-  const int tx = threadIdx.x & 15;
-#pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    const int jg = j0 + tile_pos(j, tx);
-    ok[j] = jg < NS;
-    const int n = ok[j] ? jg / S : 0;
-    off[j] = (long)n * M * S + (jg - n * S);
-  }
-}
-
 // Writes the tile of y [N, M, S] (column j = n * S + p) and its per-row
 // sum and sum of squares into part [2, M, T] at tile column jt.
 template <int TM, int TN>
@@ -358,7 +202,7 @@ __device__ __forceinline__ void store_with_stats(const float (&acc)[TM][TN],
                                                  int m0, int j0, int jt,
                                                  float* red) {
   constexpr int BM = 16 * TM;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int ty = threadIdx.x >> 4;
   long coff[TN];
   bool cok[TN];
   column_offsets<TN>(coff, cok, j0, M, S, NS);
@@ -378,19 +222,9 @@ __device__ __forceinline__ void store_with_stats(const float (&acc)[TM][TN],
         }
       }
     }
-    red[lr * 16 + tx] = s;
-    red[(BM + lr) * 16 + tx] = q;
+    put_row_partial<BM>(red, lr, s, q);
   }
-  __syncthreads();
-  if (tid < BM && m0 + tid < M) {
-    float s = 0.f, q = 0.f;
-    for (int t = 0; t < 16; ++t) {
-      s += red[tid * 16 + t];
-      q += red[(BM + tid) * 16 + t];
-    }
-    part[(long)(m0 + tid) * T + jt] = s;
-    part[((long)M + m0 + tid) * T + jt] = q;
-  }
+  store_row_partials<BM>(part, M, T, m0, jt, red);
 }
 
 // ---------------------------------------------------------------------------
@@ -481,11 +315,12 @@ moments_kernel(const float* __restrict__ a2, const float* __restrict__ scale,
                int C, int S, int NS, int chunk, int tiles) {
   constexpr int BM = 16 * T;
   __shared__ __align__(16) float smem[Smem<BM, BM>::kFloats];
+  const int tid = threadIdx.x;
   const int tm = blockIdx.x % tiles, tn = blockIdx.x / tiles;
   const int m0 = tm * BM, n0 = tn * BM;
   const int kb = blockIdx.y * chunk, ke = min(NS, kb + chunk);
-  ActRows<T> la(a2, scale, shift, C, S, NS, m0);
-  ActRows<T> lb(a2, scale, shift, C, S, NS, n0);
+  const NormRelu h{{C, S, NS}, a2, scale, shift};
+  Rows<T, NormRelu> la(h, C, m0), lb(h, C, n0);
   float acc[T][T];
   float rowsum = 0.f;
   if (tn == 0)
@@ -493,72 +328,9 @@ moments_kernel(const float* __restrict__ a2, const float* __restrict__ scale,
   else
     mainloop<T, T, false>(acc, la, lb, kb, ke, smem, rowsum);
   float* P = part + (long)blockIdx.y * C * (C + 1);
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-#pragma unroll
-  for (int i = 0; i < T; ++i) {
-    const int m = m0 + tile_pos(i, ty);
-    if (m >= C) continue;
-#pragma unroll
-    for (int j = 0; j < T; ++j) {
-      const int c = n0 + tile_pos(j, tx);
-      if (c < C) P[(long)m * (C + 1) + c] = acc[i][j];
-    }
-  }
-  if (tn == 0 && tid < BM && m0 + tid < C) P[(long)(m0 + tid) * (C + 1) + C] = rowsum;
-}
-
-// out[0][m] and out[1][m]: row m's T partials added in tile order (a warp
-// a row, each lane a strided run, then the lanes in order).
-__global__ void __launch_bounds__(kThreads)
-chain_stats_final_kernel(const float* __restrict__ part, float* __restrict__ out,
-                   int M, int T) {
-  __shared__ float red[2][kThreads];
-  const int lane = threadIdx.x & 31;
-  const int m = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  float s = 0.f, q = 0.f;
-  if (m < M) {
-    for (int t = lane; t < T; t += 32) {
-      s += part[(long)m * T + t];
-      q += part[((long)M + m) * T + t];
-    }
-  }
-  red[0][threadIdx.x] = s;
-  red[1][threadIdx.x] = q;
-  __syncthreads();
-  if (lane == 0 && m < M) {
-    float ts = 0.f, tq = 0.f;
-    for (int l = 0; l < 32; ++l) {
-      ts += red[0][threadIdx.x + l];
-      tq += red[1][threadIdx.x + l];
-    }
-    out[m] = ts;
-    out[M + m] = tq;
-  }
-}
-
-// out[e] = sum over the splits of part[split][e], in split order.
-__global__ void __launch_bounds__(kThreads)
-moments_final_kernel(const float* __restrict__ part, float* __restrict__ out,
-                    long E, int splits) {
-  const long e = (long)blockIdx.x * kThreads + threadIdx.x;
-  if (e >= E) return;
-  float s = 0.f;
-  for (int p = 0; p < splits; ++p) s += part[(long)p * E + e];
-  out[e] = s;
-}
-
-int finish_stats(const float* part, float* stats, int M, int T,
-                 cudaStream_t s) {
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  chain_stats_final_kernel<<<(M + 7) / 8, kThreads, 0, s>>>(part, stats, M, T);
-  return (int)cudaGetLastError();
-}
-
-bool tiles_ok(int M, int N, int S, int T) {
-  const long ns = (long)N * S;
-  return M > 0 && N > 0 && S > 0 && ns < INT_MAX &&
-         T == (int)((ns + kBN - 1) / kBN) && T <= 65535;
+  store_partial<T, T>(acc, P, C, C, C + 1, m0, n0);
+  if (tn == 0 && tid < BM && m0 + tid < C)
+    P[(long)(m0 + tid) * (C + 1) + C] = rowsum;
 }
 
 }  // namespace
@@ -618,9 +390,7 @@ extern "C" int fused_block_norm_relu_moments_f32(const float* a2,
                                                  int splits, int chunk,
                                                  void* stream) {
   const long ns = (long)N * S;
-  if (N <= 0 || C <= 0 || S <= 0 || ns >= INT_MAX || chunk <= 0 ||
-      chunk % kBK || splits <= 0 || splits > 65535 ||
-      (long)splits * chunk < ns || (long)(splits - 1) * chunk >= ns)
+  if (N <= 0 || C <= 0 || S <= 0 || !splits_ok(ns, splits, chunk))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C <= 64) {
@@ -632,12 +402,7 @@ extern "C" int fused_block_norm_relu_moments_f32(const float* a2,
     moments_kernel<8><<<dim3(tiles * tiles, splits), kThreads, 0, s>>>(
         a2, scale, shift, part, C, S, (int)ns, chunk, tiles);
   }
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const long E = (long)C * (C + 1);
-  moments_final_kernel<<<(int)((E + kThreads - 1) / kThreads), kThreads, 0,
-                        s>>>(part, out, E, splits);
-  return (int)cudaGetLastError();
+  return finish_splits(part, out, (long)C * (C + 1), splits, s);
 }
 
 // a2 [N, C, S], x [N, Cout, S], w3 [Cout, C], sc2/sh2 [C], sc3/sh3 [Cout];

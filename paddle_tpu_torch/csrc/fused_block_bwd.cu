@@ -1,0 +1,665 @@
+// Bottleneck-chain backward kernels for Hopper (sm_90a), float32.
+//
+// Replace the backward TPU kernels of paddle_tpu/kernels/fused_block.py,
+// which bottleneck_rest_bwd calls in this order. Activations are [N, C, S]
+// (x, g3, dx: [N, Cin, S]); the BN backward is folded into per-channel
+// constants outside the kernels (da = g * p + a * q + r; bn3's through W3:
+// A = W3^T diag(p3), B = W3^T diag(q3) W3, v0 = W3^T r3):
+//   bwd_reduce3 (Pallas body _b1a_kernel): g3 = dout * (out > 0), written
+//     once; P = sum_{n,s} g3 h2^T [Cin, C] and sum g3 [Cin], with h2 =
+//     relu(a2 * sc2 + sh2) recomputed on load;
+//   bwd_apply3 (_b1b_kernel): g2 = (A g3 + B h2 + v0) * (a2 * sc2 + sh2 >
+//     0) [N, C, S]; bn2's sum g2 and sum g2 * xhat2, xhat2 = a2 * inv2 - m2
+//     * inv2;
+//   bwd_mid (_b2_kernel): da2 = g2 * p2 + a2 * q2 + r2; (a) the 3x3's
+//     input gradient dh1[p] = sum_t taps[t]^T da2[p - off_t] (da2 padded
+//     with 0: an out-of-image source pixel loads 0, not r2), g1 = dh1 *
+//     (a1 * sc1 + sh1 > 0) and bn1's sums; (b) the tap gradients dtaps[t]
+//     = sum_{n,p} da2[p] h1[p + off_t]^T [9, Cout, Cin] (h1 padded with 0:
+//     an out-of-image h1 loads 0, not relu(sh1));
+//   bwd_final (_b3_kernel): da1 = g1 * p1 + a1 * q1 + r1; (a) dx = W1^T da1
+//     + g3; (b) dW1 = sum_{n,p} da1 x^T [C, Cin].
+// off_t = dy * W + dx for tap t = (dy + 1) * 3 + (dx + 1).
+//
+// What bounds them on the H100. At ResNet-50's three chain stages (batch
+// 128; Cin, C, S = 256, 64, 3136 / 512, 128, 784 / 1024, 256, 196) each
+// does the same products at every stage: 13.2 GFLOP in bwd_reduce3, 16.4
+// in bwd_apply3, 59.2 in bwd_mid and 26.3 in bwd_final, 0.196-0.883 ms at
+// the 67 TFLOP/s float32 peak; at 56x56 the bytes of bwd_reduce3 (1.34 GB)
+// and bwd_final (1.44 GB) bound them instead.
+//
+// What the design does about it: the forward's (fused_block.cu), on the
+// shared tile machinery of fused_block.cuh. Each product is one tiled
+// float32 SIMT product with the batch folded into the columns N*S, in one
+// of two shapes:
+//   - a column product [M, K] x [K, N*S] (bwd_apply3, the 3x3's input
+//     gradient, dx), whose B loader computes its operand on the way in
+//     (g3 or h2; da2 at the tap's source pixel; da1) and whose epilogue
+//     masks, adds and writes the per-tile partials of the BN sums;
+//   - a split-K product with a small output over K = N*S (P, the tap
+//     gradients, dW1), whose row loaders compute both operands on the way
+//     in, each split writing its partial product, which a second launch
+//     adds in split order.
+// The TPU carries its sums across a sequential grid of images; here they
+// are partials added in a fixed order: no atomics, every result is
+// deterministic. A mask is taken as the plain version takes it, a * sc
+// rounded, then + sh rounded, so that both zero the same elements.
+#include "fused_block.cuh"
+
+namespace {
+
+__device__ __forceinline__ bool positive(float a, float sc, float sh) {
+  return __fadd_rn(__fmul_rn(a, sc), sh) > 0.f;
+}
+
+// ---------------------------------------------------------------------------
+// Row-loader values (Rows<T, F> of the header): channel c at column k.
+// ---------------------------------------------------------------------------
+
+// g3 = dout * (out > 0) of an [N, Cin, S] pair; with g3 set, the loader
+// also writes what it loads there (the blocks of one column tile do, so
+// that every element is written once).
+struct MaskedGrad : Columns {
+  const float* dout;
+  const float* out;
+  float* g3;
+  __device__ __forceinline__ float value(long base, int c) const {
+    const long o = base + (long)c * S;
+    const float v = __ldg(out + o) > 0.f ? __ldg(dout + o) : 0.f;
+    if (g3) g3[o] = v;
+    return v;
+  }
+};
+
+// da = g * p[c] + a * q[c] + r[c], the folded BN backward of a raw a.
+struct FoldedGrad : Columns {
+  const float* g;
+  const float* a;
+  const float* p;
+  const float* q;
+  const float* r;
+  __device__ __forceinline__ float value(long base, int c) const {
+    const long o = base + (long)c * S;
+    return fmaf(__ldg(g + o), __ldg(p + c),
+                fmaf(__ldg(a + o), __ldg(q + c), __ldg(r + c)));
+  }
+};
+
+// An [N, C, S] tensor as it is.
+struct Plain : Columns {
+  const float* x;
+  __device__ __forceinline__ float value(long base, int c) const {
+    return __ldg(x + base + (long)c * S);
+  }
+};
+
+// h1 = relu(a * scale + shift) at pixel (y + dy, x + dx) of column k's
+// pixel (y, x); 0 outside the image (the conv pads h1).
+struct ShiftedNormRelu {
+  const float* a;
+  const float* scale;
+  const float* shift;
+  int C, H, W, NS, dy, dx;
+  __device__ __forceinline__ long base(int k, bool& ok) const {
+    const int S = H * W;
+    const int n = k / S, p = k - n * S;
+    const int y = p / W + dy, x = p % W + dx;
+    ok = k < NS && y >= 0 && y < H && x >= 0 && x < W;
+    return (long)n * C * S + (long)y * W + x;
+  }
+  __device__ __forceinline__ float value(long base, int c) const {
+    return relu_affine(__ldg(a + base + (long)c * H * W), __ldg(scale + c),
+                       __ldg(shift + c));
+  }
+};
+
+// ---------------------------------------------------------------------------
+// A loaders of the column products.
+// ---------------------------------------------------------------------------
+
+// A[m][k] = w[k * M + m], the transpose of a row-major [K, M] weight: W1^T
+// of w1 [C, Cin]; the 3x3's transposed taps, taps [9, Cout, Cin] seen as
+// [9 Cout, Cin] with k = t * Cout + co. Thread: row tid % BM, k offsets
+// tid / BM + (256 / BM) r, so neighbouring threads read neighbouring words.
+template <int TM>
+struct WeightTA {
+  static constexpr int BM = 16 * TM, KS = kThreads / BM, R = kBK / KS;
+  const float* w;
+  int M, K, m0, mr, kr;
+  float reg[R];
+  __device__ WeightTA(const float* w_, int M_, int K_, int m0_)
+      : w(w_), M(M_), K(K_), m0(m0_), mr(threadIdx.x % BM),
+        kr(threadIdx.x / BM) {}
+  __device__ __forceinline__ void fetch(int k0) {
+    const int m = m0 + mr;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int k = k0 + kr + KS * r;
+      reg[r] = (m < M && k < K) ? __ldg(w + (long)k * M + m) : 0.f;
+    }
+  }
+  __device__ __forceinline__ void store(float* s) const {
+#pragma unroll
+    for (int r = 0; r < R; ++r) s[(kr + KS * r) * (BM + 4) + mr] = reg[r];
+  }
+};
+
+// A = [amat | bmat] of bwd_apply3: A[m][k] = amat[m][k] for k < K1,
+// bmat[m][k - K1] for K1 <= k < K1 + M (amat [M, K1], bmat [M, M]).
+template <int TM>
+struct StackedA {
+  static constexpr int BM = 16 * TM, R = TM / 2;
+  const float* amat;
+  const float* bmat;
+  int M, K1, m0, kk, mr;
+  float reg[R];
+  __device__ StackedA(const float* a_, const float* b_, int M_, int K1_,
+                      int m0_)
+      : amat(a_), bmat(b_), M(M_), K1(K1_), m0(m0_), kk(threadIdx.x & 7),
+        mr(threadIdx.x >> 3) {}
+  __device__ __forceinline__ void fetch(int k0) {
+    const int k = k0 + kk;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int m = m0 + mr + 32 * r;
+      float v = 0.f;
+      if (m < M) {
+        if (k < K1)
+          v = __ldg(amat + (long)m * K1 + k);
+        else if (k < K1 + M)
+          v = __ldg(bmat + (long)m * M + (k - K1));
+      }
+      reg[r] = v;
+    }
+  }
+  __device__ __forceinline__ void store(float* s) const {
+#pragma unroll
+    for (int r = 0; r < R; ++r) s[kk * (BM + 4) + mr + 32 * r] = reg[r];
+  }
+};
+
+// ---------------------------------------------------------------------------
+// B loaders of the column products: one fixed column j = n * S + p a
+// thread, k offsets tid / BN + (256 / BN) r.
+// ---------------------------------------------------------------------------
+
+// B = [g3; h2] of bwd_apply3: g3[n, k, p] for k < K1 (g3 [N, K1, S]),
+// relu(a2[n, k - K1, p] * scale + shift) for K1 <= k < K1 + C.
+template <int TN>
+struct StackedB {
+  static constexpr int BN = 16 * TN, R = TN / 2, KS = kThreads / BN;
+  const float* g3;
+  const float* a2;
+  const float* scale;
+  const float* shift;
+  int K1, C, S, col, kr;
+  long base1, base2;
+  bool ok;
+  float reg[R];
+  __device__ StackedB(const float* g3_, const float* a2_, const float* sc_,
+                      const float* sh_, int K1_, int C_, int S_, int NS,
+                      int j0)
+      : g3(g3_), a2(a2_), scale(sc_), shift(sh_), K1(K1_), C(C_), S(S_),
+        col(threadIdx.x % BN), kr(threadIdx.x / BN) {
+    const int j = j0 + col;
+    ok = j < NS;
+    const int n = ok ? j / S : 0;
+    base1 = (long)n * K1 * S + (j - n * S);
+    base2 = (long)n * C * S + (j - n * S);
+  }
+  __device__ __forceinline__ void fetch(int k0) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int k = k0 + kr + KS * r;
+      float v = 0.f;
+      if (ok) {
+        if (k < K1) {
+          v = __ldg(g3 + base1 + (long)k * S);
+        } else if (k < K1 + C) {
+          const int c = k - K1;
+          v = relu_affine(__ldg(a2 + base2 + (long)c * S), __ldg(scale + c),
+                          __ldg(shift + c));
+        }
+      }
+      reg[r] = v;
+    }
+  }
+  __device__ __forceinline__ void store(float* s) const {
+#pragma unroll
+    for (int r = 0; r < R; ++r) s[(kr + KS * r) * (BN + 4) + col] = reg[r];
+  }
+};
+
+// B of the 3x3's input gradient: k = t * C + co, column j = (n, y, x);
+// da2[n, co] = g2 * p + a2 * q + r at the source pixel (y - dy, x - dx)
+// inside the image, 0 outside (the conv pads da2). C % kBK == 0, so a
+// stage lies inside one tap.
+template <int TN>
+struct Conv3x3TB {
+  static constexpr int BN = 16 * TN, R = TN / 2, KS = kThreads / BN;
+  const float* g2;
+  const float* a2;
+  const float* p;
+  const float* q;
+  const float* r;
+  int C, H, W, S, col, kr, y, x;
+  long base;
+  bool ok;
+  float reg[R];
+  __device__ Conv3x3TB(const float* g2_, const float* a2_, const float* p_,
+                       const float* q_, const float* r_, int C_, int H_,
+                       int W_, int NS, int j0)
+      : g2(g2_), a2(a2_), p(p_), q(q_), r(r_), C(C_), H(H_), W(W_),
+        S(H_ * W_), col(threadIdx.x % BN), kr(threadIdx.x / BN) {
+    const int j = j0 + col;
+    ok = j < NS;
+    const int n = ok ? j / S : 0;
+    const int pix = j - n * S;
+    y = pix / W;
+    x = pix - y * W;
+    base = (long)n * C * S;
+  }
+  __device__ __forceinline__ void fetch(int k0) {
+    const int tap = k0 / C;
+    const int co0 = k0 - tap * C;
+    const int ty = tap / 3;
+    const int yy = y - (ty - 1), xx = x - (tap - 3 * ty - 1);
+    const bool in = ok && yy >= 0 && yy < H && xx >= 0 && xx < W;
+    const long off = base + (long)yy * W + xx;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int co = co0 + kr + KS * i;
+      reg[i] = in ? fmaf(__ldg(g2 + off + (long)co * S), __ldg(p + co),
+                         fmaf(__ldg(a2 + off + (long)co * S), __ldg(q + co),
+                              __ldg(r + co)))
+                  : 0.f;
+    }
+  }
+  __device__ __forceinline__ void store(float* s) const {
+#pragma unroll
+    for (int i = 0; i < R; ++i) s[(kr + KS * i) * (BN + 4) + col] = reg[i];
+  }
+};
+
+// B of dx: da1[n, k, p] = g1 * p + a1 * q + r (g1, a1 [N, K, S]).
+template <int TN>
+struct FoldedB {
+  static constexpr int BN = 16 * TN, R = TN / 2, KS = kThreads / BN;
+  const float* g;
+  const float* a;
+  const float* p;
+  const float* q;
+  const float* r;
+  int K, S, col, kr;
+  long base;
+  bool ok;
+  float reg[R];
+  __device__ FoldedB(const float* g_, const float* a_, const float* p_,
+                     const float* q_, const float* r_, int K_, int S_, int NS,
+                     int j0)
+      : g(g_), a(a_), p(p_), q(q_), r(r_), K(K_), S(S_),
+        col(threadIdx.x % BN), kr(threadIdx.x / BN) {
+    const int j = j0 + col;
+    ok = j < NS;
+    const int n = ok ? j / S : 0;
+    base = (long)n * K * S + (j - n * S);
+  }
+  __device__ __forceinline__ void fetch(int k0) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int k = k0 + kr + KS * i;
+      float v = 0.f;
+      if (ok && k < K) {
+        const long o = base + (long)k * S;
+        v = fmaf(__ldg(g + o), __ldg(p + k),
+                 fmaf(__ldg(a + o), __ldg(q + k), __ldg(r + k)));
+      }
+      reg[i] = v;
+    }
+  }
+  __device__ __forceinline__ void store(float* s) const {
+#pragma unroll
+    for (int i = 0; i < R; ++i) s[(kr + KS * i) * (BN + 4) + col] = reg[i];
+  }
+};
+
+// The epilogue of bwd_apply3 and of the 3x3's input gradient: g = acc +
+// bias[m] (bias may be null) where a * sc + sh > 0, else 0, written to y
+// [N, M, S]; the rows' partial sums of g and of g * (a * inv - mean * inv)
+// into part [2, M, T] at tile column jt.
+template <int TM, int TN>
+__device__ __forceinline__ void store_masked_with_stats(
+    const float (&acc)[TM][TN], const float* __restrict__ bias,
+    const float* __restrict__ a, const float* __restrict__ sc,
+    const float* __restrict__ sh, const float* __restrict__ inv,
+    const float* __restrict__ mean, float* __restrict__ y,
+    float* __restrict__ part, int M, int S, int NS, int T, int m0, int j0,
+    int jt, float* red) {
+  constexpr int BM = 16 * TM;
+  const int ty = threadIdx.x >> 4;
+  long coff[TN];
+  bool cok[TN];
+  column_offsets<TN>(coff, cok, j0, M, S, NS);
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int lr = tile_pos(i, ty);
+    const int m = m0 + lr;
+    float s = 0.f, q = 0.f;
+    if (m < M) {
+      const float b = bias ? __ldg(bias + m) : 0.f;
+      const float sc_m = __ldg(sc + m), sh_m = __ldg(sh + m);
+      const float inv_m = __ldg(inv + m), xs = -__ldg(mean + m) * inv_m;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        if (cok[j]) {
+          const long o = coff[j] + (long)m * S;
+          const float av = __ldg(a + o);
+          const float g = positive(av, sc_m, sh_m) ? acc[i][j] + b : 0.f;
+          y[o] = g;
+          s += g;
+          q = fmaf(g, fmaf(av, inv_m, xs), q);
+        }
+      }
+    }
+    put_row_partial<BM>(red, lr, s, q);
+  }
+  store_row_partials<BM>(part, M, T, m0, jt, red);
+}
+
+// ---------------------------------------------------------------------------
+// Kernels. Column products: grid (M tiles, column tiles), M tiles fastest.
+// Split-K products: grid (output tiles, splits), the tiles of a split
+// together, so that they meet its columns in L2.
+// ---------------------------------------------------------------------------
+
+// Block (tile, split) of P [Cin, C]: the tile (tm, tn) of the split's
+// partial, part[split] [Cin, C + 1]; the blocks with tn == 0 write g3 and
+// their rows' sums of g3 into column C.
+template <int T>
+__global__ void __launch_bounds__(kThreads, 2)
+bwd_reduce3_kernel(const float* __restrict__ dout, const float* __restrict__ out,
+                   const float* __restrict__ a2, const float* __restrict__ sc2,
+                   const float* __restrict__ sh2, float* __restrict__ g3,
+                   float* __restrict__ part, int Cin, int C, int S, int NS,
+                   int chunk, int tiles_m) {
+  constexpr int BM = 16 * T;
+  __shared__ __align__(16) float smem[Smem<BM, BM>::kFloats];
+  const int tid = threadIdx.x;
+  const int tm = blockIdx.x % tiles_m, tn = blockIdx.x / tiles_m;
+  const int m0 = tm * BM, n0 = tn * BM;
+  const int kb = blockIdx.y * chunk, ke = min(NS, kb + chunk);
+  const MaskedGrad g{{Cin, S, NS}, dout, out, tn == 0 ? g3 : nullptr};
+  const NormRelu h{{C, S, NS}, a2, sc2, sh2};
+  Rows<T, MaskedGrad> la(g, Cin, m0);
+  Rows<T, NormRelu> lb(h, C, n0);
+  float acc[T][T];
+  float rowsum = 0.f;
+  if (tn == 0)
+    mainloop<T, T, true>(acc, la, lb, kb, ke, smem, rowsum);
+  else
+    mainloop<T, T, false>(acc, la, lb, kb, ke, smem, rowsum);
+  float* P = part + (long)blockIdx.y * Cin * (C + 1);
+  store_partial<T, T>(acc, P, Cin, C, C + 1, m0, n0);
+  if (tn == 0 && tid < BM && m0 + tid < Cin)
+    P[(long)(m0 + tid) * (C + 1) + C] = rowsum;
+}
+
+template <int TM, int TN>
+__global__ void __launch_bounds__(kThreads, 2)
+bwd_apply3_kernel(const float* __restrict__ g3, const float* __restrict__ a2,
+                  const float* __restrict__ sc2, const float* __restrict__ sh2,
+                  const float* __restrict__ amat,
+                  const float* __restrict__ bmat,
+                  const float* __restrict__ v0, const float* __restrict__ inv2,
+                  const float* __restrict__ m2, float* __restrict__ g2,
+                  float* __restrict__ part, int C, int Cin, int S, int NS,
+                  int T) {
+  constexpr int BM = 16 * TM, BN = 16 * TN;
+  __shared__ __align__(16) float smem[Smem<BM, BN>::kFloats];
+  const int m0 = blockIdx.x * BM, jt = blockIdx.y, j0 = jt * BN;
+  StackedA<TM> la(amat, bmat, C, Cin, m0);
+  StackedB<TN> lb(g3, a2, sc2, sh2, Cin, C, S, NS, j0);
+  float acc[TM][TN];
+  float unused = 0.f;
+  mainloop<TM, TN, false>(acc, la, lb, 0, Cin + C, smem, unused);
+  store_masked_with_stats<TM, TN>(acc, v0, a2, sc2, sh2, inv2, m2, g2, part,
+                                  C, S, NS, T, m0, j0, jt, smem);
+}
+
+// The 3x3's input gradient: rows m = the 3x3's input channels.
+template <int TM, int TN>
+__global__ void __launch_bounds__(kThreads, 2)
+bwd_mid_dgrad_kernel(const float* __restrict__ g2, const float* __restrict__ a2,
+                     const float* __restrict__ p2, const float* __restrict__ q2,
+                     const float* __restrict__ r2,
+                     const float* __restrict__ taps,
+                     const float* __restrict__ a1,
+                     const float* __restrict__ sc1,
+                     const float* __restrict__ sh1,
+                     const float* __restrict__ inv1,
+                     const float* __restrict__ m1, float* __restrict__ g1,
+                     float* __restrict__ part, int C, int H, int W, int NS,
+                     int T) {
+  constexpr int BM = 16 * TM, BN = 16 * TN;
+  __shared__ __align__(16) float smem[Smem<BM, BN>::kFloats];
+  const int m0 = blockIdx.x * BM, jt = blockIdx.y, j0 = jt * BN;
+  WeightTA<TM> la(taps, C, 9 * C, m0);
+  Conv3x3TB<TN> lb(g2, a2, p2, q2, r2, C, H, W, NS, j0);
+  float acc[TM][TN];
+  float unused = 0.f;
+  mainloop<TM, TN, false>(acc, la, lb, 0, 9 * C, smem, unused);
+  store_masked_with_stats<TM, TN>(acc, nullptr, a1, sc1, sh1, inv1, m1, g1,
+                                  part, C, H * W, NS, T, m0, j0, jt, smem);
+}
+
+// Block (tap, tile, split): the tile (tm, tn) of the split's partial
+// dtaps[tap], part[split] [9, C, C].
+template <int T>
+__global__ void __launch_bounds__(kThreads, 2)
+bwd_mid_wgrad_kernel(const float* __restrict__ g2, const float* __restrict__ a2,
+                     const float* __restrict__ p2, const float* __restrict__ q2,
+                     const float* __restrict__ r2,
+                     const float* __restrict__ a1,
+                     const float* __restrict__ sc1,
+                     const float* __restrict__ sh1, float* __restrict__ part,
+                     int C, int H, int W, int NS, int chunk, int tiles) {
+  constexpr int BM = 16 * T;
+  __shared__ __align__(16) float smem[Smem<BM, BM>::kFloats];
+  const int tile = blockIdx.x % (tiles * tiles), tap = blockIdx.x / (tiles * tiles);
+  const int m0 = (tile % tiles) * BM, n0 = (tile / tiles) * BM;
+  const int kb = blockIdx.y * chunk, ke = min(NS, kb + chunk);
+  const FoldedGrad d{{C, H * W, NS}, g2, a2, p2, q2, r2};
+  const ShiftedNormRelu h{a1, sc1, sh1, C, H, W, NS, tap / 3 - 1, tap % 3 - 1};
+  Rows<T, FoldedGrad> la(d, C, m0);
+  Rows<T, ShiftedNormRelu> lb(h, C, n0);
+  float acc[T][T];
+  float unused = 0.f;
+  mainloop<T, T, false>(acc, la, lb, kb, ke, smem, unused);
+  store_partial<T, T>(acc, part + ((long)blockIdx.y * 9 + tap) * C * C, C, C,
+                      C, m0, n0);
+}
+
+// dx = W1^T da1 + g3: rows m = Cin.
+template <int TM, int TN>
+__global__ void __launch_bounds__(kThreads, 2)
+bwd_final_dgrad_kernel(const float* __restrict__ g1, const float* __restrict__ a1,
+                       const float* __restrict__ p1,
+                       const float* __restrict__ q1,
+                       const float* __restrict__ r1,
+                       const float* __restrict__ w1,
+                       const float* __restrict__ g3, float* __restrict__ dx,
+                       int Cin, int C, int S, int NS) {
+  constexpr int BM = 16 * TM, BN = 16 * TN;
+  __shared__ __align__(16) float smem[Smem<BM, BN>::kFloats];
+  const int m0 = blockIdx.x * BM, j0 = blockIdx.y * BN;
+  WeightTA<TM> la(w1, Cin, C, m0);
+  FoldedB<TN> lb(g1, a1, p1, q1, r1, C, S, NS, j0);
+  float acc[TM][TN];
+  float unused = 0.f;
+  mainloop<TM, TN, false>(acc, la, lb, 0, C, smem, unused);
+  const int ty = threadIdx.x >> 4;
+  long coff[TN];
+  bool cok[TN];
+  column_offsets<TN>(coff, cok, j0, Cin, S, NS);
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = m0 + tile_pos(i, ty);
+    if (m >= Cin) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      if (cok[j]) {
+        const long o = coff[j] + (long)m * S;
+        dx[o] = acc[i][j] + __ldg(g3 + o);
+      }
+    }
+  }
+}
+
+// Block (tile, split) of dW1 [C, Cin]: the split's partial, part[split].
+template <int T>
+__global__ void __launch_bounds__(kThreads, 2)
+bwd_final_wgrad_kernel(const float* __restrict__ g1, const float* __restrict__ a1,
+                       const float* __restrict__ p1,
+                       const float* __restrict__ q1,
+                       const float* __restrict__ r1,
+                       const float* __restrict__ x, float* __restrict__ part,
+                       int C, int Cin, int S, int NS, int chunk, int tiles_m) {
+  constexpr int BM = 16 * T;
+  __shared__ __align__(16) float smem[Smem<BM, BM>::kFloats];
+  const int m0 = (blockIdx.x % tiles_m) * BM, n0 = (blockIdx.x / tiles_m) * BM;
+  const int kb = blockIdx.y * chunk, ke = min(NS, kb + chunk);
+  const FoldedGrad d{{C, S, NS}, g1, a1, p1, q1, r1};
+  const Plain xs{{Cin, S, NS}, x};
+  Rows<T, FoldedGrad> la(d, C, m0);
+  Rows<T, Plain> lb(xs, Cin, n0);
+  float acc[T][T];
+  float unused = 0.f;
+  mainloop<T, T, false>(acc, la, lb, kb, ke, smem, unused);
+  store_partial<T, T>(acc, part + (long)blockIdx.y * C * Cin, C, Cin, Cin, m0,
+                      n0);
+}
+
+// Square split-K tiles: 64 x 64 where the output's smaller side is <= 64,
+// else 128 x 128 (the wrappers size the splits by the same rule).
+int square_tiles(int M, int N, int* tiles_m) {
+  const int b = (M < N ? M : N) <= 64 ? 64 : 128;
+  *tiles_m = (M + b - 1) / b;
+  return *tiles_m * ((N + b - 1) / b);
+}
+
+}  // namespace
+
+// dout, out [N, Cin, S], a2 [N, C, S], sc2/sh2 [C]; g3 [N, Cin, S]; part
+// [splits, Cin, C + 1] scratch; red [Cin, C + 1]: P in columns 0..C-1, sum
+// g3 in column C. All float32, contiguous. Returns a cudaError_t.
+extern "C" int fused_block_bwd_reduce3_f32(
+    const float* dout, const float* out, const float* a2, const float* sc2,
+    const float* sh2, float* g3, float* part, float* red, int N, int Cin,
+    int C, int S, int splits, int chunk, void* stream) {
+  const long ns = (long)N * S;
+  if (N <= 0 || Cin <= 0 || C <= 0 || S <= 0 || !splits_ok(ns, splits, chunk))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int tm;
+  const int tiles = square_tiles(Cin, C, &tm);
+  if ((Cin < C ? Cin : C) <= 64)
+    bwd_reduce3_kernel<4><<<dim3(tiles, splits), kThreads, 0, s>>>(
+        dout, out, a2, sc2, sh2, g3, part, Cin, C, S, (int)ns, chunk, tm);
+  else
+    bwd_reduce3_kernel<8><<<dim3(tiles, splits), kThreads, 0, s>>>(
+        dout, out, a2, sc2, sh2, g3, part, Cin, C, S, (int)ns, chunk, tm);
+  return finish_splits(part, red, (long)Cin * (C + 1), splits, s);
+}
+
+// g3 [N, Cin, S], a2 [N, C, S], sc2/sh2/v0/inv2/m2 [C], amat [C, Cin],
+// bmat [C, C]; g2 [N, C, S], part [2, C, T] scratch, stats [2, C] (sum g2,
+// sum g2 * xhat2); T = ceil(N*S / 128).
+extern "C" int fused_block_bwd_apply3_f32(
+    const float* g3, const float* a2, const float* sc2, const float* sh2,
+    const float* amat, const float* bmat, const float* v0, const float* inv2,
+    const float* m2, float* g2, float* part, float* stats, int N, int Cin,
+    int C, int S, int T, void* stream) {
+  if (Cin <= 0 || !tiles_ok(C, N, S, T)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int NS = N * S;
+  if (C <= 64)
+    bwd_apply3_kernel<4, 8><<<dim3((C + 63) / 64, T), kThreads, 0, s>>>(
+        g3, a2, sc2, sh2, amat, bmat, v0, inv2, m2, g2, part, C, Cin, S, NS,
+        T);
+  else
+    bwd_apply3_kernel<8, 8><<<dim3((C + 127) / 128, T), kThreads, 0, s>>>(
+        g3, a2, sc2, sh2, amat, bmat, v0, inv2, m2, g2, part, C, Cin, S, NS,
+        T);
+  return finish_stats(part, stats, C, T, s);
+}
+
+// g2, a2, a1 [N, C, H*W], sc1/sh1/p2/q2/r2/inv1/m1 [C], taps [9, C, C]; g1
+// [N, C, H*W], part [2, C, T] scratch, stats [2, C] (sum g1, sum g1 *
+// xhat1), wpart [splits, 9, C, C] scratch, dtaps [9, C, C]; C % 8 == 0; T =
+// ceil(N*H*W / 128); splits and chunk as the moments' over K = N*H*W.
+extern "C" int fused_block_bwd_mid_f32(
+    const float* g2, const float* a2, const float* a1, const float* sc1,
+    const float* sh1, const float* p2, const float* q2, const float* r2,
+    const float* inv1, const float* m1, const float* taps, float* g1,
+    float* part, float* stats, float* wpart, float* dtaps, int N, int C,
+    int H, int W, int T, int splits, int chunk, void* stream) {
+  if (C % kBK || H <= 0 || W <= 0 || !tiles_ok(C, N, H * W, T) ||
+      !splits_ok((long)N * H * W, splits, chunk))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int NS = N * H * W;
+  if (C <= 64)
+    bwd_mid_dgrad_kernel<4, 8><<<dim3((C + 63) / 64, T), kThreads, 0, s>>>(
+        g2, a2, p2, q2, r2, taps, a1, sc1, sh1, inv1, m1, g1, part, C, H, W,
+        NS, T);
+  else
+    bwd_mid_dgrad_kernel<8, 8><<<dim3((C + 127) / 128, T), kThreads, 0, s>>>(
+        g2, a2, p2, q2, r2, taps, a1, sc1, sh1, inv1, m1, g1, part, C, H, W,
+        NS, T);
+  int err = finish_stats(part, stats, C, T, s);
+  if (err) return err;
+  int tm;
+  const int tiles = square_tiles(C, C, &tm);
+  if (C <= 64)
+    bwd_mid_wgrad_kernel<4><<<dim3(9 * tiles, splits), kThreads, 0, s>>>(
+        g2, a2, p2, q2, r2, a1, sc1, sh1, wpart, C, H, W, NS, chunk, tm);
+  else
+    bwd_mid_wgrad_kernel<8><<<dim3(9 * tiles, splits), kThreads, 0, s>>>(
+        g2, a2, p2, q2, r2, a1, sc1, sh1, wpart, C, H, W, NS, chunk, tm);
+  return finish_splits(wpart, dtaps, 9L * C * C, splits, s);
+}
+
+// g3, x [N, Cin, S], g1, a1 [N, C, S], p1/q1/r1 [C], w1 [C, Cin]; dx [N,
+// Cin, S], wpart [splits, C, Cin] scratch, dw1 [C, Cin]; splits and chunk
+// as the moments' over K = N*S for the C x Cin output.
+extern "C" int fused_block_bwd_final_f32(
+    const float* g3, const float* g1, const float* a1, const float* x,
+    const float* p1, const float* q1, const float* r1, const float* w1,
+    float* dx, float* wpart, float* dw1, int N, int Cin, int C, int S,
+    int splits, int chunk, void* stream) {
+  const long ns = (long)N * S;
+  if (N <= 0 || Cin <= 0 || C <= 0 || S <= 0 ||
+      !splits_ok(ns, splits, chunk))
+    return (int)cudaErrorInvalidValue;
+  const int T = (int)((ns + kBN - 1) / kBN);
+  if (T > 65535) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Cin <= 64)
+    bwd_final_dgrad_kernel<4, 8><<<dim3((Cin + 63) / 64, T), kThreads, 0, s>>>(
+        g1, a1, p1, q1, r1, w1, g3, dx, Cin, C, S, (int)ns);
+  else
+    bwd_final_dgrad_kernel<8, 8><<<dim3((Cin + 127) / 128, T), kThreads, 0,
+                                    s>>>(g1, a1, p1, q1, r1, w1, g3, dx, Cin,
+                                         C, S, (int)ns);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  int tm;
+  const int tiles = square_tiles(C, Cin, &tm);
+  if ((C < Cin ? C : Cin) <= 64)
+    bwd_final_wgrad_kernel<4><<<dim3(tiles, splits), kThreads, 0, s>>>(
+        g1, a1, p1, q1, r1, x, wpart, C, Cin, S, (int)ns, chunk, tm);
+  else
+    bwd_final_wgrad_kernel<8><<<dim3(tiles, splits), kThreads, 0, s>>>(
+        g1, a1, p1, q1, r1, x, wpart, C, Cin, S, (int)ns, chunk, tm);
+  return finish_splits(wpart, dw1, (long)C * Cin, splits, s);
+}

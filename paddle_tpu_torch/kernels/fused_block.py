@@ -1,7 +1,7 @@
 """The ResNet bottleneck chain: a stride-1 rest block (1x1 conv + BN +
 ReLU, 3x3 conv + BN + ReLU, 1x1 conv + BN, + input, ReLU, every BN in
-training mode) as four forward kernels, and the plain PyTorch versions
-of its forward and backward.
+training mode) as four forward and four backward kernels, with the
+plain PyTorch version of each.
 
 Counterpart of ``paddle_tpu/kernels/fused_block.py``, with its layouts:
 activations [N, C, S] with S = H·W, ``w1`` [C, Cin], ``taps`` [9, C, C]
@@ -11,23 +11,24 @@ a3: the 3x3 and the last 1x1 normalize their input on load, and bn3's
 statistics come analytically from the moments of h2 (mean(a3) = W3·mean
 (h2), E[a3²] = diag(W3 E[h2 h2ᵀ] W3ᵀ)).
 
-Four kernels, written by hand for Hopper in
-``paddle_tpu_torch/csrc/fused_block.cu`` (its header says what bounds
-them and what the design does about it):
+Eight kernels, written by hand for Hopper: the forward's in
+``paddle_tpu_torch/csrc/fused_block.cu``, the backward's in
+``csrc/fused_block_bwd.cu``, on the tile machinery of
+``csrc/fused_block.cuh`` (each source's header says what bounds its
+kernels and what the design does about it). Each replaces the Pallas
+kernel of its name:
 
-* ``conv1x1_stats`` replaces the Pallas ``conv1x1_stats`` (``_k1_kernel``);
-* ``conv3x3_norm_stats`` replaces ``conv3x3_norm_stats`` (``_k2_kernel``);
-* ``norm_relu_moments`` replaces ``norm_relu_moments``
-  (``_moments_kernel``);
-* ``conv1x1_bn_residual`` replaces ``conv1x1_bn_residual``
-  (``_assemble_kernel``).
+* forward: ``conv1x1_stats`` (``_k1_kernel``), ``conv3x3_norm_stats``
+  (``_k2_kernel``), ``norm_relu_moments`` (``_moments_kernel``),
+  ``conv1x1_bn_residual`` (``_assemble_kernel``);
+* backward, in the order ``bottleneck_rest_bwd`` calls them:
+  ``bwd_reduce3`` (``_b1a_kernel``), ``bwd_apply3`` (``_b1b_kernel``),
+  ``bwd_mid`` (``_b2_kernel``), ``bwd_final`` (``_b3_kernel``).
 
 Each wrapper runs its plain version (``*_reference``) only for tensors
 on the CPU; for a CUDA tensor it launches its kernel or raises, and
-counts the call in its ``launches`` attribute. The backward's four TPU
-kernels (``bwd_reduce3``, ``bwd_apply3``, ``bwd_mid``, ``bwd_final``)
-have plain versions here and no CUDA kernel yet: on a CUDA tensor their
-wrappers raise ``NotImplementedError``.
+counts the call in its ``launches`` attribute (one a call, whatever
+number of CUDA launches the call makes).
 
 ``bottleneck_rest_fwd`` / ``bottleneck_rest_bwd`` are line-for-line
 ports of the JAX package's; ``FusedBottleneckRest`` is the
@@ -287,15 +288,20 @@ def conv3x3_norm_stats(x: torch.Tensor, taps: torch.Tensor,
 conv3x3_norm_stats.launches = 0
 
 
-def _moment_splits(n: int, c: int, s: int, sms: int) -> Tuple[int, int]:
-    """(splits, chunk) of the moments' K = N·S: enough splits that the
-    square tiles x splits give about 4 blocks per SM, each split a
-    multiple of 8 columns."""
-    tile = 64 if c <= 64 else 128
-    tiles = (-(-c // tile)) ** 2
-    want = max(1, -(-4 * sms // tiles))
-    chunk = _BK * -(-n * s // (want * _BK))
-    return -(-n * s // chunk), chunk
+def _square_tiles(m: int, n: int) -> int:
+    """Output tiles of a split-K product [m, n]: 64 x 64 where its smaller
+    side is <= 64, else 128 x 128 (the kernels' rule)."""
+    b = 64 if min(m, n) <= 64 else 128
+    return -(-m // b) * -(-n // b)
+
+
+def _split_k(ns: int, blocks: int, sms: int) -> Tuple[int, int]:
+    """(splits, chunk) of a split-K product's K = N·S over `blocks` output
+    tiles: enough splits that tiles x splits give about 4 blocks per SM,
+    each split a multiple of 8 columns."""
+    want = max(1, -(-4 * sms // blocks))
+    chunk = _BK * -(-ns // (want * _BK))
+    return -(-ns // chunk), chunk
 
 
 def norm_relu_moments(x: torch.Tensor, scale: torch.Tensor,
@@ -313,7 +319,8 @@ def norm_relu_moments(x: torch.Tensor, scale: torch.Tensor,
     build.check("x", x, x.device, (n, c, s))
     build.check("scale", scale, x.device, (c,))
     build.check("shift", shift, x.device, (c,))
-    splits, chunk = _moment_splits(n, c, s, build.sm_count(x.device))
+    splits, chunk = _split_k(n * s, _square_tiles(c, c),
+                             build.sm_count(x.device))
     part = _empty(x.device, splits, c, c + 1)
     out = _empty(x.device, c, c + 1)
     with torch.cuda.device(x.device):
@@ -369,37 +376,180 @@ def conv1x1_bn_residual(x: torch.Tensor, residual: torch.Tensor,
 conv1x1_bn_residual.launches = 0
 
 
-def _backward_on_cpu(name: str, t: torch.Tensor) -> None:
-    """The backward kernels run their plain versions on the CPU; no CUDA
-    kernel exists for them yet, so a CUDA tensor raises."""
-    if build.on_card(name, t):
-        raise NotImplementedError(
-            f"{name}: the bottleneck chain's backward kernels (bwd_reduce3, "
-            "bwd_apply3, bwd_mid, bwd_final: rows 10-13 of the TPU kernel "
-            "table) are not ported to the card; train with PT_FUSED_BLOCK "
-            "unset (the composition)")
+def _bwd_fn(name: str, argtypes: tuple):
+    return build.bind("fused_block_bwd.cu", name, argtypes)
+
+
+def _vectors(device, n: int, **vecs) -> None:
+    for name, v in vecs.items():
+        build.check(name, v, device, (n,))
 
 
 def bwd_reduce3(dout, out, a2, scale2, shift2):
-    _backward_on_cpu("bwd_reduce3", dout)
-    return bwd_reduce3_reference(dout, out, a2, scale2, shift2)
+    """dout, out [N, Cin, S], a2 [N, C, S] raw, scale2/shift2 [C] ->
+    (g3 = dout·(out > 0) [N, Cin, S], P = Σ_{n,s} g3 h2ᵀ [Cin, C], Σg3
+    [Cin]) with h2 = relu(a2·scale2 + shift2).
+
+    CPU tensors run ``bwd_reduce3_reference``. CUDA tensors run the
+    kernel: float32, contiguous; N·S split across blocks, the splits'
+    partials added in a fixed order (deterministic)."""
+    if not build.on_card("bwd_reduce3", dout):
+        return bwd_reduce3_reference(dout, out, a2, scale2, shift2)
+    _dims("dout", dout, 3)
+    _dims("a2", a2, 3)
+    n, cin, s = dout.shape
+    c = a2.shape[1]
+    dev = dout.device
+    build.check("dout", dout, dev, (n, cin, s))
+    build.check("out", out, dev, (n, cin, s))
+    build.check("a2", a2, dev, (n, c, s))
+    _vectors(dev, c, scale2=scale2, shift2=shift2)
+    splits, chunk = _split_k(n * s, _square_tiles(cin, c),
+                             build.sm_count(dev))
+    g3 = _empty(dev, n, cin, s)
+    part, red = _empty(dev, splits, cin, c + 1), _empty(dev, cin, c + 1)
+    with torch.cuda.device(dev):
+        build.launch("bwd_reduce3",
+                     _bwd_fn("fused_block_bwd_reduce3_f32",
+                             (_P,) * 8 + (_I,) * 6 + (_P,)),
+                     dout.data_ptr(), out.data_ptr(), a2.data_ptr(),
+                     scale2.data_ptr(), shift2.data_ptr(), g3.data_ptr(),
+                     part.data_ptr(), red.data_ptr(), n, cin, c, s, splits,
+                     chunk, _stream(dev))
+    bwd_reduce3.launches += 1
+    return g3, red[:, :c], red[:, c]
+
+
+bwd_reduce3.launches = 0
 
 
 def bwd_apply3(g3, a2, scale2, shift2, amat, bmat, v0, inv2, m2):
-    _backward_on_cpu("bwd_apply3", g3)
-    return bwd_apply3_reference(g3, a2, scale2, shift2, amat, bmat, v0, inv2,
-                                m2)
+    """g3 [N, Cin, S], a2 [N, C, S] raw, amat [C, Cin], bmat [C, C],
+    scale2/shift2/v0/inv2/m2 [C] -> (g2 = (A·g3 + B·h2 + v0)·(h2 > 0)
+    [N, C, S], Σg2 [C], Σg2·x̂2 [C]), x̂2 = a2·inv2 − m2·inv2.
+
+    CPU tensors run ``bwd_apply3_reference``. CUDA tensors run the
+    kernel: float32, contiguous; deterministic sums."""
+    if not build.on_card("bwd_apply3", g3):
+        return bwd_apply3_reference(g3, a2, scale2, shift2, amat, bmat, v0,
+                                    inv2, m2)
+    _dims("g3", g3, 3)
+    _dims("a2", a2, 3)
+    n, cin, s = g3.shape
+    c = a2.shape[1]
+    dev = g3.device
+    build.check("g3", g3, dev, (n, cin, s))
+    build.check("a2", a2, dev, (n, c, s))
+    build.check("amat", amat, dev, (c, cin))
+    build.check("bmat", bmat, dev, (c, c))
+    _vectors(dev, c, scale2=scale2, shift2=shift2, v0=v0, inv2=inv2, m2=m2)
+    t = _col_tiles(n, s)
+    g2 = _empty(dev, n, c, s)
+    part, stats = _empty(dev, 2, c, t), _empty(dev, 2, c)
+    with torch.cuda.device(dev):
+        build.launch("bwd_apply3",
+                     _bwd_fn("fused_block_bwd_apply3_f32",
+                             (_P,) * 12 + (_I,) * 5 + (_P,)),
+                     g3.data_ptr(), a2.data_ptr(), scale2.data_ptr(),
+                     shift2.data_ptr(), amat.data_ptr(), bmat.data_ptr(),
+                     v0.data_ptr(), inv2.data_ptr(), m2.data_ptr(),
+                     g2.data_ptr(), part.data_ptr(), stats.data_ptr(), n, cin,
+                     c, s, t, _stream(dev))
+    bwd_apply3.launches += 1
+    return g2, stats[0], stats[1]
+
+
+bwd_apply3.launches = 0
 
 
 def bwd_mid(g2, a2, a1, scale1, shift1, p2, q2, r2, inv1, m1, taps, h_side):
-    _backward_on_cpu("bwd_mid", g2)
-    return bwd_mid_reference(g2, a2, a1, scale1, shift1, p2, q2, r2, inv1,
-                             m1, taps, h_side)
+    """g2, a2, a1 [N, C, S], taps [9, C, C] ([ky*3 + kx], [Cout, Cin]),
+    the [C] vectors -> (g1 [N, C, S], dtaps [9, C, C], Σg1 [C], Σg1·x̂1
+    [C]): da2 = g2·p2 + a2·q2 + r2, the 3x3's input gradient dh1 (da2
+    padded with zeros), g1 = dh1·(h1 > 0), and the tap gradients of
+    da2 against h1 = relu(a1·scale1 + shift1) (padded with zeros).
+
+    CPU tensors run ``bwd_mid_reference``. CUDA tensors run the kernels
+    (the input gradient, then the tap gradients): float32, contiguous, C
+    a multiple of 8, S = h_side · (S // h_side); deterministic sums."""
+    if not build.on_card("bwd_mid", g2):
+        return bwd_mid_reference(g2, a2, a1, scale1, shift1, p2, q2, r2,
+                                 inv1, m1, taps, h_side)
+    _dims("g2", g2, 3)
+    n, c, s = g2.shape
+    if h_side <= 0 or s % h_side:
+        raise ValueError(f"S = {s} is not h_side = {h_side} rows")
+    if c % _BK:
+        raise ValueError(f"C = {c}: the kernel takes a multiple of {_BK}")
+    dev = g2.device
+    for name, t in (("g2", g2), ("a2", a2), ("a1", a1)):
+        build.check(name, t, dev, (n, c, s))
+    build.check("taps", taps, dev, (9, c, c))
+    _vectors(dev, c, scale1=scale1, shift1=shift1, p2=p2, q2=q2, r2=r2,
+             inv1=inv1, m1=m1)
+    t = _col_tiles(n, s)
+    splits, chunk = _split_k(n * s, 9 * _square_tiles(c, c),
+                             build.sm_count(dev))
+    g1 = _empty(dev, n, c, s)
+    part, stats = _empty(dev, 2, c, t), _empty(dev, 2, c)
+    wpart, dtaps = _empty(dev, splits, 9, c, c), _empty(dev, 9, c, c)
+    with torch.cuda.device(dev):
+        build.launch("bwd_mid",
+                     _bwd_fn("fused_block_bwd_mid_f32",
+                             (_P,) * 16 + (_I,) * 7 + (_P,)),
+                     g2.data_ptr(), a2.data_ptr(), a1.data_ptr(),
+                     scale1.data_ptr(), shift1.data_ptr(), p2.data_ptr(),
+                     q2.data_ptr(), r2.data_ptr(), inv1.data_ptr(),
+                     m1.data_ptr(), taps.data_ptr(), g1.data_ptr(),
+                     part.data_ptr(), stats.data_ptr(), wpart.data_ptr(),
+                     dtaps.data_ptr(), n, c, h_side, s // h_side, t, splits,
+                     chunk, _stream(dev))
+    bwd_mid.launches += 1
+    return g1, dtaps, stats[0], stats[1]
+
+
+bwd_mid.launches = 0
 
 
 def bwd_final(g3, g1, a1, x, p1, q1, r1, w1):
-    _backward_on_cpu("bwd_final", g3)
-    return bwd_final_reference(g3, g1, a1, x, p1, q1, r1, w1)
+    """g3, x [N, Cin, S], g1, a1 [N, C, S], p1/q1/r1 [C], w1 [C, Cin] ->
+    (dx = W1ᵀ·da1 + g3 [N, Cin, S], dW1 = Σ_{n,s} da1 xᵀ [C, Cin]) with
+    da1 = g1·p1 + a1·q1 + r1.
+
+    CPU tensors run ``bwd_final_reference``. CUDA tensors run the kernels
+    (dx, then dW1 split across blocks): float32, contiguous;
+    deterministic sums."""
+    if not build.on_card("bwd_final", g3):
+        return bwd_final_reference(g3, g1, a1, x, p1, q1, r1, w1)
+    _dims("g3", g3, 3)
+    _dims("g1", g1, 3)
+    n, cin, s = g3.shape
+    c = g1.shape[1]
+    dev = g3.device
+    build.check("g3", g3, dev, (n, cin, s))
+    build.check("x", x, dev, (n, cin, s))
+    build.check("g1", g1, dev, (n, c, s))
+    build.check("a1", a1, dev, (n, c, s))
+    build.check("w1", w1, dev, (c, cin))
+    _vectors(dev, c, p1=p1, q1=q1, r1=r1)
+    splits, chunk = _split_k(n * s, _square_tiles(c, cin),
+                             build.sm_count(dev))
+    dx = _empty(dev, n, cin, s)
+    wpart, dw1 = _empty(dev, splits, c, cin), _empty(dev, c, cin)
+    with torch.cuda.device(dev):
+        build.launch("bwd_final",
+                     _bwd_fn("fused_block_bwd_final_f32",
+                             (_P,) * 11 + (_I,) * 6 + (_P,)),
+                     g3.data_ptr(), g1.data_ptr(), a1.data_ptr(),
+                     x.data_ptr(), p1.data_ptr(), q1.data_ptr(),
+                     r1.data_ptr(), w1.data_ptr(), dx.data_ptr(),
+                     wpart.data_ptr(), dw1.data_ptr(), n, cin, c, s, splits,
+                     chunk, _stream(dev))
+    bwd_final.launches += 1
+    return dx, dw1
+
+
+bwd_final.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -488,7 +638,7 @@ def bottleneck_rest_bwd(res, dout, stat_cots, h_side, eps=EPS_DEFAULT):
     dgam3, dbeta3 = sum_g3x3, sum_g3
     p3, q3, r3 = _bn_affine_consts(inv3 * gam3, inv3, m3, sum_g3, sum_g3x3,
                                    m_count, gm3, gv3)
-    amat = (w3f * p3[:, None]).T.to(w3.dtype)
+    amat = (w3f * p3[:, None]).T.contiguous().to(w3.dtype)
     bmat = (w3f.T @ (w3f * q3[:, None])).to(w3.dtype)
     v0 = w3f.T @ r3
     dw3 = (p3[:, None] * p_mat + q3[:, None] * (w3f @ m2_raw)
@@ -521,7 +671,8 @@ class FusedBottleneckRest(torch.autograd.Function):
     """The differentiable chain: (out, m1, v1, m2, v2, m3, v3). The six
     batch statistics have exact cotangents (they feed the running stats
     at the op). The backward runs ``bottleneck_rest_bwd`` from the
-    forward's residuals; on the card it raises until its kernels exist."""
+    forward's residuals: the four backward kernels on the card, their
+    plain versions on the CPU."""
 
     @staticmethod
     def forward(ctx, x, w1, taps, w3, g1, b1, g2, b2, g3, b3, h_side, eps):
@@ -537,8 +688,8 @@ class FusedBottleneckRest(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout, *stat_cots):
         res = ctx.saved_tensors
-        if dout is None:
-            dout = torch.zeros_like(res[3])
+        # autograd may hand a strided cotangent; the kernels take it dense
+        dout = torch.zeros_like(res[3]) if dout is None else dout.contiguous()
         cots = [torch.zeros_like(st) if g is None else g
                 for g, st in zip(stat_cots, res[10:16])]
         return bottleneck_rest_bwd(res, dout, cots, ctx.h_side,

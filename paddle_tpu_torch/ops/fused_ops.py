@@ -15,9 +15,8 @@ default it runs the composition of the individual ops, as the JAX
 package does. With ``PT_FUSED_BLOCK=always`` on the card, the blocks
 the JAX package's gate takes (H == W, N >= 8, S >= CHAIN_MIN_S (196),
 Cin % 128 == 0, C % 64 == 0) run the bottleneck chain of
-kernels/fused_block.py (``_chain_block``); the others compose. The
-chain's backward has no kernel yet, so a training step through it
-raises on the card.
+kernels/fused_block.py (``_chain_block``), forward and backward through
+its kernels; the others compose.
 """
 
 from __future__ import annotations

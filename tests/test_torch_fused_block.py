@@ -9,9 +9,14 @@ for the test); ``bottleneck_rest_fwd`` against the JAX package's;
 ``FusedBottleneckRest``'s gradients against ``jax.grad`` of
 ``fused_bottleneck_rest``, with and without cotangents on the six batch
 statistics; the op's chain helper against the port's ``compose_block``
-and the JAX package's ``_compose_block``. Inputs come from a numpy seed:
-N 2-8, Cin 16-32, C 8, H 7 and 8 (S 49 and 64), BN shifts that are not
-zero, so the 3x3's zero padding of h (not of a1) shows at every edge.
+and the JAX package's ``_compose_block``; one Momentum step of a
+``fused_bottleneck`` program through the chain against the composed
+step and the JAX package's. The backward wrappers refuse what their
+kernels do not take before any launch, and receive dense operands from
+a strided cotangent. Inputs come from a numpy seed: N 2-8, Cin 16-256,
+C 8-64, H 4, 7 and 8 (S 16, 49 and 64), BN shifts that are not zero,
+so the 3x3's zero padding of h1 (not of a1) and, in the backward, of
+da2 (not r2) shows at every edge.
 
 Tolerances: float32 on both sides, sums in other orders. Forward outputs
 within atol = rtol = 1e-5; sums within 1e-5 of the sum of their terms'
@@ -27,9 +32,15 @@ import numpy as np
 import pytest
 import torch
 
+import paddle_tpu as jpt
+from paddle_tpu.core import program as jprog
+from paddle_tpu.core.scope import Scope as JScope
 from paddle_tpu.kernels import fused_block as jfb
 from paddle_tpu.ops import fused_ops as jfo
 
+import paddle_tpu_torch as pt
+from paddle_tpu_torch import io as tio
+from paddle_tpu_torch.core import program as tprog
 from paddle_tpu_torch.core.registry import ExecContext, require_op
 from paddle_tpu_torch.kernels import build
 from paddle_tpu_torch.kernels import fused_block as tfb
@@ -353,17 +364,208 @@ def test_op_takes_the_chain_where_the_gate_does(monkeypatch, takes):
         _close(outs[slot][0].numpy(), want.numpy(), **CHAIN)
 
 
-@pytest.mark.parametrize("name,n_args", [("bwd_reduce3", 5),
-                                         ("bwd_apply3", 9), ("bwd_mid", 12),
-                                         ("bwd_final", 8)])
-def test_backward_wrappers_raise_on_the_card(monkeypatch, name, n_args):
-    """The backward kernels are not ported: a wrapper given a card tensor
-    raises NotImplementedError naming them (simulated here by declaring
-    the CPU tensor on the card)."""
+def _bwd_args(name, fault):
+    """Valid operands of a backward wrapper (N 2, Cin 16, C 8, H 7), one
+    of them made float64 or strided as `fault` says."""
+    n, cin, c, s, h = 2, 16, 8, 49, 7
+    z = torch.zeros
+
+    def act(k):
+        return z(n, k, s)
+
+    vec = z(c)
+    args = {"bwd_reduce3": [act(cin), act(cin), act(c), vec, vec],
+            "bwd_apply3": [act(cin), act(c), vec, vec, z(c, cin), z(c, c),
+                           vec, vec, vec],
+            "bwd_mid": [act(c), act(c), act(c), vec, vec, vec, vec, vec, vec,
+                        vec, z(9, c, c), h],
+            "bwd_final": [act(cin), act(c), act(c), act(cin), vec, vec, vec,
+                          z(c, cin)]}[name]
+    # a second operand, so that the first (the one on_card reads) is not
+    # the only one checked
+    i = 1
+    if fault == "float64":
+        args[i] = args[i].double()
+    else:
+        args[i] = z(args[i].shape[::-1]).transpose(0, -1)
+        assert not args[i].is_contiguous()
+    return args
+
+
+@pytest.mark.parametrize("fault", ["float64", "strided"])
+@pytest.mark.parametrize("name", ["bwd_reduce3", "bwd_apply3", "bwd_mid",
+                                  "bwd_final"])
+def test_backward_wrappers_refuse_before_launch(monkeypatch, name, fault):
+    """A backward wrapper given tensors declared on the card (the CPU
+    tensors here) refuses a float64 or a strided operand, TypeError or
+    ValueError, before it reaches its kernel (build.bind patched to fail
+    if it is reached)."""
     monkeypatch.setattr(build, "on_card", lambda what, t: True)
-    z = torch.zeros(1, 1, 1)
-    with pytest.raises(NotImplementedError, match="rows 10-13"):
-        getattr(tfb, name)(*([z] * n_args))
+
+    def no_kernel(*a):
+        raise AssertionError("reached the kernel")
+
+    monkeypatch.setattr(build, "bind", no_kernel)
+    monkeypatch.setattr(build, "sm_count", no_kernel)
+    before = getattr(tfb, name).launches
+    err = TypeError if fault == "float64" else ValueError
+    with pytest.raises(err):
+        getattr(tfb, name)(*_bwd_args(name, fault))
+    assert getattr(tfb, name).launches == before
+
+
+def test_strided_dout_reaches_the_kernels_contiguous(monkeypatch):
+    """FusedBottleneckRest.backward given a strided cotangent of out hands
+    every backward wrapper contiguous operands (the kernels refuse strided
+    ones on the card), and its gradients are those of a dense one."""
+    n, cin, c, h = 2, 16, 8, 7
+    d = _case(n, cin, c, h, seed=16)
+    seen = []
+    for name in ("bwd_reduce3", "bwd_apply3", "bwd_mid", "bwd_final"):
+        wrapper = getattr(tfb, name)
+        monkeypatch.setattr(tfb, name, lambda *a, w=wrapper: seen.append(a)
+                            or w(*a))
+    dvec = torch.from_numpy(np.random.RandomState(17).randn(
+        n, h * h, cin).astype(np.float32))
+    grads = []
+    for dout in (dvec.transpose(1, 2), dvec.transpose(1, 2).contiguous()):
+        t_args = [torch.from_numpy(d[k]).requires_grad_(True) for k in ARGS]
+        o = tfb.fused_bottleneck_rest(*t_args, h, EPS)
+        grads.append(torch.autograd.grad(o[0], t_args, dout))
+    assert not dvec.transpose(1, 2).is_contiguous()
+    tensors = [a for call in seen[:4] for a in call
+               if isinstance(a, torch.Tensor)]
+    assert len(seen) == 8 and len(tensors) == 5 + 9 + 11 + 8
+    assert all(a.is_contiguous() for a in tensors)
+    for got, want in zip(*grads):
+        _close(got, want, atol=0, rtol=0)
+
+
+def _bwd_mid_padding_wrong(g2, a2, a1, sc1, sh1, p2, q2, r2, taps, h):
+    """The trap: da2 and h1 taken on the padded grid, so an out-of-image
+    da2 reads r2 and an out-of-image h1 reads relu(sh1) instead of 0.
+    Returns (dh1 before the mask, dtaps)."""
+    col = lambda v: v.reshape(1, -1, 1, 1)
+    n, c, _ = g2.shape
+    pad = lambda t: torch.nn.functional.pad(t.reshape(n, c, h, h),
+                                            (1, 1, 1, 1))
+    da2 = pad(g2) * col(p2) + pad(a2) * col(q2) + col(r2)
+    h1 = torch.clamp_min(pad(a1) * col(sc1) + col(sh1), 0.0)
+    inner = da2[:, :, 1:-1, 1:-1]
+    dh1 = torch.zeros(n, c, h, h)
+    dtaps = torch.zeros(9, c, c)
+    for t in range(9):
+        dy, dx = t // 3 - 1, t % 3 - 1
+        src = da2[:, :, 1 - dy:1 - dy + h, 1 - dx:1 - dx + h]
+        dh1 += torch.einsum("oi,nohw->nihw", taps[t], src)
+        hs = h1[:, :, 1 + dy:1 + dy + h, 1 + dx:1 + dx + h]
+        dtaps[t] = torch.einsum("nohw,nihw->oi", inner, hs)
+    return dh1.reshape(n, c, h * h), dtaps
+
+
+@pytest.mark.parametrize("h", [7, 8])
+def test_bwd_mid_pads_da2_and_h1_not_r2(interpret, h):
+    """At H 7 and 8, with r2 and shift1 well above zero, the backward 3x3
+    reads 0 outside the image for both da2 (the input gradient) and h1
+    (the tap gradients): the plain version matches Pallas' bwd_mid, and a
+    version that pads before the folds (an out-of-image da2 reading r2, an
+    h1 reading relu(shift1)) is far outside the tolerance on the border
+    pixels and on the tap gradients."""
+    n, cin, c = 2, 16, 8
+    b = _backward_case((n, cin, c, h), seed=18)
+    rng = np.random.RandomState(19)
+    vc = [rng.randn(c).astype(np.float32) for _ in range(4)]
+    p2, q2 = np.abs(vc[0]) + 0.5, 0.1 * vc[1]
+    r2 = np.abs(vc[2]) + 0.5
+    sh1 = np.abs(np.asarray(b["sh1"])) + 0.5
+    g2 = rng.randn(n, c, h * h).astype(np.float32)
+    inv1, m1 = np.abs(vc[3]) + 0.5, 0.1 * vc[3]
+    args = (g2, b["a2"], b["a1"], b["sc1"], sh1, p2, q2, r2, inv1, m1,
+            b["d"]["taps"])
+    jmid = jfb.bwd_mid(*map(jnp.asarray, args), h)
+    tmid = tfb.bwd_mid(*map(_t, args), h)
+    for got, want in zip(tmid, jmid):
+        scale = float(np.abs(_np(want)).max())
+        assert float(np.abs(got.numpy() - _np(want)).max()) <= 1e-5 * scale
+    t = [_t(a) for a in args]
+    dh1, dtaps = _bwd_mid_padding_wrong(*t[:8], t[10], h)
+    mask = (torch.clamp_min(t[2] * t[3].reshape(1, -1, 1)
+                            + t[4].reshape(1, -1, 1), 0.0) > 0).numpy()
+    gap = (np.abs(np.where(mask, dh1.numpy(), 0.0) - _np(jmid[0]))
+           .reshape(n, c, h, h))
+    border = np.ones((h, h), bool)
+    border[1:-1, 1:-1] = False
+    scale = float(np.abs(_np(jmid[0])).max())
+    assert gap[:, :, border].max() > 1e3 * 1e-5 * scale
+    assert gap[:, :, 1:-1, 1:-1].max() <= 1e-5 * scale
+    tap_scale = float(np.abs(_np(jmid[1])).max())
+    assert float(np.abs(dtaps.numpy() - _np(jmid[1])).max()) > \
+        1e3 * 1e-5 * tap_scale
+
+
+def _block_program(pkg, prog_mod):
+    """data [256, 4, 4] -> fused_bottleneck (C 64) -> global average pool
+    -> fc 10 -> softmax cross-entropy, Momentum (lr 0.05, mu 0.9), built
+    after reset_unique_names() so that both packages name every var
+    alike."""
+    prog_mod.reset_unique_names()
+    main, startup = pkg.Program(), pkg.Program()
+    with pkg.program_guard(main, startup):
+        data = pkg.layers.data("data", [256, 4, 4], dtype="float32")
+        label = pkg.layers.data("label", [1], dtype="int64")
+        h = pkg.layers.fused_bottleneck(data, 64)
+        h = pkg.layers.pool2d(h, pool_type="avg", global_pooling=True)
+        logits = pkg.layers.fc(h, size=10)
+        avg = pkg.layers.mean(pkg.layers.softmax_with_cross_entropy(logits,
+                                                                    label))
+        pkg.optimizer.MomentumOptimizer(learning_rate=0.05,
+                                        momentum=0.9).minimize(avg)
+    return main, startup, avg
+
+
+def test_momentum_step_through_the_chain_matches_composition(monkeypatch):
+    """One Momentum step of a fused_bottleneck program (N 8, Cin 256, C
+    64, 4x4) through the port's Executor on the CPU, from the JAX startup
+    state, with the gate patched open (as PT_FUSED_BLOCK=always opens it
+    on the card) and CHAIN_MIN_S lowered to 16: the block runs
+    FusedBottleneckRest forward and backward (the plain versions). Every
+    persistable after the step (parameters, running stats, velocities)
+    matches the composed step's, and the loss the JAX package's composed
+    step, within the chain-vs-composition tolerance."""
+    jmain, jstart, javg = _block_program(jpt, jprog)
+    tmain, _, tavg = _block_program(pt, tprog)
+    exe, scope = jpt.Executor(), JScope()
+    exe.run(jstart, scope=scope)
+    names = sorted(v.name for v in jmain.global_block.vars.values()
+                   if v.persistable)
+    start = {n: np.array(scope.find_var(n)) for n in names}
+    rng = np.random.RandomState(20)
+    feed = {"data": np.abs(rng.randn(8, 256, 4, 4)).astype(np.float32),
+            "label": rng.randint(0, 10, (8, 1)).astype(np.int64)}
+    jloss, = exe.run(jmain, feed=feed, fetch_list=[javg.name], scope=scope)
+    backward = tfb.bottleneck_rest_bwd
+    calls = []
+    monkeypatch.setattr(tfb, "bottleneck_rest_bwd",
+                        lambda *a: calls.append(1) or backward(*a))
+    losses, ends = {}, {}
+    for chain in (False, True):
+        if chain:
+            monkeypatch.setattr(tfo, "fused_block_enabled",
+                                lambda device: True)
+            monkeypatch.setattr(tfo, "CHAIN_MIN_S", 16)
+        sc = tio.scope_from_numpy(start, "cpu")
+        loss, = pt.Executor(pt.CPUPlace()).run(tmain, feed=feed,
+                                               fetch_list=[tavg], scope=sc)
+        losses[chain] = float(loss[0])
+        ends[chain] = {n: sc.get_numpy(n) for n in names}
+    assert calls == [1]
+    assert any(n.endswith("_velocity_0") for n in names)
+    _close(losses[True], float(jloss[0]), **CHAIN)
+    _close(losses[False], float(jloss[0]), **CHAIN)
+    for n in names:
+        assert not np.array_equal(ends[True][n], start[n]) or \
+            "learning_rate" in n, n
+        _close(ends[True][n], ends[False][n], err_msg=n, **CHAIN)
 
 
 def test_chain_block_hands_the_kernels_contiguous_operands(monkeypatch):

@@ -16,8 +16,9 @@ rtol = 1e-5; the backward kernels 1e-4, since each dK/dV entry sums up to
 S products in another order; the channel sums as chip_smoke.py holds
 them (the sum of squares within rtol 1e-5, the sum within 1e-5 of the
 sum of |a|); the LSTM forward 1e-5 and its backward 1e-4 (dW sums T*B
-products in another order); the bottleneck chain's outputs 1e-5 and
-its sums as the channel sums.
+products in another order); the bottleneck chain's forward outputs
+1e-5, its backward's elementwise outputs 1e-4 (g3 bitwise), and every
+sum of the chain within 1e-5 of the sum of its terms' magnitudes.
 """
 
 import numpy as np
@@ -695,13 +696,146 @@ def test_fused_bottleneck_op_takes_the_chain(cuda, monkeypatch):
         torch.testing.assert_close(outs[slot][0], w, atol=1e-5, rtol=1e-4)
 
 
-def test_training_through_the_chain_raises_on_the_card(cuda, monkeypatch):
-    """A training step of a fused_bottleneck program with
-    PT_FUSED_BLOCK=always runs the chain's forward and raises in its
-    backward: those kernels are not ported, and nothing falls back."""
-    import paddle_tpu_torch as pt
+_BWD = ("bwd_reduce3", "bwd_apply3", "bwd_mid", "bwd_final")
 
-    monkeypatch.setenv("PT_FUSED_BLOCK", "always")
+
+def _bwd_inputs(gen, n, cin, c, h):
+    """{kernel: args} of the four backward wrappers as bottleneck_rest_bwd
+    calls them after the chain's forward of a _chain_case, with a random
+    cotangent of out and zero stat cotangents, the wrappers replaced by
+    their plain versions: each kernel's inputs as its plain predecessors
+    make them."""
+    d = _chain_case(gen, n, cin, c, h)
+    g, b = d["g"], d["b"]
+    out, stats, aux = fb.bottleneck_rest_fwd(
+        d["x"], d["w1"], d["taps"], d["w3"], g[0], b[0], g[1], b[1], g[2],
+        b[2], h)
+    a1, a2, sum_h, m2h, sc1, sh1, sc2, sh2 = aux
+    res = (d["x"], a1, a2, out, d["w1"], d["taps"], d["w3"], g[0], g[1],
+           g[2], *stats, sum_h, m2h, sc1, sh1, sc2, sh2)
+    dout = torch.randn(n, cin, h * h, generator=gen).cuda()
+    args = {}
+
+    def plain(name):
+        ref = getattr(fb, name + "_reference")
+
+        def call(*a):
+            args[name] = a
+            return ref(*a)
+        return call
+
+    with pytest.MonkeyPatch.context() as mp:
+        for name in _BWD:
+            mp.setattr(fb, name, plain(name))
+        fb.bottleneck_rest_bwd(res, dout, [torch.zeros_like(s)
+                                           for s in stats], h)
+    return args
+
+
+def _bwd_terms(name, args, want):
+    """The sum of the magnitudes of each summed output's terms, in the
+    order the wrapper returns its outputs (None: an elementwise output)."""
+    col = lambda v: v.reshape(1, -1, 1)
+    if name == "bwd_reduce3":
+        dout, out, a2, sc2, sh2 = args
+        g3 = want[0].abs()
+        return (None, torch.einsum("nis,ncs->ic", g3,
+                                   fb._norm_relu(a2, sc2, sh2)),
+                g3.sum(dim=(0, 2)))
+    if name == "bwd_apply3":
+        a2, inv2, m2 = args[1], args[7], args[8]
+        g2 = want[0]
+        xh = a2 * col(inv2) + col(-m2 * inv2)
+        return (None, g2.abs().sum(dim=(0, 2)),
+                (g2 * xh).abs().sum(dim=(0, 2)))
+    if name == "bwd_mid":
+        g2, a2, a1, sc1, sh1, p2, q2, r2, inv1, m1, taps, h = args
+        n, c, s = g2.shape
+        da2 = (g2 * col(p2) + a2 * col(q2) + col(r2)).abs()
+        h1 = fb._norm_relu(a1, sc1, sh1).view(n, c, h, s // h)
+        dw = torch.nn.grad.conv2d_weight(h1, (c, c, 3, 3),
+                                         da2.view(n, c, h, s // h), padding=1)
+        g1 = want[0]
+        xh = a1 * col(inv1) + col(-m1 * inv1)
+        return (None, dw.permute(2, 3, 0, 1).reshape(9, c, c),
+                g1.abs().sum(dim=(0, 2)), (g1 * xh).abs().sum(dim=(0, 2)))
+    g3, g1, a1, x, p1, q1, r1, _ = args
+    da1 = (g1 * col(p1) + a1 * col(q1) + col(r1)).abs()
+    return None, torch.einsum("ncs,nks->ck", da1, x)
+
+
+@pytest.mark.parametrize("n,cin,c,h", [
+    (2, 256, 64, 56),    # S 3136: the 56x56 stage
+    (4, 256, 64, 14),    # S 196
+    (3, 256, 96, 7),     # S 49, C not a multiple of the 64-row tile
+    (8, 256, 96, 14),
+])
+def test_chain_backward_kernels_match_plain(cuda, n, cin, c, h):
+    """Each backward kernel against its plain version on the chain's own
+    inputs: g3 bitwise, g2, g1 and dx within BWD_TOL, every sum over N·S
+    within 1e-5 of its terms' magnitudes; a second call bit-identical."""
+    gen = torch.Generator().manual_seed(n + cin + c + h + 1)
+    args = _bwd_inputs(gen, n, cin, c, h)
+    for name, a in args.items():
+        got = getattr(fb, name)(*a)
+        want = getattr(fb, name + "_reference")(*a)
+        for i, (gt, wt, terms) in enumerate(zip(got, want,
+                                                _bwd_terms(name, a, want))):
+            if terms is None and name == "bwd_reduce3":
+                assert torch.equal(gt, wt), name
+            elif terms is None:
+                torch.testing.assert_close(gt, wt, **BWD_TOL)
+            else:
+                _sums_close(gt, wt, terms)
+        again = getattr(fb, name)(*a)
+        assert all(torch.equal(x, y) for x, y in zip(got, again)), name
+
+
+def test_chain_backward_wrappers_never_fall_back(cuda, monkeypatch):
+    """With the four backward plain versions patched to raise, the
+    chain's backward runs on the card through its kernels, one launch of
+    each."""
+    def boom(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    for name in _BWD:
+        monkeypatch.setattr(fb, name + "_reference", boom)
+    gen = torch.Generator().manual_seed(11)
+    d = _chain_case(gen, 2, 128, 64, 14)
+    args = [d["x"], d["w1"], d["taps"], d["w3"]] + [
+        t for pair in zip(d["g"], d["b"]) for t in pair]
+    args = [t.clone().requires_grad_(True) for t in args]
+    before = [getattr(fb, name).launches for name in _BWD]
+    out = fb.fused_bottleneck_rest(*args, 14)[0]
+    grads = torch.autograd.grad(out, args, torch.randn_like(out))
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    assert [getattr(fb, name).launches for name in _BWD] == [
+        k + 1 for k in before]
+
+
+def test_chain_backward_kernels_refuse_what_they_do_not_take(cuda):
+    gen = torch.Generator().manual_seed(12)
+    args = _bwd_inputs(gen, 2, 128, 64, 7)
+    for name, a in args.items():
+        for i, t in enumerate(a):
+            if not isinstance(t, torch.Tensor):
+                continue
+            bad = list(a)
+            bad[i] = t.double()
+            with pytest.raises(TypeError):
+                getattr(fb, name)(*bad)
+            if t.dim() >= 2:
+                bad[i] = t.transpose(0, 1).contiguous().transpose(0, 1)
+                assert not bad[i].is_contiguous()
+                with pytest.raises(ValueError):
+                    getattr(fb, name)(*bad)
+    with pytest.raises(ValueError):       # C % 8
+        fb.bwd_mid(*(t[:, :6].contiguous() for t in args["bwd_mid"][:3]),
+                   *args["bwd_mid"][3:])
+
+
+def _chain_program(pt):
     main, startup = pt.Program(), pt.Program()
     with pt.program_guard(main, startup):
         data = pt.layers.data("data", [256, 14, 14])
@@ -713,12 +847,44 @@ def test_training_through_the_chain_raises_on_the_card(cuda, monkeypatch):
                                                                   label))
         pt.optimizer.MomentumOptimizer(learning_rate=0.05,
                                        momentum=0.9).minimize(avg)
-    exe, scope = pt.Executor(), pt.Scope()
-    exe.run(startup, scope=scope)
+    return main, startup, avg
+
+
+def test_training_through_the_chain_matches_the_composition(cuda,
+                                                            monkeypatch):
+    """One Momentum step of a fused_bottleneck program (N 8, Cin 256, C
+    64, 14x14) from one startup state, composed and with
+    PT_FUSED_BLOCK=always: the chain's step runs the four forward and the
+    four backward kernels once each, and every persistable after it
+    (parameters, running stats, velocities) and the loss agree with the
+    composed step's within the chain-vs-composition tolerance (2e-5, as
+    tests/test_torch_fused_block.py holds them on the CPU)."""
+    import paddle_tpu_torch as pt
+
+    main, startup, avg = _chain_program(pt)
+    exe, scope0 = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope0)
+    names = sorted(scope0.local_var_names())
     rng = np.random.RandomState(0)
     feed = {"data": rng.rand(8, 256, 14, 14).astype(np.float32),
             "label": rng.randint(0, 10, (8, 1))}
-    before = fb.conv1x1_bn_residual.launches
-    with pytest.raises(NotImplementedError, match="rows 10-13"):
-        exe.run(main, feed=feed, fetch_list=[avg], scope=scope)
-    assert fb.conv1x1_bn_residual.launches == before + 1
+    kernels = ("conv1x1_stats", "conv3x3_norm_stats", "norm_relu_moments",
+               "conv1x1_bn_residual") + _BWD
+    losses, ends = {}, {}
+    for mode in ("never", "always"):
+        monkeypatch.setenv("PT_FUSED_BLOCK", mode)
+        scope = pt.Scope()
+        for n in names:
+            scope.set_var(n, scope0.find_var(n).clone())
+        before = [getattr(fb, k).launches for k in kernels]
+        loss, = exe.run(main, feed=feed, fetch_list=[avg], scope=scope)
+        after = [getattr(fb, k).launches for k in kernels]
+        assert [a - b for a, b in zip(after, before)] == (
+            [1] * 8 if mode == "always" else [0] * 8)
+        losses[mode] = float(loss[0])
+        ends[mode] = {n: scope.get_numpy(n) for n in names}
+    np.testing.assert_allclose(losses["always"], losses["never"], atol=2e-5,
+                               rtol=2e-5)
+    for n in names:
+        np.testing.assert_allclose(ends["always"][n], ends["never"][n],
+                                   atol=2e-5, rtol=2e-5, err_msg=n)
