@@ -1713,9 +1713,10 @@ def check_chain_bwd(torch, fb, card):
         # a fold 4, a mask 1) and the epilogues' (mask 2, bias 1, the two
         # sums 5)
         ea, ex = n * c * s, n * cin * s
+        r3_bytes = 4 * (3 * ex + ea + 2 * c + cin * c + cin)
+        r3_ops = 2 * cin * c * m + 3 * ea + 2 * ex
         bounds = {
-            "bwd_reduce3": bound_ms(4 * (3 * ex + ea + 2 * c + cin * c + cin),
-                                    2 * cin * c * m + 3 * ea + 2 * ex),
+            "bwd_reduce3": bound_ms(r3_bytes, r3_ops),
             "bwd_apply3": bound_ms(4 * (ex + 2 * ea + c * cin + c * c + 7 * c),
                                    2 * c * (cin + c) * m + 11 * ea),
             "bwd_mid": bound_ms(4 * (4 * ea + 18 * c * c + 9 * c),
@@ -1757,6 +1758,13 @@ def check_chain_bwd(torch, fb, card):
                   for k in CHAIN_BWD_KERNELS)
               + f"; backward {sum(ms.values()):.4f} ms vs bound "
               f"{sum(b[0] for b in bounds.values()):.4f} ms [{card}]")
+        print(f"bwd_reduce3 stage Cin {cin}, C {c}, {h}x{h}: "
+              f"{ms['bwd_reduce3']:.4f} ms, "
+              f"{r3_bytes / ms['bwd_reduce3'] / 1e9:.3f} TB/s of "
+              f"{r3_bytes / 1e9:.3f} GB, "
+              f"{r3_ops / ms['bwd_reduce3'] / 1e9:.2f} TFLOP/s of "
+              f"{r3_ops / 1e9:.2f} GFLOP (peaks 3.35 TB/s, 67 TFLOP/s) "
+              f"[{card}]")
         print(f"bottleneck chain backward stage Cin {cin}, C {c}, {h}x{h}, "
               f"largest |kernel - plain| (elementwise tol atol {BWD_ATOL} "
               f"rtol {BWD_RTOL}; sums rtol {STATS_RTOL} of Σ|terms|): "
@@ -2145,7 +2153,7 @@ def main() -> int:
                                   "paddle_tpu/kernels/fused_block.py:714"),
             "conv1x1_bn_residual": ("paddle_tpu_torch/csrc/fused_block.cu",
                                     "paddle_tpu/kernels/fused_block.py:756"),
-            "bwd_reduce3": ("paddle_tpu_torch/csrc/fused_block_bwd.cu",
+            "bwd_reduce3": ("paddle_tpu_torch/csrc/bwd_reduce3.cuh",
                             "paddle_tpu/kernels/fused_block.py:192"),
             "bwd_apply3": ("paddle_tpu_torch/csrc/fused_block_bwd.cu",
                            "paddle_tpu/kernels/fused_block.py:261"),

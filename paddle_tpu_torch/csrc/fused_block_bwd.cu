@@ -28,15 +28,17 @@
 // the 67 TFLOP/s float32 peak; at 56x56 the bytes of bwd_reduce3 (1.34 GB)
 // and bwd_final (1.44 GB) bound them instead.
 //
-// What the design does about it: the forward's (fused_block.cu), on the
-// shared tile machinery of fused_block.cuh. Each product is one tiled
-// float32 SIMT product with the batch folded into the columns N*S, in one
-// of two shapes:
+// What the design does about it: bwd_reduce3 has a design of its own,
+// a split-K product fed by a ring of asynchronous copies (its note in
+// bwd_reduce3.cuh). The other three are the forward's (fused_block.cu),
+// on the shared tile machinery of fused_block.cuh. Each product is one
+// tiled float32 SIMT product with the batch folded into the columns N*S,
+// in one of two shapes:
 //   - a column product [M, K] x [K, N*S] (bwd_apply3, the 3x3's input
 //     gradient, dx), whose B loader computes its operand on the way in
 //     (g3 or h2; da2 at the tap's source pixel; da1) and whose epilogue
 //     masks, adds and writes the per-tile partials of the BN sums;
-//   - a split-K product with a small output over K = N*S (P, the tap
+//   - a split-K product with a small output over K = N*S (the tap
 //     gradients, dW1), whose row loaders compute both operands on the way
 //     in, each split writing its partial product, which a second launch
 //     adds in split order.
@@ -45,6 +47,7 @@
 // deterministic. A mask is taken as the plain version takes it, a * sc
 // rounded, then + sh rounded, so that both zero the same elements.
 #include "fused_block.cuh"
+#include "bwd_reduce3.cuh"
 
 namespace {
 
@@ -55,21 +58,6 @@ __device__ __forceinline__ bool positive(float a, float sc, float sh) {
 // ---------------------------------------------------------------------------
 // Row-loader values (Rows<T, F> of the header): channel c at column k.
 // ---------------------------------------------------------------------------
-
-// g3 = dout * (out > 0) of an [N, Cin, S] pair; with g3 set, the loader
-// also writes what it loads there (the blocks of one column tile do, so
-// that every element is written once).
-struct MaskedGrad : Columns {
-  const float* dout;
-  const float* out;
-  float* g3;
-  __device__ __forceinline__ float value(long base, int c) const {
-    const long o = base + (long)c * S;
-    const float v = __ldg(out + o) > 0.f ? __ldg(dout + o) : 0.f;
-    if (g3) g3[o] = v;
-    return v;
-  }
-};
 
 // da = g * p[c] + a * q[c] + r[c], the folded BN backward of a raw a.
 struct FoldedGrad : Columns {
@@ -372,38 +360,6 @@ __device__ __forceinline__ void store_masked_with_stats(
 // together, so that they meet its columns in L2.
 // ---------------------------------------------------------------------------
 
-// Block (tile, split) of P [Cin, C]: the tile (tm, tn) of the split's
-// partial, part[split] [Cin, C + 1]; the blocks with tn == 0 write g3 and
-// their rows' sums of g3 into column C.
-template <int T>
-__global__ void __launch_bounds__(kThreads, 2)
-bwd_reduce3_kernel(const float* __restrict__ dout, const float* __restrict__ out,
-                   const float* __restrict__ a2, const float* __restrict__ sc2,
-                   const float* __restrict__ sh2, float* __restrict__ g3,
-                   float* __restrict__ part, int Cin, int C, int S, int NS,
-                   int chunk, int tiles_m) {
-  constexpr int BM = 16 * T;
-  __shared__ __align__(16) float smem[Smem<BM, BM>::kFloats];
-  const int tid = threadIdx.x;
-  const int tm = blockIdx.x % tiles_m, tn = blockIdx.x / tiles_m;
-  const int m0 = tm * BM, n0 = tn * BM;
-  const int kb = blockIdx.y * chunk, ke = min(NS, kb + chunk);
-  const MaskedGrad g{{Cin, S, NS}, dout, out, tn == 0 ? g3 : nullptr};
-  const NormRelu h{{C, S, NS}, a2, sc2, sh2};
-  Rows<T, MaskedGrad> la(g, Cin, m0);
-  Rows<T, NormRelu> lb(h, C, n0);
-  float acc[T][T];
-  float rowsum = 0.f;
-  if (tn == 0)
-    mainloop<T, T, true>(acc, la, lb, kb, ke, smem, rowsum);
-  else
-    mainloop<T, T, false>(acc, la, lb, kb, ke, smem, rowsum);
-  float* P = part + (long)blockIdx.y * Cin * (C + 1);
-  store_partial<T, T>(acc, P, Cin, C, C + 1, m0, n0);
-  if (tn == 0 && tid < BM && m0 + tid < Cin)
-    P[(long)(m0 + tid) * (C + 1) + C] = rowsum;
-}
-
 template <int TM, int TN>
 __global__ void __launch_bounds__(kThreads, 2)
 bwd_apply3_kernel(const float* __restrict__ g3, const float* __restrict__ a2,
@@ -551,24 +507,35 @@ int square_tiles(int M, int N, int* tiles_m) {
 
 // dout, out [N, Cin, S], a2 [N, C, S], sc2/sh2 [C]; g3 [N, Cin, S]; part
 // [splits, Cin, C + 1] scratch; red [Cin, C + 1]: P in columns 0..C-1, sum
-// g3 in column C. All float32, contiguous. Returns a cudaError_t.
+// g3 in column C. All float32, contiguous; with wide set, S % 4 == 0 and
+// dout, out, a2 and g3 16-byte aligned. Returns a cudaError_t.
 extern "C" int fused_block_bwd_reduce3_f32(
     const float* dout, const float* out, const float* a2, const float* sc2,
     const float* sh2, float* g3, float* part, float* red, int N, int Cin,
-    int C, int S, int splits, int chunk, void* stream) {
+    int C, int S, int splits, int chunk, int wide, void* stream) {
   const long ns = (long)N * S;
-  if (N <= 0 || Cin <= 0 || C <= 0 || S <= 0 || !splits_ok(ns, splits, chunk))
+  if (N <= 0 || Cin <= 0 || C <= 0 || S <= 0 ||
+      !reduce3::splits_ok(ns, splits, chunk))
+    return (int)cudaErrorInvalidValue;
+  if (wide && (S % 4 || !reduce3::aligned16(dout) ||
+               !reduce3::aligned16(out) || !reduce3::aligned16(a2) ||
+               !reduce3::aligned16(g3)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int tm;
-  const int tiles = square_tiles(Cin, C, &tm);
-  if ((Cin < C ? Cin : C) <= 64)
-    bwd_reduce3_kernel<4><<<dim3(tiles, splits), kThreads, 0, s>>>(
-        dout, out, a2, sc2, sh2, g3, part, Cin, C, S, (int)ns, chunk, tm);
-  else
-    bwd_reduce3_kernel<8><<<dim3(tiles, splits), kThreads, 0, s>>>(
-        dout, out, a2, sc2, sh2, g3, part, Cin, C, S, (int)ns, chunk, tm);
-  return finish_splits(part, red, (long)Cin * (C + 1), splits, s);
+  const int NS = (int)ns;
+  if (C <= 64)
+    return wide ? reduce3::launch<64, true>(dout, out, a2, sc2, sh2, g3, part,
+                                            red, Cin, C, S, NS, splits, chunk,
+                                            s)
+                : reduce3::launch<64, false>(dout, out, a2, sc2, sh2, g3,
+                                             part, red, Cin, C, S, NS, splits,
+                                             chunk, s);
+  return wide ? reduce3::launch<128, true>(dout, out, a2, sc2, sh2, g3, part,
+                                           red, Cin, C, S, NS, splits, chunk,
+                                           s)
+              : reduce3::launch<128, false>(dout, out, a2, sc2, sh2, g3, part,
+                                            red, Cin, C, S, NS, splits, chunk,
+                                            s);
 }
 
 // g3 [N, Cin, S], a2 [N, C, S], sc2/sh2/v0/inv2/m2 [C], amat [C, Cin],

@@ -14,9 +14,10 @@ statistics come analytically from the moments of h2 (mean(a3) = W3·mean
 Eight kernels, written by hand for Hopper: the forward's in
 ``paddle_tpu_torch/csrc/fused_block.cu``, the backward's in
 ``csrc/fused_block_bwd.cu``, on the tile machinery of
-``csrc/fused_block.cuh`` (each source's header says what bounds its
-kernels and what the design does about it). Each replaces the Pallas
-kernel of its name:
+``csrc/fused_block.cuh``, except ``bwd_reduce3``, whose split-K product
+fed by asynchronous copies is ``csrc/bwd_reduce3.cuh`` (each source's
+header says what bounds its kernels and what the design does about
+it). Each replaces the Pallas kernel of its name:
 
 * forward: ``conv1x1_stats`` (``_k1_kernel``), ``conv3x3_norm_stats``
   (``_k2_kernel``), ``norm_relu_moments`` (``_moments_kernel``),
@@ -376,6 +377,26 @@ def conv1x1_bn_residual(x: torch.Tensor, residual: torch.Tensor,
 conv1x1_bn_residual.launches = 0
 
 
+_R3_BM = 128   # rows of Cin of a bwd_reduce3 tile (reduce3::kBM)
+_R3_BK = 32    # columns of K of its stage (reduce3::kBK)
+
+
+def _reduce3_grid(n: int, s: int, cin: int, c: int,
+                  sms: int) -> Tuple[int, int, bool]:
+    """(splits, chunk, wide) of bwd_reduce3 over K = N·S: its tiles (128
+    rows of Cin by 64 columns of C where C <= 64, else 128) times the
+    splits fill the SMs in one wave at one block an SM, as far as whole
+    splits allow; each split a multiple of the 32-column stage, the
+    splits covering N·S exactly, each non-empty. wide: 16-byte copies of
+    4 columns, which stay inside one image only where S % 4 == 0."""
+    bn = 64 if c <= 64 else 128
+    tiles = -(-cin // _R3_BM) * -(-c // bn)
+    ns = n * s
+    want = max(1, sms // tiles)
+    chunk = _R3_BK * -(-ns // (want * _R3_BK))
+    return -(-ns // chunk), chunk, s % 4 == 0
+
+
 def _bwd_fn(name: str, argtypes: tuple):
     return build.bind("fused_block_bwd.cu", name, argtypes)
 
@@ -391,8 +412,9 @@ def bwd_reduce3(dout, out, a2, scale2, shift2):
     [Cin]) with h2 = relu(a2·scale2 + shift2).
 
     CPU tensors run ``bwd_reduce3_reference``. CUDA tensors run the
-    kernel: float32, contiguous; N·S split across blocks, the splits'
-    partials added in a fixed order (deterministic)."""
+    kernel: float32, contiguous; N·S split across blocks
+    (``_reduce3_grid``), the splits' partials added in a fixed order
+    (deterministic)."""
     if not build.on_card("bwd_reduce3", dout):
         return bwd_reduce3_reference(dout, out, a2, scale2, shift2)
     _dims("dout", dout, 3)
@@ -404,18 +426,18 @@ def bwd_reduce3(dout, out, a2, scale2, shift2):
     build.check("out", out, dev, (n, cin, s))
     build.check("a2", a2, dev, (n, c, s))
     _vectors(dev, c, scale2=scale2, shift2=shift2)
-    splits, chunk = _split_k(n * s, _square_tiles(cin, c),
-                             build.sm_count(dev))
+    splits, chunk, wide = _reduce3_grid(n, s, cin, c, build.sm_count(dev))
     g3 = _empty(dev, n, cin, s)
     part, red = _empty(dev, splits, cin, c + 1), _empty(dev, cin, c + 1)
+    wide = wide and all(t.data_ptr() % 16 == 0 for t in (dout, out, a2, g3))
     with torch.cuda.device(dev):
         build.launch("bwd_reduce3",
                      _bwd_fn("fused_block_bwd_reduce3_f32",
-                             (_P,) * 8 + (_I,) * 6 + (_P,)),
+                             (_P,) * 8 + (_I,) * 7 + (_P,)),
                      dout.data_ptr(), out.data_ptr(), a2.data_ptr(),
                      scale2.data_ptr(), shift2.data_ptr(), g3.data_ptr(),
                      part.data_ptr(), red.data_ptr(), n, cin, c, s, splits,
-                     chunk, _stream(dev))
+                     chunk, int(wide), _stream(dev))
     bwd_reduce3.launches += 1
     return g3, red[:, :c], red[:, c]
 

@@ -414,6 +414,31 @@ def test_backward_wrappers_refuse_before_launch(monkeypatch, name, fault):
     assert getattr(tfb, name).launches == before
 
 
+@pytest.mark.parametrize("n,cin,c,s,blocks", [
+    (128, 256, 64, 3136, 132),   # ResNet-50's three chain stages
+    (128, 512, 128, 784, 132),
+    (128, 1024, 256, 196, 128),  # 16 tiles: 8 splits
+    (3, 256, 64, 100, 20),       # N·S 300: a ragged last stage, 16-byte
+    (3, 256, 96, 49, 10),        # S % 4 != 0: 4-byte copies
+    (2, 16, 8, 7, 1),            # N·S 14: one stage
+    (1, 2048, 512, 4, 64),       # 64 tiles: one split
+])
+def test_reduce3_grid_covers_k_in_whole_stages(n, cin, c, s, blocks):
+    """bwd_reduce3's splits cover N·S exactly, each non-empty, each chunk
+    a multiple of the 32-column stage (so of the 4 columns of a copy);
+    tiles x splits, one block an SM, fill the 132 SMs' one wave as far as
+    whole splits and 32-column chunks allow; 16-byte copies exactly where
+    S % 4 == 0. The kernel's entry point refuses any other grid."""
+    ns = n * s
+    splits, chunk, wide = tfb._reduce3_grid(n, s, cin, c, 132)
+    assert chunk > 0 and chunk % 32 == 0 and chunk % 4 == 0
+    assert (splits - 1) * chunk < ns <= splits * chunk
+    assert 1 <= splits <= 65535
+    assert wide == (s % 4 == 0)
+    tiles = -(-cin // 128) * -(-c // (64 if c <= 64 else 128))
+    assert tiles * splits == blocks
+
+
 def test_strided_dout_reaches_the_kernels_contiguous(monkeypatch):
     """FusedBottleneckRest.backward given a strided cotangent of out hands
     every backward wrapper contiguous operands (the kernels refuse strided

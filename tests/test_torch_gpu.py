@@ -767,8 +767,12 @@ def _bwd_terms(name, args, want):
 @pytest.mark.parametrize("n,cin,c,h", [
     (2, 256, 64, 56),    # S 3136: the 56x56 stage
     (4, 256, 64, 14),    # S 196
-    (3, 256, 96, 7),     # S 49, C not a multiple of the 64-row tile
+    (3, 256, 96, 7),     # S 49, C not a multiple of the 64-row tile;
+                         # bwd_reduce3's 4-byte copies
     (8, 256, 96, 14),
+    (2, 512, 128, 28),   # the 28x28 stage's widths
+    (1, 1024, 256, 14),  # the 14x14 stage's: two column tiles of C
+    (3, 256, 64, 10),    # N·S 300: a ragged last stage, 16-byte copies
 ])
 def test_chain_backward_kernels_match_plain(cuda, n, cin, c, h):
     """Each backward kernel against its plain version on the chain's own
