@@ -92,7 +92,10 @@ plain versions at ResNet-50's three chain stages at batch 128 (Cin, C,
 H = 256, 64, 56 / 512, 128, 28 / 1024, 256, 14), each timed beside its
 plain version, its bound and a PyTorch yardstick (F.conv2d of the same
 product, product only, for the three convolutions; torch.bmm of h·hᵀ
-and the sum for the moments); then the chain's four backward kernels at
+and the sum for the moments); the 3x3, whose product runs in 3xTF32 on
+the tensor cores, is bounded by that arithmetic (its float32 FMA bound
+printed beside it) and prints the largest share of its elementwise
+limit; then the chain's four backward kernels at
 the same stages, on the inputs the chain makes (the forward, a random
 cotangent, each kernel fed by its plain predecessors), each timed
 beside its plain version, its bound and the same products on
@@ -115,9 +118,10 @@ import tempfile
 import time
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, float32 flop/s
-# outside the tensor cores
+# outside the tensor cores, dense TF32 flop/s of the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
 
 # kernel vs plain version, both float32 on the card with TF32 off: the
 # sums run in another order (tiles, pages, cuBLAS), about 1e-6 apart
@@ -223,8 +227,8 @@ def cuda_ms(torch, fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
-def bound_ms(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+def bound_ms(nbytes: float, flops: float, rate: float = F32_FLOPS_PER_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -239,6 +243,12 @@ def max_err(torch, got, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL) -> float:
         raise RuntimeError(f"kernel disagrees with its plain version: "
                            f"max abs err {float(diff.max()):.3e}")
     return float(diff.max())
+
+
+def limit_share(torch, got, want, atol=KERNEL_ATOL,
+                rtol=KERNEL_RTOL) -> float:
+    """The largest |got - want| / (atol + rtol·|want|): 1 is the limit."""
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
 
 
 def check_flash(torch, F, fa, card):
@@ -1478,6 +1488,7 @@ def check_chain(torch, F, fb, card):
     gen = torch.Generator(device="cuda").manual_seed(7)
     n = RESNET["batch"]
     rows, errs = {}, {k: [] for k in CHAIN_KERNELS}
+    share3 = []
     for cin, c, h in CHAIN_SHAPES:
         s, m = h * h, n * h * h
         d = chain_case(torch, n, cin, c, h, gen)
@@ -1497,6 +1508,7 @@ def check_chain(torch, F, fb, card):
                                                         h)
         torch.cuda.synchronize()
         errs["conv3x3_norm_stats"].append(max_err(torch, a2, ra2))
+        share3.append(limit_share(torch, a2, ra2))
         sums["conv3x3_norm_stats"] = [
             check_sums(torch, "conv3x3_norm_stats", s2, rs2,
                        ra2.abs().sum(dim=(0, 2))),
@@ -1524,13 +1536,17 @@ def check_chain(torch, F, fb, card):
         # bounds: each input read once, each output written once; the
         # products (M2 is symmetric: C(C+1)/2 products a column), the
         # loaders' normalize (3 a value), the statistics (3 a value) and
-        # the residual's epilogue (4 a value)
+        # the residual's epilogue (4 a value). The 3x3 runs its product as
+        # three TF32 products on the tensor cores: its bound is that
+        # arithmetic's, printed beside the float32 FMA bound
         ea, ex = n * c * s, n * cin * s
+        bytes3 = 4 * (2 * ea + 9 * c * c + 4 * c)
+        f32_bound3 = bound_ms(bytes3, 18 * c * c * m + 6 * ea)
         bounds = {
             "conv1x1_stats": bound_ms(4 * (ex + c * cin + ea + 2 * c),
                                       2 * c * cin * m + 3 * ea),
-            "conv3x3_norm_stats": bound_ms(4 * (2 * ea + 9 * c * c + 4 * c),
-                                           18 * c * c * m + 6 * ea),
+            "conv3x3_norm_stats": bound_ms(bytes3, 3 * 18 * c * c * m,
+                                           TF32_FLOPS_PER_S),
             "norm_relu_moments": bound_ms(4 * (ea + 2 * c + c * (c + 1)),
                                           c * (c + 1) * m + 4 * ea),
             "conv1x1_bn_residual": bound_ms(
@@ -1565,12 +1581,17 @@ def check_chain(torch, F, fb, card):
                    h2.sum(dim=(0, 2))), 10),
                "conv1x1_bn_residual": cuda_ms(torch, lambda: F.conv2d(
                    h2.view(n, c, h, h), w3.view(cin, c, 1, 1)), 10)}
+        notes = {"conv3x3_norm_stats": (
+            f" by 3xTF32 at {TF32_FLOPS_PER_S / 1e12:.0f} TFLOP/s, f32 FMA "
+            f"bound {f32_bound3[0]:.4f} {f32_bound3[1]}, largest share of "
+            f"its limit {share3[-1]:.4f}")}
         print(f"bottleneck chain stage Cin {cin}, C {c}, {h}x{h}, batch {n}: "
               + "; ".join(
                   f"{k} {ms[k]:.4f} ms (plain {plain[k]:.4f}, "
                   f"{'bmm + sum' if k == 'norm_relu_moments' else 'conv2d'} "
-                  f"{lib[k]:.4f}, bound {bounds[k][0]:.4f} {bounds[k][1]}, "
-                  f"max_abs_err {errs[k][-1]:.3e})" for k in CHAIN_KERNELS)
+                  f"{lib[k]:.4f}, bound {bounds[k][0]:.4f} {bounds[k][1]}"
+                  f"{notes.get(k, '')}, max_abs_err {errs[k][-1]:.3e})"
+                  for k in CHAIN_KERNELS)
               + f"; chain {sum(ms.values()):.4f} ms vs bound "
               f"{sum(b[0] for b in bounds.values()):.4f} ms; the 3x3's "
               f"largest |a2| {float(ra2.abs().max()):.3f}; tol atol "
@@ -1591,6 +1612,10 @@ def check_chain(torch, F, fb, card):
         del d, x, ra1, ra2, h1, h2, res_args, calls
     for k in rows:
         rows[k]["max_abs_err"] = max(errs[k])
+    print(f"conv3x3_norm_stats: largest share of its elementwise limit "
+          f"|kernel - plain| / (atol + rtol·|plain|) over the three stages "
+          f"{max(share3):.4f} (atol {KERNEL_ATOL}, rtol {KERNEL_RTOL}) "
+          f"[{card}]")
     return rows
 
 
@@ -2147,7 +2172,7 @@ def main() -> int:
                              "paddle_tpu/kernels/fused_lstm.py:207"),
             "conv1x1_stats": ("paddle_tpu_torch/csrc/fused_block.cu",
                               "paddle_tpu/kernels/fused_block.py:790"),
-            "conv3x3_norm_stats": ("paddle_tpu_torch/csrc/fused_block.cu",
+            "conv3x3_norm_stats": ("paddle_tpu_torch/csrc/conv3x3_tc.cuh",
                                    "paddle_tpu/kernels/fused_block.py:653"),
             "norm_relu_moments": ("paddle_tpu_torch/csrc/fused_block.cu",
                                   "paddle_tpu/kernels/fused_block.py:714"),

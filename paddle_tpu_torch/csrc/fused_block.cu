@@ -25,33 +25,34 @@
 //
 // What the design does about it. The TPU kernels take a whole image a grid
 // step, roll it in VMEM for the 3x3 taps and carry the sums from step to
-// step of a sequential grid. Here every kernel is one tiled float32 SIMT
-// product on the CUDA cores (no tensor cores: TF32 would not hold the 1e-5
-// contract), out = A [M, K] x B [K, N*S], with the batch folded into the
+// step of a sequential grid. Here conv1x1_stats, the moments and
+// conv1x1_bn_residual are each one tiled float32 SIMT product on the CUDA
+// cores, out = A [M, K] x B [K, N*S], with the batch folded into the
 // columns so that S = 196 and 49 do not leave tiles empty:
 //   - a 256-thread block owns a BM x BN output tile (BM 64 or 128 by M,
 //     BN 128; the moments 64 x 64 or 128 x 128), each thread an 8 x 8 (or
 //     4 x 8, 4 x 4) micro-tile read from shared memory as float4;
 //   - K advances 8 deep, two shared-memory stages: the next stage's global
 //     loads are issued into registers before the current stage's products;
-//   - the loaders do the elementwise work on the way in: B of the 3x3 is
-//     normalize + ReLU of a1 at the tap's source pixel (0 outside the
-//     image), B of the last 1x1 normalize + ReLU of a2, so h1 and h2 never
-//     reach device memory; each thread loads one fixed column of B, whose
-//     (n, y, x) it decodes once;
-//   - the epilogues do the rest on the way out: a1 and a2 are written with
-//     each tile's per-channel partial sums into a [2, C, tiles] buffer
-//     (a fixed-order tree across the tile's threads), which a second
-//     kernel adds in tile order; the last 1x1 applies the bn3 affine, the
+//   - the loaders do the elementwise work on the way in: B of the last 1x1
+//     is normalize + ReLU of a2, so h2 never reaches device memory; each
+//     thread loads one fixed column of B, whose (n, p) it decodes once;
+//   - the epilogues do the rest on the way out: a1 is written with each
+//     tile's per-channel partial sums into a [2, C, tiles] buffer (a
+//     fixed-order tree across the tile's threads), which a second kernel
+//     adds in tile order; the last 1x1 applies the bn3 affine, the
 //     residual and the ReLU;
 //   - the moments' K is N*S (25,088 to 401,408) against a C x C output, so
 //     it is cut into splits, each block writes its partial Gram matrix (and
 //     the row sums of h in column C) to [splits, C, C + 1], and a second
 //     kernel adds the splits in order.
-// No atomics anywhere: every result is deterministic. The tile machinery
-// and the finalizing passes are in fused_block.cuh, shared with the
-// backward (fused_block_bwd.cu).
+// conv3x3_norm_stats runs on the tensor cores in 3xTF32 over halo tiles of
+// h1, normalized once a value, fed by a ring of asynchronous copies; its
+// own header, conv3x3_tc.cuh, says how and why. No atomics anywhere: every
+// result is deterministic. The tile machinery and the finalizing passes
+// are in fused_block.cuh, shared with the backward (fused_block_bwd.cu).
 #include "fused_block.cuh"
+#include "conv3x3_tc.cuh"
 
 namespace {
 
@@ -73,32 +74,6 @@ struct WeightA {
     for (int r = 0; r < R; ++r) {
       const int m = m0 + mr + 32 * r;
       reg[r] = (m < M && k < K) ? __ldg(w + (long)m * K + k) : 0.f;
-    }
-  }
-  __device__ __forceinline__ void store(float* s) const {
-#pragma unroll
-    for (int r = 0; r < R; ++r) s[kk * (BM + 4) + mr + 32 * r] = reg[r];
-  }
-};
-
-// A[m][k] = taps[k / Cin][m][k % Cin] (K = 9 Cin; Cin % kBK == 0, so a
-// stage lies inside one tap).
-template <int TM>
-struct TapsA {
-  static constexpr int BM = 16 * TM, R = TM / 2;
-  const float* taps;
-  int M, Cin, m0, kk, mr;
-  float reg[R];
-  __device__ TapsA(const float* t_, int M_, int Cin_, int m0_)
-      : taps(t_), M(M_), Cin(Cin_), m0(m0_), kk(threadIdx.x & 7),
-        mr(threadIdx.x >> 3) {}
-  __device__ __forceinline__ void fetch(int k0) {
-    const int tap = k0 / Cin;
-    const int ci = k0 - tap * Cin + kk;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int m = m0 + mr + 32 * r;
-      reg[r] = m < M ? __ldg(taps + ((long)tap * M + m) * Cin + ci) : 0.f;
     }
   }
   __device__ __forceinline__ void store(float* s) const {
@@ -138,52 +113,6 @@ struct ActB {
         if constexpr (NORM) v = relu_affine(v, __ldg(scale + k), __ldg(shift + k));
       }
       reg[r] = v;
-    }
-  }
-  __device__ __forceinline__ void store(float* s) const {
-#pragma unroll
-    for (int r = 0; r < R; ++r) s[(kr + KS * r) * (BN + 4) + col] = reg[r];
-  }
-};
-
-// B[k][j] of the 3x3: k = tap * Cin + ci, column j = (n, y, x);
-// relu(a1[n, ci, y+dy, x+dx] * scale[ci] + shift[ci]) inside the image, 0
-// outside (zero padding of h1).
-template <int TN>
-struct Conv3x3B {
-  static constexpr int BN = 16 * TN, R = TN / 2, KS = kThreads / BN;
-  const float* a;
-  const float* scale;
-  const float* shift;
-  int Cin, H, W, S, col, kr, y, x;
-  long base;
-  bool ok;
-  float reg[R];
-  __device__ Conv3x3B(const float* a_, const float* sc_, const float* sh_,
-                      int Cin_, int H_, int W_, int NS, int j0)
-      : a(a_), scale(sc_), shift(sh_), Cin(Cin_), H(H_), W(W_), S(H_ * W_),
-        col(threadIdx.x % BN), kr(threadIdx.x / BN) {
-    const int j = j0 + col;
-    ok = j < NS;
-    const int n = ok ? j / S : 0;
-    const int p = j - n * S;
-    y = p / W;
-    x = p - y * W;
-    base = (long)n * Cin * S;
-  }
-  __device__ __forceinline__ void fetch(int k0) {
-    const int tap = k0 / Cin;
-    const int ci0 = k0 - tap * Cin;
-    const int ty = tap / 3;
-    const int yy = y + ty - 1, xx = x + (tap - 3 * ty) - 1;
-    const bool in = ok && yy >= 0 && yy < H && xx >= 0 && xx < W;
-    const long off = base + (long)yy * W + xx;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int ci = ci0 + kr + KS * r;
-      reg[r] = in ? relu_affine(__ldg(a + off + (long)ci * S), __ldg(scale + ci),
-                                __ldg(shift + ci))
-                  : 0.f;
     }
   }
   __device__ __forceinline__ void store(float* s) const {
@@ -246,25 +175,6 @@ conv1x1_stats_kernel(const float* __restrict__ x, const float* __restrict__ w,
   float unused = 0.f;
   mainloop<TM, TN, false>(acc, la, lb, 0, K, smem, unused);
   store_with_stats<TM, TN>(acc, y, part, M, S, NS, T, m0, j0, jt, smem);
-}
-
-template <int TM, int TN>
-__global__ void __launch_bounds__(kThreads, 2)
-conv3x3_norm_stats_kernel(const float* __restrict__ a1,
-                          const float* __restrict__ taps,
-                          const float* __restrict__ scale,
-                          const float* __restrict__ shift,
-                          float* __restrict__ y, float* __restrict__ part,
-                          int M, int Cin, int H, int W, int NS, int T) {
-  constexpr int BM = 16 * TM, BN = 16 * TN;
-  __shared__ __align__(16) float smem[Smem<BM, BN>::kFloats];
-  const int m0 = blockIdx.x * BM, jt = blockIdx.y, j0 = jt * BN;
-  TapsA<TM> la(taps, M, Cin, m0);
-  Conv3x3B<TN> lb(a1, scale, shift, Cin, H, W, NS, j0);
-  float acc[TM][TN];
-  float unused = 0.f;
-  mainloop<TM, TN, false>(acc, la, lb, 0, 9 * Cin, smem, unused);
-  store_with_stats<TM, TN>(acc, y, part, M, H * W, NS, T, m0, j0, jt, smem);
 }
 
 template <int TM, int TN>
@@ -355,27 +265,18 @@ extern "C" int fused_block_conv1x1_stats_f32(const float* x, const float* w,
   return finish_stats(part, stats, C, T, s);
 }
 
-// a1 [N, Cin, H*W], taps [9, Cout, Cin], scale/shift [Cin]; y [N, Cout,
-// H*W], part [2, Cout, T], stats [2, Cout]; Cin % 8 == 0; T = ceil(N*H*W /
-// 128).
+// a1 [N, Cin, H*W], taps [9, Cout, Cin] (16-byte aligned), scale/shift
+// [Cin]; y [N, Cout, H*W], part [2, Cout, T], stats [2, Cout]; Cin % 8 ==
+// 0; T = N * ceil(H * (W + 2) / 224), the column tiles of the padded grid
+// (conv3x3_tc.cuh).
 extern "C" int fused_block_conv3x3_norm_stats_f32(
     const float* a1, const float* taps, const float* scale,
     const float* shift, float* y, float* part, float* stats, int N, int Cin,
     int Cout, int H, int W, int T, void* stream) {
-  if (Cin <= 0 || Cin % kBK || H <= 0 || W <= 0 ||
-      !tiles_ok(Cout, N, H * W, T))
+  if (!conv3x3::grid_ok(taps, N, Cin, Cout, H, W, T))
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int NS = N * H * W;
-  if (Cout <= 64)
-    conv3x3_norm_stats_kernel<4, 8>
-        <<<dim3((Cout + 63) / 64, T), kThreads, 0, s>>>(
-            a1, taps, scale, shift, y, part, Cout, Cin, H, W, NS, T);
-  else
-    conv3x3_norm_stats_kernel<8, 8>
-        <<<dim3((Cout + 127) / 128, T), kThreads, 0, s>>>(
-            a1, taps, scale, shift, y, part, Cout, Cin, H, W, NS, T);
-  return finish_stats(part, stats, Cout, T, s);
+  return conv3x3::launch(a1, taps, scale, shift, y, part, stats, N, Cin,
+                         Cout, H, W, T, static_cast<cudaStream_t>(stream));
 }
 
 // a2 [N, C, S], scale/shift [C]; part [splits, C, C + 1] scratch, out

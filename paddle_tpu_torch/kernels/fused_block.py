@@ -14,10 +14,12 @@ statistics come analytically from the moments of h2 (mean(a3) = W3·mean
 Eight kernels, written by hand for Hopper: the forward's in
 ``paddle_tpu_torch/csrc/fused_block.cu``, the backward's in
 ``csrc/fused_block_bwd.cu``, on the tile machinery of
-``csrc/fused_block.cuh``, except ``bwd_reduce3``, whose split-K product
-fed by asynchronous copies is ``csrc/bwd_reduce3.cuh`` (each source's
-header says what bounds its kernels and what the design does about
-it). Each replaces the Pallas kernel of its name:
+``csrc/fused_block.cuh``, except ``conv3x3_norm_stats``, whose 3xTF32
+tensor-core product over halo tiles is ``csrc/conv3x3_tc.cuh``, and
+``bwd_reduce3``, whose split-K product fed by asynchronous copies is
+``csrc/bwd_reduce3.cuh`` (each source's header says what bounds its
+kernels and what the design does about it). Each replaces the Pallas
+kernel of its name:
 
 * forward: ``conv1x1_stats`` (``_k1_kernel``), ``conv3x3_norm_stats``
   (``_k2_kernel``), ``norm_relu_moments`` (``_moments_kernel``),
@@ -215,6 +217,23 @@ def _col_tiles(n: int, s: int) -> int:
     return -(-n * s // _BN)
 
 
+_C3_BN = 224   # positions of a conv3x3 column tile (conv3x3::kBN)
+
+
+def _conv3x3_grid(n: int, h: int, w: int) -> Tuple[int, int, int]:
+    """(chunks, T, ring bytes) of conv3x3_norm_stats: each image computed
+    on a padded grid of h rows of w + 2 positions, cut into chunks of 224
+    positions (the last one past the grid's end), T = n · chunks column
+    tiles (each by every tile of 64 output channels); the ring of 3
+    stages in shared memory, each the nine taps' A slices [9][64][8] and
+    a halo of 8 channel rows of 2R + 226 positions (R = min(w + 2, 226))
+    at a pitch of 8 mod 32 floats."""
+    chunks = -(-h * (w + 2) // _C3_BN)
+    r = min(w + 2, _C3_BN + 2)
+    pitch = (2 * r + _C3_BN + 2 + 23) // 32 * 32 + 8
+    return chunks, n * chunks, 3 * (9 * 64 * 8 + 8 * pitch) * 4
+
+
 def conv1x1_stats(x: torch.Tensor, w: torch.Tensor):
     """x [N, Cin, S], w [C, Cin] -> (y = W·x [N, C, S], Σy [C], Σy² [C]).
 
@@ -255,7 +274,9 @@ def conv3x3_norm_stats(x: torch.Tensor, taps: torch.Tensor,
 
     CPU tensors run ``conv3x3_norm_stats_reference``. CUDA tensors run
     the kernel: float32, contiguous, Cin a multiple of 8, S = h_side ·
-    (S // h_side); deterministic sums."""
+    (S // h_side); products in 3xTF32 on the tensor cores (within
+    float32's rounding), deterministic sums (``_conv3x3_grid``'s column
+    tiles' partials added in a fixed order)."""
     if not build.on_card("conv3x3_norm_stats", x):
         return conv3x3_norm_stats_reference(x, taps, scale, shift, h_side)
     _dims("x", x, 3)
@@ -271,7 +292,9 @@ def conv3x3_norm_stats(x: torch.Tensor, taps: torch.Tensor,
     build.check("taps", taps, x.device, (9, cout, cin))
     build.check("scale", scale, x.device, (cin,))
     build.check("shift", shift, x.device, (cin,))
-    t = _col_tiles(n, s)
+    _, t, _ = _conv3x3_grid(n, h_side, s // h_side)
+    if taps.data_ptr() % 16:
+        taps = taps.clone()   # its rows are copied 16 bytes at a time
     y = _empty(x.device, n, cout, s)
     part, stats = _empty(x.device, 2, cout, t), _empty(x.device, 2, cout)
     with torch.cuda.device(x.device):

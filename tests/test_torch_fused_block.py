@@ -13,7 +13,10 @@ and the JAX package's ``_compose_block``; one Momentum step of a
 ``fused_bottleneck`` program through the chain against the composed
 step and the JAX package's. The backward wrappers refuse what their
 kernels do not take before any launch, and receive dense operands from
-a strided cotangent. Inputs come from a numpy seed: N 2-8, Cin 16-256,
+a strided cotangent. The card's 3x3 kernel computes in 3xTF32 on the
+tensor cores: an emulation of that arithmetic holds the plain version
+to the forward tolerance at chain-like depths, and its column tiles
+cover the padded grid. Inputs come from a numpy seed: N 2-8, Cin 16-256,
 C 8-64, H 4, 7 and 8 (S 16, 49 and 64), BN shifts that are not zero,
 so the 3x3's zero padding of h1 (not of a1) and, in the backward, of
 da2 (not r2) shows at every edge.
@@ -149,6 +152,54 @@ def test_conv3x3_pads_h_not_a1(interpret, h):
     assert gap.min() > 0 and gap.max() > 1e3 * FWD["atol"]
     interior = np.abs(wrong - jy).reshape(2, 8, h, h)[:, :, 1:-1, 1:-1]
     assert interior.max() <= 1e-5
+
+
+def _tf32(x, nearest=True):
+    """x as the tensor cores read it in TF32, by integer ops on the
+    float32 bits: rounded to nearest, ties away from zero, as
+    cvt.rna.tf32.f32 rounds (nearest), else truncated (the low 13
+    mantissa bits dropped)."""
+    bits = x.view(torch.int32)
+    return ((bits + 0x1000 if nearest else bits) & -8192).view(
+        torch.float32)
+
+
+def _conv3x3_tf32(x, taps, scale, shift, h, products):
+    """The card kernel's arithmetic (csrc/conv3x3_tc.cuh): h1 normalized
+    once and padded with zeros, each operand split into big = tf32(v)
+    (rounded) and small = v - big (truncated to TF32 by the tensor
+    cores), and per tap the products small·big, big·small, big·big (each
+    exact in float32) added in float32; products=1 keeps big·big alone
+    (plain TF32)."""
+    n, cin, s = x.shape
+    w = s // h
+    hp = torch.nn.functional.pad(
+        tfb._norm_relu(x, scale, shift).reshape(n, cin, h, w), (1, 1, 1, 1))
+    ab, bb = _tf32(taps), _tf32(hp)
+    asm, bs = _tf32(taps - ab, False), _tf32(hp - bb, False)
+    pairs = [(asm, bb), (ab, bs), (ab, bb)][-products:]
+    y = torch.zeros(n, taps.shape[1], s)
+    for ky in range(3):
+        for kx in range(3):
+            for a, b in pairs:
+                win = b[:, :, ky:ky + h, kx:kx + w].reshape(n, cin, s)
+                y = y + torch.matmul(a[ky * 3 + kx], win)
+    return y
+
+
+@pytest.mark.parametrize("n,c,h", [(2, 256, 7), (2, 64, 14)])
+def test_3xtf32_holds_the_plain_conv3x3_to_float32(n, c, h):
+    """At chain-like K = 9C (2304 at C 256, 576 at C 64) the kernel's
+    3xTF32 arithmetic, emulated, stays within atol = rtol = 1e-5 of the
+    plain version (what it drops, small·small, is ~2^-22 of a product);
+    one TF32 product alone is far outside that limit."""
+    d = _case(n, c, c, h, seed=4)
+    args = tuple(map(torch.from_numpy, (d["a"], d["taps"], d["sc"], d["sh"])))
+    want = tfb.conv3x3_norm_stats_reference(*args, h)[0]
+    limit = FWD["atol"] + FWD["rtol"] * want.abs()
+    share = lambda y: float(((y - want).abs() / limit).max())
+    assert share(_conv3x3_tf32(*args, h, products=3)) <= 0.5
+    assert share(_conv3x3_tf32(*args, h, products=1)) > 10
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -437,6 +488,34 @@ def test_reduce3_grid_covers_k_in_whole_stages(n, cin, c, s, blocks):
     assert wide == (s % 4 == 0)
     tiles = -(-cin // 128) * -(-c // (64 if c <= 64 else 128))
     assert tiles * splits == blocks
+
+
+@pytest.mark.parametrize("n,h,w,chunks", [
+    (128, 56, 56, 15),    # ResNet-50's three chain stages
+    (128, 28, 28, 4),
+    (128, 14, 14, 1),
+    (2, 10, 12, 1),       # a non-square image
+    (2, 16, 20, 2),       # a chunk that ends mid-row
+    (1, 3, 250, 4),       # rows wider than a chunk: segmented halo
+    (3, 1, 1, 1),
+])
+def test_conv3x3_grid_covers_the_padded_grid(n, h, w, chunks):
+    """conv3x3_norm_stats' column tiles: chunks of 224 positions cover
+    each image's padded grid of h rows of w + 2 exactly (the last chunk
+    not empty); T = n · chunks, the count the kernel's entry point
+    checks; the ring of 3 stages fits a block's 227 KB of shared memory
+    at any width (two blocks an SM up to 56 pixels a row)."""
+    got_chunks, t, ring = tfb._conv3x3_grid(n, h, w)
+    assert got_chunks == chunks
+    assert (chunks - 1) * 224 < h * (w + 2) <= chunks * 224
+    assert t == n * chunks
+    assert ring <= 232448     # a block's shared memory on sm_90
+    # the halo's pitch keeps fragment reads on 32 banks: 8 mod 32 floats
+    pitch = (ring // 12 - 9 * 64 * 8) // 8
+    assert pitch % 32 == 8
+    assert pitch >= 2 * min(w + 2, 226) + 226
+    if w <= 56:
+        assert 2 * (ring + 1024) <= 233472
 
 
 def test_strided_dout_reaches_the_kernels_contiguous(monkeypatch):

@@ -553,15 +553,17 @@ def test_lstm_step_on_the_card_matches_the_cpu(cuda):
         assert rms(got - want) <= 1e-3 * rms(want), n
 
 
-def _chain_case(gen, n, cin, c, h):
-    """Inputs of the chain's kernels on the card: a block input >= 0,
-    He-scaled weights, a raw a (for the kernels that normalize it) and BN
-    affines with shifts that are not zero."""
-    d = dict(x=torch.rand(n, cin, h * h, generator=gen),
+def _chain_case(gen, n, cin, c, h, w=None):
+    """Inputs of the chain's kernels on the card at h rows of w pixels (w
+    = h by default): a block input >= 0, He-scaled weights, a raw a (for
+    the kernels that normalize it) and BN affines with shifts that are
+    not zero."""
+    s = h * (h if w is None else w)
+    d = dict(x=torch.rand(n, cin, s, generator=gen),
              w1=torch.randn(c, cin, generator=gen) * (2 / cin) ** 0.5,
              taps=torch.randn(9, c, c, generator=gen) * (2 / (9 * c)) ** 0.5,
              w3=torch.randn(cin, c, generator=gen) * (2 / c) ** 0.5,
-             a=torch.randn(n, c, h * h, generator=gen) + 0.3,
+             a=torch.randn(n, c, s, generator=gen) + 0.3,
              sc=torch.rand(c, generator=gen) + 0.5,
              sh=0.3 * torch.randn(c, generator=gen) + 0.2,
              sc3=torch.rand(cin, generator=gen) + 0.5,
@@ -581,10 +583,21 @@ def _sums_close(got, want, terms):
     (4, 256, 64, 14),    # S 196: rows start mid-vector
     (3, 256, 96, 7),     # S 49, C not a multiple of the 64-row tile
     (8, 256, 96, 14),
+    # the 3x3's halo tiles (224 positions of a grid of rows of W + 2):
+    (2, 512, 128, 28),   # the 28x28 stage's widths: chunks end mid-row
+    (1, 1024, 256, 14),  # the 14x14 stage's: two 128-row tiles of Cout
+    (2, 256, 64, (10, 12)),   # a non-square image, S 120
+    (2, 128, 64, (16, 20)),   # two chunks an image, the first ends mid-row
+    (1, 64, 72, (3, 250)),    # rows wider than a chunk; Cout 72: zero rows
 ])
 def test_chain_kernels_match_plain(cuda, n, cin, c, h):
-    gen = torch.Generator().manual_seed(n + cin + c + h)
-    d = _chain_case(gen, n, cin, c, h)
+    """Each forward kernel against its plain version: outputs within TOL,
+    sums within 1e-5 of their terms' magnitudes; the 3x3 also from taps
+    that are not 16-byte aligned, and each sum kernel's second call
+    bit-identical."""
+    h, w = h if isinstance(h, tuple) else (h, h)
+    gen = torch.Generator().manual_seed(n + cin + c + h + (w if w != h else 0))
+    d = _chain_case(gen, n, cin, c, h, w)
     y, s1, q1 = fb.conv1x1_stats(d["x"], d["w1"])
     ry, rs1, rq1 = fb.conv1x1_stats_reference(d["x"], d["w1"])
     torch.testing.assert_close(y, ry, **TOL)
@@ -596,6 +609,14 @@ def test_chain_kernels_match_plain(cuda, n, cin, c, h):
     torch.testing.assert_close(y2, ry2, **TOL)
     _sums_close(s2, rs2, ry2.abs().sum(dim=(0, 2)))
     torch.testing.assert_close(q2, rq2, atol=0, rtol=1e-5)
+    again = fb.conv3x3_norm_stats(*args)
+    assert all(torch.equal(u, v) for u, v in zip((y2, s2, q2), again))
+    offset = torch.empty(d["taps"].numel() + 1, device="cuda")[1:]
+    offset.copy_(d["taps"].reshape(-1))
+    assert offset.data_ptr() % 16
+    shifted = fb.conv3x3_norm_stats(d["a"], offset.view_as(d["taps"]),
+                                    d["sc"], d["sh"], h)
+    assert all(torch.equal(u, v) for u, v in zip((y2, s2, q2), shifted))
     sum_h, m2h = fb.norm_relu_moments(d["a"], d["sc"], d["sh"])
     rsum_h, rm2h = fb.norm_relu_moments_reference(d["a"], d["sc"], d["sh"])
     torch.testing.assert_close(sum_h, rsum_h, atol=0, rtol=1e-5)
@@ -647,6 +668,13 @@ def test_chain_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         fb.conv3x3_norm_stats(d["a"][:, :6], d["taps"][:, :, :6],
                               d["sc"][:6], d["sh"][:6], 7)  # Cin % 8
+    with pytest.raises(ValueError):       # S is not h_side rows
+        fb.conv3x3_norm_stats(d["a"], d["taps"], d["sc"], d["sh"], 5)
+    with pytest.raises(TypeError):
+        fb.conv3x3_norm_stats(d["a"], d["taps"], d["sc"].double(), d["sh"],
+                              7)
+    with pytest.raises(ValueError):
+        fb.conv3x3_norm_stats(d["a"], d["taps"], d["sc"], d["sh"][:4], 7)
     with pytest.raises(TypeError):
         fb.norm_relu_moments(d["a"], d["sc"].double(), d["sh"])
     with pytest.raises(ValueError):
