@@ -100,7 +100,10 @@ the same stages, on the inputs the chain makes (the forward, a random
 cotangent, each kernel fed by its plain predecessors), each timed
 beside its plain version, its bound and the same products on
 materialized operands (torch.matmul / bmm; cuDNN's dgrad + wgrad for
-the 3x3).
+the 3x3); bwd_mid, whose two products run in 3xTF32 on the tensor
+cores, is bounded by that arithmetic (its float32 FMA bound printed
+beside it), and its launches' device times print apart (the fold of
+da2, the input gradient, the tap gradients, the fixed-order sums).
 
 cudnn.benchmark stays at its default (off); TF32 is off for products
 and convolutions.
@@ -439,6 +442,11 @@ def teacher_forced(np, engine, prompt, generated):
 
 def kernel_class(name: str) -> str:
     n = name.lower()
+    # one tensor-core 3x3 kernel, two instances: the forward's, and
+    # bwd_mid's input gradient (its policies live in namespace bwd_mid)
+    if "conv3x3_kernel<" in n:
+        return ("bwd_mid" if "bwd_mid::" in n else "conv3x3_norm_stats") + \
+            " (port kernel)"
     for kernel in ("conv1x1_stats", "conv3x3_norm_stats",
                    "conv1x1_bn_residual", "moments", "bwd_reduce3",
                    "bwd_apply3", "bwd_mid", "bwd_final"):
@@ -1729,23 +1737,29 @@ def check_chain_bwd(torch, fb, card):
                     notes.append("g3 bitwise")
                 else:
                     e = max_err(torch, gt, wt, BWD_ATOL, BWD_RTOL)
-                    notes.append(f"{name} {what} {e:.3e}")
+                    share = limit_share(torch, gt, wt, BWD_ATOL, BWD_RTOL)
+                    notes.append(f"{name} {what} {e:.3e} ({share:.3f} of "
+                                 f"the limit)")
                 worst = max(worst, e)
             errs[name].append(worst)
             del got, want
         # bounds: each input read once, each output written once; the
         # products, the loaders' elementwise work (a normalize 3 a value,
         # a fold 4, a mask 1) and the epilogues' (mask 2, bias 1, the two
-        # sums 5)
+        # sums 5). bwd_mid runs its two products as three TF32 products
+        # each on the tensor cores: its bound is that arithmetic's, printed
+        # beside the float32 FMA bound
         ea, ex = n * c * s, n * cin * s
+        mid_bytes = 4 * (4 * ea + 18 * c * c + 9 * c)
+        f32_bound_mid = bound_ms(mid_bytes, 36 * c * c * m + 14 * ea)
         r3_bytes = 4 * (3 * ex + ea + 2 * c + cin * c + cin)
         r3_ops = 2 * cin * c * m + 3 * ea + 2 * ex
         bounds = {
             "bwd_reduce3": bound_ms(r3_bytes, r3_ops),
             "bwd_apply3": bound_ms(4 * (ex + 2 * ea + c * cin + c * c + 7 * c),
                                    2 * c * (cin + c) * m + 11 * ea),
-            "bwd_mid": bound_ms(4 * (4 * ea + 18 * c * c + 9 * c),
-                                36 * c * c * m + 14 * ea),
+            "bwd_mid": bound_ms(mid_bytes, 3 * 36 * c * c * m,
+                                TF32_FLOPS_PER_S),
             "bwd_final": bound_ms(4 * (3 * ex + 2 * ea + 2 * c * cin + 3 * c),
                                   4 * c * cin * m + 4 * ea + ex)}
         ms = {k: cuda_ms(torch, lambda k=k: getattr(fb, k)(*args[k]), 10)
@@ -1783,6 +1797,26 @@ def check_chain_bwd(torch, fb, card):
                   for k in CHAIN_BWD_KERNELS)
               + f"; backward {sum(ms.values()):.4f} ms vs bound "
               f"{sum(b[0] for b in bounds.values()):.4f} ms [{card}]")
+        # bwd_mid's launches apart, by the profiler's device times: the
+        # fold, the input gradient, the tap gradients and the two
+        # fixed-order passes
+        _, by_name, _ = profiled(torch, lambda: fb.bwd_mid(*args["bwd_mid"]),
+                                 5)
+        parts = {}
+        for kname, kms in by_name.items():
+            low = kname.lower()
+            part = ("input gradient" if "conv3x3_kernel<" in low else
+                    "tap gradients" if "bwd_mid_wgrad" in low else
+                    "fold" if "bwd_mid_fold" in low else "sums")
+            parts[part] = parts.get(part, 0.0) + kms
+        print(f"bwd_mid stage C {c}, {h}x{h}, batch {n}: {ms['bwd_mid']:.4f} "
+              f"ms; device ms by launch (profiler): " + "; ".join(
+                  f"{k} {parts.get(k, 0.0):.4f}" for k in (
+                      "fold", "input gradient", "tap gradients", "sums"))
+              + f"; bound {bounds['bwd_mid'][0]:.4f} {bounds['bwd_mid'][1]}"
+              f" by 3xTF32 at {TF32_FLOPS_PER_S / 1e12:.0f} TFLOP/s, f32 "
+              f"FMA bound {f32_bound_mid[0]:.4f} {f32_bound_mid[1]} "
+              f"[{card}]")
         print(f"bwd_reduce3 stage Cin {cin}, C {c}, {h}x{h}: "
               f"{ms['bwd_reduce3']:.4f} ms, "
               f"{r3_bytes / ms['bwd_reduce3'] / 1e9:.3f} TB/s of "
@@ -2182,7 +2216,7 @@ def main() -> int:
                             "paddle_tpu/kernels/fused_block.py:192"),
             "bwd_apply3": ("paddle_tpu_torch/csrc/fused_block_bwd.cu",
                            "paddle_tpu/kernels/fused_block.py:261"),
-            "bwd_mid": ("paddle_tpu_torch/csrc/fused_block_bwd.cu",
+            "bwd_mid": ("paddle_tpu_torch/csrc/bwd_mid_tc.cuh",
                         "paddle_tpu/kernels/fused_block.py:399"),
             "bwd_final": ("paddle_tpu_torch/csrc/fused_block_bwd.cu",
                           "paddle_tpu/kernels/fused_block.py:466")}

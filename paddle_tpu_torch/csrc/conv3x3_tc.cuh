@@ -90,10 +90,12 @@
 // other instructions (the splits, the fragment reads, the fresh
 // fragments' adds) and their latencies, at 4 warps a scheduler.
 //
-// bwd_mid's input gradient (fused_block_bwd.cu, Conv3x3TB) is the same
-// product with flipped taps, each transposed, over da2 = g2 * p + a2 * q
-// + r: a halo fed from two sources and folded on landing, and an A slice
-// read as [tap][ci][co], are what it would add to this header.
+// One kernel, two uses: conv3x3_kernel<Land, Out> takes what lands in the
+// halo through a Land policy (NormRelu: h1 = relu_affine(a1); bwd_mid's
+// AsIs: da2 as it is) and writes through an Out policy (Stats: a2 and its
+// sums; bwd_mid's MaskedStats: g1 and bn1's sums). bwd_mid's input
+// gradient (bwd_mid_tc.cuh) is this product over da2 with the taps
+// flipped and each transposed, taps[8 - t]^T, which its wrapper makes.
 #pragma once
 
 #include <cstdint>
@@ -220,23 +222,34 @@ __device__ __forceinline__ void copy_stage(float* st, int c0,
   }
 }
 
-// The thread's own halo slots of a landed stage, normalized in place:
-// h1 = relu_affine(a1) inside the image, 0 outside.
-__device__ __forceinline__ void normalize(float* st, int c0,
-                                          const float* __restrict__ scale,
-                                          const float* __restrict__ shift,
+// Land policy of the forward: h1 = relu(a1 * scale + shift).
+struct NormRelu {
+  const float* scale;
+  const float* shift;
+  __device__ __forceinline__ float2 channel(int c) const {
+    return make_float2(__ldg(scale + c), __ldg(shift + c));
+  }
+  __device__ __forceinline__ float value(float v, float2 k) const {
+    return relu_affine(v, k.x, k.y);
+  }
+};
+
+// The thread's own halo slots of a landed stage, turned in place into
+// the product's operand: land.value(v) inside the image, 0 outside.
+template <class Land>
+__device__ __forceinline__ void normalize(float* st, int c0, const Land& land,
                                           const int (&pix)[kSlots],
                                           const Tile& tl) {
   float* hs = st + kA;
 #pragma unroll 1
   for (int ch = 0; ch < kKC; ++ch) {
-    const float sc = __ldg(scale + c0 + ch), sh = __ldg(shift + c0 + ch);
+    const float2 k = land.channel(c0 + ch);
 #pragma unroll
     for (int i = 0; i < kSlots; ++i) {
       const int h = threadIdx.x + kThreads * i;
       if (h < tl.L) {
         float* v = hs + ch * tl.P + h;
-        *v = pix[i] >= 0 ? relu_affine(*v, sc, sh) : 0.f;
+        *v = pix[i] >= 0 ? land.value(*v, k) : 0.f;
       }
     }
   }
@@ -298,15 +311,48 @@ __device__ __forceinline__ void product(float (&acc)[kMT][kNT][4],
   }
 }
 
-// Block (M tile, column tile jt = n * chunks + chunk).
+// Out policy of the forward: the kept positions of a2 [N, M, S] and each
+// row's partial sum and sum of squares (a thread's 14 positions in order)
+// into red, for store_row_partials.
+struct Stats {
+  float* y;
+  __device__ __forceinline__ void store(const float (&acc)[kMT][kNT][4],
+                                        const int (&off)[kNT][2],
+                                        const Tile& tl, int wm, int wn, int g,
+                                        int t, int M, int S,
+                                        float* red) const {
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int lr = 32 * wm + 16 * i + g + 8 * hr, m = tl.m0 + lr;
+        float* out = y + ((long)tl.n * M + (m < M ? m : 0)) * S;
+        float s = 0.f, q = 0.f;
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            if (off[j][c] >= 0) {
+              const float v = acc[i][j][2 * hr + c];
+              if (m < M) out[off[j][c]] = v;
+              s += v;
+              q = fmaf(v, v, q);
+            }
+        red[lr * 16 + wn * 4 + t] = s;
+        red[(kBM + lr) * 16 + wn * 4 + t] = q;
+      }
+  }
+};
+
+// Block (M tile, column tile jt = n * chunks + chunk): the 3x3 of src [N,
+// Cin, H*W] (what lands in the halo through land) by taps [9, M, Cin],
+// written through out.
+template <class Land, class Out>
 __global__ void __launch_bounds__(kThreads, 2)
-conv3x3_norm_stats_kernel(const float* __restrict__ a1,
-                          const float* __restrict__ taps,
-                          const float* __restrict__ scale,
-                          const float* __restrict__ shift,
-                          float* __restrict__ y, float* __restrict__ part,
-                          int M, int Cin, int H, int W, int nchunks,
-                          int tiles_m, int T) {
+conv3x3_kernel(const float* __restrict__ src_all,
+               const float* __restrict__ taps, const Land land, const Out out,
+               float* __restrict__ part, int M, int Cin, int H, int W,
+               int nchunks, int tiles_m, int T) {
   extern __shared__ __align__(16) float ring[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 2, wn = warp & 3, g = lane >> 2, t = lane & 3;
@@ -329,7 +375,7 @@ conv3x3_norm_stats_kernel(const float* __restrict__ a1,
   }
   const int S = H * W;
   const int stage = kA + kKC * tl.P;
-  const float* src = a1 + (long)tl.n * Cin * S;
+  const float* src = src_all + (long)tl.n * Cin * S;
 
   // the pixel behind each of this thread's halo slots, or -1 outside
   int pix[kSlots];
@@ -360,12 +406,12 @@ conv3x3_norm_stats_kernel(const float* __restrict__ a1,
       copy_stage(buffer(s + 1), (s + 1) * kKC, taps, src, pix, M, Cin, S, tl);
     commit();
     wait_prior_1();
-    normalize(buffer(s), s * kKC, scale, shift, pix, tl);
+    normalize(buffer(s), s * kKC, land, pix, tl);
     __syncthreads();
     product(acc, buffer(s), tl, wm, wn, g, t);
   }
 
-  // epilogue: the kept positions of a2 and the rows' partial sums
+  // epilogue: the kept positions and the rows' partial sums
   int off[kNT][2];
 #pragma unroll
   for (int j = 0; j < kNT; ++j)
@@ -377,41 +423,24 @@ conv3x3_norm_stats_kernel(const float* __restrict__ a1,
     }
   __syncthreads();   // every warp is done with the ring: it holds red now
   float* red = ring;
-#pragma unroll
-  for (int i = 0; i < kMT; ++i)
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int lr = 32 * wm + 16 * i + g + 8 * hr, m = tl.m0 + lr;
-      float* out = y + ((long)tl.n * M + (m < M ? m : 0)) * S;
-      float s = 0.f, q = 0.f;
-#pragma unroll
-      for (int j = 0; j < kNT; ++j)
-#pragma unroll
-        for (int c = 0; c < 2; ++c)
-          if (off[j][c] >= 0) {
-            const float v = acc[i][j][2 * hr + c];
-            if (m < M) out[off[j][c]] = v;
-            s += v;
-            q = fmaf(v, v, q);
-          }
-      red[lr * 16 + wn * 4 + t] = s;
-      red[(kBM + lr) * 16 + wn * 4 + t] = q;
-    }
+  out.store(acc, off, tl, wm, wn, g, t, M, S, red);
   store_row_partials<kBM>(part, M, T, tl.m0, tl.jt, red);
 }
 
-int launch(const float* a1, const float* taps, const float* scale,
-           const float* shift, float* y, float* part, float* stats, int N,
-           int Cin, int Cout, int H, int W, int T, cudaStream_t s) {
+// The kernel over src [N, Cin, H*W] and taps [9, Cout, Cin], then the
+// fixed-order pass over its row partials into stats [2, Cout].
+template <class Land, class Out>
+int launch(const float* src, const float* taps, const Land& land,
+           const Out& out, float* part, float* stats, int N, int Cin,
+           int Cout, int H, int W, int T, cudaStream_t s) {
   const int bytes = ring_bytes(W);
   const cudaError_t err =
-      cudaFuncSetAttribute(conv3x3_norm_stats_kernel,
+      cudaFuncSetAttribute(conv3x3_kernel<Land, Out>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   const int tiles_m = (Cout + kBM - 1) / kBM;
-  conv3x3_norm_stats_kernel<<<tiles_m * T, kThreads, bytes, s>>>(
-      a1, taps, scale, shift, y, part, Cout, Cin, H, W, chunks(H, W), tiles_m,
-      T);
+  conv3x3_kernel<Land, Out><<<tiles_m * T, kThreads, bytes, s>>>(
+      src, taps, land, out, part, Cout, Cin, H, W, chunks(H, W), tiles_m, T);
   return finish_stats(part, stats, Cout, T, s);
 }
 

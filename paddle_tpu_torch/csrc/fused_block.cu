@@ -275,8 +275,9 @@ extern "C" int fused_block_conv3x3_norm_stats_f32(
     int Cout, int H, int W, int T, void* stream) {
   if (!conv3x3::grid_ok(taps, N, Cin, Cout, H, W, T))
     return (int)cudaErrorInvalidValue;
-  return conv3x3::launch(a1, taps, scale, shift, y, part, stats, N, Cin,
-                         Cout, H, W, T, static_cast<cudaStream_t>(stream));
+  return conv3x3::launch(a1, taps, conv3x3::NormRelu{scale, shift},
+                         conv3x3::Stats{y}, part, stats, N, Cin, Cout, H, W,
+                         T, static_cast<cudaStream_t>(stream));
 }
 
 // a2 [N, C, S], scale/shift [C]; part [splits, C, C + 1] scratch, out

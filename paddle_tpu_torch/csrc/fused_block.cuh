@@ -20,6 +20,12 @@ __device__ __forceinline__ float relu_affine(float v, float sc, float sh) {
   return fmaxf(fmaf(v, sc, sh), 0.f);
 }
 
+// The backward's mask, a * sc rounded, then + sh rounded, as the plain
+// version takes it, so that both zero the same elements.
+__device__ __forceinline__ bool positive(float a, float sc, float sh) {
+  return __fadd_rn(__fmul_rn(a, sc), sh) > 0.f;
+}
+
 // Shared memory of a BM x BN tile: two stages of A [kBK][BM + 4] and of B
 // [kBK][BN + 4] (the pad keeps the transposed stores free of bank
 // conflicts); the epilogue reuses it for [2][BM][16] row partials.

@@ -30,30 +30,29 @@
 //
 // What the design does about it: bwd_reduce3 has a design of its own,
 // a split-K product fed by a ring of asynchronous copies (its note in
-// bwd_reduce3.cuh). The other three are the forward's (fused_block.cu),
-// on the shared tile machinery of fused_block.cuh. Each product is one
-// tiled float32 SIMT product with the batch folded into the columns N*S,
-// in one of two shapes:
-//   - a column product [M, K] x [K, N*S] (bwd_apply3, the 3x3's input
-//     gradient, dx), whose B loader computes its operand on the way in
-//     (g3 or h2; da2 at the tap's source pixel; da1) and whose epilogue
-//     masks, adds and writes the per-tile partials of the BN sums;
-//   - a split-K product with a small output over K = N*S (the tap
-//     gradients, dW1), whose row loaders compute both operands on the way
-//     in, each split writing its partial product, which a second launch
-//     adds in split order.
+// bwd_reduce3.cuh), and so has bwd_mid, both its products on tensor cores
+// in 3xTF32 over tiles of the padded grid (its note in bwd_mid_tc.cuh; the
+// input gradient is conv3x3_tc.cuh's kernel). bwd_apply3 and bwd_final
+// are the forward's (fused_block.cu), on the shared tile machinery of
+// fused_block.cuh. Each product is one tiled float32 SIMT product with the
+// batch folded into the columns N*S, in one of two shapes:
+//   - a column product [M, K] x [K, N*S] (bwd_apply3, dx), whose B loader
+//     computes its operand on the way in (g3 or h2; da1) and whose
+//     epilogue masks, adds and writes the per-tile partials of the BN
+//     sums;
+//   - a split-K product with a small output over K = N*S (dW1), whose row
+//     loaders compute both operands on the way in, each split writing its
+//     partial product, which a second launch adds in split order.
 // The TPU carries its sums across a sequential grid of images; here they
 // are partials added in a fixed order: no atomics, every result is
 // deterministic. A mask is taken as the plain version takes it, a * sc
-// rounded, then + sh rounded, so that both zero the same elements.
+// rounded, then + sh rounded (positive, fused_block.cuh), so that both
+// zero the same elements.
 #include "fused_block.cuh"
 #include "bwd_reduce3.cuh"
+#include "bwd_mid_tc.cuh"
 
 namespace {
-
-__device__ __forceinline__ bool positive(float a, float sc, float sh) {
-  return __fadd_rn(__fmul_rn(a, sc), sh) > 0.f;
-}
 
 // ---------------------------------------------------------------------------
 // Row-loader values (Rows<T, F> of the header): channel c at column k.
@@ -78,26 +77,6 @@ struct Plain : Columns {
   const float* x;
   __device__ __forceinline__ float value(long base, int c) const {
     return __ldg(x + base + (long)c * S);
-  }
-};
-
-// h1 = relu(a * scale + shift) at pixel (y + dy, x + dx) of column k's
-// pixel (y, x); 0 outside the image (the conv pads h1).
-struct ShiftedNormRelu {
-  const float* a;
-  const float* scale;
-  const float* shift;
-  int C, H, W, NS, dy, dx;
-  __device__ __forceinline__ long base(int k, bool& ok) const {
-    const int S = H * W;
-    const int n = k / S, p = k - n * S;
-    const int y = p / W + dy, x = p % W + dx;
-    ok = k < NS && y >= 0 && y < H && x >= 0 && x < W;
-    return (long)n * C * S + (long)y * W + x;
-  }
-  __device__ __forceinline__ float value(long base, int c) const {
-    return relu_affine(__ldg(a + base + (long)c * H * W), __ldg(scale + c),
-                       __ldg(shift + c));
   }
 };
 
@@ -218,57 +197,6 @@ struct StackedB {
   }
 };
 
-// B of the 3x3's input gradient: k = t * C + co, column j = (n, y, x);
-// da2[n, co] = g2 * p + a2 * q + r at the source pixel (y - dy, x - dx)
-// inside the image, 0 outside (the conv pads da2). C % kBK == 0, so a
-// stage lies inside one tap.
-template <int TN>
-struct Conv3x3TB {
-  static constexpr int BN = 16 * TN, R = TN / 2, KS = kThreads / BN;
-  const float* g2;
-  const float* a2;
-  const float* p;
-  const float* q;
-  const float* r;
-  int C, H, W, S, col, kr, y, x;
-  long base;
-  bool ok;
-  float reg[R];
-  __device__ Conv3x3TB(const float* g2_, const float* a2_, const float* p_,
-                       const float* q_, const float* r_, int C_, int H_,
-                       int W_, int NS, int j0)
-      : g2(g2_), a2(a2_), p(p_), q(q_), r(r_), C(C_), H(H_), W(W_),
-        S(H_ * W_), col(threadIdx.x % BN), kr(threadIdx.x / BN) {
-    const int j = j0 + col;
-    ok = j < NS;
-    const int n = ok ? j / S : 0;
-    const int pix = j - n * S;
-    y = pix / W;
-    x = pix - y * W;
-    base = (long)n * C * S;
-  }
-  __device__ __forceinline__ void fetch(int k0) {
-    const int tap = k0 / C;
-    const int co0 = k0 - tap * C;
-    const int ty = tap / 3;
-    const int yy = y - (ty - 1), xx = x - (tap - 3 * ty - 1);
-    const bool in = ok && yy >= 0 && yy < H && xx >= 0 && xx < W;
-    const long off = base + (long)yy * W + xx;
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int co = co0 + kr + KS * i;
-      reg[i] = in ? fmaf(__ldg(g2 + off + (long)co * S), __ldg(p + co),
-                         fmaf(__ldg(a2 + off + (long)co * S), __ldg(q + co),
-                              __ldg(r + co)))
-                  : 0.f;
-    }
-  }
-  __device__ __forceinline__ void store(float* s) const {
-#pragma unroll
-    for (int i = 0; i < R; ++i) s[(kr + KS * i) * (BN + 4) + col] = reg[i];
-  }
-};
-
 // B of dx: da1[n, k, p] = g1 * p + a1 * q + r (g1, a1 [N, K, S]).
 template <int TN>
 struct FoldedB {
@@ -380,59 +308,6 @@ bwd_apply3_kernel(const float* __restrict__ g3, const float* __restrict__ a2,
   mainloop<TM, TN, false>(acc, la, lb, 0, Cin + C, smem, unused);
   store_masked_with_stats<TM, TN>(acc, v0, a2, sc2, sh2, inv2, m2, g2, part,
                                   C, S, NS, T, m0, j0, jt, smem);
-}
-
-// The 3x3's input gradient: rows m = the 3x3's input channels.
-template <int TM, int TN>
-__global__ void __launch_bounds__(kThreads, 2)
-bwd_mid_dgrad_kernel(const float* __restrict__ g2, const float* __restrict__ a2,
-                     const float* __restrict__ p2, const float* __restrict__ q2,
-                     const float* __restrict__ r2,
-                     const float* __restrict__ taps,
-                     const float* __restrict__ a1,
-                     const float* __restrict__ sc1,
-                     const float* __restrict__ sh1,
-                     const float* __restrict__ inv1,
-                     const float* __restrict__ m1, float* __restrict__ g1,
-                     float* __restrict__ part, int C, int H, int W, int NS,
-                     int T) {
-  constexpr int BM = 16 * TM, BN = 16 * TN;
-  __shared__ __align__(16) float smem[Smem<BM, BN>::kFloats];
-  const int m0 = blockIdx.x * BM, jt = blockIdx.y, j0 = jt * BN;
-  WeightTA<TM> la(taps, C, 9 * C, m0);
-  Conv3x3TB<TN> lb(g2, a2, p2, q2, r2, C, H, W, NS, j0);
-  float acc[TM][TN];
-  float unused = 0.f;
-  mainloop<TM, TN, false>(acc, la, lb, 0, 9 * C, smem, unused);
-  store_masked_with_stats<TM, TN>(acc, nullptr, a1, sc1, sh1, inv1, m1, g1,
-                                  part, C, H * W, NS, T, m0, j0, jt, smem);
-}
-
-// Block (tap, tile, split): the tile (tm, tn) of the split's partial
-// dtaps[tap], part[split] [9, C, C].
-template <int T>
-__global__ void __launch_bounds__(kThreads, 2)
-bwd_mid_wgrad_kernel(const float* __restrict__ g2, const float* __restrict__ a2,
-                     const float* __restrict__ p2, const float* __restrict__ q2,
-                     const float* __restrict__ r2,
-                     const float* __restrict__ a1,
-                     const float* __restrict__ sc1,
-                     const float* __restrict__ sh1, float* __restrict__ part,
-                     int C, int H, int W, int NS, int chunk, int tiles) {
-  constexpr int BM = 16 * T;
-  __shared__ __align__(16) float smem[Smem<BM, BM>::kFloats];
-  const int tile = blockIdx.x % (tiles * tiles), tap = blockIdx.x / (tiles * tiles);
-  const int m0 = (tile % tiles) * BM, n0 = (tile / tiles) * BM;
-  const int kb = blockIdx.y * chunk, ke = min(NS, kb + chunk);
-  const FoldedGrad d{{C, H * W, NS}, g2, a2, p2, q2, r2};
-  const ShiftedNormRelu h{a1, sc1, sh1, C, H, W, NS, tap / 3 - 1, tap % 3 - 1};
-  Rows<T, FoldedGrad> la(d, C, m0);
-  Rows<T, ShiftedNormRelu> lb(h, C, n0);
-  float acc[T][T];
-  float unused = 0.f;
-  mainloop<T, T, false>(acc, la, lb, kb, ke, smem, unused);
-  store_partial<T, T>(acc, part + ((long)blockIdx.y * 9 + tap) * C * C, C, C,
-                      C, m0, n0);
 }
 
 // dx = W1^T da1 + g3: rows m = Cin.
@@ -560,40 +435,24 @@ extern "C" int fused_block_bwd_apply3_f32(
   return finish_stats(part, stats, C, T, s);
 }
 
-// g2, a2, a1 [N, C, H*W], sc1/sh1/p2/q2/r2/inv1/m1 [C], taps [9, C, C]; g1
-// [N, C, H*W], part [2, C, T] scratch, stats [2, C] (sum g1, sum g1 *
-// xhat1), wpart [splits, 9, C, C] scratch, dtaps [9, C, C]; C % 8 == 0; T =
-// ceil(N*H*W / 128); splits and chunk as the moments' over K = N*H*W.
+// g2, a2, a1 [N, C, H*W], sc1/sh1/p2/q2/r2/inv1/m1 [C], taps_t [9, C, C]
+// = taps[8 - t]^T (16-byte aligned); da2 [N, C, H*W] scratch; g1 [N, C,
+// H*W], part [2, C, T] scratch, stats [2, C] (sum g1, sum g1 * xhat1),
+// wpart [splits, 9, C, C] scratch, dtaps [9, C, C]; C % 8 == 0; T = N *
+// ceil(H * (W + 2) / 224); split p of the tap gradients takes the
+// 32-position pieces [p * per, (p + 1) * per) of N * ceil(H * (W + 2) /
+// 32) (bwd_mid_tc.cuh).
 extern "C" int fused_block_bwd_mid_f32(
     const float* g2, const float* a2, const float* a1, const float* sc1,
     const float* sh1, const float* p2, const float* q2, const float* r2,
-    const float* inv1, const float* m1, const float* taps, float* g1,
-    float* part, float* stats, float* wpart, float* dtaps, int N, int C,
-    int H, int W, int T, int splits, int chunk, void* stream) {
-  if (C % kBK || H <= 0 || W <= 0 || !tiles_ok(C, N, H * W, T) ||
-      !splits_ok((long)N * H * W, splits, chunk))
+    const float* inv1, const float* m1, const float* taps_t, float* da2,
+    float* g1, float* part, float* stats, float* wpart, float* dtaps, int N,
+    int C, int H, int W, int T, int splits, int per, void* stream) {
+  if (!bwd_mid::grid_ok(taps_t, N, C, H, W, T, splits, per))
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int NS = N * H * W;
-  if (C <= 64)
-    bwd_mid_dgrad_kernel<4, 8><<<dim3((C + 63) / 64, T), kThreads, 0, s>>>(
-        g2, a2, p2, q2, r2, taps, a1, sc1, sh1, inv1, m1, g1, part, C, H, W,
-        NS, T);
-  else
-    bwd_mid_dgrad_kernel<8, 8><<<dim3((C + 127) / 128, T), kThreads, 0, s>>>(
-        g2, a2, p2, q2, r2, taps, a1, sc1, sh1, inv1, m1, g1, part, C, H, W,
-        NS, T);
-  int err = finish_stats(part, stats, C, T, s);
-  if (err) return err;
-  int tm;
-  const int tiles = square_tiles(C, C, &tm);
-  if (C <= 64)
-    bwd_mid_wgrad_kernel<4><<<dim3(9 * tiles, splits), kThreads, 0, s>>>(
-        g2, a2, p2, q2, r2, a1, sc1, sh1, wpart, C, H, W, NS, chunk, tm);
-  else
-    bwd_mid_wgrad_kernel<8><<<dim3(9 * tiles, splits), kThreads, 0, s>>>(
-        g2, a2, p2, q2, r2, a1, sc1, sh1, wpart, C, H, W, NS, chunk, tm);
-  return finish_splits(wpart, dtaps, 9L * C * C, splits, s);
+  return bwd_mid::launch(g2, a2, a1, sc1, sh1, p2, q2, r2, inv1, m1, taps_t,
+                         da2, g1, part, stats, wpart, dtaps, N, C, H, W, T,
+                         splits, per, static_cast<cudaStream_t>(stream));
 }
 
 // g3, x [N, Cin, S], g1, a1 [N, C, S], p1/q1/r1 [C], w1 [C, Cin]; dx [N,

@@ -15,10 +15,13 @@ Eight kernels, written by hand for Hopper: the forward's in
 ``paddle_tpu_torch/csrc/fused_block.cu``, the backward's in
 ``csrc/fused_block_bwd.cu``, on the tile machinery of
 ``csrc/fused_block.cuh``, except ``conv3x3_norm_stats``, whose 3xTF32
-tensor-core product over halo tiles is ``csrc/conv3x3_tc.cuh``, and
+tensor-core product over halo tiles is ``csrc/conv3x3_tc.cuh``,
 ``bwd_reduce3``, whose split-K product fed by asynchronous copies is
-``csrc/bwd_reduce3.cuh`` (each source's header says what bounds its
-kernels and what the design does about it). Each replaces the Pallas
+``csrc/bwd_reduce3.cuh``, and ``bwd_mid``, whose input gradient is that
+3xTF32 kernel over da2 and whose tap gradients are a 3xTF32 split-K
+product over the padded grid, ``csrc/bwd_mid_tc.cuh`` (each source's
+header says what bounds its kernels and what the design does about
+it). Each replaces the Pallas
 kernel of its name:
 
 * forward: ``conv1x1_stats`` (``_k1_kernel``), ``conv3x3_norm_stats``
@@ -319,6 +322,32 @@ def _square_tiles(m: int, n: int) -> int:
     return -(-m // b) * -(-n // b)
 
 
+_MID_KP = 32   # positions of a tap-gradient stage (bwd_mid::kKP)
+
+
+def _bwd_mid_grid(n: int, h: int, w: int, c: int,
+                  sms: int) -> Tuple[int, int]:
+    """(splits, per) of bwd_mid's tap gradients: each image's padded grid
+    of h rows of w + 2 positions cut into pieces of 32 (the last one past
+    the grid's end), the n · pieces split into runs of `per`. The blocks
+    of a split (3 dy rows x the 64 x 64 tiles of [C, C]) run two an SM;
+    of the split counts from one wave's worth to two waves' worth, the
+    one whose blocks fill their last wave best (the fewest on ties), as
+    far as whole pieces allow. The splits cover every piece exactly once, each non-empty."""
+    pieces = n * -(-h * (w + 2) // _MID_KP)
+    tiles = -(-c // 64)
+    blocks, wave = 3 * tiles * tiles, 2 * sms
+    want = max(1, wave // blocks)
+
+    def fill(splits):
+        return splits * blocks / (-(-splits * blocks // wave) * wave)
+
+    splits = max(range(want, max(want, 2 * wave // blocks) + 1),
+                 key=lambda k: (fill(k), -k))
+    per = -(-pieces // splits)
+    return -(-pieces // per), per
+
+
 def _split_k(ns: int, blocks: int, sms: int) -> Tuple[int, int]:
     """(splits, chunk) of a split-K product's K = N·S over `blocks` output
     tiles: enough splits that tiles x splits give about 4 blocks per SM,
@@ -515,8 +544,11 @@ def bwd_mid(g2, a2, a1, scale1, shift1, p2, q2, r2, inv1, m1, taps, h_side):
     da2 against h1 = relu(a1·scale1 + shift1) (padded with zeros).
 
     CPU tensors run ``bwd_mid_reference``. CUDA tensors run the kernels
-    (the input gradient, then the tap gradients): float32, contiguous, C
-    a multiple of 8, S = h_side · (S // h_side); deterministic sums."""
+    (da2 written once; the input gradient over it with the taps flipped
+    and transposed, ``_conv3x3_grid``'s tiles; the tap gradients split
+    by ``_bwd_mid_grid``): float32, contiguous, C a multiple of 8, S =
+    h_side · (S // h_side); products in 3xTF32 on the tensor cores,
+    deterministic sums."""
     if not build.on_card("bwd_mid", g2):
         return bwd_mid_reference(g2, a2, a1, scale1, shift1, p2, q2, r2,
                                  inv1, m1, taps, h_side)
@@ -532,23 +564,26 @@ def bwd_mid(g2, a2, a1, scale1, shift1, p2, q2, r2, inv1, m1, taps, h_side):
     build.check("taps", taps, dev, (9, c, c))
     _vectors(dev, c, scale1=scale1, shift1=shift1, p2=p2, q2=q2, r2=r2,
              inv1=inv1, m1=m1)
-    t = _col_tiles(n, s)
-    splits, chunk = _split_k(n * s, 9 * _square_tiles(c, c),
-                             build.sm_count(dev))
-    g1 = _empty(dev, n, c, s)
+    w_side = s // h_side
+    _, t, _ = _conv3x3_grid(n, h_side, w_side)
+    splits, per = _bwd_mid_grid(n, h_side, w_side, c, build.sm_count(dev))
+    # the input gradient's taps: taps_t[t] = taps[8 - t]ᵀ (a fresh tensor,
+    # 16-byte aligned)
+    taps_t = taps.flip(0).transpose(1, 2).contiguous()
+    da2, g1 = _empty(dev, n, c, s), _empty(dev, n, c, s)
     part, stats = _empty(dev, 2, c, t), _empty(dev, 2, c)
     wpart, dtaps = _empty(dev, splits, 9, c, c), _empty(dev, 9, c, c)
     with torch.cuda.device(dev):
         build.launch("bwd_mid",
                      _bwd_fn("fused_block_bwd_mid_f32",
-                             (_P,) * 16 + (_I,) * 7 + (_P,)),
+                             (_P,) * 17 + (_I,) * 7 + (_P,)),
                      g2.data_ptr(), a2.data_ptr(), a1.data_ptr(),
                      scale1.data_ptr(), shift1.data_ptr(), p2.data_ptr(),
                      q2.data_ptr(), r2.data_ptr(), inv1.data_ptr(),
-                     m1.data_ptr(), taps.data_ptr(), g1.data_ptr(),
-                     part.data_ptr(), stats.data_ptr(), wpart.data_ptr(),
-                     dtaps.data_ptr(), n, c, h_side, s // h_side, t, splits,
-                     chunk, _stream(dev))
+                     m1.data_ptr(), taps_t.data_ptr(), da2.data_ptr(),
+                     g1.data_ptr(), part.data_ptr(), stats.data_ptr(),
+                     wpart.data_ptr(), dtaps.data_ptr(), n, c, h_side,
+                     w_side, t, splits, per, _stream(dev))
     bwd_mid.launches += 1
     return g1, dtaps, stats[0], stats[1]
 

@@ -75,8 +75,9 @@ extern "C" int probe(const float* a1, const float* taps, const float* scale,
                      const float* shift, float* y, float* part, float* stats,
                      int N, int Cin, int Cout, int H, int W, int T,
                      void* stream) {{
-  return conv3x3::launch(a1, taps, scale, shift, y, part, stats, N, Cin,
-                         Cout, H, W, T, static_cast<cudaStream_t>(stream));
+  return conv3x3::launch(a1, taps, conv3x3::NormRelu{{scale, shift}},
+                         conv3x3::Stats{{y}}, part, stats, N, Cin, Cout, H, W,
+                         T, static_cast<cudaStream_t>(stream));
 }}
 """
 PEAK = """

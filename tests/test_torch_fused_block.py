@@ -164,27 +164,39 @@ def _tf32(x, nearest=True):
         torch.float32)
 
 
-def _conv3x3_tf32(x, taps, scale, shift, h, products):
-    """The card kernel's arithmetic (csrc/conv3x3_tc.cuh): h1 normalized
-    once and padded with zeros, each operand split into big = tf32(v)
-    (rounded) and small = v - big (truncated to TF32 by the tensor
-    cores), and per tap the products small·big, big·small, big·big (each
-    exact in float32) added in float32; products=1 keeps big·big alone
-    (plain TF32)."""
-    n, cin, s = x.shape
-    w = s // h
-    hp = torch.nn.functional.pad(
-        tfb._norm_relu(x, scale, shift).reshape(n, cin, h, w), (1, 1, 1, 1))
-    ab, bb = _tf32(taps), _tf32(hp)
-    asm, bs = _tf32(taps - ab, False), _tf32(hp - bb, False)
-    pairs = [(asm, bb), (ab, bs), (ab, bb)][-products:]
-    y = torch.zeros(n, taps.shape[1], s)
+def _pairs(a, b, products):
+    """The 3xTF32 operand pairs of a product a·b: each operand split into
+    big = tf32(v) (rounded) and small = v - big (truncated to TF32 by the
+    tensor cores); the pairs small·big, big·small, big·big, or with
+    products=1 big·big alone (plain TF32)."""
+    ab, bb = _tf32(a), _tf32(b)
+    asm, bs = _tf32(a - ab, False), _tf32(b - bb, False)
+    return [(asm, bb), (ab, bs), (ab, bb)][-products:]
+
+
+def _taps_tf32(src, taps, h, products):
+    """The 3x3 of csrc/conv3x3_tc.cuh on the padded source src [N, Cin,
+    h + 2, w + 2]: per tap the products of _pairs (each exact in float32)
+    added in float32."""
+    n, cin = src.shape[:2]
+    w = src.shape[3] - 2
+    y = torch.zeros(n, taps.shape[1], h * w)
     for ky in range(3):
         for kx in range(3):
-            for a, b in pairs:
-                win = b[:, :, ky:ky + h, kx:kx + w].reshape(n, cin, s)
+            for a, b in _pairs(taps, src, products):
+                win = b[:, :, ky:ky + h, kx:kx + w].reshape(n, cin, h * w)
                 y = y + torch.matmul(a[ky * 3 + kx], win)
     return y
+
+
+def _conv3x3_tf32(x, taps, scale, shift, h, products):
+    """The card kernel's arithmetic (csrc/conv3x3_tc.cuh): h1 normalized
+    once and padded with zeros, then _taps_tf32."""
+    n, cin, s = x.shape
+    hp = torch.nn.functional.pad(
+        tfb._norm_relu(x, scale, shift).reshape(n, cin, h, s // h),
+        (1, 1, 1, 1))
+    return _taps_tf32(hp, taps, h, products)
 
 
 @pytest.mark.parametrize("n,c,h", [(2, 256, 7), (2, 64, 14)])
@@ -200,6 +212,139 @@ def test_3xtf32_holds_the_plain_conv3x3_to_float32(n, c, h):
     share = lambda y: float(((y - want).abs() / limit).max())
     assert share(_conv3x3_tf32(*args, h, products=3)) <= 0.5
     assert share(_conv3x3_tf32(*args, h, products=1)) > 10
+
+
+def _mid_case(n, c, h, seed):
+    """bwd_mid's operands: g2, a2, a1 [N, C, h²], bn2 folded into p2 (a
+    scale around 1), q2 and r2, bn1's affine (shifts above zero), inv1,
+    m1, He-scaled taps."""
+    d = _case(n, c, c, h, seed=seed)
+    rng = np.random.RandomState(seed + 1)
+    f32 = np.float32
+    vec = lambda scale, base=0.0: (base + scale * rng.randn(c)).astype(f32)
+    return tuple(map(torch.from_numpy, (
+        rng.randn(n, c, h * h).astype(f32), rng.randn(n, c, h * h).astype(f32),
+        d["a"], d["sc"], d["sh"], vec(0.2, 1.0), vec(0.1), vec(0.1),
+        np.abs(vec(0.2, 1.0)), vec(0.1), d["taps"])))
+
+
+def _input_gradient_tf32(da2, taps, h, products):
+    """bwd_mid's input gradient as the card computes it: conv3x3_tc.cuh's
+    product over da2 padded with zeros on the grid of rows of w + 2, the
+    taps flipped and each transposed (taps_t[t] = taps[8 - t]ᵀ)."""
+    n, c, s = da2.shape
+    dp = torch.nn.functional.pad(da2.reshape(n, c, h, s // h), (1, 1, 1, 1))
+    return _taps_tf32(dp, taps.flip(0).transpose(1, 2), h, products)
+
+
+def _tap_gradients_tf32(da2, h1, h, products, sms=132):
+    """bwd_mid's tap gradients as the card computes them
+    (csrc/bwd_mid_tc.cuh): K = the positions of each image's padded grid
+    (rows of w + 2, da2 0 in the two extra columns and past the grid's
+    end, h1 zero-bordered), cut in _bwd_mid_grid's splits of 32-position
+    pieces; each k8 step's products of _pairs go into a fresh fragment
+    (summed in float32), added into the split's float32 accumulator step
+    after step; the splits added in split order."""
+    n, c, s = da2.shape
+    w = s // h
+    wp = w + 2
+    ppi = -(-h * wp // 32)
+    length = ppi * 32
+    pad = torch.nn.functional.pad
+    dq = pad(pad(da2.reshape(n, c, h, w), (0, 2)).reshape(n, c, h * wp),
+             (0, length - h * wp))
+    hp = pad(pad(h1.reshape(n, c, h, w), (1, 1, 1, 1)).reshape(n, c, -1),
+             (0, length + 2 * wp + 2 - (h + 2) * wp))
+
+    def steps(t, offset):     # [N·length/8 k8 steps, C, 8]
+        win = t[:, :, offset:offset + length]
+        return win.reshape(n, c, length // 8, 8).permute(0, 2, 1, 3).reshape(
+            -1, c, 8)
+
+    a_pairs = [a for a, _ in _pairs(steps(dq, 0), steps(dq, 0), products)]
+    b_pairs = [[b for _, b in _pairs(steps(hp, 0), steps(
+        hp, (t // 3) * wp + t % 3), products)] for t in range(9)]
+    splits, per = tfb._bwd_mid_grid(n, h, w, c, sms)
+    total = torch.zeros(9, c, c)
+    for sp in range(splits):
+        acc = torch.zeros(9, c, c)
+        k0, k1 = sp * per * 4, min(n * ppi, (sp + 1) * per) * 4
+        for j0 in range(k0, k1, 256):
+            j1 = min(k1, j0 + 256)
+            f = sum(torch.matmul(a[j0:j1].unsqueeze(0),
+                                 torch.stack([b[t][j0:j1] for t in range(9)])
+                                 .transpose(2, 3))
+                    for a, b in zip(a_pairs, zip(*b_pairs)))
+            for k in range(j1 - j0):
+                acc = acc + f[:, k]
+        total = total + acc
+    return total
+
+
+@pytest.mark.parametrize("n,c,h", [(8, 64, 56), (32, 96, 28)])
+def test_3xtf32_holds_bwd_mid_to_its_limits(n, c, h):
+    """At chain-like depths (the input gradient's K = 9C; the tap
+    gradients' K = N·S = 25,088 positions, 25,984 on the padded grid),
+    bwd_mid's 3xTF32 arithmetic on the card, emulated, stays within half
+    of its limits: g1 within atol = rtol = 1e-4 of the plain version,
+    dtaps within 1e-5 of the sum of their terms' magnitudes. One TF32
+    product is far outside g1's limit and outside dtaps'."""
+    args = _mid_case(n, c, h, seed=21)
+    g2, a2, a1, sc1, sh1, p2, q2, r2, inv1, m1, taps = args
+    g1, dtaps = tfb.bwd_mid_reference(*args, h)[:2]
+    col = lambda v: v.reshape(1, -1, 1)
+    da2 = g2 * col(p2) + a2 * col(q2) + col(r2)
+    h1 = tfb._norm_relu(a1, sc1, sh1)
+    mask = a1 * col(sc1) + col(sh1) > 0
+    limit = 1e-4 + 1e-4 * g1.abs()
+
+    def g1_share(products):
+        got = torch.where(mask, _input_gradient_tf32(da2, taps, h, products),
+                          torch.zeros(()))
+        return float(((got - g1).abs() / limit).max())
+
+    terms = torch.nn.grad.conv2d_weight(
+        h1.reshape(n, c, h, h), (c, c, 3, 3), da2.abs().reshape(n, c, h, h),
+        padding=1).permute(2, 3, 0, 1).reshape(9, c, c)
+
+    def dtaps_share(products):
+        got = _tap_gradients_tf32(da2, h1, h, products)
+        return float(((got - dtaps).abs() / (1e-5 * terms)).max())
+
+    assert g1_share(3) <= 0.5 and dtaps_share(3) <= 0.5
+    assert g1_share(1) > 10 and dtaps_share(1) > 1
+
+
+@pytest.mark.parametrize("n,h,w,c,splits", [
+    (128, 56, 56, 64, 88),    # ResNet-50's three chain stages: whole waves
+    (128, 28, 28, 128, 22),   # of 3 dy rows x tiles x splits, two blocks
+    (128, 14, 14, 256, 11),   # an SM (264, 264, 528 blocks)
+    (2, 10, 12, 96, 10),      # a non-square image, a last piece past the
+                              # grid's end
+    (1, 3, 250, 72, 12),      # rows wider than a piece
+    (2, 16, 20, 64, 22),      # fewer pieces than the wave wants: one each
+    (3, 1, 1, 8, 3),
+    (2, 4, 4, 1024, 1),       # one split's 768 blocks exceed two waves
+])
+def test_bwd_mid_grid_covers_the_padded_grid(n, h, w, c, splits):
+    """bwd_mid's tap-gradient splits: each image's padded grid of h rows
+    of w + 2 positions in whole 32-position pieces (one stage each, the
+    last one past the grid's end, never into the next image), the splits
+    runs of `per` pieces covering every piece of every image exactly
+    once, none empty; at the chain's stages 3 dy rows x the 64 x 64 tiles
+    of [C, C] x splits fill whole waves of the 132 SMs at two blocks an
+    SM."""
+    got_splits, per = tfb._bwd_mid_grid(n, h, w, c, 132)
+    ppi = -(-h * (w + 2) // 32)
+    assert (ppi - 1) * 32 < h * (w + 2) <= ppi * 32
+    assert got_splits == splits and per > 0 and splits <= 65535
+    runs = [range(sp * per, min(n * ppi, (sp + 1) * per))
+            for sp in range(splits)]
+    assert all(len(r) > 0 for r in runs)
+    assert [j for r in runs for j in r] == list(range(n * ppi))
+    tiles = -(-c // 64)
+    if n == 128:
+        assert 3 * tiles * tiles * splits % (2 * 132) == 0
 
 
 @pytest.mark.parametrize("shape", SHAPES)

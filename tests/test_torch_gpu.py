@@ -727,13 +727,13 @@ def test_fused_bottleneck_op_takes_the_chain(cuda, monkeypatch):
 _BWD = ("bwd_reduce3", "bwd_apply3", "bwd_mid", "bwd_final")
 
 
-def _bwd_inputs(gen, n, cin, c, h):
+def _bwd_inputs(gen, n, cin, c, h, w=None):
     """{kernel: args} of the four backward wrappers as bottleneck_rest_bwd
-    calls them after the chain's forward of a _chain_case, with a random
-    cotangent of out and zero stat cotangents, the wrappers replaced by
-    their plain versions: each kernel's inputs as its plain predecessors
-    make them."""
-    d = _chain_case(gen, n, cin, c, h)
+    calls them after the chain's forward of a _chain_case (h rows of w
+    pixels, w = h by default), with a random cotangent of out and zero
+    stat cotangents, the wrappers replaced by their plain versions: each
+    kernel's inputs as its plain predecessors make them."""
+    d = _chain_case(gen, n, cin, c, h, w)
     g, b = d["g"], d["b"]
     out, stats, aux = fb.bottleneck_rest_fwd(
         d["x"], d["w1"], d["taps"], d["w3"], g[0], b[0], g[1], b[1], g[2],
@@ -741,7 +741,8 @@ def _bwd_inputs(gen, n, cin, c, h):
     a1, a2, sum_h, m2h, sc1, sh1, sc2, sh2 = aux
     res = (d["x"], a1, a2, out, d["w1"], d["taps"], d["w3"], g[0], g[1],
            g[2], *stats, sum_h, m2h, sc1, sh1, sc2, sh2)
-    dout = torch.randn(n, cin, h * h, generator=gen).cuda()
+    dout = torch.randn(n, cin, h * (h if w is None else w),
+                       generator=gen).cuda()
     args = {}
 
     def plain(name):
@@ -801,13 +802,25 @@ def _bwd_terms(name, args, want):
     (2, 512, 128, 28),   # the 28x28 stage's widths
     (1, 1024, 256, 14),  # the 14x14 stage's: two column tiles of C
     (3, 256, 64, 10),    # N·S 300: a ragged last stage, 16-byte copies
+    # bwd_mid's tiles of the padded grid (rows of W + 2): the input
+    # gradient's 224-position chunks, the tap gradients' 32-position
+    # pieces
+    (2, 256, 96, (10, 12)),   # H != W; C 96: rows past the 64-row tile;
+                              # the last piece (160) past the grid (140)
+    (2, 128, 64, (16, 20)),   # two chunks an image, the last one partial
+    (1, 64, 72, (3, 250)),    # rows wider than a chunk: three halo
+                              # segments; C 72
+    (2, 128, 136, (6, 9)),    # C 136: three 64-row tiles, the last
+                              # mostly empty
 ])
 def test_chain_backward_kernels_match_plain(cuda, n, cin, c, h):
     """Each backward kernel against its plain version on the chain's own
     inputs: g3 bitwise, g2, g1 and dx within BWD_TOL, every sum over N·S
     within 1e-5 of its terms' magnitudes; a second call bit-identical."""
-    gen = torch.Generator().manual_seed(n + cin + c + h + 1)
-    args = _bwd_inputs(gen, n, cin, c, h)
+    h, w = h if isinstance(h, tuple) else (h, h)
+    gen = torch.Generator().manual_seed(n + cin + c + h + 1
+                                        + (w if w != h else 0))
+    args = _bwd_inputs(gen, n, cin, c, h, w)
     for name, a in args.items():
         got = getattr(fb, name)(*a)
         want = getattr(fb, name + "_reference")(*a)
