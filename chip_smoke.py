@@ -100,10 +100,12 @@ the same stages, on the inputs the chain makes (the forward, a random
 cotangent, each kernel fed by its plain predecessors), each timed
 beside its plain version, its bound and the same products on
 materialized operands (torch.matmul / bmm; cuDNN's dgrad + wgrad for
-the 3x3); bwd_mid, whose two products run in 3xTF32 on the tensor
-cores, is bounded by that arithmetic (its float32 FMA bound printed
-beside it), and its launches' device times print apart (the fold of
-da2, the input gradient, the tap gradients, the fixed-order sums).
+the 3x3); bwd_mid and bwd_final, whose two products run in 3xTF32 on
+the tensor cores, are bounded by that arithmetic (their float32 FMA
+bounds printed beside them), and their launches' device times print
+apart (bwd_mid: the fold of da2, the input gradient, the tap gradients,
+the fixed-order sums; bwd_final: dx with the fold of da1, dW1, the
+fixed-order sum of its splits).
 
 cudnn.benchmark stays at its default (off); TF32 is off for products
 and convolutions.
@@ -1746,12 +1748,14 @@ def check_chain_bwd(torch, fb, card):
         # bounds: each input read once, each output written once; the
         # products, the loaders' elementwise work (a normalize 3 a value,
         # a fold 4, a mask 1) and the epilogues' (mask 2, bias 1, the two
-        # sums 5). bwd_mid runs its two products as three TF32 products
-        # each on the tensor cores: its bound is that arithmetic's, printed
-        # beside the float32 FMA bound
+        # sums 5). bwd_mid and bwd_final run their two products as three
+        # TF32 products each on the tensor cores: their bounds are that
+        # arithmetic's, printed beside the float32 FMA bounds
         ea, ex = n * c * s, n * cin * s
         mid_bytes = 4 * (4 * ea + 18 * c * c + 9 * c)
         f32_bound_mid = bound_ms(mid_bytes, 36 * c * c * m + 14 * ea)
+        final_bytes = 4 * (3 * ex + 2 * ea + 2 * c * cin + 3 * c)
+        f32_bound_final = bound_ms(final_bytes, 4 * c * cin * m + 4 * ea + ex)
         r3_bytes = 4 * (3 * ex + ea + 2 * c + cin * c + cin)
         r3_ops = 2 * cin * c * m + 3 * ea + 2 * ex
         bounds = {
@@ -1760,8 +1764,8 @@ def check_chain_bwd(torch, fb, card):
                                    2 * c * (cin + c) * m + 11 * ea),
             "bwd_mid": bound_ms(mid_bytes, 3 * 36 * c * c * m,
                                 TF32_FLOPS_PER_S),
-            "bwd_final": bound_ms(4 * (3 * ex + 2 * ea + 2 * c * cin + 3 * c),
-                                  4 * c * cin * m + 4 * ea + ex)}
+            "bwd_final": bound_ms(final_bytes, 3 * 4 * c * cin * m,
+                                  TF32_FLOPS_PER_S)}
         ms = {k: cuda_ms(torch, lambda k=k: getattr(fb, k)(*args[k]), 10)
               for k in CHAIN_BWD_KERNELS}
         plain = {k: cuda_ms(torch, lambda k=k: getattr(
@@ -1817,6 +1821,24 @@ def check_chain_bwd(torch, fb, card):
               f" by 3xTF32 at {TF32_FLOPS_PER_S / 1e12:.0f} TFLOP/s, f32 "
               f"FMA bound {f32_bound_mid[0]:.4f} {f32_bound_mid[1]} "
               f"[{card}]")
+        # bwd_final's launches apart: dx (with the fold of da1), dW1 and
+        # the fixed-order sum of its splits
+        _, by_name, _ = profiled(
+            torch, lambda: fb.bwd_final(*args["bwd_final"]), 5)
+        parts = {}
+        for kname, kms in by_name.items():
+            low = kname.lower()
+            part = ("dx" if "bwd_final_dx" in low else
+                    "dW1" if "bwd_final_dw" in low else "sums")
+            parts[part] = parts.get(part, 0.0) + kms
+        print(f"bwd_final stage Cin {cin}, C {c}, {h}x{h}, batch {n}: "
+              f"{ms['bwd_final']:.4f} ms; device ms by launch (profiler): "
+              + "; ".join(f"{k} {parts.get(k, 0.0):.4f}"
+                          for k in ("dx", "dW1", "sums"))
+              + f"; bound {bounds['bwd_final'][0]:.4f} "
+              f"{bounds['bwd_final'][1]} by 3xTF32 at "
+              f"{TF32_FLOPS_PER_S / 1e12:.0f} TFLOP/s, f32 FMA bound "
+              f"{f32_bound_final[0]:.4f} {f32_bound_final[1]} [{card}]")
         print(f"bwd_reduce3 stage Cin {cin}, C {c}, {h}x{h}: "
               f"{ms['bwd_reduce3']:.4f} ms, "
               f"{r3_bytes / ms['bwd_reduce3'] / 1e9:.3f} TB/s of "
@@ -2218,7 +2240,7 @@ def main() -> int:
                            "paddle_tpu/kernels/fused_block.py:261"),
             "bwd_mid": ("paddle_tpu_torch/csrc/bwd_mid_tc.cuh",
                         "paddle_tpu/kernels/fused_block.py:399"),
-            "bwd_final": ("paddle_tpu_torch/csrc/fused_block_bwd.cu",
+            "bwd_final": ("paddle_tpu_torch/csrc/bwd_final_tc.cuh",
                           "paddle_tpu/kernels/fused_block.py:466")}
     kernels = [dict(name=name, route="cuda", source=meta[name][0],
                     replaces=meta[name][1], launches=launches[name], **row)

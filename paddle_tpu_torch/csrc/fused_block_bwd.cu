@@ -30,19 +30,16 @@
 //
 // What the design does about it: bwd_reduce3 has a design of its own,
 // a split-K product fed by a ring of asynchronous copies (its note in
-// bwd_reduce3.cuh), and so has bwd_mid, both its products on tensor cores
-// in 3xTF32 over tiles of the padded grid (its note in bwd_mid_tc.cuh; the
-// input gradient is conv3x3_tc.cuh's kernel). bwd_apply3 and bwd_final
-// are the forward's (fused_block.cu), on the shared tile machinery of
-// fused_block.cuh. Each product is one tiled float32 SIMT product with the
-// batch folded into the columns N*S, in one of two shapes:
-//   - a column product [M, K] x [K, N*S] (bwd_apply3, dx), whose B loader
-//     computes its operand on the way in (g3 or h2; da1) and whose
-//     epilogue masks, adds and writes the per-tile partials of the BN
-//     sums;
-//   - a split-K product with a small output over K = N*S (dW1), whose row
-//     loaders compute both operands on the way in, each split writing its
-//     partial product, which a second launch adds in split order.
+// bwd_reduce3.cuh); bwd_mid and bwd_final run both their products on
+// tensor cores in 3xTF32 (their notes in bwd_mid_tc.cuh, whose input
+// gradient is conv3x3_tc.cuh's kernel, and bwd_final_tc.cuh: da1 folded
+// once into a scratch that dW1 reads). bwd_apply3 is the forward's
+// (fused_block.cu), on the shared tile machinery of fused_block.cuh: one
+// tiled float32 SIMT column product [M, K] x [K, N*S] with the batch
+// folded into the columns, whose B loader computes its operand on the way
+// in (g3 or h2) and whose epilogue masks, adds and writes the per-tile
+// partials of the BN sums.
+//
 // The TPU carries its sums across a sequential grid of images; here they
 // are partials added in a fixed order: no atomics, every result is
 // deterministic. A mask is taken as the plain version takes it, a * sc
@@ -51,65 +48,13 @@
 #include "fused_block.cuh"
 #include "bwd_reduce3.cuh"
 #include "bwd_mid_tc.cuh"
+#include "bwd_final_tc.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// Row-loader values (Rows<T, F> of the header): channel c at column k.
+// Loaders of bwd_apply3's column product.
 // ---------------------------------------------------------------------------
-
-// da = g * p[c] + a * q[c] + r[c], the folded BN backward of a raw a.
-struct FoldedGrad : Columns {
-  const float* g;
-  const float* a;
-  const float* p;
-  const float* q;
-  const float* r;
-  __device__ __forceinline__ float value(long base, int c) const {
-    const long o = base + (long)c * S;
-    return fmaf(__ldg(g + o), __ldg(p + c),
-                fmaf(__ldg(a + o), __ldg(q + c), __ldg(r + c)));
-  }
-};
-
-// An [N, C, S] tensor as it is.
-struct Plain : Columns {
-  const float* x;
-  __device__ __forceinline__ float value(long base, int c) const {
-    return __ldg(x + base + (long)c * S);
-  }
-};
-
-// ---------------------------------------------------------------------------
-// A loaders of the column products.
-// ---------------------------------------------------------------------------
-
-// A[m][k] = w[k * M + m], the transpose of a row-major [K, M] weight: W1^T
-// of w1 [C, Cin]; the 3x3's transposed taps, taps [9, Cout, Cin] seen as
-// [9 Cout, Cin] with k = t * Cout + co. Thread: row tid % BM, k offsets
-// tid / BM + (256 / BM) r, so neighbouring threads read neighbouring words.
-template <int TM>
-struct WeightTA {
-  static constexpr int BM = 16 * TM, KS = kThreads / BM, R = kBK / KS;
-  const float* w;
-  int M, K, m0, mr, kr;
-  float reg[R];
-  __device__ WeightTA(const float* w_, int M_, int K_, int m0_)
-      : w(w_), M(M_), K(K_), m0(m0_), mr(threadIdx.x % BM),
-        kr(threadIdx.x / BM) {}
-  __device__ __forceinline__ void fetch(int k0) {
-    const int m = m0 + mr;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int k = k0 + kr + KS * r;
-      reg[r] = (m < M && k < K) ? __ldg(w + (long)k * M + m) : 0.f;
-    }
-  }
-  __device__ __forceinline__ void store(float* s) const {
-#pragma unroll
-    for (int r = 0; r < R; ++r) s[(kr + KS * r) * (BM + 4) + mr] = reg[r];
-  }
-};
 
 // A = [amat | bmat] of bwd_apply3: A[m][k] = amat[m][k] for k < K1,
 // bmat[m][k - K1] for K1 <= k < K1 + M (amat [M, K1], bmat [M, M]).
@@ -145,13 +90,9 @@ struct StackedA {
   }
 };
 
-// ---------------------------------------------------------------------------
-// B loaders of the column products: one fixed column j = n * S + p a
-// thread, k offsets tid / BN + (256 / BN) r.
-// ---------------------------------------------------------------------------
-
 // B = [g3; h2] of bwd_apply3: g3[n, k, p] for k < K1 (g3 [N, K1, S]),
-// relu(a2[n, k - K1, p] * scale + shift) for K1 <= k < K1 + C.
+// relu(a2[n, k - K1, p] * scale + shift) for K1 <= k < K1 + C. One fixed
+// column j = n * S + p a thread, k offsets tid / BN + (256 / BN) r.
 template <int TN>
 struct StackedB {
   static constexpr int BN = 16 * TN, R = TN / 2, KS = kThreads / BN;
@@ -197,49 +138,7 @@ struct StackedB {
   }
 };
 
-// B of dx: da1[n, k, p] = g1 * p + a1 * q + r (g1, a1 [N, K, S]).
-template <int TN>
-struct FoldedB {
-  static constexpr int BN = 16 * TN, R = TN / 2, KS = kThreads / BN;
-  const float* g;
-  const float* a;
-  const float* p;
-  const float* q;
-  const float* r;
-  int K, S, col, kr;
-  long base;
-  bool ok;
-  float reg[R];
-  __device__ FoldedB(const float* g_, const float* a_, const float* p_,
-                     const float* q_, const float* r_, int K_, int S_, int NS,
-                     int j0)
-      : g(g_), a(a_), p(p_), q(q_), r(r_), K(K_), S(S_),
-        col(threadIdx.x % BN), kr(threadIdx.x / BN) {
-    const int j = j0 + col;
-    ok = j < NS;
-    const int n = ok ? j / S : 0;
-    base = (long)n * K * S + (j - n * S);
-  }
-  __device__ __forceinline__ void fetch(int k0) {
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int k = k0 + kr + KS * i;
-      float v = 0.f;
-      if (ok && k < K) {
-        const long o = base + (long)k * S;
-        v = fmaf(__ldg(g + o), __ldg(p + k),
-                 fmaf(__ldg(a + o), __ldg(q + k), __ldg(r + k)));
-      }
-      reg[i] = v;
-    }
-  }
-  __device__ __forceinline__ void store(float* s) const {
-#pragma unroll
-    for (int i = 0; i < R; ++i) s[(kr + KS * i) * (BN + 4) + col] = reg[i];
-  }
-};
-
-// The epilogue of bwd_apply3 and of the 3x3's input gradient: g = acc +
+// The epilogue of bwd_apply3: g = acc +
 // bias[m] (bias may be null) where a * sc + sh > 0, else 0, written to y
 // [N, M, S]; the rows' partial sums of g and of g * (a * inv - mean * inv)
 // into part [2, M, T] at tile column jt.
@@ -282,11 +181,7 @@ __device__ __forceinline__ void store_masked_with_stats(
   store_row_partials<BM>(part, M, T, m0, jt, red);
 }
 
-// ---------------------------------------------------------------------------
-// Kernels. Column products: grid (M tiles, column tiles), M tiles fastest.
-// Split-K products: grid (output tiles, splits), the tiles of a split
-// together, so that they meet its columns in L2.
-// ---------------------------------------------------------------------------
+// Grid (M tiles, column tiles), M tiles fastest.
 
 template <int TM, int TN>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -308,74 +203,6 @@ bwd_apply3_kernel(const float* __restrict__ g3, const float* __restrict__ a2,
   mainloop<TM, TN, false>(acc, la, lb, 0, Cin + C, smem, unused);
   store_masked_with_stats<TM, TN>(acc, v0, a2, sc2, sh2, inv2, m2, g2, part,
                                   C, S, NS, T, m0, j0, jt, smem);
-}
-
-// dx = W1^T da1 + g3: rows m = Cin.
-template <int TM, int TN>
-__global__ void __launch_bounds__(kThreads, 2)
-bwd_final_dgrad_kernel(const float* __restrict__ g1, const float* __restrict__ a1,
-                       const float* __restrict__ p1,
-                       const float* __restrict__ q1,
-                       const float* __restrict__ r1,
-                       const float* __restrict__ w1,
-                       const float* __restrict__ g3, float* __restrict__ dx,
-                       int Cin, int C, int S, int NS) {
-  constexpr int BM = 16 * TM, BN = 16 * TN;
-  __shared__ __align__(16) float smem[Smem<BM, BN>::kFloats];
-  const int m0 = blockIdx.x * BM, j0 = blockIdx.y * BN;
-  WeightTA<TM> la(w1, Cin, C, m0);
-  FoldedB<TN> lb(g1, a1, p1, q1, r1, C, S, NS, j0);
-  float acc[TM][TN];
-  float unused = 0.f;
-  mainloop<TM, TN, false>(acc, la, lb, 0, C, smem, unused);
-  const int ty = threadIdx.x >> 4;
-  long coff[TN];
-  bool cok[TN];
-  column_offsets<TN>(coff, cok, j0, Cin, S, NS);
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + tile_pos(i, ty);
-    if (m >= Cin) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      if (cok[j]) {
-        const long o = coff[j] + (long)m * S;
-        dx[o] = acc[i][j] + __ldg(g3 + o);
-      }
-    }
-  }
-}
-
-// Block (tile, split) of dW1 [C, Cin]: the split's partial, part[split].
-template <int T>
-__global__ void __launch_bounds__(kThreads, 2)
-bwd_final_wgrad_kernel(const float* __restrict__ g1, const float* __restrict__ a1,
-                       const float* __restrict__ p1,
-                       const float* __restrict__ q1,
-                       const float* __restrict__ r1,
-                       const float* __restrict__ x, float* __restrict__ part,
-                       int C, int Cin, int S, int NS, int chunk, int tiles_m) {
-  constexpr int BM = 16 * T;
-  __shared__ __align__(16) float smem[Smem<BM, BM>::kFloats];
-  const int m0 = (blockIdx.x % tiles_m) * BM, n0 = (blockIdx.x / tiles_m) * BM;
-  const int kb = blockIdx.y * chunk, ke = min(NS, kb + chunk);
-  const FoldedGrad d{{C, S, NS}, g1, a1, p1, q1, r1};
-  const Plain xs{{Cin, S, NS}, x};
-  Rows<T, FoldedGrad> la(d, C, m0);
-  Rows<T, Plain> lb(xs, Cin, n0);
-  float acc[T][T];
-  float unused = 0.f;
-  mainloop<T, T, false>(acc, la, lb, kb, ke, smem, unused);
-  store_partial<T, T>(acc, part + (long)blockIdx.y * C * Cin, C, Cin, Cin, m0,
-                      n0);
-}
-
-// Square split-K tiles: 64 x 64 where the output's smaller side is <= 64,
-// else 128 x 128 (the wrappers size the splits by the same rule).
-int square_tiles(int M, int N, int* tiles_m) {
-  const int b = (M < N ? M : N) <= 64 ? 64 : 128;
-  *tiles_m = (M + b - 1) / b;
-  return *tiles_m * ((N + b - 1) / b);
 }
 
 }  // namespace
@@ -455,37 +282,25 @@ extern "C" int fused_block_bwd_mid_f32(
                          splits, per, static_cast<cudaStream_t>(stream));
 }
 
-// g3, x [N, Cin, S], g1, a1 [N, C, S], p1/q1/r1 [C], w1 [C, Cin]; dx [N,
-// Cin, S], wpart [splits, C, Cin] scratch, dw1 [C, Cin]; splits and chunk
-// as the moments' over K = N*S for the C x Cin output.
+// g3, x [N, Cin, S], g1, a1 [N, C, S], p1/q1/r1 [C], w1 [C, Cin] at row
+// pitch ldw (a multiple of 4 >= Cin, zeros past Cin, 16-byte aligned); dx
+// [N, Cin, S], da1 [N, C, S] scratch, wpart [splits, C, Cin] scratch, dw1
+// [C, Cin]; split p of dW1 takes the 32-column pieces [p * P / splits,
+// (p + 1) * P / splits) of the P = ceil(N*S / 32) (bwd_final_tc.cuh);
+// with wide set, S % 4 == 0 and g3, g1, a1, x, dx, da1 16-byte aligned.
 extern "C" int fused_block_bwd_final_f32(
     const float* g3, const float* g1, const float* a1, const float* x,
     const float* p1, const float* q1, const float* r1, const float* w1,
-    float* dx, float* wpart, float* dw1, int N, int Cin, int C, int S,
-    int splits, int chunk, void* stream) {
-  const long ns = (long)N * S;
-  if (N <= 0 || Cin <= 0 || C <= 0 || S <= 0 ||
-      !splits_ok(ns, splits, chunk))
+    float* dx, float* da1, float* wpart, float* dw1, int N, int Cin, int C,
+    int S, int ldw, int splits, int wide, void* stream) {
+  if (!bwd_final::grid_ok(g3, g1, a1, x, w1, dx, da1, N, Cin, C, S, ldw,
+                          splits, wide))
     return (int)cudaErrorInvalidValue;
-  const int T = (int)((ns + kBN - 1) / kBN);
-  if (T > 65535) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Cin <= 64)
-    bwd_final_dgrad_kernel<4, 8><<<dim3((Cin + 63) / 64, T), kThreads, 0, s>>>(
-        g1, a1, p1, q1, r1, w1, g3, dx, Cin, C, S, (int)ns);
-  else
-    bwd_final_dgrad_kernel<8, 8><<<dim3((Cin + 127) / 128, T), kThreads, 0,
-                                    s>>>(g1, a1, p1, q1, r1, w1, g3, dx, Cin,
-                                         C, S, (int)ns);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  int tm;
-  const int tiles = square_tiles(C, Cin, &tm);
-  if ((C < Cin ? C : Cin) <= 64)
-    bwd_final_wgrad_kernel<4><<<dim3(tiles, splits), kThreads, 0, s>>>(
-        g1, a1, p1, q1, r1, x, wpart, C, Cin, S, (int)ns, chunk, tm);
-  else
-    bwd_final_wgrad_kernel<8><<<dim3(tiles, splits), kThreads, 0, s>>>(
-        g1, a1, p1, q1, r1, x, wpart, C, Cin, S, (int)ns, chunk, tm);
-  return finish_splits(wpart, dw1, (long)C * Cin, splits, s);
+  return wide ? bwd_final::launch<true>(g3, g1, a1, x, p1, q1, r1, w1, dx, da1,
+                                        wpart, dw1, N, Cin, C, S, ldw, splits,
+                                        s)
+              : bwd_final::launch<false>(g3, g1, a1, x, p1, q1, r1, w1, dx,
+                                         da1, wpart, dw1, N, Cin, C, S, ldw,
+                                         splits, s);
 }

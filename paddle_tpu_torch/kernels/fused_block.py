@@ -17,9 +17,11 @@ Eight kernels, written by hand for Hopper: the forward's in
 ``csrc/fused_block.cuh``, except ``conv3x3_norm_stats``, whose 3xTF32
 tensor-core product over halo tiles is ``csrc/conv3x3_tc.cuh``,
 ``bwd_reduce3``, whose split-K product fed by asynchronous copies is
-``csrc/bwd_reduce3.cuh``, and ``bwd_mid``, whose input gradient is that
+``csrc/bwd_reduce3.cuh``, ``bwd_mid``, whose input gradient is that
 3xTF32 kernel over da2 and whose tap gradients are a 3xTF32 split-K
-product over the padded grid, ``csrc/bwd_mid_tc.cuh`` (each source's
+product over the padded grid, ``csrc/bwd_mid_tc.cuh``, and
+``bwd_final``, whose dx folds da1 once and whose dW1 is a 3xTF32
+split-K product over N·S, ``csrc/bwd_final_tc.cuh`` (each source's
 header says what bounds its kernels and what the design does about
 it). Each replaces the Pallas
 kernel of its name:
@@ -348,6 +350,31 @@ def _bwd_mid_grid(n: int, h: int, w: int, c: int,
     return -(-pieces // per), per
 
 
+_FINAL_KP = 32   # columns of N·S a dW1 stage (bwd_final::kWK)
+
+
+def _bwd_final_grid(n: int, s: int, c: int, cin: int,
+                    sms: int) -> Tuple[int, int]:
+    """(splits, pieces) of bwd_final's dW1 over K = N·S: 32-column pieces
+    of N·S (a piece may hold the end of one image and the start of the
+    next; the last one past N·S), split p taking pieces [p · pieces //
+    splits, (p + 1) · pieces // splits). The blocks of a split (the 64 x
+    128 tiles of [C, Cin]) run two an SM; of the split counts from one
+    wave's worth to four waves' worth, the one whose blocks fill their
+    last wave best (the fewest on ties), at most one split a piece, so
+    that none is empty."""
+    pieces = -(-n * s // _FINAL_KP)
+    blocks, wave = -(-c // 64) * -(-cin // 128), 2 * sms
+    want = max(1, wave // blocks)
+
+    def fill(splits):
+        return splits * blocks / (-(-splits * blocks // wave) * wave)
+
+    splits = max(range(want, max(want, 4 * wave // blocks) + 1),
+                 key=lambda k: (fill(k), -k))
+    return min(splits, pieces), pieces
+
+
 def _split_k(ns: int, blocks: int, sms: int) -> Tuple[int, int]:
     """(splits, chunk) of a split-K product's K = N·S over `blocks` output
     tiles: enough splits that tiles x splits give about 4 blocks per SM,
@@ -597,8 +624,9 @@ def bwd_final(g3, g1, a1, x, p1, q1, r1, w1):
     da1 = g1·p1 + a1·q1 + r1.
 
     CPU tensors run ``bwd_final_reference``. CUDA tensors run the kernels
-    (dx, then dW1 split across blocks): float32, contiguous;
-    deterministic sums."""
+    (dx, folding da1 once into a scratch; dW1 split across blocks by
+    ``_bwd_final_grid``): float32, contiguous; products in 3xTF32 on the
+    tensor cores, deterministic sums."""
     if not build.on_card("bwd_final", g3):
         return bwd_final_reference(g3, g1, a1, x, p1, q1, r1, w1)
     _dims("g3", g3, 3)
@@ -612,19 +640,24 @@ def bwd_final(g3, g1, a1, x, p1, q1, r1, w1):
     build.check("a1", a1, dev, (n, c, s))
     build.check("w1", w1, dev, (c, cin))
     _vectors(dev, c, p1=p1, q1=q1, r1=r1)
-    splits, chunk = _split_k(n * s, _square_tiles(c, cin),
-                             build.sm_count(dev))
-    dx = _empty(dev, n, cin, s)
+    splits, _ = _bwd_final_grid(n, s, c, cin, build.sm_count(dev))
+    if cin % 4 or w1.data_ptr() % 16:
+        # W1's rows are copied 16 bytes at a time: a fresh tensor, its rows
+        # padded with zeros to a multiple of 4
+        w1 = F.pad(w1, (0, -cin % 4))
+    dx, da1 = _empty(dev, n, cin, s), _empty(dev, n, c, s)
     wpart, dw1 = _empty(dev, splits, c, cin), _empty(dev, c, cin)
+    wide = s % 4 == 0 and all(t.data_ptr() % 16 == 0
+                              for t in (g3, g1, a1, x))
     with torch.cuda.device(dev):
         build.launch("bwd_final",
                      _bwd_fn("fused_block_bwd_final_f32",
-                             (_P,) * 11 + (_I,) * 6 + (_P,)),
+                             (_P,) * 12 + (_I,) * 7 + (_P,)),
                      g3.data_ptr(), g1.data_ptr(), a1.data_ptr(),
                      x.data_ptr(), p1.data_ptr(), q1.data_ptr(),
                      r1.data_ptr(), w1.data_ptr(), dx.data_ptr(),
-                     wpart.data_ptr(), dw1.data_ptr(), n, cin, c, s, splits,
-                     chunk, _stream(dev))
+                     da1.data_ptr(), wpart.data_ptr(), dw1.data_ptr(), n,
+                     cin, c, s, w1.shape[1], splits, int(wide), _stream(dev))
     bwd_final.launches += 1
     return dx, dw1
 

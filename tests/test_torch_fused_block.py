@@ -16,10 +16,11 @@ kernels do not take before any launch, and receive dense operands from
 a strided cotangent. The card's 3x3 kernel computes in 3xTF32 on the
 tensor cores: an emulation of that arithmetic holds the plain version
 to the forward tolerance at chain-like depths, and its column tiles
-cover the padded grid. Inputs come from a numpy seed: N 2-8, Cin 16-256,
-C 8-64, H 4, 7 and 8 (S 16, 49 and 64), BN shifts that are not zero,
-so the 3x3's zero padding of h1 (not of a1) and, in the backward, of
-da2 (not r2) shows at every edge.
+cover the padded grid; so do bwd_mid's and bwd_final's products, to
+the backward limits, and their splits cover their K. Inputs come from
+a numpy seed: N 2-8, Cin 16-256, C 8-64, H 4, 7 and 8 (S 16, 49 and
+64), BN shifts that are not zero, so the 3x3's zero padding of h1 (not
+of a1) and, in the backward, of da2 (not r2) shows at every edge.
 
 Tolerances: float32 on both sides, sums in other orders. Forward outputs
 within atol = rtol = 1e-5; sums within 1e-5 of the sum of their terms'
@@ -345,6 +346,127 @@ def test_bwd_mid_grid_covers_the_padded_grid(n, h, w, c, splits):
     tiles = -(-c // 64)
     if n == 128:
         assert 3 * tiles * tiles * splits % (2 * 132) == 0
+
+
+def _final_case(n, cin, c, s, seed):
+    """bwd_final's operands: g3, x [N, Cin, S] (x >= 0, a block input),
+    g1, a1 [N, C, S], bn1 folded into p1 (a scale around 1), q1 and r1,
+    He-scaled w1 [C, Cin]."""
+    rng = np.random.RandomState(seed)
+    f32 = np.float32
+    vec = lambda scale, base=0.0: (base + scale * rng.randn(c)).astype(f32)
+    return tuple(map(torch.from_numpy, (
+        rng.randn(n, cin, s).astype(f32), rng.randn(n, c, s).astype(f32),
+        rng.randn(n, c, s).astype(f32) + 0.3,
+        np.abs(rng.randn(n, cin, s)).astype(f32), vec(0.2, 1.0), vec(0.1),
+        vec(0.1), (rng.randn(c, cin) * np.sqrt(2.0 / cin)).astype(f32))))
+
+
+def _dx_tf32(da1, w1, g3, products):
+    """bwd_final's dx as the card computes it (csrc/bwd_final_tc.cuh): K
+    = C in k8 steps (zero past C), each step's products of _pairs into a
+    fresh fragment (summed in float32), added into the float32
+    accumulator step after step; then + g3."""
+    n, c, s = da1.shape
+    pad = -c % 8
+    a = torch.nn.functional.pad(w1.T, (0, pad))              # [Cin, Cp]
+    b = torch.nn.functional.pad(da1, (0, 0, 0, pad))         # [N, Cp, S]
+    pairs = _pairs(a, b, products)
+    acc = torch.zeros(n, w1.shape[1], s)
+    for k in range(0, c + pad, 8):
+        acc = acc + sum(torch.matmul(pa[:, k:k + 8], pb[:, k:k + 8])
+                        for pa, pb in pairs)
+    return acc + g3
+
+
+def _dw1_tf32(da1, x, products, sms=132):
+    """bwd_final's dW1 as the card computes it: K = the N·S columns in
+    _bwd_final_grid's splits of 32-column pieces (a piece may straddle
+    two images; zero past N·S), each k8 step's products of _pairs into a
+    fresh fragment (summed in float32), added into the split's float32
+    accumulator step after step; the splits added in split order."""
+    n, c, s = da1.shape
+    cin = x.shape[1]
+    splits, pieces = tfb._bwd_final_grid(n, s, c, cin, sms)
+    length = pieces * 32
+
+    def steps(t):     # [N·S, rows] columns -> [length / 8 k8 steps, rows, 8]
+        cols = t.permute(1, 0, 2).reshape(t.shape[1], n * s)
+        cols = torch.nn.functional.pad(cols, (0, length - n * s))
+        return cols.reshape(-1, length // 8, 8).permute(1, 0, 2)
+
+    pairs = _pairs(steps(da1), steps(x), products)
+    total = torch.zeros(c, cin)
+    for sp in range(splits):
+        acc = torch.zeros(c, cin)
+        k0, k1 = sp * pieces // splits * 4, (sp + 1) * pieces // splits * 4
+        for j0 in range(k0, k1, 256):
+            j1 = min(k1, j0 + 256)
+            f = sum(torch.matmul(a[j0:j1], b[j0:j1].transpose(1, 2))
+                    for a, b in pairs)
+            for k in range(j1 - j0):
+                acc = acc + f[k]
+        total = total + acc
+    return total
+
+
+@pytest.mark.parametrize("n,cin,c,s", [(8, 256, 96, 3136),
+                                      (128, 256, 64, 196)])
+def test_3xtf32_holds_bwd_final_to_its_limits(n, cin, c, s):
+    """At chain-like depths (dx's K = C; dW1's K = N·S = 25,088 columns,
+    in _bwd_final_grid's splits), bwd_final's 3xTF32 arithmetic on the
+    card, emulated, stays within half of its limits: dx within atol =
+    rtol = 1e-4 of the plain version, dW1 within 1e-5 of the sum of its
+    terms' magnitudes. With one TF32 product dx or dW1 falls outside its
+    limit."""
+    args = _final_case(n, cin, c, s, seed=22)
+    g3, g1, a1, x, p1, q1, r1, w1 = args
+    dx, dw1 = tfb.bwd_final_reference(*args)
+    col = lambda v: v.reshape(1, -1, 1)
+    da1 = g1 * col(p1) + a1 * col(q1) + col(r1)
+    terms = torch.einsum("ncs,nks->ck", da1.abs(), x)
+
+    def dx_share(products):
+        got = _dx_tf32(da1, w1, g3, products)
+        return float(((got - dx).abs() / (1e-4 + 1e-4 * dx.abs())).max())
+
+    def dw1_share(products):
+        got = _dw1_tf32(da1, x, products)
+        return float(((got - dw1).abs() / (1e-5 * terms)).max())
+
+    assert dx_share(3) <= 0.5 and dw1_share(3) <= 0.5
+    assert dx_share(1) > 1 or dw1_share(1) > 1
+
+
+@pytest.mark.parametrize("n,s,c,cin,splits", [
+    (128, 3136, 64, 256, 132),    # ResNet-50's three chain stages: whole
+    (128, 784, 128, 512, 33),     # waves of tiles x splits, two blocks an
+    (128, 196, 256, 1024, 33),    # SM (264, 264, 1056 blocks)
+    (8, 3136, 96, 256, 66),
+    (3, 100, 64, 256, 10),        # fewer pieces than the wave wants: one
+    (3, 49, 96, 256, 5),          # each; S % 4 != 0, pieces straddle images
+    (2, 7, 8, 16, 1),             # N·S 14: one piece
+    (1, 4, 2048, 2048, 1),        # one split's 512 blocks near two waves
+])
+def test_bwd_final_grid_covers_n_s(n, s, c, cin, splits):
+    """bwd_final's dW1 splits: N·S in whole 32-column pieces (one stage
+    each, the last one past N·S), split p taking pieces [p · P // splits,
+    (p + 1) · P // splits): every position of every image covered exactly
+    once, no split empty; at the chain's stages the 64 x 128 tiles of [C,
+    Cin] x splits fill whole waves of the 132 SMs at two blocks an SM."""
+    got_splits, pieces = tfb._bwd_final_grid(n, s, c, cin, 132)
+    assert (pieces - 1) * 32 < n * s <= pieces * 32
+    assert got_splits == splits and 1 <= splits <= 65535
+    runs = [range(sp * pieces // splits, (sp + 1) * pieces // splits)
+            for sp in range(splits)]
+    assert all(len(r) > 0 for r in runs)
+    assert [j for r in runs for j in r] == list(range(pieces))
+    covered = [(k // s, k % s) for j in range(pieces)
+               for k in range(32 * j, min(n * s, 32 * j + 32))]
+    assert covered == [(i, p) for i in range(n) for p in range(s)]
+    if n == 128:
+        tiles = -(-c // 64) * -(-cin // 128)
+        assert tiles * splits % (2 * 132) == 0
 
 
 @pytest.mark.parametrize("shape", SHAPES)

@@ -836,6 +836,34 @@ def test_chain_backward_kernels_match_plain(cuda, n, cin, c, h):
         assert all(torch.equal(x, y) for x, y in zip(got, again)), name
 
 
+@pytest.mark.parametrize("n,cin,c,s,offset", [
+    (3, 150, 20, 49, 0),     # Cin % 4 != 0: W1's rows padded to 152; C %
+                             # 8 != 0: K zero-filled past C; S % 4 != 0:
+                             # 4-byte copies, 64-column tiles and 32-column
+                             # pieces straddling images
+    (2, 132, 44, 100, 1),    # 16-byte copies; W1 a view 4 bytes off 16-byte
+                             # alignment (copied); Cin past one 128-row chunk
+])
+def test_bwd_final_kernels_take_shapes_the_chain_does_not(cuda, n, cin, c,
+                                                         s, offset):
+    """bwd_final alone at shapes the chain's gate never makes: dx within
+    BWD_TOL of the plain version, dW1 within 1e-5 of its terms'
+    magnitudes, a second call bit-identical."""
+    gen = torch.Generator().manual_seed(n + cin + c + s)
+    g3, x = _randn(gen, n, cin, s), _randn(gen, n, cin, s).abs()
+    g1, a1 = _randn(gen, n, c, s), _randn(gen, n, c, s) + 0.3
+    p1, q1, r1 = (1 + 0.2 * _randn(gen, c), 0.1 * _randn(gen, c),
+                  0.1 * _randn(gen, c))
+    w1 = _randn(gen, c * cin + offset)[offset:].view(c, cin)
+    args = (g3, g1, a1, x, p1, q1, r1, w1)
+    got = fb.bwd_final(*args)
+    want = fb.bwd_final_reference(*args)
+    torch.testing.assert_close(got[0], want[0], **BWD_TOL)
+    _sums_close(got[1], want[1], _bwd_terms("bwd_final", args, want)[1])
+    again = fb.bwd_final(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 def test_chain_backward_wrappers_never_fall_back(cuda, monkeypatch):
     """With the four backward plain versions patched to raise, the
     chain's backward runs on the card through its kernels, one launch of
