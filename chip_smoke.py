@@ -449,6 +449,11 @@ def kernel_class(name: str) -> str:
     if "conv3x3_kernel<" in n:
         return ("bwd_mid" if "bwd_mid::" in n else "conv3x3_norm_stats") + \
             " (port kernel)"
+    # the LSTM's names first: lstm_bwd_final_kernel holds "bwd_final_"
+    if "lstm_fwd_step_kernel" in n:
+        return "lstm_seq_fwd (port kernel)"
+    if "lstm_gemm_kernel" in n or "lstm_bwd_" in n:
+        return "lstm_seq_bwd (port kernel)"
     for kernel in ("conv1x1_stats", "conv3x3_norm_stats",
                    "conv1x1_bn_residual", "moments", "bwd_reduce3",
                    "bwd_apply3", "bwd_mid", "bwd_final"):
@@ -457,10 +462,6 @@ def kernel_class(name: str) -> str:
                     f"(port kernel)")
     if "chain_stats_final_kernel" in n or "split_sum_kernel" in n:
         return "chain sums finalize (port kernel)"
-    if "lstm_fwd_step_kernel" in n:
-        return "lstm_seq_fwd (port kernel)"
-    if "lstm_gemm_kernel" in n or "lstm_bwd_" in n:
-        return "lstm_seq_bwd (port kernel)"
     if "stats_partial_kernel" in n or "stats_final_kernel" in n:
         return "fused_conv_channel_stats (port kernel)"
     if "apply_kernel<true" in n:
@@ -1748,10 +1749,13 @@ def check_chain_bwd(torch, fb, card):
         # bounds: each input read once, each output written once; the
         # products, the loaders' elementwise work (a normalize 3 a value,
         # a fold 4, a mask 1) and the epilogues' (mask 2, bias 1, the two
-        # sums 5). bwd_mid and bwd_final run their two products as three
-        # TF32 products each on the tensor cores: their bounds are that
-        # arithmetic's, printed beside the float32 FMA bounds
+        # sums 5). bwd_apply3, bwd_mid and bwd_final run their products as
+        # three TF32 products each on the tensor cores: their bounds are
+        # that arithmetic's, printed beside the float32 FMA bounds
         ea, ex = n * c * s, n * cin * s
+        a3_bytes = 4 * (ex + 2 * ea + c * cin + c * c + 7 * c)
+        a3_ops = 2 * c * (cin + c) * m
+        f32_bound_a3 = bound_ms(a3_bytes, a3_ops + 11 * ea)
         mid_bytes = 4 * (4 * ea + 18 * c * c + 9 * c)
         f32_bound_mid = bound_ms(mid_bytes, 36 * c * c * m + 14 * ea)
         final_bytes = 4 * (3 * ex + 2 * ea + 2 * c * cin + 3 * c)
@@ -1760,8 +1764,7 @@ def check_chain_bwd(torch, fb, card):
         r3_ops = 2 * cin * c * m + 3 * ea + 2 * ex
         bounds = {
             "bwd_reduce3": bound_ms(r3_bytes, r3_ops),
-            "bwd_apply3": bound_ms(4 * (ex + 2 * ea + c * cin + c * c + 7 * c),
-                                   2 * c * (cin + c) * m + 11 * ea),
+            "bwd_apply3": bound_ms(a3_bytes, 3 * a3_ops, TF32_FLOPS_PER_S),
             "bwd_mid": bound_ms(mid_bytes, 3 * 36 * c * c * m,
                                 TF32_FLOPS_PER_S),
             "bwd_final": bound_ms(final_bytes, 3 * 4 * c * cin * m,
@@ -1839,6 +1842,17 @@ def check_chain_bwd(torch, fb, card):
               f"{bounds['bwd_final'][1]} by 3xTF32 at "
               f"{TF32_FLOPS_PER_S / 1e12:.0f} TFLOP/s, f32 FMA bound "
               f"{f32_bound_final[0]:.4f} {f32_bound_final[1]} [{card}]")
+        print(f"bwd_apply3 stage Cin {cin}, C {c}, {h}x{h}, batch {n}: "
+              f"{ms['bwd_apply3']:.4f} ms, "
+              f"{a3_bytes / ms['bwd_apply3'] / 1e9:.3f} TB/s of "
+              f"{a3_bytes / 1e9:.3f} GB, "
+              f"{a3_ops / ms['bwd_apply3'] / 1e9:.2f} TFLOP/s of the "
+              f"product's {a3_ops / 1e9:.2f} GFLOP "
+              f"({3 * a3_ops / ms['bwd_apply3'] / 1e9:.2f} TFLOP/s of its "
+              f"3xTF32); bound {bounds['bwd_apply3'][0]:.4f} "
+              f"{bounds['bwd_apply3'][1]} by 3xTF32 at "
+              f"{TF32_FLOPS_PER_S / 1e12:.0f} TFLOP/s, f32 FMA bound "
+              f"{f32_bound_a3[0]:.4f} {f32_bound_a3[1]} [{card}]")
         print(f"bwd_reduce3 stage Cin {cin}, C {c}, {h}x{h}: "
               f"{ms['bwd_reduce3']:.4f} ms, "
               f"{r3_bytes / ms['bwd_reduce3'] / 1e9:.3f} TB/s of "
@@ -2236,7 +2250,7 @@ def main() -> int:
                                     "paddle_tpu/kernels/fused_block.py:756"),
             "bwd_reduce3": ("paddle_tpu_torch/csrc/bwd_reduce3.cuh",
                             "paddle_tpu/kernels/fused_block.py:192"),
-            "bwd_apply3": ("paddle_tpu_torch/csrc/fused_block_bwd.cu",
+            "bwd_apply3": ("paddle_tpu_torch/csrc/bwd_apply3_tc.cuh",
                            "paddle_tpu/kernels/fused_block.py:261"),
             "bwd_mid": ("paddle_tpu_torch/csrc/bwd_mid_tc.cuh",
                         "paddle_tpu/kernels/fused_block.py:399"),

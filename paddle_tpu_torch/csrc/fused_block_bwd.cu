@@ -28,17 +28,17 @@
 // the 67 TFLOP/s float32 peak; at 56x56 the bytes of bwd_reduce3 (1.34 GB)
 // and bwd_final (1.44 GB) bound them instead.
 //
-// What the design does about it: bwd_reduce3 has a design of its own,
-// a split-K product fed by a ring of asynchronous copies (its note in
-// bwd_reduce3.cuh); bwd_mid and bwd_final run both their products on
-// tensor cores in 3xTF32 (their notes in bwd_mid_tc.cuh, whose input
-// gradient is conv3x3_tc.cuh's kernel, and bwd_final_tc.cuh: da1 folded
-// once into a scratch that dW1 reads). bwd_apply3 is the forward's
-// (fused_block.cu), on the shared tile machinery of fused_block.cuh: one
-// tiled float32 SIMT column product [M, K] x [K, N*S] with the batch
-// folded into the columns, whose B loader computes its operand on the way
-// in (g3 or h2) and whose epilogue masks, adds and writes the per-tile
-// partials of the BN sums.
+// What the design does about it: none of the four runs the SIMT tile
+// product of fused_block.cuh (mainloop and its loaders: the forward's,
+// fused_block.cu, do).
+// bwd_reduce3 is a split-K product fed by a ring of asynchronous copies
+// (its note in bwd_reduce3.cuh); bwd_apply3, bwd_mid and bwd_final run
+// their products on tensor cores in 3xTF32 (their notes in
+// bwd_apply3_tc.cuh: one stacked product [A | B] [g3; h2] fed by a ring
+// of asynchronous copies, h2 built on landing, the masked epilogue in the
+// same launch; bwd_mid_tc.cuh, whose input gradient is conv3x3_tc.cuh's
+// kernel; bwd_final_tc.cuh: da1 folded once into a scratch that dW1
+// reads).
 //
 // The TPU carries its sums across a sequential grid of images; here they
 // are partials added in a fixed order: no atomics, every result is
@@ -49,163 +49,7 @@
 #include "bwd_reduce3.cuh"
 #include "bwd_mid_tc.cuh"
 #include "bwd_final_tc.cuh"
-
-namespace {
-
-// ---------------------------------------------------------------------------
-// Loaders of bwd_apply3's column product.
-// ---------------------------------------------------------------------------
-
-// A = [amat | bmat] of bwd_apply3: A[m][k] = amat[m][k] for k < K1,
-// bmat[m][k - K1] for K1 <= k < K1 + M (amat [M, K1], bmat [M, M]).
-template <int TM>
-struct StackedA {
-  static constexpr int BM = 16 * TM, R = TM / 2;
-  const float* amat;
-  const float* bmat;
-  int M, K1, m0, kk, mr;
-  float reg[R];
-  __device__ StackedA(const float* a_, const float* b_, int M_, int K1_,
-                      int m0_)
-      : amat(a_), bmat(b_), M(M_), K1(K1_), m0(m0_), kk(threadIdx.x & 7),
-        mr(threadIdx.x >> 3) {}
-  __device__ __forceinline__ void fetch(int k0) {
-    const int k = k0 + kk;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int m = m0 + mr + 32 * r;
-      float v = 0.f;
-      if (m < M) {
-        if (k < K1)
-          v = __ldg(amat + (long)m * K1 + k);
-        else if (k < K1 + M)
-          v = __ldg(bmat + (long)m * M + (k - K1));
-      }
-      reg[r] = v;
-    }
-  }
-  __device__ __forceinline__ void store(float* s) const {
-#pragma unroll
-    for (int r = 0; r < R; ++r) s[kk * (BM + 4) + mr + 32 * r] = reg[r];
-  }
-};
-
-// B = [g3; h2] of bwd_apply3: g3[n, k, p] for k < K1 (g3 [N, K1, S]),
-// relu(a2[n, k - K1, p] * scale + shift) for K1 <= k < K1 + C. One fixed
-// column j = n * S + p a thread, k offsets tid / BN + (256 / BN) r.
-template <int TN>
-struct StackedB {
-  static constexpr int BN = 16 * TN, R = TN / 2, KS = kThreads / BN;
-  const float* g3;
-  const float* a2;
-  const float* scale;
-  const float* shift;
-  int K1, C, S, col, kr;
-  long base1, base2;
-  bool ok;
-  float reg[R];
-  __device__ StackedB(const float* g3_, const float* a2_, const float* sc_,
-                      const float* sh_, int K1_, int C_, int S_, int NS,
-                      int j0)
-      : g3(g3_), a2(a2_), scale(sc_), shift(sh_), K1(K1_), C(C_), S(S_),
-        col(threadIdx.x % BN), kr(threadIdx.x / BN) {
-    const int j = j0 + col;
-    ok = j < NS;
-    const int n = ok ? j / S : 0;
-    base1 = (long)n * K1 * S + (j - n * S);
-    base2 = (long)n * C * S + (j - n * S);
-  }
-  __device__ __forceinline__ void fetch(int k0) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int k = k0 + kr + KS * r;
-      float v = 0.f;
-      if (ok) {
-        if (k < K1) {
-          v = __ldg(g3 + base1 + (long)k * S);
-        } else if (k < K1 + C) {
-          const int c = k - K1;
-          v = relu_affine(__ldg(a2 + base2 + (long)c * S), __ldg(scale + c),
-                          __ldg(shift + c));
-        }
-      }
-      reg[r] = v;
-    }
-  }
-  __device__ __forceinline__ void store(float* s) const {
-#pragma unroll
-    for (int r = 0; r < R; ++r) s[(kr + KS * r) * (BN + 4) + col] = reg[r];
-  }
-};
-
-// The epilogue of bwd_apply3: g = acc +
-// bias[m] (bias may be null) where a * sc + sh > 0, else 0, written to y
-// [N, M, S]; the rows' partial sums of g and of g * (a * inv - mean * inv)
-// into part [2, M, T] at tile column jt.
-template <int TM, int TN>
-__device__ __forceinline__ void store_masked_with_stats(
-    const float (&acc)[TM][TN], const float* __restrict__ bias,
-    const float* __restrict__ a, const float* __restrict__ sc,
-    const float* __restrict__ sh, const float* __restrict__ inv,
-    const float* __restrict__ mean, float* __restrict__ y,
-    float* __restrict__ part, int M, int S, int NS, int T, int m0, int j0,
-    int jt, float* red) {
-  constexpr int BM = 16 * TM;
-  const int ty = threadIdx.x >> 4;
-  long coff[TN];
-  bool cok[TN];
-  column_offsets<TN>(coff, cok, j0, M, S, NS);
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int lr = tile_pos(i, ty);
-    const int m = m0 + lr;
-    float s = 0.f, q = 0.f;
-    if (m < M) {
-      const float b = bias ? __ldg(bias + m) : 0.f;
-      const float sc_m = __ldg(sc + m), sh_m = __ldg(sh + m);
-      const float inv_m = __ldg(inv + m), xs = -__ldg(mean + m) * inv_m;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        if (cok[j]) {
-          const long o = coff[j] + (long)m * S;
-          const float av = __ldg(a + o);
-          const float g = positive(av, sc_m, sh_m) ? acc[i][j] + b : 0.f;
-          y[o] = g;
-          s += g;
-          q = fmaf(g, fmaf(av, inv_m, xs), q);
-        }
-      }
-    }
-    put_row_partial<BM>(red, lr, s, q);
-  }
-  store_row_partials<BM>(part, M, T, m0, jt, red);
-}
-
-// Grid (M tiles, column tiles), M tiles fastest.
-
-template <int TM, int TN>
-__global__ void __launch_bounds__(kThreads, 2)
-bwd_apply3_kernel(const float* __restrict__ g3, const float* __restrict__ a2,
-                  const float* __restrict__ sc2, const float* __restrict__ sh2,
-                  const float* __restrict__ amat,
-                  const float* __restrict__ bmat,
-                  const float* __restrict__ v0, const float* __restrict__ inv2,
-                  const float* __restrict__ m2, float* __restrict__ g2,
-                  float* __restrict__ part, int C, int Cin, int S, int NS,
-                  int T) {
-  constexpr int BM = 16 * TM, BN = 16 * TN;
-  __shared__ __align__(16) float smem[Smem<BM, BN>::kFloats];
-  const int m0 = blockIdx.x * BM, jt = blockIdx.y, j0 = jt * BN;
-  StackedA<TM> la(amat, bmat, C, Cin, m0);
-  StackedB<TN> lb(g3, a2, sc2, sh2, Cin, C, S, NS, j0);
-  float acc[TM][TN];
-  float unused = 0.f;
-  mainloop<TM, TN, false>(acc, la, lb, 0, Cin + C, smem, unused);
-  store_masked_with_stats<TM, TN>(acc, v0, a2, sc2, sh2, inv2, m2, g2, part,
-                                  C, S, NS, T, m0, j0, jt, smem);
-}
-
-}  // namespace
+#include "bwd_apply3_tc.cuh"
 
 // dout, out [N, Cin, S], a2 [N, C, S], sc2/sh2 [C]; g3 [N, Cin, S]; part
 // [splits, Cin, C + 1] scratch; red [Cin, C + 1]: P in columns 0..C-1, sum
@@ -240,26 +84,23 @@ extern "C" int fused_block_bwd_reduce3_f32(
                                             s);
 }
 
-// g3 [N, Cin, S], a2 [N, C, S], sc2/sh2/v0/inv2/m2 [C], amat [C, Cin],
-// bmat [C, C]; g2 [N, C, S], part [2, C, T] scratch, stats [2, C] (sum g2,
-// sum g2 * xhat2); T = ceil(N*S / 128).
+// g3 [N, Cin, S], a2 [N, C, S], sc2/sh2/v0/inv2/m2 [C]; amat = [amat |
+// bmat] stacked [rows, lda]: lda a multiple of 16 >= Cin + C, rows the
+// row tiles x their 64 or 128 rows, zeros past C and past Cin + C,
+// 16-byte aligned; g2 [N, C, S], part [2, C, T] scratch, stats [2, C]
+// (sum g2, sum g2 * xhat2); T the column tiles of N*S (bwd_apply3_tc.cuh:
+// 128 columns where C <= 64, else 64); with wide set, S % 4 == 0 and g3,
+// a2, g2 16-byte aligned.
 extern "C" int fused_block_bwd_apply3_f32(
     const float* g3, const float* a2, const float* sc2, const float* sh2,
-    const float* amat, const float* bmat, const float* v0, const float* inv2,
-    const float* m2, float* g2, float* part, float* stats, int N, int Cin,
-    int C, int S, int T, void* stream) {
-  if (Cin <= 0 || !tiles_ok(C, N, S, T)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int NS = N * S;
-  if (C <= 64)
-    bwd_apply3_kernel<4, 8><<<dim3((C + 63) / 64, T), kThreads, 0, s>>>(
-        g3, a2, sc2, sh2, amat, bmat, v0, inv2, m2, g2, part, C, Cin, S, NS,
-        T);
-  else
-    bwd_apply3_kernel<8, 8><<<dim3((C + 127) / 128, T), kThreads, 0, s>>>(
-        g3, a2, sc2, sh2, amat, bmat, v0, inv2, m2, g2, part, C, Cin, S, NS,
-        T);
-  return finish_stats(part, stats, C, T, s);
+    const float* amat, const float* v0, const float* inv2, const float* m2,
+    float* g2, float* part, float* stats, int N, int Cin, int C, int S,
+    int lda, int T, int wide, void* stream) {
+  if (!bwd_apply3::grid_ok(g3, a2, amat, g2, N, Cin, C, S, lda, T, wide))
+    return (int)cudaErrorInvalidValue;
+  return bwd_apply3::launch(g3, a2, sc2, sh2, amat, v0, inv2, m2, g2, part,
+                            stats, N, Cin, C, S, lda, T, wide,
+                            static_cast<cudaStream_t>(stream));
 }
 
 // g2, a2, a1 [N, C, H*W], sc1/sh1/p2/q2/r2/inv1/m1 [C], taps_t [9, C, C]

@@ -17,7 +17,9 @@ Eight kernels, written by hand for Hopper: the forward's in
 ``csrc/fused_block.cuh``, except ``conv3x3_norm_stats``, whose 3xTF32
 tensor-core product over halo tiles is ``csrc/conv3x3_tc.cuh``,
 ``bwd_reduce3``, whose split-K product fed by asynchronous copies is
-``csrc/bwd_reduce3.cuh``, ``bwd_mid``, whose input gradient is that
+``csrc/bwd_reduce3.cuh``, ``bwd_apply3``, whose stacked 3xTF32 product
+[amat | bmat]·[g3; h2] fed by asynchronous copies is
+``csrc/bwd_apply3_tc.cuh``, ``bwd_mid``, whose input gradient is that
 3xTF32 kernel over da2 and whose tap gradients are a 3xTF32 split-K
 product over the padded grid, ``csrc/bwd_mid_tc.cuh``, and
 ``bwd_final``, whose dx folds da1 once and whose dW1 is a 3xTF32
@@ -375,6 +377,23 @@ def _bwd_final_grid(n: int, s: int, c: int, cin: int,
     return min(splits, pieces), pieces
 
 
+_A3_BK = 16    # rows of K a bwd_apply3 stage (bwd_apply3::kK)
+
+
+def _bwd_apply3_grid(n: int, s: int, c: int,
+                     cin: int) -> Tuple[int, int, int, int]:
+    """(bn, T, rows, lda) of bwd_apply3: tiles of 64 rows of C by bn = 128
+    columns of N·S where C <= 64, else 128 rows by 64 columns (a tile may
+    hold the end of one image and the start of the next; the last one
+    past N·S), T = ceil(N·S / bn) column tiles, each by every row tile;
+    the stacked [amat | bmat] padded with zeros to rows = whole row tiles
+    and lda = K = Cin + C in whole 16-row stages."""
+    bm = 64 if c <= 64 else 128
+    bn = 8192 // bm
+    return (bn, -(-n * s // bn), -(-c // bm) * bm,
+            -(-(cin + c) // _A3_BK) * _A3_BK)
+
+
 def _split_k(ns: int, blocks: int, sms: int) -> Tuple[int, int]:
     """(splits, chunk) of a split-K product's K = N·S over `blocks` output
     tiles: enough splits that tiles x splits give about 4 blocks per SM,
@@ -530,7 +549,9 @@ def bwd_apply3(g3, a2, scale2, shift2, amat, bmat, v0, inv2, m2):
     [N, C, S], Σg2 [C], Σg2·x̂2 [C]), x̂2 = a2·inv2 − m2·inv2.
 
     CPU tensors run ``bwd_apply3_reference``. CUDA tensors run the
-    kernel: float32, contiguous; deterministic sums."""
+    kernel (one product [amat | bmat]·[g3; h2] over ``_bwd_apply3_grid``'s
+    tiles): float32, contiguous; the product in 3xTF32 on the tensor
+    cores, deterministic sums."""
     if not build.on_card("bwd_apply3", g3):
         return bwd_apply3_reference(g3, a2, scale2, shift2, amat, bmat, v0,
                                     inv2, m2)
@@ -544,18 +565,23 @@ def bwd_apply3(g3, a2, scale2, shift2, amat, bmat, v0, inv2, m2):
     build.check("amat", amat, dev, (c, cin))
     build.check("bmat", bmat, dev, (c, c))
     _vectors(dev, c, scale2=scale2, shift2=shift2, v0=v0, inv2=inv2, m2=m2)
-    t = _col_tiles(n, s)
+    _, t, rows, lda = _bwd_apply3_grid(n, s, c, cin)
+    # [amat | bmat] stacked once, zero-padded to whole row tiles and whole
+    # stages of K (a fresh tensor, 16-byte aligned)
+    stacked = F.pad(torch.cat([amat, bmat], 1),
+                    (0, lda - cin - c, 0, rows - c))
     g2 = _empty(dev, n, c, s)
     part, stats = _empty(dev, 2, c, t), _empty(dev, 2, c)
+    wide = s % 4 == 0 and all(x.data_ptr() % 16 == 0 for x in (g3, a2))
     with torch.cuda.device(dev):
         build.launch("bwd_apply3",
                      _bwd_fn("fused_block_bwd_apply3_f32",
-                             (_P,) * 12 + (_I,) * 5 + (_P,)),
+                             (_P,) * 11 + (_I,) * 7 + (_P,)),
                      g3.data_ptr(), a2.data_ptr(), scale2.data_ptr(),
-                     shift2.data_ptr(), amat.data_ptr(), bmat.data_ptr(),
-                     v0.data_ptr(), inv2.data_ptr(), m2.data_ptr(),
-                     g2.data_ptr(), part.data_ptr(), stats.data_ptr(), n, cin,
-                     c, s, t, _stream(dev))
+                     shift2.data_ptr(), stacked.data_ptr(), v0.data_ptr(),
+                     inv2.data_ptr(), m2.data_ptr(), g2.data_ptr(),
+                     part.data_ptr(), stats.data_ptr(), n, cin, c, s, lda, t,
+                     int(wide), _stream(dev))
     bwd_apply3.launches += 1
     return g2, stats[0], stats[1]
 

@@ -469,6 +469,102 @@ def test_bwd_final_grid_covers_n_s(n, s, c, cin, splits):
         assert tiles * splits % (2 * 132) == 0
 
 
+def _apply3_case(n, cin, c, s, seed):
+    """bwd_apply3's operands as the chain makes them: g3 [N, Cin, S], a2
+    [N, C, S], bn2's affine (scales around 1, shifts around 0), bn3's
+    backward folded through a He-scaled W3 [Cin, C] (amat = (W3·diag(p3))ᵀ,
+    bmat = W3ᵀ·diag(q3)·W3, v0 = W3ᵀ·r3), inv2 and m2."""
+    rng = np.random.RandomState(seed)
+    f32 = np.float32
+    vec = lambda k, scale, base=0.0: (base + scale * rng.randn(k)).astype(f32)
+    w3 = (rng.randn(cin, c) * np.sqrt(2.0 / c)).astype(f32)
+    p3, q3, r3 = vec(cin, 0.2, 1.0), vec(cin, 0.01), vec(cin, 0.01)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, dtype=f32)) for a in (
+        rng.randn(n, cin, s), rng.randn(n, c, s), vec(c, 0.2, 1.0),
+        vec(c, 0.1), (w3 * p3[:, None]).T, w3.T @ (w3 * q3[:, None]),
+        w3.T @ r3, np.abs(vec(c, 0.2, 1.0)), vec(c, 0.1)))
+
+
+def _apply3_tf32(g3, a2, sc2, sh2, amat, bmat, v0, products):
+    """bwd_apply3's g2 as the card computes it (csrc/bwd_apply3_tc.cuh):
+    [amat | bmat]·[g3; h2] with h2 = relu(a2·sc2 + sh2) (one rounding,
+    as fmaf), K = Cin + C in k8 steps (zero past K), each step's products
+    of _pairs into a fresh fragment (summed in float32), added into the
+    float32 accumulator step after step; then + v0 where a2·sc2 + sh2 >
+    0 (two roundings, as the plain version), else 0."""
+    col = lambda v: v.reshape(1, -1, 1)
+    k = g3.shape[1] + a2.shape[1]
+    h2 = torch.clamp_min((a2.double() * col(sc2).double()
+                          + col(sh2).double()).float(), 0.0)
+    a = torch.nn.functional.pad(torch.cat([amat, bmat], 1), (0, -k % 8))
+    b = torch.nn.functional.pad(torch.cat([g3, h2], 1), (0, 0, 0, -k % 8))
+    pairs = _pairs(a, b, products)
+    acc = torch.zeros(a2.shape)
+    for k0 in range(0, k + -k % 8, 8):
+        acc = acc + sum(torch.matmul(pa[:, k0:k0 + 8], pb[:, k0:k0 + 8])
+                        for pa, pb in pairs)
+    mask = a2 * col(sc2) + col(sh2) > 0
+    return torch.where(mask, acc + col(v0), torch.zeros(()))
+
+
+@pytest.mark.parametrize("n,cin,c,s", [(2, 1024, 256, 196),
+                                      (4, 256, 96, 49),
+                                      (3, 150, 20, 49)])
+def test_3xtf32_holds_bwd_apply3_to_its_limits(n, cin, c, s):
+    """At the chain's deepest K (Cin + C = 1280, the 14x14 stage) and at
+    C that is not a multiple of 64 (nor, at 20, of 8; K = 170 is padded
+    to whole k8 steps), bwd_apply3's 3xTF32 arithmetic on the card,
+    emulated, stays within half of its limits: g2 within atol = rtol =
+    1e-4 of the plain version, Σg2 and Σg2·x̂2 within 1e-5 of the sum of
+    their terms' magnitudes. With one TF32 product g2 falls outside its
+    limit."""
+    args = _apply3_case(n, cin, c, s, seed=23)
+    g3, a2, sc2, sh2, amat, bmat, v0, inv2, m2 = args
+    g2, sum_g2, sum_gx = tfb.bwd_apply3_reference(*args)
+    col = lambda v: v.reshape(1, -1, 1)
+    xhat = a2 * col(inv2) + col(-m2 * inv2)
+
+    def shares(products):
+        got = _apply3_tf32(g3, a2, sc2, sh2, amat, bmat, v0, products)
+        g2_share = float(((got - g2).abs() / (1e-4 + 1e-4 * g2.abs())).max())
+        sums = [(got.sum(dim=(0, 2)), sum_g2, g2.abs()),
+                ((got * xhat).sum(dim=(0, 2)), sum_gx, (g2 * xhat).abs())]
+        return g2_share, max(float(((s - w).abs() / (1e-5 * t.sum(
+            dim=(0, 2)))).max()) for s, w, t in sums)
+
+    g2_share, sums_share = shares(3)
+    assert g2_share <= 0.5 and sums_share <= 0.5
+    assert shares(1)[0] > 1
+
+
+@pytest.mark.parametrize("n,s,c,cin,bn,blocks", [
+    (128, 3136, 64, 256, 128, 3136),   # ResNet-50's three chain stages
+    (128, 784, 128, 512, 64, 1568),
+    (128, 196, 256, 1024, 64, 784),    # two 128-row tiles of C
+    (3, 49, 20, 150, 128, 2),          # tiles straddle images; K 170
+    (2, 36, 136, 72, 64, 4),           # two row tiles, the second mostly
+                                       # empty
+    (1, 1, 8, 16, 128, 1),
+])
+def test_bwd_apply3_grid_covers_n_s(n, s, c, cin, bn, blocks):
+    """bwd_apply3's tiles: 64 rows of C by 128 columns of N·S where C <=
+    64, else 128 by 64; T column tiles covering every position of every
+    image exactly once (a tile may hold the end of one image and the
+    start of the next; the last one past N·S), T the last dimension of
+    the part tensor [2, C, T]; the stacked [amat | bmat] padded to whole
+    row tiles and to K = Cin + C in whole 16-row stages."""
+    got_bn, t, rows, lda = tfb._bwd_apply3_grid(n, s, c, cin)
+    bm = 8192 // bn
+    assert got_bn == bn and bm == (64 if c <= 64 else 128)
+    assert (t - 1) * bn < n * s <= t * bn
+    assert rows % bm == 0 and rows - bm < c <= rows
+    assert rows // bm * t == blocks
+    assert lda % 16 == 0 and lda - 16 < cin + c <= lda
+    covered = [(k // s, k % s) for jt in range(t)
+               for k in range(jt * bn, min(n * s, jt * bn + bn))]
+    assert covered == [(i, p) for i in range(n) for p in range(s)]
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 def test_norm_relu_moments_plain_matches_pallas(interpret, shape):
     d = _case(*shape, seed=3)

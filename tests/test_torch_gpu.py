@@ -864,6 +864,42 @@ def test_bwd_final_kernels_take_shapes_the_chain_does_not(cuda, n, cin, c,
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+@pytest.mark.parametrize("n,cin,c,s,offset", [
+    (3, 150, 20, 49, 0),     # Cin % 16 != 0: a K stage straddles g3 and h2;
+                             # C % 8 != 0; S % 4 != 0: 4-byte copies, a
+                             # 128-column tile spanning three images
+    (2, 100, 44, 100, 1),    # 16-byte copies; amat a view 4 bytes off
+                             # 16-byte alignment
+    (2, 72, 136, 36, 0),     # C 136: two 128-row tiles, the second mostly
+                             # empty; 64-column tiles spanning two images
+    (1, 64, 96, 30, 3),      # S even but not a multiple of 4: 4-byte
+                             # copies at 128-row tiles
+])
+def test_bwd_apply3_kernel_takes_shapes_the_chain_does_not(cuda, n, cin, c,
+                                                          s, offset):
+    """bwd_apply3 alone at shapes the chain's gate never makes: g2 within
+    BWD_TOL of the plain version, Σg2 and Σg2·x̂2 within 1e-5 of their
+    terms' magnitudes, a second call bit-identical."""
+    gen = torch.Generator().manual_seed(n + cin + c + s)
+    g3, a2 = _randn(gen, n, cin, s), _randn(gen, n, c, s)
+    sc2, sh2 = 1 + 0.2 * _randn(gen, c), 0.1 * _randn(gen, c)
+    amat = (_randn(gen, c * cin + offset) * (2 / c) ** 0.5)[offset:].view(
+        c, cin)
+    assert amat.data_ptr() % 16 == 4 * offset % 16
+    bmat = _randn(gen, c, c) * 0.1 / c ** 0.5
+    v0, m2 = 0.1 * _randn(gen, c), 0.1 * _randn(gen, c)
+    inv2 = (1 + 0.2 * _randn(gen, c)).abs()
+    args = (g3, a2, sc2, sh2, amat, bmat, v0, inv2, m2)
+    got = fb.bwd_apply3(*args)
+    want = fb.bwd_apply3_reference(*args)
+    torch.testing.assert_close(got[0], want[0], **BWD_TOL)
+    terms = _bwd_terms("bwd_apply3", args, want)
+    _sums_close(got[1], want[1], terms[1])
+    _sums_close(got[2], want[2], terms[2])
+    again = fb.bwd_apply3(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 def test_chain_backward_wrappers_never_fall_back(cuda, monkeypatch):
     """With the four backward plain versions patched to raise, the
     chain's backward runs on the card through its kernels, one launch of
