@@ -105,7 +105,10 @@ the tensor cores, are bounded by that arithmetic (their float32 FMA
 bounds printed beside them), and their launches' device times print
 apart (bwd_mid: the fold of da2, the input gradient, the tap gradients,
 the fixed-order sums; bwd_final: dx with the fold of da1, dW1, the
-fixed-order sum of its splits).
+fixed-order sum of its splits). The flash forward, whose two products
+run in 3xTF32 on the tensor cores, is bounded by that arithmetic too
+(its float32 FMA bound printed beside it), and prints the largest shares
+of its limit for O and lse and its TF32 rate at each shape.
 
 cudnn.benchmark stays at its default (off); TF32 is off for products
 and convolutions.
@@ -258,9 +261,11 @@ def limit_share(torch, got, want, atol=KERNEL_ATOL,
 
 def check_flash(torch, F, fa, card):
     """Flash forward vs its plain version at H=8, D=256, causal, at each
-    of FLASH_SHAPES."""
+    of FLASH_SHAPES. Its two products run in 3xTF32 on the tensor cores:
+    its bound is that arithmetic's (three TF32 products of 4·D flops a
+    visible pair), printed beside the float32 FMA bound."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    row, errs = None, []
+    row, errs, shares = None, [], []
     for b, s in FLASH_SHAPES:
         q, k, v = (torch.randn(b, s, 8, 256, device="cuda", generator=gen)
                    for _ in range(3))
@@ -269,9 +274,13 @@ def check_flash(torch, F, fa, card):
         torch.cuda.synchronize()
         err = max(max_err(torch, o, ro), max_err(torch, lse, rlse))
         errs.append(err)
+        share = (limit_share(torch, o, ro), limit_share(torch, lse, rlse))
+        shares.append(share)
         pairs = b * s * (s + 1) // 2 * 8
         nbytes = 4 * b * (4 * s * 8 * 256 + 8 * s)
-        b_ms, b_by = bound_ms(nbytes, 4 * 256 * pairs)
+        flops = 4 * 256 * pairs
+        b_ms, b_by = bound_ms(nbytes, 3 * flops, TF32_FLOPS_PER_S)
+        f32_ms, f32_by = bound_ms(nbytes, flops)
         ms = cuda_ms(torch, lambda: fa.flash_attention_fwd(q, k, v,
                                                            causal=True), 20)
         plain = cuda_ms(torch, lambda: fa.flash_attention_fwd_reference(
@@ -280,13 +289,19 @@ def check_flash(torch, F, fa, card):
         lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True), 20)
         print(f"flash_attention_fwd B={b} S={s}: max_abs_err {err:.3e} (tol "
-              f"atol {KERNEL_ATOL} rtol {KERNEL_RTOL}), kernel {ms:.4f} ms, "
+              f"atol {KERNEL_ATOL} rtol {KERNEL_RTOL}; largest share of the "
+              f"limit O {share[0]:.4f}, lse {share[1]:.4f}), kernel "
+              f"{ms:.4f} ms ({3 * flops / ms / 1e9:.1f} TFLOP/s of TF32), "
               f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms "
-              f"({b_by}) [{card}]")
+              f"({b_by}) by 3xTF32 at {TF32_FLOPS_PER_S / 1e12:.0f} TFLOP/s, "
+              f"f32 FMA bound {f32_ms:.4f} ms ({f32_by}) [{card}]")
         if (b, s) == LINE_SHAPE:
             row = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                        library_ms=lib)
     row["max_abs_err"] = max(errs)
+    print(f"flash_attention_fwd: largest share of the 1e-5 limit over "
+          f"FLASH_SHAPES, O {max(x[0] for x in shares):.4f}, lse "
+          f"{max(x[1] for x in shares):.4f} [{card}]")
     return row
 
 

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.kernels import flash_attention as tfa
+from test_torch_fused_block import _pairs, _tf32
 
 # the package re-exports a function of the module's name
 jfa = importlib.import_module("paddle_tpu.kernels.flash_attention")
@@ -77,6 +78,103 @@ def test_flash_fwd_matches_jax_kernel_interpret(causal, sq, sk):
     np.testing.assert_allclose(o.numpy(), np.asarray(out), **TOL)
     np.testing.assert_allclose(tlse.numpy(), np.asarray(lse)[..., 0],
                                **TOL)
+
+
+# The kernel's k order within a k16 block: k8 step s takes elements
+# 4 t + 2 s and 4 t + 2 s + 1 of the block, t = 0 .. 3.
+_K16 = torch.tensor([0, 1, 4, 5, 8, 9, 12, 13, 2, 3, 6, 7, 10, 11, 14, 15])
+
+
+def _mm_tf32(a, b, products):
+    """a [.., M, K] · b [.., K, N] as the kernel's mma.sync products run
+    it: K's order permuted within each k16 block as the kernel reads it,
+    then over K in k8 steps, each step's products (each exact in float32)
+    summed into a fresh fragment, added into the accumulator in float32.
+    The sums inside a fragment round to nearest here, where the tensor
+    cores truncate."""
+    assert a.shape[-1] % 16 == 0
+    perm = (torch.arange(0, a.shape[-1], 16)[:, None] + _K16).reshape(-1)
+    a, b = a[..., perm], b[..., perm, :]
+    acc = torch.zeros(*a.shape[:-1], b.shape[-1])
+    for k0 in range(0, a.shape[-1], 8):
+        f = torch.zeros_like(acc)
+        for x, y in _pairs(a[..., k0:k0 + 8], b[..., k0:k0 + 8, :],
+                           products):
+            f = f + torch.matmul(x, y)
+        acc = acc + f
+    return acc
+
+
+def _flash_fwd_tf32(q, k, v, causal, products, block=64):
+    """csrc/flash_attention.cu's arithmetic on [B, S, H, D] inputs, but
+    for the tensor cores' truncating sums (see _mm_tf32): per
+    tile of 64 query rows, the key tiles of 64 up to the causal diagonal
+    (K and V zero-filled past sk, Q past sq), S = Q·Kᵀ in TF32 products
+    times the scale, -inf past sk and DEFAULT_MASK_VALUE past the
+    diagonal, the online softmax in float32, acc = alpha·acc + P·V in
+    TF32 products; O = acc / l_safe, lse = m + log(l_safe)."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = 1.0 / np.sqrt(d)
+    pad = lambda x, n: torch.nn.functional.pad(
+        x.permute(0, 2, 1, 3).reshape(b * h, x.shape[1], d),
+        (0, 0, 0, n - x.shape[1]))
+    nq, nk = -(-sq // block), -(-sk // block)
+    qp, kp, vp = pad(q, nq * block), pad(k, nk * block), pad(v, nk * block)
+    o = torch.zeros(b * h, nq * block, d)
+    lse = torch.zeros(b * h, nq * block)
+    for qt in range(nq):
+        q0 = qt * block
+        rows = torch.arange(q0, q0 + block)[:, None] + (sk - sq)
+        n_tiles = (min(sk - 1, q0 + block - 1 + sk - sq) // block + 1
+                   if causal else nk)
+        m = torch.full((b * h, block), -np.inf)
+        l = torch.zeros(b * h, block)
+        acc = torch.zeros(b * h, block, d)
+        for kt in range(n_tiles):
+            k0 = kt * block
+            kt_, vt_ = kp[:, k0:k0 + block], vp[:, k0:k0 + block]
+            s = _mm_tf32(qp[:, q0:q0 + block], kt_.transpose(1, 2),
+                         products) * scale
+            keys = torch.arange(k0, k0 + block)[None, :]
+            if causal:
+                s = torch.where(keys > rows, tfa.DEFAULT_MASK_VALUE, s)
+            s = torch.where(keys >= sk, -np.inf, s)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.where(s == -np.inf, 0.0, torch.exp(s - m_new[..., None]))
+            alpha = torch.where(m == -np.inf, 0.0, torch.exp(m - m_new))
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + _mm_tf32(p, vt_, products)
+            m = m_new
+        l_safe = torch.where(l == 0, 1.0, l)
+        o[:, q0:q0 + block] = acc / l_safe[..., None]
+        lse[:, q0:q0 + block] = m + torch.log(l_safe)
+    o = o[:, :sq].reshape(b, h, sq, d).permute(0, 2, 1, 3)
+    return o, lse[:, :sq]
+
+
+@pytest.mark.parametrize("sq,sk,d,causal", [
+    (256, 256, 256, True),    # a prefill bucket's shape, four query tiles
+    (100, 230, 64, True),     # sq < sk, an offset of 130: not whole tiles
+    (70, 150, 128, False),    # sk not a multiple of the tile
+])
+def test_3xtf32_holds_flash_fwd_to_its_limits(sq, sk, d, causal):
+    """The forward kernel's arithmetic, emulated (both products in
+    3xTF32 with a fresh fragment a k8 step, the online softmax over key
+    tiles of 64 with its masks), keeps O and lse within half the 1e-5
+    limit of the plain version; with one TF32 product O falls outside
+    the limit."""
+    q, k, v = _t(*_qkv(sq + sk + d, 1, sq, sk, 2, d))
+    want_o, want_lse = tfa.flash_attention_fwd_reference(q, k, v,
+                                                         causal=causal)
+
+    def share(got, want):
+        limit = TOL["atol"] + TOL["rtol"] * want.abs()
+        return float(((got - want).abs() / limit).max())
+    o, lse = _flash_fwd_tf32(q, k, v, causal, products=3)
+    assert share(o, want_o) <= 0.5 and share(lse, want_lse) <= 0.5
+    o1, _ = _flash_fwd_tf32(q, k, v, causal, products=1)
+    assert share(o1, want_o) > 1
 
 
 def _paged_inputs(seed, s, h, d, nb, bs, lens):

@@ -59,6 +59,9 @@ def _randn(gen, *shape):
     (2, 77, 77, 3, 64, True),        # ragged, one partial tile
     (1, 5, 300, 2, 128, True),       # sq < sk: bottom-right causal
     (2, 100, 33, 2, 256, False),     # sq > sk, not causal
+    (1, 100, 230, 2, 256, True),     # causal sq < sk, offset 130: not whole tiles
+    (2, 70, 150, 2, 64, False),      # sk % 64 != 0, not causal
+    (2, 70, 150, 2, 128, False),
 ])
 def test_flash_kernel_matches_plain(cuda, b, sq, sk, h, d, causal):
     gen = torch.Generator().manual_seed(sq * 7 + sk)
@@ -71,6 +74,19 @@ def test_flash_kernel_matches_plain(cuda, b, sq, sk, h, d, causal):
     torch.testing.assert_close(
         fa.dot_product_attention(q, k, v, causal=causal),
         fa.mha_reference(q, k, v, causal=causal), **TOL)
+
+
+def test_flash_kernel_at_the_training_shape_is_repeatable(cuda):
+    """B 8, S 1024, H 8, D 256, causal (an LM training step's shape): two
+    calls are bit-identical, and within TOL of the plain version."""
+    gen = torch.Generator().manual_seed(13)
+    q, k, v = (_randn(gen, 8, 1024, 8, 256) for _ in range(3))
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, causal=True)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    ro, rlse = fa.flash_attention_fwd_reference(q, k, v, causal=True)
+    torch.testing.assert_close(o, ro, **TOL)
+    torch.testing.assert_close(lse, rlse, **TOL)
 
 
 @pytest.mark.parametrize("b,sq,sk,h,d,causal", [
