@@ -108,7 +108,10 @@ the fixed-order sums; bwd_final: dx with the fold of da1, dW1, the
 fixed-order sum of its splits). The flash forward, whose two products
 run in 3xTF32 on the tensor cores, is bounded by that arithmetic too
 (its float32 FMA bound printed beside it), and prints the largest shares
-of its limit for O and lse and its TF32 rate at each shape.
+of its limit for O and lse and its TF32 rate at each shape; so does the
+flash backward's dQ kernel, whose three products run in 3xTF32 too (its
+largest share of the 1e-4 limit, its TF32 rate, its 3xTF32 bound with
+the float32 FMA bound beside it).
 
 cudnn.benchmark stays at its default (off); TF32 is off for products
 and convolutions.
@@ -309,9 +312,11 @@ def check_flash_bwd(torch, F, fa, card):
     """The two backward kernels vs their plain versions at H=8, D=256,
     causal, at each of FLASH_SHAPES, from the plain forward's O and lse;
     SDPA's backward (autograd through it, less its forward) as the
-    yardstick of the pair."""
+    yardstick of the pair. dQ's three products run in 3xTF32 on the
+    tensor cores: its bound is that arithmetic's (three TF32 products of
+    6·D flops a visible pair), printed beside the float32 FMA bound."""
     gen = torch.Generator(device="cuda").manual_seed(4)
-    rows, errs = {}, {"dq": [], "dkv": []}
+    rows, errs, shares = {}, {"dq": [], "dkv": []}, []
     for b, s in FLASH_SHAPES:
         q, k, v, do = (torch.randn(b, s, 8, 256, device="cuda",
                                    generator=gen) for _ in range(4))
@@ -324,13 +329,17 @@ def check_flash_bwd(torch, F, fa, card):
                                                       causal=True)
         torch.cuda.synchronize()
         errs["dq"].append(max_err(torch, dq, rq, BWD_ATOL, BWD_RTOL))
+        shares.append(limit_share(torch, dq, rq, BWD_ATOL, BWD_RTOL))
         errs["dkv"].append(max(max_err(torch, dk, rk, BWD_ATOL, BWD_RTOL),
                                max_err(torch, dv, rv, BWD_ATOL, BWD_RTOL)))
         pairs = b * s * (s + 1) // 2 * 8
         in_bytes = 4 * b * (4 * s * 8 * 256 + 2 * 8 * s)
         out = 4 * b * s * 8 * 256
-        bounds = {"dq": bound_ms(in_bytes + out, 6 * 256 * pairs),
+        dq_flops = 6 * 256 * pairs
+        bounds = {"dq": bound_ms(in_bytes + out, 3 * dq_flops,
+                                 TF32_FLOPS_PER_S),
                   "dkv": bound_ms(in_bytes + 2 * out, 8 * 256 * pairs)}
+        dq_f32 = bound_ms(in_bytes + out, dq_flops)
         pair = {"dq": (fa.flash_attention_bwd_dq,
                        fa.flash_attention_bwd_dq_reference),
                 "dkv": (fa.flash_attention_bwd_dkv,
@@ -350,15 +359,20 @@ def check_flash_bwd(torch, F, fa, card):
         lib = both - fwd
         total_bound = bound_ms(in_bytes + 3 * out, 14 * 256 * pairs)
         print(f"flash_attention_bwd B={b} S={s}: max_abs_err dq "
-              f"{errs['dq'][-1]:.3e}, dk/dv {errs['dkv'][-1]:.3e} (tol atol "
+              f"{errs['dq'][-1]:.3e} (largest share of the limit "
+              f"{shares[-1]:.4f}), dk/dv {errs['dkv'][-1]:.3e} (tol atol "
               f"{BWD_ATOL} rtol {BWD_RTOL}); dq kernel {ms['dq']:.4f} ms "
-              f"(plain {plain['dq']:.4f}, bound {bounds['dq'][0]:.4f} "
-              f"{bounds['dq'][1]}), dk/dv kernel {ms['dkv']:.4f} ms (plain "
-              f"{plain['dkv']:.4f}, bound {bounds['dkv'][0]:.4f} "
+              f"({3 * dq_flops / ms['dq'] / 1e9:.1f} TFLOP/s of TF32; plain "
+              f"{plain['dq']:.4f}, bound {bounds['dq'][0]:.4f} "
+              f"{bounds['dq'][1]} by 3xTF32 at "
+              f"{TF32_FLOPS_PER_S / 1e12:.0f} TFLOP/s, f32 FMA bound "
+              f"{dq_f32[0]:.4f} {dq_f32[1]}), dk/dv kernel {ms['dkv']:.4f} "
+              f"ms (plain {plain['dkv']:.4f}, bound {bounds['dkv'][0]:.4f} "
               f"{bounds['dkv'][1]}); both {ms['dq'] + ms['dkv']:.4f} ms vs "
-              f"bound {total_bound[0]:.4f} ms ({14 * 256 * pairs / 1e9:.2f} "
-              f"GFLOP) and sdpa backward {lib:.4f} ms (sdpa fwd+bwd "
-              f"{both:.4f}, fwd {fwd:.4f}) [{card}]")
+              f"f32 FMA bound {total_bound[0]:.4f} ms "
+              f"({14 * 256 * pairs / 1e9:.2f} GFLOP) and sdpa backward "
+              f"{lib:.4f} ms (sdpa fwd+bwd {both:.4f}, fwd {fwd:.4f}) "
+              f"[{card}]")
         if (b, s) == LINE_SHAPE:
             for part in ("dq", "dkv"):
                 rows[part] = dict(ms=ms[part], plain_ms=plain[part],
@@ -366,6 +380,8 @@ def check_flash_bwd(torch, F, fa, card):
                                   bound_by=bounds[part][1], library_ms=lib)
     for part in ("dq", "dkv"):
         rows[part]["max_abs_err"] = max(errs[part])
+    print(f"flash_attention_bwd_dq: largest share of the 1e-4 limit over "
+          f"FLASH_SHAPES {max(shares):.4f} [{card}]")
     return rows["dq"], rows["dkv"]
 
 

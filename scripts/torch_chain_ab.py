@@ -41,7 +41,12 @@ from paddle_tpu_torch.kernels import fused_block as fb  # noqa: E402
 SOURCES = ("fused_block.cu", "fused_block_bwd.cu")
 FORWARD = chip_smoke.CHAIN_KERNELS
 KERNELS = FORWARD + ("bwd_reduce3", "bwd_mid", "bwd_final")
-ANON = re.compile(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+")
+# the anonymous namespace's name: a hash, the file name's length and the
+# file name, another hash (8 hex digits each, so that the next name's
+# length, in decimal, is left alone)
+ANON = re.compile(r"_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}")
+# branch labels, numbered across the library's functions
+LABEL = re.compile(r"\.L_x_\d+")
 
 
 def parent_libraries(parent: Path, out: Path) -> dict:
@@ -64,7 +69,8 @@ def parent_libraries(parent: Path, out: Path) -> dict:
 
 def sass(lib: Path) -> dict:
     """{function name: its SASS}, the anonymous namespace's name
-    replaced in both."""
+    replaced in both, runs of blanks made one, and each function's branch
+    labels numbered anew in the order they appear."""
     tool = shutil.which("cuobjdump") or str(
         Path(build.nvcc_path()).parent / "cuobjdump")
     text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
@@ -75,8 +81,13 @@ def sass(lib: Path) -> dict:
         if m:
             name = m.group(1)
             funcs[name] = []
-        elif name is not None:
-            funcs[name].append(line.strip())
+        elif name is not None:   # the columns' padding follows the file
+            funcs[name].append(" ".join(line.split()))
+    for lines in funcs.values():
+        labels = {}
+        for i, line in enumerate(lines):
+            lines[i] = LABEL.sub(lambda m: labels.setdefault(
+                m.group(0), f".L_{len(labels)}"), line)
     return {k: "\n".join(v) for k, v in funcs.items()}
 
 

@@ -14,7 +14,9 @@ from copies of the source:
   shared memory and P·V reads them as they are);
 
 and, with ``--parent DIR``, the kernel of another tree (DIR holds its
-``paddle_tpu_torch/csrc``), e.g. the parent unpacked by ``git archive``.
+``paddle_tpu_torch/csrc``), e.g. the parent unpacked by ``git archive``:
+its SASS against this tree's, function by function, its O and lse
+against this tree's, bit for bit, and its time in turns.
 At each of chip_smoke.py's FLASH_SHAPES (H 8, D 256, causal) every build
 is timed with CUDA events, in turns (the list, then the list reversed),
 and the kernel reports its TF32 rate: three TF32 products of 4·D flops
@@ -45,6 +47,7 @@ sys.path.insert(0, str(ROOT / "scripts"))
 
 from paddle_tpu_torch.kernels import build  # noqa: E402
 from paddle_tpu_torch.kernels import flash_attention as fa  # noqa: E402
+import torch_chain_ab as ab  # noqa: E402
 import torch_conv3x3_probe as c3  # noqa: E402
 
 SHAPES = ((1, 128), (1, 1024), (1, 333), (8, 1024))   # (batch, sequence)
@@ -72,23 +75,32 @@ VARIANTS = {"kernel": (), "no copies": NO_COPY, "no mma": NO_MMA,
 P, I, FL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def compile_variants(out_dir: Path, parent) -> dict:
+def compile_variants(out_dir: Path, parent, source=SOURCE,
+                     variants=VARIANTS, symbol="flash_attention_fwd_f32",
+                     argtypes=(P,) * 5 + (I,) * 5 + (FL, I, P)):
+    """{name: (entry point, library path)} of each variant of `source`:
+    the source and every header of its csrc, each substitution made in
+    the file that holds it, built in parallel; with `parent`, that tree's
+    source and headers as they are."""
     out_dir.mkdir(parents=True, exist_ok=True)
-    sources = {name: (build.CSRC, subs) for name, subs in VARIANTS.items()}
+    sources = {name: (build.CSRC, subs) for name, subs in variants.items()}
     if parent is not None:
         sources["parent"] = (Path(parent) / "paddle_tpu_torch" / "csrc", ())
     jobs = {}
     for i, (name, (csrc, subs)) in enumerate(sources.items()):
         vdir = out_dir / f"v{i}"
         vdir.mkdir(exist_ok=True)
-        (vdir / "common.cuh").write_text((csrc / "common.cuh").read_text())
-        text = (csrc / SOURCE).read_text()
+        files = {f.name: f.read_text() for f in sorted(csrc.glob("*.cuh"))}
+        files[source] = (csrc / source).read_text()
         for old, new in subs:
-            if old not in text:
-                raise RuntimeError(f"{name}: {SOURCE} no longer has {old!r}")
-            text = text.replace(old, new)
-        unit, lib = vdir / SOURCE, vdir / "probe.so"
-        unit.write_text(text)
+            hits = [f for f, text in files.items() if old in text]
+            if not hits:
+                raise RuntimeError(f"{name}: no file has {old!r}")
+            for f in hits:
+                files[f] = files[f].replace(old, new)
+        for f, text in files.items():
+            (vdir / f).write_text(text)
+        unit, lib = vdir / source, vdir / "probe.so"
         jobs[name] = (lib, subprocess.Popen(
             [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib), str(unit)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -101,11 +113,26 @@ def compile_variants(out_dir: Path, parent) -> dict:
             for line in log.splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}")
-        f = ctypes.CDLL(str(lib)).flash_attention_fwd_f32
-        f.argtypes = [P] * 5 + [I] * 5 + [FL, I, P]
+        f = getattr(ctypes.CDLL(str(lib)), symbol)
+        f.argtypes = list(argtypes)
         f.restype = ctypes.c_int
-        fns[name] = f
+        fns[name] = (f, lib)
     return fns
+
+
+def same_sass(libs, kernel: str) -> str:
+    """How many of the functions whose names hold `kernel` have the same
+    SASS in two libraries, function by function."""
+    a, b = (ab.sass(lib) for lib in libs)
+    names = sorted(k for k in set(a) | set(b) if kernel in k)
+    same = [k for k in names if a.get(k) == b.get(k)]
+    notes = []
+    for k in sorted(set(names) - set(same)):
+        pairs = zip(a.get(k, "").splitlines(), b.get(k, "").splitlines())
+        first = next((x for x in pairs if x[0] != x[1]), None)
+        notes.append(f"\n  {k} differs first at {first}")
+    return (f"SASS of {kernel} identical in {len(same)} of {len(names)}"
+            + "".join(notes))
 
 
 def exact(q, k, v):
@@ -147,7 +174,12 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
-    fns = compile_variants(build.BUILD_DIR / "flash_fwd_probe", args.parent)
+    built = compile_variants(build.BUILD_DIR / "flash_fwd_probe", args.parent)
+    fns = {name: fn for name, (fn, _) in built.items()}
+    if "parent" in built:
+        print(same_sass((built["parent"][1], built["kernel"][1]),
+                        "flash_fwd_tc_kernel"), "(this tree against the "
+              "parent's)")
     gen = torch.Generator(device="cuda").manual_seed(1)
     stream = torch.cuda.current_stream().cuda_stream
     for b, s in SHAPES:
@@ -171,6 +203,16 @@ def main() -> int:
         out = torch.empty_like(q)
         lout = torch.empty(b * H, s, device="cuda")
         ptrs = [x.data_ptr() for x in (q, k, v, out, lout)]
+        if "parent" in fns:
+            for name in ("kernel", "parent"):
+                err = fns[name](*ptrs, b, H, s, s, D, D ** -0.5, 1, stream)
+                assert err == 0, (name, err)
+                if name == "kernel":
+                    mine = (out.clone(), lout.clone())
+            torch.cuda.synchronize()
+            parent_same = bool(torch.equal(out, mine[0])
+                               and torch.equal(lout, mine[1]))
+            del mine
         times = {name: [] for name in fns}
         for order in (list(fns), list(fns)[::-1]):
             for name in order:
@@ -193,7 +235,10 @@ def main() -> int:
               f" TFLOP/s of TF32 ({tf32 / 1e9:.2f} GFLOP, bound "
               f"{1e3 * tf32 / TF32_FLOPS_PER_S:.4f} ms); largest share of the "
               f"1e-5 limit: O {limit[0]:.4f}, lse {limit[1]:.4f}; two calls "
-              f"bit-identical {repeat}; against float64: kernel O "
+              f"bit-identical {repeat}"
+              + (f"; the parent's O and lse bit-identical {parent_same}"
+                 if "parent" in fns else "")
+              + f"; against float64: kernel O "
               f"{f64['kernel'][0]:.4f} lse {f64['kernel'][1]:.4f}, plain O "
               f"{f64['plain'][0]:.4f} lse {f64['plain'][1]:.4f} [{card}]",
               flush=True)

@@ -85,17 +85,18 @@ def test_flash_fwd_matches_jax_kernel_interpret(causal, sq, sk):
 _K16 = torch.tensor([0, 1, 4, 5, 8, 9, 12, 13, 2, 3, 6, 7, 10, 11, 14, 15])
 
 
-def _mm_tf32(a, b, products):
-    """a [.., M, K] · b [.., K, N] as the kernel's mma.sync products run
-    it: K's order permuted within each k16 block as the kernel reads it,
-    then over K in k8 steps, each step's products (each exact in float32)
-    summed into a fresh fragment, added into the accumulator in float32.
-    The sums inside a fragment round to nearest here, where the tensor
-    cores truncate."""
+def _mm_tf32(a, b, products, acc=None):
+    """acc (zeros by default) + a [.., M, K] · b [.., K, N] as the
+    kernels' mma.sync products run it: K's order permuted within each k16
+    block as the kernels read it, then over K in k8 steps, each step's
+    products (each exact in float32) summed into a fresh fragment, added
+    into the accumulator in float32. The sums inside a fragment round to
+    nearest here, where the tensor cores truncate."""
     assert a.shape[-1] % 16 == 0
     perm = (torch.arange(0, a.shape[-1], 16)[:, None] + _K16).reshape(-1)
     a, b = a[..., perm], b[..., perm, :]
-    acc = torch.zeros(*a.shape[:-1], b.shape[-1])
+    if acc is None:
+        acc = torch.zeros(*a.shape[:-1], b.shape[-1])
     for k0 in range(0, a.shape[-1], 8):
         f = torch.zeros_like(acc)
         for x, y in _pairs(a[..., k0:k0 + 8], b[..., k0:k0 + 8, :],

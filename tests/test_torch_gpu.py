@@ -95,6 +95,8 @@ def test_flash_kernel_at_the_training_shape_is_repeatable(cuda):
     (2, 77, 77, 3, 64, True),        # ragged, partial tiles
     (1, 5, 300, 2, 128, True),       # sq < sk: bottom-right causal
     (2, 100, 33, 2, 256, False),     # sq > sk, not causal
+    (1, 100, 230, 2, 64, True),      # causal sq < sk, offset 130: not whole tiles
+    (2, 70, 150, 2, 128, False),     # sk % 32 != 0, not causal
 ])
 def test_flash_backward_kernels_match_plain(cuda, b, sq, sk, h, d, causal):
     gen = torch.Generator().manual_seed(sq * 5 + sk)
@@ -109,6 +111,22 @@ def test_flash_backward_kernels_match_plain(cuda, b, sq, sk, h, d, causal):
                                             causal=causal)
     for got, ref in zip((dq, dk, dv), want):
         torch.testing.assert_close(got, ref, **BWD_TOL)
+
+
+def test_flash_dq_kernel_at_the_training_shape_is_repeatable(cuda):
+    """B 8, S 1024, H 8, D 256, causal (an LM training step's shape): two
+    calls of the dQ kernel are bit-identical, and within BWD_TOL of the
+    plain version."""
+    gen = torch.Generator().manual_seed(14)
+    q, k, v, do = (_randn(gen, 8, 1024, 8, 256) for _ in range(4))
+    o, lse = fa.flash_attention_fwd_reference(q, k, v, causal=True)
+    delta = fa.flash_attention_bwd_delta(o, do)
+    args = (q, k, v, do, lse, delta)
+    dq = fa.flash_attention_bwd_dq(*args, causal=True)
+    assert torch.equal(dq, fa.flash_attention_bwd_dq(*args, causal=True))
+    torch.testing.assert_close(
+        dq, fa.flash_attention_bwd_dq_reference(*args, causal=True),
+        **BWD_TOL)
 
 
 def test_flash_autograd_on_the_card_matches_plain_autograd(cuda):
