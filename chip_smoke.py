@@ -92,10 +92,11 @@ plain versions at ResNet-50's three chain stages at batch 128 (Cin, C,
 H = 256, 64, 56 / 512, 128, 28 / 1024, 256, 14), each timed beside its
 plain version, its bound and a PyTorch yardstick (F.conv2d of the same
 product, product only, for the three convolutions; torch.bmm of h·hᵀ
-and the sum for the moments); the 3x3, whose product runs in 3xTF32 on
-the tensor cores, is bounded by that arithmetic (its float32 FMA bound
-printed beside it) and prints the largest share of its elementwise
-limit; then the chain's four backward kernels at
+and the sum for the moments); the 3x3 and the last 1x1
+(conv1x1_bn_residual), whose products run in 3xTF32 on the tensor
+cores, are bounded by that arithmetic (their float32 FMA bounds printed
+beside them) and print the largest shares of their elementwise limits;
+then the chain's four backward kernels at
 the same stages, on the inputs the chain makes (the forward, a random
 cotangent, each kernel fed by its plain predecessors), each timed
 beside its plain version, its bound and the same products on
@@ -480,6 +481,11 @@ def kernel_class(name: str) -> str:
     if "conv3x3_kernel<" in n:
         return ("bwd_mid" if "bwd_mid::" in n else "conv3x3_norm_stats") + \
             " (port kernel)"
+    # one tensor-core 1x1 kernel, two instances: conv1x1_bn_residual's,
+    # and bwd_final's dx (its policy lives in namespace bwd_final)
+    if "conv1x1_tc_kernel<" in n:
+        return ("bwd_final" if "bwd_final::" in n
+                else "conv1x1_bn_residual") + " (port kernel)"
     # the LSTM's names first: lstm_bwd_final_kernel holds "bwd_final_"
     if "lstm_fwd_step_kernel" in n:
         return "lstm_seq_fwd (port kernel)"
@@ -1530,7 +1536,7 @@ def check_chain(torch, F, fb, card):
     gen = torch.Generator(device="cuda").manual_seed(7)
     n = RESNET["batch"]
     rows, errs = {}, {k: [] for k in CHAIN_KERNELS}
-    share3 = []
+    share3, share_res = [], []
     for cin, c, h in CHAIN_SHAPES:
         s, m = h * h, n * h * h
         d = chain_case(torch, n, cin, c, h, gen)
@@ -1574,16 +1580,20 @@ def check_chain(torch, F, fb, card):
         rout = fb.conv1x1_bn_residual_reference(*res_args)
         torch.cuda.synchronize()
         errs["conv1x1_bn_residual"].append(max_err(torch, out, rout))
+        share_res.append(limit_share(torch, out, rout))
         del out, rout
         # bounds: each input read once, each output written once; the
         # products (M2 is symmetric: C(C+1)/2 products a column), the
         # loaders' normalize (3 a value), the statistics (3 a value) and
-        # the residual's epilogue (4 a value). The 3x3 runs its product as
-        # three TF32 products on the tensor cores: its bound is that
-        # arithmetic's, printed beside the float32 FMA bound
+        # the residual's epilogue (4 a value). The 3x3 and the last 1x1 run
+        # their products as three TF32 products on the tensor cores: their
+        # bounds are that arithmetic's, printed beside the float32 FMA
+        # bounds
         ea, ex = n * c * s, n * cin * s
         bytes3 = 4 * (2 * ea + 9 * c * c + 4 * c)
         f32_bound3 = bound_ms(bytes3, 18 * c * c * m + 6 * ea)
+        bytes_res = 4 * (ea + 2 * ex + cin * c + 2 * c + 2 * cin)
+        f32_bound_res = bound_ms(bytes_res, 2 * cin * c * m + 3 * ea + 4 * ex)
         bounds = {
             "conv1x1_stats": bound_ms(4 * (ex + c * cin + ea + 2 * c),
                                       2 * c * cin * m + 3 * ea),
@@ -1591,9 +1601,8 @@ def check_chain(torch, F, fb, card):
                                            TF32_FLOPS_PER_S),
             "norm_relu_moments": bound_ms(4 * (ea + 2 * c + c * (c + 1)),
                                           c * (c + 1) * m + 4 * ea),
-            "conv1x1_bn_residual": bound_ms(
-                4 * (ea + 2 * ex + cin * c + 2 * c + 2 * cin),
-                2 * cin * c * m + 3 * ea + 4 * ex)}
+            "conv1x1_bn_residual": bound_ms(bytes_res, 3 * 2 * cin * c * m,
+                                            TF32_FLOPS_PER_S)}
         calls = {
             "conv1x1_stats": (lambda: fb.conv1x1_stats(x, w1),
                               lambda: fb.conv1x1_stats_reference(x, w1)),
@@ -1626,7 +1635,11 @@ def check_chain(torch, F, fb, card):
         notes = {"conv3x3_norm_stats": (
             f" by 3xTF32 at {TF32_FLOPS_PER_S / 1e12:.0f} TFLOP/s, f32 FMA "
             f"bound {f32_bound3[0]:.4f} {f32_bound3[1]}, largest share of "
-            f"its limit {share3[-1]:.4f}")}
+            f"its limit {share3[-1]:.4f}"),
+                 "conv1x1_bn_residual": (
+            f" by 3xTF32 at {TF32_FLOPS_PER_S / 1e12:.0f} TFLOP/s, f32 FMA "
+            f"bound {f32_bound_res[0]:.4f} {f32_bound_res[1]}, largest share "
+            f"of its limit {share_res[-1]:.4f}")}
         print(f"bottleneck chain stage Cin {cin}, C {c}, {h}x{h}, batch {n}: "
               + "; ".join(
                   f"{k} {ms[k]:.4f} ms (plain {plain[k]:.4f}, "
@@ -1654,10 +1667,12 @@ def check_chain(torch, F, fb, card):
         del d, x, ra1, ra2, h1, h2, res_args, calls
     for k in rows:
         rows[k]["max_abs_err"] = max(errs[k])
-    print(f"conv3x3_norm_stats: largest share of its elementwise limit "
-          f"|kernel - plain| / (atol + rtol·|plain|) over the three stages "
-          f"{max(share3):.4f} (atol {KERNEL_ATOL}, rtol {KERNEL_RTOL}) "
-          f"[{card}]")
+    for k, shares in (("conv3x3_norm_stats", share3),
+                      ("conv1x1_bn_residual", share_res)):
+        print(f"{k}: largest share of its elementwise limit |kernel - "
+              f"plain| / (atol + rtol·|plain|) over the three stages "
+              f"{max(shares):.4f} (atol {KERNEL_ATOL}, rtol {KERNEL_RTOL}) "
+              f"[{card}]")
     return rows
 
 
@@ -2277,7 +2292,7 @@ def main() -> int:
                                    "paddle_tpu/kernels/fused_block.py:653"),
             "norm_relu_moments": ("paddle_tpu_torch/csrc/fused_block.cu",
                                   "paddle_tpu/kernels/fused_block.py:714"),
-            "conv1x1_bn_residual": ("paddle_tpu_torch/csrc/fused_block.cu",
+            "conv1x1_bn_residual": ("paddle_tpu_torch/csrc/conv1x1_tc.cuh",
                                     "paddle_tpu/kernels/fused_block.py:756"),
             "bwd_reduce3": ("paddle_tpu_torch/csrc/bwd_reduce3.cuh",
                             "paddle_tpu/kernels/fused_block.py:192"),

@@ -1,6 +1,7 @@
 // bwd_final for Hopper (sm_90a): the first 1x1's input gradient dx and its
 // weight gradient dW1, both on tensor cores in 3xTF32, da1 folded once.
-// Included by fused_block_bwd.cu only.
+// Included by fused_block_bwd.cu only; dx runs the kernel of
+// conv1x1_tc.cuh, which conv1x1_bn_residual shares.
 //
 // Replaces the Pallas body _b3_kernel of bwd_final in
 // paddle_tpu/kernels/fused_block.py:436-458 (pallas_call at :466). For g3,
@@ -21,16 +22,17 @@
 // two sources, 4C + 3Cin floats a position at least.
 //
 // The design, two launches and the fixed-order pass of the splits:
-//   - dx, da1 folded once. A block owns 64 consecutive columns j = n * S +
-//     p of N * S (a run may hold the end of one image and the start of the
-//     next) and all of Cin. It reads g1 and a1 there once, folds da1 into a
-//     [C][64] tile in shared memory and writes it once into an [N, C, S]
-//     scratch for dW1 (C written and C read back: the bytes of folding
-//     again in dW1, which would then need two sources a value). Then it
-//     walks Cin in chunks of 128 rows: W1's rows, 16 channels x 128 a
-//     stage, come through a ring of 3 stages of 16-byte cp.async (W1 is
-//     64 KB-1 MB and stays in L2); the product with K = C runs on the tile;
-//     the epilogue adds g3 and writes dx. The SIMT kernels built each da1
+//   - dx, da1 folded once: conv1x1_tc.cuh's kernel with the Use Dx
+//     below. A block owns 64 consecutive columns j = n * S + p of N * S
+//     (a run may hold the end of one image and the start of the next) and
+//     all of Cin. It reads g1 and a1 there once, folds da1 into a [C][72]
+//     tile in shared memory and writes it once into an [N, C, S] scratch
+//     for dW1 (C written and C read back: the bytes of folding again in
+//     dW1, which would then need two sources a value). Then it walks Cin
+//     in chunks of 128 rows: W1's rows, 16 channels x 128 a stage, come
+//     through a ring of 3 stages of 16-byte cp.async (W1 is 64 KB-1 MB
+//     and stays in L2); the product with K = C runs on the tile; the
+//     epilogue adds g3 and writes dx. The SIMT kernels built each da1
 //     value once for each 128 rows of Cin and again for each tile of dW1.
 //   - dW1, a split-K product over K = the positions: bwd_mid's tap-gradient
 //     product with one tap and no halo. A block owns 64 rows of C, 128 of
@@ -43,15 +45,16 @@
 //     ring of 3. The wrapper's _bwd_final_grid sizes the splits so that
 //     tiles x splits fill whole waves of two blocks an SM.
 //   - The products: mma.sync.aligned.m16n8k8.row.col in 3xTF32 with
-//     conv3x3_tc.cuh's split, mma0 and mma; each k8 step's three products
-//     of a tile go into a fresh fragment, added in float32 (the tensor
-//     cores truncate as they accumulate). dx: A[ci][c] = W1[c][ci] and
-//     B[c][j] = da1[c][j], both staged channel-major at a pitch of 8 mod
-//     32 floats; dW1: A[c][j] = da1 and B[j][ci] = x staged [row][position]
-//     at a pitch of 36 (4 mod 32), as bwd_mid's tap gradients. Either way a
-//     fragment's 8 rows x 4 k (or 4 k x 8 columns) fall on 32 banks. 8
-//     warps as 4 x 2 (dx) or 2 x 4 (dW1), each 32 x 32. Zero-filled rows
-//     past C and Cin and columns past N * S take any shape.
+//     conv3x3_tc.cuh's split, mma0 and mma (dx's in conv1x1_tc.cuh);
+//     each k8 step's three products of a tile go into a fresh fragment,
+//     added in float32 (the tensor cores truncate as they accumulate).
+//     dx: A[ci][c] = W1[c][ci] and B[c][j] = da1[c][j], both staged
+//     channel-major at a pitch of 8 mod 32 floats; dW1: A[c][j] = da1 and
+//     B[j][ci] = x staged [row][position] at a pitch of 36 (4 mod 32), as
+//     bwd_mid's tap gradients. Either way a fragment's 8 rows x 4 k (or 4
+//     k x 8 columns) fall on 32 banks. 8 warps as 4 x 2 (dx) or 2 x 4
+//     (dW1), each 32 x 32. Zero-filled rows past C and Cin and columns
+//     past N * S take any shape.
 //   - Sums: each split writes its partial dW1 into part [splits, C, Cin];
 //     finish_splits adds them in split order. No atomics: two calls are
 //     bit-identical.
@@ -69,6 +72,7 @@
 #include <climits>
 #include <cstdint>
 
+#include "conv1x1_tc.cuh"
 #include "conv3x3_tc.cuh"
 #include "fused_block.cuh"
 
@@ -87,22 +91,11 @@ constexpr int kRing = 3;                 // stages in a ring
 
 // ---- dx --------------------------------------------------------------------
 
-constexpr int kXP = 64;                  // columns of N * S a block
-constexpr int kXDP = kXP + 8;            // the da1 tile's pitch: 8 mod 32
-constexpr int kXM = 128;                 // rows of Cin a chunk
-constexpr int kXK = 16;                  // channels of W1 a stage
-constexpr int kXAP = kXM + 8;            // a W1 stage's pitch: 8 mod 32
-constexpr int kXStage = kXK * kXAP;
+using conv1x1::aligned16;
+using conv1x1::kDP;
+using conv1x1::kP;
 
-// C rounded up to whole W1 stages: the da1 tile's rows.
-__host__ __device__ inline int padded_c(int C) {
-  return (C + kXK - 1) / kXK * kXK;
-}
-inline int dx_smem(int C) {
-  return (padded_c(C) * kXDP + kRing * kXStage) * (int)sizeof(float);
-}
-
-// da1 at columns j0 .. j0 + 63 into the tile d [Cp][kXDP] (0 past C and
+// da1 at columns j0 .. j0 + 63 into the tile d [Cp][kDP] (0 past C and
 // past N * S) and into da1 [N, C, S]. WIDE: 16 bytes a thread, column
 // group tid % 16 of rows tid / 16 + 16 k; else 4 bytes, column tid % 64 of
 // rows tid / 64 + 4 k.
@@ -114,7 +107,7 @@ __device__ __forceinline__ void fold(float* d, const float* __restrict__ g1,
                                      const float* __restrict__ r,
                                      float* __restrict__ da1, int C, int Cp,
                                      int S, int NS, int j0) {
-  constexpr int kCols = WIDE ? 4 : 1, kLanes = kXP / kCols;
+  constexpr int kCols = WIDE ? 4 : 1, kLanes = kP / kCols;
   constexpr int kRows = kThreads / kLanes;
   const int lane = threadIdx.x % kLanes, row = threadIdx.x / kLanes;
   const int j = j0 + kCols * lane;
@@ -144,137 +137,41 @@ __device__ __forceinline__ void fold(float* d, const float* __restrict__ g1,
       }
     }
     if constexpr (WIDE)
-      *reinterpret_cast<float4*>(d + c * kXDP + 4 * lane) =
+      *reinterpret_cast<float4*>(d + c * kDP + 4 * lane) =
           make_float4(v[0], v[1], v[2], v[3]);
     else
-      d[c * kXDP + lane] = v[0];
+      d[c * kDP + lane] = v[0];
   }
 }
 
-// Stage s of the W1 stream into st [kXK][kXAP]: chunk s / slices (rows
-// 128 (s / slices) .. + 127 of Cin), channels 16 (s % slices) .. + 15.
-// Thread: 16 bytes at column 4 (tid % 32) of rows tid / 32 and tid / 32 +
-// 8; zero-filled past C and past ldw, W1's row pitch (a multiple of 4,
-// zeros past Cin).
-__device__ __forceinline__ void copy_w1(float* st, int s, int slices,
-                                        const float* __restrict__ w1, int C,
-                                        int ldw) {
-  const int ci = (s / slices) * kXM + 4 * (threadIdx.x & 31);
-  const int c0 = (s % slices) * kXK, row = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < kXK / 8; ++k) {
-    const int c = c0 + row + 8 * k;
-    const bool ok = c < C && ci < ldw;
-    copy16(st + (row + 8 * k) * kXAP + 4 * (threadIdx.x & 31),
-           w1 + (ok ? c * ldw + ci : 0), ok);
+// The Use of dx in conv1x1_tc.cuh's kernel: in0 = g1, in1 = a1, in2..in4
+// = p1, q1, r1, aux = da1 (the tile, folded once, also written there for
+// dW1), add = g3; M = Cin.
+struct Dx {
+  static constexpr bool kSplit = false;
+  struct Early {};
+
+  template <bool WIDE>
+  __device__ static __forceinline__ void tile(
+      float* d, const float* __restrict__ g1, const float* __restrict__ a1,
+      const float* __restrict__ p, const float* __restrict__ q,
+      const float* __restrict__ r, float* __restrict__ da1, int C, int Cp,
+      int S, int NS, int j0) {
+    fold<WIDE>(d, g1, a1, p, q, r, da1, C, Cp, S, NS, j0);
   }
-}
 
-// acc += the products of one W1 stage w (channels c0 .. c0 + 15; d the
-// da1 tile from row c0 on) in 3xTF32. Warp (wm, wn) owns rows 32 wm + 16 i
-// + {g, g + 8} of the chunk and columns 32 wn + 8 j + {2 t, 2 t + 1}.
-// A[ci][k] = w[k][ci], B[k][col] = d[k][col].
-__device__ __forceinline__ void dx_product(float (&acc)[2][4][4],
-                                           const float* w, const float* d,
-                                           int wm, int wn, int g, int t) {
-  const float* wa = w + t * kXAP + 32 * wm + g;
-  const float* db = d + t * kXDP + 32 * wn + g;
-#pragma unroll
-  for (int k = 0; k < kXK; k += 8) {
-    uint32_t ab[2][4], as[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float* a = wa + k * kXAP + 16 * i;
-      split(a[0], ab[i][0], as[i][0]);
-      split(a[8], ab[i][1], as[i][1]);
-      split(a[4 * kXAP], ab[i][2], as[i][2]);
-      split(a[4 * kXAP + 8], ab[i][3], as[i][3]);
-    }
-#pragma unroll
-    for (int j0 = 0; j0 < 4; j0 += 2) {
-      uint32_t bb[2][2], bs[2][2];
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const float* b = db + k * kXDP + 8 * (j0 + jj);
-        split(b[0], bb[jj][0], bs[jj][0]);
-        split(b[4 * kXDP], bb[jj][1], bs[jj][1]);
-      }
-      float f[2][2][4];
-      // one pass a term, the small ones first
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj)
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          mma0(f[jj][i], as[i], bb[jj][0], bb[jj][1]);
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj)
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          mma(f[jj][i], ab[i], bs[jj][0], bs[jj][1]);
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mma(f[jj][i], ab[i], bb[jj][0], bb[jj][1]);
-#pragma unroll
-          for (int r = 0; r < 4; ++r) acc[i][j0 + jj][r] += f[jj][i][r];
-        }
-    }
-  }
-}
+  template <bool WIDE>
+  __device__ static __forceinline__ void fetch(Early&, const int (&)[4][2],
+                                               const float* __restrict__, int,
+                                               int, int) {}
 
-// Block (64 columns of N * S from 64 blockIdx.x): dx there, for all of
-// Cin; da1 there into the scratch da1.
-template <bool WIDE>
-__global__ void __launch_bounds__(kThreads, 2)
-bwd_final_dx_kernel(const float* __restrict__ g3, const float* __restrict__ g1,
-                    const float* __restrict__ a1, const float* __restrict__ p1,
-                    const float* __restrict__ q1, const float* __restrict__ r1,
-                    const float* __restrict__ w1, float* __restrict__ dx,
-                    float* __restrict__ da1, int Cin, int C, int S, int NS,
-                    int ldw) {
-  extern __shared__ __align__(16) float smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1, g = lane >> 2, t = lane & 3;
-  const int Cp = padded_c(C), slices = Cp / kXK;
-  const int stages = (Cin + kXM - 1) / kXM * slices;
-  const int j0 = blockIdx.x * kXP;
-  float* d = smem;
-  float* ring = smem + Cp * kXDP;
-  auto buffer = [&](int s) { return ring + (s % kRing) * kXStage; };
-
-  copy_w1(buffer(0), 0, slices, w1, C, ldw);   // lands during the fold
-  commit();
-  fold<WIDE>(d, g1, a1, p1, q1, r1, da1, C, Cp, S, NS, j0);
-
-  // the offsets n * Cin * S + p of this thread's columns, -1 past N * S
-  int off[4][2];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int col = j0 + 32 * wn + 8 * j + 2 * t + c;
-      const int n = col / S;
-      off[j][c] = col < NS ? n * Cin * S + (col - n * S) : -1;
-    }
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
-
-  for (int s = 0; s < stages; ++s) {
-    if (s + 1 < stages) copy_w1(buffer(s + 1), s + 1, slices, w1, C, ldw);
-    commit();
-    wait_prior_1();
-    __syncthreads();
-    const int slice = s % slices;
-    dx_product(acc, buffer(s), d + slice * kXK * kXDP, wm, wn, g, t);
-    if (slice + 1 < slices) continue;
-    // the chunk's epilogue: dx = acc + g3 at its rows, then acc = 0
-    const int ci0 = (s / slices) * kXM + 32 * wm + g;
+  // dx = acc + g3 at the chunk's rows ci0 + 16 i + 8 hr.
+  template <bool WIDE>
+  __device__ static __forceinline__ void epilogue(
+      const Early&, const float (&acc)[2][4][4], const int (&off)[4][2],
+      const float* __restrict__ g3, const float* __restrict__,
+      const float* __restrict__, float* __restrict__ dx, int ci0, int Cin,
+      int S) {
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -301,14 +198,8 @@ bwd_final_dx_kernel(const float* __restrict__ g3, const float* __restrict__ g1,
           }
         }
       }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
   }
-}
+};
 
 // ---- dW1 -------------------------------------------------------------------
 
@@ -462,43 +353,40 @@ bwd_final_dw_kernel(const float* __restrict__ da1, const float* __restrict__ x,
 
 // ---- launches --------------------------------------------------------------
 
-inline bool aligned16(const void* p) {
-  return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0;
-}
-
 // What the wrapper computes: W1 at a row pitch ldw >= Cin, a multiple of
 // 4, 16-byte aligned; 1 <= splits <= the pieces of N * S (none empty);
-// every offset inside an int; the dx kernel's tile and ring inside a
-// block's shared memory; with wide, S % 4 == 0 and the activations
+// every offset inside an int; C <= conv1x1::kMaxC (the dx kernel's tile
+// and ring inside a block's shared memory); with wide, S % 4 == 0 and the activations
 // 16-byte aligned.
 bool grid_ok(const float* g3, const float* g1, const float* a1,
              const float* x, const float* w1, const float* dx,
              const float* da1, int N, int Cin, int C, int S, int ldw,
              int splits, int wide) {
-  if (N <= 0 || Cin <= 0 || C <= 0 || S <= 0) return false;
+  if (N <= 0 || Cin <= 0 || C <= 0 || C > conv1x1::kMaxC || S <= 0)
+    return false;
   const long big = Cin > C ? Cin : C;
   if ((long)N * big * S >= INT_MAX || (long)C * ldw >= INT_MAX) return false;
   if (ldw < Cin || ldw % 4 || !aligned16(w1)) return false;
   if (splits < 1 || splits > 65535 || splits > pieces(N * S)) return false;
-  if (dx_smem(C) > conv3x3::kMaxSmem) return false;
   return !wide || (S % 4 == 0 && aligned16(g3) && aligned16(g1) &&
                    aligned16(a1) && aligned16(x) && aligned16(dx) &&
                    aligned16(da1));
 }
 
-// dx and da1: the dx kernel over 64-column blocks of N * S.
+// dx and da1: conv1x1_tc.cuh's kernel over 64-column blocks of N * S.
 template <bool WIDE>
 int input_gradient(const float* g3, const float* g1, const float* a1,
                    const float* p1, const float* q1, const float* r1,
                    const float* w1, float* dx, float* da1, int N, int Cin,
                    int C, int S, int ldw, cudaStream_t s) {
-  const int NS = N * S, bytes = dx_smem(C);
+  const int NS = N * S, bytes = conv1x1::smem_bytes(C);
   const cudaError_t e = cudaFuncSetAttribute(
-      bwd_final_dx_kernel<WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      conv1x1::conv1x1_tc_kernel<Dx, WIDE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return (int)e;
-  bwd_final_dx_kernel<WIDE><<<(NS + kXP - 1) / kXP, kThreads, bytes, s>>>(
-      g3, g1, a1, p1, q1, r1, w1, dx, da1, Cin, C, S, NS, ldw);
+  conv1x1::conv1x1_tc_kernel<Dx, WIDE>
+      <<<(NS + kP - 1) / kP, kThreads, bytes, s>>>(
+          g3, g1, a1, p1, q1, r1, w1, dx, da1, Cin, C, S, NS, ldw);
   return (int)cudaGetLastError();
 }
 

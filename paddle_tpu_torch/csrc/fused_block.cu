@@ -25,33 +25,35 @@
 //
 // What the design does about it. The TPU kernels take a whole image a grid
 // step, roll it in VMEM for the 3x3 taps and carry the sums from step to
-// step of a sequential grid. Here conv1x1_stats, the moments and
-// conv1x1_bn_residual are each one tiled float32 SIMT product on the CUDA
-// cores, out = A [M, K] x B [K, N*S], with the batch folded into the
-// columns so that S = 196 and 49 do not leave tiles empty:
+// step of a sequential grid. Here conv1x1_stats and the moments are each
+// one tiled float32 SIMT product on the CUDA cores, out = A [M, K] x B [K,
+// N*S], with the batch folded into the columns so that S = 196 and 49 do
+// not leave tiles empty:
 //   - a 256-thread block owns a BM x BN output tile (BM 64 or 128 by M,
 //     BN 128; the moments 64 x 64 or 128 x 128), each thread an 8 x 8 (or
 //     4 x 8, 4 x 4) micro-tile read from shared memory as float4;
 //   - K advances 8 deep, two shared-memory stages: the next stage's global
 //     loads are issued into registers before the current stage's products;
-//   - the loaders do the elementwise work on the way in: B of the last 1x1
-//     is normalize + ReLU of a2, so h2 never reaches device memory; each
-//     thread loads one fixed column of B, whose (n, p) it decodes once;
-//   - the epilogues do the rest on the way out: a1 is written with each
-//     tile's per-channel partial sums into a [2, C, tiles] buffer (a
-//     fixed-order tree across the tile's threads), which a second kernel
-//     adds in tile order; the last 1x1 applies the bn3 affine, the
-//     residual and the ReLU;
+//   - the loaders do the elementwise work on the way in (the moments
+//     normalize a2); each column loader thread loads one fixed column of
+//     B, whose (n, p) it decodes once;
+//   - conv1x1_stats' epilogue writes a1 with each tile's per-channel
+//     partial sums into a [2, C, tiles] buffer (a fixed-order tree across
+//     the tile's threads), which a second kernel adds in tile order;
 //   - the moments' K is N*S (25,088 to 401,408) against a C x C output, so
 //     it is cut into splits, each block writes its partial Gram matrix (and
 //     the row sums of h in column C) to [splits, C, C + 1], and a second
 //     kernel adds the splits in order.
-// conv3x3_norm_stats runs on the tensor cores in 3xTF32 over halo tiles of
-// h1, normalized once a value, fed by a ring of asynchronous copies; its
-// own header, conv3x3_tc.cuh, says how and why. No atomics anywhere: every
-// result is deterministic. The tile machinery and the finalizing passes
-// are in fused_block.cuh, shared with the backward (fused_block_bwd.cu).
+// conv3x3_norm_stats and conv1x1_bn_residual run on the tensor cores in
+// 3xTF32, fed by rings of asynchronous copies, their operands normalized
+// once a value: the 3x3 over halo tiles of h1 (conv3x3_tc.cuh), the last
+// 1x1 over a tile of h2 built once a block, so h2 never reaches device
+// memory (conv1x1_tc.cuh, whose kernel bwd_final's dx shares); each
+// header says how and why. No atomics anywhere: every result is
+// deterministic. The tile machinery and the finalizing passes are in
+// fused_block.cuh, shared with the backward (fused_block_bwd.cu).
 #include "fused_block.cuh"
+#include "conv1x1_tc.cuh"
 #include "conv3x3_tc.cuh"
 
 namespace {
@@ -82,22 +84,18 @@ struct WeightA {
   }
 };
 
-// B[k][j] = src[n, k, p] at column j = n * S + p, or relu(src * scale[k]
-// + shift[k]) with NORM: a [N, K, S] activation as K x (N*S).
-template <int TN, bool NORM>
+// B[k][j] = src[n, k, p] at column j = n * S + p: a [N, K, S] activation
+// as K x (N*S).
+template <int TN>
 struct ActB {
   static constexpr int BN = 16 * TN, R = TN / 2, KS = kThreads / BN;
   const float* src;
-  const float* scale;
-  const float* shift;
   int K, S, col, kr;
   long base;
   bool ok;
   float reg[R];
-  __device__ ActB(const float* src_, const float* sc_, const float* sh_,
-                  int K_, int S_, int NS, int j0)
-      : src(src_), scale(sc_), shift(sh_), K(K_), S(S_),
-        col(threadIdx.x % BN), kr(threadIdx.x / BN) {
+  __device__ ActB(const float* src_, int K_, int S_, int NS, int j0)
+      : src(src_), K(K_), S(S_), col(threadIdx.x % BN), kr(threadIdx.x / BN) {
     const int j = j0 + col;
     ok = j < NS;
     const int n = ok ? j / S : 0;
@@ -108,10 +106,7 @@ struct ActB {
     for (int r = 0; r < R; ++r) {
       const int k = k0 + kr + KS * r;
       float v = 0.f;
-      if (ok && k < K) {
-        v = __ldg(src + base + (long)k * S);
-        if constexpr (NORM) v = relu_affine(v, __ldg(scale + k), __ldg(shift + k));
-      }
+      if (ok && k < K) v = __ldg(src + base + (long)k * S);
       reg[r] = v;
     }
   }
@@ -170,49 +165,11 @@ conv1x1_stats_kernel(const float* __restrict__ x, const float* __restrict__ w,
   __shared__ __align__(16) float smem[Smem<BM, BN>::kFloats];
   const int m0 = blockIdx.x * BM, jt = blockIdx.y, j0 = jt * BN;
   WeightA<TM> la(w, M, K, m0);
-  ActB<TN, false> lb(x, nullptr, nullptr, K, S, NS, j0);
+  ActB<TN> lb(x, K, S, NS, j0);
   float acc[TM][TN];
   float unused = 0.f;
   mainloop<TM, TN, false>(acc, la, lb, 0, K, smem, unused);
   store_with_stats<TM, TN>(acc, y, part, M, S, NS, T, m0, j0, jt, smem);
-}
-
-template <int TM, int TN>
-__global__ void __launch_bounds__(kThreads, 2)
-conv1x1_bn_residual_kernel(const float* __restrict__ a2,
-                           const float* __restrict__ x,
-                           const float* __restrict__ w3,
-                           const float* __restrict__ sc2,
-                           const float* __restrict__ sh2,
-                           const float* __restrict__ sc3,
-                           const float* __restrict__ sh3,
-                           float* __restrict__ out, int M, int K, int S,
-                           int NS) {
-  constexpr int BM = 16 * TM, BN = 16 * TN;
-  __shared__ __align__(16) float smem[Smem<BM, BN>::kFloats];
-  const int m0 = blockIdx.x * BM, j0 = blockIdx.y * BN;
-  WeightA<TM> la(w3, M, K, m0);
-  ActB<TN, true> lb(a2, sc2, sh2, K, S, NS, j0);
-  float acc[TM][TN];
-  float unused = 0.f;
-  mainloop<TM, TN, false>(acc, la, lb, 0, K, smem, unused);
-  const int ty = threadIdx.x >> 4;
-  long coff[TN];
-  bool cok[TN];
-  column_offsets<TN>(coff, cok, j0, M, S, NS);
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + tile_pos(i, ty);
-    if (m >= M) continue;
-    const float s3 = __ldg(sc3 + m), h3 = __ldg(sh3 + m);
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      if (cok[j]) {
-        const long o = coff[j] + (long)m * S;
-        out[o] = fmaxf(fmaf(acc[i][j], s3, h3) + __ldg(x + o), 0.f);
-      }
-    }
-  }
 }
 
 // Block (tile, split): the T*16-square tile (tm, tn) of the split's partial
@@ -307,25 +264,25 @@ extern "C" int fused_block_norm_relu_moments_f32(const float* a2,
   return finish_splits(part, out, (long)C * (C + 1), splits, s);
 }
 
-// a2 [N, C, S], x [N, Cout, S], w3 [Cout, C], sc2/sh2 [C], sc3/sh3 [Cout];
-// out [N, Cout, S].
+// a2 [N, C, S], x [N, Cout, S], wt [C, ldw] = W3^T, its rows zero-padded
+// to ldw >= Cout (a multiple of 4, 16-byte aligned), sc2/sh2 [C], sc3/sh3
+// [Cout]; out [N, Cout, S]; splits of Cout's 128-row chunks; wide: S % 4
+// == 0 and a2, x, out 16-byte aligned (conv1x1_tc.cuh).
 extern "C" int fused_block_conv1x1_bn_residual_f32(
-    const float* a2, const float* x, const float* w3, const float* sc2,
+    const float* a2, const float* x, const float* wt, const float* sc2,
     const float* sh2, const float* sc3, const float* sh3, float* out, int N,
-    int C, int Cout, int S, void* stream) {
-  const long ns = (long)N * S;
-  if (C <= 0 || Cout <= 0 || N <= 0 || S <= 0 || ns >= INT_MAX)
+    int C, int Cout, int S, int ldw, int splits, int wide, void* stream) {
+  if (!conv1x1::bn_residual_ok(a2, x, wt, out, N, C, Cout, S, ldw, splits,
+                               wide))
     return (int)cudaErrorInvalidValue;
-  const int T = (int)((ns + kBN - 1) / kBN);
-  if (T > 65535) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Cout <= 64)
-    conv1x1_bn_residual_kernel<4, 8>
-        <<<dim3((Cout + 63) / 64, T), kThreads, 0, s>>>(
-            a2, x, w3, sc2, sh2, sc3, sh3, out, Cout, C, S, (int)ns);
-  else
-    conv1x1_bn_residual_kernel<8, 8>
-        <<<dim3((Cout + 127) / 128, T), kThreads, 0, s>>>(
-            a2, x, w3, sc2, sh2, sc3, sh3, out, Cout, C, S, (int)ns);
-  return (int)cudaGetLastError();
+  return wide ? conv1x1::bn_residual<true>(a2, x, wt, sc2, sh2, sc3, sh3,
+                                           out, N, C, Cout, S, ldw, splits, s)
+              : conv1x1::bn_residual<false>(a2, x, wt, sc2, sh2, sc3, sh3,
+                                            out, N, C, Cout, S, ldw, splits,
+                                            s);
 }
+
+// The most channels C that conv1x1_bn_residual and bwd_final's dx take
+// (their tile and ring in one block's shared memory): the chain's gate.
+extern "C" int fused_block_conv1x1_max_c() { return conv1x1::kMaxC; }

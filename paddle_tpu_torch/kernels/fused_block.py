@@ -16,6 +16,8 @@ Eight kernels, written by hand for Hopper: the forward's in
 ``csrc/fused_block_bwd.cu``, on the tile machinery of
 ``csrc/fused_block.cuh``, except ``conv3x3_norm_stats``, whose 3xTF32
 tensor-core product over halo tiles is ``csrc/conv3x3_tc.cuh``,
+``conv1x1_bn_residual``, whose 3xTF32 product over an h2 tile built once
+a block is ``csrc/conv1x1_tc.cuh`` (shared with ``bwd_final``'s dx),
 ``bwd_reduce3``, whose split-K product fed by asynchronous copies is
 ``csrc/bwd_reduce3.cuh``, ``bwd_apply3``, whose stacked 3xTF32 product
 [amat | bmat]·[g3; h2] fed by asynchronous copies is
@@ -436,6 +438,40 @@ def norm_relu_moments(x: torch.Tensor, scale: torch.Tensor,
 norm_relu_moments.launches = 0
 
 
+_RES_P = 64      # columns of N·S a conv1x1_bn_residual block (conv1x1::kP)
+_RES_M = 128     # output rows a chunk (conv1x1::kM)
+
+
+def _res_grid(n: int, s: int, cout: int, sms: int) -> Tuple[int, int]:
+    """(blocks, splits) of conv1x1_bn_residual: 64-column blocks of N·S
+    (a block may hold the end of one image and the start of the next; the
+    last one past N·S), each by a share of Cout's 128-row chunks, split
+    p taking chunks [p · chunks // splits, (p + 1) · chunks // splits).
+    Waves count two blocks an SM (one runs above C 304, where the tile
+    takes more than half an SM's shared memory; the grid stays right,
+    only less even); where N·S alone gives 4 waves or more, one
+    split; else, of the split counts up to 4 waves' worth, the one whose
+    blocks fill their last wave best (the fewest on ties), at most one
+    split a chunk, so that none is empty."""
+    blocks, chunks = -(-n * s // _RES_P), -(-cout // _RES_M)
+    wave = 2 * sms
+    if blocks >= 4 * wave:
+        return blocks, 1
+
+    def fill(k):
+        return k * blocks / (-(-k * blocks // wave) * wave)
+
+    top = min(chunks, max(1, -(-4 * wave // blocks)))
+    return blocks, max(range(1, top + 1), key=lambda k: (fill(k), -k))
+
+
+def conv1x1_max_c() -> int:
+    """The most channels C that conv1x1_bn_residual's and bwd_final's
+    kernels take on the card, their K = C tile and W ring in one block's
+    shared memory (csrc/conv1x1_tc.cuh): the chain's gate."""
+    return _fn("fused_block_conv1x1_max_c", ())()
+
+
 def conv1x1_bn_residual(x: torch.Tensor, residual: torch.Tensor,
                         scale2: torch.Tensor, shift2: torch.Tensor,
                         w: torch.Tensor, scale3: torch.Tensor,
@@ -444,8 +480,11 @@ def conv1x1_bn_residual(x: torch.Tensor, residual: torch.Tensor,
     w [Cout, C]; scale2/shift2 [C] normalize x on load, scale3/shift3
     [Cout] are bn3's affine -> the block output [N, Cout, S].
 
-    CPU tensors run ``conv1x1_bn_residual_reference``; CUDA tensors the
-    kernel (float32, contiguous)."""
+    CPU tensors run ``conv1x1_bn_residual_reference``. CUDA tensors run
+    the kernel (h2 built once a block of 64 columns of N·S, Cout's chunks
+    shared out by ``_res_grid``): float32, contiguous, C at most
+    ``conv1x1_max_c()`` (the entry point refuses more before it launches);
+    the product in 3xTF32 on the tensor cores."""
     if not build.on_card("conv1x1_bn_residual", x):
         return conv1x1_bn_residual_reference(x, residual, scale2, shift2, w,
                                              scale3, shift3)
@@ -459,15 +498,22 @@ def conv1x1_bn_residual(x: torch.Tensor, residual: torch.Tensor,
     for name, v, k in (("scale2", scale2, c), ("shift2", shift2, c),
                        ("scale3", scale3, cout), ("shift3", shift3, cout)):
         build.check(name, v, x.device, (k,))
+    _, splits = _res_grid(n, s, cout, build.sm_count(x.device))
+    # W3ᵀ [C, ldw], its rows padded with zeros to a multiple of 4 (a fresh
+    # tensor, 16-byte aligned: its rows are copied 16 bytes at a time)
+    ldw = -(-cout // 4) * 4
+    wt = F.pad(w.t(), (0, ldw - cout)).contiguous()
     out = _empty(x.device, n, cout, s)
+    wide = s % 4 == 0 and all(t.data_ptr() % 16 == 0
+                              for t in (x, residual))
     with torch.cuda.device(x.device):
         build.launch("conv1x1_bn_residual",
                      _fn("fused_block_conv1x1_bn_residual_f32",
-                         (_P,) * 8 + (_I,) * 4 + (_P,)),
-                     x.data_ptr(), residual.data_ptr(), w.data_ptr(),
+                         (_P,) * 8 + (_I,) * 7 + (_P,)),
+                     x.data_ptr(), residual.data_ptr(), wt.data_ptr(),
                      scale2.data_ptr(), shift2.data_ptr(), scale3.data_ptr(),
-                     shift3.data_ptr(), out.data_ptr(), n, c, cout, s,
-                     _stream(x.device))
+                     shift3.data_ptr(), out.data_ptr(), n, c, cout, s, ldw,
+                     splits, int(wide), _stream(x.device))
     conv1x1_bn_residual.launches += 1
     return out
 

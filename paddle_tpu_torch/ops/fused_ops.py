@@ -14,7 +14,8 @@ ReLU, conv3x3 + BN + ReLU, conv1x1 + BN, + input, ReLU) as one op. By
 default it runs the composition of the individual ops, as the JAX
 package does. With ``PT_FUSED_BLOCK=always`` on the card, the blocks
 the JAX package's gate takes (H == W, N >= 8, S >= CHAIN_MIN_S (196),
-Cin % 128 == 0, C % 64 == 0) run the bottleneck chain of
+Cin % 128 == 0, C % 64 == 0), up to the C that the card's 1x1 kernels
+take (``conv1x1_max_c``, 704), run the bottleneck chain of
 kernels/fused_block.py (``_chain_block``), forward and backward through
 its kernels; the others compose.
 """
@@ -87,11 +88,14 @@ CHAIN_MIN_S = 196
 
 def _chain_takes(x, w1) -> bool:
     """The JAX package's shape gate of the chain
-    (paddle_tpu/ops/fused_ops.py:212-214), on top of fused_block_enabled."""
+    (paddle_tpu/ops/fused_ops.py:212-214), on top of fused_block_enabled;
+    on the card, C within what its 1x1 kernels take (the plain versions
+    take any)."""
     n, cin, hh, ww = x.shape
+    c = w1.shape[0]
     return (fused_block_enabled(x.device) and hh == ww and n >= 8
-            and hh * ww >= CHAIN_MIN_S and cin % 128 == 0
-            and w1.shape[0] % 64 == 0)
+            and hh * ww >= CHAIN_MIN_S and cin % 128 == 0 and c % 64 == 0
+            and (x.device.type == "cpu" or c <= _fb.conv1x1_max_c()))
 
 
 def _folded(w, scale, bias, mean, var, eps):

@@ -46,9 +46,10 @@ import torch_conv3x3_probe as c3  # noqa: E402
 STAGES = [(256, 64, 56), (512, 128, 28), (1024, 256, 14)]   # Cin, C, side
 BATCH = 128
 HEADER = "bwd_final_tc.cuh"
-DX_NO_COPY = (("  copy_w1(buffer(0), 0,",
-               "  if (false) copy_w1(buffer(0), 0,"),
-              ("    if (s + 1 < stages) copy_w1(", "    if (false) copy_w1("))
+# dx runs conv1x1_tc.cuh's kernel: the ablations edit both headers
+DX_NO_COPY = (("  copy_w(buffer(first), first,",
+               "  if (false) copy_w(buffer(first), first,"),
+              ("    if (s + 1 < stages) copy_w(", "    if (false) copy_w("))
 DX_NO_FOLD = (("  fold<WIDE>(d, g1,", "  if (false) fold<WIDE>(d, g1,"),)
 DW_NO_COPY = (("  copy_piece<WIDE>(buffer(0), jb,",
                "  if (false) copy_piece<WIDE>(buffer(0), jb,"),
@@ -103,15 +104,19 @@ def compile_variants(out_dir: Path) -> dict:
     for i, (name, (fn, subs)) in enumerate(VARIANTS.items()):
         vdir = out_dir / f"v{i}"
         vdir.mkdir(exist_ok=True)
-        for header in ("fused_block.cuh", "conv3x3_tc.cuh", HEADER):
+        found = set()
+        for header in ("fused_block.cuh", "conv3x3_tc.cuh", "conv1x1_tc.cuh",
+                       HEADER):
             text = (build.CSRC / header).read_text()
-            if header == HEADER:
+            if header in ("conv1x1_tc.cuh", HEADER):
                 for old, new in subs:
-                    if old not in text:
-                        raise RuntimeError(f"{name}: {header} no longer has "
-                                           f"{old!r}")
-                    text = text.replace(old, new)
+                    if old in text:
+                        found.add(old)
+                        text = text.replace(old, new)
             (vdir / header).write_text(text)
+        for old, _ in subs:
+            if old not in found:
+                raise RuntimeError(f"{name}: neither header has {old!r}")
         unit, lib = vdir / "probe.cu", vdir / "probe.so"
         unit.write_text(ENTRY.format(dir=vdir))
         jobs[name] = (fn, lib, subprocess.Popen(

@@ -17,7 +17,11 @@ a strided cotangent. The card's 3x3 kernel computes in 3xTF32 on the
 tensor cores: an emulation of that arithmetic holds the plain version
 to the forward tolerance at chain-like depths, and its column tiles
 cover the padded grid; so do bwd_mid's and bwd_final's products, to
-the backward limits, and their splits cover their K. Inputs come from
+the backward limits, and their splits cover their K, and
+conv1x1_bn_residual's, to the forward limit, whose grid covers N·S and
+Cout and whose wrapper refuses what its kernel does not take before any
+launch; on the CPU the chain's gate leaves C to the plain versions,
+which take any. Inputs come from
 a numpy seed: N 2-8, Cin 16-256, C 8-64, H 4, 7 and 8 (S 16, 49 and
 64), BN shifts that are not zero, so the 3x3's zero padding of h1 (not
 of a1) and, in the backward, of da2 (not r2) shows at every edge.
@@ -438,6 +442,127 @@ def test_3xtf32_holds_bwd_final_to_its_limits(n, cin, c, s):
     assert dx_share(1) > 1 or dw1_share(1) > 1
 
 
+def _res_case(n, cin, c, s, seed):
+    """conv1x1_bn_residual's operands as the chain makes them: a2 [N, C,
+    S] raw, bn2's affine folded from a2's batch statistics, a He-scaled
+    W3 [Cin, C], bn3's affine from _bn3_fold on the plain moments of h2,
+    the block input [N, Cin, S] >= 0."""
+    rng = np.random.RandomState(seed)
+    f32 = np.float32
+    a2 = torch.from_numpy((rng.randn(n, c, s) + 0.3).astype(f32))
+    w3 = torch.from_numpy((rng.randn(cin, c) * np.sqrt(2.0 / c)).astype(f32))
+    g2, b2, g3, b3 = (torch.from_numpy(v.astype(f32)) for v in (
+        1 + 0.2 * rng.randn(c), 0.2 + 0.3 * rng.randn(c),
+        1 + 0.2 * rng.randn(cin), 0.2 + 0.3 * rng.randn(cin)))
+    res = torch.from_numpy(np.abs(rng.randn(n, cin, s)).astype(f32))
+    m = n * s
+    _, _, sc2, sh2 = tfb._bn_fold(a2.sum(dim=(0, 2)),
+                                  (a2 * a2).sum(dim=(0, 2)), m, g2, b2)
+    sum_h, m2h = tfb.norm_relu_moments_reference(a2, sc2, sh2)
+    _, _, sc3, sh3 = tfb._bn3_fold(w3, sum_h, m2h, m, g3, b3)
+    return a2, res, sc2, sh2, w3, sc3, sh3
+
+
+def _res_tf32(a2, res, sc2, sh2, w3, sc3, sh3, products):
+    """conv1x1_bn_residual as the card computes it (csrc/conv1x1_tc.cuh):
+    h2 normalized once, K = C in k8 steps (zero past C), each step's
+    products of _pairs into a fresh fragment (summed in float32), added
+    into the float32 accumulator step after step; then bn3's affine, the
+    residual and the ReLU."""
+    c = a2.shape[1]
+    pad = -c % 8
+    h2 = torch.nn.functional.pad(tfb._norm_relu(a2, sc2, sh2),
+                                 (0, 0, 0, pad))               # [N, Cp, S]
+    a = torch.nn.functional.pad(w3, (0, pad))                  # [Cout, Cp]
+    pairs = _pairs(a, h2, products)
+    acc = torch.zeros(a2.shape[0], w3.shape[0], a2.shape[2])
+    for k in range(0, c + pad, 8):
+        acc = acc + sum(torch.matmul(pa[:, k:k + 8], pb[:, k:k + 8])
+                        for pa, pb in pairs)
+    col = lambda v: v.reshape(1, -1, 1)
+    return torch.clamp_min(acc * col(sc3) + col(sh3) + res, 0.0)
+
+
+@pytest.mark.parametrize("n,cin,c,s", [(8, 256, 64, 3136),
+                                      (16, 1024, 256, 196)])
+def test_3xtf32_holds_conv1x1_bn_residual_to_float32(n, cin, c, s):
+    """At the chain's widths (K = C 64 at 56², 256 at 14²), with bn3's
+    affine from the plain moments as the chain makes it, the card's
+    3xTF32 arithmetic for conv1x1_bn_residual, emulated, stays within
+    half of the atol = rtol = 1e-5 limit of the plain version; one TF32
+    product alone falls outside it."""
+    args = _res_case(n, cin, c, s, seed=15)
+    want = tfb.conv1x1_bn_residual_reference(*args)
+    limit = FWD["atol"] + FWD["rtol"] * want.abs()
+
+    def share(products):
+        return float(((_res_tf32(*args, products) - want).abs()
+                      / limit).max())
+
+    assert share(3) <= 0.5
+    assert share(1) > 1
+
+
+@pytest.mark.parametrize("n,s,cout,blocks,splits", [
+    (128, 3136, 256, 6272, 1),   # ResNet-50's three chain stages: 23.8
+    (128, 784, 512, 1568, 1),    # and 5.9 waves of two blocks an SM; 1.5
+    (128, 196, 1024, 392, 2),    # waves, the chunks shared out by two
+    (8, 196, 256, 25, 2),        # few blocks: a split a chunk
+    (2, 49, 72, 2, 1),           # one chunk: one split
+    (3, 49, 1000, 3, 8),         # S % 4 != 0: blocks straddle images
+    (1, 4, 128, 1, 1),
+])
+def test_res_grid_covers_n_s_and_cout(n, s, cout, blocks, splits):
+    """conv1x1_bn_residual's grid: 64-column blocks cover every position
+    of every image exactly once (the last block past N·S); splits p take
+    Cout's 128-row chunks [p · chunks // splits, (p + 1) · chunks //
+    splits), none empty, covering each chunk once; N·S alone from 4 waves
+    of two blocks an SM on 132 SMs, else the split whose blocks fill
+    their last wave best."""
+    got_blocks, got_splits = tfb._res_grid(n, s, cout, 132)
+    assert (got_blocks, got_splits) == (blocks, splits)
+    assert (blocks - 1) * 64 < n * s <= blocks * 64
+    covered = [(k // s, k % s) for b in range(blocks)
+               for k in range(64 * b, min(n * s, 64 * b + 64))]
+    assert covered == [(i, p) for i in range(n) for p in range(s)]
+    chunks = -(-cout // 128)
+    runs = [range(sp * chunks // splits, (sp + 1) * chunks // splits)
+            for sp in range(splits)]
+    assert all(len(r) > 0 for r in runs)
+    assert [j for r in runs for j in r] == list(range(chunks))
+    assert 128 * (chunks - 1) < cout <= 128 * chunks
+
+
+@pytest.mark.parametrize("fault", ["float64", "strided", "shape"])
+def test_conv1x1_bn_residual_refuses_before_launch(monkeypatch, fault):
+    """The wrapper given tensors declared on the card (the CPU tensors
+    here) refuses a float64 or a strided operand, or a residual of another
+    Cout, TypeError or ValueError, before it reaches its kernel
+    (build.bind patched to fail if it is reached)."""
+    monkeypatch.setattr(build, "on_card", lambda what, t: True)
+
+    def no_kernel(*a):
+        raise AssertionError("reached the kernel")
+
+    monkeypatch.setattr(build, "bind", no_kernel)
+    monkeypatch.setattr(build, "sm_count", no_kernel)
+    n, cout, c, s = 2, 16, 8, 49
+    z = torch.zeros
+    args = [z(n, c, s), z(n, cout, s), z(c), z(c), z(cout, c), z(cout),
+            z(cout)]
+    if fault == "float64":
+        args[1] = args[1].double()
+    elif fault == "strided":
+        args[4] = z(c, cout).T
+        assert not args[4].is_contiguous()
+    else:
+        args[1] = z(n, cout + 1, s)
+    before = tfb.conv1x1_bn_residual.launches
+    with pytest.raises(TypeError if fault == "float64" else ValueError):
+        tfb.conv1x1_bn_residual(*args)
+    assert tfb.conv1x1_bn_residual.launches == before
+
+
 @pytest.mark.parametrize("n,s,c,cin,splits", [
     (128, 3136, 64, 256, 132),    # ResNet-50's three chain stages: whole
     (128, 784, 128, 512, 33),     # waves of tiles x splits, two blocks an
@@ -776,6 +901,20 @@ def test_op_takes_the_chain_where_the_gate_does(monkeypatch, takes):
     slots = [s.format(k=k) for k in "123" for s in tfo._BN_OUT_SLOTS]
     for slot, want in zip(slots, want_st):
         _close(outs[slot][0].numpy(), want.numpy(), **CHAIN)
+
+
+@pytest.mark.parametrize("c", [64, 768])
+def test_chain_gate_takes_any_c_on_the_cpu(monkeypatch, c):
+    """With the gate open, the chain's gate on the CPU (the plain versions
+    run) takes C = 768 as it takes 64, past what the card's 1x1 kernels
+    hold, and builds nothing to decide (build.bind patched to fail)."""
+    def no_kernel(*a):
+        raise AssertionError("reached a kernel library")
+
+    monkeypatch.setattr(tfo, "fused_block_enabled", lambda device: True)
+    monkeypatch.setattr(build, "bind", no_kernel)
+    assert tfo._chain_takes(torch.zeros(8, 128, 14, 14),
+                            torch.zeros(c, 128, 1, 1))
 
 
 def _bwd_args(name, fault):

@@ -714,6 +714,78 @@ def test_chain_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         fb.conv1x1_bn_residual(d["a"], d["x"][:1], d["sc"], d["sh"],
                                d["w3"], d["sc3"], d["sh3"])
+    # C = 720: past what the h2 tile and the W ring hold in one block's
+    # shared memory, refused by the entry point before any launch
+    assert fb.conv1x1_max_c() == 704
+    wide = {k: torch.zeros(*shape, device="cuda") for k, shape in (
+        ("a", (2, 720, 49)), ("sc", (720,)), ("w3", (16, 720)))}
+    before = fb.conv1x1_bn_residual.launches
+    with pytest.raises(RuntimeError):
+        fb.conv1x1_bn_residual(wide["a"], d["x"], wide["sc"], wide["sc"],
+                               wide["w3"], d["sc3"], d["sh3"])
+    assert fb.conv1x1_bn_residual.launches == before
+
+
+@pytest.mark.parametrize("c,takes", [(704, True), (768, False)])
+def test_chain_gate_keeps_c_within_the_1x1_kernels(cuda, monkeypatch, c,
+                                                   takes):
+    """With PT_FUSED_BLOCK=always, the chain's gate on the card takes a
+    block up to the C that conv1x1_bn_residual's and bwd_final's tile
+    holds (704) and sends a wider one (768) to the composition, where
+    the kernels would refuse it."""
+    from paddle_tpu_torch.ops import fused_ops
+    monkeypatch.setenv("PT_FUSED_BLOCK", "always")
+    x = torch.zeros(8, 1024, 14, 14, device="cuda")
+    w1 = torch.zeros(c, 1024, 1, 1, device="cuda")
+    assert fused_ops._chain_takes(x, w1) == takes
+
+
+def test_conv1x1_bn_residual_at_the_56_training_shape_is_repeatable(cuda):
+    """conv1x1_bn_residual at ResNet-50's 56x56 chain stage at batch 128
+    (Cin 256, C 64): within TOL of its plain version, a second call
+    bit-identical (no sums across blocks)."""
+    gen = torch.Generator().manual_seed(56)
+    d = _chain_case(gen, 128, 256, 64, 56)
+    args = (d["a"], d["x"], d["sc"], d["sh"], d["w3"], d["sc3"], d["sh3"])
+    got = fb.conv1x1_bn_residual(*args)
+    torch.testing.assert_close(got, fb.conv1x1_bn_residual_reference(*args),
+                               **TOL)
+    assert torch.equal(fb.conv1x1_bn_residual(*args), got)
+
+
+@pytest.mark.parametrize("n,cout,c,h,offset", [
+    (3, 256, 64, 7, 0),          # S 49: 4-byte accesses, 64-column blocks
+                                 # straddling images
+    (2, 256, 64, (10, 12), 0),   # S 120
+    (2, 96, 40, (5, 6), 0),      # S 30, even but not a multiple of 4
+    (2, 72, 64, 14, 0),          # Cout 72: a partial 128-row chunk
+    (2, 256, 72, 14, 0),         # C 72: a partial 16-channel stage
+    (2, 256, 512, 14, 0),        # C 512 and 704 (the most): one block an
+    (2, 128, 704, 14, 0),        # SM, past two at C 304
+    (2, 256, 64, 14, 1),         # W3 and the residual 4 bytes off 16-byte
+                                 # alignment: 4-byte accesses at S % 4 == 0
+    (8, 1024, 256, 14, 0),       # 25 blocks: Cout's 8 chunks in 8 splits
+])
+def test_conv1x1_bn_residual_takes_shapes_the_chain_does_not(cuda, n, cout,
+                                                             c, h, offset):
+    """conv1x1_bn_residual alone at shapes the chain's gate never makes:
+    within TOL of its plain version, a second call bit-identical."""
+    h, w = h if isinstance(h, tuple) else (h, h)
+    gen = torch.Generator().manual_seed(n + cout + c + h + w + offset)
+    d = _chain_case(gen, n, cout, c, h, w)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + offset, device="cuda")[offset:]
+        buf.copy_(t.reshape(-1))
+        return buf.view_as(t)
+
+    w3, x = shifted(d["w3"]), shifted(d["x"])
+    assert w3.data_ptr() % 16 == x.data_ptr() % 16 == 4 * offset
+    args = (d["a"], x, d["sc"], d["sh"], w3, d["sc3"], d["sh3"])
+    got = fb.conv1x1_bn_residual(*args)
+    torch.testing.assert_close(got, fb.conv1x1_bn_residual_reference(*args),
+                               **TOL)
+    assert torch.equal(fb.conv1x1_bn_residual(*args), got)
 
 
 def _chain_op_ins(x, w1, w2, w3, bn):
