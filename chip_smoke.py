@@ -92,10 +92,10 @@ plain versions at ResNet-50's three chain stages at batch 128 (Cin, C,
 H = 256, 64, 56 / 512, 128, 28 / 1024, 256, 14), each timed beside its
 plain version, its bound and a PyTorch yardstick (F.conv2d of the same
 product, product only, for the three convolutions; torch.bmm of h·hᵀ
-and the sum for the moments); the 3x3 and the last 1x1
+and the sum for the moments); the 3x3, the moments and the last 1x1
 (conv1x1_bn_residual), whose products run in 3xTF32 on the tensor
 cores, are bounded by that arithmetic (their float32 FMA bounds printed
-beside them) and print the largest shares of their elementwise limits;
+beside them) and print the largest shares of their limits;
 then the chain's four backward kernels at
 the same stages, on the inputs the chain makes (the forward, a random
 cotangent, each kernel fed by its plain predecessors), each timed
@@ -1536,7 +1536,7 @@ def check_chain(torch, F, fb, card):
     gen = torch.Generator(device="cuda").manual_seed(7)
     n = RESNET["batch"]
     rows, errs = {}, {k: [] for k in CHAIN_KERNELS}
-    share3, share_res = [], []
+    share3, share_mom, share_res = [], [], []
     for cin, c, h in CHAIN_SHAPES:
         s, m = h * h, n * h * h
         d = chain_case(torch, n, cin, c, h, gen)
@@ -1572,6 +1572,9 @@ def check_chain(torch, F, fb, card):
             check_sums(torch, "norm_relu_moments", m2h, rm2h, rm2h)]
         errs["norm_relu_moments"].append(
             max(e for e, _ in sums["norm_relu_moments"]))
+        share_mom.append(max(sh for _, sh in sums["norm_relu_moments"]))
+        if not torch.equal(m2h, m2h.T):
+            raise RuntimeError("norm_relu_moments: M2 is not symmetric")
         # bn3's affine from the plain moments, as bottleneck_rest_fwd
         _, _, sc3, sh3 = fb._bn3_fold(w3, rsum_h, rm2h, m, d["gam"][2],
                                       d["bet"][2])
@@ -1585,13 +1588,15 @@ def check_chain(torch, F, fb, card):
         # bounds: each input read once, each output written once; the
         # products (M2 is symmetric: C(C+1)/2 products a column), the
         # loaders' normalize (3 a value), the statistics (3 a value) and
-        # the residual's epilogue (4 a value). The 3x3 and the last 1x1 run
-        # their products as three TF32 products on the tensor cores: their
-        # bounds are that arithmetic's, printed beside the float32 FMA
-        # bounds
+        # the residual's epilogue (4 a value). The 3x3, the moments and
+        # the last 1x1 run their products as three TF32 products on the
+        # tensor cores: their bounds are that arithmetic's, printed beside
+        # the float32 FMA bounds
         ea, ex = n * c * s, n * cin * s
         bytes3 = 4 * (2 * ea + 9 * c * c + 4 * c)
         f32_bound3 = bound_ms(bytes3, 18 * c * c * m + 6 * ea)
+        bytes_mom = 4 * (ea + 2 * c + c * (c + 1))
+        f32_bound_mom = bound_ms(bytes_mom, c * (c + 1) * m + 4 * ea)
         bytes_res = 4 * (ea + 2 * ex + cin * c + 2 * c + 2 * cin)
         f32_bound_res = bound_ms(bytes_res, 2 * cin * c * m + 3 * ea + 4 * ex)
         bounds = {
@@ -1599,8 +1604,8 @@ def check_chain(torch, F, fb, card):
                                       2 * c * cin * m + 3 * ea),
             "conv3x3_norm_stats": bound_ms(bytes3, 3 * 18 * c * c * m,
                                            TF32_FLOPS_PER_S),
-            "norm_relu_moments": bound_ms(4 * (ea + 2 * c + c * (c + 1)),
-                                          c * (c + 1) * m + 4 * ea),
+            "norm_relu_moments": bound_ms(bytes_mom, 3 * c * (c + 1) * m,
+                                          TF32_FLOPS_PER_S),
             "conv1x1_bn_residual": bound_ms(bytes_res, 3 * 2 * cin * c * m,
                                             TF32_FLOPS_PER_S)}
         calls = {
@@ -1636,6 +1641,10 @@ def check_chain(torch, F, fb, card):
             f" by 3xTF32 at {TF32_FLOPS_PER_S / 1e12:.0f} TFLOP/s, f32 FMA "
             f"bound {f32_bound3[0]:.4f} {f32_bound3[1]}, largest share of "
             f"its limit {share3[-1]:.4f}"),
+                 "norm_relu_moments": (
+            f" by 3xTF32 at {TF32_FLOPS_PER_S / 1e12:.0f} TFLOP/s, f32 FMA "
+            f"bound {f32_bound_mom[0]:.4f} {f32_bound_mom[1]}, largest share "
+            f"of its limit {share_mom[-1]:.4f}"),
                  "conv1x1_bn_residual": (
             f" by 3xTF32 at {TF32_FLOPS_PER_S / 1e12:.0f} TFLOP/s, f32 FMA "
             f"bound {f32_bound_res[0]:.4f} {f32_bound_res[1]}, largest share "
@@ -1673,6 +1682,9 @@ def check_chain(torch, F, fb, card):
               f"plain| / (atol + rtol·|plain|) over the three stages "
               f"{max(shares):.4f} (atol {KERNEL_ATOL}, rtol {KERNEL_RTOL}) "
               f"[{card}]")
+    print(f"norm_relu_moments: largest share of its limit |kernel - plain| "
+          f"/ (rtol·Σ|terms|) of Σh and M2 over the three stages "
+          f"{max(share_mom):.4f} (rtol {STATS_RTOL}) [{card}]")
     return rows
 
 
@@ -2290,7 +2302,7 @@ def main() -> int:
                               "paddle_tpu/kernels/fused_block.py:790"),
             "conv3x3_norm_stats": ("paddle_tpu_torch/csrc/conv3x3_tc.cuh",
                                    "paddle_tpu/kernels/fused_block.py:653"),
-            "norm_relu_moments": ("paddle_tpu_torch/csrc/fused_block.cu",
+            "norm_relu_moments": ("paddle_tpu_torch/csrc/moments_tc.cuh",
                                   "paddle_tpu/kernels/fused_block.py:714"),
             "conv1x1_bn_residual": ("paddle_tpu_torch/csrc/conv1x1_tc.cuh",
                                     "paddle_tpu/kernels/fused_block.py:756"),

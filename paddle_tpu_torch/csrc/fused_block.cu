@@ -19,42 +19,39 @@
 // stages (batch 128; Cin, C, S = 256, 64, 3136 / 512, 128, 784 / 1024,
 // 256, 196) every stage does the same products: 13.2 GFLOP in
 // conv1x1_stats (0.196 ms at the 67 TFLOP/s float32 peak), 29.6 in
-// conv3x3_norm_stats (0.442 ms), 3.3 in the moments (0.049 ms) and 13.2 in
-// conv1x1_bn_residual (0.196 ms; at 56x56 its 925 MB of traffic, 0.276 ms,
-// bound it instead).
+// conv3x3_norm_stats (0.442 ms), 1.7 in the moments (M2 is symmetric)
+// and 13.2 in conv1x1_bn_residual (0.196 ms; at 56x56 its 925 MB of
+// traffic, 0.276 ms, bound it instead).
 //
 // What the design does about it. The TPU kernels take a whole image a grid
 // step, roll it in VMEM for the 3x3 taps and carry the sums from step to
-// step of a sequential grid. Here conv1x1_stats and the moments are each
-// one tiled float32 SIMT product on the CUDA cores, out = A [M, K] x B [K,
-// N*S], with the batch folded into the columns so that S = 196 and 49 do
-// not leave tiles empty:
-//   - a 256-thread block owns a BM x BN output tile (BM 64 or 128 by M,
-//     BN 128; the moments 64 x 64 or 128 x 128), each thread an 8 x 8 (or
-//     4 x 8, 4 x 4) micro-tile read from shared memory as float4;
+// step of a sequential grid. Here conv1x1_stats is one tiled float32 SIMT
+// product on the CUDA cores, out = W1 [C, Cin] x [Cin, N*S], with the
+// batch folded into the columns so that S = 196 and 49 do not leave tiles
+// empty:
+//   - a 256-thread block owns a BM x 128 output tile (BM 64 or 128 by C),
+//     each thread an 8 x 8 (or 4 x 8) micro-tile read from shared memory
+//     as float4;
 //   - K advances 8 deep, two shared-memory stages: the next stage's global
 //     loads are issued into registers before the current stage's products;
-//   - the loaders do the elementwise work on the way in (the moments
-//     normalize a2); each column loader thread loads one fixed column of
-//     B, whose (n, p) it decodes once;
-//   - conv1x1_stats' epilogue writes a1 with each tile's per-channel
-//     partial sums into a [2, C, tiles] buffer (a fixed-order tree across
-//     the tile's threads), which a second kernel adds in tile order;
-//   - the moments' K is N*S (25,088 to 401,408) against a C x C output, so
-//     it is cut into splits, each block writes its partial Gram matrix (and
-//     the row sums of h in column C) to [splits, C, C + 1], and a second
-//     kernel adds the splits in order.
-// conv3x3_norm_stats and conv1x1_bn_residual run on the tensor cores in
-// 3xTF32, fed by rings of asynchronous copies, their operands normalized
-// once a value: the 3x3 over halo tiles of h1 (conv3x3_tc.cuh), the last
-// 1x1 over a tile of h2 built once a block, so h2 never reaches device
-// memory (conv1x1_tc.cuh, whose kernel bwd_final's dx shares); each
-// header says how and why. No atomics anywhere: every result is
-// deterministic. The tile machinery and the finalizing passes are in
-// fused_block.cuh, shared with the backward (fused_block_bwd.cu).
+//     each column loader thread loads one fixed column of B, whose (n, p)
+//     it decodes once;
+//   - the epilogue writes a1 with each tile's per-channel partial sums
+//     into a [2, C, tiles] buffer (a fixed-order tree across the tile's
+//     threads), which a second kernel adds in tile order.
+// The other three run on the tensor cores in 3xTF32, fed by rings of
+// asynchronous copies, their operands normalized once a value: the 3x3
+// over halo tiles of h1 (conv3x3_tc.cuh), the moments as a split-K Gram
+// product over the upper triangle, h normalized as it lands
+// (moments_tc.cuh), the last 1x1 over a tile of h2 built once a block, so
+// h2 never reaches device memory (conv1x1_tc.cuh, whose kernel bwd_final's
+// dx shares); each header says how and why. No atomics anywhere: every
+// result is deterministic. The tile machinery and the finalizing passes
+// are in fused_block.cuh, shared with the backward (fused_block_bwd.cu).
 #include "fused_block.cuh"
 #include "conv1x1_tc.cuh"
 #include "conv3x3_tc.cuh"
+#include "moments_tc.cuh"
 
 namespace {
 
@@ -167,37 +164,8 @@ conv1x1_stats_kernel(const float* __restrict__ x, const float* __restrict__ w,
   WeightA<TM> la(w, M, K, m0);
   ActB<TN> lb(x, K, S, NS, j0);
   float acc[TM][TN];
-  float unused = 0.f;
-  mainloop<TM, TN, false>(acc, la, lb, 0, K, smem, unused);
+  mainloop<TM, TN>(acc, la, lb, 0, K, smem);
   store_with_stats<TM, TN>(acc, y, part, M, S, NS, T, m0, j0, jt, smem);
-}
-
-// Block (tile, split): the T*16-square tile (tm, tn) of the split's partial
-// Gram matrix, part[split] [C, C + 1]; tiles with tn == 0 also write the
-// rows' sums of h into column C.
-template <int T>
-__global__ void __launch_bounds__(kThreads, 2)
-moments_kernel(const float* __restrict__ a2, const float* __restrict__ scale,
-               const float* __restrict__ shift, float* __restrict__ part,
-               int C, int S, int NS, int chunk, int tiles) {
-  constexpr int BM = 16 * T;
-  __shared__ __align__(16) float smem[Smem<BM, BM>::kFloats];
-  const int tid = threadIdx.x;
-  const int tm = blockIdx.x % tiles, tn = blockIdx.x / tiles;
-  const int m0 = tm * BM, n0 = tn * BM;
-  const int kb = blockIdx.y * chunk, ke = min(NS, kb + chunk);
-  const NormRelu h{{C, S, NS}, a2, scale, shift};
-  Rows<T, NormRelu> la(h, C, m0), lb(h, C, n0);
-  float acc[T][T];
-  float rowsum = 0.f;
-  if (tn == 0)
-    mainloop<T, T, true>(acc, la, lb, kb, ke, smem, rowsum);
-  else
-    mainloop<T, T, false>(acc, la, lb, kb, ke, smem, rowsum);
-  float* P = part + (long)blockIdx.y * C * (C + 1);
-  store_partial<T, T>(acc, P, C, C, C + 1, m0, n0);
-  if (tn == 0 && tid < BM && m0 + tid < C)
-    P[(long)(m0 + tid) * (C + 1) + C] = rowsum;
 }
 
 }  // namespace
@@ -238,30 +206,20 @@ extern "C" int fused_block_conv3x3_norm_stats_f32(
 }
 
 // a2 [N, C, S], scale/shift [C]; part [splits, C, C + 1] scratch, out
-// [C, C + 1]: M2 = sum h h^T in columns 0..C-1, sum h in column C. Split p
-// takes the columns n*S + s in [p * chunk, (p + 1) * chunk); chunk % 8 ==
-// 0 and the splits cover N*S exactly.
-extern "C" int fused_block_norm_relu_moments_f32(const float* a2,
-                                                 const float* scale,
-                                                 const float* shift,
-                                                 float* part, float* out,
-                                                 int N, int C, int S,
-                                                 int splits, int chunk,
-                                                 void* stream) {
-  const long ns = (long)N * S;
-  if (N <= 0 || C <= 0 || S <= 0 || !splits_ok(ns, splits, chunk))
+// [C, C + 1]: M2 = sum h h^T in columns 0..C-1, exactly symmetric, sum h
+// in column C. Split p takes the 32-column pieces [p * P / splits, (p +
+// 1) * P / splits) of N*S; wide: S % 4 == 0 and a2 16-byte aligned
+// (moments_tc.cuh).
+extern "C" int fused_block_norm_relu_moments_f32(
+    const float* a2, const float* scale, const float* shift, float* part,
+    float* out, int N, int C, int S, int splits, int wide, void* stream) {
+  if (!moments::grid_ok(a2, N, C, S, splits, wide))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C <= 64) {
-    const int tiles = (C + 63) / 64;
-    moments_kernel<4><<<dim3(tiles * tiles, splits), kThreads, 0, s>>>(
-        a2, scale, shift, part, C, S, (int)ns, chunk, tiles);
-  } else {
-    const int tiles = (C + 127) / 128;
-    moments_kernel<8><<<dim3(tiles * tiles, splits), kThreads, 0, s>>>(
-        a2, scale, shift, part, C, S, (int)ns, chunk, tiles);
-  }
-  return finish_splits(part, out, (long)C * (C + 1), splits, s);
+  return wide ? moments::launch<true>(a2, scale, shift, part, out, N, C, S,
+                                      splits, s)
+              : moments::launch<false>(a2, scale, shift, part, out, N, C, S,
+                                       splits, s);
 }
 
 // a2 [N, C, S], x [N, Cout, S], wt [C, ldw] = W3^T, its rows zero-padded

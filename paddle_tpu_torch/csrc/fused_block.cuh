@@ -1,10 +1,10 @@
 // The tile machinery that the bottleneck chain's forward (fused_block.cu)
 // and backward (fused_block_bwd.cu) kernels share: one tiled float32 SIMT
 // product, out = A [M, K] x B [K, cols], 256 threads a block, each an
-// 8 x 8 (or 4 x 8, 4 x 4) micro-tile read from shared memory as float4, K
-// advancing 8 deep through two shared-memory stages; the loaders that feed
-// it; the per-tile row partials of the epilogues and the fixed-order
-// passes that add partials up (no atomics: every result is deterministic).
+// 8 x 8 (or 4 x 8) micro-tile read from shared memory as float4, K
+// advancing 8 deep through two shared-memory stages (conv1x1_stats'); the
+// per-tile row partials of the epilogues and the fixed-order passes that
+// add partials up (no atomics: every result is deterministic).
 #pragma once
 
 #include <climits>
@@ -78,68 +78,17 @@ __device__ __forceinline__ void mma_stage(float (&acc)[TM][TN],
   }
 }
 
-// ---------------------------------------------------------------------------
-// Loaders. fetch(k0) reads stage k0 from device memory into registers;
-// store(s) writes them to a stage buffer. "Row" loaders fill a [rows][kBK]
-// tile (thread: k offset tid & 7, rows tid >> 3 + 32 r) and store it
-// transposed, [kBK][rows + 4]; "column" loaders fill a [kBK][BN] tile
-// (thread: one fixed column tid % BN, k offsets tid / BN + (256 / BN) r).
-// ---------------------------------------------------------------------------
+// Loaders (fused_block.cu's). fetch(k0) reads stage k0 from device
+// memory into registers; store(s) writes them to a stage buffer. A "row"
+// loader fills a [rows][kBK] tile (thread: k offset tid & 7, rows tid >>
+// 3 + 32 r) and stores it transposed, [kBK][rows + 4]; a "column" loader
+// fills a [kBK][BN] tile (thread: one fixed column tid % BN, k offsets
+// tid / BN + (256 / BN) r).
 
-// The split-K products' operands, a row loader for either side: X[c][k] =
-// f.value(base, c) at column k = n * S + p, base = n * C * S + p the
-// offset of channel 0 in an [N, C, S] tensor; 0 where f.base(k, ok) says
-// not ok (a column outside N * S, or a shifted pixel outside the image).
-template <int T, class F>
-struct Rows {
-  static constexpr int BM = 16 * T, R = T / 2;
-  F f;
-  int C, c0, kk, cr;
-  float reg[R];
-  __device__ Rows(const F& f_, int C_, int c0_)
-      : f(f_), C(C_), c0(c0_), kk(threadIdx.x & 7), cr(threadIdx.x >> 3) {}
-  __device__ __forceinline__ void fetch(int k0) {
-    bool ok;
-    const long base = f.base(k0 + kk, ok);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int c = c0 + cr + 32 * r;
-      reg[r] = (ok && c < C) ? f.value(base, c) : 0.f;
-    }
-  }
-  __device__ __forceinline__ void store(float* s) const {
-#pragma unroll
-    for (int r = 0; r < R; ++r) s[kk * (BM + 4) + cr + 32 * r] = reg[r];
-  }
-};
-
-// Column k of an [N, C, S] tensor seen as C x (N*S): its channel-0 offset.
-struct Columns {
-  int C, S, NS;
-  __device__ __forceinline__ long base(int k, bool& ok) const {
-    ok = k < NS;
-    const int n = k / S;
-    return (long)n * C * S + (k - n * S);
-  }
-};
-
-// relu(a * scale[c] + shift[c]) of an [N, C, S] activation.
-struct NormRelu : Columns {
-  const float* a;
-  const float* scale;
-  const float* shift;
-  __device__ __forceinline__ float value(long base, int c) const {
-    return relu_affine(__ldg(a + base + (long)c * S), __ldg(scale + c),
-                       __ldg(shift + c));
-  }
-};
-
-// acc = A B over k in [kb, ke), two shared-memory stages. With ROWSUM the
-// threads tid < BM also add up their row of every A stage into rowsum.
-template <int TM, int TN, bool ROWSUM, class LA, class LB>
+// acc = A B over k in [kb, ke), two shared-memory stages.
+template <int TM, int TN, class LA, class LB>
 __device__ __forceinline__ void mainloop(float (&acc)[TM][TN], LA& la, LB& lb,
-                                         int kb, int ke, float* smem,
-                                         float& rowsum) {
+                                         int kb, int ke, float* smem) {
   constexpr int BM = 16 * TM;
   using SM = Smem<BM, 16 * TN>;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
@@ -161,13 +110,7 @@ __device__ __forceinline__ void mainloop(float (&acc)[TM][TN], LA& la, LB& lb,
       la.fetch(k0 + kBK);
       lb.fetch(k0 + kBK);
     }
-    const float* a = As + buf * SM::kA;
-    mma_stage<TM, TN>(acc, a, Bs + buf * SM::kB, ty, tx);
-    if constexpr (ROWSUM) {
-      if (tid < BM)
-#pragma unroll
-        for (int kk = 0; kk < kBK; ++kk) rowsum += a[kk * (BM + 4) + tid];
-    }
+    mma_stage<TM, TN>(acc, As + buf * SM::kA, Bs + buf * SM::kB, ty, tx);
     if (next) {
       la.store(As + (buf ^ 1) * SM::kA);
       lb.store(Bs + (buf ^ 1) * SM::kB);
@@ -222,26 +165,6 @@ __device__ __forceinline__ void store_row_partials(float* __restrict__ part,
   }
 }
 
-// Writes a split's partial product, tile (m0, n0) of part [M, ld] (ld >=
-// Ncols; rows m < M and columns c < Ncols only).
-template <int TM, int TN>
-__device__ __forceinline__ void store_partial(const float (&acc)[TM][TN],
-                                              float* __restrict__ P, int M,
-                                              int Ncols, int ld, int m0,
-                                              int n0) {
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + tile_pos(i, ty);
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = n0 + tile_pos(j, tx);
-      if (c < Ncols) P[(long)m * ld + c] = acc[i][j];
-    }
-  }
-}
-
 // out[0][m] and out[1][m]: row m's T partials added in tile order (a warp
 // a row, each lane a strided run, then the lanes in order).
 __global__ void __launch_bounds__(kThreads)
@@ -271,14 +194,25 @@ chain_stats_final_kernel(const float* __restrict__ part, float* __restrict__ out
   }
 }
 
-// out[e] = sum over the splits of part[split][e], in split order.
-__global__ void __launch_bounds__(kThreads)
+// out[e] = sum over the splits of part[split][e], in split order, eight
+// splits' loads in flight at a time (a small E still spreads over many
+// SMs: 64 threads a block).
+constexpr int kSumThreads = 64;
+__global__ void __launch_bounds__(kSumThreads)
 split_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
                  long E, int splits) {
-  const long e = (long)blockIdx.x * kThreads + threadIdx.x;
+  const long e = (long)blockIdx.x * kSumThreads + threadIdx.x;
   if (e >= E) return;
   float s = 0.f;
-  for (int p = 0; p < splits; ++p) s += part[(long)p * E + e];
+  int p = 0;
+  for (; p + 8 <= splits; p += 8) {
+    float v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) v[u] = part[(long)(p + u) * E + e];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) s += v[u];
+  }
+  for (; p < splits; ++p) s += part[(long)p * E + e];
   out[e] = s;
 }
 
@@ -297,8 +231,8 @@ int finish_splits(const float* part, float* out, long E, int splits,
                   cudaStream_t s) {
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  split_sum_kernel<<<(int)((E + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-      part, out, E, splits);
+  split_sum_kernel<<<(int)((E + kSumThreads - 1) / kSumThreads), kSumThreads,
+                     0, s>>>(part, out, E, splits);
   return (int)cudaGetLastError();
 }
 
@@ -306,14 +240,6 @@ bool tiles_ok(int M, int N, int S, int T) {
   const long ns = (long)N * S;
   return M > 0 && N > 0 && S > 0 && ns < INT_MAX &&
          T == (int)((ns + kBN - 1) / kBN) && T <= 65535;
-}
-
-// Splits p of K = N*S take the columns [p * chunk, (p + 1) * chunk); chunk
-// % kBK == 0 and the splits cover N*S exactly, each non-empty.
-bool splits_ok(long ns, int splits, int chunk) {
-  return ns > 0 && ns < INT_MAX && chunk > 0 && chunk % kBK == 0 &&
-         splits > 0 && splits <= 65535 && (long)splits * chunk >= ns &&
-         (long)(splits - 1) * chunk < ns;
 }
 
 }  // namespace

@@ -16,6 +16,8 @@ Eight kernels, written by hand for Hopper: the forward's in
 ``csrc/fused_block_bwd.cu``, on the tile machinery of
 ``csrc/fused_block.cuh``, except ``conv3x3_norm_stats``, whose 3xTF32
 tensor-core product over halo tiles is ``csrc/conv3x3_tc.cuh``,
+``norm_relu_moments``, whose 3xTF32 split-K Gram product over the upper
+triangle, h normalized as it lands, is ``csrc/moments_tc.cuh``,
 ``conv1x1_bn_residual``, whose 3xTF32 product over an h2 tile built once
 a block is ``csrc/conv1x1_tc.cuh`` (shared with ``bwd_final``'s dx),
 ``bwd_reduce3``, whose split-K product fed by asynchronous copies is
@@ -52,6 +54,7 @@ cotangent citizens.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -321,13 +324,6 @@ def conv3x3_norm_stats(x: torch.Tensor, taps: torch.Tensor,
 conv3x3_norm_stats.launches = 0
 
 
-def _square_tiles(m: int, n: int) -> int:
-    """Output tiles of a split-K product [m, n]: 64 x 64 where its smaller
-    side is <= 64, else 128 x 128 (the kernels' rule)."""
-    b = 64 if min(m, n) <= 64 else 128
-    return -(-m // b) * -(-n // b)
-
-
 _MID_KP = 32   # positions of a tap-gradient stage (bwd_mid::kKP)
 
 
@@ -396,13 +392,42 @@ def _bwd_apply3_grid(n: int, s: int, c: int,
             -(-(cin + c) // _A3_BK) * _A3_BK)
 
 
-def _split_k(ns: int, blocks: int, sms: int) -> Tuple[int, int]:
-    """(splits, chunk) of a split-K product's K = N·S over `blocks` output
-    tiles: enough splits that tiles x splits give about 4 blocks per SM,
-    each split a multiple of 8 columns."""
-    want = max(1, -(-4 * sms // blocks))
-    chunk = _BK * -(-ns // (want * _BK))
-    return -(-ns // chunk), chunk
+_MOM_KP = 32   # columns of N·S a moments stage (moments::kK)
+# the most positions N·S the moments kernel takes: the column of a
+# piece's last position stays an int
+_MOM_MAX_NS = 2 ** 31 - 1 - _MOM_KP
+
+
+def _moments_tiles(c: int) -> list:
+    """(r0, c0) of norm_relu_moments' tiles, in the kernel's block order:
+    the 64-row x 128-column tiles of M2 [C, C] that reach the upper
+    triangle, column tile by column tile, rows r0 = 0, 64, ... up to the
+    tile that holds the diagonal's end there (moments::Tile)."""
+    rows = -(-c // 64)
+    return [(64 * rt, 128 * ct) for ct in range(-(-c // 128))
+            for rt in range(min(2 * ct + 2, rows))]
+
+
+@functools.cache   # at C 64 the search below weighs ~800 split counts
+def _moments_grid(n: int, s: int, c: int, sms: int) -> Tuple[int, int, int]:
+    """(tiles, splits, pieces) of norm_relu_moments over K = N·S:
+    32-column pieces of N·S (a piece may hold the end of one image and the
+    start of the next; the last one past N·S), split p taking pieces [p ·
+    pieces // splits, (p + 1) · pieces // splits). The blocks of a split
+    (the tiles of ``_moments_tiles``) run two an SM; of the split counts
+    from one wave's worth to four waves' worth, the one whose blocks fill
+    their last wave best (the fewest on ties), at most one split a piece,
+    so that none is empty, and at most 65535."""
+    pieces = -(-n * s // _MOM_KP)
+    blocks, wave = len(_moments_tiles(c)), 2 * sms
+    want = max(1, wave // blocks)
+
+    def fill(splits):
+        return splits * blocks / (-(-splits * blocks // wave) * wave)
+
+    splits = max(range(want, max(want, 4 * wave // blocks) + 1),
+                 key=lambda k: (fill(k), -k))
+    return blocks, min(splits, pieces, 65535), pieces
 
 
 def norm_relu_moments(x: torch.Tensor, scale: torch.Tensor,
@@ -411,17 +436,25 @@ def norm_relu_moments(x: torch.Tensor, scale: torch.Tensor,
     h = relu(x·scale + shift), the inputs of bn3's analytic statistics.
 
     CPU tensors run ``norm_relu_moments_reference``. CUDA tensors run the
-    kernel: float32, contiguous; N·S split across blocks, the splits'
-    partials added in a fixed order (deterministic)."""
+    kernel: float32, contiguous, N·S at most 2³¹ - 33; the Gram product
+    in 3xTF32 on the tensor cores (within float32's rounding), over the
+    upper triangle, M2 exactly symmetric; N·S split across blocks
+    (``_moments_grid``), the splits' partials added in a fixed order
+    (deterministic)."""
     if not build.on_card("norm_relu_moments", x):
         return norm_relu_moments_reference(x, scale, shift)
     _dims("x", x, 3)
     n, c, s = x.shape
+    if n * c * s == 0:
+        raise ValueError(f"x {tuple(x.shape)} is empty")
+    if n * s > _MOM_MAX_NS:
+        raise ValueError(f"N·S = {n * s}: the kernel takes at most "
+                         f"{_MOM_MAX_NS} positions")
     build.check("x", x, x.device, (n, c, s))
     build.check("scale", scale, x.device, (c,))
     build.check("shift", shift, x.device, (c,))
-    splits, chunk = _split_k(n * s, _square_tiles(c, c),
-                             build.sm_count(x.device))
+    _, splits, _ = _moments_grid(n, s, c, build.sm_count(x.device))
+    wide = s % 4 == 0 and x.data_ptr() % 16 == 0
     part = _empty(x.device, splits, c, c + 1)
     out = _empty(x.device, c, c + 1)
     with torch.cuda.device(x.device):
@@ -429,8 +462,8 @@ def norm_relu_moments(x: torch.Tensor, scale: torch.Tensor,
                      _fn("fused_block_norm_relu_moments_f32",
                          (_P,) * 5 + (_I,) * 5 + (_P,)),
                      x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-                     part.data_ptr(), out.data_ptr(), n, c, s, splits, chunk,
-                     _stream(x.device))
+                     part.data_ptr(), out.data_ptr(), n, c, s, splits,
+                     int(wide), _stream(x.device))
     norm_relu_moments.launches += 1
     return out[:, c], out[:, :c]
 

@@ -18,7 +18,11 @@ them against this tree's libraries:
   chain makes, as ``chip_smoke.py`` phase 3 makes them; bit for bit,
   but for ``conv1x1_bn_residual``, redesigned on tensor cores, which is
   held to the parent's within atol = rtol = 1e-5 (a parent whose entry
-  point takes W3 itself is called through that entry point);
+  point takes W3 itself is called through that entry point), and
+  ``norm_relu_moments``, redesigned on tensor cores, whose Σh and M2 are
+  held to the parent's within rtol 1e-5 of their terms (h >= 0: the
+  sums themselves; a parent whose entry point takes a column chunk, the
+  float32 SIMT kernel's, is called with that kernel's grid);
 * their times, by CUDA events over 10 calls, in turns: parent, this
   tree, this tree, parent.
 
@@ -135,6 +139,42 @@ def w3_entry(a2, x, sc2, sh2, w3, sc3, sh3):
     return out
 
 
+def parent_takes_chunk(parent: Path) -> bool:
+    """Whether the parent's norm_relu_moments entry point takes (splits,
+    chunk), as the float32 SIMT kernel's did, rather than (splits,
+    wide)."""
+    text = (parent / "paddle_tpu_torch" / "csrc" / "fused_block.cu"
+            ).read_text()
+    entry = text[text.index("fused_block_norm_relu_moments_f32("):]
+    return "chunk" in entry[:entry.index(")")]
+
+
+def simt_grid(ns: int, c: int, sms: int):
+    """(splits, chunk) of the float32 SIMT moments kernel: 64- or
+    128-square tiles of [C, C], enough splits of K = N·S for ~4 blocks an
+    SM, each a multiple of 8 columns."""
+    b = 64 if c <= 64 else 128
+    want = max(1, -(-4 * sms // (-(-c // b)) ** 2))
+    chunk = 8 * -(-ns // (want * 8))
+    return -(-ns // chunk), chunk
+
+
+def chunk_entry(a2, scale, shift):
+    """norm_relu_moments through an entry point that takes (splits,
+    chunk), on the SIMT kernel's grid."""
+    n, c, s = a2.shape
+    splits, chunk = simt_grid(n * s, c, build.sm_count(a2.device))
+    part = torch.empty(splits, c, c + 1, device=a2.device)
+    out = torch.empty(c, c + 1, device=a2.device)
+    fn = build.bind("fused_block.cu", "fused_block_norm_relu_moments_f32",
+                    (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5
+                    + (ctypes.c_void_p,))
+    build.launch("norm_relu_moments", fn, a2.data_ptr(), scale.data_ptr(),
+                 shift.data_ptr(), part.data_ptr(), out.data_ptr(), n, c, s,
+                 splits, chunk, torch.cuda.current_stream().cuda_stream)
+    return out[:, c], out[:, :c]
+
+
 def chain_inputs(d, dout, h):
     """{kernel: args} of the chain's eight wrappers in one forward and
     backward of the stage d, each wrapper replaced by its plain version."""
@@ -205,6 +245,7 @@ def main() -> int:
         build.bind.cache_clear()
 
     old_entry = parent_takes_w3(args.parent.resolve())
+    old_moments = parent_takes_chunk(args.parent.resolve())
     gen = torch.Generator(device="cuda").manual_seed(8)
     n = chip_smoke.RESNET["batch"]
     for cin, c, h in chip_smoke.CHAIN_SHAPES:
@@ -218,6 +259,9 @@ def main() -> int:
                 if (k == "conv1x1_bn_residual" and which == "parent"
                         and old_entry):
                     return (w3_entry(*inputs[k]),)
+                if (k == "norm_relu_moments" and which == "parent"
+                        and old_moments):
+                    return chunk_entry(*inputs[k])
                 out = getattr(fb, k)(*inputs[k])
                 return out if isinstance(out, tuple) else (out,)
             outs = {}
@@ -230,6 +274,14 @@ def main() -> int:
                                                outs["parent"][0])
                 verdict = (f"within 1e-5 of the parent (share {share:.4f})"
                            if share <= 1 else f"DIFFERS (share {share:.4f})")
+            elif k == "norm_relu_moments":
+                share = max(float(((x - y).abs() / (1e-5 * y.abs())
+                                   .clamp_min(1e-30)).max())
+                            for x, y in zip(outs["this tree"],
+                                            outs["parent"]))
+                verdict = (f"Σh, M2 within rtol 1e-5 of the parent's (share "
+                           f"{share:.4f})" if share <= 1
+                           else f"DIFFERS (share {share:.4f})")
             else:
                 verdict = ("bit-identical" if all(
                     torch.equal(x, y) for x, y in

@@ -20,8 +20,10 @@ cover the padded grid; so do bwd_mid's and bwd_final's products, to
 the backward limits, and their splits cover their K, and
 conv1x1_bn_residual's, to the forward limit, whose grid covers N·S and
 Cout and whose wrapper refuses what its kernel does not take before any
-launch; on the CPU the chain's gate leaves C to the plain versions,
-which take any. Inputs come from
+launch, and norm_relu_moments' Gram product, to the sums' limit, whose
+grid covers N·S and M2's upper triangle and whose wrapper refuses what
+its kernel does not take; on the CPU the chain's gate leaves C to the
+plain versions, which take any. Inputs come from
 a numpy seed: N 2-8, Cin 16-256, C 8-64, H 4, 7 and 8 (S 16, 49 and
 64), BN shifts that are not zero, so the 3x3's zero padding of h1 (not
 of a1) and, in the backward, of da2 (not r2) shows at every edge.
@@ -688,6 +690,177 @@ def test_bwd_apply3_grid_covers_n_s(n, s, c, cin, bn, blocks):
     covered = [(k // s, k % s) for jt in range(t)
                for k in range(jt * bn, min(n * s, jt * bn + bn))]
     assert covered == [(i, p) for i in range(n) for p in range(s)]
+
+
+def _moments_shares(r0, c0, c):
+    """The warps of a moments tile (moments_tc.cuh's Share): its 32 x 32
+    warp tiles (2 x 4, rows wr, columns wc) on or above the diagonal and
+    inside C, in order, each shared by Q warps (Q = 4 for one, 2 for up
+    to 3, else 1), warp w taking warp tile w % n and group w // n; and
+    whether the tile holds its rows' diagonal, where its last warp adds
+    up Σh for rows r0 .. r0 + 63. Returns ([(wr, wc)], Q, diagonal)."""
+    warps = [(r0 + 32 * wm, c0 + 32 * wn) for wm in range(2)
+             for wn in range(4)]
+    busy = [(wr, wc) for wr, wc in warps if wr < c and wc < c and
+            wc + 31 >= wr]
+    q = 4 if len(busy) <= 1 else 2 if len(busy) <= 3 else 1
+    return busy, q, r0 >= c0
+
+
+def _moments_tf32(x, scale, shift, products, sms=132):
+    """norm_relu_moments as the card computes it (csrc/moments_tc.cuh): h
+    normalized once, zero past N·S; K = the N·S positions in
+    _moments_grid's splits of 32-column pieces (a piece may straddle two
+    images), each k8 step's products of _pairs into a fresh fragment
+    (summed in float32), added into a float32 accumulator step after step,
+    where Q warps share a warp tile one accumulator for every Q-th step,
+    the Q added in order; Σh a float32 sum position after position; the
+    splits added in split order; M2's upper triangle mirrored."""
+    n, c, s = x.shape
+    _, splits, pieces = tfb._moments_grid(n, s, c, sms)
+    groups = torch.zeros(c, c, dtype=torch.long)
+    for r0, c0 in tfb._moments_tiles(c):
+        busy, q, _ = _moments_shares(r0, c0, c)
+        for wr, wc in busy:
+            groups[wr:wr + 32, wc:wc + 32] = q
+    length = pieces * 32
+    h = tfb._norm_relu(x, scale, shift).permute(1, 0, 2).reshape(c, n * s)
+    h = torch.nn.functional.pad(h, (0, length - n * s))
+    steps = h.reshape(c, length // 8, 8).permute(1, 0, 2)   # [k8, C, 8]
+    pairs = _pairs(steps, steps, products)
+    m2, sum_h = torch.zeros(c, c), torch.zeros(c)
+    for sp in range(splits):
+        k0, k1 = sp * pieces // splits * 4, (sp + 1) * pieces // splits * 4
+        accs = {q: [torch.zeros(c, c) for _ in range(q)] for q in (1, 2, 4)}
+        for j0 in range(k0, k1, 256):
+            j1 = min(k1, j0 + 256)
+            f = sum(torch.matmul(a[j0:j1], b[j0:j1].transpose(1, 2))
+                    for a, b in pairs)
+            for k in range(j1 - j0):
+                for q, acc in accs.items():
+                    acc[(j0 + k) % q] = acc[(j0 + k) % q] + f[k]
+        acc = torch.zeros(c, c)
+        for q, parts in accs.items():
+            total = parts[0]
+            for more in parts[1:]:
+                total = total + more
+            acc = torch.where(groups == q, total, acc)
+        rows = torch.zeros(c)
+        for p in range(8 * k0, 8 * k1):
+            rows = rows + h[:, p]
+        m2, sum_h = m2 + acc, sum_h + rows
+    upper = torch.triu(m2)
+    return sum_h, upper + torch.triu(m2, 1).T
+
+
+@pytest.mark.parametrize("n,c,s", [(8, 64, 3136), (16, 256, 196)])
+def test_3xtf32_holds_norm_relu_moments_to_its_limits(n, c, s):
+    """At the chain's widths (C 64 over 25,088 positions, C 256 over
+    3,136), with shifts > 0 on a quarter of the channels and more, the
+    card's 3xTF32 arithmetic for norm_relu_moments, emulated, keeps Σh
+    and M2 within half of their limits, rtol 1e-5 of Σ|terms| (h >= 0:
+    the sums themselves), of the plain version. The share of one TF32
+    product alone is printed, not asserted: for a Gram of nonnegative
+    terms its truncations may stay inside the limit too."""
+    rng = np.random.RandomState(16)
+    f32 = np.float32
+    x = torch.from_numpy((rng.randn(n, c, s) + 0.3).astype(f32))
+    scale = torch.from_numpy((0.5 + rng.rand(c)).astype(f32))
+    shift = torch.from_numpy((0.3 * rng.randn(c) + 0.2).astype(f32))
+    assert int((shift > 0).sum()) >= c // 4
+    want = tfb.norm_relu_moments_reference(x, scale, shift)
+
+    def share(products):
+        got = _moments_tf32(x, scale, shift, products)
+        return max(float(((g - w).abs() / (1e-5 * w).clamp_min(1e-30))
+                         .max()) for g, w in zip(got, want))
+
+    three = share(3)
+    print(f"largest share of the limit: 3xTF32 {three:.4f}, one TF32 "
+          f"product {share(1):.4f}")
+    assert three <= 0.5
+
+
+@pytest.mark.parametrize("n,s,c,tiles,splits", [
+    (128, 3136, 64, 1, 264),   # ResNet-50's three chain stages: whole
+    (128, 784, 128, 2, 132),   # waves of tiles x splits, two blocks an SM
+    (128, 196, 256, 6, 44),
+    (3, 49, 72, 2, 5),         # S % 4 != 0, pieces straddle images; C 72:
+                               # a second row tile, one piece a split
+    (5, 45, 200, 6, 8),        # N·S 225, not a multiple of 32
+    (2, 50, 130, 5, 4),        # C just past a 128-column tile
+    (1, 7, 8, 1, 1),           # N·S 7: one piece
+])
+def test_moments_grid_covers_n_s_and_the_upper_triangle(n, s, c, tiles,
+                                                        splits):
+    """norm_relu_moments' grid: N·S in whole 32-column pieces (one stage
+    each, the last one past N·S), split p taking pieces [p · P // splits,
+    (p + 1) · P // splits): every position of every image covered exactly
+    once, no split empty; the 64 x 128 tiles' computing warps write every
+    entry (i <= j) of M2 exactly once, and every row's Σh comes from
+    exactly one tile, whose last warp computes no warp tile; at the
+    chain's stages tiles x splits fill whole waves of the 132 SMs at two
+    blocks an SM."""
+    got_tiles, got_splits, pieces = tfb._moments_grid(n, s, c, 132)
+    assert (got_tiles, got_splits) == (tiles, splits)
+    assert (pieces - 1) * 32 < n * s <= pieces * 32
+    runs = [range(sp * pieces // splits, (sp + 1) * pieces // splits)
+            for sp in range(splits)]
+    assert all(len(r) > 0 for r in runs)
+    assert [j for r in runs for j in r] == list(range(pieces))
+    covered = [(k // s, k % s) for j in range(pieces)
+               for k in range(32 * j, min(n * s, 32 * j + 32))]
+    assert covered == [(i, p) for i in range(n) for p in range(s)]
+    written = np.zeros((c, c), dtype=int)
+    summed = np.zeros(c, dtype=int)
+    for r0, c0 in tfb._moments_tiles(c):
+        busy, q, diagonal = _moments_shares(r0, c0, c)
+        assert len(busy) * q <= (7 if diagonal else 8)
+        for wr, wc in busy:
+            block = written[wr:wr + 32, wc:wc + 32]
+            rows = np.arange(wr, wr + block.shape[0])[:, None]
+            cols = np.arange(wc, wc + block.shape[1])[None, :]
+            block += rows <= cols
+        if diagonal:
+            summed[r0:r0 + 64] += 1
+    assert np.array_equal(written, np.triu(np.ones((c, c), dtype=int)))
+    assert np.all(summed == 1)
+    if n == 128:
+        assert tiles * splits % (2 * 132) == 0
+
+
+@pytest.mark.parametrize("fault", ["float64", "strided", "shape", "empty",
+                                   "positions"])
+def test_norm_relu_moments_refuses_before_launch(monkeypatch, fault):
+    """The wrapper given tensors declared on the card (the CPU tensors
+    here) refuses a float64 or strided x, a scale of another C, an empty
+    x, or N·S past what the kernel takes (an expanded view, no memory),
+    TypeError or ValueError, before it reaches its kernel (build.bind
+    patched to fail if it is reached)."""
+    monkeypatch.setattr(build, "on_card", lambda what, t: True)
+
+    def no_kernel(*a):
+        raise AssertionError("reached the kernel")
+
+    monkeypatch.setattr(build, "bind", no_kernel)
+    monkeypatch.setattr(build, "sm_count", no_kernel)
+    n, c, s = 2, 8, 49
+    x, scale, shift = torch.zeros(n, c, s), torch.ones(c), torch.ones(c)
+    if fault == "float64":
+        x = x.double()
+    elif fault == "strided":
+        x = torch.zeros(c, n, s).transpose(0, 1)
+        assert not x.is_contiguous()
+    elif fault == "shape":
+        scale = torch.ones(c + 1)
+    elif fault == "empty":
+        x = torch.zeros(n, c, 0)
+    else:
+        x = torch.zeros(1, c, 1).expand(2 ** 16, c, 2 ** 15)
+    before = tfb.norm_relu_moments.launches
+    with pytest.raises(TypeError if fault == "float64" else ValueError):
+        tfb.norm_relu_moments(x, scale, shift)
+    assert tfb.norm_relu_moments.launches == before
 
 
 @pytest.mark.parametrize("shape", SHAPES)

@@ -664,6 +664,65 @@ def test_chain_kernels_match_plain(cuda, n, cin, c, h):
     assert torch.equal(fb.conv1x1_stats(d["x"], d["w1"])[2], q1)
 
 
+@pytest.mark.parametrize("n,c,s", [
+    (3, 72, 49),     # S % 4 != 0: 4-byte copies; C 72: a second row tile
+    (5, 200, 45),    # N·S 225, not a multiple of 32; tiles off the diagonal
+    (2, 130, 100),   # C just past a 128-column tile
+    (2, 64, 3136),   # the 56x56 stage's C and S
+    (6, 256, 196),   # the 14x14 stage's
+    (1, 8, 7),       # one piece, most of it zero-filled
+])
+def test_norm_relu_moments_at_odd_shapes(cuda, n, c, s):
+    """The moments kernel against its plain version where its tiles,
+    pieces and copies are ragged, every shift > 0 (a zero-filled row or
+    position normalized to relu(shift) would show): Σh and M2 within rtol
+    1e-5 of their terms (h >= 0: the sums themselves), M2 exactly
+    symmetric, a second call bit-identical; where S % 4 == 0, a2 at an
+    address that is not 16-byte aligned (4-byte copies) gives the same
+    bits."""
+    gen = torch.Generator().manual_seed(n * 1000 + c + s)
+    a = _randn(gen, n, c, s) + 0.3
+    sc = (torch.rand(c, generator=gen) + 0.5).cuda()
+    sh = (0.3 * torch.rand(c, generator=gen) + 0.05).cuda()
+    sum_h, m2h = fb.norm_relu_moments(a, sc, sh)
+    rsum_h, rm2h = fb.norm_relu_moments_reference(a, sc, sh)
+    _sums_close(sum_h, rsum_h, rsum_h)
+    _sums_close(m2h, rm2h, rm2h)
+    assert torch.equal(m2h, m2h.T)
+    again = fb.norm_relu_moments(a, sc, sh)
+    assert torch.equal(again[0], sum_h) and torch.equal(again[1], m2h)
+    if s % 4 == 0:
+        offset = torch.empty(a.numel() + 1, device="cuda")[1:]
+        offset.copy_(a.reshape(-1))
+        assert offset.data_ptr() % 16
+        narrow = fb.norm_relu_moments(offset.view_as(a), sc, sh)
+        assert torch.equal(narrow[0], sum_h) and torch.equal(narrow[1], m2h)
+
+
+def test_norm_relu_moments_refuses_what_it_does_not_take(cuda):
+    """A float64 or strided x, a scale of another C, an empty x and N·S
+    past 2³¹ - 33 (an expanded view: no memory) are refused, TypeError or
+    ValueError, before any launch."""
+    gen = torch.Generator().manual_seed(10)
+    a = _randn(gen, 2, 8, 7)
+    sc, sh = torch.ones(8, device="cuda"), torch.ones(8, device="cuda")
+    before = fb.norm_relu_moments.launches
+    with pytest.raises(TypeError):
+        fb.norm_relu_moments(a.double(), sc, sh)
+    strided = a.transpose(0, 1).contiguous().transpose(0, 1)
+    assert not strided.is_contiguous()
+    with pytest.raises(ValueError):
+        fb.norm_relu_moments(strided, sc, sh)
+    with pytest.raises(ValueError):
+        fb.norm_relu_moments(a, sc[:4], sh[:4])
+    with pytest.raises(ValueError):
+        fb.norm_relu_moments(a[:, :, :0], sc, sh)
+    wide = torch.zeros(1, 8, 1, device="cuda").expand(2 ** 16, 8, 2 ** 15)
+    with pytest.raises(ValueError, match="positions"):
+        fb.norm_relu_moments(wide, sc, sh)
+    assert fb.norm_relu_moments.launches == before
+
+
 def test_chain_wrappers_never_fall_back(cuda, monkeypatch):
     """With the four plain versions patched to raise, the chain's forward
     runs on the card through its kernels, one launch of each."""
