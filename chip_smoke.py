@@ -92,10 +92,10 @@ plain versions at ResNet-50's three chain stages at batch 128 (Cin, C,
 H = 256, 64, 56 / 512, 128, 28 / 1024, 256, 14), each timed beside its
 plain version, its bound and a PyTorch yardstick (F.conv2d of the same
 product, product only, for the three convolutions; torch.bmm of h·hᵀ
-and the sum for the moments); the 3x3, the moments and the last 1x1
-(conv1x1_bn_residual), whose products run in 3xTF32 on the tensor
-cores, are bounded by that arithmetic (their float32 FMA bounds printed
-beside them) and print the largest shares of their limits;
+and the sum for the moments); all four, whose products run in 3xTF32
+on the tensor cores, are bounded by that arithmetic (their float32 FMA
+bounds printed beside them) and print the largest shares of their
+limits;
 then the chain's four backward kernels at
 the same stages, on the inputs the chain makes (the forward, a random
 cotangent, each kernel fed by its plain predecessors), each timed
@@ -1536,7 +1536,7 @@ def check_chain(torch, F, fb, card):
     gen = torch.Generator(device="cuda").manual_seed(7)
     n = RESNET["batch"]
     rows, errs = {}, {k: [] for k in CHAIN_KERNELS}
-    share3, share_mom, share_res = [], [], []
+    share1, share3, share_mom, share_res = [], [], [], []
     for cin, c, h in CHAIN_SHAPES:
         s, m = h * h, n * h * h
         d = chain_case(torch, n, cin, c, h, gen)
@@ -1545,6 +1545,7 @@ def check_chain(torch, F, fb, card):
         ra1, rs1, rq1 = fb.conv1x1_stats_reference(x, w1)
         torch.cuda.synchronize()
         errs["conv1x1_stats"].append(max_err(torch, a1, ra1))
+        share1.append(limit_share(torch, a1, ra1))
         sums = {"conv1x1_stats": [
             check_sums(torch, "conv1x1_stats", s1, rs1,
                        ra1.abs().sum(dim=(0, 2))),
@@ -1588,10 +1589,10 @@ def check_chain(torch, F, fb, card):
         # bounds: each input read once, each output written once; the
         # products (M2 is symmetric: C(C+1)/2 products a column), the
         # loaders' normalize (3 a value), the statistics (3 a value) and
-        # the residual's epilogue (4 a value). The 3x3, the moments and
-        # the last 1x1 run their products as three TF32 products on the
-        # tensor cores: their bounds are that arithmetic's, printed beside
-        # the float32 FMA bounds
+        # the residual's epilogue (4 a value). All four run their
+        # products as three TF32 products on the tensor cores: their
+        # bounds are that arithmetic's, printed beside the float32 FMA
+        # bounds
         ea, ex = n * c * s, n * cin * s
         bytes3 = 4 * (2 * ea + 9 * c * c + 4 * c)
         f32_bound3 = bound_ms(bytes3, 18 * c * c * m + 6 * ea)
@@ -1599,9 +1600,11 @@ def check_chain(torch, F, fb, card):
         f32_bound_mom = bound_ms(bytes_mom, c * (c + 1) * m + 4 * ea)
         bytes_res = 4 * (ea + 2 * ex + cin * c + 2 * c + 2 * cin)
         f32_bound_res = bound_ms(bytes_res, 2 * cin * c * m + 3 * ea + 4 * ex)
+        bytes1 = 4 * (ex + c * cin + ea + 2 * c)
+        f32_bound1 = bound_ms(bytes1, 2 * c * cin * m + 3 * ea)
         bounds = {
-            "conv1x1_stats": bound_ms(4 * (ex + c * cin + ea + 2 * c),
-                                      2 * c * cin * m + 3 * ea),
+            "conv1x1_stats": bound_ms(bytes1, 3 * 2 * c * cin * m,
+                                      TF32_FLOPS_PER_S),
             "conv3x3_norm_stats": bound_ms(bytes3, 3 * 18 * c * c * m,
                                            TF32_FLOPS_PER_S),
             "norm_relu_moments": bound_ms(bytes_mom, 3 * c * (c + 1) * m,
@@ -1637,7 +1640,11 @@ def check_chain(torch, F, fb, card):
                    h2.sum(dim=(0, 2))), 10),
                "conv1x1_bn_residual": cuda_ms(torch, lambda: F.conv2d(
                    h2.view(n, c, h, h), w3.view(cin, c, 1, 1)), 10)}
-        notes = {"conv3x3_norm_stats": (
+        notes = {"conv1x1_stats": (
+            f" by 3xTF32 at {TF32_FLOPS_PER_S / 1e12:.0f} TFLOP/s, f32 FMA "
+            f"bound {f32_bound1[0]:.4f} {f32_bound1[1]}, largest share of "
+            f"its limit {share1[-1]:.4f}"),
+                 "conv3x3_norm_stats": (
             f" by 3xTF32 at {TF32_FLOPS_PER_S / 1e12:.0f} TFLOP/s, f32 FMA "
             f"bound {f32_bound3[0]:.4f} {f32_bound3[1]}, largest share of "
             f"its limit {share3[-1]:.4f}"),
@@ -1676,7 +1683,8 @@ def check_chain(torch, F, fb, card):
         del d, x, ra1, ra2, h1, h2, res_args, calls
     for k in rows:
         rows[k]["max_abs_err"] = max(errs[k])
-    for k, shares in (("conv3x3_norm_stats", share3),
+    for k, shares in (("conv1x1_stats", share1),
+                      ("conv3x3_norm_stats", share3),
                       ("conv1x1_bn_residual", share_res)):
         print(f"{k}: largest share of its elementwise limit |kernel - "
               f"plain| / (atol + rtol·|plain|) over the three stages "
@@ -2298,7 +2306,7 @@ def main() -> int:
                              "paddle_tpu/kernels/fused_lstm.py:78"),
             "lstm_seq_bwd": ("paddle_tpu_torch/csrc/fused_lstm.cu",
                              "paddle_tpu/kernels/fused_lstm.py:207"),
-            "conv1x1_stats": ("paddle_tpu_torch/csrc/fused_block.cu",
+            "conv1x1_stats": ("paddle_tpu_torch/csrc/conv1x1_stats_tc.cuh",
                               "paddle_tpu/kernels/fused_block.py:790"),
             "conv3x3_norm_stats": ("paddle_tpu_torch/csrc/conv3x3_tc.cuh",
                                    "paddle_tpu/kernels/fused_block.py:653"),

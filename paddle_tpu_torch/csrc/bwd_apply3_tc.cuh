@@ -1,7 +1,8 @@
 // bwd_apply3 for Hopper (sm_90a): the last 1x1's transpose through bn3,
 // one stacked product on tensor cores in 3xTF32 fed by a ring of
 // asynchronous copies, its masked epilogue and bn2's sums in the same
-// launch. Included by fused_block_bwd.cu only.
+// launch. Included by fused_block_bwd.cu, and by conv1x1_stats_tc.cuh for
+// its Tile, Slot, copy_stage and product.
 //
 // Replaces the Pallas body _b1b_kernel of bwd_apply3 in
 // paddle_tpu/kernels/fused_block.py:224-252 (pallas_call at :261). For

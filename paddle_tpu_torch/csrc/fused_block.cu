@@ -15,179 +15,53 @@
 //   conv1x1_bn_residual (_assemble_kernel): out[n] = relu((W3 h2[n]) * sc3
 //     + sh3 + x[n]), h2 = relu(a2 * sc2 + sh2), W3 [Cout, C].
 //
-// What bounds them on the H100: operations. At ResNet-50's three chain
-// stages (batch 128; Cin, C, S = 256, 64, 3136 / 512, 128, 784 / 1024,
-// 256, 196) every stage does the same products: 13.2 GFLOP in
-// conv1x1_stats (0.196 ms at the 67 TFLOP/s float32 peak), 29.6 in
-// conv3x3_norm_stats (0.442 ms), 1.7 in the moments (M2 is symmetric)
-// and 13.2 in conv1x1_bn_residual (0.196 ms; at 56x56 its 925 MB of
-// traffic, 0.276 ms, bound it instead).
+// What bounds them on the H100. At ResNet-50's three chain stages (batch
+// 128; Cin, C, S = 256, 64, 3136 / 512, 128, 784 / 1024, 256, 196) every
+// stage does the same products: 13.2 GFLOP in conv1x1_stats, 29.6 in
+// conv3x3_norm_stats, 1.7 in the moments (M2 is symmetric) and 13.2 in
+// conv1x1_bn_residual; as three TF32 products at the 495 TFLOP/s dense
+// TF32 rate, 0.080 / 0.179 / 0.010 / 0.080 ms. Bytes bound conv1x1_stats
+// at 56x56 (514 MB, 0.153 ms at 3.35 TB/s), conv1x1_bn_residual at 56x56
+// and 28x28, the moments at 56x56 and 28x28; each header gives its
+// figures.
 //
 // What the design does about it. The TPU kernels take a whole image a grid
 // step, roll it in VMEM for the 3x3 taps and carry the sums from step to
-// step of a sequential grid. Here conv1x1_stats is one tiled float32 SIMT
-// product on the CUDA cores, out = W1 [C, Cin] x [Cin, N*S], with the
-// batch folded into the columns so that S = 196 and 49 do not leave tiles
-// empty:
-//   - a 256-thread block owns a BM x 128 output tile (BM 64 or 128 by C),
-//     each thread an 8 x 8 (or 4 x 8) micro-tile read from shared memory
-//     as float4;
-//   - K advances 8 deep, two shared-memory stages: the next stage's global
-//     loads are issued into registers before the current stage's products;
-//     each column loader thread loads one fixed column of B, whose (n, p)
-//     it decodes once;
-//   - the epilogue writes a1 with each tile's per-channel partial sums
-//     into a [2, C, tiles] buffer (a fixed-order tree across the tile's
-//     threads), which a second kernel adds in tile order.
-// The other three run on the tensor cores in 3xTF32, fed by rings of
-// asynchronous copies, their operands normalized once a value: the 3x3
-// over halo tiles of h1 (conv3x3_tc.cuh), the moments as a split-K Gram
-// product over the upper triangle, h normalized as it lands
-// (moments_tc.cuh), the last 1x1 over a tile of h2 built once a block, so
-// h2 never reaches device memory (conv1x1_tc.cuh, whose kernel bwd_final's
-// dx shares); each header says how and why. No atomics anywhere: every
-// result is deterministic. The tile machinery and the finalizing passes
-// are in fused_block.cuh, shared with the backward (fused_block_bwd.cu).
+// step of a sequential grid. Here all four run on the tensor cores in
+// 3xTF32, fed by rings of asynchronous copies, their operands normalized
+// once a value, the batch folded into the columns so that S = 196 and 49
+// leave no tile idle: conv1x1_stats as W1 times x streamed through a ring
+// (conv1x1_stats_tc.cuh, on bwd_apply3's tile, copies and product), y and
+// its per-tile row sums in the same launch; the 3x3 over halo tiles of h1 (conv3x3_tc.cuh);
+// the moments as a split-K Gram product over the upper triangle, h
+// normalized as it lands (moments_tc.cuh); the last 1x1 over a tile of h2
+// built once a block, so h2 never reaches device memory (conv1x1_tc.cuh,
+// whose kernel bwd_final's dx shares). Each header says how and why. No
+// atomics anywhere: every result is deterministic; per-tile sums are
+// added in tile order by the passes of fused_block.cuh, shared with the
+// backward (fused_block_bwd.cu).
 #include "fused_block.cuh"
 #include "conv1x1_tc.cuh"
 #include "conv3x3_tc.cuh"
 #include "moments_tc.cuh"
+#include "conv1x1_stats_tc.cuh"
 
-namespace {
-
-// Loaders of the forward (the header says how a loader maps threads).
-
-// A[m][k] = w[m * K + k]: a row-major weight [M, K].
-template <int TM>
-struct WeightA {
-  static constexpr int BM = 16 * TM, R = TM / 2;
-  const float* w;
-  int M, K, m0, kk, mr;
-  float reg[R];
-  __device__ WeightA(const float* w_, int M_, int K_, int m0_)
-      : w(w_), M(M_), K(K_), m0(m0_), kk(threadIdx.x & 7),
-        mr(threadIdx.x >> 3) {}
-  __device__ __forceinline__ void fetch(int k0) {
-    const int k = k0 + kk;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int m = m0 + mr + 32 * r;
-      reg[r] = (m < M && k < K) ? __ldg(w + (long)m * K + k) : 0.f;
-    }
-  }
-  __device__ __forceinline__ void store(float* s) const {
-#pragma unroll
-    for (int r = 0; r < R; ++r) s[kk * (BM + 4) + mr + 32 * r] = reg[r];
-  }
-};
-
-// B[k][j] = src[n, k, p] at column j = n * S + p: a [N, K, S] activation
-// as K x (N*S).
-template <int TN>
-struct ActB {
-  static constexpr int BN = 16 * TN, R = TN / 2, KS = kThreads / BN;
-  const float* src;
-  int K, S, col, kr;
-  long base;
-  bool ok;
-  float reg[R];
-  __device__ ActB(const float* src_, int K_, int S_, int NS, int j0)
-      : src(src_), K(K_), S(S_), col(threadIdx.x % BN), kr(threadIdx.x / BN) {
-    const int j = j0 + col;
-    ok = j < NS;
-    const int n = ok ? j / S : 0;
-    base = (long)n * K * S + (j - n * S);
-  }
-  __device__ __forceinline__ void fetch(int k0) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int k = k0 + kr + KS * r;
-      float v = 0.f;
-      if (ok && k < K) v = __ldg(src + base + (long)k * S);
-      reg[r] = v;
-    }
-  }
-  __device__ __forceinline__ void store(float* s) const {
-#pragma unroll
-    for (int r = 0; r < R; ++r) s[(kr + KS * r) * (BN + 4) + col] = reg[r];
-  }
-};
-
-// Writes the tile of y [N, M, S] (column j = n * S + p) and its per-row
-// sum and sum of squares into part [2, M, T] at tile column jt.
-template <int TM, int TN>
-__device__ __forceinline__ void store_with_stats(const float (&acc)[TM][TN],
-                                                 float* __restrict__ y,
-                                                 float* __restrict__ part,
-                                                 int M, int S, int NS, int T,
-                                                 int m0, int j0, int jt,
-                                                 float* red) {
-  constexpr int BM = 16 * TM;
-  const int ty = threadIdx.x >> 4;
-  long coff[TN];
-  bool cok[TN];
-  column_offsets<TN>(coff, cok, j0, M, S, NS);
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int lr = tile_pos(i, ty);
-    const int m = m0 + lr;
-    float s = 0.f, q = 0.f;
-    if (m < M) {
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        if (cok[j]) {
-          const float v = acc[i][j];
-          y[coff[j] + (long)m * S] = v;
-          s += v;
-          q = fmaf(v, v, q);
-        }
-      }
-    }
-    put_row_partial<BM>(red, lr, s, q);
-  }
-  store_row_partials<BM>(part, M, T, m0, jt, red);
-}
-
-// ---------------------------------------------------------------------------
-// Kernels. Conv grids: (M tiles, column tiles), M tiles fastest, so the
-// blocks that share a column tile of B run together and meet it in L2.
-// ---------------------------------------------------------------------------
-
-template <int TM, int TN>
-__global__ void __launch_bounds__(kThreads, 2)
-conv1x1_stats_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                     float* __restrict__ y, float* __restrict__ part, int M,
-                     int K, int S, int NS, int T) {
-  constexpr int BM = 16 * TM, BN = 16 * TN;
-  __shared__ __align__(16) float smem[Smem<BM, BN>::kFloats];
-  const int m0 = blockIdx.x * BM, jt = blockIdx.y, j0 = jt * BN;
-  WeightA<TM> la(w, M, K, m0);
-  ActB<TN> lb(x, K, S, NS, j0);
-  float acc[TM][TN];
-  mainloop<TM, TN>(acc, la, lb, 0, K, smem);
-  store_with_stats<TM, TN>(acc, y, part, M, S, NS, T, m0, j0, jt, smem);
-}
-
-}  // namespace
-
-// x [N, Cin, S], w [C, Cin]; y [N, C, S], part [2, C, T] scratch, stats
-// [2, C] (sum, sum of squares); all float32, contiguous; T = ceil(N*S /
-// 128). Returns a cudaError_t (0 = launched).
+// x [N, Cin, S], w [rows, lda]: W1 [C, Cin] at row pitch lda (a multiple
+// of 16 >= Cin), its rows the row tiles x their 64 or 128 rows, zeros past
+// C and past Cin, 16-byte aligned; y [N, C, S], part [2, C, T] scratch,
+// stats [2, C] (sum, sum of squares); T the column tiles of N*S
+// (conv1x1_stats_tc.cuh: 128 columns where C <= 64, else 64); with wide
+// set, S % 4 == 0 and x, y 16-byte aligned. All float32, contiguous.
+// Returns a cudaError_t (0 = launched).
 extern "C" int fused_block_conv1x1_stats_f32(const float* x, const float* w,
                                              float* y, float* part,
                                              float* stats, int N, int Cin,
-                                             int C, int S, int T,
-                                             void* stream) {
-  if (Cin <= 0 || !tiles_ok(C, N, S, T)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int NS = N * S;
-  if (C <= 64)
-    conv1x1_stats_kernel<4, 8><<<dim3((C + 63) / 64, T), kThreads, 0, s>>>(
-        x, w, y, part, C, Cin, S, NS, T);
-  else
-    conv1x1_stats_kernel<8, 8><<<dim3((C + 127) / 128, T), kThreads, 0, s>>>(
-        x, w, y, part, C, Cin, S, NS, T);
-  return finish_stats(part, stats, C, T, s);
+                                             int C, int S, int lda, int T,
+                                             int wide, void* stream) {
+  if (!conv1x1_stats::grid_ok(x, w, y, N, Cin, C, S, lda, T, wide))
+    return (int)cudaErrorInvalidValue;
+  return conv1x1_stats::launch(x, w, y, part, stats, N, Cin, C, S, lda, T,
+                               wide, static_cast<cudaStream_t>(stream));
 }
 
 // a1 [N, Cin, H*W], taps [9, Cout, Cin] (16-byte aligned), scale/shift

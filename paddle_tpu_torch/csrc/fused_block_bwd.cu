@@ -28,17 +28,15 @@
 // the 67 TFLOP/s float32 peak; at 56x56 the bytes of bwd_reduce3 (1.34 GB)
 // and bwd_final (1.44 GB) bound them instead.
 //
-// What the design does about it: none of the four runs the SIMT tile
-// product of fused_block.cuh (mainloop and its loaders: the forward's,
-// fused_block.cu, do).
-// bwd_reduce3 is a split-K product fed by a ring of asynchronous copies
-// (its note in bwd_reduce3.cuh); bwd_apply3, bwd_mid and bwd_final run
-// their products on tensor cores in 3xTF32 (their notes in
-// bwd_apply3_tc.cuh: one stacked product [A | B] [g3; h2] fed by a ring
-// of asynchronous copies, h2 built on landing, the masked epilogue in the
-// same launch; bwd_mid_tc.cuh, whose input gradient is conv3x3_tc.cuh's
-// kernel; bwd_final_tc.cuh: da1 folded once into a scratch that dW1
-// reads).
+// What the design does about it: bwd_reduce3 is a split-K product fed by
+// a ring of asynchronous copies (its note in bwd_reduce3.cuh);
+// bwd_apply3, bwd_mid and bwd_final run their products on tensor cores in
+// 3xTF32 (their notes in bwd_apply3_tc.cuh: one stacked product [A | B]
+// [g3; h2] fed by a ring of asynchronous copies, h2 built on landing, the
+// masked epilogue in the same launch, its tile, copies and product shared
+// with the forward's conv1x1_stats_tc.cuh; bwd_mid_tc.cuh, whose input
+// gradient is conv3x3_tc.cuh's kernel; bwd_final_tc.cuh: da1 folded once
+// into a scratch that dW1 reads, dx on conv1x1_tc.cuh's kernel).
 //
 // The TPU carries its sums across a sequential grid of images; here they
 // are partials added in a fixed order: no atomics, every result is

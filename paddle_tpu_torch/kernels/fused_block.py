@@ -11,26 +11,28 @@ a3: the 3x3 and the last 1x1 normalize their input on load, and bn3's
 statistics come analytically from the moments of h2 (mean(a3) = W3·mean
 (h2), E[a3²] = diag(W3 E[h2 h2ᵀ] W3ᵀ)).
 
-Eight kernels, written by hand for Hopper: the forward's in
-``paddle_tpu_torch/csrc/fused_block.cu``, the backward's in
-``csrc/fused_block_bwd.cu``, on the tile machinery of
-``csrc/fused_block.cuh``, except ``conv3x3_norm_stats``, whose 3xTF32
-tensor-core product over halo tiles is ``csrc/conv3x3_tc.cuh``,
-``norm_relu_moments``, whose 3xTF32 split-K Gram product over the upper
-triangle, h normalized as it lands, is ``csrc/moments_tc.cuh``,
-``conv1x1_bn_residual``, whose 3xTF32 product over an h2 tile built once
-a block is ``csrc/conv1x1_tc.cuh`` (shared with ``bwd_final``'s dx),
-``bwd_reduce3``, whose split-K product fed by asynchronous copies is
-``csrc/bwd_reduce3.cuh``, ``bwd_apply3``, whose stacked 3xTF32 product
-[amat | bmat]·[g3; h2] fed by asynchronous copies is
-``csrc/bwd_apply3_tc.cuh``, ``bwd_mid``, whose input gradient is that
-3xTF32 kernel over da2 and whose tap gradients are a 3xTF32 split-K
+Eight kernels, written by hand for Hopper: the forward's entry points
+in ``paddle_tpu_torch/csrc/fused_block.cu``, the backward's in
+``csrc/fused_block_bwd.cu``, sharing the passes of
+``csrc/fused_block.cuh`` that add per-tile sums in a fixed order. Every
+product runs on the tensor cores in 3xTF32: ``conv1x1_stats``, W1·x
+streamed through a ring of asynchronous copies, y and its sums in the
+same launch, is ``csrc/conv1x1_stats_tc.cuh`` (on ``bwd_apply3``'s
+tile, copies and product), ``conv3x3_norm_stats``, over halo tiles,
+``csrc/conv3x3_tc.cuh``, ``norm_relu_moments``, a split-K Gram product over
+the upper triangle, h normalized as it lands, ``csrc/moments_tc.cuh``,
+``conv1x1_bn_residual``, over an h2 tile built once a block,
+``csrc/conv1x1_tc.cuh`` (shared with ``bwd_final``'s dx),
+``bwd_reduce3``, a split-K product fed by asynchronous copies (in
+float32 on the CUDA cores), ``csrc/bwd_reduce3.cuh``, ``bwd_apply3``,
+the stacked product [amat | bmat]·[g3; h2] fed by asynchronous copies,
+``csrc/bwd_apply3_tc.cuh``, ``bwd_mid``, whose input gradient is the
+3x3 kernel over da2 and whose tap gradients are a split-K
 product over the padded grid, ``csrc/bwd_mid_tc.cuh``, and
-``bwd_final``, whose dx folds da1 once and whose dW1 is a 3xTF32
-split-K product over N·S, ``csrc/bwd_final_tc.cuh`` (each source's
-header says what bounds its kernels and what the design does about
-it). Each replaces the Pallas
-kernel of its name:
+``bwd_final``, whose dx folds da1 once and whose dW1 is a split-K
+product over N·S, ``csrc/bwd_final_tc.cuh`` (each source's header says
+what bounds its kernels and what the design does about it). Each
+replaces the Pallas kernel of its name:
 
 * forward: ``conv1x1_stats`` (``_k1_kernel``), ``conv3x3_norm_stats``
   (``_k2_kernel``), ``norm_relu_moments`` (``_moments_kernel``),
@@ -203,8 +205,7 @@ def bwd_final_reference(g3, g1, a1, x, p1, q1, r1, w1):
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_BN = 128      # columns of a conv kernel's output tile (kBN in the source)
-_BK = 8        # depth of a k stage (kBK)
+_BK = 8        # the 3x3 kernels' channels a stage: one k8 step
 
 
 def _fn(name: str, argtypes: tuple):
@@ -225,10 +226,6 @@ def _empty(device, *shape) -> torch.Tensor:
     return torch.empty(shape, dtype=torch.float32, device=device)
 
 
-def _col_tiles(n: int, s: int) -> int:
-    return -(-n * s // _BN)
-
-
 _C3_BN = 224   # positions of a conv3x3 column tile (conv3x3::kBN)
 
 
@@ -246,12 +243,43 @@ def _conv3x3_grid(n: int, h: int, w: int) -> Tuple[int, int, int]:
     return chunks, n * chunks, 3 * (9 * 64 * 8 + 8 * pitch) * 4
 
 
+_STREAM_BK = 16   # rows of K a streamed stage (bwd_apply3::kK)
+
+
+def _stream_grid(n: int, s: int, c: int,
+                 k: int) -> Tuple[int, int, int, int]:
+    """(bn, T, rows, lda) of the products streamed through a ring
+    (csrc/bwd_apply3_tc.cuh, K = Cin + C; csrc/conv1x1_stats_tc.cuh, K =
+    Cin): tiles of 64 rows of C by bn = 128 columns of N·S where C <= 64,
+    else 128 rows by 64 columns (a tile may hold the end of one image and
+    the start of the next; the last one past N·S), T = ceil(N·S / bn)
+    column tiles, each by every row tile; the weight read at rows = whole
+    row tiles and a row pitch lda = K in whole 16-row stages."""
+    bm = 64 if c <= 64 else 128
+    bn = 8192 // bm
+    return (bn, -(-n * s // bn), -(-c // bm) * bm,
+            -(-k // _STREAM_BK) * _STREAM_BK)
+
+
+def _stream_weight(w: torch.Tensor, rows: int, lda: int) -> torch.Tensor:
+    """w [C, K] as the streamed product reads it, [rows, lda] at a 16-byte
+    aligned address: w itself where it already is, else one zero-padded
+    copy."""
+    c, k = w.shape
+    if (rows, lda) != (c, k):
+        return F.pad(w, (0, lda - k, 0, rows - c))
+    return w if w.data_ptr() % 16 == 0 else w.clone()
+
+
 def conv1x1_stats(x: torch.Tensor, w: torch.Tensor):
     """x [N, Cin, S], w [C, Cin] -> (y = W·x [N, C, S], Σy [C], Σy² [C]).
 
     CPU tensors run ``conv1x1_stats_reference``. CUDA tensors run the
-    kernel: float32, contiguous; the sums are deterministic (a partial
-    per output tile, then a fixed-order pass; no atomics)."""
+    kernel: float32, contiguous; the product in 3xTF32 on the tensor
+    cores (within float32's rounding) over ``_stream_grid``'s tiles, W1
+    itself where its rows fill whole tiles and Cin whole stages, else a
+    zero-padded copy; the sums deterministic (a partial per output tile,
+    then a fixed-order pass; no atomics)."""
     if not build.on_card("conv1x1_stats", x):
         return conv1x1_stats_reference(x, w)
     _dims("x", x, 3)
@@ -260,16 +288,18 @@ def conv1x1_stats(x: torch.Tensor, w: torch.Tensor):
     c = w.shape[0]
     build.check("x", x, x.device, (n, cin, s))
     build.check("w", w, x.device, (c, cin))
-    t = _col_tiles(n, s)
+    _, t, rows, lda = _stream_grid(n, s, c, cin)
+    w = _stream_weight(w, rows, lda)
     y = _empty(x.device, n, c, s)
     part, stats = _empty(x.device, 2, c, t), _empty(x.device, 2, c)
+    wide = s % 4 == 0 and x.data_ptr() % 16 == 0
     with torch.cuda.device(x.device):
         build.launch("conv1x1_stats",
                      _fn("fused_block_conv1x1_stats_f32",
-                         (_P,) * 5 + (_I,) * 5 + (_P,)),
+                         (_P,) * 5 + (_I,) * 7 + (_P,)),
                      x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                     part.data_ptr(), stats.data_ptr(), n, cin, c, s, t,
-                     _stream(x.device))
+                     part.data_ptr(), stats.data_ptr(), n, cin, c, s, lda, t,
+                     int(wide), _stream(x.device))
     conv1x1_stats.launches += 1
     return y, stats[0], stats[1]
 
@@ -373,23 +403,6 @@ def _bwd_final_grid(n: int, s: int, c: int, cin: int,
     splits = max(range(want, max(want, 4 * wave // blocks) + 1),
                  key=lambda k: (fill(k), -k))
     return min(splits, pieces), pieces
-
-
-_A3_BK = 16    # rows of K a bwd_apply3 stage (bwd_apply3::kK)
-
-
-def _bwd_apply3_grid(n: int, s: int, c: int,
-                     cin: int) -> Tuple[int, int, int, int]:
-    """(bn, T, rows, lda) of bwd_apply3: tiles of 64 rows of C by bn = 128
-    columns of N·S where C <= 64, else 128 rows by 64 columns (a tile may
-    hold the end of one image and the start of the next; the last one
-    past N·S), T = ceil(N·S / bn) column tiles, each by every row tile;
-    the stacked [amat | bmat] padded with zeros to rows = whole row tiles
-    and lda = K = Cin + C in whole 16-row stages."""
-    bm = 64 if c <= 64 else 128
-    bn = 8192 // bm
-    return (bn, -(-n * s // bn), -(-c // bm) * bm,
-            -(-(cin + c) // _A3_BK) * _A3_BK)
 
 
 _MOM_KP = 32   # columns of N·S a moments stage (moments::kK)
@@ -628,7 +641,7 @@ def bwd_apply3(g3, a2, scale2, shift2, amat, bmat, v0, inv2, m2):
     [N, C, S], Σg2 [C], Σg2·x̂2 [C]), x̂2 = a2·inv2 − m2·inv2.
 
     CPU tensors run ``bwd_apply3_reference``. CUDA tensors run the
-    kernel (one product [amat | bmat]·[g3; h2] over ``_bwd_apply3_grid``'s
+    kernel (one product [amat | bmat]·[g3; h2] over ``_stream_grid``'s
     tiles): float32, contiguous; the product in 3xTF32 on the tensor
     cores, deterministic sums."""
     if not build.on_card("bwd_apply3", g3):
@@ -644,7 +657,7 @@ def bwd_apply3(g3, a2, scale2, shift2, amat, bmat, v0, inv2, m2):
     build.check("amat", amat, dev, (c, cin))
     build.check("bmat", bmat, dev, (c, c))
     _vectors(dev, c, scale2=scale2, shift2=shift2, v0=v0, inv2=inv2, m2=m2)
-    _, t, rows, lda = _bwd_apply3_grid(n, s, c, cin)
+    _, t, rows, lda = _stream_grid(n, s, c, cin + c)
     # [amat | bmat] stacked once, zero-padded to whole row tiles and whole
     # stages of K (a fresh tensor, 16-byte aligned)
     stacked = F.pad(torch.cat([amat, bmat], 1),

@@ -72,25 +72,35 @@ extern "C" int apply3(const float* g3, const float* a2, const float* sc2,
 }}
 """
 P, I = ctypes.c_void_p, ctypes.c_int
+ARGTYPES = [P] * 11 + [I] * 7 + [P]
 
 
-def compile_variants(out_dir: Path) -> dict:
+def compile_variants(out_dir: Path, variants=VARIANTS, entry=ENTRY,
+                     symbol="apply3", argtypes=ARGTYPES,
+                     edited=(HEADER,)) -> dict:
+    """{name: entry point `symbol` of that variant's build}, built in
+    parallel from copies of the headers, each of a variant's substitutions
+    made in every header of `edited` that holds it; prints the kernel's
+    registers and spills."""
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for i, (name, subs) in enumerate(VARIANTS.items()):
+    headers = ("fused_block.cuh", "conv3x3_tc.cuh", HEADER) + tuple(
+        h for h in edited if h != HEADER)
+    for i, (name, subs) in enumerate(variants.items()):
         vdir = out_dir / f"v{i}"
         vdir.mkdir(exist_ok=True)
-        for header in ("fused_block.cuh", "conv3x3_tc.cuh", HEADER):
-            text = (build.CSRC / header).read_text()
-            if header == HEADER:
-                for old, new in subs:
-                    if old not in text:
-                        raise RuntimeError(f"{name}: {header} no longer has "
-                                           f"{old!r}")
-                    text = text.replace(old, new)
-            (vdir / header).write_text(text)
+        texts = {h: (build.CSRC / h).read_text() for h in headers}
+        for old, new in subs:
+            holders = [h for h in edited if old in texts[h]]
+            if not holders:
+                raise RuntimeError(f"{name}: no header of {edited} has "
+                                   f"{old!r}")
+            for h in holders:
+                texts[h] = texts[h].replace(old, new)
+        for h, text in texts.items():
+            (vdir / h).write_text(text)
         unit, lib = vdir / "probe.cu", vdir / "probe.so"
-        unit.write_text(ENTRY.format(dir=vdir))
+        unit.write_text(entry.format(dir=vdir))
         jobs[name] = (lib, subprocess.Popen(
             [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib), str(unit)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -103,8 +113,8 @@ def compile_variants(out_dir: Path) -> dict:
             for line in log.splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}")
-        f = ctypes.CDLL(str(lib)).apply3
-        f.argtypes = [P] * 11 + [I] * 7 + [P]
+        f = getattr(ctypes.CDLL(str(lib)), symbol)
+        f.argtypes = argtypes
         f.restype = ctypes.c_int
         fns[name] = f
     return fns
@@ -166,7 +176,7 @@ def main() -> int:
                           / (1e-4 + 1e-4 * exact.abs())).max())
         f64 = (share(got[0]), share(want[0]))
         del got, want, exact, xhat, mask
-        _, t, rows, lda = fb._bwd_apply3_grid(n, s, c, cin)
+        _, t, rows, lda = fb._stream_grid(n, s, c, cin + c)
         stacked = torch.nn.functional.pad(torch.cat([amat, bmat], 1),
                                           (0, lda - cin - c, 0, rows - c))
         g2 = torch.empty_like(a2)

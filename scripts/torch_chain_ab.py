@@ -9,20 +9,20 @@ them against this tree's libraries:
 * the SASS of every kernel function both libraries have (``cuobjdump
   -sass``), function by function, the anonymous namespace's per-file
   name left out; and bwd_final's dx kernel, which this tree runs as an
-  instance of ``csrc/conv1x1_tc.cuh``'s kernel, against the parent's
+  instance of ``csrc/conv1x1_tc.cuh``'s kernel, against a parent's
   ``bwd_final_dx_kernel`` of the same WIDE, the names stripped;
-* the outputs of the kernels whose entry points both libraries have,
-  through this tree's wrappers with the library swapped: the four
-  forward kernels and ``bwd_reduce3``, ``bwd_mid`` and ``bwd_final``,
-  at ResNet-50's three chain stages (batch 128), each on the inputs the
-  chain makes, as ``chip_smoke.py`` phase 3 makes them; bit for bit,
-  but for ``conv1x1_bn_residual``, redesigned on tensor cores, which is
-  held to the parent's within atol = rtol = 1e-5 (a parent whose entry
-  point takes W3 itself is called through that entry point), and
-  ``norm_relu_moments``, redesigned on tensor cores, whose Σh and M2 are
-  held to the parent's within rtol 1e-5 of their terms (h >= 0: the
-  sums themselves; a parent whose entry point takes a column chunk, the
-  float32 SIMT kernel's, is called with that kernel's grid);
+* the outputs of the eight kernels, through this tree's wrappers with
+  the library swapped, at ResNet-50's three chain stages (batch 128),
+  each on the inputs the chain makes, as ``chip_smoke.py`` phase 3
+  makes them; bit for bit, but for the kernels redesigned on tensor
+  cores against a parent's float32 ones: ``conv1x1_stats`` and
+  ``conv1x1_bn_residual``, held to the parent's within atol = rtol =
+  1e-5 (conv1x1_stats' Σy and Σy² within 1e-5 of their terms' sums), and
+  ``norm_relu_moments``, whose Σh and M2 are held to the parent's within
+  rtol 1e-5 of their terms (h >= 0: the sums themselves); a parent whose
+  entry point takes other arguments (the float32 SIMT kernels': W3
+  itself, a column chunk, no row pitch) is called through that entry
+  point with that kernel's grid;
 * their times, by CUDA events over 10 calls, in turns: parent, this
   tree, this tree, parent.
 
@@ -49,7 +49,7 @@ from paddle_tpu_torch.kernels import fused_block as fb  # noqa: E402
 
 SOURCES = ("fused_block.cu", "fused_block_bwd.cu")
 FORWARD = chip_smoke.CHAIN_KERNELS
-KERNELS = FORWARD + ("bwd_reduce3", "bwd_mid", "bwd_final")
+KERNELS = FORWARD + chip_smoke.CHAIN_BWD_KERNELS
 # the anonymous namespace's name: a hash, the file name's length and the
 # file name, another hash (8 hex digits each, so that the next name's
 # length, in decimal, is left alone)
@@ -175,6 +175,34 @@ def chunk_entry(a2, scale, shift):
     return out[:, c], out[:, :c]
 
 
+def parent_takes_no_pitch(parent: Path) -> bool:
+    """Whether the parent's conv1x1_stats entry point takes W1 itself and
+    no row pitch (x, w, y, part, stats, N, Cin, C, S, T, stream), as the
+    float32 SIMT kernel's did, T the 128-column tiles of N·S."""
+    text = (parent / "paddle_tpu_torch" / "csrc" / "fused_block.cu"
+            ).read_text()
+    entry = text[text.index("fused_block_conv1x1_stats_f32("):]
+    return "lda" not in entry[:entry.index(")")]
+
+
+def simt_stats_entry(x, w):
+    """conv1x1_stats through an entry point that takes W1 itself, on the
+    float32 SIMT kernel's grid."""
+    n, cin, s = x.shape
+    c = w.shape[0]
+    t = -(-n * s // 128)
+    y = torch.empty(n, c, s, device=x.device)
+    part = torch.empty(2, c, t, device=x.device)
+    stats = torch.empty(2, c, device=x.device)
+    fn = build.bind("fused_block.cu", "fused_block_conv1x1_stats_f32",
+                    (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5
+                    + (ctypes.c_void_p,))
+    build.launch("conv1x1_stats", fn, x.data_ptr(), w.data_ptr(),
+                 y.data_ptr(), part.data_ptr(), stats.data_ptr(), n, cin, c,
+                 s, t, torch.cuda.current_stream().cuda_stream)
+    return y, stats[0], stats[1]
+
+
 def chain_inputs(d, dout, h):
     """{kernel: args} of the chain's eight wrappers in one forward and
     backward of the stage d, each wrapper replaced by its plain version."""
@@ -246,6 +274,7 @@ def main() -> int:
 
     old_entry = parent_takes_w3(args.parent.resolve())
     old_moments = parent_takes_chunk(args.parent.resolve())
+    old_stats = parent_takes_no_pitch(args.parent.resolve())
     gen = torch.Generator(device="cuda").manual_seed(8)
     n = chip_smoke.RESNET["batch"]
     for cin, c, h in chip_smoke.CHAIN_SHAPES:
@@ -262,6 +291,8 @@ def main() -> int:
                 if (k == "norm_relu_moments" and which == "parent"
                         and old_moments):
                     return chunk_entry(*inputs[k])
+                if k == "conv1x1_stats" and which == "parent" and old_stats:
+                    return simt_stats_entry(*inputs[k])
                 out = getattr(fb, k)(*inputs[k])
                 return out if isinstance(out, tuple) else (out,)
             outs = {}
@@ -269,9 +300,16 @@ def main() -> int:
                 use(which)
                 outs[which] = call(which)
             torch.cuda.synchronize()
-            if k == "conv1x1_bn_residual":
-                share = chip_smoke.limit_share(torch, outs["this tree"][0],
-                                               outs["parent"][0])
+            if k == "conv1x1_bn_residual" or (k == "conv1x1_stats"
+                                              and old_stats):
+                (mine, *sums), (theirs, *want) = (outs["this tree"],
+                                                  outs["parent"])
+                share = chip_smoke.limit_share(torch, mine, theirs)
+                if sums:   # Σy within 1e-5 of Σ|y|, Σy² of itself
+                    terms = (theirs.abs().sum(dim=(0, 2)), want[1])
+                    share = max([share] + [
+                        float(((x - y).abs() / (1e-5 * z)).max())
+                        for x, y, z in zip(sums, want, terms)])
                 verdict = (f"within 1e-5 of the parent (share {share:.4f})"
                            if share <= 1 else f"DIFFERS (share {share:.4f})")
             elif k == "norm_relu_moments":

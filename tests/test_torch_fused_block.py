@@ -22,7 +22,9 @@ conv1x1_bn_residual's, to the forward limit, whose grid covers N·S and
 Cout and whose wrapper refuses what its kernel does not take before any
 launch, and norm_relu_moments' Gram product, to the sums' limit, whose
 grid covers N·S and M2's upper triangle and whose wrapper refuses what
-its kernel does not take; on the CPU the chain's gate leaves C to the
+its kernel does not take, and conv1x1_stats' product, to the forward
+limit, whose grid covers N·S and whose wrapper reads W1 in place where
+the chain's shapes fit; on the CPU the chain's gate leaves C to the
 plain versions, which take any. Inputs come from
 a numpy seed: N 2-8, Cin 16-256, C 8-64, H 4, 7 and 8 (S 16, 49 and
 64), BN shifts that are not zero, so the 3x3's zero padding of h1 (not
@@ -35,6 +37,8 @@ each gradient's largest entry; the chain against the composition within
 2e-5 (it takes its variances as E[a²] - m², bn3's analytically through
 W3, where the composition reduces the materialized tensors).
 """
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -680,7 +684,7 @@ def test_bwd_apply3_grid_covers_n_s(n, s, c, cin, bn, blocks):
     start of the next; the last one past N·S), T the last dimension of
     the part tensor [2, C, T]; the stacked [amat | bmat] padded to whole
     row tiles and to K = Cin + C in whole 16-row stages."""
-    got_bn, t, rows, lda = tfb._bwd_apply3_grid(n, s, c, cin)
+    got_bn, t, rows, lda = tfb._stream_grid(n, s, c, cin + c)
     bm = 8192 // bn
     assert got_bn == bn and bm == (64 if c <= 64 else 128)
     assert (t - 1) * bn < n * s <= t * bn
@@ -690,6 +694,112 @@ def test_bwd_apply3_grid_covers_n_s(n, s, c, cin, bn, blocks):
     covered = [(k // s, k % s) for jt in range(t)
                for k in range(jt * bn, min(n * s, jt * bn + bn))]
     assert covered == [(i, p) for i in range(n) for p in range(s)]
+
+
+def _stats_tf32(x, w, products):
+    """conv1x1_stats' y as the card computes it
+    (csrc/conv1x1_stats_tc.cuh): W1·x with K = Cin in k8 steps (zero past
+    K), each step's products of _pairs into a fresh fragment (summed in
+    float32), added into the float32 accumulator step after step."""
+    k = x.shape[1]
+    a = torch.nn.functional.pad(w, (0, -k % 8))
+    b = torch.nn.functional.pad(x, (0, 0, 0, -k % 8))
+    pairs = _pairs(a, b, products)
+    acc = torch.zeros(x.shape[0], w.shape[0], x.shape[2])
+    for k0 in range(0, k + -k % 8, 8):
+        acc = acc + sum(torch.matmul(pa[:, k0:k0 + 8], pb[:, k0:k0 + 8])
+                        for pa, pb in pairs)
+    return acc
+
+
+@pytest.mark.parametrize("n,cin,c,s", [(2, 1024, 256, 196),
+                                      (4, 256, 96, 49),
+                                      (3, 150, 72, 36)])
+def test_3xtf32_holds_conv1x1_stats_to_float32(n, cin, c, s):
+    """At the chain's deepest K (Cin = 1024, the 14x14 stage), at C that
+    is not a multiple of 64 and at Cin that is not a multiple of 16 (150:
+    K padded to whole k8 steps), conv1x1_stats' 3xTF32 arithmetic on the
+    card, emulated, stays within half of its limits: y within atol = rtol
+    = 1e-5 of the plain version, Σy and Σy² within 1e-5 of the sum of
+    their terms' magnitudes. With one TF32 product y falls outside its
+    limit."""
+    rng = np.random.RandomState(29)
+    x = torch.from_numpy(rng.rand(n, cin, s).astype(np.float32))
+    w = torch.from_numpy((rng.randn(c, cin) * np.sqrt(2.0 / cin))
+                         .astype(np.float32))
+    y, sum_y, sum_q = tfb.conv1x1_stats_reference(x, w)
+
+    def shares(products):
+        got = _stats_tf32(x, w, products)
+        y_share = float(((got - y).abs() / (1e-5 + 1e-5 * y.abs())).max())
+        sums = [(got.sum(dim=(0, 2)), sum_y, y.abs()),
+                ((got * got).sum(dim=(0, 2)), sum_q, y * y)]
+        return y_share, max(float(((s - w).abs() / (1e-5 * t.sum(
+            dim=(0, 2)))).max()) for s, w, t in sums)
+
+    y_share, sums_share = shares(3)
+    assert y_share <= 0.5 and sums_share <= 0.5
+    assert shares(1)[0] > 1
+
+
+@pytest.mark.parametrize("n,s,c,cin,bn,blocks,itself", [
+    (128, 3136, 64, 256, 128, 3136, True),   # ResNet-50's three chain
+    (128, 784, 128, 512, 64, 1568, True),    # stages: W1 itself
+    (128, 196, 256, 1024, 64, 784, True),    # two 128-row tiles of C
+    (3, 49, 72, 72, 64, 3, False),     # C 72: one 128-row tile, padded
+    (2, 36, 64, 150, 128, 1, False),   # Cin 150: K padded to 160
+    (1, 1, 8, 16, 128, 1, False),      # C 8: a 64-row tile
+])
+def test_conv1x1_stats_grid_covers_n_s(monkeypatch, n, s, c, cin, bn,
+                                       blocks, itself):
+    """conv1x1_stats' tiles: 64 rows of C by 128 columns of N·S where C
+    <= 64, else 128 by 64, T column tiles covering every position of
+    every image exactly once (a tile may hold the end of one image and
+    the start of the next); W1 read at whole row tiles and K = Cin in
+    whole 16-row stages: W1 itself where the chain's shapes already fit
+    (a copy where it is not 16-byte aligned), else one zero-padded copy;
+    and the wrapper, given tensors declared on the card (the CPU tensors
+    here, two images at most), hands its kernel that W1, lda and T, with
+    part [2, C, T] (the launch patched to record its arguments)."""
+    got_bn, t, rows, lda = tfb._stream_grid(n, s, c, cin)
+    bm = 8192 // bn
+    assert got_bn == bn and bm == (64 if c <= 64 else 128)
+    assert (t - 1) * bn < n * s <= t * bn
+    assert rows % bm == 0 and rows - bm < c <= rows
+    assert rows // bm * t == blocks
+    assert lda % 16 == 0 and lda - 16 < cin <= lda
+    covered = [(k // s, k % s) for jt in range(t)
+               for k in range(jt * bn, min(n * s, jt * bn + bn))]
+    assert covered == [(i, p) for i in range(n) for p in range(s)]
+    w = torch.randn(c, cin)
+    read = tfb._stream_weight(w, rows, lda)
+    assert (read is w) == itself and read.shape == (rows, lda)
+    assert torch.equal(read[:c, :cin], w)
+    assert not read[c:].any() and not read[:, cin:].any()
+    if itself:
+        off = torch.zeros(c * cin + 1)[1:].view(c, cin)
+        off.copy_(w)
+        again = tfb._stream_weight(off, rows, lda)
+        assert again.data_ptr() % 16 == 0 and torch.equal(again, w)
+
+    n = min(n, 2)
+    _, t, _, _ = tfb._stream_grid(n, s, c, cin)
+    calls, shapes = [], []
+    empty = tfb._empty
+    monkeypatch.setattr(build, "on_card", lambda what, x: True)
+    monkeypatch.setattr(build, "bind", lambda *a: None)
+    monkeypatch.setattr(build, "launch",
+                        lambda name, fn, *a: calls.append(a))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(tfb, "_stream", lambda d: 0)
+    monkeypatch.setattr(tfb, "_empty", lambda d, *shape: (
+        shapes.append(shape), empty(d, *shape))[1])
+    tfb.conv1x1_stats(torch.rand(n, cin, s), w)
+    (args,) = calls
+    assert (args[1] == w.data_ptr()) == itself
+    assert args[5:12] == (n, cin, c, s, lda, t, int(s % 4 == 0))
+    assert (2, c, t) in shapes
 
 
 def _moments_shares(r0, c0, c):

@@ -664,6 +664,44 @@ def test_chain_kernels_match_plain(cuda, n, cin, c, h):
     assert torch.equal(fb.conv1x1_stats(d["x"], d["w1"])[2], q1)
 
 
+@pytest.mark.parametrize("n,cin,c,s,offset", [
+    (2, 256, 64, 3136, 0),    # the three chain stages' widths: W1 itself
+    (2, 512, 128, 784, 0),
+    (4, 1024, 256, 196, 0),   # two 128-row tiles of C
+    (2, 64, 64, 49, 0),       # S % 4 != 0: 4-byte copies, tiles straddling
+                              # images
+    (2, 64, 64, 64, 1),       # x and W1 4 bytes off 16-byte alignment
+    (3, 72, 64, 36, 0),       # Cin 72: W1 padded to K 80
+    (2, 256, 72, 30, 0),      # C 72: a partial 128-row tile
+    (2, 128, 130, 20, 3),     # C 130 and 200: a second row tile mostly
+    (1, 96, 200, 45, 0),      # empty; N·S 40 and 45, one partial tile
+    (3, 64, 8, 50, 0),        # C 8; N·S 150, not a multiple of the tile
+])
+def test_conv1x1_stats_kernel_matches_plain(cuda, n, cin, c, s, offset):
+    """conv1x1_stats alone at the chain's widths and at shapes the chain's
+    gate never makes: y within TOL of the plain version, Σy and Σy²
+    within 1e-5 of their terms' magnitudes, a second call bit-identical;
+    x and W1 off 16-byte alignment (4-byte copies of x, W1 copied) give
+    the bits of the aligned call."""
+    gen = torch.Generator().manual_seed(n + cin + c + s)
+    x = torch.rand(n, cin, s, generator=gen).cuda()
+    w = (torch.randn(c, cin, generator=gen) * (2 / cin) ** 0.5).cuda()
+    got = fb.conv1x1_stats(x, w)
+    want = fb.conv1x1_stats_reference(x, w)
+    torch.testing.assert_close(got[0], want[0], **TOL)
+    _sums_close(got[1], want[1], want[0].abs().sum(dim=(0, 2)))
+    _sums_close(got[2], want[2], want[2])
+    again = fb.conv1x1_stats(x, w)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if offset:
+        xo = torch.empty(x.numel() + offset, device="cuda")[offset:]
+        wo = torch.empty(w.numel() + offset, device="cuda")[offset:]
+        xo, wo = xo.view_as(x).copy_(x), wo.view_as(w).copy_(w)
+        assert xo.data_ptr() % 16 and wo.data_ptr() % 16
+        shifted = fb.conv1x1_stats(xo, wo)
+        assert all(torch.equal(a, b) for a, b in zip(got, shifted))
+
+
 @pytest.mark.parametrize("n,c,s", [
     (3, 72, 49),     # S % 4 != 0: 4-byte copies; C 72: a second row tile
     (5, 200, 45),    # N·S 225, not a multiple of 32; tiles off the diagonal
