@@ -313,11 +313,13 @@ def check_flash_bwd(torch, F, fa, card):
     """The two backward kernels vs their plain versions at H=8, D=256,
     causal, at each of FLASH_SHAPES, from the plain forward's O and lse;
     SDPA's backward (autograd through it, less its forward) as the
-    yardstick of the pair. dQ's three products run in 3xTF32 on the
-    tensor cores: its bound is that arithmetic's (three TF32 products of
-    6·D flops a visible pair), printed beside the float32 FMA bound."""
+    yardstick of the pair. Both kernels run their products in 3xTF32 on
+    the tensor cores: each bound is that arithmetic's (three TF32 products
+    of 6·D flops a visible pair for dQ, 8·D for dK/dV), printed beside the
+    float32 FMA bound."""
     gen = torch.Generator(device="cuda").manual_seed(4)
-    rows, errs, shares = {}, {"dq": [], "dkv": []}, []
+    rows, errs = {}, {"dq": [], "dkv": []}
+    shares = {"dq": [], "dkv": []}
     for b, s in FLASH_SHAPES:
         q, k, v, do = (torch.randn(b, s, 8, 256, device="cuda",
                                    generator=gen) for _ in range(4))
@@ -330,17 +332,20 @@ def check_flash_bwd(torch, F, fa, card):
                                                       causal=True)
         torch.cuda.synchronize()
         errs["dq"].append(max_err(torch, dq, rq, BWD_ATOL, BWD_RTOL))
-        shares.append(limit_share(torch, dq, rq, BWD_ATOL, BWD_RTOL))
+        shares["dq"].append(limit_share(torch, dq, rq, BWD_ATOL, BWD_RTOL))
         errs["dkv"].append(max(max_err(torch, dk, rk, BWD_ATOL, BWD_RTOL),
                                max_err(torch, dv, rv, BWD_ATOL, BWD_RTOL)))
+        shares["dkv"].append(max(
+            limit_share(torch, dk, rk, BWD_ATOL, BWD_RTOL),
+            limit_share(torch, dv, rv, BWD_ATOL, BWD_RTOL)))
         pairs = b * s * (s + 1) // 2 * 8
         in_bytes = 4 * b * (4 * s * 8 * 256 + 2 * 8 * s)
         out = 4 * b * s * 8 * 256
-        dq_flops = 6 * 256 * pairs
-        bounds = {"dq": bound_ms(in_bytes + out, 3 * dq_flops,
-                                 TF32_FLOPS_PER_S),
-                  "dkv": bound_ms(in_bytes + 2 * out, 8 * 256 * pairs)}
-        dq_f32 = bound_ms(in_bytes + out, dq_flops)
+        flops = {"dq": 6 * 256 * pairs, "dkv": 8 * 256 * pairs}
+        nbytes = {"dq": in_bytes + out, "dkv": in_bytes + 2 * out}
+        bounds = {part: bound_ms(nbytes[part], 3 * flops[part],
+                                 TF32_FLOPS_PER_S) for part in flops}
+        f32 = {part: bound_ms(nbytes[part], flops[part]) for part in flops}
         pair = {"dq": (fa.flash_attention_bwd_dq,
                        fa.flash_attention_bwd_dq_reference),
                 "dkv": (fa.flash_attention_bwd_dkv,
@@ -359,17 +364,18 @@ def check_flash_bwd(torch, F, fa, card):
             (qt, kt, vt), dot), 20)
         lib = both - fwd
         total_bound = bound_ms(in_bytes + 3 * out, 14 * 256 * pairs)
+        kern = "; ".join(
+            f"{part} kernel {ms[part]:.4f} ms "
+            f"({3 * flops[part] / ms[part] / 1e9:.1f} TFLOP/s of TF32; "
+            f"plain {plain[part]:.4f}, bound {bounds[part][0]:.4f} "
+            f"{bounds[part][1]} by 3xTF32 at "
+            f"{TF32_FLOPS_PER_S / 1e12:.0f} TFLOP/s, f32 FMA bound "
+            f"{f32[part][0]:.4f} {f32[part][1]})" for part in ("dq", "dkv"))
         print(f"flash_attention_bwd B={b} S={s}: max_abs_err dq "
               f"{errs['dq'][-1]:.3e} (largest share of the limit "
-              f"{shares[-1]:.4f}), dk/dv {errs['dkv'][-1]:.3e} (tol atol "
-              f"{BWD_ATOL} rtol {BWD_RTOL}); dq kernel {ms['dq']:.4f} ms "
-              f"({3 * dq_flops / ms['dq'] / 1e9:.1f} TFLOP/s of TF32; plain "
-              f"{plain['dq']:.4f}, bound {bounds['dq'][0]:.4f} "
-              f"{bounds['dq'][1]} by 3xTF32 at "
-              f"{TF32_FLOPS_PER_S / 1e12:.0f} TFLOP/s, f32 FMA bound "
-              f"{dq_f32[0]:.4f} {dq_f32[1]}), dk/dv kernel {ms['dkv']:.4f} "
-              f"ms (plain {plain['dkv']:.4f}, bound {bounds['dkv'][0]:.4f} "
-              f"{bounds['dkv'][1]}); both {ms['dq'] + ms['dkv']:.4f} ms vs "
+              f"{shares['dq'][-1]:.4f}), dk/dv {errs['dkv'][-1]:.3e} "
+              f"({shares['dkv'][-1]:.4f}; tol atol {BWD_ATOL} rtol "
+              f"{BWD_RTOL}); {kern}; both {ms['dq'] + ms['dkv']:.4f} ms vs "
               f"f32 FMA bound {total_bound[0]:.4f} ms "
               f"({14 * 256 * pairs / 1e9:.2f} GFLOP) and sdpa backward "
               f"{lib:.4f} ms (sdpa fwd+bwd {both:.4f}, fwd {fwd:.4f}) "
@@ -381,8 +387,9 @@ def check_flash_bwd(torch, F, fa, card):
                                   bound_by=bounds[part][1], library_ms=lib)
     for part in ("dq", "dkv"):
         rows[part]["max_abs_err"] = max(errs[part])
-    print(f"flash_attention_bwd_dq: largest share of the 1e-4 limit over "
-          f"FLASH_SHAPES {max(shares):.4f} [{card}]")
+    print(f"flash_attention_bwd: largest share of the 1e-4 limit over "
+          f"FLASH_SHAPES, dq {max(shares['dq']):.4f}, dk/dv "
+          f"{max(shares['dkv']):.4f} [{card}]")
     return rows["dq"], rows["dkv"]
 
 

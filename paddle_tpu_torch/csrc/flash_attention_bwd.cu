@@ -1,6 +1,6 @@
-// Flash-attention backward for Hopper (sm_90a): dQ on the tensor cores in
-// 3xTF32 with dS formed in registers, and dK/dV in float32 on the CUDA
-// cores.
+// Flash-attention backward for Hopper (sm_90a): dQ and dK/dV, each on the
+// tensor cores in 3xTF32 with the probabilities and dS formed in
+// registers.
 //
 // Replaces the two TPU kernels of paddle_tpu/kernels/flash_attention.py
 // _flash_bwd_pallas: _bwd_dq_kernel (:178-215, pallas_call at :279; dQ =
@@ -22,7 +22,9 @@
 // training step's shape (B 8, S 1024, H 8, D 256, causal) dQ's 51.6 GFLOP
 // are 0.77 ms at the 67 TFLOP/s float32 FMA rate; as three TF32 products
 // each, 154.8 GFLOP of tensor-core work, 0.31 ms at the 495 TFLOP/s dense
-// TF32 rate.
+// TF32 rate. dK/dV's 68.8 GFLOP are 1.03 ms in float32, 206.4 GFLOP of
+// TF32 work, 0.42 ms; its 403 MB (q, k, v, dO, lse, delta in, dK, dV
+// out) take 0.12 ms at 3.35 TB/s.
 //
 // dQ (flash_bwd_dq_kernel), on the forward's design (csrc/flash_attention.cu):
 //   - A block owns one (batch, head) and a tile of kBQ = 64 query rows; 8
@@ -70,17 +72,52 @@
 //   leave between barriers cost ~5%. At B 1 the last query tile's walk
 //   over S / 32 key tiles sets the time.
 //
-// dK/dV (flash_bwd_dkv_kernel) is still the float32 SIMT design: the same
-// 64 x 32 (query x key) score tile computed twice per step (s = Q K^T and
-// dp = dO V^T) by a 16 x 16 thread grid with a 4 x 2 micro-tile each,
-// reading shared memory as float4 from rows padded by 4 floats so that
-// the column-parallel loads hit distinct banks. It keeps its 32-row K and
-// V tiles in shared memory and dK, dV in registers (2 rows x D/16 columns
-// each a thread), and streams 64-row Q and dO tiles from the first one
-// that reaches its keys. At D = 256 it holds two 64-row and two 32-row
-// tiles plus the P and dS tiles, 217 KB, above the 48 KB static limit,
-// hence cudaFuncSetAttribute; nothing else fits beside it, so one block
-// runs per SM.
+// dK/dV (flash_bwd_dkv_kernel) is dQ's design with the operands' roles
+// swapped: K and V stay, Q and dO stream past them.
+//   - A block owns one (batch, head) and a tile of kBK = 32 keys; 8 warps.
+//     K and V land once by 16-byte cp.async and stay; the block walks the
+//     query tiles of kBQ = 64 rows from the first that sees its keys
+//     (causal: the tile of row k0 - (sk - sq)) to the last. Key tile 0,
+//     the heaviest under causal masking, launches first. At B 1, S 1024
+//     the grid is 256 blocks on 132 SMs.
+//   - Shared memory at D = 256: K and V at a pitch of D + 16 floats (as
+//     dQ's Q and dO), Q and dO of one query tile at D with their chunks
+//     swizzled (as dQ's K and V: kv_swizzle repeats every 16 rows, and a
+//     64-row tile is copied as two of 32, since copy_rows swizzles at 8
+//     threads a row), P^T and dS^T at kLP = 80 floats (16 mod 32), and the
+//     tile's lse and delta: 221,696 bytes, one block an SM. Q and dO take
+//     turns with their copies, one buffer each: dP^T = V dO_t^T runs
+//     while Q_t lands; then S^T = K Q_t^T, P^T and dS^T formed and
+//     stored, dV += P^T dO_t; dO_{t+1} is issued with its lse and delta
+//     (4-byte copies: a row of lse starts at bh sq floats, not 16-byte
+//     aligned where sq % 4 != 0) and lands under dK += dS^T Q_t; Q_{t+1}
+//     is issued once dK is done. Four barriers a query tile; S^T and dV
+//     run with no copy in flight.
+//   - The products: dQ's tile_product and k8 fragments. S^T and dP^T are
+//     computed by the same warps over the same warp tile (2 (keys) x 4
+//     (queries) warps, 16 keys x 16 queries each), so p = exp(s - lse)
+//     and dS = p (dp - delta) scale are elementwise on registers, lse and
+//     delta indexed by the column (the query). dV += P^T dO and dK +=
+//     dS^T Q (accumulate_dkv) run on 2 (keys) x 4 (column quarters)
+//     warps, 16 keys x D / 4 columns each, over a k extent of 64 queries:
+//     A = P^T or dS^T read along its rows, B = dO or Q read down its rows
+//     as dQ's dS K reads K, so the one swizzle puts both reads of Q and of
+//     dO on 32 banks. dV and dK hold [1][D / 32][4] accumulators each, 64
+//     a thread at D = 256, in registers across the walk; kJG = 2 n8 tiles
+//     a step, as dQ (4 or 8 give the same bits in the same time).
+//     (4 warps on dV and 4 on dK, 16 x D / 2 each, would hold as many
+//     accumulators but leave no product for dO's copy to land under.)
+//   - The epilogue stores dK and dV for keys < sk as 16-byte writes, the
+//     columns permuted as dQ's. No atomics: two calls are bit-identical.
+//   Registers (nvcc -Xptxas -v, sm_90a, CUDA 12.8): 204 / 146 / 130 a
+//   thread at D = 256 / 128 / 64; no spills, no stack. 144 / 96 / 72 HMMA;
+//   72 FFMA at every D, none in the products.
+//   What holds it back (PERF.md, row 3; scripts/torch_flash_bwd_probe.py):
+//   as dQ, the instructions around the mma (fragment reads, splits,
+//   fresh-fragment adds) of one block of 8 warps an SM, at 132 TFLOP/s of
+//   TF32 (B 8, S 1024): a build with each mma replaced by integer work is
+//   7% slower, one without the streamed copies 3% faster. At B 1 the
+//   heaviest key tile's walk over S / 64 query tiles sets the time.
 #include <cmath>
 
 #include "common.cuh"
@@ -90,131 +127,12 @@ namespace {
 
 constexpr int kBQ = 64;        // query rows per tile
 constexpr int kBK = 32;        // key rows per tile
-constexpr int kThreads = 256;  // dQ: 8 warps; dK/dV: a 16 x 16 thread grid
-constexpr int kPad = 4;        // floats of padding per Q/dO/K/V row
-constexpr int kLDP = kBK + 1;  // row stride of the P and dS tiles
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (2 * kBQ * (D + kPad) + 2 * kBK * (D + kPad) +
-                          2 * kBQ * kLDP + 2 * kBQ);
-}
-
-// The dK/dV kernel's shared memory.
-template <int D>
-struct Tiles {
-  float* q;      // [kBQ][D + kPad]
-  float* dout;   // [kBQ][D + kPad]
-  float* k;      // [kBK][D + kPad]
-  float* v;      // [kBK][D + kPad]
-  float* p;      // [kBQ][kLDP]
-  float* ds;     // [kBQ][kLDP]
-  float* lse;    // [kBQ]
-  float* delta;  // [kBQ]
-
-  __device__ explicit Tiles(float* base) {
-    constexpr int LD = D + kPad;
-    q = base;
-    dout = q + kBQ * LD;
-    k = dout + kBQ * LD;
-    v = k + kBK * LD;
-    p = v + kBK * LD;
-    ds = p + kBQ * kLDP;
-    lse = ds + kBQ * kLDP;
-    delta = lse + kBQ;
-  }
-};
-
-// Copy rows [row0, row0 + ROWS) of a [S, H, D] head slice (row stride
-// H*D floats) into a padded shared tile; rows at or past n_rows are zeros.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int row0, int n_rows,
-                                          long row_stride, int tid) {
-  constexpr int D4 = D / 4;
-  constexpr int LD = D + kPad;
-  for (int i = tid; i < ROWS * D4; i += kThreads) {
-    const int r = i / D4;
-    const int c = (i - r * D4) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n_rows)
-      val = *reinterpret_cast<const float4*>(src + (row0 + r) * row_stride + c);
-    *reinterpret_cast<float4*>(dst + r * LD + c) = val;
-  }
-}
-
-// lse and delta of query rows [q0, q0 + kBQ) of one (batch, head); zeros
-// past sq.
-__device__ __forceinline__ void load_row_stats(float* s_lse, float* s_delta,
-                                               const float* lse,
-                                               const float* delta, int q0,
-                                               int sq, int tid) {
-  if (tid < kBQ) {
-    const bool ok = q0 + tid < sq;
-    s_lse[tid] = ok ? lse[q0 + tid] : 0.f;
-    s_delta[tid] = ok ? delta[q0 + tid] : 0.f;
-  }
-}
-
-// One 64 x 32 step: s = Q K^T and dp = dO V^T for the thread's rows
-// ty*4 + i and key columns tx + 16j, then p and dS into shared memory.
-template <int D>
-__device__ __forceinline__ void probs_and_ds(const Tiles<D>& t, int q0, int k0,
-                                             int sq, int sk, int q_off,
-                                             float scale, int causal, int tx,
-                                             int ty) {
-  constexpr int LD = D + kPad;
-  float s[4][2], dp[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-  for (int d = 0; d < D; d += 4) {
-    float4 qv[4], ov[4], kv[2], vv[2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qv[i] = *reinterpret_cast<const float4*>(t.q + (ty * 4 + i) * LD + d);
-      ov[i] = *reinterpret_cast<const float4*>(t.dout + (ty * 4 + i) * LD + d);
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      kv[j] = *reinterpret_cast<const float4*>(t.k + (tx + 16 * j) * LD + d);
-      vv[j] = *reinterpret_cast<const float4*>(t.v + (tx + 16 * j) * LD + d);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        s[i][j] = ptt::dot4(qv[i], kv[j], s[i][j]);
-        dp[i][j] = ptt::dot4(ov[i], vv[j], dp[i][j]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    const int qrow = q0 + r;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int c = tx + 16 * j;
-      const int kpos = k0 + c;
-      float p = 0.f, ds = 0.f;
-      if (qrow < sq && kpos < sk) {
-        float val = s[i][j] * scale;
-        if (causal && kpos > qrow + q_off) val = ptt::kMaskValue;
-        p = expf(val - t.lse[r]);
-        ds = p * (dp[i][j] - t.delta[r]) * scale;
-      }
-      t.p[r * kLDP + c] = p;
-      t.ds[r * kLDP + c] = ds;
-    }
-  }
-}
+constexpr int kThreads = 256;  // 8 warps
 
 // ---- dQ on the tensor cores ------------------------------------------------
 
 constexpr int kLS = kBK + 16;  // dS's pitch: 16 mod 32
-constexpr int kJG = 2;         // n8 tiles of dS K whose mma chains interleave
+constexpr int kJG = 2;         // n8 tiles a step whose mma chains interleave
 
 // The dQ kernel's shared memory, in floats: Q, dO, K, V, dS.
 template <int D>
@@ -499,6 +417,104 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 // -----------------------------------------------------------------------------
 
+// ---- dK/dV on the tensor cores ---------------------------------------------
+
+constexpr int kLP = kBQ + 16;  // P^T's and dS^T's pitch: 16 mod 32
+
+// The dK/dV kernel's shared memory, in floats: K, V, Q, dO, P^T, dS^T,
+// lse and delta.
+template <int D>
+struct DkvSmem {
+  static constexpr int kLK = D + 16;   // K's and V's pitch: 16 mod 32
+  static constexpr int kK = kBK * kLK;
+  static constexpr int kQ = kBQ * D;   // Q's and dO's: D, chunks swizzled
+  static constexpr int kP = kBK * kLP;
+  static constexpr int kFloats = 2 * kK + 2 * kQ + 2 * kP + 2 * kBQ;
+  static constexpr size_t kBytes = sizeof(float) * kFloats;
+};
+
+// Query rows q0 .. q0 + kBQ - 1 of x into dst, chunks swizzled: two
+// copies of 32 rows, as copy_rows swizzles at 8 threads a row (kBK rows);
+// kv_swizzle(r + 32) = kv_swizzle(r).
+template <int D>
+__device__ __forceinline__ void copy_query_rows(float* dst, const float* x,
+                                                int q0, int n, long stride) {
+  copy_rows<D, kBK, D, true>(dst, x, q0, n, stride);
+  copy_rows<D, kBK, D, true>(dst + kBK * D, x, q0 + kBK, n, stride);
+}
+
+// lse and delta of query rows q0 .. q0 + kBQ - 1 into st[0, kBQ) and
+// st[kBQ, 2 kBQ), 4 bytes a copy, zero past sq.
+__device__ __forceinline__ void copy_stats(float* st, const float* lse,
+                                           const float* delta, int q0,
+                                           int sq) {
+  const int i = threadIdx.x;
+  if (i < 2 * kBQ) {
+    const int r = i % kBQ;
+    const bool ok = q0 + r < sq;
+    copy4(st + i, (i < kBQ ? lse : delta) + (ok ? q0 + r : 0), ok);
+  }
+}
+
+// acc += A B over a query tile: A (P^T or dS^T, [kBK][kLP]) read along
+// its rows, B (dO or Q, [kBQ][D], swizzled) down its rows, as
+// accumulate_dq reads dS and K, over the tile's 64 queries. Warp (wm, wn)
+// owns keys 16 wm + {g, g + 8} and, in n8 tile j, the columns D / 4 wn +
+// NT (2 t + c) + j, c = 0, 1, NT = D / 32; kJG n8 tiles at a time.
+template <int D>
+__device__ __forceinline__ void accumulate_dkv(float (&acc)[1][D / 32][4],
+                                               const float* sA,
+                                               const float* sB, int wm,
+                                               int wn, int g, int t) {
+  constexpr int NT = D / 32;
+  const float* pa = sA + (16 * wm + g) * kLP + 4 * t;
+  const int col = wn * (D / 4) + NT * g;  // the lane's first column
+  const int sw[2] = {kv_swizzle<D>(4 * t), kv_swizzle<D>(4 * t + 1)};
+#pragma unroll 1
+  for (int k0 = 0; k0 < kBQ; k0 += 16) {
+    float4 pv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      pv[h] = *reinterpret_cast<const float4*>(pa + 8 * h * kLP + k0);
+#pragma unroll
+    for (int st = 0; st < 2; ++st) {
+      uint32_t ab[1][1][4], as[1][1][4];
+      a_frag(pv[0], pv[1], st, ab[0][0], as[0][0]);
+      float bv[2][NT];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float* row = sB + (k0 + 4 * t + 2 * st + e) * D;
+        if constexpr (NT >= 4) {
+#pragma unroll
+          for (int c = 0; c < NT / 4; ++c) {
+            const float4 x = *reinterpret_cast<const float4*>(
+                row + 4 * ((col / 4 + c) ^ sw[e]));
+            bv[e][4 * c] = x.x;
+            bv[e][4 * c + 1] = x.y;
+            bv[e][4 * c + 2] = x.z;
+            bv[e][4 * c + 3] = x.w;
+          }
+        } else {
+          const float2 x = *reinterpret_cast<const float2*>(
+              row + 4 * ((col / 4) ^ sw[e]) + col % 4);
+          bv[e][0] = x.x;
+          bv[e][1] = x.y;
+        }
+      }
+#pragma unroll
+      for (int j0 = 0; j0 < NT; j0 += kJG) {
+        uint32_t bb[1][kJG][2], bs[1][kJG][2];
+#pragma unroll
+        for (int j = 0; j < kJG; ++j) {
+          split(bv[0][j0 + j], bb[0][j][0], bs[0][j][0]);
+          split(bv[1][j0 + j], bb[0][j][1], bs[0][j][1]);
+        }
+        mma3<1, 1, kJG, NT>(acc, ab, as, bb, bs, j0);
+      }
+    }
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -508,20 +524,29 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ delta, float* __restrict__ dk,
                      float* __restrict__ dv, int H, int sq, int sk,
                      float scale, int causal) {
-  constexpr int LD = D + kPad;
-  constexpr int NJ = D / 64;
+  constexpr int LK = DkvSmem<D>::kLK;
+  constexpr int NT = D / 32;
   extern __shared__ float4 smem4[];
-  const Tiles<D> t(reinterpret_cast<float*>(smem4));
+  float* sK = reinterpret_cast<float*>(smem4);  // [kBK][LK]
+  float* sV = sK + DkvSmem<D>::kK;               // [kBK][LK]
+  float* sQ = sV + DkvSmem<D>::kK;               // [kBQ][D], swizzled
+  float* sO = sQ + DkvSmem<D>::kQ;               // [kBQ][D] dO, swizzled
+  float* sP = sO + DkvSmem<D>::kQ;               // [kBK][kLP] P^T
+  float* sS = sP + DkvSmem<D>::kP;               // [kBK][kLP] dS^T
+  float* sL = sS + DkvSmem<D>::kP;               // lse, delta [kBQ] each
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int k0 = blockIdx.y * kBK;
+  const int k0 = blockIdx.y * kBK;  // key tile 0, the heaviest, first
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  // keys 16 wm + ...; S^T's and dP^T's queries 16 wn + ..., dV's and
+  // dK's columns D / 4 wn + ...
+  const int wm = warp >> 2, wn = warp & 3;
   const int q_off = sk - sq;
-  const long row_stride = (long)H * D;
+  const long stride = (long)H * D;  // floats between sequence positions
   const float* qb = q + ((long)b * sq * H + h) * D;
   const float* ob = dout + ((long)b * sq * H + h) * D;
   const float* kb = k + ((long)b * sk * H + h) * D;
@@ -529,71 +554,105 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* lse_bh = lse + (long)bh * sq;
   const float* delta_bh = delta + (long)bh * sq;
 
-  load_rows<D, kBK>(t.k, kb, k0, sk, row_stride, tid);
-  load_rows<D, kBK>(t.v, vb, k0, sk, row_stride, tid);
-
-  float4 acc_k[2][NJ], acc_v[2][NJ];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      acc_k[i][j] = acc_v[i][j] = make_float4(0.f, 0.f, 0.f, 0.f);
-
   // query tiles that end before this key tile's diagonal see none of it:
   // the first useful row is k0 - q_off (always < sq, since k0 < sk)
   const int n_q = (sq + kBQ - 1) / kBQ;
   const int first = causal ? max(0, k0 - q_off) / kBQ : 0;
 
+  copy_rows<D, kBK, LK, false>(sV, vb, k0, sk, stride);
+  copy_query_rows<D>(sO, ob, first * kBQ, sq, stride);
+  copy_stats(sL, lse_bh, delta_bh, first * kBQ, sq);
+  commit();
+  copy_rows<D, kBK, LK, false>(sK, kb, k0, sk, stride);
+  copy_query_rows<D>(sQ, qb, first * kBQ, sq, stride);
+  commit();
+
+  int key[2];  // the lane's two keys of the score tile
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) key[hr] = k0 + 16 * wm + g + 8 * hr;
+  float acc_v[1][NT][4], acc_k[1][NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc_v[0][j][r] = acc_k[0][j][r] = 0.f;
+  wait_prior<1>();  // this thread's copies of V, dO, lse and delta
+  __syncthreads();  // everyone's
+
   for (int qt = first; qt < n_q; ++qt) {
     const int q0 = qt * kBQ;
-    __syncthreads();  // the previous tile's readers are done with Q/dO/P/dS
-    load_rows<D, kBQ>(t.q, qb, q0, sq, row_stride, tid);
-    load_rows<D, kBQ>(t.dout, ob, q0, sq, row_stride, tid);
-    load_row_stats(t.lse, t.delta, lse_bh, delta_bh, q0, sq, tid);
-    __syncthreads();
-    probs_and_ds<D>(t, q0, k0, sq, sk, q_off, scale, causal, tx, ty);
-    __syncthreads();
-    // dV += P^T dO, dK += dS^T Q: key rows ty*2 + i, columns tx*4 + 64j
-#pragma unroll 4
-    for (int qq = 0; qq < kBQ; ++qq) {
-      float pv[2], dsv[2];
+    float dp[1][2][4], s[1][2][4];
+    tile_product<D>(dp, sV, sO, wm, wn, g, t);  // Q lands under it
+    wait_prior<0>();  // this thread's copies of Q (and K)
+    __syncthreads();  // everyone's
+    tile_product<D>(s, sK, sQ, wm, wn, g, t);
+
+    // p and dS on the fragments; P^T and dS^T to shared memory, the A
+    // operands of dV and dK
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        pv[i] = t.p[qq * kLDP + ty * 2 + i];
-        dsv[i] = t.ds[qq * kLDP + ty * 2 + i];
-      }
+    for (int j = 0; j < 2; ++j) {
+      const int c = 16 * wn + 8 * j + 2 * t;  // the lane's queries q0 + c + e
+      const float2 l2 = *reinterpret_cast<const float2*>(sL + c);
+      const float2 d2 = *reinterpret_cast<const float2*>(sL + kBQ + c);
+      const float col_lse[2] = {l2.x, l2.y}, col_delta[2] = {d2.x, d2.y};
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int c = tx * 4 + 64 * j;
-        const float4 ov = *reinterpret_cast<const float4*>(t.dout + qq * LD + c);
-        const float4 qv = *reinterpret_cast<const float4*>(t.q + qq * LD + c);
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = 16 * wm + g + 8 * hr;
+        float p[2], ds[2];
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          acc_v[i][j].x = fmaf(pv[i], ov.x, acc_v[i][j].x);
-          acc_v[i][j].y = fmaf(pv[i], ov.y, acc_v[i][j].y);
-          acc_v[i][j].z = fmaf(pv[i], ov.z, acc_v[i][j].z);
-          acc_v[i][j].w = fmaf(pv[i], ov.w, acc_v[i][j].w);
-          acc_k[i][j].x = fmaf(dsv[i], qv.x, acc_k[i][j].x);
-          acc_k[i][j].y = fmaf(dsv[i], qv.y, acc_k[i][j].y);
-          acc_k[i][j].z = fmaf(dsv[i], qv.z, acc_k[i][j].z);
-          acc_k[i][j].w = fmaf(dsv[i], qv.w, acc_k[i][j].w);
+        for (int e = 0; e < 2; ++e) {
+          const int qrow = q0 + c + e;
+          p[e] = ds[e] = 0.f;
+          if (qrow < sq && key[hr] < sk) {
+            float x = s[0][j][2 * hr + e] * scale;
+            if (causal && key[hr] > qrow + q_off) x = ptt::kMaskValue;
+            p[e] = expf(x - col_lse[e]);
+            ds[e] = p[e] * (dp[0][j][2 * hr + e] - col_delta[e]) * scale;
+          }
         }
+        *reinterpret_cast<float2*>(sP + r * kLP + c) = make_float2(p[0], p[1]);
+        *reinterpret_cast<float2*>(sS + r * kLP + c) =
+            make_float2(ds[0], ds[1]);
       }
     }
+    __syncthreads();  // P^T and dS^T are in shared memory
+    accumulate_dkv<D>(acc_v, sP, sO, wm, wn, g, t);
+    __syncthreads();  // dV is done with dO, the formation with lse, delta
+    if (qt + 1 < n_q) {
+      copy_query_rows<D>(sO, ob, q0 + kBQ, sq, stride);
+      copy_stats(sL, lse_bh, delta_bh, q0 + kBQ, sq);
+    }
+    commit();
+    accumulate_dkv<D>(acc_k, sS, sQ, wm, wn, g, t);  // dO lands under it
+    wait_prior<0>();  // this thread's copies of the next dO
+    __syncthreads();  // everyone's; and dK is done with Q and dS^T
+    if (qt + 1 < n_q) copy_query_rows<D>(sQ, qb, q0 + kBQ, sq, stride);
+    commit();
   }
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = ty * 2 + i;
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = 16 * wm + g + 8 * hr;
     if (k0 + r >= sk) continue;
-    const long off = ((long)b * sk * H + h) * D + (k0 + r) * row_stride;
+    float ok[2 * NT], ov[2 * NT];
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      *reinterpret_cast<float4*>(dk + off + tx * 4 + 64 * j) = acc_k[i][j];
-      *reinterpret_cast<float4*>(dv + off + tx * 4 + 64 * j) = acc_v[i][j];
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        ok[NT * c + j] = acc_k[0][j][2 * hr + c];
+        ov[NT * c + j] = acc_v[0][j][2 * hr + c];
+      }
+    const long off = ((long)b * sk * H + h) * D + (k0 + r) * stride +
+                     wn * (D / 4) + 2 * NT * t;
+#pragma unroll
+    for (int c = 0; c < 2 * NT; c += 4) {
+      *reinterpret_cast<float4*>(dk + off + c) =
+          make_float4(ok[c], ok[c + 1], ok[c + 2], ok[c + 3]);
+      *reinterpret_cast<float4*>(dv + off + c) =
+          make_float4(ov[c], ov[c + 1], ov[c + 2], ov[c + 3]);
     }
   }
 }
+// -----------------------------------------------------------------------------
 
 template <int D>
 int launch_dq(const float* q, const float* k, const float* v,
@@ -616,7 +675,7 @@ int launch_dkv(const float* q, const float* k, const float* v,
                const float* dout, const float* lse, const float* delta,
                float* dk, float* dv, int B, int H, int sq, int sk,
                float scale, int causal, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
+  const size_t smem = DkvSmem<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

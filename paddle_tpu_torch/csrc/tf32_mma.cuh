@@ -32,6 +32,12 @@ __device__ __forceinline__ void copy16(float* dst, const float* src, bool ok) {
                    shared_addr(dst)),
                "l"(src), "r"(ok ? 16 : 0));
 }
+// 4 bytes, through L1 (.cg copies 16 bytes only); zero-filled unless ok.
+__device__ __forceinline__ void copy4(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   shared_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
+}
 __device__ __forceinline__ void commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

@@ -10,10 +10,10 @@ of the ``FlashAttention`` autograd function, which on the CPU run the
 chunked-scan plain versions of the two kernels.
 
 Tolerance: float32 on both sides, sums in another order: atol = rtol =
-1e-5. The last tests hold the card's dQ kernel (csrc/flash_attention_bwd.cu)
-on the CPU: its 3xTF32 arithmetic, emulated, against the plain version
-within half the kernel's 1e-4 limit, and its shared-memory layout of K
-against bank conflicts.
+1e-5. The last tests hold the card's dQ and dK/dV kernels
+(csrc/flash_attention_bwd.cu) on the CPU: their 3xTF32 arithmetic,
+emulated, against the plain versions within half the kernels' 1e-4
+limit, and their shared-memory layouts against bank conflicts.
 """
 
 import importlib
@@ -199,6 +199,90 @@ def test_3xtf32_holds_flash_dq_to_its_limit(sq, sk, d, causal):
     assert share(_flash_dq_tf32(q, k, v, do, lse, delta, causal, 1)) > 1
 
 
+
+def _flash_dkv_tf32(q, k, v, do, lse, delta, causal, products, bq=64,
+                    bk=32):
+    """csrc/flash_attention_bwd.cu's dK/dV arithmetic on [B, S, H, D]
+    inputs, but for the tensor cores' truncating sums (see _mm_tf32): per
+    tile of 32 keys (K and V zero past sk), the query tiles of 64 from the
+    first that reaches the causal diagonal (Q and dO zero past sq); Sᵀ =
+    K·Qᵀ and dPᵀ = V·dOᵀ in TF32 products; s = Sᵀ·scale, DEFAULT_MASK_VALUE
+    past the diagonal; p = exp(s - lse) and dS = p·(dPᵀ - delta)·scale in
+    float32, lse and delta by the column (the query), both 0 for queries
+    past sq and keys past sk; dV += Pᵀ·dO and dK += dSᵀ·Q in TF32
+    products."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = 1.0 / np.sqrt(d)
+    nq, nk = -(-sq // bq), -(-sk // bk)
+
+    def pad(x, n):
+        return torch.nn.functional.pad(
+            x.permute(0, 2, 1, 3).reshape(b * h, x.shape[1], d),
+            (0, 0, 0, n - x.shape[1]))
+    qp, dop = pad(q, nq * bq), pad(do, nq * bq)
+    kp, vp = pad(k, nk * bk), pad(v, nk * bk)
+    row_pad = (0, nq * bq - sq)
+    lse_p = torch.nn.functional.pad(lse, row_pad)
+    delta_p = torch.nn.functional.pad(delta, row_pad)
+    dk = torch.zeros(b * h, nk * bk, d)
+    dv = torch.zeros(b * h, nk * bk, d)
+    for kt in range(nk):
+        k0 = kt * bk
+        keys = torch.arange(k0, k0 + bk)[:, None]
+        kt_, vt_ = kp[:, k0:k0 + bk], vp[:, k0:k0 + bk]
+        first = max(0, k0 - (sk - sq)) // bq if causal else 0
+        acc_k = torch.zeros(b * h, bk, d)
+        acc_v = torch.zeros(b * h, bk, d)
+        for qt in range(first, nq):
+            q0 = qt * bq
+            qt_, dot_ = qp[:, q0:q0 + bq], dop[:, q0:q0 + bq]
+            s = _mm_tf32(kt_, qt_.transpose(1, 2), products) * scale
+            dp = _mm_tf32(vt_, dot_.transpose(1, 2), products)
+            queries = torch.arange(q0, q0 + bq)[None, :]
+            if causal:
+                s = torch.where(keys > queries + (sk - sq),
+                                tfa.DEFAULT_MASK_VALUE, s)
+            valid = (queries < sq) & (keys < sk)
+            p = torch.where(valid, torch.exp(s - lse_p[:, None, q0:q0 + bq]),
+                            0.0)
+            ds = torch.where(
+                valid, p * (dp - delta_p[:, None, q0:q0 + bq]) * scale, 0.0)
+            acc_v = _mm_tf32(p, dot_, products, acc_v)
+            acc_k = _mm_tf32(ds, qt_, products, acc_k)
+        dk[:, k0:k0 + bk] = acc_k
+        dv[:, k0:k0 + bk] = acc_v
+    return tuple(x[:, :sk].reshape(b, h, sk, d).permute(0, 2, 1, 3)
+                 for x in (dk, dv))
+
+
+@pytest.mark.parametrize("sq,sk,d,causal", [
+    (128, 128, 256, True),    # the training step's head_dim, two query tiles
+    (100, 230, 64, True),     # sq < sk, an offset of 130: not whole tiles
+    (70, 150, 128, False),    # sk not a multiple of the key tile of 32
+])
+def test_3xtf32_holds_flash_dkv_to_its_limit(sq, sk, d, causal):
+    """The dK/dV kernel's arithmetic, emulated (its four products in
+    3xTF32 with a fresh fragment a k8 step, query tiles of 64 from the
+    causal start with their masks, p and dS in float32), keeps dK and dV
+    within half the 1e-4 limit of the plain version; with one TF32
+    product one of them falls outside the limit."""
+    q, k, v, do = (torch.from_numpy(x) for x in
+                   _inputs(sq + sk + d + 1, 1, sq, sk, 2, d))
+    o, lse = tfa.flash_attention_fwd_reference(q, k, v, causal=causal)
+    delta = tfa.flash_attention_bwd_delta(o, do)
+    want = tfa.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                 causal=causal)
+
+    def shares(got):
+        return [float(((g - w).abs()
+                       / (BWD_LIMIT["atol"] + BWD_LIMIT["rtol"] * w.abs()))
+                      .max()) for g, w in zip(got, want)]
+    assert max(shares(_flash_dkv_tf32(q, k, v, do, lse, delta, causal,
+                                      3))) <= 0.5
+    assert max(shares(_flash_dkv_tf32(q, k, v, do, lse, delta, causal,
+                                      1))) > 1
+
 def _kv_swizzle(d, r):
     """csrc/flash_attention_bwd.cu's kv_swizzle: K's and V's 16-byte
     chunk c of key row r sits at chunk c ^ _kv_swizzle(d, r)."""
@@ -249,3 +333,55 @@ def test_kv_swizzle_keeps_both_reads_of_k_on_distinct_banks(d):
             chunk = (col // 4 + c if nt >= 4 else col // 4) ^ _kv_swizzle(d, r)
             addrs.append(r * d + 4 * chunk + (0 if nt >= 4 else col % 4))
         assert _most_on_one_bank(addrs, 4 if nt >= 4 else 2) == 1
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_kv_swizzle_keeps_the_dkv_kernels_reads_on_distinct_banks(d):
+    """The dK/dV kernel's layouts. Its query tile (64 rows of Q or dO at a
+    pitch of d floats, chunks swizzled, copied as two 32-row halves with
+    the halves' own row numbers) lands each chunk once, and both of its
+    reads take one wavefront a phase: along the rows (Sᵀ's and dPᵀ's B
+    operand: lane (g, t) reads chunk d0 / 4 + t of row 16 sn + 8 j + g, sn
+    0..3) and down them (dV's and dK's: row k0 + 4 t + 2 st + e, k0 0..48,
+    the lane's d / 32 columns from d / 4 wn + d / 32 g). K and V (32 rows
+    at a pitch of d + 16), the A operand of Sᵀ and dPᵀ, and Pᵀ and dSᵀ (32
+    rows at a pitch of 80), the A operand of dV and dK, are read in one
+    wavefront a phase too (lane (g, t): rows r0 + g and r0 + g + 8, chunk t
+    of a k16 block); Pᵀ's and dSᵀ's float2 stores at most two ways."""
+    nt, lp = d // 32, 64 + 16
+    lanes = [(lane >> 2, lane & 3) for lane in range(32)]
+    landed = {}
+    for half, i, e in itertools.product(range(2), range(256),
+                                        range(d // 32)):
+        r, c0 = i // 8, i % 8   # copy_rows: 8 threads a row
+        row, chunk = 32 * half + r, c0 + 8 * e
+        at = (row, (c0 ^ _kv_swizzle(d, r)) + 8 * e)
+        assert at not in landed
+        landed[at] = (row, chunk)
+        assert at[1] == chunk ^ _kv_swizzle(d, row)   # where reads look
+    assert len(landed) == 64 * d // 4
+    for sn, j, d0 in itertools.product(range(4), range(2), range(0, d, 16)):
+        addrs = [(16 * sn + 8 * j + g) * d
+                 + 4 * ((d0 // 4 + t) ^ _kv_swizzle(d, 16 * sn + 8 * j + g))
+                 for g, t in lanes]
+        assert _most_on_one_bank(addrs, 4) == 1
+    for wn, k0, st, e, c in itertools.product(
+            range(4), range(0, 64, 16), range(2), range(2),
+            range(max(1, nt // 4))):
+        addrs = []
+        for g, t in lanes:
+            r, col = k0 + 4 * t + 2 * st + e, wn * (d // 4) + nt * g
+            chunk = (col // 4 + c if nt >= 4 else col // 4) ^ _kv_swizzle(d, r)
+            addrs.append(r * d + 4 * chunk + (0 if nt >= 4 else col % 4))
+        assert _most_on_one_bank(addrs, 4 if nt >= 4 else 2) == 1
+    for pitch, width in ((d + 16, d), (lp, 64)):
+        for wm, h, k0 in itertools.product(range(2), range(2),
+                                           range(0, width, 16)):
+            addrs = [(16 * wm + g + 8 * h) * pitch + k0 + 4 * t
+                     for g, t in lanes]
+            assert _most_on_one_bank(addrs, 4) == 1
+    for wm, wn, j, hr in itertools.product(range(2), range(4), range(2),
+                                           range(2)):
+        addrs = [(16 * wm + g + 8 * hr) * lp + 16 * wn + 8 * j + 2 * t
+                 for g, t in lanes]
+        assert _most_on_one_bank(addrs, 2) <= 2

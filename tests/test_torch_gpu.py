@@ -129,6 +129,23 @@ def test_flash_dq_kernel_at_the_training_shape_is_repeatable(cuda):
         **BWD_TOL)
 
 
+def test_flash_dkv_kernel_at_the_training_shape_is_repeatable(cuda):
+    """B 8, S 1024, H 8, D 256, causal (an LM training step's shape): two
+    calls of the dK/dV kernel are bit-identical, and dK and dV within
+    BWD_TOL of the plain version."""
+    gen = torch.Generator().manual_seed(15)
+    q, k, v, do = (_randn(gen, 8, 1024, 8, 256) for _ in range(4))
+    o, lse = fa.flash_attention_fwd_reference(q, k, v, causal=True)
+    delta = fa.flash_attention_bwd_delta(o, do)
+    args = (q, k, v, do, lse, delta)
+    dk, dv = fa.flash_attention_bwd_dkv(*args, causal=True)
+    dk2, dv2 = fa.flash_attention_bwd_dkv(*args, causal=True)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    rk, rv = fa.flash_attention_bwd_dkv_reference(*args, causal=True)
+    torch.testing.assert_close(dk, rk, **BWD_TOL)
+    torch.testing.assert_close(dv, rv, **BWD_TOL)
+
+
 def test_flash_autograd_on_the_card_matches_plain_autograd(cuda):
     """dot_product_attention on CUDA goes through FlashAttention: one
     forward and one launch of each backward kernel per call, gradients
