@@ -18,7 +18,10 @@ no result line:
    apply with an addend) at every epilogue shape of ResNet-50 at batch
    128, taken from the fused training program, each timed beside its
    plain version, its bound and a PyTorch yardstick (torch.var_mean for
-   the stats, F.batch_norm in training mode for stats + apply);
+   the stats, F.batch_norm in training mode for stats + apply), with
+   its device ms a launch and launches a call (torch.profiler) and its
+   host us a call (200 calls queued with no sync) beside the event
+   time, and two stats calls on one input held to the same bits;
 4. serve the Transformer LM at full width (vocab 32000, 6 layers,
    d_model 2048, 8 heads, d_ff 8192, context 1024, 8 slots, 16-token
    blocks, random weights from --seed) through DecodeEngine: 12 requests,
@@ -237,6 +240,43 @@ def cuda_ms(torch, fn, n: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def device_host(torch, fn, n: int = 20, queued: int = 200):
+    """(device ms per call, kernel launches per call, host us per call):
+    device time and launches from torch.profiler over n calls, host time
+    by a host clock around `queued` calls queued with no sync between
+    them (then one sync, outside the clock). Device ms and launches are
+    None where five profiles in a row lost kernel events (held none, or
+    a count that is not a multiple of n)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        # a profile that lost kernel events (none, or a count that is not
+        # a multiple of n) is taken again
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        if kernels and len(kernels) % n == 0:
+            device = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n
+            launches = len(kernels) // n
+            break
+    else:
+        device = launches = None
+    t0 = time.perf_counter()
+    for _ in range(queued):
+        fn()
+    host = (time.perf_counter() - t0) / queued * 1e6
+    torch.cuda.synchronize()
+    return device, launches, host
 
 
 def bound_ms(nbytes: float, flops: float, rate: float = F32_FLOPS_PER_S):
@@ -506,7 +546,7 @@ def kernel_class(name: str) -> str:
                     f"(port kernel)")
     if "chain_stats_final_kernel" in n or "split_sum_kernel" in n:
         return "chain sums finalize (port kernel)"
-    if "stats_partial_kernel" in n or "stats_final_kernel" in n:
+    if "channel_stats_kernel<" in n:
         return "fused_conv_channel_stats (port kernel)"
     if "apply_kernel<true" in n:
         return "fused_conv_apply_add (port kernel)"
@@ -995,6 +1035,13 @@ def check_epilogue(torch, F, fc, card, ops):
                                                          shift_c, d, True))}
         ms = {k: cuda_ms(torch, f, 20) for k, (f, _) in calls.items()}
         plain = {k: cuda_ms(torch, r, 5) for k, (_, r) in calls.items()}
+        # device ms a launch, launches a call, host us a call
+        split = {k: device_host(torch, f) for k, (f, _) in calls.items()}
+        again = fc.channel_stats(a)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip((ssum, ssq), again)):
+            raise RuntimeError(f"channel_stats gives other bits on a second "
+                               f"call at {shape}")
         a4 = a.view(n, c, h, w)
         lib = {"channel_stats": cuda_ms(
                    torch, lambda: torch.var_mean(a, dim=(0, 2)), 20),
@@ -1002,14 +1049,24 @@ def check_epilogue(torch, F, fc, card, ops):
                    torch, lambda: F.batch_norm(a4, None, None, gamma, beta,
                                                True, 0.1, 1e-5), 20),
                "apply_epilogue_add": None}
+        def apart(k):
+            dev, launches, host = split[k]
+            if dev is None:
+                return (f"device not measured (the profiles lost kernel "
+                        f"events), host {host:.1f} us a call")
+            return (f"device {dev / launches:.4f} ms a launch x "
+                    f"{launches}, host {host:.1f} us a call")
+
         print(f"conv epilogue {list(shape)}: stats {ms['channel_stats']:.4f}"
-              f" ms (plain {plain['channel_stats']:.4f}, var_mean "
+              f" ms ({apart('channel_stats')}; plain "
+              f"{plain['channel_stats']:.4f}, var_mean "
               f"{lib['channel_stats']:.4f}, bound "
               f"{bounds['channel_stats'][0]:.4f}), apply{' relu' * relu} "
-              f"{ms['apply_epilogue']:.4f} ms (plain "
-              f"{plain['apply_epilogue']:.4f}, bound "
+              f"{ms['apply_epilogue']:.4f} ms ({apart('apply_epilogue')}; "
+              f"plain {plain['apply_epilogue']:.4f}, bound "
               f"{bounds['apply_epilogue'][0]:.4f}), apply+add relu "
-              f"{ms['apply_epilogue_add']:.4f} ms (plain "
+              f"{ms['apply_epilogue_add']:.4f} ms "
+              f"({apart('apply_epilogue_add')}; plain "
               f"{plain['apply_epilogue_add']:.4f}, bound "
               f"{bounds['apply_epilogue_add'][0]:.4f}); stats + apply "
               f"{ms['channel_stats'] + ms['apply_epilogue']:.4f} ms vs "

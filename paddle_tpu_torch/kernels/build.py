@@ -9,14 +9,17 @@ never loaded. ``build()`` compiles several sources at once, one ``nvcc``
 process each; ``library()`` builds one on demand.
 
 The kernel wrappers share the rest: ``bind`` gives a typed entry point
-of a library, ``on_card`` decides between the plain version (a CPU
-tensor) and the kernel (a CUDA tensor), ``check`` refuses what a kernel
-does not take, ``launch`` raises on a launch error, ``sm_count`` sizes
+of a library (bound once, then cached); ``on_card`` decides between the
+plain version (a CPU tensor) and the kernel (a CUDA tensor), ``check``
+refuses what a kernel does not take, ``device_guard`` makes a tensor's
+device current only where it is not, ``stream`` gives the current
+stream's handle, ``launch`` raises on a launch error, ``sm_count`` sizes
 grids.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -32,7 +35,8 @@ from typing import Dict, Sequence
 import torch
 
 __all__ = ["CSRC", "BUILD_DIR", "SOURCES", "nvcc_path", "build", "library",
-           "bind", "sm_count", "on_card", "check", "launch"]
+           "bind", "sm_count", "on_card", "check", "device_guard",
+           "stream", "launch"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -133,18 +137,37 @@ def on_card(name: str, t: torch.Tensor) -> bool:
     return True
 
 
-def check(name: str, t: torch.Tensor, device: torch.device, shape) -> None:
+def check(name: str, t: torch.Tensor, device: torch.device, shape,
+          aligned: bool = False) -> None:
     """Raise unless t is a contiguous float32 tensor of `shape` on
-    `device`."""
+    `device`, and 16-byte aligned where `aligned`."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != torch.float32:
         raise TypeError(f"{name} is {t.dtype}; the kernel takes float32")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if aligned and t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+_CURRENT = contextlib.nullcontext()
+
+
+def device_guard(device: torch.device):
+    """A context in which `device` is the current CUDA device: none to
+    enter where it already is."""
+    if device.index == torch.cuda.current_device():
+        return _CURRENT
+    return torch.cuda.device(device)
+
+
+def stream(device: torch.device) -> int:
+    """The handle of the current stream of `device`."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def launch(name: str, fn, *args) -> None:

@@ -268,8 +268,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False,
                          "kernel; use mha_reference")
     o = torch.empty_like(q)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    with build.device_guard(q.device):
+        stream = build.stream(q.device)
         fn = build.bind("flash_attention.cu", "flash_attention_fwd_f32",
                         (_P,) * 5 + (_I,) * 5 + (_F, _I, _P))
         build.launch("flash_attention_fwd", fn, q.data_ptr(), k.data_ptr(),
@@ -319,8 +319,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = False,
     _check_bwd(q, k, v, do, lse, delta, causal)
     b, sq, h, d = q.shape
     dq = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    with build.device_guard(q.device):
+        stream = build.stream(q.device)
         fn = build.bind("flash_attention_bwd.cu",
                         "flash_attention_bwd_dq_f32",
                         (_P,) * 7 + (_I,) * 5 + (_F, _I, _P))
@@ -349,8 +349,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *,
     _check_bwd(q, k, v, do, lse, delta, causal)
     b, sq, h, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    with build.device_guard(q.device):
+        stream = build.stream(q.device)
         fn = build.bind("flash_attention_bwd.cu",
                         "flash_attention_bwd_dkv_f32",
                         (_P,) * 8 + (_I,) * 5 + (_F, _I, _P))
@@ -425,8 +425,8 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
     out = torch.empty_like(q)
     if s_n == 0:
         return out
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    with build.device_guard(q.device):
+        stream = build.stream(q.device)
         fn = build.bind("paged_attention.cu", "paged_decode_attention_f32",
                         (_P,) * 6 + (_I,) * 6 + (_F, _P))
         build.launch("paged_decode_attention", fn, q.data_ptr(),

@@ -212,10 +212,6 @@ def _fn(name: str, argtypes: tuple):
     return build.bind("fused_block.cu", name, argtypes)
 
 
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def _dims(name: str, t: torch.Tensor, n: int) -> None:
     if t.dim() != n:
         raise ValueError(f"{name} must have {n} dimensions, got "
@@ -293,13 +289,13 @@ def conv1x1_stats(x: torch.Tensor, w: torch.Tensor):
     y = _empty(x.device, n, c, s)
     part, stats = _empty(x.device, 2, c, t), _empty(x.device, 2, c)
     wide = s % 4 == 0 and x.data_ptr() % 16 == 0
-    with torch.cuda.device(x.device):
+    with build.device_guard(x.device):
         build.launch("conv1x1_stats",
                      _fn("fused_block_conv1x1_stats_f32",
                          (_P,) * 5 + (_I,) * 7 + (_P,)),
                      x.data_ptr(), w.data_ptr(), y.data_ptr(),
                      part.data_ptr(), stats.data_ptr(), n, cin, c, s, lda, t,
-                     int(wide), _stream(x.device))
+                     int(wide), build.stream(x.device))
     conv1x1_stats.launches += 1
     return y, stats[0], stats[1]
 
@@ -339,14 +335,14 @@ def conv3x3_norm_stats(x: torch.Tensor, taps: torch.Tensor,
         taps = taps.clone()   # its rows are copied 16 bytes at a time
     y = _empty(x.device, n, cout, s)
     part, stats = _empty(x.device, 2, cout, t), _empty(x.device, 2, cout)
-    with torch.cuda.device(x.device):
+    with build.device_guard(x.device):
         build.launch("conv3x3_norm_stats",
                      _fn("fused_block_conv3x3_norm_stats_f32",
                          (_P,) * 7 + (_I,) * 6 + (_P,)),
                      x.data_ptr(), taps.data_ptr(), scale.data_ptr(),
                      shift.data_ptr(), y.data_ptr(), part.data_ptr(),
                      stats.data_ptr(), n, cin, cout, h_side, s // h_side, t,
-                     _stream(x.device))
+                     build.stream(x.device))
     conv3x3_norm_stats.launches += 1
     return y, stats[0], stats[1]
 
@@ -470,13 +466,13 @@ def norm_relu_moments(x: torch.Tensor, scale: torch.Tensor,
     wide = s % 4 == 0 and x.data_ptr() % 16 == 0
     part = _empty(x.device, splits, c, c + 1)
     out = _empty(x.device, c, c + 1)
-    with torch.cuda.device(x.device):
+    with build.device_guard(x.device):
         build.launch("norm_relu_moments",
                      _fn("fused_block_norm_relu_moments_f32",
                          (_P,) * 5 + (_I,) * 5 + (_P,)),
                      x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
                      part.data_ptr(), out.data_ptr(), n, c, s, splits,
-                     int(wide), _stream(x.device))
+                     int(wide), build.stream(x.device))
     norm_relu_moments.launches += 1
     return out[:, c], out[:, :c]
 
@@ -552,14 +548,14 @@ def conv1x1_bn_residual(x: torch.Tensor, residual: torch.Tensor,
     out = _empty(x.device, n, cout, s)
     wide = s % 4 == 0 and all(t.data_ptr() % 16 == 0
                               for t in (x, residual))
-    with torch.cuda.device(x.device):
+    with build.device_guard(x.device):
         build.launch("conv1x1_bn_residual",
                      _fn("fused_block_conv1x1_bn_residual_f32",
                          (_P,) * 8 + (_I,) * 7 + (_P,)),
                      x.data_ptr(), residual.data_ptr(), wt.data_ptr(),
                      scale2.data_ptr(), shift2.data_ptr(), scale3.data_ptr(),
                      shift3.data_ptr(), out.data_ptr(), n, c, cout, s, ldw,
-                     splits, int(wide), _stream(x.device))
+                     splits, int(wide), build.stream(x.device))
     conv1x1_bn_residual.launches += 1
     return out
 
@@ -620,14 +616,14 @@ def bwd_reduce3(dout, out, a2, scale2, shift2):
     g3 = _empty(dev, n, cin, s)
     part, red = _empty(dev, splits, cin, c + 1), _empty(dev, cin, c + 1)
     wide = wide and all(t.data_ptr() % 16 == 0 for t in (dout, out, a2, g3))
-    with torch.cuda.device(dev):
+    with build.device_guard(dev):
         build.launch("bwd_reduce3",
                      _bwd_fn("fused_block_bwd_reduce3_f32",
                              (_P,) * 8 + (_I,) * 7 + (_P,)),
                      dout.data_ptr(), out.data_ptr(), a2.data_ptr(),
                      scale2.data_ptr(), shift2.data_ptr(), g3.data_ptr(),
                      part.data_ptr(), red.data_ptr(), n, cin, c, s, splits,
-                     chunk, int(wide), _stream(dev))
+                     chunk, int(wide), build.stream(dev))
     bwd_reduce3.launches += 1
     return g3, red[:, :c], red[:, c]
 
@@ -665,7 +661,7 @@ def bwd_apply3(g3, a2, scale2, shift2, amat, bmat, v0, inv2, m2):
     g2 = _empty(dev, n, c, s)
     part, stats = _empty(dev, 2, c, t), _empty(dev, 2, c)
     wide = s % 4 == 0 and all(x.data_ptr() % 16 == 0 for x in (g3, a2))
-    with torch.cuda.device(dev):
+    with build.device_guard(dev):
         build.launch("bwd_apply3",
                      _bwd_fn("fused_block_bwd_apply3_f32",
                              (_P,) * 11 + (_I,) * 7 + (_P,)),
@@ -673,7 +669,7 @@ def bwd_apply3(g3, a2, scale2, shift2, amat, bmat, v0, inv2, m2):
                      shift2.data_ptr(), stacked.data_ptr(), v0.data_ptr(),
                      inv2.data_ptr(), m2.data_ptr(), g2.data_ptr(),
                      part.data_ptr(), stats.data_ptr(), n, cin, c, s, lda, t,
-                     int(wide), _stream(dev))
+                     int(wide), build.stream(dev))
     bwd_apply3.launches += 1
     return g2, stats[0], stats[1]
 
@@ -718,7 +714,7 @@ def bwd_mid(g2, a2, a1, scale1, shift1, p2, q2, r2, inv1, m1, taps, h_side):
     da2, g1 = _empty(dev, n, c, s), _empty(dev, n, c, s)
     part, stats = _empty(dev, 2, c, t), _empty(dev, 2, c)
     wpart, dtaps = _empty(dev, splits, 9, c, c), _empty(dev, 9, c, c)
-    with torch.cuda.device(dev):
+    with build.device_guard(dev):
         build.launch("bwd_mid",
                      _bwd_fn("fused_block_bwd_mid_f32",
                              (_P,) * 17 + (_I,) * 7 + (_P,)),
@@ -728,7 +724,7 @@ def bwd_mid(g2, a2, a1, scale1, shift1, p2, q2, r2, inv1, m1, taps, h_side):
                      m1.data_ptr(), taps_t.data_ptr(), da2.data_ptr(),
                      g1.data_ptr(), part.data_ptr(), stats.data_ptr(),
                      wpart.data_ptr(), dtaps.data_ptr(), n, c, h_side,
-                     w_side, t, splits, per, _stream(dev))
+                     w_side, t, splits, per, build.stream(dev))
     bwd_mid.launches += 1
     return g1, dtaps, stats[0], stats[1]
 
@@ -767,7 +763,7 @@ def bwd_final(g3, g1, a1, x, p1, q1, r1, w1):
     wpart, dw1 = _empty(dev, splits, c, cin), _empty(dev, c, cin)
     wide = s % 4 == 0 and all(t.data_ptr() % 16 == 0
                               for t in (g3, g1, a1, x))
-    with torch.cuda.device(dev):
+    with build.device_guard(dev):
         build.launch("bwd_final",
                      _bwd_fn("fused_block_bwd_final_f32",
                              (_P,) * 12 + (_I,) * 7 + (_P,)),
@@ -775,7 +771,7 @@ def bwd_final(g3, g1, a1, x, p1, q1, r1, w1):
                      x.data_ptr(), p1.data_ptr(), q1.data_ptr(),
                      r1.data_ptr(), w1.data_ptr(), dx.data_ptr(),
                      da1.data_ptr(), wpart.data_ptr(), dw1.data_ptr(), n,
-                     cin, c, s, w1.shape[1], splits, int(wide), _stream(dev))
+                     cin, c, s, w1.shape[1], splits, int(wide), build.stream(dev))
     bwd_final.launches += 1
     return dx, dw1
 

@@ -26,7 +26,11 @@ them and what the design does about it):
 Each wrapper runs its plain version (``channel_stats_reference``,
 ``apply_epilogue_reference``) only for tensors on the CPU; for a CUDA
 tensor it launches its kernel or raises, and counts the launch in its
-``launches`` attribute.
+``launches`` attribute. A call's host path is short: the plan of a
+shape is computed once (``_plans``), a call allocates its output alone
+(the stats kernel's tickets and partials live in one scratch buffer a
+stream), and the device is switched only where it is not the current
+one.
 
 ``FusedConvEpilogue`` is the ``torch.autograd.Function`` of the JAX
 package's ``fused_conv_epilogue`` custom VJP: stats → affine fold →
@@ -41,8 +45,9 @@ package's per-shape measurement behind the gate (``measure``,
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -85,79 +90,126 @@ def apply_epilogue_reference(a: torch.Tensor, scale_c: torch.Tensor,
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_WARPS = 8   # warps per block in every kernel of csrc/fused_conv.cu
+_L = ctypes.c_long
+_THREADS = 256     # threads a block in every kernel of csrc/fused_conv.cu
+_GROUP = 256       # channels a ticket of the stats kernel
+
+# (symbol, argument types) of the entry points of csrc/fused_conv.cu
+_STATS = ("fused_conv_channel_stats_f32", (_P,) * 4 + (_I,) * 5 + (_L, _P))
+_APPLY = ("fused_conv_apply_f32", (_P,) * 4 + (_I,) * 6 + (_P,))
+_APPLY_ADD = ("fused_conv_apply_add_f32", (_P,) * 5 + (_I,) * 6 + (_P,))
 
 
-def _fn(name: str, argtypes: tuple):
-    return build.bind("fused_conv.cu", name, argtypes)
+def _fn(entry):
+    return build.bind("fused_conv.cu", *entry)
 
 
-def _check(name: str, t: torch.Tensor, device: torch.device, shape) -> None:
-    build.check(name, t, device, shape)
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
+def _lanes(cs: int, sms: int) -> int:
+    """Threads a row group of both kernels: a block reads 4 * lanes
+    columns of each row of a [N, C*S]. The widest range that still gives
+    four column ranges an SM (longer runs of a row a block); 32 where the
+    rows are read as scalars (C*S % 4 != 0)."""
+    if cs % 4 == 0:
+        for lanes in (256, 128, 64):
+            if -(-cs // (4 * lanes)) >= 4 * sms:
+                return lanes
+    return 32
 
 
-
-def _stats_split(n: int, c: int, sms: int) -> Tuple[int, int]:
-    """(rows per block, blocks per channel) of the stats kernel: the
-    batch is cut into slices so that C x slices fills the card with
-    about 8 blocks per SM (at the stem, 64 channels alone would fill 64
-    of 132 SMs)."""
-    parts = min(n, -(-8 * sms // c))
+def _stats_plan(n: int, c: int, s: int, sms: int) -> Tuple[int, int, int]:
+    """(lanes, rows a slice, partials a statistic) of the stats kernel:
+    the rows are sliced only where the column ranges alone give fewer
+    than two blocks an SM (at most one slice a row group)."""
+    lanes = _lanes(c * s, sms)
+    ranges = -(-c * s // (4 * lanes))
+    parts = max(1, min(-(-2 * sms // ranges), -(-n // (_THREADS // lanes))))
     rows = -(-n // parts)
-    return rows, -(-n // rows)
+    return lanes, rows, -(-n // rows) * (ranges + c)
+
+
+def _apply_plan(n: int, c: int, s: int, sms: int) -> Tuple[int, int]:
+    """(lanes, rows a block) of the apply kernel: 4 rows a thread, 16
+    where the column ranges number fewer than four an SM (there fewer,
+    longer blocks run faster; elsewhere more, shorter ones:
+    scripts/torch_fused_conv_probe.py)."""
+    lanes = _lanes(c * s, sms)
+    per = 4 if -(-c * s // (4 * lanes)) >= 4 * sms else 16
+    return lanes, max(per * (_THREADS // lanes), -(-n // 65535))
+
+
+@functools.cache
+def _plans(n: int, c: int, s: int, index: int):
+    sms = build.sm_count(torch.device("cuda", index))
+    return _stats_plan(n, c, s, sms), _apply_plan(n, c, s, sms)
+
+
+_scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, int]] = {}
+
+
+def _scratch_of(device: torch.device, stream: int, c: int,
+                partials: int) -> Tuple[int, int]:
+    """(tickets, partials) pointers of the stats kernel's scratch for
+    `stream`: ceil(C / 256) int tickets, zeroed once and set back to 0 by
+    each launch, then 2 * partials floats. Calls on one stream run in
+    order and share it; calls on two streams never do."""
+    key = (device.index, stream)
+    buf, tickets = _scratch.get(key, (None, 0))
+    if (buf is None or tickets * _GROUP < c
+            or buf.numel() < tickets + 2 * partials):
+        tickets = max(tickets, 64, -(-c // _GROUP))
+        buf = torch.zeros(tickets + max(2 * partials, 1 << 16),
+                          dtype=torch.float32, device=device)
+        _scratch[key] = buf, tickets
+    ptr = buf.data_ptr()
+    return ptr, ptr + 4 * tickets
 
 
 def channel_stats(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """a [N, C, S] raw conv output -> (Σa [C], Σa² [C]) in float32.
 
     CPU tensors run ``channel_stats_reference``. CUDA tensors run
-    csrc/fused_conv.cu: float32, contiguous, 16-byte aligned; the sums
-    are deterministic (partials per batch slice, then a fixed-order pass
-    over them; no atomics)."""
+    csrc/fused_conv.cu: float32, contiguous, 16-byte aligned; one launch;
+    the sums are deterministic (partials per column range and batch
+    slice, then a fixed-order pass over them; no float atomics)."""
     if not build.on_card("channel_stats", a):
         return channel_stats_reference(a)
     if a.dim() != 3:
         raise ValueError(f"a must be [N, C, S], got {tuple(a.shape)}")
     n, c, s = a.shape
-    _check("a", a, a.device, (n, c, s))
-    rows, parts = _stats_split(n, c, build.sm_count(a.device))
-    part = torch.empty((2, c, parts), dtype=torch.float32, device=a.device)
-    out = torch.empty((2, c), dtype=torch.float32, device=a.device)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        build.launch("channel_stats",
-                _fn("fused_conv_channel_stats_f32", (_P,) * 3 + (_I,) * 5
-                    + (_P,)),
-                a.data_ptr(), part.data_ptr(), out.data_ptr(), n, c, s, rows,
-                parts, stream)
+    dev = a.device
+    build.check("a", a, dev, (n, c, s), aligned=True)
+    lanes, rows, partials = _plans(n, c, s, dev.index)[0]
+    out = a.new_empty((2, c))
+    with build.device_guard(dev):
+        stream = build.stream(dev)
+        tickets, part = _scratch_of(dev, stream, c, partials)
+        build.launch("channel_stats", _fn(_STATS), a.data_ptr(),
+                     out.data_ptr(), tickets, part, n, c, s, lanes, rows,
+                     partials, stream)
     channel_stats.launches += 1
-    return out[0], out[1]
+    return out.unbind(0)
 
 
 channel_stats.launches = 0
 
 
-def _apply(name: str, symbol: str, a, scale_c, shift_c, addend, relu):
+def _apply(name: str, entry, a, scale_c, shift_c, addend, relu):
     if a.dim() != 3:
         raise ValueError(f"a must be [N, C, S], got {tuple(a.shape)}")
     n, c, s = a.shape
-    _check("a", a, a.device, (n, c, s))
-    _check("scale_c", scale_c, a.device, (c,))
-    _check("shift_c", shift_c, a.device, (c,))
+    dev = a.device
+    build.check("a", a, dev, (n, c, s), aligned=True)
+    build.check("scale_c", scale_c, dev, (c,), aligned=True)
+    build.check("shift_c", shift_c, dev, (c,), aligned=True)
+    args = [a.data_ptr(), scale_c.data_ptr(), shift_c.data_ptr()]
     if addend is not None:
-        _check("addend", addend, a.device, (n, c, s))
+        build.check("addend", addend, dev, (n, c, s), aligned=True)
+        args.insert(1, addend.data_ptr())
+    lanes, rows = _plans(n, c, s, dev.index)[1]
     y = torch.empty_like(a)
-    rows = n * c
-    grid = max(1, min(-(-rows // _WARPS), 16 * build.sm_count(a.device)))
-    args = [a.data_ptr()] + ([addend.data_ptr()] if addend is not None
-                             else []) + [scale_c.data_ptr(),
-                                         shift_c.data_ptr(), y.data_ptr()]
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        build.launch(name, _fn(symbol, (_P,) * len(args) + (_I,) * 5 + (_P,)),
-                *args, n, c, s, int(bool(relu)), grid, stream)
+    with build.device_guard(dev):
+        build.launch(name, _fn(entry), *args, y.data_ptr(), n, c, s,
+                     int(bool(relu)), lanes, rows, build.stream(dev))
     return y
 
 
@@ -171,8 +223,7 @@ def apply_epilogue(a: torch.Tensor, scale_c: torch.Tensor,
     kernel (float32, contiguous, 16-byte aligned)."""
     if not build.on_card("apply_epilogue", a):
         return apply_epilogue_reference(a, scale_c, shift_c, None, relu)
-    y = _apply("apply_epilogue", "fused_conv_apply_f32", a, scale_c, shift_c,
-               None, relu)
+    y = _apply("apply_epilogue", _APPLY, a, scale_c, shift_c, None, relu)
     apply_epilogue.launches += 1
     return y
 
@@ -187,8 +238,8 @@ def apply_epilogue_add(a: torch.Tensor, scale_c: torch.Tensor,
     fusion pass absorbed: a·scale_c + shift_c + addend, ReLU if asked."""
     if not build.on_card("apply_epilogue_add", a):
         return apply_epilogue_reference(a, scale_c, shift_c, addend, relu)
-    y = _apply("apply_epilogue_add", "fused_conv_apply_add_f32", a, scale_c,
-               shift_c, addend, relu)
+    y = _apply("apply_epilogue_add", _APPLY_ADD, a, scale_c, shift_c, addend,
+               relu)
     apply_epilogue_add.launches += 1
     return y
 

@@ -153,8 +153,8 @@ def lstm_seq_fwd(x, w, b, mask, r0, c0) -> Tuple[torch.Tensor, torch.Tensor]:
     build.check("c0", c0, dev, (bb, h))
     rs = torch.empty((t, bb, h), dtype=torch.float32, device=dev)
     cs = torch.empty_like(rs)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with build.device_guard(dev):
+        stream = build.stream(dev)
         build.launch("lstm_seq_fwd",
                 _fn("lstm_seq_fwd_f32", (_P,) * 8 + (_I,) * 3 + (_P,)),
                 x.data_ptr(), w.data_ptr(), b.data_ptr(), mask.data_ptr(),
@@ -198,8 +198,8 @@ def lstm_seq_bwd(x, w, b, mask, r_prevs, c_prevs, drs, dcs):
     gates = torch.empty_like(dx)
     part = torch.empty((slices, bb, h), **f32)
     drb = torch.empty((bb, h), **f32)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with build.device_guard(dev):
+        stream = build.stream(dev)
         build.launch("lstm_seq_bwd",
                 _fn("lstm_seq_bwd_f32", (_P,) * 16 + (_I,) * 4 + (_P,)),
                 x.data_ptr(), w.data_ptr(), b.data_ptr(), mask.data_ptr(),

@@ -83,15 +83,15 @@ def emulated(lib):
         fn.restype = ctypes.c_int
         return fn
 
-    saved = (build.on_card, build.bind, torch.cuda.device, fb._stream)
+    saved = (build.on_card, build.bind, build.device_guard, build.stream)
     build.on_card = lambda name, t: True
     build.bind = bind
-    torch.cuda.device = lambda d: contextlib.nullcontext()
-    fb._stream = lambda d: 0
+    build.device_guard = lambda d: contextlib.nullcontext()
+    build.stream = lambda d: 0
     try:
         yield
     finally:
-        build.on_card, build.bind, torch.cuda.device, fb._stream = saved
+        build.on_card, build.bind, build.device_guard, build.stream = saved
 
 
 def sum_share(got, want, terms):

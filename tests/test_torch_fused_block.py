@@ -790,9 +790,9 @@ def test_conv1x1_stats_grid_covers_n_s(monkeypatch, n, s, c, cin, bn,
     monkeypatch.setattr(build, "bind", lambda *a: None)
     monkeypatch.setattr(build, "launch",
                         lambda name, fn, *a: calls.append(a))
-    monkeypatch.setattr(torch.cuda, "device",
+    monkeypatch.setattr(build, "device_guard",
                         lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(tfb, "_stream", lambda d: 0)
+    monkeypatch.setattr(build, "stream", lambda d: 0)
     monkeypatch.setattr(tfb, "_empty", lambda d, *shape: (
         shapes.append(shape), empty(d, *shape))[1])
     tfb.conv1x1_stats(torch.rand(n, cin, s), w)

@@ -348,12 +348,18 @@ def test_training_on_the_card_matches_the_cpu(cuda):
         assert rms(got - want) <= 1e-3 * rms(want), n
 
 
+# ResNet-50's nine epilogue shapes (C, S), the stem first
+RESNET_EPILOGUES = [(64, 12544), (64, 3136), (256, 3136), (128, 784),
+                    (512, 784), (256, 196), (1024, 196), (512, 49),
+                    (2048, 49)]
+
+
 @pytest.mark.parametrize("n,c,s", [
     (128, 64, 12544),    # the ResNet-50 stem at batch 128
     (128, 1024, 196),    # stage 3: rows start mid-vector
     (128, 2048, 49),     # stage 4
     (4, 3, 49), (3, 5, 7), (1, 1, 1), (2, 7, 13),
-])
+] + [(4, c, s) for c, s in RESNET_EPILOGUES])
 def test_epilogue_kernels_match_plain(cuda, n, c, s):
     gen = torch.Generator().manual_seed(n + c + s)
     a = _randn(gen, n, c, s) + 0.5
@@ -371,6 +377,20 @@ def test_epilogue_kernels_match_plain(cuda, n, c, s):
         torch.testing.assert_close(
             fc.apply_epilogue_add(a, sc, sh, d, relu),
             fc.apply_epilogue_reference(a, sc, sh, d, relu), **TOL)
+
+
+@pytest.mark.parametrize("n,c,s", [(128, 256, 196), (128, 2048, 49),
+                                   (128, 64, 12544), (3, 600, 5), (2, 7, 13)])
+def test_channel_stats_gives_the_same_bits_twice(cuda, n, c, s):
+    """Two calls on one input give identical bits: the sums run in one
+    fixed order, and the tickets are back at 0 after each call."""
+    gen = torch.Generator().manual_seed(c + s)
+    a = _randn(gen, n, c, s) + 0.5
+    first = fc.channel_stats(a)
+    second = fc.channel_stats(a)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
 
 
 def test_epilogue_wrappers_never_fall_back(cuda, monkeypatch):
