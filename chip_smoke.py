@@ -89,7 +89,8 @@ no result line:
 
 Phase 3 also holds the two LSTM kernels against their plain versions at
 the bench shape (T 100, B 64, H 512), full-length and ragged, timed
-beside their bounds and torch.nn.LSTM (cuDNN) as the yardstick.
+beside their bounds and torch.nn.LSTM (cuDNN) as the yardstick, with the
+forward's CUDA launches a call (profiler) and the plan it took.
 Phase 3 also holds the four bottleneck-chain kernels against their
 plain versions at ResNet-50's three chain stages at batch 128 (Cin, C,
 H = 256, 64, 56 / 512, 128, 28 / 1024, 256, 14), each timed beside its
@@ -533,8 +534,10 @@ def kernel_class(name: str) -> str:
     if "conv1x1_tc_kernel<" in n:
         return ("bwd_final" if "bwd_final::" in n
                 else "conv1x1_bn_residual") + " (port kernel)"
-    # the LSTM's names first: lstm_bwd_final_kernel holds "bwd_final_"
-    if "lstm_fwd_step_kernel" in n:
+    # the LSTM's names first: lstm_bwd_final_kernel holds "bwd_final_";
+    # the forward is lstm_fwd_seq_kernel (one launch a call) or, where no
+    # plan takes the shape, lstm_fwd_step_kernel
+    if "lstm_fwd_" in n:
         return "lstm_seq_fwd (port kernel)"
     if "lstm_gemm_kernel" in n or "lstm_bwd_" in n:
         return "lstm_seq_bwd (port kernel)"
@@ -1307,6 +1310,8 @@ def check_lstm(np, torch, fl, card, seed: int):
         torch.cuda.synchronize()
         errs["lstm_seq_fwd"].append(max(max_err(torch, rs, rrs),
                                         max_err(torch, cs, rcs)))
+        fwd_share = max(limit_share(torch, rs, rrs),
+                        limit_share(torch, cs, rcs))
         r_prevs = torch.cat([d["r0"][None], rrs[:-1]])
         c_prevs = torch.cat([d["c0"][None], rcs[:-1]])
         bwd_args = fwd_args[:4] + [r_prevs, c_prevs, d["drs"], d["dcs"]]
@@ -1325,8 +1330,11 @@ def check_lstm(np, torch, fl, card, seed: int):
                        + 2 * t * b * h)
         b_bytes = 4 * (2 * t * b * 4 * h + 2 * h * 4 * h + 2 * 4 * h + t * b
                        + 4 * t * b * h + 2 * b * h)
-        bounds = {"lstm_seq_fwd": bound_ms(f_bytes, prod),
+        # the forward's products run in 3xTF32 (the f32 bound beside it)
+        bounds = {"lstm_seq_fwd": bound_ms(f_bytes, 3 * prod,
+                                           TF32_FLOPS_PER_S),
                   "lstm_seq_bwd": bound_ms(b_bytes, 3 * prod)}
+        f32_fwd = bound_ms(f_bytes, prod)
         calls = {"lstm_seq_fwd": (lambda: fl.lstm_seq_fwd(*fwd_args),
                                   lambda: fl.lstm_seq_fwd_reference(
                                       *fwd_args)),
@@ -1334,6 +1342,12 @@ def check_lstm(np, torch, fl, card, seed: int):
                                   lambda: fl.lstm_seq_bwd_reference(
                                       *bwd_args))}
         ms = {k: cuda_ms(torch, f, 10) for k, (f, _) in calls.items()}
+        # the forward's CUDA launches a call (profiler) and its plan
+        fwd_launches = device_host(torch, calls["lstm_seq_fwd"][0], 5, 1)[1]
+        plan = fl._plan_of(b, h, d["x"].device.index)
+        plan = ("step kernel" if plan is None else
+                f"sequence kernel, row tiles of {16 * plan.mt}, {plan.nt} a "
+                f"block, {plan.kb} k16 blocks a warp, grid {plan.grid}")
         plain = {k: cuda_ms(torch, r, 3) for k, (_, r) in calls.items()}
         lstm = torch.nn.LSTM(h, h).cuda()
         inp = d["x"][:, :, :h].contiguous().requires_grad_(True)
@@ -1349,14 +1363,17 @@ def check_lstm(np, torch, fl, card, seed: int):
               f"{plain['lstm_seq_fwd']:.4f}, nn.LSTM fwd "
               f"{lib['lstm_seq_fwd']:.4f}, bound "
               f"{bounds['lstm_seq_fwd'][0]:.4f} "
-              f"{bounds['lstm_seq_fwd'][1]}; {t} launches), bwd "
+              f"{bounds['lstm_seq_fwd'][1]} by 3xTF32, f32 "
+              f"{f32_fwd[0]:.4f} {f32_fwd[1]}; {fwd_launches} launches a "
+              f"call, {plan}), bwd "
               f"{ms['lstm_seq_bwd']:.4f} ms (plain "
               f"{plain['lstm_seq_bwd']:.4f}, nn.LSTM bwd "
               f"{lib['lstm_seq_bwd']:.4f} [fwd+bwd {lib_both:.4f}], bound "
               f"{bounds['lstm_seq_bwd'][0]:.4f} "
               f"{bounds['lstm_seq_bwd'][1]}; {2 * t + 4} launches); "
               f"max_abs_err fwd {errs['lstm_seq_fwd'][-1]:.3e} (tol atol "
-              f"{KERNEL_ATOL} rtol {KERNEL_RTOL}), bwd "
+              f"{KERNEL_ATOL} rtol {KERNEL_RTOL}; {fwd_share:.4f} of the "
+              f"limit), bwd "
               f"{errs['lstm_seq_bwd'][-1]:.3e} (tol atol {BWD_ATOL} rtol "
               f"{BWD_RTOL}) [{card}]")
         if lens is None:

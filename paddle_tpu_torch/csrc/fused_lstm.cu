@@ -14,23 +14,44 @@
 //
 // What bounds them on the H100: operations, on paper. At the bench shape
 // (T 100, B 64, H 512) the forward does 13.4 GFLOP of products (0.200 ms
-// at the 67 TFLOP/s float32 peak) and moves ~83 MB (0.025 ms); the
-// backward 40.3 GFLOP (0.601 ms: the gate recompute, dgates @ W^T and dW)
-// and ~157 MB. In practice the recurrence bounds them: step t needs all
-// of r_{t-1}, so each step is a [B, H] x [H, 4H] product that cannot start
-// before the previous one ends, and at B 64 one step is too little work
-// to fill 132 SMs for long. The time is per-step latency.
+// at the 67 TFLOP/s float32 peak, 0.081 ms as 3xTF32 at 495 TFLOP/s) and
+// moves ~83 MB (0.025 ms); the backward 40.3 GFLOP (0.601 ms: the gate
+// recompute, dgates @ W^T and dW) and ~157 MB. In practice the recurrence
+// bounds them: step t needs all of r_{t-1}, so each step is a [B, H] x
+// [H, 4H] product that cannot start before the previous one ends, and at
+// B 64 one step is too little work to fill 132 SMs for long. The time is
+// per-step latency.
 //
 // What the design does about it. The TPU kernel keeps W [H, 4H] in one
-// core's VMEM across a sequential grid; here W at H 512 is 4 MiB, more than
-// an SM's shared memory, but it stays in the 50 MB L2 from step to step.
-//   Forward: one launch per step (the step loop runs in the C entry, on
-//   the caller's stream, so Python pays one call per sequence). A block
-//   owns 16 hidden units, all four gate columns of each, and 16 batch
-//   rows, so the gate nonlinearities and the (r, c) update stay inside the
-//   block: 256 threads, one (row, unit) each with its four gate sums, over
-//   128-deep shared-memory stages of r and of W's columns (40 KB). At
-//   B 64, H 512 that is 128 blocks a step and 4 stages.
+// core's VMEM across a sequential grid.
+//   Forward: one persistent launch a sequence (lstm_fwd_seq_kernel,
+//   launched cooperatively, so the runtime refuses a grid that cannot be
+//   resident at once rather than let it hang). W at H 512 (4 MiB) is
+//   spread over the grid's registers: a block owns 8 hidden units, all
+//   four gate columns of each (32 columns), and loads its [H, 32] slice
+//   of W once, as raw mma.sync B fragments (64 registers a thread at H
+//   512), for all T steps. The batch is cut into row tiles of 16 mt <= 32
+//   rows; the grid's rows of blocks share them out, and a block takes its
+//   tiles one after another each step (at B 64, H 512: 64 x 2 blocks of
+//   one tile, 64 KB of r read from L2 a block a step; at B 128, 64 x 2 of
+//   two). A tile: each of the 8 warps takes a 16 kb-deep slice of K,
+//   copies its rows x K slice of r_{t-1} from L2 (cp.async.cg, one group
+//   a k16 block, 16 bytes a copy where the rows start on 16 bytes, else
+//   ld.global.cg; never the non-coherent path: rs is written within the
+//   launch) and multiplies it as it lands in 3xTF32 (a fresh fragment
+//   each k8 step, as csrc/tf32_mma.cuh's products); the 8 warps' partial
+//   sums go to shared memory and each (row, unit) thread adds them in
+//   warp order (deterministic) and applies the gate nonlinearities; c and
+//   r of its cells stay in shared memory from step to step (c is written
+//   to cs, never read back). The x and mask of the thread's next cell are
+//   on their way during the next tile's product or the grid barrier (a
+//   counter in a scratch buffer of the stream: one thread a block arrives
+//   by a release add and leaves by an ld.acquire.gpu spin, between two
+//   __syncthreads; the last block out sets it back to 0).
+//   Where no grid fits (H > 512, or more than 64 tiles a block), the
+//   forward is the step kernel's: one launch per step
+//   (lstm_fwd_step_kernel, looped in the C entry): a block of 16 units x
+//   16 rows over 128-deep shared-memory stages of r and W.
 //   Backward: the gates of every step are recomputed at once by one tiled
 //   product G = X + R_prev W + b (R_prev is known). Then each step t, from
 //   T-1 down to 0, is two launches, because dr_{t-1} for any unit needs
@@ -46,6 +67,8 @@
 // Every stage issues all its loads before its first shared-memory store.
 // Transcendentals are expf/tanhf (no fast-math intrinsics).
 #include <cuda_runtime.h>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -125,6 +148,330 @@ lstm_fwd_step_kernel(const float* __restrict__ x_t,
   r_out[idx] = m * r_new + (1.f - m) * r;
   c_out[idx] = m * c_new + (1.f - m) * c;
 }
+
+// ---------------------------------------------------------------------------
+// forward: one persistent launch a sequence
+// ---------------------------------------------------------------------------
+
+namespace seq {
+
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxKB = 4;  // k16 blocks of a warp's K slice: H <= 512
+// U hidden units a block, all four gate columns of each (N columns, NT
+// n8 tiles), over row tiles of at most 16 kMaxMT batch rows. U 8 over 32
+// rows with W raw in registers: U 4 over 64 rows with W pre-split took
+// 1.3x its time, U 16 over 16 rows with W in shared memory as much
+// (PERF.md §6). A block takes at most kMaxNT row tiles a step.
+constexpr int kUnits = 8, kN = 4 * kUnits, kNT = kN / 8, kMaxMT = 2;
+constexpr int kMaxNT = 64;
+// a spin at the grid barrier longer than this traps (a fault, not a hang)
+constexpr unsigned long long kSpinLimitNs = 5000000000ull;
+
+// Floats between two rows of a warp's r slice (16 kb deep): 16 mod 32, so
+// that the 16-byte fragment reads of rows g and g + 1 hit other banks.
+__host__ __device__ constexpr int row_stride(int kb) {
+  return 16 * (kb + 1 - kb % 2);
+}
+// Floats of a warp's region: its r slice, later its [rows][N + 8] partials.
+__host__ __device__ constexpr int region(int mt, int kb) {
+  return 16 * mt * (row_stride(kb) > kN + 8 ? row_stride(kb) : kN + 8);
+}
+// the warps' regions, then c and r of each thread's cell in each of nt
+// row tiles
+constexpr int smem_bytes(int mt, int kb, int nt) {
+  return (kWarps * region(mt, kb) + 2 * nt * kThreads) * 4;
+}
+
+// ---- grid barrier ----------------------------------------------------------
+__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ unsigned long long clock_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+// One thread of each block, between two __syncthreads: its release add
+// makes every write of the block before the first one visible to the
+// grid before the count moves; its acquire spin waits until `target`
+// blocks have arrived (the pattern of CUTLASS's GenericBarrier).
+__device__ __forceinline__ void grid_sync(unsigned* count, unsigned target) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(count)
+               : "memory");
+  const unsigned long long t0 = clock_ns();
+  while (load_acquire(count) < target)
+    if (clock_ns() - t0 > kSpinLimitNs) __trap();
+}
+// -----------------------------------------------------------------------------
+
+// Wait until at most n of this thread's groups of copies are in flight.
+__device__ __forceinline__ void wait_left(int n) {
+  switch (n) {
+    case 0: wait_prior<0>(); break;
+    case 1: wait_prior<1>(); break;
+    case 2: wait_prior<2>(); break;
+    default: wait_prior<3>(); break;
+  }
+}
+
+// A warp's rows x [k0, k0 + 16 kb) slice of r_{t-1} into its region, one
+// group of copies a k16 block; rows past B and k past H are zero. 16-byte
+// copies where every row of rp starts on 16 bytes (vec: H % 4 == 0 and rp
+// aligned; r0 may be any contiguous view), else 4-byte L2 loads
+// (ld.global.cg).
+__device__ __forceinline__ void load_r(float* mine, const float* rp,
+                                       bool vec, int row0, int rows, int B,
+                                       int H, int k0, int kb, int stride,
+                                       int lane) {
+#pragma unroll
+  for (int q = 0; q < kMaxKB; ++q) {
+    if (q >= kb) break;
+    if (vec) {
+      for (int e = lane; e < rows * 4; e += 32) {
+        const int rr = e / 4, kk = 16 * q + 4 * (e % 4);
+        const int b = row0 + rr, k = k0 + kk;
+        const bool ok = b < B && k < H;
+        copy16(mine + rr * stride + kk, ok ? rp + (long)b * H + k : rp, ok);
+      }
+    } else {
+      for (int e = lane; e < rows * 16; e += 32) {
+        const int rr = e / 16, kk = 16 * q + e % 16;
+        const int b = row0 + rr, k = k0 + kk;
+        mine[rr * stride + kk] =
+            b < B && k < H ? __ldcg(rp + (long)b * H + k) : 0.f;
+      }
+    }
+    commit();
+  }
+}
+
+// acc[i][j] += the warp's rows x its K slice of r times W's slice, in
+// 3xTF32: each k16 block as its copies land, r and W split at each k8
+// step, a fresh fragment a k8 step (small terms first), as tf32_mma.cuh's
+// mma3.
+__device__ __forceinline__ void product(
+    float (&acc)[kMaxMT][kNT][4], const float* mine,
+    const float (&wf)[2 * kMaxKB][kNT][2], int mt, int kb, int stride,
+    int g, int tq) {
+#pragma unroll
+  for (int q = 0; q < kMaxKB; ++q) {
+    if (q >= kb) break;
+    wait_left(kb - 1 - q);
+    __syncwarp();
+    float4 lo[kMaxMT], hi[kMaxMT];
+#pragma unroll
+    for (int i = 0; i < kMaxMT; ++i) {
+      if (i >= mt) break;
+      const float* p = mine + (16 * i + g) * stride + 16 * q + 4 * tq;
+      lo[i] = *reinterpret_cast<const float4*>(p);
+      hi[i] = *reinterpret_cast<const float4*>(p + 8 * stride);
+    }
+#pragma unroll
+    for (int ss = 0; ss < 2; ++ss) {
+      const int s = 2 * q + ss;
+      uint32_t bb[kNT][2], bs[kNT][2];
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) split(wf[s][j][e], bb[j][e], bs[j][e]);
+#pragma unroll
+      for (int i = 0; i < kMaxMT; ++i) {
+        if (i >= mt) break;
+        uint32_t ab[4], as[4];
+        a_frag(lo[i], hi[i], ss, ab, as);
+        float f[kNT][4];
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) mma0(f[j], as, bb[j][0], bb[j][1]);
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) mma(f[j], ab, bs[j][0], bs[j][1]);
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) mma(f[j], ab, bb[j][0], bb[j][1]);
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] += f[j][e];
+      }
+    }
+  }
+}
+
+// The step-t x (gates i, c, f, o) and mask of the cell (b, u).
+__device__ __forceinline__ void load_x(float (&xg)[4], float& m,
+                                       const float* x, const float* mask,
+                                       int t, int b, int B, int H, int u) {
+  const long row = (long)t * B + b;
+  m = mask[row];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) xg[q] = x[row * 4 * H + q * H + u];
+}
+
+// The whole sequence. blockIdx.x takes units [U x, U x + U); blockIdx.y
+// the row tiles y, y + gridDim.y, ... (at most nt, each 16 mt rows),
+// one after another each step; warp w the K slice [16 kb w, 16 kb w + 16
+// kb); thread (row, unit) = (tid / U, tid % U) one cell of each tile,
+// whose c and r stay in shared memory from step to step. The block's
+// gate columns interleave: column 4 j + q is gate q of unit u0 + j.
+// bar[0] counts arrivals at the grid barrier, bar[1] blocks done; both
+// start and end at 0.
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_fwd_seq_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                    const float* __restrict__ bias,
+                    const float* __restrict__ mask,
+                    const float* __restrict__ r0,
+                    const float* __restrict__ c0, float* rs,
+                    float* __restrict__ cs, unsigned* bar, int T, int B,
+                    int H, int mt, int kb, int nt) {
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int u0 = blockIdx.x * kUnits;
+  const int rows = 16 * mt;
+  const int stride = row_stride(kb), pn = kN + 8;
+  const int reg = region(mt, kb);
+  float* const mine = smem + warp * reg;
+  float* const cst = smem + kWarps * reg + threadIdx.x;
+  float* const rst = cst + nt * kThreads;
+  const int k0 = warp * 16 * kb;
+  // warps whose K slice starts past H add nothing: they sit the steps out
+  const int kwarps = min(kWarps, (H + 16 * kb - 1) / (16 * kb));
+  const bool busy = warp < kwarps;
+  // the block's row tiles: blockIdx.y + l gridDim.y for l < tiles
+  const int tiles = ((B + rows - 1) / rows - (int)blockIdx.y +
+                     (int)gridDim.y - 1) / (int)gridDim.y;
+  const long bh = (long)B * H;
+  const unsigned blocks = gridDim.x * gridDim.y;
+
+  // W's slice as B fragments, for all T steps: k8 step s of the warp's
+  // slice is k16 block s / 2, its slot tq (tq + 4) element 4 tq + 2 (s %
+  // 2) (+ 1), as a_frag permutes r; column 8 j + g is gate col % 4 of
+  // unit u0 + col / 4, so that a cell's four gates are adjacent
+  float wf[2 * kMaxKB][kNT][2];
+#pragma unroll
+  for (int s = 0; s < 2 * kMaxKB; ++s) {
+    const int k = k0 + 16 * (s / 2) + 4 * tq + 2 * (s % 2);
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      const int col = 8 * j + g, u = u0 + col / 4;
+      const float* wc = w + (long)(col % 4) * H + u;
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        wf[s][j][e] = s < 2 * kb && u < H && k + e < H
+                          ? __ldg(wc + (k + e) * 4L * H)
+                          : 0.f;
+    }
+  }
+
+  // the thread's cells: row cr of each tile, unit u; their state, the
+  // bias and the x and mask of the cell next in turn
+  const int cr = threadIdx.x / kUnits, u = u0 + threadIdx.x % kUnits;
+  const bool col_ok = cr < rows && u < H;
+  float bg[4] = {0.f, 0.f, 0.f, 0.f};
+  float m = 0.f, xg[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int l = 0; l < tiles; ++l) {
+    const int b = (blockIdx.y + l * gridDim.y) * rows + cr;
+    const bool cell = col_ok && b < B;
+    cst[l * kThreads] = cell ? c0[(long)b * H + u] : 0.f;
+    rst[l * kThreads] = cell ? r0[(long)b * H + u] : 0.f;
+  }
+  if (col_ok) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) bg[q] = bias[q * H + u];
+    if (blockIdx.y * rows + cr < B)
+      load_x(xg, m, x, mask, 0, blockIdx.y * rows + cr, B, H, u);
+  }
+
+  for (int t = 0; t < T; ++t) {
+    const float* rp = t == 0 ? r0 : rs + (t - 1) * bh;
+    const bool vec = H % 4 == 0 && reinterpret_cast<uintptr_t>(rp) % 16 == 0;
+    for (int l = 0; l < tiles; ++l) {
+      const int row0 = (blockIdx.y + l * gridDim.y) * rows;
+      float acc[kMaxMT][kNT][4];
+#pragma unroll
+      for (int i = 0; i < kMaxMT; ++i)
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+      if (busy) {
+        load_r(mine, rp, vec, row0, rows, B, H, k0, kb, stride, lane);
+        product(acc, mine, wf, mt, kb, stride, g, tq);
+        wait_prior<0>();
+        __syncwarp();
+        // the warp's partial sums over the r slice it no longer reads
+#pragma unroll
+        for (int i = 0; i < kMaxMT; ++i) {
+          if (i >= mt) break;
+          float* p = mine + (16 * i + g) * pn + 2 * tq;
+#pragma unroll
+          for (int j = 0; j < kNT; ++j) {
+            *reinterpret_cast<float2*>(p + 8 * j) =
+                make_float2(acc[i][j][0], acc[i][j][1]);
+            *reinterpret_cast<float2*>(p + 8 * pn + 8 * j) =
+                make_float2(acc[i][j][2], acc[i][j][3]);
+          }
+        }
+      }
+      __syncthreads();
+      const int b = row0 + cr;
+      if (col_ok && b < B) {
+        // the partial sums in warp order, then (x + acc) + b as the step
+        // kernel adds them
+        const float* p = smem + cr * pn + 4 * (threadIdx.x % kUnits);
+        float4 a = *reinterpret_cast<const float4*>(p);
+        for (int v = 1; v < kwarps; ++v) {
+          const float4 e = *reinterpret_cast<const float4*>(p + v * reg);
+          a = make_float4(a.x + e.x, a.y + e.y, a.z + e.z, a.w + e.w);
+        }
+        const float gs[4] = {(xg[0] + a.x) + bg[0], (xg[1] + a.y) + bg[1],
+                             (xg[2] + a.z) + bg[2], (xg[3] + a.w) + bg[3]};
+        const float i = sigmoid(gs[0]), f = sigmoid(gs[2]);
+        const float o = sigmoid(gs[3]), cand = tanhf(gs[1]);
+        const float c = cst[l * kThreads], r = rst[l * kThreads];
+        const float c_new = f * c + i * cand;
+        const float r_new = o * tanhf(c_new);
+        const float r_t = m * r_new + (1.f - m) * r;
+        const float c_t = m * c_new + (1.f - m) * c;
+        rst[l * kThreads] = r_t;
+        cst[l * kThreads] = c_t;
+        rs[t * bh + (long)b * H + u] = r_t;
+        cs[t * bh + (long)b * H + u] = c_t;
+      }
+      // the x and mask of the cell next in turn (the next tile, or the
+      // first of the next step) are on their way during the next tile's
+      // product or the grid barrier
+      const bool last = l + 1 == tiles;
+      const int nb = last ? blockIdx.y * rows + cr : row0 + gridDim.y * rows
+                                                         + cr;
+      if (col_ok && nb < B && (!last || t + 1 < T))
+        load_x(xg, m, x, mask, last ? t + 1 : t, nb, B, H, u);
+      // the partials are read before the next tile's copies land on them
+      __syncthreads();
+    }
+    if (t + 1 < T) {
+      if (threadIdx.x == 0) grid_sync(bar, (t + 1) * blocks);
+      __syncthreads();
+    }
+  }
+  // the last block out sets the counters back to 0: every block has
+  // passed every barrier by then
+  if (threadIdx.x == 0 && atomicAdd(bar + 1, 1u) == blocks - 1) {
+    bar[0] = 0u;
+    bar[1] = 0u;
+  }
+}
+
+// 0, or the cudaError_t of setting the kernel's shared memory to `bytes`
+inline cudaError_t set_smem(int bytes) {
+  return cudaFuncSetAttribute(lstm_fwd_seq_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+}  // namespace seq
 
 // ---------------------------------------------------------------------------
 // tiled product: C[z][m][n] = sum over k in slice z of A(m, k) B(k, n)
@@ -309,8 +656,54 @@ lstm_bwd_db_kernel(const float* __restrict__ dx, float* __restrict__ db,
 }  // namespace
 
 // x [T, B, 4H], w [H, 4H], b [4H], mask [T, B], r0 and c0 [B, H]; rs and cs
-// [T, B, H] out. All float32, contiguous. T launches of the step kernel
-// on `stream`. Returns a cudaError_t (0 = launched).
+// [T, B, H] out. All float32, contiguous. One cooperative launch of the
+// sequence kernel on `stream`: mt 16-row tiles make a row tile (1 or 2),
+// kb k16 blocks a warp (1 to 4, 8 x 16 kb >= H), nt row tiles at most a
+// block (1 to 64; the grid's rows of blocks are the fewest that give no
+// block more); bar two unsigned counters at 0, set back to 0 by the
+// launch (a buffer of the stream's own). Returns a cudaError_t (0 =
+// launched; cudaErrorCooperativeLaunchTooLarge where the grid cannot be
+// resident at once).
+extern "C" int lstm_seq_fwd_seq_f32(const float* x, const float* w,
+                                    const float* b, const float* mask,
+                                    const float* r0, const float* c0,
+                                    float* rs, float* cs, unsigned* bar,
+                                    int T, int B, int H, int mt, int kb,
+                                    int nt, void* stream) {
+  if (T <= 0 || B <= 0 || H <= 0 || mt < 1 || mt > seq::kMaxMT || kb < 1 ||
+      kb > seq::kMaxKB || seq::kWarps * 16 * kb < H || nt < 1 ||
+      nt > seq::kMaxNT)
+    return (int)cudaErrorInvalidValue;
+  const int tiles = (B + 16 * mt - 1) / (16 * mt);
+  const int gy = (tiles + nt - 1) / nt;
+  if (gy > 65535) return (int)cudaErrorInvalidValue;
+  const int smem = seq::smem_bytes(mt, kb, nt);
+  const cudaError_t e = seq::set_smem(smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((H + seq::kUnits - 1) / seq::kUnits, gy);
+  void* args[] = {&x, &w, &b, &mask, &r0, &c0, &rs, &cs, &bar,
+                  &T, &B, &H, &mt, &kb, &nt};
+  return (int)cudaLaunchCooperativeKernel(
+      seq::lstm_fwd_seq_kernel, grid, dim3(kThreads), args, smem,
+      static_cast<cudaStream_t>(stream));
+}
+
+// Blocks of the sequence kernel at (mt, kb, nt) that an SM holds at
+// once, into *out. Returns a cudaError_t.
+extern "C" int lstm_fwd_blocks_per_sm(int mt, int kb, int nt, int* out) {
+  if (mt < 1 || mt > seq::kMaxMT || kb < 1 || kb > seq::kMaxKB || nt < 1 ||
+      nt > seq::kMaxNT)
+    return (int)cudaErrorInvalidValue;
+  const int smem = seq::smem_bytes(mt, kb, nt);
+  const cudaError_t e = seq::set_smem(smem);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, seq::lstm_fwd_seq_kernel, kThreads, smem);
+}
+
+// The same function in T launches of the step kernel on `stream` (the
+// forward for the shapes no sequence-kernel plan takes). Returns a
+// cudaError_t (0 = launched).
 extern "C" int lstm_seq_fwd_f32(const float* x, const float* w,
                                 const float* b, const float* mask,
                                 const float* r0, const float* c0, float* rs,

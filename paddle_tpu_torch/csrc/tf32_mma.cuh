@@ -1,9 +1,10 @@
 // Asynchronous copies and the 3xTF32 tensor-core product of the attention
-// kernels (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu).
+// kernels (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu) and the
+// LSTM forward's sequence kernel (csrc/fused_lstm.cu).
 //
-// A copy of csrc/conv3x3_tc.cuh's helpers, so that the attention library
-// builds without the bottleneck chain's headers; conv3x3_tc.cuh keeps its
-// own. The products are mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32
+// A copy of csrc/conv3x3_tc.cuh's helpers, so that those libraries build
+// without the bottleneck chain's headers; conv3x3_tc.cuh keeps its own.
+// The products are mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32
 // in 3xTF32: each operand x splits into big = x rounded to TF32 and small
 // = x - big, and each k8 step's products small.big, big.small, big.big of
 // a tile go into a fresh fragment, added into the float32 accumulators

@@ -14,7 +14,11 @@ Two kernels, written by hand for Hopper in
 them and what the design does about it):
 
 * ``lstm_seq_fwd`` replaces the Pallas ``lstm_seq_fwd`` (``_fwd_kernel``):
-  one launch per step, T in all;
+  one cooperative launch a sequence, each block's slice of W held in
+  registers for all T steps, its row tiles taken one after another each
+  step and a grid barrier between steps, where ``fwd_plan`` finds a grid
+  the card holds at once (every H <= 512); else one launch per step, T
+  in all;
 * ``lstm_seq_bwd`` replaces the Pallas ``lstm_seq_bwd`` (``_bwd_kernel``):
   the gate recompute, two launches per step (the cell, then dgates W^T
   in slices), dr0, dW and db: 2T + 4 launches.
@@ -33,14 +37,16 @@ mask a zero gradient.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from . import build
 
 __all__ = ["lstm_seq_fwd_reference", "lstm_seq_bwd_reference",
-           "lstm_seq_fwd", "lstm_seq_bwd", "LSTMSequence", "lstm_sequence"]
+           "FwdPlan", "fwd_plan", "lstm_seq_fwd", "lstm_seq_bwd",
+           "LSTMSequence", "lstm_sequence"]
 
 
 # ---------------------------------------------------------------------------
@@ -135,12 +141,94 @@ def _dr_slices(b: int, h: int, sms: int) -> int:
     return max(1, min(-(-2 * sms // tiles), 4 * h // 128))
 
 
+# The sequence kernel's blocks: 8 hidden units (all four gate columns
+# of each) over row tiles of at most 2 x 16 rows, at most 64 row tiles a
+# block a step; a warp's K slice at most 4 k16 blocks deep (8 warps: H <=
+# 512).
+UNITS, MAX_MT, MAX_NT, MAX_KB = 8, 2, 64, 4
+
+
+class FwdPlan(NamedTuple):
+    mt: int                # 16-row tiles a row tile
+    kb: int                # k16 blocks of each of a block's 8 warps
+    nt: int                # row tiles a block takes a step, at most
+    grid: Tuple[int, int]  # (unit groups, row groups)
+
+
+def fwd_plan(b: int, h: int, sms: int,
+             blocks_per_sm: Callable[[int, int, int], int]
+             ) -> Optional[FwdPlan]:
+    """The sequence kernel's launch for x [T, b, 4h] (any T >= 1) on a
+    card of `sms` SMs, each holding blocks_per_sm(mt, kb, nt) blocks at
+    once: ceil(h / 8) unit groups x as many row groups as the card holds,
+    each taking nt row tiles of 16 mt rows a step. None (the step kernel,
+    T launches) where H > 512 (a warp's K slice of W would not fit in its
+    registers), or a block would take more than 64 row tiles (on 132 SMs
+    at one block each: B > 4096 at H 512, B > 16384 at H 128), or not one
+    row of blocks fits."""
+    kb = -(-h // 128)
+    if kb > MAX_KB:
+        return None
+    mt = min(MAX_MT, -(-b // 16))
+    tiles = -(-b // (16 * mt))
+    units = -(-h // UNITS)
+    rows = sms * blocks_per_sm(mt, kb, 1) // units
+    if rows < 1:
+        return None
+    nt = -(-tiles // min(tiles, rows))
+    grid = (units, -(-tiles // nt))
+    if nt > MAX_NT or grid[0] * grid[1] > sms * blocks_per_sm(mt, kb, nt):
+        return None
+    return FwdPlan(mt, kb, nt, grid)
+
+
+@functools.cache
+def _blocks_per_sm(index: int, mt: int, kb: int, nt: int) -> int:
+    """cudaOccupancyMaxActiveBlocksPerMultiprocessor of the sequence
+    kernel, queried once a (device, mt, kb, nt)."""
+    out = ctypes.c_int(0)
+    with build.device_guard(torch.device("cuda", index)):
+        build.launch("lstm_seq_fwd", _fn(*_BLOCKS), mt, kb, nt,
+                     ctypes.byref(out))
+    return out.value
+
+
+@functools.cache
+def _plan_of(b: int, h: int, index: int) -> Optional[FwdPlan]:
+    return fwd_plan(b, h, build.sm_count(torch.device("cuda", index)),
+                    functools.partial(_blocks_per_sm, index))
+
+
+_SEQ = ("lstm_seq_fwd_seq_f32", (_P,) * 9 + (_I,) * 6 + (_P,))
+_STEPS = ("lstm_seq_fwd_f32", (_P,) * 8 + (_I,) * 3 + (_P,))
+_BLOCKS = ("lstm_fwd_blocks_per_sm", (_I, _I, _I, _P))
+
+_barriers: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _barrier_of(device: torch.device, stream: int) -> int:
+    """The sequence kernel's barrier counters for `stream`: two int32,
+    zeroed once and set back to 0 by each launch. Calls on one stream run
+    in order and share them; calls on two streams never do."""
+    key = (device.index, stream)
+    buf = _barriers.get(key)
+    if buf is None:
+        buf = _barriers[key] = torch.zeros(2, dtype=torch.int32,
+                                           device=device)
+    return buf.data_ptr()
+
+
 def lstm_seq_fwd(x, w, b, mask, r0, c0) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [T, B, 4H], w [H, 4H], b [4H], mask [T, B], r0/c0 [B, H] ->
     carry sequences (rs, cs) [T, B, H].
 
     CPU tensors run ``lstm_seq_fwd_reference``. CUDA tensors run
-    csrc/fused_lstm.cu: float32, contiguous, any T, B, H >= 1."""
+    csrc/fused_lstm.cu: float32, contiguous (any offset), any T, B, H >=
+    1. The shape alone chooses the kernel (``fwd_plan``): the sequence
+    kernel, one cooperative launch, for H <= 512 and B up to 64 row tiles
+    of 32 a block (on 132 SMs: B <= 4096 at H 512, B <= 16384 at H 128);
+    else the step kernel, T launches. A cooperative launch the runtime
+    refuses raises."""
     if not build.on_card("lstm_seq_fwd", x):
         return lstm_seq_fwd_reference(x, w, b, mask, r0, c0)
     t, bb, h = _shapes(x)
@@ -153,13 +241,18 @@ def lstm_seq_fwd(x, w, b, mask, r0, c0) -> Tuple[torch.Tensor, torch.Tensor]:
     build.check("c0", c0, dev, (bb, h))
     rs = torch.empty((t, bb, h), dtype=torch.float32, device=dev)
     cs = torch.empty_like(rs)
+    ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr(), mask.data_ptr(),
+            r0.data_ptr(), c0.data_ptr(), rs.data_ptr(), cs.data_ptr())
     with build.device_guard(dev):
         stream = build.stream(dev)
-        build.launch("lstm_seq_fwd",
-                _fn("lstm_seq_fwd_f32", (_P,) * 8 + (_I,) * 3 + (_P,)),
-                x.data_ptr(), w.data_ptr(), b.data_ptr(), mask.data_ptr(),
-                r0.data_ptr(), c0.data_ptr(), rs.data_ptr(), cs.data_ptr(),
-                t, bb, h, stream)
+        plan = _plan_of(bb, h, dev.index)
+        if plan is None:
+            build.launch("lstm_seq_fwd", _fn(*_STEPS), *ptrs, t, bb, h,
+                         stream)
+        else:
+            build.launch("lstm_seq_fwd", _fn(*_SEQ), *ptrs,
+                         _barrier_of(dev, stream), t, bb, h, plan.mt,
+                         plan.kb, plan.nt, stream)
     lstm_seq_fwd.launches += 1
     return rs, cs
 

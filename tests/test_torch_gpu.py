@@ -517,11 +517,17 @@ def _lstm_case(gen, t, b, h, lens):
     (5, 3, 20, [5, 1, 3]),      # H not a multiple of the 16-unit tile
     (1, 1, 8, None), (9, 17, 33, [9, 1] + [4] * 15),
     (8, 4, 16, [3, 1, 5, 2]),   # trailing steps no sequence reaches
+    (3, 4, 2048, None),         # H > 512: the step kernel, T launches
+    # past one row tile a block: two tiles a block in turn each step
+    (6, 96, 512, [6, 1] + [3] * 94), (4, 300, 128, None),
 ])
 def test_lstm_kernels_match_plain(cuda, t, b, h, lens):
     gen = torch.Generator().manual_seed(t + b + h)
     d = _lstm_case(gen, t, b, h, lens)
     fwd = [d[k] for k in ("x", "w", "b", "mask", "r0", "c0")]
+    # every shape up to H 512 takes the sequence kernel, wider ones the
+    # step kernel
+    assert (fl._plan_of(b, h, cuda.index or 0) is None) == (h > 512)
     rs, cs = fl.lstm_seq_fwd(*fwd)
     rrs, rcs = fl.lstm_seq_fwd_reference(*fwd)
     torch.testing.assert_close(rs, rrs, **TOL)
@@ -537,6 +543,98 @@ def test_lstm_kernels_match_plain(cuda, t, b, h, lens):
     first = fl.lstm_seq_bwd(*bwd)
     for x, y in zip(again, first):
         assert torch.equal(x, y)
+
+
+def _lstm_fwd_args(t, b, h, lens, seed):
+    d = _lstm_case(torch.Generator().manual_seed(seed), t, b, h, lens)
+    return [d[k] for k in ("x", "w", "b", "mask", "r0", "c0")]
+
+
+@pytest.mark.parametrize("t,b,h,lens", [
+    (100, 64, 512, [1, 100] + [37] * 30 + [64] * 32),
+    (9, 17, 33, [9, 1] + [4] * 15),
+    (3, 4, 2048, None),
+    (50, 128, 512, None),
+])
+def test_lstm_forward_gives_the_same_bits_twice(cuda, t, b, h, lens):
+    fwd = _lstm_fwd_args(t, b, h, lens, 7)
+    first = fl.lstm_seq_fwd(*fwd)
+    again = fl.lstm_seq_fwd(*fwd)
+    for x, y in zip(first, again):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_lstm_forward_takes_r0_at_any_offset(cuda, offset):
+    """r0 a contiguous view `offset` floats into a larger buffer (its rows
+    off 16 bytes): the step-0 loads of r take the 4-byte path, and the
+    result has the bits of an aligned r0's."""
+    fwd = _lstm_fwd_args(6, 64, 512, [6, 1] + [4] * 62, 11)
+    r0 = fwd[4]
+    buf = torch.zeros(r0.numel() + offset, device=r0.device)
+    view = buf[offset:].view(r0.shape)
+    view.copy_(r0)
+    assert view.data_ptr() % 16
+    aligned = fl.lstm_seq_fwd(*fwd)
+    got = fl.lstm_seq_fwd(*fwd[:4], view, fwd[5])
+    torch.cuda.synchronize()
+    for x, y in zip(got, aligned):
+        assert torch.equal(x, y)
+    for x, y in zip(got, fl.lstm_seq_fwd_reference(*fwd)):
+        torch.testing.assert_close(x, y, **TOL)
+
+
+def test_lstm_forward_on_two_streams_keeps_its_barriers_apart(cuda):
+    """Two sequence-kernel calls queued on two streams with no sync
+    between them, small enough (16 blocks each) to be resident at once
+    and long enough to overlap: each stream has its own barrier counters
+    (a shared count would release either grid early), so both match their
+    plain versions."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    args = [_lstm_fwd_args(1000, 8, 128, None, s) for s in (8, 9)]
+    fl.lstm_seq_fwd(*_lstm_fwd_args(2, 8, 128, None, 0))  # built, planned
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in args]
+    out, barriers = [], []
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for st, fwd in zip(streams, args):
+            with torch.cuda.stream(st):
+                barriers.append(fl._barrier_of(fwd[0].device,
+                                               st.cuda_stream))
+                out.append(fl.lstm_seq_fwd(*fwd))
+        torch.cuda.synchronize()
+    assert barriers[0] != barriers[1]
+    spans = [e.time_range for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and "lstm_fwd_seq_kernel" in e.name]
+    assert len(spans) == 2
+    # the two grids ran at the same time
+    assert max(s.start for s in spans) < min(s.end for s in spans), spans
+    for (rs, cs), fwd in zip(out, args):
+        rrs, rcs = fl.lstm_seq_fwd_reference(*fwd)
+        torch.testing.assert_close(rs, rrs, **TOL)
+        torch.testing.assert_close(cs, rcs, **TOL)
+
+
+@pytest.mark.parametrize("t,b,h", [(100, 64, 512), (24, 8, 128)])
+def test_lstm_forward_is_one_launch_a_call(cuda, t, b, h):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fwd = _lstm_fwd_args(t, b, h, None, 10)
+    fl.lstm_seq_fwd(*fwd)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fl.lstm_seq_fwd(*fwd)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 3, kernels
+    assert all("lstm_fwd_seq_kernel" in k for k in kernels), kernels
 
 
 def test_lstm_wrappers_never_fall_back(cuda, monkeypatch):
