@@ -14,14 +14,18 @@ no result line:
    S 1024 for a training step), and time the kernel, the plain version,
    PyTorch's scaled_dot_product_attention forward (flash forward) and
    its backward less its forward (flash backward), beside each kernel's
-   bound; then the three conv-epilogue kernels (channel stats, apply,
-   apply with an addend) at every epilogue shape of ResNet-50 at batch
-   128, taken from the fused training program, each timed beside its
-   plain version, its bound and a PyTorch yardstick (torch.var_mean for
-   the stats, F.batch_norm in training mode for stats + apply), with
-   its device ms a launch and launches a call (torch.profiler) and its
-   host us a call (200 calls queued with no sync) beside the event
-   time, and two stats calls on one input held to the same bits;
+   bound; the paged decode kernel also two calls bit for bit, over six
+   distinct pool pairs in turn (as the decode step's layers read them),
+   with its device ms and CUDA launches a call (torch.profiler), host us
+   a call and TB/s; then the three conv-epilogue kernels (channel
+   stats, apply, apply with an addend) at every epilogue shape of
+   ResNet-50 at batch 128, taken from the fused training program, each
+   timed beside its plain version, its bound and a PyTorch yardstick
+   (torch.var_mean for the stats, F.batch_norm in training mode for
+   stats + apply), with its device ms a launch and launches a call
+   (torch.profiler) and its host us a call (200 calls queued with no
+   sync) beside the event time, and two stats calls on one input held
+   to the same bits;
 4. serve the Transformer LM at full width (vocab 32000, 6 layers,
    d_model 2048, 8 heads, d_ff 8192, context 1024, 8 slots, 16-token
    blocks, random weights from --seed) through DecodeEngine: 12 requests,
@@ -434,16 +438,23 @@ def check_flash_bwd(torch, F, fa, card):
     return rows["dq"], rows["dkv"]
 
 
-def check_paged(torch, fa, card):
-    """Paged decode vs its plain version: 8 slots, H=8, D=256, BS=16,
-    ragged lengths up to 1024 with one idle (length 0) slot."""
-    gen = torch.Generator(device="cuda").manual_seed(2)
+PAGED_LENS = (1024, 1, 17, 500, 0, 999, 64, 777)
+PAGED_POOLS = 6   # the decode step's layers, each with its own pools
+
+
+def paged_case(torch, seed: int = 2, pools: int = 1):
+    """Phase 3's paged decode inputs: 8 slots, H=8, D=256, BS=16, the
+    lengths PAGED_LENS (one idle slot) through tables of the serving
+    path's width, and `pools` distinct (K, V) pool pairs. Returns (q,
+    [(k_pool, v_pool), ...], tables, lens)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     h, d, mb = 8, 256, MODEL["max_context"] // BLOCK
-    k_pool, v_pool = (torch.randn(POOL_BLOCKS, BLOCK, h, d, device="cuda",
-                                  generator=gen) for _ in range(2))
-    lens = torch.tensor([1024, 1, 17, 500, 0, 999, 64, 777], dtype=torch.int32)
+    pairs = [tuple(torch.randn(POOL_BLOCKS, BLOCK, h, d, device="cuda",
+                               generator=gen) for _ in range(2))
+             for _ in range(pools)]
+    lens = torch.tensor(PAGED_LENS, dtype=torch.int32)
     perm = torch.randperm(POOL_BLOCKS - 1, generator=torch.Generator()
-                          .manual_seed(3)) + 1
+                          .manual_seed(seed + 1)) + 1
     tables = torch.zeros(SLOTS, mb, dtype=torch.int32)
     used = 0
     for i, n in enumerate(lens.tolist()):
@@ -451,24 +462,65 @@ def check_paged(torch, fa, card):
         tables[i, :nb] = perm[used:used + nb]
         used += nb
     q = torch.randn(SLOTS, h, d, device="cuda", generator=gen)
-    tables, lens = tables.cuda(), lens.cuda()
+    return q, pairs, tables.cuda(), lens.cuda()
+
+
+def paged_bytes(q, tables, lens) -> int:
+    """What one call must move: the live keys' K and V rows, q, out, the
+    tables and the lengths."""
+    _, h, d = q.shape
+    return 4 * (2 * int(lens.sum()) * h * d + 2 * q.numel() + tables.numel()
+                + lens.numel())
+
+
+def check_paged(torch, fa, card):
+    """Paged decode vs its plain version at paged_case's shape, two calls
+    bit for bit; timed back to back on one pool pair and over
+    PAGED_POOLS distinct pairs in turn (as the decode step's layers read
+    them: the 55.5 MB of one call fit the 50 MB L2 nearly whole, so
+    back-to-back calls on one pair may partly hit it); device ms and
+    CUDA launches a call (profiler), host us a call (200 queued), TB/s."""
+    q, pairs, tables, lens = paged_case(torch, pools=PAGED_POOLS)
+    k_pool, v_pool = pairs[0]
     out = fa.paged_decode_attention(q, k_pool, v_pool, tables, lens)
+    again = fa.paged_decode_attention(q, k_pool, v_pool, tables, lens)
     ref = fa.paged_attention_reference(q, k_pool, v_pool, tables, lens)
     torch.cuda.synchronize()
     err = max_err(torch, out, ref)
     if bool(out[4].abs().max() != 0):
         raise RuntimeError("the idle slot's output is not zero")
+    if not torch.equal(out, again):
+        raise RuntimeError("two paged decode calls differ")
     keys = int(lens.sum())
-    nbytes = 4 * (2 * keys * h * d + 2 * SLOTS * h * d + SLOTS * mb + SLOTS)
-    b_ms, b_by = bound_ms(nbytes, 4 * keys * h * d)
-    ms = cuda_ms(torch, lambda: fa.paged_decode_attention(
-        q, k_pool, v_pool, tables, lens), 50)
+    nbytes = paged_bytes(q, tables, lens)
+    b_ms, b_by = bound_ms(nbytes, 4 * keys * q.shape[1] * q.shape[2])
+
+    def call():
+        fa.paged_decode_attention(q, k_pool, v_pool, tables, lens)
+
+    def six():
+        for kp, vp in pairs:
+            fa.paged_decode_attention(q, kp, vp, tables, lens)
+
+    ms = cuda_ms(torch, call, 50)
+    ms_six = cuda_ms(torch, six, 10) / len(pairs)
+    device, launches, host = device_host(torch, call)
+    if launches is not None and launches != 1:
+        raise RuntimeError(f"paged_decode_attention: {launches} CUDA "
+                           f"launches a call, expected 1")
     plain = cuda_ms(torch, lambda: fa.paged_attention_reference(
         q, k_pool, v_pool, tables, lens), 10)
+    dev = "not measured" if device is None else f"{device:.4f} ms"
     print(f"paged_decode_attention slots={SLOTS} lens={lens.tolist()}: "
           f"max_abs_err {err:.3e} (tol atol {KERNEL_ATOL} rtol "
-          f"{KERNEL_RTOL}), kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by}) [{card}]")
+          f"{KERNEL_RTOL}), kernel {ms:.4f} ms back to back, "
+          f"{ms_six:.4f} ms over {len(pairs)} pool pairs in turn, device "
+          f"{dev} and {launches} CUDA launch(es) a call (profiler), host "
+          f"{host:.1f} us a call (200 queued); {nbytes / ms / 1e9:.3f} "
+          f"TB/s ({nbytes / ms_six / 1e9:.3f} over the pools) of "
+          f"{nbytes / 1e6:.1f} MB, {b_ms / ms:.3f} of the bytes bound "
+          f"({b_ms / ms_six:.3f}); plain {plain:.4f} ms, bound {b_ms:.4f} "
+          f"ms ({b_by}) [{card}]")
     return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None, max_abs_err=err)
 
@@ -555,7 +607,7 @@ def kernel_class(name: str) -> str:
         return "fused_conv_apply_add (port kernel)"
     if "apply_kernel<false" in n:
         return "fused_conv_apply (port kernel)"
-    if "paged_decode" in n:
+    if "paged_split_kernel" in n:
         return "paged_decode_attention (port kernel)"
     if "flash_fwd" in n:
         return "flash_attention_fwd (port kernel)"
@@ -1978,13 +2030,22 @@ def check_chain_bwd(torch, fb, card):
         parts = {}
         for kname, kms in by_name.items():
             low = kname.lower()
-            part = ("dx" if "bwd_final_dx" in low else
-                    "dW1" if "bwd_final_dw" in low else "sums")
+            # dx is an instance of conv1x1_tc.cuh's kernel under a policy
+            # of namespace bwd_final
+            part = ("dx" if "conv1x1_tc_kernel<" in low
+                    and "bwd_final::" in low else
+                    "dW1" if "bwd_final_dw_kernel" in low else
+                    "sums" if "split_sum_kernel" in low else "other")
             parts[part] = parts.get(part, 0.0) + kms
+        missing = [k for k in ("dx", "dW1", "sums") if not parts.get(k)]
+        if missing:
+            raise RuntimeError(f"bwd_final stage {h}x{h}: the profile "
+                               f"holds no time for {missing}")
         print(f"bwd_final stage Cin {cin}, C {c}, {h}x{h}, batch {n}: "
               f"{ms['bwd_final']:.4f} ms; device ms by launch (profiler): "
               + "; ".join(f"{k} {parts.get(k, 0.0):.4f}"
-                          for k in ("dx", "dW1", "sums"))
+                          for k in ("dx", "dW1", "sums", "other")
+                          if k != "other" or k in parts)
               + f"; bound {bounds['bwd_final'][0]:.4f} "
               f"{bounds['bwd_final'][1]} by 3xTF32 at "
               f"{TF32_FLOPS_PER_S / 1e12:.0f} TFLOP/s, f32 FMA bound "

@@ -4,140 +4,285 @@
 // _paged_attention_pallas (Pallas body _paged_kernel): one query token per
 // slot attends to its own keys, which live in fixed-size pages of a shared
 // pool and are found through the slot's block table. Keys at or past the
-// slot's context length are skipped, and a slot of length 0 (an idle slot,
-// whose table points at the null block 0) writes zeros.
+// slot's context length are skipped, a table id out of range reads the
+// null block 0, and a slot of length 0 (an idle slot) writes zeros.
 //
 // What bounds it on the H100: bytes. A decode step does 4*D flops per cached
 // key while reading 2*D*4 bytes of K and V for it, so at 3.35 TB/s the pool
-// read is the roof; for 8 slots x 1024 keys x 8 heads x D = 256 that is
-// about 134 MB per layer call.
+// read is the roof: 16.6 us for 8 slots of 3382 keys in all at H 8, D 256
+// (55.5 MB). Two things stand between a kernel and that roof: the card's
+// 132 SMs must all be reading whatever the slots' lengths are, and each SM
+// must keep about 25 KB or more in flight (Little's law at ~1 us).
 //
-// What the design does about it: each block owns one (slot, head), so each
-// cached K/V row is read exactly once, in place, through the block table;
-// nothing is gathered into a copy (the gather-based XLA fallback does, and
-// the decode step's profile in docs/performance.md blames it). Keys are
-// walked in chunks of 64: each warp first issues the loads of all its
-// chunk keys (two float4 per lane per key at D = 256) before reducing any of
-// them, so a block keeps 64 KB of K reads in flight, and the V pass has
-// every thread stream one float column of each row, coalesced. The
-// online-softmax recurrence across chunks follows _paged_kernel: the
-// running max, the running sum and the output column stay in registers,
-// and a zero sum divides by 1.
+// What the design does about it (the flash-decoding split):
+//  * Split each slot's keys. The grid is (slot, head, split), one
+//    dimension: block b owns the P consecutive key positions
+//    [split * P, split * P + P) of its (slot, head), where P and the number
+//    of splits, ceil(MB * BS / P), come from the tensors' shapes alone (the
+//    host never reads the lengths). A block whose split starts at or past
+//    its slot's length returns at once; a long slot is read by many SMs.
+//  * Read K and V in one pass with no block barrier in the key loop. Each
+//    warp takes kInFlight consecutive keys a round, issues all their K and
+//    V loads (float4, streaming, 1 KB a row at D 256) before it uses any,
+//    then carries its own online softmax: the running max m, the running
+//    sum l, and acc for the lane's D / 32 columns. The scores are warp
+//    reductions (ptt::dot4, ptt::warp_sum).
+//  * The warps' states merge in warp order through shared memory into the
+//    block's partial (m, l, acc[D]). A slot with one live split writes its
+//    output there; otherwise the block writes its partial to the scratch,
+//    takes a ticket for its (slot, head) with an integer fetch_add of
+//    acquire-release order (no full fence), and the block that draws the
+//    last ticket reads the live splits' partials eight at a time, all in
+//    flight together, rescales and adds them in split order, divides by l
+//    (by 1 where l = 0), writes out, and sets the ticket back to 0 for the
+//    next call on the stream. No float atomics: two calls give the same
+//    bits. One launch a call.
+#include <cuda/atomic>
+
 #include <cmath>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kChunk = 64;  // keys per chunk
+constexpr int kWarps = 4;     // warps a block
+constexpr int kThreads = kWarps * 32;
+// keys a warp loads before it uses any: at 4 or 8 the register cap below
+// spills and a call takes 1.4-2.8x as long; 1 runs within 2% of 2
+// (scripts/torch_paged_decode_probe.py)
+constexpr int kInFlight = 2;
+constexpr int kCombine = 8;  // partials the combining block reads at once
+// at most 64 registers a thread: 8 blocks an SM, so that the 1024 blocks
+// of 8 slots x 8 heads x 16 splits are resident at once (uncapped, 72
+// registers, 7 blocks an SM: 6% slower where every slot holds 1024 keys)
+constexpr int kBlocksPerSM = 8;
 
 template <int D>
-__global__ void __launch_bounds__(D)
-paged_decode_kernel(const float* __restrict__ q,
-                    const float* __restrict__ k_pool,
-                    const float* __restrict__ v_pool,
-                    const int* __restrict__ block_tables,
-                    const int* __restrict__ context_lens,
-                    float* __restrict__ out, int NB, int BS, int MB,
-                    float scale) {
-  constexpr int NW = D / 32;            // warps per block
-  constexpr int KPW = kChunk / NW;      // chunk keys per warp
-  constexpr int V4 = D / 128;           // float4 of one row per lane
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+paged_split_kernel(const float* __restrict__ q,
+                   const float* __restrict__ k_pool,
+                   const float* __restrict__ v_pool,
+                   const int* __restrict__ block_tables,
+                   const int* __restrict__ context_lens,
+                   float* __restrict__ out, int* __restrict__ tickets,
+                   float* __restrict__ part, int H, int NB, int BS, int MB,
+                   int P, int n_split, float scale) {
+  constexpr int V4 = D / 128;  // float4 of one row a lane
+  constexpr int U = kInFlight;
 
-  __shared__ long s_row[kChunk];   // pool offset (floats) of each chunk key
-  __shared__ float s_score[kChunk];
-  __shared__ float s_p[kChunk];
-
-  const int slot = blockIdx.x;
-  const int h = blockIdx.y;
-  const int H = gridDim.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int split = blockIdx.x % n_split;
+  const int sh = blockIdx.x / n_split;  // slot * H + head
+  const int slot = sh / H;
+  const int h = sh % H;
+  const int ctx = min(max(context_lens[slot], 0), MB * BS);
+  const int k0 = split * P;
+  float4* orow = reinterpret_cast<float4*>(out + (long)sh * D);
+  if (ctx == 0) {  // an idle slot: split 0 writes zeros
+    if (split == 0)
+      for (int i = threadIdx.x; i < D / 4; i += kThreads)
+        orow[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    return;
+  }
+  if (k0 >= ctx) return;  // past the slot's keys
+  const int k1 = min(k0 + P, ctx);
+  const int n_live = (ctx + P - 1) / P;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const long row_stride = (long)H * D;
   const long page_stride = (long)BS * row_stride;
-
-  const float4* qrow =
-      reinterpret_cast<const float4*>(q + ((long)slot * H + h) * D);
-  float4 qv[V4];
-#pragma unroll
-  for (int u = 0; u < V4; ++u) qv[u] = qrow[lane + 32 * u];
-
-  const int ctx = min(max(context_lens[slot], 0), MB * BS);
   const int* table = block_tables + (long)slot * MB;
-  float m = -INFINITY, l = 0.f, acc = 0.f;
 
-  for (int c0 = 0; c0 < ctx; c0 += kChunk) {
-    const int nk = min(kChunk, ctx - c0);
-    if (tid < kChunk) {
-      long off = 0;
-      if (tid < nk) {
-        const int pos = c0 + tid;
+  const float4* qrow = reinterpret_cast<const float4*>(q + (long)sh * D);
+  float4 qv[V4], acc[V4];
+#pragma unroll
+  for (int u = 0; u < V4; ++u) {
+    qv[u] = qrow[lane + 32 * u];
+    acc[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  float m = -INFINITY, l = 0.f;
+
+  for (int j0 = k0 + warp * U; j0 < k1; j0 += kWarps * U) {
+    float4 kr[U][V4], vr[U][V4];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int pos = j0 + u;
+      if (pos < k1) {
         int blk = table[pos / BS];
         // an out-of-range id reads the null block instead of stray memory
         if (blk < 0 || blk >= NB) blk = 0;
-        off = blk * page_stride + (pos % BS) * row_stride + (long)h * D;
+        const long off =
+            blk * page_stride + (pos % BS) * row_stride + (long)h * D;
+        const float4* krow = reinterpret_cast<const float4*>(k_pool + off);
+        const float4* vrow = reinterpret_cast<const float4*>(v_pool + off);
+#pragma unroll
+        for (int w = 0; w < V4; ++w) {
+          kr[u][w] = __ldcs(krow + lane + 32 * w);
+          vr[u][w] = __ldcs(vrow + lane + 32 * w);
+        }
+      } else {
+#pragma unroll
+        for (int w = 0; w < V4; ++w)
+          kr[u][w] = vr[u][w] = make_float4(0.f, 0.f, 0.f, 0.f);
       }
-      s_row[tid] = off;
     }
-    __syncthreads();
-
-    // scores: warp w takes keys w, w + NW, ...; all loads before any reduce
-    float4 kreg[KPW][V4];
+    float s[U];
 #pragma unroll
-    for (int t = 0; t < KPW; ++t) {
-      const int j = warp + t * NW;
-      const float4* krow = reinterpret_cast<const float4*>(k_pool + s_row[j]);
+    for (int u = 0; u < U; ++u) {
+      float dot = 0.f;
 #pragma unroll
-      for (int u = 0; u < V4; ++u)
-        kreg[t][u] = (j < nk) ? krow[lane + 32 * u]
-                              : make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int w = 0; w < V4; ++w) dot = ptt::dot4(qv[w], kr[u][w], dot);
+      s[u] = dot;
     }
 #pragma unroll
-    for (int t = 0; t < KPW; ++t) {
-      float part = 0.f;
-#pragma unroll
-      for (int u = 0; u < V4; ++u) part = ptt::dot4(qv[u], kreg[t][u], part);
-      part = ptt::warp_sum(part);
-      const int j = warp + t * NW;
-      if (lane == 0) s_score[j] = (j < nk) ? part * scale : -INFINITY;
-    }
-    __syncthreads();
-
-    // every thread derives the same chunk max; the first 64 write p
+    for (int u = 0; u < U; ++u) s[u] = ptt::warp_sum(s[u]) * scale;
     float cm = -INFINITY;
-    for (int j = 0; j < nk; ++j) cm = fmaxf(cm, s_score[j]);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (j0 + u < k1) cm = fmaxf(cm, s[u]);
     const float m_new = fmaxf(m, cm);
     const float alpha = (m == -INFINITY) ? 0.f : expf(m - m_new);
-    if (tid < kChunk) s_p[tid] = (tid < nk) ? expf(s_score[tid] - m_new) : 0.f;
-    __syncthreads();
-
-    // acc = acc * alpha + p @ v: thread tid owns output column tid
-    float a = 0.f, psum = 0.f;
-#pragma unroll 16
-    for (int j = 0; j < kChunk; ++j) {
-      if (j < nk) {
-        const float p = s_p[j];
-        a = fmaf(p, v_pool[s_row[j] + tid], a);
-        psum += p;
+    l *= alpha;
+#pragma unroll
+    for (int w = 0; w < V4; ++w) {
+      acc[w].x *= alpha;
+      acc[w].y *= alpha;
+      acc[w].z *= alpha;
+      acc[w].w *= alpha;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float p = (j0 + u < k1) ? expf(s[u] - m_new) : 0.f;
+      l += p;
+#pragma unroll
+      for (int w = 0; w < V4; ++w) {
+        acc[w].x = fmaf(p, vr[u][w].x, acc[w].x);
+        acc[w].y = fmaf(p, vr[u][w].y, acc[w].y);
+        acc[w].z = fmaf(p, vr[u][w].z, acc[w].z);
+        acc[w].w = fmaf(p, vr[u][w].w, acc[w].w);
       }
     }
-    acc = acc * alpha + a;
-    l = l * alpha + psum;
     m = m_new;
-    __syncthreads();  // s_row / s_score / s_p are rewritten by the next chunk
   }
-  const float l_safe = (l == 0.f) ? 1.f : l;
-  out[((long)slot * H + h) * D + tid] = acc / l_safe;
+
+  // the warps' states, merged in warp order into the block's partial
+  __shared__ float4 s_acc[kWarps][D / 4];
+  __shared__ float s_m[kWarps], s_l[kWarps];
+  __shared__ int s_last;
+#pragma unroll
+  for (int w = 0; w < V4; ++w) s_acc[warp][lane + 32 * w] = acc[w];
+  if (lane == 0) {
+    s_m[warp] = m;
+    s_l[warp] = l;
+  }
+  __syncthreads();
+  float bm = -INFINITY;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) bm = fmaxf(bm, s_m[w]);
+  float bl = 0.f;
+  float4 ba = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int c = threadIdx.x;  // the float4 column this thread merges
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    // a warp that held no key has m = -inf: its factor is 0
+    const float f = (s_m[w] == -INFINITY) ? 0.f : expf(s_m[w] - bm);
+    bl = fmaf(s_l[w], f, bl);
+    if (c < D / 4) {
+      const float4 a = s_acc[w][c];
+      ba.x = fmaf(a.x, f, ba.x);
+      ba.y = fmaf(a.y, f, ba.y);
+      ba.z = fmaf(a.z, f, ba.z);
+      ba.w = fmaf(a.w, f, ba.w);
+    }
+  }
+  if (n_live == 1) {  // the slot's only live split: the output itself
+    if (c < D / 4) {
+      const float d = (bl == 0.f) ? 1.f : bl;
+      orow[c] = make_float4(ba.x / d, ba.y / d, ba.z / d, ba.w / d);
+    }
+    return;
+  }
+
+  // the partial to the scratch, then a ticket; the last block combines
+  const long n_pairs = gridDim.x / n_split;
+  float4* pacc = reinterpret_cast<float4*>(part) + (long)sh * n_split * (D / 4);
+  float* pml = part + n_pairs * n_split * D + 2L * sh * n_split;
+  if (c < D / 4) pacc[(long)split * (D / 4) + c] = ba;
+  if (c == 0) {
+    pml[2 * split] = bm;
+    pml[2 * split + 1] = bl;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    // release: the block's partial, ordered before by the barrier, is
+    // visible before its ticket; acquire: the other splits' partials are
+    // visible to the block that draws the last one (and, past the barrier
+    // below, to all its threads)
+    cuda::atomic_ref<int, cuda::thread_scope_device> ticket(tickets[sh]);
+    s_last = ticket.fetch_add(1, cuda::memory_order_acq_rel) == n_live - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  // the live splits' partials kCombine at a time, all their reads in
+  // flight together (the columns' into registers, the (m, l) pairs, which
+  // lie together, into shared memory), added in split order with an online
+  // rescale; a live split holds a key, so its m is finite, and past n_live
+  // m = -inf adds 0
+  __shared__ float s_ml[2 * kCombine];
+  float gm = -INFINITY, gl = 0.f;
+  float4 ga = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i0 = 0; i0 < n_live; i0 += kCombine) {
+    float4 ai[kCombine];
+#pragma unroll
+    for (int j = 0; j < kCombine; ++j)
+      ai[j] = (i0 + j < n_live && c < D / 4)
+                  ? __ldcg(pacc + (long)(i0 + j) * (D / 4) + c)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    if (threadIdx.x < 2 * kCombine) {
+      const bool live = i0 + threadIdx.x / 2 < n_live;
+      const bool is_m = (threadIdx.x & 1) == 0;
+      s_ml[threadIdx.x] = live ? __ldcg(pml + 2 * i0 + threadIdx.x)
+                               : (is_m ? -INFINITY : 0.f);
+    }
+    __syncthreads();
+    float cm = gm;
+#pragma unroll
+    for (int j = 0; j < kCombine; ++j) cm = fmaxf(cm, s_ml[2 * j]);
+    const float alpha = (gm == -INFINITY) ? 0.f : expf(gm - cm);
+    gl *= alpha;
+    ga.x *= alpha;
+    ga.y *= alpha;
+    ga.z *= alpha;
+    ga.w *= alpha;
+#pragma unroll
+    for (int j = 0; j < kCombine; ++j) {
+      const float f = expf(s_ml[2 * j] - cm);
+      gl = fmaf(s_ml[2 * j + 1], f, gl);
+      ga.x = fmaf(ai[j].x, f, ga.x);
+      ga.y = fmaf(ai[j].y, f, ga.y);
+      ga.z = fmaf(ai[j].z, f, ga.z);
+      ga.w = fmaf(ai[j].w, f, ga.w);
+    }
+    gm = cm;
+    __syncthreads();  // s_ml is rewritten by the next chunk
+  }
+  if (c < D / 4) {
+    const float d = (gl == 0.f) ? 1.f : gl;
+    orow[c] = make_float4(ga.x / d, ga.y / d, ga.z / d, ga.w / d);
+  }
+  if (threadIdx.x == 0) tickets[sh] = 0;
 }
 
 template <int D>
 int launch(const float* q, const float* k_pool, const float* v_pool,
-           const int* block_tables, const int* context_lens, float* out, int S,
-           int H, int NB, int BS, int MB, float scale, cudaStream_t stream) {
-  const dim3 grid(S, H);
-  paged_decode_kernel<D><<<grid, D, 0, stream>>>(
-      q, k_pool, v_pool, block_tables, context_lens, out, NB, BS, MB, scale);
+           const int* block_tables, const int* context_lens, float* out,
+           int* tickets, float* part, int S, int H, int NB, int BS, int MB,
+           int P, float scale, cudaStream_t stream) {
+  const int n_split = (MB * BS + P - 1) / P;
+  const long blocks = (long)S * H * n_split;
+  if (P < 1 || blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  paged_split_kernel<D><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      q, k_pool, v_pool, block_tables, context_lens, out, tickets, part, H,
+      NB, BS, MB, P, n_split, scale);
   return (int)cudaGetLastError();
 }
 
@@ -145,21 +290,25 @@ int launch(const float* q, const float* k_pool, const float* v_pool,
 
 // q [S, H, D], k_pool/v_pool [NB, BS, H, D], out [S, H, D] float32;
 // block_tables [S, MB] and context_lens [S] int32; all contiguous, the
-// float tensors 16-byte aligned. Returns a cudaError_t (0 = launched).
+// float tensors 16-byte aligned. P: keys a split (a block), n_split =
+// ceil(MB * BS / P). tickets: S * H ints, 0 before the call and 0 after
+// it; part: S * H * n_split * (D + 2) floats, 16-byte aligned. Returns a
+// cudaError_t (0 = launched).
 extern "C" int paged_decode_attention_f32(const float* q, const float* k_pool,
                                           const float* v_pool,
                                           const int* block_tables,
                                           const int* context_lens, float* out,
-                                          int S, int H, int D, int NB, int BS,
-                                          int MB, float scale, void* stream) {
+                                          int* tickets, float* part, int S,
+                                          int H, int D, int NB, int BS, int MB,
+                                          int P, float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 128:
-      return launch<128>(q, k_pool, v_pool, block_tables, context_lens, out, S,
-                         H, NB, BS, MB, scale, s);
+      return launch<128>(q, k_pool, v_pool, block_tables, context_lens, out,
+                         tickets, part, S, H, NB, BS, MB, P, scale, s);
     case 256:
-      return launch<256>(q, k_pool, v_pool, block_tables, context_lens, out, S,
-                         H, NB, BS, MB, scale, s);
+      return launch<256>(q, k_pool, v_pool, block_tables, context_lens, out,
+                         tickets, part, S, H, NB, BS, MB, P, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

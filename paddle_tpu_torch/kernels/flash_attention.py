@@ -16,7 +16,8 @@ design does about that):
   (csrc/flash_attention_bwd.cu) replace the two Pallas backward kernels
   of ``_flash_bwd_pallas``; ``flash_attention_bwd`` runs both;
 * ``paged_decode_attention`` (csrc/paged_attention.cu) replaces the Pallas
-  ``_paged_attention_pallas``.
+  ``_paged_attention_pallas``: each slot's keys split across blocks, the
+  partials combined in split order within the one launch.
 
 ``FlashAttention`` is the ``torch.autograd.Function`` of the pair (the
 JAX package's ``custom_vjp``), and ``dot_product_attention`` dispatches
@@ -36,7 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -50,7 +51,7 @@ __all__ = ["DEFAULT_MASK_VALUE", "mha_reference", "flash_attention_fwd",
            "flash_attention_bwd_dkv", "flash_attention_bwd",
            "FlashAttention", "dot_product_attention",
            "paged_attention_reference", "paged_decode_attention",
-           "paged_kv_update"]
+           "paged_split_plan", "paged_kv_update"]
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -396,15 +397,52 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+# keys a block of the paged kernel: the P that csrc/paged_attention.cu
+# splits each slot's keys into (scripts/torch_paged_decode_probe.py sweeps
+# 16 to 512; 64 is the fastest at the serving path's shape)
+PAGED_SPLIT_KEYS = 64
+
+
+def paged_split_plan(capacity: int) -> Tuple[int, int]:
+    """(P keys a split, splits a (slot, head)) of the paged kernel for a
+    block table of `capacity` = MB * BS key positions: a rule of the
+    shapes alone, so the host never reads the lengths."""
+    return PAGED_SPLIT_KEYS, max(1, -(-capacity // PAGED_SPLIT_KEYS))
+
+
+_paged_scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, int]] = {}
+
+
+def _paged_scratch_of(device: torch.device, stream: int, pairs: int,
+                      partials: int) -> Tuple[int, int]:
+    """(tickets, partials) pointers of the paged kernel's scratch for
+    `stream`: `pairs` int tickets (one a (slot, head)), zeroed once and
+    set back to 0 by each launch, then `partials` floats, 16-byte
+    aligned. Calls on one stream run in order and share it; calls on two
+    streams never do. Allocated once and grown when a call needs more."""
+    key = (device.index, stream)
+    buf, tickets = _paged_scratch.get(key, (None, 0))
+    if buf is None or tickets < pairs or buf.numel() < tickets + partials:
+        tickets = max(tickets, -(-pairs // 4) * 4, 64)
+        buf = torch.zeros(tickets + max(partials, 1 << 16),
+                          dtype=torch.float32, device=device)
+        _paged_scratch[key] = buf, tickets
+    ptr = buf.data_ptr()
+    return ptr, ptr + 4 * tickets
+
+
 def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
                            *, scale: Optional[float] = None) -> torch.Tensor:
     """One query token per slot against its pages: q [S, H, D] -> [S, H, D].
 
     CPU tensors run ``paged_attention_reference``. CUDA tensors run
-    csrc/paged_attention.cu, which reads each page in place through the
-    block table; it takes float32 contiguous q and pools with head_dim 128
-    or 256 (the TPU kernel's head_dim % 128 == 0) and int32 tables and
-    lengths."""
+    csrc/paged_attention.cu: one launch, each slot's keys split across
+    blocks of ``paged_split_plan``'s P keys, each page read in place
+    through the block table, the splits' partials combined in split
+    order within the launch (deterministic; no float atomics). It takes
+    float32 contiguous q and pools with head_dim 128 or 256 (the TPU
+    kernel's head_dim % 128 == 0) and int32 tables and lengths; it reads
+    nothing of them on the host and allocates nothing but the output."""
     scale = _default_scale(q, scale)
     if not build.on_card("paged_decode_attention", q):
         return paged_attention_reference(q, k_pool, v_pool, block_tables,
@@ -416,6 +454,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
     _check_cuda("context_lens", context_lens, q.device, torch.int32, 1)
     s_n, h, d = q.shape
     nb, bs = k_pool.shape[:2]
+    mb = block_tables.shape[1]
     _require(k_pool.shape == v_pool.shape and k_pool.shape[2:] == (h, d),
              f"pools {tuple(k_pool.shape)}, {tuple(v_pool.shape)} do not "
              f"match q {tuple(q.shape)}")
@@ -425,14 +464,17 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
     out = torch.empty_like(q)
     if s_n == 0:
         return out
+    p, n_split = paged_split_plan(mb * bs)
     with build.device_guard(q.device):
         stream = build.stream(q.device)
+        tickets, part = _paged_scratch_of(q.device, stream, s_n * h,
+                                          s_n * h * n_split * (d + 2))
         fn = build.bind("paged_attention.cu", "paged_decode_attention_f32",
-                        (_P,) * 6 + (_I,) * 6 + (_F, _P))
+                        (_P,) * 8 + (_I,) * 7 + (_F, _P))
         build.launch("paged_decode_attention", fn, q.data_ptr(),
                      k_pool.data_ptr(), v_pool.data_ptr(),
                      block_tables.data_ptr(), context_lens.data_ptr(),
-                     out.data_ptr(), s_n, h, d, nb, bs, block_tables.shape[1],
+                     out.data_ptr(), tickets, part, s_n, h, d, nb, bs, mb, p,
                      scale, stream)
     paged_decode_attention.launches += 1
     return out

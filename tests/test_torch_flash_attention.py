@@ -221,6 +221,94 @@ def test_paged_matches_jax_kernel_interpret():
     assert np.all(got[1] == 0)
 
 
+def _paged_split(q, k_pool, v_pool, tables, lens, p, scale=None):
+    """The arithmetic of csrc/paged_attention.cu's split kernel in
+    PyTorch: each (slot, head)'s keys cut into splits of P positions; a
+    split that starts at or past the slot's length does nothing; a live
+    split's partial is (m, l, acc) = (max score, sum of exp(s - m),
+    sum of exp(s - m) v); the live splits' partials are combined in split
+    order, rescaled to the largest m, and divided by l (by 1 where l = 0);
+    an idle slot gives zeros; a table id out of range reads block 0."""
+    s_n, h, d = q.shape
+    bs, nb = k_pool.shape[1], k_pool.shape[0]
+    scale = 1.0 / np.sqrt(d) if scale is None else scale
+    tables = torch.where((tables < 0) | (tables >= nb), 0, tables).long()
+    out = torch.zeros_like(q)
+    for slot in range(s_n):
+        ctx = min(max(int(lens[slot]), 0), tables.shape[1] * bs)
+        parts = []
+        for k0 in range(0, ctx, p):
+            pos = torch.arange(k0, min(k0 + p, ctx))
+            rows = tables[slot, pos // bs] * bs + pos % bs
+            k = k_pool.reshape(nb * bs, h, d)[rows]          # [n, H, D]
+            v = v_pool.reshape(nb * bs, h, d)[rows]
+            s = torch.einsum("hd,nhd->hn", q[slot], k) * scale
+            m = s.amax(dim=1)
+            e = torch.exp(s - m[:, None])
+            parts.append((m, e.sum(dim=1), torch.einsum("hn,nhd->hd", e, v)))
+        if not parts:
+            continue
+        gm = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+        gl, acc = torch.zeros(h), torch.zeros(h, d)
+        for m, l, a in parts:
+            f = torch.exp(m - gm)
+            gl = gl + l * f
+            acc = acc + a * f[:, None]
+        out[slot] = acc / torch.where(gl == 0, 1.0, gl)[:, None]
+    return out
+
+
+@pytest.mark.parametrize("bs", [4, 8, 16])
+@pytest.mark.parametrize("p", [16, 64, 128])
+def test_paged_split_arithmetic_matches_jax(p, bs):
+    """Lengths 0, 1, P - 1, P, P + 1 and the table's whole capacity, and
+    ids out of range (-3 and NB + 5 inside two slots' lengths, read as
+    the null block; 7 * NB past a length, never read): the split
+    kernel's arithmetic against the JAX package's reference given the
+    table with those ids set to 0."""
+    cap = -(-(3 * p + 5) // bs) * bs
+    lens = [0, 1, p - 1, p, p + 1, cap]
+    nb = 2 + sum(-(-n // bs) for n in lens)
+    q, kp, vp, tables, lens_a = _paged_inputs(p + bs, 6, 2, 16, nb, bs, lens)
+    tables = tables[:, :cap // bs].copy()
+    safe = tables.copy()
+    tables[5, 1] = -3
+    tables[4, 0] = nb + 5
+    tables[1, -1] = 7 * nb
+    safe[5, 1] = safe[4, 0] = 0
+    want = np.asarray(jfa.paged_attention_reference(
+        *map(jnp.asarray, (q, kp, vp, safe, lens_a))))
+    got = _paged_split(*_t(q, kp, vp, tables, lens_a), p).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    assert np.all(got[0] == 0)
+    np.testing.assert_allclose(
+        tfa.paged_attention_reference(*_t(q, kp, vp, safe, lens_a)).numpy(),
+        want, **TOL)
+
+
+@pytest.mark.parametrize("p", [16, tfa.PAGED_SPLIT_KEYS])
+def test_paged_split_arithmetic_matches_jax_kernel_interpret(p):
+    """The inputs of test_paged_matches_jax_kernel_interpret (d=128, bs=8,
+    ragged lengths and an idle slot), the Pallas kernel in interpret mode
+    against the split kernel's arithmetic at P 16 (two splits for the
+    21-key slot) and at the wrapper's P."""
+    args = _paged_inputs(11, 3, 2, 128, 12, 8, [13, 0, 21])
+    want = np.asarray(jfa.paged_decode_attention(*map(jnp.asarray, args),
+                                                 interpret=True))
+    got = _paged_split(*_t(*args), p).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    assert np.all(got[1] == 0)
+
+
+@pytest.mark.parametrize("capacity", [1, 16, 1024, 1025, 32768])
+def test_paged_split_plan_is_a_rule_of_the_shape(capacity):
+    """P is a fixed number of keys (one the probe sweeps); the splits
+    cover the table's capacity, whatever the lengths are."""
+    p, n_split = tfa.paged_split_plan(capacity)
+    assert p == tfa.PAGED_SPLIT_KEYS and p in (16, 32, 64, 128, 256, 512)
+    assert n_split == -(-capacity // p) and (n_split - 1) * p < capacity
+
+
 def test_paged_kv_update_in_place_matches_jax():
     """Write rows at ragged positions (and from an idle slot into the null
     block) in place; the pools equal JAX's functional update."""

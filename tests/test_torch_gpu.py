@@ -53,6 +53,28 @@ def _randn(gen, *shape):
     return torch.randn(*shape, generator=gen).cuda()
 
 
+def _kernels_of(fn, calls: int):
+    """Names of the CUDA kernels that `calls` calls of fn launched, by
+    torch.profiler. The profiler on the card at times drops kernel events
+    of a session (chip_smoke.device_host takes such a profile again): a
+    profile that holds fewer events than calls is taken again, up to five
+    times; one that holds as many or more is returned at once."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if len(names) >= calls:
+            break
+    return names
+
+
 @pytest.mark.parametrize("b,sq,sk,h,d,causal", [
     (1, 128, 128, 8, 256, True),     # the smallest prefill bucket
     (1, 1024, 1024, 8, 256, True),   # the largest
@@ -167,8 +189,8 @@ def test_flash_autograd_on_the_card_matches_plain_autograd(cuda):
                                                           counts)
 
 
-def _paged_case(gen, s, h, d, nb, bs, lens):
-    mb = -(-max(lens) // bs) + 1
+def _paged_case(gen, s, h, d, nb, bs, lens, mb=None):
+    mb = mb or -(-max(lens) // bs) + 1
     perm = torch.randperm(nb - 1, generator=gen) + 1
     tables = torch.zeros(s, mb, dtype=torch.int32)
     used = 0
@@ -195,6 +217,122 @@ def test_paged_kernel_matches_plain(cuda, s, h, d, nb, bs, lens):
     for i, n in enumerate(lens):
         if n == 0:
             assert bool((out[i] == 0).all())
+
+
+def _paged_want(args):
+    """The plain version on the table with out-of-range ids set to 0, the
+    null block the kernel reads for them."""
+    q, kp, vp, tables, lens = args
+    safe = torch.where((tables < 0) | (tables >= kp.shape[0]), 0, tables)
+    return fa.paged_attention_reference(q, kp, vp, safe, lens)
+
+
+@pytest.mark.parametrize("d,bs", [(128, 4), (256, 8), (128, 16), (256, 16)])
+def test_paged_kernel_at_the_split_edges(cuda, d, bs):
+    """Lengths 0, 1, P - 1, P, P + 1 and the table's whole capacity (a
+    slot at full capacity), P the kernel's keys a split; two calls give
+    the same bits."""
+    p = fa.paged_split_plan(1)[0]
+    cap = -(-(3 * p + 5) // bs) * bs
+    lens = [0, 1, p - 1, p, p + 1, cap]
+    nb = 2 + sum(-(-n // bs) for n in lens)
+    gen = torch.Generator().manual_seed(d + bs)
+    args = _paged_case(gen, 6, 2, d, nb, bs, lens, mb=cap // bs)
+    out = fa.paged_decode_attention(*args)
+    again = fa.paged_decode_attention(*args)
+    torch.testing.assert_close(out, fa.paged_attention_reference(*args),
+                               **TOL)
+    assert bool((out[0] == 0).all())
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("d", [128, 256])
+def test_paged_kernel_reads_the_null_block_for_ids_out_of_range(cuda, d):
+    """Ids -3 and NB + 5 inside two slots' lengths read the null block 0;
+    an id 7 * NB past a length is never read."""
+    gen = torch.Generator().manual_seed(d)
+    p = fa.paged_split_plan(1)[0]
+    lens = [2 * p + 3, 0, p, 9]
+    q, kp, vp, tables, lens_t = _paged_case(gen, 4, 2, d, 40, 8, lens)
+    tables = tables.cpu()
+    tables[0, 1] = -3
+    tables[2, 0] = 40 + 5
+    tables[3, -1] = 7 * 40
+    args = (q, kp, vp, tables.cuda(), lens_t)
+    out = fa.paged_decode_attention(*args)
+    torch.testing.assert_close(out, _paged_want(args), **TOL)
+    assert bool((out[1] == 0).all())
+
+
+def test_paged_kernel_combines_more_splits_than_a_block_has_threads(cuda):
+    """A slot of 130 P + 7 keys: 131 live splits, more than the 128
+    threads of the block that combines them."""
+    p = fa.paged_split_plan(1)[0]
+    n = 130 * p + 7
+    gen = torch.Generator().manual_seed(6)
+    args = _paged_case(gen, 2, 1, 128, 3 + -(-n // 4), 4, [n, 3])
+    out = fa.paged_decode_attention(*args)
+    torch.testing.assert_close(out, fa.paged_attention_reference(*args),
+                               **TOL)
+    assert torch.equal(out, fa.paged_decode_attention(*args))
+
+
+def test_paged_kernel_with_every_slot_idle_writes_zeros(cuda):
+    gen = torch.Generator().manual_seed(3)
+    args = _paged_case(gen, 3, 2, 256, 6, 4, [0, 0, 0], mb=3)
+    out = fa.paged_decode_attention(*args)
+    assert bool((out == 0).all())
+
+
+def test_paged_kernel_is_one_launch_and_one_allocation_a_call(cuda):
+    """At chip_smoke.py phase 3's shape: one CUDA launch a call (the
+    profiler), no host sync (the lengths are never read on the host:
+    sync debug mode raises on one), and no allocation but the output."""
+    gen = torch.Generator().manual_seed(4)
+    args = _paged_case(gen, 8, 8, 256, 513, 16,
+                       [1024, 1, 17, 500, 0, 999, 64, 777], mb=64)
+    fa.paged_decode_attention(*args)  # built, scratch made
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [fa.paged_decode_attention(*args) for _ in range(3)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == (
+        before + 3)
+    kernels = _kernels_of(lambda: fa.paged_decode_attention(*args), 3)
+    assert len(kernels) == 3, kernels
+    assert all("paged_split_kernel" in k for k in kernels), kernels
+    for out in outs:
+        torch.testing.assert_close(out, fa.paged_attention_reference(*args),
+                                   **TOL)
+
+
+def test_paged_kernel_on_two_streams_keeps_its_tickets_apart(cuda):
+    """Calls queued on two streams in turn with no sync between them: each
+    stream has its own tickets and partials (shared ones would mix the
+    two streams' splits), so every output matches its plain version."""
+    gen = torch.Generator().manual_seed(5)
+    lens = [1024, 300, 0, 777]
+    cases = [_paged_case(gen, 4, 8, 256, 200, 16, lens, mb=64)
+             for _ in range(2)]
+    fa.paged_decode_attention(*cases[0])
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in cases]
+    outs = [[], []]
+    for _ in range(4):
+        for i, (st, args) in enumerate(zip(streams, cases)):
+            with torch.cuda.stream(st):
+                outs[i].append(fa.paged_decode_attention(*args))
+    torch.cuda.synchronize()
+    keys = {k for k in fa._paged_scratch if k[1] in
+            {st.cuda_stream for st in streams}}
+    assert len(keys) == 2
+    for args, got in zip(cases, outs):
+        want = fa.paged_attention_reference(*args)
+        for out in got:
+            torch.testing.assert_close(out, want, **TOL)
 
 
 def test_wrappers_never_fall_back(cuda, monkeypatch):
@@ -595,8 +733,14 @@ def test_lstm_forward_on_two_streams_keeps_its_barriers_apart(cuda):
 
     args = [_lstm_fwd_args(1000, 8, 128, None, s) for s in (8, 9)]
     fl.lstm_seq_fwd(*_lstm_fwd_args(2, 8, 128, None, 0))  # built, planned
-    torch.cuda.synchronize()
     streams = [torch.cuda.Stream() for _ in args]
+    # a call on each stream first, so that its barrier counters and its
+    # outputs' memory exist before the profile: an allocation between the
+    # two launches can hold the second back until the first has ended
+    for st, fwd in zip(streams, args):
+        with torch.cuda.stream(st):
+            fl.lstm_seq_fwd(*fwd)
+    torch.cuda.synchronize()
     out, barriers = [], []
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for st, fwd in zip(streams, args):
@@ -620,19 +764,10 @@ def test_lstm_forward_on_two_streams_keeps_its_barriers_apart(cuda):
 
 @pytest.mark.parametrize("t,b,h", [(100, 64, 512), (24, 8, 128)])
 def test_lstm_forward_is_one_launch_a_call(cuda, t, b, h):
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     fwd = _lstm_fwd_args(t, b, h, None, 10)
     fl.lstm_seq_fwd(*fwd)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            fl.lstm_seq_fwd(*fwd)
-        torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events()
-               if e.device_type == DeviceType.CUDA]
+    kernels = _kernels_of(lambda: fl.lstm_seq_fwd(*fwd), 3)
     assert len(kernels) == 3, kernels
     assert all("lstm_fwd_seq_kernel" in k for k in kernels), kernels
 
