@@ -62,8 +62,9 @@ no result line:
    feed (finite, falling losses), LSTM_STEPS steps on the next varied
    feeds, one ragged step (padded ids with explicit lengths), launch
    counts held to one forward and one backward call a step, peak memory,
-   tokens/s and device time by class for one step; then the inference
-   clone gives finite predictions;
+   tokens/s and device time by class for one step, the backward's by its
+   kernels (recurrence, gates' recompute, dW, the rest; the recurrence
+   must show); then the inference clone gives finite predictions;
 10. take two Adam steps of a reduced LSTM (vocab 1000, embedding 64,
    hidden 128, batch 8, ragged sequences up to 24) from one startup
    state on the card and on the CPU, and hold losses, state and each
@@ -93,8 +94,9 @@ no result line:
 
 Phase 3 also holds the two LSTM kernels against their plain versions at
 the bench shape (T 100, B 64, H 512), full-length and ragged, timed
-beside their bounds and torch.nn.LSTM (cuDNN) as the yardstick, with the
-forward's CUDA launches a call (profiler) and the plan it took.
+beside their bounds (3xTF32, with the f32 FMA bounds beside them) and
+torch.nn.LSTM (cuDNN) as the yardstick, with each one's CUDA launches a
+call (profiler) and the plan it took.
 Phase 3 also holds the four bottleneck-chain kernels against their
 plain versions at ResNet-50's three chain stages at batch 128 (Cin, C,
 H = 256, 64, 56 / 512, 128, 28 / 1024, 256, 14), each timed beside its
@@ -1342,6 +1344,12 @@ def lstm_case(torch, t, b, h, lens, seed):
                 dcs=randn(t, b, h))
 
 
+def lstm_plan_text(plan, other: str) -> str:
+    return (other if plan is None else
+            f"sequence kernel, row tiles of {16 * plan.mt}, {plan.nt} a "
+            f"block, {plan.kb} k16 blocks a warp, grid {plan.grid}")
+
+
 def check_lstm(np, torch, fl, card, seed: int):
     """The two LSTM kernels vs their plain versions at the bench shape,
     full length and ragged (lengths drawn in [1, T]); each timed beside
@@ -1382,11 +1390,15 @@ def check_lstm(np, torch, fl, card, seed: int):
                        + 2 * t * b * h)
         b_bytes = 4 * (2 * t * b * 4 * h + 2 * h * 4 * h + 2 * 4 * h + t * b
                        + 4 * t * b * h + 2 * b * h)
-        # the forward's products run in 3xTF32 (the f32 bound beside it)
+        # the products run in 3xTF32, the forward's one and the
+        # backward's three (the gates' recompute, dgates W^T, dW); the f32
+        # bounds beside them
         bounds = {"lstm_seq_fwd": bound_ms(f_bytes, 3 * prod,
                                            TF32_FLOPS_PER_S),
-                  "lstm_seq_bwd": bound_ms(b_bytes, 3 * prod)}
+                  "lstm_seq_bwd": bound_ms(b_bytes, 9 * prod,
+                                           TF32_FLOPS_PER_S)}
         f32_fwd = bound_ms(f_bytes, prod)
+        f32_bwd = bound_ms(b_bytes, 3 * prod)
         calls = {"lstm_seq_fwd": (lambda: fl.lstm_seq_fwd(*fwd_args),
                                   lambda: fl.lstm_seq_fwd_reference(
                                       *fwd_args)),
@@ -1394,12 +1406,13 @@ def check_lstm(np, torch, fl, card, seed: int):
                                   lambda: fl.lstm_seq_bwd_reference(
                                       *bwd_args))}
         ms = {k: cuda_ms(torch, f, 10) for k, (f, _) in calls.items()}
-        # the forward's CUDA launches a call (profiler) and its plan
-        fwd_launches = device_host(torch, calls["lstm_seq_fwd"][0], 5, 1)[1]
-        plan = fl._plan_of(b, h, d["x"].device.index)
-        plan = ("step kernel" if plan is None else
-                f"sequence kernel, row tiles of {16 * plan.mt}, {plan.nt} a "
-                f"block, {plan.kb} k16 blocks a warp, grid {plan.grid}")
+        # each kernel's CUDA launches a call (profiler) and its plan
+        n_launch = {k: device_host(torch, f, 5, 1)[1]
+                    for k, (f, _) in calls.items()}
+        index = d["x"].device.index
+        plan = lstm_plan_text(fl._plan_of(b, h, index), "step kernel")
+        bwd_plan = lstm_plan_text(fl._bwd_plan_of(b, h, index),
+                                  "per-step path, 2T + 4 launches")
         plain = {k: cuda_ms(torch, r, 3) for k, (_, r) in calls.items()}
         lstm = torch.nn.LSTM(h, h).cuda()
         inp = d["x"][:, :, :h].contiguous().requires_grad_(True)
@@ -1416,13 +1429,16 @@ def check_lstm(np, torch, fl, card, seed: int):
               f"{lib['lstm_seq_fwd']:.4f}, bound "
               f"{bounds['lstm_seq_fwd'][0]:.4f} "
               f"{bounds['lstm_seq_fwd'][1]} by 3xTF32, f32 "
-              f"{f32_fwd[0]:.4f} {f32_fwd[1]}; {fwd_launches} launches a "
-              f"call, {plan}), bwd "
+              f"{f32_fwd[0]:.4f} {f32_fwd[1]}; {n_launch['lstm_seq_fwd']} "
+              f"launches a call, {plan}), bwd "
               f"{ms['lstm_seq_bwd']:.4f} ms (plain "
               f"{plain['lstm_seq_bwd']:.4f}, nn.LSTM bwd "
               f"{lib['lstm_seq_bwd']:.4f} [fwd+bwd {lib_both:.4f}], bound "
               f"{bounds['lstm_seq_bwd'][0]:.4f} "
-              f"{bounds['lstm_seq_bwd'][1]}; {2 * t + 4} launches); "
+              f"{bounds['lstm_seq_bwd'][1]} by 3xTF32, f32 "
+              f"{f32_bwd[0]:.4f} {f32_bwd[1]}; "
+              f"{n_launch['lstm_seq_bwd']} launches a call, "
+              f"{bwd_plan}); "
               f"max_abs_err fwd {errs['lstm_seq_fwd'][-1]:.3e} (tol atol "
               f"{KERNEL_ATOL} rtol {KERNEL_RTOL}; {fwd_share:.4f} of the "
               f"limit), bwd "
@@ -1461,6 +1477,22 @@ def build_lstm(pt, cfg, seed):
 
 
 LSTM_KERNELS = ("lstm_seq_fwd", "lstm_seq_bwd")
+# lstm_seq_bwd's kernels by name: the recurrence, the gates' recompute, dW
+LSTM_BWD_PARTS = (("recurrence", "lstm_bwd_seq_kernel"),
+                  ("gates", "lstm_bwd_gemm_tc_kernel<true>"),
+                  ("dW", "lstm_bwd_gemm_tc_kernel<false>"))
+
+
+def lstm_bwd_parts(by_name: dict) -> dict:
+    """{part: device ms} of lstm_seq_bwd's kernels in a profile ("rest":
+    the kernels of the per-step path)."""
+    parts = dict.fromkeys([p for p, _ in LSTM_BWD_PARTS] + ["rest"], 0.0)
+    for name, ms in by_name.items():
+        if kernel_class(name) != "lstm_seq_bwd (port kernel)":
+            continue
+        part = next((p for p, key in LSTM_BWD_PARTS if key in name), "rest")
+        parts[part] += ms
+    return parts
 
 
 def lstm_path(np, torch, fl, card, seed: int):
@@ -1559,8 +1591,14 @@ def lstm_path(np, torch, fl, card, seed: int):
 
     adam.compute = labelled
     try:
-        wall, by_name, by_label = profiled(torch, lambda: step(feed0), 1,
-                                           labels=("adam op",))
+        # a profile that holds no recurrence kernel lost its events: it is
+        # taken again, up to three times
+        for _ in range(3):
+            wall, by_name, by_label = profiled(torch, lambda: step(feed0), 1,
+                                               labels=("adam op",))
+            bwd = lstm_bwd_parts(by_name)
+            if bwd["recurrence"] > 0:
+                break
     finally:
         adam.compute = compute
     adam_ms = by_label.get("adam op", 0.0)
@@ -1570,6 +1608,11 @@ def lstm_path(np, torch, fl, card, seed: int):
     if not adam_ms:
         print("  Adam (9 adam ops): not measured (the profiler attributed "
               "no device time to the adam op ranges)")
+    print("  lstm_seq_bwd's parts: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in bwd.items()) + f" [{card}]")
+    if not bwd["recurrence"] > 0:
+        raise RuntimeError("the LSTM step's profile shows no device time in "
+                           "the backward's recurrence (lstm_bwd_seq_kernel)")
     name = logit.name
     test = main_prog.clone(for_test=True).prune([name])
     before = fl.lstm_seq_fwd.launches

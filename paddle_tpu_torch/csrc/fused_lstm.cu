@@ -16,11 +16,12 @@
 // (T 100, B 64, H 512) the forward does 13.4 GFLOP of products (0.200 ms
 // at the 67 TFLOP/s float32 peak, 0.081 ms as 3xTF32 at 495 TFLOP/s) and
 // moves ~83 MB (0.025 ms); the backward 40.3 GFLOP (0.601 ms: the gate
-// recompute, dgates @ W^T and dW) and ~157 MB. In practice the recurrence
-// bounds them: step t needs all of r_{t-1}, so each step is a [B, H] x
-// [H, 4H] product that cannot start before the previous one ends, and at
-// B 64 one step is too little work to fill 132 SMs for long. The time is
-// per-step latency.
+// recompute, dgates @ W^T and dW; 0.244 ms as 3xTF32) and ~157 MB. In
+// practice the recurrence bounds them: step t needs all of r_{t-1} (the
+// backward: all of dgates_{t+1}), so each step is a [B, H] x [H, 4H]
+// product that cannot start before the previous one ends, and at B 64 one
+// step is too little work to fill 132 SMs for long. The time is per-step
+// latency.
 //
 // What the design does about it. The TPU kernel keeps W [H, 4H] in one
 // core's VMEM across a sequential grid.
@@ -52,20 +53,41 @@
 //   forward is the step kernel's: one launch per step
 //   (lstm_fwd_step_kernel, looped in the C entry): a block of 16 units x
 //   16 rows over 128-deep shared-memory stages of r and W.
-//   Backward: the gates of every step are recomputed at once by one tiled
-//   product G = X + R_prev W + b (R_prev is known). Then each step t, from
-//   T-1 down to 0, is two launches, because dr_{t-1} for any unit needs
-//   all of dgates_t: (1) a cell kernel, one thread per (row, unit), turns
-//   the carried (dr, dc) and the step's cotangents into dgates_t (written
-//   to dx) and the masked carries; (2) dgates_t W^T in K slices, each
-//   slice's partial product into its own buffer. The next step's cell
-//   kernel adds the slices in a fixed order: no atomics, deterministic.
-//   dW = R_prev^T dx is one tiled product over the T*B rows after the
-//   loop, db a column sum in a fixed order: also deterministic.
-// The product kernel is one template (64 x 64 tiles, 4 x 4 outputs a
-// thread, 32-deep shared-memory stages) over the three operand layouts.
-// Every stage issues all its loads before its first shared-memory store.
-// Transcendentals are expf/tanhf (no fast-math intrinsics).
+//   Backward (lstm_seq_bwd_seq_f32): three launches. (1) The gates of
+//   every step at once, G = X + R_prev W + b (R_prev is known), and (3)
+//   dW = R_prev^T dx over the T*B rows: one 3xTF32 mma.sync product
+//   (tc::lstm_bwd_gemm_tc_kernel: 64 x 128 tiles, K in 16-deep stages
+//   through a ring of 3 of cp.async, k in order). (2) The reverse
+//   recurrence in one cooperative launch (seq::lstm_bwd_seq_kernel), t
+//   from T-1 down to 0: dr_{t} for any unit needs all of dgates_{t+1},
+//   so a step is dgates_{t+1} W^T then the cell, with a grid barrier
+//   between steps. A block owns 16 units and holds W^T's [4H, 16] slice
+//   as raw B fragments in shared memory (128 KB at H 512) for all T
+//   steps; the blocks exchange only dgates, through dx, which they write
+//   anyway: each step every block reads its row tile's dgates_{t+1} (16
+//   rows x 4H) from L2 by cp.async.cg, each warp a 4H/8-deep K slice
+//   through a ring of 4 k16 stages, in 3xTF32 with its stage's mma chains
+//   interleaved and their adds deferred past the next stage's wait; the
+//   warps' partial sums are added in warp order by one thread a cell,
+//   whose carried (dr, dc) stay in shared memory; the next cell's inputs
+//   are on their way during the barrier. db is summed in the launch (a
+//   cell thread over t, the block over its rows, row group 0 over the row
+//   groups, in that fixed order), and so is dr0 (a product after the
+//   last barrier). At T 100, B 64, H 512 a step is about 6 us: its
+//   dgates loads (a latency chain of 16 stages), the barrier, the
+//   product and the cell (PERF.md).
+//   Where no grid fits (H > 512, or more than 28 tiles of 16 a block),
+//   the backward is the per-step path (lstm_seq_bwd_f32): the same two
+//   products around two launches a step, (a) a cell kernel, one thread
+//   per (row, unit), that turns the carried (dr, dc) and the step's
+//   cotangents into dgates_t (written to dx) and the masked carries, and
+//   (b) dgates_t W^T in K slices, each slice's partial product into its
+//   own buffer (an f32 SIMT tiled product, 64 x 64 tiles, 4 x 4 outputs a
+//   thread), which the next cell kernel adds in a fixed order; then dr0
+//   and db: 2T + 4 launches.
+// Every sum runs in a fixed order and no float atomics: two calls give
+// the same bits. Transcendentals are expf/tanhf (no fast-math
+// intrinsics).
 #include <cuda_runtime.h>
 
 #include "tf32_mma.cuh"
@@ -206,6 +228,16 @@ __device__ __forceinline__ void grid_sync(unsigned* count, unsigned target) {
     if (clock_ns() - t0 > kSpinLimitNs) __trap();
 }
 // -----------------------------------------------------------------------------
+
+// At a launch's end: the last block out sets the counters back to 0
+// (bar[1] counts the blocks out; every block has passed every barrier by
+// then).
+__device__ __forceinline__ void grid_done(unsigned* bar, unsigned blocks) {
+  if (threadIdx.x == 0 && atomicAdd(bar + 1, 1u) == blocks - 1) {
+    bar[0] = 0u;
+    bar[1] = 0u;
+  }
+}
 
 // Wait until at most n of this thread's groups of copies are in flight.
 __device__ __forceinline__ void wait_left(int n) {
@@ -456,17 +488,329 @@ lstm_fwd_seq_kernel(const float* __restrict__ x, const float* __restrict__ w,
       __syncthreads();
     }
   }
-  // the last block out sets the counters back to 0: every block has
-  // passed every barrier by then
-  if (threadIdx.x == 0 && atomicAdd(bar + 1, 1u) == blocks - 1) {
-    bar[0] = 0u;
-    bar[1] = 0u;
-  }
+  grid_done(bar, blocks);
 }
 
-// 0, or the cudaError_t of setting the kernel's shared memory to `bytes`
-inline cudaError_t set_smem(int bytes) {
-  return cudaFuncSetAttribute(lstm_fwd_seq_kernel,
+// ---------------------------------------------------------------------------
+// backward: one persistent launch over the reverse recurrence
+// ---------------------------------------------------------------------------
+
+// A block owns kUnitsB hidden units (two n8 tiles) over row tiles of 16
+// rows, at most kMaxNTB of them a step (its shared memory); a warp's K
+// slice of 4H is at most kMaxKBB k16 blocks (8 warps: H <= 512), and a
+// ring of kRing k16 stages of it is in flight a warp (2, 3 and 4
+// measured: scripts/torch_lstm_bwd_probe.py). 16 units, W in shared
+// memory, halve the dgates each step reads from L2 against 8 units with W
+// in registers (PERF.md).
+constexpr int kUnitsB = 16, kMaxKBB = 16, kRing = 4, kMaxNTB = 28;
+constexpr int kStage = 16 * 16;       // floats of a stage: 16 rows x k16
+constexpr int kPartB = 16 * kUnitsB;  // floats of a warp's partial sums
+// W's fragments (a float4 a lane a k8 step of its warp's slice), the
+// warps' rings and partial sums, then dr and dc of each thread's cell in
+// each of nt row tiles
+constexpr int bwd_smem_bytes(int kb, int nt) {
+  return (kWarps * 2 * kb * 32 * 4 + kWarps * (kRing * kStage + kPartB) +
+          2 * nt * kThreads) * 4;
+}
+
+// acc[j] += the warp's 16 rows x [k0, k0 + 16 kb) slice of dgates (rows
+// of K = 4H floats) times W's slice B(k, n) = W[u0 + n, k] (n8 tile j),
+// in 3xTF32 as product() above. The slice streams through a ring of kRing
+// k16 stages, kRing - 1 ahead of the product; cp.async.cg (L2), since
+// dgates is written within the launch; every row starts on 16 bytes (dx
+// is the wrapper's own) and K % 4 == 0, so every copy is 16 bytes. W's
+// fragments come from shared memory: wl is the lane's float4 of k8 step
+// 0, 32 float4 apart a step. A stage's four mma chains interleave, and its
+// fragments are added into acc after the next stage's wait (in k8-step
+// order), so that their latency passes under it.
+__device__ __forceinline__ void bwd_product(float (&acc)[2][4], float* ring,
+                                            const float* dg,
+                                            const float4* wl, int row0,
+                                            int B, int K, int k0, int kb,
+                                            int g, int tq, int lane) {
+  // the lane's copies of a stage: 16-byte chunks e = lane + 32 j of 16
+  // rows x 16 floats, row e / 4, floats 4 (lane % 4) of the k16 block
+  const int kk = k0 + 4 * (lane % 4);
+  const float* src[2];
+  bool row_ok[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int b = row0 + (lane + 32 * j) / 4;
+    row_ok[j] = b < B;
+    src[j] = dg + (row_ok[j] ? (long)b * K + kk : 0);
+  }
+  const auto issue = [&](int q) {
+    float* st = ring + (q % kRing) * kStage + 4 * lane;
+    const bool k_ok = kk + 16 * q < K;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const bool ok = row_ok[j] && k_ok;
+      copy16(st + 128 * j, ok ? src[j] + 16 * q : dg, ok);
+    }
+  };
+#pragma unroll
+  for (int q = 0; q < kRing - 1; ++q) {
+    if (q < kb) issue(q);
+    commit();
+  }
+  float f[2][2][4];  // the last stage's fragments [k8 step][n8 tile]
+#pragma unroll
+  for (int q = 0; q < kMaxKBB; ++q) {
+    if (q >= kb) break;
+    // stage q + kRing - 1 lands in the slot stage q - 1 left
+    if (q + kRing - 1 < kb) issue(q + kRing - 1);
+    commit();
+    wait_prior<kRing - 1>();
+    __syncwarp();
+    const float* p = ring + (q % kRing) * kStage + g * 16 + 4 * tq;
+    const float4 lo = *reinterpret_cast<const float4*>(p);
+    const float4 hi = *reinterpret_cast<const float4*>(p + 8 * 16);
+    // the slot is read: the next stage's copies may land on it
+    __syncwarp();
+    const float4 wv[2] = {wl[32 * (2 * q)], wl[32 * (2 * q + 1)]};
+    if (q > 0)
+#pragma unroll
+      for (int ss = 0; ss < 2; ++ss)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j][e] += f[ss][j][e];
+    uint32_t bb[2][2][2], bs[2][2][2], ab[2][4], as[2][4];
+#pragma unroll
+    for (int ss = 0; ss < 2; ++ss) {
+      split(wv[ss].x, bb[ss][0][0], bs[ss][0][0]);
+      split(wv[ss].y, bb[ss][0][1], bs[ss][0][1]);
+      split(wv[ss].z, bb[ss][1][0], bs[ss][1][0]);
+      split(wv[ss].w, bb[ss][1][1], bs[ss][1][1]);
+      a_frag(lo, hi, ss, ab[ss], as[ss]);
+    }
+#pragma unroll
+    for (int ss = 0; ss < 2; ++ss)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        mma0(f[ss][j], as[ss], bb[ss][j][0], bb[ss][j][1]);
+#pragma unroll
+    for (int ss = 0; ss < 2; ++ss)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        mma(f[ss][j], ab[ss], bs[ss][j][0], bs[ss][j][1]);
+#pragma unroll
+    for (int ss = 0; ss < 2; ++ss)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        mma(f[ss][j], ab[ss], bb[ss][j][0], bb[ss][j][1]);
+  }
+#pragma unroll
+  for (int ss = 0; ss < 2; ++ss)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += f[ss][j][e];
+}
+
+// The step-t inputs of the cell (b, u): its gates (i, c, f, o), c_{t-1},
+// the cotangents of r_t and c_t, and the mask. Read-only in the launch.
+__device__ __forceinline__ void load_cell(float (&gg)[4], float (&in)[4],
+                                          const float* gates,
+                                          const float* c_prevs,
+                                          const float* drs, const float* dcs,
+                                          const float* mask, int t, int b,
+                                          int B, int H, int u) {
+  const long row = (long)t * B + b, idx = row * H + u;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) gg[q] = __ldg(gates + row * 4 * H + q * H + u);
+  in[0] = __ldg(c_prevs + idx);
+  in[1] = __ldg(drs + idx);
+  in[2] = __ldg(dcs + idx);
+  in[3] = __ldg(mask + row);
+}
+
+// The reverse recurrence, t from T-1 down to 0, then dr0. blockIdx.x takes
+// units [U x, U x + U), U = kUnitsB, and holds B(k, n) = W[u0 + n, k] for
+// k over all 4H as raw mma.sync B fragments in shared memory for all T
+// steps; blockIdx.y the row tiles y, y + gridDim.y, ... (at most nt, each
+// 16 rows), one after another each step; warp w the K slice [16 kb w, 16
+// kb w + 16 kb) of 4H; thread (row, unit) = (tid / U, tid % U) one cell of
+// each tile, whose carried dr (the masked pass-through) and dc stay in
+// shared memory from step to step. Step t: dr = pass-through + dgates_{t+1}
+// W^T (dgates_{t+1} read from dx, where the step before wrote it: the
+// blocks exchange nothing else), the partial sums of the 8 warps added in
+// warp order; then the cell writes dgates_t into dx; a grid barrier. The
+// pass after step 0 (t = -1) is the product alone, into dr0. db: each cell
+// thread sums its own dgates over t (and its tiles, in turn), the block its
+// rows in row order into dbp[blockIdx.y] before the last barrier, and the
+// blocks of row group 0 the row groups in order after it. bar as the
+// forward's.
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_bwd_seq_kernel(const float* __restrict__ gates,
+                    const float* __restrict__ w,
+                    const float* __restrict__ mask,
+                    const float* __restrict__ c_prevs,
+                    const float* __restrict__ drs,
+                    const float* __restrict__ dcs, float* dx,
+                    float* __restrict__ db, float* dbp,
+                    float* __restrict__ dr0, float* __restrict__ dc0,
+                    unsigned* bar, int T, int B, int H, int kb, int nt) {
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int u0 = blockIdx.x * kUnitsB;
+  const int rows = 16, K = 4 * H;
+  // the lane's W fragments, 32 float4 apart a k8 step
+  float4* const wl = smem4 + warp * 2 * kb * 32 + lane;
+  float* const ring = smem + kWarps * 2 * kb * 128 + warp * kRing * kStage;
+  float* const part = smem + kWarps * (2 * kb * 128 + kRing * kStage);
+  float* const drt = part + kWarps * kPartB + threadIdx.x;
+  float* const dct = drt + nt * kThreads;
+  const int k0 = warp * 16 * kb;
+  const int kwarps = min(kWarps, (K + 16 * kb - 1) / (16 * kb));
+  const bool busy = warp < kwarps;
+  const int tiles = ((B + rows - 1) / rows - (int)blockIdx.y +
+                     (int)gridDim.y - 1) / (int)gridDim.y;
+  const unsigned blocks = gridDim.x * gridDim.y;
+
+  // W's slice as B fragments: k8 step s of the warp's slice is k16 block
+  // s / 2, its slot tq (tq + 4) element 4 tq + 2 (s % 2) (+ 1), as a_frag
+  // permutes dgates; column g of n8 tile j is unit u0 + 8 j + g; a lane's
+  // float4 holds (j 0: e 0, 1; j 1: e 0, 1). Only the lane that writes a
+  // fragment reads it.
+  for (int s = 0; s < 2 * kb; ++s) {
+    const int k = k0 + 16 * (s / 2) + 4 * tq + 2 * (s % 2);
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int u = u0 + 8 * (e / 2) + g, ke = k + e % 2;
+      v[e] = u < H && ke < K ? __ldg(w + (long)u * K + ke) : 0.f;
+    }
+    wl[32 * s] = make_float4(v[0], v[1], v[2], v[3]);
+  }
+
+  const int cr = threadIdx.x / kUnitsB, j = threadIdx.x % kUnitsB;
+  const int u = u0 + j;
+  const bool col_ok = u < H;
+  for (int l = 0; l < tiles; ++l) {
+    drt[l * kThreads] = 0.f;
+    dct[l * kThreads] = 0.f;
+  }
+  float dbs[4] = {0.f, 0.f, 0.f, 0.f};
+  // the inputs of the cell next in turn: gates, then c_{t-1}, dr_t, dc_t, m
+  float gg[4] = {0.f, 0.f, 0.f, 0.f}, in[4] = {0.f, 0.f, 0.f, 0.f};
+  if (col_ok && blockIdx.y * rows + cr < B)
+    load_cell(gg, in, gates, c_prevs, drs, dcs, mask, T - 1,
+              blockIdx.y * rows + cr, B, H, u);
+
+  for (int t = T - 1; t >= -1; --t) {
+    const float* dg = dx + (long)(t + 1) * B * K;  // dgates_{t+1}
+    const bool carried = t + 1 < T;
+    for (int l = 0; l < tiles; ++l) {
+      const int row0 = (blockIdx.y + l * gridDim.y) * rows;
+      if (carried && busy) {
+        float acc[2][4];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[jj][e] = 0.f;
+        bwd_product(acc, ring, dg, wl, row0, B, K, k0, kb, g, tq, lane);
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          float* p = part + warp * kPartB + g * kUnitsB + 8 * jj + 2 * tq;
+          *reinterpret_cast<float2*>(p) = make_float2(acc[jj][0], acc[jj][1]);
+          *reinterpret_cast<float2*>(p + 8 * kUnitsB) =
+              make_float2(acc[jj][2], acc[jj][3]);
+        }
+      }
+      __syncthreads();
+      const int b = row0 + cr;
+      if (col_ok && b < B) {
+        // dr carried = the pass-through + the partial sums in warp order
+        float p = 0.f;
+        if (carried) {
+          p = part[threadIdx.x];
+          for (int v = 1; v < kwarps; ++v)
+            p += part[v * kPartB + threadIdx.x];
+        }
+        const float dr = drt[l * kThreads] + p;
+        if (t >= 0) {
+          const float i = sigmoid(gg[0]), cand = tanhf(gg[1]);
+          const float f = sigmoid(gg[2]), o = sigmoid(gg[3]);
+          const float cp = in[0], m = in[3];
+          const float c_new = f * cp + i * cand;
+          const float tc = tanhf(c_new);
+          const float d_rt = dr + in[1], d_ct = dct[l * kThreads] + in[2];
+          const float dr_new = d_rt * m, dr_prev = d_rt * (1.f - m);
+          float dc_new = d_ct * m, dc_prev = d_ct * (1.f - m);
+          const float d_o = dr_new * tc;
+          dc_new = dc_new + dr_new * o * (1.f - tc * tc);
+          const float d_f = dc_new * cp, d_i = dc_new * cand;
+          const float d_cand = dc_new * i;
+          dc_prev = dc_prev + dc_new * f;
+          const float dg4[4] = {d_i * i * (1.f - i),
+                                d_cand * (1.f - cand * cand),
+                                d_f * f * (1.f - f), d_o * o * (1.f - o)};
+          float* dxb = dx + ((long)t * B + b) * K + u;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            dxb[q * H] = dg4[q];
+            dbs[q] += dg4[q];
+          }
+          drt[l * kThreads] = dr_prev;
+          dct[l * kThreads] = dc_prev;
+          if (t == 0) dc0[(long)b * H + u] = dc_prev;
+        } else {
+          dr0[(long)b * H + u] = dr;
+        }
+      }
+      // the inputs of the cell next in turn (the next tile, or the first
+      // of the step before) are on their way during the next tile's
+      // product or the grid barrier
+      const bool last = l + 1 == tiles;
+      const int nb = last ? blockIdx.y * rows + cr
+                          : row0 + gridDim.y * rows + cr;
+      if (col_ok && nb < B && t >= 0 && (!last || t >= 1))
+        load_cell(gg, in, gates, c_prevs, drs, dcs, mask, last ? t - 1 : t,
+                  nb, B, H, u);
+      // the partials are read before the next tile's product writes them
+      __syncthreads();
+    }
+    if (t == 0) {
+      // the block's db, its rows added in row order (in the partials'
+      // space, read by now)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) part[q * kThreads + threadIdx.x] = dbs[q];
+      __syncthreads();
+      if (threadIdx.x < 4 * kUnitsB) {
+        const int q = threadIdx.x / kUnitsB, jj = threadIdx.x % kUnitsB;
+        if (u0 + jj < H) {
+          float s = 0.f;
+          for (int r = 0; r < rows; ++r)
+            s += part[q * kThreads + r * kUnitsB + jj];
+          dbp[(long)blockIdx.y * K + q * H + u0 + jj] = s;
+        }
+      }
+    }
+    if (t >= 0) {
+      if (threadIdx.x == 0) grid_sync(bar, (unsigned)(T - t) * blocks);
+      __syncthreads();
+    }
+  }
+  // db: the row groups' sums in blockIdx.y order
+  if (blockIdx.y == 0 && threadIdx.x < 4 * kUnitsB) {
+    const int q = threadIdx.x / kUnitsB, jj = threadIdx.x % kUnitsB;
+    if (u0 + jj < H) {
+      float s = 0.f;
+      for (int y = 0; y < (int)gridDim.y; ++y)
+        s += __ldcg(dbp + (long)y * K + q * H + u0 + jj);
+      db[q * H + u0 + jj] = s;
+    }
+  }
+  grid_done(bar, blocks);
+}
+
+// 0, or the cudaError_t of setting kernel's shared memory to `bytes`
+template <class Kernel>
+inline cudaError_t set_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               bytes);
 }
@@ -474,21 +818,17 @@ inline cudaError_t set_smem(int bytes) {
 }  // namespace seq
 
 // ---------------------------------------------------------------------------
-// tiled product: C[z][m][n] = sum over k in slice z of A(m, k) B(k, n)
-// (+ addend[m][n]) (+ bias[n]). A(m, k) is A[m * lda + k] if A_K (k
-// contiguous), else A[k * lda + m]; B(k, n) is B[n * ldb + k] if B_K,
-// else B[k * ldb + n]. Slice z covers k in [z * kps, (z + 1) * kps).
+// The per-step path's product, dgates_t W^T in K slices: C[z][m][n] = sum
+// over k in slice z of A[m lda + k] B[n ldb + k]. Slice z covers k in
+// [z kps, (z + 1) kps).
 // ---------------------------------------------------------------------------
 
 constexpr int kBM = 64, kBN = 64, kBK = 32;
 
-template <bool A_K, bool B_K>
 __global__ void __launch_bounds__(kThreads)
 lstm_gemm_kernel(const float* __restrict__ A, long lda,
                  const float* __restrict__ Bm, long ldb, float* __restrict__ C,
-                 long ldc, long slice_stride, const float* __restrict__ addend,
-                 const float* __restrict__ bias, int M, int N, int K,
-                 int kps) {
+                 long ldc, long slice_stride, int M, int N, int K, int kps) {
   __shared__ float As[kBK][kBM + 4];
   __shared__ float Bs[kBK][kBN + 4];
   const int tx = threadIdx.x % 16;
@@ -506,24 +846,16 @@ lstm_gemm_kernel(const float* __restrict__ A, long lda,
 #pragma unroll
     for (int j = 0; j < kBM * kBK / kThreads; ++j) {
       const int e = threadIdx.x + j * kThreads;
-      const int mm = A_K ? e / kBK : e % kBM;
-      const int kk = A_K ? e % kBK : e / kBM;
+      const int mm = e / kBK, kk = e % kBK;
       const int gm = m0 + mm, gk = k0 + kk;
-      float v = 0.f;
-      if (gm < M && gk < ke)
-        v = A_K ? A[gm * lda + gk] : A[gk * lda + gm];
-      As[kk][mm] = v;
+      As[kk][mm] = gm < M && gk < ke ? A[gm * lda + gk] : 0.f;
     }
 #pragma unroll
     for (int j = 0; j < kBN * kBK / kThreads; ++j) {
       const int e = threadIdx.x + j * kThreads;
-      const int nn = B_K ? e / kBK : e % kBN;
-      const int kk = B_K ? e % kBK : e / kBN;
+      const int nn = e / kBK, kk = e % kBK;
       const int gn = n0 + nn, gk = k0 + kk;
-      float v = 0.f;
-      if (gn < N && gk < ke)
-        v = B_K ? Bm[gn * ldb + gk] : Bm[gk * ldb + gn];
-      Bs[kk][nn] = v;
+      Bs[kk][nn] = gn < N && gk < ke ? Bm[gn * ldb + gk] : 0.f;
     }
     __syncthreads();
 #pragma unroll 8
@@ -548,26 +880,205 @@ lstm_gemm_kernel(const float* __restrict__ A, long lda,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int gn = n0 + tx + 16 * j;
-      if (gn >= N) continue;
-      float v = acc[i][j];
-      if (addend != nullptr) v = addend[gm * ldc + gn] + v;
-      if (bias != nullptr) v = v + bias[gn];
-      Cz[gm * ldc + gn] = v;
+      if (gn < N) Cz[gm * ldc + gn] = acc[i][j];
     }
   }
 }
 
-template <bool A_K, bool B_K>
 int launch_gemm(const float* A, long lda, const float* Bm, long ldb, float* C,
-                long ldc, long slice_stride, const float* addend,
-                const float* bias, int M, int N, int K, int slices,
+                long ldc, long slice_stride, int M, int N, int K, int slices,
                 cudaStream_t s) {
   const int kps = ((K + slices - 1) / slices + kBK - 1) / kBK * kBK;
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, slices);
-  lstm_gemm_kernel<A_K, B_K><<<grid, kThreads, 0, s>>>(
-      A, lda, Bm, ldb, C, ldc, slice_stride, addend, bias, M, N, K, kps);
+  lstm_gemm_kernel<<<grid, kThreads, 0, s>>>(A, lda, Bm, ldb, C, ldc,
+                                             slice_stride, M, N, K, kps);
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// the backward's whole-sequence products on tensor cores:
+// C[m][n] = (addend[m][n] +) sum over k of A(m, k) B[k][n] (+ bias[n]),
+// A(m, k) = A[m lda + k] if A_K (the gates' recompute: r_prevs W), else
+// A[k lda + m] (dW = r_prevs^T dx); B row-major [K][N], N % 4 == 0.
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+// A block owns BM x BN of C: 8 warps, 2 x 4, of 32 x 32 (kMT = 2 m16 x 4
+// n8 tiles, 32 accumulators a thread; tiles of 32 rows, twice the blocks,
+// were slower: PERF.md). K streams in stages of 16 through a ring
+// of 3 in shared memory, two stages ahead: A as [BM][16] at a pitch of 20
+// (A_K) or [16][BM] at a pitch of BM + 8, B as [16][BN] at BN + 8, so
+// that a fragment's 8 rows x 4 k fall on 32 banks. 3xTF32 with a fresh
+// fragment each k8 step (tf32_mma.cuh's mma3), k in order: two calls give
+// the same bits.
+constexpr int kMT = 2, kBM = 32 * kMT, kBN = 128, kRing = 3;
+constexpr int kAPitchK = 20, kAPitchM = kBM + 8, kBPitch = kBN + 8;
+constexpr int kAStage = kBM * kAPitchK > 16 * kAPitchM ? kBM * kAPitchK
+                                                        : 16 * kAPitchM;
+constexpr int kBStage = 16 * kBPitch;
+
+// 16 bytes from src (4 floats, each in bounds where ok[e]) to dst:
+// one 16-byte copy where vec, else four 4-byte ones.
+__device__ __forceinline__ void copy_chunk(float* dst, const float* src,
+                                           bool vec, const bool (&ok)[4],
+                                           const float* base) {
+  if (vec) {
+    copy16(dst, ok[0] ? src : base, ok[0]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) copy4(dst + e, ok[e] ? src + e : base, ok[e]);
+  }
+}
+
+template <bool A_K>
+__global__ void __launch_bounds__(kThreads, 2)
+lstm_bwd_gemm_tc_kernel(const float* __restrict__ A, long lda,
+                        const float* __restrict__ Bm, long ldb,
+                        float* __restrict__ C, long ldc,
+                        const float* __restrict__ addend,
+                        const float* __restrict__ bias, int M, int N, int K,
+                        bool vec_a, bool vec_b) {
+  __shared__ __align__(16) float As[kRing][kAStage];
+  __shared__ __align__(16) float Bs[kRing][kBStage];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int wm = warp / 4, wn = warp % 4;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int stages = (K + 15) / 16;
+
+  // a stage: A's 256 16-byte chunks, one a thread; B's 512, two
+  const auto issue = [&](int st) {
+    if (st < stages) {
+      const int k0 = 16 * st, slot = st % kRing;
+      const int c = threadIdx.x;
+      bool ok[4];
+      if (A_K) {  // row m0 + c / 4, k0 + 4 (c % 4) .. + 3
+        const int m = m0 + c / 4, k = k0 + 4 * (c % 4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ok[e] = m < M && k + e < K;
+        copy_chunk(&As[slot][(c / 4) * kAPitchK + 4 * (c % 4)],
+                   A + (long)m * lda + k, vec_a, ok, A);
+      } else {  // row k0 + c / 16, m0 + 4 (c % 16) .. + 3
+        const int k = k0 + c / 16, m = m0 + 4 * (c % 16);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ok[e] = k < K && m + e < M;
+        copy_chunk(&As[slot][(c / 16) * kAPitchM + 4 * (c % 16)],
+                   A + (long)k * lda + m, vec_a, ok, A);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // row k0 + cc / 32, n0 + 4 (cc % 32)
+        const int cc = c + kThreads * h;
+        const int k = k0 + cc / 32, n = n0 + 4 * (cc % 32);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ok[e] = k < K && n + e < N;
+        copy_chunk(&Bs[slot][(cc / 32) * kBPitch + 4 * (cc % 32)],
+                   Bm + (long)k * ldb + n, vec_b, ok, Bm);
+      }
+    }
+    commit();
+  };
+
+  float acc[kMT][4][4];
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  issue(0);
+  issue(1);
+  for (int st = 0; st < stages; ++st) {
+    wait_prior<1>();
+    // stage st landed for every thread, and every thread has left the
+    // slot stage st + 2 lands in
+    __syncthreads();
+    issue(st + 2);
+    const float* sa = As[st % kRing];
+    const float* sb = Bs[st % kRing];
+#pragma unroll
+    for (int kk = 0; kk < 16; kk += 8) {
+      uint32_t ab[1][kMT][4], asl[1][kMT][4], bb[1][4][2], bsl[1][4][2];
+#pragma unroll
+      for (int i = 0; i < kMT; ++i) {
+        const int r = wm * 16 * kMT + 16 * i + g;
+        float a[4];
+        if (A_K) {
+          const float* p = sa + r * kAPitchK + kk + tq;
+          a[0] = p[0];
+          a[1] = p[8 * kAPitchK];
+          a[2] = p[4];
+          a[3] = p[8 * kAPitchK + 4];
+        } else {
+          const float* p = sa + (kk + tq) * kAPitchM + r;
+          a[0] = p[0];
+          a[1] = p[8];
+          a[2] = p[4 * kAPitchM];
+          a[3] = p[4 * kAPitchM + 8];
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split(a[e], ab[0][i][e], asl[0][i][e]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float* p = sb + (kk + tq) * kBPitch + wn * 32 + 8 * j + g;
+        split(p[0], bb[0][j][0], bsl[0][j][0]);
+        split(p[4 * kBPitch], bb[0][j][1], bsl[0][j][1]);
+      }
+      mma3<1, kMT, 4, 4>(acc, ab, asl, bb, bsl, 0);
+    }
+  }
+  // (addend + acc) + bias, as the plain version adds them
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm * 16 * kMT + 16 * i + g + 8 * h;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = n0 + wn * 32 + 8 * j + 2 * tq + e;
+          if (n >= N) continue;
+          float v = acc[i][j][2 * h + e];
+          if (addend != nullptr) v = addend[(long)m * ldc + n] + v;
+          if (bias != nullptr) v = v + bias[n];
+          C[(long)m * ldc + n] = v;
+        }
+    }
+}
+
+template <bool A_K>
+int launch(const float* A, long lda, const float* Bm, long ldb, float* C,
+           long ldc, const float* addend, const float* bias, int M, int N,
+           int K, bool vec_a, cudaStream_t s) {
+  const bool vec_b = ldb % 4 == 0 && reinterpret_cast<uintptr_t>(Bm) % 16 == 0;
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  lstm_bwd_gemm_tc_kernel<A_K><<<grid, kThreads, 0, s>>>(
+      A, lda, Bm, ldb, C, ldc, addend, bias, M, N, K, vec_a, vec_b);
+  return (int)cudaGetLastError();
+}
+
+// gates [R, 4H] = x + r_prevs w + b and dw [H, 4H] = r_prevs^T dx, over
+// the R = T B rows
+inline int gates(const float* x, const float* w, const float* b,
+                 const float* r_prevs, float* out, int R, int H,
+                 cudaStream_t s) {
+  const bool vec = H % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(r_prevs) % 16 == 0;
+  return launch<true>(r_prevs, H, w, 4L * H, out, 4L * H, x, b, R, 4 * H, H,
+                      vec, s);
+}
+inline int dw(const float* r_prevs, const float* dx, float* out, int R,
+              int H, cudaStream_t s) {
+  const bool vec = H % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(r_prevs) % 16 == 0;
+  return launch<false>(r_prevs, H, dx, 4L * H, out, 4L * H, nullptr, nullptr,
+                       H, 4 * H, R, vec, s);
+}
+
+}  // namespace tc
 
 // ---------------------------------------------------------------------------
 // backward step: the cell
@@ -678,7 +1189,7 @@ extern "C" int lstm_seq_fwd_seq_f32(const float* x, const float* w,
   const int gy = (tiles + nt - 1) / nt;
   if (gy > 65535) return (int)cudaErrorInvalidValue;
   const int smem = seq::smem_bytes(mt, kb, nt);
-  const cudaError_t e = seq::set_smem(smem);
+  const cudaError_t e = seq::set_smem(seq::lstm_fwd_seq_kernel, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((H + seq::kUnits - 1) / seq::kUnits, gy);
   void* args[] = {&x, &w, &b, &mask, &r0, &c0, &rs, &cs, &bar,
@@ -695,10 +1206,22 @@ extern "C" int lstm_fwd_blocks_per_sm(int mt, int kb, int nt, int* out) {
       nt > seq::kMaxNT)
     return (int)cudaErrorInvalidValue;
   const int smem = seq::smem_bytes(mt, kb, nt);
-  const cudaError_t e = seq::set_smem(smem);
+  const cudaError_t e = seq::set_smem(seq::lstm_fwd_seq_kernel, smem);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       out, seq::lstm_fwd_seq_kernel, kThreads, smem);
+}
+
+// Blocks of the backward's sequence kernel at (mt, kb, nt) that an SM
+// holds at once, into *out. Returns a cudaError_t.
+extern "C" int lstm_bwd_blocks_per_sm(int mt, int kb, int nt, int* out) {
+  if (mt != 1 || kb < 1 || kb > seq::kMaxKBB || nt < 1 || nt > seq::kMaxNTB)
+    return (int)cudaErrorInvalidValue;
+  const int smem = seq::bwd_smem_bytes(kb, nt);
+  const cudaError_t e = seq::set_smem(seq::lstm_bwd_seq_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, seq::lstm_bwd_seq_kernel, kThreads, smem);
 }
 
 // The same function in T launches of the step kernel on `stream` (the
@@ -740,14 +1263,12 @@ extern "C" int lstm_seq_bwd_f32(const float* x, const float* w,
                                 float* gates, float* part, float* drb, int T,
                                 int B, int H, int S, void* stream) {
   if (T <= 0 || B <= 0 || H <= 0 || S <= 0 || S > 65535 ||
-      ((long)T * B + kBM - 1) / kBM > 65535)
+      ((long)T * B + tc::kBM - 1) / tc::kBM > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long bh = (long)B * H, h4 = 4L * H;
   const int R = T * B;
-  // gates of every step: x + r_prevs @ w + b
-  int e = launch_gemm<true, false>(r_prevs, H, w, h4, gates, h4, 0, x, b, R,
-                                   (int)h4, H, 1, s);
+  int e = tc::gates(x, w, b, r_prevs, gates, R, H, s);
   if (e != 0) return e;
   const int cell_grid = (int)((bh + kThreads - 1) / kThreads);
   for (int t = T - 1; t >= 0; --t) {
@@ -758,18 +1279,55 @@ extern "C" int lstm_seq_bwd_f32(const float* x, const float* w,
     e = (int)cudaGetLastError();
     if (e != 0) return e;
     // part[z][b][j] = sum over k in slice z of dgates_t[b][k] w[j][k]
-    e = launch_gemm<true, true>(dx + t * B * h4, h4, w, h4, part, H, bh,
-                                nullptr, nullptr, B, H, (int)h4, S, s);
+    e = launch_gemm(dx + t * B * h4, h4, w, h4, part, H, bh, B, H, (int)h4,
+                    S, s);
     if (e != 0) return e;
   }
   lstm_bwd_final_kernel<<<cell_grid, kThreads, 0, s>>>(part, S, drb, dr0, bh);
   e = (int)cudaGetLastError();
   if (e != 0) return e;
-  // dw[j][k] = sum over the T*B rows r of r_prevs[r][j] dx[r][k]
-  e = launch_gemm<false, false>(r_prevs, H, dx, h4, dw, h4, 0, nullptr,
-                                nullptr, H, (int)h4, R, 1, s);
+  e = tc::dw(r_prevs, dx, dw, R, H, s);
   if (e != 0) return e;
   lstm_bwd_db_kernel<<<(int)((h4 + 31) / 32), kThreads, 0, s>>>(dx, db, R,
                                                                  (int)h4);
   return (int)cudaGetLastError();
+}
+
+// The same function with the recurrence in one cooperative launch of the
+// backward's sequence kernel: the gates' recompute, the sequence kernel
+// (dx, db, dr0, dc0), dW; 3 launches on `stream`. mt 1 (row tiles of 16),
+// kb k16 blocks a warp (1 to 16, 8 x 16 kb >= 4H), nt row tiles at most a
+// block (1 to 32; the grid's rows of blocks are the fewest that give no
+// block more); dbp [row groups, 4H] scratch
+// for db's partial sums; bar as the forward's. Returns a cudaError_t (0 =
+// launched; cudaErrorCooperativeLaunchTooLarge where the grid cannot be
+// resident at once).
+extern "C" int lstm_seq_bwd_seq_f32(
+    const float* x, const float* w, const float* b, const float* mask,
+    const float* r_prevs, const float* c_prevs, const float* drs,
+    const float* dcs, float* dx, float* dw, float* db, float* dr0,
+    float* dc0, float* gates, float* dbp, unsigned* bar, int T, int B, int H,
+    int mt, int kb, int nt, void* stream) {
+  if (T <= 0 || B <= 0 || H <= 0 || mt != 1 || kb < 1 ||
+      kb > seq::kMaxKBB || seq::kWarps * 16 * kb < 4 * H || nt < 1 ||
+      nt > seq::kMaxNTB || ((long)T * B + tc::kBM - 1) / tc::kBM > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int tiles = (B + 15) / 16;
+  const int gy = (tiles + nt - 1) / nt;
+  if (gy > 65535) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int R = T * B;
+  int e = tc::gates(x, w, b, r_prevs, gates, R, H, s);
+  if (e != 0) return e;
+  const int smem = seq::bwd_smem_bytes(kb, nt);
+  e = (int)seq::set_smem(seq::lstm_bwd_seq_kernel, smem);
+  if (e != 0) return e;
+  const dim3 grid((H + seq::kUnitsB - 1) / seq::kUnitsB, gy);
+  const float* cgates = gates;
+  void* args[] = {&cgates, &w,   &mask, &c_prevs, &drs, &dcs, &dx, &db,
+                  &dbp,    &dr0, &dc0,  &bar,     &T,   &B,   &H,  &kb, &nt};
+  e = (int)cudaLaunchCooperativeKernel(seq::lstm_bwd_seq_kernel, grid,
+                                       dim3(kThreads), args, smem, s);
+  if (e != 0) return e;
+  return tc::dw(r_prevs, dx, dw, R, H, s);
 }

@@ -1,6 +1,6 @@
 // Asynchronous copies and the 3xTF32 tensor-core product of the attention
 // kernels (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu) and the
-// LSTM forward's sequence kernel (csrc/fused_lstm.cu).
+// LSTM's sequence kernels and products (csrc/fused_lstm.cu).
 //
 // A copy of csrc/conv3x3_tc.cuh's helpers, so that those libraries build
 // without the bottleneck chain's headers; conv3x3_tc.cuh keeps its own.

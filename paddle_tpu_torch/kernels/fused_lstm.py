@@ -20,8 +20,14 @@ them and what the design does about it):
   the card holds at once (every H <= 512); else one launch per step, T
   in all;
 * ``lstm_seq_bwd`` replaces the Pallas ``lstm_seq_bwd`` (``_bwd_kernel``):
-  the gate recompute, two launches per step (the cell, then dgates W^T
-  in slices), dr0, dW and db: 2T + 4 launches.
+  the gates' recompute (a 3xTF32 tensor-core product), then the reverse
+  recurrence in one cooperative launch (each block's slice of W^T held
+  in shared memory for all T steps, dgates_{t+1} read back from dx by
+  every block after a grid barrier, db and dr0 inside the launch), then
+  dW (the same product): 3 launches, where ``bwd_plan`` finds a grid the
+  card holds at once (every H <= 512); else the same two products around
+  two launches per step (the cell, then dgates W^T in slices), dr0 and
+  db: 2T + 4 launches.
 
 Each wrapper runs its plain version (``lstm_seq_fwd_reference``,
 ``lstm_seq_bwd_reference``) only for tensors on the CPU; for a CUDA
@@ -45,8 +51,8 @@ import torch
 from . import build
 
 __all__ = ["lstm_seq_fwd_reference", "lstm_seq_bwd_reference",
-           "FwdPlan", "fwd_plan", "lstm_seq_fwd", "lstm_seq_bwd",
-           "LSTMSequence", "lstm_sequence"]
+           "SeqPlan", "fwd_plan", "bwd_plan", "lstm_seq_fwd",
+           "lstm_seq_bwd", "LSTMSequence", "lstm_sequence"]
 
 
 # ---------------------------------------------------------------------------
@@ -141,14 +147,17 @@ def _dr_slices(b: int, h: int, sms: int) -> int:
     return max(1, min(-(-2 * sms // tiles), 4 * h // 128))
 
 
-# The sequence kernel's blocks: 8 hidden units (all four gate columns
-# of each) over row tiles of at most 2 x 16 rows, at most 64 row tiles a
-# block a step; a warp's K slice at most 4 k16 blocks deep (8 warps: H <=
-# 512).
+# The forward sequence kernel's blocks: 8 hidden units (all four gate
+# columns of each) over row tiles of at most 2 x 16 rows, at most 64 row
+# tiles a block a step; a warp's K slice (H over 8 warps) at most 4 k16
+# blocks deep: H <= 512. The backward's: 16 units over row tiles of 16
+# rows, at most 28 a block a step; a warp's K slice (4H over 8 warps) at
+# most 16 k16 blocks deep: H <= 512.
 UNITS, MAX_MT, MAX_NT, MAX_KB = 8, 2, 64, 4
+UNITS_BWD, MAX_NT_BWD, MAX_KB_BWD = 16, 28, 16
 
 
-class FwdPlan(NamedTuple):
+class SeqPlan(NamedTuple):
     mt: int                # 16-row tiles a row tile
     kb: int                # k16 blocks of each of a block's 8 warps
     nt: int                # row tiles a block takes a step, at most
@@ -157,59 +166,89 @@ class FwdPlan(NamedTuple):
 
 def fwd_plan(b: int, h: int, sms: int,
              blocks_per_sm: Callable[[int, int, int], int]
-             ) -> Optional[FwdPlan]:
-    """The sequence kernel's launch for x [T, b, 4h] (any T >= 1) on a
-    card of `sms` SMs, each holding blocks_per_sm(mt, kb, nt) blocks at
-    once: ceil(h / 8) unit groups x as many row groups as the card holds,
-    each taking nt row tiles of 16 mt rows a step. None (the step kernel,
-    T launches) where H > 512 (a warp's K slice of W would not fit in its
-    registers), or a block would take more than 64 row tiles (on 132 SMs
-    at one block each: B > 4096 at H 512, B > 16384 at H 128), or not one
-    row of blocks fits."""
-    kb = -(-h // 128)
-    if kb > MAX_KB:
+             ) -> Optional[SeqPlan]:
+    """The forward sequence kernel's launch for x [T, b, 4h] (any T >=
+    1) on a card of `sms` SMs, each holding blocks_per_sm(mt, kb, nt)
+    blocks at once: ceil(h / 8) unit groups x as many row groups as the
+    card holds, each taking nt row tiles of 16 mt rows a step. None (the
+    step kernel, T launches) where H > 512 (a warp's K slice of W would
+    not fit in its registers), or a block would take more than 64 row
+    tiles (on 132 SMs at one block each: B > 4096 at H 512, B > 16384 at
+    H 128), or not one row of blocks fits."""
+    return _seq_plan(b, h, -(-h // 128), MAX_KB, UNITS, MAX_MT, MAX_NT, sms,
+                     blocks_per_sm)
+
+
+def bwd_plan(b: int, h: int, sms: int,
+             blocks_per_sm: Callable[[int, int, int], int]
+             ) -> Optional[SeqPlan]:
+    """The backward sequence kernel's launch, by the forward's rule with
+    its own blocks: ceil(h / 16) unit groups (a block's slice of W^T,
+    [4h, 16], in shared memory), row tiles of 16 rows (mt 1), its 8 warps
+    splitting K = 4h, ceil(h / 32) k16 blocks each. None (the per-step path, 2T
+    + 4 launches) where H > 512, or a block would take more than 28 row
+    tiles (on 132 SMs at one block each: B > 1792 at H 512, B > 7168 at H
+    128), or not one row of blocks fits."""
+    return _seq_plan(b, h, -(-h // 32), MAX_KB_BWD, UNITS_BWD, 1,
+                     MAX_NT_BWD, sms, blocks_per_sm)
+
+
+def _seq_plan(b, h, kb, max_kb, units_a_block, max_mt, max_nt, sms,
+              blocks_per_sm) -> Optional[SeqPlan]:
+    if kb > max_kb:
         return None
-    mt = min(MAX_MT, -(-b // 16))
+    mt = min(max_mt, -(-b // 16))
     tiles = -(-b // (16 * mt))
-    units = -(-h // UNITS)
+    units = -(-h // units_a_block)
     rows = sms * blocks_per_sm(mt, kb, 1) // units
     if rows < 1:
         return None
     nt = -(-tiles // min(tiles, rows))
     grid = (units, -(-tiles // nt))
-    if nt > MAX_NT or grid[0] * grid[1] > sms * blocks_per_sm(mt, kb, nt):
+    if nt > max_nt or grid[0] * grid[1] > sms * blocks_per_sm(mt, kb, nt):
         return None
-    return FwdPlan(mt, kb, nt, grid)
+    return SeqPlan(mt, kb, nt, grid)
 
 
 @functools.cache
-def _blocks_per_sm(index: int, mt: int, kb: int, nt: int) -> int:
-    """cudaOccupancyMaxActiveBlocksPerMultiprocessor of the sequence
-    kernel, queried once a (device, mt, kb, nt)."""
+def _blocks_per_sm(index: int, symbol: str, mt: int, kb: int, nt: int
+                   ) -> int:
+    """cudaOccupancyMaxActiveBlocksPerMultiprocessor of a sequence
+    kernel (`symbol`: its C query), once a (device, kernel, mt, kb, nt)."""
     out = ctypes.c_int(0)
     with build.device_guard(torch.device("cuda", index)):
-        build.launch("lstm_seq_fwd", _fn(*_BLOCKS), mt, kb, nt,
+        build.launch(symbol, _fn(symbol, (_I, _I, _I, _P)), mt, kb, nt,
                      ctypes.byref(out))
     return out.value
 
 
 @functools.cache
-def _plan_of(b: int, h: int, index: int) -> Optional[FwdPlan]:
+def _plan_of(b: int, h: int, index: int) -> Optional[SeqPlan]:
     return fwd_plan(b, h, build.sm_count(torch.device("cuda", index)),
-                    functools.partial(_blocks_per_sm, index))
+                    functools.partial(_blocks_per_sm, index,
+                                      "lstm_fwd_blocks_per_sm"))
+
+
+@functools.cache
+def _bwd_plan_of(b: int, h: int, index: int) -> Optional[SeqPlan]:
+    return bwd_plan(b, h, build.sm_count(torch.device("cuda", index)),
+                    functools.partial(_blocks_per_sm, index,
+                                      "lstm_bwd_blocks_per_sm"))
 
 
 _SEQ = ("lstm_seq_fwd_seq_f32", (_P,) * 9 + (_I,) * 6 + (_P,))
 _STEPS = ("lstm_seq_fwd_f32", (_P,) * 8 + (_I,) * 3 + (_P,))
-_BLOCKS = ("lstm_fwd_blocks_per_sm", (_I, _I, _I, _P))
+_BWD_SEQ = ("lstm_seq_bwd_seq_f32", (_P,) * 16 + (_I,) * 6 + (_P,))
+_BWD_STEPS = ("lstm_seq_bwd_f32", (_P,) * 16 + (_I,) * 4 + (_P,))
 
 _barriers: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _barrier_of(device: torch.device, stream: int) -> int:
-    """The sequence kernel's barrier counters for `stream`: two int32,
-    zeroed once and set back to 0 by each launch. Calls on one stream run
-    in order and share them; calls on two streams never do."""
+    """The sequence kernels' barrier counters for `stream`: two int32,
+    zeroed once and set back to 0 by each launch. Calls on one stream
+    (forward and backward alike) run in order and share them; calls on
+    two streams never do."""
     key = (device.index, stream)
     buf = _barriers.get(key)
     if buf is None:
@@ -267,8 +306,12 @@ def lstm_seq_bwd(x, w, b, mask, r_prevs, c_prevs, drs, dcs):
     Returns (dx [T, B, 4H], dw [H, 4H], db [4H], dr0, dc0 [B, H]).
 
     CPU tensors run ``lstm_seq_bwd_reference``. CUDA tensors run
-    csrc/fused_lstm.cu: float32, contiguous, any T, B, H >= 1; dw and db
-    are deterministic (fixed-order sums, no atomics)."""
+    csrc/fused_lstm.cu: float32, contiguous, any T, B, H >= 1; every sum
+    in a fixed order, no atomics, so two calls give the same bits. The
+    shape alone chooses the path (``bwd_plan``): the recurrence in one
+    cooperative launch (3 launches a call) for H <= 512 and B up to 28 row
+    tiles of 16 a block (on 132 SMs: B <= 1792 at H 512); else 2T + 4
+    launches. A cooperative launch the runtime refuses raises."""
     if not build.on_card("lstm_seq_bwd", x):
         return lstm_seq_bwd_reference(x, w, b, mask, r_prevs, c_prevs, drs,
                                       dcs)
@@ -287,19 +330,30 @@ def lstm_seq_bwd(x, w, b, mask, r_prevs, c_prevs, drs, dcs):
     db = torch.empty((4 * h,), **f32)
     dr0 = torch.empty((bb, h), **f32)
     dc0 = torch.empty((bb, h), **f32)
-    slices = _dr_slices(bb, h, build.sm_count(dev))
-    gates = torch.empty_like(dx)
-    part = torch.empty((slices, bb, h), **f32)
-    drb = torch.empty((bb, h), **f32)
+    ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr(), mask.data_ptr(),
+            r_prevs.data_ptr(), c_prevs.data_ptr(), drs.data_ptr(),
+            dcs.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
+            dr0.data_ptr(), dc0.data_ptr())
     with build.device_guard(dev):
         stream = build.stream(dev)
-        build.launch("lstm_seq_bwd",
-                _fn("lstm_seq_bwd_f32", (_P,) * 16 + (_I,) * 4 + (_P,)),
-                x.data_ptr(), w.data_ptr(), b.data_ptr(), mask.data_ptr(),
-                r_prevs.data_ptr(), c_prevs.data_ptr(), drs.data_ptr(),
-                dcs.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
-                dr0.data_ptr(), dc0.data_ptr(), gates.data_ptr(),
-                part.data_ptr(), drb.data_ptr(), t, bb, h, slices, stream)
+        plan = _bwd_plan_of(bb, h, dev.index)
+        if plan is None:
+            slices = _dr_slices(bb, h, build.sm_count(dev))
+            gates = torch.empty_like(dx)
+            part = torch.empty((slices, bb, h), **f32)
+            drb = torch.empty((bb, h), **f32)
+            build.launch("lstm_seq_bwd", _fn(*_BWD_STEPS), *ptrs,
+                         gates.data_ptr(), part.data_ptr(), drb.data_ptr(),
+                         t, bb, h, slices, stream)
+        else:
+            # one scratch: the gates [T, B, 4H], then db's partial sums
+            # [row groups, 4H]
+            n = t * bb * 4 * h
+            scratch = torch.empty((n + plan.grid[1] * 4 * h,), **f32)
+            build.launch("lstm_seq_bwd", _fn(*_BWD_SEQ), *ptrs,
+                         scratch.data_ptr(), scratch.data_ptr() + 4 * n,
+                         _barrier_of(dev, stream), t, bb, h, plan.mt,
+                         plan.kb, plan.nt, stream)
     lstm_seq_bwd.launches += 1
     return dx, dw, db, dr0, dc0
 

@@ -1,5 +1,6 @@
-"""Run the LSTM forward of ``paddle_tpu_torch/csrc/fused_lstm.cu`` on the
-CPU, before any GPU sees it.
+"""Run the LSTM sequence kernels of ``paddle_tpu_torch/csrc/fused_lstm.cu``
+(the forward, or with ``--bwd`` the backward) on the CPU, before any GPU
+sees them.
 
 The harness of ``scripts/emulate_flash_bwd_cpu.py`` (copies of the source
 and of ``tf32_mma.cuh``, its block of copy and mma helpers replaced: a
@@ -12,7 +13,8 @@ barrier. A fiber yields at ``__syncthreads``, ``__syncwarp``, the mma
 exchange and each turn of the barrier's spin; the barrier counters are
 ``std::atomic_ref``. Each block's dynamic shared memory is filled with
 NaN, so that a read before its copy lands shows. Launches with
-``<<<...>>>`` (the step kernel) run their blocks one after another.
+``<<<...>>>`` (the step kernel, the backward's products) run their
+blocks one after another.
 Two libraries are built with ``g++ -std=c++20`` into
 ``paddle_tpu_torch/_build/``: one whose copies land at ``wait_group``,
 one whose copies land as they are issued.
@@ -28,12 +30,24 @@ second call gives the same bits, whether copies landing at once do,
 whether the barrier counters are back at 0, and how many 16-byte copies
 had a source or destination off 16 bytes (a fault on the card). Last, a
 cooperative launch whose grid the emulated card cannot hold must raise.
-Exits 1 if any check misses.
+
+With ``--bwd`` the wrapper ``fused_lstm.lstm_seq_bwd`` instead, on the
+forward's carries (``lstm_seq_fwd_reference``) and cotangents from the
+same seed: the plan it took (``fused_lstm.bwd_plan``), the largest share
+of the atol = rtol = 1e-4 limit of dx, dw, db, dr0 and dc0 against
+``lstm_seq_bwd_reference``, and the same checks of bits, counters,
+alignment and a refused launch (o does not apply). Exits 1 if any check
+misses.
 
     python scripts/emulate_fused_lstm_cpu.py 5,3,8 6,4,20,r 7,5,33,r \\
         4,8,128 5,17,128,r,o 3,40,129,r 3,2,512 2,64,512,r 2,2,600 \\
         2,4,512,o 2,96,512,r
     python scripts/emulate_fused_lstm_cpu.py --sms 8 4,70,20,r 3,200,8,o \\
+        3,97,16,r
+    python scripts/emulate_fused_lstm_cpu.py --bwd 5,3,20,r 1,1,8 \\
+        9,17,33,r 8,4,16,r 4,8,128 3,40,129,r 3,2,512,r 2,64,512,r \\
+        2,96,512,r 2,2,600
+    python scripts/emulate_fused_lstm_cpu.py --bwd --sms 8 4,70,20,r \\
         3,97,16,r
 """
 
@@ -58,6 +72,7 @@ from paddle_tpu_torch.kernels import fused_lstm as fl  # noqa: E402
 
 SOURCE = "fused_lstm.cu"
 LIMIT = 1e-5
+BWD_LIMIT = 1e-4
 
 EMU_H = r"""
 #pragma once
@@ -296,9 +311,10 @@ static void emu_run(const std::vector<uint3>& ids, dim3 block, int smem_bytes,
 void emu_launch(dim3 grid, dim3 block, int smem_bytes,
                 std::function<void()> fn) {
   gridDim = grid;
-  for (unsigned by = 0; by < grid.y; ++by)
-    for (unsigned bx = 0; bx < grid.x; ++bx)
-      emu_run({{bx, by, 0}}, block, smem_bytes, fn);
+  for (unsigned bz = 0; bz < grid.z; ++bz)
+    for (unsigned by = 0; by < grid.y; ++by)
+      for (unsigned bx = 0; bx < grid.x; ++bx)
+        emu_run({{bx, by, bz}}, block, smem_bytes, fn);
 }
 int emu_coop(dim3 grid, dim3 block, int smem_bytes, std::function<void()> fn) {
   if (grid.x * grid.y > (unsigned)(emu_sms * emu_per_sm))
@@ -407,16 +423,17 @@ def emulated(lib, sms: int):
     build.stream = lambda device: 0
     torch.empty = _nan_empty
     torch.empty_like = lambda t: torch.full_like(t, float("nan"))
-    fl._plan_of.cache_clear()
-    fl._blocks_per_sm.cache_clear()
+    plans = (fl._plan_of, fl._bwd_plan_of, fl._blocks_per_sm)
+    for fn in plans:
+        fn.cache_clear()
     fl._barriers.clear()
     try:
         yield
     finally:
         (build.on_card, build.bind, build.sm_count, build.device_guard,
          build.stream, torch.empty, torch.empty_like) = saved
-        fl._plan_of.cache_clear()
-        fl._blocks_per_sm.cache_clear()
+        for fn in plans:
+            fn.cache_clear()
 
 
 def inputs(t, b, h, ragged, offset=False):
@@ -440,25 +457,45 @@ def inputs(t, b, h, ragged, offset=False):
     return x, w, bias, mask, r0, torch.randn(b, h, generator=gen)
 
 
-def case(libs, sms, t, b, h, ragged, offset):
-    args = inputs(t, b, h, ragged, offset)
-    want = fl.lstm_seq_fwd_reference(*args)
+def bwd_inputs(t, b, h, ragged):
+    """The backward's inputs: the forward's, its carries shifted by one
+    step (r_prevs, c_prevs) and cotangents ~ N(0, 1), from the seed."""
+    x, w, bias, mask, r0, c0 = inputs(t, b, h, ragged)
+    rs, cs = fl.lstm_seq_fwd_reference(x, w, bias, mask, r0, c0)
+    gen = torch.Generator().manual_seed(7 * t + b + h)
+    return (x, w, bias, mask, torch.cat([r0[None], rs[:-1]]),
+            torch.cat([c0[None], cs[:-1]]), torch.randn(t, b, h, generator=gen),
+            torch.randn(t, b, h, generator=gen))
+
+
+def case(libs, sms, t, b, h, ragged, offset, bwd=False):
+    if bwd:
+        args, run, plan, limit = (bwd_inputs(t, b, h, ragged), fl.lstm_seq_bwd,
+                                  fl._bwd_plan_of, BWD_LIMIT)
+        want = fl.lstm_seq_bwd_reference(*args)
+        other = "2T + 4 launches"
+    else:
+        args, run, plan, limit = (inputs(t, b, h, ragged, offset),
+                                  fl.lstm_seq_fwd, fl._plan_of, LIMIT)
+        want = fl.lstm_seq_fwd_reference(*args)
+        other = "step kernel, T launches"
     with emulated(libs["wait"], sms):
-        took = fl._plan_of(b, h, None)
-        got = fl.lstm_seq_fwd(*args)
-        again = fl.lstm_seq_fwd(*args)
+        took = plan(b, h, None)
+        got = run(*args)
+        again = run(*args)
         counters = [v.clone() for v in fl._barriers.values()]
     with emulated(libs["eager"], sms):
-        eager = fl.lstm_seq_fwd(*args)
+        eager = run(*args)
     misaligned = sum(lib.emu_take_misaligned() for lib in libs.values())
-    share = max(float(((g - w).abs() / (LIMIT + LIMIT * w.abs())).max())
+    share = max(float(((g - w).abs() / (limit + limit * w.abs())).max())
                 for g, w in zip(got, want))
     same = [all(torch.equal(x, y) for x, y in zip(got, o))
             for o in (again, eager)]
     zero = all(int(c.abs().sum()) == 0 for c in counters)
-    print(f"T {t}, B {b}, H {h}, {'ragged' if ragged else 'full length'}"
+    print(f"{'bwd' if bwd else 'fwd'} T {t}, B {b}, H {h}, "
+          f"{'ragged' if ragged else 'full length'}"
           f"{', r0 4 bytes off 16' if offset else ''}: "
-          f"{took or 'step kernel, T launches'}; largest share of the 1e-5 "
+          f"{took or other}; largest share of the {limit:g} "
           f"limit {share:.4f}; a second call the same bits {same[0]}; "
           f"copies landing at once the same bits {same[1]}; barrier "
           f"counters back at 0 {zero}; misaligned 16-byte copies "
@@ -466,17 +503,21 @@ def case(libs, sms, t, b, h, ragged, offset):
     return share <= 1 and all(same) and zero and not misaligned
 
 
-def refused(lib, sms) -> bool:
+def refused(lib, sms, bwd=False) -> bool:
     """A plan whose grid the emulated card (one SM) cannot hold: the
     cooperative launch is refused and the wrapper raises."""
-    args = inputs(3, 4, 64, False)
+    if bwd:
+        args, run, plan = bwd_inputs(3, 4, 64, False), fl.lstm_seq_bwd, \
+            fl._bwd_plan_of
+    else:
+        args, run, plan = inputs(3, 4, 64, False), fl.lstm_seq_fwd, \
+            fl._plan_of
     lib.emu_set_card(1, 1)
     try:
         with emulated(lib, 132):
-            fl._plan_of.cache_clear()
-            fl._plan_of(4, 64, None)   # a plan for 132 SMs ...
+            plan(4, 64, None)   # a plan for 132 SMs ...
             try:
-                fl.lstm_seq_fwd(*args)    # ... launched on one
+                run(*args)    # ... launched on one
             except RuntimeError as e:
                 print(f"a grid larger than the card: raised ({e})")
                 return True
@@ -490,6 +531,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("shapes", nargs="+", help="T,B,H[,r]")
     ap.add_argument("--sms", type=int, default=132)
+    ap.add_argument("--bwd", action="store_true",
+                    help="the backward (lstm_seq_bwd) instead")
     args = ap.parse_args()
     torch.set_num_threads(1)
     libs = {name: compile_library(build.BUILD_DIR / f"lstm_emu_{name}",
@@ -503,10 +546,12 @@ def main() -> int:
         parts = shape.split(",")
         t, b, h = map(int, parts[:3])
         flags = set(parts[3:])
-        if not flags <= {"r", "o"}:
-            ap.error(f"{shape}: flags are r (ragged) and o (offset r0)")
-        ok.append(case(libs, args.sms, t, b, h, "r" in flags, "o" in flags))
-    ok.append(refused(libs["wait"], args.sms))
+        if not flags <= ({"r"} if args.bwd else {"r", "o"}):
+            ap.error(f"{shape}: flags are r (ragged) and, for the forward, "
+                     f"o (offset r0)")
+        ok.append(case(libs, args.sms, t, b, h, "r" in flags, "o" in flags,
+                       args.bwd))
+    ok.append(refused(libs["wait"], args.sms, args.bwd))
     return 0 if all(ok) else 1
 
 

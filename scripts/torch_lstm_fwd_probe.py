@@ -72,13 +72,13 @@ VARIANTS = {
 }
 
 
-def parent_module(parent: Path):
+def parent_module(parent: Path, package: str = "_parent_kernels"):
     """The other tree's kernels/fused_lstm.py, imported with its own
-    build.py as the package _parent_kernels."""
-    pkg = types.ModuleType("_parent_kernels")
+    build.py as the package `package`."""
+    pkg = types.ModuleType(package)
     pkg.__path__ = [str(parent / "paddle_tpu_torch" / "kernels")]
-    sys.modules["_parent_kernels"] = pkg
-    return importlib.import_module("_parent_kernels.fused_lstm")
+    sys.modules[package] = pkg
+    return importlib.import_module(f"{package}.fused_lstm")
 
 
 def compile_variants(out_dir: Path):

@@ -53,12 +53,13 @@ def _randn(gen, *shape):
     return torch.randn(*shape, generator=gen).cuda()
 
 
-def _kernels_of(fn, calls: int):
+def _kernels_of(fn, calls: int, per_call: int = 1):
     """Names of the CUDA kernels that `calls` calls of fn launched, by
     torch.profiler. The profiler on the card at times drops kernel events
     of a session (chip_smoke.device_host takes such a profile again): a
-    profile that holds fewer events than calls is taken again, up to five
-    times; one that holds as many or more is returned at once."""
+    profile that holds fewer events than calls x per_call is taken again,
+    up to five times; one that holds as many or more is returned at
+    once."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -70,7 +71,7 @@ def _kernels_of(fn, calls: int):
             torch.cuda.synchronize()
         names = [e.name for e in prof.events()
                  if e.device_type == DeviceType.CUDA]
-        if len(names) >= calls:
+        if len(names) >= calls * per_call:
             break
     return names
 
@@ -770,6 +771,88 @@ def test_lstm_forward_is_one_launch_a_call(cuda, t, b, h):
     kernels = _kernels_of(lambda: fl.lstm_seq_fwd(*fwd), 3)
     assert len(kernels) == 3, kernels
     assert all("lstm_fwd_seq_kernel" in k for k in kernels), kernels
+
+
+def _lstm_bwd_args(t, b, h, lens, seed):
+    """The backward's inputs: the forward's, carries that are not zero
+    (r_prevs, c_prevs) and cotangents ~ N(0, 1)."""
+    gen = torch.Generator().manual_seed(seed)
+    d = _lstm_case(gen, t, b, h, lens)
+    r_prevs = 0.5 * _randn(gen, t, b, h)
+    c_prevs = _randn(gen, t, b, h)
+    return [d[k] for k in ("x", "w", "b", "mask")] + [
+        r_prevs, c_prevs, d["drs"], d["dcs"]]
+
+
+@pytest.mark.parametrize("t,b,h", [(100, 64, 512), (24, 8, 128)])
+def test_lstm_backward_is_three_launches_a_call(cuda, t, b, h):
+    """The gates' recompute, the recurrence's one cooperative launch and
+    dW: 3 CUDA launches a call (the per-step path: 2T + 4)."""
+    bwd = _lstm_bwd_args(t, b, h, None, 12)
+    fl.lstm_seq_bwd(*bwd)
+    torch.cuda.synchronize()
+    kernels = _kernels_of(lambda: fl.lstm_seq_bwd(*bwd), 3, 3)
+    assert len(kernels) == 9, kernels
+    assert sum("lstm_bwd_seq_kernel" in k for k in kernels) == 3, kernels
+
+
+def test_lstm_backward_gives_the_same_bits_twice(cuda):
+    """The ragged bench shape: every sum in a fixed order, no atomics."""
+    bwd = _lstm_bwd_args(100, 64, 512, [1, 100] + [37] * 30 + [64] * 32, 13)
+    assert fl._bwd_plan_of(64, 512, cuda.index or 0) is not None
+    first = fl.lstm_seq_bwd(*bwd)
+    again = fl.lstm_seq_bwd(*bwd)
+    for x, y in zip(first, again):
+        assert torch.equal(x, y)
+
+
+def test_lstm_backward_past_one_row_tile_a_block(cuda):
+    """B 200 at H 512: 13 row tiles of 16 over 4 row groups, so each block
+    takes up to 4 tiles in turn each step and db adds four row groups."""
+    lens = [20, 1] + [7] * 99 + [13] * 99
+    bwd = _lstm_bwd_args(20, 200, 512, lens, 14)
+    plan = fl._bwd_plan_of(200, 512, cuda.index or 0)
+    assert plan.nt >= 2 and plan.grid[1] >= 2, plan
+    got = fl.lstm_seq_bwd(*bwd)
+    for x, y in zip(got, fl.lstm_seq_bwd_reference(*bwd)):
+        torch.testing.assert_close(x, y, **BWD_TOL)
+    for x, y in zip(got, fl.lstm_seq_bwd(*bwd)):
+        assert torch.equal(x, y)
+
+
+def test_lstm_backward_on_two_streams_keeps_its_barriers_apart(cuda):
+    """Two backward calls queued on two streams with no sync between
+    them, small enough (16 blocks each) to be resident at once and long
+    enough to overlap: each stream has its own barrier counters, so both
+    match their plain versions."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    args = [_lstm_bwd_args(1000, 8, 128, None, s) for s in (15, 16)]
+    streams = [torch.cuda.Stream() for _ in args]
+    # a call on each stream first: counters, scratch and outputs exist
+    # before the profile, so no allocation holds the second launch back
+    for st, bwd in zip(streams, args):
+        with torch.cuda.stream(st):
+            fl.lstm_seq_bwd(*bwd)
+    torch.cuda.synchronize()
+    out, barriers = [], []
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for st, bwd in zip(streams, args):
+            with torch.cuda.stream(st):
+                barriers.append(fl._barrier_of(bwd[0].device,
+                                               st.cuda_stream))
+                out.append(fl.lstm_seq_bwd(*bwd))
+        torch.cuda.synchronize()
+    assert barriers[0] != barriers[1]
+    spans = [e.time_range for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and "lstm_bwd_seq_kernel" in e.name]
+    assert len(spans) == 2
+    assert max(s.start for s in spans) < min(s.end for s in spans), spans
+    for got, bwd in zip(out, args):
+        for x, y in zip(got, fl.lstm_seq_bwd_reference(*bwd)):
+            torch.testing.assert_close(x, y, **BWD_TOL)
 
 
 def test_lstm_wrappers_never_fall_back(cuda, monkeypatch):
