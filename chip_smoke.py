@@ -10,8 +10,9 @@ no result line:
 2. build the CUDA kernels from the sources in paddle_tpu_torch/csrc, one
    nvcc per source, all at once;
 3. hold each kernel against its plain PyTorch version at the main paths'
-   shapes (the flash kernels at B 1 for the prefill buckets and at B 8,
-   S 1024 for a training step), and time the kernel, the plain version,
+   shapes (the flash kernels at B 1 for each prefill bucket, at B 4,
+   S 256 for the one-shot engine's batch and at B 8, S 1024 for a
+   training step), and time the kernel, the plain version,
    PyTorch's scaled_dot_product_attention forward (flash forward) and
    its backward less its forward (flash backward), beside each kernel's
    bound; the paged decode kernel also two calls bit for bit, over six
@@ -28,10 +29,14 @@ no result line:
    to the same bits;
 4. serve the Transformer LM at full width (vocab 32000, 6 layers,
    d_model 2048, 8 heads, d_ff 8192, context 1024, 8 slots, 16-token
-   blocks, random weights from --seed) through DecodeEngine: 12 requests,
-   launch counts read around the run, then a teacher-forced check of two
-   requests against the prefill path, then device time by kernel
-   (torch.profiler) for one prefill per bucket and for decode steps;
+   blocks, random weights from --seed) through DecodeEngine, whose
+   prefill runs the bundle's transformer_lm programs (one a length
+   bucket) and whose decode step runs TransformerLM.decode_step: 12
+   requests, launch counts read around the run, the prefill ms per
+   bucket, then a teacher-forced check of two requests (decode-step
+   logits against the prefill program's, within LOGIT_TOL), then device
+   time by kernel (torch.profiler) for one prefill per bucket and for
+   decode steps;
 5. train the same model at full width (batch 8, sequence 1024, Adam at
    lr 1e-4, float32) through Program / program_guard / Executor: startup,
    one warm-up step and TRAIN_STEPS timed steps on the bench's pool-probe
@@ -90,7 +95,26 @@ no result line:
    peak memory, a profiled step of each by kernel class, the host time
    of the fused_bottleneck ops' forwards and of the chain's backwards,
    and the eight chain kernels' launch counts held to 10 a step;
-13. print the kernels' JSON line, the card line and the result line.
+13. serve phase 4's model through the one-shot ServingEngine: (a)
+   io.export_serving_model of transformer_lm's inference program at
+   src_ids [256] (pos_table_len 1024, batch 4, the logits fetched),
+   loaded by ServingEngine(max_wait_ms=5, queue_depth=64).load_model;
+   (b) a burst of 16 requests, each held to load_serving_model's run of
+   it alone in row 0 of a batch (KERNEL_ATOL / KERNEL_RTOL, and whether
+   the bits are the same) and to that run with the attention op on the
+   flash kernel's plain version (mha_reference, the same limits), the
+   flash forward's launches held to 6 a
+   batch, requests/s, batch fill, p50 / p99 of every phase, the same
+   16 served one at a time, and device time by kernel class for one
+   batch (torch.profiler); (c) a second burst with a hot reload from
+   another thread in the middle: no request fails or is dropped, version
+   2; (d) load_decode_model of a phase-4 bundle, 2 generate requests of
+   16 tokens (the paged kernel launched), one streamed :generate over
+   start_http_server(engine, port=0) with the facade's tokens; (e)
+   GET /v1/models lists both models, a bad feed to :predict is 400
+   InvalidRequest, /metrics?format=prometheus passes validate_exposition
+   with pt_serve_* and pt_decode_* series;
+14. print the kernels' JSON line, the card line and the result line.
 
 Phase 3 also holds the two LSTM kernels against their plain versions at
 the bench shape (T 100, B 64, H 512), full-length and ragged, timed
@@ -131,12 +155,14 @@ and convolutions.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, float32 flop/s
@@ -172,14 +198,21 @@ MODEL = dict(vocab_size=32000, n_layers=6, d_model=2048, n_heads=8,
 BUCKETS = (128, 256, 512, 1024)
 SLOTS, BLOCK, POOL_BLOCKS = 8, 16, 513
 N_REQUESTS, MAX_NEW = 12, 32
+# the one-shot engine (phase 13): MODEL's inference program at src_ids
+# [SERVE_SEQ] with pos_table_len max_context, BATCH requests a batch,
+# bursts of SERVE_REQUESTS requests; the decode facade's generations
+SERVE_SEQ, SERVE_BATCH, SERVE_REQUESTS, SERVE_NEW = 256, 4, 16, 16
+SERVE_PROMPTS = (200, 77)
 # bench.py bench_transformer's TPU arm (bench.py:822-833)
 TRAIN = dict(batch=8, seq_len=1024, lr=1e-4)
 TRAIN_STEPS = 6
 LM_PROBE_POOL = 64
 # the flash kernels' checks, (batch, sequence) at H 8, D 256, causal: the
-# prefill buckets' batch 1 (and a ragged length), and a training step;
-# the kernels line reports the training shape
-FLASH_SHAPES = ((1, 128), (1, 1024), (1, 333), (8, 1024))
+# prefill buckets' batch 1 (and a ragged length), the one-shot engine's
+# batch (phase 13) and a training step; the kernels line reports the
+# training shape
+FLASH_SHAPES = ((1, 128), (1, 256), (1, 512), (1, 1024), (1, 333),
+                (4, SERVE_SEQ), (8, 1024))
 LINE_SHAPE = (8, 1024)
 REDUCED = dict(vocab_size=32000, n_layers=2, d_model=256, n_heads=2,
                d_ff=1024, seq_len=128, batch=2)
@@ -570,7 +603,7 @@ def teacher_forced(np, engine, prompt, generated):
     full = np.asarray(prompt + generated[:-1], np.int32)
     pm = model.prefill_model
     res, _ = pm.execute_batch(pm.bucket_of({"src_ids": full}),
-                              [{"src_ids": full}])
+                              [{"src_ids": full}], host=False)
     n0 = len(prompt) - 1
     pre = res[0]["logits"][n0:n0 + len(generated)].cpu().numpy()
     return np.stack(dec), pre
@@ -796,6 +829,241 @@ def main_path(np, torch, fa, card, seed: int):
     finally:
         engine.shutdown()
     return launches
+
+
+def http_call(url, payload=None):
+    """(status, body bytes) of a GET (payload None) or a JSON POST."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(
+        url, data=data, headers={"Content-Type": "application/json"},
+        method="GET" if data is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+@contextlib.contextmanager
+def plain_attention(fa):
+    """The programs' attention op routed to the flash kernel's plain
+    version (mha_reference) on the card, for a reference run of the same
+    program on the same weights."""
+    from paddle_tpu_torch.ops import attention_ops
+
+    def plain(q, k, v, bias=None, *, causal=False, scale=None):
+        return fa.mha_reference(q, k, v, bias, causal=causal, scale=scale)
+
+    real = attention_ops.dot_product_attention
+    attention_ops.dot_product_attention = plain
+    try:
+        yield
+    finally:
+        attention_ops.dot_product_attention = real
+
+
+def serving_path(np, torch, fa, card, seed: int):
+    """Phase 13: the one-shot ServingEngine at full width, its hot
+    reload, the decode facade and the HTTP front end. Returns the flash
+    forward's and the paged kernel's launches of the phase (the
+    reference runs of (b) left out)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.models.transformer import (param_shapes,
+                                                     transformer_lm)
+    from paddle_tpu_torch.obs.metrics import validate_exposition
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.serving.http import start_http_server
+
+    flash, paged = fa.flash_attention_fwd, fa.paged_decode_attention
+    flash.launches = paged.launches = 0
+    left_out = 0
+    layers, vocab = MODEL["n_layers"], MODEL["vocab_size"]
+    t0 = time.perf_counter()
+    params = make_params(np, param_shapes, seed)
+    infer = pt.Program()
+    with pt.program_guard(infer, pt.Program()):
+        src = pt.layers.data("src_ids", [SERVE_SEQ], dtype="int64")
+        logits = transformer_lm(
+            src, vocab, max_len=MODEL["max_context"],
+            pos_table_len=MODEL["max_context"],
+            **{k: MODEL[k] for k in ("n_layers", "d_model", "n_heads",
+                                     "d_ff")})
+    with tempfile.TemporaryDirectory() as root:
+        d, bundle = os.path.join(root, "lm"), os.path.join(root, "decode")
+        scope = io.scope_from_numpy(params)
+        io.export_serving_model(d, ["src_ids"], [logits], main_program=infer,
+                                scope=scope, batch_size=SERVE_BATCH)
+        del scope
+        io.export_decode_model(bundle, MODEL, params=params,
+                               length_buckets=BUCKETS, slots=SLOTS,
+                               block_size=BLOCK, pool_blocks=POOL_BLOCKS)
+        del params
+        t_export = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        engine = ServingEngine(max_wait_ms=5, queue_depth=64)
+        engine.load_model("lm", d)
+        print(f"serving path (a): exported and loaded in {t_export:.1f} + "
+              f"{time.perf_counter() - t0:.1f} s; batch {SERVE_BATCH}, "
+              f"src_ids [{SERVE_SEQ}], buckets "
+              f"{engine.models()['lm']['buckets']}")
+        server = None
+        try:
+            rng = np.random.default_rng(seed + 13)
+
+            def burst():
+                return [{"src_ids": rng.integers(1, vocab, SERVE_SEQ)}
+                        for _ in range(SERVE_REQUESTS)]
+
+            # (b) the first burst, then the same requests one at a time
+            reqs = burst()
+            n0 = flash.launches
+            t0 = time.perf_counter()
+            futs = [engine.submit("lm", r) for r in reqs]
+            outs = [f.result(timeout=600) for f in futs]
+            wall = time.perf_counter() - t0
+            n_burst = flash.launches - n0
+            snap = engine.metrics_snapshot()["models"]["lm"]
+            print(f"serving path (b): {SERVE_REQUESTS} requests in "
+                  f"{1e3 * wall:.3f} ms, {SERVE_REQUESTS / wall:.2f} "
+                  f"requests/s, {snap['batches']} batches, fill "
+                  f"{snap['batch_fill_ratio']}, flash launches {n_burst} "
+                  f"[{card}]")
+            for phase, pcts in snap["latency"].items():
+                print(f"  {phase}: p50 {pcts['p50_ms']} ms, p99 "
+                      f"{pcts['p99_ms']} ms")
+            if not 0 < n_burst == layers * snap["batches"]:
+                raise RuntimeError(f"{n_burst} flash launches over "
+                                   f"{snap['batches']} batches")
+            t0 = time.perf_counter()
+            for r in reqs:
+                engine.predict("lm", r, timeout=600)
+            wall1 = time.perf_counter() - t0
+            print(f"serving path (b): the same {SERVE_REQUESTS} one at a "
+                  f"time: {SERVE_REQUESTS / wall1:.2f} requests/s "
+                  f"({1e3 * wall1 / SERVE_REQUESTS:.3f} ms each) [{card}]")
+            n0 = flash.launches
+            version = engine.registry.get("lm").model
+            wall, by_name, _ = profiled(torch, lambda: version.execute_batch(
+                None, reqs[:SERVE_BATCH]), 2)
+            print_profile(f"one-shot batch ({SERVE_BATCH} x {SERVE_SEQ} "
+                          f"tokens, pad + step + copy to the host + "
+                          f"scatter)", wall, by_name, card)
+            predict, _, _ = io.load_serving_model(d)
+            worst, same, plain_worst, plain_share = 0.0, True, 0.0, 0.0
+            for r, out in zip(reqs, outs):
+                batch = np.zeros((SERVE_BATCH, SERVE_SEQ), np.int32)
+                batch[0] = r["src_ids"]
+                want = predict(batch)[0][0]
+                with plain_attention(fa):
+                    plain = predict(batch)[0][0]
+                got = out[logits.name]
+                same = same and got.tobytes() == want.tobytes()
+                worst = max(worst, float(np.abs(got - want).max()))
+                plain_worst = max(plain_worst,
+                                  float(np.abs(got - plain).max()))
+                share = np.abs(got - plain) / (KERNEL_ATOL + KERNEL_RTOL *
+                                               np.abs(plain))
+                plain_share = max(plain_share, float(share.max()))
+                ok = np.abs(got - want) <= KERNEL_ATOL + KERNEL_RTOL * \
+                    np.abs(want)
+                if not (np.isfinite(got).all() and ok.all()
+                        and got.shape == (SERVE_SEQ, vocab)):
+                    raise RuntimeError("a coalesced request disagrees with "
+                                       "load_serving_model's run")
+            del predict, version
+            left_out += flash.launches - n0
+            print(f"serving path (b): each request vs load_serving_model "
+                  f"alone in row 0: max abs diff {worst:.3e} (tol atol "
+                  f"{KERNEL_ATOL} rtol {KERNEL_RTOL}), the same bits: "
+                  f"{same}; vs that run with the attention op on "
+                  f"mha_reference: max abs diff {plain_worst:.3e}, largest "
+                  f"share of the limit {plain_share:.4f}")
+            if not plain_share <= 1.0:
+                raise RuntimeError("the served logits disagree with the "
+                                   "plain attention's run")
+
+            # (c) a second burst with a hot reload in the middle of it
+            reqs = burst()
+            reload = threading.Thread(
+                target=lambda: engine.load_model("lm", d))
+            t0 = time.perf_counter()
+            futs = [engine.submit("lm", r) for r in reqs[:8]]
+            reload.start()
+            for r in reqs[8:]:
+                time.sleep(0.05)
+                futs.append(engine.submit("lm", r))
+            outs = [f.result(timeout=600) for f in futs]
+            reload.join()
+            snap = engine.metrics_snapshot()["models"]["lm"]
+            version = engine.models()["lm"]["version"]
+            print(f"serving path (c): {len(outs)} requests with a hot "
+                  f"reload inside {time.perf_counter() - t0:.1f} s: version "
+                  f"{version}, received {snap['received']}, completed "
+                  f"{snap['completed']}, failed {snap['failed']}, reloads "
+                  f"{snap['reloads']}")
+            if not (version == 2 and snap["failed"] == 0
+                    and snap["received"] == snap["completed"]
+                    and all(o[logits.name].shape == (SERVE_SEQ, vocab)
+                            for o in outs)):
+                raise RuntimeError("the hot reload dropped or failed "
+                                   "requests")
+
+            # (d) the decode facade, in process and over HTTP
+            engine.load_decode_model("lm_decode", bundle)
+            prompts = [rng.integers(1, vocab, n).tolist()
+                       for n in SERVE_PROMPTS]
+            p0 = paged.launches
+            hs = [engine.generate("lm_decode", p, max_new_tokens=SERVE_NEW)
+                  for p in prompts]
+            gen = [h.result(timeout=600)["tokens"] for h in hs]
+            server, _ = start_http_server(engine, port=0)
+            base = f"http://127.0.0.1:{server.server_address[1]}"
+            status, body = http_call(
+                f"{base}/v1/models/lm_decode:generate",
+                {"prompt_ids": prompts[0], "max_new_tokens": SERVE_NEW})
+            lines = [json.loads(ln) for ln in body.decode().splitlines()]
+            streamed = [ln["token"] for ln in lines if "token" in ln]
+            print(f"serving path (d): 2 generate requests of {SERVE_NEW} "
+                  f"tokens, paged launches {paged.launches - p0}; HTTP "
+                  f":generate {status}, {len(lines)} NDJSON lines, the "
+                  f"facade's tokens: {streamed == gen[0]}")
+            if not (paged.launches > p0 and status == 200
+                    and streamed == gen[0] == lines[-1]["tokens"]
+                    and all(len(g) == SERVE_NEW for g in gen)):
+                raise RuntimeError("the decode facade or its HTTP stream "
+                                   "failed")
+
+            # (e) the HTTP routes
+            status, body = http_call(f"{base}/v1/models")
+            models = json.loads(body)["models"]
+            bad, bad_body = http_call(f"{base}/v1/models/lm:predict",
+                                      {"feeds": {"src_ids": [1, 2, 3]}})
+            m_status, text = http_call(f"{base}/metrics?format=prometheus")
+            text = text.decode()
+            problems = validate_exposition(text)
+            want = ('pt_serve_completed_total{model="lm"}',
+                    'pt_decode_tokens_out_total{model="lm_decode"}')
+            found = [w in text for w in want]
+            print(f"serving path (e): /v1/models {status} {sorted(models)}; "
+                  f"bad feed {bad} {json.loads(bad_body)['error']}; "
+                  f"/metrics {m_status}, {len(text.splitlines())} lines, "
+                  f"{len(problems)} problems, series {dict(zip(want, found))}")
+            if not (status == 200 and {"lm", "lm_decode"} <= set(models)
+                    and bad == 400
+                    and json.loads(bad_body)["error"] == "InvalidRequest"
+                    and m_status == 200 and not problems and all(found)):
+                raise RuntimeError("an HTTP route failed")
+        finally:
+            if server is not None:
+                server.shutdown()
+                server.server_close()
+            engine.shutdown()
+    return {"flash_attention_fwd": flash.launches - left_out,
+            "paged_decode_attention": paged.launches}
 
 
 def lm_probe_feeds(np, i, batch, seqlen, vocab):
@@ -2468,6 +2736,9 @@ def main() -> int:
     # the forward kernels run on both chain paths
     launches.update({k: forward.get(k, 0) + v for k, v in
                      chain_train_path(np, torch, fb, card, built).items()})
+    # the one-shot engine and the decode facade run both attention kernels
+    for name, n in serving_path(np, torch, fa, card, args.seed).items():
+        launches[name] += n
 
     meta = {"flash_attention_fwd": (
                 "paddle_tpu_torch/csrc/flash_attention.cu",

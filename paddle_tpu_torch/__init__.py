@@ -7,8 +7,12 @@ under ``csrc/`` are built with nvcc at first use.
 
 Three slices are ported:
 
-* serving: the Transformer LM through the paged decode engine,
-  ``paddle_tpu_torch.serving.decode.DecodeEngine``;
+* serving: ``paddle_tpu_torch.serving.ServingEngine`` (micro-batching,
+  hot reload, its HTTP front end ``serving.http`` and the Prometheus
+  exposition ``obs.metrics``) over the artifacts of
+  ``io.export_serving_model``, and the Transformer LM's decode bundle
+  (``io.export_decode_model``) through the paged decode engine,
+  ``serving.decode.DecodeEngine``;
 * training: programs built with ``layers`` under ``program_guard`` and
   trained by ``Executor`` (``Executor(CPUPlace())`` on the CPU), e.g.
   ``models.transformer.transformer_lm_loss`` with

@@ -9,7 +9,9 @@ program order, by rebinding names in an environment dict:
 * ``state`` — the persistable vars the program reads (parameters,
   optimizer accumulators), from the Scope;
 * ``feed`` — the per-step inputs;
-* a var marked ``stop_gradient`` is ``.detach()``-ed where an op writes it;
+* a var marked ``stop_gradient`` is ``.detach()``-ed where an op writes
+  it, and so is a fetch, where the value requires grad (in inference
+  mode or under ``no_grad`` nothing does, and nothing is detached);
 * the ``autodiff`` pseudo-op (backward.py) splits the block: the ops
   before it run with the parameters as leaf tensors that require grad,
   the loss is ``sum(loss.float()) * loss_scale``, ``torch.autograd.grad``
@@ -22,66 +24,85 @@ that uses them raises here.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
 from .program import Block, OpDesc, Program
 from .registry import ExecContext, require_op
 
-__all__ = ["AUTODIFF_OP", "run_op", "run_op_range", "post_forward_reads",
-           "run_block_with_autodiff", "build_step_fn"]
+__all__ = ["AUTODIFF_OP", "PlannedOp", "plan_ops", "run_op",
+           "run_op_range", "post_forward_reads", "run_block_with_autodiff",
+           "build_step_fn"]
 
 AUTODIFF_OP = "autodiff"
 
 
-def _apply_var_marks(block: Block, name: str, val):
-    try:
-        var = block.var(name)
-    except KeyError:
-        return val
-    if var.stop_gradient and val.is_floating_point():
-        val = val.detach()
-    return val
+class PlannedOp:
+    """One op resolved once, when its block is lowered: its compute fn
+    and attrs, its input names by slot, and its output names by slot,
+    each with whether the value is detached (the var is marked
+    ``stop_gradient``). A step runs the plan with no registry lookup and
+    no var lookup an op."""
+
+    __slots__ = ("type", "compute", "attrs", "ins", "outs")
+
+    def __init__(self, op: OpDesc, block: Block):
+        if "remat_scope" in op.attrs:
+            raise NotImplementedError(
+                f"op {op.type!r} sits in remat_scope "
+                f"{op.attrs['remat_scope']!r}: activation recomputation is "
+                "not ported; build without remat")
+        self.type = op.type
+        self.compute = require_op(op.type).compute
+        self.attrs = op.attrs
+        self.ins = tuple((slot, tuple(names))
+                         for slot, names in op.inputs.items())
+        self.outs = tuple(
+            (slot, tuple(names),
+             tuple(block.has_var(n) and block.var(n).stop_gradient
+                   for n in names))
+            for slot, names in op.outputs.items())
 
 
-def run_op(op: OpDesc, env: Dict[str, torch.Tensor], ctx: ExecContext,
-           block: Block):
+def plan_ops(ops: Sequence[OpDesc], block: Block) -> List[PlannedOp]:
+    return [PlannedOp(op, block) for op in ops]
+
+
+def run_op(op: PlannedOp, env: Dict[str, torch.Tensor], ctx: ExecContext):
     """Run one op's compute fn on its inputs from env; rebind its outputs
     in env."""
-    impl = require_op(op.type)
-    if "remat_scope" in op.attrs:
-        raise NotImplementedError(
-            f"op {op.type!r} sits in remat_scope {op.attrs['remat_scope']!r}:"
-            " activation recomputation is not ported; build without remat")
-    ins = {slot: [env[n] for n in names] for slot, names in op.inputs.items()}
-    outs = impl.compute(ctx, ins, op.attrs)
-    for slot, names in op.outputs.items():
+    ins = {slot: [env[n] for n in names] for slot, names in op.ins}
+    outs = op.compute(ctx, ins, op.attrs)
+    for slot, names, stops in op.outs:
         vals = outs.get(slot)
         if vals is None:
             continue
         if len(vals) != len(names):
             raise RuntimeError(
                 f"op {op.type}: slot {slot} produced {len(vals)} values for "
-                f"{len(names)} names {names}")
-        for n, v in zip(names, vals):
-            env[n] = _apply_var_marks(block, n, v)
+                f"{len(names)} names {list(names)}")
+        for n, v, stop in zip(names, vals, stops):
+            env[n] = v.detach() if stop and v.requires_grad else v
 
 
-def run_op_range(ops: Sequence[OpDesc], start: int, stop: int,
-                 env: Dict[str, torch.Tensor], ctx: ExecContext,
-                 block: Block):
-    for op in ops[start:stop]:
-        run_op(op, env, ctx, block)
+def run_op_range(plan: Sequence[PlannedOp], start: int, stop: int,
+                 env: Dict[str, torch.Tensor], ctx: ExecContext):
+    for op in plan[start:stop]:
+        run_op(op, env, ctx)
     return env
+
+
+def _autodiff_index(block: Block) -> Optional[int]:
+    return next((i for i, o in enumerate(block.ops)
+                 if o.type == AUTODIFF_OP), None)
 
 
 def post_forward_reads(block: Block) -> set:
     """Names the ops after the autodiff marker read, plus the loss: the
     values that must survive the forward. Empty without a marker."""
     ops = block.ops
-    bwd_idx = next((i for i, o in enumerate(ops)
-                    if o.type == AUTODIFF_OP), None)
+    bwd_idx = _autodiff_index(block)
     if bwd_idx is None:
         return set()
     needed = {ops[bwd_idx].attrs["loss"]}
@@ -91,17 +112,21 @@ def post_forward_reads(block: Block) -> set:
 
 
 def run_block_with_autodiff(block: Block, env: Dict[str, torch.Tensor],
-                            ctx: ExecContext, live_out=()):
+                            ctx: ExecContext, live_out=(),
+                            plan: Optional[Sequence[PlannedOp]] = None):
     """Run a block that may hold one autodiff pseudo-op (see the module
     docstring). live_out: names the caller reads afterwards (fetches and
     state); every other forward value is dropped before the backward, so
-    autograd frees activations as it goes."""
+    autograd frees activations as it goes. plan: the ops of the block but
+    the autodiff op as build_step_fn planned them (planned here when
+    not given)."""
     ops = block.ops
-    bwd_idx = next((i for i, o in enumerate(ops) if o.type == AUTODIFF_OP),
-                   None)
+    bwd_idx = _autodiff_index(block)
+    if plan is None:
+        plan = _plan_block(block, bwd_idx)
     if bwd_idx is None:
         with torch.no_grad():
-            return run_op_range(ops, 0, len(ops), env, ctx, block)
+            return run_op_range(plan, 0, len(plan), env, ctx)
 
     bop = ops[bwd_idx]
     loss_name = bop.attrs["loss"]
@@ -114,7 +139,7 @@ def run_block_with_autodiff(block: Block, env: Dict[str, torch.Tensor],
     fwd_env = dict(env)
     fwd_env.update(zip(param_names, leaves))
     with torch.enable_grad():
-        run_op_range(ops, 0, bwd_idx, fwd_env, ctx, block)
+        run_op_range(plan, 0, bwd_idx, fwd_env, ctx)
         loss = fwd_env[loss_name].float().sum() * loss_scale
     kept = {k: v for k, v in fwd_env.items() if k in needed_after}
     del fwd_env
@@ -131,7 +156,16 @@ def run_block_with_autodiff(block: Block, env: Dict[str, torch.Tensor],
         # jax.value_and_grad gives it
         env[g_name] = torch.zeros_like(leaf.detach()) if g is None else g
     with torch.no_grad():
-        return run_op_range(ops, bwd_idx + 1, len(ops), env, ctx, block)
+        return run_op_range(plan, bwd_idx, len(plan), env, ctx)
+
+
+def _plan_block(block: Block, bwd_idx: Optional[int]) -> List[PlannedOp]:
+    """The block's ops but the autodiff op, planned: the forward's are
+    plan[:bwd_idx] and the optimizer's plan[bwd_idx:]."""
+    ops = block.ops
+    if bwd_idx is None:
+        return plan_ops(ops, block)
+    return plan_ops(ops[:bwd_idx] + ops[bwd_idx + 1:], block)
 
 
 def build_step_fn(program: Program, feed_names: Sequence[str],
@@ -159,6 +193,7 @@ def build_step_fn(program: Program, feed_names: Sequence[str],
                 seen.add(n)
     state_out_names = state_in + persist_written
     live_out = set(fetch_names) | set(state_out_names)
+    plan = _plan_block(block, _autodiff_index(block))
 
     def step(state: Dict[str, torch.Tensor], feed: Dict[str, torch.Tensor],
              generator: torch.Generator):
@@ -166,12 +201,13 @@ def build_step_fn(program: Program, feed_names: Sequence[str],
         env: Dict[str, torch.Tensor] = {}
         env.update(state)
         env.update(feed)
-        env = run_block_with_autodiff(block, env, ctx, live_out)
+        env = run_block_with_autodiff(block, env, ctx, live_out, plan)
         missing = [n for n in fetch_names if n not in env]
         if missing:
             raise KeyError(f"fetch {missing} is neither computed by the "
                            "program nor fed")
-        fetches = tuple(env[n].detach() for n in fetch_names)
+        fetches = tuple(v.detach() if v.requires_grad else v
+                        for v in (env[n] for n in fetch_names))
         new_state = {n: env[n] for n in state_out_names if n in env}
         return fetches, new_state
 

@@ -23,9 +23,9 @@ from typing import Any, Dict, List, Optional, Sequence
 
 from .types import VarKind, normalize_dtype
 
-__all__ = ["unique_name", "reset_unique_names", "remat_scope",
-           "op_block_refs", "sub_block_var_names", "VarDesc", "OpDesc",
-           "Block", "Program", "default_main_program",
+__all__ = ["unique_name", "reset_unique_names", "unique_name_guard",
+           "remat_scope", "op_block_refs", "sub_block_var_names", "VarDesc",
+           "OpDesc", "Block", "Program", "default_main_program",
            "default_startup_program", "switch_main_program",
            "switch_startup_program", "program_guard"]
 
@@ -54,6 +54,22 @@ def unique_name(key: str) -> str:
 
 def reset_unique_names():
     _name_gen.ids.clear()
+
+
+class unique_name_guard:
+    """`with unique_name_guard():` builds with fresh name counters and
+    restores the caller's afterwards: a program built inside gets the
+    names it would get first thing in a process (io.export_decode_model
+    writes reproducible program files so)."""
+
+    def __enter__(self):
+        self._saved = dict(_name_gen.ids)
+        _name_gen.ids.clear()
+
+    def __exit__(self, *exc):
+        _name_gen.ids.clear()
+        _name_gen.ids.update(self._saved)
+        return False
 
 
 # ---------------------------------------------------------------------------
@@ -336,6 +352,10 @@ class Program:
 
     def current_block(self) -> Block:
         return self.blocks[self._block_stack[-1]]
+
+    def list_vars(self):
+        for b in self.blocks:
+            yield from b.vars.values()
 
     # -- transforms ---------------------------------------------------------
     def clone(self, for_test: bool = False) -> "Program":

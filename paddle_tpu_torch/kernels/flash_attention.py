@@ -490,12 +490,14 @@ paged_decode_attention.launches = 0
 def dot_product_attention(q, k, v, bias=None, *, causal: bool = False,
                           scale: Optional[float] = None) -> torch.Tensor:
     """Public entry: ``FlashAttention`` (the forward kernel, and the two
-    backward kernels under autograd) on CUDA, ``mha_reference`` on CPU.
+    backward kernels under autograd) on CUDA, ``mha_reference`` on CPU
+    (and on the meta device, where it only gives the output's shape:
+    io.export_serving_model reads fetch shapes so).
 
     A bias (additive mask) has no kernel: the kernel handles the causal
     structure itself and arbitrary bias tiles would defeat the block skip.
     On CUDA it raises instead of leaving the device path."""
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return mha_reference(q, k, v, bias, causal=causal, scale=scale)
     if bias is not None:
         raise ValueError("dot_product_attention: a bias has no CUDA kernel "

@@ -6,17 +6,17 @@ from .io import data
 from .metric import accuracy
 from .nn import (batch_norm, conv2d, cross_entropy, elementwise_add,
                  embedding, fc, fused_bottleneck, layer_norm, mean, pool2d,
-                 relu, reshape, slice, softmax, softmax_with_cross_entropy,
-                 topk)
+                 reduce_sum, relu, reshape, slice, softmax,
+                 softmax_with_cross_entropy, topk)
 from .sequence import (dynamic_gru, dynamic_lstm, dynamic_lstmp,
                        sequence_first_step, sequence_last_step, sequence_pool)
-from .tensor import create_parameter, fill_constant
+from .tensor import argmax, create_parameter, fill_constant
 
 __all__ = ["MultiHeadAttention", "fused_attention", "multi_head_attention",
            "data", "accuracy", "batch_norm", "conv2d", "cross_entropy",
            "elementwise_add", "embedding", "fc", "fused_bottleneck",
-           "layer_norm", "mean", "pool2d", "relu", "reshape", "slice",
-           "softmax", "softmax_with_cross_entropy", "topk",
+           "layer_norm", "mean", "pool2d", "reduce_sum", "relu", "reshape",
+           "slice", "softmax", "softmax_with_cross_entropy", "topk",
            "dynamic_gru", "dynamic_lstm", "dynamic_lstmp",
            "sequence_first_step", "sequence_last_step", "sequence_pool",
-           "create_parameter", "fill_constant"]
+           "argmax", "create_parameter", "fill_constant"]

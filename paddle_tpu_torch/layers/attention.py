@@ -48,10 +48,14 @@ def multi_head_attention(queries, keys=None, values=None, *, num_heads,
                          d_key=None, d_value=None, d_model=None,
                          causal=False, sp_mode="none", dropout_rate=0.0,
                          param_attr=None, bias_attr=None, tp_shard=False,
-                         name=None):
+                         kv_out=None, name=None):
     """Full MHA block on [B, S, d_model] vars: QKV projections, fused
     attention, output projection. Self-attention when keys/values are
-    omitted. Dropout, tensor and sequence parallelism are not ported."""
+    omitted. Dropout, tensor and sequence parallelism are not ported.
+
+    kv_out: optional list — the per-head K and V vars ([B, S, H, d_key])
+    are appended as a (k, v) pair, so a prefill export can fetch them for
+    the paged decode cache (serving/decode)."""
     from . import nn as L
 
     if dropout_rate:
@@ -94,6 +98,8 @@ def multi_head_attention(queries, keys=None, values=None, *, num_heads,
     qr = L.reshape(q, [0, 0, num_heads, d_key])
     kr = L.reshape(k, [0, 0, num_heads, d_key])
     vr = L.reshape(v, [0, 0, num_heads, d_value])
+    if kv_out is not None:
+        kv_out.append((kr, vr))
 
     ctx = fused_attention(qr, kr, vr, causal=causal, sp_mode=sp_mode,
                           name=name)

@@ -25,7 +25,7 @@ from .sequence import propagate_seq
 __all__ = ["fc", "embedding", "layer_norm", "softmax_with_cross_entropy",
            "mean", "reshape", "elementwise_add", "slice", "conv2d", "pool2d",
            "batch_norm", "fused_bottleneck", "cross_entropy", "softmax",
-           "relu", "topk"]
+           "relu", "topk", "reduce_sum"]
 
 
 def _fresh_attr(attr) -> ParamAttr:
@@ -138,6 +138,19 @@ def softmax_with_cross_entropy(logits, label, soft_label=False):
                      {"Loss": loss, "Softmax": softmax_out},
                      {"soft_label": soft_label})
     return loss
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    """Sum over `dim` (an int or a list; every dim when None)."""
+    helper = LayerHelper("reduce_sum")
+    out = helper.create_tmp_variable(input.dtype)
+    if dim is None:
+        attrs = {"dim": [0], "keep_dim": keep_dim, "reduce_all": True}
+    else:
+        attrs = {"dim": dim if isinstance(dim, list) else [dim],
+                 "keep_dim": keep_dim, "reduce_all": False}
+    helper.append_op("reduce_sum", {"X": input}, {"Out": out}, attrs)
+    return out
 
 
 def mean(x, name=None):

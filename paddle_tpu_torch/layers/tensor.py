@@ -1,7 +1,7 @@
 """Tensor-creation layer functions.
 
-Counterpart of ``paddle_tpu/layers/tensor.py`` ``create_parameter`` and
-``fill_constant``.
+Counterpart of ``paddle_tpu/layers/tensor.py`` ``create_parameter``,
+``fill_constant`` and ``argmax``.
 """
 
 from __future__ import annotations
@@ -9,7 +9,7 @@ from __future__ import annotations
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
-__all__ = ["create_parameter", "fill_constant"]
+__all__ = ["create_parameter", "fill_constant", "argmax"]
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -27,4 +27,12 @@ def fill_constant(shape, dtype, value, force_cpu=False, out=None):
     out.stop_gradient = True
     helper.append_op("fill_constant", {}, {"Out": out},
                      {"shape": list(shape), "dtype": dtype, "value": float(value)})
+    return out
+
+
+def argmax(x, axis=0):
+    helper = LayerHelper("arg_max")
+    out = helper.create_tmp_variable("int64")
+    out.stop_gradient = True
+    helper.append_op("arg_max", {"X": x}, {"Out": out}, {"axis": axis})
     return out

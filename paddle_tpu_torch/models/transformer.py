@@ -10,11 +10,13 @@ so one set of weights runs in both packages and in both forms here.
 * ``transformer_lm`` / ``transformer_lm_loss`` build the program the
   Executor trains (``paddle_tpu_torch.Executor``), as the JAX package's
   builders do.
-* ``TransformerLM`` is the serving module. ``forward`` is
-  ``transformer_lm`` with ``pos_table_len=max_context`` that also
-  returns each layer's K/V: the prefill. ``decode_step`` is
-  ``transformer_decode_step``: one token per slot against the paged
-  pools, which it updates in place.
+* ``transformer_lm(..., pos_table_len=max_context, collect_kv=kvs)``
+  is also the prefill the decode bundle serves (io.export_decode_model):
+  one program a length bucket, fetching the logits and each layer's K/V.
+* ``TransformerLM`` is the decode-step module: ``decode_step`` is
+  ``transformer_decode_step``, one token per slot against the paged
+  pools, which it updates in place. Its ``forward`` is the same prefill
+  as a module, which tests hold to the program.
 """
 
 from __future__ import annotations
@@ -73,13 +75,14 @@ def _ffn(x, d_model, d_ff, idx):
 def transformer_lm(src_ids, vocab_size, n_layers=2, d_model=128, n_heads=4,
                    d_ff=512, max_len=2048, dropout_rate=0.0,
                    causal=True, sp_mode="none", tp_shard=False,
-                   remat=False, pos_table_len=None):
+                   remat=False, pos_table_len=None, collect_kv=None):
     """src_ids: [B, S] int64 var. Returns logits [B, S, vocab_size].
 
     pos_table_len: rows of the ``pos_emb`` parameter (default: S), the
-    first S used. dropout, remat, tp_shard and sp_mode other than "none"
-    are not ported and raise. The JAX builder's collect_kv is not taken:
-    the serving module returns each layer's K/V itself."""
+    first S used. collect_kv: optional list — each layer appends its
+    per-head (k, v) vars ([B, S, H, d_key]); the decode export fetches
+    them to seed the paged KV cache. dropout, remat, tp_shard and
+    sp_mode other than "none" are not ported and raise."""
     if dropout_rate:
         raise NotImplementedError(f"transformer_lm(dropout_rate="
                                   f"{dropout_rate}): dropout is not ported")
@@ -111,7 +114,7 @@ def transformer_lm(src_ids, vocab_size, n_layers=2, d_model=128, n_heads=4,
                            bias_attr=ParamAttr(name=f"ln1_{i}_bias"))
         att = multi_head_attention(ln1, num_heads=n_heads, causal=causal,
                                    sp_mode=sp_mode, tp_shard=tp_shard,
-                                   name=f"attn{i}")
+                                   kv_out=collect_kv, name=f"attn{i}")
         x = L.elementwise_add(x, att)
         ln2 = L.layer_norm(x, begin_norm_axis=2, name=f"ln2_{i}",
                            param_attr=ParamAttr(name=f"ln2_{i}_scale"),
@@ -207,6 +210,29 @@ class TransformerLM(nn.Module):
         """{JAX parameter name: parameter}: the last component of each
         module path is the name the JAX program gives the parameter."""
         return {n.rsplit(".", 1)[-1]: p for n, p in self.named_parameters()}
+
+    @classmethod
+    def from_tensors(cls, cfg: Dict, tensors: Dict[str, torch.Tensor]
+                     ) -> "TransformerLM":
+        """The module over `tensors` ({JAX name: tensor}, shared, not
+        copied): the decode step reads the same weights as the bundle's
+        prefill programs (serving/decode/engine.py)."""
+        model = cls.from_config(cfg, device="meta")
+        own = model.jax_named_parameters()
+        if set(own) != set(tensors):
+            raise ValueError(f"parameter names differ: missing "
+                             f"{sorted(set(own) - set(tensors))}, extra "
+                             f"{sorted(set(tensors) - set(own))}")
+        for module in model.modules():
+            for name, p in list(module._parameters.items()):
+                t = tensors[name]
+                if t.shape != p.shape:
+                    raise ValueError(f"parameter {name!r} has shape "
+                                     f"{tuple(t.shape)}, the model wants "
+                                     f"{tuple(p.shape)}")
+                module._parameters[name] = nn.Parameter(t,
+                                                        requires_grad=False)
+        return model.eval()
 
     @torch.no_grad()
     def load_jax_params(self, tensors: Dict[str, torch.Tensor]) -> None:

@@ -1,1 +1,2 @@
-"""Tracing (span core)."""
+"""Tracing (span core) and the metrics plane (registry, Prometheus
+exposition)."""

@@ -2,8 +2,8 @@
 
 Counterparts in ``paddle_tpu/ops/math_ops.py``: ``elementwise_add``
 (Paddle's axis broadcast), ``mul`` (flatten at ``x_num_col_dims`` /
-``y_num_col_dims``, the core of ``layers.fc``), ``mean``, and the
-metric ops ``top_k`` and ``accuracy``.
+``y_num_col_dims``, the core of ``layers.fc``), ``reduce_sum``,
+``mean``, ``arg_max``, and the metric ops ``top_k`` and ``accuracy``.
 """
 
 from __future__ import annotations
@@ -18,12 +18,13 @@ from . import nn_ops
 
 def broadcast_y_to_x(x: torch.Tensor, y: torch.Tensor, axis: int):
     """Paddle's elementwise broadcast: Y's shape is a contiguous run of
-    X's dims starting at `axis` (-1: trailing-aligned)."""
+    X's dims starting at `axis` (-1: trailing-aligned). Trailing-aligned
+    is torch's own broadcast, so Y is then returned as it is."""
     xnd, ynd = x.dim(), y.dim()
-    if ynd == 0 or xnd == ynd:
-        return y
     if axis == -1:
         axis = xnd - ynd
+    if ynd == 0 or xnd == ynd or axis == xnd - ynd:
+        return y
     return y.reshape([1] * axis + list(y.shape) + [1] * (xnd - axis - ynd))
 
 
@@ -65,6 +66,37 @@ def mul(ctx, ins, attrs):
     return {"Out": [(x2 @ y2).reshape(xs[:xn] + ys[yn:])]}
 
 
+def _reduce_infer(op, block):
+    x = block.var(op.input("X")[0])
+    out = block.var(op.output("Out")[0])
+    dims = op.attrs.get("dim", [0])
+    keep = op.attrs.get("keep_dim", False)
+    if op.attrs.get("reduce_all", False):
+        out.shape = (1,) if keep else ()
+    else:
+        dims = [d % len(x.shape) for d in dims] if x.shape else []
+        if keep:
+            out.shape = tuple(1 if i in dims else s
+                              for i, s in enumerate(x.shape))
+        else:
+            out.shape = tuple(s for i, s in enumerate(x.shape)
+                              if i not in dims)
+    out.dtype = x.dtype
+
+
+@register_op("reduce_sum", infer_shape=_reduce_infer)
+def reduce_sum(ctx, ins, attrs):
+    """Sum over attrs["dim"] (every dim with reduce_all), keep_dim as
+    asked."""
+    x = ins["X"][0]
+    keep = attrs.get("keep_dim", False)
+    if attrs.get("reduce_all", False):
+        out = x.sum()
+        return {"Out": [out.reshape([1] * x.dim()) if keep else out]}
+    dims = tuple(d % x.dim() for d in attrs.get("dim", [0]))
+    return {"Out": [x.sum(dim=dims, keepdim=keep)]}
+
+
 def _mean_infer(op, block):
     out = block.var(op.output("Out")[0])
     out.shape = (1,)
@@ -75,6 +107,23 @@ def _mean_infer(op, block):
 def mean(ctx, ins, attrs):
     """Mean of every element, as a [1] tensor (the loss head)."""
     return {"Out": [ins["X"][0].mean().reshape(1)]}
+
+
+def _arg_infer(op, block):
+    x = block.var(op.input("X")[0])
+    out = block.var(op.output("Out")[0])
+    axis = op.attrs.get("axis", -1) % max(len(x.shape), 1)
+    out.shape = tuple(s for i, s in enumerate(x.shape) if i != axis)
+    out.dtype = "int64"
+
+
+@register_op("arg_max", infer_shape=_arg_infer)
+def arg_max(ctx, ins, attrs):
+    """Index of the first largest entry along attrs["axis"], in int32,
+    the device width of the int64 var (as the JAX package)."""
+    x = ins["X"][0]
+    return {"Out": [torch.argmax(x, dim=attrs.get("axis", -1))
+                    .to(torch.int32)]}
 
 
 def _topk_infer(op, block):

@@ -4,10 +4,10 @@ cache + continuous batching, on the port's model and kernels.
 Counterpart of ``paddle_tpu.serving.decode``:
 
     DecodeEngine            facade: admission + scheduler + metrics
-      ├── DecodeModel       the TransformerLM of one bundle
-      │                     (io.export_decode_model): length-bucketed
-      │                     prefill through ModelVersion (the flash
-      │                     kernel), one fixed-shape decode step (the
+      ├── DecodeModel       one bundle (io.export_decode_model):
+      │                     length-bucketed prefill programs through
+      │                     ModelVersion (the flash kernel), one
+      │                     fixed-shape decode step of TransformerLM (the
       │                     paged kernel) over KV pools updated in place
       ├── DecodeScheduler   continuous batching, eviction, shedding
       ├── KVBlockPool       host accounting for the paged device pool

@@ -1,17 +1,18 @@
 """DecodeEngine: the generation facade over one exported decode bundle.
 
 Counterpart of ``paddle_tpu/serving/decode/engine.py``. DecodeModel owns
-the device side — the TransformerLM, whose prefill is served through the
-port's ModelVersion (same bucket selection, padding, scatter) and whose
-decode step runs the paged kernels, plus the device-resident KV pools,
-which never round-trip through host numpy. DecodeScheduler owns the
+the device side — the bundle's prefill programs (transformer_lm with
+collect_kv, one a length bucket), served through the port's ModelVersion
+(same bucket selection, padding, scatter; the flash kernel), the
+decode-step module TransformerLM over the same weight tensors (the
+paged kernels), and the device-resident KV pools, which never
+round-trip through host numpy. DecodeScheduler owns the
 host side — slots, block accounting, admission, eviction. DecodeEngine
 wires them.
 """
 
 from __future__ import annotations
 
-import json
 import os
 from typing import Dict, List, Optional, Sequence
 
@@ -21,8 +22,8 @@ import torch
 from ..admission import AdmissionController, InvalidRequest, Overloaded
 from ..batcher import env_float, env_int
 from ..metrics import DecodeMetrics
-from ..registry import ModelVersion
 from ...core.types import resolve_device
+from ...io import load_decode_bundle
 from .kv_cache import (KVBlockPool, blocks_for_tokens, write_prefill_pages)
 from .prefix import PrefixIndex
 from .scheduler import DecodeScheduler, GenerationHandle
@@ -43,18 +44,11 @@ class DecodeModel:
     drives that device whatever its own current device is."""
 
     def __init__(self, model_dir: str, *, device=None, warmup: bool = True):
-        with open(os.path.join(model_dir, "serving.json")) as f:
-            meta = json.load(f)
-        dec = meta.get("decode")
-        if not dec:
-            raise ValueError(
-                f"{model_dir} has no decode section in serving.json — "
-                "export with paddle_tpu_torch.io.export_decode_model")
         self.model_dir = model_dir
         self.device = resolve_device(device)
-        self.prefill_model = ModelVersion.load(model_dir, device=self.device,
-                                               warmup=warmup)
-        self.model = self.prefill_model.model
+        meta, self.prefill_model, self.model = load_decode_bundle(
+            model_dir, device=self.device, warmup=warmup)
+        dec = meta["decode"]
         self.slots = int(dec["slots"])
         self.block_size = int(dec["block_size"])
         self.pool_blocks = int(dec["pool_blocks"])
@@ -99,7 +93,8 @@ class DecodeModel:
         dt = self.prefill_model.feed_dtypes()["src_ids"]
         ex = {"src_ids": np.asarray(token_ids, dtype=dt)}
         bucket = self.prefill_model.bucket_of(ex)
-        results, _ = self.prefill_model.execute_batch(bucket, [ex])
+        results, _ = self.prefill_model.execute_batch(bucket, [ex],
+                                                      host=False)
         out = results[0]
         logits = out[self._logits_role][n - 1].cpu().numpy()
         kv = [(out[k][:n], out[v][:n]) for k, v in self._kv_roles]

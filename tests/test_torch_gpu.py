@@ -439,6 +439,90 @@ def test_decode_model_cuda_matches_cpu(cuda, tmp_path):
         torch.testing.assert_close(pg.cpu(), pc, atol=1e-4, rtol=1e-4)
 
 
+def _serving_artifact(d, seq=64, batch=4):
+    """An io.export_serving_model artifact of transformer_lm at 2 layers,
+    d_model 256, 2 heads (head_dim 128), src_ids [seq], batch `batch`,
+    from the port's own startup on the CPU."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.models.transformer import transformer_lm
+
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 5
+    with pt.program_guard(main, startup):
+        src = pt.layers.data("src_ids", [seq], dtype="int64")
+        logits = transformer_lm(src, 101, n_layers=2, d_model=256,
+                                n_heads=2, d_ff=512, max_len=seq)
+    scope = pt.Scope()
+    pt.Executor(pt.CPUPlace()).run(startup, scope=scope)
+    io.export_serving_model(d, ["src_ids"], [logits], main_program=main,
+                            scope=scope, batch_size=batch)
+    return logits.name
+
+
+def test_serving_engine_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """The one-shot engine on the card serves 8 requests within 1e-5 of
+    the same artifact's engine on the CPU, two flash forward launches (one
+    a layer) a batch."""
+    from paddle_tpu_torch.serving import ServingEngine
+
+    name = _serving_artifact(str(tmp_path))
+    rng = np.random.default_rng(1)
+    reqs = [{"src_ids": rng.integers(0, 101, 64)} for _ in range(8)]
+    engines = [ServingEngine(device=dev, max_wait_ms=20.0)
+               for dev in ("cpu", cuda)]
+    try:
+        for e in engines:
+            e.load_model("lm", str(tmp_path))
+        n0 = fa.flash_attention_fwd.launches
+        outs = [[f.result(timeout=120) for f in
+                 [e.submit("lm", r) for r in reqs]] for e in engines]
+        batches = engines[1].metrics_snapshot()["models"]["lm"]["batches"]
+        assert fa.flash_attention_fwd.launches - n0 == 2 * batches > 0
+        for want, got in zip(*outs):
+            assert got[name].shape == (64, 101)
+            np.testing.assert_allclose(got[name], want[name], **TOL)
+    finally:
+        for e in engines:
+            e.shutdown()
+
+
+def test_hot_reload_on_the_card_drops_nothing(cuda, tmp_path):
+    import threading
+
+    from paddle_tpu_torch.serving import ServingEngine
+
+    _serving_artifact(str(tmp_path), seq=32)
+    engine = ServingEngine(max_wait_ms=2.0)
+    engine.load_model("lm", str(tmp_path))
+    stop, errors = threading.Event(), []
+
+    def client(seed):
+        rng = np.random.default_rng(seed)
+        while not stop.is_set():
+            try:
+                engine.predict("lm", {"src_ids": rng.integers(0, 101, 32)},
+                               timeout=120)
+            except Exception as e:  # noqa: BLE001 — the assertion target
+                errors.append(repr(e))
+                return
+
+    threads = [threading.Thread(target=client, args=(s,)) for s in range(4)]
+    for t in threads:
+        t.start()
+    try:
+        for _ in range(2):
+            assert engine.load_model("lm", str(tmp_path)) > 1
+    finally:
+        stop.set()
+        for t in threads:
+            t.join()
+        engine.shutdown()
+    snap = engine.metrics_snapshot()["models"]["lm"]
+    assert errors == [] and snap["failed"] == 0 and snap["reloads"] == 2
+    assert snap["received"] == snap["completed"] > 0
+
+
 def test_training_on_the_card_matches_the_cpu(cuda):
     """The same program and startup state on the card and on the CPU:
     two Adam steps agree (float32 through two layers, sums in other
