@@ -97,8 +97,10 @@ no result line:
    and the eight chain kernels' launch counts held to 10 a step;
 13. serve phase 4's model through the one-shot ServingEngine: (a)
    io.export_serving_model of transformer_lm's inference program at
-   src_ids [256] (pos_table_len 1024, batch 4, the logits fetched),
-   loaded by ServingEngine(max_wait_ms=5, queue_depth=64).load_model;
+   src_ids [256] (pos_table_len 1024, batch 4, the logits fetched) and
+   a phase-4 decode bundle, exported once for phases 13 and 14, the
+   artifact loaded by ServingEngine(max_wait_ms=5,
+   queue_depth=64).load_model;
    (b) a burst of 16 requests, each held to load_serving_model's run of
    it alone in row 0 of a batch (KERNEL_ATOL / KERNEL_RTOL, and whether
    the bits are the same) and to that run with the attention op on the
@@ -114,7 +116,26 @@ no result line:
    GET /v1/models lists both models, a bad feed to :predict is 400
    InvalidRequest, /metrics?format=prometheus passes validate_exposition
    with pt_serve_* and pt_decode_* series;
-14. print the kernels' JSON line, the card line and the result line.
+14. serve the same artifact and bundle through the fleet tier: (a)
+   make_fleet with 2 replicas, each a ServingEngine on the card holding
+   both (engine queue bound FLEET_ENGINE_QUEUE); (b) a burst of
+   FLEET_REQUESTS one-shot requests in FLEET_CLASSES priority classes
+   (requests/s on 2 replicas) and FLEET_GENERATE generations in
+   FLEET_SESSIONS sessions, each session on its replica (the decode
+   engines' received counts); (c) one injected router_dispatch crash:
+   one failover, the replica rebuilt, nothing failed; (d) scale 2 -> 3
+   -> 1 while a client keeps requests in flight, none dropped, then the
+   first burst again on 1 replica (requests/s, the same bits); (e) a
+   router with a queue bound of FLEET_SMALL_QUEUE over the same pool,
+   overloaded: every shed typed Overloaded with its class, the lowest
+   class shed most; (f) an Autoscaler ticked by hand: up on the
+   replica's queue depth, down after its idle window; (g) GET
+   /v1/fleet over HTTP and a pt_fleet_* scrape through
+   validate_exposition; then the phase's launches and peak memory, and
+   every held answer against one ServingEngine's (the same bits), the
+   generations against its DecodeEngine's tokens and, through it, the
+   attention op on mha_reference (phase 13's limits);
+15. print the kernels' JSON line, the card line and the result line.
 
 Phase 3 also holds the two LSTM kernels against their plain versions at
 the bench shape (T 100, B 64, H 512), full-length and ragged, timed
@@ -203,6 +224,15 @@ N_REQUESTS, MAX_NEW = 12, 32
 # bursts of SERVE_REQUESTS requests; the decode facade's generations
 SERVE_SEQ, SERVE_BATCH, SERVE_REQUESTS, SERVE_NEW = 256, 4, 16, 16
 SERVE_PROMPTS = (200, 77)
+# the fleet (phase 14): make_fleet over replicas of phase 13's artifact and
+# bundle, engines with a queue bound of FLEET_ENGINE_QUEUE; bursts of
+# FLEET_REQUESTS one-shot requests in FLEET_CLASSES priority classes,
+# FLEET_GENERATE generations of FLEET_NEW tokens in FLEET_SESSIONS
+# sessions; FLEET_OVERLOAD requests at a router queue bound of
+# FLEET_SMALL_QUEUE
+FLEET_REQUESTS, FLEET_CLASSES, FLEET_QUEUE, FLEET_ENGINE_QUEUE = 32, 3, 64, 8
+FLEET_GENERATE, FLEET_SESSIONS, FLEET_NEW = 8, 4, 8
+FLEET_OVERLOAD, FLEET_SMALL_QUEUE = 40, 4
 # bench.py bench_transformer's TPU arm (bench.py:822-833)
 TRAIN = dict(batch=8, seq_len=1024, lr=1e-4)
 TRAIN_STEPS = 6
@@ -865,15 +895,46 @@ def plain_attention(fa):
         attention_ops.dot_product_attention = real
 
 
-def serving_path(np, torch, fa, card, seed: int):
-    """Phase 13: the one-shot ServingEngine at full width, its hot
-    reload, the decode facade and the HTTP front end. Returns the flash
-    forward's and the paged kernel's launches of the phase (the
-    reference runs of (b) left out)."""
+def export_lm(np, seed: int, root: str) -> dict:
+    """MODEL's one-shot artifact (transformer_lm's inference program at
+    src_ids [SERVE_SEQ], pos_table_len max_context, batch SERVE_BATCH,
+    the logits fetched) and its decode bundle, random weights from
+    `seed`, written under `root` for phases 13 and 14: {"dir", "bundle",
+    "fetch" (the logits' name), "seconds"}."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch import io
     from paddle_tpu_torch.models.transformer import (param_shapes,
                                                      transformer_lm)
+
+    t0 = time.perf_counter()
+    params = make_params(np, param_shapes, seed)
+    infer = pt.Program()
+    with pt.program_guard(infer, pt.Program()):
+        src = pt.layers.data("src_ids", [SERVE_SEQ], dtype="int64")
+        logits = transformer_lm(
+            src, MODEL["vocab_size"], max_len=MODEL["max_context"],
+            pos_table_len=MODEL["max_context"],
+            **{k: MODEL[k] for k in ("n_layers", "d_model", "n_heads",
+                                     "d_ff")})
+    d, bundle = os.path.join(root, "lm"), os.path.join(root, "decode")
+    scope = io.scope_from_numpy(params)
+    io.export_serving_model(d, ["src_ids"], [logits], main_program=infer,
+                            scope=scope, batch_size=SERVE_BATCH)
+    del scope
+    io.export_decode_model(bundle, MODEL, params=params,
+                           length_buckets=BUCKETS, slots=SLOTS,
+                           block_size=BLOCK, pool_blocks=POOL_BLOCKS)
+    return {"dir": d, "bundle": bundle, "fetch": logits.name,
+            "seconds": time.perf_counter() - t0}
+
+
+def serving_path(np, torch, fa, card, seed: int, lm: dict):
+    """Phase 13: the one-shot ServingEngine at full width, its hot
+    reload, the decode facade and the HTTP front end, on export_lm's
+    artifact and bundle. Returns the flash forward's and the paged
+    kernel's launches of the phase (the reference runs of (b) left
+    out)."""
+    from paddle_tpu_torch import io
     from paddle_tpu_torch.obs.metrics import validate_exposition
     from paddle_tpu_torch.serving import ServingEngine
     from paddle_tpu_torch.serving.http import start_http_server
@@ -882,188 +943,448 @@ def serving_path(np, torch, fa, card, seed: int):
     flash.launches = paged.launches = 0
     left_out = 0
     layers, vocab = MODEL["n_layers"], MODEL["vocab_size"]
+    d, bundle, fetch = lm["dir"], lm["bundle"], lm["fetch"]
     t0 = time.perf_counter()
-    params = make_params(np, param_shapes, seed)
-    infer = pt.Program()
-    with pt.program_guard(infer, pt.Program()):
-        src = pt.layers.data("src_ids", [SERVE_SEQ], dtype="int64")
-        logits = transformer_lm(
-            src, vocab, max_len=MODEL["max_context"],
-            pos_table_len=MODEL["max_context"],
-            **{k: MODEL[k] for k in ("n_layers", "d_model", "n_heads",
-                                     "d_ff")})
-    with tempfile.TemporaryDirectory() as root:
-        d, bundle = os.path.join(root, "lm"), os.path.join(root, "decode")
-        scope = io.scope_from_numpy(params)
-        io.export_serving_model(d, ["src_ids"], [logits], main_program=infer,
-                                scope=scope, batch_size=SERVE_BATCH)
-        del scope
-        io.export_decode_model(bundle, MODEL, params=params,
-                               length_buckets=BUCKETS, slots=SLOTS,
-                               block_size=BLOCK, pool_blocks=POOL_BLOCKS)
-        del params
-        t_export = time.perf_counter() - t0
+    engine = ServingEngine(max_wait_ms=5, queue_depth=64)
+    engine.load_model("lm", d)
+    print(f"serving path (a): exported and loaded in "
+          f"{lm['seconds']:.1f} + "
+          f"{time.perf_counter() - t0:.1f} s; batch {SERVE_BATCH}, "
+          f"src_ids [{SERVE_SEQ}], buckets "
+          f"{engine.models()['lm']['buckets']}")
+    server = None
+    try:
+        rng = np.random.default_rng(seed + 13)
+
+        def burst():
+            return [{"src_ids": rng.integers(1, vocab, SERVE_SEQ)}
+                    for _ in range(SERVE_REQUESTS)]
+
+        # (b) the first burst, then the same requests one at a time
+        reqs = burst()
+        n0 = flash.launches
         t0 = time.perf_counter()
-        engine = ServingEngine(max_wait_ms=5, queue_depth=64)
-        engine.load_model("lm", d)
-        print(f"serving path (a): exported and loaded in {t_export:.1f} + "
-              f"{time.perf_counter() - t0:.1f} s; batch {SERVE_BATCH}, "
-              f"src_ids [{SERVE_SEQ}], buckets "
-              f"{engine.models()['lm']['buckets']}")
-        server = None
-        try:
-            rng = np.random.default_rng(seed + 13)
+        futs = [engine.submit("lm", r) for r in reqs]
+        outs = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        n_burst = flash.launches - n0
+        snap = engine.metrics_snapshot()["models"]["lm"]
+        print(f"serving path (b): {SERVE_REQUESTS} requests in "
+              f"{1e3 * wall:.3f} ms, {SERVE_REQUESTS / wall:.2f} "
+              f"requests/s, {snap['batches']} batches, fill "
+              f"{snap['batch_fill_ratio']}, flash launches {n_burst} "
+              f"[{card}]")
+        for phase, pcts in snap["latency"].items():
+            print(f"  {phase}: p50 {pcts['p50_ms']} ms, p99 "
+                  f"{pcts['p99_ms']} ms")
+        if not 0 < n_burst == layers * snap["batches"]:
+            raise RuntimeError(f"{n_burst} flash launches over "
+                               f"{snap['batches']} batches")
+        t0 = time.perf_counter()
+        for r in reqs:
+            engine.predict("lm", r, timeout=600)
+        wall1 = time.perf_counter() - t0
+        print(f"serving path (b): the same {SERVE_REQUESTS} one at a "
+              f"time: {SERVE_REQUESTS / wall1:.2f} requests/s "
+              f"({1e3 * wall1 / SERVE_REQUESTS:.3f} ms each) [{card}]")
+        n0 = flash.launches
+        version = engine.registry.get("lm").model
+        wall, by_name, _ = profiled(torch, lambda: version.execute_batch(
+            None, reqs[:SERVE_BATCH]), 2)
+        print_profile(f"one-shot batch ({SERVE_BATCH} x {SERVE_SEQ} "
+                      f"tokens, pad + step + copy to the host + "
+                      f"scatter)", wall, by_name, card)
+        predict, _, _ = io.load_serving_model(d)
+        worst, same, plain_worst, plain_share = 0.0, True, 0.0, 0.0
+        for r, out in zip(reqs, outs):
+            batch = np.zeros((SERVE_BATCH, SERVE_SEQ), np.int32)
+            batch[0] = r["src_ids"]
+            want = predict(batch)[0][0]
+            with plain_attention(fa):
+                plain = predict(batch)[0][0]
+            got = out[fetch]
+            same = same and got.tobytes() == want.tobytes()
+            worst = max(worst, float(np.abs(got - want).max()))
+            plain_worst = max(plain_worst,
+                              float(np.abs(got - plain).max()))
+            share = np.abs(got - plain) / (KERNEL_ATOL + KERNEL_RTOL *
+                                           np.abs(plain))
+            plain_share = max(plain_share, float(share.max()))
+            ok = np.abs(got - want) <= KERNEL_ATOL + KERNEL_RTOL * \
+                np.abs(want)
+            if not (np.isfinite(got).all() and ok.all()
+                    and got.shape == (SERVE_SEQ, vocab)):
+                raise RuntimeError("a coalesced request disagrees with "
+                                   "load_serving_model's run")
+        del predict, version
+        left_out += flash.launches - n0
+        print(f"serving path (b): each request vs load_serving_model "
+              f"alone in row 0: max abs diff {worst:.3e} (tol atol "
+              f"{KERNEL_ATOL} rtol {KERNEL_RTOL}), the same bits: "
+              f"{same}; vs that run with the attention op on "
+              f"mha_reference: max abs diff {plain_worst:.3e}, largest "
+              f"share of the limit {plain_share:.4f}")
+        if not plain_share <= 1.0:
+            raise RuntimeError("the served logits disagree with the "
+                               "plain attention's run")
 
-            def burst():
-                return [{"src_ids": rng.integers(1, vocab, SERVE_SEQ)}
-                        for _ in range(SERVE_REQUESTS)]
+        # (c) a second burst with a hot reload in the middle of it
+        reqs = burst()
+        reload = threading.Thread(
+            target=lambda: engine.load_model("lm", d))
+        t0 = time.perf_counter()
+        futs = [engine.submit("lm", r) for r in reqs[:8]]
+        reload.start()
+        for r in reqs[8:]:
+            time.sleep(0.05)
+            futs.append(engine.submit("lm", r))
+        outs = [f.result(timeout=600) for f in futs]
+        reload.join()
+        snap = engine.metrics_snapshot()["models"]["lm"]
+        version = engine.models()["lm"]["version"]
+        print(f"serving path (c): {len(outs)} requests with a hot "
+              f"reload inside {time.perf_counter() - t0:.1f} s: version "
+              f"{version}, received {snap['received']}, completed "
+              f"{snap['completed']}, failed {snap['failed']}, reloads "
+              f"{snap['reloads']}")
+        if not (version == 2 and snap["failed"] == 0
+                and snap["received"] == snap["completed"]
+                and all(o[fetch].shape == (SERVE_SEQ, vocab)
+                        for o in outs)):
+            raise RuntimeError("the hot reload dropped or failed "
+                               "requests")
 
-            # (b) the first burst, then the same requests one at a time
-            reqs = burst()
-            n0 = flash.launches
-            t0 = time.perf_counter()
-            futs = [engine.submit("lm", r) for r in reqs]
-            outs = [f.result(timeout=600) for f in futs]
-            wall = time.perf_counter() - t0
-            n_burst = flash.launches - n0
-            snap = engine.metrics_snapshot()["models"]["lm"]
-            print(f"serving path (b): {SERVE_REQUESTS} requests in "
-                  f"{1e3 * wall:.3f} ms, {SERVE_REQUESTS / wall:.2f} "
-                  f"requests/s, {snap['batches']} batches, fill "
-                  f"{snap['batch_fill_ratio']}, flash launches {n_burst} "
-                  f"[{card}]")
-            for phase, pcts in snap["latency"].items():
-                print(f"  {phase}: p50 {pcts['p50_ms']} ms, p99 "
-                      f"{pcts['p99_ms']} ms")
-            if not 0 < n_burst == layers * snap["batches"]:
-                raise RuntimeError(f"{n_burst} flash launches over "
-                                   f"{snap['batches']} batches")
-            t0 = time.perf_counter()
-            for r in reqs:
-                engine.predict("lm", r, timeout=600)
-            wall1 = time.perf_counter() - t0
-            print(f"serving path (b): the same {SERVE_REQUESTS} one at a "
-                  f"time: {SERVE_REQUESTS / wall1:.2f} requests/s "
-                  f"({1e3 * wall1 / SERVE_REQUESTS:.3f} ms each) [{card}]")
-            n0 = flash.launches
-            version = engine.registry.get("lm").model
-            wall, by_name, _ = profiled(torch, lambda: version.execute_batch(
-                None, reqs[:SERVE_BATCH]), 2)
-            print_profile(f"one-shot batch ({SERVE_BATCH} x {SERVE_SEQ} "
-                          f"tokens, pad + step + copy to the host + "
-                          f"scatter)", wall, by_name, card)
-            predict, _, _ = io.load_serving_model(d)
-            worst, same, plain_worst, plain_share = 0.0, True, 0.0, 0.0
-            for r, out in zip(reqs, outs):
-                batch = np.zeros((SERVE_BATCH, SERVE_SEQ), np.int32)
-                batch[0] = r["src_ids"]
-                want = predict(batch)[0][0]
-                with plain_attention(fa):
-                    plain = predict(batch)[0][0]
-                got = out[logits.name]
-                same = same and got.tobytes() == want.tobytes()
-                worst = max(worst, float(np.abs(got - want).max()))
-                plain_worst = max(plain_worst,
-                                  float(np.abs(got - plain).max()))
-                share = np.abs(got - plain) / (KERNEL_ATOL + KERNEL_RTOL *
-                                               np.abs(plain))
-                plain_share = max(plain_share, float(share.max()))
-                ok = np.abs(got - want) <= KERNEL_ATOL + KERNEL_RTOL * \
-                    np.abs(want)
-                if not (np.isfinite(got).all() and ok.all()
-                        and got.shape == (SERVE_SEQ, vocab)):
-                    raise RuntimeError("a coalesced request disagrees with "
-                                       "load_serving_model's run")
-            del predict, version
-            left_out += flash.launches - n0
-            print(f"serving path (b): each request vs load_serving_model "
-                  f"alone in row 0: max abs diff {worst:.3e} (tol atol "
-                  f"{KERNEL_ATOL} rtol {KERNEL_RTOL}), the same bits: "
-                  f"{same}; vs that run with the attention op on "
-                  f"mha_reference: max abs diff {plain_worst:.3e}, largest "
-                  f"share of the limit {plain_share:.4f}")
-            if not plain_share <= 1.0:
-                raise RuntimeError("the served logits disagree with the "
-                                   "plain attention's run")
+        # (d) the decode facade, in process and over HTTP
+        engine.load_decode_model("lm_decode", bundle)
+        prompts = [rng.integers(1, vocab, n).tolist()
+                   for n in SERVE_PROMPTS]
+        p0 = paged.launches
+        hs = [engine.generate("lm_decode", p, max_new_tokens=SERVE_NEW)
+              for p in prompts]
+        gen = [h.result(timeout=600)["tokens"] for h in hs]
+        server, _ = start_http_server(engine, port=0)
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        status, body = http_call(
+            f"{base}/v1/models/lm_decode:generate",
+            {"prompt_ids": prompts[0], "max_new_tokens": SERVE_NEW})
+        lines = [json.loads(ln) for ln in body.decode().splitlines()]
+        streamed = [ln["token"] for ln in lines if "token" in ln]
+        print(f"serving path (d): 2 generate requests of {SERVE_NEW} "
+              f"tokens, paged launches {paged.launches - p0}; HTTP "
+              f":generate {status}, {len(lines)} NDJSON lines, the "
+              f"facade's tokens: {streamed == gen[0]}")
+        if not (paged.launches > p0 and status == 200
+                and streamed == gen[0] == lines[-1]["tokens"]
+                and all(len(g) == SERVE_NEW for g in gen)):
+            raise RuntimeError("the decode facade or its HTTP stream "
+                               "failed")
 
-            # (c) a second burst with a hot reload in the middle of it
-            reqs = burst()
-            reload = threading.Thread(
-                target=lambda: engine.load_model("lm", d))
-            t0 = time.perf_counter()
-            futs = [engine.submit("lm", r) for r in reqs[:8]]
-            reload.start()
-            for r in reqs[8:]:
-                time.sleep(0.05)
-                futs.append(engine.submit("lm", r))
-            outs = [f.result(timeout=600) for f in futs]
-            reload.join()
-            snap = engine.metrics_snapshot()["models"]["lm"]
-            version = engine.models()["lm"]["version"]
-            print(f"serving path (c): {len(outs)} requests with a hot "
-                  f"reload inside {time.perf_counter() - t0:.1f} s: version "
-                  f"{version}, received {snap['received']}, completed "
-                  f"{snap['completed']}, failed {snap['failed']}, reloads "
-                  f"{snap['reloads']}")
-            if not (version == 2 and snap["failed"] == 0
-                    and snap["received"] == snap["completed"]
-                    and all(o[logits.name].shape == (SERVE_SEQ, vocab)
-                            for o in outs)):
-                raise RuntimeError("the hot reload dropped or failed "
-                                   "requests")
-
-            # (d) the decode facade, in process and over HTTP
-            engine.load_decode_model("lm_decode", bundle)
-            prompts = [rng.integers(1, vocab, n).tolist()
-                       for n in SERVE_PROMPTS]
-            p0 = paged.launches
-            hs = [engine.generate("lm_decode", p, max_new_tokens=SERVE_NEW)
-                  for p in prompts]
-            gen = [h.result(timeout=600)["tokens"] for h in hs]
-            server, _ = start_http_server(engine, port=0)
-            base = f"http://127.0.0.1:{server.server_address[1]}"
-            status, body = http_call(
-                f"{base}/v1/models/lm_decode:generate",
-                {"prompt_ids": prompts[0], "max_new_tokens": SERVE_NEW})
-            lines = [json.loads(ln) for ln in body.decode().splitlines()]
-            streamed = [ln["token"] for ln in lines if "token" in ln]
-            print(f"serving path (d): 2 generate requests of {SERVE_NEW} "
-                  f"tokens, paged launches {paged.launches - p0}; HTTP "
-                  f":generate {status}, {len(lines)} NDJSON lines, the "
-                  f"facade's tokens: {streamed == gen[0]}")
-            if not (paged.launches > p0 and status == 200
-                    and streamed == gen[0] == lines[-1]["tokens"]
-                    and all(len(g) == SERVE_NEW for g in gen)):
-                raise RuntimeError("the decode facade or its HTTP stream "
-                                   "failed")
-
-            # (e) the HTTP routes
-            status, body = http_call(f"{base}/v1/models")
-            models = json.loads(body)["models"]
-            bad, bad_body = http_call(f"{base}/v1/models/lm:predict",
-                                      {"feeds": {"src_ids": [1, 2, 3]}})
-            m_status, text = http_call(f"{base}/metrics?format=prometheus")
-            text = text.decode()
-            problems = validate_exposition(text)
-            want = ('pt_serve_completed_total{model="lm"}',
-                    'pt_decode_tokens_out_total{model="lm_decode"}')
-            found = [w in text for w in want]
-            print(f"serving path (e): /v1/models {status} {sorted(models)}; "
-                  f"bad feed {bad} {json.loads(bad_body)['error']}; "
-                  f"/metrics {m_status}, {len(text.splitlines())} lines, "
-                  f"{len(problems)} problems, series {dict(zip(want, found))}")
-            if not (status == 200 and {"lm", "lm_decode"} <= set(models)
-                    and bad == 400
-                    and json.loads(bad_body)["error"] == "InvalidRequest"
-                    and m_status == 200 and not problems and all(found)):
-                raise RuntimeError("an HTTP route failed")
-        finally:
-            if server is not None:
-                server.shutdown()
-                server.server_close()
-            engine.shutdown()
+        # (e) the HTTP routes
+        status, body = http_call(f"{base}/v1/models")
+        models = json.loads(body)["models"]
+        bad, bad_body = http_call(f"{base}/v1/models/lm:predict",
+                                  {"feeds": {"src_ids": [1, 2, 3]}})
+        m_status, text = http_call(f"{base}/metrics?format=prometheus")
+        text = text.decode()
+        problems = validate_exposition(text)
+        want = ('pt_serve_completed_total{model="lm"}',
+                'pt_decode_tokens_out_total{model="lm_decode"}')
+        found = [w in text for w in want]
+        print(f"serving path (e): /v1/models {status} {sorted(models)}; "
+              f"bad feed {bad} {json.loads(bad_body)['error']}; "
+              f"/metrics {m_status}, {len(text.splitlines())} lines, "
+              f"{len(problems)} problems, series {dict(zip(want, found))}")
+        if not (status == 200 and {"lm", "lm_decode"} <= set(models)
+                and bad == 400
+                and json.loads(bad_body)["error"] == "InvalidRequest"
+                and m_status == 200 and not problems and all(found)):
+            raise RuntimeError("an HTTP route failed")
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        engine.shutdown()
     return {"flash_attention_fwd": flash.launches - left_out,
             "paged_decode_attention": paged.launches}
+
+
+def fleet_burst(router, reqs, fetch):
+    """Submit `reqs` in FLEET_CLASSES priority classes in turn and wait
+    for every answer: (outputs, requests/s)."""
+    t0 = time.perf_counter()
+    futs = [router.submit("lm", r, priority=i % FLEET_CLASSES)
+            for i, r in enumerate(reqs)]
+    outs = [f.result(timeout=600)[fetch] for f in futs]
+    return outs, len(reqs) / (time.perf_counter() - t0)
+
+
+def fleet_path(np, torch, fa, card, seed: int, lm: dict):
+    """Phase 14: the fleet tier (make_fleet: ReplicaPool, FleetRouter,
+    Autoscaler) over replicas of phase 13's artifact and decode bundle,
+    each replica a ServingEngine on the card holding both. Returns the
+    flash forward's and the paged kernel's launches of the phase (the
+    reference engine's runs left out)."""
+    from paddle_tpu_torch.obs.metrics import (render_prometheus,
+                                              validate_exposition)
+    from paddle_tpu_torch.resilience import faults
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.serving.admission import Overloaded
+    from paddle_tpu_torch.serving.fleet import (Autoscaler, FleetRouter,
+                                                make_fleet)
+    from paddle_tpu_torch.serving.http import start_http_server
+
+    t_phase = time.perf_counter()
+    flash, paged = fa.flash_attention_fwd, fa.paged_decode_attention
+    flash.launches = paged.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    vocab, fetch = MODEL["vocab_size"], lm["fetch"]
+    rng = np.random.default_rng(seed + 14)
+    engine_opts = dict(max_wait_ms=5, queue_depth=FLEET_ENGINE_QUEUE)
+
+    def loader(engine, rid):
+        engine.load_model("lm", lm["dir"])
+        engine.load_decode_model("lm_decode", lm["bundle"])
+
+    def burst(n):
+        return [{"src_ids": rng.integers(1, vocab, SERVE_SEQ)}
+                for _ in range(n)]
+
+    def healthy(n):
+        reps = router.pool.all_replicas()
+        return len(reps) == n and all(r.healthy for r in reps)
+
+    def wait_for(pred, what, timeout=300.0):
+        deadline = time.monotonic() + timeout
+        while not pred():
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"fleet: {what} within {timeout} s")
+            time.sleep(0.01)
+
+    answered = []   # (request, the fleet's answer), held to the reference
+    t0 = time.perf_counter()
+    router = make_fleet(loader, replicas=2, autoscale=False,
+                        queue_depth=FLEET_QUEUE,
+                        pool_opts=dict(engine_opts=engine_opts,
+                                       max_replicas=3))
+    small = server = None
+    try:
+        print(f"fleet (a): make_fleet built {router.pool.size()} replicas "
+              f"(the one-shot artifact and the decode bundle each) in "
+              f"{time.perf_counter() - t0:.1f} s, policy {router.policy}")
+
+        # (b) a burst of one-shot requests in FLEET_CLASSES classes, then
+        # generations in FLEET_SESSIONS sessions
+        reqs = burst(FLEET_REQUESTS)
+        outs, rps2 = fleet_burst(router, reqs, fetch)
+        answered += zip(reqs, outs)
+        prompts = [rng.integers(1, vocab, int(n)).tolist()
+                   for n in rng.integers(BUCKETS[0] // 8,
+                                         min(200, BUCKETS[-1] - FLEET_NEW),
+                                         FLEET_GENERATE)]
+        sessions = [f"chat-{i % FLEET_SESSIONS}"
+                    for i in range(FLEET_GENERATE)]
+        home = {s: router._pick_for(s, set()).rid for s in sessions}
+        hs = [router.generate("lm_decode", p, session=s,
+                              max_new_tokens=FLEET_NEW)
+              for p, s in zip(prompts, sessions)]
+        gens = [h.result(timeout=600)["tokens"] for h in hs]
+        want = {}
+        for s in sessions:
+            want[home[s]] = want.get(home[s], 0) + 1
+        got = {r.rid: r.engine.decode_engine("lm_decode").metrics
+               .snapshot()["received"] for r in router.pool.replicas()}
+        got = {rid: n for rid, n in got.items() if n}
+        print(f"fleet (b): {FLEET_REQUESTS} one-shot requests on 2 "
+              f"replicas: {rps2:.2f} requests/s [{card}]; "
+              f"{FLEET_GENERATE} generations in {FLEET_SESSIONS} sessions "
+              f"{home}, by replica {got} (want {want})")
+        if got != want:
+            raise RuntimeError("a session left its replica")
+
+        # (c) one injected router_dispatch crash: failover, rebuild
+        os.environ[faults.ENV_VAR] = "router_dispatch@3"
+        faults.reset()
+        try:
+            reqs = burst(8)
+            outs, _ = fleet_burst(router, reqs, fetch)
+        finally:
+            del os.environ[faults.ENV_VAR]
+            faults.reset()
+        answered += zip(reqs, outs)
+        t0 = time.perf_counter()
+        wait_for(lambda: healthy(2), "the crashed replica was not rebuilt")
+        snap = router.metrics.snapshot()
+        print(f"fleet (c): one router_dispatch crash: failovers "
+              f"{snap['failovers']}, rebuilds {snap['rebuilds']}, "
+              f"{len(outs)} of {len(reqs)} answered, rebuilt healthy "
+              f"{time.perf_counter() - t0:.1f} s later")
+        if not (snap["failovers"] == 1 and snap["rebuilds"] == 1
+                and snap["failed"] == 0):
+            raise RuntimeError("the crash did not fail over cleanly")
+
+        # (d) scale 2 -> 3 -> 1 while a client keeps FLEET_ENGINE_QUEUE
+        # requests in flight
+        stop, sent, load_errors = threading.Event(), [], []
+
+        def client():
+            while not stop.is_set():
+                batch = burst(FLEET_ENGINE_QUEUE)
+                try:
+                    outs, _ = fleet_burst(router, batch, fetch)
+                except Exception as e:  # noqa: BLE001 — the drop count
+                    load_errors.append(f"{type(e).__name__}: {e}")
+                    return
+                if not sent:
+                    answered.extend(zip(batch, outs))
+                sent.extend(o.shape == (SERVE_SEQ, vocab)
+                            and bool(np.isfinite(o).all()) for o in outs)
+
+        load = threading.Thread(target=client)
+        load.start()
+        try:
+            t0 = time.perf_counter()
+            up = router.pool.scale_to(3, reason="chip_smoke")
+            t_up = time.perf_counter() - t0
+            down = router.pool.scale_to(1, reason="chip_smoke")
+        finally:
+            stop.set()
+            load.join(600)
+        print(f"fleet (d): scaled to {up} ({t_up:.1f} s) then {down} "
+              f"under load: {len(sent)} requests answered, "
+              f"{len(load_errors)} failed")
+        if load.is_alive() or load_errors or up != 3 or down != 1 or \
+                not sent or not all(sent):
+            raise RuntimeError(f"the scale events dropped requests: "
+                               f"{load_errors[:3]}")
+        first = answered[:FLEET_REQUESTS]
+        outs, rps1 = fleet_burst(router, [r for r, _ in first], fetch)
+        same = all(o.tobytes() == a.tobytes()
+                   for o, (_, a) in zip(outs, first))
+        print(f"fleet (d): the same {FLEET_REQUESTS} one-shot requests on "
+              f"1 replica: {rps1:.2f} requests/s, against {rps2:.2f} on 2 "
+              f"[{card}]; the same bits: {same}")
+        if not same:
+            raise RuntimeError("one replica answered otherwise than two")
+
+        # (e) a router with a queue bound of FLEET_SMALL_QUEUE over the
+        # same pool, overloaded: the lowest class sheds first, typed
+        small = FleetRouter(router.pool, queue_depth=FLEET_SMALL_QUEUE,
+                            name="fleet_small")
+        served, shed, futs = 0, [], []
+        for i, r in enumerate(burst(FLEET_OVERLOAD)):
+            cls = i % FLEET_CLASSES
+            try:
+                futs.append((cls, small.submit("lm", r, priority=cls)))
+            except Overloaded as e:
+                shed.append((cls, e.shed_class))
+        for cls, f in futs:
+            try:
+                f.result(timeout=600)
+                served += 1
+            except Overloaded as e:
+                shed.append((cls, e.shed_class))
+        by_class = [sum(c == k for c, _ in shed)
+                    for k in range(FLEET_CLASSES)]
+        sheds = small.metrics.snapshot()["sheds"]
+        print(f"fleet (e): {FLEET_OVERLOAD} requests at a queue bound of "
+              f"{FLEET_SMALL_QUEUE}: {served} served, shed by class "
+              f"{by_class}, metrics {sheds}")
+        if not (served + len(shed) == FLEET_OVERLOAD and by_class[0] > 0
+                and all(c == sc for c, sc in shed)
+                and by_class == sorted(by_class, reverse=True)
+                and sheds == {str(k): n for k, n in enumerate(by_class)
+                              if n}):
+            raise RuntimeError("the overload did not shed lowest class "
+                               "first, typed")
+
+        # (f) the autoscaler, ticked by hand: up on queue depth, back
+        # down after its idle window
+        asc = Autoscaler(router.pool, metrics=router.metrics, up_depth=4.0,
+                         down_depth=0.5, up_after=2, down_after=3)
+        reqs = burst(3 * FLEET_ENGINE_QUEUE)
+        futs = [router.submit("lm", r) for r in reqs]
+        wait_for(lambda: router.pool.health()["r0"]["queue_depth"] >= 4,
+                 "the replica's queue never reached 4")
+        ups = [asc.tick(), asc.tick()]
+        outs = [f.result(timeout=600)[fetch] for f in futs]
+        downs = [asc.tick() for _ in range(3)]
+        print(f"fleet (f): autoscaler ticks {ups} under load, {downs} "
+              f"idle; replicas {router.pool.size()}")
+        if ups != [None, "up"] or downs != [None, None, "down"] or \
+                router.pool.size() != 1 or not all(
+                    np.isfinite(o).all() for o in outs):
+            raise RuntimeError("the autoscaler did not scale up and back "
+                               "down")
+
+        # (g) /v1/fleet and the pt_fleet_* scrape over HTTP
+        server, _ = start_http_server(router, port=0)
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        status, body = http_call(f"{base}/v1/fleet")
+        st = json.loads(body)
+        m_status, text = http_call(f"{base}/metrics?format=prometheus")
+        text = text.decode()
+        problems = validate_exposition(text)
+        series = sorted({ln.split("{")[0].split(" ")[0]
+                         for ln in text.splitlines()
+                         if ln.startswith("pt_fleet_")})
+        print(f"fleet (g): /v1/fleet {status} replicas "
+              f"{sorted(st['replicas'])} policy {st['policy']}; /metrics "
+              f"{m_status}, {len(problems)} problems, series {series}")
+        if not (status == 200 and set(st["replicas"]) == {"r0"}
+                and m_status == 200 and not problems
+                and {"pt_fleet_replicas", "pt_fleet_failovers_total",
+                     "pt_fleet_sheds_total", "pt_fleet_scale_events_total",
+                     "pt_fleet_replica_healthy"} <= set(series)
+                and validate_exposition(render_prometheus(
+                    router.metrics_snapshot())) == []):
+            raise RuntimeError("/v1/fleet or the pt_fleet_* scrape failed")
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        for r in (small, router):
+            if r is not None:
+                r.close()
+    launches = {"flash_attention_fwd": flash.launches,
+                "paged_decode_attention": paged.launches}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"fleet: launches {launches}, peak device memory {peak:.2f} GB, "
+          f"{len(answered)} one-shot answers [{card}]")
+
+    # every answer against one ServingEngine's answer to the same request
+    # and the generations against its DecodeEngine's; through that engine
+    # the attention op on mha_reference, as phase 13 holds it
+    ref = ServingEngine(max_wait_ms=5, queue_depth=len(answered))
+    try:
+        loader(ref, "reference")
+        futs = [ref.submit("lm", r) for r, _ in answered]
+        same = all(f.result(timeout=600)[fetch].tobytes() == o.tobytes()
+                   for f, (_, o) in zip(futs, answered))
+        ref_gens = [ref.generate("lm_decode", p, max_new_tokens=FLEET_NEW)
+                    .result(timeout=600)["tokens"] for p in prompts]
+        share = 0.0
+        with plain_attention(fa):
+            for r, o in answered[:SERVE_BATCH]:
+                plain = ref.predict("lm", r, timeout=600)[fetch]
+                share = max(share, float((np.abs(o - plain) / (
+                    KERNEL_ATOL + KERNEL_RTOL * np.abs(plain))).max()))
+    finally:
+        ref.shutdown()
+    wall = time.perf_counter() - t_phase
+    print(f"fleet: every answer the bits of one engine's: {same}; the "
+          f"generations its DecodeEngine's tokens: {gens == ref_gens}; "
+          f"vs the attention op on mha_reference, largest share of the "
+          f"limit {share:.4f}; phase wall {wall:.1f} s")
+    if not (same and gens == ref_gens and share <= 1.0
+            and all(len(g) == FLEET_NEW for g in gens)
+            and all(np.isfinite(o).all() and o.shape == (SERVE_SEQ, vocab)
+                    for _, o in answered)):
+        raise RuntimeError("the fleet's answers disagree with one "
+                           "engine's")
+    for name, n in launches.items():
+        if n == 0:
+            raise RuntimeError(f"{name} was not launched by the fleet")
+    return launches
 
 
 def lm_probe_feeds(np, i, batch, seqlen, vocab):
@@ -2736,9 +3057,13 @@ def main() -> int:
     # the forward kernels run on both chain paths
     launches.update({k: forward.get(k, 0) + v for k, v in
                      chain_train_path(np, torch, fb, card, built).items()})
-    # the one-shot engine and the decode facade run both attention kernels
-    for name, n in serving_path(np, torch, fa, card, args.seed).items():
-        launches[name] += n
+    # the one-shot engine, the decode facade and the fleet run both
+    # attention kernels
+    with tempfile.TemporaryDirectory() as root:
+        lm = export_lm(np, args.seed, root)
+        for path in (serving_path, fleet_path):
+            for name, n in path(np, torch, fa, card, args.seed, lm).items():
+                launches[name] += n
 
     meta = {"flash_attention_fwd": (
                 "paddle_tpu_torch/csrc/flash_attention.cu",

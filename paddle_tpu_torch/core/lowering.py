@@ -2,13 +2,19 @@
 
 Counterpart of ``paddle_tpu/core/lowering.py``. The JAX package traces a
 block into one XLA computation; the port runs the same ops eagerly, in
-program order, by rebinding names in an environment dict:
+program order, over an environment planned once when the step is built:
 
     step(state, feed, generator) -> (fetch_tuple, new_state)
 
 * ``state`` — the persistable vars the program reads (parameters,
   optimizer accumulators), from the Scope;
 * ``feed`` — the per-step inputs;
+* the plan (``BlockPlan``) gives every var name a slot in a list and
+  keeps only what is live: an output that no later op reads, no fetch
+  names and no state carries is not bound (an op that can leave such
+  outputs out, ``OpImpl.optional_outputs``, is not asked for them), and
+  an op with no live output leaves the plan, but for the ops that draw
+  from the run's generator (dropping one would move every later draw);
 * a var marked ``stop_gradient`` is ``.detach()``-ed where an op writes
   it, and so is a fetch, where the value requires grad (in inference
   mode or under ``no_grad`` nothing does, and nothing is detached);
@@ -24,148 +30,179 @@ that uses them raises here.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+import functools
+from typing import Dict, List, Optional, Sequence, Set
 
 import torch
 
 from .program import Block, OpDesc, Program
 from .registry import ExecContext, require_op
 
-__all__ = ["AUTODIFF_OP", "PlannedOp", "plan_ops", "run_op",
-           "run_op_range", "post_forward_reads", "run_block_with_autodiff",
-           "build_step_fn"]
+__all__ = ["AUTODIFF_OP", "PlannedOp", "BlockPlan", "run_op", "run_op_range",
+           "run_block_with_autodiff", "build_step_fn"]
 
 AUTODIFF_OP = "autodiff"
 
+# ops that draw from the run's generator: they stay in the plan with no
+# live output, as every later draw depends on theirs
+_DRAWS = frozenset({"uniform_random", "gaussian_random"})
+
 
 class PlannedOp:
-    """One op resolved once, when its block is lowered: its compute fn
-    and attrs, its input names by slot, and its output names by slot,
-    each with whether the value is detached (the var is marked
-    ``stop_gradient``). A step runs the plan with no registry lookup and
+    """One op resolved once, when its block is planned: its compute fn
+    and attrs, its inputs as env slots by op slot, and its live outputs
+    as (position in the op slot, env slot, detach?) by op slot, with the
+    op slot's arity. Detach is asked only where the var is marked
+    ``stop_gradient``. A step runs the plan with no registry lookup and
     no var lookup an op."""
 
     __slots__ = ("type", "compute", "attrs", "ins", "outs")
 
-    def __init__(self, op: OpDesc, block: Block):
+    def __init__(self, op: OpDesc, block: Block, index: Dict[str, int],
+                 live_after: Set[str]):
         if "remat_scope" in op.attrs:
             raise NotImplementedError(
                 f"op {op.type!r} sits in remat_scope "
                 f"{op.attrs['remat_scope']!r}: activation recomputation is "
                 "not ported; build without remat")
+        impl = require_op(op.type)
         self.type = op.type
-        self.compute = require_op(op.type).compute
         self.attrs = op.attrs
-        self.ins = tuple((slot, tuple(names))
+        self.ins = tuple((slot, tuple(index[n] for n in names))
                          for slot, names in op.inputs.items())
-        self.outs = tuple(
-            (slot, tuple(names),
-             tuple(block.has_var(n) and block.var(n).stop_gradient
-                   for n in names))
-            for slot, names in op.outputs.items())
+        outs = []
+        for slot, names in op.outputs.items():
+            binds = tuple(
+                (pos, index[n],
+                 block.has_var(n) and block.var(n).stop_gradient)
+                for pos, n in enumerate(names) if n in live_after)
+            if binds:
+                outs.append((slot, len(names), binds))
+        self.outs = tuple(outs)
+        self.compute = impl.compute
+        if impl.optional_outputs:
+            self.compute = functools.partial(
+                impl.compute, wanted=frozenset(slot for slot, _, _ in outs))
 
 
-def plan_ops(ops: Sequence[OpDesc], block: Block) -> List[PlannedOp]:
-    return [PlannedOp(op, block) for op in ops]
+class BlockPlan:
+    """A block planned for a step that binds `inputs` (state and feeds)
+    and reads `live_out` (fetches and state) afterwards: the slot of
+    every name, the live ops in program order (the autodiff op left
+    out: the forward's are ops[:bwd_idx], the optimizer's
+    ops[bwd_idx:]), and, with an autodiff op, the slots the ops after
+    it and the step's outputs read (``kept``), the loss's, and the
+    parameters' and their gradients'."""
+
+    def __init__(self, block: Block, inputs: Sequence[str],
+                 live_out: Sequence[str]):
+        self.index: Dict[str, int] = {}
+        for n in inputs:
+            self.slot(n)
+        for op in block.ops:
+            for n in op.input_names() + op.output_names():
+                self.slot(n)
+        for n in live_out:
+            self.slot(n)
+        self.bwd_idx: Optional[int] = None
+        live = set(live_out)
+        planned: List[PlannedOp] = []
+        for op in reversed(block.ops):
+            if op.type == AUTODIFF_OP:
+                self._plan_autodiff(op, live)
+                self.bwd_idx = len(planned)
+                live.difference_update(op.attrs["grad_names"])
+                live.add(op.attrs["loss"])
+                live.update(op.attrs["params"])
+                continue
+            outs = op.output_names()
+            if op.type not in _DRAWS and live.isdisjoint(outs):
+                continue
+            planned.append(PlannedOp(op, block, self.index, live))
+            live.difference_update(outs)
+            live.update(op.input_names())
+        planned.reverse()
+        if self.bwd_idx is not None:
+            self.bwd_idx = len(planned) - self.bwd_idx
+        self.ops = planned
+        unbound = sorted(live - set(inputs))
+        if unbound:
+            raise KeyError(f"{unbound} are read by the program but neither "
+                           "computed before, fed nor in the state")
+
+    def slot(self, name: str) -> int:
+        return self.index.setdefault(name, len(self.index))
+
+    def _plan_autodiff(self, op: OpDesc, live_after: Set[str]) -> None:
+        grads = set(op.attrs["grad_names"])
+        self.kept = tuple(self.index[n] for n in sorted(live_after - grads))
+        self.loss = self.index[op.attrs["loss"]]
+        self.loss_scale = float(op.attrs.get("loss_scale", 1.0))
+        self.params = tuple(self.slot(p) for p in op.attrs["params"])
+        self.grads = tuple(self.slot(g) for g in op.attrs["grad_names"])
 
 
-def run_op(op: PlannedOp, env: Dict[str, torch.Tensor], ctx: ExecContext):
-    """Run one op's compute fn on its inputs from env; rebind its outputs
-    in env."""
-    ins = {slot: [env[n] for n in names] for slot, names in op.ins}
+def run_op(op: PlannedOp, env: List, ctx: ExecContext):
+    """Run one op's compute fn on its inputs from env; rebind its live
+    outputs in env."""
+    ins = {slot: [env[i] for i in idx] for slot, idx in op.ins}
     outs = op.compute(ctx, ins, op.attrs)
-    for slot, names, stops in op.outs:
+    for slot, n, binds in op.outs:
         vals = outs.get(slot)
         if vals is None:
             continue
-        if len(vals) != len(names):
+        if len(vals) != n:
             raise RuntimeError(
                 f"op {op.type}: slot {slot} produced {len(vals)} values for "
-                f"{len(names)} names {list(names)}")
-        for n, v, stop in zip(names, vals, stops):
-            env[n] = v.detach() if stop and v.requires_grad else v
+                f"{n} names")
+        for pos, i, stop in binds:
+            v = vals[pos]
+            env[i] = v.detach() if stop and v.requires_grad else v
 
 
 def run_op_range(plan: Sequence[PlannedOp], start: int, stop: int,
-                 env: Dict[str, torch.Tensor], ctx: ExecContext):
+                 env: List, ctx: ExecContext):
     for op in plan[start:stop]:
         run_op(op, env, ctx)
     return env
 
 
-def _autodiff_index(block: Block) -> Optional[int]:
-    return next((i for i, o in enumerate(block.ops)
-                 if o.type == AUTODIFF_OP), None)
-
-
-def post_forward_reads(block: Block) -> set:
-    """Names the ops after the autodiff marker read, plus the loss: the
-    values that must survive the forward. Empty without a marker."""
-    ops = block.ops
-    bwd_idx = _autodiff_index(block)
-    if bwd_idx is None:
-        return set()
-    needed = {ops[bwd_idx].attrs["loss"]}
-    for op in ops[bwd_idx + 1:]:
-        needed.update(op.input_names())
-    return needed
-
-
-def run_block_with_autodiff(block: Block, env: Dict[str, torch.Tensor],
-                            ctx: ExecContext, live_out=(),
-                            plan: Optional[Sequence[PlannedOp]] = None):
-    """Run a block that may hold one autodiff pseudo-op (see the module
-    docstring). live_out: names the caller reads afterwards (fetches and
-    state); every other forward value is dropped before the backward, so
-    autograd frees activations as it goes. plan: the ops of the block but
-    the autodiff op as build_step_fn planned them (planned here when
-    not given)."""
-    ops = block.ops
-    bwd_idx = _autodiff_index(block)
-    if plan is None:
-        plan = _plan_block(block, bwd_idx)
+def run_block_with_autodiff(plan: BlockPlan, env: List, ctx: ExecContext):
+    """Run a planned block that may hold one autodiff pseudo-op (see the
+    module docstring). Every forward value but those the ops after the
+    marker and the step's outputs read is dropped before the backward,
+    so autograd frees activations as it goes."""
+    ops, bwd_idx = plan.ops, plan.bwd_idx
     if bwd_idx is None:
         with torch.no_grad():
-            return run_op_range(plan, 0, len(plan), env, ctx)
+            return run_op_range(ops, 0, len(ops), env, ctx)
 
-    bop = ops[bwd_idx]
-    loss_name = bop.attrs["loss"]
-    param_names = list(bop.attrs["params"])
-    grad_names = list(bop.attrs["grad_names"])
-    loss_scale = float(bop.attrs.get("loss_scale", 1.0))
-    needed_after = post_forward_reads(block) | {loss_name} | set(live_out)
-
-    leaves = [env[p].detach().requires_grad_(True) for p in param_names]
-    fwd_env = dict(env)
-    fwd_env.update(zip(param_names, leaves))
+    leaves = [env[p].detach().requires_grad_(True) for p in plan.params]
+    fwd_env = list(env)
+    for p, leaf in zip(plan.params, leaves):
+        fwd_env[p] = leaf
     with torch.enable_grad():
-        run_op_range(plan, 0, bwd_idx, fwd_env, ctx)
-        loss = fwd_env[loss_name].float().sum() * loss_scale
-    kept = {k: v for k, v in fwd_env.items() if k in needed_after}
+        run_op_range(ops, 0, bwd_idx, fwd_env, ctx)
+        loss = fwd_env[plan.loss].float().sum() * plan.loss_scale
+    kept = [(i, fwd_env[i]) for i in plan.kept]
     del fwd_env
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     del loss
-    orig_params = {p: env[p] for p in param_names}
-    env = dict(env)
-    env.update((k, v.detach()) for k, v in kept.items())
+    env = list(env)
+    orig_params = [env[p] for p in plan.params]
+    for i, v in kept:
+        if v is not None:
+            env[i] = v.detach()
     # the optimizer updates the parameters the step started from, not the
     # leaf copies the forward read
-    env.update(orig_params)
-    for p, g_name, leaf, g in zip(param_names, grad_names, leaves, grads):
+    for p, orig in zip(plan.params, orig_params):
+        env[p] = orig
+    for g_idx, leaf, g in zip(plan.grads, leaves, grads):
         # a parameter the loss does not reach gets a zero gradient, as
         # jax.value_and_grad gives it
-        env[g_name] = torch.zeros_like(leaf.detach()) if g is None else g
+        env[g_idx] = torch.zeros_like(leaf.detach()) if g is None else g
     with torch.no_grad():
-        return run_op_range(plan, bwd_idx, len(plan), env, ctx)
-
-
-def _plan_block(block: Block, bwd_idx: Optional[int]) -> List[PlannedOp]:
-    """The block's ops but the autodiff op, planned: the forward's are
-    plan[:bwd_idx] and the optimizer's plan[bwd_idx:]."""
-    ops = block.ops
-    if bwd_idx is None:
-        return plan_ops(ops, block)
-    return plan_ops(ops[:bwd_idx] + ops[bwd_idx + 1:], block)
+        return run_op_range(ops, bwd_idx, len(ops), env, ctx)
 
 
 def build_step_fn(program: Program, feed_names: Sequence[str],
@@ -192,23 +229,34 @@ def build_step_fn(program: Program, feed_names: Sequence[str],
                 persist_written.append(n)
                 seen.add(n)
     state_out_names = state_in + persist_written
-    live_out = set(fetch_names) | set(state_out_names)
-    plan = _plan_block(block, _autodiff_index(block))
+    fetch_names = list(fetch_names)
+    plan = BlockPlan(block, state_in + list(feed_names),
+                     fetch_names + state_out_names)
+    index = plan.index
+    state_slots = [(n, index[n]) for n in state_in]
+    feed_slots = [(n, index[n]) for n in feed_names]
+    fetch_slots = [index[n] for n in fetch_names]
+    out_slots = [(n, index[n]) for n in state_out_names]
+    size = len(index)
 
     def step(state: Dict[str, torch.Tensor], feed: Dict[str, torch.Tensor],
              generator: torch.Generator):
         ctx = ExecContext(generator, device)
-        env: Dict[str, torch.Tensor] = {}
-        env.update(state)
-        env.update(feed)
-        env = run_block_with_autodiff(block, env, ctx, live_out, plan)
-        missing = [n for n in fetch_names if n not in env]
+        env: List = [None] * size
+        for n, i in state_slots:
+            env[i] = state[n]
+        for n, i in feed_slots:
+            env[i] = feed[n]
+        env = run_block_with_autodiff(plan, env, ctx)
+        missing = [n for n, i in zip(fetch_names, fetch_slots)
+                   if env[i] is None]
         if missing:
             raise KeyError(f"fetch {missing} is neither computed by the "
                            "program nor fed")
         fetches = tuple(v.detach() if v.requires_grad else v
-                        for v in (env[n] for n in fetch_names))
-        new_state = {n: env[n] for n in state_out_names if n in env}
+                        for v in (env[i] for i in fetch_slots))
+        new_state = {n: env[i] for n, i in out_slots if env[i] is not None}
         return fetches, new_state
 
+    step.plan = plan
     return step, state_out_names

@@ -3,7 +3,9 @@
 Counterpart of ``paddle_tpu/core/registry.py``. A compute fn takes
 ``(ctx, ins, attrs)`` with ``ins`` a dict of slot -> list of tensors and
 returns a dict of slot -> list of tensors; shape inference runs when the
-op is appended to a program. Gradients come from ``torch.autograd``
+op is appended to a program. An op registered with ``optional_outputs``
+takes a keyword ``wanted`` (the output slots a step reads) and may leave
+those slots out when they are not wanted (core/lowering.py's plan). Gradients come from ``torch.autograd``
 through the compute fns (core/lowering.py); an op whose backward is a
 kernel wraps it in a ``torch.autograd.Function``.
 """
@@ -11,7 +13,7 @@ kernel wraps it in a ``torch.autograd.Function``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -25,18 +27,21 @@ class OpImpl:
     # compute(ctx, ins: Dict[str, List[Tensor]], attrs) -> Dict[str, List[Tensor]]
     compute: Callable
     infer_shape: Optional[Callable] = None
+    optional_outputs: Tuple[str, ...] = ()
 
 
 _REGISTRY: Dict[str, OpImpl] = {}
 
 
-def register_op(type: str, infer_shape: Optional[Callable] = None):
+def register_op(type: str, infer_shape: Optional[Callable] = None,
+                optional_outputs: Tuple[str, ...] = ()):
     """Decorator: @register_op("mean", infer_shape=_mean_infer)."""
 
     def deco(fn: Callable):
         if type in _REGISTRY:
             raise ValueError(f"op {type!r} registered twice")
-        _REGISTRY[type] = OpImpl(type, fn, infer_shape)
+        _REGISTRY[type] = OpImpl(type, fn, infer_shape,
+                                 tuple(optional_outputs))
         return fn
 
     return deco

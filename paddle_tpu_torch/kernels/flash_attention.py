@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -54,6 +55,15 @@ __all__ = ["DEFAULT_MASK_VALUE", "mha_reference", "flash_attention_fwd",
            "paged_split_plan", "paged_kv_update"]
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+
+# Host threads of one process (the fleet's replicas: each engine's
+# dispatcher and decode scheduler) launch onto one device at once. This
+# lock makes each ``launches`` count exact, and keeps the paged kernel's
+# scratch in place from its lookup until the launch that reads it is
+# queued: a thread that grew the scratch in between would free the old
+# buffer, and an allocation queued before that launch could take its
+# memory.
+_lock = threading.Lock()
 
 
 def _default_scale(q: torch.Tensor, scale: Optional[float]) -> float:
@@ -276,7 +286,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False,
         build.launch("flash_attention_fwd", fn, q.data_ptr(), k.data_ptr(),
                      v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h, sq, sk,
                      d, scale, int(bool(causal)), stream)
-    flash_attention_fwd.launches += 1
+    with _lock:
+        flash_attention_fwd.launches += 1
     return o, lse
 
 
@@ -329,7 +340,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = False,
                      k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                      delta.data_ptr(), dq.data_ptr(), b, h, sq, k.shape[1], d,
                      scale, int(bool(causal)), stream)
-    flash_attention_bwd_dq.launches += 1
+    with _lock:
+        flash_attention_bwd_dq.launches += 1
     return dq
 
 
@@ -359,7 +371,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *,
                      k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                      delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq,
                      k.shape[1], d, scale, int(bool(causal)), stream)
-    flash_attention_bwd_dkv.launches += 1
+    with _lock:
+        flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
 
@@ -418,8 +431,10 @@ def _paged_scratch_of(device: torch.device, stream: int, pairs: int,
     """(tickets, partials) pointers of the paged kernel's scratch for
     `stream`: `pairs` int tickets (one a (slot, head)), zeroed once and
     set back to 0 by each launch, then `partials` floats, 16-byte
-    aligned. Calls on one stream run in order and share it; calls on two
-    streams never do. Allocated once and grown when a call needs more."""
+    aligned. Calls on one stream run in order and share it, from any
+    host thread; calls on two streams never do. Allocated once and grown
+    when a call needs more; the caller holds ``_lock`` until its launch
+    is queued."""
     key = (device.index, stream)
     buf, tickets = _paged_scratch.get(key, (None, 0))
     if buf is None or tickets < pairs or buf.numel() < tickets + partials:
@@ -465,7 +480,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
     if s_n == 0:
         return out
     p, n_split = paged_split_plan(mb * bs)
-    with build.device_guard(q.device):
+    with build.device_guard(q.device), _lock:
         stream = build.stream(q.device)
         tickets, part = _paged_scratch_of(q.device, stream, s_n * h,
                                           s_n * h * n_split * (d + 2))
@@ -476,7 +491,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
                      block_tables.data_ptr(), context_lens.data_ptr(),
                      out.data_ptr(), tickets, part, s_n, h, d, nb, bs, mb, p,
                      scale, stream)
-    paged_decode_attention.launches += 1
+        paged_decode_attention.launches += 1
     return out
 
 

@@ -135,14 +135,19 @@ def _ln_infer(op, block):
             v.shape, v.dtype = (rows,), "float32"
 
 
-@register_op("layer_norm", infer_shape=_ln_infer)
-def _layer_norm_op(ctx, ins, attrs):
+@register_op("layer_norm", infer_shape=_ln_infer,
+             optional_outputs=("Mean", "Variance"))
+def _layer_norm_op(ctx, ins, attrs, wanted=("Y", "Mean", "Variance")):
     y, mean, var = _layer_norm(
         ins["X"][0], ins["Scale"][0] if ins.get("Scale") else None,
         ins["Bias"][0] if ins.get("Bias") else None,
         attrs.get("begin_norm_axis", 1), attrs.get("epsilon", 1e-5))
-    return {"Y": [y], "Mean": [mean.reshape(-1)],
-            "Variance": [var.reshape(-1)]}
+    out = {"Y": [y]}
+    if "Mean" in wanted:
+        out["Mean"] = [mean.reshape(-1)]
+    if "Variance" in wanted:
+        out["Variance"] = [var.reshape(-1)]
+    return out
 
 
 def _xent_infer(op, block):

@@ -28,8 +28,9 @@ deployment defaults):
 
 The engine runs its models on the first CUDA device unless it is given
 ``device`` (``device="cpu"`` runs the plain PyTorch path); without a
-card the default raises. The fleet tier (``serving/fleet/``) and the
-embedded C API are not ported.
+card the default raises. The fleet tier (``serving/fleet/``: a router
+with weighted-fair admission over a pool of engines on one device, and
+an autoscaler) fronts N engines; the embedded C API is not ported.
 """
 
 from __future__ import annotations

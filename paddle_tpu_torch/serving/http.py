@@ -26,24 +26,31 @@ Routes (JSON in/out):
          stream=false -> one JSON body with the final result
     POST /v1/models/<name>:reload    {"model_dir": path} -> {"version": N}
     GET  /v1/models                  registry description
-    GET  /v1/fleet                   404: the fleet tier (the JAX
-                                     package's serving/fleet/) is not
-                                     ported, as on a single JAX engine
+    GET  /v1/fleet                   fleet-tier status (replica health,
+                                     queue depths per class, autoscaler
+                                     state) — 404 on a single engine
     GET  /v1/metrics                 metrics snapshot (JSON)
     GET  /v1/metrics?format=prometheus
          (also /metrics)             Prometheus text exposition of the
                                      same snapshot — both serving planes
                                      (one-shot + decode) in one scrape
 
+The same server fronts a fleet router (serving/fleet/FleetRouter) —
+anything with the engine surface plus `is_fleet` serves the extra
+tier: requests may carry a `priority` field (body) and an
+`X-PT-Session` affinity header, so a session keeps hitting the replica
+that holds its paged KV blocks, and paid-tier traffic classes ahead of
+free-tier in the fleet queue.
+
 Typed serving errors map to their http_status (429 Overloaded, 504
 DeadlineExceeded, 404 ModelUnavailable, 400 InvalidRequest, 500
 RequestFailed) with a JSON body naming the error type, so clients can
 key retry policy off the type exactly like in-process callers do
-(admission.retryable). An Overloaded error that names a shed
-priority class carries it as `shed_class`. A typed error that fires
-MID-STREAM (a sequence shed after its first tokens went out) arrives
-as a terminal {"error": type, "message": ...} NDJSON line — the status
-line already shipped, so the error type rides in-band.
+(admission.retryable). A fleet Overloaded response body additionally
+carries `shed_class` — which priority class was shed. A typed error
+that fires MID-STREAM (a sequence shed after its first tokens went out)
+arrives as a terminal {"error": type, "message": ...} NDJSON line — the
+status line already shipped, so the error type rides in-band.
 """
 
 from __future__ import annotations
@@ -116,9 +123,12 @@ class _Handler(BaseHTTPRequestHandler):
             if split.path == "/v1/models":
                 self._send(200, {"models": engine.models()})
             elif split.path == "/v1/fleet":
-                self._send(404, {"error": "NotFound",
-                                 "message": "no fleet tier — this "
-                                 "is a single serving engine"})
+                if getattr(engine, "is_fleet", False):
+                    self._send(200, engine.status())
+                else:
+                    self._send(404, {"error": "NotFound",
+                                     "message": "no fleet tier — this "
+                                     "is a single serving engine"})
             elif split.path in ("/v1/metrics", "/metrics"):
                 if query.get("format", [""])[0] == "prometheus":
                     body = render_prometheus(
@@ -174,12 +184,19 @@ class _Handler(BaseHTTPRequestHandler):
             if not isinstance(feeds_in, dict) or not feeds_in:
                 raise InvalidRequest(
                     "predict needs {'feeds': {name: value}}")
-            # one routing read, public surface only (ModelUnavailable
-            # -> 404)
-            model = engine.registry.get(name).model
-            # dtype-faithful conversion: the model's feed dtypes win
-            # over whatever JSON number type the client sent
-            dtypes = model.feed_dtypes()
+            fleet = getattr(engine, "is_fleet", False)
+            if fleet:
+                # one catalog walk for both (ModelUnavailable -> 404,
+                # reject-fast — parity with the single-engine branch)
+                dtypes, version = engine.model_info(name)
+            else:
+                # one routing read, public surface only
+                # (ModelUnavailable -> 404)
+                model = engine.registry.get(name).model
+                # dtype-faithful conversion: the model's feed dtypes
+                # win over whatever JSON number type the client sent
+                dtypes = model.feed_dtypes()
+                version = model.version
             feeds = {}
             for k, v in feeds_in.items():
                 try:
@@ -188,15 +205,30 @@ class _Handler(BaseHTTPRequestHandler):
                 except (TypeError, ValueError) as e:
                     raise InvalidRequest(
                         f"feed {k!r} is not coercible: {e}") from e
-            fut = engine.submit(name, feeds,
-                                deadline_ms=body.get("deadline_ms"))
+            if fleet:
+                # the router-level surface: priority classes the fleet
+                # queue serves weighted-fair, and a session key that
+                # pins this client to its affine replica
+                try:
+                    priority = int(body.get("priority") or 0)
+                except (TypeError, ValueError) as e:
+                    raise InvalidRequest(
+                        f"priority {body.get('priority')!r} is not an "
+                        "integer class") from e
+                fut = engine.submit(
+                    name, feeds, priority=priority,
+                    session=self.headers.get("X-PT-Session"),
+                    deadline_ms=body.get("deadline_ms"))
+            else:
+                fut = engine.submit(name, feeds,
+                                    deadline_ms=body.get("deadline_ms"))
             result = fut.result()   # engine deadline machinery bounds this
             fetches = {
                 k: {"data": v.tolist(), "shape": list(v.shape),
                     "dtype": v.dtype.name}
                 for k, v in result.items()}
             self._send(200, {"fetches": fetches,
-                             "model_version": model.version})
+                             "model_version": version})
 
     def _generate(self, engine, name: str) -> None:
         body = self._read_json()
@@ -217,6 +249,13 @@ class _Handler(BaseHTTPRequestHandler):
         # full wall time, like _predict); a streaming response's span
         # necessarily closes at submit — its duration lives in the
         # scheduler's per-sequence events instead.
+        if getattr(engine, "is_fleet", False):
+            # decode sessions are stateful (paged KV blocks live on ONE
+            # replica): the affinity header keeps a session's turns on
+            # the replica that holds them
+            session = self.headers.get("X-PT-Session")
+            if session is not None:
+                kw["session"] = session
         with obs_trace.span("http_request", cat="serve",
                             route="generate", model=name):
             handle = engine.generate(name, prompt, **kw)

@@ -8,9 +8,10 @@ exports ``chip_smoke.MODEL``'s decode bundle (random weights from
 --seed, the buckets ``chip_smoke.BUCKETS``) with that tree's
 ``io.export_decode_model``, loads it with that tree's ``DecodeModel`` on
 the card, and prints one JSON line: per bucket the host-clock ms of one
-``DecodeModel.prefill`` (mean of --reps calls after one warm-up; each
-call ends in a copy of the last position's logits to the host, as
-``chip_smoke.py`` phase 4 times it), and, from one call under
+``DecodeModel.prefill``, the median and the min-max of --reps (default
+20) calls after one warm-up, each timed alone (a call ends in a copy of
+the last position's logits to the host, as ``chip_smoke.py`` phase 4
+times it), and, from one call under
 torch.profiler, its device busy ms and idle share. Two trees are
 compared in one chip call, in turns:
 
@@ -20,6 +21,7 @@ compared in one chip call, in turns:
 import argparse
 import importlib.util
 import json
+import statistics
 import sys
 import tempfile
 import time
@@ -31,7 +33,7 @@ ROOT = Path(__file__).resolve().parent.parent
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", type=Path, default=ROOT)
-    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     sys.path.insert(0, str(args.tree.resolve()))
@@ -66,14 +68,17 @@ def main() -> int:
     for bound in cs.BUCKETS:
         toks = rng.integers(1, cs.MODEL["vocab_size"], bound).tolist()
         model.prefill(toks)
-        t0 = time.perf_counter()
+        ms = []
         for _ in range(args.reps):
+            t0 = time.perf_counter()
             model.prefill(toks)
-        ms = 1e3 * (time.perf_counter() - t0) / args.reps
+            ms.append(1e3 * (time.perf_counter() - t0))
         wall, by_name, _ = cs.profiled(torch, lambda: model.prefill(toks), 1)
         busy = sum(by_name.values())
         out["buckets"][bound] = {
-            "ms": round(ms, 3), "profiled_wall_ms": round(wall, 3),
+            "ms_median": round(statistics.median(ms), 3),
+            "ms_min_max": [round(min(ms), 3), round(max(ms), 3)],
+            "profiled_wall_ms": round(wall, 3),
             "device_busy_ms": round(busy, 3),
             "idle_share": round(1 - busy / wall, 3) if by_name else None}
     print(json.dumps(out))

@@ -21,6 +21,12 @@ products in another order); the bottleneck chain's forward outputs
 sum of the chain within 1e-5 of the sum of its terms' magnitudes.
 """
 
+import json
+import os
+import subprocess
+import sys
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -334,6 +340,51 @@ def test_paged_kernel_on_two_streams_keeps_its_tickets_apart(cuda):
         want = fa.paged_attention_reference(*args)
         for out in got:
             torch.testing.assert_close(out, want, **TOL)
+
+
+def test_paged_kernel_from_two_threads_matches_one_thread(cuda):
+    """Two host threads launch the paged kernel at once on the default
+    stream, as two fleet replicas' decode schedulers do in one process,
+    with the scratch dropped first so that calls grow it while the other
+    thread launches: every output has the bits of the same call from one
+    thread, and the launch count is exact."""
+    gen = torch.Generator().manual_seed(6)
+    cases = [_paged_case(gen, s, 8, 256, 300, 16,
+                         [(97 * i * s) % 1000 + 1 for i in range(s)],
+                         mb=64)
+             for s in (1, 2, 4, 8, 3, 8, 6, 5)]
+    want = [fa.paged_decode_attention(*args) for args in cases]
+    torch.cuda.synchronize()
+    fa._paged_scratch.clear()
+    start = threading.Barrier(2)
+    got = [[], []]
+
+    def worker(k):
+        start.wait(30)
+        for _ in range(20):
+            for args in cases[k::2] + cases[1 - k::2]:
+                got[k].append((args, fa.paged_decode_attention(*args)))
+
+    n0 = fa.paged_decode_attention.launches
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker, args=(k,))
+                   for k in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+            assert not t.is_alive()
+    finally:
+        sys.setswitchinterval(interval)
+    torch.cuda.synchronize()
+    assert fa.paged_decode_attention.launches - n0 == 2 * 20 * len(cases)
+    by_case = {id(args): w for args, w in zip(cases, want)}
+    for k in range(2):
+        assert len(got[k]) == 20 * len(cases)
+        for args, out in got[k]:
+            assert torch.equal(out, by_case[id(args)])
 
 
 def test_wrappers_never_fall_back(cuda, monkeypatch):
@@ -807,52 +858,109 @@ def test_lstm_forward_takes_r0_at_any_offset(cuda, offset):
         torch.testing.assert_close(x, y, **TOL)
 
 
-def test_lstm_forward_on_two_streams_keeps_its_barriers_apart(cuda):
+def _two_streams(run, reference, args, kernel, tol):
+    """Two calls of `run` queued on two streams with no sync between
+    them (after a call on each, so that its barrier counters and its
+    outputs' memory exist before the profile: an allocation between the
+    two launches can hold the second back until the first has ended).
+    Returns whether the streams' barriers differ, the profiled spans of
+    `kernel` ([start, end] us) and whether every output is within `tol`
+    of `reference`'s."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    streams = [torch.cuda.Stream() for _ in args]
+    for st, a in zip(streams, args):
+        with torch.cuda.stream(st):
+            run(*a)
+    torch.cuda.synchronize()
+    out, barriers = [], []
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for st, a in zip(streams, args):
+            with torch.cuda.stream(st):
+                barriers.append(fl._barrier_of(a[0].device, st.cuda_stream))
+                out.append(run(*a))
+        torch.cuda.synchronize()
+    spans = [[e.time_range.start, e.time_range.end] for e in prof.events()
+             if e.device_type == DeviceType.CUDA and kernel in e.name]
+    close = all(torch.allclose(x, y, **tol)
+                for got, a in zip(out, args)
+                for x, y in zip(got, reference(*a)))
+    return {"apart": barriers[0] != barriers[1], "spans": spans,
+            "close": close}
+
+
+LSTM_COUNT_SHAPES = ((100, 64, 512), (24, 8, 128))
+
+
+def _lstm_profiles() -> dict:
+    """What the LSTM kernels' profiler tests read, profiled in this
+    process: the kernels of 3 forward and of 3 backward calls at each of
+    LSTM_COUNT_SHAPES, and two 16-block calls of each on two streams
+    (long enough to overlap). The lstm_profiles fixture runs it in a
+    fresh process: in a process that has profiled many calls before,
+    torch.profiler recorded fewer kernel events than were launched."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for t, b, h in LSTM_COUNT_SHAPES:
+        fwd = _lstm_fwd_args(t, b, h, None, 10)
+        fl.lstm_seq_fwd(*fwd)
+        bwd = _lstm_bwd_args(t, b, h, None, 12)
+        fl.lstm_seq_bwd(*bwd)
+        torch.cuda.synchronize()
+        out[f"fwd {t} {b} {h}"] = _kernels_of(lambda: fl.lstm_seq_fwd(*fwd),
+                                              3)
+        out[f"bwd {t} {b} {h}"] = _kernels_of(lambda: fl.lstm_seq_bwd(*bwd),
+                                              3, 3)
+    out["fwd streams"] = _two_streams(
+        fl.lstm_seq_fwd, fl.lstm_seq_fwd_reference,
+        [_lstm_fwd_args(1000, 8, 128, None, s) for s in (8, 9)],
+        "lstm_fwd_seq_kernel", TOL)
+    out["bwd streams"] = _two_streams(
+        fl.lstm_seq_bwd, fl.lstm_seq_bwd_reference,
+        [_lstm_bwd_args(1000, 8, 128, None, s) for s in (15, 16)],
+        "lstm_bwd_seq_kernel", BWD_TOL)
+    return out
+
+
+@pytest.fixture(scope="module")
+def lstm_profiles():
+    """_lstm_profiles() of a fresh Python process on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+            "import test_torch_gpu as t; "
+            "print(json.dumps(t._lstm_profiles()))")
+    run = subprocess.run([sys.executable, "-c", code, here],
+                         cwd=os.path.dirname(here), capture_output=True,
+                         text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-4000:]
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def _overlapped(spans) -> bool:
+    return len(spans) == 2 and max(s[0] for s in spans) < min(
+        s[1] for s in spans)
+
+
+def test_lstm_forward_on_two_streams_keeps_its_barriers_apart(
+        lstm_profiles):
     """Two sequence-kernel calls queued on two streams with no sync
     between them, small enough (16 blocks each) to be resident at once
     and long enough to overlap: each stream has its own barrier counters
     (a shared count would release either grid early), so both match their
     plain versions."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    args = [_lstm_fwd_args(1000, 8, 128, None, s) for s in (8, 9)]
-    fl.lstm_seq_fwd(*_lstm_fwd_args(2, 8, 128, None, 0))  # built, planned
-    streams = [torch.cuda.Stream() for _ in args]
-    # a call on each stream first, so that its barrier counters and its
-    # outputs' memory exist before the profile: an allocation between the
-    # two launches can hold the second back until the first has ended
-    for st, fwd in zip(streams, args):
-        with torch.cuda.stream(st):
-            fl.lstm_seq_fwd(*fwd)
-    torch.cuda.synchronize()
-    out, barriers = [], []
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for st, fwd in zip(streams, args):
-            with torch.cuda.stream(st):
-                barriers.append(fl._barrier_of(fwd[0].device,
-                                               st.cuda_stream))
-                out.append(fl.lstm_seq_fwd(*fwd))
-        torch.cuda.synchronize()
-    assert barriers[0] != barriers[1]
-    spans = [e.time_range for e in prof.events()
-             if e.device_type == DeviceType.CUDA
-             and "lstm_fwd_seq_kernel" in e.name]
-    assert len(spans) == 2
+    got = lstm_profiles["fwd streams"]
+    assert got["apart"]
     # the two grids ran at the same time
-    assert max(s.start for s in spans) < min(s.end for s in spans), spans
-    for (rs, cs), fwd in zip(out, args):
-        rrs, rcs = fl.lstm_seq_fwd_reference(*fwd)
-        torch.testing.assert_close(rs, rrs, **TOL)
-        torch.testing.assert_close(cs, rcs, **TOL)
+    assert _overlapped(got["spans"]), got["spans"]
+    assert got["close"]
 
 
-@pytest.mark.parametrize("t,b,h", [(100, 64, 512), (24, 8, 128)])
-def test_lstm_forward_is_one_launch_a_call(cuda, t, b, h):
-    fwd = _lstm_fwd_args(t, b, h, None, 10)
-    fl.lstm_seq_fwd(*fwd)
-    torch.cuda.synchronize()
-    kernels = _kernels_of(lambda: fl.lstm_seq_fwd(*fwd), 3)
+@pytest.mark.parametrize("t,b,h", LSTM_COUNT_SHAPES)
+def test_lstm_forward_is_one_launch_a_call(lstm_profiles, t, b, h):
+    kernels = lstm_profiles[f"fwd {t} {b} {h}"]
     assert len(kernels) == 3, kernels
     assert all("lstm_fwd_seq_kernel" in k for k in kernels), kernels
 
@@ -868,14 +976,11 @@ def _lstm_bwd_args(t, b, h, lens, seed):
         r_prevs, c_prevs, d["drs"], d["dcs"]]
 
 
-@pytest.mark.parametrize("t,b,h", [(100, 64, 512), (24, 8, 128)])
-def test_lstm_backward_is_three_launches_a_call(cuda, t, b, h):
+@pytest.mark.parametrize("t,b,h", LSTM_COUNT_SHAPES)
+def test_lstm_backward_is_three_launches_a_call(lstm_profiles, t, b, h):
     """The gates' recompute, the recurrence's one cooperative launch and
     dW: 3 CUDA launches a call (the per-step path: 2T + 4)."""
-    bwd = _lstm_bwd_args(t, b, h, None, 12)
-    fl.lstm_seq_bwd(*bwd)
-    torch.cuda.synchronize()
-    kernels = _kernels_of(lambda: fl.lstm_seq_bwd(*bwd), 3, 3)
+    kernels = lstm_profiles[f"bwd {t} {b} {h}"]
     assert len(kernels) == 9, kernels
     assert sum("lstm_bwd_seq_kernel" in k for k in kernels) == 3, kernels
 
@@ -904,39 +1009,16 @@ def test_lstm_backward_past_one_row_tile_a_block(cuda):
         assert torch.equal(x, y)
 
 
-def test_lstm_backward_on_two_streams_keeps_its_barriers_apart(cuda):
+def test_lstm_backward_on_two_streams_keeps_its_barriers_apart(
+        lstm_profiles):
     """Two backward calls queued on two streams with no sync between
     them, small enough (16 blocks each) to be resident at once and long
     enough to overlap: each stream has its own barrier counters, so both
     match their plain versions."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    args = [_lstm_bwd_args(1000, 8, 128, None, s) for s in (15, 16)]
-    streams = [torch.cuda.Stream() for _ in args]
-    # a call on each stream first: counters, scratch and outputs exist
-    # before the profile, so no allocation holds the second launch back
-    for st, bwd in zip(streams, args):
-        with torch.cuda.stream(st):
-            fl.lstm_seq_bwd(*bwd)
-    torch.cuda.synchronize()
-    out, barriers = [], []
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for st, bwd in zip(streams, args):
-            with torch.cuda.stream(st):
-                barriers.append(fl._barrier_of(bwd[0].device,
-                                               st.cuda_stream))
-                out.append(fl.lstm_seq_bwd(*bwd))
-        torch.cuda.synchronize()
-    assert barriers[0] != barriers[1]
-    spans = [e.time_range for e in prof.events()
-             if e.device_type == DeviceType.CUDA
-             and "lstm_bwd_seq_kernel" in e.name]
-    assert len(spans) == 2
-    assert max(s.start for s in spans) < min(s.end for s in spans), spans
-    for got, bwd in zip(out, args):
-        for x, y in zip(got, fl.lstm_seq_bwd_reference(*bwd)):
-            torch.testing.assert_close(x, y, **BWD_TOL)
+    got = lstm_profiles["bwd streams"]
+    assert got["apart"]
+    assert _overlapped(got["spans"]), got["spans"]
+    assert got["close"]
 
 
 def test_lstm_wrappers_never_fall_back(cuda, monkeypatch):
