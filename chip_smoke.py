@@ -135,7 +135,27 @@ no result line:
    every held answer against one ServingEngine's (the same bits), the
    generations against its DecodeEngine's tokens and, through it, the
    attention op on mha_reference (phase 13's limits);
-15. print the kernels' JSON line, the card line and the result line.
+15. train phase 5's model through the Trainer with the step's contract:
+   Adam at noam_decay(d_model, warmup_steps=TRAINER_WARMUP) scaled to
+   peak at TRAIN["lr"], GradientClipByGlobalNorm(1.0), L2Decay(1e-4),
+   PT_GUARD=skip, a reader of TRAINER_STEPS lm_probe_feeds batches with
+   log_every TRAINER_LOG_EVERY (lazy metrics between), checkpoints every
+   TRAINER_INTERVAL steps (max_num_checkpoints 1) into a temporary dir:
+   (a) the uninterrupted run: the losses (finite, the last below the
+   first), ms a step between two read boundaries, peak memory, the
+   checkpoint's size, each save's seconds and one verification's (the
+   step-6 serial is kept by hard links when it is written); (b) a new
+   Trainer over that dir holding the step-6 serial resumes at step 7:
+   its losses of steps 7-12 within TRAINER_RTOL of (a)'s, its final
+   state within TRAINER_RTOL of (a)'s (largest difference printed, and
+   whether the bits are the same); (c) one more guarded step with
+   PT_FAULT_INJECT=nan_grad@1: the health flag false and every
+   persistable var, the step counter included, bit-identical; (d) the
+   three flash kernels launched n_layers times a step over (a)-(c);
+   then launches and device ms by class of one step of phase 5's
+   program, of the Trainer's program unguarded and guarded (the clip,
+   decay and schedule's cost, and the guard's);
+16. print the kernels' JSON line, the card line and the result line.
 
 Phase 3 also holds the two LSTM kernels against their plain versions at
 the bench shape (T 100, B 64, H 512), full-length and ragged, timed
@@ -177,9 +197,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -237,6 +259,13 @@ FLEET_OVERLOAD, FLEET_SMALL_QUEUE = 40, 4
 TRAIN = dict(batch=8, seq_len=1024, lr=1e-4)
 TRAIN_STEPS = 6
 LM_PROBE_POOL = 64
+# the Trainer (phase 15): steps over a reader of that many batches, the
+# checkpoint interval, the read interval of the lazy metrics, noam's
+# warm-up; a resumed run's losses and state against the uninterrupted
+# run's, the same steps on the same card from the same checkpoint
+TRAINER_STEPS, TRAINER_INTERVAL, TRAINER_LOG_EVERY = 12, 6, 4
+TRAINER_WARMUP = 8
+TRAINER_RTOL = 1e-5
 # the flash kernels' checks, (batch, sequence) at H 8, D 256, causal: the
 # prefill buckets' batch 1 (and a ragged length), the one-shot engine's
 # batch (phase 13) and a training step; the kernels line reports the
@@ -1501,6 +1530,251 @@ def program_vs_module(np, torch, pt, scope, card):
     if not ok:
         raise RuntimeError("the Program path and the serving module disagree")
     del model
+
+
+def launch_profile(torch, fn):
+    """(kernel launches, device ms, {class: (launches, ms)}) of one call
+    of fn under torch.profiler, after one call outside it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    classes = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, ms = classes.get(kernel_class(e.name), (0, 0.0))
+            classes[kernel_class(e.name)] = (
+                n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    return (sum(n for n, _ in classes.values()),
+            sum(ms for _, ms in classes.values()), classes)
+
+
+def build_trainer(pt, seed, ckpt_dir):
+    """The Trainer of phase 15 over MODEL at TRAIN's shape, built with
+    fresh name counters (a second one names its vars as the first)."""
+    from paddle_tpu_torch.core.program import unique_name_guard
+    from paddle_tpu_torch.models.transformer import transformer_lm_loss
+
+    s = TRAIN["seq_len"]
+
+    def train_func():
+        pt.default_main_program().random_seed = seed
+        pt.default_startup_program().random_seed = seed
+        avg, _ = transformer_lm_loss(
+            vocab_size=MODEL["vocab_size"], seq_len=s,
+            n_layers=MODEL["n_layers"], d_model=MODEL["d_model"],
+            n_heads=MODEL["n_heads"], d_ff=MODEL["d_ff"], max_len=s)
+        return [avg]
+
+    def optimizer_func():
+        # noam's rate peaks at step warmup_steps, at d^-0.5 warmup^-0.5
+        peak = (MODEL["d_model"] * TRAINER_WARMUP) ** -0.5
+        lr = pt.layers.noam_decay(MODEL["d_model"],
+                                  warmup_steps=TRAINER_WARMUP) \
+            * (TRAIN["lr"] / peak)
+        pt.clip.set_gradient_clip(pt.clip.GradientClipByGlobalNorm(1.0))
+        return pt.optimizer.AdamOptimizer(
+            learning_rate=lr, regularization=pt.regularizer.L2Decay(1e-4))
+
+    cfg = pt.CheckpointConfig(ckpt_dir, max_num_checkpoints=1,
+                              step_interval=TRAINER_INTERVAL)
+    with unique_name_guard():
+        return pt.Trainer(train_func, optimizer_func, checkpoint_config=cfg)
+
+
+def trainer_path(np, torch, fa, card, seed: int):
+    """Phase 15: the Trainer at full width, its checkpoint, resume and
+    guard; returns the flash kernels' launches of (a)-(c)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.resilience import faults, manifest
+
+    b, s, v = TRAIN["batch"], TRAIN["seq_len"], MODEL["vocab_size"]
+
+    def reader():
+        return (lm_probe_feeds(np, i, b, s, v) for i in range(TRAINER_STEPS))
+
+    def persistables(trainer):
+        block = trainer.train_program.global_block
+        return {n: trainer.scope.find_var(n) for n, var in block.vars.items()
+                if var.persistable and trainer.scope.find_var(n) is not None}
+
+    old_guard = os.environ.get("PT_GUARD")
+    os.environ["PT_GUARD"] = "skip"
+    root = tempfile.mkdtemp(prefix="trainer_ckpt_")
+    try:
+        ckpt, snap = os.path.join(root, "ckpt"), os.path.join(root, "step6")
+        for name in TRAIN_KERNELS:
+            getattr(fa, name).launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        a = build_trainer(pt, seed, ckpt)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        saves, handles, ends = [], {}, {}
+        save = a._save_checkpoint
+
+        def timed_save(*args):
+            t = time.perf_counter()
+            save(*args)
+            saves.append(time.perf_counter() - t)
+        a._save_checkpoint = timed_save
+
+        def on_a(event):
+            if isinstance(event, pt.BeginStepEvent) and \
+                    event.step == TRAINER_INTERVAL:
+                # keep the step-6 serial: the next save scrolls it away
+                (serial,) = os.listdir(ckpt)
+                os.makedirs(snap)
+                for f in os.listdir(os.path.join(ckpt, serial)):
+                    os.link(os.path.join(ckpt, serial, f),
+                            os.path.join(snap, f))
+            if isinstance(event, pt.EndStepEvent):
+                handles[event.step] = event.metrics[0]
+                ends[event.step] = time.perf_counter()
+
+        t0 = time.perf_counter()
+        a.train(num_epochs=1, event_handler=on_a, reader=reader,
+                log_every=TRAINER_LOG_EVERY)
+        t_train = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses = [float(np.ravel(np.asarray(handles[i]))[0])
+                  for i in range(TRAINER_STEPS)]
+        # steps 1-4, between two read boundaries (steps 0 and 4 read
+        # their loss before their EndStepEvent), no checkpoint between
+        ms = 1e3 * (ends[TRAINER_LOG_EVERY] - ends[0]) / TRAINER_LOG_EVERY
+        ckpt_gb = sum(os.path.getsize(os.path.join(snap, f))
+                      for f in os.listdir(snap)) / 1e9
+        t0 = time.perf_counter()
+        status, problems = manifest.verify_dir(snap)
+        t_verify = time.perf_counter() - t0
+        print(f"trainer (a): {TRAINER_STEPS} steps, built in {t_build:.1f} "
+              f"s, train() {t_train:.1f} s, losses {losses}, {ms:.3f} ms a "
+              f"step (steps 1-{TRAINER_LOG_EVERY}), peak memory "
+              f"{peak_gb:.2f} GB; checkpoint {ckpt_gb:.3f} GB, saves "
+              f"{[round(x, 2) for x in saves]} s, verify {t_verify:.2f} s "
+              f"({status}) [{card}]")
+        if status != "ok" or problems:
+            raise RuntimeError(f"the step-6 serial does not verify: "
+                               f"{problems}")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise RuntimeError(f"trainer losses are not finite and "
+                               f"falling: {losses}")
+
+        # (b) the dir holds the step-6 serial alone; a new Trainer resumes
+        shutil.rmtree(ckpt)
+        os.makedirs(ckpt)
+        os.rename(snap, os.path.join(ckpt, "checkpoint_0"))
+        t0 = time.perf_counter()
+        r = build_trainer(pt, seed, ckpt)
+        torch.cuda.synchronize()
+        t_resume = time.perf_counter() - t0
+        if (r.checkpoint_cfg.epoch_id, r.checkpoint_cfg.step_id) != \
+                (0, TRAINER_INTERVAL):
+            raise RuntimeError(
+                f"resumed at epoch {r.checkpoint_cfg.epoch_id} step "
+                f"{r.checkpoint_cfg.step_id}, expected step "
+                f"{TRAINER_INTERVAL}")
+        rhandles = {}
+        r.train(num_epochs=1, reader=reader, log_every=TRAINER_LOG_EVERY,
+                event_handler=lambda e: rhandles.__setitem__(
+                    e.step, e.metrics[0])
+                if isinstance(e, pt.EndStepEvent) else None)
+        rlosses = [float(np.ravel(np.asarray(rhandles[i]))[0])
+                   for i in range(TRAINER_INTERVAL, TRAINER_STEPS)]
+        loss_rel = max(abs(x - y) / abs(y) for x, y in
+                       zip(rlosses, losses[TRAINER_INTERVAL:]))
+        got, want = persistables(r), persistables(a)
+        if sorted(got) != sorted(want):
+            raise RuntimeError("the resumed run holds other vars")
+        worst, same = 0.0, True
+        for n in want:
+            d = (got[n].float() - want[n].float()).abs()
+            worst = max(worst, float(d.max()))
+            same = same and torch.equal(got[n], want[n])
+            if not bool((d <= TRAINER_RTOL * want[n].float().abs()
+                         + TRAINER_RTOL).all()):
+                raise RuntimeError(f"{n}: the resumed run's state is "
+                                   f"{float(d.max()):.3e} from the "
+                                   "uninterrupted run's")
+        print(f"trainer (b): resumed at step {TRAINER_INTERVAL + 1} in "
+              f"{t_resume:.1f} s (build, verify, load), losses of steps "
+              f"{TRAINER_INTERVAL + 1}-{TRAINER_STEPS} {rlosses}, largest "
+              f"relative loss difference {loss_rel:.3e}, largest state "
+              f"difference {worst:.3e} (tol rtol {TRAINER_RTOL}), "
+              f"bit-identical {same} [{card}]")
+        if not loss_rel <= TRAINER_RTOL:
+            raise RuntimeError("the resumed run's losses differ")
+        del a, got, want, save, timed_save
+        gc.collect()
+
+        # (c) a poisoned step leaves every persistable var as it was
+        before = {n: t.clone() for n, t in persistables(r).items()}
+        os.environ["PT_FAULT_INJECT"] = "nan_grad@1"
+        faults.reset()
+        try:
+            loss, health = r.exe.run(
+                r.train_program, feed=lm_probe_feeds(
+                    np, TRAINER_STEPS, b, s, v),
+                fetch_list=[r.loss], scope=r.scope, guard=True, lazy=True)
+            healthy = bool(health)
+        finally:
+            del os.environ["PT_FAULT_INJECT"]
+            faults.reset()
+        after = persistables(r)
+        changed = [n for n in before if not torch.equal(before[n], after[n])]
+        print(f"trainer (c): nan_grad step: health {healthy}, loss "
+              f"{float(loss):.6f}, {len(before)} persistable vars, "
+              f"{len(changed)} changed [{card}]")
+        if healthy or changed:
+            raise RuntimeError(f"the guarded step was not skipped: health "
+                               f"{healthy}, changed {changed[:5]}")
+        del before, after
+
+        # (d) the flash kernels ran n_layers times a step
+        launches = {name: getattr(fa, name).launches
+                    for name in TRAIN_KERNELS}
+        steps = TRAINER_STEPS + (TRAINER_STEPS - TRAINER_INTERVAL) + 1
+        print(f"trainer (d): launches over {steps} steps {launches}")
+        for name, n in launches.items():
+            if n != MODEL["n_layers"] * steps:
+                raise RuntimeError(f"{name} was launched {n} times by the "
+                                   f"Trainer, expected "
+                                   f"{MODEL['n_layers'] * steps}")
+
+        # what the contract costs a step: phase 5's program, the
+        # Trainer's unguarded and guarded
+        plain, startup, avg = build_lm(pt, MODEL, s, seed)
+        feed = lm_probe_feeds(np, TRAINER_STEPS + 1, b, s, v)
+        exe, scope = pt.Executor(), pt.Scope()
+        exe.run(startup, scope=scope)
+        runs = (("phase 5's program", lambda: exe.run(
+                    plain, feed=feed, fetch_list=[avg], scope=scope)),
+                ("Trainer's program, unguarded", lambda: r.exe.run(
+                    r.train_program, feed=feed, fetch_list=[r.loss],
+                    scope=r.scope)),
+                ("Trainer's program, guarded", lambda: r.exe.run(
+                    r.train_program, feed=feed, fetch_list=[r.loss],
+                    scope=r.scope, guard=True)))
+        for what, fn in runs:
+            n, dev, classes = launch_profile(torch, fn)
+            top = sorted(classes.items(), key=lambda kv: -kv[1][1])[:4]
+            print(f"trainer profile, {what}: {n} launches, device "
+                  f"{dev:.3f} ms; " + "; ".join(
+                      f"{c} {k} launches {ms:.3f} ms" for c, (k, ms) in top)
+                  + f" [{card}]")
+        del exe, scope, r
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        if old_guard is None:
+            os.environ.pop("PT_GUARD", None)
+        else:
+            os.environ["PT_GUARD"] = old_guard
 
 
 def rms(np, a):
@@ -3064,6 +3338,8 @@ def main() -> int:
         for path in (serving_path, fleet_path):
             for name, n in path(np, torch, fa, card, args.seed, lm).items():
                 launches[name] += n
+    for name, n in trainer_path(np, torch, fa, card, args.seed).items():
+        launches[name] += n
 
     meta = {"flash_attention_fwd": (
                 "paddle_tpu_torch/csrc/flash_attention.cu",

@@ -19,17 +19,29 @@ Three slices are ported:
   ``optimizer.AdamOptimizer``;
 * ResNet training: ``models.resnet.get_model`` (Momentum) through the
   same Executor, whose conv-fusion pass (``analysis.fuse``) runs the
-  conv epilogues through the kernels of ``kernels.fused_conv``.
+  conv epilogues through the kernels of ``kernels.fused_conv``;
+* the training step's contract (gradient clipping ``clip``, weight
+  decay ``regularizer``, learning-rate schedules
+  ``layers.learning_rate_scheduler``, lazy fetches, the step guard
+  ``resilience.guard``) and the ``Trainer`` over a reader, with
+  crc32-verified checkpoints (``io.save_checkpoint``) and resume.
 """
 
-from . import analysis, layers, ops, optimizer
+from . import (analysis, clip, io, layers, ops, optimizer, regularizer,
+               resilience)
 from .core.executor import CPUPlace, CUDAPlace, Executor
 from .core.program import (Program, default_main_program,
                            default_startup_program, program_guard)
 from .core.scope import Scope, global_scope, scope_guard
+from .data_feeder import DataFeeder
 from .param_attr import ParamAttr
+from .trainer import (BeginEpochEvent, BeginStepEvent, CheckpointConfig,
+                      EndEpochEvent, EndStepEvent, Inferencer, Trainer)
 
-__all__ = ["analysis", "layers", "ops", "optimizer", "CPUPlace", "CUDAPlace", "Executor",
+__all__ = ["analysis", "clip", "io", "layers", "ops", "optimizer",
+           "regularizer", "resilience", "CPUPlace", "CUDAPlace", "Executor",
            "Program", "default_main_program", "default_startup_program",
            "program_guard", "Scope", "global_scope", "scope_guard",
-           "ParamAttr"]
+           "DataFeeder", "ParamAttr", "Trainer", "CheckpointConfig",
+           "Inferencer", "BeginEpochEvent", "EndEpochEvent",
+           "BeginStepEvent", "EndStepEvent"]

@@ -4,7 +4,9 @@ Counterpart of ``paddle_tpu/backward.py`` ``append_backward``: it picks
 the differentiable parameters, declares the ``@GRAD`` vars, and appends
 ONE ``autodiff`` pseudo-op. The lowering (core/lowering.py) runs the ops
 before it with the parameters as leaf tensors and binds
-``torch.autograd.grad`` of the loss to the ``@GRAD`` names.
+``torch.autograd.grad`` of the loss to the ``@GRAD`` names. A block
+differentiates once: a second ``append_backward`` of the same loss
+merges its parameters into the existing autodiff op.
 """
 
 from __future__ import annotations
@@ -50,10 +52,21 @@ def append_backward(loss: VarDesc, parameter_list: Optional[Sequence[str]] = Non
                                  dtype=loss.dtype)
     loss_grad.stop_gradient = True
 
-    if any(op.type == AUTODIFF_OP for op in block.ops):
-        raise NotImplementedError("a second backward pass on one block (the "
-                                  "JAX package merges it into the first) "
-                                  "is not ported")
+    existing = next((op for op in block.ops
+                     if op.type == AUTODIFF_OP
+                     and op.attrs.get("loss") == loss.name), None)
+    if existing is not None:
+        merged_p = list(existing.attrs["params"])
+        merged_g = list(existing.attrs["grad_names"])
+        for p, g in zip(param_names, grad_names):
+            if p not in merged_p:
+                merged_p.append(p)
+                merged_g.append(g)
+        existing.attrs["params"] = merged_p
+        existing.attrs["grad_names"] = merged_g
+        existing.outputs["Grads"] = list(merged_g)
+        program.invalidate_cache()
+        return pairs
     block.append_op(
         AUTODIFF_OP,
         inputs={}, outputs={"Grads": grad_names},

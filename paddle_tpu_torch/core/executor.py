@@ -7,10 +7,19 @@ writes the new persistable state back to the scope; ``run_loop`` runs
 stacks the fetches. Both run the conv-epilogue fusion pass first
 (analysis/fuse.py), as the JAX package's ``_run_impl`` does. The executor runs on the first CUDA device unless it
 is given ``CPUPlace()``; without a card the default raises.
+
+``lazy=True`` returns ``LazyFetch`` handles (core/async_fetch.py) over
+the fetched device tensors as soon as the step is queued: nothing on
+the dispatch path waits for the card. ``guard=True`` (the program
+carries the ``step_health`` op, resilience/guard.py) draws the step's
+fault code, runs the guarded update and fetches the health flag last.
+``step_timings()`` reports the host_prep / dispatch / device / fetch
+seconds of the runs (PhaseTimer).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -18,6 +27,7 @@ import torch
 
 from ..analysis import fuse as conv_fuse
 from ..lod import LoDTensor, pad_sequences
+from .async_fetch import LazyFetch, PhaseTimer
 from .lowering import build_step_fn
 from .program import Program, VarDesc, default_main_program
 from .scope import Scope, global_scope
@@ -54,6 +64,12 @@ class Executor:
         else:
             self.device = resolve_device(f"cuda:{place.index}")
         self._run_counter = 0
+        self._timings = PhaseTimer()
+
+    def step_timings(self, reset: bool = False) -> dict:
+        """Accounted seconds per phase since the last reset (host_prep /
+        dispatch / device / fetch, host_overhead_pct)."""
+        return self._timings.snapshot(reset=reset)
 
     # -- helpers ------------------------------------------------------------
     @staticmethod
@@ -138,14 +154,9 @@ class Executor:
         return torch.Generator(device=self.device).manual_seed(
             (int(seed) << 32) + self._run_counter)
 
-    def _prepare(self, program, feed, fetch_list, scope, lazy, guard,
+    def _prepare(self, program, feed, fetch_list, scope, guard,
                  per_step=False):
-        if lazy:
-            raise NotImplementedError("Executor.run(lazy=True): lazy fetch "
-                                      "handles are not ported")
-        if guard:
-            raise NotImplementedError("Executor.run(guard=True): the guarded "
-                                      "update is not ported")
+        t_prep = time.perf_counter()
         program = program if program is not None else default_main_program()
         scope = scope if scope is not None else global_scope()
         fetch_names = [self._fetch_name(f) for f in (fetch_list or [])]
@@ -155,15 +166,23 @@ class Executor:
         # clone, memoized per (fingerprint, fetch set); PT_FUSE=0 runs
         # the caller's program as it is
         program = conv_fuse.maybe_fuse(program, protect=fetch_names)
+        if guard:
+            from ..resilience import guard as guard_mod
+            guard_mod.assert_instrumented(program)
+            fetch_names = fetch_names + [guard_mod.HEALTH_VAR]
         state = self._state_for(program, scope)
         step, _ = build_step_fn(program, list(feed_t), fetch_names,
-                                sorted(state), self.device)
-        return program, scope, feed_t, state, step
+                                sorted(state), self.device, guard=guard)
+        self._timings.add("host_prep", time.perf_counter() - t_prep)
+        return program, scope, feed_t, state, step, fetch_names
 
-    @staticmethod
-    def _out(fetches, return_numpy: bool):
+    def _out(self, fetches, fetch_names, return_numpy: bool, lazy: bool):
+        if lazy:
+            return [LazyFetch(f, self._timings, provenance={"fetch": n})
+                    for n, f in zip(fetch_names, fetches)]
         if return_numpy:
-            return [f.cpu().numpy() for f in fetches]
+            with self._timings.span("fetch"):
+                return [f.cpu().numpy() for f in fetches]
         return list(fetches)
 
     # -- entry points -------------------------------------------------------
@@ -172,13 +191,21 @@ class Executor:
             return_numpy: bool = True, lazy: bool = False,
             guard: bool = False):
         """Run one step of `program`; returns the fetches (numpy arrays,
-        or tensors on the device with return_numpy=False)."""
-        program, scope, feed_t, state, step = self._prepare(
-            program, feed, fetch_list, scope, lazy, guard)
-        fetches, new_state = step(state, feed_t, self._generator(program))
+        tensors on the device with return_numpy=False, LazyFetch handles
+        with lazy=True; the health flag last with guard=True)."""
+        program, scope, feed_t, state, step, names = self._prepare(
+            program, feed, fetch_list, scope, guard)
+        fault = 0
+        if guard:
+            from ..resilience import guard as guard_mod
+            fault = guard_mod.fault_feed()
+        with self._timings.span("dispatch"):
+            fetches, new_state = step(state, feed_t,
+                                      self._generator(program), fault)
+        self._timings.count_run()
         for name, val in new_state.items():
             scope.set_var(name, val)
-        return self._out(fetches, return_numpy)
+        return self._out(fetches, names, return_numpy, lazy)
 
     def run_loop(self, program: Optional[Program] = None,
                  feed: Optional[dict] = None,
@@ -189,18 +216,27 @@ class Executor:
         """Run `n_steps` steps. per_step_feeds=False reuses one feed dict
         every step; True takes slice i of each feed array (leading
         [n_steps] axis) at step i. Returns each fetch stacked to
-        [n_steps, ...]."""
-        program, scope, feed_t, state, step = self._prepare(
-            program, feed, fetch_list, scope, lazy, guard, per_step_feeds)
+        [n_steps, ...]. With guard=True the fault code is drawn once a
+        step under per_step_feeds and once a window otherwise, as the
+        JAX package draws it."""
+        program, scope, feed_t, state, step, names = self._prepare(
+            program, feed, fetch_list, scope, guard, per_step_feeds)
+        faults = [0] * n_steps
+        if guard:
+            from ..resilience import guard as guard_mod
+            drawn = guard_mod.fault_feed(n_steps if per_step_feeds else None)
+            faults = drawn if per_step_feeds else [drawn] * n_steps
         gen = self._generator(program)
         per_step = []
-        for i in range(n_steps):
-            f = ({k: v[i] for k, v in feed_t.items()} if per_step_feeds
-                 else feed_t)
-            fetches, new_state = step(state, f, gen)
-            state = dict(state, **new_state)
-            per_step.append(fetches)
+        with self._timings.span("dispatch"):
+            for i in range(n_steps):
+                f = ({k: v[i] for k, v in feed_t.items()} if per_step_feeds
+                     else feed_t)
+                fetches, new_state = step(state, f, gen, faults[i])
+                state = dict(state, **new_state)
+                per_step.append(fetches)
+            stacked = [torch.stack(col) for col in zip(*per_step)]
+        self._timings.count_run()
         for name, val in state.items():
             scope.set_var(name, val)
-        stacked = [torch.stack(col) for col in zip(*per_step)]
-        return self._out(stacked, return_numpy)
+        return self._out(stacked, names, return_numpy, lazy)

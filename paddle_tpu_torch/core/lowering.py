@@ -4,7 +4,7 @@ Counterpart of ``paddle_tpu/core/lowering.py``. The JAX package traces a
 block into one XLA computation; the port runs the same ops eagerly, in
 program order, over an environment planned once when the step is built:
 
-    step(state, feed, generator) -> (fetch_tuple, new_state)
+    step(state, feed, generator, fault=0) -> (fetch_tuple, new_state)
 
 * ``state`` — the persistable vars the program reads (parameters,
   optimizer accumulators), from the Scope;
@@ -167,11 +167,17 @@ def run_op_range(plan: Sequence[PlannedOp], start: int, stop: int,
     return env
 
 
-def run_block_with_autodiff(plan: BlockPlan, env: List, ctx: ExecContext):
+def _poisoned(v: torch.Tensor) -> torch.Tensor:
+    return torch.full_like(v, float("nan"))
+
+
+def run_block_with_autodiff(plan: BlockPlan, env: List, ctx: ExecContext,
+                            fault: int = 0):
     """Run a planned block that may hold one autodiff pseudo-op (see the
     module docstring). Every forward value but those the ops after the
     marker and the step's outputs read is dropped before the backward,
-    so autograd frees activations as it goes."""
+    so autograd frees activations as it goes. `fault` 1 / 2 poisons the
+    loss / the gradients after the backward (the guard's fault sites)."""
     ops, bwd_idx = plan.ops, plan.bwd_idx
     if bwd_idx is None:
         with torch.no_grad():
@@ -201,18 +207,25 @@ def run_block_with_autodiff(plan: BlockPlan, env: List, ctx: ExecContext):
         # a parameter the loss does not reach gets a zero gradient, as
         # jax.value_and_grad gives it
         env[g_idx] = torch.zeros_like(leaf.detach()) if g is None else g
+    if fault == 1 and env[plan.loss] is not None:
+        env[plan.loss] = _poisoned(env[plan.loss])
+    elif fault == 2:
+        for g_idx in plan.grads:
+            env[g_idx] = _poisoned(env[g_idx])
     with torch.no_grad():
         return run_op_range(ops, bwd_idx, len(ops), env, ctx)
 
 
 def build_step_fn(program: Program, feed_names: Sequence[str],
                   fetch_names: Sequence[str], state_in_names: Sequence[str],
-                  device: torch.device):
+                  device: torch.device, guard: bool = False):
     """The step function of block 0 of `program`.
 
     Returns (step, state_out_names): state_out_names are the state vars
     carried through plus every persistable var an op writes (parameter
-    updates, accumulators, startup initializers)."""
+    updates, accumulators, startup initializers). With guard=True the
+    fetches must name the health var (the executor appends it) and the
+    update is the guarded select."""
     if program.amp_dtype is not None:
         raise NotImplementedError(
             f"program.amp_dtype={program.amp_dtype!r}: mixed precision is not "
@@ -238,16 +251,22 @@ def build_step_fn(program: Program, feed_names: Sequence[str],
     fetch_slots = [index[n] for n in fetch_names]
     out_slots = [(n, index[n]) for n in state_out_names]
     size = len(index)
+    health_slot = None
+    if guard:
+        from ..resilience.guard import HEALTH_VAR
+        health_slot = index[HEALTH_VAR]
+    loss_scale = plan.loss_scale if plan.bwd_idx is not None else 1.0
 
     def step(state: Dict[str, torch.Tensor], feed: Dict[str, torch.Tensor],
-             generator: torch.Generator):
+             generator: torch.Generator, fault: int = 0):
         ctx = ExecContext(generator, device)
+        ctx.loss_scale = loss_scale
         env: List = [None] * size
         for n, i in state_slots:
             env[i] = state[n]
         for n, i in feed_slots:
             env[i] = feed[n]
-        env = run_block_with_autodiff(plan, env, ctx)
+        env = run_block_with_autodiff(plan, env, ctx, fault)
         missing = [n for n, i in zip(fetch_names, fetch_slots)
                    if env[i] is None]
         if missing:
@@ -256,6 +275,14 @@ def build_step_fn(program: Program, feed_names: Sequence[str],
         fetches = tuple(v.detach() if v.requires_grad else v
                         for v in (env[i] for i in fetch_slots))
         new_state = {n: env[i] for n, i in out_slots if env[i] is not None}
+        if health_slot is not None:
+            # the guarded update: an unhealthy step keeps every state
+            # value it started from (a var the step did not rebind is
+            # its own old value already)
+            healthy = env[health_slot]
+            new_state = {n: (torch.where(healthy, v, state[n])
+                             if n in state and v is not state[n] else v)
+                         for n, v in new_state.items()}
         return fetches, new_state
 
     step.plan = plan

@@ -68,11 +68,13 @@ class ExecContext:
     """Per-run context of the compute fns: the device and the random
     stream. The JAX package threads a PRNG key; the port draws from one
     explicit ``torch.Generator`` on the run's device, seeded from the
-    program's ``random_seed`` and the executor's run counter."""
+    program's ``random_seed`` and the executor's run counter.
+    ``loss_scale`` is the autodiff op's (the step-health op reads it)."""
 
     def __init__(self, generator: torch.Generator, device: torch.device):
         self.generator = generator
         self.device = device
+        self.loss_scale = 1.0
 
 
 # ---------------------------------------------------------------------------

@@ -10,9 +10,19 @@ Counterpart of ``paddle_tpu/io.py``:
   ``load_inference_model``: ``__model__.json`` (the pruned ``for_test``
   program's dict, the feed and fetch names) beside the persistables. The
   IR is the JAX package's field for field, so a directory that the JAX
-  package's ``save_inference_model`` wrote loads here. Manifest
-  verification (``resilience/manifest.py``) is not ported: nothing is
-  verified on load;
+  package's ``save_inference_model`` wrote loads here. The directory
+  gets a crc32 manifest (``resilience/manifest.py``), verified on
+  ``load_inference_model`` and ``load_persistables`` (``PT_CKPT_VERIFY``,
+  on by default);
+* checkpoints: ``save_checkpoint`` writes a serial dir
+  (``checkpoint_<n>``: the persistables, ``trainer_<id>.json``, the
+  manifest), then the ``_SUCCESS`` marker bound to the manifest, then
+  scrolls old serials away; ``get_latest_checkpoint_serial`` verifies
+  and quarantines a corrupt serial and falls back to an older one;
+  ``load_checkpoint`` restores a serial and returns its trainer args.
+  The layout and the manifests are the JAX package's, so a checkpoint
+  either package wrote resumes in the other. Multi-host saves and plan
+  stamps are not ported and raise;
 * ``export_serving_model`` / ``load_serving_model``: the serving
   artifact. The JAX package's holds StableHLO executables, which PyTorch
   cannot load; the port's ``serving.json`` has the JAX schema (``feeds``,
@@ -40,6 +50,8 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -53,19 +65,42 @@ from .core.types import (device_dtype, normalize_dtype, resolve_device,
                          torch_dtype)
 from .models.transformer import (CONFIG_KEYS, TransformerLM, param_shapes,
                                  transformer_lm)
+from .resilience import faults
+from .resilience import manifest as _manifest
+from .resilience.faults import FaultInjected
+from .resilience.manifest import VerificationError as _VerificationError
+from .resilience.retry import RetryPolicy, retry_call
 
 __all__ = ["FORMAT", "MODEL_FILENAME", "params_from_numpy",
            "scope_from_numpy", "save_vars", "load_vars",
            "save_persistables", "load_persistables", "get_inference_program",
            "save_inference_model", "load_inference_model",
            "export_serving_model", "load_serving_model", "ServingProgram",
-           "read_serving_meta", "export_decode_model", "load_decode_bundle"]
+           "read_serving_meta", "export_decode_model", "load_decode_bundle",
+           "save_checkpoint", "load_checkpoint", "clean_checkpoint",
+           "get_latest_checkpoint_serial", "CheckpointCorruptError"]
 
 #: format tag of a port serving artifact's serving.json (decode bundles
 #: included: a decode bundle is a serving artifact with a decode section)
 FORMAT = "paddle_tpu_torch.serving/1"
 #: the inference model's program file, as the JAX package names it
 MODEL_FILENAME = "__model__.json"
+SUCCESS_MARK_FILENAME = "_SUCCESS"
+CHECKPOINT_PREFIX = "checkpoint"
+
+
+class CheckpointCorruptError(_VerificationError):
+    """An explicitly requested checkpoint (or an inference dir) failed
+    manifest verification. Auto-selection never raises it: it falls back
+    to the newest serial that verifies, quarantining the corrupt one."""
+
+
+#: transient-FS retry for checkpoint reads; a missing var file and an
+#: integrity failure fail the same way every time and are not retried
+_LOAD_RETRY = RetryPolicy(
+    retries=2, base_delay=0.05, max_delay=0.5,
+    retry_on=lambda e: isinstance(e, OSError)
+    and not isinstance(e, (FileNotFoundError, _VerificationError)))
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -131,10 +166,55 @@ def _executor_device(executor) -> torch.device:
     return executor.device if executor is not None else resolve_device()
 
 
+def _host_array(t: torch.Tensor) -> np.ndarray:
+    """A var's bytes for its .npy: bfloat16 (which numpy lacks) is
+    widened to float32, losslessly; load_vars narrows it back to the
+    var's dtype."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
+def _atomic_save(path: str, arr: np.ndarray) -> None:
+    """np.save to a temp name, then rename: a crash leaves the previous
+    file or none, never half of one (the fault sites io_crash and
+    io_write_truncate make both cases on purpose)."""
+    faults.crash_point("io_crash")
+    tmp = path + f".tmp{os.getpid()}"
+    with open(tmp, "wb") as f:
+        np.save(f, arr)
+    hit = faults.fire("io_write_truncate")
+    if hit is not None:
+        # a torn write: half the bytes reach the final name, then the
+        # process "dies" (what the manifest exists to catch)
+        size = os.path.getsize(tmp)
+        with open(tmp, "r+b") as f:
+            f.truncate(size // 2)
+        os.replace(tmp, path)
+        raise FaultInjected("io_write_truncate", hit)
+    os.replace(tmp, path)
+
+
+def _verify_dir_or_raise(dirname: str, what: str,
+                         verify: Optional[bool] = None) -> None:
+    """Verify a directory that has a manifest (`verify`: None follows
+    PT_CKPT_VERIFY, on by default); a corrupt one raises."""
+    if verify is None:
+        verify = _manifest.verify_on_load()
+    if verify and _manifest.read_manifest(dirname) is not None:
+        status, problems = _manifest.verify_dir(dirname)
+        if status == "corrupt":
+            raise CheckpointCorruptError(
+                f"{what} {dirname!r} failed manifest verification: "
+                f"{'; '.join(problems[:5])}")
+
+
 def save_vars(executor=None, dirname: str = "", main_program=None,
               vars=None, predicate=None, filename=None, scope=None):
-    """One ``<name>.npy`` a var (the persistable vars by default). The
-    combined single-file layout (`filename`) is not ported."""
+    """One ``<name>.npy`` a var (the persistable vars by default), each
+    written atomically. The combined single-file layout (`filename`) is
+    not ported."""
     if filename is not None:
         raise NotImplementedError("save_vars(filename=...): the combined "
                                   "single-file layout is not ported")
@@ -150,13 +230,14 @@ def save_vars(executor=None, dirname: str = "", main_program=None,
             f"{'...' if len(absent) > 5 else ''}")
     os.makedirs(dirname, exist_ok=True)
     for n, val in values.items():
-        np.save(_var_path(dirname, n), val.detach().cpu().numpy())
+        _atomic_save(_var_path(dirname, n), _host_array(val))
 
 
 def load_vars(executor=None, dirname: str = "", main_program=None,
               vars=None, predicate=None, filename=None, scope=None):
     """Read the per-var layout into `scope` on the executor's device (the
-    first CUDA device without an executor)."""
+    first CUDA device without an executor). A bfloat16 var is narrowed
+    back from its float32 file."""
     if filename is not None:
         raise NotImplementedError("load_vars(filename=...): the combined "
                                   "single-file layout is not ported")
@@ -169,7 +250,10 @@ def load_vars(executor=None, dirname: str = "", main_program=None,
         if not os.path.exists(path):
             missing.append(v.name)
             continue
-        scope.set_var(v.name, _tensor(np.load(path), device))
+        t = _tensor(np.load(path), device)
+        if v.dtype == "bfloat16":
+            t = t.to(torch.bfloat16)
+        scope.set_var(v.name, t)
     if missing:
         raise FileNotFoundError(
             f"load_vars: no saved file for {len(missing)} variable(s) in "
@@ -183,7 +267,11 @@ def save_persistables(executor=None, dirname: str = "", main_program=None,
 
 
 def load_persistables(executor=None, dirname: str = "", main_program=None,
-                      filename=None, scope=None):
+                      filename=None, scope=None, verify: Optional[bool] = None):
+    """load_vars of the persistables. A directory with a manifest is
+    verified first (`verify`: None follows PT_CKPT_VERIFY, on by
+    default); a corrupt one raises CheckpointCorruptError."""
+    _verify_dir_or_raise(dirname, "persistables dir", verify)
     return load_vars(executor, dirname, main_program, None, None, filename,
                      scope)
 
@@ -217,8 +305,8 @@ def save_inference_model(dirname: str, feeded_var_names: Sequence[str],
                          target_vars, executor=None, main_program=None,
                          model_filename: Optional[str] = None,
                          params_filename: Optional[str] = None, scope=None):
-    """The pruned, ``for_test`` program and its persistables. Returns the
-    fetch names."""
+    """The pruned, ``for_test`` program and its persistables, then the
+    directory's manifest. Returns the fetch names."""
     main_program = main_program or default_main_program()
     target_names = _names(target_vars)
     pruned = main_program.clone(for_test=True).prune(
@@ -227,6 +315,7 @@ def save_inference_model(dirname: str, feeded_var_names: Sequence[str],
                  model_filename or MODEL_FILENAME)
     save_persistables(executor, dirname, pruned, filename=params_filename,
                       scope=scope)
+    _manifest.write_manifest(dirname, layout="inference")
     return target_names
 
 
@@ -234,13 +323,15 @@ def load_inference_model(dirname: str, executor=None,
                          model_filename: Optional[str] = None,
                          params_filename: Optional[str] = None, scope=None):
     """(program, feed names, fetch vars); the persistables go into
-    `scope` on the executor's device. No manifest is verified (the
-    manifest layer is not ported)."""
+    `scope` on the executor's device. A directory with a manifest is
+    verified first (PT_CKPT_VERIFY); a corrupt one raises
+    CheckpointCorruptError."""
+    _verify_dir_or_raise(dirname, "inference model dir")
     with open(os.path.join(dirname, model_filename or MODEL_FILENAME)) as f:
         meta = json.load(f)
     program = Program.from_dict(meta["program"])
     load_persistables(executor, dirname, program, filename=params_filename,
-                      scope=scope)
+                      scope=scope, verify=False)
     fetch_vars = [program.global_block.var(n) for n in meta["fetch_names"]]
     return program, meta["feed_names"], fetch_vars
 
@@ -619,3 +710,141 @@ def load_decode_bundle(dirname: str, device=None, *, warmup: bool = False):
     model = TransformerLM.from_tensors(meta["decode"]["model_cfg"],
                                        prefill.state)
     return meta, prefill, model
+
+
+# ---------------------------------------------------------------------------
+# checkpoints
+# ---------------------------------------------------------------------------
+
+def _serial_dir(checkpoint_dir: str, serial: int) -> str:
+    return os.path.join(checkpoint_dir, f"{CHECKPOINT_PREFIX}_{serial}")
+
+
+def _committed_serials(checkpoint_dir: str) -> List[int]:
+    out = []
+    for name in os.listdir(checkpoint_dir):
+        m = re.fullmatch(rf"{CHECKPOINT_PREFIX}_(\d+)", name)
+        if m and os.path.exists(os.path.join(checkpoint_dir, name,
+                                             SUCCESS_MARK_FILENAME)):
+            out.append(int(m.group(1)))
+    return sorted(out, reverse=True)
+
+
+def get_latest_checkpoint_serial(checkpoint_dir: str,
+                                 verify: Optional[bool] = None) -> int:
+    """The newest committed serial; by default (PT_CKPT_VERIFY) the
+    newest that also passes manifest verification. A committed serial
+    that fails is quarantined (renamed ``checkpoint_N.corrupt``, never
+    deleted) and the scan falls back to the next older one. A serial
+    without a manifest verifies as legacy and is accepted. -1: none."""
+    if not checkpoint_dir or not os.path.isdir(checkpoint_dir):
+        return -1
+    if verify is None:
+        verify = _manifest.verify_on_load()
+    import warnings
+    for serial in _committed_serials(checkpoint_dir):
+        if not verify:
+            return serial
+        cur = _serial_dir(checkpoint_dir, serial)
+        status, problems = _manifest.verify_dir(cur, SUCCESS_MARK_FILENAME)
+        if status != "corrupt":
+            return serial
+        dest = _manifest.quarantine(cur)
+        warnings.warn(
+            f"checkpoint serial {serial} in {checkpoint_dir!r} failed "
+            f"manifest verification ({'; '.join(problems[:3])}"
+            f"{'...' if len(problems) > 3 else ''}) — quarantined to "
+            f"{dest}; falling back to the next older serial",
+            stacklevel=2)
+    return -1
+
+
+def save_checkpoint(executor=None, checkpoint_dir: str = "",
+                    trainer_id: int = 0, trainer_args: Optional[dict] = None,
+                    main_program=None, max_num_checkpoints: int = 3,
+                    scope=None, plan=None) -> int:
+    """Write the next serial dir (the persistables and
+    ``trainer_<id>.json``), its manifest, then the _SUCCESS marker bound
+    to the manifest, then remove all but the newest
+    `max_num_checkpoints` serials. Returns the serial. A crash before
+    the marker leaves an uncommitted dir that the next save clears.
+    Plan stamps (`plan`) are not ported."""
+    if plan is not None:
+        raise NotImplementedError("save_checkpoint(plan=...): plan stamps "
+                                  "of a sharded run are not ported")
+    # picking the serial reads markers only: verification is the load
+    # path's duty
+    serial = get_latest_checkpoint_serial(checkpoint_dir, verify=False) + 1
+    cur = _serial_dir(checkpoint_dir, serial)
+    if os.path.isdir(cur):
+        # an uncommitted attempt's leftovers
+        shutil.rmtree(cur, ignore_errors=True)
+    os.makedirs(cur, exist_ok=True)
+    save_persistables(executor, cur, main_program, scope=scope)
+    if trainer_args:
+        with open(os.path.join(cur, f"trainer_{trainer_id}.json"), "w") as f:
+            json.dump(trainer_args, f)
+    _manifest.write_manifest(cur, layout="checkpoint")
+    faults.crash_point("commit_crash")
+    marker = os.path.join(cur, SUCCESS_MARK_FILENAME)
+    tmp = marker + f".tmp{os.getpid()}"
+    with open(tmp, "w") as f:
+        f.write(_manifest.success_payload(cur))
+    os.replace(tmp, marker)
+    _scroll_delete(checkpoint_dir, max_num_checkpoints)
+    return serial
+
+
+def load_checkpoint(executor=None, checkpoint_dir: str = "",
+                    serial: Optional[int] = None, main_program=None,
+                    trainer_id: int = 0, scope=None,
+                    verify: Optional[bool] = None,
+                    expect_plan: Optional[dict] = None,
+                    reshard: bool = False):
+    """Restore a serial's persistables into `scope` on the executor's
+    device; returns its trainer args (None without them, or without a
+    serial). `serial=None` takes the newest that verifies; an explicit
+    serial that fails verification raises CheckpointCorruptError.
+    `verify=False` skips re-verifying a serial the caller just selected
+    through get_latest_checkpoint_serial. Plan stamps (`expect_plan`,
+    `reshard`) are not ported."""
+    if expect_plan is not None or reshard:
+        raise NotImplementedError("load_checkpoint(expect_plan=..., "
+                                  "reshard=...): plan stamps of a sharded "
+                                  "run are not ported")
+    if serial is None:
+        serial = get_latest_checkpoint_serial(checkpoint_dir)
+    else:
+        # an explicit serial is the caller's choice: no fallback
+        _verify_dir_or_raise(_serial_dir(checkpoint_dir, serial),
+                             "checkpoint serial", verify)
+    if serial < 0:
+        return None
+    cur = _serial_dir(checkpoint_dir, serial)
+    retry_call(load_persistables, executor, cur, main_program, scope=scope,
+               verify=False, policy=_LOAD_RETRY)
+    args_path = os.path.join(cur, f"trainer_{trainer_id}.json")
+    if os.path.exists(args_path):
+        with open(args_path) as f:
+            return json.load(f)
+    return None
+
+
+def clean_checkpoint(checkpoint_dir: str, delete_dir: bool = False):
+    _scroll_delete(checkpoint_dir, max_num_checkpoints=0)
+    if delete_dir and os.path.isdir(checkpoint_dir) \
+            and not os.listdir(checkpoint_dir):
+        os.rmdir(checkpoint_dir)
+
+
+def _scroll_delete(checkpoint_dir: str, max_num_checkpoints: int):
+    if not os.path.isdir(checkpoint_dir):
+        return
+    serials = []
+    for name in os.listdir(checkpoint_dir):
+        m = re.fullmatch(rf"{CHECKPOINT_PREFIX}_(\d+)", name)
+        if m:
+            serials.append(int(m.group(1)))
+    serials.sort(reverse=True)
+    for s in serials[max_num_checkpoints:]:
+        shutil.rmtree(_serial_dir(checkpoint_dir, s), ignore_errors=True)

@@ -3,9 +3,10 @@
 Counterpart of the layers of ``paddle_tpu/layers/nn.py`` that the
 Transformer LM and ResNet build: ``fc``, ``embedding``, ``layer_norm``,
 ``softmax_with_cross_entropy``, ``mean``, ``reshape``,
-``elementwise_add``, ``slice``, ``conv2d``, ``pool2d``, ``batch_norm``,
-``fused_bottleneck``, ``cross_entropy``, ``softmax``, ``relu`` and
-``topk``. Each appends ops to the default main program through
+``elementwise_add`` (and ``_sub`` / ``_mul`` / ``_div`` / ``_max`` /
+``_min`` / ``_pow``), ``scale``, ``clip``, ``clip_by_norm``, ``cast``,
+``slice``, ``conv2d``, ``pool2d``, ``batch_norm``, ``fused_bottleneck``,
+``cross_entropy``, ``softmax``, ``relu`` and ``topk``. Each appends ops to the default main program through
 LayerHelper, with the JAX package's op types, attrs and names, and
 returns the output VarDesc.
 """
@@ -25,7 +26,10 @@ from .sequence import propagate_seq
 __all__ = ["fc", "embedding", "layer_norm", "softmax_with_cross_entropy",
            "mean", "reshape", "elementwise_add", "slice", "conv2d", "pool2d",
            "batch_norm", "fused_bottleneck", "cross_entropy", "softmax",
-           "relu", "topk", "reduce_sum"]
+           "relu", "topk", "reduce_sum", "elementwise_sub",
+           "elementwise_mul", "elementwise_div", "elementwise_max",
+           "elementwise_min", "elementwise_pow", "scale", "clip",
+           "clip_by_norm", "cast"]
 
 
 def _fresh_attr(attr) -> ParamAttr:
@@ -122,10 +126,17 @@ def layer_norm(input, scale: bool = True, shift: bool = True,
     return helper.append_activation(out)
 
 
-def _unary(op_type, x, attrs=None):
+def _unary(op_type, x, attrs=None, out_dtype=None):
+    helper = LayerHelper(op_type)
+    out = helper.create_tmp_variable(out_dtype or x.dtype)
+    helper.append_op(op_type, {"X": x}, {"Out": out}, attrs or {})
+    return out
+
+
+def _binary(op_type, x, y, attrs=None):
     helper = LayerHelper(op_type)
     out = helper.create_tmp_variable(x.dtype)
-    helper.append_op(op_type, {"X": x}, {"Out": out}, attrs or {})
+    helper.append_op(op_type, {"X": x, "Y": y}, {"Out": out}, attrs or {})
     return out
 
 
@@ -165,11 +176,55 @@ def reshape(x, shape, actual_shape=None, act=None, inplace=True, name=None):
 
 
 def elementwise_add(x, y, axis=-1, act=None, name=None):
-    helper = LayerHelper("elementwise_add")
-    out = helper.create_tmp_variable(x.dtype)
-    helper.append_op("elementwise_add", {"X": x, "Y": y}, {"Out": out},
-                     {"axis": axis})
+    out = _binary("elementwise_add", x, y, {"axis": axis})
     return _unary(act, out) if act else out
+
+
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    out = _binary("elementwise_sub", x, y, {"axis": axis})
+    return _unary(act, out) if act else out
+
+
+def elementwise_mul(x, y, axis=-1, act=None, name=None):
+    out = _binary("elementwise_mul", x, y, {"axis": axis})
+    return _unary(act, out) if act else out
+
+
+def elementwise_div(x, y, axis=-1, act=None, name=None):
+    out = _binary("elementwise_div", x, y, {"axis": axis})
+    return _unary(act, out) if act else out
+
+
+def elementwise_max(x, y, axis=-1, act=None, name=None):
+    return _binary("elementwise_max", x, y, {"axis": axis})
+
+
+def elementwise_min(x, y, axis=-1, act=None, name=None):
+    return _binary("elementwise_min", x, y, {"axis": axis})
+
+
+def elementwise_pow(x, y, axis=-1, act=None, name=None):
+    return _binary("elementwise_pow", x, y, {"axis": axis})
+
+
+def clip(x, min, max, name=None):
+    return _unary("clip", x, {"min": float(min), "max": float(max)})
+
+
+def clip_by_norm(x, max_norm, name=None):
+    return _unary("clip_by_norm", x, {"max_norm": float(max_norm)})
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
+          name=None):
+    out = _unary("scale", x, {"scale": float(scale), "bias": float(bias),
+                              "bias_after_scale": bias_after_scale})
+    return _unary(act, out) if act else out
+
+
+def cast(x, dtype):
+    return _unary("cast", x, {"in_dtype": x.dtype, "out_dtype": dtype},
+                  out_dtype=dtype)
 
 
 def slice(input, axes, starts, ends):

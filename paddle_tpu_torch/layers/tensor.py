@@ -1,7 +1,7 @@
 """Tensor-creation layer functions.
 
 Counterpart of ``paddle_tpu/layers/tensor.py`` ``create_parameter``,
-``fill_constant`` and ``argmax``.
+``fill_constant``, ``sums`` and ``argmax``.
 """
 
 from __future__ import annotations
@@ -9,7 +9,7 @@ from __future__ import annotations
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
-__all__ = ["create_parameter", "fill_constant", "argmax"]
+__all__ = ["create_parameter", "fill_constant", "sums", "argmax"]
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -27,6 +27,15 @@ def fill_constant(shape, dtype, value, force_cpu=False, out=None):
     out.stop_gradient = True
     helper.append_op("fill_constant", {}, {"Out": out},
                      {"shape": list(shape), "dtype": dtype, "value": float(value)})
+    return out
+
+
+def sums(input, out=None):
+    """The multi-input ``sum`` op over `input` (a list of vars)."""
+    helper = LayerHelper("sum")
+    if out is None:
+        out = helper.create_tmp_variable(input[0].dtype)
+    helper.append_op("sum", {"X": list(input)}, {"Out": out})
     return out
 
 

@@ -24,7 +24,8 @@ Counterpart of ``paddle_tpu/obs/metrics.py``:
 Given one snapshot, the text is the JAX package's line for line except
 ``pt_build_info``, whose labels name what produced the numbers: the
 torch version where the JAX package names its jax version, and the
-card. ``TrainMetrics`` (the pt_train_* provider) comes with the Trainer.
+card. ``TrainMetrics`` is the pt_train_* provider the Trainer registers
+under the "train" section.
 """
 
 from __future__ import annotations
@@ -34,11 +35,12 @@ import re
 import threading
 import time
 import weakref
+from collections import deque
 from typing import Callable, Dict, List, Optional
 
 __all__ = ["MetricsRegistry", "REGISTRY", "render_prometheus",
            "validate_exposition", "percentiles", "global_snapshot",
-           "build_info_labels"]
+           "build_info_labels", "TrainMetrics", "TRAIN_RESERVOIR"]
 
 
 # ---------------------------------------------------------------------------
@@ -135,6 +137,104 @@ def percentiles(samples: List[float],
         return round(s[i] * 1000.0, 3)
 
     return {f"p{int(q * 100)}_ms": rank(q) for q in qs}
+
+
+# ---------------------------------------------------------------------------
+# the train-plane provider (pt_train_*)
+# ---------------------------------------------------------------------------
+
+#: bound of the step-time reservoir (recent steps; memory does not grow
+#: with the step count)
+TRAIN_RESERVOIR = 2048
+
+
+class TrainMetrics:
+    """One training run's counters and step-time reservoir, as the JAX
+    package's. Thread-safe: the train loop records while scrapes read."""
+
+    def __init__(self, name: str = "trainer",
+                 clock: Callable[[], float] = time.monotonic):
+        self.name = name
+        self._clock = clock
+        self._lock = threading.Lock()
+        self.reset()
+
+    def reset(self) -> None:
+        with self._lock:
+            self._t0 = self._clock()
+            self.steps = 0
+            self.examples = 0
+            self.epochs = 0
+            self.anomalies = 0      # guard skips (bad steps seen)
+            self.rollbacks = 0      # guard rollback restores
+            self.checkpoints = 0
+            self.compile_events = 0
+            self.loss: Optional[float] = None
+            self.grad_norm: Optional[float] = None
+            self._step_ms: deque = deque(maxlen=TRAIN_RESERVOIR)
+
+    # -- recording ----------------------------------------------------------
+    def observe_step(self, step_ms: Optional[float] = None, n: int = 1,
+                     examples: int = 0) -> None:
+        """A completed step window: steps and examples always count; the
+        per-step wall sample joins the reservoir only when given (the
+        Trainer gives it at read boundaries only, where the wall time
+        covers the device's work)."""
+        with self._lock:
+            self.steps += int(n)
+            self.examples += int(examples)
+            if step_ms is not None:
+                self._step_ms.append(step_ms / 1000.0)
+
+    def observe_loss(self, value: float) -> None:
+        with self._lock:
+            self.loss = float(value)
+
+    def observe_grad_norm(self, value: float) -> None:
+        with self._lock:
+            self.grad_norm = float(value)
+
+    def observe_compiles(self, total: int) -> None:
+        with self._lock:
+            self.compile_events = max(self.compile_events, int(total))
+
+    def on_anomaly(self) -> None:
+        with self._lock:
+            self.anomalies += 1
+
+    def on_rollback(self) -> None:
+        with self._lock:
+            self.rollbacks += 1
+
+    def on_checkpoint(self) -> None:
+        with self._lock:
+            self.checkpoints += 1
+
+    def on_epoch(self) -> None:
+        with self._lock:
+            self.epochs += 1
+
+    # -- reading ------------------------------------------------------------
+    def snapshot(self) -> dict:
+        with self._lock:
+            elapsed = max(self._clock() - self._t0, 1e-9)
+            return {
+                "name": self.name,
+                "steps": self.steps,
+                "examples": self.examples,
+                "epochs": self.epochs,
+                "anomalies": self.anomalies,
+                "rollbacks": self.rollbacks,
+                "checkpoints": self.checkpoints,
+                "compile_events": self.compile_events,
+                "loss": self.loss,
+                "grad_norm": self.grad_norm,
+                "examples_per_sec": round(self.examples / elapsed, 2),
+                "steps_per_sec": round(self.steps / elapsed, 3),
+                "window_s": round(elapsed, 3),
+                "step_time": percentiles(list(self._step_ms),
+                                         qs=(0.50, 0.95)),
+            }
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,14 @@
 """Dense math ops, registered by the JAX package's names.
 
-Counterparts in ``paddle_tpu/ops/math_ops.py``: ``elementwise_add``
-(Paddle's axis broadcast), ``mul`` (flatten at ``x_num_col_dims`` /
-``y_num_col_dims``, the core of ``layers.fc``), ``reduce_sum``,
-``mean``, ``arg_max``, and the metric ops ``top_k`` and ``accuracy``.
+Counterparts in ``paddle_tpu/ops/math_ops.py``: the elementwise binary
+ops (``elementwise_add`` / ``_sub`` / ``_mul`` / ``_div`` / ``_max`` /
+``_min`` / ``_pow``, Paddle's axis broadcast), ``scale``, the
+multi-input ``sum``, ``sign``, ``clip`` and ``clip_by_norm``, ``mul``
+(flatten at ``x_num_col_dims`` / ``y_num_col_dims``, the core of
+``layers.fc``), ``reduce_sum``, ``mean``, ``arg_max``, and the metric
+ops ``top_k`` and ``accuracy``; and from ``ops/control_ops.py`` the
+comparisons (``less_than`` ... ``not_equal``) and ``increment``, which
+the learning-rate schedules use.
 """
 
 from __future__ import annotations
@@ -12,7 +17,7 @@ import math
 
 import torch
 
-from ..core.registry import register_op
+from ..core.registry import register_op, same_shape
 from . import nn_ops
 
 
@@ -34,10 +39,97 @@ def _ew_infer(op, block):
     out.shape, out.dtype = x.shape, x.dtype
 
 
-@register_op("elementwise_add", infer_shape=_ew_infer)
-def elementwise_add(ctx, ins, attrs):
-    x, y = ins["X"][0], ins["Y"][0]
-    return {"Out": [x + broadcast_y_to_x(x, y, attrs.get("axis", -1))]}
+def _register_elementwise(name, fn):
+    def compute(ctx, ins, attrs):
+        x, y = ins["X"][0], ins["Y"][0]
+        return {"Out": [fn(x, broadcast_y_to_x(x, y, attrs.get("axis", -1)))]}
+    register_op(name, infer_shape=_ew_infer)(compute)
+
+
+_register_elementwise("elementwise_add", torch.add)
+_register_elementwise("elementwise_sub", torch.sub)
+_register_elementwise("elementwise_mul", torch.mul)
+_register_elementwise("elementwise_div", torch.div)
+_register_elementwise("elementwise_max", torch.maximum)
+_register_elementwise("elementwise_min", torch.minimum)
+_register_elementwise("elementwise_pow", torch.pow)
+
+
+@register_op("scale", infer_shape=same_shape())
+def scale(ctx, ins, attrs):
+    """Out = X * scale + bias, or (X + bias) * scale with
+    bias_after_scale=False."""
+    x = ins["X"][0]
+    s, b = attrs.get("scale", 1.0), attrs.get("bias", 0.0)
+    if attrs.get("bias_after_scale", True):
+        return {"Out": [x * s + b]}
+    return {"Out": [(x + b) * s]}
+
+
+@register_op("sum", infer_shape=_ew_infer)
+def sum_op(ctx, ins, attrs):
+    """The sum of N tensors, added left to right."""
+    xs = ins["X"]
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return {"Out": [out]}
+
+
+@register_op("sign", infer_shape=same_shape())
+def sign(ctx, ins, attrs):
+    return {"Out": [torch.sign(ins["X"][0])]}
+
+
+@register_op("clip", infer_shape=same_shape())
+def clip(ctx, ins, attrs):
+    return {"Out": [torch.clamp(ins["X"][0], attrs["min"], attrs["max"])]}
+
+
+@register_op("clip_by_norm", infer_shape=same_shape())
+def clip_by_norm(ctx, ins, attrs):
+    """Out = X * max_norm / max(‖X‖₂, max_norm)."""
+    x = ins["X"][0]
+    max_norm = attrs["max_norm"]
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    return {"Out": [x * (max_norm / torch.clamp_min(norm, max_norm))]}
+
+
+@register_op("squared_l2_norm")
+def squared_l2_norm(ctx, ins, attrs):
+    return {"Out": [torch.sum(torch.square(ins["X"][0])).reshape(1)]}
+
+
+# ---------------------------------------------------------------------------
+# comparisons and increment (ops/control_ops.py)
+# ---------------------------------------------------------------------------
+
+def _cmp_infer(op, block):
+    x = block.var(op.input("X")[0])
+    out = block.var(op.output("Out")[0])
+    out.shape, out.dtype = x.shape, "bool"
+
+
+def _register_compare(name, fn):
+    def compute(ctx, ins, attrs):
+        x, y = ins["X"][0], ins["Y"][0]
+        return {"Out": [fn(x, broadcast_y_to_x(x, y, attrs.get("axis", -1)))]}
+    register_op(name, infer_shape=_cmp_infer)(compute)
+
+
+_register_compare("less_than", torch.lt)
+_register_compare("less_equal", torch.le)
+_register_compare("greater_than", torch.gt)
+_register_compare("greater_equal", torch.ge)
+_register_compare("equal", torch.eq)
+_register_compare("not_equal", torch.ne)
+
+
+@register_op("increment")
+def increment(ctx, ins, attrs):
+    """X + step in X's own dtype (an integer counter stays an integer)."""
+    x = ins["X"][0]
+    return {"Out": [x + torch.tensor(attrs.get("step", 1.0), dtype=x.dtype)]}
 
 
 def _mul_infer(op, block):

@@ -1,8 +1,10 @@
 """Optimizer update ops, registered by the JAX package's names.
 
 Counterparts of ``sgd``, ``momentum`` and ``adam`` in
-``paddle_tpu/ops/optimizer_ops.py`` (dense gradients, float32 state; a
-row-sparse gradient is not ported and raises).
+``paddle_tpu/ops/optimizer_ops.py`` (dense gradients; a row-sparse
+gradient is not ported and raises). Moments stored in bfloat16
+(``PT_OPT_STATE_DTYPE``) are widened to float32 for the update and
+stored back in their own dtype.
 Each returns the updated tensors and the lowering rebinds the
 persistable names, as in the JAX package; the lowering runs them under
 ``torch.no_grad()``.
@@ -52,10 +54,10 @@ def adam(ctx, ins, attrs):
     b1p, b2p = _p(ins, "Beta1Pow"), _p(ins, "Beta2Pow")
     b1, b2 = attrs.get("beta1", 0.9), attrs.get("beta2", 0.999)
     eps = attrs.get("epsilon", 1e-8)
-    m_new = b1 * m + (1 - b1) * g
-    v_new = b2 * v + (1 - b2) * torch.square(g)
+    m_new = b1 * m.float() + (1 - b1) * g
+    v_new = b2 * v.float() + (1 - b2) * torch.square(g)
     lr_t = lr * torch.sqrt(1 - b2p) / (1 - b1p)
     p_new = p - lr_t * m_new / (torch.sqrt(v_new) + eps)
-    return {"ParamOut": [p_new], "Moment1Out": [m_new],
-            "Moment2Out": [v_new], "Beta1PowOut": [b1p * b1],
+    return {"ParamOut": [p_new], "Moment1Out": [m_new.to(m.dtype)],
+            "Moment2Out": [v_new.to(v.dtype)], "Beta1PowOut": [b1p * b1],
             "Beta2PowOut": [b2p * b2]}

@@ -1,8 +1,8 @@
 """Tensor creation and shape ops, registered by the JAX package's names.
 
 Counterparts in ``paddle_tpu/ops/tensor_ops.py``: ``fill_constant``,
-``uniform_random``, ``gaussian_random``, ``reshape``, ``slice`` and
-``lookup_table``. Random ops draw from the run's ``torch.Generator``
+``uniform_random``, ``gaussian_random``, ``cast``, ``reshape``,
+``slice`` and ``lookup_table``. Random ops draw from the run's ``torch.Generator``
 (``ExecContext``), or from one seeded by the op's own nonzero ``seed``
 attr; they give other numbers than JAX's PRNG from the same seed, with the
 same distribution.
@@ -54,6 +54,19 @@ def gaussian_random(ctx, ins, attrs):
     return {"Out": [_empty(ctx, attrs).normal_(
         attrs.get("mean", 0.0), attrs.get("std", 1.0),
         generator=_generator(ctx, attrs))]}
+
+
+def _cast_infer(op, block):
+    x = block.var(op.input("X")[0])
+    out = block.var(op.output("Out")[0])
+    out.shape = x.shape
+    out.dtype = op.attrs["out_dtype"]
+
+
+@register_op("cast", infer_shape=_cast_infer)
+def cast(ctx, ins, attrs):
+    """To the device dtype of out_dtype (64-bit narrowed)."""
+    return {"Out": [ins["X"][0].to(torch_dtype(attrs["out_dtype"]))]}
 
 
 def _reshape_infer(op, block):

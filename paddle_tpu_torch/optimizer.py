@@ -2,51 +2,49 @@
 
 Counterpart of ``paddle_tpu/optimizer.py`` (``Optimizer``,
 ``SGDOptimizer``, ``MomentumOptimizer``, ``AdamOptimizer``).
-``minimize`` appends the backward boundary, the gradient clip and
-regularization ops, then one update op per parameter; accumulators are
-persistable vars initialized by the startup program, under the JAX
-package's names. Gradient clipping, weight decay, bf16 optimizer state
-(``PT_OPT_STATE_DTYPE``) and the step guard (``PT_GUARD``) are not
-ported and raise.
+``minimize`` appends, in the JAX package's order, the backward boundary
+(with ``clip.error_clip_callback``), the gradient clip ops (clip.py),
+the weight-decay ops (regularizer.py), one update op per parameter and
+``_finish_update``, then, with ``PT_GUARD`` set, the ``step_health`` op
+(resilience/guard.py). Accumulators are persistable vars initialized by
+the startup program, under the JAX package's names; with
+``PT_OPT_STATE_DTYPE=bfloat16`` the parameter-shaped moments are stored
+in bfloat16 while the update ops compute in float32. A parameter's
+``ParamAttr(learning_rate=m)`` becomes a ``scale`` op on the global
+rate. Adagrad, RMSProp and the other optimizers are not ported.
 """
 
 from __future__ import annotations
 
 import os
 from collections import defaultdict
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional
 
 from .backward import append_backward
+from .clip import append_gradient_clip_ops, error_clip_callback
 from .core.program import VarDesc, default_main_program, unique_name
 from .initializer import ConstantInitializer
 from .layer_helper import LayerHelper
+from .regularizer import append_regularization_ops
+from .resilience.guard import maybe_instrument
 
 __all__ = ["Optimizer", "SGDOptimizer", "MomentumOptimizer", "AdamOptimizer",
-           "SGD", "Momentum", "Adam",
-           "append_gradient_clip_ops", "append_regularization_ops"]
-
-_OFF = ("", "0", "off", "none", "false")
+           "SGD", "Momentum", "Adam"]
 
 
-def append_gradient_clip_ops(param_grads: List[Tuple[VarDesc, VarDesc]]):
-    """The identity while no parameter carries a clip attr; clipping is
-    not ported."""
-    for p, _ in param_grads:
-        if getattr(p, "gradient_clip_attr", None) is not None:
-            raise NotImplementedError(f"gradient clipping (on {p.name!r}) "
-                                      "is not ported")
-    return param_grads
-
-
-def append_regularization_ops(param_grads, regularization=None):
-    """The identity while no regularizer is set; weight decay is not
-    ported."""
-    for p, g in param_grads:
-        if g is not None and (getattr(p, "regularizer", None)
-                              or regularization) is not None:
-            raise NotImplementedError(f"regularization (of {p.name!r}) is "
-                                      "not ported")
-    return param_grads
+def _opt_state_dtype() -> Optional[str]:
+    """PT_OPT_STATE_DTYPE: the dtype of the parameter-shaped moment
+    accumulators (Adam's m and v, Momentum's velocity). 'bfloat16'
+    halves their memory; the update math stays float32 in the ops and
+    the parameters stay float32. Unset or float32: float32. The scalar
+    beta-power accumulators always stay float32."""
+    raw = os.environ.get("PT_OPT_STATE_DTYPE", "").strip().lower()
+    if raw in ("", "0", "off", "float32", "f32", "fp32"):
+        return None
+    if raw in ("bfloat16", "bf16"):
+        return "bfloat16"
+    raise ValueError(f"malformed PT_OPT_STATE_DTYPE={raw!r}: expected "
+                     "bfloat16 (or unset/float32)")
 
 
 class Optimizer:
@@ -81,14 +79,19 @@ class Optimizer:
         return self._learning_rate_map[id(default_main_program())]
 
     def _create_param_lr(self, param_and_grad):
-        """Per-parameter learning-rate multipliers are not ported."""
+        """The parameter's rate: the global rate, or a `scale` op on it
+        for a ParamAttr(learning_rate=m) multiplier."""
         param = param_and_grad[0]
+        base = self._global_learning_rate()
         mult = getattr(param, "optimize_attr", {}).get("learning_rate", 1.0)
-        if mult != 1.0:
-            raise NotImplementedError(
-                f"ParamAttr(learning_rate={mult}) on {param.name!r}: "
-                "per-parameter learning rates are not ported")
-        return self._global_learning_rate()
+        if mult == 1.0:
+            return base
+        helper = LayerHelper("param_lr")
+        out = helper.create_tmp_variable("float32")
+        out.stop_gradient = True
+        helper.append_op("scale", {"X": base}, {"Out": out},
+                         {"scale": float(mult)})
+        return out
 
     # -- accumulators -------------------------------------------------------
     def _add_accumulator(self, name: str, param: VarDesc, dtype=None,
@@ -116,6 +119,9 @@ class Optimizer:
     def _append_optimize_op(self, block, param_and_grad):
         raise NotImplementedError
 
+    def _finish_update(self, block):
+        pass
+
     # -- the optimization pass ----------------------------------------------
     def _create_optimization_pass(self, parameters_and_grads):
         self.helper = LayerHelper(self.__class__.__name__)
@@ -123,20 +129,23 @@ class Optimizer:
         block = default_main_program().global_block
         self._create_accumulators(
             block, [p for p, g in parameters_and_grads if g is not None])
-        return [self._append_optimize_op(block, pg)
-                for pg in parameters_and_grads
-                if pg[1] is not None and pg[0].trainable]
+        optimize_ops = [self._append_optimize_op(block, pg)
+                        for pg in parameters_and_grads
+                        if pg[1] is not None and pg[0].trainable]
+        self._finish_update(block)
+        return optimize_ops
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
-        if os.environ.get("PT_GUARD", "").strip().lower() not in _OFF:
-            raise NotImplementedError("PT_GUARD (the guarded update) is not "
-                                      "ported; unset it")
-        params_grads = append_backward(loss, parameter_list, no_grad_set)
+        params_grads = append_backward(loss, parameter_list, no_grad_set,
+                                       [error_clip_callback])
         params_grads = append_gradient_clip_ops(params_grads)
         params_grads = append_regularization_ops(params_grads,
                                                  self.regularization)
         optimize_ops = self._create_optimization_pass(params_grads)
+        # with PT_GUARD set, the step-health op over the raw @GRAD
+        # bindings (placed right after the backward boundary)
+        maybe_instrument(default_main_program())
         return optimize_ops, params_grads
 
 
@@ -153,13 +162,6 @@ class SGDOptimizer(Optimizer):
             {"ParamOut": param_and_grad[0]})
 
 
-def _require_f32_state():
-    if os.environ.get("PT_OPT_STATE_DTYPE", "").strip().lower() not in \
-            _OFF + ("float32", "f32", "fp32"):
-        raise NotImplementedError("PT_OPT_STATE_DTYPE (low-precision "
-                                  "optimizer state) is not ported; unset it")
-
-
 class MomentumOptimizer(Optimizer):
     _velocity_acc_str = "velocity"
 
@@ -171,9 +173,11 @@ class MomentumOptimizer(Optimizer):
         self._use_nesterov = use_nesterov
 
     def _create_accumulators(self, block, parameters):
-        _require_f32_state()
+        moment_dt = _opt_state_dtype()
         for p in parameters:
-            self._add_accumulator(self._velocity_acc_str, p)
+            self._add_accumulator(
+                self._velocity_acc_str, p,
+                dtype=moment_dt if str(p.dtype) == "float32" else None)
 
     def _append_optimize_op(self, block, param_and_grad):
         velocity = self._get_accumulator(self._velocity_acc_str,
@@ -198,10 +202,11 @@ class AdamOptimizer(Optimizer):
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
 
     def _create_accumulators(self, block, parameters):
-        _require_f32_state()
+        moment_dt = _opt_state_dtype()
         for p in parameters:
-            self._add_accumulator(self._moment1_acc_str, p)
-            self._add_accumulator(self._moment2_acc_str, p)
+            dt = moment_dt if str(p.dtype) == "float32" else None
+            self._add_accumulator(self._moment1_acc_str, p, dtype=dt)
+            self._add_accumulator(self._moment2_acc_str, p, dtype=dt)
             self._add_accumulator("beta1_pow_acc", p, fill_value=self._beta1,
                                   shape=[1])
             self._add_accumulator("beta2_pow_acc", p, fill_value=self._beta2,

@@ -294,9 +294,9 @@ def test_sgd_step_matches_jax():
 
 
 @pytest.mark.parametrize("what", ["remat", "dropout", "tp_shard", "sp_mode",
-                                  "amp", "is_sparse", "lazy", "guard",
-                                  "op", "fc_inputs"])
-def test_what_is_not_ported_raises(what, monkeypatch):
+                                  "amp", "is_sparse", "trainer_parallel",
+                                  "trainer_plan", "op", "fc_inputs"])
+def test_what_is_not_ported_raises(what):
     """Each part of training the port leaves out raises a clear error,
     on the CPU as on every device, instead of running without it."""
     kw = dict(CFG)
@@ -310,6 +310,17 @@ def test_what_is_not_ported_raises(what, monkeypatch):
             x = pt.layers.data("x", [4], dtype="float32")
             with pytest.raises(NotImplementedError, match="not ported"):
                 pt.layers.fc([x, x], size=3)
+        return
+    if what.startswith("trainer_"):
+        trainer_kw = {"trainer_parallel": dict(parallel=True),
+                      "trainer_plan": dict(plan={"mesh": {"dp": 2}})}[what]
+
+        def train_func():
+            return [ttfm.transformer_lm_loss(**kw)[0]]
+        with pytest.raises(NotImplementedError, match="not ported"):
+            pt.Trainer(train_func,
+                       lambda: pt.optimizer.AdamOptimizer(learning_rate=LR),
+                       place=pt.CPUPlace(), **trainer_kw)
         return
     if build_kw:
         with pt.program_guard(main, startup):
@@ -331,13 +342,28 @@ def test_what_is_not_ported_raises(what, monkeypatch):
             else _feeds(0))
     if what == "amp":
         main.amp_dtype = "bfloat16"
-    run_kw = {"lazy": dict(lazy=True), "guard": dict(guard=True)}.get(what,
-                                                                       {})
     with pytest.raises(NotImplementedError, match="not ported"):
-        exe.run(main, feed=feed, fetch_list=[avg], scope=scope, **run_kw)
-    if what == "guard":
-        monkeypatch.setenv("PT_GUARD", "skip")
-        with pt.program_guard(pt.Program(), pt.Program()):
-            avg, _ = ttfm.transformer_lm_loss(**kw)
-            with pytest.raises(NotImplementedError, match="not ported"):
-                pt.optimizer.AdamOptimizer(learning_rate=LR).minimize(avg)
+        exe.run(main, feed=feed, fetch_list=[avg], scope=scope)
+
+
+def test_minimize_appends_step_health_under_pt_guard(monkeypatch):
+    """With PT_GUARD set, minimize appends the step-health op directly
+    after the backward boundary, as the JAX package's does; without it,
+    none."""
+    for policy in ("", "skip"):
+        monkeypatch.setenv("PT_GUARD", policy)
+        built = []
+        for pkg, prog_mod, tfm in ((jpt, jprog, jtfm), (pt, tprog, ttfm)):
+            prog_mod.reset_unique_names()
+            main = pkg.Program()
+            with pkg.program_guard(main, pkg.Program()):
+                avg, _ = tfm.transformer_lm_loss(**CFG)
+                pkg.optimizer.AdamOptimizer(learning_rate=LR).minimize(avg)
+            built.append([(op.type, op.inputs) for op in
+                          main.global_block.ops])
+        assert built[1] == built[0]
+        types = [t for t, _ in built[1]]
+        assert ("step_health" in types) == bool(policy)
+        if policy:
+            assert types.index("step_health") == \
+                types.index("autodiff") + 1

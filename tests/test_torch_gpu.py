@@ -1719,3 +1719,134 @@ def test_training_through_the_chain_matches_the_composition(cuda,
     for n in names:
         np.testing.assert_allclose(ends["always"][n], ends["never"][n],
                                    atol=2e-5, rtol=2e-5, err_msg=n)
+
+
+# ---------------------------------------------------------------------------
+# the Trainer on the card: resume and the guard (chip_smoke.py phase 15's
+# (b) and (c) at a small width)
+# ---------------------------------------------------------------------------
+
+_TR_CFG = dict(vocab_size=200, seq_len=128, n_layers=2, d_model=256,
+               n_heads=2, d_ff=512, max_len=128)
+_TR_STEPS, _TR_INTERVAL = 6, 3
+
+
+def _tr_feed(i):
+    rs = np.random.RandomState(900 + i)
+    src = rs.randint(0, _TR_CFG["vocab_size"], (2, _TR_CFG["seq_len"]))
+    return {"src_ids": src.astype("int64"), "tgt_ids": src[..., None]}
+
+
+def _tr_reader():
+    return (_tr_feed(i) for i in range(_TR_STEPS))
+
+
+def _card_trainer(ckpt_dir):
+    """A Trainer on the card (its default place) with the step's
+    contract: noam_decay, a global-norm clip, L2 decay, Adam."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.program import unique_name_guard
+    from paddle_tpu_torch.models.transformer import transformer_lm_loss
+
+    def train_func():
+        pt.default_startup_program().random_seed = 3
+        return [transformer_lm_loss(**_TR_CFG)[0]]
+
+    def optimizer_func():
+        lr = pt.layers.noam_decay(_TR_CFG["d_model"], warmup_steps=4) * 0.05
+        pt.clip.set_gradient_clip(pt.clip.GradientClipByGlobalNorm(1.0))
+        return pt.optimizer.AdamOptimizer(
+            learning_rate=lr, regularization=pt.regularizer.L2Decay(1e-4))
+
+    cfg = pt.CheckpointConfig(ckpt_dir, max_num_checkpoints=1,
+                              step_interval=_TR_INTERVAL)
+    with unique_name_guard():
+        return pt.Trainer(train_func, optimizer_func, checkpoint_config=cfg)
+
+
+def _tr_state(trainer):
+    block = trainer.train_program.global_block
+    return {n: trainer.scope.find_var(n) for n, v in block.vars.items()
+            if v.persistable and trainer.scope.find_var(n) is not None}
+
+
+def test_trainer_resumes_on_the_card_as_the_uninterrupted_run(
+        cuda, tmp_path, monkeypatch):
+    """A Trainer on the card checkpoints at step 3 of 6; a new Trainer
+    over that serial resumes at step 4, and its losses and final state
+    are within 1e-5 (relative) of the uninterrupted run's; each step
+    launched each flash kernel n_layers times."""
+    import paddle_tpu_torch as pt
+
+    monkeypatch.setenv("PT_GUARD", "skip")
+    ckpt, snap = str(tmp_path / "ckpt"), str(tmp_path / "snap")
+    n0 = fa.flash_attention_bwd_dkv.launches
+    a = _card_trainer(ckpt)
+    assert a.exe.device.type == "cuda"
+    losses = {}
+
+    def on_a(event):
+        if isinstance(event, pt.BeginStepEvent) and \
+                event.step == _TR_INTERVAL:
+            # keep the step-3 serial: the next save scrolls it away
+            (serial,) = os.listdir(ckpt)
+            os.makedirs(os.path.join(snap, serial))
+            for f in os.listdir(os.path.join(ckpt, serial)):
+                os.link(os.path.join(ckpt, serial, f),
+                        os.path.join(snap, serial, f))
+        if isinstance(event, pt.EndStepEvent):
+            losses[event.step] = event.metrics[0]
+    a.train(num_epochs=1, event_handler=on_a, reader=_tr_reader, log_every=2)
+    r = _card_trainer(snap)
+    assert r.checkpoint_cfg.step_id == _TR_INTERVAL
+    rlosses = {}
+    r.train(num_epochs=1, reader=_tr_reader, log_every=2,
+            event_handler=lambda e: rlosses.__setitem__(e.step, e.metrics[0])
+            if isinstance(e, pt.EndStepEvent) else None)
+    assert sorted(rlosses) == list(range(_TR_INTERVAL, _TR_STEPS))
+    np.testing.assert_allclose([float(rlosses[k]) for k in sorted(rlosses)],
+                               [float(losses[k]) for k in sorted(rlosses)],
+                               rtol=1e-5)
+    got, want = _tr_state(r), _tr_state(a)
+    assert sorted(got) == sorted(want)
+    for n in want:
+        np.testing.assert_allclose(got[n].cpu().numpy(),
+                                   want[n].cpu().numpy(), rtol=1e-5,
+                                   atol=1e-5, err_msg=n)
+    steps = _TR_STEPS + (_TR_STEPS - _TR_INTERVAL)
+    assert fa.flash_attention_bwd_dkv.launches - n0 == \
+        _TR_CFG["n_layers"] * steps
+
+
+def test_guarded_nan_grad_step_on_the_card_changes_nothing(
+        cuda, tmp_path, monkeypatch):
+    """Under PT_GUARD=skip a step whose gradients are poisoned
+    (PT_FAULT_INJECT=nan_grad@1) reads health false and leaves every
+    persistable var, the step counter included, bit-identical; the next
+    clean step trains."""
+    from paddle_tpu_torch.resilience import faults
+
+    monkeypatch.setenv("PT_GUARD", "skip")
+    t = _card_trainer(str(tmp_path / "ckpt"))
+    t.exe.run(t.train_program, feed=_tr_feed(0), fetch_list=[t.loss],
+              scope=t.scope, guard=True)
+    before = {n: v.clone() for n, v in _tr_state(t).items()}
+    monkeypatch.setenv("PT_FAULT_INJECT", "nan_grad@1")
+    faults.reset()
+    try:
+        loss, health = t.exe.run(t.train_program, feed=_tr_feed(1),
+                                 fetch_list=[t.loss], scope=t.scope,
+                                 guard=True, lazy=True)
+        assert not bool(health) and np.isfinite(float(loss))
+    finally:
+        monkeypatch.delenv("PT_FAULT_INJECT")
+        faults.reset()
+    after = _tr_state(t)
+    assert "@LR_DECAY_COUNTER@" in after
+    for n in before:
+        assert torch.equal(after[n], before[n]), n
+    _, health = t.exe.run(t.train_program, feed=_tr_feed(2),
+                          fetch_list=[t.loss], scope=t.scope, guard=True)
+    assert bool(health)
+    assert not torch.equal(_tr_state(t)["@LR_DECAY_COUNTER@"],
+                           before["@LR_DECAY_COUNTER@"])
