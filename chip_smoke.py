@@ -155,8 +155,25 @@ no result line:
    then launches and device ms by class of one step of phase 5's
    program, of the Trainer's program unguarded and guarded (the clip,
    decay and schedule's cost, and the guard's);
-16. print the kernels' JSON line, the card line and the result line.
+16. train phase 5's model with main.amp_dtype = "bfloat16" (float32
+   masters, bf16 compute) through the Executor: startup, one warm-up step
+   and TRAIN_STEPS timed steps on phase 5's feeds, launch counts read
+   around them (n_layers of each bf16 flash kernel a step, no float32
+   flash launch), finite and falling losses, every master still float32,
+   ms a step, tokens/s, peak memory, one step's launches and device ms by
+   class, the same program's float32 step timed in this run, and the
+   inference clone's logits finite; then the reduced program of phase 6
+   under AMP, two Adam steps on the card and on the CPU from one startup
+   state: losses, first-step float32 gradients and masters held to the
+   AMP limits (AMP_LOSS_RTOL, AMP_GRAD_RTOL, AMP_STEP_ATOL);
+17. print the kernels' JSON line, the card line and the result line.
 
+Phase 3 also holds the three bf16 flash kernels (forward, dQ, dK/dV;
+csrc/flash_attention_bf16.cu) against their plain versions at
+FLASH_BF16_SHAPES (H 8, D 256, causal; the AMP training step's B 8, S
+1024 among them), printing each output's largest share of its limit,
+each timed beside its plain version, its bound at the bf16 tensor
+cores' rate and SDPA in bf16.
 Phase 3 also holds the two LSTM kernels against their plain versions at
 the bench shape (T 100, B 64, H 512), full-length and ragged, timed
 beside their bounds (3xTF32, with the f32 FMA bounds beside them) and
@@ -190,7 +207,8 @@ largest share of the 1e-4 limit, its TF32 rate, its 3xTF32 bound with
 the float32 FMA bound beside it).
 
 cudnn.benchmark stays at its default (off); TF32 is off for products
-and convolutions.
+and convolutions; bf16 products reduce in float32
+(allow_bf16_reduced_precision_reduction off).
 """
 
 from __future__ import annotations
@@ -209,10 +227,11 @@ import threading
 import time
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, float32 flop/s
-# outside the tensor cores, dense TF32 flop/s of the tensor cores
+# outside the tensor cores, dense TF32 and bf16 flop/s of the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12
+BF16_FLOPS_PER_S = 989e12
 
 # kernel vs plain version, both float32 on the card with TF32 off: the
 # sums run in another order (tiles, pages, cuBLAS), about 1e-6 apart
@@ -275,6 +294,32 @@ FLASH_SHAPES = ((1, 128), (1, 256), (1, 512), (1, 1024), (1, 333),
 LINE_SHAPE = (8, 1024)
 REDUCED = dict(vocab_size=32000, n_layers=2, d_model=256, n_heads=2,
                d_ff=1024, seq_len=128, batch=2)
+# the bf16 flash kernels (phase 3), (batch, sequence) at H 8, D 256,
+# causal: a short and a ragged prefill, the longest, and the AMP training
+# step (LINE_SHAPE, which the kernels line reports). bf16's unit roundoff
+# is 2^-8: O, dQ, dK and dV within BF16_REL max|plain| + BF16_REL |plain|
+# of the plain version (each output's own rounding is up to 2^-8 |plain|,
+# and the kernels round P and dS to bf16 before their products, where the
+# plain versions keep them float32); lse, float32 in both, within
+# atol = rtol = LSE_TOL
+FLASH_BF16_SHAPES = ((1, 128), (1, 333), (1, 1024), (8, 1024))
+BF16_REL, LSE_TOL = 2.0 ** -7, 1e-4
+# mixed precision (phase 16), card vs CPU, tests/test_torch_amp.py's
+# limits (bf16 rounds at other places on the card, in the bf16 flash
+# kernels and cuBLAS, than on the CPU): losses within AMP_LOSS_RTOL; the
+# first step's float32 gradients within AMP_GRAD_RTOL as rms (the key
+# biases, zero in exact arithmetic, apart); every master element within
+# AMP_STEP_ATOL after two Adam steps, which move an element by about lr
+# each, and by up to 2 lr apart where bf16's noise flips the sign of a
+# near-zero gradient
+AMP_LOSS_RTOL, AMP_GRAD_RTOL = 1e-2, 5e-2
+AMP_STEP_ATOL = 5 * TRAIN["lr"]
+# ... and each parameter's update (the two steps' sum) within
+# AMP_UPDATE_RTOL as rms: Adam's first steps are about lr sign(g), so the
+# sign flips of near-zero gradients dominate the difference (0.090 in
+# PR 27's first chip run; the two packages on the CPU, the same
+# program: up to 0.14)
+AMP_UPDATE_RTOL = 0.25
 # the conv-epilogue kernels vs their plain versions, float32 on the card:
 # apply is one fma and at most one add per element; the stats kernel's
 # sums of up to 1.6 M elements run in another order than the plain
@@ -532,6 +577,118 @@ def check_flash_bwd(torch, F, fa, card):
     return rows["dq"], rows["dkv"]
 
 
+def bf16_share(torch, got, want) -> float:
+    """The largest |got - want| over BF16_REL max|want| + BF16_REL |want|
+    (1 is the limit); raises if got is not finite."""
+    got, want = got.float(), want.float()
+    if not bool(torch.isfinite(got).all()):
+        raise RuntimeError("bf16 kernel output is not finite")
+    limit = BF16_REL * want.abs().max() + BF16_REL * want.abs()
+    return float(((got - want).abs() / limit).max())
+
+
+FLASH_BF16_KERNELS = ("flash_attention_fwd_bf16",
+                      "flash_attention_bwd_dq_bf16",
+                      "flash_attention_bwd_dkv_bf16")
+
+
+def check_flash_bf16(torch, F, fa, card):
+    """The three bf16 kernels (csrc/flash_attention_bf16.cu) vs their
+    plain versions at H 8, D 256, causal, at each of FLASH_BF16_SHAPES,
+    the backward from the plain forward's O and lse (bf16 in, float32
+    math in the plain versions); each timed beside its plain version, its
+    bound (the bf16 tensor cores' rate) and SDPA in bf16 (its forward for
+    the forward, its backward less its forward for dQ and dK/dV). Returns
+    {kernel: row} at LINE_SHAPE."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    parts = dict(zip(("fwd", "dq", "dkv"), FLASH_BF16_KERNELS))
+    rows, shares = {}, {p: [] for p in parts}
+    errs = {p: [] for p in parts}
+    for b, s in FLASH_BF16_SHAPES:
+        q, k, v, do = (torch.randn(b, s, 8, 256, device="cuda",
+                                   generator=gen).bfloat16()
+                       for _ in range(4))
+        ro, rlse = fa.flash_attention_fwd_reference(q, k, v, causal=True)
+        delta = fa.flash_attention_bwd_delta(ro, do)
+        args = (q, k, v, do, rlse, delta)
+        o, lse = fa.flash_attention_fwd_bf16(q, k, v, causal=True)
+        dq = fa.flash_attention_bwd_dq_bf16(*args, causal=True)
+        dk, dv = fa.flash_attention_bwd_dkv_bf16(*args, causal=True)
+        rq, rk, rv = fa.flash_attention_bwd_reference(q, k, v, ro, rlse, do,
+                                                      causal=True)
+        torch.cuda.synchronize()
+        diff = lambda x, y: float((x.float() - y.float()).abs().max())
+        share = {"fwd": (bf16_share(torch, o, ro),
+                         limit_share(torch, lse, rlse, LSE_TOL, LSE_TOL)),
+                 "dq": (bf16_share(torch, dq, rq),),
+                 "dkv": (bf16_share(torch, dk, rk), bf16_share(torch, dv, rv))}
+        err = {"fwd": max(diff(o, ro), diff(lse, rlse)), "dq": diff(dq, rq),
+               "dkv": max(diff(dk, rk), diff(dv, rv))}
+        for p in parts:
+            shares[p].append(max(share[p]))
+            errs[p].append(err[p])
+            if max(share[p]) > 1:
+                raise RuntimeError(f"{parts[p]} B={b} S={s} disagrees with "
+                                   f"its plain version: {share[p]} of the "
+                                   "limit")
+        pairs = b * s * (s + 1) // 2 * 8
+        elems, rowvec = b * s * 8 * 256, 4 * b * 8 * s
+        nbytes = {"fwd": 2 * 4 * elems + rowvec,
+                  "dq": 2 * 5 * elems + 2 * rowvec,
+                  "dkv": 2 * 6 * elems + 2 * rowvec}
+        flops = {"fwd": 4 * 256 * pairs, "dq": 6 * 256 * pairs,
+                 "dkv": 8 * 256 * pairs}
+        bounds = {p: bound_ms(nbytes[p], flops[p], BF16_FLOPS_PER_S)
+                  for p in parts}
+        calls = {"fwd": (lambda: fa.flash_attention_fwd_bf16(
+                    q, k, v, causal=True),
+                    lambda: fa.flash_attention_fwd_reference(
+                        q, k, v, causal=True)),
+                 "dq": (lambda: fa.flash_attention_bwd_dq_bf16(
+                    *args, causal=True),
+                    lambda: fa.flash_attention_bwd_dq_reference(
+                        *args, causal=True)),
+                 "dkv": (lambda: fa.flash_attention_bwd_dkv_bf16(
+                     *args, causal=True),
+                     lambda: fa.flash_attention_bwd_dkv_reference(
+                         *args, causal=True))}
+        ms = {p: cuda_ms(torch, calls[p][0], 20) for p in parts}
+        plain = {p: cuda_ms(torch, calls[p][1], 5) for p in parts}
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), 20)
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+        fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qg, kg, vg, is_causal=True), 20)
+        both = cuda_ms(torch, lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qg, kg, vg, is_causal=True),
+            (qg, kg, vg), do.transpose(1, 2)), 20)
+        lib = {"fwd": sdpa, "dq": both - fwd, "dkv": both - fwd}
+        for p, name in parts.items():
+            print(f"{name} B={b} S={s}: largest share of the limit "
+                  f"{' / '.join(f'{x:.4f}' for x in share[p])} (bf16 outputs "
+                  f"{BF16_REL} max|plain| + {BF16_REL} |plain|"
+                  f"{', lse ' + str(LSE_TOL) if p == 'fwd' else ''}), "
+                  f"max_abs_err {err[p]:.3e}; kernel {ms[p]:.4f} ms "
+                  f"({flops[p] / ms[p] / 1e9:.1f} TFLOP/s), plain "
+                  f"{plain[p]:.4f} ms, sdpa bf16 {lib[p]:.4f} ms"
+                  f"{'' if p == 'fwd' else ' (its backward less its forward)'}"
+                  f", bound {bounds[p][0]:.4f} ms ({bounds[p][1]}; "
+                  f"{nbytes[p] / 1e6:.1f} MB, {flops[p] / 1e9:.2f} GFLOP at "
+                  f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s) [{card}]")
+            if (b, s) == LINE_SHAPE:
+                rows[name] = dict(ms=ms[p], plain_ms=plain[p],
+                                  bound_ms=bounds[p][0],
+                                  bound_by=bounds[p][1], library_ms=lib[p])
+    for p, name in parts.items():
+        rows[name]["max_abs_err"] = max(errs[p])
+    print("flash bf16 kernels: largest share of the limit over "
+          "FLASH_BF16_SHAPES, " + ", ".join(
+              f"{parts[p]} {max(shares[p]):.4f}" for p in parts)
+          + f" [{card}]")
+    return rows
+
+
 PAGED_LENS = (1024, 1, 17, 500, 0, 999, 64, 777)
 PAGED_POOLS = 6   # the decode step's layers, each with its own pools
 
@@ -703,6 +860,10 @@ def kernel_class(name: str) -> str:
         return "fused_conv_apply (port kernel)"
     if "paged_split_kernel" in n:
         return "paged_decode_attention (port kernel)"
+    for kernel in ("fwd", "dq", "dkv"):
+        if f"flash_bf16_{kernel}_" in n:
+            return (f"flash_attention_{'bwd_' if kernel != 'fwd' else ''}"
+                    f"{kernel}_bf16 (port kernel)")
     if "flash_fwd" in n:
         return "flash_attention_fwd (port kernel)"
     if "flash_bwd_dq" in n:
@@ -712,7 +873,8 @@ def kernel_class(name: str) -> str:
     if re.search(r"conv(?!ert)|fprop|dgrad|wgrad|implicit|winograd|"
                  r"nchwtonhwc|nhwctonchw", n):
         return "conv (cuDNN)"
-    if "gemm" in n or "gemv" in n:
+    if "gemm" in n or "gemv" in n or "nvjet" in n:
+        # nvjet: cuBLAS's Hopper kernels (the bf16 products of phase 16)
         return "matmul (cuBLAS)"
     if "memcpy" in n or "memset" in n:
         return "memcpy/memset"
@@ -1839,6 +2001,156 @@ def card_vs_cpu(np, torch, card, seed: int):
           f"[{card}]")
     if not worst <= PARAM_ATOL:
         raise RuntimeError("card and CPU states disagree")
+
+
+def logits_of(program) -> str:
+    """The name of the LM's logits: softmax_with_cross_entropy's input."""
+    return next(op.inputs["Logits"][0] for op in program.global_block.ops
+                if op.type == "softmax_with_cross_entropy")
+
+
+def amp_train_path(np, torch, fa, card, seed: int):
+    """Phase 16: phase 5's model, feeds and steps with main.amp_dtype =
+    "bfloat16" through the Executor; returns the bf16 flash kernels'
+    launch counts of the warm-up and timed steps."""
+    import paddle_tpu_torch as pt
+
+    b, s = TRAIN["batch"], TRAIN["seq_len"]
+    main_prog, startup, avg = build_lm(pt, MODEL, s, seed)
+    main_prog.amp_dtype = "bfloat16"
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    names = TRAIN_KERNELS + FLASH_BF16_KERNELS
+    for name in names:
+        getattr(fa, name).launches = 0
+
+    def steps(first: int):
+        losses, step_s = [], []
+        for i in range(first, first + 1 + TRAIN_STEPS):
+            feed = lm_probe_feeds(np, i, b, s, MODEL["vocab_size"])
+            t0 = time.perf_counter()
+            loss, = exe.run(main_prog, feed=feed, fetch_list=[avg],
+                            scope=scope)
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(loss[0]))
+        return losses, 1e3 * sum(step_s[1:]) / TRAIN_STEPS, step_s
+
+    losses, ms, step_s = steps(0)
+    launches = {name: getattr(fa, name).launches for name in names}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"AMP train path (bfloat16, float32 masters): losses {losses}, "
+          f"warm-up step {1e3 * step_s[0]:.1f} ms, {TRAIN_STEPS} timed steps "
+          f"{[round(1e3 * x, 1) for x in step_s[1:]]} ms: {ms:.3f} ms per "
+          f"step, {b * s / ms * 1e3:.1f} tokens/s, peak memory "
+          f"{peak_gb:.2f} GB [{card}]")
+    print(f"AMP train path launches: {launches}")
+    want = MODEL["n_layers"] * (1 + TRAIN_STEPS)
+    for name, n in launches.items():
+        expect = want if name in FLASH_BF16_KERNELS else 0
+        if n != expect:
+            raise RuntimeError(f"{name} was launched {n} times on the AMP "
+                               f"training path, expected {expect}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"AMP training losses are not finite and "
+                           f"falling: {losses}")
+    wide = [p.name for p in main_prog.global_block.all_parameters()
+            if scope.find_var(p.name).dtype != torch.float32]
+    if wide:
+        raise RuntimeError(f"masters no longer float32 after AMP steps: "
+                           f"{wide}")
+    feed = lm_probe_feeds(np, 1 + TRAIN_STEPS, b, s, MODEL["vocab_size"])
+    run = lambda: exe.run(main_prog, feed=feed, fetch_list=[avg],
+                          scope=scope)
+    n, dev_ms, classes = launch_profile(torch, run)
+    print(f"AMP training step profiled: {n} kernel launches (phase 5's "
+          f"float32 step: 2775, PERF.md), device {dev_ms:.3f} ms: "
+          + ", ".join(f"{c} {m:.3f} ms / {k}" for c, (k, m) in
+                      sorted(classes.items(), key=lambda kv: -kv[1][1]))
+          + f" [{card}]")
+    wall, by_name, _ = profiled(torch, run, 1)
+    print_profile(f"AMP training step (batch {b}, sequence {s})", wall,
+                  by_name, card)
+    # the same program's float32 step, the same scope, in this run
+    main_prog.amp_dtype = None
+    f32_losses, f32_ms, _ = steps(2 + TRAIN_STEPS)
+    main_prog.amp_dtype = "bfloat16"
+    print(f"float32 step of the same program in this run: {f32_ms:.3f} ms "
+          f"per step (losses {f32_losses}); AMP {f32_ms / ms:.3f}x its "
+          f"speed [{card}]")
+    # the inference clone keeps amp_dtype; with no autodiff op nothing
+    # casts the masters, so it computes in float32 (as the JAX package's)
+    lname = logits_of(main_prog)
+    test = main_prog.clone(for_test=True).prune([lname])
+    ids = lm_probe_feeds(np, 99, 1, s, MODEL["vocab_size"])["src_ids"]
+    logits, = exe.run(test, feed={"src_ids": ids}, fetch_list=[lname],
+                      scope=scope, return_numpy=False)
+    torch.cuda.synchronize()
+    if test.amp_dtype != "bfloat16" or not bool(
+            torch.isfinite(logits).all()):
+        raise RuntimeError("the AMP program's inference clone lost "
+                           "amp_dtype or gave non-finite logits")
+    print(f"AMP inference clone: logits {tuple(logits.shape)} "
+          f"{logits.dtype}, finite, max abs {float(logits.abs().max()):.3e}")
+    return {name: launches[name] for name in FLASH_BF16_KERNELS}
+
+
+def amp_card_vs_cpu(np, torch, card, seed: int):
+    """Phase 16's reduced part: phase 6's reduced program under AMP, two
+    Adam steps from one startup state on the card and on the CPU."""
+    import paddle_tpu_torch as pt
+
+    cfg = {k: REDUCED[k] for k in ("vocab_size", "n_layers", "d_model",
+                                   "n_heads", "d_ff")}
+    s, b = REDUCED["seq_len"], REDUCED["batch"]
+    main_prog, startup, avg = build_lm(pt, cfg, s, seed)
+    main_prog.amp_dtype = "bfloat16"
+    cpu, gpu = pt.Executor(pt.CPUPlace()), pt.Executor()
+    cpu_scope, gpu_scope = pt.Scope(), pt.Scope()
+    cpu.run(startup, scope=cpu_scope)
+    for name in cpu_scope.local_var_names():
+        gpu_scope.set_var(name, cpu_scope.find_var(name).to(gpu.device))
+    params = [p.name for p in main_prog.global_block.all_parameters()]
+    start = {n: cpu_scope.get_numpy(n) for n in params}
+    loss_diff, grad_rel = [], 0.0
+    for i in range(2):
+        feed = lm_probe_feeds(np, i, b, s, cfg["vocab_size"])
+        fetch = [avg.name] + ([p + "@GRAD" for p in params] if i == 0
+                              else [])
+        oc = cpu.run(main_prog, feed=feed, fetch_list=fetch, scope=cpu_scope)
+        og = gpu.run(main_prog, feed=feed, fetch_list=fetch, scope=gpu_scope)
+        loss_diff.append(abs(float(og[0][0]) - float(oc[0][0])))
+        if not loss_diff[-1] <= AMP_LOSS_RTOL * abs(float(oc[0][0])):
+            raise RuntimeError(f"AMP step {i}: card loss {og[0][0]} vs CPU "
+                               f"{oc[0][0]}")
+        for p, g, c in zip(params, og[1:], oc[1:]):
+            if g.dtype != np.float32:
+                raise RuntimeError(f"{p}@GRAD is {g.dtype} under AMP")
+            if p.endswith("_k_b"):   # zero in exact arithmetic
+                continue
+            rel = rms(np, g - c) / rms(np, c)
+            grad_rel = max(grad_rel, rel)
+            if not rel <= AMP_GRAD_RTOL:
+                raise RuntimeError(f"{p}@GRAD: card vs CPU rms diff {rel:.3e} "
+                                   "of the CPU's under AMP")
+    worst, upd_rel = 0.0, 0.0
+    for p in params:
+        got, want = gpu_scope.get_numpy(p), cpu_scope.get_numpy(p)
+        if gpu_scope.find_var(p).dtype != torch.float32:
+            raise RuntimeError(f"master {p} is not float32")
+        worst = max(worst, float(np.abs(got - want).max()))
+        if not p.endswith("_k_b"):   # zero gradient: noise-driven steps
+            upd_rel = max(upd_rel, rms(np, got - want)
+                          / rms(np, want - start[p]))
+    print(f"card vs CPU, reduced program under AMP, 2 Adam steps: loss "
+          f"diffs {loss_diff} (tol rtol {AMP_LOSS_RTOL}), largest relative "
+          f"rms diff of a first-step float32 gradient {grad_rel:.3e} (tol "
+          f"{AMP_GRAD_RTOL}), largest master diff {worst:.3e} (tol atol "
+          f"{AMP_STEP_ATOL}), largest relative rms diff of an update "
+          f"{upd_rel:.3e} (tol {AMP_UPDATE_RTOL}) [{card}]")
+    if not (worst <= AMP_STEP_ATOL and upd_rel <= AMP_UPDATE_RTOL):
+        raise RuntimeError("card and CPU masters disagree under AMP")
 
 
 def resnet_varied(np, i, batch, image, center=0.0):
@@ -3290,6 +3602,9 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products (phase 16) sum in float32 throughout: with PyTorch's
+    # default (True) cuBLAS may round a product's partial sums to bf16
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     t0 = time.perf_counter()
     report = build.build()
@@ -3311,6 +3626,7 @@ def main() -> int:
             "paged_decode_attention": check_paged(torch, fa, card),
             "flash_attention_bwd_dq": dq_row,
             "flash_attention_bwd_dkv": dkv_row}
+    rows.update(check_flash_bf16(torch, F, fa, card))
     rows.update(check_epilogue(torch, F, fc, card,
                                epilogue_ops(built["fused"], RESNET["batch"])))
     rows.update(check_lstm(np, torch, fl, card, args.seed))
@@ -3340,6 +3656,8 @@ def main() -> int:
                 launches[name] += n
     for name, n in trainer_path(np, torch, fa, card, args.seed).items():
         launches[name] += n
+    launches.update(amp_train_path(np, torch, fa, card, args.seed))
+    amp_card_vs_cpu(np, torch, card, args.seed)
 
     meta = {"flash_attention_fwd": (
                 "paddle_tpu_torch/csrc/flash_attention.cu",
@@ -3352,6 +3670,15 @@ def main() -> int:
                 "paddle_tpu/kernels/flash_attention.py:279"),
             "flash_attention_bwd_dkv": (
                 "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+                "paddle_tpu/kernels/flash_attention.py:298"),
+            "flash_attention_fwd_bf16": (
+                "paddle_tpu_torch/csrc/flash_attention_bf16.cu",
+                "paddle_tpu/kernels/flash_attention.py:151"),
+            "flash_attention_bwd_dq_bf16": (
+                "paddle_tpu_torch/csrc/flash_attention_bf16.cu",
+                "paddle_tpu/kernels/flash_attention.py:279"),
+            "flash_attention_bwd_dkv_bf16": (
+                "paddle_tpu_torch/csrc/flash_attention_bf16.cu",
                 "paddle_tpu/kernels/flash_attention.py:298"),
             "channel_stats": ("paddle_tpu_torch/csrc/fused_conv.cu",
                               "paddle_tpu/kernels/fused_conv.py:85"),

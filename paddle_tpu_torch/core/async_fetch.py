@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..obs import trace as obs_trace
+from .types import host_array
 
 __all__ = ["PhaseTimer", "LazyFetch", "materialize"]
 
@@ -161,6 +162,9 @@ class LazyFetch:
 
     @property
     def dtype(self):
+        """The dtype ``numpy()`` returns."""
+        if self._val.dtype == torch.bfloat16:
+            return np.dtype(np.float32)
         return np.dtype(str(self._val.dtype).rsplit(".", 1)[-1])
 
     @property
@@ -183,12 +187,13 @@ class LazyFetch:
                 self._event.synchronize()
         if self._timer is not None:
             with self._timer.span("fetch"):
-                return self._val.detach().cpu().numpy()
-        return self._val.detach().cpu().numpy()
+                return host_array(self._val)
+        return host_array(self._val)
 
     def numpy(self) -> np.ndarray:
         """Wait for the value and copy it to numpy (cached): the one
-        synchronization point."""
+        synchronization point. A bfloat16 value comes back as float32,
+        widened exactly (numpy has no bfloat16)."""
         if self._np is None:
             try:
                 self._np = self._read()

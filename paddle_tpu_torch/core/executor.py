@@ -31,7 +31,7 @@ from .async_fetch import LazyFetch, PhaseTimer
 from .lowering import build_step_fn
 from .program import Program, VarDesc, default_main_program
 from .scope import Scope, global_scope
-from .types import resolve_device, torch_dtype
+from .types import host_array, resolve_device, torch_dtype
 
 __all__ = ["Place", "CPUPlace", "CUDAPlace", "Executor"]
 
@@ -52,6 +52,15 @@ def CPUPlace() -> Place:
 
 def CUDAPlace(index: int = 0) -> Place:
     return Place("cuda", index)
+
+
+def _from_host(val) -> torch.Tensor:
+    """A feed array as a CPU tensor. A numpy bfloat16 array (ml_dtypes',
+    which the port does not import) crosses by its bits."""
+    a = np.ascontiguousarray(val)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 class Executor:
@@ -90,8 +99,7 @@ class Executor:
         out = {}
 
         def put(name, val):
-            t = val if isinstance(val, torch.Tensor) else torch.from_numpy(
-                np.ascontiguousarray(val))
+            t = val if isinstance(val, torch.Tensor) else _from_host(val)
             want = (torch_dtype(block.var(name).dtype) if block.has_var(name)
                     else torch_dtype(str(t.dtype).rsplit(".", 1)[-1]))
             out[name] = t.to(device=self.device, dtype=want)
@@ -182,7 +190,7 @@ class Executor:
                     for n, f in zip(fetch_names, fetches)]
         if return_numpy:
             with self._timings.span("fetch"):
-                return [f.cpu().numpy() for f in fetches]
+                return [host_array(f) for f in fetches]
         return list(fetches)
 
     # -- entry points -------------------------------------------------------
@@ -192,7 +200,9 @@ class Executor:
             guard: bool = False):
         """Run one step of `program`; returns the fetches (numpy arrays,
         tensors on the device with return_numpy=False, LazyFetch handles
-        with lazy=True; the health flag last with guard=True)."""
+        with lazy=True; the health flag last with guard=True). Numpy has
+        no bfloat16: a bfloat16 fetch (an activation under AMP) comes
+        back as numpy float32, widened exactly."""
         program, scope, feed_t, state, step, names = self._prepare(
             program, feed, fetch_list, scope, guard)
         fault = 0

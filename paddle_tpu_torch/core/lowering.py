@@ -22,10 +22,17 @@ program order, over an environment planned once when the step is built:
   before it run with the parameters as leaf tensors that require grad,
   the loss is ``sum(loss.float()) * loss_scale``, ``torch.autograd.grad``
   binds each gradient to its ``@GRAD`` name, and the ops after it (the
-  optimizer) run under ``torch.no_grad()``.
+  optimizer) run under ``torch.no_grad()``;
+* mixed precision (``program.amp_dtype = "bfloat16"``), as the JAX
+  package runs it: every float32 feed is cast to bfloat16 at the step's
+  entry, and each float32 parameter leaf is cast to bfloat16 inside the
+  differentiated forward, so ``torch.autograd.grad`` returns float32
+  gradients of the float32 masters, which the optimizer ops update (the
+  casts never reach the env the step's state is read from). An op whose
+  kernels have no bfloat16 version raises when the step is built.
 
-Remat scopes and AMP are recorded in the IR but not ported: a program
-that uses them raises here.
+Remat scopes are recorded in the IR but not ported: a program that uses
+them raises here.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from typing import Dict, List, Optional, Sequence, Set
 
 import torch
 
+from ..ops.rnn_ops import takes_lstm_kernels
 from .program import Block, OpDesc, Program
 from .registry import ExecContext, require_op
 
@@ -46,6 +54,37 @@ AUTODIFF_OP = "autodiff"
 # ops that draw from the run's generator: they stay in the plan with no
 # live output, as every later draw depends on theirs
 _DRAWS = frozenset({"uniform_random", "gaussian_random"})
+
+# ops that would run a kernel with no bfloat16 version: under AMP they
+# raise when the step is built, not mid-step on the card
+_NO_BF16_KERNEL = {
+    "fused_conv2d": "the conv-epilogue kernels (csrc/fused_conv.cu)",
+    "fused_bottleneck": "the bottleneck chain's kernels",
+    "dynamic_lstm": "the LSTM kernels (csrc/fused_lstm.cu)",
+    "paged_kv_write": "the paged decode path",
+    "paged_attention": "the paged decode kernel (csrc/paged_attention.cu)",
+}
+
+
+def _amp_dtype(program: Program) -> Optional[torch.dtype]:
+    """The program's compute dtype under AMP (None without it); raises
+    for an AMP dtype other than bfloat16 and for an op whose kernels have
+    no bfloat16 version."""
+    amp = program.amp_dtype
+    if amp is None:
+        return None
+    if amp != "bfloat16":
+        raise NotImplementedError(
+            f"program.amp_dtype={amp!r}: mixed precision in {amp} is not "
+            "ported (bfloat16 is)")
+    for op in program.global_block.ops:
+        what = _NO_BF16_KERNEL.get(op.type)
+        if what is not None and (op.type != "dynamic_lstm"
+                                 or takes_lstm_kernels(op.attrs)):
+            raise NotImplementedError(
+                f"op {op.type!r} under amp_dtype='bfloat16': {what} have no "
+                "bfloat16 version; mixed precision of this op is not ported")
+    return torch.bfloat16
 
 
 class PlannedOp:
@@ -172,12 +211,14 @@ def _poisoned(v: torch.Tensor) -> torch.Tensor:
 
 
 def run_block_with_autodiff(plan: BlockPlan, env: List, ctx: ExecContext,
-                            fault: int = 0):
+                            fault: int = 0,
+                            amp: Optional[torch.dtype] = None):
     """Run a planned block that may hold one autodiff pseudo-op (see the
     module docstring). Every forward value but those the ops after the
     marker and the step's outputs read is dropped before the backward,
     so autograd frees activations as it goes. `fault` 1 / 2 poisons the
-    loss / the gradients after the backward (the guard's fault sites)."""
+    loss / the gradients after the backward (the guard's fault sites).
+    With `amp`, the forward reads each float32 parameter cast to it."""
     ops, bwd_idx = plan.ops, plan.bwd_idx
     if bwd_idx is None:
         with torch.no_grad():
@@ -185,9 +226,12 @@ def run_block_with_autodiff(plan: BlockPlan, env: List, ctx: ExecContext,
 
     leaves = [env[p].detach().requires_grad_(True) for p in plan.params]
     fwd_env = list(env)
-    for p, leaf in zip(plan.params, leaves):
-        fwd_env[p] = leaf
     with torch.enable_grad():
+        for p, leaf in zip(plan.params, leaves):
+            # the cast is differentiated: the gradient reaches the float32
+            # master as float32
+            fwd_env[p] = (leaf.to(amp) if amp is not None
+                          and leaf.dtype == torch.float32 else leaf)
         run_op_range(ops, 0, bwd_idx, fwd_env, ctx)
         loss = fwd_env[plan.loss].float().sum() * plan.loss_scale
     kept = [(i, fwd_env[i]) for i in plan.kept]
@@ -226,10 +270,7 @@ def build_step_fn(program: Program, feed_names: Sequence[str],
     updates, accumulators, startup initializers). With guard=True the
     fetches must name the health var (the executor appends it) and the
     update is the guarded select."""
-    if program.amp_dtype is not None:
-        raise NotImplementedError(
-            f"program.amp_dtype={program.amp_dtype!r}: mixed precision is not "
-            "ported; the port trains in float32")
+    amp = _amp_dtype(program)
     block = program.global_block
     state_in = list(state_in_names)
     persist_written = []
@@ -265,8 +306,11 @@ def build_step_fn(program: Program, feed_names: Sequence[str],
         for n, i in state_slots:
             env[i] = state[n]
         for n, i in feed_slots:
-            env[i] = feed[n]
-        env = run_block_with_autodiff(plan, env, ctx, fault)
+            v = feed[n]
+            # AMP's entry cast: float32 feeds run in the compute dtype
+            env[i] = (v.to(amp) if amp is not None
+                      and v.dtype == torch.float32 else v)
+        env = run_block_with_autodiff(plan, env, ctx, fault, amp)
         missing = [n for n, i in zip(fetch_names, fetch_slots)
                    if env[i] is None]
         if missing:

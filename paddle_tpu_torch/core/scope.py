@@ -13,6 +13,8 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from .types import host_array
+
 __all__ = ["Scope", "global_scope", "scope_guard"]
 
 
@@ -33,11 +35,12 @@ class Scope:
         return iter(list(self._vars))
 
     def get_numpy(self, name: str) -> np.ndarray:
-        """Copy one var to host numpy (waits for the device)."""
+        """Copy one var to host numpy (waits for the device); bfloat16
+        widened to float32 (``types.host_array``)."""
         v = self.find_var(name)
         if v is None:
             raise KeyError(f"variable {name!r} not found in scope")
-        return v.detach().cpu().numpy()
+        return host_array(v)
 
 
 _global_scope = Scope()

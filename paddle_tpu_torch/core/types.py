@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 __all__ = ["DTYPES", "normalize_dtype", "device_dtype", "torch_dtype",
-           "VarKind", "resolve_device"]
+           "host_array", "VarKind", "resolve_device"]
 
 DTYPES = ("float32", "float64", "bfloat16", "float16", "int8", "int32",
           "int64", "uint8", "bool")
@@ -56,6 +56,14 @@ def device_dtype(dtype: str) -> str:
 def torch_dtype(dtype: str) -> torch.dtype:
     """The torch dtype a var of this tag holds on the device (narrowed)."""
     return _TORCH[device_dtype(normalize_dtype(dtype))]
+
+
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values as a host numpy array. bfloat16, which numpy
+    lacks (and the card's machine has no ml_dtypes), comes back widened
+    to float32, which is exact."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 class VarKind:

@@ -61,8 +61,8 @@ from .core.lowering import build_step_fn
 from .core.program import (Program, VarDesc, default_main_program,
                            program_guard, unique_name_guard)
 from .core.scope import Scope, global_scope
-from .core.types import (device_dtype, normalize_dtype, resolve_device,
-                         torch_dtype)
+from .core.types import (device_dtype, host_array, normalize_dtype,
+                         resolve_device, torch_dtype)
 from .models.transformer import (CONFIG_KEYS, TransformerLM, param_shapes,
                                  transformer_lm)
 from .resilience import faults
@@ -166,16 +166,6 @@ def _executor_device(executor) -> torch.device:
     return executor.device if executor is not None else resolve_device()
 
 
-def _host_array(t: torch.Tensor) -> np.ndarray:
-    """A var's bytes for its .npy: bfloat16 (which numpy lacks) is
-    widened to float32, losslessly; load_vars narrows it back to the
-    var's dtype."""
-    t = t.detach()
-    if t.dtype == torch.bfloat16:
-        t = t.float()
-    return t.cpu().numpy()
-
-
 def _atomic_save(path: str, arr: np.ndarray) -> None:
     """np.save to a temp name, then rename: a crash leaves the previous
     file or none, never half of one (the fault sites io_crash and
@@ -230,7 +220,7 @@ def save_vars(executor=None, dirname: str = "", main_program=None,
             f"{'...' if len(absent) > 5 else ''}")
     os.makedirs(dirname, exist_ok=True)
     for n, val in values.items():
-        _atomic_save(_var_path(dirname, n), _host_array(val))
+        _atomic_save(_var_path(dirname, n), host_array(val))
 
 
 def load_vars(executor=None, dirname: str = "", main_program=None,

@@ -17,7 +17,13 @@ design does about that):
   of ``_flash_bwd_pallas``; ``flash_attention_bwd`` runs both;
 * ``paged_decode_attention`` (csrc/paged_attention.cu) replaces the Pallas
   ``_paged_attention_pallas``: each slot's keys split across blocks, the
-  partials combined in split order within the one launch.
+  partials combined in split order within the one launch;
+* ``flash_attention_fwd_bf16``, ``flash_attention_bwd_dq_bf16`` and
+  ``flash_attention_bwd_dkv_bf16`` (csrc/flash_attention_bf16.cu) replace
+  the three flash kernels for bfloat16 inputs (mixed-precision training):
+  bf16 products with float32 accumulation. The float32 wrappers hand a
+  bfloat16 CUDA tensor to them, so ``FlashAttention`` runs the kernels of
+  its inputs' dtype, and each launch counts on the wrapper of its kernel.
 
 ``FlashAttention`` is the ``torch.autograd.Function`` of the pair (the
 JAX package's ``custom_vjp``), and ``dot_product_attention`` dispatches
@@ -50,6 +56,8 @@ __all__ = ["DEFAULT_MASK_VALUE", "mha_reference", "flash_attention_fwd",
            "flash_attention_bwd_dkv_reference",
            "flash_attention_bwd_reference", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv", "flash_attention_bwd",
+           "flash_attention_fwd_bf16", "flash_attention_bwd_dq_bf16",
+           "flash_attention_bwd_dkv_bf16",
            "FlashAttention", "dot_product_attention",
            "paged_attention_reference", "paged_decode_attention",
            "paged_split_plan", "paged_kv_update"]
@@ -247,8 +255,57 @@ def _check_cuda(name: str, t: torch.Tensor, device: torch.device,
     _require(t.dim() == ndim, f"{name} must have {ndim} dims, got "
                               f"{tuple(t.shape)}")
     _require(t.is_contiguous(), f"{name} must be contiguous")
-    if dtype == torch.float32:
+    if t.is_floating_point():
+        # the kernels load 16 bytes a thread (4 float32 or 8 bfloat16)
         _require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
+
+
+# (source, entry point) of the forward, dQ and dK/dV kernels of each
+# input dtype
+_KERNELS = {
+    torch.float32: {
+        "fwd": ("flash_attention.cu", "flash_attention_fwd_f32"),
+        "dq": ("flash_attention_bwd.cu", "flash_attention_bwd_dq_f32"),
+        "dkv": ("flash_attention_bwd.cu", "flash_attention_bwd_dkv_f32")},
+    torch.bfloat16: {
+        "fwd": ("flash_attention_bf16.cu", "flash_attention_fwd_bf16"),
+        "dq": ("flash_attention_bf16.cu", "flash_attention_bwd_dq_bf16"),
+        "dkv": ("flash_attention_bf16.cu", "flash_attention_bwd_dkv_bf16")}}
+
+
+def _check_fwd(q, k, v, causal: bool, dtype: torch.dtype) -> None:
+    """The forward kernels' contract: contiguous BSHD q, k, v of `dtype`,
+    head_dim 64, 128 or 256, causal only with sq <= sk."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_cuda(name, t, q.device, dtype, 4)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    _require(k.shape == v.shape and k.shape[0] == b and k.shape[2:] == (h, d),
+             f"k/v shapes {tuple(k.shape)}, {tuple(v.shape)} do not match "
+             f"q {tuple(q.shape)}")
+    _require(d in (64, 128, 256), f"head_dim {d} not in (64, 128, 256)")
+    _require(sq > 0 and sk > 0 and b * h > 0, "empty attention")
+    if causal and sq > sk:
+        raise ValueError(f"causal attention with sq={sq} > sk={sk} has no "
+                         "kernel; use mha_reference")
+
+
+def _fwd(wrapper, dtype: torch.dtype, q, k, v, causal: bool, scale: float):
+    """Launch the forward kernel of `dtype`; count it on `wrapper`."""
+    _check_fwd(q, k, v, causal, dtype)
+    b, sq, h, d = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
+    with build.device_guard(q.device):
+        stream = build.stream(q.device)
+        fn = build.bind(*_KERNELS[dtype]["fwd"],
+                        (_P,) * 5 + (_I,) * 5 + (_F, _I, _P))
+        build.launch(wrapper.__name__, fn, q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h, sq,
+                     k.shape[1], d, scale, int(bool(causal)), stream)
+    with _lock:
+        wrapper.launches += 1
+    return o, lse
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = False,
@@ -260,62 +317,90 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False,
     csrc/flash_attention.cu, which takes float32 contiguous BSHD tensors
     with head_dim 64, 128 or 256, any sequence lengths, and causal only
     with sq <= sk (the JAX dispatch routes causal sq > sk to the reference,
-    whose semantics the kernel's zero-sum guard does not share)."""
+    whose semantics the kernel's zero-sum guard does not share). bfloat16
+    CUDA tensors go to ``flash_attention_fwd_bf16``, which counts the
+    launch."""
     scale = _default_scale(q, scale)
     if not build.on_card("flash_attention_fwd", q):
         return flash_attention_fwd_reference(q, k, v, causal=causal,
                                              scale=scale)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_cuda(name, t, q.device, torch.float32, 4)
-    b, sq, h, d = q.shape
-    sk = k.shape[1]
-    _require(k.shape == v.shape and k.shape[0] == b and k.shape[2:] == (h, d),
-             f"k/v shapes {tuple(k.shape)}, {tuple(v.shape)} do not match "
-             f"q {tuple(q.shape)}")
-    _require(d in (64, 128, 256), f"head_dim {d} not in (64, 128, 256)")
-    _require(sq > 0 and sk > 0 and b * h > 0, "empty attention")
-    if causal and sq > sk:
-        raise ValueError(f"causal attention with sq={sq} > sk={sk} has no "
-                         "kernel; use mha_reference")
-    o = torch.empty_like(q)
-    lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
-    with build.device_guard(q.device):
-        stream = build.stream(q.device)
-        fn = build.bind("flash_attention.cu", "flash_attention_fwd_f32",
-                        (_P,) * 5 + (_I,) * 5 + (_F, _I, _P))
-        build.launch("flash_attention_fwd", fn, q.data_ptr(), k.data_ptr(),
-                     v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h, sq, sk,
-                     d, scale, int(bool(causal)), stream)
-    with _lock:
-        flash_attention_fwd.launches += 1
-    return o, lse
+    if q.dtype == torch.bfloat16:
+        return flash_attention_fwd_bf16(q, k, v, causal=causal, scale=scale)
+    return _fwd(flash_attention_fwd, torch.float32, q, k, v, causal, scale)
 
 
 flash_attention_fwd.launches = 0
 
 
-def _check_bwd(q, k, v, do, lse, delta, causal: bool):
+def flash_attention_fwd_bf16(q, k, v, *, causal: bool = False,
+                             scale: Optional[float] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bfloat16 forward: (O [B, Sq, H, D] bfloat16, lse [B*H, Sq] f32).
+    CPU tensors run ``flash_attention_fwd_reference``; CUDA tensors run
+    csrc/flash_attention_bf16.cu's forward under the float32 kernel's
+    contract, with bfloat16 q, k and v."""
+    scale = _default_scale(q, scale)
+    if not build.on_card("flash_attention_fwd_bf16", q):
+        return flash_attention_fwd_reference(q, k, v, causal=causal,
+                                             scale=scale)
+    return _fwd(flash_attention_fwd_bf16, torch.bfloat16, q, k, v, causal,
+                scale)
+
+
+flash_attention_fwd_bf16.launches = 0
+
+
+def _check_bwd(q, k, v, do, lse, delta, causal: bool, dtype: torch.dtype):
     """The backward kernels' contract: the forward kernel's inputs, dO
     like q, lse and delta [B*H, Sq] float32."""
-    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
-        _check_cuda(name, t, q.device, torch.float32, 4)
+    _check_fwd(q, k, v, causal, dtype)
+    _check_cuda("do", do, q.device, dtype, 4)
     for name, t in (("lse", lse), ("delta", delta)):
         _check_cuda(name, t, q.device, torch.float32, 2)
-    b, sq, h, d = q.shape
-    sk = k.shape[1]
-    _require(k.shape == v.shape and k.shape[0] == b and k.shape[2:] == (h, d),
-             f"k/v shapes {tuple(k.shape)}, {tuple(v.shape)} do not match "
-             f"q {tuple(q.shape)}")
+    b, sq, h, _ = q.shape
     _require(do.shape == q.shape, f"do {tuple(do.shape)} is not shaped as q "
                                   f"{tuple(q.shape)}")
     _require(lse.shape == (b * h, sq) and delta.shape == (b * h, sq),
              f"lse {tuple(lse.shape)} and delta {tuple(delta.shape)} must be "
              f"[B*H, Sq] = {(b * h, sq)}")
-    _require(d in (64, 128, 256), f"head_dim {d} not in (64, 128, 256)")
-    _require(sq > 0 and sk > 0 and b * h > 0, "empty attention")
-    if causal and sq > sk:
-        raise ValueError(f"causal attention with sq={sq} > sk={sk} has no "
-                         "kernel; use mha_reference")
+
+
+def _dq(wrapper, dtype: torch.dtype, q, k, v, do, lse, delta, causal: bool,
+        scale: float):
+    """Launch the dQ kernel of `dtype`; count it on `wrapper`."""
+    _check_bwd(q, k, v, do, lse, delta, causal, dtype)
+    b, sq, h, d = q.shape
+    dq = torch.empty_like(q)
+    with build.device_guard(q.device):
+        stream = build.stream(q.device)
+        fn = build.bind(*_KERNELS[dtype]["dq"],
+                        (_P,) * 7 + (_I,) * 5 + (_F, _I, _P))
+        build.launch(wrapper.__name__, fn, q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                     delta.data_ptr(), dq.data_ptr(), b, h, sq, k.shape[1], d,
+                     scale, int(bool(causal)), stream)
+    with _lock:
+        wrapper.launches += 1
+    return dq
+
+
+def _dkv(wrapper, dtype: torch.dtype, q, k, v, do, lse, delta, causal: bool,
+         scale: float):
+    """Launch the dK/dV kernel of `dtype`; count it on `wrapper`."""
+    _check_bwd(q, k, v, do, lse, delta, causal, dtype)
+    b, sq, h, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with build.device_guard(q.device):
+        stream = build.stream(q.device)
+        fn = build.bind(*_KERNELS[dtype]["dkv"],
+                        (_P,) * 8 + (_I,) * 5 + (_F, _I, _P))
+        build.launch(wrapper.__name__, fn, q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                     delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq,
+                     k.shape[1], d, scale, int(bool(causal)), stream)
+    with _lock:
+        wrapper.launches += 1
+    return dk, dv
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = False,
@@ -323,29 +408,39 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = False,
     """dQ of flash attention from the forward's lse and delta (see
     ``flash_attention_bwd_delta``). CPU tensors run
     ``flash_attention_bwd_dq_reference``; CUDA tensors run the dQ kernel
-    of csrc/flash_attention_bwd.cu under the forward kernel's contract."""
+    of csrc/flash_attention_bwd.cu under the forward kernel's contract,
+    bfloat16 ones ``flash_attention_bwd_dq_bf16``."""
     scale = _default_scale(q, scale)
     if not build.on_card("flash_attention_bwd_dq", q):
         return flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
                                                 causal=causal, scale=scale)
-    _check_bwd(q, k, v, do, lse, delta, causal)
-    b, sq, h, d = q.shape
-    dq = torch.empty_like(q)
-    with build.device_guard(q.device):
-        stream = build.stream(q.device)
-        fn = build.bind("flash_attention_bwd.cu",
-                        "flash_attention_bwd_dq_f32",
-                        (_P,) * 7 + (_I,) * 5 + (_F, _I, _P))
-        build.launch("flash_attention_bwd_dq", fn, q.data_ptr(),
-                     k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                     delta.data_ptr(), dq.data_ptr(), b, h, sq, k.shape[1], d,
-                     scale, int(bool(causal)), stream)
-    with _lock:
-        flash_attention_bwd_dq.launches += 1
-    return dq
+    if q.dtype == torch.bfloat16:
+        return flash_attention_bwd_dq_bf16(q, k, v, do, lse, delta,
+                                           causal=causal, scale=scale)
+    return _dq(flash_attention_bwd_dq, torch.float32, q, k, v, do, lse, delta,
+               causal, scale)
 
 
 flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dq_bf16(q, k, v, do, lse, delta, *,
+                                causal: bool = False,
+                                scale: Optional[float] = None
+                                ) -> torch.Tensor:
+    """The bfloat16 dQ. CPU tensors run
+    ``flash_attention_bwd_dq_reference``; CUDA tensors run
+    csrc/flash_attention_bf16.cu's dQ kernel (bfloat16 q, k, v, dO;
+    float32 lse and delta)."""
+    scale = _default_scale(q, scale)
+    if not build.on_card("flash_attention_bwd_dq_bf16", q):
+        return flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
+                                                causal=causal, scale=scale)
+    return _dq(flash_attention_bwd_dq_bf16, torch.bfloat16, q, k, v, do, lse,
+               delta, causal, scale)
+
+
+flash_attention_bwd_dq_bf16.launches = 0
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *,
@@ -354,29 +449,38 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *,
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV) of flash attention. CPU tensors run
     ``flash_attention_bwd_dkv_reference``; CUDA tensors run the dK/dV
-    kernel of csrc/flash_attention_bwd.cu."""
+    kernel of csrc/flash_attention_bwd.cu, bfloat16 ones
+    ``flash_attention_bwd_dkv_bf16``."""
     scale = _default_scale(q, scale)
     if not build.on_card("flash_attention_bwd_dkv", q):
         return flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
                                                  causal=causal, scale=scale)
-    _check_bwd(q, k, v, do, lse, delta, causal)
-    b, sq, h, d = q.shape
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    with build.device_guard(q.device):
-        stream = build.stream(q.device)
-        fn = build.bind("flash_attention_bwd.cu",
-                        "flash_attention_bwd_dkv_f32",
-                        (_P,) * 8 + (_I,) * 5 + (_F, _I, _P))
-        build.launch("flash_attention_bwd_dkv", fn, q.data_ptr(),
-                     k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                     delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq,
-                     k.shape[1], d, scale, int(bool(causal)), stream)
-    with _lock:
-        flash_attention_bwd_dkv.launches += 1
-    return dk, dv
+    if q.dtype == torch.bfloat16:
+        return flash_attention_bwd_dkv_bf16(q, k, v, do, lse, delta,
+                                            causal=causal, scale=scale)
+    return _dkv(flash_attention_bwd_dkv, torch.float32, q, k, v, do, lse,
+                delta, causal, scale)
 
 
 flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd_dkv_bf16(q, k, v, do, lse, delta, *,
+                                 causal: bool = False,
+                                 scale: Optional[float] = None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bfloat16 (dK, dV). CPU tensors run
+    ``flash_attention_bwd_dkv_reference``; CUDA tensors run
+    csrc/flash_attention_bf16.cu's dK/dV kernel."""
+    scale = _default_scale(q, scale)
+    if not build.on_card("flash_attention_bwd_dkv_bf16", q):
+        return flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                 causal=causal, scale=scale)
+    return _dkv(flash_attention_bwd_dkv_bf16, torch.bfloat16, q, k, v, do,
+                lse, delta, causal, scale)
+
+
+flash_attention_bwd_dkv_bf16.launches = 0
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
@@ -392,7 +496,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
 
 class FlashAttention(torch.autograd.Function):
     """Flash attention with its backward: the forward kernel saves O and
-    lse, the backward kernels recompute the probabilities from them."""
+    lse, the backward kernels recompute the probabilities from them. The
+    kernels are those of the inputs' dtype (float32 or bfloat16)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: Optional[float]):

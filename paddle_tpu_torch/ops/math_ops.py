@@ -21,10 +21,23 @@ from ..core.registry import register_op, same_shape
 from . import nn_ops
 
 
+def harmonize(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The mixed-precision rule of the JAX package: the Y (weight or
+    bias) side follows X's float dtype, so bfloat16 activations meet
+    float32 parameters in bfloat16 (autograd carries the gradient back to
+    the parameter's dtype)."""
+    if (y.dtype != x.dtype and x.is_floating_point()
+            and y.is_floating_point()):
+        return y.to(x.dtype)
+    return y
+
+
 def broadcast_y_to_x(x: torch.Tensor, y: torch.Tensor, axis: int):
     """Paddle's elementwise broadcast: Y's shape is a contiguous run of
-    X's dims starting at `axis` (-1: trailing-aligned). Trailing-aligned
-    is torch's own broadcast, so Y is then returned as it is."""
+    X's dims starting at `axis` (-1: trailing-aligned), Y in X's float
+    dtype (``harmonize``). Trailing-aligned is torch's own broadcast, so
+    Y is then returned as it is."""
+    y = harmonize(x, y)
     xnd, ynd = x.dim(), y.dim()
     if axis == -1:
         axis = xnd - ynd
@@ -148,6 +161,7 @@ def mul(ctx, ins, attrs):
     restore the leading dims. The fc case (Y whole, X's trailing dim
     contracted) is one ``torch.matmul``."""
     x, y = ins["X"][0], ins["Y"][0]
+    y = harmonize(x, y)
     xn = attrs.get("x_num_col_dims", 1)
     yn = attrs.get("y_num_col_dims", 1)
     xs, ys = tuple(x.shape), tuple(y.shape)

@@ -26,7 +26,7 @@ from ..core.registry import register_op
 from ..kernels import fused_lstm
 from .sequence_ops import time_mask
 
-__all__ = ["dynamic_lstm", "lstmp", "dynamic_gru"]
+__all__ = ["dynamic_lstm", "lstmp", "dynamic_gru", "takes_lstm_kernels"]
 
 _ACT = {
     "sigmoid": torch.sigmoid, "tanh": torch.tanh,
@@ -35,7 +35,7 @@ _ACT = {
 }
 
 
-def _fused_lstm_ok(ctx, attrs, use_peep: bool, w_proj) -> bool:
+def _kernel_contract(attrs, use_peep: bool, w_proj) -> bool:
     """The whole-sequence kernel's contract: the JAX package's
     ``_pallas_lstm_ok`` without its TPU tiling rule and backend test.
     PT_FUSED_LSTM=never (or 0) takes the scan."""
@@ -43,11 +43,20 @@ def _fused_lstm_ok(ctx, attrs, use_peep: bool, w_proj) -> bool:
         return False
     if use_peep or w_proj is not None:
         return False
-    if (attrs.get("gate_activation", "sigmoid") != "sigmoid"
-            or attrs.get("cell_activation", "tanh") != "tanh"
-            or attrs.get("candidate_activation", "tanh") != "tanh"):
-        return False
-    return ctx is not None and getattr(ctx, "mesh", None) is None
+    return (attrs.get("gate_activation", "sigmoid") == "sigmoid"
+            and attrs.get("cell_activation", "tanh") == "tanh"
+            and attrs.get("candidate_activation", "tanh") == "tanh")
+
+
+def _fused_lstm_ok(ctx, attrs, use_peep: bool, w_proj) -> bool:
+    return (_kernel_contract(attrs, use_peep, w_proj) and ctx is not None
+            and getattr(ctx, "mesh", None) is None)
+
+
+def takes_lstm_kernels(attrs) -> bool:
+    """Whether a ``dynamic_lstm`` op of these attrs runs
+    ``LSTMSequence`` (the kernels, on the card) under the Executor."""
+    return _kernel_contract(attrs, attrs.get("use_peepholes", False), None)
 
 
 def _lstm_scan(ins, attrs, w_proj=None, pact=None, ctx=None):

@@ -18,7 +18,11 @@ them (the sum of squares within rtol 1e-5, the sum within 1e-5 of the
 sum of |a|); the LSTM forward 1e-5 and its backward 1e-4 (dW sums T*B
 products in another order); the bottleneck chain's forward outputs
 1e-5, its backward's elementwise outputs 1e-4 (g3 bitwise), and every
-sum of the chain within 1e-5 of the sum of its terms' magnitudes.
+sum of the chain within 1e-5 of the sum of its terms' magnitudes. The
+bf16 flash kernels: O, dQ, dK and dV within 2^-7 max|plain| + 2^-7
+|plain| of the plain versions (bf16's unit roundoff is 2^-8: their own
+rounding, and P's and dS's before their products), lse within 1e-4; an
+AMP step against the CPU within tests/test_torch_amp.py's limits.
 """
 
 import json
@@ -421,7 +425,7 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     gen = torch.Generator().manual_seed(1)
     q = _randn(gen, 1, 64, 2, 128)
     with pytest.raises(TypeError):
-        fa.flash_attention_fwd(q.bfloat16(), q.bfloat16(), q.bfloat16())
+        fa.flash_attention_fwd(q.half(), q.half(), q.half())
     with pytest.raises(ValueError):
         t = q.transpose(1, 2)
         fa.flash_attention_fwd(t, t, t)
@@ -445,6 +449,186 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     bad[0] = args[0].transpose(0, 1).contiguous().transpose(0, 1)
     with pytest.raises(ValueError):
         fa.paged_decode_attention(*bad)
+
+
+# the bf16 kernels (csrc/flash_attention_bf16.cu) against their plain
+# versions: O, dQ, dK and dV within 2^-7 max|plain| + 2^-7 |plain| (bf16's
+# unit roundoff is 2^-8: the outputs' own rounding, and P's and dS's
+# roundings to bf16 before their products), lse within 1e-4
+BF16_REL, LSE_TOL = 2.0 ** -7, dict(atol=1e-4, rtol=1e-4)
+
+
+def _assert_bf16_close(got, want, what):
+    got, want = got.float(), want.float()
+    limit = BF16_REL * want.abs().max() + BF16_REL * want.abs()
+    assert bool(torch.isfinite(got).all()), what
+    share = float(((got - want).abs() / limit).max())
+    assert share <= 1.0, f"{what}: {share:.3f} of the limit"
+
+
+def _bf16_case(gen, b, sq, sk, h, d):
+    return ([_randn(gen, b, sq, h, d).bfloat16()]
+            + [_randn(gen, b, sk, h, d).bfloat16() for _ in range(2)]
+            + [_randn(gen, b, sq, h, d).bfloat16()])
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d,causal", [
+    (8, 1024, 1024, 8, 256, True),   # the AMP training step's shape
+    (1, 128, 128, 8, 256, True),
+    (1, 333, 333, 8, 256, True),
+    (1, 1024, 1024, 8, 256, True),
+    (2, 77, 77, 3, 64, True),        # ragged, one partial tile
+    (1, 5, 300, 2, 128, True),       # sq < sk: bottom-right causal
+    (2, 100, 33, 2, 256, False),     # sq > sk, not causal
+    (2, 70, 150, 2, 128, False),
+])
+def test_flash_bf16_kernels_match_plain(cuda, b, sq, sk, h, d, causal):
+    """The three bf16 kernels against their plain versions (bf16 in, the
+    plain versions' float32 math), from the plain forward's O and lse;
+    each kernel's outputs bf16 (lse float32) and a second call the same
+    bits."""
+    gen = torch.Generator().manual_seed(sq * 7 + sk + d)
+    q, k, v, do = _bf16_case(gen, b, sq, sk, h, d)
+    o, lse = fa.flash_attention_fwd_bf16(q, k, v, causal=causal)
+    ro, rlse = fa.flash_attention_fwd_reference(q, k, v, causal=causal)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    _assert_bf16_close(o, ro, "O")
+    torch.testing.assert_close(lse, rlse, **LSE_TOL)
+    delta = fa.flash_attention_bwd_delta(ro, do)
+    args = (q, k, v, do, rlse, delta)
+    dq = fa.flash_attention_bwd_dq_bf16(*args, causal=causal)
+    dk, dv = fa.flash_attention_bwd_dkv_bf16(*args, causal=causal)
+    want = fa.flash_attention_bwd_reference(q, k, v, ro, rlse, do,
+                                            causal=causal)
+    for name, got, w in zip(("dQ", "dK", "dV"), (dq, dk, dv), want):
+        assert got.dtype == torch.bfloat16, name
+        _assert_bf16_close(got, w, name)
+    again = (*fa.flash_attention_fwd_bf16(q, k, v, causal=causal),
+             fa.flash_attention_bwd_dq_bf16(*args, causal=causal),
+             *fa.flash_attention_bwd_dkv_bf16(*args, causal=causal))
+    assert all(torch.equal(x, y) for x, y in zip((o, lse, dq, dk, dv),
+                                                  again))
+
+
+def test_flash_autograd_in_bf16_runs_the_bf16_kernels(cuda):
+    """FlashAttention (dot_product_attention on CUDA) on bf16 inputs: one
+    launch of each bf16 kernel a call and none of the float32 ones;
+    gradients bf16, within the limits of the plain backward from the
+    plain forward."""
+    gen = torch.Generator().manual_seed(19)
+    q, k, v, do = _bf16_case(gen, 2, 200, 200, 4, 128)
+    names = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv", "flash_attention_fwd_bf16",
+             "flash_attention_bwd_dq_bf16", "flash_attention_bwd_dkv_bf16")
+    before = [getattr(fa, n).launches for n in names]
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = fa.dot_product_attention(*leaves, causal=True)
+    out.backward(do)
+    assert out.dtype == torch.bfloat16
+    ro, rlse = fa.flash_attention_fwd_reference(q, k, v, causal=True)
+    _assert_bf16_close(out.detach(), ro, "O")
+    want = fa.flash_attention_bwd_reference(q, k, v, ro, rlse, do,
+                                            causal=True)
+    for name, leaf, w in zip("qkv", leaves, want):
+        assert leaf.grad.dtype == torch.bfloat16
+        _assert_bf16_close(leaf.grad, w, f"d{name}")
+    assert [getattr(fa, n).launches - c for n, c in zip(names, before)] \
+        == [0, 0, 0, 1, 1, 1]
+
+
+def test_flash_bf16_wrappers_never_fall_back(cuda, monkeypatch):
+    """With every plain version patched to raise, bf16 CUDA calls still
+    succeed through both wrappers of each kernel."""
+    def boom(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    for name in ("mha_reference", "flash_attention_fwd_reference",
+                 "flash_attention_bwd_dq_reference",
+                 "flash_attention_bwd_dkv_reference",
+                 "flash_attention_bwd_reference"):
+        monkeypatch.setattr(fa, name, boom)
+    gen = torch.Generator().manual_seed(2)
+    q, k, v, do = _bf16_case(gen, 1, 64, 64, 2, 128)
+    n = fa.flash_attention_fwd_bf16.launches
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    fa.flash_attention_fwd_bf16(q, k, v)
+    fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    assert fa.flash_attention_fwd_bf16.launches == n + 2
+    torch.cuda.synchronize()
+
+
+def test_flash_bf16_kernels_refuse_what_they_do_not_take(cuda):
+    gen = torch.Generator().manual_seed(3)
+    q, k, v, do = _bf16_case(gen, 1, 64, 64, 2, 128)
+    with pytest.raises(TypeError):   # mixed dtypes
+        fa.flash_attention_fwd_bf16(q, k.float(), v)
+    with pytest.raises(TypeError):   # float32 into the bf16 kernel
+        fa.flash_attention_fwd_bf16(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError):
+        t = q.transpose(1, 2)
+        fa.flash_attention_fwd_bf16(t, t, t)
+    with pytest.raises(ValueError):  # head_dim 32
+        x = _randn(gen, 1, 8, 2, 32).bfloat16()
+        fa.flash_attention_fwd_bf16(x, x, x)
+    with pytest.raises(ValueError):  # causal sq > sk
+        fa.flash_attention_fwd_bf16(q, k[:, :32], v[:, :32], causal=True)
+    with pytest.raises(ValueError):  # 2 bytes off 16-byte alignment
+        buf = torch.empty(q.numel() + 1, dtype=torch.bfloat16,
+                          device=q.device)
+        x = buf[1:].view(q.shape).copy_(q)
+        fa.flash_attention_fwd_bf16(x, k, v)
+    o, lse = fa.flash_attention_fwd_bf16(q, k, v)
+    delta = fa.flash_attention_bwd_delta(o, do)
+    with pytest.raises(TypeError):   # lse must be float32
+        fa.flash_attention_bwd_dq_bf16(q, k, v, do, lse.bfloat16(), delta)
+    with pytest.raises(TypeError):   # dO must be bf16 like q
+        fa.flash_attention_bwd_dkv_bf16(q, k, v, do.float(), lse, delta)
+
+
+def test_amp_training_step_on_the_card(cuda):
+    """One AMP step of a small LM on the card: every flash launch is a
+    bf16 kernel's (n_layers of each a step, no float32 one), the masters
+    stay float32, and the loss and the float32 gradients agree with the
+    same step on the CPU within the AMP limits of tests/test_torch_amp.py
+    (loss rtol 1e-2, gradients 5e-2 as rms; the key biases, zero in exact
+    arithmetic, apart)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.transformer import transformer_lm_loss
+
+    cfg = dict(vocab_size=300, seq_len=64, n_layers=2, d_model=256,
+               n_heads=2, d_ff=512, max_len=64)
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        avg, _ = transformer_lm_loss(**cfg)
+        pt.optimizer.SGDOptimizer(learning_rate=0.1).minimize(avg)
+    main.amp_dtype = "bfloat16"
+    params = [p.name for p in main.global_block.all_parameters()]
+    fetch = [avg.name] + [p + "@GRAD" for p in params]
+    cpu_exe, cpu_scope = pt.Executor(pt.CPUPlace()), pt.Scope()
+    cpu_exe.run(startup, scope=cpu_scope)
+    gpu_exe, gpu_scope = pt.Executor(), pt.Scope()
+    for n in cpu_scope.local_var_names():
+        gpu_scope.set_var(n, cpu_scope.find_var(n).to(gpu_exe.device))
+    src = np.random.RandomState(0).randint(0, 64, (2, 64)).astype(np.int64)
+    feed = {"src_ids": src, "tgt_ids": src[..., None]}
+    names = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv", "flash_attention_fwd_bf16",
+             "flash_attention_bwd_dq_bf16", "flash_attention_bwd_dkv_bf16")
+    before = [getattr(fa, n).launches for n in names]
+    got = gpu_exe.run(main, feed=feed, fetch_list=fetch, scope=gpu_scope)
+    assert [getattr(fa, n).launches - c for n, c in zip(names, before)] \
+        == [0, 0, 0, 2, 2, 2]
+    want = cpu_exe.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-2)
+
+    def rms(a):
+        return float(np.sqrt(np.mean(np.square(a.astype(np.float64)))))
+
+    for p, g, w in zip(params, got[1:], want[1:]):
+        assert g.dtype == np.float32, p
+        assert gpu_scope.find_var(p).dtype == torch.float32, p
+        if not p.endswith("_k_b"):
+            assert rms(g - w) <= 5e-2 * rms(w), p
 
 
 def test_decode_model_cuda_matches_cpu(cuda, tmp_path):
