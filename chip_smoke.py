@@ -173,7 +173,10 @@ csrc/flash_attention_bf16.cu) against their plain versions at
 FLASH_BF16_SHAPES (H 8, D 256, causal; the AMP training step's B 8, S
 1024 among them), printing each output's largest share of its limit,
 each timed beside its plain version, its bound at the bf16 tensor
-cores' rate and SDPA in bf16.
+cores' rate and SDPA in bf16 (its forward; its backward alone, its
+device time over a graph built once, beside dQ and dK/dV). The forward
+and dK/dV run on wgmma, fed by TMA through mbarrier rings in
+warp-specialised blocks (csrc/sm90.cuh).
 Phase 3 also holds the two LSTM kernels against their plain versions at
 the bench shape (T 100, B 64, H 512), full-length and ragged, timed
 beside their bounds (3xTF32, with the f32 FMA bounds beside them) and
@@ -598,8 +601,9 @@ def check_flash_bf16(torch, F, fa, card):
     the backward from the plain forward's O and lse (bf16 in, float32
     math in the plain versions); each timed beside its plain version, its
     bound (the bf16 tensor cores' rate) and SDPA in bf16 (its forward for
-    the forward, its backward less its forward for dQ and dK/dV). Returns
-    {kernel: row} at LINE_SHAPE."""
+    the forward; for dQ and dK/dV its backward alone, dQ, dK and dV over a
+    graph built once, as device time). Returns {kernel: row} at
+    LINE_SHAPE."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     parts = dict(zip(("fwd", "dq", "dkv"), FLASH_BF16_KERNELS))
     rows, shares = {}, {p: [] for p in parts}
@@ -657,13 +661,21 @@ def check_flash_bf16(torch, F, fa, card):
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         sdpa = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True), 20)
+        # SDPA's backward alone: its graph built once, then the gradient
+        # taken over it again and again; its device time (torch.profiler),
+        # since its autograd calls can leave the card waiting on the host
+        # here; CUDA events where the profile lost kernels
         qg, kg, vg = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
-        fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            qg, kg, vg, is_causal=True), 20)
-        both = cuda_ms(torch, lambda: torch.autograd.grad(
-            F.scaled_dot_product_attention(qg, kg, vg, is_causal=True),
-            (qg, kg, vg), do.transpose(1, 2)), 20)
-        lib = {"fwd": sdpa, "dq": both - fwd, "dkv": both - fwd}
+        graph = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        grad = lambda: torch.autograd.grad(graph, (qg, kg, vg),
+                                           do.transpose(1, 2),
+                                           retain_graph=True)
+        bwd_events = cuda_ms(torch, grad, 20)
+        bwd = device_host(torch, grad, queued=20)[0] or bwd_events
+        del graph
+        lib = {"fwd": sdpa, "dq": bwd, "dkv": bwd}
+        bwd_note = (f" (its backward alone: dQ, dK, dV; device time, "
+                    f"{bwd_events:.4f} ms by events)")
         for p, name in parts.items():
             print(f"{name} B={b} S={s}: largest share of the limit "
                   f"{' / '.join(f'{x:.4f}' for x in share[p])} (bf16 outputs "
@@ -672,7 +684,7 @@ def check_flash_bf16(torch, F, fa, card):
                   f"max_abs_err {err[p]:.3e}; kernel {ms[p]:.4f} ms "
                   f"({flops[p] / ms[p] / 1e9:.1f} TFLOP/s), plain "
                   f"{plain[p]:.4f} ms, sdpa bf16 {lib[p]:.4f} ms"
-                  f"{'' if p == 'fwd' else ' (its backward less its forward)'}"
+                  f"{'' if p == 'fwd' else bwd_note}"
                   f", bound {bounds[p][0]:.4f} ms ({bounds[p][1]}; "
                   f"{nbytes[p] / 1e6:.1f} MB, {flops[p] / 1e9:.2f} GFLOP at "
                   f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s) [{card}]")

@@ -1,6 +1,7 @@
 // Flash attention in bfloat16 for Hopper (sm_90a): the forward, dQ and
-// dK/dV of mixed-precision training, each on the tensor cores as
-// mma.sync.m16n8k16 bf16 products with float32 accumulation.
+// dK/dV of mixed-precision training, bf16 products with float32
+// accumulation on the tensor cores: the forward and dK/dV as wgmma.mma_async
+// in warp-specialised blocks fed by TMA, dQ as mma.sync.m16n8k16.
 //
 // Replaces, for bfloat16 inputs, the three TPU kernels of
 // paddle_tpu/kernels/flash_attention.py: the forward _flash_fwd (Pallas
@@ -25,23 +26,26 @@
 // and O out, 134 MB: 0.040 ms at 3.35 TB/s; its two products, 34.4 GFLOP,
 // are 0.035 ms at the 989 TFLOP/s bf16 rate); dQ's operations (three
 // products, 51.5 GFLOP: 0.052 ms); dK/dV's operations (four products, 68.7
-// GFLOP: 0.069 ms).
+// GFLOP: 0.069 ms). Only wgmma reaches that rate (mma.sync does not), and
+// wgmma reads its B operand, and in the SS form its A, from shared memory
+// by descriptor: so the tiles arrive by TMA in the 128-byte swizzle that
+// the descriptors read (csrc/sm90.cuh), and P, P^T and dS^T, formed in
+// registers, are the RS form's A straight from the accumulators.
 //
-// These are the simple versions that are right first: mma.sync (not
-// wgmma), cp.async (not TMA), and one buffer ring at most. What each
-// design does:
-//
-// Forward (flash_bf16_fwd_kernel): flash-attention-2's layout. A block owns
-//   one (batch, head) and 64 query rows, 4 warps of 16 rows each; the block
-//   walks the key tiles of 64 keys up to the causal diagonal, heaviest query
-//   tile first. A warp's S = Q K^T (16 x 64) stays in registers, where the
-//   online softmax runs on it (a row's max and sum across the 4 lanes that hold
-//   it by two xor shuffles); its C fragments are, packed to bf16, the A
-//   fragments of P V, so P never reaches shared memory. O (16 x D a warp, 128
-//   floats a thread at D = 256) stays in registers across the key tiles. Q, K
-//   and V of one tile each in shared memory at a pitch of D + 8 (101,376 bytes
-//   at D = 256, two blocks an SM): V of tile t lands under Q K^T of t, K of t +
-//   1 under the softmax and P V of t.
+// Forward (flash_bf16_fwd_kernel): a block owns one (batch, head) and 128
+//   query rows, heaviest query tile first, in 384 threads: a producer
+//   warpgroup, whose one thread loads Q once and keeps a ring of 2 K and 2
+//   V tiles of 64 keys full by TMA (full and empty mbarriers a stage), and
+//   two consumer warpgroups of 64 rows each. Per key tile a consumer runs
+//   S = Q K^T as D / 16 SS wgmma m64n64k16 (Q and K K-major), the online
+//   softmax on S's accumulators (a warp's slice is mma.sync's m16n8 C
+//   layout: a row's max and sum across the 4 lanes that hold it by two xor
+//   shuffles), then O += P V as 4 RS wgmma m64nDk16, P packed to bf16 from
+//   S's accumulators and V MN-major; O stays in registers (D / 2 floats a
+//   thread), and a warpgroup releases the key tiles past its causal
+//   diagonal unread. setmaxnreg gives the producer 24 registers and each
+//   consumer 240. Shared memory at D = 256: Q 64 KB, 2 x (K 32 + V 32) KB:
+//   192 KB and its barriers, one block an SM; at every D the same tiles.
 //
 // dQ (flash_bf16_dq_kernel): 8 warps in pairs; a block owns 64 query rows,
 //   pair p their 16 rows 16 p .. 16 p + 15, and walks the key tiles of 64 keys.
@@ -53,34 +57,43 @@
 //   of the pair's dQ columns (64 floats a thread at D = 256). Q and dO stay in
 //   shared memory; K is double-buffered (K of t + 1 lands under all of t), V
 //   single (V of t + 1 lands under dS and dS K of t): 193,536 bytes at D = 256,
-//   one block an SM.
+//   one block an SM. The simple version that is right first: mma.sync (not
+//   wgmma), cp.async (not TMA).
 //
-// dK/dV (flash_bf16_dkv_kernel): dQ's pairs with the roles of the operands
-//   swapped. A block owns 64 keys, pair p their 16 keys; K and V stay in shared
-//   memory, Q and dO stream past them in double-buffered tiles of 64 query rows
-//   (32 at D = 256), from the first tile that sees the block's keys under
-//   causal masking to the last. Per tile one warp of the pair computes S^T = K
-//   Q^T and p, the other dP^T = V dO^T; p goes across, dS^T comes back; then
-//   each warp adds P^T dO into its half of dV's columns and dS^T Q into its
-//   half of dK's (2 x 64 floats a thread at D = 256). 147,456 bytes at D = 256,
-//   one block an SM.
+// dK/dV (flash_bf16_dkv_kernel): a block owns 64 keys of one (batch, head)
+//   in 384 threads: a producer warpgroup, whose warp 0 loads K and V once
+//   and keeps a ring of 2 Q and 2 dO tiles of 64 query rows full by TMA,
+//   from the first tile that sees the block's keys under causal masking to
+//   the last, and whose warp 1 copies each tile's lse and delta beside them
+//   (the tile's full barriers count its 32 lanes and the TMA bytes); and
+//   two consumer warpgroups over the block's 64 keys, each accumulating all
+//   D columns of one output (D / 2 floats a thread). Per query tile
+//   consumer 0 runs S^T = K Q^T (SS, both K-major), forms p^T = exp(s scale
+//   - lse) under the masks, hands p^T (float32) to consumer 1 through
+//   shared memory on a named barrier, and adds P^T dO into dV (RS: P^T
+//   packed to bf16 from its accumulators, dO MN-major); consumer 1 runs
+//   dP^T = V dO^T (SS), forms dS^T = p^T (dP^T - delta) scale in float32,
+//   and adds dS^T Q into dK (RS: dS^T packed to bf16, Q MN-major). Shared
+//   memory at D = 256: K and V 64 KB, 2 x (Q 32 + dO 32) KB, p^T 16 KB,
+//   lse and delta 1 KB: 209 KB and its barriers, one block an SM.
 //
-// Fragments: A (16 x 16, row-major) and B (16 x 8, column-major) as PTX's
-// m16n8k16 layouts, each 32-bit register two bf16 values of one row (A) or
-// column (B), the lower index in the low half. Operands read along a row
-// of shared memory (Q, dO, K and V as the first products' A and B) are one
-// 32-bit read a register; operands read down a column (V in P V, K in dS
-// K, dO and Q in the dK/dV products) two 16-bit reads a register. The
-// pitch of D + 8 values (D / 2 + 4 words) puts a quarter warp's reads of
-// either kind on distinct banks.
+// dQ's fragments: A (16 x 16, row-major) and B (16 x 8, column-major) as
+// PTX's m16n8k16 layouts, each 32-bit register two bf16 values of one row
+// (A) or column (B), the lower index in the low half. Operands read along
+// a row of shared memory (Q, dO, K and V as the first products' A and B)
+// are one 32-bit read a register; operands read down a column (K in dS K)
+// two 16-bit reads a register. The pitch of D + 8 values (D / 2 + 4 words)
+// puts a quarter warp's reads of either kind on distinct banks.
 //
-// Registers (nvcc -Xptxas -v, sm_90a), at D = 256 / 128 / 64: the forward
-// 233 / 167 / 132, dQ 169 / 138 / 118, dK/dV 215 / 192 / 161; no spills,
-// no stack.
+// Registers (nvcc -Xptxas -v, sm_90a) of dQ at D = 256 / 128 / 64: 169 /
+// 138 / 118, no spills, no stack; the forward's and dK/dV's are those of
+// the launch bound (168: 384 threads, one block an SM), which setmaxnreg
+// moves to 24 (producer) and 240 (consumers).
 #include <cmath>
 #include <cstdint>
 
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -123,6 +136,12 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
 }
 __device__ __forceinline__ float shfl_xor(float x, int m) {
   return __shfl_xor_sync(0xffffffffu, x, m);
+}
+// 2^x (ex2.approx: 2 ulp; 0 for -inf and below the smallest normal).
+__device__ __forceinline__ float ex2(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(x));
+  return r;
 }
 // -----------------------------------------------------------------------------
 
@@ -203,135 +222,373 @@ __device__ __forceinline__ void a_from_c(uint32_t (&a)[4],
 }
 
 // ---------------------------------------------------------------------------
+// the forward's and dK/dV's warp-specialised blocks
+// ---------------------------------------------------------------------------
+
+// A producer warpgroup (TMA, and dK/dV's lse and delta) and two consumer
+// warpgroups (wgmma); setmaxnreg moves the producer's registers to the
+// consumers: 24 + 2 x 240 = 3 x 168, the 65,536 of an SM over 384 threads.
+constexpr int kWsThreads = 384;
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr int kStages = 2;  // tiles in each ring
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Bytes of a tile of 64 rows of D values: D / 64 boxes.
+template <int D>
+constexpr uint32_t tile_bytes() {
+  return 64u * D * sizeof(bf16);
+}
+
+// The shared address of the dynamic shared memory, rounded up to 1024
+// bytes (the 128-byte swizzle's period; each layout asks 1024 more).
+__device__ __forceinline__ uint32_t aligned_base(const void* smem) {
+  return (sm90::smem_u32(smem) + 1023u) & ~1023u;
+}
+
+// The grids of the forward and dK/dV: a block's (batch, head) and tile
+// level (0 the heaviest). Heaviest first over all (batch, head)s would
+// stream every head's K and V (the forward; Q and dO for dK/dV) once a
+// level from device memory, since the blocks in flight span all heads;
+// so the heads go in groups whose streamed tensors fit in half the L2
+// (kL2Budget), heaviest first within a group: the levels of a group's
+// heads run together and read those tensors from L2.
+constexpr long kL2Budget = 24l << 20;
+struct GridOrder {
+  int bh_count, levels, group;  // heads a group, from the host
+  __device__ __forceinline__ void at(int i, int& bh, int& level) const {
+    const int span = group * levels;
+    const int g0 = i / span * group;
+    const int size = min(group, bh_count - g0);
+    const int j = i - g0 * levels;
+    level = j / size;
+    bh = g0 + (j - level * size);
+  }
+};
+// The order of bh_count heads in `levels` tile levels, each head
+// streaming `bytes` (its K and V, or Q and dO).
+inline GridOrder grid_order(int bh_count, int levels, long bytes) {
+  const long group = max(1l, min((long)bh_count, kL2Budget / bytes));
+  return GridOrder{bh_count, levels, (int)group};
+}
+
+// Rows r0 .. r0 + 63 of head hd of batch b of the tensor behind `map`
+// into the tile at dst, box by box; their bytes complete on bar.
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int r0, int hd,
+                                          int b) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c)
+    sm90::tma_load_4d(dst + c * sm90::kBoxBytes, map, bar, 64 * c, hd, r0, b);
+}
+
+// The A fragment of k16 step kk of a warpgroup's 64 x 64 C tile (the
+// thread's 32 accumulators), rounded to bf16: a_from_c on the flat layout.
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c)[32],
+                                       int kk) {
+  a[0] = pack2(c[8 * kk], c[8 * kk + 1]);
+  a[1] = pack2(c[8 * kk + 2], c[8 * kk + 3]);
+  a[2] = pack2(c[8 * kk + 4], c[8 * kk + 5]);
+  a[3] = pack2(c[8 * kk + 6], c[8 * kk + 7]);
+}
+
+// ---------------------------------------------------------------------------
 // forward
 // ---------------------------------------------------------------------------
 
-constexpr int kFwdThreads = 128;  // 4 warps of 16 query rows
-constexpr int kFwdBQ = 64;        // query rows a block
-constexpr int kFwdBK = 64;        // keys a tile
+constexpr int kFwdBQ = 128;  // query rows a block: 64 a consumer warpgroup
+constexpr int kFwdBK = 64;   // keys a tile
 
+// Shared memory, byte offsets from the aligned base: Q (a tile for each
+// consumer), the rings of K and V tiles, the barriers.
 template <int D>
-constexpr size_t fwd_smem_bytes() {
-  return sizeof(bf16) * 3 * 64 * (D + 8);
+struct FwdSmem {
+  static constexpr uint32_t kTile = tile_bytes<D>();
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kK = 2 * kTile;
+  static constexpr uint32_t kV = kK + kStages * kTile;
+  // full_q, then kStages each of full_k, full_v, empty_k, empty_v
+  static constexpr uint32_t kBar = kV + kStages * kTile;
+  static constexpr size_t kBytes = kBar + 8 * (1 + 4 * kStages) + 1024;
+};
+
+// Key tiles that query rows r0 .. r0 + 63 see: none past sq, all of them,
+// or causal up to the diagonal of the last row.
+__device__ __forceinline__ int fwd_tiles(int r0, int sq, int sk, int causal) {
+  if (r0 >= sq) return 0;
+  if (!causal) return (sk + kFwdBK - 1) / kFwdBK;
+  return min(sk - 1, min(r0 + 63, sq - 1) + sk - sq) / kFwdBK + 1;
+}
+
+// Start S = Q K^T (64 x 64, Q and K K-major) into sc as one group.
+template <int D>
+__device__ __forceinline__ void start_qk(float (&sc)[32], uint32_t sQ,
+                                         uint32_t sK) {
+  sm90::wg_fence();
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks)
+    sm90::wgmma_ss_n64<0>(sc, sm90::desc_k(sQ, ks), sm90::desc_k(sK, ks),
+                          ks > 0);
+  sm90::wg_commit();
+}
+
+// The online softmax over one key tile of S in the log2 domain (the
+// thread's 32 accumulators times scale log2(e); its rows at causal
+// positions qpos and qpos + 8, its keys k0 + 8 j + 2 t + {0, 1}); MASK
+// when a key of the tile is past sk or past a row's diagonal: the rows'
+// new maxima over the 4 lanes of a row, alpha = 2^(old max - new max) (0
+// from -inf), l = l alpha + the tile's sum; S becomes p.
+template <bool MASK>
+__device__ __forceinline__ void online_softmax(float (&sc)[32], float (&m)[2],
+                                               float (&l)[2],
+                                               float (&alpha)[2], int qpos,
+                                               int k0, int t, int sk,
+                                               int causal, float scale2) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = sc[4 * j + e] * scale2;
+      if (MASK) {
+        const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+        if (kpos >= sk) x = -INFINITY;
+        else if (causal && kpos > qpos + 8 * (e >> 1)) x = ptt::kMaskValue;
+      }
+      sc[4 * j + e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    mx[hr] = fmaxf(mx[hr], shfl_xor(mx[hr], 1));
+    mx[hr] = fmaxf(mx[hr], shfl_xor(mx[hr], 2));
+    alpha[hr] = (m[hr] == -INFINITY) ? 0.f : ex2(m[hr] - mx[hr]);
+    m[hr] = mx[hr];
+    l[hr] *= alpha[hr];
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const float p = ex2(sc[i] - m[(i >> 1) & 1]);  // 0 from -inf
+    sc[i] = p;
+    l[(i >> 1) & 1] += p;
+  }
+}
+
+// Start O += P V (P from registers, V MN-major) as one group.
+template <int D>
+__device__ __forceinline__ void start_pv(float (&acc)[D / 2],
+                                         uint32_t (&pa)[4][4], uint32_t sV) {
+  sm90::fence_operands(acc);
+  sm90::wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    sm90::wgmma_rs<D, 1>(acc, pa[kk], sm90::desc_mn(sV, kk), 1);
+  sm90::wg_commit();
+  sm90::fence_operands(acc);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kFwdThreads, 1)
-flash_bf16_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-           const bf16* __restrict__ v, bf16* __restrict__ o,
-           float* __restrict__ lse, int H, int sq, int sk, float scale,
-           int causal) {
-  constexpr int LD = D + 8;
-  constexpr int NT = D / 8;          // n8 tiles of O
-  constexpr int NJ = kFwdBK / 8;     // n8 tiles of S
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_bf16_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+           const __grid_constant__ CUtensorMap tk,
+           const __grid_constant__ CUtensorMap tv,
+           const __grid_constant__ CUtensorMap to, float* __restrict__ lse,
+           int H, int sq, int sk, float scale, int causal, GridOrder order) {
+  using L = FwdSmem<D>;
+  constexpr int NO = D / 2;  // O's accumulators a thread
   extern __shared__ float4 smem4[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem4);  // [64][LD]
-  bf16* sK = sQ + kFwdBQ * LD;                 // [64][LD]
-  bf16* sV = sK + kFwdBK * LD;                 // [64][LD]
+  const uint32_t base = aligned_base(smem4);
+  const uint32_t full_q = base + L::kBar;
+  const auto bar = [&](int kind, int s) {
+    return full_q + 8 * (1 + kind * kStages + s);
+  };
+  enum { kFullK, kFullV, kEmptyK, kEmptyV };
 
-  const int bh = blockIdx.x;
+  int bh, level;
+  order.at(blockIdx.x, bh, level);
   const int b = bh / H;
   const int hd = bh - b * H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kFwdBQ;  // heaviest first
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int r_lo = 16 * warp + g;  // the lane's rows r_lo and r_lo + 8
-  const int q_off = sk - sq;
-  const long stride = (long)H * D;  // values between sequence positions
-  const bf16* qb = q + ((long)b * sq * H + hd) * D;
-  const bf16* kb = k + ((long)b * sk * H + hd) * D;
-  const bf16* vb = v + ((long)b * sk * H + hd) * D;
-
-  int n_tiles = (sk + kFwdBK - 1) / kFwdBK;
-  if (causal) n_tiles = min(sk - 1, q0 + kFwdBQ - 1 + q_off) / kFwdBK + 1;
-
-  copy_rows<kFwdBQ, D, kFwdThreads>(sQ, qb, q0, sq, stride);
-  copy_rows<kFwdBK, D, kFwdThreads>(sK, kb, 0, sk, stride);
-  commit();
-
-  float acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};  // the lane's part of each row's sum
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kFwdBK;
-    wait_prior<0>();  // this thread's copies of K (and Q) have landed
-    __syncthreads();  // everyone's; and P V of the last tile is done with V
-    copy_rows<kFwdBK, D, kFwdThreads>(sV, vb, k0, sk, stride);
-    commit();
-
-    float s[NJ][4];
-    row_products<D, NJ>(s, sQ + r_lo * LD, sK, g, t);
-    __syncthreads();  // every warp's Q K^T is done: K is free
-    if (kt + 1 < n_tiles)
-      copy_rows<kFwdBK, D, kFwdThreads>(sK, kb, k0 + kFwdBK, sk, stride);
-    commit();
-
-    // mask and scale; the rows' new maxima over the 4 lanes of a row
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qpos = q0 + r_lo + 8 * (e >> 1) + q_off;
-        const int kpos = k0 + 8 * j + 2 * t + (e & 1);
-        float x = s[j][e] * scale;
-        if (kpos >= sk) x = -INFINITY;
-        else if (causal && kpos > qpos) x = ptt::kMaskValue;
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      mx[hr] = fmaxf(mx[hr], shfl_xor(mx[hr], 1));
-      mx[hr] = fmaxf(mx[hr], shfl_xor(mx[hr], 2));
-      const float alpha = (m[hr] == -INFINITY) ? 0.f : expf(m[hr] - mx[hr]);
-      m[hr] = mx[hr];
-      l[hr] *= alpha;
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        acc[n][2 * hr] *= alpha;
-        acc[n][2 * hr + 1] *= alpha;
-      }
+  // level 0 is the last query tile, the heaviest
+  const int q0 = (order.levels - 1 - level) * kFwdBQ;
+  const int n_tiles = max(fwd_tiles(q0, sq, sk, causal),
+                          fwd_tiles(q0 + 64, sq, sk, causal));
+  if (threadIdx.x == 0) {
+    sm90::bar_init(full_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      sm90::bar_init(bar(kFullK, s), 1);
+      sm90::bar_init(bar(kFullV, s), 1);
+      sm90::bar_init(bar(kEmptyK, s), 8);  // each consumer warp once
+      sm90::bar_init(bar(kEmptyV, s), 8);
     }
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = s[j][e];
-        const float p = (x == -INFINITY) ? 0.f : expf(x - m[e >> 1]);
-        s[j][e] = p;
-        l[e >> 1] += p;
-      }
-
-    wait_prior<1>();  // this thread's copies of V have landed
-    __syncthreads();  // everyone's
-#pragma unroll
-    for (int kk = 0; kk < kFwdBK / 16; ++kk) {
-      uint32_t a[4];
-      a_from_c<NJ>(a, s, kk);
-      col_products<D, NT>(acc, a, sV + 16 * kk * LD, g, t);
-    }
+    sm90::bar_init_fence();
   }
-  wait_prior<0>();
+  __syncthreads();
 
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // the producer: one thread keeps the rings full, K and V apart (K is
+    // released when S is read, V when P V is done)
+    sm90::regs_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      sm90::bar_expect_tx(full_q, 2 * L::kTile);
+      load_tile<D>(base + L::kQ, &tq, full_q, q0, hd, b);
+      load_tile<D>(base + L::kQ + L::kTile, &tq, full_q, q0 + 64, hd, b);
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        const int s = kt % kStages;
+        const uint32_t parity = ((kt / kStages) & 1) ^ 1;
+        sm90::bar_wait(bar(kEmptyK, s), parity);
+        sm90::bar_expect_tx(bar(kFullK, s), L::kTile);
+        load_tile<D>(base + L::kK + s * L::kTile, &tk, bar(kFullK, s),
+                     kt * kFwdBK, hd, b);
+        sm90::bar_wait(bar(kEmptyV, s), parity);
+        sm90::bar_expect_tx(bar(kFullV, s), L::kTile);
+        load_tile<D>(base + L::kV + s * L::kTile, &tv, bar(kFullV, s),
+                     kt * kFwdBK, hd, b);
+      }
+    }
+    return;
+  }
+
+  // a consumer: 64 query rows, warp w their rows 16 w .. 16 w + 15
+  sm90::regs_inc<kConsumerRegs>();
+  const int c = wg - 1;
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + 64 * c;
+  const int r_lo = 16 * warp + g;  // the thread's rows r0 + r_lo (+ 8)
+  const int qpos = r0 + r_lo + sk - sq;
+  const int my_tiles = fwd_tiles(r0, sq, sk, causal);
+  const float scale2 = scale * kLog2e;
+  const uint32_t sQ = base + L::kQ + c * L::kTile;
+  const auto sK = [&](int kt) {
+    return base + L::kK + (kt % kStages) * L::kTile;
+  };
+  const auto sV = [&](int kt) {
+    return base + L::kV + (kt % kStages) * L::kTile;
+  };
+  const auto phase = [&](int kt) { return (uint32_t)(kt / kStages) & 1; };
+  const auto release = [&](uint32_t mbar) {
+    __syncwarp();
+    if (lane == 0) sm90::bar_arrive(mbar);
+  };
+  // the consumers start their products in turns (named barriers 1 + c):
+  // one's softmax runs under the other's products; consumer 0 goes first
+  // and takes consumer 1's last turn at the end
+  const auto my_turn = [&]() { sm90::named_sync(1 + c, 256); };
+  const auto your_turn = [&]() { sm90::named_arrive(2 - c, 256); };
+  if (c == 1) sm90::named_arrive(1, 256);
+  // the tile's softmax, masked only where a key is past sk or past the
+  // diagonal of the warpgroup's first row
+  const auto softmax = [&](float (&sc)[32], float (&m)[2], float (&l)[2],
+                           float (&alpha)[2], int kt) {
+    const int k0 = kt * kFwdBK;
+    if (k0 + kFwdBK > sk || (causal && k0 + kFwdBK - 1 > r0 + sk - sq))
+      online_softmax<true>(sc, m, l, alpha, qpos, k0, t, sk, causal, scale2);
+    else
+      online_softmax<false>(sc, m, l, alpha, qpos, k0, t, sk, causal, scale2);
+  };
+
+  float acc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // the rows' maxima, log2 domain
+  float l[2] = {0.f, 0.f};  // the thread's part of each row's sum
+  sm90::bar_wait(full_q, 0);
+  if (my_tiles > 0) {
+    float sc[32];       // S of the next tile, then its p
+    uint32_t pa[4][4];  // P of this tile, bf16, as P V's A
+    float alpha[2];
+    sm90::bar_wait(bar(kFullK, 0), 0);
+    my_turn();
+    start_qk<D>(sc, sQ, sK(0));
+    your_turn();
+    sm90::wg_wait<0>();
+    sm90::fence_operands(sc);
+    release(bar(kEmptyK, 0));
+    softmax(sc, m, l, alpha, 0);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) pack_a(pa[kk], sc, kk);
+
+    // S of tile kt + 1 started before P V of tile kt, so that its softmax
+    // runs under P V; O is rescaled once P V is done
+    for (int kt = 0; kt + 1 < my_tiles; ++kt) {
+      sm90::bar_wait(bar(kFullK, (kt + 1) % kStages), phase(kt + 1));
+      sm90::bar_wait(bar(kFullV, kt % kStages), phase(kt));
+      my_turn();
+      start_qk<D>(sc, sQ, sK(kt + 1));
+      start_pv<D>(acc, pa, sV(kt));
+      your_turn();
+      sm90::wg_wait<1>();  // S of tile kt + 1
+      sm90::fence_operands(sc);
+      release(bar(kEmptyK, (kt + 1) % kStages));
+      softmax(sc, m, l, alpha, kt + 1);
+      sm90::wg_wait<0>();  // P V of tile kt
+      sm90::fence_operands(acc);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) sm90::fence_operands(pa[kk]);
+      release(bar(kEmptyV, kt % kStages));
+#pragma unroll
+      for (int i = 0; i < NO; ++i) acc[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) pack_a(pa[kk], sc, kk);
+    }
+    const int last = my_tiles - 1;
+    sm90::bar_wait(bar(kFullV, last % kStages), phase(last));
+    my_turn();
+    start_pv<D>(acc, pa, sV(last));
+    your_turn();
+    sm90::wg_wait<0>();
+    sm90::fence_operands(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) sm90::fence_operands(pa[kk]);
+    release(bar(kEmptyV, last % kStages));
+  } else {
+    my_turn();
+    your_turn();
+  }
+  // past this warpgroup's causal diagonal: the tiles released unread
+  for (int kt = my_tiles; kt < n_tiles; ++kt) {
+    my_turn();
+    your_turn();
+    sm90::bar_wait(bar(kFullK, kt % kStages), phase(kt));
+    release(bar(kEmptyK, kt % kStages));
+    sm90::bar_wait(bar(kFullV, kt % kStages), phase(kt));
+    release(bar(kEmptyV, kt % kStages));
+  }
+  if (c == 0) my_turn();  // consumer 1's last turn
+
+  // O / l as bf16 into the warpgroup's Q tile (its last S is done), laid
+  // out as a TMA load would write it, then stored by TMA: rows past sq are
+  // not written
+  constexpr float kLn2 = 0.6931471805599453f;
+  char* const sO = reinterpret_cast<char*>(smem4) +
+                   (sQ - sm90::smem_u32(smem4));
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     l[hr] += shfl_xor(l[hr], 1);
     l[hr] += shfl_xor(l[hr], 2);
-    const int row = q0 + r_lo + 8 * hr;
-    if (row >= sq) continue;
+    const int r = r_lo + 8 * hr;  // the row in the tile
     const float l_safe = (l[hr] == 0.f) ? 1.f : l[hr];
-    bf16* orow = o + ((long)b * sq * H + hd) * D + row * stride + 2 * t;
+    const float inv = 1.f / l_safe;
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-      *reinterpret_cast<uint32_t*>(orow + 8 * n) =
-          pack2(acc[n][2 * hr] / l_safe, acc[n][2 * hr + 1] / l_safe);
-    if (t == 0) lse[(long)bh * sq + row] = m[hr] + logf(l_safe);
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(
+          sO + (n >> 3) * sm90::kBoxBytes + r * 128 +
+          (((n & 7) ^ (r & 7)) << 4) + 4 * t) =
+          pack2(acc[4 * n + 2 * hr] * inv, acc[4 * n + 2 * hr + 1] * inv);
+    if (t == 0 && r0 + r < sq)
+      lse[(long)bh * sq + r0 + r] = m[hr] * kLn2 + logf(l_safe);
+  }
+  sm90::fence_proxy_async();
+  sm90::named_sync(3 + c, 128);
+  if (tid == 0) {
+#pragma unroll
+    for (int cb = 0; cb < D / 64; ++cb)
+      sm90::tma_store_4d(&to, sQ + cb * sm90::kBoxBytes, 64 * cb, hd, r0, b);
+    sm90::bulk_commit();
+    sm90::bulk_wait_read();
   }
 }
 
@@ -502,153 +759,228 @@ flash_bf16_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ---------------------------------------------------------------------------
 
 constexpr int kDkvBK = 64;  // keys a block
+constexpr int kDkvBQ = 64;  // query rows a tile
+constexpr int kPReady = 1;  // named barriers of the two consumers: p^T is
+constexpr int kPFree = 2;   // in shared memory; it has been read
 
+// Shared memory, byte offsets from the aligned base: K, V, the rings of Q
+// and dO tiles, p^T (float32, [32 accumulators][128 threads]), the rings'
+// lse and delta, the barriers.
 template <int D>
-struct DkvTile {
-  static constexpr int kBQ = D == 256 ? 32 : 64;  // query rows a tile
-  // K, V, two Q and two dO buffers; then p (float) and dS (bf16 pairs)
-  static constexpr size_t kBytes =
-      sizeof(bf16) * (2 * 64 + 4 * kBQ) * (D + 8) +
-      sizeof(float) * 4 * kBQ * 16 + sizeof(uint32_t) * 4 * kBQ * 8;
+struct DkvSmem {
+  static constexpr uint32_t kTile = tile_bytes<D>();
+  static constexpr uint32_t kK = 0;
+  static constexpr uint32_t kV = kTile;
+  static constexpr uint32_t kQ = 2 * kTile;
+  static constexpr uint32_t kDo = kQ + kStages * kTile;
+  static constexpr uint32_t kP = kDo + kStages * kTile;
+  static constexpr uint32_t kL = kP + 32 * 128 * sizeof(float);
+  static constexpr uint32_t kDl = kL + kStages * kDkvBQ * sizeof(float);
+  // full_kv, full_q[kStages], full_do[kStages], empty[kStages]
+  static constexpr uint32_t kBar = kDl + kStages * kDkvBQ * sizeof(float);
+  static constexpr size_t kBytes = kBar + 8 * (1 + 3 * kStages) + 1024;
 };
 
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads, 1)
-flash_bf16_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-           const bf16* __restrict__ v, const bf16* __restrict__ dout,
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_bf16_dkv_kernel(const __grid_constant__ CUtensorMap tq,
+           const __grid_constant__ CUtensorMap tk,
+           const __grid_constant__ CUtensorMap tv,
+           const __grid_constant__ CUtensorMap tdo,
            const float* __restrict__ lse, const float* __restrict__ delta,
            bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int sq,
-           int sk, float scale, int causal) {
-  constexpr int LD = D + 8;
-  constexpr int BQ = DkvTile<D>::kBQ;
-  constexpr int NJ = BQ / 8;   // n8 tiles of S^T and dP^T
-  constexpr int NH = D / 16;   // n8 tiles of a warp's half of dK and dV
+           int sk, float scale, int causal, GridOrder order) {
+  using L = DkvSmem<D>;
+  constexpr int NO = D / 2;  // dV's or dK's accumulators a thread
   extern __shared__ float4 smem4[];
-  bf16* sK = reinterpret_cast<bf16*>(smem4);  // [64][LD]
-  bf16* sV = sK + kDkvBK * LD;                 // [64][LD]
-  bf16* sQ = sV + kDkvBK * LD;                 // [2][BQ][LD]
-  bf16* sdO = sQ + 2 * BQ * LD;                // [2][BQ][LD]
-  float* xp = reinterpret_cast<float*>(sdO + 2 * BQ * LD);
-  uint32_t* xs = reinterpret_cast<uint32_t*>(xp + 4 * NJ * 4 * 32);
+  const uint32_t base = aligned_base(smem4);
+  char* const base_ptr = reinterpret_cast<char*>(smem4) +
+                    (base - sm90::smem_u32(smem4));
+  float* const sP = reinterpret_cast<float*>(base_ptr + L::kP);
+  float* const sL = reinterpret_cast<float*>(base_ptr + L::kL);
+  float* const sDl = reinterpret_cast<float*>(base_ptr + L::kDl);
+  const uint32_t full_kv = base + L::kBar;
+  const auto full_q = [&](int s) { return full_kv + 8 * (1 + s); };
+  const auto full_do = [&](int s) {
+    return full_kv + 8 * (1 + kStages + s);
+  };
+  const auto empty = [&](int s) {
+    return full_kv + 8 * (1 + 2 * kStages + s);
+  };
 
-  const int bh = blockIdx.x;
+  int bh, level;
+  order.at(blockIdx.x, bh, level);
   const int b = bh / H;
   const int hd = bh - b * H;
-  const int k0 = blockIdx.y * kDkvBK;  // key tile 0, the heaviest, first
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int pair = warp & 3, role = warp >> 2;
-  const int r_lo = 16 * pair + g;  // the lane's keys k0 + r_lo (+ 8)
+  const int k0 = level * kDkvBK;  // key tile 0 the heaviest
   const int q_off = sk - sq;
-  const long stride = (long)H * D;
-  const long qhead = ((long)b * sq * H + hd) * D;
-  const long khead = ((long)b * sk * H + hd) * D;
-  const float* lse_bh = lse + (long)bh * sq;
-  const float* delta_bh = delta + (long)bh * sq;
-
-  const int n_q = (sq + BQ - 1) / BQ;
-  const int it0 = causal ? max(0, k0 - q_off) / BQ : 0;
-
-  copy_rows<kDkvBK, D, kBwdThreads>(sK, k + khead, k0, sk, stride);
-  copy_rows<kDkvBK, D, kBwdThreads>(sV, v + khead, k0, sk, stride);
-  copy_rows<BQ, D, kBwdThreads>(sQ, q + qhead, it0 * BQ, sq, stride);
-  copy_rows<BQ, D, kBwdThreads>(sdO, dout + qhead, it0 * BQ, sq, stride);
-  commit();
-
-  float acc_k[NH][4], acc_v[NH][4];
-#pragma unroll
-  for (int n = 0; n < NH; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
-
-  for (int it = it0; it < n_q; ++it) {
-    const int qs = it * BQ;
-    const int buf = (it - it0) & 1;
-    const bf16* sQt = sQ + buf * BQ * LD;
-    const bf16* sdOt = sdO + buf * BQ * LD;
-    wait_prior<0>();  // this thread's copies of Q and dO have landed
-    __syncthreads();  // everyone's; the last tile's products are done
-    if (it + 1 < n_q) {
-      copy_rows<BQ, D, kBwdThreads>(sQ + (buf ^ 1) * BQ * LD, q + qhead,
-                                    qs + BQ, sq, stride);
-      copy_rows<BQ, D, kBwdThreads>(sdO + (buf ^ 1) * BQ * LD, dout + qhead,
-                                    qs + BQ, sq, stride);
+  const int n_q = (sq + kDkvBQ - 1) / kDkvBQ;
+  // the first query tile that sees the block's keys
+  const int it0 = causal ? max(0, k0 - q_off) / kDkvBQ : 0;
+  if (threadIdx.x == 0) {
+    sm90::bar_init(full_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      // the TMA thread's arrival with the tile's bytes, and warp 1's 32
+      // lanes with its lse (full_q) or delta (full_do)
+      sm90::bar_init(full_q(s), 33);
+      sm90::bar_init(full_do(s), 33);
+      sm90::bar_init(empty(s), 8);  // each consumer warp once
     }
-    commit();
+    sm90::bar_init_fence();
+  }
+  __syncthreads();
 
-    // role 0: S^T = K Q^T; role 1: dP^T = V dO^T
-    float s[NJ][4];
-    row_products<D, NJ>(s, (role == 0 ? sK : sV) + r_lo * LD,
-                        role == 0 ? sQt : sdOt, g, t);
-    if (role == 0) {
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = qs + 8 * j + 2 * t + (e & 1);
-          const int kpos = k0 + r_lo + 8 * (e >> 1);
-          float p = 0.f;
-          if (qi < sq && kpos < sk) {
-            float x = s[j][e] * scale;
-            if (causal && kpos > qi + q_off) x = ptt::kMaskValue;
-            p = expf(x - lse_bh[qi]);
-          }
-          *xp_at<NJ>(xp, pair, j, e, lane) = p;
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  if (wg == 0) {
+    // the producer: warp 0's first lane loads K and V once and the Q and
+    // dO tiles by TMA; warp 1 copies each tile's lse and delta
+    sm90::regs_dec<kProducerRegs>();
+    if (warp == 0 && lane == 0) {
+      sm90::bar_expect_tx(full_kv, 2 * L::kTile);
+      load_tile<D>(base + L::kK, &tk, full_kv, k0, hd, b);
+      load_tile<D>(base + L::kV, &tv, full_kv, k0, hd, b);
+      for (int it = it0; it < n_q; ++it) {
+        const int i = it - it0, s = i % kStages;
+        sm90::bar_wait(empty(s), ((i / kStages) & 1) ^ 1);
+        sm90::bar_expect_tx(full_q(s), L::kTile);
+        load_tile<D>(base + L::kQ + s * L::kTile, &tq, full_q(s),
+                     it * kDkvBQ, hd, b);
+        sm90::bar_expect_tx(full_do(s), L::kTile);
+        load_tile<D>(base + L::kDo + s * L::kTile, &tdo, full_do(s),
+                     it * kDkvBQ, hd, b);
+      }
+    } else if (warp == 1) {
+      const float* lse_bh = lse + (long)bh * sq;
+      const float* delta_bh = delta + (long)bh * sq;
+      for (int it = it0; it < n_q; ++it) {
+        const int i = it - it0, s = i % kStages;
+        sm90::bar_wait(empty(s), ((i / kStages) & 1) ^ 1);
+        for (int r = lane; r < kDkvBQ; r += 32) {
+          const int qi = it * kDkvBQ + r;
+          sL[s * kDkvBQ + r] = qi < sq ? lse_bh[qi] : 0.f;
+          sDl[s * kDkvBQ + r] = qi < sq ? delta_bh[qi] : 0.f;
         }
-    }
-    __syncthreads();  // p is across
-    if (role == 1) {
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = qs + 8 * j + 2 * t + (e & 1);
-          const float dl = qi < sq ? delta_bh[qi] : 0.f;
-          s[j][e] = *xp_at<NJ>(xp, pair, j, e, lane) * (s[j][e] - dl) * scale;
-        }
-#pragma unroll
-      for (int kk = 0; kk < NJ / 2; ++kk) {
-        uint32_t a[4];
-        a_from_c<NJ>(a, s, kk);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) *xs_at<NJ>(xs, pair, kk, r, lane) = a[r];
+        sm90::bar_arrive(full_q(s));
+        sm90::bar_arrive(full_do(s));
       }
     }
-    __syncthreads();  // dS^T is across
-
-    // dV[:, role's half] += P^T dO; dK[:, role's half] += dS^T Q
-#pragma unroll
-    for (int kk = 0; kk < NJ / 2; ++kk) {
-      uint32_t ap[4], as[4];
-      ap[0] = pack2(*xp_at<NJ>(xp, pair, 2 * kk, 0, lane),
-                    *xp_at<NJ>(xp, pair, 2 * kk, 1, lane));
-      ap[1] = pack2(*xp_at<NJ>(xp, pair, 2 * kk, 2, lane),
-                    *xp_at<NJ>(xp, pair, 2 * kk, 3, lane));
-      ap[2] = pack2(*xp_at<NJ>(xp, pair, 2 * kk + 1, 0, lane),
-                    *xp_at<NJ>(xp, pair, 2 * kk + 1, 1, lane));
-      ap[3] = pack2(*xp_at<NJ>(xp, pair, 2 * kk + 1, 2, lane),
-                    *xp_at<NJ>(xp, pair, 2 * kk + 1, 3, lane));
-#pragma unroll
-      for (int r = 0; r < 4; ++r) as[r] = *xs_at<NJ>(xs, pair, kk, r, lane);
-      const int off = 16 * kk * LD + role * (D / 2);
-      col_products<D, NH>(acc_v, ap, sdOt + off, g, t);
-      col_products<D, NH>(acc_k, as, sQt + off, g, t);
-    }
+    return;
   }
-  wait_prior<0>();
 
+  // the consumers: the block's 64 keys, warp w their keys 16 w .. 16 w +
+  // 15; consumer 0 accumulates dV, consumer 1 dK, all D columns
+  sm90::regs_inc<kConsumerRegs>();
+  const int c = wg - 1;
+  const int tid = threadIdx.x & 127;
+  const int g = lane >> 2, t = lane & 3;
+  const int r_lo = 16 * warp + g;  // the thread's keys k0 + r_lo (+ 8)
+  const float scale2 = scale * kLog2e;
+  float acc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+  sm90::bar_wait(full_kv, 0);
+
+  for (int it = it0; it < n_q; ++it) {
+    const int i = it - it0, s = i % kStages;
+    const uint32_t phase = (i / kStages) & 1;
+    const int qs = it * kDkvBQ;
+    const uint32_t sQ = base + L::kQ + s * L::kTile;
+    const uint32_t sDo = base + L::kDo + s * L::kTile;
+    float st[32];  // S^T, then p^T (consumer 0); dP^T, then dS^T (1)
+    uint32_t fa[4][4];
+    if (c == 0) {
+      // S^T = K Q^T, then p^T = exp(s scale - lse) under the masks
+      sm90::bar_wait(full_q(s), phase);
+      sm90::wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        sm90::wgmma_ss_n64<0>(st, sm90::desc_k(base + L::kK, ks),
+                              sm90::desc_k(sQ, ks), ks > 0);
+      sm90::wg_commit();
+      sm90::wg_wait<0>();
+      sm90::fence_operands(st);
+      // in the log2 domain: p = 2^(s scale log2(e) - lse log2(e)); the
+      // masks only on a tile with a query past sq, a key past sk or a key
+      // past a query's diagonal
+      const float* lse_t = sL + s * kDkvBQ;
+      const bool mask = qs + kDkvBQ > sq || k0 + kDkvBK > sk ||
+                        (causal && k0 + kDkvBK - 1 > qs + q_off);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t + (e & 1);
+          float x = st[4 * j + e] * scale2;
+          if (mask) {
+            const int qi = qs + col, kpos = k0 + r_lo + 8 * (e >> 1);
+            if (qi >= sq || kpos >= sk) x = -INFINITY;
+            else if (causal && kpos > qi + q_off) x = ptt::kMaskValue;
+          }
+          st[4 * j + e] = ex2(x - lse_t[col] * kLog2e);
+        }
+      // p^T across to consumer 1, once it has read the last tile's
+      if (i > 0) sm90::named_sync(kPFree, 256);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sP[e * 128 + tid] = st[e];
+      sm90::named_arrive(kPReady, 256);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) pack_a(fa[kk], st, kk);
+      // dV += P^T dO: P^T from registers, dO MN-major
+      sm90::bar_wait(full_do(s), phase);
+      sm90::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        sm90::wgmma_rs<D, 1>(acc, fa[kk], sm90::desc_mn(sDo, kk), 1);
+    } else {
+      // dP^T = V dO^T, then dS^T = p^T (dP^T - delta) scale
+      sm90::bar_wait(full_do(s), phase);
+      sm90::wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        sm90::wgmma_ss_n64<0>(st, sm90::desc_k(base + L::kV, ks),
+                              sm90::desc_k(sDo, ks), ks > 0);
+      sm90::wg_commit();
+      sm90::wg_wait<0>();
+      sm90::fence_operands(st);
+      const float* dl_t = sDl + s * kDkvBQ;
+      sm90::named_sync(kPReady, 256);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = qs + 8 * j + 2 * t + (e & 1);
+          const float dl = qi < sq ? dl_t[qi - qs] : 0.f;
+          st[4 * j + e] = sP[(4 * j + e) * 128 + tid] *
+                          (st[4 * j + e] - dl) * scale;
+        }
+      if (it + 1 < n_q) sm90::named_arrive(kPFree, 256);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) pack_a(fa[kk], st, kk);
+      // dK += dS^T Q: dS^T from registers, Q MN-major
+      sm90::bar_wait(full_q(s), phase);
+      sm90::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        sm90::wgmma_rs<D, 1>(acc, fa[kk], sm90::desc_mn(sQ, kk), 1);
+    }
+    sm90::wg_commit();
+    sm90::wg_wait<0>();
+    sm90::fence_operands(acc);
+    __syncwarp();
+    if (lane == 0) sm90::bar_arrive(empty(s));
+  }
+
+  bf16* const out = c == 0 ? dv : dk;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int key = k0 + r_lo + 8 * hr;
     if (key >= sk) continue;
-    const long off = khead + key * stride + role * (D / 2) + 2 * t;
+    bf16* krow = out + (((long)b * sk + key) * H + hd) * D + 2 * t;
 #pragma unroll
-    for (int n = 0; n < NH; ++n) {
-      *reinterpret_cast<uint32_t*>(dk + off + 8 * n) =
-          pack2(acc_k[n][2 * hr], acc_k[n][2 * hr + 1]);
-      *reinterpret_cast<uint32_t*>(dv + off + 8 * n) =
-          pack2(acc_v[n][2 * hr], acc_v[n][2 * hr + 1]);
-    }
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(krow + 8 * n) =
+          pack2(acc[4 * n + 2 * hr], acc[4 * n + 2 * hr + 1]);
   }
 }
 
@@ -666,12 +998,18 @@ template <int D>
 int launch_fwd(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                float* lse, int B, int H, int sq, int sk, float scale,
                int causal, cudaStream_t stream) {
-  const size_t smem = fwd_smem_bytes<D>();
-  const int err = set_smem(flash_bf16_fwd_kernel<D>, smem);
+  CUtensorMap tq, tk, tv, to;
+  int err = sm90::encode_bshd(&tq, q, B, sq, H, D, 64);
+  if (!err) err = sm90::encode_bshd(&tk, k, B, sk, H, D, 64);
+  if (!err) err = sm90::encode_bshd(&tv, v, B, sk, H, D, 64);
+  if (!err) err = sm90::encode_bshd(&to, o, B, sq, H, D, 64);
+  if (!err) err = set_smem(flash_bf16_fwd_kernel<D>, FwdSmem<D>::kBytes);
   if (err) return err;
-  const dim3 grid(B * H, (sq + kFwdBQ - 1) / kFwdBQ);
-  flash_bf16_fwd_kernel<D><<<grid, kFwdThreads, smem, stream>>>(
-      q, k, v, o, lse, H, sq, sk, scale, causal);
+  const GridOrder order = grid_order(B * H, (sq + kFwdBQ - 1) / kFwdBQ,
+                                     4l * sk * D);
+  flash_bf16_fwd_kernel<D><<<B * H * order.levels, kWsThreads,
+                             FwdSmem<D>::kBytes, stream>>>(
+      tq, tk, tv, to, lse, H, sq, sk, scale, causal, order);
   return (int)cudaGetLastError();
 }
 
@@ -693,12 +1031,18 @@ int launch_dkv(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
                const float* lse, const float* delta, bf16* dk, bf16* dv,
                int B, int H, int sq, int sk, float scale, int causal,
                cudaStream_t stream) {
-  const size_t smem = DkvTile<D>::kBytes;
-  const int err = set_smem(flash_bf16_dkv_kernel<D>, smem);
+  CUtensorMap tq, tk, tv, tdo;
+  int err = sm90::encode_bshd(&tq, q, B, sq, H, D, 64);
+  if (!err) err = sm90::encode_bshd(&tk, k, B, sk, H, D, 64);
+  if (!err) err = sm90::encode_bshd(&tv, v, B, sk, H, D, 64);
+  if (!err) err = sm90::encode_bshd(&tdo, dout, B, sq, H, D, 64);
+  if (!err) err = set_smem(flash_bf16_dkv_kernel<D>, DkvSmem<D>::kBytes);
   if (err) return err;
-  const dim3 grid(B * H, (sk + kDkvBK - 1) / kDkvBK);
-  flash_bf16_dkv_kernel<D><<<grid, kBwdThreads, smem, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, H, sq, sk, scale, causal);
+  const GridOrder order = grid_order(B * H, (sk + kDkvBK - 1) / kDkvBK,
+                                     4l * sq * D);
+  flash_bf16_dkv_kernel<D><<<B * H * order.levels, kWsThreads,
+                             DkvSmem<D>::kBytes, stream>>>(
+      tq, tk, tv, tdo, lse, delta, dk, dv, H, sq, sk, scale, causal, order);
   return (int)cudaGetLastError();
 }
 

@@ -3,26 +3,58 @@ flash_attention_bf16.cu`` (forward, dQ, dK/dV) on the CPU, before any GPU
 sees them.
 
 The harness of ``scripts/emulate_flash_bwd_cpu.py``: a copy of the source
-and of ``common.cuh``, rewritten for g++ (threads for a block's threads,
-``gridDim`` set by each launch, a per-thread queue of copies that lands at
-``wait_group``, shared memory filled with 0xff bytes, a NaN in bf16 and in
-float32, so that a read before its copy lands shows). The source's block
-of copy, conversion and mma helpers is replaced: ``mma.sync`` m16n8k16
-bf16 becomes an exchange of the warp's fragments through a per-warp
-barrier (PTX's fragment layouts) whose products are summed in double and
-rounded to float32, ``cvt.rn.bf16x2.f32`` a round to nearest even on the
-bits, the xor shuffle an exchange through the same barrier. Two libraries
-are built with ``g++ -std=c++20`` into ``paddle_tpu_torch/_build/``: one
-whose copies land at ``wait_group``, one whose copies land as they are
-issued (a copy issued before its buffer's last reader is done then
-shows). The entry points are called through ``ctypes`` on CPU tensors at
-each B,Sq,Sk,H,D,causal given, bf16 inputs from a seed, the backward
-from the plain forward's O and lse: the largest share of the kernels'
-limits (2^-7 max|plain| + 2^-7 |plain| for O, dQ, dK and dV; 1e-4 for
-lse) against the plain versions, whether a second call gives the same
-bits, and whether both landings do. Exits 1 if any shape misses.
+and of ``common.cuh`` and ``sm90.cuh``, rewritten for g++ (threads for a
+block's threads, ``gridDim`` set by each launch, a per-thread queue of
+copies that lands at ``wait_group``, shared memory filled with 0xff bytes,
+a NaN in bf16 and in float32, so that a read before its copy lands
+shows). The source's block of copy, conversion and mma helpers is
+replaced: ``mma.sync`` m16n8k16 bf16 becomes an exchange of the warp's
+fragments through a per-warp barrier (PTX's fragment layouts) whose
+products are summed in double and rounded to float32, ``cvt.rn.bf16x2.f32``
+a round to nearest even on the bits, the xor shuffle an exchange through
+the same barrier. ``sm90.cuh``'s block of PTX is replaced by models of
+Hopper's units, and its descriptor arithmetic kept:
 
-    python scripts/emulate_flash_bf16_cpu.py 1,128,128,2,64,1 1,77,77,1,256,1
+* shared addresses are offsets from the 1024-byte boundary below the
+  block's dynamic shared memory (which starts past it, as nothing promises
+  the card's is aligned);
+* a TMA box load reads the tensor map's box (zeros past any dimension's
+  end) and writes it with the 128-byte swizzle (address bits 4-6 XOR bits
+  7-9), then completes its bytes on the mbarrier; a TMA store reads the
+  box back through the same swizzle and writes what lies inside the
+  tensor; either's shared memory must be 1024-byte aligned;
+* an mbarrier has a count, pending arrivals, a transaction count and a
+  phase: a phase ends when the arrivals and the announced bytes are all
+  in, a wait on parity p returns once the phase of parity p is over, and
+  an arrival beyond the count or bytes beyond those announced abort;
+* named barriers count their threads by generation;
+* a ``wgmma.mma_async`` is held until the ``wait_group`` that retires its
+  group: then each thread computes its own accumulators, reading A from
+  the warpgroup's registers as they were when the product started (RS)
+  or through its descriptor (SS), and B through its descriptor, each
+  element's address decoded as the PTX ISA lays out the canonical K-major
+  and MN-major layouts with the 128-byte swizzle, products summed in
+  double; so accumulators read before their wait, or a tile released
+  before the products that read it retire, show;
+* ``setmaxnreg``, ``wgmma.fence`` and the proxy fence do nothing;
+* the grids' L2 budget is 150,000 bytes, so that their groups of heads
+  hold one or two heads at the shapes emulated.
+
+The models run the kernels' order of events, not the card's timing: TMA
+lands at once, and threads interleave as the host schedules them.
+
+Two libraries are built with ``g++ -std=c++20`` into
+``paddle_tpu_torch/_build/``: one whose copies land at ``wait_group``, one
+whose copies land as they start (a copy started before its buffer's last
+reader is done then shows). The entry points are called through
+``ctypes`` on CPU tensors at each B,Sq,Sk,H,D,causal given, bf16 inputs
+from a seed, the backward from the plain forward's O and lse: the largest
+share of the kernels' limits (2^-7 max|plain| + 2^-7 |plain| for O, dQ,
+dK and dV; 1e-4 for lse) against the plain versions, whether a second
+call gives the same bits, and whether both landings do. Exits 1 if any
+shape misses.
+
+    python scripts/emulate_flash_bf16_cpu.py 1,128,128,2,64,1 1,129,129,2,256,1
 """
 
 import argparse
@@ -44,7 +76,7 @@ from paddle_tpu_torch.kernels import build  # noqa: E402
 from paddle_tpu_torch.kernels import flash_attention as fa  # noqa: E402
 
 SOURCE = "flash_attention_bf16.cu"
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "sm90.cuh")
 BF16_REL = 2.0 ** -7
 LSE_TOL = 1e-4
 
@@ -101,6 +133,10 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
   W.bar->arrive_and_wait();
   for (int i = 0; i < 4; ++i) d[i] = out[i];
 }
+__device__ __forceinline__ float ex2(float x) {
+  const float r = std::exp2(x);
+  return std::fpclassify(r) == FP_SUBNORMAL ? 0.f : r;
+}
 __device__ __forceinline__ float shfl_xor(float x, int m) {
   const int lane = threadIdx.x & 31;
   EmuWarp& W = emu_warps[threadIdx.x >> 5];
@@ -112,6 +148,284 @@ __device__ __forceinline__ float shfl_xor(float x, int m) {
 }
 """
 
+SM90_HELPERS = r"""// ---- Hopper's asynchronous units (emulated)
+#include <condition_variable>
+#include <cstdio>
+#include <cstdlib>
+#include <deque>
+#include <map>
+#include <mutex>
+// the tensor map's fields, in place of the driver's opaque 128 bytes
+struct CUtensorMap {
+  const char* base;
+  uint64_t dims[4], strides[4];
+  uint32_t box[4];
+};
+#define __grid_constant__
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  emu_warps[threadIdx.x >> 5].bar->arrive_and_wait();
+}
+namespace sm90 {
+[[noreturn]] inline void emu_fail(const char* what) {
+  std::fprintf(stderr, "sm90 emulation: %s\n", what);
+  std::abort();
+}
+// shared addresses: offsets from the 1024-byte boundary below the block's
+// dynamic shared memory
+inline char* emu_window() {
+  return reinterpret_cast<char*>(reinterpret_cast<uintptr_t>(emu_dyn_smem) &
+                                 ~uintptr_t(1023));
+}
+inline uint32_t smem_u32(const void* p) {
+  return (uint32_t)(static_cast<const char*>(p) - emu_window());
+}
+inline uint32_t emu_swizzle(uint32_t a) { return a ^ (((a >> 7) & 7) << 4); }
+
+inline std::mutex emu_mu;
+inline std::condition_variable emu_cv;
+struct EmuBar { uint32_t count, pending; int64_t tx; uint32_t phase; };
+inline std::map<uint32_t, EmuBar> emu_bars;
+inline EmuBar& emu_bar(uint32_t bar) {
+  auto it = emu_bars.find(bar);
+  if (it == emu_bars.end()) emu_fail("an mbarrier used before its init");
+  return it->second;
+}
+inline void emu_bar_step(EmuBar& b) {
+  if (b.tx < 0) emu_fail("more bytes landed than were announced");
+  if (b.pending == 0 && b.tx == 0) {
+    b.phase ^= 1;
+    b.pending = b.count;
+    emu_cv.notify_all();
+  }
+}
+inline void emu_bar_arrival(uint32_t bar, int64_t bytes) {
+  std::lock_guard<std::mutex> lk(emu_mu);
+  EmuBar& b = emu_bar(bar);
+  if (b.pending == 0) emu_fail("an arrival beyond the mbarrier's count");
+  b.tx += bytes;
+  --b.pending;
+  emu_bar_step(b);
+}
+inline void bar_init(uint32_t bar, uint32_t count) {
+  std::lock_guard<std::mutex> lk(emu_mu);
+  emu_bars[bar] = {count, count, 0, 0};
+}
+inline void bar_init_fence() {}
+inline void bar_arrive(uint32_t bar) { emu_bar_arrival(bar, 0); }
+inline void bar_expect_tx(uint32_t bar, uint32_t bytes) {
+  emu_bar_arrival(bar, bytes);
+}
+inline bool bar_try_wait(uint32_t bar, uint32_t parity) {
+  std::lock_guard<std::mutex> lk(emu_mu);
+  return emu_bar(bar).phase != parity;
+}
+inline void bar_wait(uint32_t bar, uint32_t parity) {
+  std::unique_lock<std::mutex> lk(emu_mu);
+  emu_cv.wait(lk, [&] { return emu_bar(bar).phase != parity; });
+}
+inline void fence_proxy_async() {}
+
+struct EmuNamed { int count = 0; unsigned gen = 0; };
+inline std::map<int, EmuNamed> emu_named;
+inline void emu_named_arrival(int id, int threads, bool wait) {
+  std::unique_lock<std::mutex> lk(emu_mu);
+  EmuNamed& b = emu_named[id];
+  const unsigned gen = b.gen;
+  if (++b.count == threads) {
+    b.count = 0;
+    ++b.gen;
+    emu_cv.notify_all();
+  } else if (wait) {
+    emu_cv.wait(lk, [&] { return b.gen != gen; });
+  }
+}
+inline void named_sync(int id, int threads) {
+  emu_named_arrival(id, threads, true);
+}
+inline void named_arrive(int id, int threads) {
+  emu_named_arrival(id, threads, false);
+}
+
+// the box at (c0, c1, c2, c3), innermost first, zeros past any dimension's
+// end, written densely from dst with the 128-byte swizzle
+inline void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                        int c0, int c1, int c2, int c3) {
+  if (dst % 1024) emu_fail("a swizzled TMA box not on 1024 bytes");
+  const int c[4] = {c0, c1, c2, c3};
+  const uint32_t* box = map->box;
+  uint32_t off = 0;
+  for (uint32_t i3 = 0; i3 < box[3]; ++i3)
+    for (uint32_t i2 = 0; i2 < box[2]; ++i2)
+      for (uint32_t i1 = 0; i1 < box[1]; ++i1)
+        for (uint32_t i0 = 0; i0 < box[0]; ++i0, off += 2) {
+          const int64_t x[4] = {c[0] + (int64_t)i0, c[1] + (int64_t)i1,
+                                c[2] + (int64_t)i2, c[3] + (int64_t)i3};
+          uint16_t v = 0;
+          bool in = true;
+          int64_t src = 0;
+          for (int d = 0; d < 4; ++d) {
+            in = in && x[d] >= 0 && x[d] < (int64_t)map->dims[d];
+            src += x[d] * (int64_t)map->strides[d];
+          }
+          if (in) std::memcpy(&v, map->base + src, 2);
+          std::memcpy(emu_window() + emu_swizzle(dst + off), &v, 2);
+        }
+  std::lock_guard<std::mutex> lk(emu_mu);
+  EmuBar& b = emu_bar(bar);
+  b.tx -= off;
+  emu_bar_step(b);
+}
+
+// the box at src (swizzled) to its coordinates, those past a
+// dimension's end not written
+inline void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0,
+                         int c1, int c2, int c3) {
+  if (src % 1024) emu_fail("a swizzled TMA box not on 1024 bytes");
+  const int c[4] = {c0, c1, c2, c3};
+  const uint32_t* box = map->box;
+  uint32_t off = 0;
+  for (uint32_t i3 = 0; i3 < box[3]; ++i3)
+    for (uint32_t i2 = 0; i2 < box[2]; ++i2)
+      for (uint32_t i1 = 0; i1 < box[1]; ++i1)
+        for (uint32_t i0 = 0; i0 < box[0]; ++i0, off += 2) {
+          const int64_t x[4] = {c[0] + (int64_t)i0, c[1] + (int64_t)i1,
+                                c[2] + (int64_t)i2, c[3] + (int64_t)i3};
+          bool in = true;
+          int64_t dst = 0;
+          for (int d = 0; d < 4; ++d) {
+            in = in && x[d] >= 0 && x[d] < (int64_t)map->dims[d];
+            dst += x[d] * (int64_t)map->strides[d];
+          }
+          if (in)
+            std::memcpy(const_cast<char*>(map->base) + dst,
+                        emu_window() + emu_swizzle(src + off), 2);
+        }
+}
+inline void bulk_commit() {}
+inline void bulk_wait_read() {}
+
+template <int N>
+inline void regs_dec() {}
+template <int N>
+inline void regs_inc() {}
+
+// wgmma: held per thread until the wait that retires its group
+struct EmuWgOp {
+  float* d;
+  int n, tb, accumulate;
+  bool rs;
+  uint64_t da, db;
+  uint32_t slot;
+};
+inline thread_local std::vector<EmuWgOp> emu_wg_open;
+inline thread_local std::deque<std::vector<EmuWgOp>> emu_wg_groups;
+inline thread_local uint32_t emu_wg_seq;
+// each warpgroup's A registers of its last 256 RS products
+inline uint32_t emu_wg_a[4][256][128][4];
+inline void wg_fence() {}
+inline void wg_commit() {
+  emu_wg_groups.push_back(std::move(emu_wg_open));
+  emu_wg_open.clear();
+}
+inline float emu_bf16_value(uint16_t h) {
+  return __uint_as_float((uint32_t)h << 16);
+}
+// element (i, k) of an operand, i along M or N, k along the k16 step: a
+// K-major (tb 0) or MN-major (tb 1) tile with the 128-byte swizzle
+inline float emu_operand(uint64_t desc, int tb, int i, int k) {
+  if ((desc >> 62) != 1) emu_fail("a descriptor without the 128-byte swizzle");
+  if ((desc >> 49) & 7) emu_fail("a descriptor with a base offset");
+  const uint32_t start = (uint32_t)(desc & 0x3fff) << 4;
+  const uint32_t lbo = (uint32_t)((desc >> 16) & 0x3fff) << 4;
+  const uint32_t sbo = (uint32_t)((desc >> 32) & 0x3fff) << 4;
+  const uint32_t a =
+      tb == 0
+          ? start + (i / 8) * sbo + (i % 8) * 128 + (k / 8) * 16 + (k % 8) * 2
+          : start + (i / 64) * lbo + (i % 64) * 2 + (k / 8) * sbo +
+                (k % 8) * 128;
+  uint16_t h;
+  std::memcpy(&h, emu_window() + emu_swizzle(a), 2);
+  return emu_bf16_value(h);
+}
+// element (row, k) of an RS product's A: mma.sync's m16n8k16 A fragments,
+// warp row / 16 holding its 16 rows
+inline float emu_rs_a(int wg, uint32_t slot, int row, int k) {
+  const int holder = 32 * (row / 16) + 4 * (row % 8) + (k % 8) / 2;
+  const int reg = (row % 16) / 8 + 2 * (k / 8);
+  return emu_bf16_value((uint16_t)(emu_wg_a[wg][slot][holder][reg] >> (16 * (k & 1))));
+}
+inline void emu_wg_eval(const EmuWgOp& op) {
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int w = tid / 32, g = (tid % 32) / 4, t = tid % 4;
+  float out[128];
+  for (int j = 0; j < op.n / 8; ++j)
+    for (int e = 0; e < 4; ++e) {
+      const int row = 16 * w + g + 8 * (e >> 1), col = 8 * j + 2 * t + (e & 1);
+      double s = op.accumulate ? op.d[4 * j + e] : 0.0;
+      for (int k = 0; k < 16; ++k) {
+        const float av = op.rs ? emu_rs_a(wg, op.slot, row, k)
+                               : emu_operand(op.da, 0, row, k);
+        s += (double)av * (double)emu_operand(op.db, op.tb, col, k);
+      }
+      out[4 * j + e] = (float)s;
+    }
+  for (int i = 0; i < op.n / 2; ++i) op.d[i] = out[i];
+}
+template <int N>
+inline void wg_wait() {
+  // every thread of the warpgroup has started its products (and left
+  // its A registers)
+  named_sync(100 + threadIdx.x / 128, 128);
+  while (emu_wg_groups.size() > (size_t)N) {
+    for (const EmuWgOp& op : emu_wg_groups.front()) emu_wg_eval(op);
+    emu_wg_groups.pop_front();
+  }
+}
+template <int N>
+inline void fence_operands(float (&)[N]) {}
+inline void fence_operands(uint32_t (&)[4]) {}
+template <int TB>
+inline void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                         int accumulate) {
+  emu_wg_open.push_back({d, 64, TB, accumulate, false, da, db, 0});
+}
+template <int N, int TB>
+inline void emu_wgmma_rs(float* d, const uint32_t (&a)[4], uint64_t db,
+                         int accumulate) {
+  const uint32_t slot = emu_wg_seq++ % 256;
+  for (int r = 0; r < 4; ++r)
+    emu_wg_a[threadIdx.x / 128][slot][threadIdx.x % 128][r] = a[r];
+  emu_wg_open.push_back({d, N, TB, accumulate, true, 0, db, slot});
+}
+template <int TB>
+inline void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                         int accumulate) {
+  emu_wgmma_rs<64, TB>(d, a, db, accumulate);
+}
+template <int TB>
+inline void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                          uint64_t db, int accumulate) {
+  emu_wgmma_rs<128, TB>(d, a, db, accumulate);
+}
+template <int TB>
+inline void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
+                          uint64_t db, int accumulate) {
+  emu_wgmma_rs<256, TB>(d, a, db, accumulate);
+}
+
+inline int encode_bshd(CUtensorMap* map, const void* base, int B, int S,
+                       int H, int D, int rows) {
+  *map = {static_cast<const char*>(base),
+          {(uint64_t)D, (uint64_t)H, (uint64_t)S, (uint64_t)B},
+          {2, 2ull * D, 2ull * H * D, 2ull * S * H * D},
+          {64, 1, (uint32_t)rows, 1}};
+  return 0;
+}
+
+}  // namespace sm90
+"""
+
+L2_BUDGET = "constexpr long kL2Budget = 24l << 20;"
 NAN_FILL = ("std::fill(smem.begin(), smem.end(),\n"
             "                std::numeric_limits<float>::quiet_NaN());")
 
@@ -120,15 +434,25 @@ def rewrite(name: str) -> str:
     text = (build.CSRC / name).read_text()
     text = text.replace("#include <cuda_runtime.h>\n",
                         '#include "flash_emu.h"\n')
-    if name == SOURCE:
-        a = text.index("// ---- asynchronous copies, conversions and the "
-                       "bf16 tensor-core product")
+    blocks = {SOURCE: ("// ---- asynchronous copies, conversions and the "
+                       "bf16 tensor-core product", HELPERS),
+              "sm90.cuh": ("// ---- Hopper's asynchronous units",
+                           SM90_HELPERS)}
+    if name in blocks:
+        start, helpers = blocks[name]
+        a = text.index(start)
         b = text.index("// ------------------------------------------------"
                        "-----------------------------", a)
-        text = text[:a] + HELPERS + text[b:]
+        text = text[:a] + helpers + text[b:]
     text = text.replace(
         "extern __shared__ float4 smem4[];",
         "float4* smem4 = reinterpret_cast<float4*>(emu_dyn_smem);")
+    if name == SOURCE:
+        # an L2 of 300 KB: the grids' groups of heads hold one or two heads
+        # at the shapes emulated
+        if L2_BUDGET not in text:
+            raise RuntimeError("the grids' L2 budget moved")
+        text = text.replace(L2_BUDGET, "constexpr long kL2Budget = 150000;")
     text = emu.LAUNCH.sub(bwd_emu._launch, text)
     if "asm" in re.sub(r"//.*", "", text):
         raise RuntimeError(f"{name}: inline assembly left after the rewrite")

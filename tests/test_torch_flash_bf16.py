@@ -6,9 +6,11 @@ The kernels multiply bf16 operands exactly on the tensor cores and add
 in float32; they round two float32 tiles to bf16 before multiplying
 them: P (for P V and P^T dO) and dS (for dS K and dS^T Q), and write O,
 dQ, dK and dV once as bf16. ``_fwd_bf16`` / ``_bwd_bf16`` repeat that
-arithmetic in float32 PyTorch (the forward's online softmax over key
-tiles of 64, as the kernel walks them) on bf16 inputs made from numpy
-seeds.
+arithmetic in float32 PyTorch on bf16 inputs made from numpy seeds: the
+forward's online softmax in the log2 domain over the key tiles the
+kernel walks (``KEY_TILE``), dK/dV's p = 2^(s scale log2 e - lse log2 e)
+and its sums over the query tiles the kernel streams
+(``DKV_QUERY_TILE``), each tile's products added in float32.
 
 Limits, as chip_smoke.py and tests/test_torch_gpu.py hold the kernels on
 the card (bf16's unit roundoff is 2^-8): O, dQ, dK and dV within
@@ -38,7 +40,11 @@ torch.set_num_threads(2)
 
 BF16_REL = 2.0 ** -7
 LSE_TOL = 1e-4
-KEY_TILE = 64  # the forward kernel's keys a tile
+LOG2E = 1.4426950408889634
+# the kernels' tiles at each head_dim (csrc/flash_attention_bf16.cu): the
+# forward's keys a tile (kFwdBK), dK/dV's query rows a tile (kDkvBQ)
+KEY_TILE = {64: 64, 128: 64, 256: 64}
+DKV_QUERY_TILE = {64: 64, 128: 64, 256: 64}
 
 CASES = [  # b, sq, sk, h, d, causal
     (1, 64, 64, 2, 64, True),
@@ -46,6 +52,7 @@ CASES = [  # b, sq, sk, h, d, causal
     (1, 40, 100, 2, 64, False),
     (1, 96, 130, 1, 256, True),    # sq < sk: bottom-right causal
     (2, 128, 128, 2, 64, False),
+    (1, 200, 200, 2, 256, True),   # 200: a second block half empty
 ]
 
 
@@ -84,43 +91,60 @@ def _scores(q, k, causal, scale, q_off, k0=0):
 
 
 def _fwd_bf16(q, k, v, causal):
-    """The forward kernel's arithmetic: key tiles of 64 with the online
-    softmax in float32, P rounded to bf16 for P V, O = acc / l rounded
-    to bf16, lse = m + log l."""
+    """The forward kernel's arithmetic: its key tiles with the online
+    softmax in float32 in the log2 domain (scores times scale log2 e, p =
+    2^(x - m)), P rounded to bf16 for P V, O = acc / l rounded to bf16,
+    lse = m ln 2 + log l."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    scale = d ** -0.5
+    tile = KEY_TILE[d]
     m = torch.full((b, h, sq, 1), -float("inf"))
     l = torch.zeros((b, h, sq, 1))
     acc = torch.zeros((b, h, sq, d))
-    for k0 in range(0, sk, KEY_TILE):
-        s = _scores(q, k[:, k0:k0 + KEY_TILE], causal, scale, sk - sq, k0)
+    for k0 in range(0, sk, tile):
+        # the masked value stays kMaskValue, as the kernel sets it after
+        # scaling
+        s = _scores(q, k[:, k0:k0 + tile], causal, d ** -0.5 * LOG2E,
+                    sk - sq, k0)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         alpha = torch.where(m == -float("inf"), torch.zeros(()),
-                            torch.exp(m - m_new))
-        p = torch.exp(s - m_new)
+                            torch.exp2(m - m_new))
+        p = torch.exp2(s - m_new)
         l = l * alpha + p.sum(-1, keepdim=True)
         acc = acc * alpha + torch.einsum(
-            "bhqk,bkhd->bhqd", _bf16(p), v[:, k0:k0 + KEY_TILE].float())
+            "bhqk,bkhd->bhqd", _bf16(p), v[:, k0:k0 + tile].float())
         m = m_new
     o = (acc / l).permute(0, 2, 1, 3).bfloat16()
-    return o, (m + torch.log(l)).reshape(b * h, sq)
+    return o, (m * LOG2E ** -1 + torch.log(l)).reshape(b * h, sq)
 
 
 def _bwd_bf16(q, k, v, do, lse, delta, causal):
-    """The backward kernels' arithmetic: p = exp(s - lse) and dS = p (dP -
-    delta) scale in float32; dQ = round(dS) K, dK = round(dS)^T Q,
-    dV = round(P)^T dO, each summed in float32 and rounded to bf16."""
+    """The backward kernels' arithmetic: p in float32 (dQ's kernel exp(s
+    - lse), dK/dV's 2^(s scale log2 e - lse log2 e)) and dS = p (dP -
+    delta) scale in float32; dQ = round(dS) K, dK = round(dS)^T Q, dV =
+    round(P)^T dO, dK and dV summed tile by tile over dK/dV's query tiles,
+    each in float32, and rounded to bf16."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     scale = d ** -0.5
-    s = _scores(q, k, causal, scale, sk - sq)
-    p = torch.exp(s - lse.reshape(b, h, sq, 1))
+    lse4 = lse.reshape(b, h, sq, 1)
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
-    ds = _bf16(p * (dp - delta.reshape(b, h, sq, 1)) * scale)
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
-    dv = torch.einsum("bhqk,bqhd->bkhd", _bf16(p), do.float())
+    delta4 = delta.reshape(b, h, sq, 1)
+    p = torch.exp(_scores(q, k, causal, scale, sk - sq) - lse4)
+    dq = torch.einsum("bhqk,bkhd->bqhd", _bf16(p * (dp - delta4) * scale),
+                      k.float())
+    p2 = torch.exp2(_scores(q, k, causal, scale * LOG2E, sk - sq)
+                    - lse4 * LOG2E)
+    ds = _bf16(p2 * (dp - delta4) * scale)
+    dk = torch.zeros(b, sk, h, d)
+    dv = torch.zeros(b, sk, h, d)
+    tile = DKV_QUERY_TILE[d]
+    for q0 in range(0, sq, tile):
+        rows = slice(q0, q0 + tile)
+        dk += torch.einsum("bhqk,bqhd->bkhd", ds[:, :, rows],
+                           q[:, rows].float())
+        dv += torch.einsum("bhqk,bqhd->bkhd", _bf16(p2[:, :, rows]),
+                           do[:, rows].float())
     return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
 
 

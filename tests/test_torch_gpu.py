@@ -481,6 +481,10 @@ def _bf16_case(gen, b, sq, sk, h, d):
     (1, 5, 300, 2, 128, True),       # sq < sk: bottom-right causal
     (2, 100, 33, 2, 256, False),     # sq > sk, not causal
     (2, 70, 150, 2, 128, False),
+    (1, 129, 129, 2, 256, True),     # the forward's second block: one row
+    (1, 200, 200, 2, 256, True),     # its second warpgroup half empty
+    (3, 100, 100, 5, 128, True),     # TMA boxes at every (b, h) edge
+    (2, 70, 40, 3, 64, False),       # sk 40: less than one key tile
 ])
 def test_flash_bf16_kernels_match_plain(cuda, b, sq, sk, h, d, causal):
     """The three bf16 kernels against their plain versions (bf16 in, the
