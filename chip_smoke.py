@@ -174,9 +174,9 @@ FLASH_BF16_SHAPES (H 8, D 256, causal; the AMP training step's B 8, S
 1024 among them), printing each output's largest share of its limit,
 each timed beside its plain version, its bound at the bf16 tensor
 cores' rate and SDPA in bf16 (its forward; its backward alone, its
-device time over a graph built once, beside dQ and dK/dV). The forward
-and dK/dV run on wgmma, fed by TMA through mbarrier rings in
-warp-specialised blocks (csrc/sm90.cuh).
+device time over a graph built once, beside dQ and dK/dV). All three
+run on wgmma, fed by TMA through mbarrier rings in warp-specialised
+blocks (csrc/sm90.cuh).
 Phase 3 also holds the two LSTM kernels against their plain versions at
 the bench shape (T 100, B 64, H 512), full-length and ragged, timed
 beside their bounds (3xTF32, with the f32 FMA bounds beside them) and

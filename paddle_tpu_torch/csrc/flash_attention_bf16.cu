@@ -1,7 +1,7 @@
 // Flash attention in bfloat16 for Hopper (sm_90a): the forward, dQ and
 // dK/dV of mixed-precision training, bf16 products with float32
-// accumulation on the tensor cores: the forward and dK/dV as wgmma.mma_async
-// in warp-specialised blocks fed by TMA, dQ as mma.sync.m16n8k16.
+// accumulation on the tensor cores, each kernel wgmma.mma_async in
+// warp-specialised blocks fed by TMA.
 //
 // Replaces, for bfloat16 inputs, the three TPU kernels of
 // paddle_tpu/kernels/flash_attention.py: the forward _flash_fwd (Pallas
@@ -32,63 +32,71 @@
 // the descriptors read (csrc/sm90.cuh), and P, P^T and dS^T, formed in
 // registers, are the RS form's A straight from the accumulators.
 //
+// All three blocks have 384 threads: a producer warpgroup, whose TMA
+// threads keep rings of 2 tiles full on full and empty mbarriers, and two
+// consumer warpgroups; setmaxnreg gives the producer 24 registers and each
+// consumer 240. Their grids walk groups of heads whose streamed tiles fit
+// in L2, heaviest tile first within a group (GridOrder).
+//
 // Forward (flash_bf16_fwd_kernel): a block owns one (batch, head) and 128
-//   query rows, heaviest query tile first, in 384 threads: a producer
-//   warpgroup, whose one thread loads Q once and keeps a ring of 2 K and 2
-//   V tiles of 64 keys full by TMA (full and empty mbarriers a stage), and
-//   two consumer warpgroups of 64 rows each. Per key tile a consumer runs
-//   S = Q K^T as D / 16 SS wgmma m64n64k16 (Q and K K-major), the online
-//   softmax on S's accumulators (a warp's slice is mma.sync's m16n8 C
-//   layout: a row's max and sum across the 4 lanes that hold it by two xor
-//   shuffles), then O += P V as 4 RS wgmma m64nDk16, P packed to bf16 from
-//   S's accumulators and V MN-major; O stays in registers (D / 2 floats a
-//   thread), and a warpgroup releases the key tiles past its causal
-//   diagonal unread. setmaxnreg gives the producer 24 registers and each
-//   consumer 240. Shared memory at D = 256: Q 64 KB, 2 x (K 32 + V 32) KB:
-//   192 KB and its barriers, one block an SM; at every D the same tiles.
+//   query rows; the producer's one thread loads Q once and keeps a ring of
+//   2 K and 2 V tiles of 64 keys full, and the two consumers own 64 rows
+//   each. Per key tile a consumer runs S = Q K^T as D / 16 SS wgmma
+//   m64n64k16 (Q and K K-major), the online softmax on S's accumulators (a
+//   warp's slice is mma.sync's m16n8 C layout: a row's max and sum across
+//   the 4 lanes that hold it by two xor shuffles), then O += P V as 4 RS
+//   wgmma m64nDk16, P packed to bf16 from S's accumulators and V MN-major;
+//   O stays in registers (D / 2 floats a thread), and a warpgroup releases
+//   the key tiles past its causal diagonal unread. Shared memory at D =
+//   256: Q 64 KB, 2 x (K 32 + V 32) KB: 192 KB and its barriers, one block
+//   an SM; at every D the same tiles.
 //
-// dQ (flash_bf16_dq_kernel): 8 warps in pairs; a block owns 64 query rows,
-//   pair p their 16 rows 16 p .. 16 p + 15, and walks the key tiles of 64 keys.
-//   Per tile one warp of the pair computes S = Q K^T and p = exp(s - lse), the
-//   other dP = dO V^T, over the same 16 x 64 tile in one C layout: the first
-//   hands p (float32) to the second through shared memory, lane for lane, the
-//   second forms dS = p (dP - delta) scale, rounds it to bf16 in A-fragment
-//   order and hands it back; then each warp of the pair adds dS K into its half
-//   of the pair's dQ columns (64 floats a thread at D = 256). Q and dO stay in
-//   shared memory; K is double-buffered (K of t + 1 lands under all of t), V
-//   single (V of t + 1 lands under dS and dS K of t): 193,536 bytes at D = 256,
-//   one block an SM. The simple version that is right first: mma.sync (not
-//   wgmma), cp.async (not TMA).
+// dQ (flash_bf16_dq_kernel): a block owns 64 query rows of one (batch,
+//   head); the producer's warp 0 loads Q and dO once and keeps a ring of 3
+//   K tiles of 64 keys full, its warp 1 a ring of 1 V tile, from key tile
+//   0 to the last under the causal diagonal. Per key tile consumer 0 runs
+//   S = Q K^T (SS, both K-major), forms p = 2^(s scale log2(e) - lse
+//   log2(e)) under the masks and hands p (float32) to consumer 1 through
+//   shared memory on a named barrier; consumer 1 runs dP = dO V^T (SS),
+//   forms dS = p (dP - delta) scale in float32, rounds it to bf16 and
+//   writes it once into a [64][64] tile in the 128-byte swizzle (K-major,
+//   one box), then a proxy fence and a named barrier. Each consumer then
+//   adds dS K[:, its half of D] into its half of dQ (D / 4 floats a
+//   thread) as 4 wgmma m64n(D/2)k16 with K MN-major: consumer 0 reads dS
+//   from the tile (SS), consumer 1 from its registers (RS). Consumer 0
+//   starts S of the next tile before it waits for dS of this one, consumer
+//   1 dP of the next tile before its dS K; a K tile is released once both
+//   halves of dS K are done, the V tile once dP is, and the dS tile is
+//   rewritten once consumer 0's dS K is done (named barriers). K is read
+//   a tile apart (by S, then by dS K), so its ring is the deeper: 3 and 1
+//   ran 8% faster than 2 and 2 in the same shared memory (H100, B 8, S
+//   1024, H 8, D 256). Shared memory at D = 256: Q and dO 64 KB, 3 x K 32
+//   KB, V 32 KB, p 16 KB, dS 8 KB: 216 KB and its barriers, one block an
+//   SM. It streams 64 KB of K and V a tile from L2 (the forward, with 128
+//   query rows a block, half of that a row): the ablations of
+//   scripts/torch_flash_bf16_probe.py point there (its heads ungrouped,
+//   20% slower; without dS K 6% faster, without p's exchange 2%).
 //
-// dK/dV (flash_bf16_dkv_kernel): a block owns 64 keys of one (batch, head)
-//   in 384 threads: a producer warpgroup, whose warp 0 loads K and V once
-//   and keeps a ring of 2 Q and 2 dO tiles of 64 query rows full by TMA,
-//   from the first tile that sees the block's keys under causal masking to
-//   the last, and whose warp 1 copies each tile's lse and delta beside them
-//   (the tile's full barriers count its 32 lanes and the TMA bytes); and
-//   two consumer warpgroups over the block's 64 keys, each accumulating all
-//   D columns of one output (D / 2 floats a thread). Per query tile
-//   consumer 0 runs S^T = K Q^T (SS, both K-major), forms p^T = exp(s scale
-//   - lse) under the masks, hands p^T (float32) to consumer 1 through
-//   shared memory on a named barrier, and adds P^T dO into dV (RS: P^T
-//   packed to bf16 from its accumulators, dO MN-major); consumer 1 runs
-//   dP^T = V dO^T (SS), forms dS^T = p^T (dP^T - delta) scale in float32,
-//   and adds dS^T Q into dK (RS: dS^T packed to bf16, Q MN-major). Shared
-//   memory at D = 256: K and V 64 KB, 2 x (Q 32 + dO 32) KB, p^T 16 KB,
-//   lse and delta 1 KB: 209 KB and its barriers, one block an SM.
+// dK/dV (flash_bf16_dkv_kernel): a block owns 64 keys of one (batch, head);
+//   the producer's warp 0 loads K and V once and keeps a ring of 2 Q and 2
+//   dO tiles of 64 query rows full by TMA, from the first tile that sees
+//   the block's keys under causal masking to the last, and its warp 1
+//   copies each tile's lse and delta beside them (the tile's full barriers
+//   count its 32 lanes and the TMA bytes); the two consumers work over the
+//   block's 64 keys, each accumulating all D columns of one output (D / 2
+//   floats a thread). Per query tile consumer 0 runs S^T = K Q^T (SS, both
+//   K-major), forms p^T = exp(s scale - lse) under the masks, hands p^T
+//   (float32) to consumer 1 through shared memory on a named barrier, and
+//   adds P^T dO into dV (RS: P^T packed to bf16 from its accumulators, dO
+//   MN-major); consumer 1 runs dP^T = V dO^T (SS), forms dS^T = p^T (dP^T -
+//   delta) scale in float32, and adds dS^T Q into dK (RS: dS^T packed to
+//   bf16, Q MN-major). Shared memory at D = 256: K and V 64 KB, 2 x (Q 32 +
+//   dO 32) KB, p^T 16 KB, lse and delta 1 KB: 209 KB and its barriers, one
+//   block an SM.
 //
-// dQ's fragments: A (16 x 16, row-major) and B (16 x 8, column-major) as
-// PTX's m16n8k16 layouts, each 32-bit register two bf16 values of one row
-// (A) or column (B), the lower index in the low half. Operands read along
-// a row of shared memory (Q, dO, K and V as the first products' A and B)
-// are one 32-bit read a register; operands read down a column (K in dS K)
-// two 16-bit reads a register. The pitch of D + 8 values (D / 2 + 4 words)
-// puts a quarter warp's reads of either kind on distinct banks.
-//
-// Registers (nvcc -Xptxas -v, sm_90a) of dQ at D = 256 / 128 / 64: 169 /
-// 138 / 118, no spills, no stack; the forward's and dK/dV's are those of
-// the launch bound (168: 384 threads, one block an SM), which setmaxnreg
-// moves to 24 (producer) and 240 (consumers).
+// Registers (nvcc -Xptxas -v, sm_90a): every kernel at every D has those
+// of the launch bound (168: 384 threads, one block an SM), which
+// setmaxnreg moves to 24 (producer) and 240 (consumers).
 #include <cmath>
 #include <cstdint>
 
@@ -99,40 +107,12 @@ namespace {
 
 typedef uint16_t bf16;  // the bits of one bfloat16
 
-// ---- asynchronous copies, conversions and the bf16 tensor-core product ----
-__device__ __forceinline__ unsigned shared_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-// 16 bytes, bypassing L1; zero-filled unless ok.
-__device__ __forceinline__ void copy16(bf16* dst, const bf16* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   shared_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-// Wait until at most N of this thread's groups of copies are in flight.
-template <int N>
-__device__ __forceinline__ void wait_prior() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+// ---- conversions, shuffles and exponentials --------------------------------
 // lo and hi rounded to bf16 (to nearest, ties to even), lo in the low half.
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   uint32_t r;
   asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
   return r;
-}
-// d += a b over one m16n8k16 tile: a (16 x 16, row) and b (16 x 8, col)
-// bf16, d float32.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 __device__ __forceinline__ float shfl_xor(float x, int m) {
   return __shfl_xor_sync(0xffffffffu, x, m);
@@ -145,84 +125,8 @@ __device__ __forceinline__ float ex2(float x) {
 }
 // -----------------------------------------------------------------------------
 
-// Two consecutive bf16 values of one row.
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-// Two bf16 values of one column, rows `ld` apart.
-__device__ __forceinline__ uint32_t ld_col(const bf16* p, int ld) {
-  return static_cast<uint32_t>(p[0]) | static_cast<uint32_t>(p[ld]) << 16;
-}
-
-// Rows r0 .. r0 + R - 1 of x (a row every `stride` values) into dst at
-// pitch LD, 16 bytes a copy, neighbouring threads on neighbouring chunks
-// of a row; rows at or past n zero-filled.
-template <int R, int D, int NT>
-__device__ __forceinline__ void copy_rows(bf16* dst, const bf16* x, int r0,
-                                          int n, long stride) {
-  constexpr int C = D / 8;  // 16-byte chunks a row
-  constexpr int LD = D + 8;
-  for (int i = threadIdx.x; i < R * C; i += NT) {
-    const int r = i / C, c = i - r * C;
-    const bool ok = r0 + r < n;
-    copy16(dst + r * LD + 8 * c, x + (ok ? (r0 + r) * stride : 0) + 8 * c,
-           ok);
-  }
-}
-
-// s[j] += A B_j^T over D, for the 16 rows of A at `a` (the lane's first row,
-// g, at a) and the rows 8 j .. 8 j + 7 of B at `bm`: a 16 x 8 NJ tile of
-// row-by-row dot products (Q K^T, dO V^T, K Q^T, V dO^T).
-template <int D, int NJ>
-__device__ __forceinline__ void row_products(float (&s)[NJ][4], const bf16* a,
-                                             const bf16* bm, int g, int t) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll 4
-  for (int d0 = 0; d0 < D; d0 += 16) {
-    const bf16* ap = a + d0 + 2 * t;
-    const uint32_t af[4] = {ld32(ap), ld32(ap + 8 * LD), ld32(ap + 8),
-                            ld32(ap + 8 * LD + 8)};
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const bf16* bp = bm + (8 * j + g) * LD + d0 + 2 * t;
-      mma(s[j], af, ld32(bp), ld32(bp + 8));
-    }
-  }
-}
-
-// acc[n] += A_kk B over a k16 step: A's fragment given, B the 16 rows at
-// `bm` (row 2 t at bm + 2 t LD), its n8 tiles the columns 8 n + {0..7}
-// from bm's column; B read down its columns.
-template <int D, int NN>
-__device__ __forceinline__ void col_products(float (&acc)[NN][4],
-                                             const uint32_t (&a)[4],
-                                             const bf16* bm, int g, int t) {
-  constexpr int LD = D + 8;
-  const bf16* b0 = bm + 2 * t * LD + g;
-#pragma unroll
-  for (int n = 0; n < NN; ++n) {
-    const bf16* bp = b0 + 8 * n;
-    mma(acc[n], a, ld_col(bp, LD), ld_col(bp + 8 * LD, LD));
-  }
-}
-
-// The A fragment of k16 step kk of a 16-row C tile held as float pairs:
-// keys (or queries) 16 kk .. 16 kk + 15, rounded to bf16.
-template <int NJ>
-__device__ __forceinline__ void a_from_c(uint32_t (&a)[4],
-                                         const float (&c)[NJ][4], int kk) {
-  a[0] = pack2(c[2 * kk][0], c[2 * kk][1]);
-  a[1] = pack2(c[2 * kk][2], c[2 * kk][3]);
-  a[2] = pack2(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  a[3] = pack2(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-}
-
 // ---------------------------------------------------------------------------
-// the forward's and dK/dV's warp-specialised blocks
+// the warp-specialised blocks
 // ---------------------------------------------------------------------------
 
 // A producer warpgroup (TMA, and dK/dV's lse and delta) and two consumer
@@ -593,164 +497,350 @@ flash_bf16_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
-// backward: the warp pairs' exchange
-// ---------------------------------------------------------------------------
-
-constexpr int kBwdThreads = 256;  // 4 pairs of warps
-
-// p of a pair's 16 x (8 NJ) tile, float32, lane for lane: [pair][j][e][lane]
-// at xp; dS rounded to bf16 as A fragments: [pair][kk][r][lane] at xs.
-template <int NJ>
-__device__ __forceinline__ float* xp_at(float* xp, int pair, int j, int e,
-                                        int lane) {
-  return xp + ((pair * NJ + j) * 4 + e) * 32 + lane;
-}
-template <int NJ>
-__device__ __forceinline__ uint32_t* xs_at(uint32_t* xs, int pair, int kk,
-                                           int r, int lane) {
-  return xs + ((pair * (NJ / 2) + kk) * 4 + r) * 32 + lane;
-}
-
-// ---------------------------------------------------------------------------
 // dQ
 // ---------------------------------------------------------------------------
 
 constexpr int kDqBQ = 64;  // query rows a block
 constexpr int kDqBK = 64;  // keys a tile
+constexpr int kDqKStages = 3;  // tiles in the K ring
+constexpr int kDqVStages = 1;  // tiles in the V ring
+// named barriers of the two consumers: p is in shared memory; it has been
+// read; dS is in shared memory; consumer 0's dS K has read it
+constexpr int kDqPReady = 1;
+constexpr int kDqPFree = 2;
+constexpr int kDqSReady = 3;
+constexpr int kDqSFree = 4;
 
+// Shared memory, byte offsets from the aligned base: Q, dO, the rings of K
+// and V tiles, p (float32, [8 n8 tiles][128 threads][4 accumulators]), dS
+// (bf16, one [64][64] box), the barriers.
 template <int D>
-constexpr size_t dq_smem_bytes() {
-  // Q, dO, two K buffers, V; then p (float) and dS (bf16 pairs)
-  return sizeof(bf16) * 5 * 64 * (D + 8) + sizeof(float) * 4 * 64 * 16 +
-         sizeof(uint32_t) * 4 * 64 * 8;
+struct DqSmem {
+  static constexpr uint32_t kTile = tile_bytes<D>();
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kDo = kTile;
+  static constexpr uint32_t kK = 2 * kTile;
+  static constexpr uint32_t kV = kK + kDqKStages * kTile;
+  static constexpr uint32_t kP = kV + kDqVStages * kTile;
+  static constexpr uint32_t kS = kP + 32 * 128 * sizeof(float);
+  // full_qdo, then full and empty of each K stage, then of each V stage
+  static constexpr uint32_t kBar = kS + sm90::kBoxBytes;
+  static constexpr size_t kBytes =
+      kBar + 8 * (1 + 2 * (kDqKStages + kDqVStages)) + 1024;
+  // the byte offset of column D / 2 (consumer 1's half of dQ) in a tile:
+  // whole boxes, or half a box's row at D = 64
+  static constexpr uint32_t kHalf =
+      D / 2 >= 64 ? D / 2 / 64 * sm90::kBoxBytes : D / 2 * sizeof(bf16);
+};
+
+// Start dQ[:, half] += dS K[:, half] (K MN-major) as one group: dS from
+// its tile (SS) or, given its A fragments, from registers (RS).
+template <int D>
+__device__ __forceinline__ void start_dsk(float (&acc)[D / 4], uint32_t sS,
+                                          uint32_t sKh) {
+  sm90::fence_operands(acc);
+  sm90::wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    sm90::wgmma_ss<D / 2, 1>(acc, sm90::desc_k(sS, kk),
+                             sm90::desc_mn(sKh, kk), 1);
+  sm90::wg_commit();
+  sm90::fence_operands(acc);
+}
+template <int D>
+__device__ __forceinline__ void start_dsk(float (&acc)[D / 4],
+                                          uint32_t (&da)[4][4], uint32_t sKh) {
+  sm90::fence_operands(acc);
+  sm90::wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    sm90::wgmma_rs<D / 2, 1>(acc, da[kk], sm90::desc_mn(sKh, kk), 1);
+  sm90::wg_commit();
+  sm90::fence_operands(acc);
+}
+
+// p = 2^(s scale log2(e) - lse log2(e)) over one key tile of S (the
+// thread's 32 accumulators; its rows' lse log2(e) in l2, +inf past sq,
+// which gives p = 0; its keys k0 + 8 j + 2 t + {0, 1}); MASK when a key of
+// the tile is past sk (p = 0) or past a row's diagonal (kMaskValue).
+template <bool MASK>
+__device__ __forceinline__ void dq_probs(float (&sc)[32], const float (&l2)[2],
+                                         int qpos, int k0, int t, int sk,
+                                         int causal, float scale2) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = sc[4 * j + e] * scale2;
+      if (MASK) {
+        const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+        if (kpos >= sk) x = -INFINITY;
+        else if (causal && kpos > qpos + 8 * (e >> 1)) x = ptt::kMaskValue;
+      }
+      sc[4 * j + e] = ex2(x - l2[e >> 1]);
+    }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads, 1)
-flash_bf16_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_bf16_dq_kernel(const __grid_constant__ CUtensorMap tq,
+          const __grid_constant__ CUtensorMap tk,
+          const __grid_constant__ CUtensorMap tv,
+          const __grid_constant__ CUtensorMap tdo,
           const float* __restrict__ lse, const float* __restrict__ delta,
           bf16* __restrict__ dq, int H, int sq, int sk, float scale,
-          int causal) {
-  constexpr int LD = D + 8;
-  constexpr int NJ = kDqBK / 8;   // n8 tiles of S and dP
-  constexpr int NH = D / 16;      // n8 tiles of a warp's half of dQ
+          int causal, GridOrder order) {
+  using L = DqSmem<D>;
+  constexpr int NA = D / 4;  // dQ's accumulators a thread: half of D
   extern __shared__ float4 smem4[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem4);  // [64][LD]
-  bf16* sdO = sQ + kDqBQ * LD;                 // [64][LD]
-  bf16* sK = sdO + kDqBQ * LD;                 // [2][64][LD]
-  bf16* sV = sK + 2 * kDqBK * LD;              // [64][LD]
-  float* xp = reinterpret_cast<float*>(sV + kDqBK * LD);
-  uint32_t* xs = reinterpret_cast<uint32_t*>(xp + 4 * NJ * 4 * 32);
+  const uint32_t base = aligned_base(smem4);
+  char* const base_ptr = reinterpret_cast<char*>(smem4) +
+                         (base - sm90::smem_u32(smem4));
+  float4* const sP = reinterpret_cast<float4*>(base_ptr + L::kP);
+  const uint32_t full_qdo = base + L::kBar;
+  // the rings: tile kt of K in stage kt % kDqKStages, of V kt % kDqVStages
+  const auto full_k = [&](int kt) {
+    return full_qdo + 8 * (1 + kt % kDqKStages);
+  };
+  const auto empty_k = [&](int kt) { return full_k(kt) + 8 * kDqKStages; };
+  const auto full_v = [&](int kt) {
+    return full_qdo + 8 * (1 + 2 * kDqKStages + kt % kDqVStages);
+  };
+  const auto empty_v = [&](int kt) { return full_v(kt) + 8 * kDqVStages; };
+  const auto phase_k = [&](int kt) {
+    return (uint32_t)(kt / kDqKStages) & 1;
+  };
+  const auto phase_v = [&](int kt) {
+    return (uint32_t)(kt / kDqVStages) & 1;
+  };
 
-  const int bh = blockIdx.x;
+  int bh, level;
+  order.at(blockIdx.x, bh, level);
   const int b = bh / H;
   const int hd = bh - b * H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kDqBQ;  // heaviest first
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int pair = warp & 3, role = warp >> 2;
-  const int r_lo = 16 * pair + g;
+  // level 0 is the last query tile, the heaviest
+  const int q0 = (order.levels - 1 - level) * kDqBQ;
   const int q_off = sk - sq;
-  const long stride = (long)H * D;
-  const long head = ((long)b * sq * H + hd) * D;
-  const bf16* kb = k + ((long)b * sk * H + hd) * D;
-  const bf16* vb = v + ((long)b * sk * H + hd) * D;
+  // causal needs sq <= sk, so every block sees at least one key tile
+  const int n_tiles = causal
+                          ? min(sk - 1, q0 + kDqBQ - 1 + q_off) / kDqBK + 1
+                          : (sk + kDqBK - 1) / kDqBK;
+  if (threadIdx.x == 0) {
+    sm90::bar_init(full_qdo, 1);
+    for (int s = 0; s < kDqKStages; ++s) {
+      sm90::bar_init(full_k(s), 1);
+      sm90::bar_init(empty_k(s), 8);  // each consumer warp once
+    }
+    for (int s = 0; s < kDqVStages; ++s) {
+      sm90::bar_init(full_v(s), 1);
+      sm90::bar_init(empty_v(s), 4);  // consumer 1's warps
+    }
+    sm90::bar_init_fence();
+  }
+  __syncthreads();
 
-  int n_tiles = (sk + kDqBK - 1) / kDqBK;
-  if (causal) n_tiles = min(sk - 1, q0 + kDqBQ - 1 + q_off) / kDqBK + 1;
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  if (wg == 0) {
+    // the producer: warp 0's first lane loads Q and dO once and the K
+    // ring, warp 1's the V ring (K is released when both halves of dS K
+    // are done, V when dP is)
+    sm90::regs_dec<kProducerRegs>();
+    if (lane == 0 && warp == 0) {
+      sm90::bar_expect_tx(full_qdo, 2 * L::kTile);
+      load_tile<D>(base + L::kQ, &tq, full_qdo, q0, hd, b);
+      load_tile<D>(base + L::kDo, &tdo, full_qdo, q0, hd, b);
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        sm90::bar_wait(empty_k(kt), phase_k(kt) ^ 1);
+        sm90::bar_expect_tx(full_k(kt), L::kTile);
+        load_tile<D>(base + L::kK + kt % kDqKStages * L::kTile, &tk,
+                     full_k(kt), kt * kDqBK, hd, b);
+      }
+    } else if (lane == 0 && warp == 1) {
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        sm90::bar_wait(empty_v(kt), phase_v(kt) ^ 1);
+        sm90::bar_expect_tx(full_v(kt), L::kTile);
+        load_tile<D>(base + L::kV + kt % kDqVStages * L::kTile, &tv,
+                     full_v(kt), kt * kDqBK, hd, b);
+      }
+    }
+    return;
+  }
 
-  copy_rows<kDqBQ, D, kBwdThreads>(sQ, q + head, q0, sq, stride);
-  copy_rows<kDqBQ, D, kBwdThreads>(sdO, dout + head, q0, sq, stride);
-  copy_rows<kDqBK, D, kBwdThreads>(sK, kb, 0, sk, stride);
-  copy_rows<kDqBK, D, kBwdThreads>(sV, vb, 0, sk, stride);
-  commit();
-
-  // the lane's rows' lse and delta; a row past sq gets p = 0
-  float lr[2], dr[2];
+  // the consumers: the block's 64 query rows, warp w their rows 16 w ..
+  // 16 w + 15; consumer c accumulates dQ's columns c D / 2 .. c D / 2 +
+  // D / 2 - 1
+  sm90::regs_inc<kConsumerRegs>();
+  const int c = wg - 1;
+  const int tid = threadIdx.x & 127;
+  const int g = lane >> 2, t = lane & 3;
+  const int r_lo = 16 * warp + g;  // the thread's rows q0 + r_lo (+ 8)
+  const uint32_t sS = base + L::kS;
+  const auto sK = [&](int kt) {
+    return base + L::kK + (kt % kDqKStages) * L::kTile;
+  };
+  const auto sV = [&](int kt) {
+    return base + L::kV + (kt % kDqVStages) * L::kTile;
+  };
+  const auto release = [&](uint32_t mbar) {
+    __syncwarp();
+    if (lane == 0) sm90::bar_arrive(mbar);
+  };
+  const uint32_t half = c * L::kHalf;
+  float acc[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) acc[i] = 0.f;
+  // the rows' lse log2(e) (consumer 0) or delta (consumer 1); a row past
+  // sq gets p = 0
+  float rv[2];
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int row = q0 + r_lo + 8 * hr;
-    lr[hr] = row < sq ? lse[(long)bh * sq + row] : INFINITY;
-    dr[hr] = row < sq ? delta[(long)bh * sq + row] : 0.f;
+    rv[hr] = row >= sq ? (c == 0 ? INFINITY : 0.f)
+                       : (c == 0 ? lse[(long)bh * sq + row] * kLog2e
+                                 : delta[(long)bh * sq + row]);
   }
-  float acc[NH][4];
-#pragma unroll
-  for (int n = 0; n < NH; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  sm90::bar_wait(full_qdo, 0);
 
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kDqBK;
-    const bf16* sKt = sK + (kt & 1) * kDqBK * LD;
-    wait_prior<0>();  // this thread's copies of K and V have landed
-    __syncthreads();  // everyone's; dS K of the last tile is done
-    if (kt + 1 < n_tiles)
-      copy_rows<kDqBK, D, kBwdThreads>(sK + ((kt + 1) & 1) * kDqBK * LD, kb,
-                                       k0 + kDqBK, sk, stride);
-    commit();
-
-    // role 0: S = Q K^T; role 1: dP = dO V^T
-    float s[NJ][4];
-    row_products<D, NJ>(s, (role == 0 ? sQ : sdO) + r_lo * LD,
-                        role == 0 ? sKt : sV, g, t);
-    if (role == 0) {
+  if (c == 0) {
+    // S = Q K^T, p; dS K[:, :D / 2] from the dS tile
+    const float scale2 = scale * kLog2e;
+    const int qpos = q0 + r_lo + q_off;
+    const uint32_t sQ = base + L::kQ;
+    float sc[32];  // S, then p
+    // p of tile kt into sc and across to consumer 1 (once it has read the
+    // last tile's), masked only where a key is past sk or past the
+    // diagonal of the block's first row
+    const auto probs = [&](int kt) {
+      const int k0 = kt * kDqBK;
+      if (k0 + kDqBK > sk || (causal && k0 + kDqBK - 1 > q0 + q_off))
+        dq_probs<true>(sc, rv, qpos, k0, t, sk, causal, scale2);
+      else
+        dq_probs<false>(sc, rv, qpos, k0, t, sk, causal, scale2);
+      if (kt > 0) sm90::named_sync(kDqPFree, 256);
 #pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qpos = q0 + r_lo + 8 * (e >> 1) + q_off;
-          const int kpos = k0 + 8 * j + 2 * t + (e & 1);
-          float p = 0.f;
-          if (kpos < sk) {
-            float x = s[j][e] * scale;
-            if (causal && kpos > qpos) x = ptt::kMaskValue;
-            p = expf(x - lr[e >> 1]);
-          }
-          *xp_at<NJ>(xp, pair, j, e, lane) = p;
-        }
+      for (int j = 0; j < 8; ++j)
+        sP[j * 128 + tid] = make_float4(sc[4 * j], sc[4 * j + 1],
+                                        sc[4 * j + 2], sc[4 * j + 3]);
+      sm90::named_arrive(kDqPReady, 256);
+    };
+    sm90::bar_wait(full_k(0), 0);
+    start_qk<D>(sc, sQ, sK(0));
+    sm90::wg_wait<0>();
+    sm90::fence_operands(sc);
+    probs(0);
+    // S of tile kt + 1 started before dS K of tile kt, so that its p is
+    // formed under dS K
+    for (int kt = 0; kt + 1 < n_tiles; ++kt) {
+      sm90::bar_wait(full_k(kt + 1), phase_k(kt + 1));
+      start_qk<D>(sc, sQ, sK(kt + 1));
+      sm90::named_sync(kDqSReady, 256);
+      start_dsk<D>(acc, sS, sK(kt));
+      sm90::wg_wait<1>();  // S of tile kt + 1
+      sm90::fence_operands(sc);
+      probs(kt + 1);
+      sm90::wg_wait<0>();  // dS K of tile kt
+      sm90::fence_operands(acc);
+      sm90::named_arrive(kDqSFree, 256);
+      release(empty_k(kt));
     }
-    __syncthreads();  // p is across; dO V^T is done with V
-    if (kt + 1 < n_tiles)
-      copy_rows<kDqBK, D, kBwdThreads>(sV, vb, k0 + kDqBK, sk, stride);
-    commit();
-    if (role == 1) {
+    const int last = n_tiles - 1;
+    sm90::named_sync(kDqSReady, 256);
+    start_dsk<D>(acc, sS, sK(last));
+    sm90::wg_wait<0>();
+    sm90::fence_operands(acc);
+    release(empty_k(last));
+  } else {
+    // dP = dO V^T, dS; dS K[:, D / 2:] from registers
+    const uint32_t sDo = base + L::kDo;
+    char* const sS_ptr = base_ptr + L::kS;
+    float dp[32];        // dP, then dS
+    uint32_t da[4][4];   // dS, bf16, as dS K's A
+    // dS of a tile from dP in dp and p across from consumer 0; the last
+    // tile's p is not followed by another
+    const auto grads = [&](bool more) {
+      sm90::named_sync(kDqPReady, 256);
 #pragma unroll
-      for (int j = 0; j < NJ; ++j)
+      for (int j = 0; j < 8; ++j) {
+        const float4 p = sP[j * 128 + tid];
+        const float pe[4] = {p.x, p.y, p.z, p.w};
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          s[j][e] = *xp_at<NJ>(xp, pair, j, e, lane) *
-                    (s[j][e] - dr[e >> 1]) * scale;
-#pragma unroll
-      for (int kk = 0; kk < NJ / 2; ++kk) {
-        uint32_t a[4];
-        a_from_c<NJ>(a, s, kk);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) *xs_at<NJ>(xs, pair, kk, r, lane) = a[r];
+          dp[4 * j + e] = pe[e] * (dp[4 * j + e] - rv[e >> 1]) * scale;
       }
-    }
-    __syncthreads();  // dS is across
-
-    // dQ[:, role's half] += dS K
+      if (more) sm90::named_arrive(kDqPFree, 256);
+    };
+    // dS rounded to bf16 as A fragments and into the dS tile (K-major,
+    // the 128-byte swizzle: row r's chunk j at chunk j ^ (r % 8)), once
+    // consumer 0's dS K has read the last tile's
+    const auto hand_over = [&](int kt) {
 #pragma unroll
-    for (int kk = 0; kk < NJ / 2; ++kk) {
-      uint32_t a[4];
+      for (int kk = 0; kk < 4; ++kk) pack_a(da[kk], dp, kk);
+      if (kt > 0) sm90::named_sync(kDqSFree, 256);
 #pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = *xs_at<NJ>(xs, pair, kk, r, lane);
-      col_products<D, NH>(acc, a, sKt + 16 * kk * LD + role * (D / 2), g, t);
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int row = r_lo + 8 * (r & 1), chunk = 2 * kk + (r >> 1);
+          *reinterpret_cast<uint32_t*>(sS_ptr + row * 128 +
+                                       ((chunk ^ (row & 7)) << 4) + 4 * t) =
+              da[kk][r];
+        }
+      sm90::fence_proxy_async();
+      sm90::named_arrive(kDqSReady, 256);
+    };
+    const auto start_dp = [&](int kt) {
+      sm90::wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        sm90::wgmma_ss_n64<0>(dp, sm90::desc_k(sDo, ks),
+                              sm90::desc_k(sV(kt), ks), ks > 0);
+      sm90::wg_commit();
+    };
+    sm90::bar_wait(full_v(0), 0);
+    start_dp(0);
+    sm90::wg_wait<0>();
+    sm90::fence_operands(dp);
+    release(empty_v(0));
+    grads(n_tiles > 1);
+    hand_over(0);
+    // dP of tile kt + 1 started before dS K of tile kt, so that its dS is
+    // formed under dS K
+    for (int kt = 0; kt + 1 < n_tiles; ++kt) {
+      sm90::bar_wait(full_v(kt + 1), phase_v(kt + 1));
+      start_dp(kt + 1);
+      start_dsk<D>(acc, da, sK(kt) + half);
+      sm90::wg_wait<1>();  // dP of tile kt + 1
+      sm90::fence_operands(dp);
+      release(empty_v(kt + 1));
+      grads(kt + 2 < n_tiles);
+      sm90::wg_wait<0>();  // dS K of tile kt
+      sm90::fence_operands(acc);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) sm90::fence_operands(da[kk]);
+      release(empty_k(kt));
+      hand_over(kt + 1);
     }
+    const int last = n_tiles - 1;
+    start_dsk<D>(acc, da, sK(last) + half);
+    sm90::wg_wait<0>();
+    sm90::fence_operands(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) sm90::fence_operands(da[kk]);
+    release(empty_k(last));
   }
-  wait_prior<0>();
 
+  // dQ rounded to bf16, the consumer's half of each row; rows past sq are
+  // not written
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int row = q0 + r_lo + 8 * hr;
     if (row >= sq) continue;
-    bf16* drow = dq + head + row * stride + role * (D / 2) + 2 * t;
+    bf16* drow = dq + (((long)b * sq + row) * H + hd) * D + c * (D / 2) + 2 * t;
 #pragma unroll
-    for (int n = 0; n < NH; ++n)
+    for (int n = 0; n < D / 16; ++n)
       *reinterpret_cast<uint32_t*>(drow + 8 * n) =
-          pack2(acc[n][2 * hr], acc[n][2 * hr + 1]);
+          pack2(acc[4 * n + 2 * hr], acc[4 * n + 2 * hr + 1]);
   }
 }
 
@@ -1017,12 +1107,18 @@ template <int D>
 int launch_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
               const float* lse, const float* delta, bf16* dq, int B, int H,
               int sq, int sk, float scale, int causal, cudaStream_t stream) {
-  const size_t smem = dq_smem_bytes<D>();
-  const int err = set_smem(flash_bf16_dq_kernel<D>, smem);
+  CUtensorMap tq, tk, tv, tdo;
+  int err = sm90::encode_bshd(&tq, q, B, sq, H, D, 64);
+  if (!err) err = sm90::encode_bshd(&tk, k, B, sk, H, D, 64);
+  if (!err) err = sm90::encode_bshd(&tv, v, B, sk, H, D, 64);
+  if (!err) err = sm90::encode_bshd(&tdo, dout, B, sq, H, D, 64);
+  if (!err) err = set_smem(flash_bf16_dq_kernel<D>, DqSmem<D>::kBytes);
   if (err) return err;
-  const dim3 grid(B * H, (sq + kDqBQ - 1) / kDqBQ);
-  flash_bf16_dq_kernel<D><<<grid, kBwdThreads, smem, stream>>>(
-      q, k, v, dout, lse, delta, dq, H, sq, sk, scale, causal);
+  const GridOrder order = grid_order(B * H, (sq + kDqBQ - 1) / kDqBQ,
+                                     4l * sk * D);
+  flash_bf16_dq_kernel<D><<<B * H * order.levels, kWsThreads,
+                            DqSmem<D>::kBytes, stream>>>(
+      tq, tk, tv, tdo, lse, delta, dq, H, sq, sk, scale, causal, order);
   return (int)cudaGetLastError();
 }
 

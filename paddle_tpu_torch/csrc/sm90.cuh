@@ -13,14 +13,17 @@
 // descriptor (desc_k, desc_mn below) in either of its orientations:
 //
 // * K-major, the dot-product axis along the row (Q and K in Q K^T; K and
-//   Q in K Q^T; V and dO in V dO^T): rows 8 apart are 1024 bytes apart
+//   Q in K Q^T; V and dO in V dO^T; dS as the A of dS K): rows 8 apart
+//   are 1024 bytes apart
 //   (the stride byte offset); a k16 step is 32 bytes into the row, and
 //   every fourth step starts the next box;
 // * MN-major, the dot-product axis down the rows (V in P V, dO in P^T dO,
-//   Q in dS^T Q; the transpose bit of B set): a k16 step is 16 rows, 2048
-//   bytes, further down; N runs along the rows, 64 values to a box, so
-//   the leading byte offset is the box's size, and 8 rows are 1024 bytes
-//   (the stride byte offset).
+//   Q in dS^T Q, K in dS K; the transpose bit of B set): a k16 step is 16
+//   rows, 2048 bytes, further down; N runs along the rows, 64 values to a
+//   box, so the leading byte offset is the box's size, and 8 rows are 1024
+//   bytes (the stride byte offset). A B of N = 32 starting half a row into
+//   its box (dS K's second half at D = 64) is read the same way: the
+//   swizzle is a function of the address, whose bits 7-9 stay the row's.
 //
 // The accumulators of m64nNk16 are float32, N / 2 a thread: warp w of the
 // warpgroup holds rows 16 w .. 16 w + 15 in the m16n8 C layout of
@@ -196,6 +199,51 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
         : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
 }
 
+// d (+)= a b over one m64n32k16 step, both operands by their descriptors.
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, %19;\n}\n"
+        : SM90_F8(d, 0), SM90_F8(d, 8)
+        : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
+}
+
+// d (+)= a b over one m64n128k16 step, both operands by their descriptors.
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+        : SM90_F8(d, 0), SM90_F8(d, 8), SM90_F8(d, 16), SM90_F8(d, 24),
+          SM90_F8(d, 32), SM90_F8(d, 40), SM90_F8(d, 48), SM90_F8(d, 56)
+        : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
+}
+
+// d (+)= a b over one m64n32k16 step: a from registers (the A fragments of
+// the warp's 16 rows), b by its descriptor; accumulate selects d + a b.
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : SM90_F8(d, 0), SM90_F8(d, 8)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
+          "n"(TB));
+}
+
 // d (+)= a b over one m64n64k16 step: a from registers (the A fragments of
 // the warp's 16 rows), b by its descriptor; accumulate selects d + a b.
 template <int TB>
@@ -330,12 +378,28 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int ks) {
   return make_desc(tile + ks * 2048, kBoxBytes, 1024);
 }
 
-// d (+)= a b over one m64nNk16 step, a from registers, N = 64, 128 or 256.
+// d (+)= a b over one m64nNk16 step, both operands by their descriptors,
+// N = 32, 64 or 128.
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  if constexpr (N == 32)
+    wgmma_ss_n32<TB>(d, da, db, accumulate);
+  else if constexpr (N == 64)
+    wgmma_ss_n64<TB>(d, da, db, accumulate);
+  else
+    wgmma_ss_n128<TB>(d, da, db, accumulate);
+}
+
+// d (+)= a b over one m64nNk16 step, a from registers, N = 32, 64, 128 or
+// 256.
 template <int N, int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db,
                                          int accumulate) {
-  if constexpr (N == 64)
+  if constexpr (N == 32)
+    wgmma_rs_n32<TB>(d, a, db, accumulate);
+  else if constexpr (N == 64)
     wgmma_rs_n64<TB>(d, a, db, accumulate);
   else if constexpr (N == 128)
     wgmma_rs_n128<TB>(d, a, db, accumulate);

@@ -4,16 +4,14 @@ sees them.
 
 The harness of ``scripts/emulate_flash_bwd_cpu.py``: a copy of the source
 and of ``common.cuh`` and ``sm90.cuh``, rewritten for g++ (threads for a
-block's threads, ``gridDim`` set by each launch, a per-thread queue of
-copies that lands at ``wait_group``, shared memory filled with 0xff bytes,
-a NaN in bf16 and in float32, so that a read before its copy lands
-shows). The source's block of copy, conversion and mma helpers is
-replaced: ``mma.sync`` m16n8k16 bf16 becomes an exchange of the warp's
-fragments through a per-warp barrier (PTX's fragment layouts) whose
-products are summed in double and rounded to float32, ``cvt.rn.bf16x2.f32``
-a round to nearest even on the bits, the xor shuffle an exchange through
-the same barrier. ``sm90.cuh``'s block of PTX is replaced by models of
-Hopper's units, and its descriptor arithmetic kept:
+block's threads, ``gridDim`` set by each launch, shared memory filled
+with 0xff bytes, a NaN in bf16 and in float32, so that a read before its
+tile lands shows). The source's block of conversions, shuffles and
+exponentials is replaced: ``cvt.rn.bf16x2.f32`` becomes a round to
+nearest even on the bits, the xor shuffle an exchange through a per-warp
+barrier, ``ex2.approx`` exp2 with subnormal results flushed to 0.
+``sm90.cuh``'s block of PTX is replaced by models of Hopper's units, and
+its descriptor arithmetic kept:
 
 * shared addresses are offsets from the 1024-byte boundary below the
   block's dynamic shared memory (which starts past it, as nothing promises
@@ -28,31 +26,34 @@ Hopper's units, and its descriptor arithmetic kept:
   in, a wait on parity p returns once the phase of parity p is over, and
   an arrival beyond the count or bytes beyond those announced abort;
 * named barriers count their threads by generation;
-* a ``wgmma.mma_async`` is held until the ``wait_group`` that retires its
-  group: then each thread computes its own accumulators, reading A from
-  the warpgroup's registers as they were when the product started (RS)
-  or through its descriptor (SS), and B through its descriptor, each
-  element's address decoded as the PTX ISA lays out the canonical K-major
-  and MN-major layouts with the 128-byte swizzle, products summed in
-  double; so accumulators read before their wait, or a tile released
+* a ``wgmma.mma_async`` (SS or RS, m64nNk16 for N = 32 to 256) is held
+  until the ``wait_group`` that retires its group: then each thread
+  computes its own accumulators, reading A from the warpgroup's
+  registers as they were when the product started (RS) or through its
+  descriptor (SS), and B through its descriptor, each element's address
+  decoded as the PTX ISA lays out the canonical K-major and MN-major
+  layouts with the 128-byte swizzle, products summed in double; so
+  accumulators read before their wait, or a tile released or rewritten
   before the products that read it retire, show;
-* ``setmaxnreg``, ``wgmma.fence`` and the proxy fence do nothing;
+* ``setmaxnreg``, ``wgmma.fence`` and the proxy fence do nothing (so a
+  missing ``fence.proxy.async`` between generic stores and the wgmma
+  that reads them, as dQ's dS tile, shows only on the card);
 * the grids' L2 budget is 150,000 bytes, so that their groups of heads
   hold one or two heads at the shapes emulated.
 
-The models run the kernels' order of events, not the card's timing: TMA
-lands at once, and threads interleave as the host schedules them.
-
-Two libraries are built with ``g++ -std=c++20`` into
-``paddle_tpu_torch/_build/``: one whose copies land at ``wait_group``, one
-whose copies land as they start (a copy started before its buffer's last
-reader is done then shows). The entry points are called through
-``ctypes`` on CPU tensors at each B,Sq,Sk,H,D,causal given, bf16 inputs
-from a seed, the backward from the plain forward's O and lse: the largest
-share of the kernels' limits (2^-7 max|plain| + 2^-7 |plain| for O, dQ,
-dK and dV; 1e-4 for lse) against the plain versions, whether a second
-call gives the same bits, and whether both landings do. Exits 1 if any
-shape misses.
+The models run the kernels' order of events, not the card's timing:
+threads interleave as the host schedules them. Two libraries are built
+with ``g++ -std=c++20`` into ``paddle_tpu_torch/_build/``: one whose TMA
+loads land at the first wait on their mbarrier (a tile read without that
+wait then holds the 0xff fill or an older tile), one whose loads land as
+they start (a tile reloaded before the products that read it retire
+then shows). The entry points are called through ``ctypes`` on CPU
+tensors at each B,Sq,Sk,H,D,causal given, bf16 inputs from a seed, the
+backward from the plain forward's O and lse: the largest share of the
+kernels' limits (2^-7 max|plain| + 2^-7 |plain| for O, dQ, dK and dV;
+1e-4 for lse) against the plain versions, whether a second call gives
+the same bits, and whether both landings do. Exits 1 if any shape
+misses.
 
     python scripts/emulate_flash_bf16_cpu.py 1,128,128,2,64,1 1,129,129,2,256,1
 """
@@ -80,24 +81,7 @@ HEADERS = ("common.cuh", "sm90.cuh")
 BF16_REL = 2.0 ** -7
 LSE_TOL = 1e-4
 
-HELPERS = r"""// ---- asynchronous copies, conversions and the tensor-core product (emulated)
-__device__ __forceinline__ void copy16(bf16* dst, const bf16* src, bool ok) {
-#ifdef EMU_EAGER
-  std::memset(dst, 0, 16);
-  if (ok) std::memcpy(dst, src, 16);
-#else
-  emu_open.push_back({reinterpret_cast<float*>(dst),
-                      reinterpret_cast<const float*>(src), 16, ok ? 16 : 0});
-#endif
-}
-__device__ __forceinline__ void commit() {
-  emu_groups.push_back(std::move(emu_open));
-  emu_open.clear();
-}
-template <int N>
-__device__ __forceinline__ void wait_prior() {
-  emu_land(N);
-}
+HELPERS = r"""// ---- conversions, shuffles and exponentials (emulated)
 inline uint32_t emu_bf16(float x) {
   const uint32_t u = __float_as_uint(x);
   if ((u & 0x7fffffffu) > 0x7f800000u) return (u >> 16) | 0x40u;
@@ -105,37 +89,6 @@ inline uint32_t emu_bf16(float x) {
 }
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   return emu_bf16(lo) | emu_bf16(hi) << 16;
-}
-inline float emu_half(uint32_t reg, int half) {
-  return __uint_as_float(((reg >> (16 * half)) & 0xffffu) << 16);
-}
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  const int lane = threadIdx.x & 31;
-  EmuWarp& W = emu_warps[threadIdx.x >> 5];
-  for (int i = 0; i < 4; ++i) W.a[lane][i] = a[i];
-  W.b[lane][0] = b0;
-  W.b[lane][1] = b1;
-  W.bar->arrive_and_wait();
-  const int g = lane >> 2, t = lane & 3;
-  float out[4];
-  for (int i = 0; i < 4; ++i) {
-    const int r = g + 8 * (i >> 1), n = 2 * t + (i & 1);
-    double s = d[i];
-    for (int k = 0; k < 16; ++k) {
-      const double av = emu_half(
-          W.a[4 * (r & 7) + ((k & 7) >> 1)][(r >> 3) + 2 * (k >> 3)], k & 1);
-      const double bv = emu_half(W.b[4 * n + ((k & 7) >> 1)][k >> 3], k & 1);
-      s += av * bv;
-    }
-    out[i] = (float)s;
-  }
-  W.bar->arrive_and_wait();
-  for (int i = 0; i < 4; ++i) d[i] = out[i];
-}
-__device__ __forceinline__ float ex2(float x) {
-  const float r = std::exp2(x);
-  return std::fpclassify(r) == FP_SUBNORMAL ? 0.f : r;
 }
 __device__ __forceinline__ float shfl_xor(float x, int m) {
   const int lane = threadIdx.x & 31;
@@ -145,6 +98,10 @@ __device__ __forceinline__ float shfl_xor(float x, int m) {
   const float r = W.c[lane ^ m][0];
   W.bar->arrive_and_wait();
   return r;
+}
+__device__ __forceinline__ float ex2(float x) {
+  const float r = std::exp2(x);
+  return std::fpclassify(r) == FP_SUBNORMAL ? 0.f : r;
 }
 """
 
@@ -215,14 +172,6 @@ inline void bar_arrive(uint32_t bar) { emu_bar_arrival(bar, 0); }
 inline void bar_expect_tx(uint32_t bar, uint32_t bytes) {
   emu_bar_arrival(bar, bytes);
 }
-inline bool bar_try_wait(uint32_t bar, uint32_t parity) {
-  std::lock_guard<std::mutex> lk(emu_mu);
-  return emu_bar(bar).phase != parity;
-}
-inline void bar_wait(uint32_t bar, uint32_t parity) {
-  std::unique_lock<std::mutex> lk(emu_mu);
-  emu_cv.wait(lk, [&] { return emu_bar(bar).phase != parity; });
-}
 inline void fence_proxy_async() {}
 
 struct EmuNamed { int count = 0; unsigned gen = 0; };
@@ -247,12 +196,10 @@ inline void named_arrive(int id, int threads) {
 }
 
 // the box at (c0, c1, c2, c3), innermost first, zeros past any dimension's
-// end, written densely from dst with the 128-byte swizzle
-inline void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                        int c0, int c1, int c2, int c3) {
-  if (dst % 1024) emu_fail("a swizzled TMA box not on 1024 bytes");
-  const int c[4] = {c0, c1, c2, c3};
-  const uint32_t* box = map->box;
+// end, written densely from dst with the 128-byte swizzle; returns its bytes
+inline uint32_t emu_tma_copy(uint32_t dst, const CUtensorMap& map,
+                             const int (&c)[4]) {
+  const uint32_t* box = map.box;
   uint32_t off = 0;
   for (uint32_t i3 = 0; i3 < box[3]; ++i3)
     for (uint32_t i2 = 0; i2 < box[2]; ++i2)
@@ -264,16 +211,58 @@ inline void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
           bool in = true;
           int64_t src = 0;
           for (int d = 0; d < 4; ++d) {
-            in = in && x[d] >= 0 && x[d] < (int64_t)map->dims[d];
-            src += x[d] * (int64_t)map->strides[d];
+            in = in && x[d] >= 0 && x[d] < (int64_t)map.dims[d];
+            src += x[d] * (int64_t)map.strides[d];
           }
-          if (in) std::memcpy(&v, map->base + src, 2);
+          if (in) std::memcpy(&v, map.base + src, 2);
           std::memcpy(emu_window() + emu_swizzle(dst + off), &v, 2);
         }
+  return off;
+}
+// a box load in flight: it lands (its bytes written and completed on its
+// mbarrier) at the first wait on that mbarrier, or at once (EMU_EAGER)
+struct EmuTma {
+  uint32_t dst;
+  CUtensorMap map;
+  int c[4];
+  uint32_t bar;
+};
+inline std::vector<EmuTma> emu_tma_queue;
+// with emu_mu held
+inline void emu_tma_land(uint32_t bar) {
+  for (size_t i = 0; i < emu_tma_queue.size();) {
+    if (emu_tma_queue[i].bar != bar) {
+      ++i;
+      continue;
+    }
+    const EmuTma op = emu_tma_queue[i];
+    emu_tma_queue.erase(emu_tma_queue.begin() + i);
+    EmuBar& b = emu_bar(bar);
+    b.tx -= emu_tma_copy(op.dst, op.map, op.c);
+    emu_bar_step(b);
+  }
+}
+inline void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                        int c0, int c1, int c2, int c3) {
+  if (dst % 1024) emu_fail("a swizzled TMA box not on 1024 bytes");
   std::lock_guard<std::mutex> lk(emu_mu);
-  EmuBar& b = emu_bar(bar);
-  b.tx -= off;
-  emu_bar_step(b);
+  emu_tma_queue.push_back({dst, *map, {c0, c1, c2, c3}, bar});
+#ifdef EMU_EAGER
+  emu_tma_land(bar);
+#endif
+  emu_cv.notify_all();
+}
+inline bool bar_try_wait(uint32_t bar, uint32_t parity) {
+  std::lock_guard<std::mutex> lk(emu_mu);
+  emu_tma_land(bar);
+  return emu_bar(bar).phase != parity;
+}
+inline void bar_wait(uint32_t bar, uint32_t parity) {
+  std::unique_lock<std::mutex> lk(emu_mu);
+  emu_cv.wait(lk, [&] {
+    emu_tma_land(bar);
+    return emu_bar(bar).phase != parity;
+  });
 }
 
 // the box at src (swizzled) to its coordinates, those past a
@@ -384,10 +373,24 @@ inline void wg_wait() {
 template <int N>
 inline void fence_operands(float (&)[N]) {}
 inline void fence_operands(uint32_t (&)[4]) {}
+template <int N, int TB>
+inline void emu_wgmma_ss(float* d, uint64_t da, uint64_t db, int accumulate) {
+  emu_wg_open.push_back({d, N, TB, accumulate, false, da, db, 0});
+}
+template <int TB>
+inline void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
+                         int accumulate) {
+  emu_wgmma_ss<32, TB>(d, da, db, accumulate);
+}
 template <int TB>
 inline void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
                          int accumulate) {
-  emu_wg_open.push_back({d, 64, TB, accumulate, false, da, db, 0});
+  emu_wgmma_ss<64, TB>(d, da, db, accumulate);
+}
+template <int TB>
+inline void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                          int accumulate) {
+  emu_wgmma_ss<128, TB>(d, da, db, accumulate);
 }
 template <int N, int TB>
 inline void emu_wgmma_rs(float* d, const uint32_t (&a)[4], uint64_t db,
@@ -396,6 +399,11 @@ inline void emu_wgmma_rs(float* d, const uint32_t (&a)[4], uint64_t db,
   for (int r = 0; r < 4; ++r)
     emu_wg_a[threadIdx.x / 128][slot][threadIdx.x % 128][r] = a[r];
   emu_wg_open.push_back({d, N, TB, accumulate, true, 0, db, slot});
+}
+template <int TB>
+inline void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
+                         int accumulate) {
+  emu_wgmma_rs<32, TB>(d, a, db, accumulate);
 }
 template <int TB>
 inline void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
@@ -434,8 +442,8 @@ def rewrite(name: str) -> str:
     text = (build.CSRC / name).read_text()
     text = text.replace("#include <cuda_runtime.h>\n",
                         '#include "flash_emu.h"\n')
-    blocks = {SOURCE: ("// ---- asynchronous copies, conversions and the "
-                       "bf16 tensor-core product", HELPERS),
+    blocks = {SOURCE: ("// ---- conversions, shuffles and exponentials",
+                       HELPERS),
               "sm90.cuh": ("// ---- Hopper's asynchronous units",
                            SM90_HELPERS)}
     if name in blocks:
@@ -544,7 +552,7 @@ def case(libs, b, sq, sk, h, d, causal):
     print(f"B {b}, Sq {sq}, Sk {sk}, H {h}, D {d}, causal {causal}: largest "
           f"share of the limit O {shares[0]:.4f}, lse {shares[1]:.4f}, dQ "
           f"{shares[2]:.4f}, dK {shares[3]:.4f}, dV {shares[4]:.4f}; a second "
-          f"call the same bits {same[0]}; copies landing at once the same "
+          f"call the same bits {same[0]}; TMA landing at once the same "
           f"bits {same[1]}", flush=True)
     return max(shares) <= 1 and all(same)
 

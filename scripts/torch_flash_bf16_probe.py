@@ -5,16 +5,17 @@ Builds ``paddle_tpu_torch/csrc/flash_attention_bf16.cu`` of this tree
 and, with ``--parent DIR``, of another tree (DIR holds its
 ``paddle_tpu_torch/csrc``; e.g. the parent unpacked by ``git archive``),
 prints each build's registers and spills (ptxas) and, for this tree, how
-many HGMMA (wgmma) instructions each kernel's SASS holds (cuobjdump), and
-whether dQ's SASS is the other tree's, function by function. Then, at H 8,
-D 256, causal and each (B, S) of SHAPES (chip_smoke.py's
-FLASH_BF16_SHAPES), for each of the forward, dQ and dK/dV:
+many HGMMA (wgmma) and HMMA (mma.sync) instructions each kernel's SASS
+holds (cuobjdump), and whether the forward's and dK/dV's SASS is the
+other tree's, function by function. Then, at H 8, D 256, causal and each
+(B, S) of SHAPES (chip_smoke.py's FLASH_BF16_SHAPES), for each of the
+forward, dQ and dK/dV:
 
 * this tree's outputs against the plain versions (bf16 outputs within
   2^-7 max|plain| + 2^-7 |plain|, lse within 1e-4, as phase 3 holds
   them), and two calls bit-identical;
-* with ``--parent``, whether dQ's outputs are the other tree's, bit for
-  bit;
+* with ``--parent``, whether the forward's and dK/dV's outputs are the
+  other tree's, bit for bit;
 * each build's time by CUDA events, in turns (this tree, the other, the
   other, this tree), its bf16 rate (2 D operations a product per visible
   (query, key) pair: two products in the forward, three in dQ, four in
@@ -28,8 +29,14 @@ Beside them, timed in the same turns, ablations of this tree's source
 (substitutions in copies; they compute nothing useful): the forward
 without its O store (``no O store``), without its softmax (``no
 softmax``: alpha 1, S packed as it is), without its P V products (``no P
-V``), and both kernels with their grids in one group of heads
-(``ungrouped``: heaviest first over all (batch, head)s).
+V``); dQ without its dS K products (``no dS K``), without p's way through
+shared memory (``no p exchange``: consumer 0 writes no p but still forms
+it, summed into a register that is stored once, consumer 1 reads none
+and forms dS from dP alone; the named barriers stay), with the rings of
+the first design, 2 K tiles and 2 V tiles (``K ring 2, V ring 2``: the
+same shared memory, K's tile reloaded a tile sooner); and the three
+kernels with their grids in one group of heads (``ungrouped``:
+heaviest first over all (batch, head)s).
 
 Run from the repository root on a machine with the CUDA toolkit:
 ``python scripts/torch_flash_bf16_probe.py [--parent DIR]``.
@@ -76,10 +83,40 @@ ABLATIONS = {
                          for m in ("true", "false")), ("fwd",)),
     "no P V": ((("    sm90::wgmma_rs<D, 1>(acc, pa[kk], "
                  "sm90::desc_mn(sV, kk), 1);", "    (void)kk;"),), ("fwd",)),
+    "no dS K": ((("    sm90::wgmma_ss<D / 2, 1>(acc, sm90::desc_k(sS, kk),\n"
+                  "                             sm90::desc_mn(sKh, kk), 1);",
+                  "    (void)kk;"),
+                 ("    sm90::wgmma_rs<D / 2, 1>(acc, da[kk], "
+                  "sm90::desc_mn(sKh, kk), 1);", "    (void)kk;")), ("dq",)),
+    "no p exchange": ((("    float sc[32];  // S, then p",
+                        "    float sc[32];  // S, then p\n    float sink = 0.f;"),
+                       ("        sP[j * 128 + tid] = make_float4(sc[4 * j], "
+                        "sc[4 * j + 1],\n"
+                        "                                        sc[4 * j + 2], "
+                        "sc[4 * j + 3]);",
+                        "        sink += sc[4 * j] + sc[4 * j + 1] + "
+                        "sc[4 * j + 2] + sc[4 * j + 3];"),
+                       ("    release(empty_k(last));\n  } else {",
+                        "    release(empty_k(last));\n    if (sink == 1.5f) "
+                        "sP[tid] = make_float4(sink, 0.f, 0.f, 0.f);\n"
+                        "  } else {"),
+                       ("          dp[4 * j + e] = pe[e] * (dp[4 * j + e] - "
+                        "rv[e >> 1]) * scale;",
+                        "          dp[4 * j + e] = (dp[4 * j + e] - "
+                        "rv[e >> 1]) * scale + 0.f * pe[e];"),
+                       ("        const float4 p = sP[j * 128 + tid];",
+                        "        const float4 p = make_float4(0.f, 0.f, 0.f, "
+                        "0.f);")), ("dq",)),
+    "K ring 2, V ring 2": ((("constexpr int kDqKStages = 3;",
+                            "constexpr int kDqKStages = 2;"),
+                           ("constexpr int kDqVStages = 1;",
+                            "constexpr int kDqVStages = 2;")), ("dq",)),
     "ungrouped": ((("constexpr long kL2Budget = 24l << 20;",
                     "constexpr long kL2Budget = 1l << 40;"),),
-                  ("fwd", "dkv")),
+                  ("fwd", "dq", "dkv")),
 }
+# the kernels that stay the parent's, SASS and outputs
+UNCHANGED = ("fwd", "dkv")
 
 
 def entry_points(lib: Path) -> dict:
@@ -95,10 +132,12 @@ def entry_points(lib: Path) -> dict:
 
 
 def hgmma_counts(lib: Path) -> str:
+    """HGMMA and HMMA instructions in each bf16 kernel's SASS."""
     funcs = ab.sass(lib)
     return "; ".join(f"{name.split('_kernel')[0].split('flash_bf16_')[-1]}"
                      f"<{name.split('ILi')[1].split('E')[0]}> "
-                     f"{text.count('HGMMA')}"
+                     f"{text.count('HGMMA')} HGMMA, "
+                     f"{text.count('HMMA')} HMMA"
                      for name, text in sorted(funcs.items())
                      if "flash_bf16_" in name)
 
@@ -128,12 +167,13 @@ def main() -> int:
         variants=variants, symbol=ENTRY["fwd"][0],
         argtypes=ENTRY["fwd"][1] + (I,) * 5 + (FL, I, P))
     libs = {name: lib for name, (_, lib) in built.items()}
-    print(f"HGMMA instructions in this tree's SASS: "
+    print(f"Tensor-core instructions in this tree's SASS: "
           f"{hgmma_counts(libs['kernel'])}")
     if "parent" in libs:
-        print(fwd_probe.same_sass((libs["parent"], libs["kernel"]),
-                                  "flash_bf16_dq_kernel"),
-              "(this tree against the parent's)")
+        for part in UNCHANGED:
+            print(fwd_probe.same_sass((libs["parent"], libs["kernel"]),
+                                      f"flash_bf16_{part}_kernel"),
+                  "(this tree against the parent's)")
     fns = {name: entry_points(lib) for name, lib in libs.items()}
     gen = torch.Generator(device="cuda").manual_seed(6)
     stream = torch.cuda.current_stream().cuda_stream
@@ -179,11 +219,12 @@ def main() -> int:
                                     / (LSE_TOL + LSE_TOL * rlse.abs())).max()))
             assert max(share) <= 1 and same, (part, share, same)
             note = ""
-            if part == "dq" and "parent" in fns:
+            if part in UNCHANGED and "parent" in fns:
                 launcher("parent", part)()
                 torch.cuda.synchronize()
-                note = (f"; the parent's dQ bit-identical "
-                        f"{bool(torch.equal(outs[part][0], first[0]))}")
+                same_parent = all(torch.equal(x, y)
+                                  for x, y in zip(outs[part], first))
+                note = f"; the parent's outputs bit-identical {same_parent}"
             checks[part] = (f"largest share of the limit "
                             f"{' / '.join(f'{x:.4f}' for x in share)}; two "
                             f"calls bit-identical {same}{note}")

@@ -8,8 +8,9 @@ them: P (for P V and P^T dO) and dS (for dS K and dS^T Q), and write O,
 dQ, dK and dV once as bf16. ``_fwd_bf16`` / ``_bwd_bf16`` repeat that
 arithmetic in float32 PyTorch on bf16 inputs made from numpy seeds: the
 forward's online softmax in the log2 domain over the key tiles the
-kernel walks (``KEY_TILE``), dK/dV's p = 2^(s scale log2 e - lse log2 e)
-and its sums over the query tiles the kernel streams
+kernel walks (``KEY_TILE``), the backward's p = 2^(s scale log2 e - lse
+log2 e) (dQ's and dK/dV's alike), dQ's sums over the key tiles its
+kernel streams (``DQ_KEY_TILE``) and dK/dV's over the query tiles
 (``DKV_QUERY_TILE``), each tile's products added in float32.
 
 Limits, as chip_smoke.py and tests/test_torch_gpu.py hold the kernels on
@@ -42,8 +43,10 @@ BF16_REL = 2.0 ** -7
 LSE_TOL = 1e-4
 LOG2E = 1.4426950408889634
 # the kernels' tiles at each head_dim (csrc/flash_attention_bf16.cu): the
-# forward's keys a tile (kFwdBK), dK/dV's query rows a tile (kDkvBQ)
+# forward's keys a tile (kFwdBK), dQ's (kDqBK), dK/dV's query rows a tile
+# (kDkvBQ)
 KEY_TILE = {64: 64, 128: 64, 256: 64}
+DQ_KEY_TILE = {64: 64, 128: 64, 256: 64}
 DKV_QUERY_TILE = {64: 64, 128: 64, 256: 64}
 
 CASES = [  # b, sq, sk, h, d, causal
@@ -53,6 +56,7 @@ CASES = [  # b, sq, sk, h, d, causal
     (1, 96, 130, 1, 256, True),    # sq < sk: bottom-right causal
     (2, 128, 128, 2, 64, False),
     (1, 200, 200, 2, 256, True),   # 200: a second block half empty
+    (1, 90, 256, 2, 256, True),    # sq < sk, sq not a multiple of 64
 ]
 
 
@@ -119,23 +123,26 @@ def _fwd_bf16(q, k, v, causal):
 
 
 def _bwd_bf16(q, k, v, do, lse, delta, causal):
-    """The backward kernels' arithmetic: p in float32 (dQ's kernel exp(s
-    - lse), dK/dV's 2^(s scale log2 e - lse log2 e)) and dS = p (dP -
-    delta) scale in float32; dQ = round(dS) K, dK = round(dS)^T Q, dV =
-    round(P)^T dO, dK and dV summed tile by tile over dK/dV's query tiles,
-    each in float32, and rounded to bf16."""
+    """The backward kernels' arithmetic: p = 2^(s scale log2 e - lse log2
+    e) and dS = p (dP - delta) scale in float32; dQ = round(dS) K summed
+    tile by tile over dQ's key tiles, dK = round(dS)^T Q and dV =
+    round(P)^T dO over dK/dV's query tiles, each in float32, and rounded
+    to bf16."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     scale = d ** -0.5
     lse4 = lse.reshape(b, h, sq, 1)
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
     delta4 = delta.reshape(b, h, sq, 1)
-    p = torch.exp(_scores(q, k, causal, scale, sk - sq) - lse4)
-    dq = torch.einsum("bhqk,bkhd->bqhd", _bf16(p * (dp - delta4) * scale),
-                      k.float())
-    p2 = torch.exp2(_scores(q, k, causal, scale * LOG2E, sk - sq)
-                    - lse4 * LOG2E)
-    ds = _bf16(p2 * (dp - delta4) * scale)
+    p = torch.exp2(_scores(q, k, causal, scale * LOG2E, sk - sq)
+                   - lse4 * LOG2E)
+    ds = _bf16(p * (dp - delta4) * scale)
+    dq = torch.zeros(b, sq, h, d)
+    tile = DQ_KEY_TILE[d]
+    for k0 in range(0, sk, tile):
+        keys = slice(k0, k0 + tile)
+        dq += torch.einsum("bhqk,bkhd->bqhd", ds[..., keys],
+                           k[:, keys].float())
     dk = torch.zeros(b, sk, h, d)
     dv = torch.zeros(b, sk, h, d)
     tile = DKV_QUERY_TILE[d]
@@ -143,7 +150,7 @@ def _bwd_bf16(q, k, v, do, lse, delta, causal):
         rows = slice(q0, q0 + tile)
         dk += torch.einsum("bhqk,bqhd->bkhd", ds[:, :, rows],
                            q[:, rows].float())
-        dv += torch.einsum("bhqk,bqhd->bkhd", _bf16(p2[:, :, rows]),
+        dv += torch.einsum("bhqk,bqhd->bkhd", _bf16(p[:, :, rows]),
                            do[:, rows].float())
     return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
 
@@ -176,7 +183,7 @@ def _np(x):
     return torch.from_numpy(np.asarray(x).astype(np.float32))
 
 
-@pytest.mark.parametrize("b,sq,sk,h,d,causal", CASES[:3])
+@pytest.mark.parametrize("b,sq,sk,h,d,causal", CASES[:3] + CASES[-1:])
 def test_plain_versions_in_bf16_match_jax(b, sq, sk, h, d, causal):
     """The plain versions take bf16 as the JAX package's functions do:
     the forward against mha_reference and, where the Pallas backend

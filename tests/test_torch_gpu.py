@@ -27,14 +27,18 @@ AMP step against the CPU within tests/test_torch_amp.py's limits.
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import threading
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.kernels import build
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import fused_block as fb
 from paddle_tpu_torch.kernels import fused_conv as fc
@@ -512,6 +516,27 @@ def test_flash_bf16_kernels_match_plain(cuda, b, sq, sk, h, d, causal):
              *fa.flash_attention_bwd_dkv_bf16(*args, causal=causal))
     assert all(torch.equal(x, y) for x, y in zip((o, lse, dq, dk, dv),
                                                   again))
+
+
+def test_flash_bf16_kernels_run_on_wgmma(cuda):
+    """Every bf16 kernel's SASS, at each head_dim, holds wgmma (HGMMA) and
+    no mma.sync (HMMA), counted as scripts/torch_flash_bf16_probe.py
+    counts them (cuobjdump -sass of the library the wrappers load)."""
+    source = "flash_attention_bf16.cu"
+    build.library(source)
+    tool = shutil.which("cuobjdump") or str(
+        Path(build.nvcc_path()).parent / "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(build._target(source))],
+                          capture_output=True, text=True, check=True).stdout
+    funcs = dict(chunk.split("\n", 1)
+                 for chunk in re.split(r"\n\s*Function : ", text)[1:])
+    for kernel in ("fwd", "dq", "dkv"):
+        found = {name: sass for name, sass in funcs.items()
+                 if f"flash_bf16_{kernel}_kernel" in name}
+        assert len(found) == 3, (kernel, sorted(found))   # D 64, 128, 256
+        for name, sass in found.items():
+            assert sass.count("HGMMA") > 0, name
+            assert sass.count("HMMA") == 0, name
 
 
 def test_flash_autograd_in_bf16_runs_the_bf16_kernels(cuda):
