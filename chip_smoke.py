@@ -166,7 +166,20 @@ no result line:
    under AMP, two Adam steps on the card and on the CPU from one startup
    state: losses, first-step float32 gradients and masters held to the
    AMP limits (AMP_LOSS_RTOL, AMP_GRAD_RTOL, AMP_STEP_ATOL);
-17. print the kernels' JSON line, the card line and the result line.
+17. train phase 9's stacked LSTM with main.amp_dtype = "bfloat16" (float32
+   masters, bf16 compute) through the Executor: startup, one warm-up step
+   and LSTM_STEPS timed steps on phase 9's repeated feed (finite, falling
+   losses), LSTM_STEPS steps on the next varied feeds, the bf16 LSTM
+   kernels' launches held to one forward and one backward call a step and
+   the float32 LSTM kernels' to none, every master still float32, peak
+   memory, tokens/s, one step's device time by class (the bf16 backward
+   by its three kernels; the recurrence must show), and phase 9's float32
+   step of the same program timed in this run;
+18. take two Adam steps of phase 10's reduced LSTM under AMP from one
+   startup state on the card and on the CPU: losses within
+   AMP_LOSS_RTOL, masters within LSTM_AMP_STEP_ATOL (5 lr), each
+   parameter's update within AMP_UPDATE_RTOL (rms);
+19. print the kernels' JSON line, the card line and the result line.
 
 Phase 3 also holds the three bf16 flash kernels (forward, dQ, dK/dV;
 csrc/flash_attention_bf16.cu) against their plain versions at
@@ -181,7 +194,13 @@ Phase 3 also holds the two LSTM kernels against their plain versions at
 the bench shape (T 100, B 64, H 512), full-length and ragged, timed
 beside their bounds (3xTF32, with the f32 FMA bounds beside them) and
 torch.nn.LSTM (cuDNN) as the yardstick, with each one's CUDA launches a
-call (profiler) and the plan it took.
+call (profiler) and the plan it took; then their bf16 versions
+(csrc/fused_lstm_bf16.cu) at the same shapes, rs, cs and dx within
+BF16_REL max|plain| + BF16_REL |plain| and dw, db, dr0, dc0 within
+LSTM_SUM_REL max|plain| + LSTM_SUM_REL |plain| of the plain versions on
+the same bf16 inputs, each timed beside its plain version, its bound at
+the bf16 tensor cores' rate and torch.nn.LSTM in bf16 (cuDNN; its
+forward, and its backward less its forward).
 Phase 3 also holds the four bottleneck-chain kernels against their
 plain versions at ResNet-50's three chain stages at batch 128 (Cin, C,
 H = 256, 64, 56 / 512, 128, 28 / 1024, 256, 14), each timed beside its
@@ -350,6 +369,16 @@ LSTM_STEPS = 6
 # card vs CPU: a reduced LSTM on ragged sequences, at the LM's limits
 LSTM_REDUCED = dict(dict_size=1000, emb_dim=64, lstm_size=128, batch=8,
                     seq_len=24)
+# the bf16 LSTM kernels (phase 3) against their plain versions on the same
+# bf16 inputs: rs, cs and dx within BF16_REL max|plain| + BF16_REL |plain|
+# (kernel and plain version sum in other orders, so a carry or a dgates
+# element can round to the neighbouring bf16 value, and that travels
+# through the later steps: scripts/lstm_bf16_arith.py), their float32
+# sums dw, db, dr0 and dc0 within LSTM_SUM_REL max|plain| + LSTM_SUM_REL
+# |plain|; phase 18 holds the AMP LSTM's masters within 5 lr of the CPU's
+# (Adam at lr 1e-3: get_model's)
+LSTM_SUM_REL = 2.0 ** -9
+LSTM_AMP_STEP_ATOL = 5 * 1e-3
 # the bottleneck chain's stages in ResNet-50 (Cin, C, H) at RESNET's
 # batch; the kernels line reports the first. Outputs within KERNEL_ATOL /
 # KERNEL_RTOL of the plain versions, sums within STATS_RTOL of the sum of
@@ -852,6 +881,9 @@ def kernel_class(name: str) -> str:
     # the LSTM's names first: lstm_bwd_final_kernel holds "bwd_final_";
     # the forward is lstm_fwd_seq_kernel (one launch a call) or, where no
     # plan takes the shape, lstm_fwd_step_kernel
+    if "lstm_" in n and "_bf16_" in n:
+        return ("lstm_seq_fwd_bf16" if "lstm_fwd_" in n
+                else "lstm_seq_bwd_bf16") + " (port kernel)"
     if "lstm_fwd_" in n:
         return "lstm_seq_fwd (port kernel)"
     if "lstm_gemm_kernel" in n or "lstm_bwd_" in n:
@@ -2641,6 +2673,126 @@ def check_lstm(np, torch, fl, card, seed: int):
     return rows
 
 
+def sum_share(torch, got, want) -> float:
+    """The largest |got - want| over LSTM_SUM_REL max|want| + LSTM_SUM_REL
+    |want| (1 is the limit); raises if got is not finite."""
+    if not bool(torch.isfinite(got).all()):
+        raise RuntimeError("bf16 kernel output is not finite")
+    limit = LSTM_SUM_REL * want.abs().max() + LSTM_SUM_REL * want.abs()
+    return float(((got - want).abs() / limit).max())
+
+
+def check_lstm_bf16(np, torch, fl, card, seed: int):
+    """The two bf16 LSTM kernels (csrc/fused_lstm_bf16.cu) vs their plain
+    versions on the same bf16 inputs at the bench shape, full length and
+    ragged (check_lstm's inputs and lengths, rounded to bf16); each timed
+    beside its plain version, its bound at the bf16 tensor cores' rate
+    and torch.nn.LSTM in bf16 (cuDNN: the forward, and the backward less
+    the forward; it also computes the input projection, so it is an upper
+    yardstick). Their CUDA launches a call (1 and 3) are held by
+    tests/test_torch_gpu.py. The kernels line reports the full-length
+    shape."""
+    t, b, h = LSTM["seq_len"], LSTM["batch"], LSTM["lstm_size"]
+    rng = np.random.default_rng(seed + 11)
+    ragged = rng.integers(1, t + 1, b)
+    ragged[:2] = (1, t)
+    rows = {}
+    errs = {k: [] for k in LSTM_BF16_KERNELS}
+    shares = {k: [] for k in LSTM_BF16_KERNELS}
+    for what, lens in (("full length", None), ("ragged", ragged.tolist())):
+        d = {k: v.bfloat16() for k, v in
+             lstm_case(torch, t, b, h, lens, seed + 12).items()}
+        fwd_args = [d[k] for k in ("x", "w", "b", "mask", "r0", "c0")]
+        rs, cs = fl.lstm_seq_fwd_bf16(*fwd_args)
+        rrs, rcs = fl.lstm_seq_fwd_reference(*fwd_args)
+        torch.cuda.synchronize()
+        f_share = (bf16_share(torch, rs, rrs), bf16_share(torch, cs, rcs))
+        r_prevs = torch.cat([d["r0"][None], rrs[:-1]])
+        c_prevs = torch.cat([d["c0"][None], rcs[:-1]])
+        bwd_args = fwd_args[:4] + [r_prevs, c_prevs, d["drs"], d["dcs"]]
+        got = fl.lstm_seq_bwd_bf16(*bwd_args)
+        want = fl.lstm_seq_bwd_reference(*bwd_args)
+        torch.cuda.synchronize()
+        b_share = (bf16_share(torch, got[0], want[0]),) + tuple(
+            sum_share(torch, g, w_) for g, w_ in zip(got[1:], want[1:]))
+        diff = lambda x, y: float((x.float() - y.float()).abs().max())
+        errs["lstm_seq_fwd_bf16"].append(max(diff(rs, rrs), diff(cs, rcs)))
+        errs["lstm_seq_bwd_bf16"].append(max(diff(g, w_) for g, w_ in
+                                             zip(got, want)))
+        shares["lstm_seq_fwd_bf16"].append(max(f_share))
+        shares["lstm_seq_bwd_bf16"].append(max(b_share))
+        if max(f_share + b_share) > 1:
+            raise RuntimeError(f"the bf16 LSTM kernels ({what}) disagree "
+                               f"with their plain versions: shares of the "
+                               f"limits rs, cs {f_share}, dx, dw, db, dr0, "
+                               f"dc0 {b_share}")
+        # the products this run's data needs: the rows a sequence reaches
+        live = t * b if lens is None else int(sum(lens))
+        prod = 2 * live * h * 4 * h
+        # bf16 in and out but for the backward's float32 dw, db, dr0, dc0
+        f_bytes = 2 * (t * b * 4 * h + h * 4 * h + 4 * h + t * b + 2 * b * h
+                       + 2 * t * b * h)
+        b_bytes = (2 * (2 * t * b * 4 * h + h * 4 * h + 4 * h + t * b
+                        + 4 * t * b * h)
+                   + 4 * (h * 4 * h + 4 * h + 2 * b * h))
+        bounds = {"lstm_seq_fwd_bf16": bound_ms(f_bytes, prod,
+                                                BF16_FLOPS_PER_S),
+                  "lstm_seq_bwd_bf16": bound_ms(b_bytes, 3 * prod,
+                                                BF16_FLOPS_PER_S)}
+        calls = {"lstm_seq_fwd_bf16": (
+                     lambda: fl.lstm_seq_fwd_bf16(*fwd_args),
+                     lambda: fl.lstm_seq_fwd_reference(*fwd_args)),
+                 "lstm_seq_bwd_bf16": (
+                     lambda: fl.lstm_seq_bwd_bf16(*bwd_args),
+                     lambda: fl.lstm_seq_bwd_reference(*bwd_args))}
+        ms = {k: cuda_ms(torch, f, 10) for k, (f, _) in calls.items()}
+        plain = {k: cuda_ms(torch, r, 3) for k, (_, r) in calls.items()}
+        index = d["x"].device.index
+        plans = (fl._plan_of(b, h, index, torch.bfloat16),
+                 fl._bwd_plan_of(b, h, index, torch.bfloat16))
+        lstm = torch.nn.LSTM(h, h).cuda().bfloat16()
+        inp = d["x"][:, :, :h].contiguous().requires_grad_(True)
+        h0 = (d["r0"][None].contiguous(), d["c0"][None].contiguous())
+        lib_fwd = cuda_ms(torch, lambda: lstm(inp, h0), 10)
+        lib_both = cuda_ms(torch, lambda: torch.autograd.grad(
+            lstm(inp, h0)[0], [inp] + list(lstm.parameters()), d["drs"]), 10)
+        lib = {"lstm_seq_fwd_bf16": lib_fwd,
+               "lstm_seq_bwd_bf16": lib_both - lib_fwd}
+        del lstm, inp
+        print(f"lstm bf16 kernels T={t} B={b} H={h} {what} ({live} live "
+              f"rows): fwd {ms['lstm_seq_fwd_bf16']:.4f} ms (plain "
+              f"{plain['lstm_seq_fwd_bf16']:.4f}, nn.LSTM bf16 fwd "
+              f"{lib['lstm_seq_fwd_bf16']:.4f}, bound "
+              f"{bounds['lstm_seq_fwd_bf16'][0]:.4f} "
+              f"{bounds['lstm_seq_fwd_bf16'][1]} at "
+              f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s; "
+              f"{lstm_plan_text(plans[0], 'none')}), bwd "
+              f"{ms['lstm_seq_bwd_bf16']:.4f} ms (plain "
+              f"{plain['lstm_seq_bwd_bf16']:.4f}, nn.LSTM bf16 bwd "
+              f"{lib['lstm_seq_bwd_bf16']:.4f} [fwd+bwd {lib_both:.4f}], "
+              f"bound {bounds['lstm_seq_bwd_bf16'][0]:.4f} "
+              f"{bounds['lstm_seq_bwd_bf16'][1]}; "
+              f"{lstm_plan_text(plans[1], 'none')}); largest shares of the "
+              f"limits rs, cs {' / '.join(f'{x:.4f}' for x in f_share)} "
+              f"(bf16 {BF16_REL}), dx {b_share[0]:.4f} (bf16 {BF16_REL}), "
+              f"dw, db, dr0, dc0 "
+              f"{' / '.join(f'{x:.4f}' for x in b_share[1:])} (sums "
+              f"{LSTM_SUM_REL}); max_abs_err fwd "
+              f"{errs['lstm_seq_fwd_bf16'][-1]:.3e}, bwd "
+              f"{errs['lstm_seq_bwd_bf16'][-1]:.3e} [{card}]")
+        if lens is None:
+            for k in calls:
+                rows[k] = dict(ms=ms[k], plain_ms=plain[k],
+                               bound_ms=bounds[k][0], bound_by=bounds[k][1],
+                               library_ms=lib[k])
+    for k in rows:
+        rows[k]["max_abs_err"] = max(errs[k])
+    print("lstm bf16 kernels: largest share of the limits over both "
+          "shapes, " + ", ".join(f"{k} {max(v):.4f}" for k, v in
+                                 shares.items()) + f" [{card}]")
+    return rows
+
+
 def lstm_varied(np, i, batch, seqlen, vocab):
     """bench.py bench_lstm varied(i): random ids, the label the parity of
     the last word, drawn from a 16-token pool."""
@@ -2664,20 +2816,25 @@ def build_lstm(pt, cfg, seed):
 
 
 LSTM_KERNELS = ("lstm_seq_fwd", "lstm_seq_bwd")
+LSTM_BF16_KERNELS = ("lstm_seq_fwd_bf16", "lstm_seq_bwd_bf16")
 # lstm_seq_bwd's kernels by name: the recurrence, the gates' recompute, dW
 LSTM_BWD_PARTS = (("recurrence", "lstm_bwd_seq_kernel"),
                   ("gates", "lstm_bwd_gemm_tc_kernel<true>"),
                   ("dW", "lstm_bwd_gemm_tc_kernel<false>"))
+LSTM_BF16_BWD_PARTS = (("recurrence", "lstm_bwd_seq_bf16_kernel"),
+                       ("gates", "lstm_bwd_gemm_bf16_kernel<true>"),
+                       ("dW", "lstm_bwd_gemm_bf16_kernel<false>"))
 
 
-def lstm_bwd_parts(by_name: dict) -> dict:
-    """{part: device ms} of lstm_seq_bwd's kernels in a profile ("rest":
-    the kernels of the per-step path)."""
-    parts = dict.fromkeys([p for p, _ in LSTM_BWD_PARTS] + ["rest"], 0.0)
+def lstm_bwd_parts(by_name: dict, kernel: str = "lstm_seq_bwd",
+                   parts_of=LSTM_BWD_PARTS) -> dict:
+    """{part: device ms} of the backward wrapper `kernel`'s kernels in a
+    profile ("rest": the kernels of the per-step path)."""
+    parts = dict.fromkeys([p for p, _ in parts_of] + ["rest"], 0.0)
     for name, ms in by_name.items():
-        if kernel_class(name) != "lstm_seq_bwd (port kernel)":
+        if kernel_class(name) != f"{kernel} (port kernel)":
             continue
-        part = next((p for p, key in LSTM_BWD_PARTS if key in name), "rest")
+        part = next((p for p, key in parts_of if key in name), "rest")
         parts[part] += ms
     return parts
 
@@ -2865,6 +3022,146 @@ def lstm_card_vs_cpu(np, torch, card, seed: int):
           f"(tol {STATE_RTOL}) [{card}]")
     if not worst <= PARAM_ATOL:
         raise RuntimeError("LSTM card and CPU states disagree")
+
+
+def lstm_amp_path(np, torch, fl, card, seed: int):
+    """Phase 17: phase 9's stacked LSTM with main.amp_dtype = "bfloat16"
+    through the Executor; returns the bf16 LSTM kernels' launch counts of
+    its steps."""
+    import paddle_tpu_torch as pt
+
+    b, t = LSTM["batch"], LSTM["seq_len"]
+    main_prog, startup, loss, _ = build_lstm(pt, LSTM, seed)
+    main_prog.amp_dtype = "bfloat16"
+    exe, scope = pt.Executor(), pt.Scope()
+    feed0 = lstm_varied(np, 0, b, t, LSTM["dict_size"])
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    names = LSTM_KERNELS + LSTM_BF16_KERNELS
+    for name in names:
+        getattr(fl, name).launches = 0
+
+    def step(feed):
+        return float(exe.run(main_prog, feed=feed, fetch_list=[loss],
+                             scope=scope)[0][0])
+
+    def timed():
+        losses, step_s = [], []
+        for _ in range(1 + LSTM_STEPS):
+            t0 = time.perf_counter()
+            losses.append(step(feed0))
+            step_s.append(time.perf_counter() - t0)
+        return losses, 1e3 * sum(step_s[1:]) / LSTM_STEPS, step_s
+
+    losses, ms, step_s = timed()
+    varied = [step(lstm_varied(np, i, b, t, LSTM["dict_size"]))
+              for i in range(1, 1 + LSTM_STEPS)]
+    n_steps = 1 + 2 * LSTM_STEPS
+    launches = {name: getattr(fl, name).launches for name in names}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"lstm AMP path (bfloat16, float32 masters): batch {b}, sequence "
+          f"{t}, losses on one feed {losses}, warm-up step "
+          f"{1e3 * step_s[0]:.1f} ms, {LSTM_STEPS} timed steps "
+          f"{[round(1e3 * x, 2) for x in step_s[1:]]} ms: {ms:.3f} ms per "
+          f"step, {b * t / ms * 1e3:.1f} tokens/s, peak memory "
+          f"{peak_gb:.2f} GB; losses on varied feeds 1-{LSTM_STEPS} "
+          f"{varied} [{card}]")
+    print(f"lstm AMP path launches over {n_steps} steps: {launches}")
+    for name, n in launches.items():
+        expect = n_steps if name in LSTM_BF16_KERNELS else 0
+        if n != expect:
+            raise RuntimeError(f"{name} was launched {n} times on the AMP "
+                               f"LSTM path, expected {expect}")
+    every = losses + varied
+    if not all(np.isfinite(every)) or not min(losses[1:]) < losses[0]:
+        raise RuntimeError(f"AMP LSTM losses are not finite and falling on "
+                           f"one feed: {every}")
+    wide = [p.name for p in main_prog.global_block.all_parameters()
+            if scope.find_var(p.name).dtype != torch.float32]
+    if wide:
+        raise RuntimeError(f"masters no longer float32 after AMP steps: "
+                           f"{wide}")
+    # a profile that holds no recurrence kernel lost its events: it is
+    # taken again, up to three times
+    for _ in range(3):
+        wall, by_name, _ = profiled(torch, lambda: step(feed0), 1)
+        bwd = lstm_bwd_parts(by_name, "lstm_seq_bwd_bf16",
+                             LSTM_BF16_BWD_PARTS)
+        if bwd["recurrence"] > 0:
+            break
+    print_profile(f"AMP LSTM training step (batch {b}, sequence {t})", wall,
+                  by_name, card)
+    print("  lstm_seq_bwd_bf16's parts: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in bwd.items()) + f" [{card}]")
+    if not bwd["recurrence"] > 0:
+        raise RuntimeError("the AMP LSTM step's profile shows no device time "
+                           "in the backward's recurrence "
+                           "(lstm_bwd_seq_bf16_kernel)")
+    # phase 9's float32 step: the same program and scope, in this run;
+    # one step of each: its launches and device ms by class
+    counts = {"AMP": launch_profile(torch, lambda: step(feed0))}
+    main_prog.amp_dtype = None
+    try:
+        f32_losses, f32_ms, _ = timed()
+        counts["float32"] = launch_profile(torch, lambda: step(feed0))
+    finally:
+        main_prog.amp_dtype = "bfloat16"
+    print(f"float32 step of the same program in this run: {f32_ms:.3f} ms "
+          f"per step (losses {f32_losses}); AMP {f32_ms / ms:.3f}x its "
+          f"speed [{card}]")
+    for what, (n, dev_ms, classes) in counts.items():
+        print(f"{what} LSTM step: {n} kernel launches, device {dev_ms:.3f} "
+              f"ms: " + ", ".join(
+                  f"{c} {m:.3f} ms / {k}" for c, (k, m) in
+                  sorted(classes.items(), key=lambda kv: -kv[1][1]))
+              + f" [{card}]")
+    return {name: launches[name] for name in LSTM_BF16_KERNELS}
+
+
+def lstm_amp_card_vs_cpu(np, torch, card, seed: int):
+    """Phase 18: phase 10's reduced LSTM under AMP, two Adam steps on
+    ragged list feeds from one startup state on the card (the bf16
+    kernels) and on the CPU (their plain versions)."""
+    import paddle_tpu_torch as pt
+
+    main_prog, startup, loss, _ = build_lstm(pt, LSTM_REDUCED, seed)
+    main_prog.amp_dtype = "bfloat16"
+    cpu, gpu = pt.Executor(pt.CPUPlace()), pt.Executor()
+    cpu_scope, gpu_scope = pt.Scope(), pt.Scope()
+    cpu.run(startup, scope=cpu_scope)
+    for name in cpu_scope.local_var_names():
+        gpu_scope.set_var(name, cpu_scope.find_var(name).to(gpu.device))
+    params = [p.name for p in main_prog.global_block.all_parameters()]
+    start = {n: cpu_scope.get_numpy(n) for n in params}
+    losses = []
+    for i in range(2):
+        feed = lstm_ragged_feed(np, i, LSTM_REDUCED)
+        lc, = cpu.run(main_prog, feed=feed, fetch_list=[loss],
+                      scope=cpu_scope)
+        lg, = gpu.run(main_prog, feed=feed, fetch_list=[loss],
+                      scope=gpu_scope)
+        losses.append((float(lg[0]), float(lc[0])))
+        if not abs(float(lg[0]) - float(lc[0])) <= AMP_LOSS_RTOL * abs(
+                float(lc[0])):
+            raise RuntimeError(f"AMP LSTM step {i}: card loss {lg[0]} vs "
+                               f"CPU {lc[0]}")
+    worst, upd = 0.0, {}
+    for p in params:
+        got, want = gpu_scope.get_numpy(p), cpu_scope.get_numpy(p)
+        if gpu_scope.find_var(p).dtype != torch.float32:
+            raise RuntimeError(f"master {p} is not float32")
+        worst = max(worst, float(np.abs(got - want).max()))
+        upd[p] = rms(np, got - want) / rms(np, want - start[p])
+    print(f"card vs CPU, reduced LSTM {LSTM_REDUCED} under AMP, 2 Adam steps "
+          f"on ragged feeds: losses (card, CPU) {losses} (tol rtol "
+          f"{AMP_LOSS_RTOL}), largest master diff {worst:.3e} (tol atol "
+          f"{LSTM_AMP_STEP_ATOL}), relative rms diff of each update "
+          + ", ".join(f"{p} {v:.3e}" for p, v in upd.items())
+          + f" (tol {AMP_UPDATE_RTOL}) [{card}]")
+    if not (worst <= LSTM_AMP_STEP_ATOL
+            and max(upd.values()) <= AMP_UPDATE_RTOL):
+        raise RuntimeError("AMP LSTM card and CPU masters disagree")
 
 
 def chain_case(torch, n, cin, c, h, gen):
@@ -3642,6 +3939,7 @@ def main() -> int:
     rows.update(check_epilogue(torch, F, fc, card,
                                epilogue_ops(built["fused"], RESNET["batch"])))
     rows.update(check_lstm(np, torch, fl, card, args.seed))
+    rows.update(check_lstm_bf16(np, torch, fl, card, args.seed))
     rows.update(check_chain(torch, F, fb, card))
     rows.update(check_chain_bwd(torch, fb, card))
     launches = main_path(np, torch, fa, card, args.seed)
@@ -3670,6 +3968,8 @@ def main() -> int:
         launches[name] += n
     launches.update(amp_train_path(np, torch, fa, card, args.seed))
     amp_card_vs_cpu(np, torch, card, args.seed)
+    launches.update(lstm_amp_path(np, torch, fl, card, args.seed))
+    lstm_amp_card_vs_cpu(np, torch, card, args.seed)
 
     meta = {"flash_attention_fwd": (
                 "paddle_tpu_torch/csrc/flash_attention.cu",
@@ -3702,6 +4002,10 @@ def main() -> int:
                              "paddle_tpu/kernels/fused_lstm.py:78"),
             "lstm_seq_bwd": ("paddle_tpu_torch/csrc/fused_lstm.cu",
                              "paddle_tpu/kernels/fused_lstm.py:207"),
+            "lstm_seq_fwd_bf16": ("paddle_tpu_torch/csrc/fused_lstm_bf16.cu",
+                                  "paddle_tpu/kernels/fused_lstm.py:78"),
+            "lstm_seq_bwd_bf16": ("paddle_tpu_torch/csrc/fused_lstm_bf16.cu",
+                                  "paddle_tpu/kernels/fused_lstm.py:207"),
             "conv1x1_stats": ("paddle_tpu_torch/csrc/conv1x1_stats_tc.cuh",
                               "paddle_tpu/kernels/fused_block.py:790"),
             "conv3x3_norm_stats": ("paddle_tpu_torch/csrc/conv3x3_tc.cuh",

@@ -42,7 +42,6 @@ from typing import Dict, List, Optional, Sequence, Set
 
 import torch
 
-from ..ops.rnn_ops import takes_lstm_kernels
 from .program import Block, OpDesc, Program
 from .registry import ExecContext, require_op
 
@@ -60,7 +59,6 @@ _DRAWS = frozenset({"uniform_random", "gaussian_random"})
 _NO_BF16_KERNEL = {
     "fused_conv2d": "the conv-epilogue kernels (csrc/fused_conv.cu)",
     "fused_bottleneck": "the bottleneck chain's kernels",
-    "dynamic_lstm": "the LSTM kernels (csrc/fused_lstm.cu)",
     "paged_kv_write": "the paged decode path",
     "paged_attention": "the paged decode kernel (csrc/paged_attention.cu)",
 }
@@ -79,8 +77,7 @@ def _amp_dtype(program: Program) -> Optional[torch.dtype]:
             "ported (bfloat16 is)")
     for op in program.global_block.ops:
         what = _NO_BF16_KERNEL.get(op.type)
-        if what is not None and (op.type != "dynamic_lstm"
-                                 or takes_lstm_kernels(op.attrs)):
+        if what is not None:
             raise NotImplementedError(
                 f"op {op.type!r} under amp_dtype='bfloat16': {what} have no "
                 "bfloat16 version; mixed precision of this op is not ported")

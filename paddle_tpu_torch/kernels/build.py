@@ -42,7 +42,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu",
            "flash_attention_bf16.cu", "paged_attention.cu", "fused_conv.cu",
-           "fused_lstm.cu", "fused_block.cu", "fused_block_bwd.cu")
+           "fused_lstm.cu", "fused_lstm_bf16.cu", "fused_block.cu",
+           "fused_block_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -138,13 +139,14 @@ def on_card(name: str, t: torch.Tensor) -> bool:
 
 
 def check(name: str, t: torch.Tensor, device: torch.device, shape,
-          aligned: bool = False) -> None:
-    """Raise unless t is a contiguous float32 tensor of `shape` on
+          dtype: torch.dtype = torch.float32, aligned: bool = False) -> None:
+    """Raise unless t is a contiguous tensor of `dtype` and `shape` on
     `device`, and 16-byte aligned where `aligned`."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} is {t.dtype}; the kernel takes float32")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} is {t.dtype}; the kernel takes "
+                        f"{str(dtype).rsplit('.', 1)[-1]}")
     if t.shape != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")

@@ -29,6 +29,19 @@ them and what the design does about it):
   two launches per step (the cell, then dgates W^T in slices), dr0 and
   db: 2T + 4 launches.
 
+For bfloat16 inputs (mixed-precision training) two more kernels, in
+``paddle_tpu_torch/csrc/fused_lstm_bf16.cu``, replace the same two
+Pallas kernels as they run on bf16 tiles: ``lstm_seq_fwd_bf16`` (one
+cooperative launch, W's slice held as bf16 ``mma.sync`` fragments, the
+carries rounded to bf16 once a step) and ``lstm_seq_bwd_bf16`` (the
+gates' recompute, the recurrence in one cooperative launch, dW: bf16
+products with float32 accumulation, dgates rounded to bf16 before its
+products, db from the float32 dgates). The float32 wrappers hand a
+bfloat16 CUDA tensor to them. They take H a multiple of 8, at most 512,
+and B within ``fwd_plan`` / ``bwd_plan``; any other shape raises (no
+per-step bf16 path). The plain versions compute in the inputs' dtype
+with the Pallas kernels' rounding points.
+
 Each wrapper runs its plain version (``lstm_seq_fwd_reference``,
 ``lstm_seq_bwd_reference``) only for tensors on the CPU; for a CUDA
 tensor it launches its kernel or raises, and counts the call in its
@@ -52,7 +65,8 @@ from . import build
 
 __all__ = ["lstm_seq_fwd_reference", "lstm_seq_bwd_reference",
            "SeqPlan", "fwd_plan", "bwd_plan", "lstm_seq_fwd",
-           "lstm_seq_bwd", "LSTMSequence", "lstm_sequence"]
+           "lstm_seq_bwd", "lstm_seq_fwd_bf16", "lstm_seq_bwd_bf16",
+           "LSTMSequence", "lstm_sequence"]
 
 
 # ---------------------------------------------------------------------------
@@ -68,19 +82,31 @@ def _cell(gates: torch.Tensor, c: torch.Tensor, h: int):
     return i, f, o, cand, f * c + i * cand
 
 
+def _compute_dtype(x: torch.Tensor) -> torch.dtype:
+    """float32 for bfloat16 (or float16) inputs, else the inputs' own."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def lstm_seq_fwd_reference(x, w, b, mask, r0, c0
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The forward recurrence step by step: (rs, cs) [T, B, H]."""
+    """The forward recurrence step by step: (rs, cs) [T, B, H] in x's
+    dtype. For bfloat16 inputs it rounds where the Pallas kernel does
+    (``_fwd_kernel``): gates = x + r W + b and the cell in float32 (the
+    bf16 products exact, summed in float32), both carries rounded to
+    bfloat16 once a step, after the mask blend. For float32 (or wider)
+    inputs the casts are no-ops."""
     h = w.shape[0]
+    ct = _compute_dtype(x)
+    wf, bf = w.to(ct), b.to(ct)
     r, c = r0, c0
     rs, cs = [], []
     for t in range(x.shape[0]):
-        gates = x[t] + r @ w + b
-        _, _, o, _, c_new = _cell(gates, c, h)
+        gates = x[t].to(ct) + r.to(ct) @ wf + bf
+        _, _, o, _, c_new = _cell(gates, c.to(ct), h)
         r_new = o * torch.tanh(c_new)
-        m = mask[t][:, None]
-        r = m * r_new + (1.0 - m) * r
-        c = m * c_new + (1.0 - m) * c
+        m = mask[t][:, None].to(ct)
+        r = (m * r_new + (1.0 - m) * r.to(ct)).to(x.dtype)
+        c = (m * c_new + (1.0 - m) * c.to(ct)).to(x.dtype)
         rs.append(r)
         cs.append(c)
     return torch.stack(rs), torch.stack(cs)
@@ -89,20 +115,31 @@ def lstm_seq_fwd_reference(x, w, b, mask, r0, c0
 def lstm_seq_bwd_reference(x, w, b, mask, r_prevs, c_prevs, drs, dcs):
     """The reverse-time derivation of the TPU kernel (``_bwd_kernel``):
     the gates recomputed from r_prevs, (dr, dc) carried from step to
-    step. Returns (dx [T, B, 4H], dw [H, 4H], db [4H], dr0, dc0)."""
+    step. Returns (dx [T, B, 4H] in x's dtype, dw [H, 4H], db [4H], dr0,
+    dc0 float32). For bfloat16 inputs it rounds where the Pallas kernel
+    does: the gates, the cell and the carried (dr, dc) in float32,
+    dgates rounded to bfloat16 before it is written as dx and before both
+    products (dgates W^T into dr, r_prevs^T dgates into dw), db summed
+    from the unrounded float32 dgates. For float32 (or wider) inputs the
+    casts are no-ops."""
     t_len, _, h4 = x.shape
     h = h4 // 4
-    gates_all = x + torch.matmul(r_prevs, w) + b
-    dr = torch.zeros_like(drs[0])
-    dc = torch.zeros_like(dcs[0])
+    ct = _compute_dtype(x)
+    wf = w.to(ct)
+    gates_all = x.to(ct) + torch.matmul(r_prevs.to(ct), wf) + b.to(ct)
+    dr = torch.zeros_like(drs[0], dtype=ct)
+    dc = torch.zeros_like(dcs[0], dtype=ct)
     dx = torch.empty_like(x)
+    # the unrounded dgates, which db sums (dx itself where x is not
+    # narrower than float32)
+    dg = dx if x.dtype == ct else torch.empty_like(x, dtype=ct)
     for t in reversed(range(t_len)):
-        c_prev = c_prevs[t]
+        c_prev = c_prevs[t].to(ct)
         i, f, o, cand, c_new = _cell(gates_all[t], c_prev, h)
         tc = torch.tanh(c_new)
-        m = mask[t][:, None]
-        d_rt = dr + drs[t]
-        d_ct = dc + dcs[t]
+        m = mask[t][:, None].to(ct)
+        d_rt = dr + drs[t].to(ct)
+        d_ct = dc + dcs[t].to(ct)
         dr_new, dr_prev = d_rt * m, d_rt * (1.0 - m)
         dc_new, dc_prev = d_ct * m, d_ct * (1.0 - m)
         d_o = dr_new * tc
@@ -111,12 +148,12 @@ def lstm_seq_bwd_reference(x, w, b, mask, r_prevs, c_prevs, drs, dcs):
         dc_prev = dc_prev + dc_new * f
         dgates = torch.cat([d_i * i * (1.0 - i), d_cand * (1.0 - cand * cand),
                             d_f * f * (1.0 - f), d_o * o * (1.0 - o)], dim=1)
+        dg[t] = dgates
         dx[t] = dgates
-        dr = dr_prev + dgates @ w.t()
+        dr = dr_prev + dx[t].to(ct) @ wf.t()
         dc = dc_prev
-    rows = dx.reshape(-1, h4)
-    dw = r_prevs.reshape(-1, h).t() @ rows
-    return dx, dw, rows.sum(dim=0), dr, dc
+    dw = r_prevs.reshape(-1, h).to(ct).t() @ dx.reshape(-1, h4).to(ct)
+    return dx, dw, dg.reshape(-1, h4).sum(dim=0), dr, dc
 
 
 # ---------------------------------------------------------------------------
@@ -127,8 +164,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def _fn(name: str, argtypes: tuple):
-    return build.bind("fused_lstm.cu", name, argtypes)
+_F32_SOURCE, _BF16_SOURCE = "fused_lstm.cu", "fused_lstm_bf16.cu"
+
+
+def _fn(name: str, argtypes: tuple, source: str = _F32_SOURCE):
+    return build.bind(source, name, argtypes)
 
 
 def _shapes(x: torch.Tensor) -> Tuple[int, int, int]:
@@ -211,35 +251,50 @@ def _seq_plan(b, h, kb, max_kb, units_a_block, max_mt, max_nt, sms,
 
 
 @functools.cache
-def _blocks_per_sm(index: int, symbol: str, mt: int, kb: int, nt: int
-                   ) -> int:
+def _blocks_per_sm(index: int, source: str, symbol: str, mt: int, kb: int,
+                   nt: int) -> int:
     """cudaOccupancyMaxActiveBlocksPerMultiprocessor of a sequence
-    kernel (`symbol`: its C query), once a (device, kernel, mt, kb, nt)."""
+    kernel (`symbol`: its C query in `source`), once a (device, kernel,
+    mt, kb, nt)."""
     out = ctypes.c_int(0)
     with build.device_guard(torch.device("cuda", index)):
-        build.launch(symbol, _fn(symbol, (_I, _I, _I, _P)), mt, kb, nt,
-                     ctypes.byref(out))
+        build.launch(symbol, _fn(symbol, (_I, _I, _I, _P), source), mt, kb,
+                     nt, ctypes.byref(out))
     return out.value
 
 
+# (source, forward query, backward query) of each input dtype's kernels
+_QUERIES = {
+    torch.float32: (_F32_SOURCE, "lstm_fwd_blocks_per_sm",
+                    "lstm_bwd_blocks_per_sm"),
+    torch.bfloat16: (_BF16_SOURCE, "lstm_fwd_bf16_blocks_per_sm",
+                     "lstm_bwd_bf16_blocks_per_sm")}
+
+
 @functools.cache
-def _plan_of(b: int, h: int, index: int) -> Optional[SeqPlan]:
+def _plan_of(b: int, h: int, index: int, dtype: torch.dtype = torch.float32
+             ) -> Optional[SeqPlan]:
+    source, fwd_query, _ = _QUERIES[dtype]
     return fwd_plan(b, h, build.sm_count(torch.device("cuda", index)),
-                    functools.partial(_blocks_per_sm, index,
-                                      "lstm_fwd_blocks_per_sm"))
+                    functools.partial(_blocks_per_sm, index, source,
+                                      fwd_query))
 
 
 @functools.cache
-def _bwd_plan_of(b: int, h: int, index: int) -> Optional[SeqPlan]:
+def _bwd_plan_of(b: int, h: int, index: int,
+                 dtype: torch.dtype = torch.float32) -> Optional[SeqPlan]:
+    source, _, bwd_query = _QUERIES[dtype]
     return bwd_plan(b, h, build.sm_count(torch.device("cuda", index)),
-                    functools.partial(_blocks_per_sm, index,
-                                      "lstm_bwd_blocks_per_sm"))
+                    functools.partial(_blocks_per_sm, index, source,
+                                      bwd_query))
 
 
 _SEQ = ("lstm_seq_fwd_seq_f32", (_P,) * 9 + (_I,) * 6 + (_P,))
 _STEPS = ("lstm_seq_fwd_f32", (_P,) * 8 + (_I,) * 3 + (_P,))
 _BWD_SEQ = ("lstm_seq_bwd_seq_f32", (_P,) * 16 + (_I,) * 6 + (_P,))
 _BWD_STEPS = ("lstm_seq_bwd_f32", (_P,) * 16 + (_I,) * 4 + (_P,))
+_SEQ_BF16 = ("lstm_seq_fwd_seq_bf16", (_P,) * 9 + (_I,) * 6 + (_P,))
+_BWD_SEQ_BF16 = ("lstm_seq_bwd_seq_bf16", (_P,) * 16 + (_I,) * 6 + (_P,))
 
 _barriers: Dict[Tuple[int, int], torch.Tensor] = {}
 
@@ -267,9 +322,12 @@ def lstm_seq_fwd(x, w, b, mask, r0, c0) -> Tuple[torch.Tensor, torch.Tensor]:
     kernel, one cooperative launch, for H <= 512 and B up to 64 row tiles
     of 32 a block (on 132 SMs: B <= 4096 at H 512, B <= 16384 at H 128);
     else the step kernel, T launches. A cooperative launch the runtime
-    refuses raises."""
+    refuses raises. bfloat16 CUDA tensors go to ``lstm_seq_fwd_bf16``,
+    which counts the launch."""
     if not build.on_card("lstm_seq_fwd", x):
         return lstm_seq_fwd_reference(x, w, b, mask, r0, c0)
+    if x.dtype == torch.bfloat16:
+        return lstm_seq_fwd_bf16(x, w, b, mask, r0, c0)
     t, bb, h = _shapes(x)
     dev = x.device
     build.check("x", x, dev, (t, bb, 4 * h))
@@ -311,10 +369,13 @@ def lstm_seq_bwd(x, w, b, mask, r_prevs, c_prevs, drs, dcs):
     shape alone chooses the path (``bwd_plan``): the recurrence in one
     cooperative launch (3 launches a call) for H <= 512 and B up to 28 row
     tiles of 16 a block (on 132 SMs: B <= 1792 at H 512); else 2T + 4
-    launches. A cooperative launch the runtime refuses raises."""
+    launches. A cooperative launch the runtime refuses raises. bfloat16
+    CUDA tensors go to ``lstm_seq_bwd_bf16``, which counts the call."""
     if not build.on_card("lstm_seq_bwd", x):
         return lstm_seq_bwd_reference(x, w, b, mask, r_prevs, c_prevs, drs,
                                       dcs)
+    if x.dtype == torch.bfloat16:
+        return lstm_seq_bwd_bf16(x, w, b, mask, r_prevs, c_prevs, drs, dcs)
     t, bb, h = _shapes(x)
     dev = x.device
     build.check("x", x, dev, (t, bb, 4 * h))
@@ -359,6 +420,125 @@ def lstm_seq_bwd(x, w, b, mask, r_prevs, c_prevs, drs, dcs):
 
 
 lstm_seq_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the bfloat16 kernels (mixed-precision training)
+# ---------------------------------------------------------------------------
+
+def _check_bf16(what: str, dev: torch.device, named) -> None:
+    """The bf16 kernels' contract: every input bfloat16, contiguous and
+    16-byte aligned (their copies move 8 bf16 at a time)."""
+    for name, v, shape in named:
+        build.check(f"{what}: {name}", v, dev, shape, torch.bfloat16,
+                    aligned=True)
+
+
+def _bf16_plan(what: str, plan: Optional[SeqPlan], b: int, h: int
+               ) -> SeqPlan:
+    if plan is None:
+        raise ValueError(
+            f"{what}: no grid the card holds at once for B {b}, H {h}: the "
+            "bfloat16 kernels take H <= 512 and B within fwd_plan / "
+            "bwd_plan's row tiles a block; no other bfloat16 path exists")
+    return plan
+
+
+def _bf16_shapes(what: str, x: torch.Tensor) -> Tuple[int, int, int]:
+    t, b, h = _shapes(x)
+    if h % 8:
+        raise ValueError(f"{what}: the bfloat16 kernels take H a multiple "
+                         f"of 8 (rows of 16 bytes), got H {h}")
+    return t, b, h
+
+
+def lstm_seq_fwd_bf16(x, w, b, mask, r0, c0
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bfloat16 forward: carry sequences (rs, cs) [T, B, H] bfloat16.
+
+    CPU tensors run ``lstm_seq_fwd_reference``. CUDA tensors run
+    csrc/fused_lstm_bf16.cu's sequence kernel, one cooperative launch:
+    every input bfloat16, contiguous and 16-byte aligned, H a multiple of
+    8 and at most 512, B up to 64 row tiles of 32 a block over the rows
+    of blocks the card holds at once (``fwd_plan``). Any other shape
+    raises, and so does a cooperative launch the runtime refuses."""
+    if not build.on_card("lstm_seq_fwd_bf16", x):
+        return lstm_seq_fwd_reference(x, w, b, mask, r0, c0)
+    what = "lstm_seq_fwd_bf16"
+    t, bb, h = _bf16_shapes(what, x)
+    dev = x.device
+    _check_bf16(what, dev, (("x", x, (t, bb, 4 * h)), ("w", w, (h, 4 * h)),
+                            ("b", b, (4 * h,)), ("mask", mask, (t, bb)),
+                            ("r0", r0, (bb, h)), ("c0", c0, (bb, h))))
+    rs = torch.empty((t, bb, h), dtype=torch.bfloat16, device=dev)
+    cs = torch.empty_like(rs)
+    with build.device_guard(dev):
+        stream = build.stream(dev)
+        plan = _bf16_plan(what, _plan_of(bb, h, dev.index, torch.bfloat16),
+                          bb, h)
+        build.launch(what, _fn(*_SEQ_BF16, _BF16_SOURCE), x.data_ptr(),
+                     w.data_ptr(), b.data_ptr(), mask.data_ptr(),
+                     r0.data_ptr(), c0.data_ptr(), rs.data_ptr(),
+                     cs.data_ptr(), _barrier_of(dev, stream), t, bb, h,
+                     plan.mt, plan.kb, plan.nt, stream)
+    lstm_seq_fwd_bf16.launches += 1
+    return rs, cs
+
+
+lstm_seq_fwd_bf16.launches = 0
+
+
+def lstm_seq_bwd_bf16(x, w, b, mask, r_prevs, c_prevs, drs, dcs):
+    """The bfloat16 backward: (dx [T, B, 4H] bfloat16, dw [H, 4H], db [4H],
+    dr0, dc0 [B, H] float32), the inputs as ``lstm_seq_bwd``'s.
+
+    CPU tensors run ``lstm_seq_bwd_reference``. CUDA tensors run
+    csrc/fused_lstm_bf16.cu: the gates' recompute, the recurrence in one
+    cooperative launch, dW (3 launches); every input bfloat16, contiguous
+    and 16-byte aligned, H a multiple of 8 and at most 512, B up to 28
+    row tiles of 16 a block over the rows of blocks the card holds at
+    once (``bwd_plan``); every sum in a fixed order, no atomics, so two
+    calls give the same bits. Any other shape raises, and so does a
+    cooperative launch the runtime refuses."""
+    if not build.on_card("lstm_seq_bwd_bf16", x):
+        return lstm_seq_bwd_reference(x, w, b, mask, r_prevs, c_prevs, drs,
+                                      dcs)
+    what = "lstm_seq_bwd_bf16"
+    t, bb, h = _bf16_shapes(what, x)
+    dev = x.device
+    seq = (t, bb, h)
+    _check_bf16(what, dev, (("x", x, (t, bb, 4 * h)), ("w", w, (h, 4 * h)),
+                            ("b", b, (4 * h,)), ("mask", mask, (t, bb)),
+                            ("r_prevs", r_prevs, seq),
+                            ("c_prevs", c_prevs, seq), ("drs", drs, seq),
+                            ("dcs", dcs, seq)))
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty((t, bb, 4 * h), dtype=torch.bfloat16, device=dev)
+    dw = torch.empty((h, 4 * h), **f32)
+    db = torch.empty((4 * h,), **f32)
+    dr0 = torch.empty((bb, h), **f32)
+    dc0 = torch.empty((bb, h), **f32)
+    with build.device_guard(dev):
+        stream = build.stream(dev)
+        plan = _bf16_plan(what, _bwd_plan_of(bb, h, dev.index,
+                                             torch.bfloat16), bb, h)
+        # one scratch: the float32 gates [T, B, 4H], then db's partial
+        # sums [row groups, 4H]
+        n = t * bb * 4 * h
+        scratch = torch.empty((n + plan.grid[1] * 4 * h,), **f32)
+        build.launch(what, _fn(*_BWD_SEQ_BF16, _BF16_SOURCE), x.data_ptr(),
+                     w.data_ptr(), b.data_ptr(), mask.data_ptr(),
+                     r_prevs.data_ptr(), c_prevs.data_ptr(), drs.data_ptr(),
+                     dcs.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+                     db.data_ptr(), dr0.data_ptr(), dc0.data_ptr(),
+                     scratch.data_ptr(), scratch.data_ptr() + 4 * n,
+                     _barrier_of(dev, stream), t, bb, h, plan.mt, plan.kb,
+                     plan.nt, stream)
+    lstm_seq_bwd_bf16.launches += 1
+    return dx, dw, db, dr0, dc0
+
+
+lstm_seq_bwd_bf16.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -234,9 +234,23 @@ for _n, _f in _ACTIVATIONS.items():
 # softmax and cross entropy (ops/nn_ops.py :88, :573)
 # ---------------------------------------------------------------------------
 
+def _softmax_bf16(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``jax.nn.softmax`` of a bfloat16 x as XLA computes it in the JAX
+    package's step: x - max rounded to bfloat16, its exp in float32, the
+    sum of the exps rounded to bfloat16, each exp rounded to bfloat16
+    before the division, the quotient rounded."""
+    d = (x.float() - x.amax(dim, keepdim=True).float()).bfloat16()
+    e = torch.exp(d.float())
+    s = e.sum(dim, keepdim=True).bfloat16()
+    return (e.bfloat16().float() / s.float()).bfloat16()
+
+
 @register_op("softmax", infer_shape=same_shape())
 def _softmax_op(ctx, ins, attrs):
-    return {"Out": [torch.softmax(ins["X"][0], dim=attrs.get("axis", -1))]}
+    x, dim = ins["X"][0], attrs.get("axis", -1)
+    if x.dtype == torch.bfloat16:
+        return {"Out": [_softmax_bf16(x, dim)]}
+    return {"Out": [torch.softmax(x, dim=dim)]}
 
 
 def _ce_infer(op, block):

@@ -9,7 +9,11 @@ and the stacked outputs are zero there.
 ``dynamic_lstm`` in the kernel's contract (no peepholes, no projection,
 sigmoid/tanh/tanh, no mesh) runs the whole sequence through
 ``kernels.fused_lstm.LSTMSequence``: on the card the hand-written
-forward and backward kernels, on the CPU their plain versions.
+forward and backward kernels, on the CPU their plain versions. Under
+bfloat16 mixed precision its inputs (x, the recurrent weight, the gate
+bias, the length mask and the initial state) arrive in bfloat16, as the
+JAX package's do, so the card runs the bf16 kernels and the masked
+outputs are bfloat16; the scan runs in bfloat16 too.
 Everything else (peepholes, ``lstmp``, other activations, the GRU, or
 ``PT_FUSED_LSTM=never``) runs the scan in PyTorch ops, step by step:
 that is what the JAX package runs for them too (its ``lax.scan``; no
@@ -26,7 +30,7 @@ from ..core.registry import register_op
 from ..kernels import fused_lstm
 from .sequence_ops import time_mask
 
-__all__ = ["dynamic_lstm", "lstmp", "dynamic_gru", "takes_lstm_kernels"]
+__all__ = ["dynamic_lstm", "lstmp", "dynamic_gru"]
 
 _ACT = {
     "sigmoid": torch.sigmoid, "tanh": torch.tanh,
@@ -51,12 +55,6 @@ def _kernel_contract(attrs, use_peep: bool, w_proj) -> bool:
 def _fused_lstm_ok(ctx, attrs, use_peep: bool, w_proj) -> bool:
     return (_kernel_contract(attrs, use_peep, w_proj) and ctx is not None
             and getattr(ctx, "mesh", None) is None)
-
-
-def takes_lstm_kernels(attrs) -> bool:
-    """Whether a ``dynamic_lstm`` op of these attrs runs
-    ``LSTMSequence`` (the kernels, on the card) under the Executor."""
-    return _kernel_contract(attrs, attrs.get("use_peepholes", False), None)
 
 
 def _lstm_scan(ins, attrs, w_proj=None, pact=None, ctx=None):

@@ -30,7 +30,13 @@ JAX package's float32 ones.
 
 Then the port counterparts of tests/test_loop_amp.py's AMP tests, a
 bf16 fetch (eager and lazy), the Trainer's checkpoint of an AMP program,
-and the refusals of ops whose kernels have no bfloat16 version.
+the refusals of ops whose kernels have no bfloat16 version, and the LSTM
+under AMP: the stacked LSTM's program builds and trains (its numbers
+against the JAX package are tests/test_torch_lstm_bf16.py's), and a
+peephole ``dynamic_lstm``, which no kernel takes, runs the scan in
+bfloat16 as the JAX package's ``lax.scan`` does (every fetch's dtype
+exactly, the loss within AMP_LOSS_RTOL, the LSTM's hidden output within
+2^-7 max|jax| + 2^-7 |jax|, each float32 gradient within AMP_GRAD_RTOL).
 """
 
 import glob
@@ -379,20 +385,12 @@ def test_step_contract_and_trainer_checkpoint_under_amp(tmp_path):
 def _refused_program(what):
     """(main, startup, loss, feed) of a small program whose step needs
     `what`: conv2d + batch_norm + relu (the Executor's fusion pass makes
-    it one fused_conv2d), a fused_bottleneck block, the stacked LSTM
-    (dynamic_lstm over LSTMSequence), a paged_attention op."""
-    from paddle_tpu_torch.models import stacked_dynamic_lstm
-
+    it one fused_conv2d), a fused_bottleneck block, a paged_attention
+    op."""
     tprog.reset_unique_names()
     main, startup = pt.Program(), pt.Program()
     rng = np.random.RandomState(0)
     with pt.program_guard(main, startup):
-        if what == "dynamic_lstm":
-            loss = stacked_dynamic_lstm.get_model(
-                dict_size=100, lstm_size=32, emb_dim=16, use_fused=True)[0]
-            return main, startup, loss, {
-                "words": rng.randint(0, 100, (2, 8)).astype("int64"),
-                "label": rng.randint(0, 2, (2, 1)).astype("int64")}
         img = pt.layers.data("img", [16, 8, 8])
         if what == "fused_bottleneck":
             out = pt.layers.fused_bottleneck(img, ch_out=4)
@@ -413,7 +411,7 @@ def _refused_program(what):
 
 
 @pytest.mark.parametrize("what", ["fused_conv2d", "fused_bottleneck",
-                                  "dynamic_lstm", "paged_attention"])
+                                  "paged_attention"])
 def test_amp_refuses_ops_without_a_bf16_kernel(what):
     """Under AMP an op whose kernels have no bfloat16 version raises
     "not ported", naming the op, when the step is built, on every device
@@ -427,6 +425,86 @@ def test_amp_refuses_ops_without_a_bf16_kernel(what):
     main.amp_dtype = "bfloat16"
     with pytest.raises(NotImplementedError, match=f"{what}.*not ported"):
         exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+
+
+def test_amp_lstm_program_builds_and_trains():
+    """The stacked LSTM (dynamic_lstm over LSTMSequence, whose bf16 kernels
+    the card runs) under AMP: the step builds, the loss comes back as
+    bfloat16 widened to float32 and falls over Adam steps on one feed,
+    and the masters stay float32."""
+    from paddle_tpu_torch.models import stacked_dynamic_lstm
+
+    tprog.reset_unique_names()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        loss = stacked_dynamic_lstm.get_model(
+            dict_size=100, lstm_size=32, emb_dim=16, use_fused=True)[0]
+    main.amp_dtype = "bfloat16"
+    rng = np.random.RandomState(0)
+    feed = {"words": rng.randint(0, 100, (4, 8)).astype("int64"),
+            "label": rng.randint(0, 2, (4, 1)).astype("int64")}
+    exe, scope = pt.Executor(pt.CPUPlace()), pt.Scope()
+    exe.run(startup, scope=scope)
+    losses = []
+    for _ in range(6):
+        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        assert out.dtype == np.float32
+        losses.append(float(out.reshape(-1)[0]))
+    assert np.isfinite(losses).all() and min(losses[1:]) < losses[0]
+    for p in main.global_block.all_parameters():
+        assert scope.find_var(p.name).dtype == torch.float32, p.name
+
+
+def _peephole_program(pkg, prog_mod):
+    prog_mod.reset_unique_names()
+    main, startup = pkg.Program(), pkg.Program()
+    with pkg.program_guard(main, startup):
+        words = pkg.layers.data(name="words", shape=[1], lod_level=1,
+                                dtype="int64")
+        label = pkg.layers.data(name="label", shape=[1], dtype="int64")
+        emb = pkg.layers.embedding(input=words, size=[100, 16])
+        proj = pkg.layers.fc(input=emb, size=4 * 32)
+        hidden, _ = pkg.layers.dynamic_lstm(proj, size=4 * 32,
+                                            use_peepholes=True)
+        last = pkg.layers.sequence_pool(hidden, "last")
+        prob = pkg.layers.fc(input=last, size=2, act="softmax")
+        loss = pkg.layers.mean(pkg.layers.cross_entropy(input=prob,
+                                                        label=label))
+        pkg.optimizer.SGDOptimizer(learning_rate=0.1).minimize(loss)
+    main.amp_dtype = "bfloat16"
+    return main, startup, loss, hidden
+
+
+def test_amp_peephole_lstm_runs_the_bf16_scan_as_jax_does():
+    jmain, jstart, jloss, jhidden = _peephole_program(jpt, jprog)
+    tmain = _peephole_program(pt, tprog)[0]
+    exe, jscope = jpt.Executor(), JScope()
+    exe.run(jstart, scope=jscope)
+    start = {v.name: np.array(jscope.find_var(v.name))
+             for v in jmain.global_block.vars.values() if v.persistable}
+    params = [p.name for p in jmain.global_block.all_parameters()]
+    rng = np.random.RandomState(3)
+    lens = rng.randint(1, 9, 4)
+    lens[0], lens[1] = 1, 8
+    feed = {"words": [rng.randint(0, 100, (n, 1)).astype("int64")
+                      for n in lens],
+            "label": rng.randint(0, 2, (4, 1)).astype("int64")}
+    fetch = [jloss.name, jhidden.name] + [p + "@GRAD" for p in params]
+    jout = exe.run(jmain, feed=feed, fetch_list=fetch, scope=jscope)
+    tout = pt.Executor(pt.CPUPlace()).run(
+        tmain, feed=feed, fetch_list=fetch,
+        scope=tio.scope_from_numpy(start, "cpu"), return_numpy=False)
+    assert [_dtype_name(t) for t in tout] == [
+        _dtype_name(np.asarray(j)) for j in jout]
+    assert _dtype_name(tout[1]) == "bfloat16"
+    got = [t.float().numpy() for t in tout]
+    want = [np.asarray(j).astype(np.float32) for j in jout]
+    np.testing.assert_allclose(got[0].reshape(-1)[0], want[0].reshape(-1)[0],
+                               rtol=AMP_LOSS_RTOL)
+    lim = 2.0 ** -7 * (np.abs(want[1]).max() + np.abs(want[1]))
+    assert (np.abs(got[1] - want[1]) <= lim).all()
+    for p, g, w in zip(params, got[2:], want[2:]):
+        assert _rel(g, w) <= AMP_GRAD_RTOL, (p, _rel(g, w))
 
 
 def test_amp_dtype_other_than_bfloat16_is_not_ported():

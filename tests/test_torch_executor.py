@@ -33,7 +33,6 @@ from paddle_tpu_torch import io as tio
 from paddle_tpu_torch.core import program as tprog
 from paddle_tpu_torch.core.types import torch_dtype
 from paddle_tpu_torch.models import transformer as ttfm
-from paddle_tpu_torch.models import stacked_dynamic_lstm as tlstm
 
 torch.set_num_threads(2)
 
@@ -334,10 +333,13 @@ def test_what_is_not_ported_raises(what):
             emb = pt.layers.embedding(ids, [10, 8], is_sparse=True)
             avg = pt.layers.mean(emb)
         elif what == "amp":
-            # mixed precision is ported, but not over the LSTM kernels,
-            # which have no bfloat16 version
-            avg = tlstm.get_model(dict_size=100, lstm_size=32, emb_dim=16,
-                                  use_fused=True)[0]
+            # mixed precision is ported, but not over the conv epilogue's
+            # kernels (the fusion pass makes conv2d + batch_norm + relu one
+            # fused_conv2d), which have no bfloat16 version
+            img = pt.layers.data("img", [16, 8, 8])
+            avg = pt.layers.mean(pt.layers.batch_norm(pt.layers.conv2d(
+                img, num_filters=4, filter_size=3, padding=1,
+                bias_attr=False), act="relu"))
         else:
             avg, _ = ttfm.transformer_lm_loss(**kw)
         if what == "op":
@@ -348,8 +350,7 @@ def test_what_is_not_ported_raises(what):
             else _feeds(0))
     if what == "amp":
         main.amp_dtype = "bfloat16"
-        feed = {"words": np.ones((2, 8), np.int64),
-                "label": np.zeros((2, 1), np.int64)}
+        feed = {"img": np.ones((2, 16, 8, 8), np.float32)}
     with pytest.raises(NotImplementedError, match="not ported"):
         exe.run(main, feed=feed, fetch_list=[avg], scope=scope)
 

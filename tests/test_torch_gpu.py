@@ -22,7 +22,12 @@ sum of the chain within 1e-5 of the sum of its terms' magnitudes. The
 bf16 flash kernels: O, dQ, dK and dV within 2^-7 max|plain| + 2^-7
 |plain| of the plain versions (bf16's unit roundoff is 2^-8: their own
 rounding, and P's and dS's before their products), lse within 1e-4; an
-AMP step against the CPU within tests/test_torch_amp.py's limits.
+AMP step against the CPU within tests/test_torch_amp.py's limits. The
+bf16 LSTM kernels against their plain versions on the same bf16 inputs:
+rs, cs and dx within 2^-7 max|plain| + 2^-7 |plain| (a carry or a
+dgates element that rounds to the neighbouring bf16 value travels
+through the later steps), the float32 sums dw, db, dr0 and dc0 within
+2^-9 max|plain| + 2^-9 |plain| (scripts/lstm_bf16_arith.py).
 """
 
 import json
@@ -1133,6 +1138,16 @@ def _lstm_profiles() -> dict:
         fl.lstm_seq_bwd, fl.lstm_seq_bwd_reference,
         [_lstm_bwd_args(1000, 8, 128, None, s) for s in (15, 16)],
         "lstm_bwd_seq_kernel", BWD_TOL)
+    for t, b, h in LSTM_COUNT_SHAPES:
+        fwd = _bf16(_lstm_fwd_args(t, b, h, None, 17))
+        bwd = _bf16(_lstm_bwd_args(t, b, h, None, 18))
+        fl.lstm_seq_fwd(*fwd)
+        fl.lstm_seq_bwd(*bwd)
+        torch.cuda.synchronize()
+        out[f"fwd bf16 {t} {b} {h}"] = _kernels_of(
+            lambda: fl.lstm_seq_fwd(*fwd), 3)
+        out[f"bwd bf16 {t} {b} {h}"] = _kernels_of(
+            lambda: fl.lstm_seq_bwd(*bwd), 3, 3)
     return out
 
 
@@ -1317,6 +1332,164 @@ def test_lstm_step_on_the_card_matches_the_cpu(cuda):
         if not ("_moment" in n or "_pow_acc" in n):
             got, want = got - start[n], want - start[n]
         assert rms(got - want) <= 1e-3 * rms(want), n
+
+
+# ---------------------------------------------------------------------------
+# the bf16 LSTM kernels (csrc/fused_lstm_bf16.cu)
+# ---------------------------------------------------------------------------
+
+BF16_REL, LSTM_SUM_REL = 2.0 ** -7, 2.0 ** -9
+
+
+def _bf16(args):
+    return [a.bfloat16() for a in args]
+
+
+def _share(got, want, rel) -> float:
+    """Largest |got - want| over rel max|want| + rel |want|."""
+    got, want = got.float(), want.float()
+    assert bool(torch.isfinite(got).all())
+    lim = rel * want.abs().max() + rel * want.abs()
+    return float(((got - want).abs() / lim).max())
+
+
+def _ragged(t, b, seed):
+    lens = torch.randint(1, t + 1, (b,),
+                         generator=torch.Generator().manual_seed(seed))
+    lens[0], lens[-1] = 1, t
+    return lens.tolist()
+
+
+@pytest.mark.parametrize("t,b,h,ragged", [
+    (100, 64, 512, False), (100, 64, 512, True),   # the bench shape
+    (7, 8, 128, True), (5, 3, 8, True), (1, 1, 8, False),
+    (9, 40, 136, True),    # H not a multiple of the 8- and 16-unit blocks
+    (8, 4, 16, True),
+    # past one row tile a block: two tiles a block in turn each step
+    (20, 200, 512, True), (3, 130, 64, False),
+])
+def test_lstm_bf16_kernels_match_plain(cuda, t, b, h, ragged):
+    d = _lstm_case(torch.Generator().manual_seed(t + b + h + 1), t, b, h,
+                   _ragged(t, b, t + b) if ragged else None)
+    d = {k: v.bfloat16() for k, v in d.items()}
+    fwd = [d[k] for k in ("x", "w", "b", "mask", "r0", "c0")]
+    before = (fl.lstm_seq_fwd.launches, fl.lstm_seq_fwd_bf16.launches)
+    rs, cs = fl.lstm_seq_fwd(*fwd)   # the float32 wrapper hands them on
+    assert (fl.lstm_seq_fwd.launches, fl.lstm_seq_fwd_bf16.launches) == (
+        before[0], before[1] + 1)
+    rrs, rcs = fl.lstm_seq_fwd_reference(*fwd)
+    assert rs.dtype == cs.dtype == torch.bfloat16
+    assert _share(rs, rrs, BF16_REL) <= 1 and _share(cs, rcs, BF16_REL) <= 1
+    r_prevs = torch.cat([d["r0"][None], rrs[:-1]])
+    c_prevs = torch.cat([d["c0"][None], rcs[:-1]])
+    bwd = fwd[:4] + [r_prevs, c_prevs, d["drs"], d["dcs"]]
+    got = fl.lstm_seq_bwd_bf16(*bwd)
+    want = fl.lstm_seq_bwd_reference(*bwd)
+    assert [g.dtype for g in got] == [torch.bfloat16] + [torch.float32] * 4
+    assert _share(got[0], want[0], BF16_REL) <= 1
+    for name, g, w in zip(("dw", "db", "dr0", "dc0"), got[1:], want[1:]):
+        assert _share(g, w, LSTM_SUM_REL) <= 1, name
+
+
+@pytest.mark.parametrize("t,b,h", [(100, 64, 512), (20, 200, 512)])
+def test_lstm_bf16_kernels_give_the_same_bits_twice(cuda, t, b, h):
+    """Every sum in a fixed order, no atomics."""
+    lens = _ragged(t, b, 3)
+    fwd = _bf16(_lstm_fwd_args(t, b, h, lens, 19))
+    bwd = _bf16(_lstm_bwd_args(t, b, h, lens, 20))
+    for run, args in ((fl.lstm_seq_fwd_bf16, fwd), (fl.lstm_seq_bwd_bf16,
+                                                    bwd)):
+        first = run(*args)
+        again = run(*args)
+        for x, y in zip(first, again):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("t,b,h", LSTM_COUNT_SHAPES)
+def test_lstm_bf16_forward_is_one_launch_a_call(lstm_profiles, t, b, h):
+    kernels = lstm_profiles[f"fwd bf16 {t} {b} {h}"]
+    assert len(kernels) == 3, kernels
+    assert all("lstm_fwd_seq_bf16_kernel" in k for k in kernels), kernels
+
+
+@pytest.mark.parametrize("t,b,h", LSTM_COUNT_SHAPES)
+def test_lstm_bf16_backward_is_three_launches_a_call(lstm_profiles, t, b,
+                                                     h):
+    """The gates' recompute, the recurrence's one cooperative launch and
+    dW."""
+    kernels = lstm_profiles[f"bwd bf16 {t} {b} {h}"]
+    assert len(kernels) == 9, kernels
+    for name in ("lstm_bwd_seq_bf16_kernel", "lstm_bwd_gemm_bf16_kernel<true>",
+                 "lstm_bwd_gemm_bf16_kernel<false>"):
+        assert sum(name in k for k in kernels) == 3, (name, kernels)
+
+
+def test_lstm_bf16_wrappers_never_fall_back(cuda, monkeypatch):
+    """With the plain versions patched to raise, LSTMSequence on bf16
+    tensors runs the bf16 kernels forward and backward, counts one launch
+    of each and none of the float32 kernels; a build or a launch that
+    fails raises."""
+    def boom(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    monkeypatch.setattr(fl, "lstm_seq_fwd_reference", boom)
+    monkeypatch.setattr(fl, "lstm_seq_bwd_reference", boom)
+    d = _lstm_case(torch.Generator().manual_seed(21), 6, 8, 32,
+                   [6, 1, 3, 5, 2, 6, 4, 1])
+    d = {k: v.bfloat16() for k, v in d.items()}
+    x = d["x"].requires_grad_(True)
+    w = d["w"].requires_grad_(True)
+    names = ("lstm_seq_fwd", "lstm_seq_bwd", "lstm_seq_fwd_bf16",
+             "lstm_seq_bwd_bf16")
+    before = [getattr(fl, n).launches for n in names]
+    rs, cs = fl.lstm_sequence(x, w, d["b"], d["mask"], d["r0"], d["c0"])
+    (rs.float().sum() + 0.5 * cs.float().sum()).backward()
+    torch.cuda.synchronize()
+    assert x.grad.dtype == w.grad.dtype == torch.bfloat16
+    assert bool(torch.isfinite(x.grad.float()).all())
+    assert [getattr(fl, n).launches - b for n, b in zip(names, before)] == [
+        0, 0, 1, 1]
+    args = [d[k] for k in ("x", "w", "b", "mask", "r0", "c0")]
+
+    def nvcc_fails(*a, **k):
+        raise RuntimeError("nvcc failed for fused_lstm_bf16.cu")
+
+    monkeypatch.setattr(build, "bind", nvcc_fails)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        fl.lstm_seq_fwd_bf16(*args)
+    monkeypatch.setattr(build, "bind", lambda *a, **k: lambda *b: 719)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fl.lstm_seq_fwd_bf16(*args)
+
+
+def test_lstm_bf16_kernels_refuse_what_they_do_not_take(cuda):
+    """Mixed dtypes, H not a multiple of 8, H past 512, a batch past the
+    plans' row tiles, and an input off 16 bytes raise, naming what is
+    wrong; there is no other bf16 path."""
+    def args(t, b, h, seed=22):
+        return _bf16(_lstm_fwd_args(t, b, h, None, seed))
+
+    fwd = args(4, 2, 16)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fl.lstm_seq_fwd(fwd[0], fwd[1].float(), *fwd[2:])
+    with pytest.raises(TypeError, match="bfloat16"):
+        fl.lstm_seq_fwd_bf16(*fwd[:3], fwd[3].float(), *fwd[4:])
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fl.lstm_seq_fwd(*args(4, 2, 20))
+    with pytest.raises(ValueError, match="H <= 512"):
+        fl.lstm_seq_fwd(*args(2, 2, 520))
+    with pytest.raises(ValueError, match="H <= 512"):
+        fl.lstm_seq_fwd(*args(1, 9000, 512))
+    r0 = fwd[4]
+    buf = torch.zeros(r0.numel() + 1, dtype=r0.dtype, device=r0.device)
+    view = buf[1:].view(r0.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fl.lstm_seq_fwd(*fwd[:4], view, fwd[5])
+    bwd = _bf16(_lstm_bwd_args(4, 2, 16, None, 23))
+    with pytest.raises(TypeError, match="bfloat16"):
+        fl.lstm_seq_bwd(*bwd[:7], bwd[7].float())
+    with pytest.raises(ValueError, match="H <= 512"):
+        fl.lstm_seq_bwd(*_bf16(_lstm_bwd_args(1, 4000, 512, None, 24)))
 
 
 def _chain_case(gen, n, cin, c, h, w=None):
