@@ -179,7 +179,27 @@ no result line:
    startup state on the card and on the CPU: losses within
    AMP_LOSS_RTOL, masters within LSTM_AMP_STEP_ATOL (5 lr), each
    parameter's update within AMP_UPDATE_RTOL (rms);
-19. print the kernels' JSON line, the card line and the result line.
+19. train ResNet-50 in bf16 at full width: the bench's bf16 program
+   (resnet.get_model(dtype="bfloat16"): a bf16 data var, float32
+   masters; bench.py bench_resnet's TPU arm) through the Executor, on
+   phase 7's float32 feed, which the Executor casts to the data var's
+   dtype: startup, one warm-up step and RESNET_STEPS timed steps, the
+   bf16 epilogue kernels' launches held to the fused program's 17 / 13 /
+   4 a step and the float32 ones' to none, finite and falling losses,
+   every parameter, velocity and running stat still float32, images/s,
+   peak memory, one step's launches and device time by class, the
+   inference clone's predictions finite; then phase 7's float32 program
+   timed in this run, and the same program under amp_dtype "bfloat16"
+   (a warm-up and RESNET_STEPS steps, the same launch counts and float32
+   state, ms a step);
+20. take two Momentum steps of ResNet-50 cut to one bottleneck block a
+   stage (full width, phase 8's 64 px, 102 classes, batch 4) as a bf16
+   program from one startup state on the card and on the CPU, and as a
+   float32 program on the CPU: the step-0 loss within AMP_LOSS_RTOL, the
+   first-step gradients, the updates after two steps and the running
+   stats within BF16_SPREAD times what float32 reads against bf16 on the
+   CPU, each limit under BF16_CEILING, and every master float32;
+21. print the kernels' JSON line, the card line and the result line.
 
 Phase 3 also holds the three bf16 flash kernels (forward, dQ, dK/dV;
 csrc/flash_attention_bf16.cu) against their plain versions at
@@ -190,6 +210,14 @@ cores' rate and SDPA in bf16 (its forward; its backward alone, its
 device time over a graph built once, beside dQ and dK/dV). All three
 run on wgmma, fed by TMA through mbarrier rings in warp-specialised
 blocks (csrc/sm90.cuh).
+Phase 3 also holds the three bf16 conv-epilogue kernels (stats, apply,
+apply with an addend; csrc/fused_conv.cu's bf16 instances) against their
+plain versions at the same nine shapes on bf16 inputs: y bit for bit
+(its share of BF16_REL max|plain| + BF16_REL |plain| printed), the
+float32 sums within the float32 kernel's limits,
+two stats calls the same bits; each timed beside its plain version, its
+bound over bf16 bytes, torch.var_mean and F.batch_norm in bf16, with
+device ms a launch, launches a call and host us a call.
 Phase 3 also holds the two LSTM kernels against their plain versions at
 the bench shape (T 100, B 64, H 512), full-length and ragged, timed
 beside their bounds (3xTF32, with the f32 FMA bounds beside them) and
@@ -362,6 +390,19 @@ RESNET_STEPS = 6
 # (LOSS_RTOL, PARAM_ATOL, STATE_RTOL)
 RESNET_REDUCED = dict(image=64, class_dim=102, batch=4)
 PERTURB, SPREAD = 3e-7, 3.0
+# card vs CPU in bf16 (phase 20): ResNet-50's stem and four stages at
+# full width, cut to one bottleneck block a stage, at RESNET_REDUCED's
+# shape. At full depth bf16 ResNet-50 is chaotic at init: one bf16 step
+# on one pixel in 64 moves its first-step gradients by more than the 1.0
+# (relative rms) of a step that computes nothing, so no limit there could
+# fail (scripts/resnet_bf16_spread_cpu.py). Cut to a block a stage, the
+# CPU's float32 run reads about 0.33 against its bf16 run. The card's
+# bf16 run and the CPU's each sit about that far from float32, so they
+# may sit BF16_SPREAD times as far apart; a limit at BF16_CEILING or
+# above fails the phase, as it could not tell a step that updates
+# nothing (1.0) or sees half the batch (about 1.45) from a right one
+RESNET_BF16_BLOCKS = (1, 1, 1, 1)
+BF16_SPREAD, BF16_CEILING = 2.0, 0.8
 # bench.py bench_lstm's TPU arm (bench.py:611-663), in float32
 LSTM = dict(dict_size=30000, emb_dim=512, lstm_size=512, batch=64,
             seq_len=100)
@@ -453,6 +494,35 @@ def device_host(torch, fn, n: int = 20, queued: int = 200):
     host = (time.perf_counter() - t0) / queued * 1e6
     torch.cuda.synchronize()
     return device, launches, host
+
+
+def graph_device_ms(torch, fn, n: int = 20, replays: int = 5):
+    """Device ms a call of fn, from a CUDA graph of n calls replayed
+    `replays` times between two events (no host time between the
+    launches); None if fn cannot be captured. For wrappers whose launch
+    needs no host sync (the epilogue kernels)."""
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()   # the stream's scratch exists before the capture
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(n):
+                fn()
+        graph.replay()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (replays * n)
+    except RuntimeError:
+        torch.cuda.synchronize()
+        return None
 
 
 def bound_ms(nbytes: float, flops: float, rate: float = F32_FLOPS_PER_S):
@@ -896,12 +966,16 @@ def kernel_class(name: str) -> str:
                     f"(port kernel)")
     if "chain_stats_final_kernel" in n or "split_sum_kernel" in n:
         return "chain sums finalize (port kernel)"
-    if "channel_stats_kernel<" in n:
-        return "fused_conv_channel_stats (port kernel)"
-    if "apply_kernel<true" in n:
-        return "fused_conv_apply_add (port kernel)"
-    if "apply_kernel<false" in n:
-        return "fused_conv_apply (port kernel)"
+    # the epilogue kernels are templates on the element type: float, or
+    # bfloat16 as its bits (unsigned short)
+    epi = re.search(r"(channel_stats|apply)_kernel<(float|unsigned short)"
+                    r"(, (true|false))?", n)
+    if epi:
+        name = ("fused_conv_channel_stats" if epi.group(1) == "channel_stats"
+                else "fused_conv_apply" + ("_add" if epi.group(4) == "true"
+                                           else ""))
+        return name + ("_bf16" if epi.group(2) != "float" else "") + \
+            " (port kernel)"
     if "paged_split_kernel" in n:
         return "paged_decode_attention (port kernel)"
     for kernel in ("fwd", "dq", "dkv"):
@@ -2243,12 +2317,25 @@ def epilogue_launches_per_step(fused):
             "apply_epilogue_add": with_add}
 
 
-def check_epilogue(torch, F, fc, card, ops):
+def bits_differ(torch, got, want) -> float:
+    """The share of elements of two bfloat16 tensors whose bits differ."""
+    return float((got.view(torch.int16) != want.view(torch.int16))
+                 .float().mean())
+
+
+def check_epilogue(torch, F, fc, card, ops, bf16: bool = False):
     """The three epilogue kernels vs their plain versions at every
     distinct epilogue shape of the path; the kernels line reports stats
     and apply at the first op's shape (the stem) and apply + add at the
-    first shortcut's, the largest of each on the path."""
+    first shortcut's, the largest of each on the path. bf16: the bfloat16
+    kernels (their wrappers' names end in _bf16) on bfloat16 a and
+    addend: y bit for bit the plain version's (its share of BF16_REL
+    max|plain| + BF16_REL |plain| printed), the float32 sums as
+    the float32 kernel's, bounds over bfloat16 bytes, the yardsticks in
+    bfloat16."""
     gen = torch.Generator(device="cuda").manual_seed(6)
+    sfx, esize = ("_bf16", 2) if bf16 else ("", 4)
+    fn = {k: getattr(fc, k + sfx) for k in EPILOGUE_KERNELS}
     shapes = list(dict.fromkeys(shape for shape, _, _ in ops))
     relu_of = {}
     for shape, relu, add in ops:
@@ -2262,11 +2349,13 @@ def check_epilogue(torch, F, fc, card, ops):
         s, m = h * w, n * h * w
         a = torch.randn(n, c, s, device="cuda", generator=gen) + 0.5
         d = torch.randn(n, c, s, device="cuda", generator=gen)
+        if bf16:
+            a, d = a.bfloat16(), d.bfloat16()
         gamma = torch.rand(c, device="cuda", generator=gen) + 0.5
         beta = 0.1 * torch.randn(c, device="cuda", generator=gen)
-        ssum, ssq = fc.channel_stats(a)
+        ssum, ssq = fn["channel_stats"](a)
         rsum, rsq = fc.channel_stats_reference(a)
-        abs_sum = a.abs().sum(dim=(0, 2))
+        abs_sum = a.float().abs().sum(dim=(0, 2))
         var_k = ssq / m - torch.square(ssum / m)
         var_p = rsq / m - torch.square(rsum / m)
         torch.cuda.synchronize()
@@ -2275,49 +2364,66 @@ def check_epilogue(torch, F, fc, card, ops):
               and bool(((var_k - var_p).abs() <= STATS_RTOL * rsq / m)
                        .all()))
         if not ok:
-            raise RuntimeError(f"channel_stats disagrees with its plain "
-                               f"version at {shape}")
+            raise RuntimeError(f"channel_stats{sfx} disagrees with its "
+                               f"plain version at {shape}")
         errs["channel_stats"].append(float(torch.maximum(
             (ssum - rsum).abs().max(), (ssq - rsq).abs().max())) / m)
         inv = torch.rsqrt(torch.clamp_min(var_p, 0.0) + 1e-5)
         scale_c = gamma * inv
         shift_c = beta - rsum / m * scale_c
         relu = relu_of.get(shape, True)
-        y = fc.apply_epilogue(a, scale_c, shift_c, relu)
+        y = fn["apply_epilogue"](a, scale_c, shift_c, relu)
         ry = fc.apply_epilogue_reference(a, scale_c, shift_c, None, relu)
-        y2 = fc.apply_epilogue_add(a, scale_c, shift_c, d, True)
+        y2 = fn["apply_epilogue_add"](a, scale_c, shift_c, d, True)
         ry2 = fc.apply_epilogue_reference(a, scale_c, shift_c, d, True)
         torch.cuda.synchronize()
-        errs["apply_epilogue"].append(max_err(torch, y, ry, EPI_ATOL,
-                                              EPI_RTOL))
-        errs["apply_epilogue_add"].append(max_err(torch, y2, ry2, EPI_ATOL,
+        if bf16:
+            # one fused multiply-add and one rounding on both sides: the
+            # same bits, and the share of the bf16 limit printed
+            shares = [bf16_share(torch, y, ry), bf16_share(torch, y2, ry2)]
+            differ = (bits_differ(torch, y, ry), bits_differ(torch, y2, ry2))
+            if max(differ) > 0:
+                raise RuntimeError(f"the bf16 apply kernels disagree with "
+                                   f"their plain versions at {shape}: "
+                                   f"shares of y whose bits differ {differ}"
+                                   f", of the bf16 limit {shares}")
+            errs["apply_epilogue"].append(float((y.float() - ry.float())
+                                                .abs().max()))
+            errs["apply_epilogue_add"].append(float(
+                (y2.float() - ry2.float()).abs().max()))
+        else:
+            errs["apply_epilogue"].append(max_err(torch, y, ry, EPI_ATOL,
                                                   EPI_RTOL))
+            errs["apply_epilogue_add"].append(max_err(torch, y2, ry2,
+                                                      EPI_ATOL, EPI_RTOL))
         del y, ry, y2, ry2
         elems = n * c * s
-        bounds = {"channel_stats": bound_ms(4 * elems + 8 * c, 3 * elems),
-                  "apply_epilogue": bound_ms(8 * elems + 8 * c,
+        bounds = {"channel_stats": bound_ms(esize * elems + 8 * c,
+                                            3 * elems),
+                  "apply_epilogue": bound_ms(2 * esize * elems + 8 * c,
                                              (2 + relu) * elems),
-                  "apply_epilogue_add": bound_ms(12 * elems + 8 * c,
+                  "apply_epilogue_add": bound_ms(3 * esize * elems + 8 * c,
                                                  4 * elems)}
-        calls = {"channel_stats": (lambda: fc.channel_stats(a),
+        calls = {"channel_stats": (lambda: fn["channel_stats"](a),
                                    lambda: fc.channel_stats_reference(a)),
                  "apply_epilogue": (
-                     lambda: fc.apply_epilogue(a, scale_c, shift_c, relu),
+                     lambda: fn["apply_epilogue"](a, scale_c, shift_c, relu),
                      lambda: fc.apply_epilogue_reference(
                          a, scale_c, shift_c, None, relu)),
                  "apply_epilogue_add": (
-                     lambda: fc.apply_epilogue_add(a, scale_c, shift_c, d),
+                     lambda: fn["apply_epilogue_add"](a, scale_c, shift_c,
+                                                      d),
                      lambda: fc.apply_epilogue_reference(a, scale_c,
                                                          shift_c, d, True))}
         ms = {k: cuda_ms(torch, f, 20) for k, (f, _) in calls.items()}
         plain = {k: cuda_ms(torch, r, 5) for k, (_, r) in calls.items()}
         # device ms a launch, launches a call, host us a call
         split = {k: device_host(torch, f) for k, (f, _) in calls.items()}
-        again = fc.channel_stats(a)
+        again = fn["channel_stats"](a)
         torch.cuda.synchronize()
         if not all(torch.equal(x, y) for x, y in zip((ssum, ssq), again)):
-            raise RuntimeError(f"channel_stats gives other bits on a second "
-                               f"call at {shape}")
+            raise RuntimeError(f"channel_stats{sfx} gives other bits on a "
+                               f"second call at {shape}")
         a4 = a.view(n, c, h, w)
         lib = {"channel_stats": cuda_ms(
                    torch, lambda: torch.var_mean(a, dim=(0, 2)), 20),
@@ -2326,14 +2432,31 @@ def check_epilogue(torch, F, fc, card, ops):
                                                True, 0.1, 1e-5), 20),
                "apply_epilogue_add": None}
         def apart(k):
+            # device time also from a CUDA graph of the calls (no host
+            # time between launches), beside the profiler's, which at
+            # times loses kernel events
             dev, launches, host = split[k]
+            graph = graph_device_ms(torch, calls[k][0])
+            graph = ("" if graph is None else
+                     f", CUDA graph {graph:.4f} ms a call")
             if dev is None:
-                return (f"device not measured (the profiles lost kernel "
-                        f"events), host {host:.1f} us a call")
+                return (f"device not measured by the profiler (it lost "
+                        f"kernel events){graph}, host {host:.1f} us a call")
             return (f"device {dev / launches:.4f} ms a launch x "
-                    f"{launches}, host {host:.1f} us a call")
+                    f"{launches}{graph}, host {host:.1f} us a call")
 
-        print(f"conv epilogue {list(shape)}: stats {ms['channel_stats']:.4f}"
+        if bf16:
+            tail = (f"largest share of the bf16 limit (BF16_REL "
+                    f"{BF16_REL}) apply {shares[0]:.4f}, add "
+                    f"{shares[1]:.4f}; y elements whose bits differ from "
+                    f"the plain version: apply {differ[0]:.2e}, add "
+                    f"{differ[1]:.2e}")
+        else:
+            tail = (f"apply {errs['apply_epilogue'][-1]:.3e}, add "
+                    f"{errs['apply_epilogue_add'][-1]:.3e} (tol atol "
+                    f"{EPI_ATOL} rtol {EPI_RTOL})")
+        print(f"conv epilogue{' bf16' * bf16} {list(shape)}: stats "
+              f"{ms['channel_stats']:.4f}"
               f" ms ({apart('channel_stats')}; plain "
               f"{plain['channel_stats']:.4f}, var_mean "
               f"{lib['channel_stats']:.4f}, bound "
@@ -2348,21 +2471,21 @@ def check_epilogue(torch, F, fc, card, ops):
               f"{ms['channel_stats'] + ms['apply_epilogue']:.4f} ms vs "
               f"F.batch_norm {lib['apply_epilogue']:.4f} ms; max_abs_err "
               f"E[a], E[a^2] {errs['channel_stats'][-1]:.3e} (tol rtol "
-              f"{STATS_RTOL}), apply {errs['apply_epilogue'][-1]:.3e}, "
-              f"add {errs['apply_epilogue_add'][-1]:.3e} (tol atol "
-              f"{EPI_ATOL} rtol {EPI_RTOL}) [{card}]")
+              f"{STATS_RTOL}), {tail} [{card}]")
         for k, sh in line.items():
             if sh == shape:
-                rows[k] = dict(ms=ms[k], plain_ms=plain[k],
-                               bound_ms=bounds[k][0], bound_by=bounds[k][1],
-                               library_ms=lib[k])
+                rows[k + sfx] = dict(ms=ms[k], plain_ms=plain[k],
+                                     bound_ms=bounds[k][0],
+                                     bound_by=bounds[k][1],
+                                     library_ms=lib[k])
         del a, d, a4
-    for k in rows:
-        rows[k]["max_abs_err"] = max(errs[k])
+    for k in line:
+        rows[k + sfx]["max_abs_err"] = max(errs[k])
     return rows
 
 
 EPILOGUE_KERNELS = ("channel_stats", "apply_epilogue", "apply_epilogue_add")
+EPILOGUE_BF16_KERNELS = tuple(k + "_bf16" for k in EPILOGUE_KERNELS)
 
 
 def resnet_path(np, torch, fc, card, built):
@@ -2539,6 +2662,272 @@ def resnet_card_vs_cpu(np, torch, card, seed: int):
     if bad:
         raise RuntimeError(f"ResNet card and CPU disagree beyond the "
                            f"chaos of a {PERTURB} input change: {bad}")
+
+
+def build_resnet50_bf16(pt, seed):
+    """The bench's bf16 program through the user's entry point
+    (resnet.get_model(dtype="bfloat16"): a bfloat16 data var, float32
+    masters), and its fused form as the Executor runs it."""
+    from paddle_tpu_torch.analysis import fuse
+    from paddle_tpu_torch.models import resnet
+
+    main_prog, startup = pt.Program(), pt.Program()
+    main_prog.random_seed = startup.random_seed = seed
+    with pt.program_guard(main_prog, startup):
+        avg, acc, predict, _ = resnet.get_model(
+            data_set=RESNET["data_set"], depth=RESNET["depth"],
+            dtype="bfloat16", fused_xent=True, learning_rate=RESNET["lr"])
+    fused = fuse.maybe_fuse(main_prog, protect=[avg.name, acc.name])
+    return dict(main=main_prog, startup=startup, avg=avg, acc=acc,
+                predict=predict, fused=fused)
+
+
+def resnet_bf16_path(np, torch, fc, card, built, seed: int):
+    """Phase 19: ResNet-50 trained in bf16 at full width, as the bench's
+    bf16 program and as phase 7's float32 program under amp_dtype
+    "bfloat16", with phase 7's float32 step timed in the same run.
+    Returns the bf16 epilogue kernels' launch counts of both runs."""
+    import paddle_tpu_torch as pt
+
+    b, img = RESNET["batch"], RESNET["image"]
+    bf = build_resnet50_bf16(pt, seed)
+    exe = pt.Executor()
+    # phase 7's feed, float32, uploaded once: the Executor casts the
+    # images to the bf16 data var's dtype at each step
+    feed = {k: torch.from_numpy(v).to(exe.device)
+            for k, v in resnet_varied(np, 0, b, img).items()}
+    names = EPILOGUE_KERNELS + EPILOGUE_BF16_KERNELS
+    per_step = {k + "_bf16": v for k, v in
+                epilogue_launches_per_step(bf["fused"]).items()}
+    for name in names:
+        getattr(fc, name).launches = 0
+
+    def train(main_prog, startup, avg, acc, what):
+        """A fresh scope: startup, a warm-up and RESNET_STEPS timed steps;
+        (scope, losses, ms a step, launches of the steps, peak GB)."""
+        scope = pt.Scope()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        exe.run(startup, scope=scope)
+        before = {k: getattr(fc, k).launches for k in names}
+        losses, accs, step_s = [], [], []
+        for _ in range(1 + RESNET_STEPS):
+            t0 = time.perf_counter()
+            loss, a = exe.run(main_prog, feed=feed, fetch_list=[avg, acc],
+                              scope=scope)
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(loss[0]))
+            accs.append(float(a[0]))
+        launches = {k: getattr(fc, k).launches - before[k] for k in names}
+        ms = 1e3 * sum(step_s[1:]) / RESNET_STEPS
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        print(f"{what}: losses {losses}, accuracies {accs}, warm-up step "
+              f"{1e3 * step_s[0]:.1f} ms, {RESNET_STEPS} timed steps "
+              f"{[round(1e3 * x, 1) for x in step_s[1:]]} ms: {ms:.3f} ms "
+              f"per step, {b / ms * 1e3:.1f} images/s, peak memory "
+              f"{peak:.2f} GB [{card}]")
+        return scope, losses, ms, launches, peak
+
+    def classes_of(what, main_prog, scope):
+        """One step's launches and device ms by kernel class."""
+        n_launch, dev_ms, classes = launch_profile(torch, lambda: exe.run(
+            main_prog, feed=feed, fetch_list=[], scope=scope))
+        print(f"{what}, one step profiled: {n_launch} kernel launches, "
+              f"device {dev_ms:.3f} ms: " + ", ".join(
+                  f"{c} {m:.3f} ms / {k}" for c, (k, m) in
+                  sorted(classes.items(), key=lambda kv: -kv[1][1]))
+              + f" [{card}]")
+
+    def hold(what, scope, losses, launches):
+        print(f"{what} launches: {launches}")
+        want = {k: per_step.get(k, 0) * (1 + RESNET_STEPS) for k in names}
+        if launches != want:
+            raise RuntimeError(f"epilogue launches {launches} on the {what}"
+                               f" path, expected {want} (the fused "
+                               f"program's fused_conv2d counts x "
+                               f"{1 + RESNET_STEPS} steps in bf16, none in "
+                               f"float32)")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise RuntimeError(f"{what} losses are not finite and falling: "
+                               f"{losses}")
+        # parameters, velocities, running stats: every float state float32
+        wide = [n for n in scope.local_var_names()
+                if scope.find_var(n).is_floating_point()
+                and scope.find_var(n).dtype != torch.float32]
+        if wide:
+            raise RuntimeError(f"{what}: state no longer float32: {wide}")
+
+    what = "resnet bf16 program (bench's TPU arm)"
+    scope, losses, ms_bf16, launches, peak = train(
+        bf["main"], bf["startup"], bf["avg"], bf["acc"], what)
+    hold(what, scope, losses, launches)
+    total = {k: launches[k] for k in EPILOGUE_BF16_KERNELS}
+    run = lambda: exe.run(bf["main"], feed=feed, fetch_list=[bf["avg"]],
+                          scope=scope)
+    classes_of("bf16 ResNet-50 step", bf["main"], scope)
+    wall, by_name, _ = profiled(torch, run, 1)
+    print_profile(f"bf16 ResNet-50 training step (batch {b}, {img} px)",
+                  wall, by_name, card)
+    name = bf["predict"].name
+    test = bf["main"].clone(for_test=True).prune([name])
+    pred, = exe.run(test, feed={"data": feed["data"]}, fetch_list=[name],
+                    scope=scope, return_numpy=False)
+    if not (bool(torch.isfinite(pred.float()).all())
+            and tuple(pred.shape) == (b, 1000)):
+        raise RuntimeError("the bf16 program's inference clone gives "
+                           "predictions that are not finite")
+    print(f"bf16 inference clone (BN folded into bf16 filters): "
+          f"predictions {tuple(pred.shape)} {pred.dtype}, finite [{card}]")
+    del scope, pred
+    # phase 7's float32 step in this run: the same feed, a fresh scope
+    scope, f32_losses, ms_f32, _, peak_f32 = train(
+        built["main"], built["startup"], built["avg"], built["acc"],
+        "phase 7's float32 program in this run")
+    classes_of("float32 ResNet-50 step (phase 7's program)", built["main"],
+               scope)
+    del scope
+    print(f"bf16 program {ms_bf16:.3f} ms a step against float32 "
+          f"{ms_f32:.3f}: {ms_f32 / ms_bf16:.3f}x its speed; peak memory "
+          f"{peak:.2f} against {peak_f32:.2f} GB [{card}]")
+    # the float32 program under AMP (float32 feeds and parameter leaves
+    # cast to bf16 at the step's entry)
+    built["main"].amp_dtype = "bfloat16"
+    try:
+        what = "resnet AMP (phase 7's program, amp_dtype bfloat16)"
+        scope, losses, ms_amp, launches, _ = train(
+            built["main"], built["startup"], built["avg"], built["acc"],
+            what)
+        hold(what, scope, losses, launches)
+        classes_of("AMP ResNet-50 step", built["main"], scope)
+    finally:
+        built["main"].amp_dtype = None
+    del scope
+    print(f"AMP step {ms_amp:.3f} ms against the bf16 program's "
+          f"{ms_bf16:.3f} and float32's {ms_f32:.3f} [{card}]")
+    return {k: total[k] + launches[k] for k in EPILOGUE_BF16_KERNELS}
+
+
+def build_resnet_cut(pt, seed, dtype, blocks=RESNET_BF16_BLOCKS):
+    """Phase 20's program: ResNet-50's stem and four stages at full width
+    (bottleneck blocks, 64-512 x 4 channels), `blocks` blocks a stage
+    ((3, 4, 6, 3) is ResNet-50's full depth), RESNET_REDUCED's image and
+    classes, Momentum at RESNET's lr,
+    the data var in `dtype`. Each build takes fresh name counters, so the
+    float32 and the bf16 program name their parameters alike."""
+    from paddle_tpu_torch.core.program import unique_name_guard
+    from paddle_tpu_torch.models import resnet
+
+    r = RESNET_REDUCED
+    main_prog, startup = pt.Program(), pt.Program()
+    main_prog.random_seed = startup.random_seed = seed
+    with unique_name_guard(), pt.program_guard(main_prog, startup):
+        x = pt.layers.data("data", [3, r["image"], r["image"]], dtype=dtype)
+        label = pt.layers.data("label", [1], dtype="int64")
+        h = resnet.conv_bn_layer(x, 64, 7, 2, 3)
+        h = pt.layers.pool2d(h, pool_type="max", pool_size=3, pool_stride=2,
+                             pool_padding=1)
+        for i, (width, count) in enumerate(zip((64, 128, 256, 512),
+                                               blocks)):
+            h = resnet.layer_warp(resnet.bottleneck, h, width, count,
+                                  1 if i == 0 else 2)
+        h = pt.layers.pool2d(h, pool_size=7, pool_type="avg",
+                             global_pooling=True)
+        logits = pt.layers.fc(h, size=r["class_dim"])
+        avg = pt.layers.mean(pt.layers.softmax_with_cross_entropy(logits,
+                                                                  label))
+        pt.optimizer.MomentumOptimizer(learning_rate=RESNET["lr"],
+                                       momentum=0.9).minimize(avg)
+    return main_prog, startup, avg
+
+
+def resnet_bf16_card_vs_cpu(np, torch, card, seed: int):
+    """Phase 20: build_resnet_cut's program as a bf16 program, two
+    Momentum steps from one startup state on the card and on the CPU,
+    beside the float32 program's two steps on the CPU from the same state
+    and images. Readings, each the card's bf16 run against the CPU's: the
+    step-0 loss (relative), within AMP_LOSS_RTOL; the first-step
+    gradients (the relative rms of all of them together, and the median
+    over the parameters of each one's), the parameters' updates after
+    two steps (the same two) and the running stats (together). Each of
+    these is held within BF16_SPREAD times the CPU float32 run's reading
+    against the CPU's bf16 run, and each such limit must come out under
+    BF16_CEILING. Every master stays float32. The images are centred."""
+    import paddle_tpu_torch as pt
+
+    r = RESNET_REDUCED
+    progs = {dtype: build_resnet_cut(pt, seed, dtype)
+             for dtype in ("bfloat16", "float32")}
+    main_prog, startup, _ = progs["bfloat16"]
+    params = [p.name for p in main_prog.global_block.all_parameters()]
+    cpu, gpu = pt.Executor(pt.CPUPlace()), pt.Executor()
+    scope0 = pt.Scope()
+    cpu.run(startup, scope=scope0)
+    names = sorted(scope0.local_var_names())
+    start = {n: scope0.get_numpy(n) for n in names}
+    stats = [n for n in names if n not in params and "velocity" not in n
+             and "learning_rate" not in n]
+    runs = {"cpu": (cpu, "bfloat16"), "card": (gpu, "bfloat16"),
+            "cpu, float32": (cpu, "float32")}
+    losses, grads, ends = {k: [] for k in runs}, {}, {}
+    for key, (exe, dtype) in runs.items():
+        prog, _, avg = progs[dtype]
+        sc = pt.Scope()
+        for n in names:
+            sc.set_var(n, scope0.find_var(n).to(exe.device, copy=True))
+        for i in range(2):
+            feed = resnet_varied(np, i, r["batch"], r["image"], center=0.5)
+            out = exe.run(prog, feed=feed, fetch_list=[avg] + (
+                [p + "@GRAD" for p in params] if i == 0 else []), scope=sc)
+            losses[key].append(float(out[0][0]))
+            if i == 0:
+                grads[key] = dict(zip(params, out[1:]))
+        wide = [p for p in params if sc.find_var(p).dtype != torch.float32]
+        if wide:
+            raise RuntimeError(f"masters no longer float32 ({key}): {wide}")
+        ends[key] = {n: sc.get_numpy(n) for n in names}
+    if not all(np.isfinite(v).all() for v in losses.values()):
+        raise RuntimeError(f"bf16 ResNet losses are not finite: {losses}")
+
+    def rel(a, b):
+        return rms(np, a - b) / rms(np, b)
+
+    def together(got, want, keys, base=None):
+        def cat(d):
+            return np.concatenate([(d[n] - (0 if base is None else base[n]))
+                                   .ravel() for n in keys])
+        return rel(cat(got), cat(want))
+
+    def readings(key):
+        g, wg = grads[key], grads["cpu"]
+        e, we = ends[key], ends["cpu"]
+        return {"gradients": together(g, wg, params),
+                "gradients, median": float(np.median(
+                    [rel(g[p], wg[p]) for p in params])),
+                "updates": together(e, we, params, start),
+                "updates, median": float(np.median(
+                    [rel(e[p] - start[p], we[p] - start[p])
+                     for p in params])),
+                "running stats": together(e, we, stats)}
+
+    loss0 = abs(losses["card"][0] - losses["cpu"][0]) / abs(losses["cpu"][0])
+    card_r, f32_r = readings("card"), readings("cpu, float32")
+    print(f"card vs CPU, bf16 ResNet-50 cut to {RESNET_BF16_BLOCKS} blocks "
+          f"a stage, {r['image']} px, batch {r['batch']}, 2 Momentum steps: "
+          f"losses {losses}; step-0 loss {loss0:.3e} relative (tol "
+          f"{AMP_LOSS_RTOL}) [{card}]")
+    bad = [] if loss0 <= AMP_LOSS_RTOL else ["step-0 loss"]
+    for k, got in card_r.items():
+        lim = BF16_SPREAD * f32_r[k]
+        print(f"  {k}: card - CPU {got:.4e} relative rms; CPU float32 - "
+              f"CPU bf16 {f32_r[k]:.4e}; limit {lim:.4e} (ceiling "
+              f"{BF16_CEILING})")
+        if not (got <= lim < BF16_CEILING):
+            bad.append(k)
+    if bad:
+        raise RuntimeError(f"bf16 ResNet card and CPU disagree beyond "
+                           f"{BF16_SPREAD} x what bf16 does against "
+                           f"float32, or the limit reached "
+                           f"{BF16_CEILING}: {bad}")
 
 
 def lstm_case(torch, t, b, h, lens, seed):
@@ -3936,8 +4325,9 @@ def main() -> int:
             "flash_attention_bwd_dq": dq_row,
             "flash_attention_bwd_dkv": dkv_row}
     rows.update(check_flash_bf16(torch, F, fa, card))
-    rows.update(check_epilogue(torch, F, fc, card,
-                               epilogue_ops(built["fused"], RESNET["batch"])))
+    ops = epilogue_ops(built["fused"], RESNET["batch"])
+    rows.update(check_epilogue(torch, F, fc, card, ops))
+    rows.update(check_epilogue(torch, F, fc, card, ops, bf16=True))
     rows.update(check_lstm(np, torch, fl, card, args.seed))
     rows.update(check_lstm_bf16(np, torch, fl, card, args.seed))
     rows.update(check_chain(torch, F, fb, card))
@@ -3970,6 +4360,8 @@ def main() -> int:
     amp_card_vs_cpu(np, torch, card, args.seed)
     launches.update(lstm_amp_path(np, torch, fl, card, args.seed))
     lstm_amp_card_vs_cpu(np, torch, card, args.seed)
+    launches.update(resnet_bf16_path(np, torch, fc, card, built, args.seed))
+    resnet_bf16_card_vs_cpu(np, torch, card, args.seed)
 
     meta = {"flash_attention_fwd": (
                 "paddle_tpu_torch/csrc/flash_attention.cu",
@@ -3998,6 +4390,13 @@ def main() -> int:
                                "paddle_tpu/kernels/fused_conv.py:137"),
             "apply_epilogue_add": ("paddle_tpu_torch/csrc/fused_conv.cu",
                                    "paddle_tpu/kernels/fused_conv.py:147"),
+            "channel_stats_bf16": ("paddle_tpu_torch/csrc/fused_conv.cu",
+                                   "paddle_tpu/kernels/fused_conv.py:85"),
+            "apply_epilogue_bf16": ("paddle_tpu_torch/csrc/fused_conv.cu",
+                                    "paddle_tpu/kernels/fused_conv.py:137"),
+            "apply_epilogue_add_bf16": (
+                "paddle_tpu_torch/csrc/fused_conv.cu",
+                "paddle_tpu/kernels/fused_conv.py:147"),
             "lstm_seq_fwd": ("paddle_tpu_torch/csrc/fused_lstm.cu",
                              "paddle_tpu/kernels/fused_lstm.py:78"),
             "lstm_seq_bwd": ("paddle_tpu_torch/csrc/fused_lstm.cu",

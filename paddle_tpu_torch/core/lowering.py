@@ -42,6 +42,7 @@ from typing import Dict, List, Optional, Sequence, Set
 
 import torch
 
+from ..ops.fused_ops import chain_requested
 from .program import Block, OpDesc, Program
 from .registry import ExecContext, require_op
 
@@ -57,11 +58,21 @@ _DRAWS = frozenset({"uniform_random", "gaussian_random"})
 # ops that would run a kernel with no bfloat16 version: under AMP they
 # raise when the step is built, not mid-step on the card
 _NO_BF16_KERNEL = {
-    "fused_conv2d": "the conv-epilogue kernels (csrc/fused_conv.cu)",
-    "fused_bottleneck": "the bottleneck chain's kernels",
     "paged_kv_write": "the paged decode path",
     "paged_attention": "the paged decode kernel (csrc/paged_attention.cu)",
 }
+
+
+def _no_bf16_kernel(op_type: str) -> Optional[str]:
+    """What of `op_type` has no bfloat16 kernel, or None. fused_bottleneck
+    composes in bfloat16, as the JAX package's `auto` does, unless
+    PT_FUSED_BLOCK asks for the chain, whose kernels are float32 only;
+    the check reads the env alone, not the device."""
+    if op_type == "fused_bottleneck":
+        if chain_requested():
+            return "the bottleneck chain's kernels (PT_FUSED_BLOCK=always)"
+        return None
+    return _NO_BF16_KERNEL.get(op_type)
 
 
 def _amp_dtype(program: Program) -> Optional[torch.dtype]:
@@ -76,7 +87,7 @@ def _amp_dtype(program: Program) -> Optional[torch.dtype]:
             f"program.amp_dtype={amp!r}: mixed precision in {amp} is not "
             "ported (bfloat16 is)")
     for op in program.global_block.ops:
-        what = _NO_BF16_KERNEL.get(op.type)
+        what = _no_bf16_kernel(op.type)
         if what is not None:
             raise NotImplementedError(
                 f"op {op.type!r} under amp_dtype='bfloat16': {what} have no "

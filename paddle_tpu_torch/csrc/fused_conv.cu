@@ -1,4 +1,4 @@
-// Conv-epilogue kernels for Hopper (sm_90a), float32.
+// Conv-epilogue kernels for Hopper (sm_90a), float32 and bfloat16.
 //
 // Replace the TPU kernels of paddle_tpu/kernels/fused_conv.py:
 //   channel_stats (Pallas body _stats_kernel): per-channel sum and sum of
@@ -8,30 +8,39 @@
 //     if asked;
 //   apply_epilogue with an addend (_apply_add_kernel): y = a * scale[c] +
 //     shift[c] + addend, then ReLU if asked.
+// Each in two instances, by the type of a (and of the addend and y): float
+// and bfloat16. The sums, scale and shift are float32 in both. A bfloat16
+// element is widened to float32 (exact), the arithmetic is float32, and y
+// is rounded once to bfloat16, to nearest with ties to even, where the
+// Pallas kernels round (out_ref[0] = y.astype(out_ref.dtype)).
 //
 // What bounds them on the H100: bytes. They do 2 to 4 flops per element
-// and move 4 (stats), 8 (apply) or 12 (apply with an addend) bytes for it,
-// so the reads and writes at 3.35 TB/s are the roof: at the ResNet-50 stem,
-// [128, 64, 112, 112], stats reads 411 MB (0.123 ms) and apply moves
-// 822 MB (0.245 ms); at [128, 512, 7, 7] stats reads 12.8 MB (0.0038 ms),
-// so there a launch's fixed costs count as much as the bytes.
+// and move 4 (stats), 8 (apply) or 12 (apply with an addend) bytes for it
+// in float32, half that in bfloat16, so the reads and writes at 3.35 TB/s
+// are the roof: at the ResNet-50 stem, [128, 64, 112, 112], float32 stats
+// reads 411 MB (0.123 ms) and apply moves 822 MB (0.245 ms), bfloat16 0.061
+// and 0.123 ms; at [128, 512, 7, 7] float32 stats reads 12.8 MB (0.0038
+// ms), so there a launch's fixed costs count as much as the bytes.
 //
 // What the design does about it. The TPU kernel holds a whole image in
 // VMEM and walks the batch as a sequential grid, carrying the sums from
 // step to step; an SM cannot hold an image, and blocks run in no order.
-// Both kernels here read a as a matrix of N rows of C*S floats (one image
-// a row) and cut it into column ranges of 4 * LANES floats: a thread owns
-// four columns, the same in every row, and walks the rows. A column's
-// channel, column / S, is fixed, so a thread finds its four channels once
-// and not once an element: at S = 49 or 196 a float4 that straddles two
-// channels costs nothing, and every lane of a warp reads 16 bytes of every
-// row whatever S is (a warp a row: 512 contiguous bytes). When C*S % 4 != 0
-// rows start off 16-byte alignment, and a thread reads its four columns as
-// scalars, 32 apart (LANES = 32). Rows are read U at a time, U independent
-// 16-byte loads a thread in flight before their arithmetic.
+// Both kernels here read a as a matrix of N rows of C*S elements (one
+// image a row) and cut it into column ranges of V * LANES elements, V the
+// elements of one 16-byte vector (4 float, 8 bfloat16): a thread owns V
+// columns, the same in every row, and walks the rows. A column's channel,
+// column / S, is fixed, so a thread finds its V channels once and not once
+// an element: at S = 49 or 196 a vector that straddles two channels costs
+// nothing, and every lane of a warp reads 16 bytes of every row whatever S
+// is (a warp a row: 512 contiguous bytes). When C*S % V != 0 rows start off
+// 16-byte alignment, and a thread reads its V columns as scalars, 32 apart
+// (LANES = 32). Rows are read U at a time, U independent 16-byte loads a
+// thread in flight before their arithmetic. The bfloat16 instances differ
+// from the float ones only in V and in the widening and rounding of each
+// element: the same blocks, rows a thread, plans and order of sums.
 //
 // Apply: a block takes a column range and a slice of rows; each thread
-// loads its four channels' scale and shift once, then reads a (and the
+// loads its V channels' scale and shift once, then reads a (and the
 // addend), computes fmaf(a, scale, shift) (+ addend) (then fmaxf with 0)
 // and writes y, element for element the same arithmetic as before.
 //
@@ -52,6 +61,7 @@
 // SM.
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <type_traits>
 
 #include "common.cuh"
@@ -61,19 +71,69 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kGroup = 256;      // channels a ticket
-constexpr int kMaxTouch = 8;     // tickets a block can hold: at most
-                                 // (1024 / S + 1) / 256 + 2 = 6
+constexpr int kMaxTouch = 16;    // tickets a block can hold: at most
+                                 // (8 * 256 / S + 1) / 256 + 2 = 10
 constexpr int kStatsRows = 8;    // rows a thread loads before adding them
 constexpr int kApplyRows = 4;    // rows a thread loads before computing
 
-// Offset of a thread's column i within its block's 4 * LANES columns.
-template <int LANES, bool VEC>
-__device__ __forceinline__ int column(int lane, int i) {
-  return VEC ? 4 * lane + i : lane + LANES * i;
-}
+typedef uint16_t bf16;  // the bits of one bfloat16
 
-// A 16-byte load through the read-only path.
-__device__ __forceinline__ float4 load4(const float4* p) { return __ldg(p); }
+// An element type: V of them in a 16-byte vector (read as a uint4), widened
+// to float and rounded back.
+template <class T>
+struct Elem;
+
+template <>
+struct Elem<float> {
+  static constexpr int V = 4;
+  __device__ static float widen(float x) { return x; }
+  __device__ static float narrow(float x) { return x; }
+  __device__ static void unpack(uint4 r, float (&v)[4]) {
+    v[0] = __uint_as_float(r.x);
+    v[1] = __uint_as_float(r.y);
+    v[2] = __uint_as_float(r.z);
+    v[3] = __uint_as_float(r.w);
+  }
+  __device__ static uint4 pack(const float (&v)[4]) {
+    return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                      __float_as_uint(v[2]), __float_as_uint(v[3]));
+  }
+};
+
+template <>
+struct Elem<bf16> {
+  static constexpr int V = 8;
+  __device__ static float widen(bf16 h) {
+    return __uint_as_float((uint32_t)h << 16);
+  }
+  // rounded to nearest, ties to even; a NaN stays a (quiet) NaN
+  __device__ static bf16 narrow(float x) {
+    const uint32_t u = __float_as_uint(x);
+    if ((u & 0x7fffffffu) > 0x7f800000u) return (bf16)((u >> 16) | 0x40u);
+    return (bf16)((u + 0x7fffu + ((u >> 16) & 1u)) >> 16);
+  }
+  __device__ static void unpack(uint4 r, float (&v)[8]) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      v[2 * k] = __uint_as_float(w[k] << 16);
+      v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+    }
+  }
+  __device__ static uint4 pack(const float (&v)[8]) {
+    uint32_t w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      w[k] = (uint32_t)narrow(v[2 * k]) | (uint32_t)narrow(v[2 * k + 1]) << 16;
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+
+// Offset of a thread's column i within its block's V * LANES columns.
+template <int V, int LANES, bool VEC>
+__device__ __forceinline__ int column(int lane, int i) {
+  return VEC ? V * lane + i : lane + LANES * i;
+}
 
 __device__ __forceinline__ void acc(float v, float& s1, float& s2) {
   s1 += v;
@@ -83,69 +143,74 @@ __device__ __forceinline__ void acc(float v, float& s1, float& s2) {
 // Channel sums of a [N, C*S] (row = image) into out [2, C]. part holds
 // the partials: part_k[P][nb + C] at part + k * L, the partial of (channel
 // c, column range b, slice p) at p * (nb + C) + b + c.
-template <int LANES, bool VEC>
+template <class T, int LANES, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-channel_stats_kernel(const float* __restrict__ a, float* __restrict__ out,
+channel_stats_kernel(const T* __restrict__ a, float* __restrict__ out,
                      int* __restrict__ tickets, float* __restrict__ part,
                      int N, int C, int S, int rows_per, long L) {
+  using El = Elem<T>;
+  constexpr int V = El::V;
   constexpr int R = kThreads / LANES;
-  constexpr int E = 4 * LANES;
+  constexpr int E = V * LANES;
   const long CS = (long)C * S;
   const int nb = gridDim.x, P = gridDim.y;
   const int b = blockIdx.x, p = blockIdx.y;
   const int t = threadIdx.x, lane = t % LANES, r = t / LANES;
   const long E0 = (long)b * E;
   const int n1 = min(N, (p + 1) * rows_per);
-  float s1[4] = {0.f, 0.f, 0.f, 0.f}, s2[4] = {0.f, 0.f, 0.f, 0.f};
+  float s1[V], s2[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) s1[i] = s2[i] = 0.f;
   if constexpr (VEC) {
-    const long e = E0 + 4 * lane;
+    const long e = E0 + V * lane;
     if (e < CS) {
-      const float4* src = reinterpret_cast<const float4*>(a + e);
-      const long step = CS / 4;
+      const uint4* src = reinterpret_cast<const uint4*>(a + e);
+      const long step = CS / V;
       for (int n = p * rows_per + r; n < n1; n += R * kStatsRows) {
-        float4 v[kStatsRows];
+        uint4 raw[kStatsRows];
 #pragma unroll
         for (int u = 0; u < kStatsRows; ++u) {
           const int m = n + u * R;
-          v[u] = m < n1 ? load4(src + m * step)
-                        : make_float4(0.f, 0.f, 0.f, 0.f);
+          raw[u] = m < n1 ? __ldg(src + m * step) : make_uint4(0, 0, 0, 0);
         }
 #pragma unroll
         for (int u = 0; u < kStatsRows; ++u) {
-          acc(v[u].x, s1[0], s2[0]);
-          acc(v[u].y, s1[1], s2[1]);
-          acc(v[u].z, s1[2], s2[2]);
-          acc(v[u].w, s1[3], s2[3]);
+          float v[V];
+          El::unpack(raw[u], v);
+#pragma unroll
+          for (int i = 0; i < V; ++i) acc(v[i], s1[i], s2[i]);
         }
       }
     }
   } else {
-    bool ok[4];
+    bool ok[V];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) ok[i] = E0 + column<LANES, VEC>(lane, i) < CS;
+    for (int i = 0; i < V; ++i)
+      ok[i] = E0 + column<V, LANES, VEC>(lane, i) < CS;
     for (int n = p * rows_per + r; n < n1; n += R * kStatsRows) {
-      float v[kStatsRows][4];
+      float v[kStatsRows][V];
 #pragma unroll
       for (int u = 0; u < kStatsRows; ++u) {
         const int m = n + u * R;
-        const float* row = a + m * CS + E0;
+        const T* row = a + m * CS + E0;
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          v[u][i] = m < n1 && ok[i] ? __ldg(row + column<LANES, VEC>(lane, i))
-                                    : 0.f;
+        for (int i = 0; i < V; ++i)
+          v[u][i] = m < n1 && ok[i]
+                        ? El::widen(__ldg(row + column<V, LANES, VEC>(lane, i)))
+                        : 0.f;
       }
 #pragma unroll
       for (int u = 0; u < kStatsRows; ++u)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc(v[u][i], s1[i], s2[i]);
+        for (int i = 0; i < V; ++i) acc(v[u][i], s1[i], s2[i]);
     }
   }
 
   // the R row groups' column sums, added in order into row group 0's
   __shared__ float red[2][R * E];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = r * E + column<LANES, VEC>(lane, i);
+  for (int i = 0; i < V; ++i) {
+    const int k = r * E + column<V, LANES, VEC>(lane, i);
     red[0][k] = s1[i];
     red[1][k] = s2[i];
   }
@@ -242,22 +307,24 @@ __device__ __forceinline__ float epi(float v, float sc, float sh, float d) {
 
 // y = a * scale[c] + shift[c] (+ addend) (ReLU) over the column range
 // blockIdx.x and the row slice blockIdx.y.
-template <bool ADD, bool RELU, int LANES, bool VEC>
+template <class T, bool ADD, bool RELU, int LANES, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-apply_kernel(const float* __restrict__ a, const float* __restrict__ addend,
+apply_kernel(const T* __restrict__ a, const T* __restrict__ addend,
              const float* __restrict__ scale, const float* __restrict__ shift,
-             float* __restrict__ y, int N, int C, int S, int rows_per) {
+             T* __restrict__ y, int N, int C, int S, int rows_per) {
+  using El = Elem<T>;
+  constexpr int V = El::V;
   constexpr int R = kThreads / LANES;
-  constexpr int E = 4 * LANES;
+  constexpr int E = V * LANES;
   const long CS = (long)C * S;
   const int lane = threadIdx.x % LANES, r = threadIdx.x / LANES;
   const long E0 = (long)blockIdx.x * E;
   const int n1 = min(N, ((int)blockIdx.y + 1) * rows_per);
-  bool ok[4];
-  float sc[4], sh[4];
+  bool ok[V];
+  float sc[V], sh[V];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long e = E0 + column<LANES, VEC>(lane, i);
+  for (int i = 0; i < V; ++i) {
+    const long e = E0 + column<V, LANES, VEC>(lane, i);
     ok[i] = e < CS;
     const int c = ok[i] ? (int)(e / S) : 0;
     sc[i] = __ldg(scale + c);
@@ -265,74 +332,75 @@ apply_kernel(const float* __restrict__ a, const float* __restrict__ addend,
   }
   if constexpr (VEC) {
     if (!ok[0]) return;
-    const long off = E0 + 4 * lane;
+    const long off = E0 + V * lane;
     for (int n = blockIdx.y * rows_per + r; n < n1; n += R * kApplyRows) {
-      float4 v[kApplyRows], d[kApplyRows];
+      uint4 v[kApplyRows], d[kApplyRows];
 #pragma unroll
       for (int u = 0; u < kApplyRows; ++u) {
         const int m = n + u * R;
-        v[u] = d[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        v[u] = d[u] = make_uint4(0, 0, 0, 0);
         if (m < n1) {
-          v[u] = load4(reinterpret_cast<const float4*>(a + m * CS + off));
+          v[u] = __ldg(reinterpret_cast<const uint4*>(a + m * CS + off));
           if constexpr (ADD)
-            d[u] = load4(reinterpret_cast<const float4*>(addend + m * CS +
-                                                         off));
+            d[u] = __ldg(reinterpret_cast<const uint4*>(addend + m * CS +
+                                                        off));
         }
       }
 #pragma unroll
       for (int u = 0; u < kApplyRows; ++u) {
         const int m = n + u * R;
         if (m < n1) {
-          float4 o;
-          o.x = epi<ADD, RELU>(v[u].x, sc[0], sh[0], d[u].x);
-          o.y = epi<ADD, RELU>(v[u].y, sc[1], sh[1], d[u].y);
-          o.z = epi<ADD, RELU>(v[u].z, sc[2], sh[2], d[u].z);
-          o.w = epi<ADD, RELU>(v[u].w, sc[3], sh[3], d[u].w);
-          *reinterpret_cast<float4*>(y + m * CS + off) = o;
+          float fv[V], fd[V], o[V];
+          El::unpack(v[u], fv);
+          El::unpack(d[u], fd);
+#pragma unroll
+          for (int i = 0; i < V; ++i)
+            o[i] = epi<ADD, RELU>(fv[i], sc[i], sh[i], fd[i]);
+          *reinterpret_cast<uint4*>(y + m * CS + off) = El::pack(o);
         }
       }
     }
   } else {
     for (int n = blockIdx.y * rows_per + r; n < n1; n += R * kApplyRows) {
-      float v[kApplyRows][4], d[kApplyRows][4];
+      float v[kApplyRows][V], d[kApplyRows][V];
 #pragma unroll
       for (int u = 0; u < kApplyRows; ++u) {
         const int m = n + u * R;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const long k = m * CS + E0 + column<LANES, VEC>(lane, i);
+        for (int i = 0; i < V; ++i) {
+          const long k = m * CS + E0 + column<V, LANES, VEC>(lane, i);
           const bool in = m < n1 && ok[i];
-          v[u][i] = in ? __ldg(a + k) : 0.f;
-          d[u][i] = ADD && in ? __ldg(addend + k) : 0.f;
+          v[u][i] = in ? El::widen(__ldg(a + k)) : 0.f;
+          d[u][i] = ADD && in ? El::widen(__ldg(addend + k)) : 0.f;
         }
       }
 #pragma unroll
       for (int u = 0; u < kApplyRows; ++u) {
         const int m = n + u * R;
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < V; ++i)
           if (m < n1 && ok[i])
-            y[m * CS + E0 + column<LANES, VEC>(lane, i)] =
-                epi<ADD, RELU>(v[u][i], sc[i], sh[i], d[u][i]);
+            y[m * CS + E0 + column<V, LANES, VEC>(lane, i)] =
+                El::narrow(epi<ADD, RELU>(v[u][i], sc[i], sh[i], d[u][i]));
       }
     }
   }
 }
 
-// Column ranges of a [N, C*S] at LANES float4 (or scalar) columns a
-// thread row; 0 if LANES is not one the kernels are built for.
-long column_ranges(long CS, int lanes) {
-  const bool vec = CS % 4 == 0;
+// Column ranges of a [N, C*S] at LANES V-element vectors (or scalar
+// columns) a thread row; 0 if LANES is not one the kernels are built for.
+long column_ranges(long CS, int lanes, int V) {
+  const bool vec = CS % V == 0;
   if (vec ? (lanes != 32 && lanes != 64 && lanes != 128 && lanes != 256)
           : lanes != 32)
     return 0;
-  return (CS + 4L * lanes - 1) / (4L * lanes);
+  return (CS + (long)V * lanes - 1) / ((long)V * lanes);
 }
 
 // f(lanes, vec) with both as compile-time constants (std::integral_constant
 // and std::bool_constant): the instance of a kernel that the wrapper's
-// `lanes` and the rows' alignment pick (32, 64, 128 or 256 float4 lanes;
-// 32 scalar lanes where C * S % 4 != 0).
+// `lanes` and the rows' alignment pick (32, 64, 128 or 256 vector lanes;
+// 32 scalar lanes where C * S % V != 0).
 template <class F>
 int with_lanes(int lanes, bool vec, F f) {
   using std::bool_constant;
@@ -350,25 +418,47 @@ int with_lanes(int lanes, bool vec, F f) {
   }
 }
 
-template <bool ADD>
-int launch_apply(const float* a, const float* addend, const float* scale,
-                 const float* shift, float* y, int N, int C, int S, int relu,
-                 int lanes, int rows_per, cudaStream_t s) {
+template <class T>
+int launch_stats(const T* a, float* out, int* tickets, float* part, int N,
+                 int C, int S, int lanes, int rows_per, long L,
+                 cudaStream_t s) {
+  constexpr int V = Elem<T>::V;
   if (N <= 0 || C <= 0 || S <= 0 || rows_per <= 0)
     return (int)cudaErrorInvalidValue;
-  const long CS = (long)C * S, nb = column_ranges(CS, lanes);
+  const long CS = (long)C * S, nb = column_ranges(CS, lanes, V);
+  const long P = (N + (long)rows_per - 1) / rows_per;
+  if (nb == 0 || nb > 0x7fffffffL || P > 65535 || (long)N * CS > (1L << 40) ||
+      L != P * (nb + C))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)nb, (unsigned)P);
+  return with_lanes(lanes, CS % V == 0, [&](auto kl, auto kv) {
+    channel_stats_kernel<T, decltype(kl)::value, decltype(kv)::value>
+        <<<grid, kThreads, 0, s>>>(a, out, tickets, part, N, C, S, rows_per,
+                                   L);
+    return (int)cudaGetLastError();
+  });
+}
+
+template <class T, bool ADD>
+int launch_apply(const T* a, const T* addend, const float* scale,
+                 const float* shift, T* y, int N, int C, int S, int relu,
+                 int lanes, int rows_per, cudaStream_t s) {
+  constexpr int V = Elem<T>::V;
+  if (N <= 0 || C <= 0 || S <= 0 || rows_per <= 0)
+    return (int)cudaErrorInvalidValue;
+  const long CS = (long)C * S, nb = column_ranges(CS, lanes, V);
   const long P = (N + (long)rows_per - 1) / rows_per;
   if (nb == 0 || nb > 0x7fffffffL || P > 65535 || (long)N * CS > (1L << 40))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)nb, (unsigned)P);
-  return with_lanes(lanes, CS % 4 == 0, [&](auto kl, auto kv) {
+  return with_lanes(lanes, CS % V == 0, [&](auto kl, auto kv) {
     constexpr int LANES = decltype(kl)::value;
     constexpr bool VEC = decltype(kv)::value;
     if (relu)
-      apply_kernel<ADD, true, LANES, VEC><<<grid, kThreads, 0, s>>>(
+      apply_kernel<T, ADD, true, LANES, VEC><<<grid, kThreads, 0, s>>>(
           a, addend, scale, shift, y, N, C, S, rows_per);
     else
-      apply_kernel<ADD, false, LANES, VEC><<<grid, kThreads, 0, s>>>(
+      apply_kernel<T, ADD, false, LANES, VEC><<<grid, kThreads, 0, s>>>(
           a, addend, scale, shift, y, N, C, S, rows_per);
     return (int)cudaGetLastError();
   });
@@ -388,21 +478,20 @@ extern "C" int fused_conv_channel_stats_f32(const float* a, float* out,
                                             int C, int S, int lanes,
                                             int rows_per, long L,
                                             void* stream) {
-  if (N <= 0 || C <= 0 || S <= 0 || rows_per <= 0)
-    return (int)cudaErrorInvalidValue;
-  const long CS = (long)C * S, nb = column_ranges(CS, lanes);
-  const long P = (N + (long)rows_per - 1) / rows_per;
-  if (nb == 0 || nb > 0x7fffffffL || P > 65535 || (long)N * CS > (1L << 40) ||
-      L != P * (nb + C))
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((unsigned)nb, (unsigned)P);
-  return with_lanes(lanes, CS % 4 == 0, [&](auto kl, auto kv) {
-    channel_stats_kernel<decltype(kl)::value, decltype(kv)::value>
-        <<<grid, kThreads, 0, s>>>(a, out, tickets, part, N, C, S, rows_per,
-                                   L);
-    return (int)cudaGetLastError();
-  });
+  return launch_stats(a, out, tickets, part, N, C, S, lanes, rows_per, L,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// As fused_conv_channel_stats_f32 for a bfloat16 a (its bits as uint16);
+// out float32. nb counts column ranges of 8 * lanes elements, and lanes is
+// 32, 64, 128 or 256 where C * S % 8 == 0, else 32.
+extern "C" int fused_conv_channel_stats_bf16(const bf16* a, float* out,
+                                             int* tickets, float* part, int N,
+                                             int C, int S, int lanes,
+                                             int rows_per, long L,
+                                             void* stream) {
+  return launch_stats(a, out, tickets, part, N, C, S, lanes, rows_per, L,
+                      static_cast<cudaStream_t>(stream));
 }
 
 // a, y [N, C, S]; scale, shift [C]; all float32, contiguous, 16-byte
@@ -412,9 +501,9 @@ extern "C" int fused_conv_apply_f32(const float* a, const float* scale,
                                     const float* shift, float* y, int N,
                                     int C, int S, int relu, int lanes,
                                     int rows_per, void* stream) {
-  return launch_apply<false>(a, nullptr, scale, shift, y, N, C, S, relu,
-                             lanes, rows_per,
-                             static_cast<cudaStream_t>(stream));
+  return launch_apply<float, false>(a, nullptr, scale, shift, y, N, C, S,
+                                    relu, lanes, rows_per,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 // As fused_conv_apply_f32, plus the residual addend [N, C, S].
@@ -423,6 +512,29 @@ extern "C" int fused_conv_apply_add_f32(const float* a, const float* addend,
                                         float* y, int N, int C, int S,
                                         int relu, int lanes, int rows_per,
                                         void* stream) {
-  return launch_apply<true>(a, addend, scale, shift, y, N, C, S, relu, lanes,
-                            rows_per, static_cast<cudaStream_t>(stream));
+  return launch_apply<float, true>(a, addend, scale, shift, y, N, C, S, relu,
+                                   lanes, rows_per,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+// As fused_conv_apply_f32 with a and y bfloat16 (scale and shift float32);
+// lanes as for fused_conv_channel_stats_bf16.
+extern "C" int fused_conv_apply_bf16(const bf16* a, const float* scale,
+                                     const float* shift, bf16* y, int N,
+                                     int C, int S, int relu, int lanes,
+                                     int rows_per, void* stream) {
+  return launch_apply<bf16, false>(a, nullptr, scale, shift, y, N, C, S,
+                                   relu, lanes, rows_per,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+// As fused_conv_apply_bf16, plus the bfloat16 residual addend [N, C, S].
+extern "C" int fused_conv_apply_add_bf16(const bf16* a, const bf16* addend,
+                                         const float* scale,
+                                         const float* shift, bf16* y, int N,
+                                         int C, int S, int relu, int lanes,
+                                         int rows_per, void* stream) {
+  return launch_apply<bf16, true>(a, addend, scale, shift, y, N, C, S, relu,
+                                  lanes, rows_per,
+                                  static_cast<cudaStream_t>(stream));
 }

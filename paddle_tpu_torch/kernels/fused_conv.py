@@ -14,14 +14,22 @@ chains into ``fused_conv2d`` (ops/fused_ops.py). The conv stays
 
 Three kernels, written by hand for Hopper in
 ``paddle_tpu_torch/csrc/fused_conv.cu`` (its header says what bounds
-them and what the design does about it):
+them and what the design does about it), each in a float32 and a
+bfloat16 instance:
 
-* ``channel_stats`` replaces the Pallas ``channel_stats``
-  (``_stats_kernel``);
-* ``apply_epilogue`` replaces ``apply_epilogue`` without an addend
-  (``_apply_kernel``);
-* ``apply_epilogue_add`` replaces ``apply_epilogue`` with one
-  (``_apply_add_kernel``).
+* ``channel_stats`` / ``channel_stats_bf16`` replace the Pallas
+  ``channel_stats`` (``_stats_kernel``);
+* ``apply_epilogue`` / ``apply_epilogue_bf16`` replace
+  ``apply_epilogue`` without an addend (``_apply_kernel``);
+* ``apply_epilogue_add`` / ``apply_epilogue_add_bf16`` replace
+  ``apply_epilogue`` with one (``_apply_add_kernel``).
+
+The bfloat16 kernels read a (and the addend) as bfloat16, compute in
+float32 and round y once to bfloat16, where the Pallas kernels round
+(``out_ref[0] = y.astype(out_ref.dtype)``); the sums, scale_c and
+shift_c are float32 in both. The float32 wrappers hand a bfloat16 a to
+the bfloat16 ones, which count their own launches; any other dtype, or
+an addend of another dtype than a, raises on the card.
 
 Each wrapper runs its plain version (``channel_stats_reference``,
 ``apply_epilogue_reference``) only for tensors on the CPU; for a CUDA
@@ -55,8 +63,9 @@ from . import build
 
 __all__ = ["channel_stats_reference", "apply_epilogue_reference",
            "channel_stats", "apply_epilogue", "apply_epilogue_add",
-           "FusedConvEpilogue", "fused_conv_epilogue", "reference_epilogue",
-           "epilogue_enabled"]
+           "channel_stats_bf16", "apply_epilogue_bf16",
+           "apply_epilogue_add_bf16", "FusedConvEpilogue",
+           "fused_conv_epilogue", "reference_epilogue", "epilogue_enabled"]
 
 
 # ---------------------------------------------------------------------------
@@ -65,7 +74,9 @@ __all__ = ["channel_stats_reference", "apply_epilogue_reference",
 
 def channel_stats_reference(a: torch.Tensor
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """a [N, C, S] -> (Σa [C], Σa² [C]) in float32."""
+    """a [N, C, S] -> (Σa [C], Σa² [C]) in float32: the sums of the
+    float32 widening of a (exact for bfloat16), as the Pallas kernel
+    sums them."""
     af = a.float()
     return af.sum(dim=(0, 2)), (af * af).sum(dim=(0, 2))
 
@@ -75,8 +86,12 @@ def apply_epilogue_reference(a: torch.Tensor, scale_c: torch.Tensor,
                              addend: Optional[torch.Tensor] = None,
                              relu: bool = True) -> torch.Tensor:
     """a [N, C, S], scale_c/shift_c [C] float32, addend [N, C, S] or
-    None: a·scale_c + shift_c (+ addend), then ReLU if asked."""
-    y = a.float() * scale_c.reshape(1, -1, 1) + shift_c.reshape(1, -1, 1)
+    None: a·scale_c + shift_c (+ addend), then ReLU if asked, in float32,
+    rounded once to a's dtype (the Pallas kernels' one rounding). The
+    affine is one fused multiply-add (addcmul), as XLA contracts the
+    Pallas kernel's product and sum and as the CUDA kernels compute it."""
+    y = torch.addcmul(shift_c.reshape(1, -1, 1), a.float(),
+                      scale_c.reshape(1, -1, 1))
     if addend is not None:
         y = y + addend.float()
     if relu:
@@ -94,53 +109,68 @@ _L = ctypes.c_long
 _THREADS = 256     # threads a block in every kernel of csrc/fused_conv.cu
 _GROUP = 256       # channels a ticket of the stats kernel
 
-# (symbol, argument types) of the entry points of csrc/fused_conv.cu
-_STATS = ("fused_conv_channel_stats_f32", (_P,) * 4 + (_I,) * 5 + (_L, _P))
-_APPLY = ("fused_conv_apply_f32", (_P,) * 4 + (_I,) * 6 + (_P,))
-_APPLY_ADD = ("fused_conv_apply_add_f32", (_P,) * 5 + (_I,) * 6 + (_P,))
+# by the kernels' dtype: (elements of a thread's 16-byte vector, the
+# (symbol, argument types) of the stats, apply and apply + add entry
+# points of csrc/fused_conv.cu)
+_STATS_ARGS = (_P,) * 4 + (_I,) * 5 + (_L, _P)
+_APPLY_ARGS = (_P,) * 4 + (_I,) * 6 + (_P,)
+_APPLY_ADD_ARGS = (_P,) * 5 + (_I,) * 6 + (_P,)
+_KERNELS = {
+    torch.float32: (4, ("fused_conv_channel_stats_f32", _STATS_ARGS),
+                    ("fused_conv_apply_f32", _APPLY_ARGS),
+                    ("fused_conv_apply_add_f32", _APPLY_ADD_ARGS)),
+    torch.bfloat16: (8, ("fused_conv_channel_stats_bf16", _STATS_ARGS),
+                     ("fused_conv_apply_bf16", _APPLY_ARGS),
+                     ("fused_conv_apply_add_bf16", _APPLY_ADD_ARGS)),
+}
+# the float32 entry points by name (scripts/torch_fused_conv_probe.py)
+_STATS, _APPLY, _APPLY_ADD = _KERNELS[torch.float32][1:]
 
 
 def _fn(entry):
     return build.bind("fused_conv.cu", *entry)
 
 
-def _lanes(cs: int, sms: int) -> int:
-    """Threads a row group of both kernels: a block reads 4 * lanes
-    columns of each row of a [N, C*S]. The widest range that still gives
-    four column ranges an SM (longer runs of a row a block); 32 where the
-    rows are read as scalars (C*S % 4 != 0)."""
-    if cs % 4 == 0:
+def _lanes(cs: int, sms: int, per: int = 4) -> int:
+    """Threads a row group of both kernels: a block reads per * lanes
+    columns of each row of a [N, C*S] (per = 4 float32 or 8 bfloat16
+    elements, one 16-byte vector a thread). The widest range that still
+    gives four column ranges an SM (longer runs of a row a block); 32
+    where the rows are read as scalars (C*S % per != 0)."""
+    if cs % per == 0:
         for lanes in (256, 128, 64):
-            if -(-cs // (4 * lanes)) >= 4 * sms:
+            if -(-cs // (per * lanes)) >= 4 * sms:
                 return lanes
     return 32
 
 
-def _stats_plan(n: int, c: int, s: int, sms: int) -> Tuple[int, int, int]:
+def _stats_plan(n: int, c: int, s: int, sms: int,
+                per: int = 4) -> Tuple[int, int, int]:
     """(lanes, rows a slice, partials a statistic) of the stats kernel:
     the rows are sliced only where the column ranges alone give fewer
     than two blocks an SM (at most one slice a row group)."""
-    lanes = _lanes(c * s, sms)
-    ranges = -(-c * s // (4 * lanes))
+    lanes = _lanes(c * s, sms, per)
+    ranges = -(-c * s // (per * lanes))
     parts = max(1, min(-(-2 * sms // ranges), -(-n // (_THREADS // lanes))))
     rows = -(-n // parts)
     return lanes, rows, -(-n // rows) * (ranges + c)
 
 
-def _apply_plan(n: int, c: int, s: int, sms: int) -> Tuple[int, int]:
+def _apply_plan(n: int, c: int, s: int, sms: int,
+                per: int = 4) -> Tuple[int, int]:
     """(lanes, rows a block) of the apply kernel: 4 rows a thread, 16
     where the column ranges number fewer than four an SM (there fewer,
     longer blocks run faster; elsewhere more, shorter ones:
     scripts/torch_fused_conv_probe.py)."""
-    lanes = _lanes(c * s, sms)
-    per = 4 if -(-c * s // (4 * lanes)) >= 4 * sms else 16
-    return lanes, max(per * (_THREADS // lanes), -(-n // 65535))
+    lanes = _lanes(c * s, sms, per)
+    rows = 4 if -(-c * s // (per * lanes)) >= 4 * sms else 16
+    return lanes, max(rows * (_THREADS // lanes), -(-n // 65535))
 
 
 @functools.cache
-def _plans(n: int, c: int, s: int, index: int):
+def _plans(n: int, c: int, s: int, index: int, per: int = 4):
     sms = build.sm_count(torch.device("cuda", index))
-    return _stats_plan(n, c, s, sms), _apply_plan(n, c, s, sms)
+    return _stats_plan(n, c, s, sms, per), _apply_plan(n, c, s, sms, per)
 
 
 _scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, int]] = {}
@@ -164,52 +194,84 @@ def _scratch_of(device: torch.device, stream: int, c: int,
     return ptr, ptr + 4 * tickets
 
 
+def _stats(a: torch.Tensor, dtype: torch.dtype
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the stats kernel of `dtype` (a must have it)."""
+    if a.dim() != 3:
+        raise ValueError(f"a must be [N, C, S], got {tuple(a.shape)}")
+    n, c, s = a.shape
+    dev = a.device
+    per, entry, _, _ = _KERNELS[dtype]
+    build.check("a", a, dev, (n, c, s), dtype, aligned=True)
+    lanes, rows, partials = _plans(n, c, s, dev.index, per)[0]
+    out = a.new_empty((2, c), dtype=torch.float32)
+    with build.device_guard(dev):
+        stream = build.stream(dev)
+        tickets, part = _scratch_of(dev, stream, c, partials)
+        build.launch("channel_stats", _fn(entry), a.data_ptr(),
+                     out.data_ptr(), tickets, part, n, c, s, lanes, rows,
+                     partials, stream)
+    return out.unbind(0)
+
+
 def channel_stats(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """a [N, C, S] raw conv output -> (Σa [C], Σa² [C]) in float32.
 
     CPU tensors run ``channel_stats_reference``. CUDA tensors run
     csrc/fused_conv.cu: float32, contiguous, 16-byte aligned; one launch;
     the sums are deterministic (partials per column range and batch
-    slice, then a fixed-order pass over them; no float atomics)."""
+    slice, then a fixed-order pass over them; no float atomics).
+    bfloat16 CUDA tensors go to ``channel_stats_bf16``, which counts the
+    launch."""
     if not build.on_card("channel_stats", a):
         return channel_stats_reference(a)
-    if a.dim() != 3:
-        raise ValueError(f"a must be [N, C, S], got {tuple(a.shape)}")
-    n, c, s = a.shape
-    dev = a.device
-    build.check("a", a, dev, (n, c, s), aligned=True)
-    lanes, rows, partials = _plans(n, c, s, dev.index)[0]
-    out = a.new_empty((2, c))
-    with build.device_guard(dev):
-        stream = build.stream(dev)
-        tickets, part = _scratch_of(dev, stream, c, partials)
-        build.launch("channel_stats", _fn(_STATS), a.data_ptr(),
-                     out.data_ptr(), tickets, part, n, c, s, lanes, rows,
-                     partials, stream)
+    if a.dtype == torch.bfloat16:
+        return channel_stats_bf16(a)
+    out = _stats(a, torch.float32)
     channel_stats.launches += 1
-    return out.unbind(0)
+    return out
 
 
 channel_stats.launches = 0
 
 
-def _apply(name: str, entry, a, scale_c, shift_c, addend, relu):
+def channel_stats_bf16(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``channel_stats`` of a bfloat16 a [N, C, S]: the float32 sums of
+    its float32 widening, in the float32 kernel's order of partials (its
+    ticket scratch shared), 8 elements a thread's 16-byte load."""
+    if not build.on_card("channel_stats_bf16", a):
+        return channel_stats_reference(a)
+    out = _stats(a, torch.bfloat16)
+    channel_stats_bf16.launches += 1
+    return out
+
+
+channel_stats_bf16.launches = 0
+
+
+def _apply(name: str, dtype: torch.dtype, a, scale_c, shift_c, addend,
+           relu):
+    """One launch of the apply kernel of `dtype` (a and the addend must
+    have it; scale_c and shift_c are float32), with the addend or
+    without."""
     if a.dim() != 3:
         raise ValueError(f"a must be [N, C, S], got {tuple(a.shape)}")
     n, c, s = a.shape
     dev = a.device
-    build.check("a", a, dev, (n, c, s), aligned=True)
+    per, _, apply, apply_add = _KERNELS[dtype]
+    build.check("a", a, dev, (n, c, s), dtype, aligned=True)
     build.check("scale_c", scale_c, dev, (c,), aligned=True)
     build.check("shift_c", shift_c, dev, (c,), aligned=True)
     args = [a.data_ptr(), scale_c.data_ptr(), shift_c.data_ptr()]
     if addend is not None:
-        build.check("addend", addend, dev, (n, c, s), aligned=True)
+        build.check("addend", addend, dev, (n, c, s), dtype, aligned=True)
         args.insert(1, addend.data_ptr())
-    lanes, rows = _plans(n, c, s, dev.index)[1]
+    lanes, rows = _plans(n, c, s, dev.index, per)[1]
     y = torch.empty_like(a)
     with build.device_guard(dev):
-        build.launch(name, _fn(entry), *args, y.data_ptr(), n, c, s,
-                     int(bool(relu)), lanes, rows, build.stream(dev))
+        build.launch(name, _fn(apply if addend is None else apply_add),
+                     *args, y.data_ptr(), n, c, s, int(bool(relu)), lanes,
+                     rows, build.stream(dev))
     return y
 
 
@@ -220,10 +282,14 @@ def apply_epilogue(a: torch.Tensor, scale_c: torch.Tensor,
     a·scale_c + shift_c, ReLU if asked. One read of a, one write of y.
 
     CPU tensors run ``apply_epilogue_reference``; CUDA tensors the
-    kernel (float32, contiguous, 16-byte aligned)."""
+    kernel (float32, contiguous, 16-byte aligned); bfloat16 CUDA tensors
+    go to ``apply_epilogue_bf16``."""
     if not build.on_card("apply_epilogue", a):
         return apply_epilogue_reference(a, scale_c, shift_c, None, relu)
-    y = _apply("apply_epilogue", _APPLY, a, scale_c, shift_c, None, relu)
+    if a.dtype == torch.bfloat16:
+        return apply_epilogue_bf16(a, scale_c, shift_c, relu)
+    y = _apply("apply_epilogue", torch.float32, a, scale_c, shift_c, None,
+               relu)
     apply_epilogue.launches += 1
     return y
 
@@ -231,20 +297,56 @@ def apply_epilogue(a: torch.Tensor, scale_c: torch.Tensor,
 apply_epilogue.launches = 0
 
 
+def apply_epilogue_bf16(a: torch.Tensor, scale_c: torch.Tensor,
+                        shift_c: torch.Tensor, relu: bool = True
+                        ) -> torch.Tensor:
+    """``apply_epilogue`` of a bfloat16 a (scale_c, shift_c float32):
+    fmaf(a, scale_c, shift_c) in float32, ReLU, one rounding to
+    bfloat16."""
+    if not build.on_card("apply_epilogue_bf16", a):
+        return apply_epilogue_reference(a, scale_c, shift_c, None, relu)
+    y = _apply("apply_epilogue_bf16", torch.bfloat16, a, scale_c, shift_c,
+               None, relu)
+    apply_epilogue_bf16.launches += 1
+    return y
+
+
+apply_epilogue_bf16.launches = 0
+
+
 def apply_epilogue_add(a: torch.Tensor, scale_c: torch.Tensor,
                        shift_c: torch.Tensor, addend: torch.Tensor,
                        relu: bool = True) -> torch.Tensor:
     """As ``apply_epilogue``, plus the residual addend [N, C, S] that the
-    fusion pass absorbed: a·scale_c + shift_c + addend, ReLU if asked."""
+    fusion pass absorbed: a·scale_c + shift_c + addend, ReLU if asked.
+    bfloat16 CUDA tensors go to ``apply_epilogue_add_bf16``."""
     if not build.on_card("apply_epilogue_add", a):
         return apply_epilogue_reference(a, scale_c, shift_c, addend, relu)
-    y = _apply("apply_epilogue_add", _APPLY_ADD, a, scale_c, shift_c, addend,
-               relu)
+    if a.dtype == torch.bfloat16:
+        return apply_epilogue_add_bf16(a, scale_c, shift_c, addend, relu)
+    y = _apply("apply_epilogue_add", torch.float32, a, scale_c, shift_c,
+               addend, relu)
     apply_epilogue_add.launches += 1
     return y
 
 
 apply_epilogue_add.launches = 0
+
+
+def apply_epilogue_add_bf16(a: torch.Tensor, scale_c: torch.Tensor,
+                            shift_c: torch.Tensor, addend: torch.Tensor,
+                            relu: bool = True) -> torch.Tensor:
+    """``apply_epilogue_add`` of a bfloat16 a and addend: the addend
+    widened and added in float32, one rounding to bfloat16."""
+    if not build.on_card("apply_epilogue_add_bf16", a):
+        return apply_epilogue_reference(a, scale_c, shift_c, addend, relu)
+    y = _apply("apply_epilogue_add_bf16", torch.bfloat16, a, scale_c,
+               shift_c, addend, relu)
+    apply_epilogue_add_bf16.launches += 1
+    return y
+
+
+apply_epilogue_add_bf16.launches = 0
 
 
 # ---------------------------------------------------------------------------

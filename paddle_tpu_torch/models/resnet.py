@@ -5,8 +5,12 @@ Counterpart of ``paddle_tpu/models/resnet.py``, call for call, so that
 the same calls give the same program and var names in both packages.
 Stride-1 rest bottlenecks are one ``fused_bottleneck`` op unless
 ``PT_FUSED_BLOCK`` is never or 0; the Executor's fusion pass turns every
-other conv + BN (+ add) (+ ReLU) chain into ``fused_conv2d``. The port
-trains in float32: another ``dtype`` raises at build time.
+other conv + BN (+ add) (+ ReLU) chain into ``fused_conv2d``.
+``get_model`` builds a float32 program or, as the bench trains it on the
+accelerator, a bfloat16 one: the ``data`` var is bfloat16, the
+parameters float32 masters (layer_helper's rule), and every op computes
+in its input's dtype with the weights cast to it. Another ``dtype``
+raises at build time.
 """
 
 from __future__ import annotations
@@ -113,11 +117,12 @@ def get_model(data_set: str = "flowers", depth: int = 50,
     """The training program of the benchmark: (avg_cost, batch accuracy,
     predictions, feed names). fused_xent: logits into
     softmax_with_cross_entropy instead of a softmax head into
-    cross_entropy. Momentum 0.9 at `learning_rate`."""
-    if dtype != "float32":
+    cross_entropy. Momentum 0.9 at `learning_rate`. dtype: float32, or
+    bfloat16 (the data var's dtype; float32 masters)."""
+    if dtype not in ("float32", "bfloat16"):
         raise NotImplementedError(f"resnet.get_model(dtype={dtype!r}): the "
-                                  "port trains in float32; bf16 programs "
-                                  "are not ported")
+                                  "port trains float32 and bfloat16 "
+                                  "programs; this dtype is not ported")
     if data_set == "cifar10":
         class_dim, shape = 10, [3, 32, 32]
         model = resnet_cifar10

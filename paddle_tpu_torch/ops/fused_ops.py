@@ -18,6 +18,12 @@ Cin % 128 == 0, C % 64 == 0), up to the C that the card's 1x1 kernels
 take (``conv1x1_max_c``, 704), run the bottleneck chain of
 kernels/fused_block.py (``_chain_block``), forward and backward through
 its kernels; the others compose.
+
+Both ops take a bfloat16 input with float32 filters (a bf16 program, or
+a float32 one under AMP): the filters follow x's float dtype, as the JAX
+package harmonizes them. The epilogue kernels have bfloat16 versions;
+the chain's do not, so a bfloat16 block that the chain's gate takes
+raises before any launch.
 """
 
 from __future__ import annotations
@@ -30,17 +36,23 @@ import torch.nn.functional as F
 from ..core.registry import register_op
 from ..kernels import fused_block as _fb
 from ..kernels import fused_conv as _fc
+from .math_ops import harmonize
 from .nn_ops import _bn_train, _conv2d_infer, conv2d
 
-__all__ = ["fused_block_enabled", "compose_block"]
+__all__ = ["chain_requested", "fused_block_enabled", "compose_block"]
+
+
+def chain_requested() -> bool:
+    """Whether PT_FUSED_BLOCK asks for the bottleneck chain (always, or
+    1); the env alone, whatever the device."""
+    return os.environ.get("PT_FUSED_BLOCK", "auto") in ("1", "always")
 
 
 def fused_block_enabled(device: torch.device) -> bool:
     """The JAX package's gate of the bottleneck chain: off by default;
     PT_FUSED_BLOCK=always (or 1) takes it on the card. Elsewhere (the
     CPU) the op composes, as the JAX package does off the TPU."""
-    return (os.environ.get("PT_FUSED_BLOCK", "auto") in ("1", "always")
-            and device.type == "cuda")
+    return chain_requested() and device.type == "cuda"
 
 
 def _conv(h, w, pad):
@@ -49,7 +61,8 @@ def _conv(h, w, pad):
 
 def compose_block(x, w1, w2, w3, bn_params, eps, momentum):
     """The rest block as the individual ops compute it, the lean BN VJP
-    included: (out, the twelve stat outputs)."""
+    included: (out, the twelve stat outputs). The filters in x's dtype
+    (the op harmonizes them)."""
     (g1, b1, m1, v1), (g2, b2, m2, v2), (g3, b3, m3, v3) = bn_params
     h1, nm1, nv1, sm1, sv1 = _bn_train(_conv(x, w1, 0), g1, b1, m1, v1, eps,
                                        momentum, True)
@@ -173,6 +186,10 @@ def fused_bottleneck(ctx, ins, attrs):
                  for k in ("1", "2", "3")]
     eps = attrs.get("epsilon", 1e-5)
     momentum = attrs.get("momentum", 0.9)
+    # the filters in x's float dtype, as paddle_tpu/ops/fused_ops.py
+    # harmonizes them before either branch (a bf16 block folds its BN into
+    # bf16 filters)
+    w1, w2, w3 = (harmonize(x, w) for w in (w1, w2, w3))
 
     if attrs.get("is_test", False):
         # inference: the running stats, folded into the conv weights; the
@@ -189,9 +206,16 @@ def fused_bottleneck(ctx, ins, attrs):
         stats = []
         for _, _, m, v in bn_params:
             stats += [m, v, m, v]
+    elif _chain_takes(x, w1):
+        if x.dtype != torch.float32:
+            raise NotImplementedError(
+                f"fused_bottleneck on {x.dtype} through the bottleneck "
+                "chain (PT_FUSED_BLOCK=always): the chain's kernels have no "
+                "bfloat16 version; this is not ported (unset PT_FUSED_BLOCK "
+                "to compose the block)")
+        out, stats = _chain_block(x, w1, w2, w3, bn_params, eps, momentum)
     else:
-        block = _chain_block if _chain_takes(x, w1) else compose_block
-        out, stats = block(x, w1, w2, w3, bn_params, eps, momentum)
+        out, stats = compose_block(x, w1, w2, w3, bn_params, eps, momentum)
     outs = {"Out": [out]}
     for i, k in enumerate(("1", "2", "3")):
         for j, slot in enumerate(_BN_OUT_SLOTS):

@@ -303,12 +303,22 @@ def _conv2d_infer(op, block):
     out.dtype = x.dtype
 
 
+def _harmonize_w(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The filter in x's float dtype (math_ops.harmonize, imported here:
+    math_ops imports this module)."""
+    from .math_ops import harmonize
+    return harmonize(x, w)
+
+
 def conv2d(x: torch.Tensor, w: torch.Tensor, attrs: dict) -> torch.Tensor:
-    """NCHW input, OIHW filter, symmetric padding, the op's attrs.
+    """NCHW input, OIHW filter, symmetric padding, the op's attrs. The
+    filter takes x's float dtype first (a bfloat16 activation meets its
+    float32 master in bfloat16), as the JAX package's ``_conv2d`` does.
 
     Grouped convolutions run natively, which is what the JAX package
     does for a shape its autotune has not measured; its dense expansion
     of the groups (PT_GCONV_DENSE=always) is not ported."""
+    w = _harmonize_w(x, w)
     s = _pair(attrs.get("strides", 1))
     p = _pair(attrs.get("paddings", 0))
     d = _pair(attrs.get("dilations", 1))

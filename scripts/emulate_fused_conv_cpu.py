@@ -48,6 +48,7 @@ EMU_H = r"""
 #include <barrier>
 #include <cmath>
 #include <cstdint>
+#include <cstring>
 #include <functional>
 #define __global__
 #define __device__
@@ -65,6 +66,20 @@ extern dim3 gridDim;
 struct __attribute__((aligned(16))) float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};
+}
+struct __attribute__((aligned(16))) uint4 { uint32_t x, y, z, w; };
+inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  return {a, b, c, d};
+}
+inline float __uint_as_float(uint32_t u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline uint32_t __float_as_uint(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  return u;
 }
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -188,7 +203,8 @@ def emulated(lib, sms: int):
     build.sm_count = lambda device: sms
     build.device_guard = lambda device: contextlib.nullcontext()
     build.stream = lambda device: 0
-    torch.Tensor.new_empty = lambda t, shape: t.new_full(shape, float("nan"))
+    torch.Tensor.new_empty = lambda t, shape, **kw: t.new_full(
+        shape, float("nan"), **kw)
     torch.empty_like = lambda t: torch.full_like(t, float("nan"))
     fc._plans.cache_clear()
     try:

@@ -1,0 +1,136 @@
+"""How far bfloat16 ResNet training runs sit apart on the CPU: the
+readings behind the limits of ``tests/test_torch_resnet_bf16.py`` and of
+``chip_smoke.py``'s phase 20.
+
+Default: the narrow ResNet of ``tests/test_torch_resnet_bf16.py`` in its
+eight cases (a bf16 program and AMP, both ``fused_xent`` settings, both
+epilogue settings), 3 Momentum steps from the JAX package's startup
+state. For each case it prints the test's readings (step-0 loss, loss,
+gradients together and median, updates together and median, running
+stats) three times: the port's bf16 run against the JAX package's; a
+port run that sees half of each batch against the JAX package's (a
+planted fault); and the JAX package's bf16 run against its float32 run
+(its own spread, which sets the test's limits).
+
+``--resnet50``: ResNet-50's stem and stages at full width, 64 px, 102
+classes, batch 4 (``chip_smoke.build_resnet_cut``), at its full depth
+(3, 4, 6, 3 blocks) and cut to one block a stage, two Momentum steps on
+the CPU from one startup state: the float32 program's run, a bf16 run
+whose images move by one bf16 step at one pixel in 64, and a bf16 run
+on half of each batch, each against the bf16 run (the relative rms of
+the first-step gradients and of the updates, all parameters together
+and the median over them).
+
+    env JAX_PLATFORMS=cpu python scripts/resnet_bf16_spread_cpu.py
+    python scripts/resnet_bf16_spread_cpu.py --resnet50
+"""
+
+import argparse
+import os
+import sys
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def narrow():
+    sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
+    import test_torch_resnet_bf16 as t
+
+    main, startup, _, _ = t._build(t.jpt, t.jprog, t.jres, True, "float32")
+    scope = t.JScope()
+    t.jpt.Executor().run(startup, scope=scope)
+    start = {n: np.array(scope.find_var(n)) for n in t._persistables(main)}
+    for kind, fx, ep in t.CASES:
+        t.jfc.INTERPRET = ep == "kernels"
+        os.environ["PT_FUSE_EPILOGUE"] = ("always" if ep == "kernels"
+                                          else "never")
+        jmain, _, javg, jpred = t._build(t.jpt, t.jprog, t.jres, fx, kind)
+        tmain, _, tavg, tpred = t._build(t.pt, t.tprog, t.tres, fx, kind)
+        fmain, _, favg, fpred = t._build(t.jpt, t.jprog, t.jres, fx,
+                                         "float32")
+        params = [p.name for p in jmain.global_block.all_parameters()]
+        jax_run = t._jax_run(jmain, javg, jpred, start, kind, params)
+        f32_run = t._jax_run(fmain, favg, fpred, start, "float32", params)
+        port = t._port_run(tmain, tavg, tpred, start, kind, params)
+        half = t._port_run(tmain, tavg, tpred, start, kind, params,
+                           feeds=t._half_batch)
+        own = dict(jax_run, end={n: t.torch.from_numpy(v)
+                                 for n, v in jax_run["end"].items()})
+        for what, got, want in (("port", port, jax_run),
+                                ("half batch", half, jax_run),
+                                ("JAX bf16 - float32", own, f32_run)):
+            r = t._readings(got, want, params, start)
+            print(f"{kind} {'fused_xent' if fx else 'softmax_head'} {ep}, "
+                  f"{what}: " + ", ".join(f"{k} {v:.4g}"
+                                          for k, (v, _) in r.items()),
+                  flush=True)
+
+
+def resnet50():
+    sys.path.insert(0, ROOT)
+    import torch
+
+    import chip_smoke as cs
+    import paddle_tpu_torch as pt
+
+    r = cs.RESNET_REDUCED
+    exe = pt.Executor(pt.CPUPlace())
+
+    def rel(a, b):
+        return cs.rms(np, a - b) / cs.rms(np, b)
+
+    for blocks in ((3, 4, 6, 3), cs.RESNET_BF16_BLOCKS):
+        progs = {d: cs.build_resnet_cut(pt, 0, d, blocks)
+                 for d in ("bfloat16", "float32")}
+        params = [p.name for p in
+                  progs["bfloat16"][0].global_block.all_parameters()]
+        scope0 = pt.Scope()
+        exe.run(progs["bfloat16"][1], scope=scope0)
+        start = {p: scope0.get_numpy(p) for p in params}
+
+        def run(dtype, change=None):
+            prog, _, avg = progs[dtype]
+            scope = pt.Scope()
+            for n in scope0.local_var_names():
+                scope.set_var(n, scope0.find_var(n).clone())
+            for i in range(2):
+                feed = cs.resnet_varied(np, i, r["batch"], r["image"],
+                                        center=0.5)
+                if change == "one pixel in 64":
+                    bits = torch.from_numpy(feed["data"]).bfloat16() \
+                        .view(torch.int16).clone().reshape(-1)
+                    bits[::64] += 1
+                    feed["data"] = bits.view(torch.bfloat16).reshape(
+                        feed["data"].shape)
+                elif change == "half batch":
+                    feed = {k: v[:r["batch"] // 2] for k, v in feed.items()}
+                out = exe.run(prog, feed=feed, fetch_list=[avg] + (
+                    [p + "@GRAD" for p in params] if i == 0 else []),
+                    scope=scope)
+                if i == 0:
+                    grads = dict(zip(params, out[1:]))
+            return grads, {p: scope.get_numpy(p) - start[p] for p in params}
+
+        ref = run("bfloat16")
+        for what, got in (("float32", run("float32")),
+                          ("one pixel in 64", run("bfloat16",
+                                                  "one pixel in 64")),
+                          ("half batch", run("bfloat16", "half batch"))):
+            line = []
+            for name, g, w in (("gradients", got[0], ref[0]),
+                               ("updates", got[1], ref[1])):
+                cat = [np.concatenate([d[p].ravel() for p in params])
+                       for d in (g, w)]
+                med = np.median([rel(g[p], w[p]) for p in params])
+                line.append(f"{name} {rel(*cat):.4g} median {med:.4g}")
+            print(f"ResNet-50 blocks {blocks}, {what} vs bf16: "
+                  + ", ".join(line), flush=True)
+
+
+if __name__ == "__main__":
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--resnet50", action="store_true")
+    args = ap.parse_args()
+    resnet50() if args.resnet50 else narrow()

@@ -30,7 +30,8 @@ JAX package's float32 ones.
 
 Then the port counterparts of tests/test_loop_amp.py's AMP tests, a
 bf16 fetch (eager and lazy), the Trainer's checkpoint of an AMP program,
-the refusals of ops whose kernels have no bfloat16 version, and the LSTM
+the refusals of ops whose kernels have no bfloat16 version (and the conv
+ops that now run under AMP), and the LSTM
 under AMP: the stacked LSTM's program builds and trains (its numbers
 against the JAX package are tests/test_torch_lstm_bf16.py's), and a
 peephole ``dynamic_lstm``, which no kernel takes, runs the scan in
@@ -412,19 +413,37 @@ def _refused_program(what):
 
 @pytest.mark.parametrize("what", ["fused_conv2d", "fused_bottleneck",
                                   "paged_attention"])
-def test_amp_refuses_ops_without_a_bf16_kernel(what):
+def test_amp_refuses_ops_without_a_bf16_kernel(what, monkeypatch):
     """Under AMP an op whose kernels have no bfloat16 version raises
     "not ported", naming the op, when the step is built, on every device
     (here the CPU, where the plain versions would have run); without AMP
-    the same program runs."""
+    the same program runs. The conv epilogue has bfloat16 kernels, so
+    fused_conv2d runs under AMP (a finite loss, float32 masters);
+    fused_bottleneck runs under AMP too, composed, and is refused only
+    where PT_FUSED_BLOCK asks for the chain (always or 1), whose kernels
+    are float32 only (the check reads the env, not the device); the paged
+    ops stay refused."""
+    monkeypatch.delenv("PT_FUSED_BLOCK", raising=False)
     main, startup, loss, feed = _refused_program(what)
     exe, scope = pt.Executor(pt.CPUPlace()), pt.Scope()
     exe.run(startup, scope=scope)
     if what != "paged_attention":   # an op the port does not register
         exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
     main.amp_dtype = "bfloat16"
-    with pytest.raises(NotImplementedError, match=f"{what}.*not ported"):
-        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    if what == "paged_attention":
+        with pytest.raises(NotImplementedError, match=f"{what}.*not ported"):
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        return
+    out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    assert np.isfinite(out).all()
+    for p in main.global_block.all_parameters():
+        assert scope.find_var(p.name).dtype == torch.float32, p.name
+    if what == "fused_bottleneck":
+        for mode in ("always", "1"):
+            monkeypatch.setenv("PT_FUSED_BLOCK", mode)
+            with pytest.raises(NotImplementedError,
+                               match=f"{what}.*not ported"):
+                exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
 
 
 def test_amp_lstm_program_builds_and_trains():

@@ -296,7 +296,7 @@ def test_sgd_step_matches_jax():
 @pytest.mark.parametrize("what", ["remat", "dropout", "tp_shard", "sp_mode",
                                   "amp", "is_sparse", "trainer_parallel",
                                   "trainer_plan", "op", "fc_inputs"])
-def test_what_is_not_ported_raises(what):
+def test_what_is_not_ported_raises(what, monkeypatch):
     """Each part of training the port leaves out raises a clear error,
     on the CPU as on every device, instead of running without it."""
     kw = dict(CFG)
@@ -333,13 +333,12 @@ def test_what_is_not_ported_raises(what):
             emb = pt.layers.embedding(ids, [10, 8], is_sparse=True)
             avg = pt.layers.mean(emb)
         elif what == "amp":
-            # mixed precision is ported, but not over the conv epilogue's
-            # kernels (the fusion pass makes conv2d + batch_norm + relu one
-            # fused_conv2d), which have no bfloat16 version
+            # mixed precision is ported, but not over the bottleneck
+            # chain's kernels (PT_FUSED_BLOCK=always), which have no
+            # bfloat16 version; the conv epilogue's have one (a conv +
+            # batch_norm + relu, one fused_conv2d, runs under AMP)
             img = pt.layers.data("img", [16, 8, 8])
-            avg = pt.layers.mean(pt.layers.batch_norm(pt.layers.conv2d(
-                img, num_filters=4, filter_size=3, padding=1,
-                bias_attr=False), act="relu"))
+            avg = pt.layers.mean(pt.layers.fused_bottleneck(img, ch_out=4))
         else:
             avg, _ = ttfm.transformer_lm_loss(**kw)
         if what == "op":
@@ -351,6 +350,7 @@ def test_what_is_not_ported_raises(what):
     if what == "amp":
         main.amp_dtype = "bfloat16"
         feed = {"img": np.ones((2, 16, 8, 8), np.float32)}
+        monkeypatch.setenv("PT_FUSED_BLOCK", "always")
     with pytest.raises(NotImplementedError, match="not ported"):
         exe.run(main, feed=feed, fetch_list=[avg], scope=scope)
 

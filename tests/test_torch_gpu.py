@@ -27,7 +27,11 @@ bf16 LSTM kernels against their plain versions on the same bf16 inputs:
 rs, cs and dx within 2^-7 max|plain| + 2^-7 |plain| (a carry or a
 dgates element that rounds to the neighbouring bf16 value travels
 through the later steps), the float32 sums dw, db, dr0 and dc0 within
-2^-9 max|plain| + 2^-9 |plain| (scripts/lstm_bf16_arith.py).
+2^-9 max|plain| + 2^-9 |plain| (scripts/lstm_bf16_arith.py). The
+bf16 conv-epilogue kernels against their plain versions on the same
+bf16 inputs: y within 2^-7 max|plain| + 2^-7 |plain|, the float32 sums
+as the float32 kernel's; a narrow bf16 ResNet against the CPU within
+tests/test_torch_resnet_bf16.py's limits.
 """
 
 import json
@@ -929,6 +933,100 @@ def test_epilogue_kernels_refuse_what_they_do_not_take(cuda):
         fc.apply_epilogue_add(a, sc, sc, a[:1])
 
 
+@pytest.mark.parametrize("n,c,s", [
+    (128, 64, 12544),    # the ResNet-50 stem at batch 128
+    (128, 1024, 196),    # stage 3
+    (128, 2048, 49),     # stage 4
+    (4, 3, 49), (3, 5, 7), (1, 1, 1), (2, 7, 13),
+] + [(4, c, s) for c, s in RESNET_EPILOGUES])
+def test_epilogue_bf16_kernels_match_plain(cuda, n, c, s):
+    """The bfloat16 kernels against their plain versions on the same
+    bfloat16 inputs: the float32 sums as the float32 kernel's, y bit for
+    bit (both round once from one fused multiply-add)."""
+    gen = torch.Generator().manual_seed(n + c + s)
+    a = (_randn(gen, n, c, s) + 0.5).bfloat16()
+    d = _randn(gen, n, c, s).bfloat16()
+    before = (fc.channel_stats.launches, fc.apply_epilogue.launches,
+              fc.apply_epilogue_add.launches)
+    ssum, ssq = fc.channel_stats(a)
+    rsum, rsq = fc.channel_stats_reference(a)
+    assert ssum.dtype == torch.float32
+    assert bool(((ssum - rsum).abs() <= 1e-5 * a.float().abs().sum(
+        dim=(0, 2))).all())
+    torch.testing.assert_close(ssq, rsq, atol=0, rtol=1e-5)
+    sc, sh = _randn(gen, c).abs() + 0.5, _randn(gen, c)
+    for relu in (False, True):
+        assert torch.equal(fc.apply_epilogue(a, sc, sh, relu),
+                           fc.apply_epilogue_reference(a, sc, sh, None, relu))
+        assert torch.equal(fc.apply_epilogue_add(a, sc, sh, d, relu),
+                           fc.apply_epilogue_reference(a, sc, sh, d, relu))
+    # the float32 wrappers handed every bfloat16 call on
+    assert (fc.channel_stats.launches, fc.apply_epilogue.launches,
+            fc.apply_epilogue_add.launches) == before
+
+
+@pytest.mark.parametrize("n,c,s", [(128, 256, 196), (128, 2048, 49),
+                                   (128, 64, 12544), (3, 600, 5), (2, 7, 13)])
+def test_channel_stats_bf16_gives_the_same_bits_twice(cuda, n, c, s):
+    gen = torch.Generator().manual_seed(c + s)
+    a = (_randn(gen, n, c, s) + 0.5).bfloat16()
+    first = fc.channel_stats_bf16(a)
+    second = fc.channel_stats_bf16(a)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+def test_epilogue_bf16_wrappers_never_fall_back(cuda, monkeypatch):
+    """With the plain versions patched to raise, FusedConvEpilogue on a
+    bfloat16 a on the card runs forward and backward, counts one launch
+    of each bfloat16 kernel it uses and none of the float32 ones."""
+    def boom(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    monkeypatch.setattr(fc, "channel_stats_reference", boom)
+    monkeypatch.setattr(fc, "apply_epilogue_reference", boom)
+    gen = torch.Generator().manual_seed(3)
+    a = _randn(gen, 4, 8, 7, 7).bfloat16().requires_grad_(True)
+    add = _randn(gen, 4, 8, 7, 7).bfloat16()
+    g, b, m, v = (_randn(gen, 8).abs() + 0.5, _randn(gen, 8),
+                  torch.zeros(8).cuda(), torch.ones(8).cuda())
+    names = ("channel_stats", "apply_epilogue", "apply_epilogue_add",
+             "channel_stats_bf16", "apply_epilogue_bf16",
+             "apply_epilogue_add_bf16")
+    before = [getattr(fc, k).launches for k in names]
+    y = fc.fused_conv_epilogue(a, g, b, m, v, None, 1e-5, 0.9, True)[0]
+    y2 = fc.fused_conv_epilogue(a, g, b, m, v, add, 1e-5, 0.9, True)[0]
+    assert y.dtype == y2.dtype == torch.bfloat16
+    (y.float().sum() + y2.float().sum()).backward()
+    torch.cuda.synchronize()
+    assert a.grad.dtype == torch.bfloat16
+    assert bool(torch.isfinite(a.grad.float()).all())
+    after = [getattr(fc, k).launches - x for k, x in zip(names, before)]
+    assert after == [0, 0, 0, 2, 1, 1]
+
+
+def test_epilogue_bf16_kernels_refuse_what_they_do_not_take(cuda):
+    gen = torch.Generator().manual_seed(4)
+    a = _randn(gen, 2, 3, 8).bfloat16()
+    sc = torch.ones(3).cuda()
+    with pytest.raises(TypeError):
+        fc.channel_stats(a.half())
+    with pytest.raises(TypeError):
+        fc.apply_epilogue_add(a, sc, sc, a.float())
+    with pytest.raises(TypeError):
+        fc.apply_epilogue(a, sc.bfloat16(), sc)
+    with pytest.raises(ValueError):
+        fc.channel_stats_bf16(a.transpose(0, 1))
+    with pytest.raises(ValueError):
+        fc.apply_epilogue_bf16(a, sc[:2], sc)
+    flat = torch.zeros(2 * 3 * 8 + 1, dtype=torch.bfloat16).cuda()
+    with pytest.raises(ValueError, match="aligned"):
+        fc.apply_epilogue_bf16(flat[1:].view(2, 3, 8), sc, sc)
+    with pytest.raises(ValueError):
+        fc.apply_epilogue_add_bf16(a, sc, sc, a[:1])
+
+
 def test_resnet_step_on_the_card_matches_the_cpu(cuda):
     """A narrow bottleneck ResNet (stem, max pool, projection blocks of
     stride 1 and 2, fused_bottleneck rest blocks, 32 px, batch 4) from
@@ -985,6 +1083,111 @@ def test_resnet_step_on_the_card_matches_the_cpu(cuda):
         if n in params:
             got, want = got - start[n], want - start[n]
         assert rms(got - want) <= 1e-3 * rms(want), n
+
+
+def _narrow_resnet(pt, dtype):
+    """The narrow ResNet above with its data var in `dtype`, built with
+    fresh name counters (the float32 and the bf16 program name their
+    parameters alike): (main, startup, avg)."""
+    from paddle_tpu_torch.core.program import unique_name_guard
+    from paddle_tpu_torch.models import resnet
+
+    main, startup = pt.Program(), pt.Program()
+    with unique_name_guard(), pt.program_guard(main, startup):
+        x = pt.layers.data("data", [3, 32, 32], dtype=dtype)
+        label = pt.layers.data("label", [1], dtype="int64")
+        h = resnet.conv_bn_layer(x, 16, 3, 1, 1)
+        h = pt.layers.pool2d(h, pool_size=3, pool_type="max", pool_stride=2,
+                             pool_padding=1)
+        h = resnet.layer_warp(resnet.bottleneck, h, 8, 2, 1)
+        h = resnet.layer_warp(resnet.bottleneck, h, 16, 2, 2)
+        h = pt.layers.pool2d(h, pool_size=8, pool_type="avg",
+                             global_pooling=True)
+        logits = pt.layers.fc(h, size=10)
+        avg = pt.layers.mean(pt.layers.softmax_with_cross_entropy(logits,
+                                                                  label))
+        pt.optimizer.MomentumOptimizer(learning_rate=0.05,
+                                       momentum=0.9).minimize(avg)
+    return main, startup, avg
+
+
+def test_resnet_bf16_step_on_the_card_matches_the_cpu(cuda):
+    """The narrow ResNet above as a bfloat16 program (a bfloat16 data var,
+    float32 masters) from one startup state: two Momentum steps on the
+    card and on the CPU, beside the float32 program's two steps on the
+    CPU. The losses within rtol 6e-2; the first-step gradients, the
+    parameters' updates (all of them together, as relative rms) and the
+    running stats within twice what float32 reads against bfloat16 on
+    the CPU (each bfloat16 run sits about that far from float32), each
+    such limit under 0.8, so that a step that updates nothing (1.0) or
+    sees half the batch (0.86 and 0.78 on the CPU) fails; every master
+    stays float32, and each card step launched each bfloat16 epilogue
+    kernel once per fused_conv2d op and no float32 one."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.analysis import fuse
+
+    progs = {d: _narrow_resnet(pt, d) for d in ("bfloat16", "float32")}
+    main, startup, avg = progs["bfloat16"]
+    fused = fuse.maybe_fuse(main, protect=[avg.name])
+    ops = [op for op in fused.global_block.ops if op.type == "fused_conv2d"]
+    n_add = sum(bool(op.input("Addend")) for op in ops)
+    params = [p.name for p in main.global_block.all_parameters()]
+    cpu_exe, gpu_exe, scope0 = (pt.Executor(pt.CPUPlace()), pt.Executor(),
+                                pt.Scope())
+    cpu_exe.run(startup, scope=scope0)
+    names = sorted(scope0.local_var_names())
+    start = {n: scope0.get_numpy(n) for n in names}
+    kernels = ("channel_stats", "apply_epilogue", "apply_epilogue_add",
+               "channel_stats_bf16", "apply_epilogue_bf16",
+               "apply_epilogue_add_bf16")
+    losses, grads, ends = {}, {}, {}
+    for key, exe, dtype in (("cpu", cpu_exe, "bfloat16"),
+                            ("card", gpu_exe, "bfloat16"),
+                            ("cpu float32", cpu_exe, "float32")):
+        prog, _, loss = progs[dtype]
+        scope = pt.Scope()
+        for n in names:
+            scope.set_var(n, scope0.find_var(n).to(exe.device, copy=True))
+        before = [getattr(fc, k).launches for k in kernels]
+        rng = np.random.RandomState(0)
+        losses[key] = []
+        for i in range(2):
+            data = rng.rand(4, 3, 32, 32).astype(np.float32) - 0.5
+            feed = {"data": data, "label": rng.randint(0, 10, (4, 1))}
+            out = exe.run(prog, feed=feed, fetch_list=[loss] + (
+                [p + "@GRAD" for p in params] if i == 0 else []),
+                scope=scope)
+            losses[key].append(float(out[0][0]))
+            if i == 0:
+                grads[key] = dict(zip(params, out[1:]))
+        if key == "card":
+            after = [getattr(fc, k).launches - x
+                     for k, x in zip(kernels, before)]
+            assert after == [0, 0, 0, 2 * len(ops), 2 * (len(ops) - n_add),
+                             2 * n_add]
+        for p in params:
+            assert scope.find_var(p).dtype == torch.float32, p
+        ends[key] = {n: scope.get_numpy(n) for n in names}
+    np.testing.assert_allclose(losses["card"], losses["cpu"], rtol=6e-2)
+
+    def rms(a):
+        return float(np.sqrt(np.mean(np.square(a.astype(np.float64)))))
+
+    def rel(src, key, keys, base=None):
+        def cat(d):
+            return np.concatenate([(d[n] - (0 if base is None else base[n]))
+                                   .ravel() for n in keys])
+        want = cat(src["cpu"])
+        return rms(cat(src[key]) - want) / rms(want)
+
+    stats = [n for n in names if n not in params and "velocity" not in n
+             and "learning_rate" not in n]
+    for what, src, keys, base in (("gradients", grads, params, None),
+                                  ("updates", ends, params, start),
+                                  ("running stats", ends, stats, None)):
+        got = rel(src, "card", keys, base)
+        limit = 2 * rel(src, "cpu float32", keys, base)
+        assert got <= limit < 0.8, (what, got, limit)
 
 
 def _lstm_case(gen, t, b, h, lens):
