@@ -199,7 +199,24 @@ no result line:
    first-step gradients, the updates after two steps and the running
    stats within BF16_SPREAD times what float32 reads against bf16 on the
    CPU, each limit under BF16_CEILING, and every master float32;
-21. print the kernels' JSON line, the card line and the result line.
+21. run the bench's bf16 program (build_resnet50_bf16) pruned to its loss
+   and accuracy, its training-mode forward at full width (batch 128,
+   224 px) from one startup state, through the composition and with
+   PT_FUSED_BLOCK=always, whose gate takes the 10 rest blocks at 56²,
+   28² and 14² through the four bf16 chain kernels: each bf16 chain
+   kernel launched 10 times a forward and no float32 chain kernel; the
+   float32 program (phase 7's) composed from the same state (the bf16
+   program's float32 masters loaded by position) is the reference: the
+   chain's loss within AMP_LOSS_RTOL of it (relative, as phase 20 holds
+   its step-0 loss: one number is a sample of bf16's noise); the bf16
+   composition's distance from it (the 128 per-image losses' relative
+   rms; the 120 stat outputs' largest and median relative rms, running
+   stats as their updates) is the reading, the chain's distance within
+   BF16_SPREAD times it, each limit under BF16_CEILING; a warm-up and
+   CHAIN_FORWARDS forwards of each in turns (ms, images/s), the peak
+   memory of one forward of each and one profiled forward of each by
+   kernel class;
+22. print the kernels' JSON line, the card line and the result line.
 
 Phase 3 also holds the three bf16 flash kernels (forward, dQ, dK/dV;
 csrc/flash_attention_bf16.cu) against their plain versions at
@@ -229,6 +246,17 @@ LSTM_SUM_REL max|plain| + LSTM_SUM_REL |plain| of the plain versions on
 the same bf16 inputs, each timed beside its plain version, its bound at
 the bf16 tensor cores' rate and torch.nn.LSTM in bf16 (cuDNN; its
 forward, and its backward less its forward).
+Phase 3 also holds the four bf16 bottleneck-chain kernels
+(csrc/fused_block_bf16.cu) against their plain versions at the three
+chain stages at batch 128, on bf16 inputs made as the chain makes them:
+y and out within BF16_REL max|plain| + BF16_REL |plain| with the share
+of elements that differ printed, the float32 sums within STATS_RTOL of
+their terms' magnitudes plus what the y that round to the neighbouring
+bf16 value move, Σh and M2 within STATS_RTOL, two calls the same bits;
+each timed beside its plain version, its bound at the bf16 tensor
+cores' rate and a bf16 PyTorch yardstick (F.conv2d of the same product;
+torch.bmm of h·hᵀ and the sum), with its registers and spills from the
+build's ptxas report.
 Phase 3 also holds the four bottleneck-chain kernels against their
 plain versions at ResNet-50's three chain stages at batch 128 (Cin, C,
 H = 256, 64, 56 / 512, 128, 28 / 1024, 256, 14), each timed beside its
@@ -267,6 +295,7 @@ import argparse
 import contextlib
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -436,6 +465,18 @@ CHAIN_FORWARDS = 6
 # the sums over N·S within STATS_RTOL of the sum of their terms'
 # magnitudes
 CHAIN_BWD_KERNELS = ("bwd_reduce3", "bwd_apply3", "bwd_mid", "bwd_final")
+# the chain's bf16 forward kernels (phase 3) against their plain versions
+# on bf16 inputs made as the chain makes them, at CHAIN_SHAPES: y within
+# BF16_REL max|plain| + BF16_REL |plain| (the kernels sum K in another
+# order, so a y can round to the neighbouring bf16 value); the float32
+# sums within STATS_RTOL of their terms' magnitudes plus what those flips
+# move (the sum of |y - plain y| for Σy, of |y² - plain y²| for Σy²):
+# scripts/emulate_fused_block_bf16_cpu.py shows the flips alone taking a
+# sum to 25 times the float32 limit; Σh and M2 (of the same rounded h in
+# both) within STATS_RTOL of themselves. Phase 21 runs them on the bench's
+# bf16 program's training-mode forward, held to BF16_SPREAD times the bf16
+# composition's distance from float32 (the loss to AMP_LOSS_RTOL)
+CHAIN_BF16_KERNELS = tuple(k + "_bf16" for k in CHAIN_KERNELS)
 
 
 def card_line() -> str:
@@ -958,6 +999,16 @@ def kernel_class(name: str) -> str:
         return "lstm_seq_fwd (port kernel)"
     if "lstm_gemm_kernel" in n or "lstm_bwd_" in n:
         return "lstm_seq_bwd (port kernel)"
+    # the bf16 chain's kernels (csrc/fused_block_bf16.cu): one 1x1
+    # template, its mode 0 conv1x1_stats and 1 conv1x1_bn_residual
+    one = re.search(r"conv1x1_bf16_kernel<\d+, (\d)", n)
+    if one:
+        return ("conv1x1_stats_bf16" if one.group(1) == "0"
+                else "conv1x1_bn_residual_bf16") + " (port kernel)"
+    if "conv3x3_bf16_kernel" in n:
+        return "conv3x3_norm_stats_bf16 (port kernel)"
+    if "moments_bf16_kernel" in n:
+        return "norm_relu_moments_bf16 (port kernel)"
     for kernel in ("conv1x1_stats", "conv3x3_norm_stats",
                    "conv1x1_bn_residual", "moments", "bwd_reduce3",
                    "bwd_apply3", "bwd_mid", "bwd_final"):
@@ -2930,6 +2981,188 @@ def resnet_bf16_card_vs_cpu(np, torch, card, seed: int):
                            f"{BF16_CEILING}: {bad}")
 
 
+def chain_stat_names(prog):
+    """The stat outputs of the fused_bottleneck ops of `prog` that the
+    chain's gate takes at RESNET's image (declared H·W >= CHAIN_MIN_S:
+    the 10 rest blocks at 56², 28² and 14²), op by op, slot by slot."""
+    from paddle_tpu_torch.ops.fused_ops import CHAIN_MIN_S
+
+    block = prog.global_block
+    slots = [slot.format(k=k) for k in "123" for slot in
+             ("MeanOut{k}", "VarOut{k}", "SavedMean{k}", "SavedVar{k}")]
+    return [op.output(slot)[0] for op in block.ops
+            if op.type == "fused_bottleneck"
+            and math.prod(block.var(op.input("X")[0]).shape[2:])
+            >= CHAIN_MIN_S for slot in slots]
+
+
+def bf16_forward_runs(np, pt, exe, bf, built, feed):
+    """Training-mode forwards of ResNet-50 pruned to its loss and
+    accuracy, from one startup state: the bf16 program's (bf, from
+    build_resnet50_bf16), its float32 masters and running stats loaded
+    by position into the float32 program (built, phase 7's). Returns
+    run(what, restore=True, with_stats=True, data=None) for what in
+    "float32" (the float32 program composed), "bf16" (the bf16 program
+    composed) and "chain" (the bf16 program with PT_FUSED_BLOCK=always):
+    (loss, the per-image losses whose mean it is, [stat outputs]), the
+    stat outputs chain_stat_names' (running stats as their update this
+    forward); data: other images. The caller restores PT_FUSED_BLOCK."""
+    progs = {k: d["main"].prune([d["avg"].name, d["acc"].name])
+             for k, d in (("float32", built), ("bf16", bf))}
+    loss_of = {"float32": built["avg"].name, "bf16": bf["avg"].name}
+    # the per-image cross-entropies: the input of the mean that is the loss
+    terms_of = {k: next(op.input("X")[0] for op in p.global_block.ops
+                        if op.type == "mean"
+                        and op.output("Out")[0] == loss_of[k])
+                for k, p in progs.items()}
+    names = {k: [n for n, v in p.global_block.vars.items() if v.persistable]
+             for k, p in progs.items()}
+    scope = pt.Scope()
+    exe.run(bf["startup"], scope=scope)
+    state = {"bf16": {n: scope.find_var(n).clone() for n in names["bf16"]}}
+    state["float32"] = {f: state["bf16"][b]
+                        for f, b in zip(names["float32"], names["bf16"])}
+    if len(names["float32"]) != len(names["bf16"]) or any(
+            tuple(progs["float32"].global_block.var(f).shape)
+            != tuple(progs["bf16"].global_block.var(b).shape)
+            for f, b in zip(names["float32"], names["bf16"])):
+        raise RuntimeError("the float32 and bf16 programs' state does not "
+                           "match by position")
+    stats = {k: chain_stat_names(p) for k, p in progs.items()}
+
+    def run(what, restore=True, with_stats=True, data=None):
+        """data: other images than the feed's."""
+        key = "float32" if what == "float32" else "bf16"
+        if restore:
+            for n, v in state[key].items():
+                scope.set_var(n, v.clone())
+        os.environ["PT_FUSED_BLOCK"] = "always" if what == "chain" \
+            else "never"
+        fetch = [loss_of[key], terms_of[key]] + (stats[key] if with_stats
+                                                 else [])
+        got = exe.run(progs[key], feed=feed if data is None else dict(
+            feed, data=data), fetch_list=fetch, scope=scope)
+        vals = [np.asarray(v, np.float32) - (
+                    state[key][n].float().cpu().numpy() if n in state[key]
+                    else 0) for n, v in zip(stats[key], got[2:])]
+        return float(got[0][0]), np.asarray(got[1], np.float32), vals
+
+    return run
+
+
+def forward_distance(np, got, want):
+    """(loss relative difference, the per-image losses' relative rms
+    difference, the stat outputs' largest relative rms difference, their
+    median) of one forward against another."""
+    rel = [rms(np, g - w) / max(rms(np, w), 1e-30)
+           for g, w in zip(got[2], want[2])]
+    return (abs(got[0] - want[0]) / abs(want[0]),
+            rms(np, got[1] - want[1]) / rms(np, want[1]), max(rel),
+            float(np.median(rel)))
+
+
+def resnet_bf16_chain_path(np, torch, fb, card, built, seed: int):
+    """Phase 21: the bench's bf16 program (build_resnet50_bf16) pruned to
+    its loss and accuracy, its training-mode forward at full width from
+    one startup state through the composition and through the chain
+    (PT_FUSED_BLOCK=always), whose gate takes the 10 rest blocks at 56²,
+    28² and 14² through the four bf16 chain kernels; the float32 program
+    composed, from the same state, is the reference. Returns the bf16
+    chain kernels' launch counts of the phase."""
+    import paddle_tpu_torch as pt
+
+    b, img = RESNET["batch"], RESNET["image"]
+    bf = build_resnet50_bf16(pt, seed)
+    exe = pt.Executor()
+    feed = {k: torch.from_numpy(v).to(exe.device)
+            for k, v in resnet_varied(np, 0, b, img).items()}
+    names = CHAIN_BF16_KERNELS + CHAIN_KERNELS
+    prev = os.environ.get("PT_FUSED_BLOCK")
+    try:
+        run = bf16_forward_runs(np, pt, exe, bf, built, feed)
+        f32, comp = run("float32"), run("bf16")
+        for name in names:
+            getattr(fb, name).launches = 0
+        chain = run("chain")
+        n_fwd = 1
+        comp_r, chain_r = forward_distance(np, comp, f32), \
+            forward_distance(np, chain, f32)
+        print(f"bf16 chain path: ResNet-50 bf16 training-mode forward, batch"
+              f" {b}, {img} px, {CHAIN_BLOCKS} rest blocks through the chain"
+              f", {len(chain[2])} stat outputs (running stats as their "
+              f"updates): loss float32 {f32[0]!r}, bf16 composition "
+              f"{comp[0]!r}, bf16 chain {chain[0]!r}; relative to float32 "
+              f"{comp_r[0]:.4e} and {chain_r[0]:.4e} (tol {AMP_LOSS_RTOL})"
+              f" [{card}]")
+        # the loss, one number, is a sample of bf16's noise: held to the
+        # AMP limit, as phase 20 holds its step-0 loss; its per-image terms
+        # and the stat outputs, aggregates, to the composition's reading
+        bad = [] if chain_r[0] <= AMP_LOSS_RTOL else ["loss"]
+        for what, c_r, k_r in zip(
+                ("per-image losses' relative rms",
+                 "stat outputs' largest relative rms",
+                 "stat outputs' median relative rms"), comp_r[1:],
+                chain_r[1:]):
+            lim = BF16_SPREAD * c_r
+            print(f"  {what}: bf16 composition - float32 {c_r:.4e}; bf16 "
+                  f"chain - float32 {k_r:.4e}; limit {lim:.4e} "
+                  f"({BF16_SPREAD} x the composition's; ceiling "
+                  f"{BF16_CEILING})")
+            if not (np.isfinite(k_r) and k_r <= lim < BF16_CEILING):
+                bad.append(what)
+        if bad:
+            raise RuntimeError(f"the bf16 chain's training-mode forward sits"
+                               f" beyond its limits (the loss "
+                               f"{AMP_LOSS_RTOL}, the rest {BF16_SPREAD} x "
+                               f"the bf16 composition's distance from "
+                               f"float32), or a limit reached "
+                               f"{BF16_CEILING}: {bad}")
+        times = {"bf16": [], "chain": []}
+        for what in times:
+            run(what, restore=False, with_stats=False)
+        n_fwd += 1
+        for _ in range(CHAIN_FORWARDS):
+            for what in times:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(what, restore=False, with_stats=False)
+                torch.cuda.synchronize()
+                times[what].append(time.perf_counter() - t0)
+        n_fwd += CHAIN_FORWARDS
+        for what, label in (("bf16", "composition"), ("chain", "chain")):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            run(what, restore=False, with_stats=False)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            ms = 1e3 * sum(times[what]) / CHAIN_FORWARDS
+            print(f"bf16 chain path: {label} forward {ms:.3f} ms "
+                  f"({[round(1e3 * t, 2) for t in times[what]]}), "
+                  f"{b / ms * 1e3:.1f} images/s, peak memory of one "
+                  f"forward {peak:.2f} GB [{card}]")
+        n_fwd += 1
+        for what, label in (("bf16", "composition"), ("chain", "chain")):
+            wall, by_name, _ = profiled(
+                torch, lambda w=what: run(w, restore=False, with_stats=False),
+                1)
+            print_profile(f"bf16 ResNet-50 training-mode forward, {label} "
+                          f"(batch {b}, {img} px)", wall, by_name, card)
+        n_fwd += 2
+        launches = {name: getattr(fb, name).launches for name in names}
+    finally:
+        if prev is None:
+            os.environ.pop("PT_FUSED_BLOCK", None)
+        else:
+            os.environ["PT_FUSED_BLOCK"] = prev
+    print(f"bf16 chain path launches over {n_fwd} chain forwards: "
+          f"{launches}")
+    for name, count in launches.items():
+        want = CHAIN_BLOCKS * n_fwd if name in CHAIN_BF16_KERNELS else 0
+        if count != want:
+            raise RuntimeError(f"{name} was launched {count} times on the "
+                               f"bf16 chain path, expected {want}")
+    return {name: launches[name] for name in CHAIN_BF16_KERNELS}
+
+
 def lstm_case(torch, t, b, h, lens, seed):
     """Inputs of the LSTM kernels on the card: x ~ N(0, 1) (a pre-projected
     input), W ~ U(+-sqrt(6 / (H + 4H))) (the model's Xavier init), small
@@ -3745,6 +3978,223 @@ def check_chain(torch, F, fb, card):
     return rows
 
 
+def bf16_sum_share(torch, name, got, want, terms, moved):
+    """A float32 sum of rounded bf16 values within STATS_RTOL of its
+    terms' magnitudes plus `moved`, what the kernel's rounded values that
+    differ from the plain version's move it; returns the largest share
+    of that limit."""
+    lim = STATS_RTOL * terms + moved
+    share = float(((got - want).abs() / lim.clamp_min(1e-30)).max())
+    if not share <= 1:
+        raise RuntimeError(f"{name}: the kernel's sums disagree with the "
+                           f"plain version's (share {share:.3f} of the "
+                           f"limit)")
+    return share
+
+
+def ptxas_of(report: dict, source: str) -> dict:
+    """{kernel entry: (registers, spill store bytes)} from the build's
+    ptxas report of `source` (empty where the build was cached)."""
+    out, entry = {}, None
+    for line in report.get(source, {}).get("log", "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and entry:
+            out[entry] = (None, int(m.group(1)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out[entry] = (int(m.group(1)), out.get(entry, (0, 0))[1])
+    return out
+
+
+def bf16_chain_regs(report: dict) -> dict:
+    """{bf16 chain kernel: "registers r1/r2/..., spills s1/s2/... bytes"}
+    over its instances in csrc/fused_block_bf16.cu."""
+    match = {"conv1x1_stats_bf16": r"conv1x1_bf16_kernelILi\d+ELi0E",
+             "conv1x1_bn_residual_bf16": r"conv1x1_bf16_kernelILi\d+ELi1E",
+             "conv3x3_norm_stats_bf16": r"conv3x3_bf16_kernel",
+             "norm_relu_moments_bf16": r"moments_bf16_kernel"}
+    entries = ptxas_of(report, "fused_block_bf16.cu")
+    out = {}
+    for k, pat in match.items():
+        got = [v for e, v in entries.items() if re.search(pat, e)]
+        out[k] = ("registers " + "/".join(str(r) for r, _ in got)
+                  + ", spill stores " + "/".join(str(s) for _, s in got)
+                  + " bytes") if got else "registers not measured (cached)"
+    return out
+
+
+def check_chain_bf16(torch, F, fb, card, report):
+    """The four bf16 chain kernels (csrc/fused_block_bf16.cu) vs their
+    plain versions at each of CHAIN_SHAPES, on bf16 inputs made as the
+    chain makes them (the plain version of the kernel before; BN folds
+    from its float32 sums); two calls on one input held to the same bits;
+    each timed beside its plain version, its bound (bf16 bytes at 3.35
+    TB/s, products at the bf16 tensor cores' rate) and a bf16 PyTorch
+    yardstick (F.conv2d of the same product for the convolutions,
+    torch.bmm of h·hᵀ and the sum for the moments). The kernels line
+    reports the first stage."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    n, bf = RESNET["batch"], torch.bfloat16
+    regs = bf16_chain_regs(report)
+    rows, errs = {}, {k: [] for k in CHAIN_BF16_KERNELS}
+    shares = {k: [] for k in CHAIN_BF16_KERNELS}
+    for cin, c, h in CHAIN_SHAPES:
+        s, m = h * h, n * h * h
+        d = chain_case(torch, n, cin, c, h, gen)
+        x, w1, taps, w3 = (d[k].to(bf) for k in ("x", "w1", "taps", "w3"))
+        differ, sums = {}, {}
+
+        def hold_y(name, got, want):
+            shares[name].append(bf16_share(torch, got, want))
+            errs[name].append(float((got.float() - want.float()).abs()
+                                    .max()))
+            differ[name] = float((got != want).float().mean())
+
+        def hold_sums(name, y, ry, s_, q, rs, rq):
+            yf, ryf = y.float(), ry.float()
+            moved = (yf - ryf).abs()
+            sums[name] = (
+                bf16_sum_share(torch, name, s_, rs,
+                               ryf.abs().sum(dim=(0, 2)),
+                               moved.sum(dim=(0, 2))),
+                bf16_sum_share(torch, name, q, rq, rq,
+                               (moved * (yf.abs() + ryf.abs()))
+                               .sum(dim=(0, 2))))
+
+        def same_bits(name, fn, first):
+            again = fn()
+            torch.cuda.synchronize()
+            pairs = zip(first, again) if isinstance(first, tuple) \
+                else [(first, again)]
+            if not all(torch.equal(a, b) for a, b in pairs):
+                raise RuntimeError(f"{name}: two calls on one input differ")
+
+        k1 = lambda: fb.conv1x1_stats_bf16(x, w1)
+        a1 = k1()
+        ra1, rs1, rq1 = fb.conv1x1_stats_reference(x, w1)
+        torch.cuda.synchronize()
+        hold_y("conv1x1_stats_bf16", a1[0], ra1)
+        hold_sums("conv1x1_stats_bf16", a1[0], ra1, a1[1], a1[2], rs1, rq1)
+        same_bits("conv1x1_stats_bf16", k1, a1)
+        del a1
+        _, _, sc1, sh1 = fb._bn_fold(rs1, rq1, m, d["gam"][0], d["bet"][0])
+        k2 = lambda: fb.conv3x3_norm_stats_bf16(ra1, taps, sc1, sh1, h)
+        a2 = k2()
+        ra2, rs2, rq2 = fb.conv3x3_norm_stats_reference(ra1, taps, sc1, sh1,
+                                                        h)
+        torch.cuda.synchronize()
+        hold_y("conv3x3_norm_stats_bf16", a2[0], ra2)
+        hold_sums("conv3x3_norm_stats_bf16", a2[0], ra2, a2[1], a2[2], rs2,
+                  rq2)
+        same_bits("conv3x3_norm_stats_bf16", k2, a2)
+        del a2
+        _, _, sc2, sh2 = fb._bn_fold(rs2, rq2, m, d["gam"][1], d["bet"][1])
+        k3 = lambda: fb.norm_relu_moments_bf16(ra2, sc2, sh2)
+        sum_h, m2h = k3()
+        rsum_h, rm2h = fb.norm_relu_moments_reference(ra2, sc2, sh2)
+        torch.cuda.synchronize()
+        # h >= 0, rounded to bf16 in both: Σh and M2 are their terms'
+        # magnitudes summed
+        sums["norm_relu_moments_bf16"] = (
+            check_sums(torch, "norm_relu_moments_bf16", sum_h, rsum_h,
+                       rsum_h)[1],
+            check_sums(torch, "norm_relu_moments_bf16", m2h, rm2h, rm2h)[1])
+        shares["norm_relu_moments_bf16"].append(
+            max(sums["norm_relu_moments_bf16"]))
+        errs["norm_relu_moments_bf16"].append(float(max(
+            (sum_h - rsum_h).abs().max(), (m2h - rm2h).abs().max())))
+        if not torch.equal(m2h, m2h.T):
+            raise RuntimeError("norm_relu_moments_bf16: M2 is not symmetric")
+        same_bits("norm_relu_moments_bf16", k3, (sum_h, m2h))
+        _, _, sc3, sh3 = fb._bn3_fold(w3, rsum_h, rm2h, m, d["gam"][2],
+                                      d["bet"][2])
+        res_args = (ra2, x, sc2, sh2, w3, sc3, sh3)
+        k4 = lambda: fb.conv1x1_bn_residual_bf16(*res_args)
+        out = k4()
+        rout = fb.conv1x1_bn_residual_reference(*res_args)
+        torch.cuda.synchronize()
+        hold_y("conv1x1_bn_residual_bf16", out, rout)
+        same_bits("conv1x1_bn_residual_bf16", k4, out)
+        del out, rout
+        # bounds: each input read once and each output written once (bf16
+        # activations, taps and weights; float32 affines and sums); the
+        # products at the bf16 tensor cores' rate (M2 is symmetric: C(C+1)
+        # / 2 products a column)
+        ea, ex = n * c * s, n * cin * s
+        bounds = {
+            "conv1x1_stats_bf16": bound_ms(
+                2 * (ex + c * cin + ea) + 4 * 2 * c, 2 * c * cin * m,
+                BF16_FLOPS_PER_S),
+            "conv3x3_norm_stats_bf16": bound_ms(
+                2 * (2 * ea + 9 * c * c) + 4 * 4 * c, 18 * c * c * m,
+                BF16_FLOPS_PER_S),
+            "norm_relu_moments_bf16": bound_ms(
+                2 * ea + 4 * (2 * c + c * (c + 1)), c * (c + 1) * m,
+                BF16_FLOPS_PER_S),
+            "conv1x1_bn_residual_bf16": bound_ms(
+                2 * (ea + 2 * ex + cin * c) + 4 * (2 * c + 2 * cin),
+                2 * cin * c * m, BF16_FLOPS_PER_S)}
+        calls = {
+            "conv1x1_stats_bf16": (
+                k1, lambda: fb.conv1x1_stats_reference(x, w1)),
+            "conv3x3_norm_stats_bf16": (
+                k2, lambda: fb.conv3x3_norm_stats_reference(ra1, taps, sc1,
+                                                            sh1, h)),
+            "norm_relu_moments_bf16": (
+                k3, lambda: fb.norm_relu_moments_reference(ra2, sc2, sh2)),
+            "conv1x1_bn_residual_bf16": (
+                k4, lambda: fb.conv1x1_bn_residual_reference(*res_args))}
+        ms = {k: cuda_ms(torch, f, 10) for k, (f, _) in calls.items()}
+        plain = {k: cuda_ms(torch, r, 3) for k, (_, r) in calls.items()}
+        # yardsticks: the same product in bf16 through cuDNN / cuBLAS, on
+        # the materialized bf16 h where the kernel normalizes on load
+        h1 = fb._norm_relu(ra1, sc1, sh1).view(n, c, h, h)
+        h2 = fb._norm_relu(ra2, sc2, sh2)
+        w2 = taps.view(3, 3, c, c).permute(2, 3, 0, 1).contiguous()
+        lib = {"conv1x1_stats_bf16": cuda_ms(torch, lambda: F.conv2d(
+                   x.view(n, cin, h, h), w1.view(c, cin, 1, 1)), 10),
+               "conv3x3_norm_stats_bf16": cuda_ms(
+                   torch, lambda: F.conv2d(h1, w2, padding=1), 10),
+               "norm_relu_moments_bf16": cuda_ms(torch, lambda: (
+                   torch.bmm(h2, h2.transpose(1, 2)).sum(dim=0),
+                   h2.sum(dim=(0, 2))), 10),
+               "conv1x1_bn_residual_bf16": cuda_ms(torch, lambda: F.conv2d(
+                   h2.view(n, c, h, h), w3.view(cin, c, 1, 1)), 10)}
+        print(f"bottleneck chain bf16 stage Cin {cin}, C {c}, {h}x{h}, batch "
+              f"{n}: " + "; ".join(
+                  f"{k} {ms[k]:.4f} ms (plain {plain[k]:.4f}, "
+                  f"{'bmm + sum' if 'moments' in k else 'conv2d'} bf16 "
+                  f"{lib[k]:.4f}, bound {bounds[k][0]:.4f} {bounds[k][1]}, "
+                  f"largest share of its limit {shares[k][-1]:.4f}"
+                  + (f", elements that differ {differ[k]:.5f}"
+                     if k in differ else "") + ")"
+                  for k in CHAIN_BF16_KERNELS)
+              + f"; chain {sum(ms.values()):.4f} ms vs bound "
+              f"{sum(b[0] for b in bounds.values()):.4f} ms; two calls the "
+              f"same bits [{card}]")
+        print(f"bottleneck chain bf16 stage Cin {cin}, C {c}, {h}x{h} sums, "
+              f"largest share of the limit (rtol {STATS_RTOL} of Σ|terms| "
+              f"plus what flipped y move): " + "; ".join(
+                  f"{k} {what} {share:.3f}" for k, pair in sums.items()
+                  for what, share in zip(
+                      ("Σh", "M2") if "moments" in k else ("Σ", "Σ²"),
+                      pair)) + f" [{card}]")
+        if (cin, c, h) == CHAIN_SHAPES[0]:
+            for k in CHAIN_BF16_KERNELS:
+                rows[k] = dict(ms=ms[k], plain_ms=plain[k],
+                               bound_ms=bounds[k][0], bound_by=bounds[k][1],
+                               library_ms=lib[k])
+        del d, x, ra1, ra2, h1, h2, res_args, calls
+    for k in CHAIN_BF16_KERNELS:
+        rows[k]["max_abs_err"] = max(errs[k])
+        print(f"{k}: largest share of its limit over the three stages "
+              f"{max(shares[k]):.4f}; {regs[k]} [{card}]")
+    return rows
+
+
 def chain_bwd_inputs(torch, fb, d, dout, h):
     """{kernel: args} of the four backward wrappers in one run of
     bottleneck_rest_bwd on the chain's forward of d (a chain_case), a
@@ -4331,6 +4781,7 @@ def main() -> int:
     rows.update(check_lstm(np, torch, fl, card, args.seed))
     rows.update(check_lstm_bf16(np, torch, fl, card, args.seed))
     rows.update(check_chain(torch, F, fb, card))
+    rows.update(check_chain_bf16(torch, F, fb, card, report))
     rows.update(check_chain_bwd(torch, fb, card))
     launches = main_path(np, torch, fa, card, args.seed)
     trained = train_path(np, torch, fa, card, args.seed)
@@ -4362,6 +4813,8 @@ def main() -> int:
     lstm_amp_card_vs_cpu(np, torch, card, args.seed)
     launches.update(resnet_bf16_path(np, torch, fc, card, built, args.seed))
     resnet_bf16_card_vs_cpu(np, torch, card, args.seed)
+    launches.update(resnet_bf16_chain_path(np, torch, fb, card, built,
+                                           args.seed))
 
     meta = {"flash_attention_fwd": (
                 "paddle_tpu_torch/csrc/flash_attention.cu",
@@ -4413,6 +4866,17 @@ def main() -> int:
                                   "paddle_tpu/kernels/fused_block.py:714"),
             "conv1x1_bn_residual": ("paddle_tpu_torch/csrc/conv1x1_tc.cuh",
                                     "paddle_tpu/kernels/fused_block.py:756"),
+            "conv1x1_stats_bf16": ("paddle_tpu_torch/csrc/fused_block_bf16.cu",
+                                   "paddle_tpu/kernels/fused_block.py:790"),
+            "conv3x3_norm_stats_bf16": (
+                "paddle_tpu_torch/csrc/fused_block_bf16.cu",
+                "paddle_tpu/kernels/fused_block.py:653"),
+            "norm_relu_moments_bf16": (
+                "paddle_tpu_torch/csrc/fused_block_bf16.cu",
+                "paddle_tpu/kernels/fused_block.py:714"),
+            "conv1x1_bn_residual_bf16": (
+                "paddle_tpu_torch/csrc/fused_block_bf16.cu",
+                "paddle_tpu/kernels/fused_block.py:756"),
             "bwd_reduce3": ("paddle_tpu_torch/csrc/bwd_reduce3.cuh",
                             "paddle_tpu/kernels/fused_block.py:192"),
             "bwd_apply3": ("paddle_tpu_torch/csrc/bwd_apply3_tc.cuh",

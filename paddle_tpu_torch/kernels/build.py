@@ -43,7 +43,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu",
            "flash_attention_bf16.cu", "paged_attention.cu", "fused_conv.cu",
            "fused_lstm.cu", "fused_lstm_bf16.cu", "fused_block.cu",
-           "fused_block_bwd.cu")
+           "fused_block_bwd.cu", "fused_block_bf16.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

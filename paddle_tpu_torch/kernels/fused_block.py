@@ -41,6 +41,17 @@ replaces the Pallas kernel of its name:
   ``bwd_reduce3`` (``_b1a_kernel``), ``bwd_apply3`` (``_b1b_kernel``),
   ``bwd_mid`` (``_b2_kernel``), ``bwd_final`` (``_b3_kernel``).
 
+The forward four have bfloat16 versions, written by hand in
+``csrc/fused_block_bf16.cu`` (bf16 ``mma.sync`` products summed in
+float32, y rounded once, the sums of the rounded y, h rounded to bf16
+before its products, a3 float32 through bn3's affine):
+``conv1x1_stats_bf16``, ``conv3x3_norm_stats_bf16``,
+``norm_relu_moments_bf16``, ``conv1x1_bn_residual_bf16``, which
+``bottleneck_rest_fwd`` takes on a bf16 x. The backward four are float32
+only. The plain versions round where the Pallas kernels round, on any
+dtype: bf16 operands widened to float32 (their products are exact),
+float32 sums, one rounding of y, the affines one fused multiply-add.
+
 Each wrapper runs its plain version (``*_reference``) only for tensors
 on the CPU; for a CUDA tensor it launches its kernel or raises, and
 counts the call in its ``launches`` attribute (one a call, whatever
@@ -69,7 +80,9 @@ __all__ = ["EPS_DEFAULT", "conv1x1_stats_reference",
            "conv1x1_bn_residual_reference", "bwd_reduce3_reference",
            "bwd_apply3_reference", "bwd_mid_reference",
            "bwd_final_reference", "conv1x1_stats", "conv3x3_norm_stats",
-           "norm_relu_moments", "conv1x1_bn_residual", "bwd_reduce3",
+           "norm_relu_moments", "conv1x1_bn_residual", "conv1x1_stats_bf16",
+           "conv3x3_norm_stats_bf16", "norm_relu_moments_bf16",
+           "conv1x1_bn_residual_bf16", "bwd_reduce3",
            "bwd_apply3", "bwd_mid", "bwd_final", "bottleneck_rest_fwd",
            "bottleneck_rest_bwd", "FusedBottleneckRest",
            "fused_bottleneck_rest"]
@@ -84,9 +97,11 @@ def _col(v: torch.Tensor) -> torch.Tensor:
 
 def _norm_relu(a: torch.Tensor, scale: torch.Tensor,
                shift: torch.Tensor) -> torch.Tensor:
-    """relu(a·scale_c + shift_c) in float32, rounded to a's dtype."""
-    return torch.clamp_min(a.float() * _col(scale) + _col(shift),
-                           0.0).to(a.dtype)
+    """relu(a·scale_c + shift_c) in float32, rounded to a's dtype. The
+    affine is one fused multiply-add (addcmul), as XLA contracts the
+    Pallas kernels' product and sum and as the CUDA kernels compute it."""
+    return torch.clamp_min(torch.addcmul(_col(shift), a.float(),
+                                         _col(scale)), 0.0).to(a.dtype)
 
 
 def _sums(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -98,9 +113,18 @@ def _sums(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 # plain versions of the forward kernels
 # ---------------------------------------------------------------------------
 
+def _product(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """w [M, K] · x [N, K, S] in float32: the operands widened (a product
+    of two bfloat16 values is exact in float32) and summed in float32, as
+    the Pallas kernels' dots with a float32 result."""
+    return torch.matmul(w.float(), x.float())
+
+
 def conv1x1_stats_reference(x: torch.Tensor, w: torch.Tensor):
-    """x [N, Cin, S], w [C, Cin] -> (y = W·x [N, C, S], Σy [C], Σy² [C])."""
-    y = torch.matmul(w, x)
+    """x [N, Cin, S], w [C, Cin] -> (y = W·x [N, C, S], Σy [C], Σy² [C]):
+    y summed in float32 and rounded once to x's dtype, the sums of the
+    rounded y (``_k1_kernel``)."""
+    y = _product(w, x).to(x.dtype)
     return (y,) + _sums(y)
 
 
@@ -110,24 +134,29 @@ def conv3x3_norm_stats_reference(x: torch.Tensor, taps: torch.Tensor,
     """x [N, Cin, S] raw, taps [9, Cout, Cin], scale/shift [Cin]: the 3x3
     same-padded conv of h = relu(x·scale + shift), as nine shifted K=Cin
     products (h padded with zeros: an out-of-image tap reads 0), and its
-    sums. Returns (y [N, Cout, S], Σy [Cout], Σy² [Cout])."""
+    sums. h is rounded to x's dtype before the products, the nine taps
+    summed in one float32 accumulator and y rounded once, the sums of the
+    rounded y (``_k2_kernel``). Returns (y [N, Cout, S], Σy [Cout], Σy²
+    [Cout])."""
     n, cin, s = x.shape
     w_side = s // h_side
     h = _norm_relu(x, scale, shift).reshape(n, cin, h_side, w_side)
     hp = F.pad(h, (1, 1, 1, 1))
-    y = None
+    acc = None
     for ky in range(3):
         for kx in range(3):
             hs = hp[:, :, ky:ky + h_side, kx:kx + w_side].reshape(n, cin, s)
-            t = torch.matmul(taps[ky * 3 + kx], hs)
-            y = t if y is None else y + t
+            t = _product(taps[ky * 3 + kx], hs)
+            acc = t if acc is None else acc + t
+    y = acc.to(x.dtype)
     return (y,) + _sums(y)
 
 
 def norm_relu_moments_reference(x: torch.Tensor, scale: torch.Tensor,
                                 shift: torch.Tensor):
     """x [N, C, S] raw -> (Σh [C], M2 = Σ_{n,s} h hᵀ [C, C]) of
-    h = relu(x·scale + shift), in float32."""
+    h = relu(x·scale + shift) rounded to x's dtype, in float32
+    (``_moments_kernel``)."""
     n, c, s = x.shape
     h = _norm_relu(x, scale, shift).float().permute(1, 0, 2).reshape(c, n * s)
     return h.sum(dim=1), h @ h.T
@@ -138,9 +167,12 @@ def conv1x1_bn_residual_reference(x: torch.Tensor, residual: torch.Tensor,
                                   w: torch.Tensor, scale3: torch.Tensor,
                                   shift3: torch.Tensor) -> torch.Tensor:
     """x [N, C, S] raw a2, residual [N, Cout, S], w [Cout, C]:
-    relu((W·relu(x·scale2 + shift2))·scale3 + shift3 + residual)."""
-    a3 = torch.matmul(w, _norm_relu(x, scale2, shift2)).float()
-    y = a3 * _col(scale3) + _col(shift3) + residual.float()
+    relu((W·relu(x·scale2 + shift2))·scale3 + shift3 + residual). h2 is
+    rounded to x's dtype before the product; a3 stays float32 through
+    bn3's affine (one fused multiply-add, as XLA contracts it) and the
+    residual add, and the output is rounded once (``_assemble_kernel``)."""
+    a3 = _product(w, _norm_relu(x, scale2, shift2))
+    y = torch.addcmul(_col(shift3), a3, _col(scale3)) + residual.float()
     return torch.clamp_min(y, 0.0).to(x.dtype)
 
 
@@ -507,10 +539,14 @@ def _res_grid(n: int, s: int, cout: int, sms: int) -> Tuple[int, int]:
     return blocks, max(range(1, top + 1), key=lambda k: (fill(k), -k))
 
 
-def conv1x1_max_c() -> int:
-    """The most channels C that conv1x1_bn_residual's and bwd_final's
-    kernels take on the card, their K = C tile and W ring in one block's
-    shared memory (csrc/conv1x1_tc.cuh): the chain's gate."""
+def conv1x1_max_c(dtype: torch.dtype = torch.float32) -> int:
+    """The most channels C that the chain's kernels of `dtype` take on the
+    card: in float32, conv1x1_bn_residual's and bwd_final's, their K = C
+    tile and W ring in one block's shared memory (csrc/conv1x1_tc.cuh); in
+    bfloat16, the forward kernels' cap (csrc/fused_block_bf16.cu). The
+    chain's gate."""
+    if dtype == torch.bfloat16:
+        return _bf_max_c()
     return _fn("fused_block_conv1x1_max_c", ())()
 
 
@@ -561,6 +597,226 @@ def conv1x1_bn_residual(x: torch.Tensor, residual: torch.Tensor,
 
 
 conv1x1_bn_residual.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the bfloat16 forward kernels (csrc/fused_block_bf16.cu)
+# ---------------------------------------------------------------------------
+
+_BF_BN = 128   # columns of N·S of a 1x1 tile, positions of a 3x3 one
+_BF_BK = 32    # rows of K a 1x1 stage, positions a moments stage
+_BF_C3K = 16   # channels of a 3x3 stage (c3::kBK)
+_BF_SPLITS = 128   # the moments' most splits (kMaxSplits)
+
+
+def _bf_fn(name: str, argtypes: tuple):
+    return build.bind("fused_block_bf16.cu", name, argtypes)
+
+
+def _bf_max_c() -> int:
+    return _bf_fn("fused_block_bf16_max_c", ())()
+
+
+def _bf_check(name: str, t: torch.Tensor, device, shape) -> None:
+    build.check(name, t, device, shape, torch.bfloat16, aligned=True)
+
+
+def _bf_widths(**widths) -> None:
+    """Refuse a C past what the bf16 kernels take, before any launch."""
+    cap = _bf_max_c()
+    for name, c in widths.items():
+        if c > cap:
+            raise ValueError(f"{name} = {c}: the bfloat16 kernels take at "
+                             f"most {cap}")
+
+
+def _bf_weight(w: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """(w [M, K] as a 1x1 kernel reads it: [rows, lda] with rows whole row
+    tiles (64 where M <= 64, else 128) and lda = K in whole 32-row stages,
+    zero-padded where w is not; lda)."""
+    m, k = w.shape
+    bm = 64 if m <= 64 else 128
+    rows, lda = -(-m // bm) * bm, -(-k // _BF_BK) * _BF_BK
+    if (rows, lda) != (m, k):
+        w = F.pad(w, (0, lda - k, 0, rows - m))
+    return w, lda
+
+
+def _bf_empty(device, *shape) -> torch.Tensor:
+    return torch.empty(shape, dtype=torch.bfloat16, device=device)
+
+
+def conv1x1_stats_bf16(x: torch.Tensor, w: torch.Tensor):
+    """``conv1x1_stats`` in bfloat16: x [N, Cin, S] and w [C, Cin] bf16 ->
+    (y [N, C, S] bf16, Σy [C], Σy² [C] float32).
+
+    CPU tensors run ``conv1x1_stats_reference``. CUDA tensors run the
+    kernel: bf16, contiguous, 16-byte aligned, C and Cin at most the
+    kernels' cap; the bf16 products summed in float32 on the tensor cores,
+    y rounded once, the sums of the rounded y deterministic (a partial a
+    column tile, then a fixed-order pass)."""
+    if not build.on_card("conv1x1_stats_bf16", x):
+        return conv1x1_stats_reference(x, w)
+    _dims("x", x, 3)
+    _dims("w", w, 2)
+    n, cin, s = x.shape
+    c = w.shape[0]
+    _bf_check("x", x, x.device, (n, cin, s))
+    _bf_check("w", w, x.device, (c, cin))
+    _bf_widths(C=c, Cin=cin)
+    t = -(-n * s // _BF_BN)
+    wp, lda = _bf_weight(w)
+    y = _bf_empty(x.device, n, c, s)
+    part, stats = _empty(x.device, 2, c, t), _empty(x.device, 2, c)
+    with build.device_guard(x.device):
+        build.launch("conv1x1_stats_bf16",
+                     _bf_fn("fused_block_conv1x1_stats_bf16",
+                            (_P,) * 5 + (_I,) * 7 + (_P,)),
+                     x.data_ptr(), wp.data_ptr(), y.data_ptr(),
+                     part.data_ptr(), stats.data_ptr(), n, cin, c, s, lda, t,
+                     int(s % 4 == 0), build.stream(x.device))
+    conv1x1_stats_bf16.launches += 1
+    return y, stats[0], stats[1]
+
+
+conv1x1_stats_bf16.launches = 0
+
+
+def conv3x3_norm_stats_bf16(x: torch.Tensor, taps: torch.Tensor,
+                            scale: torch.Tensor, shift: torch.Tensor,
+                            h_side: int):
+    """``conv3x3_norm_stats`` in bfloat16: x [N, Cin, S] and taps [9, Cout,
+    Cin] bf16, scale/shift [Cin] float32 -> (y [N, Cout, S] bf16, Σy, Σy²
+    [Cout] float32).
+
+    CPU tensors run ``conv3x3_norm_stats_reference``. CUDA tensors run the
+    kernel: bf16, contiguous, 16-byte aligned, Cin a multiple of 16, S =
+    h_side · (S // h_side); h rounded to bf16 as it lands, the nine taps'
+    bf16 products in one float32 accumulator, y rounded once, deterministic
+    sums of the rounded y."""
+    if not build.on_card("conv3x3_norm_stats_bf16", x):
+        return conv3x3_norm_stats_reference(x, taps, scale, shift, h_side)
+    _dims("x", x, 3)
+    _dims("taps", taps, 3)
+    n, cin, s = x.shape
+    cout = taps.shape[1]
+    if h_side <= 0 or s % h_side:
+        raise ValueError(f"S = {s} is not h_side = {h_side} rows")
+    if cin % _BF_C3K:
+        raise ValueError(f"Cin = {cin}: the kernel takes a multiple of "
+                         f"{_BF_C3K}")
+    _bf_check("x", x, x.device, (n, cin, s))
+    _bf_check("taps", taps, x.device, (9, cout, cin))
+    _vectors(x.device, cin, scale=scale, shift=shift)
+    _bf_widths(Cin=cin, Cout=cout)
+    t = n * -(-h_side * (s // h_side + 2) // _BF_BN)
+    y = _bf_empty(x.device, n, cout, s)
+    part, stats = _empty(x.device, 2, cout, t), _empty(x.device, 2, cout)
+    with build.device_guard(x.device):
+        build.launch("conv3x3_norm_stats_bf16",
+                     _bf_fn("fused_block_conv3x3_norm_stats_bf16",
+                            (_P,) * 7 + (_I,) * 6 + (_P,)),
+                     x.data_ptr(), taps.data_ptr(), scale.data_ptr(),
+                     shift.data_ptr(), y.data_ptr(), part.data_ptr(),
+                     stats.data_ptr(), n, cin, cout, h_side, s // h_side, t,
+                     build.stream(x.device))
+    conv3x3_norm_stats_bf16.launches += 1
+    return y, stats[0], stats[1]
+
+
+conv3x3_norm_stats_bf16.launches = 0
+
+
+def _bf_moments_splits(n: int, s: int, c: int, sms: int) -> int:
+    """The splits of norm_relu_moments_bf16: each tile of M2's upper
+    triangle (64 x 64 where C <= 64, else 128 x 128) by `splits` runs of
+    N·S's 32-position pieces; enough to fill two blocks an SM, at most
+    one a piece and at most 128."""
+    nt = -(-c // (64 if c <= 64 else 128))
+    tiles, pieces = nt * (nt + 1) // 2, -(-n * s // _BF_BK)
+    return max(1, min(pieces, _BF_SPLITS, -(-2 * sms // tiles)))
+
+
+def norm_relu_moments_bf16(x: torch.Tensor, scale: torch.Tensor,
+                           shift: torch.Tensor):
+    """``norm_relu_moments`` of a bfloat16 x [N, C, S] (scale/shift [C]
+    float32) -> (Σh [C], M2 [C, C]) float32 of h rounded to bf16.
+
+    CPU tensors run ``norm_relu_moments_reference``. CUDA tensors run the
+    kernel: bf16, contiguous, 16-byte aligned; the Gram product's bf16
+    products summed in float32 over the upper triangle, M2 exactly
+    symmetric, the splits of N·S (``_bf_moments_splits``) added in a fixed
+    order (deterministic)."""
+    if not build.on_card("norm_relu_moments_bf16", x):
+        return norm_relu_moments_reference(x, scale, shift)
+    _dims("x", x, 3)
+    n, c, s = x.shape
+    if n * c * s == 0:
+        raise ValueError(f"x {tuple(x.shape)} is empty")
+    if n * s > _MOM_MAX_NS:
+        raise ValueError(f"N·S = {n * s}: the kernel takes at most "
+                         f"{_MOM_MAX_NS} positions")
+    _bf_check("x", x, x.device, (n, c, s))
+    _vectors(x.device, c, scale=scale, shift=shift)
+    _bf_widths(C=c)
+    splits = _bf_moments_splits(n, s, c, build.sm_count(x.device))
+    part = _empty(x.device, splits, c, c + 1)
+    out = _empty(x.device, c, c + 1)
+    with build.device_guard(x.device):
+        build.launch("norm_relu_moments_bf16",
+                     _bf_fn("fused_block_norm_relu_moments_bf16",
+                            (_P,) * 5 + (_I,) * 5 + (_P,)),
+                     x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+                     part.data_ptr(), out.data_ptr(), n, c, s, splits,
+                     int(s % 4 == 0), build.stream(x.device))
+    norm_relu_moments_bf16.launches += 1
+    return out[:, c], out[:, :c]
+
+
+norm_relu_moments_bf16.launches = 0
+
+
+def conv1x1_bn_residual_bf16(x: torch.Tensor, residual: torch.Tensor,
+                             scale2: torch.Tensor, shift2: torch.Tensor,
+                             w: torch.Tensor, scale3: torch.Tensor,
+                             shift3: torch.Tensor) -> torch.Tensor:
+    """``conv1x1_bn_residual`` in bfloat16: x [N, C, S] raw a2, residual
+    [N, Cout, S] and w [Cout, C] bf16, the four affines float32 -> the
+    block output [N, Cout, S] bf16.
+
+    CPU tensors run ``conv1x1_bn_residual_reference``. CUDA tensors run
+    the kernel: bf16, contiguous, 16-byte aligned, C and Cout at most the
+    kernels' cap; h2 rounded to bf16 as it lands, a3 float32 through bn3's
+    affine and the residual add, the output rounded once."""
+    if not build.on_card("conv1x1_bn_residual_bf16", x):
+        return conv1x1_bn_residual_reference(x, residual, scale2, shift2, w,
+                                             scale3, shift3)
+    _dims("x", x, 3)
+    _dims("w", w, 2)
+    n, c, s = x.shape
+    cout = w.shape[0]
+    dev = x.device
+    _bf_check("x", x, dev, (n, c, s))
+    _bf_check("residual", residual, dev, (n, cout, s))
+    _bf_check("w", w, dev, (cout, c))
+    _vectors(dev, c, scale2=scale2, shift2=shift2)
+    _vectors(dev, cout, scale3=scale3, shift3=shift3)
+    _bf_widths(C=c, Cout=cout)
+    wp, lda = _bf_weight(w)
+    out = _bf_empty(dev, n, cout, s)
+    with build.device_guard(dev):
+        build.launch("conv1x1_bn_residual_bf16",
+                     _bf_fn("fused_block_conv1x1_bn_residual_bf16",
+                            (_P,) * 8 + (_I,) * 6 + (_P,)),
+                     x.data_ptr(), residual.data_ptr(), wp.data_ptr(),
+                     scale2.data_ptr(), shift2.data_ptr(), scale3.data_ptr(),
+                     shift3.data_ptr(), out.data_ptr(), n, c, cout, s, lda,
+                     int(s % 4 == 0), build.stream(dev))
+    conv1x1_bn_residual_bf16.launches += 1
+    return out
+
+
+conv1x1_bn_residual_bf16.launches = 0
 
 
 _R3_BM = 128   # rows of Cin of a bwd_reduce3 tile (reduce3::kBM)
@@ -814,20 +1070,28 @@ def bottleneck_rest_fwd(x, w1, taps2, w3, g1, b1, g2, b2, g3, b3, h_side,
     x [N, Cin, S] block input (S = h_side²); w1 [C, Cin]; taps2 [9, C, C];
     w3 [Cin, C]; g/b the BN scales and biases (float32). Returns (out
     [N, Cin, S], batch stats (m1, v1, m2, v2, m3, v3), aux) with aux =
-    (a1, a2, Σh2, M2, sc1, sh1, sc2, sh2), what the backward needs."""
+    (a1, a2, Σh2, M2, sc1, sh1, sc2, sh2), what the backward needs. A
+    bfloat16 x (with bfloat16 filters) takes the bfloat16 kernels; the BN
+    folds stay float32, as the JAX package keeps them."""
     n, _, s = x.shape
     m_count = n * s
+    if x.dtype == torch.bfloat16:
+        k1, k2, k3, k4 = (conv1x1_stats_bf16, conv3x3_norm_stats_bf16,
+                          norm_relu_moments_bf16, conv1x1_bn_residual_bf16)
+    else:
+        k1, k2, k3, k4 = (conv1x1_stats, conv3x3_norm_stats,
+                          norm_relu_moments, conv1x1_bn_residual)
 
-    a1, s1, q1 = conv1x1_stats(x, w1)
+    a1, s1, q1 = k1(x, w1)
     m1, v1, sc1, sh1 = _bn_fold(s1, q1, m_count, g1, b1, eps)
 
-    a2, s2, q2 = conv3x3_norm_stats(a1, taps2, sc1, sh1, h_side)
+    a2, s2, q2 = k2(a1, taps2, sc1, sh1, h_side)
     m2, v2, sc2, sh2 = _bn_fold(s2, q2, m_count, g2, b2, eps)
 
-    sum_h, m2h = norm_relu_moments(a2, sc2, sh2)
+    sum_h, m2h = k3(a2, sc2, sh2)
     m3, v3, sc3, sh3 = _bn3_fold(w3, sum_h, m2h, m_count, g3, b3, eps)
 
-    out = conv1x1_bn_residual(a2, x, sc2, sh2, w3, sc3, sh3)
+    out = k4(a2, x, sc2, sh2, w3, sc3, sh3)
     return out, (m1, v1, m2, v2, m3, v3), (a1, a2, sum_h, m2h, sc1, sh1,
                                             sc2, sh2)
 

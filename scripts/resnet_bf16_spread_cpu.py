@@ -21,8 +21,24 @@ on half of each batch, each against the bf16 run (the relative rms of
 the first-step gradients and of the updates, all parameters together
 and the median over them).
 
+``--chain-forward``: phase 21's readings on the CPU. The bench's bf16
+ResNet-50 (``chip_smoke.build_resnet50_bf16``, full depth and width) at
+64 px, batch 8, its training-mode forward pruned to loss and accuracy
+from one startup state, the float32 program (``build_resnet50``) from the
+same state (``chip_smoke.bf16_forward_runs``); the chain's gate patched
+open on the CPU and CHAIN_MIN_S lowered to 16, so that the port's plain
+chain takes the 10 rest blocks at 16², 8² and 4² as the card's takes
+them at 56², 28² and 14². Each run against the float32 forward (loss,
+relative; the per-image losses' relative rms; the 120 stat outputs'
+largest and median relative rms): the
+bf16 composition (the reading), the bf16 chain, and two that must sit
+apart: the bf16 composition with one bf16 step at one pixel in 64 (how
+chaotic the forward is), and the chain on a batch whose second half
+repeats its first (a planted fault).
+
     env JAX_PLATFORMS=cpu python scripts/resnet_bf16_spread_cpu.py
     python scripts/resnet_bf16_spread_cpu.py --resnet50
+    python scripts/resnet_bf16_spread_cpu.py --chain-forward
 """
 
 import argparse
@@ -129,8 +145,64 @@ def resnet50():
                   + ", ".join(line), flush=True)
 
 
+def chain_forward():
+    sys.path.insert(0, ROOT)
+    import torch
+
+    import chip_smoke as cs
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import fused_ops
+
+    exe = pt.Executor(pt.CPUPlace())
+    built, bf = cs.build_resnet50(pt, 0), cs.build_resnet50_bf16(pt, 0)
+    feed = cs.resnet_varied(np, 0, 8, 64)
+    bits = torch.from_numpy(feed["data"]).bfloat16().view(torch.int16) \
+        .clone().reshape(-1)
+    bits[::64] += 1
+    stepped = bits.view(torch.bfloat16).float().numpy().reshape(
+        feed["data"].shape)
+    halved = np.concatenate([feed["data"][:4]] * 2)
+    run = cs.bf16_forward_runs(np, pt, exe, bf, built, feed)
+    # the names are taken: now open the gate on the CPU at 64 px
+    fused_ops.fused_block_enabled = lambda device: \
+        fused_ops.chain_requested()
+    fused_ops.CHAIN_MIN_S = 16
+    chained = []
+    chain_block = fused_ops._chain_block
+
+    def counted(x, *args):
+        chained.append(tuple(x.shape))
+        return chain_block(x, *args)
+
+    fused_ops._chain_block = counted
+    f32 = run("float32")
+    comp = run("bf16")
+    for what, got in (("bf16 composition", comp),
+                      ("bf16 chain", run("chain")),
+                      ("bf16 composition, one pixel in 64 a bf16 step",
+                       run("bf16", data=stepped)),
+                      ("bf16 chain, half the batch repeated",
+                       run("chain", data=halved))):
+        loss, terms, top, med = cs.forward_distance(np, got, f32)
+        print(f"{what} vs float32: loss {got[0]!r} ({loss:.4g}), per-image "
+              f"losses {terms:.4g}, stat outputs largest {top:.4g}, median "
+              f"{med:.4g} ({len(got[2])} outputs); blocks through the chain "
+              f"so far {len(chained)}", flush=True)
+    loss, terms, top, med = cs.forward_distance(
+        np, run("bf16", data=stepped), comp)
+    print(f"one pixel in 64 a bf16 step vs the bf16 composition: loss "
+          f"{loss:.4g}, per-image losses {terms:.4g}, stat outputs largest "
+          f"{top:.4g}, median {med:.4g}")
+
+
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--resnet50", action="store_true")
+    ap.add_argument("--chain-forward", action="store_true")
     args = ap.parse_args()
-    resnet50() if args.resnet50 else narrow()
+    if args.chain_forward:
+        chain_forward()
+    elif args.resnet50:
+        resnet50()
+    else:
+        narrow()

@@ -420,9 +420,9 @@ def test_amp_refuses_ops_without_a_bf16_kernel(what, monkeypatch):
     the same program runs. The conv epilogue has bfloat16 kernels, so
     fused_conv2d runs under AMP (a finite loss, float32 masters);
     fused_bottleneck runs under AMP too, composed, and is refused only
-    where PT_FUSED_BLOCK asks for the chain (always or 1), whose kernels
-    are float32 only (the check reads the env, not the device); the paged
-    ops stay refused."""
+    where PT_FUSED_BLOCK asks for the chain (always or 1) and the program
+    has a backward: the chain's backward kernels are float32 only (the
+    check reads the env, not the device); the paged ops stay refused."""
     monkeypatch.delenv("PT_FUSED_BLOCK", raising=False)
     main, startup, loss, feed = _refused_program(what)
     exe, scope = pt.Executor(pt.CPUPlace()), pt.Scope()

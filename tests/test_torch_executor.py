@@ -333,12 +333,14 @@ def test_what_is_not_ported_raises(what, monkeypatch):
             emb = pt.layers.embedding(ids, [10, 8], is_sparse=True)
             avg = pt.layers.mean(emb)
         elif what == "amp":
-            # mixed precision is ported, but not over the bottleneck
-            # chain's kernels (PT_FUSED_BLOCK=always), which have no
-            # bfloat16 version; the conv epilogue's have one (a conv +
+            # mixed precision is ported, but not a backward over the
+            # bottleneck chain's kernels (PT_FUSED_BLOCK=always), whose
+            # backward kernels have no bfloat16 version; its forward
+            # kernels have one, and so do the conv epilogue's (a conv +
             # batch_norm + relu, one fused_conv2d, runs under AMP)
             img = pt.layers.data("img", [16, 8, 8])
             avg = pt.layers.mean(pt.layers.fused_bottleneck(img, ch_out=4))
+            pt.optimizer.SGDOptimizer(learning_rate=LR).minimize(avg)
         else:
             avg, _ = ttfm.transformer_lm_loss(**kw)
         if what == "op":
@@ -353,6 +355,42 @@ def test_what_is_not_ported_raises(what, monkeypatch):
         monkeypatch.setenv("PT_FUSED_BLOCK", "always")
     with pytest.raises(NotImplementedError, match="not ported"):
         exe.run(main, feed=feed, fetch_list=[avg], scope=scope)
+
+
+def test_amp_forward_over_the_chain_builds(monkeypatch):
+    """An AMP program with no backward over fused_bottleneck builds with
+    PT_FUSED_BLOCK=always (the chain's forward kernels have bfloat16
+    versions) and runs the block through the chain: here on the CPU, the
+    gate patched open and CHAIN_MIN_S lowered to the image, its plain
+    versions in bfloat16; a finite loss, the state float32."""
+    from paddle_tpu_torch.ops import fused_ops
+    chained = []
+    chain_block = fused_ops._chain_block
+
+    def counted(x, *args):
+        chained.append(x.dtype)
+        return chain_block(x, *args)
+
+    monkeypatch.setenv("PT_FUSED_BLOCK", "always")
+    monkeypatch.setattr(fused_ops, "fused_block_enabled", lambda d: True)
+    monkeypatch.setattr(fused_ops, "CHAIN_MIN_S", 16)
+    monkeypatch.setattr(fused_ops, "_chain_block", counted)
+    tprog.reset_unique_names()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        img = pt.layers.data("img", [256, 4, 4])
+        avg = pt.layers.mean(pt.layers.fused_bottleneck(img, ch_out=64))
+    main.amp_dtype = "bfloat16"
+    exe, scope = pt.Executor(pt.CPUPlace()), pt.Scope()
+    exe.run(startup, scope=scope)
+    feed = {"img": np.abs(np.random.RandomState(3).randn(
+        8, 256, 4, 4)).astype(np.float32)}
+    loss, = exe.run(main, feed=feed, fetch_list=[avg], scope=scope)
+    assert chained == [torch.bfloat16]
+    assert np.isfinite(loss).all()
+    assert all(scope.find_var(n).dtype == torch.float32
+               for n in scope.local_var_names()
+               if scope.find_var(n).is_floating_point())
 
 
 def test_minimize_appends_step_health_under_pt_guard(monkeypatch):

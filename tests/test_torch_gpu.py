@@ -2035,6 +2035,228 @@ def test_fused_bottleneck_op_takes_the_chain(cuda, monkeypatch):
         torch.testing.assert_close(outs[slot][0], w, atol=1e-5, rtol=1e-4)
 
 
+_CHAIN_BF16 = ("conv1x1_stats_bf16", "conv3x3_norm_stats_bf16",
+               "norm_relu_moments_bf16", "conv1x1_bn_residual_bf16")
+
+
+def _bf16_chain_inputs(d):
+    """A _chain_case's activations and weights rounded to bf16."""
+    return {k: (v.bfloat16() if k in ("x", "w1", "taps", "w3", "a") else v)
+            for k, v in d.items()}
+
+
+def _bf16_sums_close(s, q, rs, rq, y, ry):
+    """Σy, Σy² of the rounded y within 1e-5 of their terms' magnitudes
+    plus what the y that round to the neighbouring bf16 value move."""
+    yf, ryf = y.float(), ry.float()
+    moved = (yf - ryf).abs()
+    assert bool(((s - rs).abs() <= 1e-5 * ryf.abs().sum(dim=(0, 2))
+                 + moved.sum(dim=(0, 2))).all())
+    assert bool(((q - rq).abs() <= 1e-5 * rq + (
+        moved * (yf.abs() + ryf.abs())).sum(dim=(0, 2))).all())
+
+
+@pytest.mark.parametrize("n,cin,c,h", [
+    (2, 32, 16, 8),           # the CPU tests' shape: 64-row tiles
+    (2, 256, 64, 56),         # the three chain stages' widths
+    (2, 512, 128, 28),
+    (1, 1024, 256, 14),       # two 128-row tiles of C
+    (4, 256, 64, 14),         # S 196: tiles straddle images
+    (3, 128, 128, 7),         # S 49: one by one, not 4 columns a load
+    (2, 48, 80, 9),           # Cin 48: W1 padded to K 64; C 80: a partial
+                              # 128-row tile; S 81
+    (2, 64, 128, (6, 10)),    # a non-square image
+    (1, 64, 64, (3, 130)),    # rows wider than a 3x3 tile
+])
+def test_chain_bf16_kernels_match_plain(cuda, n, cin, c, h):
+    """Each bf16 forward kernel against its plain version on the same
+    bf16 inputs: y and out within 2^-7 max|plain| + 2^-7 |plain| (the
+    kernels sum K in another order, so a y can round to the neighbouring
+    bf16 value), at most 1e-3 of them apart; the float32 sums within the
+    flip-aware limit; Σh and M2 within rtol 1e-5, M2 exactly symmetric;
+    a second call of each bit-identical."""
+    h, w = h if isinstance(h, tuple) else (h, h)
+    gen = torch.Generator().manual_seed(n + cin + c + h + 7 * w)
+    d = _bf16_chain_inputs(_chain_case(gen, n, cin, c, h, w))
+
+    def held(got, want):
+        _assert_bf16_close(got, want, "y")
+        assert float((got != want).float().mean()) <= 1e-3
+
+    def same(fn, first):
+        again = fn()
+        first = first if isinstance(first, tuple) else (first,)
+        again = again if isinstance(again, tuple) else (again,)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+    k1 = lambda: fb.conv1x1_stats_bf16(d["x"], d["w1"])
+    y, s1, q1 = k1()
+    ry, rs1, rq1 = fb.conv1x1_stats_reference(d["x"], d["w1"])
+    assert y.dtype == torch.bfloat16 and s1.dtype == torch.float32
+    held(y, ry)
+    _bf16_sums_close(s1, q1, rs1, rq1, y, ry)
+    same(k1, (y, s1, q1))
+    args = (d["a"], d["taps"], d["sc"], d["sh"], h)
+    y2, s2, q2 = fb.conv3x3_norm_stats_bf16(*args)
+    ry2, rs2, rq2 = fb.conv3x3_norm_stats_reference(*args)
+    held(y2, ry2)
+    _bf16_sums_close(s2, q2, rs2, rq2, y2, ry2)
+    same(lambda: fb.conv3x3_norm_stats_bf16(*args), (y2, s2, q2))
+    k3 = lambda: fb.norm_relu_moments_bf16(d["a"], d["sc"], d["sh"])
+    sum_h, m2h = k3()
+    rsum_h, rm2h = fb.norm_relu_moments_reference(d["a"], d["sc"], d["sh"])
+    _sums_close(sum_h, rsum_h, rsum_h)
+    _sums_close(m2h, rm2h, rm2h)
+    assert torch.equal(m2h, m2h.T)
+    same(k3, (sum_h, m2h))
+    res = d["x"]
+    args = (d["a"], res, d["sc"], d["sh"], d["w3"], d["sc3"], d["sh3"])
+    out = fb.conv1x1_bn_residual_bf16(*args)
+    assert out.dtype == torch.bfloat16
+    held(out, fb.conv1x1_bn_residual_reference(*args))
+    same(lambda: fb.conv1x1_bn_residual_bf16(*args), out)
+
+
+def test_chain_bf16_wrappers_never_fall_back(cuda, monkeypatch):
+    """With the four plain versions patched to raise, a bf16 block's
+    forward (bottleneck_rest_fwd) runs on the card through the bf16
+    kernels, one launch of each, and through no float32 chain kernel."""
+    def boom(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    f32 = ("conv1x1_stats", "conv3x3_norm_stats", "norm_relu_moments",
+           "conv1x1_bn_residual")
+    for name in f32:
+        monkeypatch.setattr(fb, name + "_reference", boom)
+    gen = torch.Generator().manual_seed(18)
+    d = _bf16_chain_inputs(_chain_case(gen, 2, 128, 64, 14))
+    before = [getattr(fb, name).launches for name in _CHAIN_BF16 + f32]
+    out, stats, aux = fb.bottleneck_rest_fwd(
+        d["x"], d["w1"], d["taps"], d["w3"], d["g"][0], d["b"][0],
+        d["g"][1], d["b"][1], d["g"][2], d["b"][2], 14)
+    torch.cuda.synchronize()
+    assert out.dtype == aux[0].dtype == aux[1].dtype == torch.bfloat16
+    assert all(st.dtype == torch.float32 for st in stats)
+    assert bool(torch.isfinite(out.float()).all())
+    assert [getattr(fb, name).launches for name in _CHAIN_BF16 + f32] == [
+        k + 1 for k in before[:4]] + before[4:]
+
+
+def test_chain_bf16_kernels_count_one_launch_a_call(cuda):
+    """Each bf16 wrapper counts one launch a call (its fixed-order pass
+    included)."""
+    gen = torch.Generator().manual_seed(19)
+    d = _bf16_chain_inputs(_chain_case(gen, 2, 32, 16, 8))
+    calls = {
+        "conv1x1_stats_bf16": (d["x"], d["w1"]),
+        "conv3x3_norm_stats_bf16": (d["a"], d["taps"], d["sc"], d["sh"], 8),
+        "norm_relu_moments_bf16": (d["a"], d["sc"], d["sh"]),
+        "conv1x1_bn_residual_bf16": (d["a"], d["x"], d["sc"], d["sh"],
+                                     d["w3"], d["sc3"], d["sh3"])}
+    for name, args in calls.items():
+        fn = getattr(fb, name)
+        before = fn.launches
+        for _ in range(3):
+            fn(*args)
+        assert fn.launches == before + 3, name
+
+
+def test_chain_bf16_kernels_refuse_what_they_do_not_take(cuda):
+    """A float32 operand among bf16 ones, an operand off 16-byte
+    alignment, a non-contiguous one, the 3x3's Cin not a multiple of 16,
+    and C past the bf16 kernels' cap are refused, TypeError or
+    ValueError, before any launch."""
+    gen = torch.Generator().manual_seed(20)
+    d = _bf16_chain_inputs(_chain_case(gen, 2, 32, 16, 8))
+    before = [getattr(fb, name).launches for name in _CHAIN_BF16]
+    with pytest.raises(TypeError):
+        fb.conv1x1_stats_bf16(d["x"], d["w1"].float())
+    with pytest.raises(TypeError):
+        fb.conv3x3_norm_stats_bf16(d["a"], d["taps"].float(), d["sc"],
+                                   d["sh"], 8)
+    with pytest.raises(TypeError):
+        fb.conv1x1_bn_residual_bf16(d["a"], d["x"].float(), d["sc"],
+                                    d["sh"], d["w3"], d["sc3"], d["sh3"])
+    with pytest.raises(TypeError):
+        fb.norm_relu_moments_bf16(d["a"], d["sc"].double(), d["sh"])
+    off = torch.empty(d["a"].numel() + 1, dtype=torch.bfloat16,
+                      device="cuda")[1:].view_as(d["a"])
+    off.copy_(d["a"])
+    assert off.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        fb.norm_relu_moments_bf16(off, d["sc"], d["sh"])
+    with pytest.raises(ValueError, match="aligned"):
+        fb.conv3x3_norm_stats_bf16(off, d["taps"], d["sc"], d["sh"], 8)
+    strided = d["x"].transpose(0, 1).contiguous().transpose(0, 1)
+    assert not strided.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        fb.conv1x1_stats_bf16(strided, d["w1"])
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fb.conv3x3_norm_stats_bf16(d["a"][:, :8].contiguous(),
+                                   d["taps"][:, :, :8].contiguous(),
+                                   d["sc"][:8], d["sh"][:8], 8)
+    cap = fb.conv1x1_max_c(torch.bfloat16)
+    assert cap == 4096
+    wide = torch.zeros(cap + 64, 32, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="at most"):
+        fb.conv1x1_stats_bf16(d["x"], wide)
+    assert [getattr(fb, name).launches for name in _CHAIN_BF16] == before
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_fused_bottleneck_bf16_on_the_card(cuda, monkeypatch, grad):
+    """The fused_bottleneck op on a bf16 block (N 8, Cin 128, C 64, H 14)
+    with PT_FUSED_BLOCK=always: with no gradient wanted it runs the bf16
+    chain, one launch of each kernel, and agrees with the bf16
+    composition (Out within 2^-5 max|comp| + 2^-5 |comp|: two bf16 paths
+    that round at other places, the stat outputs within 2e-2 relative);
+    with a filter that requires grad it raises "not ported" before any
+    launch."""
+    from paddle_tpu_torch.core.registry import ExecContext, require_op
+    from paddle_tpu_torch.ops import fused_ops
+
+    monkeypatch.setenv("PT_FUSED_BLOCK", "always")
+    gen = torch.Generator().manual_seed(21)
+    n, cin, c, h = 8, 128, 64, 14
+    x = torch.rand(n, cin, h, h, generator=gen).cuda().bfloat16()
+    w1 = (torch.randn(c, cin, 1, 1, generator=gen) * (2 / cin) ** 0.5).cuda()
+    w2 = (torch.randn(c, c, 3, 3, generator=gen) * (2 / (9 * c)) ** 0.5
+          ).cuda()
+    w3 = (torch.randn(cin, c, 1, 1, generator=gen) * (2 / c) ** 0.5).cuda()
+    bn = [tuple(t.cuda() for t in (
+        1 + 0.2 * torch.randn(k, generator=gen),
+        0.2 * torch.randn(k, generator=gen),
+        0.1 * torch.randn(k, generator=gen),
+        torch.rand(k, generator=gen) + 0.5)) for k in (c, c, cin)]
+    ins = _chain_op_ins(x, w1.requires_grad_(grad), w2, w3, bn)
+    op = require_op("fused_bottleneck").compute
+    ctx = ExecContext(torch.Generator(), torch.device("cuda"))
+    attrs = {"epsilon": 1e-5, "momentum": 0.9}
+    names = _CHAIN_BF16 + ("conv1x1_stats", "conv3x3_norm_stats",
+                           "norm_relu_moments", "conv1x1_bn_residual")
+    before = [getattr(fb, name).launches for name in names]
+    if grad:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            op(ctx, ins, attrs)
+        assert [getattr(fb, name).launches for name in names] == before
+        return
+    with torch.no_grad():
+        outs = op(ctx, ins, attrs)
+        want, want_st = fused_ops.compose_block(
+            x, *(w.bfloat16() for w in (w1, w2, w3)), bn, 1e-5, 0.9)
+    torch.cuda.synchronize()
+    assert [getattr(fb, name).launches for name in names] == [
+        k + 1 for k in before[:4]] + before[4:]
+    got = outs["Out"][0]
+    assert got.dtype == torch.bfloat16
+    lim = 2 ** -5 * (want.float().abs().max() + want.float().abs())
+    assert bool(((got.float() - want.float()).abs() <= lim).all())
+    slots = [s.format(k=k) for k in "123" for s in fused_ops._BN_OUT_SLOTS]
+    for slot, w in zip(slots, want_st):
+        torch.testing.assert_close(outs[slot][0], w.float(), atol=2e-2 *
+                                   float(w.abs().max()), rtol=2e-2)
+
+
 _BWD = ("bwd_reduce3", "bwd_apply3", "bwd_mid", "bwd_final")
 
 

@@ -201,11 +201,15 @@ def test_bf16_data_meets_float32_filters_as_in_jax(what, pallas_epilogue):
     _hold(got, want, what=what)
 
 
-def test_bf16_block_through_the_chain_is_not_ported(monkeypatch):
+@pytest.mark.parametrize("grad", [False, True])
+def test_bf16_block_through_the_chain_is_not_ported(monkeypatch, grad):
     """Where the chain's gate is open (PT_FUSED_BLOCK=always on the card;
     here fused_block_enabled patched true, CHAIN_MIN_S down to the
-    image), a bfloat16 block raises "not ported" before the chain is
-    called; a float32 block of the same shape takes it."""
+    image), a bfloat16 block with no gradient wanted (under no_grad) takes
+    the chain, whose forward kernels have bf16 versions; with a gradient
+    wanted (a filter that requires grad) it raises "not ported" before
+    the chain is called, as the chain's backward kernels have none; a
+    float32 block of the same shape takes the chain either way."""
     from paddle_tpu_torch.ops import fused_ops
 
     calls = []
@@ -217,7 +221,8 @@ def test_bf16_block_through_the_chain_is_not_ported(monkeypatch):
     rng = np.random.RandomState(5)
     ins = {"X": [torch.from_numpy(rng.randn(8, cin, 4, 4).astype(
                np.float32)).bfloat16()],
-           "W1": [torch.randn(c, cin, 1, 1)], "W2": [torch.randn(c, c, 3, 3)],
+           "W1": [torch.randn(c, cin, 1, 1).requires_grad_(grad)],
+           "W2": [torch.randn(c, c, 3, 3)],
            "W3": [torch.randn(cin, c, 1, 1)]}
     for k, width in (("1", c), ("2", c), ("3", cin)):
         ins.update({"Scale" + k: [torch.ones(width)],
@@ -226,9 +231,15 @@ def test_bf16_block_through_the_chain_is_not_ported(monkeypatch):
                     "Variance" + k: [torch.ones(width)]})
     ctx = treg.ExecContext(torch.Generator(), torch.device("cpu"))
     op = treg.require_op("fused_bottleneck").compute
-    with pytest.raises(NotImplementedError, match="not ported"):
-        op(ctx, ins, {})
-    assert calls == []
+    if grad:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            op(ctx, ins, {})
+        assert calls == []
+    else:
+        with torch.no_grad(), pytest.raises(IndexError):   # no stats
+            op(ctx, ins, {})
+        assert calls == [torch.bfloat16]
+    calls.clear()
     ins["X"] = [ins["X"][0].float()]
     with pytest.raises(IndexError):   # the stand-in returns no stats
         op(ctx, ins, {})
