@@ -216,7 +216,32 @@ no result line:
    CHAIN_FORWARDS forwards of each in turns (ms, images/s), the peak
    memory of one forward of each and one profiled forward of each by
    kernel class;
-22. print the kernels' JSON line, the card line and the result line.
+22. hold one Momentum step at each of the chain's three stages
+   (build_chain_stage: the stage's block input as a bf16 data var at
+   batch 128, two rest blocks at full width, global pooling, an fc to
+   1000 classes, softmax cross-entropy, Momentum) from one startup
+   state, through the chain (PT_FUSED_BLOCK=always: the eight bf16 chain
+   kernels forward and backward) against the same bf16 program composed
+   and the float32 program composed: the chain's loss within
+   AMP_LOSS_RTOL of float32's; its updates of the parameters and
+   velocities, and of the running stats (largest and median relative rms
+   over the vars), within BF16_SPREAD times the bf16 composition's
+   distance from float32, each limit under BF16_CEILING; the same step
+   with bwd_mid's tap gradients zeroed must fail those limits; each bf16
+   chain kernel launched twice a chain step and no float32 chain kernel.
+   Then train the bench's bf16 program (build_resnet50_bf16) at full
+   width (batch 128, 224 px, Momentum at lr 0.005, phase 7's feed centred
+   at 0.5),
+   composed and through the chain, whose gate sends its 10 rest blocks
+   through the eight bf16 chain kernels: the chain's step-0 loss within
+   AMP_LOSS_RTOL of phase 7's float32 program's from the same masters; a
+   warm-up and RESNET_STEPS steps of each in turns (ms a step, images/s,
+   peak memory, the chain's losses finite and falling, every master
+   float32), one profiled step of each by kernel class, and phase 7's
+   float32 program under amp_dtype "bfloat16" through the chain (a
+   warm-up and RESNET_STEPS steps); each bf16 chain kernel launched 10
+   times a step and no float32 chain kernel;
+23. print the kernels' JSON line, the card line and the result line.
 
 Phase 3 also holds the three bf16 flash kernels (forward, dQ, dK/dV;
 csrc/flash_attention_bf16.cu) against their plain versions at
@@ -256,7 +281,16 @@ bf16 value move, Σh and M2 within STATS_RTOL, two calls the same bits;
 each timed beside its plain version, its bound at the bf16 tensor
 cores' rate and a bf16 PyTorch yardstick (F.conv2d of the same product;
 torch.bmm of h·hᵀ and the sum), with its registers and spills from the
-build's ptxas report.
+build's ptxas report; then the chain's four bf16 backward kernels (the
+same source) at the same stages on the inputs the bf16 chain makes: g3
+bit for bit, g2, g1 and dx within BF16_REL max|plain| + BF16_REL |plain|
+with the share that differs printed, the sums of g2 and g1 within
+STATS_RTOL of their terms plus what the flipped values move, P, Σg3,
+dtaps and dW1 within STATS_RTOL of their terms, two calls the same bits;
+each timed beside its plain version, its bound at the bf16 tensor cores'
+rate and a bf16 PyTorch yardstick (torch.bmm + sum; torch.matmul;
+cuDNN's conv2d_input + conv2d_weight; matmul + bmm + sum), with its
+registers and spills.
 Phase 3 also holds the four bottleneck-chain kernels against their
 plain versions at ResNet-50's three chain stages at batch 128 (Cin, C,
 H = 256, 64, 56 / 512, 128, 28 / 1024, 256, 14), each timed beside its
@@ -432,6 +466,20 @@ PERTURB, SPREAD = 3e-7, 3.0
 # nothing (1.0) or sees half the batch (about 1.45) from a right one
 RESNET_BF16_BLOCKS = (1, 1, 1, 1)
 BF16_SPREAD, BF16_CEILING = 2.0, 0.8
+# phase 22 holds a bf16 training step through the chain on three
+# programs, one a stage of CHAIN_SHAPES: the stage's block input as a
+# bf16 data var at RESNET's batch, CHAIN_STAGE_BLOCKS rest blocks at
+# full width, global pooling, an fc to 1000 classes, softmax
+# cross-entropy and Momentum at RESNET's lr. A deeper program does not
+# do: at init the first step's updates grow more sensitive to their
+# inputs at every batch norm the gradient passes back through. bf16's
+# own updates of ResNet-50 cut to (2, 2, 2, 1) blocks (224 px, batch 8,
+# on the CPU) sit 0.93 (largest relative rms over the vars) and 0.58
+# (median) from float32's, at full depth on an H100 1.42 and 1.26: as
+# far as a step that drops a filter's gradient (1.0). The stage programs
+# read about 0.19 and 0.14 (scripts/resnet_bf16_spread_cpu.py
+# --chain-step)
+CHAIN_STAGE_BLOCKS = 2
 # bench.py bench_lstm's TPU arm (bench.py:611-663), in float32
 LSTM = dict(dict_size=30000, emb_dim=512, lstm_size=512, batch=64,
             seq_len=100)
@@ -477,6 +525,16 @@ CHAIN_BWD_KERNELS = ("bwd_reduce3", "bwd_apply3", "bwd_mid", "bwd_final")
 # bf16 program's training-mode forward, held to BF16_SPREAD times the bf16
 # composition's distance from float32 (the loss to AMP_LOSS_RTOL)
 CHAIN_BF16_KERNELS = tuple(k + "_bf16" for k in CHAIN_KERNELS)
+# the chain's bf16 backward kernels (phase 3) against their plain versions
+# on the inputs the bf16 chain makes, at CHAIN_SHAPES: g3 bit for bit; g2,
+# g1 and dx within BF16_REL max|plain| + BF16_REL |plain|; the sums of g2
+# and g1 within STATS_RTOL of their terms' magnitudes plus what the values
+# that round to the neighbouring bf16 value move; P, Σg3 and dW1
+# (products of the same bf16 operands) within STATS_RTOL of their terms,
+# dtaps within STATS_RTOL of its terms from their float64 product.
+# Phase 22 holds a step through all eight on programs of one stage
+# (build_chain_stage), then trains the bench's bf16 program through them
+CHAIN_BF16_BWD_KERNELS = tuple(k + "_bf16" for k in CHAIN_BWD_KERNELS)
 
 
 def card_line() -> str:
@@ -999,14 +1057,21 @@ def kernel_class(name: str) -> str:
         return "lstm_seq_fwd (port kernel)"
     if "lstm_gemm_kernel" in n or "lstm_bwd_" in n:
         return "lstm_seq_bwd (port kernel)"
-    # the bf16 chain's kernels (csrc/fused_block_bf16.cu): one 1x1
-    # template, its mode 0 conv1x1_stats and 1 conv1x1_bn_residual
-    one = re.search(r"conv1x1_bf16_kernel<\d+, (\d)", n)
-    if one:
-        return ("conv1x1_stats_bf16" if one.group(1) == "0"
-                else "conv1x1_bn_residual_bf16") + " (port kernel)"
-    if "conv3x3_bf16_kernel" in n:
-        return "conv3x3_norm_stats_bf16 (port kernel)"
+    # the bf16 chain's kernels (csrc/fused_block_bf16.cu): templates
+    # whose mode says which wrapper launched them
+    for pat, modes in (
+            (r"conv1x1_bf16_kernel<\d+, (\d)",
+             ("conv1x1_stats", "conv1x1_bn_residual", "bwd_apply3",
+              "bwd_final")),
+            (r"conv3x3_bf16_kernel<\d+, (\d)",
+             ("conv3x3_norm_stats", "bwd_mid")),
+            (r"abt_bf16_kernel<\d+, \d+, (\d)",
+             ("bwd_reduce3", "bwd_mid", "bwd_final"))):
+        mode = re.search(pat, n)
+        if mode:
+            return f"{modes[int(mode.group(1))]}_bf16 (port kernel)"
+    if "fold_bf16_kernel" in n:
+        return "bwd_mid_bf16 / bwd_final_bf16 fold (port kernel)"
     if "moments_bf16_kernel" in n:
         return "norm_relu_moments_bf16 (port kernel)"
     for kernel in ("conv1x1_stats", "conv3x3_norm_stats",
@@ -3163,6 +3228,346 @@ def resnet_bf16_chain_path(np, torch, fb, card, built, seed: int):
     return {name: launches[name] for name in CHAIN_BF16_KERNELS}
 
 
+def bf16_update_distance(np, got, want, which):
+    """(largest, median) relative rms of each var's update against want's,
+    over the vars that want moves of `which`: "stats" (the running stats,
+    named .tmp_) or "params" (the parameters and velocities)."""
+    rel = [rms(np, got[n] - w) / rms(np, w) for n, w in want.items()
+           if rms(np, w) > 0 and (".tmp_" in n) == (which == "stats")]
+    return max(rel), float(np.median(rel))
+
+
+def build_chain_stage(pt, seed, dtype, cin, c, h):
+    """Phase 22's program at one of CHAIN_SHAPES: a data var [cin, h, h]
+    of `dtype` (the stage's block input), CHAIN_STAGE_BLOCKS rest blocks
+    (fused_bottleneck, C c), global average pooling, an fc to 1000
+    classes, softmax cross-entropy and Momentum at RESNET's lr. Fresh name
+    counters, so the float32 and the bf16 program name their vars alike.
+    (main, startup, loss)."""
+    from paddle_tpu_torch.core.program import unique_name_guard
+
+    main_prog, startup = pt.Program(), pt.Program()
+    main_prog.random_seed = startup.random_seed = seed
+    with unique_name_guard(), pt.program_guard(main_prog, startup):
+        y = pt.layers.data("data", [cin, h, h], dtype=dtype)
+        label = pt.layers.data("label", [1], dtype="int64")
+        for _ in range(CHAIN_STAGE_BLOCKS):
+            y = pt.layers.fused_bottleneck(y, ch_out=c)
+        y = pt.layers.pool2d(y, pool_size=h, pool_type="avg",
+                             global_pooling=True)
+        logits = pt.layers.fc(y, size=1000)
+        avg = pt.layers.mean(pt.layers.softmax_with_cross_entropy(logits,
+                                                                  label))
+        pt.optimizer.MomentumOptimizer(learning_rate=RESNET["lr"],
+                                       momentum=0.9).minimize(avg)
+    return main_prog, startup, avg
+
+
+def bf16_chain_step_held(np, torch, fb, card, seed: int):
+    """Phase 22's agreement, on build_chain_stage's program at each of
+    CHAIN_SHAPES at RESNET's batch: one Momentum step from one startup
+    state of the float32 program composed (the reference), the bf16
+    program composed, the bf16 program through the chain, and the chain
+    again with bwd_mid's tap gradients zeroed. The chain's loss within
+    AMP_LOSS_RTOL of float32's; its updates (parameters and velocities;
+    running stats; the largest and the median relative rms over the
+    vars) within BF16_SPREAD times the bf16 composition's distance from
+    float32, each limit under BF16_CEILING; the planted fault must fail
+    those limits. Every master stays float32, each bf16 chain kernel is
+    launched once a rest block a chain step and no float32 chain kernel
+    at all."""
+    import paddle_tpu_torch as pt
+
+    n = RESNET["batch"]
+    exe = pt.Executor()
+    gen = torch.Generator(device=exe.device).manual_seed(seed + 22)
+    kernels = CHAIN_BF16_KERNELS + CHAIN_BF16_BWD_KERNELS
+    f32_kernels = CHAIN_KERNELS + CHAIN_BWD_KERNELS
+    real_mid = fb.bwd_mid_bf16
+    runs = (("float32", "float32", "never"), ("bf16", "bfloat16", "never"),
+            ("chain", "bfloat16", "always"),
+            ("chain without tap gradients", "bfloat16", "always"))
+
+    def no_taps(*a):
+        g1, dtaps, s1, q1 = real_mid(*a)
+        return g1, torch.zeros_like(dtaps), s1, q1
+
+    # the wrapper counts its launches on the name it is bound to
+    no_taps.launches = 0
+    prev = os.environ.get("PT_FUSED_BLOCK")
+    failures = []
+    try:
+        for name in kernels + f32_kernels:
+            getattr(fb, name).launches = 0
+        for cin, c, h in CHAIN_SHAPES:
+            progs = {dtype: build_chain_stage(pt, seed, dtype, cin, c, h)
+                     for dtype in ("bfloat16", "float32")}
+            scope0 = pt.Scope()
+            exe.run(progs["float32"][1], scope=scope0)
+            start = {k: scope0.find_var(k).clone()
+                     for k in scope0.local_var_names()}
+            del scope0
+            # the block input after a ReLU: >= 0; labels over 1000 classes
+            feed = {"data": torch.rand(n, cin, h, h, device=exe.device,
+                                       generator=gen),
+                    "label": torch.randint(0, 1000, (n, 1), device=exe.device,
+                                           generator=gen)}
+            got = {}
+            for what, dtype, mode in runs:
+                main_prog, _, avg = progs[dtype]
+                sc = pt.Scope()
+                for k, v in start.items():
+                    sc.set_var(k, v.clone())
+                os.environ["PT_FUSED_BLOCK"] = mode
+                if what.endswith("tap gradients"):
+                    fb.bwd_mid_bf16 = no_taps
+                try:
+                    loss, = exe.run(main_prog, feed=feed, fetch_list=[avg],
+                                    scope=sc)
+                finally:
+                    fb.bwd_mid_bf16 = real_mid
+                wide = [k for k in start if sc.find_var(k).is_floating_point()
+                        and sc.find_var(k).dtype != torch.float32]
+                if wide:
+                    raise RuntimeError(f"{what}: state no longer float32: "
+                                       f"{wide}")
+                got[what] = (float(np.asarray(loss).ravel()[0]),
+                             {k: sc.get_numpy(k) - start[k].cpu().numpy()
+                              for k in start})
+                del sc
+            del feed
+            failures += bf16_step_verdicts(np, got, f"Cin {cin}, C {c}, "
+                                           f"{h}x{h}", card)
+        launches = {name: getattr(fb, name).launches
+                    for name in kernels + f32_kernels}
+        launches["bwd_mid_bf16"] += no_taps.launches
+    finally:
+        if prev is None:
+            os.environ.pop("PT_FUSED_BLOCK", None)
+        else:
+            os.environ["PT_FUSED_BLOCK"] = prev
+    want_n = 2 * CHAIN_STAGE_BLOCKS * len(CHAIN_SHAPES)
+    for name, count in launches.items():
+        want = want_n if name in kernels else 0
+        if count != want:
+            raise RuntimeError(f"{name} was launched {count} times in the "
+                               f"stage programs' chain steps, expected "
+                               f"{want}")
+    if failures:
+        raise RuntimeError("; ".join(failures))
+
+
+def bf16_step_verdicts(np, got, stage, card):
+    """Prints the readings of one stage's four runs and returns what
+    failed: the chain beyond a limit, or the chain without tap gradients
+    within all of them."""
+    loss_f, up_f = got["float32"]
+    print(f"bf16 chain step held, stage {stage}: {CHAIN_STAGE_BLOCKS} rest "
+          f"blocks, batch {RESNET['batch']}, one Momentum step from one "
+          f"startup state: losses " + ", ".join(
+              f"{k} {v[0]!r}" for k, v in got.items()) + f" [{card}]")
+    comp = {which: bf16_update_distance(np, got["bf16"][1], up_f, which)
+            for which in ("params", "stats")}
+    verdicts = {}
+    for what in ("chain", "chain without tap gradients"):
+        loss, up = got[what]
+        rel = abs(loss - loss_f) / abs(loss_f)
+        bad = [] if np.isfinite(loss) and rel <= AMP_LOSS_RTOL else [
+            "loss"]
+        print(f"  {what}: loss relative to float32 {rel:.4e} (tol "
+              f"{AMP_LOSS_RTOL}; the bf16 composition "
+              f"{abs(got['bf16'][0] - loss_f) / abs(loss_f):.4e})")
+        for which, label in (("params", "parameters and velocities"),
+                             ("stats", "running stats")):
+            mine = bf16_update_distance(np, up, up_f, which)
+            for part, c_r, k_r in zip(("largest", "median"), comp[which],
+                                      mine):
+                lim = BF16_SPREAD * c_r
+                print(f"  {what}: {label}' updates, {part} relative rms "
+                      f"from float32 {k_r:.4e}; the bf16 composition's "
+                      f"{c_r:.4e}; limit {lim:.4e} ({BF16_SPREAD} x it; "
+                      f"ceiling {BF16_CEILING})")
+                if not (np.isfinite(k_r) and k_r <= lim < BF16_CEILING):
+                    bad.append(f"{label} {part}")
+        verdicts[what] = bad
+    out = []
+    if verdicts["chain"]:
+        out.append(f"stage {stage}: the bf16 chain's training step sits "
+                   f"beyond its limits (the loss {AMP_LOSS_RTOL}, the "
+                   f"updates {BF16_SPREAD} x the bf16 composition's "
+                   f"distance from float32), or a limit reached "
+                   f"{BF16_CEILING}: {verdicts['chain']}")
+    if verdicts["chain without tap gradients"]:
+        print(f"  the chain without tap gradients fails: "
+              f"{verdicts['chain without tap gradients']}")
+    else:
+        out.append(f"stage {stage}: the limits pass a chain whose bwd_mid "
+                   f"drops its tap gradients")
+    return out
+
+
+def resnet_bf16_chain_train_path(np, torch, fb, card, built, seed: int):
+    """Phase 22: bf16_chain_step_held's agreement on the cut program; then
+    the bench's bf16 program (build_resnet50_bf16) trained at full width,
+    composed and with PT_FUSED_BLOCK=always, whose gate takes the 10 rest
+    blocks through the eight bf16 chain kernels, forward and backward: the
+    chain's step-0 loss beside phase 7's float32 program's from the same
+    masters, steps of each in turns, profiled steps, and phase 7's
+    program under amp_dtype "bfloat16" through the chain. Returns the
+    bf16 chain kernels' launch counts of the full-depth runs."""
+    import paddle_tpu_torch as pt
+
+    bf16_chain_step_held(np, torch, fb, card, seed)
+    b, img = RESNET["batch"], RESNET["image"]
+    bf = build_resnet50_bf16(pt, seed)
+    exe = pt.Executor()
+    # centred images, as phase 20 feeds them
+    feed = {k: torch.from_numpy(v).to(exe.device)
+            for k, v in resnet_varied(np, 0, b, img, center=0.5).items()}
+    progs = {"float32": built, "bf16": bf}
+    names = {k: [n for n, v in d["main"].global_block.vars.items()
+                 if v.persistable] for k, d in progs.items()}
+    scope0 = pt.Scope()
+    exe.run(bf["startup"], scope=scope0)
+    # the state the startup makes (parameters, velocities, running stats,
+    # the learning rate), paired by position
+    by_pos = {f: n for f, n in zip(names["float32"], names["bf16"])
+              if scope0.find_var(n) is not None}
+    start = {n: scope0.find_var(n).clone() for n in by_pos.values()}
+    if len(names["float32"]) != len(names["bf16"]) or any(
+            tuple(built["main"].global_block.var(f).shape)
+            != tuple(bf["main"].global_block.var(n).shape)
+            for f, n in by_pos.items()):
+        raise RuntimeError("the float32 and bf16 programs' state does not "
+                           "match by position")
+    del scope0
+    kernels = CHAIN_BF16_KERNELS + CHAIN_BF16_BWD_KERNELS
+    f32_kernels = CHAIN_KERNELS + CHAIN_BWD_KERNELS
+    prev = os.environ.get("PT_FUSED_BLOCK")
+
+    def fresh(key):
+        sc = pt.Scope()
+        for f, n in by_pos.items():
+            sc.set_var(n if key == "bf16" else f, start[n].clone())
+        return sc
+
+    def step(key, chain, sc):
+        """One Momentum step; the loss fetch syncs."""
+        os.environ["PT_FUSED_BLOCK"] = "always" if chain else "never"
+        d = progs[key]
+        loss, = exe.run(d["main"], feed=feed, fetch_list=[d["avg"]],
+                        scope=sc)
+        return float(loss[0])
+
+    def float32_state(what, sc):
+        wide = [n for n in sc.local_var_names()
+                if sc.find_var(n).is_floating_point()
+                and sc.find_var(n).dtype != torch.float32]
+        if wide:
+            raise RuntimeError(f"{what}: state no longer float32: {wide}")
+
+    try:
+        # the reference's step-0 loss from the same masters
+        loss_f = step("float32", False, fresh("float32"))
+        for name in kernels + f32_kernels:
+            getattr(fb, name).launches = 0
+        n_chain = 0
+        # timing: a warm-up and RESNET_STEPS steps of each, in turns, each
+        # on its own state; peak memory of each step, reset before it
+        scopes = {False: fresh("bf16"), True: fresh("bf16")}
+        losses = {False: [], True: []}
+        times = {False: [], True: []}
+        peak = {False: 0.0, True: 0.0}
+        for i in range(1 + RESNET_STEPS):
+            for chain_on in (False, True):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                losses[chain_on].append(step("bf16", chain_on,
+                                             scopes[chain_on]))
+                if i:
+                    times[chain_on].append(time.perf_counter() - t0)
+                peak[chain_on] = max(peak[chain_on],
+                                     torch.cuda.max_memory_allocated() / 1e9)
+        n_chain += 1 + RESNET_STEPS
+        ms = {}
+        for chain_on, what in ((False, "composition"), (True, "chain")):
+            ms[chain_on] = 1e3 * sum(times[chain_on]) / RESNET_STEPS
+            print(f"bf16 chain train path: {what} losses {losses[chain_on]},"
+                  f" {RESNET_STEPS} timed steps "
+                  f"{[round(1e3 * t, 2) for t in times[chain_on]]} ms: "
+                  f"{ms[chain_on]:.3f} ms per step, "
+                  f"{b / ms[chain_on] * 1e3:.1f} images/s, peak memory "
+                  f"{peak[chain_on]:.2f} GB (both states resident) [{card}]")
+        print(f"bf16 chain train path: chain {ms[True]:.3f} ms a step against"
+              f" the bf16 composition's {ms[False]:.3f} ms, in turns "
+              f"[{card}]")
+        rel = {c: abs(losses[c][0] - loss_f) / abs(loss_f)
+               for c in (False, True)}
+        print(f"bf16 chain train path: step-0 loss float32 {loss_f!r}, bf16 "
+              f"composition {losses[False][0]!r}, bf16 chain "
+              f"{losses[True][0]!r}; relative to float32 {rel[False]:.4e} "
+              f"and {rel[True]:.4e} (tol {AMP_LOSS_RTOL}) [{card}]")
+        if not rel[True] <= AMP_LOSS_RTOL:
+            raise RuntimeError(f"the bf16 chain's step-0 loss sits "
+                               f"{rel[True]:.4e} from float32's, beyond "
+                               f"{AMP_LOSS_RTOL}")
+        if not (all(np.isfinite(losses[True]))
+                and losses[True][-1] < losses[True][0]):
+            raise RuntimeError(f"the bf16 chain's losses are not finite and "
+                               f"falling: {losses[True]}")
+        float32_state("bf16 chain steps", scopes[True])
+        for chain_on, what in ((False, "composition"), (True, "chain")):
+            wall, by_name, _ = profiled(
+                torch, lambda c=chain_on: step("bf16", c, scopes[c]), 1)
+            print_profile(f"bf16 ResNet-50 training step, {what} (batch {b},"
+                          f" {img} px)", wall, by_name, card)
+        n_chain += 2      # profiled() runs its step twice
+        del scopes
+        # phase 7's float32 program under AMP, through the chain
+        built["main"].amp_dtype = "bfloat16"
+        try:
+            sc = fresh("float32")
+            amp_losses, amp_s = [], []
+            for _ in range(1 + RESNET_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                amp_losses.append(step("float32", True, sc))
+                amp_s.append(time.perf_counter() - t0)
+            n_chain += 1 + RESNET_STEPS
+        finally:
+            built["main"].amp_dtype = None
+        amp_ms = 1e3 * sum(amp_s[1:]) / RESNET_STEPS
+        print(f"bf16 chain train path: AMP (phase 7's program, amp_dtype "
+              f"bfloat16) through the chain: losses {amp_losses}, "
+              f"{RESNET_STEPS} timed steps "
+              f"{[round(1e3 * t, 2) for t in amp_s[1:]]} ms: {amp_ms:.3f} "
+              f"ms per step, {b / amp_ms * 1e3:.1f} images/s [{card}]")
+        if not (all(np.isfinite(amp_losses))
+                and amp_losses[-1] < amp_losses[0]):
+            raise RuntimeError(f"the AMP chain's losses are not finite and "
+                               f"falling: {amp_losses}")
+        float32_state("AMP chain steps", sc)
+        del sc
+        launches = {name: getattr(fb, name).launches
+                    for name in kernels + f32_kernels}
+    finally:
+        if prev is None:
+            os.environ.pop("PT_FUSED_BLOCK", None)
+        else:
+            os.environ["PT_FUSED_BLOCK"] = prev
+    print(f"bf16 chain train path launches over {n_chain} chain steps: "
+          f"{launches}")
+    for name, count in launches.items():
+        want = CHAIN_BLOCKS * n_chain if name in kernels else 0
+        if count != want:
+            raise RuntimeError(f"{name} was launched {count} times on the "
+                               f"bf16 chain's training path, expected {want}"
+                               f" ({CHAIN_BLOCKS} a step in bf16, none in "
+                               f"float32)")
+    return {name: launches[name] for name in kernels}
+
+
 def lstm_case(torch, t, b, h, lens, seed):
     """Inputs of the LSTM kernels on the card: x ~ N(0, 1) (a pre-projected
     input), W ~ U(+-sqrt(6 / (H + 4H))) (the model's Xavier init), small
@@ -4011,11 +4416,18 @@ def ptxas_of(report: dict, source: str) -> dict:
 
 def bf16_chain_regs(report: dict) -> dict:
     """{bf16 chain kernel: "registers r1/r2/..., spills s1/s2/... bytes"}
-    over its instances in csrc/fused_block_bf16.cu."""
+    over the instances of its CUDA kernels in csrc/fused_block_bf16.cu
+    (bwd_mid's and bwd_final's: their fold, product and tile kernels)."""
     match = {"conv1x1_stats_bf16": r"conv1x1_bf16_kernelILi\d+ELi0E",
              "conv1x1_bn_residual_bf16": r"conv1x1_bf16_kernelILi\d+ELi1E",
-             "conv3x3_norm_stats_bf16": r"conv3x3_bf16_kernel",
-             "norm_relu_moments_bf16": r"moments_bf16_kernel"}
+             "conv3x3_norm_stats_bf16": r"conv3x3_bf16_kernelILi\d+ELi0E",
+             "norm_relu_moments_bf16": r"moments_bf16_kernel",
+             "bwd_reduce3_bf16": r"abt_bf16_kernelILi\d+ELi\d+ELi0E",
+             "bwd_apply3_bf16": r"conv1x1_bf16_kernelILi\d+ELi2E",
+             "bwd_mid_bf16": r"conv3x3_bf16_kernelILi\d+ELi1E|abt_bf16_"
+                             r"kernelILi\d+ELi\d+ELi1E|fold_bf16",
+             "bwd_final_bf16": r"conv1x1_bf16_kernelILi\d+ELi3E|abt_bf16_"
+                               r"kernelILi\d+ELi\d+ELi2E|fold_bf16"}
     entries = ptxas_of(report, "fused_block_bf16.cu")
     out = {}
     for k, pat in match.items():
@@ -4195,32 +4607,42 @@ def check_chain_bf16(torch, F, fb, card, report):
     return rows
 
 
-def chain_bwd_inputs(torch, fb, d, dout, h):
-    """{kernel: args} of the four backward wrappers in one run of
-    bottleneck_rest_bwd on the chain's forward of d (a chain_case), a
-    cotangent dout of out and zero stat cotangents, with the wrappers
+def chain_bwd_inputs(torch, fb, d, dout, h, suffix="", cots=None):
+    """{kernel: args} of the four backward wrappers (their names + suffix:
+    "_bf16" for a bf16 d and dout) in one run of bottleneck_rest_fwd and
+    bottleneck_rest_bwd on d (a chain_case: x, w1, taps, w3, gam, bet; h
+    rows an image), a cotangent dout of out and cots of the six batch
+    statistics (zeros by default), with the chain's eight wrappers
     replaced by their plain versions: each kernel's inputs as its plain
-    predecessors make them."""
+    predecessors make them. The card tests and
+    scripts/emulate_fused_block_bf16_cpu.py take their inputs here too."""
     g, b = d["gam"], d["bet"]
-    out, stats, aux = fb.bottleneck_rest_fwd(d["x"], d["w1"], d["taps"],
-                                             d["w3"], g[0], b[0], g[1], b[1],
-                                             g[2], b[2], h)
-    a1, a2, sum_h, m2h, sc1, sh1, sc2, sh2 = aux
-    res = (d["x"], a1, a2, out, d["w1"], d["taps"], d["w3"], g[0], g[1],
-           g[2], *stats, sum_h, m2h, sc1, sh1, sc2, sh2)
-    args, wrappers = {}, {k: getattr(fb, k) for k in CHAIN_BWD_KERNELS}
+    args = {}
+    names = [k + suffix for k in CHAIN_KERNELS + CHAIN_BWD_KERNELS]
+    wrappers = {k: getattr(fb, k) for k in names}
 
     def plain(name):
+        ref = getattr(fb, name + "_reference")
+
         def call(*a):
             args[name] = a
-            return getattr(fb, name + "_reference")(*a)
+            return ref(*a)
         return call
 
     try:
+        for k in CHAIN_KERNELS:
+            setattr(fb, k + suffix, getattr(fb, k + "_reference"))
         for k in CHAIN_BWD_KERNELS:
-            setattr(fb, k, plain(k))
-        fb.bottleneck_rest_bwd(res, dout, [torch.zeros_like(s) for s in stats],
-                               h)
+            setattr(fb, k + suffix, plain(k))
+        out, stats, aux = fb.bottleneck_rest_fwd(
+            d["x"], d["w1"], d["taps"], d["w3"], g[0], b[0], g[1], b[1],
+            g[2], b[2], h)
+        a1, a2, sum_h, m2h, sc1, sh1, sc2, sh2 = aux
+        res = (d["x"], a1, a2, out, d["w1"], d["taps"], d["w3"], g[0],
+               g[1], g[2], *stats, sum_h, m2h, sc1, sh1, sc2, sh2)
+        fb.bottleneck_rest_bwd(res, dout, [torch.zeros_like(st)
+                                           for st in stats]
+                               if cots is None else cots, h)
     finally:
         for k, w in wrappers.items():
             setattr(fb, k, w)
@@ -4447,6 +4869,209 @@ def check_chain_bwd(torch, fb, card):
     for k in rows:
         rows[k]["max_abs_err"] = max(errs[k])
     return rows
+
+
+def check_chain_bf16_bwd(torch, fb, card, report):
+    """The four bf16 backward kernels (csrc/fused_block_bf16.cu) vs their
+    plain versions at each of CHAIN_SHAPES, on the inputs the bf16 chain
+    makes (chain_bwd_inputs on a chain_case rounded to bf16 and a bf16
+    cotangent of out): g3 bit for bit, g2, g1 and dx within BF16_REL
+    max|plain| + BF16_REL |plain| with the share of elements that differ
+    printed, the sums of g2 and g1 within STATS_RTOL of their terms'
+    magnitudes plus what the flipped values move, P, Σg3 and dW1 within
+    STATS_RTOL of their terms, dtaps within STATS_RTOL of its terms from
+    the float64 product (bf16_bwd_readings); two calls on one input the
+    same bits; each timed beside its plain version, its bound (bf16 bytes
+    at 3.35 TB/s, products at the bf16 tensor cores' rate) and a bf16
+    PyTorch yardstick of the same products on materialized operands
+    (torch.bmm + sum; torch.matmul; cuDNN's conv2d_input + conv2d_weight;
+    matmul + bmm + sum). The kernels line reports the first stage."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    n, bf = RESNET["batch"], torch.bfloat16
+    regs = bf16_chain_regs(report)
+    rows, errs = {}, {k: [] for k in CHAIN_BF16_BWD_KERNELS}
+    shares = {k: [] for k in CHAIN_BF16_BWD_KERNELS}
+    for cin, c, h in CHAIN_SHAPES:
+        s, m = h * h, n * h * h
+        d = chain_case(torch, n, cin, c, h, gen)
+        for k in ("x", "w1", "taps", "w3"):
+            d[k] = d[k].to(bf)
+        dout = torch.randn(n, cin, s, device="cuda", generator=gen).to(bf)
+        args = chain_bwd_inputs(torch, fb, d, dout, h, "_bf16")
+        del d, dout
+        notes, differ, calls = [], {}, {}
+        for name in CHAIN_BWD_KERNELS:
+            k = name + "_bf16"
+            a = args[name]
+            fn = lambda k=k, a=a: getattr(fb, k)(*a)
+            got = fn()
+            want = getattr(fb, name + "_reference")(*a)
+            torch.cuda.synchronize()
+            readings = bf16_bwd_readings(torch, fb, name, a, got, want)
+            bad = [what for what, (sh, _) in readings.items()
+                   if not sh <= 1]
+            if bad:
+                raise RuntimeError(f"{k}: {bad} beyond their limits "
+                                   f"(g3 bit for bit): {readings}")
+            worst = max(float((gt.float() - wt.float()).abs().max())
+                        for gt, wt in zip(got, want))
+            share = max(sh for sh, _ in readings.values())
+            for what, (sh, dif) in readings.items():
+                if dif is None:
+                    notes.append(f"{what} {sh:.3f}")
+                elif what == "g3":
+                    notes.append("g3 bitwise")
+                else:
+                    differ[k] = dif
+                    notes.append(f"{what} {sh:.3f} of the bf16 limit, "
+                                 f"{dif:.5f} differ")
+            errs[k].append(worst)
+            shares[k].append(share)
+            again = fn()
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise RuntimeError(f"{k}: two calls on one input differ")
+            calls[k] = (fn, lambda n_=name, a=a: getattr(
+                fb, n_ + "_reference")(*a))
+            del got, want, again
+        # bounds: each input read once, each output written once (bf16
+        # activations, taps and weights; float32 vectors, sums and
+        # products over N·S); the products at the bf16 tensor cores' rate
+        ea, ex = n * c * s, n * cin * s
+        bounds = {
+            "bwd_reduce3_bf16": bound_ms(
+                2 * (3 * ex + ea) + 4 * (2 * c + cin * (c + 1)),
+                2 * cin * c * m, BF16_FLOPS_PER_S),
+            "bwd_apply3_bf16": bound_ms(
+                2 * (ex + 2 * ea + c * (cin + c)) + 4 * 7 * c,
+                2 * c * (cin + c) * m, BF16_FLOPS_PER_S),
+            "bwd_mid_bf16": bound_ms(
+                2 * (4 * ea + 9 * c * c) + 4 * (9 * c + 9 * c * c),
+                36 * c * c * m, BF16_FLOPS_PER_S),
+            "bwd_final_bf16": bound_ms(
+                2 * (3 * ex + 2 * ea + c * cin) + 4 * (3 * c + c * cin),
+                4 * c * cin * m, BF16_FLOPS_PER_S)}
+        ms = {k: cuda_ms(torch, f, 10) for k, (f, _) in calls.items()}
+        plain = {k: cuda_ms(torch, r, 3) for k, (_, r) in calls.items()}
+        # yardsticks: the same products in bf16 through cuBLAS / cuDNN on
+        # materialized bf16 operands
+        g3, a2, sc2, sh2, amat, bmat = args["bwd_apply3"][:6]
+        h2 = fb._norm_relu(a2, sc2, sh2)
+        ab, gh = torch.cat([amat, bmat], 1), torch.cat([g3, h2], 1)
+        g2, _, a1, sc1, sh1, p2, q2, r2 = args["bwd_mid"][:8]
+        taps = args["bwd_mid"][10]
+        da2 = fb._unfold(g2, a2, p2, q2, r2).to(bf).view(n, c, h, h)
+        h1 = fb._norm_relu(a1, sc1, sh1).view(n, c, h, h)
+        w2 = taps.view(3, 3, c, c).permute(2, 3, 0, 1).contiguous()
+        _, g1, _, x, p1, q1, r1, w1 = args["bwd_final"]
+        da1 = fb._unfold(g1, a1, p1, q1, r1).to(bf)
+        lib = {"bwd_reduce3_bf16": cuda_ms(torch, lambda: (torch.bmm(
+                   g3, h2.transpose(1, 2)).sum(dim=0),
+                   g3.float().sum(dim=(0, 2))), 10),
+               "bwd_apply3_bf16": cuda_ms(torch, lambda: torch.matmul(
+                   ab, gh), 10),
+               "bwd_mid_bf16": cuda_ms(torch, lambda: (
+                   torch.nn.grad.conv2d_input(h1.shape, w2, da2, padding=1),
+                   torch.nn.grad.conv2d_weight(h1, w2.shape, da2, padding=1)),
+                   10),
+               "bwd_final_bf16": cuda_ms(torch, lambda: (
+                   torch.matmul(w1.T, da1),
+                   torch.bmm(da1, x.transpose(1, 2)).sum(dim=0)), 10)}
+        yard = {"bwd_reduce3_bf16": "bmm + sum", "bwd_apply3_bf16": "matmul",
+                "bwd_mid_bf16": "cuDNN dgrad + wgrad",
+                "bwd_final_bf16": "matmul + bmm + sum"}
+        print(f"bottleneck chain bf16 backward stage Cin {cin}, C {c}, "
+              f"{h}x{h}, batch {n}: " + "; ".join(
+                  f"{k} {ms[k]:.4f} ms (plain {plain[k]:.4f}, {yard[k]} "
+                  f"bf16 {lib[k]:.4f}, bound {bounds[k][0]:.4f} "
+                  f"{bounds[k][1]}, largest share of its limits "
+                  f"{shares[k][-1]:.4f}" + (
+                      f", elements that differ {differ[k]:.5f}"
+                      if k in differ else "") + ")"
+                  for k in CHAIN_BF16_BWD_KERNELS)
+              + f"; backward {sum(ms.values()):.4f} ms vs bound "
+              f"{sum(b[0] for b in bounds.values()):.4f} ms; two calls the "
+              f"same bits [{card}]")
+        print(f"bottleneck chain bf16 backward stage Cin {cin}, C {c}, "
+              f"{h}x{h}, shares of the limits: " + "; ".join(notes)
+              + f" [{card}]")
+        if (cin, c, h) == CHAIN_SHAPES[0]:
+            for k in CHAIN_BF16_BWD_KERNELS:
+                rows[k] = dict(ms=ms[k], plain_ms=plain[k],
+                               bound_ms=bounds[k][0], bound_by=bounds[k][1],
+                               library_ms=lib[k])
+        del args, calls, g3, a2, h2, ab, gh, g2, a1, da2, h1, g1, x, da1
+    for k in CHAIN_BF16_BWD_KERNELS:
+        rows[k]["max_abs_err"] = max(errs[k])
+        print(f"{k}: largest share of its limits over the three stages "
+              f"{max(shares[k]):.4f}; {regs[k]} [{card}]")
+    return rows
+
+
+def bf16_bwd_readings(torch, fb, name, args, got, want):
+    """A bf16 backward kernel's outputs (got) against its plain version's
+    (want) on args: {output: (its largest share of its limit, the share
+    of its elements that differ from the plain version's; None for a
+    float32 sum)}. g3 bit for bit (share 0, else inf); g2, g1 and dx
+    within BF16_REL max|plain| + BF16_REL |plain|; the sums of g2 and g1
+    within STATS_RTOL of their terms' magnitudes plus what the values
+    that differ move them; P, Σg3 and dW1 (products of the same bf16
+    operands) within STATS_RTOL of their terms; dtaps within STATS_RTOL
+    of its terms from the float64 product of the same bf16 operands (the
+    plain version's product, cuDNN's float32 wgrad on the card, reads
+    1.13 of that limit itself at N 1, C 256, 14²). Phase 3, the card
+    tests and scripts/emulate_fused_block_bf16_cpu.py hold them here."""
+    def share(gt, wt, terms, moved=0.0):
+        lim = STATS_RTOL * terms + moved
+        return float(((gt.double() - wt.double()).abs()
+                      / lim.clamp_min(1e-30)).max())
+
+    def differ(gt, wt):
+        return float((gt != wt).float().mean())
+
+    out = {}
+    if name == "bwd_reduce3":
+        g3 = want[0].float().abs()
+        h2 = fb._norm_relu(*args[2:5]).float()
+        out["g3"] = (0.0 if torch.equal(got[0], want[0]) else math.inf,
+                     differ(got[0], want[0]))
+        out["P"] = (share(got[1], want[1],
+                          torch.einsum("nis,ncs->ic", g3, h2)), None)
+        out["Σg3"] = (share(got[2], want[2], g3.sum(dim=(0, 2))), None)
+        return out
+    if name == "bwd_final":
+        g3, g1, a1, x, p1, q1, r1, _ = args
+        da1 = fb._unfold(g1, a1, p1, q1, r1).to(torch.bfloat16).float()
+        out["dx"] = (bf16_share(torch, got[0], want[0]),
+                     differ(got[0], want[0]))
+        out["dW1"] = (share(got[1], want[1], torch.einsum(
+            "ncs,nks->ck", da1.abs(), x.float())), None)
+        return out
+    g, k = ("g2", "2") if name == "bwd_apply3" else ("g1", "1")
+    a, inv, m = ((args[1], args[7], args[8]) if name == "bwd_apply3"
+                 else (args[2], args[8], args[9]))
+    out[g] = (bf16_share(torch, got[0], want[0]), differ(got[0], want[0]))
+    moved = (got[0].float() - want[0].float()).abs()
+    gw = want[0].float().abs()
+    xh = fb._affine(a, inv, -m * inv).abs()
+    out["Σ" + g] = (share(got[-2], want[-2], gw.sum(dim=(0, 2)),
+                          moved.sum(dim=(0, 2))), None)
+    out[f"Σ{g}·x̂{k}"] = (share(got[-1], want[-1], (gw * xh).sum(dim=(0, 2)),
+                               (moved * xh).sum(dim=(0, 2))), None)
+    if name == "bwd_mid":
+        g2, a2, a1, sc1, sh1, p2, q2, r2, _, _, _, h = args
+        n, c, s = g2.shape
+        da2 = fb._unfold(g2, a2, p2, q2, r2).to(torch.bfloat16).double()
+        h1 = fb._norm_relu(a1, sc1, sh1).double().view(n, c, h, s // h)
+
+        def taps(hh, dd):
+            return torch.nn.grad.conv2d_weight(
+                hh, (c, c, 3, 3), dd.view(n, c, h, s // h),
+                padding=1).permute(2, 3, 0, 1).reshape(9, c, c)
+
+        out["dtaps"] = (share(got[1], taps(h1, da2),
+                              taps(h1.abs(), da2.abs())), None)
+    return out
 
 
 def block_host_ms(torch, fb, run):
@@ -4783,6 +5408,7 @@ def main() -> int:
     rows.update(check_chain(torch, F, fb, card))
     rows.update(check_chain_bf16(torch, F, fb, card, report))
     rows.update(check_chain_bwd(torch, fb, card))
+    rows.update(check_chain_bf16_bwd(torch, fb, card, report))
     launches = main_path(np, torch, fa, card, args.seed)
     trained = train_path(np, torch, fa, card, args.seed)
     # the forward kernel runs on both main paths
@@ -4815,6 +5441,10 @@ def main() -> int:
     resnet_bf16_card_vs_cpu(np, torch, card, args.seed)
     launches.update(resnet_bf16_chain_path(np, torch, fb, card, built,
                                            args.seed))
+    # the bf16 forward kernels run on both bf16 chain paths
+    for name, n in resnet_bf16_chain_train_path(np, torch, fb, card, built,
+                                                args.seed).items():
+        launches[name] = launches.get(name, 0) + n
 
     meta = {"flash_attention_fwd": (
                 "paddle_tpu_torch/csrc/flash_attention.cu",
@@ -4884,7 +5514,15 @@ def main() -> int:
             "bwd_mid": ("paddle_tpu_torch/csrc/bwd_mid_tc.cuh",
                         "paddle_tpu/kernels/fused_block.py:399"),
             "bwd_final": ("paddle_tpu_torch/csrc/bwd_final_tc.cuh",
-                          "paddle_tpu/kernels/fused_block.py:466")}
+                          "paddle_tpu/kernels/fused_block.py:466"),
+            "bwd_reduce3_bf16": ("paddle_tpu_torch/csrc/fused_block_bf16.cu",
+                                 "paddle_tpu/kernels/fused_block.py:192"),
+            "bwd_apply3_bf16": ("paddle_tpu_torch/csrc/fused_block_bf16.cu",
+                                "paddle_tpu/kernels/fused_block.py:261"),
+            "bwd_mid_bf16": ("paddle_tpu_torch/csrc/fused_block_bf16.cu",
+                             "paddle_tpu/kernels/fused_block.py:399"),
+            "bwd_final_bf16": ("paddle_tpu_torch/csrc/fused_block_bf16.cu",
+                               "paddle_tpu/kernels/fused_block.py:466")}
     kernels = [dict(name=name, route="cuda", source=meta[name][0],
                     replaces=meta[name][1], launches=launches[name], **row)
                for name, row in rows.items()]

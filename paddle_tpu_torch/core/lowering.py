@@ -42,7 +42,6 @@ from typing import Dict, List, Optional, Sequence, Set
 
 import torch
 
-from ..ops.fused_ops import chain_requested
 from .program import Block, OpDesc, Program
 from .registry import ExecContext, require_op
 
@@ -63,19 +62,10 @@ _NO_BF16_KERNEL = {
 }
 
 
-def _no_bf16_kernel(op_type: str, backward: bool) -> Optional[str]:
-    """What of `op_type` has no bfloat16 kernel, or None, in a program
-    with a backward (an autodiff op) or without. fused_bottleneck
-    composes in bfloat16, as the JAX package's `auto` does; where
-    PT_FUSED_BLOCK asks for the chain, its forward kernels have bfloat16
-    versions and its backward kernels do not, so only a program with a
-    backward is refused; the check reads the env alone, not the
-    device."""
-    if op_type == "fused_bottleneck":
-        if chain_requested() and backward:
-            return ("the bottleneck chain's backward kernels "
-                    "(PT_FUSED_BLOCK=always)")
-        return None
+def _no_bf16_kernel(op_type: str) -> Optional[str]:
+    """What of `op_type` has no bfloat16 kernel, or None. fused_bottleneck
+    composes in bfloat16, as the JAX package's `auto` does, and its chain
+    (PT_FUSED_BLOCK=always) has bfloat16 kernels forward and backward."""
     return _NO_BF16_KERNEL.get(op_type)
 
 
@@ -90,10 +80,8 @@ def _amp_dtype(program: Program) -> Optional[torch.dtype]:
         raise NotImplementedError(
             f"program.amp_dtype={amp!r}: mixed precision in {amp} is not "
             "ported (bfloat16 is)")
-    ops = program.global_block.ops
-    backward = any(op.type == AUTODIFF_OP for op in ops)
-    for op in ops:
-        what = _no_bf16_kernel(op.type, backward)
+    for op in program.global_block.ops:
+        what = _no_bf16_kernel(op.type)
         if what is not None:
             raise NotImplementedError(
                 f"op {op.type!r} under amp_dtype='bfloat16': {what} have no "

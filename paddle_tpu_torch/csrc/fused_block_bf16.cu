@@ -1,9 +1,11 @@
-// Bottleneck-chain forward kernels for Hopper (sm_90a), bfloat16
-// activations, taps and weights (the bench trains ResNet-50 in bf16).
+// Bottleneck-chain kernels for Hopper (sm_90a), forward and backward,
+// bfloat16 activations, taps and weights (the bench trains ResNet-50 in
+// bf16).
 //
-// Replace the forward TPU kernels of paddle_tpu/kernels/fused_block.py as
-// they run on bf16 tiles ("activations bf16 (the bench dtype) or f32",
-// :37-38), with the float32 kernels' layouts (csrc/fused_block.cu):
+// Replace the TPU kernels of paddle_tpu/kernels/fused_block.py as they run
+// on bf16 tiles ("activations bf16 (the bench dtype) or f32", :37-38),
+// with the float32 kernels' layouts (csrc/fused_block.cu,
+// csrc/fused_block_bwd.cu). The forward:
 //   conv1x1_stats_bf16 (pallas_call :790, body _k1_kernel :568): y[n] =
 //     W1 x[n], x [N, Cin, S], W1 [C, Cin]; the bf16 products summed in
 //     float32, y rounded once to bf16; float32 sums of the ROUNDED y;
@@ -17,8 +19,25 @@
 //   conv1x1_bn_residual_bf16 (:756, _assemble_kernel :735): out[n] =
 //     relu(fma(W3 h2[n], sc3, sh3) + x[n]), h2 = bf16(relu(a2 * sc2 +
 //     sh2)); a3 stays float32; out rounded once to bf16.
+// The backward:
+//   bwd_reduce3_bf16 (:192, _b1a_kernel :160): g3 = dout where out > 0,
+//     exact; P = sum g3 h2^T [Cin, C] and sum g3, float32, h2 = bf16(relu(
+//     fma(a2, sc2, sh2)));
+//   bwd_apply3_bf16 (:261, _b1b_kernel :224): g2 = bf16(A g3 + B h2 + v0)
+//     where h2f = fma(a2, sc2, sh2) > 0, A, B bf16; sum g2 and sum g2 x^2
+//     of the rounded g2, float32;
+//   bwd_mid_bf16 (:399, _b2_kernel :295): da2 = bf16(fma(g2, p2, a2 * q2)
+//     + r2); g1 = bf16(the 3x3's input gradient of da2) where h1f > 0;
+//     sum g1, sum g1 x^1; dtaps [9, C, C] = sum da2 h1^T at each tap's
+//     shift, h1 = bf16(h1f), float32;
+//   bwd_final_bf16 (:466, _b3_kernel :436): da1 = bf16(fma(g1, p1, a1 *
+//     q1) + r1); dx = bf16(W1^T da1 + g3); dW1 = sum da1 x^T, float32.
 // scale and shift are float32 everywhere, as the Pallas kernels take them;
-// the affines are fmaf, as XLA contracts the Pallas kernels' x * sc + sh.
+// every affine rounds where XLA rounds the Pallas kernels' (checked on
+// operands where contracting shows): the normalize x * sc + sh one fmaf,
+// the folded BN backward g * p + a * q + r as fmaf(g, p, a * q) then + r,
+// its product and sum rounded apart (__fmul_rn, __fadd_rn), as nvcc would
+// otherwise contract them on its own.
 //
 // What bounds them on the H100. At ResNet-50's chain stages (batch 128;
 // Cin, C, S = 256, 64, 3136 / 512, 128, 784 / 1024, 256, 196), each input
@@ -33,6 +52,14 @@
 //     0.0038 ms; 1.7 GFLOP (M2 is symmetric): bytes;
 //   conv1x1_bn_residual: 462.4 / 231.2 / 115.6 MB, 0.1380 / 0.0690 /
 //     0.0345 ms: bytes.
+//   bwd_reduce3: 668 / 334 / 168 MB, 0.1994 / 0.0998 / 0.0502 ms; 13.2
+//     GFLOP: bytes;
+//   bwd_apply3: 308 / 154 / 78 MB, 0.0920 / 0.0461 / 0.0232 ms; 16.4
+//     GFLOP, 0.0166 ms: bytes;
+//   bwd_mid: 205.5 MB at 56x56, 0.0614 ms, 59.2 GFLOP, 0.0599 ms: bytes
+//     by a hair; operations at 28x28 and 14x14;
+//   bwd_final: 719 / 360 / 182 MB, 0.2148 / 0.1075 / 0.0542 ms; 26.3
+//     GFLOP: bytes.
 // In bf16 there is no 3xTF32 split: each product is one bf16 product of
 // exact operands, so the tensor cores do a third of the float32 kernels'
 // work on half their bytes.
@@ -70,11 +97,28 @@
 //     both, and sums its channels' h for sum_h. Positions past N * S give
 //     h = 0, not relu(sh). Each element (i <= j) is written to (i, j) and
 //     (j, i) of the split's partial: M2 exactly symmetric.
+//   - The backward reuses the 1x1 and 3x3 tiles: bwd_apply3 is the 1x1
+//     over K = Cin + C, B's rows g3's, then a2's normalized as they land
+//     (c1 mode kApply3: the mask, v0, one rounding and the sums in the
+//     epilogue); bwd_final's dx the 1x1 of W1^T over da1 (kDx: + g3, one
+//     rounding); bwd_mid's input gradient the 3x3 over da2 as it lands,
+//     the taps flipped and transposed by the wrapper (c3 mode kInputGrad:
+//     h1's mask, one rounding and bn1's sums in the epilogue). da2 and da1
+//     are folded once into a bf16 scratch (fold_bf16_kernel).
+//   - P, the nine tap gradients and dW1 (ab::abt_bf16_kernel) are the
+//     moments kernel's product with two operands: a block owns a BM x BN
+//     tile of A's rows by B's rows (and, for the taps, one tap) and a
+//     split of N * S in 32-position stages, both operands [row][32
+//     positions], B's rows h normalized as they land (bwd_reduce3's h2;
+//     bwd_mid's h1 at the tap's shift of each position, 0 off the
+//     image); bwd_reduce3's A rows are g3, made from dout and out as they
+//     land, written out and summed by the blocks of column tile 0. The
+//     splits' partials go through a fixed-order pass.
 //   - Sums: a partial per tile (a thread's columns in order, then the
 //     row's threads in order), then fused_block.cuh's passes in fixed
 //     order. No float atomics: two calls on one input give the same bits.
-// Shapes: contiguous bf16 tensors, 16-byte aligned; the 3x3's Cin a
-// multiple of 16; C and Cin at most kMaxC (4096, eight times the widest C
+// Shapes: contiguous bf16 tensors, 16-byte aligned; the 3x3's Cin (and
+// bwd_mid's C) a multiple of 16; C and Cin at most kMaxC (4096, eight times the widest C
 // of ResNet-50's blocks: the moments' split partials grow as splits x C^2,
 // 8.6 GB at 128 splits there); N * S below 2^31; each entry point refuses
 // anything else before it launches.
@@ -193,83 +237,110 @@ namespace c1 {
 constexpr int kBN = 128, kBK = 32;
 constexpr int kAP = kBK + 8;   // A's row pitch (bf16): 80 bytes
 constexpr int kBP = kBN + 8;   // B's row pitch: 272 bytes
-enum { kStats = 0, kResidual = 1 };
+// kStats: y = W x and its partial sums; kResidual: x normalized as it
+// lands, out = relu(fma(a3, sc3, sh3) + res); kApply3: B = [g3; h2], h2
+// normalized as it lands, g2 = bf16(acc + v0) where h2f > 0, the partial
+// sums of the rounded g2 and of g2 x^2; kDx: dx = bf16(acc + g3).
+enum { kStats = 0, kResidual = 1, kApply3 = 2, kDx = 3 };
+
+// B's rows k < K1 come from x ([N, K1, S]) as they are; rows K1 <= k < K
+// from xn ([N, K - K1, S], row k - K1) normalized by sc, sh of that row.
+// The epilogue's e (kResidual: the residual; kApply3: a2; kDx: g3) is [N,
+// M, S]; f0, f1 (kResidual: sc3, sh3; kApply3: v0) and inv, mean
+// (kApply3: x^2 = a2 * inv - mean * inv) are per output row.
+struct Args {
+  const bf16* x;
+  const bf16* xn;
+  const bf16* w;
+  const float* sc;
+  const float* sh;
+  const bf16* e;
+  const float* f0;
+  const float* f1;
+  const float* inv;
+  const float* mean;
+  bf16* y;
+  float* part;
+  int N, K1, K, M, S, lda;
+};
 
 template <int BM>
 constexpr int smem_bytes() {
   return 2 * (BM * kAP + kBK * kBP) * 2;  // two stages of A and B
 }
 
-// y = W · x over K, M rows (kStats: y and its partial sums; kResidual: x
-// normalized as it lands, out = relu(fma(a3, sc3, sh3) + res)).
+// y = W · B over K, M rows, in the epilogue of kMode.
 template <int BM, int kMode, bool kWide>
 __global__ void __launch_bounds__(kThreads, 2)
-conv1x1_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                    const float* __restrict__ sc, const float* __restrict__ sh,
-                    const bf16* __restrict__ res,
-                    const float* __restrict__ sc3,
-                    const float* __restrict__ sh3, bf16* __restrict__ y,
-                    float* __restrict__ part, int N, int K, int M, int S,
-                    int lda) {
+conv1x1_bf16_kernel(const Args a) {
   constexpr int MT = BM / 32, NT = 4, AV = BM * kBK / 8 / kThreads;
+  constexpr bool kRaw = kMode != kResidual;  // B has rows from x
+  constexpr bool kNorm = kMode == kResidual || kMode == kApply3;
   extern __shared__ float4 smem4[];
   bf16* As = reinterpret_cast<bf16*>(smem4);
   bf16* Bs = As + 2 * BM * kAP;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp & 1, wn = warp >> 1, g = lane >> 2, t = lane & 3;
-  const long NS = (long)N * S, j0 = (long)blockIdx.x * kBN;
+  const int K = a.K, K1 = a.K1, M = a.M, S = a.S;
+  const long NS = (long)a.N * S, j0 = (long)blockIdx.x * kBN;
   const int m0 = blockIdx.y * BM;
-  // this thread's loads: 4 columns (group cg) of 4 K rows a stage
+  // this thread's loads: 4 columns (group cg) of 4 K rows a stage, at
+  // offsets off into x and offn into xn
   const int cg = tid & 31, kr = tid >> 5;
-  long off[4];
+  long off[4], offn[4];
 #pragma unroll
-  for (int e = 0; e < 4; ++e)
-    off[e] = (kWide && e) ? -1 : col_off(j0 + 4 * cg + e, NS, S, K);
+  for (int e = 0; e < 4; ++e) {
+    const long j = j0 + 4 * cg + e;
+    off[e] = (kWide && e) ? -1 : col_off(j, NS, S, K1);
+    offn[e] = (kWide && e) ? -1 : col_off(j, NS, S, K - K1);
+  }
   uint4 ra[AV];
   uint2 rb[4];
+  auto read = [&](const bf16* src, const long (&o)[4], long ks) {
+    if (kWide) {
+      return o[0] >= 0 ? __ldg(reinterpret_cast<const uint2*>(src + o[0] + ks))
+                       : make_uint2(0u, 0u);
+    }
+    bf16 h[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) h[e] = o[e] >= 0 ? src[o[e] + ks] : 0;
+    return make_uint2(pack(h[0], h[1]), pack(h[2], h[3]));
+  };
   auto load = [&](int k0) {
 #pragma unroll
     for (int v = 0; v < AV; ++v) {
       const int idx = tid + v * kThreads;
       ra[v] = __ldg(reinterpret_cast<const uint4*>(
-          w + (long)(m0 + (idx >> 2)) * lda + k0 + (idx & 3) * 8));
+          a.w + (long)(m0 + (idx >> 2)) * a.lda + k0 + (idx & 3) * 8));
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int k = k0 + kr + 8 * i;
       uint2 v = make_uint2(0u, 0u);
-      if (k < K) {
-        const long ks = (long)k * S;
-        if (kWide) {
-          if (off[0] >= 0)
-            v = __ldg(reinterpret_cast<const uint2*>(x + off[0] + ks));
-        } else {
-          bf16 h[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) h[e] = off[e] >= 0 ? x[off[e] + ks] : 0;
-          v = make_uint2(pack(h[0], h[1]), pack(h[2], h[3]));
-        }
-      }
+      if (kRaw && k < K1)
+        v = read(a.x, off, (long)k * S);
+      else if (kNorm && k >= K1 && k < K)
+        v = read(a.xn, offn, (long)(k - K1) * S);
       rb[i] = v;
     }
   };
   auto store = [&](int buf, int k0) {
-    bf16* a = As + buf * BM * kAP;
-    bf16* b = Bs + buf * kBK * kBP;
+    bf16* as = As + buf * BM * kAP;
+    bf16* bs = Bs + buf * kBK * kBP;
 #pragma unroll
     for (int v = 0; v < AV; ++v) {
       const int idx = tid + v * kThreads;
-      *reinterpret_cast<uint4*>(a + (idx >> 2) * kAP + (idx & 3) * 8) = ra[v];
+      *reinterpret_cast<uint4*>(as + (idx >> 2) * kAP + (idx & 3) * 8) = ra[v];
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       uint2 v = rb[i];
       const int k = k0 + kr + 8 * i;
-      if (kMode == kResidual && k < K) {
-        const float s = __ldg(sc + k), h = __ldg(sh + k);
+      if (kNorm && k >= K1 && k < K) {
+        const float s = __ldg(a.sc + k - K1), h = __ldg(a.sh + k - K1);
         v = make_uint2(norm2(v.x, s, h), norm2(v.y, s, h));
       }
-      *reinterpret_cast<uint2*>(b + (kr + 8 * i) * kBP + 4 * cg) = v;
+      *reinterpret_cast<uint2*>(bs + (kr + 8 * i) * kBP + 4 * cg) = v;
     }
   };
 
@@ -287,11 +358,11 @@ conv1x1_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     store(buf, st * kBK);
     __syncthreads();
     if (st + 1 < stages) load((st + 1) * kBK);
-    const bf16* a = As + (buf * BM + wm * (BM / 2)) * kAP;
-    const bf16* b = Bs + buf * kBK * kBP + wn * (kBN / 4);
+    const bf16* as = As + (buf * BM + wm * (BM / 2)) * kAP;
+    const bf16* bs = Bs + buf * kBK * kBP + wn * (kBN / 4);
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 16)
-      warp_k16<MT, NT, true>(acc, a + kk, kAP, b + kk * kBP, kBP);
+      warp_k16<MT, NT, true>(acc, as + kk, kAP, bs + kk * kBP, kBP);
   }
 
   // the epilogue: this thread's 8 columns, then its 2 MT rows
@@ -301,7 +372,7 @@ conv1x1_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 #pragma unroll
     for (int e = 0; e < 2; ++e)
       oc[j][e] = col_off(j0 + wn * (kBN / 4) + 8 * j + 2 * t + e, NS, S, M);
-  if (kMode == kStats) {
+  if (kMode == kStats || kMode == kApply3) {
     float* red = reinterpret_cast<float*>(smem4);  // over A, after the loop
     __syncthreads();
 #pragma unroll
@@ -310,20 +381,41 @@ conv1x1_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       for (int hf = 0; hf < 2; ++hf) {
         const int lr = wm * (BM / 2) + 16 * i + g + 8 * hf, row = m0 + lr;
         float s = 0.f, q = 0.f;
+        if (kMode == kStats) {
 #pragma unroll
-        for (int j = 0; j < NT; ++j)
+          for (int j = 0; j < NT; ++j)
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            // columns past N * S and rows past M hold 0: they add nothing
-            const bf16 yb = to_bf(acc[i][j][2 * hf + e]);
-            const float yf = bf(yb);
-            if (oc[j][e] >= 0 && row < M) y[oc[j][e] + (long)row * S] = yb;
-            s += yf;
-            q = fmaf(yf, yf, q);
-          }
+            for (int e = 0; e < 2; ++e) {
+              // columns past N * S and rows past M hold 0: they add nothing
+              const bf16 yb = to_bf(acc[i][j][2 * hf + e]);
+              const float yf = bf(yb);
+              if (oc[j][e] >= 0 && row < M) a.y[oc[j][e] + (long)row * S] = yb;
+              s += yf;
+              q = fmaf(yf, yf, q);
+            }
+        } else if (row < M) {
+          const float s2 = __ldg(a.sc + row), h2 = __ldg(a.sh + row);
+          const float v0 = __ldg(a.f0 + row), iv = __ldg(a.inv + row);
+          const float xs = -(__ldg(a.mean + row) * iv);
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              if (oc[j][e] < 0) continue;
+              const long o = oc[j][e] + (long)row * S;
+              const float av = bf(a.e[o]);
+              const bf16 gb =
+                  to_bf(fmaf(av, s2, h2) > 0.f ? acc[i][j][2 * hf + e] + v0
+                                               : 0.f);
+              const float gf = bf(gb);
+              a.y[o] = gb;
+              s += gf;
+              q = fmaf(gf, fmaf(av, iv, xs), q);
+            }
+        }
         put_row<BM>(red, lr, 4 * wn + t, s, q);
       }
-    store_row_partials<BM>(part, M, gridDim.x, m0, blockIdx.x, red);
+    store_row_partials<BM>(a.part, M, gridDim.x, m0, blockIdx.x, red);
   } else {
 #pragma unroll
     for (int i = 0; i < MT; ++i)
@@ -331,57 +423,53 @@ conv1x1_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       for (int hf = 0; hf < 2; ++hf) {
         const int row = m0 + wm * (BM / 2) + 16 * i + g + 8 * hf;
         if (row >= M) continue;
-        const float s3 = __ldg(sc3 + row), h3 = __ldg(sh3 + row);
+        float s3 = 0.f, h3 = 0.f;
+        if (kMode == kResidual) s3 = __ldg(a.f0 + row), h3 = __ldg(a.f1 + row);
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             if (oc[j][e] < 0) continue;
             const long o = oc[j][e] + (long)row * S;
-            const float v = fmaf(acc[i][j][2 * hf + e], s3, h3) + bf(res[o]);
-            y[o] = to_bf(fmaxf(v, 0.f));
+            if (kMode == kResidual) {
+              const float v = fmaf(acc[i][j][2 * hf + e], s3, h3) + bf(a.e[o]);
+              a.y[o] = to_bf(fmaxf(v, 0.f));
+            } else {
+              a.y[o] = to_bf(acc[i][j][2 * hf + e] + bf(a.e[o]));
+            }
           }
       }
   }
 }
 
-inline bool ok(const void* x, const void* w, const void* y, int N, int K,
-               int M, int S, int lda, int wide) {
-  const long NS = (long)N * S;
-  return N > 0 && K > 0 && M > 0 && S > 0 && K <= kMaxC && M <= kMaxC &&
-         NS <= INT_MAX - kBN && lda % kBK == 0 && lda >= K &&
-         (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
-          reinterpret_cast<uintptr_t>(y)) % 16 == 0 &&
-         (!wide || S % 4 == 0);
+inline bool ok(const Args& a, int wide) {
+  const long NS = (long)a.N * a.S;
+  return a.N > 0 && a.K > 0 && a.M > 0 && a.S > 0 && a.K1 >= 0 &&
+         a.K1 <= a.K && a.K1 <= kMaxC && a.K - a.K1 <= kMaxC && a.M <= kMaxC &&
+         NS <= INT_MAX - kBN && a.lda % kBK == 0 && a.lda >= a.K &&
+         (reinterpret_cast<uintptr_t>(a.x) | reinterpret_cast<uintptr_t>(a.xn) |
+          reinterpret_cast<uintptr_t>(a.w) | reinterpret_cast<uintptr_t>(a.y)) %
+                 16 ==
+             0 &&
+         (!wide || a.S % 4 == 0);
 }
 
 template <int BM, int kMode, bool kWide>
-int launch_bm(const bf16* x, const bf16* w, const float* sc, const float* sh,
-              const bf16* res, const float* sc3, const float* sh3, bf16* y,
-              float* part, int N, int K, int M, int S, int lda,
-              cudaStream_t s) {
-  const dim3 grid((unsigned)(((long)N * S + kBN - 1) / kBN),
-                  (unsigned)((M + BM - 1) / BM));
+int launch_bm(const Args& a, cudaStream_t s) {
+  const dim3 grid((unsigned)(((long)a.N * a.S + kBN - 1) / kBN),
+                  (unsigned)((a.M + BM - 1) / BM));
   conv1x1_bf16_kernel<BM, kMode, kWide><<<grid, kThreads, smem_bytes<BM>(),
-                                          s>>>(x, w, sc, sh, res, sc3, sh3, y,
-                                               part, N, K, M, S, lda);
+                                          s>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <int kMode>
-int launch(const bf16* x, const bf16* w, const float* sc, const float* sh,
-           const bf16* res, const float* sc3, const float* sh3, bf16* y,
-           float* part, int N, int K, int M, int S, int lda, int wide,
-           cudaStream_t s) {
-  if (M <= 64)
-    return wide ? launch_bm<64, kMode, true>(x, w, sc, sh, res, sc3, sh3, y,
-                                             part, N, K, M, S, lda, s)
-                : launch_bm<64, kMode, false>(x, w, sc, sh, res, sc3, sh3, y,
-                                              part, N, K, M, S, lda, s);
-  return wide ? launch_bm<128, kMode, true>(x, w, sc, sh, res, sc3, sh3, y,
-                                            part, N, K, M, S, lda, s)
-              : launch_bm<128, kMode, false>(x, w, sc, sh, res, sc3, sh3, y,
-                                             part, N, K, M, S, lda, s);
+int launch(const Args& a, int wide, cudaStream_t s) {
+  if (a.M <= 64)
+    return wide ? launch_bm<64, kMode, true>(a, s)
+                : launch_bm<64, kMode, false>(a, s);
+  return wide ? launch_bm<128, kMode, true>(a, s)
+              : launch_bm<128, kMode, false>(a, s);
 }
 
 }  // namespace c1
@@ -390,6 +478,12 @@ namespace c3 {
 
 constexpr int kBN = 128, kBK = 16;
 constexpr int kP = kBK + 8;    // A's and B's row pitch (bf16): 48 bytes
+// kNormStats: h = bf16(relu(x * sc + sh)) lands, y = bf16(acc) and its
+// partial sums; kInputGrad: x lands as it is (the 3x3's input gradient
+// over da2, the taps flipped and transposed), y = bf16(acc) where h1f =
+// fma(a1, msc, msh) > 0, the partial sums of y and of y x^1 (x^1 = a1 *
+// inv - mean * inv).
+enum { kNormStats = 0, kInputGrad = 1 };
 
 __host__ __device__ inline int halo(int W) { return kBN + 2 * (W + 2) + 2; }
 template <int BM>
@@ -397,12 +491,17 @@ inline int smem_bytes(int W) {
   return (9 * BM + halo(W)) * kP * 2 + halo(W) * 4;
 }
 
-template <int BM>
+template <int BM, int kMode>
 __global__ void __launch_bounds__(kThreads, 2)
 conv3x3_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ taps,
                     const float* __restrict__ sc, const float* __restrict__ sh,
-                    bf16* __restrict__ y, float* __restrict__ part, int Cin,
-                    int Cout, int H, int W, int chunks) {
+                    const bf16* __restrict__ a1,
+                    const float* __restrict__ msc,
+                    const float* __restrict__ msh,
+                    const float* __restrict__ inv,
+                    const float* __restrict__ mean, bf16* __restrict__ y,
+                    float* __restrict__ part, int Cin, int Cout, int H, int W,
+                    int chunks) {
   constexpr int MT = BM / 32, NT = 4;
   extern __shared__ float4 smem4[];
   bf16* As = reinterpret_cast<bf16*>(smem4);  // [9][BM][kP]
@@ -444,8 +543,10 @@ conv3x3_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ taps,
       uint32_t v = 0u;
       if (p >= 0) {
         const bf16* src = xn + (long)ci * S + p;
-        v = pack(norm_bf(src[0], __ldg(sc + ci), __ldg(sh + ci)),
-                 norm_bf(src[S], __ldg(sc + ci + 1), __ldg(sh + ci + 1)));
+        v = kMode == kInputGrad
+                ? pack(src[0], src[S])
+                : pack(norm_bf(src[0], __ldg(sc + ci), __ldg(sh + ci)),
+                       norm_bf(src[S], __ldg(sc + ci + 1), __ldg(sh + ci + 1)));
       }
       *reinterpret_cast<uint32_t*>(Bs + i * kP + 2 * cp) = v;
     }
@@ -474,34 +575,70 @@ conv3x3_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ taps,
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       const int lr = wm * (BM / 2) + 16 * i + g + 8 * hf, row = m0 + lr;
-      float s = 0.f, q = 0.f;
+      float s = 0.f, q = 0.f, ms = 0.f, mh = 0.f, iv = 0.f, xs = 0.f;
+      if (kMode == kInputGrad && row < Cout) {
+        ms = __ldg(msc + row), mh = __ldg(msh + row), iv = __ldg(inv + row);
+        xs = -(__ldg(mean + row) * iv);
+      }
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           if (oc[j][e] < 0 || row >= Cout) continue;
-          const bf16 yb = to_bf(acc[i][j][2 * hf + e]);
+          const long o = ((long)n * Cout + row) * S + oc[j][e];
+          float v = acc[i][j][2 * hf + e], av = 0.f;
+          if (kMode == kInputGrad) {
+            av = bf(a1[o]);
+            if (!(fmaf(av, ms, mh) > 0.f)) v = 0.f;
+          }
+          const bf16 yb = to_bf(v);
           const float yf = bf(yb);
-          y[((long)n * Cout + row) * S + oc[j][e]] = yb;
+          y[o] = yb;
           s += yf;
-          q = fmaf(yf, yf, q);
+          q = fmaf(yf, kMode == kInputGrad ? fmaf(av, iv, xs) : yf, q);
         }
       put_row<BM>(red, lr, 4 * wn + t, s, q);
     }
   store_row_partials<BM>(part, Cout, gridDim.x, m0, blockIdx.x, red);
 }
 
-template <int BM>
+template <int BM, int kMode>
 int launch_bm(const bf16* x, const bf16* taps, const float* sc,
-              const float* sh, bf16* y, float* part, int N, int Cin, int Cout,
-              int H, int W, int chunks, cudaStream_t s) {
+              const float* sh, const bf16* a1, const float* msc,
+              const float* msh, const float* inv, const float* mean, bf16* y,
+              float* part, int N, int Cin, int Cout, int H, int W, int chunks,
+              cudaStream_t s) {
   const int bytes = smem_bytes<BM>(W);
-  cudaFuncSetAttribute(conv3x3_bf16_kernel<BM>,
+  cudaFuncSetAttribute(conv3x3_bf16_kernel<BM, kMode>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   const dim3 grid((unsigned)(N * chunks), (unsigned)((Cout + BM - 1) / BM));
-  conv3x3_bf16_kernel<BM><<<grid, kThreads, bytes, s>>>(
-      x, taps, sc, sh, y, part, Cin, Cout, H, W, chunks);
+  conv3x3_bf16_kernel<BM, kMode><<<grid, kThreads, bytes, s>>>(
+      x, taps, sc, sh, a1, msc, msh, inv, mean, y, part, Cin, Cout, H, W,
+      chunks);
   return (int)cudaGetLastError();
+}
+
+template <int kMode>
+int launch(const bf16* x, const bf16* taps, const float* sc, const float* sh,
+           const bf16* a1, const float* msc, const float* msh,
+           const float* inv, const float* mean, bf16* y, float* part, int N,
+           int Cin, int Cout, int H, int W, int chunks, cudaStream_t s) {
+  return Cout <= 64 ? launch_bm<64, kMode>(x, taps, sc, sh, a1, msc, msh, inv,
+                                           mean, y, part, N, Cin, Cout, H, W,
+                                           chunks, s)
+                    : launch_bm<128, kMode>(x, taps, sc, sh, a1, msc, msh,
+                                            inv, mean, y, part, N, Cin, Cout,
+                                            H, W, chunks, s);
+}
+
+// The entry points' checks: Cin a multiple of 16, both widths within the
+// cap, T the column tiles of the padded grid, the block's shared memory.
+inline bool ok(int N, int Cin, int Cout, int H, int W, int T) {
+  const long chunks = ((long)H * (W + 2) + kBN - 1) / kBN;
+  return N > 0 && Cin > 0 && Cout > 0 && H > 0 && W > 0 && Cin % kBK == 0 &&
+         Cin <= kMaxC && Cout <= kMaxC && (long)N * chunks == (long)T &&
+         (long)H * (W + 2) <= INT_MAX / 2 &&
+         (Cout <= 64 ? smem_bytes<64>(W) : smem_bytes<128>(W)) <= 227 * 1024;
 }
 
 }  // namespace c3
@@ -673,6 +810,314 @@ int launch_bm(const bf16* x, const float* sc, const float* sh, float* part,
 
 }  // namespace mom
 
+namespace ab {
+
+constexpr int kBK = 32;
+constexpr int kP = kBK + 8;    // row pitch (bf16): 80 bytes
+// The backward's A · B^T over K = N * S, split: kReduce3: A = g3 =
+// dout * (out > 0), written out by the blocks of column tile 0, which add
+// sum g3 in column MB; B = h2 normalized as it lands. kTaps: A = da2, B =
+// h1 normalized as it lands at tap (dy, dx)'s shift of the position, 0
+// off the image; one tap a block. kDW1: A = da1, B = x.
+enum { kReduce3 = 0, kTaps = 1, kDW1 = 2 };
+
+struct Args {
+  const bf16* a;     // A's source [N, MA, S] (kReduce3: dout)
+  const bf16* mask;  // kReduce3: out [N, MA, S]
+  const bf16* b;     // B's source [N, MB, S]
+  const float* sc;   // B's normalize (kReduce3, kTaps), per row of B
+  const float* sh;
+  bf16* g3;          // kReduce3: g3 [N, MA, S]
+  float* part;       // [splits][taps][MA][ld], ld = MB + 1 (kReduce3) or MB
+  int N, MA, MB, S, W, pieces, splits, ntc;  // ntc: column tiles of MB
+};
+
+template <int BM, int BN>
+constexpr int smem_bytes() {
+  return 2 * (BM + BN) * kP * 2;  // two stages of A's and B's rows
+}
+
+template <int BM, int BN, int kMode, bool kWide>
+__global__ void __launch_bounds__(kThreads, 2)
+abt_bf16_kernel(const Args p) {
+  constexpr int MT = BM / 32, NT = BN / 32, RA = BM / 32, RB = BN / 32;
+  constexpr int ld_extra = kMode == kReduce3 ? 1 : 0;
+  extern __shared__ float4 smem4[];
+  bf16* As = reinterpret_cast<bf16*>(smem4);  // [2][BM][kP]
+  bf16* Bs = As + 2 * BM * kP;                // [2][BN][kP]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 1, wn = warp >> 1, g = lane >> 2, t = lane & 3;
+  const int MA = p.MA, MB = p.MB, S = p.S, W = p.W, ld = MB + ld_extra;
+  const int tiles = ((MA + BM - 1) / BM) * p.ntc;
+  const int tap = kMode == kTaps ? blockIdx.x / tiles : 0;
+  const int tile = blockIdx.x - tap * tiles;
+  const int rt = tile / p.ntc, ct = tile - rt * p.ntc;
+  const int ra = rt * BM, rb = ct * BN, split = blockIdx.y;
+  const bool first = kMode == kReduce3 && ct == 0;  // writes g3 and sum g3
+  const int dy = tap / 3 - 1, dx = tap % 3 - 1, H = S / W;
+  const long p0 = (long)split * p.pieces / p.splits;
+  const long p1 = (long)(split + 1) * p.pieces / p.splits;
+  const long NS = (long)p.N * S;
+  // this thread's loads: positions 4 pg .. 4 pg + 3 of a stage, of A's
+  // rows r0 + 32 i and B's rows r0 + 32 i
+  const int pg = tid & 7, r0 = tid >> 3;
+  uint2 xa[RA], xm[RA], xb[RB];
+  long oa[4], ob[4];   // offsets n * rows * S + s (+ the tap's shift), -1 out
+  float hsum[RA];
+#pragma unroll
+  for (int i = 0; i < RA; ++i) hsum[i] = 0.f;
+  auto read = [&](const bf16* src, const long (&o)[4], bool wide) {
+    if (wide)
+      return o[0] >= 0 ? __ldg(reinterpret_cast<const uint2*>(src + o[0]))
+                       : make_uint2(0u, 0u);
+    bf16 h[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) h[e] = o[e] >= 0 ? src[o[e]] : 0;
+    return make_uint2(pack(h[0], h[1]), pack(h[2], h[3]));
+  };
+  auto load = [&](long piece) {
+    const long j = piece * kBK + 4 * pg;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      oa[e] = col_off(j + e, NS, S, MA);
+      if (kMode == kTaps) {
+        ob[e] = -1;
+        if (oa[e] >= 0) {
+          const int sp = (int)((j + e) % S), y = sp / W, x = sp - y * W;
+          if (y + dy >= 0 && y + dy < H && x + dx >= 0 && x + dx < W)
+            ob[e] = col_off(j + e, NS, S, MB) + dy * W + dx;
+        }
+      } else {
+        ob[e] = col_off(j + e, NS, S, MB);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RA; ++i) {
+      const int r = ra + r0 + 32 * i;
+      xa[i] = xm[i] = make_uint2(0u, 0u);
+      if (r < MA) {
+        const long rs = (long)r * S;
+        const long o[4] = {oa[0] + rs, oa[1] + rs, oa[2] + rs, oa[3] + rs};
+        const long v[4] = {oa[0] >= 0 ? o[0] : -1, oa[1] >= 0 ? o[1] : -1,
+                           oa[2] >= 0 ? o[2] : -1, oa[3] >= 0 ? o[3] : -1};
+        xa[i] = read(p.a, v, kWide);
+        if (kMode == kReduce3) xm[i] = read(p.mask, v, kWide);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RB; ++i) {
+      const int r = rb + r0 + 32 * i;
+      xb[i] = make_uint2(0u, 0u);
+      if (r < MB) {
+        const long rs = (long)r * S;
+        const long v[4] = {ob[0] >= 0 ? ob[0] + rs : -1,
+                           ob[1] >= 0 ? ob[1] + rs : -1,
+                           ob[2] >= 0 ? ob[2] + rs : -1,
+                           ob[3] >= 0 ? ob[3] + rs : -1};
+        xb[i] = read(p.b, v, kWide && kMode != kTaps);
+      }
+    }
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < RA; ++i) {
+      uint2 v = xa[i];
+      if (kMode == kReduce3) {
+        // g3 = dout where out > 0, else 0 (0 past N * S and past MA)
+        bf16 o[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const uint32_t d = e < 2 ? v.x : v.y, m = e < 2 ? xm[i].x : xm[i].y;
+          const bf16 db = (bf16)((e & 1) ? d >> 16 : d & 0xffffu);
+          const bf16 mb = (bf16)((e & 1) ? m >> 16 : m & 0xffffu);
+          o[e] = bf(mb) > 0.f ? db : (bf16)0;
+        }
+        v = make_uint2(pack(o[0], o[1]), pack(o[2], o[3]));
+        const int r = ra + r0 + 32 * i;
+        if (first && r < MA) {
+          const long rs = (long)r * S;
+          if (kWide) {
+            if (oa[0] >= 0)
+              *reinterpret_cast<uint2*>(p.g3 + oa[0] + rs) = v;
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (oa[e] >= 0) p.g3[oa[e] + rs] = o[e];
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) hsum[i] += bf(o[e]);
+        }
+      }
+      *reinterpret_cast<uint2*>(As + (buf * BM + r0 + 32 * i) * kP + 4 * pg) =
+          v;
+    }
+#pragma unroll
+    for (int i = 0; i < RB; ++i) {
+      uint2 v = xb[i];
+      const int r = rb + r0 + 32 * i;
+      if (kMode != kDW1 && r < MB) {
+        const float sc = __ldg(p.sc + r), sh = __ldg(p.sh + r);
+        bf16 o[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const uint32_t w = e < 2 ? v.x : v.y;
+          // h = 0 where B has no value (past N * S, off the image)
+          o[e] = ob[e] >= 0
+                     ? norm_bf((bf16)((e & 1) ? w >> 16 : w & 0xffffu), sc, sh)
+                     : (bf16)0;
+        }
+        v = make_uint2(pack(o[0], o[1]), pack(o[2], o[3]));
+      }
+      *reinterpret_cast<uint2*>(Bs + (buf * BN + r0 + 32 * i) * kP + 4 * pg) =
+          v;
+    }
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  if (p0 < p1) load(p0);
+  for (long pc = p0; pc < p1; ++pc) {
+    const int buf = (int)((pc - p0) & 1);
+    store(buf);
+    __syncthreads();
+    if (pc + 1 < p1) load(pc + 1);
+    const bf16* a = As + (buf * BM + wm * (BM / 2)) * kP;
+    const bf16* b = Bs + (buf * BN + wn * (BN / 4)) * kP;
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16)
+      warp_k16<MT, NT, false>(acc, a + kk, kP, b + kk, kP);
+  }
+
+  float* P = p.part + ((long)split * (kMode == kTaps ? 9 : 1) + tap) * MA * ld;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = ra + wm * (BM / 2) + 16 * i + g + 8 * hf;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = rb + wn * (BN / 4) + 8 * j + 2 * t + e;
+          if (r < MA && c < MB) P[(long)r * ld + c] = acc[i][j][2 * hf + e];
+        }
+    }
+  if (first) {
+    // sum g3 of each row: its 8 threads' sums in position-group order
+    float* red = reinterpret_cast<float*>(smem4);  // [BM][8]
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < RA; ++i) red[(r0 + 32 * i) * 8 + pg] = hsum[i];
+    __syncthreads();
+    if (tid < BM && ra + tid < MA) {
+      float sum = 0.f;
+      for (int q = 0; q < 8; ++q) sum += red[tid * 8 + q];
+      P[(long)(ra + tid) * ld + MB] = sum;
+    }
+  }
+}
+
+template <int BM, int BN, int kMode, bool kWide>
+int launch_bm(Args p, int taps, cudaStream_t s) {
+  p.ntc = (p.MB + BN - 1) / BN;
+  p.pieces = (int)(((long)p.N * p.S + kBK - 1) / kBK);
+  const int tiles = ((p.MA + BM - 1) / BM) * p.ntc;
+  const dim3 grid((unsigned)(tiles * taps), (unsigned)p.splits);
+  abt_bf16_kernel<BM, BN, kMode, kWide><<<grid, kThreads,
+                                          smem_bytes<BM, BN>(), s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// The tiles: BM rows of A (64 where MA <= 64, else 128) by BN rows of B
+// (kReduce3, kTaps: 64 where MB <= 64, else 128; kDW1: 128).
+template <int kMode>
+int launch(const Args& p, int taps, int wide, cudaStream_t s) {
+  const bool a64 = p.MA <= 64, b64 = kMode != kDW1 && p.MB <= 64;
+#define AB_LAUNCH(BM, BN)                                           \
+  return wide ? launch_bm<BM, BN, kMode, true>(p, taps, s)          \
+              : launch_bm<BM, BN, kMode, false>(p, taps, s)
+  if constexpr (kMode == kReduce3) {
+    if (b64) AB_LAUNCH(128, 64);
+    AB_LAUNCH(128, 128);
+  } else if constexpr (kMode == kTaps) {
+    if (a64) AB_LAUNCH(64, 64);
+    AB_LAUNCH(128, 128);
+  } else {
+    if (a64) AB_LAUNCH(64, 128);
+    AB_LAUNCH(128, 128);
+  }
+#undef AB_LAUNCH
+}
+
+// The entry points' checks of a split product.
+inline bool ok(int N, int MA, int MB, int S, int splits) {
+  const long NS = (long)N * S;
+  return N > 0 && MA > 0 && MB > 0 && S > 0 && MA <= kMaxC && MB <= kMaxC &&
+         NS <= INT_MAX - kBK && splits > 0 && splits <= kMaxSplits &&
+         splits <= (NS + kBK - 1) / kBK;
+}
+
+}  // namespace ab
+
+// da = bf16(fma(g, p, a * q) + r) over [N, C, S], the folded BN backward
+// as XLA contracts the Pallas kernels' g * p + a * q + r; 4 elements a
+// thread where S % 4 == 0 (one channel), else 1.
+template <bool kWide>
+__global__ void __launch_bounds__(kThreads)
+fold_bf16_kernel(const bf16* __restrict__ g, const bf16* __restrict__ a,
+                 const float* __restrict__ p, const float* __restrict__ q,
+                 const float* __restrict__ r, bf16* __restrict__ da, long E,
+                 int C, int S) {
+  constexpr int V = kWide ? 4 : 1;
+  for (long i = ((long)blockIdx.x * kThreads + threadIdx.x) * V; i < E;
+       i += (long)gridDim.x * kThreads * V) {
+    const int c = (int)((i / S) % C);
+    const float pc = __ldg(p + c), qc = __ldg(q + c), rc = __ldg(r + c);
+    bf16 gv[4], av[4], o[4];
+    if constexpr (kWide) {
+      const uint2 gu = __ldg(reinterpret_cast<const uint2*>(g + i));
+      const uint2 au = __ldg(reinterpret_cast<const uint2*>(a + i));
+      const uint32_t gw[2] = {gu.x, gu.y}, aw[2] = {au.x, au.y};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        gv[e] = (bf16)((e & 1) ? gw[e >> 1] >> 16 : gw[e >> 1] & 0xffffu);
+        av[e] = (bf16)((e & 1) ? aw[e >> 1] >> 16 : aw[e >> 1] & 0xffffu);
+      }
+    } else {
+      gv[0] = g[i], av[0] = a[i];
+    }
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+      o[e] = to_bf(__fadd_rn(fmaf(bf(gv[e]), pc, __fmul_rn(bf(av[e]), qc)),
+                             rc));
+    if constexpr (kWide)
+      *reinterpret_cast<uint2*>(da + i) =
+          make_uint2(pack(o[0], o[1]), pack(o[2], o[3]));
+    else
+      da[i] = o[0];
+  }
+}
+
+int fold(const bf16* g, const bf16* a, const float* p, const float* q,
+         const float* r, bf16* da, int N, int C, int S, cudaStream_t s) {
+  const long E = (long)N * C * S;
+  const int wide = S % 4 == 0;
+  long blocks = (E / (wide ? 4 : 1) + kThreads - 1) / kThreads;
+  if (blocks > 65535L * 32) blocks = 65535L * 32;  // then a grid-stride loop
+  if (wide)
+    fold_bf16_kernel<true><<<(unsigned)blocks, kThreads, 0, s>>>(
+        g, a, p, q, r, da, E, C, S);
+  else
+    fold_bf16_kernel<false><<<(unsigned)blocks, kThreads, 0, s>>>(
+        g, a, p, q, r, da, E, C, S);
+  return (int)cudaGetLastError();
+}
+
 inline bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
@@ -690,13 +1135,14 @@ extern "C" int fused_block_conv1x1_stats_bf16(const bf16* x, const bf16* w,
                                               float* stats, int N, int Cin,
                                               int C, int S, int lda, int T,
                                               int wide, void* stream) {
-  if (!c1::ok(x, w, y, N, Cin, C, S, lda, wide) ||
+  const c1::Args a{x,       nullptr, w,       nullptr, nullptr, nullptr,
+                   nullptr, nullptr, nullptr, nullptr, y,       part,
+                   N,       Cin,     Cin,     C,       S,       lda};
+  if (!c1::ok(a, wide) ||
       (long)T != ((long)N * S + c1::kBN - 1) / c1::kBN)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int e = c1::launch<c1::kStats>(x, w, nullptr, nullptr, nullptr,
-                                       nullptr, nullptr, y, part, N, Cin, C,
-                                       S, lda, wide, s);
+  const int e = c1::launch<c1::kStats>(a, wide, s);
   if (e != 0) return e;
   return finish_stats(part, stats, C, T, s);
 }
@@ -708,20 +1154,13 @@ extern "C" int fused_block_conv3x3_norm_stats_bf16(
     const bf16* x, const bf16* taps, const float* scale, const float* shift,
     bf16* y, float* part, float* stats, int N, int Cin, int Cout, int H,
     int W, int T, void* stream) {
-  const int chunks = (int)(((long)H * (W + 2) + c3::kBN - 1) / c3::kBN);
-  const int bm = Cout <= 64 ? 64 : 128;
-  if (N <= 0 || Cin <= 0 || Cout <= 0 || H <= 0 || W <= 0 ||
-      Cin % c3::kBK || Cin > kMaxC || Cout > kMaxC ||
-      (long)N * chunks != (long)T || (long)H * (W + 2) > INT_MAX / 2 ||
-      (bm == 64 ? c3::smem_bytes<64>(W) : c3::smem_bytes<128>(W)) >
-          227 * 1024 ||
-      !aligned16(x) || !aligned16(taps) || !aligned16(y))
+  if (!c3::ok(N, Cin, Cout, H, W, T) || !aligned16(x) || !aligned16(taps) ||
+      !aligned16(y))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int e = bm == 64 ? c3::launch_bm<64>(x, taps, scale, shift, y, part,
-                                             N, Cin, Cout, H, W, chunks, s)
-                         : c3::launch_bm<128>(x, taps, scale, shift, y, part,
-                                              N, Cin, Cout, H, W, chunks, s);
+  const int e = c3::launch<c3::kNormStats>(
+      x, taps, scale, shift, nullptr, nullptr, nullptr, nullptr, nullptr, y,
+      part, N, Cin, Cout, H, W, T / N, s);
   if (e != 0) return e;
   return finish_stats(part, stats, Cout, T, s);
 }
@@ -763,11 +1202,110 @@ extern "C" int fused_block_conv1x1_bn_residual_bf16(
     const bf16* a2, const bf16* x, const bf16* w, const float* sc2,
     const float* sh2, const float* sc3, const float* sh3, bf16* out, int N,
     int C, int Cout, int S, int lda, int wide, void* stream) {
-  if (!c1::ok(a2, w, out, N, C, Cout, S, lda, wide) || !aligned16(x))
+  const c1::Args a{nullptr, a2,  w,       sc2,     sh2,     x,
+                   sc3,     sh3, nullptr, nullptr, out,     nullptr,
+                   N,       0,   C,       Cout,    S,       lda};
+  if (!c1::ok(a, wide) || !aligned16(x)) return (int)cudaErrorInvalidValue;
+  return c1::launch<c1::kResidual>(a, wide, static_cast<cudaStream_t>(stream));
+}
+
+// dout, out [N, Cin, S], a2 [N, C, S] raw, sc2/sh2 [C] float32; g3 [N,
+// Cin, S]; part [splits, Cin, C + 1] scratch, red [Cin, C + 1] float32: P
+// = sum g3 h2^T in columns 0..C-1, sum g3 in column C. Split p takes the
+// 32-position pieces [p * P / splits, (p + 1) * P / splits) of N * S;
+// wide: S % 4 == 0.
+extern "C" int fused_block_bwd_reduce3_bf16(
+    const bf16* dout, const bf16* out, const bf16* a2, const float* sc2,
+    const float* sh2, bf16* g3, float* part, float* red, int N, int Cin,
+    int C, int S, int splits, int wide, void* stream) {
+  if (!ab::ok(N, Cin, C, S, splits) || (wide && S % 4) || !aligned16(dout) ||
+      !aligned16(out) || !aligned16(a2) || !aligned16(g3))
     return (int)cudaErrorInvalidValue;
-  return c1::launch<c1::kResidual>(a2, w, sc2, sh2, x, sc3, sh3, out, nullptr,
-                                   N, C, Cout, S, lda, wide,
-                                   static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const ab::Args p{dout, out, a2, sc2, sh2, g3, part, N, Cin, C, S, 1, 0,
+                   splits, 0};
+  const int e = ab::launch<ab::kReduce3>(p, 1, wide, s);
+  if (e != 0) return e;
+  return finish_splits(part, red, (long)Cin * (C + 1), splits, s);
+}
+
+// g3 [N, Cin, S], a2 [N, C, S] raw; w [rows, lda]: [amat | bmat] [C, Cin +
+// C] at row pitch lda (a multiple of 32 >= Cin + C), its rows whole row
+// tiles (64 where C <= 64, else 128), zeros past C and Cin + C; sc2, sh2,
+// v0, inv2, m2 [C] float32; g2 [N, C, S]; part [2, C, T] scratch, stats [2,
+// C] (sum g2, sum g2 x^2 of the rounded g2); T = ceil(N * S / 128); wide: S
+// % 4 == 0.
+extern "C" int fused_block_bwd_apply3_bf16(
+    const bf16* g3, const bf16* a2, const float* sc2, const float* sh2,
+    const bf16* w, const float* v0, const float* inv2, const float* m2,
+    bf16* g2, float* part, float* stats, int N, int Cin, int C, int S,
+    int lda, int T, int wide, void* stream) {
+  const c1::Args a{g3,  a2,   w,  sc2, sh2, a2,  v0, nullptr, inv2,
+                   m2,  g2,   part, N,   Cin, Cin + C, C, S,    lda};
+  if (!c1::ok(a, wide) || (long)T != ((long)N * S + c1::kBN - 1) / c1::kBN)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int e = c1::launch<c1::kApply3>(a, wide, s);
+  if (e != 0) return e;
+  return finish_stats(part, stats, C, T, s);
+}
+
+// g2, a2, a1 [N, C, H*W]; sc1, sh1, p2, q2, r2, inv1, m1 [C] float32;
+// taps_t [9, C, C] the taps flipped and transposed (taps_t[t] = taps[8 -
+// t]^T); da2 [N, C, H*W] scratch; g1 [N, C, H*W]; part [2, C, T], stats
+// [2, C] (sum g1, sum g1 x^1); wpart [splits, 9, C, C] scratch, dtaps [9,
+// C, C] float32. C % 16 == 0; T = N * ceil(H * (W + 2) / 128).
+extern "C" int fused_block_bwd_mid_bf16(
+    const bf16* g2, const bf16* a2, const bf16* a1, const float* sc1,
+    const float* sh1, const float* p2, const float* q2, const float* r2,
+    const float* inv1, const float* m1, const bf16* taps_t, bf16* da2,
+    bf16* g1, float* part, float* stats, float* wpart, float* dtaps, int N,
+    int C, int H, int W, int T, int splits, void* stream) {
+  if (!c3::ok(N, C, C, H, W, T) || !ab::ok(N, C, C, H * W, splits) ||
+      !aligned16(g2) || !aligned16(a2) || !aligned16(a1) ||
+      !aligned16(taps_t) || !aligned16(da2) || !aligned16(g1))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int e = fold(g2, a2, p2, q2, r2, da2, N, C, H * W, s);
+  if (e != 0) return e;
+  e = c3::launch<c3::kInputGrad>(da2, taps_t, nullptr, nullptr, a1, sc1, sh1,
+                                 inv1, m1, g1, part, N, C, C, H, W, T / N, s);
+  if (e != 0) return e;
+  e = finish_stats(part, stats, C, T, s);
+  if (e != 0) return e;
+  const ab::Args p{da2, nullptr, a1, sc1, sh1, nullptr, wpart, N, C, C,
+                   H * W, W, 0, splits, 0};
+  e = ab::launch<ab::kTaps>(p, 9, H * W % 4 == 0, s);
+  if (e != 0) return e;
+  return finish_splits(wpart, dtaps, 9L * C * C, splits, s);
+}
+
+// g3, x [N, Cin, S], g1, a1 [N, C, S], p1, q1, r1 [C] float32; w [rows,
+// lda]: W1^T [Cin, C] at row pitch lda (a multiple of 32 >= C), its rows
+// whole row tiles (64 where Cin <= 64, else 128), zeros past Cin and C;
+// dx [N, Cin, S]; da1 [N, C, S] scratch; wpart [splits, C, Cin] scratch,
+// dw1 [C, Cin] float32; wide: S % 4 == 0.
+extern "C" int fused_block_bwd_final_bf16(
+    const bf16* g3, const bf16* g1, const bf16* a1, const bf16* x,
+    const float* p1, const float* q1, const float* r1, const bf16* w,
+    bf16* dx, bf16* da1, float* wpart, float* dw1, int N, int Cin, int C,
+    int S, int lda, int splits, int wide, void* stream) {
+  const c1::Args a{da1,     nullptr, w,       nullptr, nullptr, g3,
+                   nullptr, nullptr, nullptr, nullptr, dx,      nullptr,
+                   N,       C,       C,       Cin,     S,       lda};
+  if (!c1::ok(a, wide) || !ab::ok(N, C, Cin, S, splits) || !aligned16(g3) ||
+      !aligned16(g1) || !aligned16(a1) || !aligned16(x))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int e = fold(g1, a1, p1, q1, r1, da1, N, C, S, s);
+  if (e != 0) return e;
+  e = c1::launch<c1::kDx>(a, wide, s);
+  if (e != 0) return e;
+  const ab::Args p{da1, nullptr, x, nullptr, nullptr, nullptr, wpart, N, C,
+                   Cin, S, 1, 0, splits, 0};
+  e = ab::launch<ab::kDW1>(p, 1, wide, s);
+  if (e != 0) return e;
+  return finish_splits(wpart, dw1, (long)C * Cin, splits, s);
 }
 
 // The widest C the bf16 kernels take: the chain's gate in bf16.

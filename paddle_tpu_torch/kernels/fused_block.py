@@ -41,16 +41,19 @@ replaces the Pallas kernel of its name:
   ``bwd_reduce3`` (``_b1a_kernel``), ``bwd_apply3`` (``_b1b_kernel``),
   ``bwd_mid`` (``_b2_kernel``), ``bwd_final`` (``_b3_kernel``).
 
-The forward four have bfloat16 versions, written by hand in
+All eight have bfloat16 versions, written by hand in
 ``csrc/fused_block_bf16.cu`` (bf16 ``mma.sync`` products summed in
-float32, y rounded once, the sums of the rounded y, h rounded to bf16
-before its products, a3 float32 through bn3's affine):
-``conv1x1_stats_bf16``, ``conv3x3_norm_stats_bf16``,
+float32, each bf16 output rounded once, the sums of the rounded values,
+h rounded to bf16 before its products, a3 float32 through bn3's
+affine): ``conv1x1_stats_bf16``, ``conv3x3_norm_stats_bf16``,
 ``norm_relu_moments_bf16``, ``conv1x1_bn_residual_bf16``, which
-``bottleneck_rest_fwd`` takes on a bf16 x. The backward four are float32
-only. The plain versions round where the Pallas kernels round, on any
-dtype: bf16 operands widened to float32 (their products are exact),
-float32 sums, one rounding of y, the affines one fused multiply-add.
+``bottleneck_rest_fwd`` takes on a bf16 x, and ``bwd_reduce3_bf16``,
+``bwd_apply3_bf16``, ``bwd_mid_bf16``, ``bwd_final_bf16``, which
+``bottleneck_rest_bwd`` takes on a bf16 x. The plain versions round
+where the Pallas kernels round, on any dtype: bf16 operands widened to
+float32 (their products are exact), float32 sums, one rounding of each
+bf16 output; on bf16 the affines as XLA contracts them (the normalize
+one fused multiply-add, the folded BN backward fma(g, p, a·q) + r).
 
 Each wrapper runs its plain version (``*_reference``) only for tensors
 on the CPU; for a CUDA tensor it launches its kernel or raises, and
@@ -82,7 +85,8 @@ __all__ = ["EPS_DEFAULT", "conv1x1_stats_reference",
            "bwd_final_reference", "conv1x1_stats", "conv3x3_norm_stats",
            "norm_relu_moments", "conv1x1_bn_residual", "conv1x1_stats_bf16",
            "conv3x3_norm_stats_bf16", "norm_relu_moments_bf16",
-           "conv1x1_bn_residual_bf16", "bwd_reduce3",
+           "conv1x1_bn_residual_bf16", "bwd_reduce3_bf16", "bwd_apply3_bf16",
+           "bwd_mid_bf16", "bwd_final_bf16", "bwd_reduce3",
            "bwd_apply3", "bwd_mid", "bwd_final", "bottleneck_rest_fwd",
            "bottleneck_rest_bwd", "FusedBottleneckRest",
            "fused_bottleneck_rest"]
@@ -180,6 +184,31 @@ def conv1x1_bn_residual_reference(x: torch.Tensor, residual: torch.Tensor,
 # plain versions of the backward kernels
 # ---------------------------------------------------------------------------
 
+def _affine(a: torch.Tensor, scale: torch.Tensor,
+            shift: torch.Tensor) -> torch.Tensor:
+    """a·scale_c + shift_c in float32 (a widened). On bfloat16 a, one fused
+    multiply-add, as XLA contracts the Pallas kernels' product and sum
+    and as the bf16 kernels compute it; on float32 a, the product rounded
+    and then the sum, as the float32 kernels' masks take it
+    (csrc/fused_block.cuh, ``positive``), so that both zero the same
+    elements."""
+    if a.dtype == torch.bfloat16:
+        return torch.addcmul(_col(shift), a.float(), _col(scale))
+    return a.float() * _col(scale) + _col(shift)
+
+
+def _unfold(g: torch.Tensor, a: torch.Tensor, p: torch.Tensor,
+            q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """da = g·p + a·q + r in float32, the folded BN backward. On bfloat16
+    operands as XLA contracts the Pallas kernels' sum: a·q rounded, g·p
+    added to it in one fused multiply-add, then r added; on float32, each
+    product and sum rounded in turn."""
+    gf, af = g.float(), a.float()
+    if a.dtype == torch.bfloat16:
+        return torch.addcmul(af * _col(q), gf, _col(p)) + _col(r)
+    return gf * _col(p) + af * _col(q) + _col(r)
+
+
 def bwd_reduce3_reference(dout, out, a2, scale2, shift2):
     """g3 = dout·(out > 0), P = Σ_n g3 h2ᵀ [Cin, C], Σg3 [Cin]."""
     g3 = torch.where(out > 0, dout, torch.zeros_like(dout))
@@ -189,29 +218,31 @@ def bwd_reduce3_reference(dout, out, a2, scale2, shift2):
 
 
 def bwd_apply3_reference(g3, a2, scale2, shift2, amat, bmat, v0, inv2, m2):
-    """g2 = (A·g3 + B·h2 + v0)·(h2 > 0) and bn2's Σg2, Σg2·x̂2."""
-    a2f = a2.float()
-    h2f = torch.clamp_min(a2f * _col(scale2) + _col(shift2), 0.0)
+    """g2 = (A·g3 + B·h2 + v0)·(h2 > 0) and bn2's Σg2, Σg2·x̂2. h2 is
+    rounded to a2's dtype before its product, g2 rounded once, the sums
+    of the rounded g2 (``_b1b_kernel``)."""
+    h2f = torch.clamp_min(_affine(a2, scale2, shift2), 0.0)
     dh2 = (torch.matmul(amat.float(), g3.float())
            + torch.matmul(bmat.float(), h2f.to(a2.dtype).float()) + _col(v0))
     g2 = torch.where(h2f > 0, dh2, torch.zeros_like(dh2)).to(g3.dtype)
     g2f = g2.float()
-    xhat2 = a2f * _col(inv2) + _col(-m2 * inv2)
+    xhat2 = _affine(a2, inv2, -m2 * inv2)
     return g2, g2f.sum(dim=(0, 2)), (g2f * xhat2).sum(dim=(0, 2))
 
 
 def bwd_mid_reference(g2, a2, a1, scale1, shift1, p2, q2, r2, inv1, m1,
                       taps, h_side):
-    """da2 = g2·p2 + a2·q2 + r2 (bn2 folded); the 3x3's input gradient dh1
-    and its nine tap gradients; g1 = dh1·(h1 > 0) and bn1's Σg1, Σg1·x̂1.
-    Returns (g1 [N, C, S], dtaps [9, Cout, Cin], Σg1, Σg1·x̂1)."""
+    """da2 = g2·p2 + a2·q2 + r2 (bn2 folded), rounded to a1's dtype; the
+    3x3's input gradient dh1 and its nine tap gradients against h1
+    rounded to a1's dtype; g1 = dh1·(h1 > 0) rounded once, and bn1's Σg1,
+    Σg1·x̂1 of the rounded g1 (``_b2_kernel``). Returns (g1 [N, C, S],
+    dtaps [9, Cout, Cin], Σg1, Σg1·x̂1)."""
     n, cout, s = g2.shape
     cin = taps.shape[2]
     w_side = s // h_side
-    a1f = a1.float()
-    da2 = (g2.float() * _col(p2) + a2.float() * _col(q2) + _col(r2))
+    da2 = _unfold(g2, a2, p2, q2, r2)
     da2 = da2.to(a1.dtype).float().reshape(n, cout, h_side, w_side)
-    h1f = torch.clamp_min(a1f * _col(scale1) + _col(shift1), 0.0)
+    h1f = torch.clamp_min(_affine(a1, scale1, shift1), 0.0)
     h1 = h1f.to(a1.dtype).float().reshape(n, cin, h_side, w_side)
     w2 = taps.float().reshape(3, 3, cout, cin).permute(2, 3, 0, 1)
     dh1 = F.conv_transpose2d(da2, w2, padding=1).reshape(n, cin, s)
@@ -219,14 +250,14 @@ def bwd_mid_reference(g2, a2, a1, scale1, shift1, p2, q2, r2, inv1, m1,
     dtaps = dw2.permute(2, 3, 0, 1).reshape(9, cout, cin)
     g1 = torch.where(h1f > 0, dh1, torch.zeros_like(dh1)).to(g2.dtype)
     g1f = g1.float()
-    xhat1 = a1f * _col(inv1) + _col(-m1 * inv1)
+    xhat1 = _affine(a1, inv1, -m1 * inv1)
     return g1, dtaps, g1f.sum(dim=(0, 2)), (g1f * xhat1).sum(dim=(0, 2))
 
 
 def bwd_final_reference(g3, g1, a1, x, p1, q1, r1, w1):
-    """da1 = g1·p1 + a1·q1 + r1; dx = W1ᵀ·da1 + g3; dW1 = Σ_n da1 xᵀ."""
-    da1 = g1.float() * _col(p1) + a1.float() * _col(q1) + _col(r1)
-    da1 = da1.to(a1.dtype).float()
+    """da1 = g1·p1 + a1·q1 + r1, rounded to a1's dtype; dx = W1ᵀ·da1 + g3
+    in float32, rounded once; dW1 = Σ_n da1 xᵀ (``_b3_kernel``)."""
+    da1 = _unfold(g1, a1, p1, q1, r1).to(a1.dtype).float()
     dx = torch.matmul(w1.float().T, da1) + g3.float()
     return dx.to(g3.dtype), torch.einsum("ncs,nks->ck", da1, x.float())
 
@@ -630,6 +661,13 @@ def _bf_widths(**widths) -> None:
                              f"most {cap}")
 
 
+def _bf_ns(n: int, s: int) -> None:
+    """Refuse more positions N·S than the products over N·S take."""
+    if n * s > _MOM_MAX_NS:
+        raise ValueError(f"N·S = {n * s}: the kernel takes at most "
+                         f"{_MOM_MAX_NS} positions")
+
+
 def _bf_weight(w: torch.Tensor) -> Tuple[torch.Tensor, int]:
     """(w [M, K] as a 1x1 kernel reads it: [rows, lda] with rows whole row
     tiles (64 where M <= 64, else 128) and lda = K in whole 32-row stages,
@@ -727,14 +765,31 @@ def conv3x3_norm_stats_bf16(x: torch.Tensor, taps: torch.Tensor,
 conv3x3_norm_stats_bf16.launches = 0
 
 
+def _bf_splits(blocks: int, n: int, s: int, sms: int) -> int:
+    """The splits of N·S's 32-position pieces of a bf16 product over K =
+    N·S whose splits have `blocks` blocks each: enough to fill two blocks
+    an SM, at most one a piece and at most 128."""
+    return max(1, min(-(-n * s // _BF_BK), _BF_SPLITS, -(-2 * sms // blocks)))
+
+
 def _bf_moments_splits(n: int, s: int, c: int, sms: int) -> int:
     """The splits of norm_relu_moments_bf16: each tile of M2's upper
     triangle (64 x 64 where C <= 64, else 128 x 128) by `splits` runs of
-    N·S's 32-position pieces; enough to fill two blocks an SM, at most
-    one a piece and at most 128."""
+    N·S's 32-position pieces (``_bf_splits``)."""
     nt = -(-c // (64 if c <= 64 else 128))
-    tiles, pieces = nt * (nt + 1) // 2, -(-n * s // _BF_BK)
-    return max(1, min(pieces, _BF_SPLITS, -(-2 * sms // tiles)))
+    return _bf_splits(nt * (nt + 1) // 2, n, s, sms)
+
+
+def _bf_abt_blocks(kind: str, ma: int, mb: int) -> int:
+    """The blocks of a split of the bf16 backward's products A·Bᵀ over N·S
+    (csrc/fused_block_bf16.cu, ab::launch): A's ma rows in tiles of 64
+    where ma <= 64, else 128 (bwd_reduce3's g3: 128), by B's mb rows in
+    tiles of 64 where mb <= 64, else 128 (bwd_final's x: 128); the tap
+    gradients ("taps") a tile of each of the nine taps."""
+    bm = 64 if kind != "reduce3" and ma <= 64 else 128
+    bn = 128 if kind == "dw1" or mb > 64 else 64
+    tiles = -(-ma // bm) * -(-mb // bn)
+    return 9 * tiles if kind == "taps" else tiles
 
 
 def norm_relu_moments_bf16(x: torch.Tensor, scale: torch.Tensor,
@@ -753,9 +808,7 @@ def norm_relu_moments_bf16(x: torch.Tensor, scale: torch.Tensor,
     n, c, s = x.shape
     if n * c * s == 0:
         raise ValueError(f"x {tuple(x.shape)} is empty")
-    if n * s > _MOM_MAX_NS:
-        raise ValueError(f"N·S = {n * s}: the kernel takes at most "
-                         f"{_MOM_MAX_NS} positions")
+    _bf_ns(n, s)
     _bf_check("x", x, x.device, (n, c, s))
     _vectors(x.device, c, scale=scale, shift=shift)
     _bf_widths(C=c)
@@ -817,6 +870,196 @@ def conv1x1_bn_residual_bf16(x: torch.Tensor, residual: torch.Tensor,
 
 
 conv1x1_bn_residual_bf16.launches = 0
+
+
+def bwd_reduce3_bf16(dout, out, a2, scale2, shift2):
+    """``bwd_reduce3`` in bfloat16: dout, out [N, Cin, S] and a2 [N, C, S]
+    bf16, scale2/shift2 [C] float32 -> (g3 [N, Cin, S] bf16, P [Cin, C],
+    Σg3 [Cin] float32).
+
+    CPU tensors run ``bwd_reduce3_reference``. CUDA tensors run the
+    kernel: bf16, contiguous, 16-byte aligned, Cin and C at most the
+    kernels' cap; g3 exact, h2 rounded to bf16 as it lands, P's bf16
+    products summed in float32 over splits of N·S (``_bf_splits``) added
+    in a fixed order (deterministic)."""
+    if not build.on_card("bwd_reduce3_bf16", dout):
+        return bwd_reduce3_reference(dout, out, a2, scale2, shift2)
+    _dims("dout", dout, 3)
+    _dims("a2", a2, 3)
+    n, cin, s = dout.shape
+    c = a2.shape[1]
+    dev = dout.device
+    _bf_check("dout", dout, dev, (n, cin, s))
+    _bf_check("out", out, dev, (n, cin, s))
+    _bf_check("a2", a2, dev, (n, c, s))
+    _vectors(dev, c, scale2=scale2, shift2=shift2)
+    _bf_widths(Cin=cin, C=c)
+    _bf_ns(n, s)
+    splits = _bf_splits(_bf_abt_blocks("reduce3", cin, c), n, s,
+                        build.sm_count(dev))
+    g3 = _bf_empty(dev, n, cin, s)
+    part, red = _empty(dev, splits, cin, c + 1), _empty(dev, cin, c + 1)
+    with build.device_guard(dev):
+        build.launch("bwd_reduce3_bf16",
+                     _bf_fn("fused_block_bwd_reduce3_bf16",
+                            (_P,) * 8 + (_I,) * 6 + (_P,)),
+                     dout.data_ptr(), out.data_ptr(), a2.data_ptr(),
+                     scale2.data_ptr(), shift2.data_ptr(), g3.data_ptr(),
+                     part.data_ptr(), red.data_ptr(), n, cin, c, s, splits,
+                     int(s % 4 == 0), build.stream(dev))
+    bwd_reduce3_bf16.launches += 1
+    return g3, red[:, :c], red[:, c]
+
+
+bwd_reduce3_bf16.launches = 0
+
+
+def bwd_apply3_bf16(g3, a2, scale2, shift2, amat, bmat, v0, inv2, m2):
+    """``bwd_apply3`` in bfloat16: g3 [N, Cin, S], a2 [N, C, S], amat [C,
+    Cin] and bmat [C, C] bf16, the [C] vectors float32 -> (g2 [N, C, S]
+    bf16, Σg2, Σg2·x̂2 [C] float32).
+
+    CPU tensors run ``bwd_apply3_reference``. CUDA tensors run the kernel
+    (one product [amat | bmat]·[g3; h2], h2 rounded to bf16 as it lands):
+    bf16, contiguous, 16-byte aligned, Cin and C at most the kernels' cap;
+    g2 rounded once where h2 > 0, deterministic sums of the rounded g2."""
+    if not build.on_card("bwd_apply3_bf16", g3):
+        return bwd_apply3_reference(g3, a2, scale2, shift2, amat, bmat, v0,
+                                    inv2, m2)
+    _dims("g3", g3, 3)
+    _dims("a2", a2, 3)
+    n, cin, s = g3.shape
+    c = a2.shape[1]
+    dev = g3.device
+    _bf_check("g3", g3, dev, (n, cin, s))
+    _bf_check("a2", a2, dev, (n, c, s))
+    _bf_check("amat", amat, dev, (c, cin))
+    _bf_check("bmat", bmat, dev, (c, c))
+    _vectors(dev, c, scale2=scale2, shift2=shift2, v0=v0, inv2=inv2, m2=m2)
+    _bf_widths(Cin=cin, C=c)
+    t = -(-n * s // _BF_BN)
+    stacked, lda = _bf_weight(torch.cat([amat, bmat], 1))
+    g2 = _bf_empty(dev, n, c, s)
+    part, stats = _empty(dev, 2, c, t), _empty(dev, 2, c)
+    with build.device_guard(dev):
+        build.launch("bwd_apply3_bf16",
+                     _bf_fn("fused_block_bwd_apply3_bf16",
+                            (_P,) * 11 + (_I,) * 7 + (_P,)),
+                     g3.data_ptr(), a2.data_ptr(), scale2.data_ptr(),
+                     shift2.data_ptr(), stacked.data_ptr(), v0.data_ptr(),
+                     inv2.data_ptr(), m2.data_ptr(), g2.data_ptr(),
+                     part.data_ptr(), stats.data_ptr(), n, cin, c, s, lda, t,
+                     int(s % 4 == 0), build.stream(dev))
+    bwd_apply3_bf16.launches += 1
+    return g2, stats[0], stats[1]
+
+
+bwd_apply3_bf16.launches = 0
+
+
+def bwd_mid_bf16(g2, a2, a1, scale1, shift1, p2, q2, r2, inv1, m1, taps,
+                 h_side):
+    """``bwd_mid`` in bfloat16: g2, a2, a1 [N, C, S] and taps [9, C, C]
+    bf16, the [C] vectors float32 -> (g1 [N, C, S] bf16, dtaps [9, C, C],
+    Σg1, Σg1·x̂1 [C] float32).
+
+    CPU tensors run ``bwd_mid_reference``. CUDA tensors run the kernels
+    (da2 rounded once into a scratch; the input gradient, the 3x3 over
+    da2 with the taps flipped and transposed, g1 rounded once where h1 >
+    0; the tap gradients of da2 against h1 rounded to bf16 as it lands,
+    split by ``_bf_splits``): bf16, contiguous, 16-byte aligned, C a
+    multiple of 16 and at most the kernels' cap, S = h_side · (S //
+    h_side); deterministic sums."""
+    if not build.on_card("bwd_mid_bf16", g2):
+        return bwd_mid_reference(g2, a2, a1, scale1, shift1, p2, q2, r2,
+                                 inv1, m1, taps, h_side)
+    _dims("g2", g2, 3)
+    n, c, s = g2.shape
+    if h_side <= 0 or s % h_side:
+        raise ValueError(f"S = {s} is not h_side = {h_side} rows")
+    if c % _BF_C3K:
+        raise ValueError(f"C = {c}: the kernel takes a multiple of "
+                         f"{_BF_C3K}")
+    dev = g2.device
+    for name, t in (("g2", g2), ("a2", a2), ("a1", a1)):
+        _bf_check(name, t, dev, (n, c, s))
+    _bf_check("taps", taps, dev, (9, c, c))
+    _vectors(dev, c, scale1=scale1, shift1=shift1, p2=p2, q2=q2, r2=r2,
+             inv1=inv1, m1=m1)
+    _bf_widths(C=c)
+    _bf_ns(n, s)
+    w_side = s // h_side
+    t = n * -(-h_side * (w_side + 2) // _BF_BN)
+    splits = _bf_splits(_bf_abt_blocks("taps", c, c), n, s,
+                        build.sm_count(dev))
+    # the input gradient's taps: taps_t[t] = taps[8 - t]ᵀ (a fresh tensor,
+    # 16-byte aligned)
+    taps_t = taps.flip(0).transpose(1, 2).contiguous()
+    da2, g1 = _bf_empty(dev, n, c, s), _bf_empty(dev, n, c, s)
+    part, stats = _empty(dev, 2, c, t), _empty(dev, 2, c)
+    wpart, dtaps = _empty(dev, splits, 9, c, c), _empty(dev, 9, c, c)
+    with build.device_guard(dev):
+        build.launch("bwd_mid_bf16",
+                     _bf_fn("fused_block_bwd_mid_bf16",
+                            (_P,) * 17 + (_I,) * 6 + (_P,)),
+                     g2.data_ptr(), a2.data_ptr(), a1.data_ptr(),
+                     scale1.data_ptr(), shift1.data_ptr(), p2.data_ptr(),
+                     q2.data_ptr(), r2.data_ptr(), inv1.data_ptr(),
+                     m1.data_ptr(), taps_t.data_ptr(), da2.data_ptr(),
+                     g1.data_ptr(), part.data_ptr(), stats.data_ptr(),
+                     wpart.data_ptr(), dtaps.data_ptr(), n, c, h_side,
+                     w_side, t, splits, build.stream(dev))
+    bwd_mid_bf16.launches += 1
+    return g1, dtaps, stats[0], stats[1]
+
+
+bwd_mid_bf16.launches = 0
+
+
+def bwd_final_bf16(g3, g1, a1, x, p1, q1, r1, w1):
+    """``bwd_final`` in bfloat16: g3, x [N, Cin, S], g1, a1 [N, C, S] and
+    w1 [C, Cin] bf16, p1/q1/r1 [C] float32 -> (dx [N, Cin, S] bf16, dW1
+    [C, Cin] float32).
+
+    CPU tensors run ``bwd_final_reference``. CUDA tensors run the kernels
+    (da1 rounded once into a scratch; dx = W1ᵀ·da1 + g3 rounded once; dW1
+    split across blocks by ``_bf_splits``): bf16, contiguous, 16-byte
+    aligned, Cin and C at most the kernels' cap; deterministic sums."""
+    if not build.on_card("bwd_final_bf16", g3):
+        return bwd_final_reference(g3, g1, a1, x, p1, q1, r1, w1)
+    _dims("g3", g3, 3)
+    _dims("g1", g1, 3)
+    n, cin, s = g3.shape
+    c = g1.shape[1]
+    dev = g3.device
+    _bf_check("g3", g3, dev, (n, cin, s))
+    _bf_check("x", x, dev, (n, cin, s))
+    _bf_check("g1", g1, dev, (n, c, s))
+    _bf_check("a1", a1, dev, (n, c, s))
+    _bf_check("w1", w1, dev, (c, cin))
+    _vectors(dev, c, p1=p1, q1=q1, r1=r1)
+    _bf_widths(Cin=cin, C=c)
+    _bf_ns(n, s)
+    splits = _bf_splits(_bf_abt_blocks("dw1", c, cin), n, s,
+                        build.sm_count(dev))
+    w1t, lda = _bf_weight(w1.t().contiguous())
+    dx, da1 = _bf_empty(dev, n, cin, s), _bf_empty(dev, n, c, s)
+    wpart, dw1 = _empty(dev, splits, c, cin), _empty(dev, c, cin)
+    with build.device_guard(dev):
+        build.launch("bwd_final_bf16",
+                     _bf_fn("fused_block_bwd_final_bf16",
+                            (_P,) * 12 + (_I,) * 7 + (_P,)),
+                     g3.data_ptr(), g1.data_ptr(), a1.data_ptr(),
+                     x.data_ptr(), p1.data_ptr(), q1.data_ptr(),
+                     r1.data_ptr(), w1t.data_ptr(), dx.data_ptr(),
+                     da1.data_ptr(), wpart.data_ptr(), dw1.data_ptr(), n,
+                     cin, c, s, lda, splits, int(s % 4 == 0),
+                     build.stream(dev))
+    bwd_final_bf16.launches += 1
+    return dx, dw1
+
+
+bwd_final_bf16.launches = 0
 
 
 _R3_BM = 128   # rows of Cin of a bwd_reduce3 tile (reduce3::kBM)
@@ -1111,11 +1354,18 @@ def bottleneck_rest_bwd(res, dout, stat_cots, h_side, eps=EPS_DEFAULT):
     """The chain's backward from the forward's residuals res = (x, a1, a2,
     out, w1, taps, w3, γ1, γ2, γ3, m1, v1, m2, v2, m3, v3, Σh2, M2, sc1,
     sh1, sc2, sh2) and the cotangents of out and of the six batch stats.
-    Returns (dx, dW1, dtaps, dW3, dγ1, dβ1, dγ2, dβ2, dγ3, dβ3)."""
+    Returns (dx, dW1, dtaps, dW3, dγ1, dβ1, dγ2, dβ2, dγ3, dβ3). A
+    bfloat16 x (with bfloat16 filters) takes the bfloat16 kernels; the BN
+    folds stay float32, as the JAX package keeps them."""
     (x, a1, a2, out, w1, taps, w3, gam1, gam2, gam3,
      m1, v1, m2, v2, m3, v3, sum_h_raw, m2_raw, sc1, sh1, sc2, sh2) = res
     n, _, s = x.shape
     m_count = float(n * s)
+    if x.dtype == torch.bfloat16:
+        k1, k2, k3, k4 = (bwd_reduce3_bf16, bwd_apply3_bf16, bwd_mid_bf16,
+                          bwd_final_bf16)
+    else:
+        k1, k2, k3, k4 = bwd_reduce3, bwd_apply3, bwd_mid, bwd_final
     gm1, gv1, gm2, gv2, gm3, gv3 = [t.float() for t in stat_cots]
     inv1 = torch.rsqrt(v1 + eps)
     inv2 = torch.rsqrt(v2 + eps)
@@ -1123,7 +1373,7 @@ def bottleneck_rest_bwd(res, dout, stat_cots, h_side, eps=EPS_DEFAULT):
     w3f = w3.float()
 
     # bn3, analytic: a3 never existed
-    g3t, p_mat, sum_g3 = bwd_reduce3(dout, out, a2, sc2, sh2)
+    g3t, p_mat, sum_g3 = k1(dout, out, a2, sc2, sh2)
     sum_g3a3 = (w3f * p_mat).sum(dim=1)
     sum_g3x3 = inv3 * (sum_g3a3 - m3 * sum_g3)
     dgam3, dbeta3 = sum_g3x3, sum_g3
@@ -1136,21 +1386,20 @@ def bottleneck_rest_bwd(res, dout, stat_cots, h_side, eps=EPS_DEFAULT):
            + r3[:, None] * sum_h_raw[None, :])
 
     # bn2 and the last 1x1's transpose
-    g2, sum_g2, sum_g2x2 = bwd_apply3(g3t, a2, sc2, sh2, amat, bmat, v0,
-                                      inv2, m2)
+    g2, sum_g2, sum_g2x2 = k2(g3t, a2, sc2, sh2, amat, bmat, v0, inv2, m2)
     dgam2, dbeta2 = sum_g2x2, sum_g2
     p2, q2, r2 = _bn_affine_consts(inv2 * gam2, inv2, m2, sum_g2, sum_g2x2,
                                    m_count, gm2, gv2)
 
     # the 3x3's transpose, its tap gradients and bn1's reductions
-    g1, dtaps, sum_g1, sum_g1x1 = bwd_mid(g2, a2, a1, sc1, sh1, p2, q2, r2,
-                                          inv1, m1, taps, h_side)
+    g1, dtaps, sum_g1, sum_g1x1 = k3(g2, a2, a1, sc1, sh1, p2, q2, r2, inv1,
+                                     m1, taps, h_side)
     dgam1, dbeta1 = sum_g1x1, sum_g1
     p1, q1, r1 = _bn_affine_consts(inv1 * gam1, inv1, m1, sum_g1, sum_g1x1,
                                    m_count, gm1, gv1)
 
     # the first 1x1's transpose, the residual and dW1
-    dx, dw1 = bwd_final(g3t, g1, a1, x, p1, q1, r1, w1)
+    dx, dw1 = k4(g3t, g1, a1, x, p1, q1, r1, w1)
 
     return (dx, dw1.to(w1.dtype), dtaps.to(taps.dtype), dw3.to(w3.dtype),
             dgam1.to(gam1.dtype), dbeta1.to(gam1.dtype),

@@ -22,11 +22,9 @@ its kernels; the others compose.
 Both ops take a bfloat16 input with float32 filters (a bf16 program, or
 a float32 one under AMP): the filters follow x's float dtype, as the JAX
 package harmonizes them. The epilogue kernels have bfloat16 versions, and
-so do the chain's four forward kernels: a bfloat16 block that the chain's
-gate takes runs them where no gradient is wanted (a training-mode forward
-under ``torch.no_grad``, or of no parameter that requires grad). The
-chain's backward kernels have no bfloat16 version, so where a gradient
-is wanted such a block raises before any launch, on every device.
+so do the chain's eight kernels, forward and backward: a bfloat16 block
+that the chain's gate takes runs them, with or without a gradient. Any
+other dtype than float32 and bfloat16 raises before any launch.
 """
 
 from __future__ import annotations
@@ -112,14 +110,6 @@ def _chain_takes(x, w1) -> bool:
     return (fused_block_enabled(x.device) and hh == ww and n >= 8
             and hh * ww >= CHAIN_MIN_S and cin % 128 == 0 and c % 64 == 0
             and (x.device.type == "cpu" or c <= _fb.conv1x1_max_c(x.dtype)))
-
-
-def _wants_grad(x, w1, w2, w3, bn_params) -> bool:
-    """Whether autograd records this block: grad mode on and x, a filter
-    or a BN scale or bias requires grad."""
-    return torch.is_grad_enabled() and any(
-        t.requires_grad for t in (x, w1, w2, w3)
-        + tuple(v for bn in bn_params for v in bn[:2]))
 
 
 def _folded(w, scale, bias, mean, var, eps):
@@ -218,15 +208,12 @@ def fused_bottleneck(ctx, ins, attrs):
         for _, _, m, v in bn_params:
             stats += [m, v, m, v]
     elif _chain_takes(x, w1):
-        if x.dtype != torch.float32 and (
-                x.dtype != torch.bfloat16
-                or _wants_grad(x, w1, w2, w3, bn_params)):
+        if x.dtype not in (torch.float32, torch.bfloat16):
             raise NotImplementedError(
                 f"fused_bottleneck on {x.dtype} through the bottleneck chain"
-                " (PT_FUSED_BLOCK=always): its kernels take float32, and "
-                "bfloat16 only where no gradient is wanted (the chain's "
-                "backward kernels have no bfloat16 version); not ported "
-                "(unset PT_FUSED_BLOCK to compose the block)")
+                " (PT_FUSED_BLOCK=always): its kernels take float32 and "
+                "bfloat16; not ported (unset PT_FUSED_BLOCK to compose the "
+                "block)")
         out, stats = _chain_block(x, w1, w2, w3, bn_params, eps, momentum)
     else:
         out, stats = compose_block(x, w1, w2, w3, bn_params, eps, momentum)

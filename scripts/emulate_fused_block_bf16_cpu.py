@@ -1,6 +1,6 @@
-"""Run the bfloat16 bottleneck-chain forward kernels of
-``paddle_tpu_torch/csrc/fused_block_bf16.cu`` on the CPU, before any GPU
-sees them.
+"""Run the bfloat16 bottleneck-chain kernels of
+``paddle_tpu_torch/csrc/fused_block_bf16.cu``, forward and backward, on
+the CPU, before any GPU sees them.
 
 ``scripts/emulate_fused_lstm_cpu.py``'s harness (every thread of a launch
 a fiber of one host thread, yielding at ``__syncthreads`` and at each
@@ -19,23 +19,30 @@ way. Built with ``g++ -std=c++20`` into ``paddle_tpu_torch/_build/``.
 
 The wrappers themselves (``fused_block.conv1x1_stats_bf16``,
 ``conv3x3_norm_stats_bf16``, ``norm_relu_moments_bf16``,
-``conv1x1_bn_residual_bf16``) are called on CPU tensors under that
+``conv1x1_bn_residual_bf16``; ``bwd_reduce3_bf16``, ``bwd_apply3_bf16``,
+``bwd_mid_bf16``, ``bwd_final_bf16``) are called on CPU tensors under that
 script's ``emulated`` (``build.bind`` pointed at the emulation,
 ``build.sm_count`` at ``--sms``, every output allocated full of NaN), at
 each N,Cin,C,H[,W] given, on
 the chain's inputs made as it makes them (x >= 0 and He-scaled weights
 rounded to bf16; each stage's input the plain version of the stage
-before; BN folds from the plain sums). Printed: each y's largest share
+before; BN folds from the plain sums; the backward's on one run of the
+plain chain's backward from a bf16 cotangent of out and random
+cotangents of the six batch statistics). Printed: each y's largest share
 of the bf16 limit 2^-7 max|plain| + 2^-7 |plain| against the plain
 version and the share of its elements that differ at all; each sum's
 largest share of its limit (the float32 order, 1e-5 of the sum of its
 terms' magnitudes, plus what the flipped y move: the sum of |y - plain
-y|), and its share of the float32 limit alone; whether M2 is exactly symmetric; whether a second call gives the
-same bits; and the counts of misaligned or stray accesses. Exits 1 if
-any check misses.
+y|), and its share of the float32 limit alone; whether M2 is exactly symmetric; for the backward, g3 bit for bit,
+g2, g1 and dx as y, the sums of g2 and g1 as y's and the products over
+N·S (P, Σg3, dW1; dtaps against its float64 product) within STATS_RTOL
+of their terms' magnitudes, as ``chip_smoke.bf16_bwd_readings`` holds
+them in phase 3;
+whether a second call gives the same bits; and the counts of misaligned
+or stray accesses. Exits 1 if any check misses.
 
     python scripts/emulate_fused_block_bf16_cpu.py 2,32,16,8 2,128,64,14 \\
-        1,256,64,16 3,128,128,7 2,64,128,6,10 8,128,64,5
+        1,256,64,16 3,128,128,7 2,64,128,6,10 8,128,64,5 2,48,80,9
 """
 
 import argparse
@@ -51,6 +58,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "scripts"))
 
+import chip_smoke as cs  # noqa: E402
 import emulate_fused_lstm_bf16_cpu as lstm_bf16_emu  # noqa: E402
 import emulate_fused_lstm_cpu as lstm_emu  # noqa: E402
 import emulate_moments_cpu as emu  # noqa: E402
@@ -189,6 +197,38 @@ def sum_share(got, want, terms, moved=0.0):
     return float(((got - want).abs() / lim.clamp_min(1e-30)).max())
 
 
+BWD = ("bwd_reduce3", "bwd_apply3", "bwd_mid", "bwd_final")
+
+
+def bwd_case(lib, sms, d, h, seed):
+    """The four bf16 backward kernels against their plain versions, on the
+    inputs of one run of the plain chain's backward from a bf16
+    cotangent of out and random cotangents of the six batch statistics
+    (chip_smoke.chain_bwd_inputs), at phase 3's limits
+    (chip_smoke.bf16_bwd_readings): (ok, [notes], [same bits])."""
+    gen = torch.Generator().manual_seed(seed + 1000)
+    n, cin, s = d["x"].shape
+    c = d["w1"].shape[0]
+    dout = torch.randn(n, cin, s, generator=gen).to(torch.bfloat16)
+    cots = [0.1 * torch.randn(k, generator=gen)
+            for k in (c, c, c, c, cin, cin)]
+    args = cs.chain_bwd_inputs(torch, fb, d, dout, h, "_bf16", cots)
+    notes, ok, same = [], True, []
+    for name in BWD:
+        fn = getattr(fb, name + "_bf16")
+        with lstm_emu.emulated(lib, sms):
+            got = fn(*args[name])
+            again = fn(*args[name])
+        same.append(all(torch.equal(a, b) for a, b in zip(got, again)))
+        want = getattr(fb, name + "_reference")(*args[name])
+        for what, (share, differ) in cs.bf16_bwd_readings(
+                torch, fb, name, args[name], got, want).items():
+            notes.append(f"{what} {share:.4f}" + (
+                "" if differ is None else f" (differ {differ:.5f})"))
+            ok = ok and share <= 1
+    return ok, notes, same
+
+
 def case(lib, sms, n, cin, c, h, w, seed):
     d = chain_inputs(n, cin, c, h, w, seed)
     x, w1, taps, w3 = d["x"], d["w1"], d["taps"], d["w3"]
@@ -244,6 +284,10 @@ def case(lib, sms, n, cin, c, h, w, seed):
     out.append(f"conv1x1_bn_residual out {share:.4f} (differ {differ:.5f})")
     ok = ok and share <= 1 and bool(torch.isfinite(y4.float()).all())
     same = [same1, same2, same3, same4]
+    bok, bnotes, bsame = bwd_case(lib, sms, d, h, seed)
+    ok = ok and bok
+    out.append("backward " + ", ".join(bnotes))
+    same += bsame
     misaligned = lib.emu_take_misaligned()
     outside = lib.emu_take_outside()
     print(f"N {n}, Cin {cin}, C {c}, {h}x{w}: " + "; ".join(out)

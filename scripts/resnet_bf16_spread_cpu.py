@@ -36,9 +36,22 @@ apart: the bf16 composition with one bf16 step at one pixel in 64 (how
 chaotic the forward is), and the chain on a batch whose second half
 repeats its first (a planted fault).
 
+``--chain-step``: phase 22's readings on the CPU. First ResNet-50's stem
+and stages at full width cut to (2, 2, 2, 1) blocks, 224 px, 1000
+classes, batch 8, one Momentum step from one startup state, the bf16
+program's updates against the float32 program's (the largest and median
+relative rms over the vars, parameters and velocities apart from the
+running stats): how far bf16 alone moves a deeper program's step. Then
+``chip_smoke.bf16_chain_step_held`` itself at batch 8 with the stages
+cut to 8², 6² and 4², the chain's gate open on the CPU at CHAIN_MIN_S
+16, the executor on the CPU and each wrapper counting its calls: the
+readings of each stage program, the chain's and those of the chain
+without tap gradients, which must fail.
+
     env JAX_PLATFORMS=cpu python scripts/resnet_bf16_spread_cpu.py
     python scripts/resnet_bf16_spread_cpu.py --resnet50
     python scripts/resnet_bf16_spread_cpu.py --chain-forward
+    python scripts/resnet_bf16_spread_cpu.py --chain-step
 """
 
 import argparse
@@ -195,12 +208,73 @@ def chain_forward():
           f"{top:.4g}, median {med:.4g}")
 
 
+def chain_step():
+    sys.path.insert(0, ROOT)
+    import torch
+
+    import chip_smoke as cs
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core import executor, types
+    from paddle_tpu_torch.kernels import fused_block as fb
+    from paddle_tpu_torch.ops import fused_ops
+
+    exe = pt.Executor(pt.CPUPlace())
+    blocks, r = (2, 2, 2, 1), dict(image=224, class_dim=1000, batch=8)
+    cs.RESNET_REDUCED = r
+    progs = {d: cs.build_resnet_cut(pt, 0, d, blocks)
+             for d in ("bfloat16", "float32")}
+    scope0 = pt.Scope()
+    exe.run(progs["bfloat16"][1], scope=scope0)
+    start = {n: scope0.get_numpy(n) for n in scope0.local_var_names()}
+    feed = cs.resnet_varied(np, 0, r["batch"], r["image"], center=0.5)
+    ups = {}
+    for dtype, (prog, _, avg) in progs.items():
+        scope = pt.Scope()
+        for n, v in start.items():
+            scope.set_var(n, torch.from_numpy(v.copy()))
+        exe.run(prog, feed=feed, fetch_list=[avg], scope=scope)
+        ups[dtype] = {n: scope.get_numpy(n) - v for n, v in start.items()}
+    for which in ("params", "stats"):
+        top, med = cs.bf16_update_distance(np, ups["bfloat16"],
+                                           ups["float32"], which)
+        print(f"ResNet-50 cut to {blocks} blocks, {r['image']} px, batch "
+              f"{r['batch']}, bf16 vs float32 updates ({which}): largest "
+              f"{top:.4g}, median {med:.4g}", flush=True)
+
+    def cpu(device=None):
+        return torch.device("cpu")
+
+    types.resolve_device = executor.resolve_device = cpu
+    fused_ops.fused_block_enabled = lambda device: \
+        fused_ops.chain_requested()
+    fused_ops.CHAIN_MIN_S = 16
+    cs.RESNET = dict(cs.RESNET, batch=8)
+    cs.CHAIN_SHAPES = ((256, 64, 8), (512, 128, 6), (1024, 256, 4))
+
+    def counted(name):
+        wrapper = getattr(fb, name)
+
+        def call(*args):
+            call.launches += 1
+            return wrapper(*args)
+        call.launches = 0
+        setattr(fb, name, call)
+
+    for name in (cs.CHAIN_BF16_KERNELS + cs.CHAIN_BF16_BWD_KERNELS
+                 + cs.CHAIN_KERNELS + cs.CHAIN_BWD_KERNELS):
+        counted(name)
+    cs.bf16_chain_step_held(np, torch, fb, "CPU", 0)
+
+
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--resnet50", action="store_true")
     ap.add_argument("--chain-forward", action="store_true")
+    ap.add_argument("--chain-step", action="store_true")
     args = ap.parse_args()
-    if args.chain_forward:
+    if args.chain_step:
+        chain_step()
+    elif args.chain_forward:
         chain_forward()
     elif args.resnet50:
         resnet50()

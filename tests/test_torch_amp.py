@@ -419,10 +419,10 @@ def test_amp_refuses_ops_without_a_bf16_kernel(what, monkeypatch):
     (here the CPU, where the plain versions would have run); without AMP
     the same program runs. The conv epilogue has bfloat16 kernels, so
     fused_conv2d runs under AMP (a finite loss, float32 masters);
-    fused_bottleneck runs under AMP too, composed, and is refused only
-    where PT_FUSED_BLOCK asks for the chain (always or 1) and the program
-    has a backward: the chain's backward kernels are float32 only (the
-    check reads the env, not the device); the paged ops stay refused."""
+    fused_bottleneck trains under AMP too, composed and where
+    PT_FUSED_BLOCK asks for the chain (always or 1): the chain has
+    bfloat16 kernels forward and backward; the paged ops stay
+    refused."""
     monkeypatch.delenv("PT_FUSED_BLOCK", raising=False)
     main, startup, loss, feed = _refused_program(what)
     exe, scope = pt.Executor(pt.CPUPlace()), pt.Scope()
@@ -441,9 +441,10 @@ def test_amp_refuses_ops_without_a_bf16_kernel(what, monkeypatch):
     if what == "fused_bottleneck":
         for mode in ("always", "1"):
             monkeypatch.setenv("PT_FUSED_BLOCK", mode)
-            with pytest.raises(NotImplementedError,
-                               match=f"{what}.*not ported"):
-                exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            assert np.isfinite(out).all()
+            for p in main.global_block.all_parameters():
+                assert scope.find_var(p.name).dtype == torch.float32
 
 
 def test_amp_lstm_program_builds_and_trains():

@@ -333,11 +333,10 @@ def test_what_is_not_ported_raises(what, monkeypatch):
             emb = pt.layers.embedding(ids, [10, 8], is_sparse=True)
             avg = pt.layers.mean(emb)
         elif what == "amp":
-            # mixed precision is ported, but not a backward over the
-            # bottleneck chain's kernels (PT_FUSED_BLOCK=always), whose
-            # backward kernels have no bfloat16 version; its forward
-            # kernels have one, and so do the conv epilogue's (a conv +
-            # batch_norm + relu, one fused_conv2d, runs under AMP)
+            # mixed precision in bfloat16 is ported, over every kernel the
+            # ResNet step runs (the bottleneck chain's with
+            # PT_FUSED_BLOCK=always, forward and backward); in float16 it
+            # is not
             img = pt.layers.data("img", [16, 8, 8])
             avg = pt.layers.mean(pt.layers.fused_bottleneck(img, ch_out=4))
             pt.optimizer.SGDOptimizer(learning_rate=LR).minimize(avg)
@@ -350,7 +349,7 @@ def test_what_is_not_ported_raises(what, monkeypatch):
     feed = ({"ids": np.zeros((2, 4), np.int64)} if what == "is_sparse"
             else _feeds(0))
     if what == "amp":
-        main.amp_dtype = "bfloat16"
+        main.amp_dtype = "float16"
         feed = {"img": np.ones((2, 16, 8, 8), np.float32)}
         monkeypatch.setenv("PT_FUSED_BLOCK", "always")
     with pytest.raises(NotImplementedError, match="not ported"):

@@ -53,6 +53,7 @@ import paddle_tpu_torch as pt
 from paddle_tpu_torch import io as tio
 from paddle_tpu_torch.core import program as tprog
 from paddle_tpu_torch.core.registry import ExecContext, require_op
+from paddle_tpu_torch.kernels import build
 from paddle_tpu_torch.kernels import fused_block as tfb
 from paddle_tpu_torch.ops import fused_ops as tfo
 
@@ -499,3 +500,635 @@ def test_emulated_kernel_order_stays_within_phase3_limits(stage):
     rout = tfb.conv1x1_bn_residual_reference(ry2, x, sc2, sh2, w3, sc3, sh3)
     _hold_bf16(out, rout, "conv1x1_bn_residual")
     assert _flips(out, rout, one_step=False) <= FLIP_SHARE
+
+
+# ---------------------------------------------------------------------------
+# the backward in bf16: the plain versions against the Pallas kernels
+# ---------------------------------------------------------------------------
+
+BWD_KERNELS = ("bwd_reduce3", "bwd_apply3", "bwd_mid", "bwd_final")
+
+
+def _bwd_inputs(shape, seed, stat_cots=False):
+    """{kernel: args} of the four backward kernels in one run of the plain
+    chain on a bf16 block (the bf16 forward, then bottleneck_rest_bwd on
+    a bf16 cotangent of out and, with stat_cots, random cotangents of the
+    six batch statistics), each kernel's inputs as its plain predecessors
+    make them."""
+    n, cin, c, h = shape
+    d = _case(*shape, seed=seed)
+    out, stats, aux = tfb.bottleneck_rest_fwd(*[d[k] for k in CHAIN_ARGS], h)
+    a1, a2, sum_h, m2h, sc1, sh1, sc2, sh2 = aux
+    res = (d["x"], a1, a2, out, d["w1"], d["taps"], d["w3"], d["g1"],
+           d["g2"], d["g3"], *stats, sum_h, m2h, sc1, sh1, sc2, sh2)
+    gen = torch.Generator().manual_seed(seed + 100)
+    dout = torch.randn(out.shape, generator=gen).to(BF)
+    cots = [torch.randn(s.shape, generator=gen) if stat_cots
+            else torch.zeros_like(s) for s in stats]
+    args = {}
+    saved = {k: getattr(tfb, k + "_bf16") for k in BWD_KERNELS}
+
+    def capture(name):
+        def call(*a):
+            args[name] = a
+            return saved[name](*a)
+        return call
+
+    try:
+        for k in BWD_KERNELS:
+            setattr(tfb, k + "_bf16", capture(k))
+        tfb.bottleneck_rest_bwd(res, dout, cots, h)
+    finally:
+        for k, fn in saved.items():
+            setattr(tfb, k + "_bf16", fn)
+    return args
+
+
+def _jargs(args):
+    return [_j(a) if isinstance(a, torch.Tensor) else a for a in args]
+
+
+def _hold_sum(got, want, terms, moved=0.0, what=""):
+    """A float32 sum within STATS_RTOL of its terms' magnitudes plus what
+    the bf16 values that flipped move it."""
+    assert got.dtype == torch.float32 and got.shape == want.shape, what
+    lim = STATS_RTOL * terms + moved
+    assert bool(((got - want).abs() <= lim).all()), \
+        f"{what}: {float(((got - want).abs() / lim).max()):.3f} of the limit"
+
+
+def _moved(got, want):
+    return (got.float() - want.float()).abs()
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bwd_reduce3_plain_matches_pallas_in_bf16(interpret, shape):
+    """g3 bit for bit; P = Σ g3·h2ᵀ and Σg3 (of the same bf16 values in
+    both) within STATS_RTOL of their terms' magnitudes."""
+    args = _bwd_inputs(shape, seed=10)["bwd_reduce3"]
+    jg3, jp, jsg = jfb.bwd_reduce3(*_jargs(args))
+    g3, p, sg = tfb.bwd_reduce3_reference(*args)
+    assert g3.dtype == BF and torch.equal(g3, _t(jg3))
+    g3a = g3.float().abs()
+    h2 = tfb._norm_relu(*args[2:]).float()
+    _hold_sum(p, _t(jp), torch.einsum("nis,ncs->ic", g3a, h2), what="P")
+    _hold_sum(sg, _t(jsg), g3a.sum(dim=(0, 2)), what="Σg3")
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bwd_apply3_plain_matches_pallas_in_bf16(interpret, shape):
+    """g2 = bf16((A·g3 + B·h2 + v0)·(h2f > 0)), h2f one fused multiply-add
+    (the parent tree's plain version took a product and a sum, and put h2
+    and its mask elsewhere): g2 bit for bit at EXACT, elsewhere at most
+    FLIP_SHARE of it one bf16 step off; Σg2 and Σg2·x̂2 within the
+    flip-aware limit."""
+    args = _bwd_inputs(shape, seed=11)["bwd_apply3"]
+    jg2, js, jq = jfb.bwd_apply3(*_jargs(args))
+    g2, s, q = tfb.bwd_apply3_reference(*args)
+    jg2 = _t(jg2)
+    _hold_y(g2, jg2, shape)
+    a2, inv2, m2 = args[1], args[7], args[8]
+    xhat = tfb._affine(a2, inv2, -m2 * inv2).abs()
+    moved = _moved(g2, jg2)
+    _hold_sum(s, _t(js), jg2.float().abs().sum(dim=(0, 2)),
+              moved.sum(dim=(0, 2)), "Σg2")
+    _hold_sum(q, _t(jq), (jg2.float().abs() * xhat).sum(dim=(0, 2)),
+              (moved * xhat).sum(dim=(0, 2)), "Σg2·x̂2")
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bwd_mid_plain_matches_pallas_in_bf16(interpret, shape):
+    """da2 = bf16(fma(g2, p2, a2·q2) + r2) and h1f one fused multiply-add,
+    as XLA contracts them (the parent tree's plain version rounded each
+    product and sum): g1 bit for bit at EXACT, elsewhere at most
+    FLIP_SHARE of it one bf16 step off; the nine tap gradients (of the
+    same bf16 da2 and h1 in both) within STATS_RTOL of their terms'
+    magnitudes; Σg1, Σg1·x̂1 within the flip-aware limit."""
+    h = shape[3]
+    args = _bwd_inputs(shape, seed=12)["bwd_mid"]
+    jg1, jdt, js, jq = jfb.bwd_mid(*_jargs(args))
+    g1, dt, s, q = tfb.bwd_mid_reference(*args)
+    jg1 = _t(jg1)
+    _hold_y(g1, jg1, shape)
+    g2, a2, a1, sc1, sh1, p2, q2, r2, inv1, m1, taps, _ = args
+    n, c, sz = g2.shape
+    da2 = tfb._unfold(g2, a2, p2, q2, r2).to(BF).float().abs()
+    h1 = tfb._norm_relu(a1, sc1, sh1).float()
+    terms = torch.nn.grad.conv2d_weight(
+        h1.view(n, c, h, sz // h), (c, c, 3, 3), da2.view(n, c, h, sz // h),
+        padding=1).permute(2, 3, 0, 1).reshape(9, c, c)
+    _hold_sum(dt, _t(jdt), terms, what="dtaps")
+    xhat = tfb._affine(a1, inv1, -m1 * inv1).abs()
+    moved = _moved(g1, jg1)
+    _hold_sum(s, _t(js), jg1.float().abs().sum(dim=(0, 2)),
+              moved.sum(dim=(0, 2)), "Σg1")
+    _hold_sum(q, _t(jq), (jg1.float().abs() * xhat).sum(dim=(0, 2)),
+              (moved * xhat).sum(dim=(0, 2)), "Σg1·x̂1")
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bwd_final_plain_matches_pallas_in_bf16(interpret, shape):
+    """da1 = bf16(fma(g1, p1, a1·q1) + r1), as XLA contracts it (the parent
+    tree's plain version rounded each product and sum); dx = bf16(W1ᵀ·da1
+    + g3) bit for bit at EXACT, elsewhere at most FLIP_SHARE of it one
+    bf16 step off; dW1 (of the same bf16 da1 and x in both) within
+    STATS_RTOL of its terms' magnitudes."""
+    args = _bwd_inputs(shape, seed=13)["bwd_final"]
+    jdx, jdw = jfb.bwd_final(*_jargs(args))
+    dx, dw = tfb.bwd_final_reference(*args)
+    _hold_y(dx, _t(jdx), shape)
+    g3, g1, a1, x, p1, q1, r1, _ = args
+    da1 = tfb._unfold(g1, a1, p1, q1, r1).to(BF).float().abs()
+    _hold_sum(dw, _t(jdw), torch.einsum("ncs,nks->ck", da1, x.float()),
+              what="dW1")
+
+
+def _contraction_probe(n=1, c=512, h=2, seed=14):
+    """Operands on which a fused multiply-add and a rounded product differ:
+    a2 constant per channel and sh = -(a2·sc rounded), so that a product
+    then a sum gives exactly 0 and a fused multiply-add the product's
+    rounding error, of either sign."""
+    rng = np.random.RandomState(seed)
+    a = torch.from_numpy(rng.randn(1, c, 1).astype(np.float32)).to(BF)
+    a = a.expand(n, c, h * h).contiguous()
+    sc = torch.from_numpy((1 + rng.rand(c)).astype(np.float32))
+    sh = -(a[0, :, 0].float() * sc)
+    return a, sc, sh
+
+
+def test_backward_affines_round_where_the_pallas_kernels_do(interpret):
+    """The affines XLA contracts in the interpreted Pallas kernels, on
+    operands where contracting shows: with B = I and A = 0, bwd_apply3's
+    g2 is h2 itself, relu(a2·sc2 + sh2) rounded, and its mask; with the
+    centre tap I, bwd_mid's g1 is da2 under h1's mask; with W1 = I,
+    bwd_final's dx is da1. da = g·p + a·q + r with a·q ≈ -g·p. The plain
+    versions meet each bit for bit; the parent tree's (a product and a
+    sum) miss hundreds."""
+    a, sc, sh = _contraction_probe()
+    n, c, s = a.shape
+    zero = torch.zeros(n, c, s, dtype=BF)
+    eye = torch.eye(c).to(BF)
+    zc = torch.zeros(c)
+    args = (zero, a, sc, sh, torch.zeros(c, c, dtype=BF), eye, zc, sc, sh)
+    jg2 = _t(jfb.bwd_apply3(*_jargs(args))[0])
+    assert int((jg2.float() != 0).sum()) > 100   # the mask shows
+    assert torch.equal(tfb.bwd_apply3_reference(*args)[0], jg2)
+
+    rng = np.random.RandomState(15)
+    g = torch.from_numpy(rng.randn(n, c, s).astype(np.float32)).to(BF)
+    p = torch.from_numpy((1 + rng.rand(c)).astype(np.float32))
+    q = -p * (1 + 2.0 ** -16 * (1 + torch.from_numpy(rng.rand(c))
+                                .float()))
+    taps = torch.zeros(9, c, c, dtype=BF)
+    taps[4] = eye
+    # the mask: h1 = relu(a·sc + sh) on the probe; da2 = g·p + g·q (+ 0)
+    args = (g, g, a, sc, sh, p, q, zc, sc, sh, taps, 2)
+    jg1 = _t(jfb.bwd_mid(*_jargs(args[:-1]), 2)[0])
+    assert torch.equal(tfb.bwd_mid_reference(*args)[0], jg1)
+    args = (zero, g, g, zero, p, q, zc, eye)
+    jdx = _t(jfb.bwd_final(*_jargs(args))[0])
+    assert torch.equal(tfb.bwd_final_reference(*args)[0], jdx)
+    # the parent tree's plain versions (a product and a sum) miss them
+    split = (g.float() * p.reshape(1, -1, 1)
+             + g.float() * q.reshape(1, -1, 1)).to(BF)
+    assert int((split != jdx).sum()) > 100
+
+
+def test_bf16_backward_wrappers_run_the_plain_versions_on_the_cpu():
+    """On CPU tensors each bf16 backward wrapper is its plain version, bit
+    for bit, builds nothing and counts no launch."""
+    args = _bwd_inputs((2, 32, 16, 8), seed=16)
+    for name in BWD_KERNELS:
+        fn = getattr(tfb, name + "_bf16")
+        before = fn.launches
+        got = fn(*args[name])
+        want = getattr(tfb, name + "_reference")(*args[name])
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), name
+        assert fn.launches == before, name
+
+
+def _bf16_bwd_args(name, fault):
+    """Valid bf16 operands of a backward wrapper (N 2, Cin 32, C 16, H 8),
+    one of them broken as `fault` says."""
+    n, cin, c, h = 2, 32, 16, 8
+    s = h * h
+    z = torch.zeros
+
+    def act(k):
+        return z(n, k, s, dtype=BF)
+
+    vec = z(c)
+    args = {"bwd_reduce3": [act(cin), act(cin), act(c), vec, vec],
+            "bwd_apply3": [act(cin), act(c), vec, vec, z(c, cin, dtype=BF),
+                           z(c, c, dtype=BF), vec, vec, vec],
+            "bwd_mid": [act(c), act(c), act(c), vec, vec, vec, vec, vec, vec,
+                        vec, z(9, c, c, dtype=BF), h],
+            "bwd_final": [act(cin), act(c), act(c), act(cin), vec, vec, vec,
+                          z(c, cin, dtype=BF)]}[name]
+    i = 1   # not the operand on_card reads
+    if fault == "float32":
+        args[i] = args[i].float()
+    elif fault == "strided":
+        args[i] = z(args[i].shape[::-1], dtype=BF).transpose(0, -1)
+    elif fault == "misaligned":
+        t = args[i]
+        args[i] = z(t.numel() + 1, dtype=BF)[1:].view(t.shape)
+        assert args[i].data_ptr() % 16
+    elif fault == "C % 16":
+        c = 8
+        args = [a[:, :c].contiguous() if isinstance(a, torch.Tensor)
+                and a.dim() == 3 and a.shape[0] == n else a for a in args]
+        args = [a[:c] if isinstance(a, torch.Tensor) and a.dim() == 1
+                else a for a in args]
+        args[10] = z(9, c, c, dtype=BF)
+    return args
+
+
+@pytest.mark.parametrize("fault", ["float32", "strided", "misaligned",
+                                   "past the cap"])
+@pytest.mark.parametrize("name", BWD_KERNELS)
+def test_bf16_backward_wrappers_refuse_before_launch(monkeypatch, name,
+                                                     fault):
+    """A bf16 backward wrapper given tensors declared on the card (the CPU
+    tensors here) refuses a float32 operand (TypeError), a strided one,
+    one off 16 bytes, and a C past the kernels' cap (ValueError), before
+    it reaches a kernel (build.bind and build.sm_count patched to fail;
+    the cap patched to 8 for the last)."""
+    monkeypatch.setattr(build, "on_card", lambda what, t: True)
+
+    def no_kernel(*a):
+        raise AssertionError("reached the kernel")
+
+    monkeypatch.setattr(build, "bind", no_kernel)
+    monkeypatch.setattr(build, "sm_count", no_kernel)
+    monkeypatch.setattr(tfb, "_bf_max_c",
+                        lambda: 8 if fault == "past the cap" else 4096)
+    fn = getattr(tfb, name + "_bf16")
+    before = fn.launches
+    err = TypeError if fault == "float32" else ValueError
+    with pytest.raises(err):
+        fn(*_bf16_bwd_args(name, None if fault == "past the cap" else fault))
+    assert fn.launches == before
+
+
+def test_bf16_bwd_mid_refuses_c_not_a_multiple_of_16(monkeypatch):
+    """bwd_mid_bf16's 3x3 takes C in k16 steps: C 8 raises ValueError
+    before any launch."""
+    monkeypatch.setattr(build, "on_card", lambda what, t: True)
+    monkeypatch.setattr(build, "bind", lambda *a: 1 / 0)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tfb.bwd_mid_bf16(*_bf16_bwd_args("bwd_mid", "C % 16"))
+    assert tfb.bwd_mid_bf16.launches == 0
+
+
+@pytest.mark.parametrize("kind,ma,mb,blocks", [
+    ("reduce3", 256, 64, 2),      # ResNet-50's three chain stages
+    ("reduce3", 512, 128, 4),
+    ("reduce3", 1024, 256, 16),
+    ("reduce3", 32, 16, 1),       # one tile past both ends
+    ("taps", 64, 64, 9),
+    ("taps", 128, 128, 9),
+    ("taps", 256, 256, 36),
+    ("taps", 80, 80, 9),          # C 80: one 128 x 128 tile, rows past C
+    ("dw1", 64, 256, 2),
+    ("dw1", 128, 512, 4),
+    ("dw1", 256, 1024, 16),
+    ("dw1", 16, 48, 1),
+])
+def test_bf16_abt_blocks_tile_a_and_b(kind, ma, mb, blocks):
+    """The blocks of a split of the bf16 backward's products over N·S:
+    A's rows by B's rows in the tiles ab::launch picks (bwd_reduce3: 128
+    rows of Cin by 64 or 128 of C; the taps: 64 x 64 or 128 x 128, nine
+    taps; dW1: 64 or 128 rows of C by 128 of Cin), each row of A and B in
+    exactly one tile."""
+    assert tfb._bf_abt_blocks(kind, ma, mb) == blocks
+    bm = 128 if kind == "reduce3" or ma > 64 else 64
+    bn = 128 if kind == "dw1" or mb > 64 else 64
+    tiles = [(r, c) for r in range(0, ma, bm) for c in range(0, mb, bn)]
+    covered = {(i, j) for r, c in tiles for i in range(r, min(r + bm, ma))
+               for j in range(c, min(c + bn, mb))}
+    assert len(covered) == ma * mb
+    assert len(tiles) * (9 if kind == "taps" else 1) == blocks
+
+
+@pytest.mark.parametrize("blocks,n,s,splits", [
+    (2, 128, 3136, 128),     # bwd_reduce3 at 56²: capped at 128
+    (4, 128, 784, 66),
+    (16, 128, 196, 17),
+    (9, 128, 3136, 30),      # the taps at 56²
+    (36, 128, 196, 8),
+    (2, 1, 20, 1),           # N·S 20: one piece
+    (1, 3, 49, 5),           # 147 positions: 5 pieces, one split each
+])
+def test_bf16_splits_cover_n_s(blocks, n, s, splits):
+    """The splits of a bf16 product over N·S on 132 SMs: enough that
+    splits x blocks fill two blocks an SM, at most one a 32-position
+    piece and at most 128; the entry points' rule (split p takes pieces
+    [p·P // splits, (p + 1)·P // splits)) then covers every piece once,
+    each split non-empty."""
+    got = tfb._bf_splits(blocks, n, s, 132)
+    assert got == splits
+    pieces = -(-n * s // 32)
+    assert 1 <= got <= min(128, pieces)
+    assert got * blocks >= 264 or got in (128, pieces)
+    runs = [(p * pieces // got, (p + 1) * pieces // got) for p in range(got)]
+    assert all(a < b for a, b in runs)
+    assert runs[0][0] == 0 and runs[-1][1] == pieces
+    assert all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
+
+
+# ---------------------------------------------------------------------------
+# the chain's backward and the op's gradient, in bf16, against JAX
+# ---------------------------------------------------------------------------
+
+# the chain's gradients other than dx against JAX's, of max|jax|: the
+# filters' (dW1, dtaps, dW3: bf16, or float32 masters whose gradient is a
+# bf16 one widened) within one bf16 step at their largest element, the
+# six dγ, dβ (float32) within BN_GRAD_RTOL. The largest readings over
+# the cases of the two tests below: 3.68e-3 (the op's dW1: one element a
+# step off, just under the largest) and 8.55e-4 (the op's dBias1: its
+# sums take dX's flips); the four vjp cases read at most 7.4e-7. Zeroed
+# tap gradients read 1.0 on dtaps, a da1 folded without its r1 0.48 on
+# dW1 (and 3.9 times dx's limit): each fails
+# (test_rest_bwd_in_bf16_limits_fail_planted_faults)
+FILTER_GRAD_RTOL = 2.0 ** -7
+BN_GRAD_RTOL = 2e-3
+
+
+def _grad_share(got, want, name):
+    """|got - want| max over its limit: FILTER_GRAD_RTOL max|want| for a
+    filter (w1, taps, w3; W1-W3 of the op), else BN_GRAD_RTOL max|want|."""
+    got, want = got.float(), want.float()
+    rtol = FILTER_GRAD_RTOL if name.lower()[:1] == "w" \
+        or name == "taps" else BN_GRAD_RTOL
+    return float((got - want).abs().max()) / (rtol * float(
+        want.abs().max()))
+
+
+def _no_dtaps(*args):
+    g1, dtaps, s, q = tfb.bwd_mid_reference(*args)
+    return g1, torch.zeros_like(dtaps), s, q
+
+
+def _no_r1(g3, g1, a1, x, p1, q1, r1, w1):
+    return tfb.bwd_final_reference(g3, g1, a1, x, p1, q1,
+                                   torch.zeros_like(r1), w1)
+
+
+FAULTS = {"no tap gradients": ("bwd_mid_bf16", _no_dtaps),
+          "no r1 in da1": ("bwd_final_bf16", _no_r1)}
+
+
+def _rest_bwd_shares(shape, stat_cots):
+    """FusedBottleneckRest on a bf16 block against jax.vjp of the JAX
+    package's fused_bottleneck_rest on the same bf16 inputs and
+    cotangents (out's bf16 and, with stat_cots, random ones on the six
+    batch statistics): {leaf: its largest share of its limit}, dx's
+    against the bf16 limit 2^-7 max|jax| + 2^-7 |jax|."""
+    n, cin, c, h = shape
+    d = _case(*shape, seed=17)
+    args = [d[k] for k in CHAIN_ARGS]
+    gen = torch.Generator().manual_seed(18)
+    dout = torch.randn(n, cin, h * h, generator=gen).to(BF)
+    widths = (c, c, c, c, cin, cin)
+    cots = [torch.randn(k, generator=gen) if stat_cots else torch.zeros(k)
+            for k in widths]
+    jout, jvjp = __import__("jax").vjp(
+        lambda *a: jfb.fused_bottleneck_rest(*a, h, EPS), *map(_j, args))
+    want = jvjp((_j(dout),) + tuple(map(_j, cots)))
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    outs = tfb.fused_bottleneck_rest(*leaves, h, EPS)
+    torch.autograd.backward(outs, (dout,) + tuple(cots))
+    assert outs[0].dtype == BF and leaves[0].grad.dtype == BF
+    dx, wdx = leaves[0].grad.float(), _t(want[0]).float()
+    shares = {"x": float(((dx - wdx).abs() / (
+        BF16_REL * wdx.abs().max() + BF16_REL * wdx.abs())).max())}
+    for name, leaf, w in zip(CHAIN_ARGS[1:], leaves[1:], want[1:]):
+        assert leaf.grad.dtype == leaf.dtype, name
+        shares[name] = _grad_share(leaf.grad, _t(w), name)
+    return shares
+
+
+@pytest.mark.parametrize("shape,stat_cots", [((2, 32, 16, 8), False),
+                                             ((2, 32, 16, 8), True),
+                                             ((8, 16, 8, 7), False),
+                                             ((4, 64, 32, 6), True)])
+def test_rest_bwd_in_bf16_matches_jax_vjp(interpret, shape, stat_cots):
+    """FusedBottleneckRest on a bf16 block (the bf16 wrappers' plain
+    versions, float32 BN folds) against jax.vjp of the JAX package's
+    fused_bottleneck_rest (its custom VJP on the interpreted Pallas
+    kernels) on the same bf16 inputs and cotangents: dx bf16 within the
+    bf16 limit 2^-7 max|jax| + 2^-7 |jax|; dW1, dtaps, dW3 (bf16) within
+    FILTER_GRAD_RTOL of max|jax| and the six dγ, dβ (float32) within
+    BN_GRAD_RTOL of it."""
+    shares = _rest_bwd_shares(shape, stat_cots)
+    assert all(v <= 1 for v in shares.values()), shares
+
+
+@pytest.mark.parametrize("fault", sorted(FAULTS))
+def test_rest_bwd_in_bf16_limits_fail_planted_faults(interpret, monkeypatch,
+                                                     fault):
+    """The vjp test's limits fail a backward whose bwd_mid drops its tap
+    gradients (dtaps reads 1.0 of max|jax|) and one whose bwd_final folds
+    da1 without r1 (dW1 and dx move): each fault takes some leaf past its
+    limit."""
+    name, fn = FAULTS[fault]
+    monkeypatch.setattr(tfb, name, fn)
+    shares = _rest_bwd_shares((2, 32, 16, 8), True)
+    assert any(v > 1 for v in shares.values()), shares
+
+
+def test_op_gradient_in_bf16_through_the_chain_matches_jax(interpret,
+                                                            monkeypatch):
+    """With the gate open (as PT_FUSED_BLOCK=always on the card), the
+    fused_bottleneck op sends a bf16 block with a gradient wanted through
+    the chain; the gradients of one loss over Out (bf16 cotangents) of x,
+    the three filters (float32 masters, cast to bf16 in the op) and the
+    six BN scales and biases, against jax.grad of the JAX op through its
+    Pallas chain (its _fused_block_enabled patched true): dX within the
+    bf16 limit, W1-W3 within FILTER_GRAD_RTOL of max|jax|, the six
+    scales and biases within BN_GRAD_RTOL of it."""
+    import jax
+    n, cin, c, h = 8, 128, 64, 4
+    monkeypatch.setenv("PT_FUSED_BLOCK", "always")
+    monkeypatch.setenv("PT_FUSED_BLOCK_MIN_S", "16")
+    monkeypatch.setattr(tfo, "fused_block_enabled", lambda device: True)
+    monkeypatch.setattr(tfo, "CHAIN_MIN_S", 16)
+    monkeypatch.setattr(jfo, "_fused_block_enabled", lambda ctx: True)
+    calls = []
+    chain = tfo._chain_block
+    monkeypatch.setattr(tfo, "_chain_block",
+                        lambda *a: calls.append(a[0].dtype) or chain(*a))
+    d = _case(n, cin, c, h, seed=19)
+    w2 = d["taps"].float().reshape(3, 3, c, c).permute(2, 3, 0, 1)
+    base = [d["x"].reshape(n, cin, h, h),
+            d["w1"].float().reshape(c, cin, 1, 1), w2.contiguous(),
+            d["w3"].float().reshape(cin, c, 1, 1)]
+    bn = _bn_params(d, c, cin, seed=20)
+    gen = torch.Generator().manual_seed(21)
+    dvec = torch.randn(n, cin, h, h, generator=gen).to(BF)
+    attrs = {"epsilon": EPS, "momentum": 0.9}
+    names = ["X", "W1", "W2", "W3"] + [f"{s}{k}" for k in "123"
+                                       for s in ("Scale", "Bias")]
+
+    def j_loss(x, w1, w2_, w3, *sb):
+        params = [(sb[2 * i], sb[2 * i + 1]) + tuple(map(_j, bn[i][2:]))
+                  for i in range(3)]
+        outs = jfo.fused_bottleneck(None, _op_ins(x, w1, w2_, w3, params),
+                                    attrs)
+        return (outs["Out"][0].astype("float32")
+                * _j(dvec).astype("float32")).sum()
+
+    jleaves = list(map(_j, base)) + [_j(v) for p in bn for v in p[:2]]
+    want = jax.grad(j_loss, argnums=tuple(range(10)))(*jleaves)
+    leaves = [t.clone().requires_grad_(True) for t in base] + [
+        v.clone().requires_grad_(True) for p in bn for v in p[:2]]
+    params = [(leaves[4 + 2 * i], leaves[5 + 2 * i]) + tuple(bn[i][2:])
+              for i in range(3)]
+    ctx = ExecContext(torch.Generator(), torch.device("cpu"))
+    outs = require_op("fused_bottleneck").compute(
+        ctx, _op_ins(*leaves[:4], params), attrs)
+    (outs["Out"][0].float() * dvec.float()).sum().backward()
+    assert calls == [BF]
+    _hold_bf16(leaves[0].grad, _t(want[0]), "dX")
+    shares = {name: _grad_share(leaf.grad, _t(w), name)
+              for name, leaf, w in zip(names[1:], leaves[1:], want[1:])}
+    assert all(v <= 1 for v in shares.values()), shares
+
+
+# ---------------------------------------------------------------------------
+# the slice: a Momentum step of a bf16 ResNet through the chain
+# ---------------------------------------------------------------------------
+
+STEP_LOSS_RTOL, BF16_SPREAD = 1e-2, 2.0
+
+
+def _resnet_train(pkg, dtype="bfloat16", amp=False):
+    """_resnet_forward's ResNet (a stem conv + BN + ReLU to 256 channels,
+    two rest blocks of C 64, pool, fc) with a Momentum step, its data var
+    of `dtype` (float32 masters either way), under amp_dtype "bfloat16"
+    with amp. (main, startup, loss)."""
+    layers = pkg.layers
+    main, startup = pkg.Program(), pkg.Program()
+    main.random_seed = startup.random_seed = 4
+    with pkg.program_guard(main, startup):
+        x = layers.data("data", [3, RES_IMAGE, RES_IMAGE], dtype=dtype)
+        label = layers.data("label", [1], dtype="int64")
+        h = layers.batch_norm(input=layers.conv2d(
+            input=x, num_filters=256, filter_size=3, padding=1,
+            bias_attr=False), act="relu")
+        h = layers.fused_bottleneck(h, ch_out=64)
+        h = layers.fused_bottleneck(h, ch_out=64)
+        h = layers.pool2d(h, pool_size=RES_IMAGE, pool_type="avg",
+                          global_pooling=True)
+        logits = layers.fc(h, size=RES_CLASSES)
+        loss = layers.mean(layers.softmax_with_cross_entropy(logits, label))
+        pkg.optimizer.MomentumOptimizer(learning_rate=0.1,
+                                        momentum=0.9).minimize(loss)
+    if amp:
+        main.amp_dtype = "bfloat16"
+    return main, startup, loss
+
+
+def _train_feed(seed):
+    rng = np.random.RandomState(seed)
+    return {"data": rng.rand(RES_BATCH, 3, RES_IMAGE, RES_IMAGE)
+            .astype(np.float32) - 0.5,
+            "label": rng.randint(0, RES_CLASSES, (RES_BATCH, 1))
+            .astype(np.int64)}
+
+
+def _distance(got, want):
+    """(largest, median) relative rms of each var's update against
+    want's, over the vars want moves."""
+    rel = [float((got[n] - w).norm() / w.norm()) for n, w in want.items()
+           if w.norm() > 0]
+    return max(rel), float(np.median(rel))
+
+
+@pytest.mark.parametrize("fault", [None, "no tap gradients"])
+def test_bf16_momentum_step_through_the_chain_matches_composition(
+        monkeypatch, fault):
+    """The slice on the CPU: one Momentum step of a bf16 ResNet whose two
+    rest blocks the gate takes, from one startup state, through the chain
+    (PT_FUSED_BLOCK=always; the gate patched to follow it, CHAIN_MIN_S
+    down to the image) and composed, beside the same program in float32
+    composed from the same state: both blocks through the chain in bf16,
+    every master float32; the chain's loss within STEP_LOSS_RTOL of the
+    float32 loss, and its updates (parameters, velocities, running
+    stats; the largest and the median relative rms over the vars) within
+    BF16_SPREAD times the bf16 composition's distance from float32 (0.19
+    and 0.11 here: bf16's own spread at init). A chain whose bwd_mid
+    drops its tap gradients fails."""
+    monkeypatch.setattr(tfo, "fused_block_enabled",
+                        lambda device: tfo.chain_requested())
+    monkeypatch.setattr(tfo, "CHAIN_MIN_S", 16)
+    if fault:
+        monkeypatch.setattr(tfb, "bwd_mid_bf16", _no_dtaps)
+    chained = []
+    chain = tfo._chain_block
+    monkeypatch.setattr(tfo, "_chain_block",
+                        lambda *a: chained.append(a[0].dtype) or chain(*a))
+    feed = _train_feed(22)
+    got, start = {}, None
+    for what, dtype, mode in (("float32", "float32", "never"),
+                              ("bf16", "bfloat16", "never"),
+                              ("chain", "bfloat16", "always")):
+        tprog.reset_unique_names()
+        main, startup, loss = _resnet_train(pt, dtype)
+        exe = pt.Executor(pt.CPUPlace())
+        if start is None:
+            scope0 = pt.Scope()
+            exe.run(startup, scope=scope0)
+            start = {n: scope0.find_var(n).clone()
+                     for n in scope0.local_var_names()}
+        monkeypatch.setenv("PT_FUSED_BLOCK", mode)
+        scope = pt.Scope()
+        for n, v in start.items():
+            scope.set_var(n, v.clone())
+        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        got[what] = (float(np.asarray(out).ravel()[0]),
+                     {n: scope.find_var(n).double() - v.double()
+                      for n, v in start.items()})
+        assert all(scope.find_var(n).dtype == torch.float32
+                   for n, v in start.items() if v.is_floating_point())
+    assert chained == [BF, BF]
+    f32_loss, f32_up = got["float32"]
+    chain_loss = got["chain"][0]
+    spread = _distance(got["bf16"][1], f32_up)
+    dist = _distance(got["chain"][1], f32_up)
+    ok = (np.isfinite(chain_loss)
+          and abs(chain_loss - f32_loss) <= STEP_LOSS_RTOL * abs(f32_loss)
+          and all(d <= BF16_SPREAD * r for d, r in zip(dist, spread)))
+    assert ok == (fault is None), (chain_loss, f32_loss, dist, spread)
+
+
+def test_amp_step_through_the_chain_trains(monkeypatch):
+    """An AMP program with a backward over fused_bottleneck builds and
+    trains with PT_FUSED_BLOCK=always (the chain has bfloat16 kernels
+    forward and backward): the float32 ResNet above under amp_dtype
+    "bfloat16", its gate open on the CPU (the plain versions in bf16):
+    both blocks through the chain in bf16, two steps with finite losses,
+    every master float32 and moved."""
+    monkeypatch.setenv("PT_FUSED_BLOCK", "always")
+    monkeypatch.setattr(tfo, "fused_block_enabled", lambda device: True)
+    monkeypatch.setattr(tfo, "CHAIN_MIN_S", 16)
+    chained = []
+    chain = tfo._chain_block
+    monkeypatch.setattr(tfo, "_chain_block",
+                        lambda *a: chained.append(a[0].dtype) or chain(*a))
+    tprog.reset_unique_names()
+    main, startup, loss = _resnet_train(pt, "float32", amp=True)
+    exe, scope = pt.Executor(pt.CPUPlace()), pt.Scope()
+    exe.run(startup, scope=scope)
+    params = [p.name for p in main.global_block.all_parameters()]
+    start = {n: scope.find_var(n).clone() for n in params}
+    losses = [float(np.asarray(exe.run(main, feed=_train_feed(23 + i),
+                                       fetch_list=[loss], scope=scope)[0])
+                    .ravel()[0]) for i in range(2)]
+    assert chained == [BF, BF] * 2
+    assert all(np.isfinite(losses))
+    for n in params:
+        v = scope.find_var(n)
+        assert v.dtype == torch.float32, n
+        assert not torch.equal(v, start[n]), n

@@ -2206,12 +2206,17 @@ def test_chain_bf16_kernels_refuse_what_they_do_not_take(cuda):
 @pytest.mark.parametrize("grad", [False, True])
 def test_fused_bottleneck_bf16_on_the_card(cuda, monkeypatch, grad):
     """The fused_bottleneck op on a bf16 block (N 8, Cin 128, C 64, H 14)
-    with PT_FUSED_BLOCK=always: with no gradient wanted it runs the bf16
-    chain, one launch of each kernel, and agrees with the bf16
+    with PT_FUSED_BLOCK=always runs the bf16 chain, one launch of each
+    forward kernel and none of the float32 ones, and agrees with the bf16
     composition (Out within 2^-5 max|comp| + 2^-5 |comp|: two bf16 paths
     that round at other places, the stat outputs within 2e-2 relative);
-    with a filter that requires grad it raises "not ported" before any
-    launch."""
+    with a filter that requires grad, a loss over Out backpropagates
+    through the four bf16 backward kernels, one launch of each, and the
+    gradients of x, the three filters and the six BN scales and biases,
+    each one's relative rms distance from the float32 composition's,
+    within twice the bf16 composition's distance (bf16's own spread at
+    init through three BNs: 0.04 to 0.13 on the CPU, where the plain
+    chain reads 0.04 to 0.12)."""
     from paddle_tpu_torch.core.registry import ExecContext, require_op
     from paddle_tpu_torch.ops import fused_ops
 
@@ -2228,33 +2233,59 @@ def test_fused_bottleneck_bf16_on_the_card(cuda, monkeypatch, grad):
         0.2 * torch.randn(k, generator=gen),
         0.1 * torch.randn(k, generator=gen),
         torch.rand(k, generator=gen) + 0.5)) for k in (c, c, cin)]
-    ins = _chain_op_ins(x, w1.requires_grad_(grad), w2, w3, bn)
+    dvec = torch.randn(n, cin, h, h, generator=gen).cuda()
     op = require_op("fused_bottleneck").compute
     ctx = ExecContext(torch.Generator(), torch.device("cuda"))
     attrs = {"epsilon": 1e-5, "momentum": 0.9}
-    names = _CHAIN_BF16 + ("conv1x1_stats", "conv3x3_norm_stats",
-                           "norm_relu_moments", "conv1x1_bn_residual")
+    f32 = ("conv1x1_stats", "conv3x3_norm_stats", "norm_relu_moments",
+           "conv1x1_bn_residual") + _BWD
+    names = _CHAIN_BF16 + tuple(k + "_bf16" for k in _BWD) + f32
     before = [getattr(fb, name).launches for name in names]
-    if grad:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            op(ctx, ins, attrs)
-        assert [getattr(fb, name).launches for name in names] == before
-        return
-    with torch.no_grad():
-        outs = op(ctx, ins, attrs)
+
+    def leaves():
+        ls = [x.clone(), w1.clone(), w2.clone(), w3.clone()] + [
+            v.clone() for p in bn for v in p[:2]]
+        return [t.requires_grad_(grad) for t in ls]
+
+    got_l, want_l, f32_l = leaves(), leaves(), leaves()
+    f32_l[0] = f32_l[0].detach().float().requires_grad_(grad)
+    params = [(got_l[4 + 2 * i], got_l[5 + 2 * i]) + bn[i][2:]
+              for i in range(3)]
+    with torch.set_grad_enabled(grad):
+        outs = op(ctx, _chain_op_ins(*got_l[:4], params), attrs)
         want, want_st = fused_ops.compose_block(
-            x, *(w.bfloat16() for w in (w1, w2, w3)), bn, 1e-5, 0.9)
+            want_l[0], *(w.bfloat16() for w in want_l[1:4]),
+            [(want_l[4 + 2 * i], want_l[5 + 2 * i]) + bn[i][2:]
+             for i in range(3)], 1e-5, 0.9)
+        if grad:
+            ref, _ = fused_ops.compose_block(
+                f32_l[0], *f32_l[1:4], [(f32_l[4 + 2 * i], f32_l[5 + 2 * i])
+                                        + bn[i][2:] for i in range(3)],
+                1e-5, 0.9)
+            (outs["Out"][0].float() * dvec).sum().backward()
+            (want.float() * dvec).sum().backward()
+            (ref * dvec).sum().backward()
     torch.cuda.synchronize()
     assert [getattr(fb, name).launches for name in names] == [
-        k + 1 for k in before[:4]] + before[4:]
+        k + (1 if i < 4 or grad and i < 8 else 0)
+        for i, k in enumerate(before)]
     got = outs["Out"][0]
     assert got.dtype == torch.bfloat16
     lim = 2 ** -5 * (want.float().abs().max() + want.float().abs())
     assert bool(((got.float() - want.float()).abs() <= lim).all())
     slots = [s.format(k=k) for k in "123" for s in fused_ops._BN_OUT_SLOTS]
     for slot, w in zip(slots, want_st):
-        torch.testing.assert_close(outs[slot][0], w.float(), atol=2e-2 *
-                                   float(w.abs().max()), rtol=2e-2)
+        torch.testing.assert_close(outs[slot][0].detach(), w.float().detach(),
+                                   atol=2e-2 * float(w.abs().max()),
+                                   rtol=2e-2)
+    if grad:
+        for i, (g, w, f) in enumerate(zip(got_l, want_l, f32_l)):
+            assert g.grad.dtype == g.dtype, i
+            assert bool(torch.isfinite(g.grad.float()).all()), i
+            ref = f.grad.float()
+            dist = [float((t.grad.float() - ref).norm() / ref.norm())
+                    for t in (g, w)]
+            assert dist[0] <= 2 * dist[1], (i, dist)
 
 
 _BWD = ("bwd_reduce3", "bwd_apply3", "bwd_mid", "bwd_final")
@@ -2661,3 +2692,163 @@ def test_guarded_nan_grad_step_on_the_card_changes_nothing(
     assert bool(health)
     assert not torch.equal(_tr_state(t)["@LR_DECAY_COUNTER@"],
                            before["@LR_DECAY_COUNTER@"])
+
+
+# ---------------------------------------------------------------------------
+# the bf16 chain's backward kernels (csrc/fused_block_bf16.cu)
+# ---------------------------------------------------------------------------
+
+def _smoke():
+    """chip_smoke, whose phase 3 holds the bf16 backward kernels through
+    the helpers these tests call."""
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke
+
+
+def _bf16_bwd_inputs(gen, n, cin, c, h, w=None):
+    """{kernel: args} of the four bf16 backward wrappers as
+    bottleneck_rest_bwd calls them on a bf16 block (a _chain_case rounded
+    to bf16, its forward through the plain versions), with a bf16
+    cotangent of out and random ones of the batch statistics
+    (chip_smoke.chain_bwd_inputs)."""
+    d = _bf16_chain_inputs(_chain_case(gen, n, cin, c, h, w))
+    s = d["x"].shape[2]
+    dout = torch.randn(n, cin, s, generator=gen).cuda().bfloat16()
+    cots = [0.1 * torch.randn(k, generator=gen).cuda()
+            for k in (c, c, c, c, cin, cin)]
+    return _smoke().chain_bwd_inputs(torch, fb, dict(d, gam=d["g"],
+                                                     bet=d["b"]),
+                                     dout, h, "_bf16", cots)
+
+
+def _hold_bf16_bwd(name, args, got, want):
+    """A bf16 backward kernel's outputs against its plain version's at
+    phase 3's limits (chip_smoke.bf16_bwd_readings: g3 bit for bit; g2,
+    g1 and dx within 2^-7 max|plain| + 2^-7 |plain|; the sums within 1e-5
+    of their terms' magnitudes plus what the values that differ move;
+    dtaps against the float64 product), and at most 1e-3 of g2, g1 or dx
+    apart from the plain version's; the first output bf16, the sums
+    float32."""
+    assert got[0].dtype == torch.bfloat16, name
+    assert all(t.dtype == torch.float32 for t in got[1:]), name
+    for what, (share, differ) in _smoke().bf16_bwd_readings(
+            torch, fb, name, args, got, want).items():
+        assert share <= 1, (name, what, share)
+        assert differ is None or differ <= 1e-3, (name, what, differ)
+
+
+@pytest.mark.parametrize("n,cin,c,h", [
+    (2, 32, 16, 8),           # the CPU tests' shape: 64-row tiles
+    (2, 256, 64, 56),         # the three chain stages' widths
+    (2, 512, 128, 28),
+    (1, 1024, 256, 14),       # two 128-row tiles of C
+    (4, 256, 64, 14),         # S 196: tiles straddle images
+    (3, 128, 128, 7),         # S 49: one by one, not 4 columns a load
+    (2, 48, 80, 9),           # Cin 48, C 80: partial tiles, K 128 in
+                              # apply3; S 81
+    (2, 64, 128, (6, 10)),    # a non-square image
+    (1, 64, 64, (3, 130)),    # rows wider than a 3x3 tile
+])
+def test_chain_bwd_bf16_kernels_match_plain(cuda, n, cin, c, h):
+    """Each bf16 backward kernel against its plain version on the inputs
+    the bf16 chain makes (_hold_bf16_bwd's limits, phase 3's), and a
+    second call of each bit-identical."""
+    h, w = h if isinstance(h, tuple) else (h, h)
+    gen = torch.Generator().manual_seed(3 * n + cin + c + h + 5 * w)
+    args = _bf16_bwd_inputs(gen, n, cin, c, h, w)
+    for name in _BWD:
+        fn = getattr(fb, name + "_bf16")
+        got = fn(*args[name])
+        want = getattr(fb, name + "_reference")(*args[name])
+        _hold_bf16_bwd(name, args[name], got, want)
+        again = fn(*args[name])
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), name
+
+
+def test_chain_bwd_bf16_wrappers_never_fall_back(cuda, monkeypatch):
+    """With the eight plain versions patched to raise, a bf16 block's
+    forward and backward (FusedBottleneckRest) run on the card through the
+    bf16 kernels, one launch of each a call, and through no float32 chain
+    kernel; every gradient finite and of its input's dtype."""
+    def boom(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    f32 = ("conv1x1_stats", "conv3x3_norm_stats", "norm_relu_moments",
+           "conv1x1_bn_residual") + _BWD
+    for name in f32:
+        monkeypatch.setattr(fb, name + "_reference", boom)
+    bf = _CHAIN_BF16 + tuple(k + "_bf16" for k in _BWD)
+    gen = torch.Generator().manual_seed(23)
+    d = _bf16_chain_inputs(_chain_case(gen, 2, 128, 64, 14))
+    leaves = [d[k].clone().requires_grad_(True)
+              for k in ("x", "w1", "taps", "w3")]
+    bn = [t.clone().requires_grad_(True)
+          for i in range(3) for t in (d["g"][i], d["b"][i])]
+    before = [getattr(fb, name).launches for name in bf + f32]
+    outs = fb.fused_bottleneck_rest(*leaves, *bn, 14)
+    (outs[0].float() * torch.randn(outs[0].shape, generator=gen).cuda()
+     ).sum().backward()
+    torch.cuda.synchronize()
+    assert [getattr(fb, name).launches for name in bf + f32] == [
+        k + 1 for k in before[:8]] + before[8:]
+    for t in leaves + bn:
+        assert t.grad.dtype == t.dtype
+        assert bool(torch.isfinite(t.grad.float()).all())
+
+
+def test_chain_bwd_bf16_kernels_count_one_launch_a_call(cuda):
+    """Each bf16 backward wrapper counts one launch a call (its fold and
+    fixed-order passes included)."""
+    gen = torch.Generator().manual_seed(24)
+    args = _bf16_bwd_inputs(gen, 2, 32, 16, 8)
+    for name in _BWD:
+        fn = getattr(fb, name + "_bf16")
+        before = fn.launches
+        for _ in range(3):
+            fn(*args[name])
+        assert fn.launches == before + 3, name
+
+
+def test_chain_bwd_bf16_kernels_refuse_what_they_do_not_take(cuda):
+    """A float32 operand among bf16 ones, an operand off 16-byte
+    alignment, a strided one, bwd_mid's C not a multiple of 16 and a C
+    past the cap each raise before any launch."""
+    gen = torch.Generator().manual_seed(25)
+    args = _bf16_bwd_inputs(gen, 2, 32, 16, 8)
+    names = tuple(k + "_bf16" for k in _BWD)
+    before = [getattr(fb, name).launches for name in names]
+
+    def broken(name, i, t):
+        a = list(args[name])
+        a[i] = t
+        return a
+
+    for name in _BWD:
+        fn = getattr(fb, name + "_bf16")
+        a1 = args[name][1]
+        with pytest.raises(TypeError):
+            fn(*broken(name, 1, a1.float()))
+        off = torch.empty(a1.numel() + 1, dtype=torch.bfloat16,
+                          device="cuda")[1:].view_as(a1)
+        off.copy_(a1)
+        with pytest.raises(ValueError, match="aligned"):
+            fn(*broken(name, 1, off))
+        strided = a1.transpose(0, 1).contiguous().transpose(0, 1)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(*broken(name, 1, strided))
+    mid = [t[:, :8].contiguous() if isinstance(t, torch.Tensor) and t.dim()
+           == 3 and t.shape[0] == 2 else t[:8] if isinstance(t, torch.Tensor)
+           and t.dim() == 1 else t for t in args["bwd_mid"]]
+    mid[10] = args["bwd_mid"][10][:, :8, :8].contiguous()
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fb.bwd_mid_bf16(*mid)
+    cap = fb.conv1x1_max_c(torch.bfloat16)
+    dout, out = args["bwd_reduce3"][:2]
+    wide = torch.zeros(2, cap + 64, 64, dtype=torch.bfloat16, device="cuda")
+    vec = torch.zeros(cap + 64, device="cuda")
+    with pytest.raises(ValueError, match="at most"):
+        fb.bwd_reduce3_bf16(dout, out, wide, vec, vec)
+    assert [getattr(fb, name).launches for name in names] == before

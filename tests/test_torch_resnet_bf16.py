@@ -205,11 +205,11 @@ def test_bf16_data_meets_float32_filters_as_in_jax(what, pallas_epilogue):
 def test_bf16_block_through_the_chain_is_not_ported(monkeypatch, grad):
     """Where the chain's gate is open (PT_FUSED_BLOCK=always on the card;
     here fused_block_enabled patched true, CHAIN_MIN_S down to the
-    image), a bfloat16 block with no gradient wanted (under no_grad) takes
-    the chain, whose forward kernels have bf16 versions; with a gradient
-    wanted (a filter that requires grad) it raises "not ported" before
-    the chain is called, as the chain's backward kernels have none; a
-    float32 block of the same shape takes the chain either way."""
+    image), a bfloat16 block takes the chain with no gradient wanted
+    (under no_grad) and with one (a filter that requires grad): the
+    chain's kernels have bf16 versions forward and backward; a float16
+    block raises "not ported" before the chain is called; a float32 block
+    of the same shape takes the chain either way."""
     from paddle_tpu_torch.ops import fused_ops
 
     calls = []
@@ -231,15 +231,15 @@ def test_bf16_block_through_the_chain_is_not_ported(monkeypatch, grad):
                     "Variance" + k: [torch.ones(width)]})
     ctx = treg.ExecContext(torch.Generator(), torch.device("cpu"))
     op = treg.require_op("fused_bottleneck").compute
-    if grad:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            op(ctx, ins, {})
-        assert calls == []
-    else:
-        with torch.no_grad(), pytest.raises(IndexError):   # no stats
-            op(ctx, ins, {})
-        assert calls == [torch.bfloat16]
+    with torch.set_grad_enabled(grad), pytest.raises(IndexError):  # no stats
+        op(ctx, ins, {})
+    assert calls == [torch.bfloat16]
     calls.clear()
+    half = dict(ins, X=[ins["X"][0].half()])
+    with torch.set_grad_enabled(grad), pytest.raises(NotImplementedError,
+                                                      match="not ported"):
+        op(ctx, half, {})
+    assert calls == []
     ins["X"] = [ins["X"][0].float()]
     with pytest.raises(IndexError):   # the stand-in returns no stats
         op(ctx, ins, {})
