@@ -31,8 +31,9 @@ no result line:
    d_model 2048, 8 heads, d_ff 8192, context 1024, 8 slots, 16-token
    blocks, random weights from --seed) through DecodeEngine, whose
    prefill runs the bundle's transformer_lm programs (one a length
-   bucket) and whose decode step runs TransformerLM.decode_step: 12
-   requests, launch counts read around the run, the prefill ms per
+   bucket) and whose decode step runs the bundle's
+   transformer_decode_step program: 12 requests, launch counts read
+   around the run (the paged kernel once a layer a step), the prefill ms per
    bucket, then a teacher-forced check of two requests (decode-step
    logits against the prefill program's, within LOGIT_TOL), then device
    time by kernel (torch.profiler) for one prefill per bucket and for
@@ -241,8 +242,27 @@ no result line:
    float32 program under amp_dtype "bfloat16" through the chain (a
    warm-up and RESNET_STEPS steps); each bf16 chain kernel launched 10
    times a step and no float32 chain kernel;
-23. print the kernels' JSON line, the card line and the result line.
+23. serve phase 4's model in bf16 at full width: transformer_decode_step
+   built at its configuration, phase 4's weights in a Scope cast to bf16
+   by Float16Transpiler (the Scope's memory after the cast, and its
+   peak), resident bf16 pools seeded from the float32 bundle's prefill
+   K/V of 8 prompts (3 to 900 tokens), BF16_DECODE_STEPS greedy steps
+   through Executor.run with return_numpy=False: 6 launches of the bf16
+   paged kernel a step and none of the float32 one, the pools written in
+   place, finite logits, each step's logits against the float32 step
+   program's on the same tokens and pools within BF16_DECODE_RTOL and a
+   step whose pool write is skipped failing it; then ms a step and peak
+   memory of the bf16 and the float32 programs in turns, and one
+   profiled step of each;
+24. print the kernels' JSON line, the card line and the result line.
 
+Phase 3 also holds the bf16 paged decode kernel (csrc/paged_attention.cu's
+bf16 instance) against its plain version on the same bf16 inputs at the
+paged shape, over the six pool pairs in turn, within BF16_REL
+max|plain| + BF16_REL |plain| with the share of values whose bits
+differ, two calls the same bits, timed beside its bound (bf16 bytes),
+its plain version and the float32 kernel, with device ms and launches a
+call, host us a call and TB/s.
 Phase 3 also holds the three bf16 flash kernels (forward, dQ, dK/dV;
 csrc/flash_attention_bf16.cu) against their plain versions at
 FLASH_BF16_SHAPES (H 8, D 256, causal; the AMP training step's B 8, S
@@ -417,6 +437,22 @@ REDUCED = dict(vocab_size=32000, n_layers=2, d_model=256, n_heads=2,
 # atol = rtol = LSE_TOL
 FLASH_BF16_SHAPES = ((1, 128), (1, 333), (1, 1024), (8, 1024))
 BF16_REL, LSE_TOL = 2.0 ** -7, 1e-4
+# bf16 decode (phase 23): phase 4's model as a transpiled step program
+# (Float16Transpiler) over resident bf16 pools seeded from the float32
+# bundle's prefill of prompts of these lengths (short ones, where one
+# missing key row moves the output, beside long ones), BF16_DECODE_STEPS
+# greedy steps; each teacher-forced step's logits against the float32
+# program's on the same tokens and pools, as the relative rms over the
+# vocabulary of each slot (rms of the difference over rms of the float32
+# logits), the largest over slots and steps within BF16_DECODE_RTOL. The
+# JAX package's own bf16 step sits 8.3e-3 from its float32 one at the
+# CPU tests' width (tests/test_torch_decode_program.py); the limit leaves
+# room for a wider, deeper model, and a step whose pool write is skipped
+# must read above it.
+BF16_DECODE_PROMPTS = (3, 9, 17, 40, 130, 333, 640, 900)
+BF16_DECODE_STEPS = 8
+BF16_DECODE_RTOL = 0.05
+BF16_DECODE_TIMED = 10
 # mixed precision (phase 16), card vs CPU, tests/test_torch_amp.py's
 # limits (bf16 rounds at other places on the card, in the bf16 flash
 # kernels and cuBLAS, than on the CPU): losses within AMP_LOSS_RTOL; the
@@ -927,63 +963,97 @@ def paged_case(torch, seed: int = 2, pools: int = 1):
 
 
 def paged_bytes(q, tables, lens) -> int:
-    """What one call must move: the live keys' K and V rows, q, out, the
-    tables and the lengths."""
+    """What one call must move: the live keys' K and V rows, q, out (in
+    q's element size), the tables and the lengths (int32)."""
     _, h, d = q.shape
-    return 4 * (2 * int(lens.sum()) * h * d + 2 * q.numel() + tables.numel()
-                + lens.numel())
+    return (q.element_size() * (2 * int(lens.sum()) * h * d + 2 * q.numel())
+            + 4 * (tables.numel() + lens.numel()))
 
 
-def check_paged(torch, fa, card):
-    """Paged decode vs its plain version at paged_case's shape, two calls
-    bit for bit; timed back to back on one pool pair and over
-    PAGED_POOLS distinct pairs in turn (as the decode step's layers read
-    them: the 55.5 MB of one call fit the 50 MB L2 nearly whole, so
-    back-to-back calls on one pair may partly hit it); device ms and
-    CUDA launches a call (profiler), host us a call (200 queued), TB/s."""
+def check_paged(torch, fa, card, bf16: bool = False):
+    """Paged decode (row 4; with bf16, row 4b on paged_case's inputs
+    rounded to bf16) vs its plain version at paged_case's shape over the
+    PAGED_POOLS pool pairs, within KERNEL_ATOL / KERNEL_RTOL (bf16:
+    BF16_REL max|plain| + BF16_REL |plain|, with the share of values
+    whose bits differ), the idle slot zeros, two calls bit for bit;
+    timed back to back on one pool pair and over the pairs in turn (as
+    the decode step's layers read them: the 55.5 MB of one float32 call
+    fit the 50 MB L2 nearly whole, so back-to-back calls on one pair may
+    partly hit it); device ms and CUDA launches a call (profiler), host
+    us a call (200 queued), TB/s; bf16 beside the float32 kernel on the
+    same values."""
     q, pairs, tables, lens = paged_case(torch, pools=PAGED_POOLS)
+    wrapper = fa.paged_decode_attention
+    if bf16:
+        q = q.bfloat16()
+        pairs = [(k.bfloat16(), v.bfloat16()) for k, v in pairs]
+        wrapper = fa.paged_decode_attention_bf16
+    name = wrapper.__name__
+    errs, shares, differ = [], [], []
+    for k_pool, v_pool in pairs:
+        out = wrapper(q, k_pool, v_pool, tables, lens)
+        ref = fa.paged_attention_reference(q, k_pool, v_pool, tables, lens)
+        torch.cuda.synchronize()
+        if bf16:
+            shares.append(bf16_share(torch, out, ref))
+            differ.append(bits_differ(torch, out, ref))
+            errs.append(float((out.float() - ref.float()).abs().max()))
+        else:
+            errs.append(max_err(torch, out, ref))
+        if bool(out[4].abs().max() != 0):
+            raise RuntimeError(f"{name}: the idle slot's output is not zero")
+    if bf16 and max(shares) > 1.0:
+        raise RuntimeError(f"{name}: {max(shares):.3f} of the bf16 limit")
     k_pool, v_pool = pairs[0]
-    out = fa.paged_decode_attention(q, k_pool, v_pool, tables, lens)
-    again = fa.paged_decode_attention(q, k_pool, v_pool, tables, lens)
-    ref = fa.paged_attention_reference(q, k_pool, v_pool, tables, lens)
-    torch.cuda.synchronize()
-    err = max_err(torch, out, ref)
-    if bool(out[4].abs().max() != 0):
-        raise RuntimeError("the idle slot's output is not zero")
-    if not torch.equal(out, again):
-        raise RuntimeError("two paged decode calls differ")
+    out = wrapper(q, k_pool, v_pool, tables, lens)
+    if not torch.equal(out, wrapper(q, k_pool, v_pool, tables, lens)):
+        raise RuntimeError(f"two {name} calls differ")
     keys = int(lens.sum())
     nbytes = paged_bytes(q, tables, lens)
     b_ms, b_by = bound_ms(nbytes, 4 * keys * q.shape[1] * q.shape[2])
 
     def call():
-        fa.paged_decode_attention(q, k_pool, v_pool, tables, lens)
+        wrapper(q, k_pool, v_pool, tables, lens)
 
     def six():
         for kp, vp in pairs:
-            fa.paged_decode_attention(q, kp, vp, tables, lens)
+            wrapper(q, kp, vp, tables, lens)
 
     ms = cuda_ms(torch, call, 50)
     ms_six = cuda_ms(torch, six, 10) / len(pairs)
     device, launches, host = device_host(torch, call)
     if launches is not None and launches != 1:
-        raise RuntimeError(f"paged_decode_attention: {launches} CUDA "
-                           f"launches a call, expected 1")
+        raise RuntimeError(f"{name}: {launches} CUDA launches a call, "
+                           "expected 1")
     plain = cuda_ms(torch, lambda: fa.paged_attention_reference(
         q, k_pool, v_pool, tables, lens), 10)
     dev = "not measured" if device is None else f"{device:.4f} ms"
-    print(f"paged_decode_attention slots={SLOTS} lens={lens.tolist()}: "
-          f"max_abs_err {err:.3e} (tol atol {KERNEL_ATOL} rtol "
-          f"{KERNEL_RTOL}), kernel {ms:.4f} ms back to back, "
-          f"{ms_six:.4f} ms over {len(pairs)} pool pairs in turn, device "
-          f"{dev} and {launches} CUDA launch(es) a call (profiler), host "
-          f"{host:.1f} us a call (200 queued); {nbytes / ms / 1e9:.3f} "
-          f"TB/s ({nbytes / ms_six / 1e9:.3f} over the pools) of "
-          f"{nbytes / 1e6:.1f} MB, {b_ms / ms:.3f} of the bytes bound "
-          f"({b_ms / ms_six:.3f}); plain {plain:.4f} ms, bound {b_ms:.4f} "
-          f"ms ({b_by}) [{card}]")
+    by_dev = ("not measured" if device is None
+              else f"{b_ms / device:.3f}")
+    if bf16:
+        q32, k32, v32 = q.float(), k_pool.float(), v_pool.float()
+        f32_ms = cuda_ms(torch, lambda: fa.paged_decode_attention(
+            q32, k32, v32, tables, lens), 50)
+        held = (f"largest share of the bf16 limit over {len(pairs)} pool "
+                f"pairs {max(shares):.4f}, values whose bits differ from "
+                f"the plain version's {max(differ):.2e}, max_abs_err "
+                f"{max(errs):.3e}")
+        beside = f"; the float32 kernel on the same values {f32_ms:.4f} ms"
+    else:
+        held = (f"max_abs_err {max(errs):.3e} over {len(pairs)} pool "
+                f"pairs (tol atol {KERNEL_ATOL} rtol {KERNEL_RTOL})")
+        beside = ""
+    print(f"{name} slots={SLOTS} lens={lens.tolist()}: {held}, kernel "
+          f"{ms:.4f} ms back to back, {ms_six:.4f} ms over {len(pairs)} "
+          f"pool pairs in turn, device {dev} and {launches} CUDA launch(es)"
+          f" a call (profiler), host {host:.1f} us a call (200 queued); "
+          f"{nbytes / ms / 1e9:.3f} TB/s ({nbytes / ms_six / 1e9:.3f} over "
+          f"the pools) of {nbytes / 1e6:.1f} MB, {b_ms / ms:.3f} of the "
+          f"bytes bound ({b_ms / ms_six:.3f}; by device time {by_dev})"
+          f"{beside}; plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}) "
+          f"[{card}]")
     return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, max_abs_err=err)
+                library_ms=None, max_abs_err=max(errs))
 
 
 def make_params(np, param_shapes, seed: int) -> dict:
@@ -1251,6 +1321,13 @@ def main_path(np, torch, fa, card, seed: int):
                                for t in r["tokens"])):
                 raise RuntimeError(f"bad generation result {r}")
         snap = engine.metrics_snapshot()
+        # the bundle's step program runs the paged kernel once a layer
+        per_step = launches["paged_decode_attention"] / snap["decode_steps"]
+        print(f"main path: {per_step:.3f} paged kernel launches a decode "
+              f"step (the step program's {MODEL['n_layers']} layers)")
+        if per_step != MODEL["n_layers"]:
+            raise RuntimeError("the decode step did not launch the paged "
+                               "kernel once a layer")
         step_ms = 1e3 * snap["decode_s"] / snap["decode_steps"]
         print(f"main path: {N_REQUESTS} requests x {MAX_NEW} tokens in "
               f"{wall:.3f} s: {snap['tokens_out'] / wall:.1f} tokens/s, "
@@ -3406,6 +3483,208 @@ def bf16_step_verdicts(np, got, stage, card):
     return out
 
 
+def slot_rrms(torch, got, want) -> float:
+    """The largest relative rms over the slots (rows) of two [slots,
+    vocab] logits: rms of the difference over rms of `want`."""
+    got, want = got.float(), want.float()
+    num = (got - want).square().mean(dim=-1)
+    return float((num / want.square().mean(dim=-1)).sqrt().max())
+
+
+def decode_bf16_path(np, torch, fa, card, seed: int):
+    """Phase 23: phase 4's model served in bf16 at full width:
+    transformer_decode_step built at its configuration, phase 4's
+    weights (its float32 bundle exported again, for the prefill and the
+    float32 step's weights) in a Scope cast by Float16Transpiler (the
+    memory the Scope holds after the cast and its peak: no float32 copy
+    stays beside the bf16 weights), resident bf16 pools seeded from the float32 bundle's
+    prefill K/V of BF16_DECODE_PROMPTS, BF16_DECODE_STEPS greedy steps
+    through Executor.run (6 launches of the bf16 paged kernel a step and
+    none of the float32 one, the pools written in place, finite logits),
+    the float32 step program on the same tokens and pools within
+    BF16_DECODE_RTOL, a step whose pool write is skipped failing it, and
+    ms a step and peak memory of both programs in turns. Returns the bf16
+    kernel's launches of the greedy steps."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.core.types import resolve_device
+    from paddle_tpu_torch.models.transformer import (param_shapes,
+                                                     transformer_decode_step)
+    from paddle_tpu_torch.ops import attention_ops
+    from paddle_tpu_torch.serving.decode import DecodeModel
+    from paddle_tpu_torch.serving.decode.kv_cache import (
+        block_table_row, blocks_for_tokens, write_prefill_pages)
+    from paddle_tpu_torch.transpiler import Float16Transpiler
+
+    t_phase = time.perf_counter()
+    device = resolve_device()
+    params = make_params(np, param_shapes, seed)
+    with tempfile.TemporaryDirectory() as d:
+        io.export_decode_model(d, MODEL, params=params,
+                               length_buckets=BUCKETS, slots=SLOTS,
+                               block_size=BLOCK, pool_blocks=POOL_BLOCKS)
+        model = DecodeModel(d, device=device, warmup=False)
+    nl, bs, mb = MODEL["n_layers"], model.block_size, model.max_blocks_per_seq
+    main = pt.Program()
+    with pt.program_guard(main, pt.Program()):
+        logits, pools, feed_names = transformer_decode_step(
+            MODEL["vocab_size"], slots=model.slots, block_size=bs,
+            pool_blocks=model.pool_blocks, max_blocks_per_seq=mb,
+            **{k: MODEL[k] for k in ("n_layers", "d_model", "n_heads",
+                                     "d_ff", "max_context")})
+    fetch = [logits.name] + [v.name for kv in pools for v in kv]
+    prog32 = main.clone(for_test=True).prune(targets=fetch,
+                                             feeds=feed_names)
+    prog16 = prog32.clone(for_test=True)
+    scope32 = pt.Scope()
+    for name, t in model.prefill_model.state.items():
+        scope32.set_var(name, t)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    scope16 = io.scope_from_numpy(params, device)
+    del params
+    Float16Transpiler().transpile(prog16, scope16)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    peak = torch.cuda.max_memory_allocated() - base
+    weights = [scope16.find_var(n) for n in scope16.local_var_names()]
+    w_bytes = sum(t.numel() * t.element_size() for t in weights)
+    n_params = sum(t.numel() for t in weights)
+    print(f"bf16 decode: {n_params / 1e6:.1f} M weights in the Scope, "
+          f"dtypes {sorted({str(t.dtype) for t in weights})}, "
+          f"{w_bytes / 1e9:.3f} GB; the Scope holds {held / 1e9:.3f} GB "
+          f"on the card after Float16Transpiler, peak {peak / 1e9:.3f} GB "
+          f"while casting [{card}]")
+    if any(t.dtype != torch.bfloat16 for t in weights):
+        raise RuntimeError("a weight in the Scope is not bf16")
+    if held > w_bytes + (64 << 20):
+        raise RuntimeError(f"{held / 1e9:.3f} GB held beside "
+                           f"{w_bytes / 1e9:.3f} GB of bf16 weights: a "
+                           "float32 copy stayed alive")
+
+    # resident pools seeded from the float32 bundle's prefill
+    rng = np.random.default_rng(seed + 5)
+    shape = tuple(model._feed_meta[3]["shape"])
+    pools16 = [torch.zeros(shape, dtype=torch.bfloat16, device=device)
+               for _ in range(2 * nl)]
+    pools32 = [torch.zeros(shape, dtype=torch.float32, device=device)
+               for _ in range(2 * nl)]
+    tables = np.zeros((model.slots, mb), np.int32)
+    toks = np.zeros(model.slots, np.int64)
+    lens = np.zeros(model.slots, np.int32)
+    nxt = 1
+    for i, n in enumerate(BF16_DECODE_PROMPTS):
+        prompt = rng.integers(1, MODEL["vocab_size"], n).tolist()
+        first, kv = model.prefill(prompt)
+        blocks = list(range(nxt, nxt + blocks_for_tokens(
+            n + BF16_DECODE_STEPS + 2 * BF16_DECODE_TIMED + 2, bs)))
+        nxt += len(blocks)
+        for j, (k_rows, v_rows) in enumerate(kv):
+            for pl in (pools16, pools32):
+                write_prefill_pages(pl[2 * j], blocks, k_rows, bs)
+                write_prefill_pages(pl[2 * j + 1], blocks, v_rows, bs)
+        tables[i] = block_table_row(blocks, mb)
+        toks[i], lens[i] = int(np.argmax(first)), n + 1
+    if nxt > model.pool_blocks:
+        raise RuntimeError("the prompts do not fit the pool")
+    names = [f"{kv}_cache_{j}" for j in range(nl) for kv in "kv"]
+    exe = pt.Executor()
+
+    def step(prog, scope, pl, tok, ln):
+        feed = {"token_ids": tok, "context_lens": ln, "block_tables": tables}
+        feed.update(zip(names, pl))
+        return exe.run(prog, feed=feed, fetch_list=fetch, scope=scope,
+                       return_numpy=False)
+
+    # the greedy steps: the bf16 kernel's launches read around them
+    record = []
+    fa.paged_decode_attention.launches = 0
+    fa.paged_decode_attention_bf16.launches = 0
+    for _ in range(BF16_DECODE_STEPS):
+        out = step(prog16, scope16, pools16, toks, lens)
+        if not all(a is b for a, b in zip(out[1:], pools16)):
+            raise RuntimeError("the bf16 step did not write its pools in "
+                               "place")
+        record.append((toks.copy(), lens.copy(), out[0]))
+        toks = out[0].float().argmax(dim=-1).cpu().numpy()
+        lens = lens + 1
+    torch.cuda.synchronize()
+    launches = {"paged_decode_attention_bf16":
+                    fa.paged_decode_attention_bf16.launches,
+                "paged_decode_attention": fa.paged_decode_attention.launches}
+    print(f"bf16 decode launches over {BF16_DECODE_STEPS} greedy steps: "
+          f"{launches}")
+    if (launches["paged_decode_attention_bf16"] != nl * BF16_DECODE_STEPS
+            or launches["paged_decode_attention"] != 0):
+        raise RuntimeError(f"the bf16 step should launch the bf16 paged "
+                           f"kernel {nl} times and the float32 one none")
+
+    # the float32 program, teacher-forced on the same tokens
+    readings, agree = [], []
+    for tok, ln, l16 in record:
+        if not bool(torch.isfinite(l16.float()).all()):
+            raise RuntimeError("bf16 decode logits are not finite")
+        l32 = step(prog32, scope32, pools32, tok, ln)[0]
+        readings.append(slot_rrms(torch, l16, l32))
+        agree.append(int((l16.float().argmax(-1) == l32.argmax(-1)).sum()))
+    # a planted fault: the next step with its pool write skipped
+    real = attention_ops.paged_kv_update
+    attention_ops.paged_kv_update = lambda kp, vp, *a: (kp, vp)
+    try:
+        bad16 = step(prog16, scope16, pools16, toks, lens)[0]
+    finally:
+        attention_ops.paged_kv_update = real
+    ok32 = step(prog32, scope32, pools32, toks, lens)[0]
+    fault = slot_rrms(torch, bad16, ok32)
+    print(f"bf16 decode vs the float32 program, teacher-forced: largest "
+          f"relative rms over the slots by step "
+          f"{[round(r, 5) for r in readings]} (limit {BF16_DECODE_RTOL}); "
+          f"greedy tokens the same in {agree} of {model.slots} slots; a "
+          f"step whose pool write is skipped {fault:.4f} [{card}]")
+    if max(readings) > BF16_DECODE_RTOL:
+        raise RuntimeError("bf16 decode logits outside the limit of the "
+                           "float32 program's")
+    if fault <= BF16_DECODE_RTOL:
+        raise RuntimeError("a bf16 step that skips its pool write passes "
+                           "the limit: the hold cannot see it")
+
+    # ms a step and peak memory, the two programs in turns
+    lens = lens + 1
+    times = {"bf16": [], "float32": []}
+    peaks = {"bf16": [], "float32": []}
+    runs = {"bf16": (prog16, scope16, pools16),
+            "float32": (prog32, scope32, pools32)}
+    for which in ("bf16", "float32", "float32", "bf16"):
+        prog, scope, pl = runs[which]
+        step(prog, scope, pl, toks, lens)[0].cpu()
+        torch.cuda.synchronize()
+        at = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(BF16_DECODE_TIMED):
+            step(prog, scope, pl, toks, lens)[0].cpu()
+        times[which].append(1e3 * (time.perf_counter() - t0)
+                            / BF16_DECODE_TIMED)
+        peaks[which].append((torch.cuda.max_memory_allocated() - at) / 1e9)
+    for which, (prog, scope, pl) in runs.items():
+        wall, by_name, _ = profiled(
+            torch, lambda: step(prog, scope, pl, toks, lens)[0].cpu(), 3)
+        print_profile(f"{which} decode step program (Executor.run)", wall,
+                      by_name, card)
+    print(f"bf16 decode step: {[round(t, 3) for t in times['bf16']]} ms "
+          f"against float32 {[round(t, 3) for t in times['float32']]} ms "
+          f"(in turns bf16, float32, float32, bf16; Executor.run, logits "
+          f"to the host); peak above the resident state "
+          f"{max(peaks['bf16']):.3f} against {max(peaks['float32']):.3f} GB; resident pools "
+          f"{sum(p.numel() * 2 for p in pools16) / 1e9:.3f} against "
+          f"{sum(p.numel() * 4 for p in pools32) / 1e9:.3f} GB; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {"paged_decode_attention_bf16":
+                launches["paged_decode_attention_bf16"]}
+
+
 def resnet_bf16_chain_train_path(np, torch, fb, card, built, seed: int):
     """Phase 22: bf16_chain_step_held's agreement on the cut program; then
     the bench's bf16 program (build_resnet50_bf16) trained at full width,
@@ -5397,6 +5676,8 @@ def main() -> int:
     dq_row, dkv_row = check_flash_bwd(torch, F, fa, card)
     rows = {"flash_attention_fwd": check_flash(torch, F, fa, card),
             "paged_decode_attention": check_paged(torch, fa, card),
+            "paged_decode_attention_bf16": check_paged(torch, fa, card,
+                                                       bf16=True),
             "flash_attention_bwd_dq": dq_row,
             "flash_attention_bwd_dkv": dkv_row}
     rows.update(check_flash_bf16(torch, F, fa, card))
@@ -5445,11 +5726,15 @@ def main() -> int:
     for name, n in resnet_bf16_chain_train_path(np, torch, fb, card, built,
                                                 args.seed).items():
         launches[name] = launches.get(name, 0) + n
+    launches.update(decode_bf16_path(np, torch, fa, card, args.seed))
 
     meta = {"flash_attention_fwd": (
                 "paddle_tpu_torch/csrc/flash_attention.cu",
                 "paddle_tpu/kernels/flash_attention.py:151"),
             "paged_decode_attention": (
+                "paddle_tpu_torch/csrc/paged_attention.cu",
+                "paddle_tpu/kernels/flash_attention.py:570"),
+            "paged_decode_attention_bf16": (
                 "paddle_tpu_torch/csrc/paged_attention.cu",
                 "paddle_tpu/kernels/flash_attention.py:570"),
             "flash_attention_bwd_dq": (

@@ -5,7 +5,7 @@ its module names and never imports it (nor JAX). Entry points run on the
 first CUDA device unless the caller asks for the CPU; the CUDA kernels
 under ``csrc/`` are built with nvcc at first use.
 
-Three slices are ported:
+What is ported:
 
 * serving: ``paddle_tpu_torch.serving.ServingEngine`` (micro-batching,
   hot reload, its HTTP front end ``serving.http`` and the Prometheus
@@ -24,11 +24,13 @@ Three slices are ported:
   decay ``regularizer``, learning-rate schedules
   ``layers.learning_rate_scheduler``, lazy fetches, the step guard
   ``resilience.guard``) and the ``Trainer`` over a reader, with
-  crc32-verified checkpoints (``io.save_checkpoint``) and resume.
+  crc32-verified checkpoints (``io.save_checkpoint``) and resume;
+* bf16 inference: ``transpiler.Float16Transpiler`` casts an inference
+  program's weights to bfloat16 (the decode step's among them).
 """
 
 from . import (analysis, clip, io, layers, ops, optimizer, regularizer,
-               resilience)
+               resilience, transpiler)
 from .core.executor import CPUPlace, CUDAPlace, Executor
 from .core.program import (Program, default_main_program,
                            default_startup_program, program_guard)
@@ -39,7 +41,7 @@ from .trainer import (BeginEpochEvent, BeginStepEvent, CheckpointConfig,
                       EndEpochEvent, EndStepEvent, Inferencer, Trainer)
 
 __all__ = ["analysis", "clip", "io", "layers", "ops", "optimizer",
-           "regularizer", "resilience", "CPUPlace", "CUDAPlace", "Executor",
+           "regularizer", "resilience", "transpiler", "CPUPlace", "CUDAPlace", "Executor",
            "Program", "default_main_program", "default_startup_program",
            "program_guard", "Scope", "global_scope", "scope_guard",
            "DataFeeder", "ParamAttr", "Trainer", "CheckpointConfig",

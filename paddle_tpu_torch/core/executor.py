@@ -88,7 +88,8 @@ class Executor:
     def _prep_feed(self, program: Program, feed: Dict[str, object],
                    per_step: bool = False) -> Dict[str, torch.Tensor]:
         """Each feed as a tensor on the device in its var's (narrowed)
-        dtype. A sequence var's feed may be a LoDTensor or a list of
+        dtype; under AMP a float32 var's feed already in the compute
+        dtype keeps it. A sequence var's feed may be a LoDTensor or a list of
         sequences: it is padded (lod.pad_sequences) and its @SEQ_LEN
         companion gets the lengths. A padded feed without its companion
         gets full lengths: [B] = T, or [N, B] = T with per_step (arrays
@@ -96,12 +97,19 @@ class Executor:
         takes no ragged feed). An explicit companion feed is used as
         given."""
         block = program.global_block
+        amp = torch_dtype(program.amp_dtype) if program.amp_dtype else None
         out = {}
 
         def put(name, val):
             t = val if isinstance(val, torch.Tensor) else _from_host(val)
             want = (torch_dtype(block.var(name).dtype) if block.has_var(name)
                     else torch_dtype(str(t.dtype).rsplit(".", 1)[-1]))
+            if want == torch.float32 and t.dtype == amp:
+                # the step's entry cast would round it back to amp: a
+                # tensor of the compute dtype is fed as it is (a bf16
+                # pool that a decode step writes in place stays the same
+                # tensor)
+                want = amp
             out[name] = t.to(device=self.device, dtype=want)
 
         for name, val in feed.items():

@@ -28,8 +28,9 @@ program order, over an environment planned once when the step is built:
   entry, and each float32 parameter leaf is cast to bfloat16 inside the
   differentiated forward, so ``torch.autograd.grad`` returns float32
   gradients of the float32 masters, which the optimizer ops update (the
-  casts never reach the env the step's state is read from). An op whose
-  kernels have no bfloat16 version raises when the step is built.
+  casts never reach the env the step's state is read from). An
+  inference program's state is read as the Scope holds it (bfloat16
+  after transpiler.Float16Transpiler).
 
 Remat scopes are recorded in the IR but not ported: a program that uses
 them raises here.
@@ -54,25 +55,9 @@ AUTODIFF_OP = "autodiff"
 # live output, as every later draw depends on theirs
 _DRAWS = frozenset({"uniform_random", "gaussian_random"})
 
-# ops that would run a kernel with no bfloat16 version: under AMP they
-# raise when the step is built, not mid-step on the card
-_NO_BF16_KERNEL = {
-    "paged_kv_write": "the paged decode path",
-    "paged_attention": "the paged decode kernel (csrc/paged_attention.cu)",
-}
-
-
-def _no_bf16_kernel(op_type: str) -> Optional[str]:
-    """What of `op_type` has no bfloat16 kernel, or None. fused_bottleneck
-    composes in bfloat16, as the JAX package's `auto` does, and its chain
-    (PT_FUSED_BLOCK=always) has bfloat16 kernels forward and backward."""
-    return _NO_BF16_KERNEL.get(op_type)
-
-
 def _amp_dtype(program: Program) -> Optional[torch.dtype]:
     """The program's compute dtype under AMP (None without it); raises
-    for an AMP dtype other than bfloat16 and for an op whose kernels have
-    no bfloat16 version."""
+    for an AMP dtype other than bfloat16."""
     amp = program.amp_dtype
     if amp is None:
         return None
@@ -80,12 +65,6 @@ def _amp_dtype(program: Program) -> Optional[torch.dtype]:
         raise NotImplementedError(
             f"program.amp_dtype={amp!r}: mixed precision in {amp} is not "
             "ported (bfloat16 is)")
-    for op in program.global_block.ops:
-        what = _no_bf16_kernel(op.type)
-        if what is not None:
-            raise NotImplementedError(
-                f"op {op.type!r} under amp_dtype='bfloat16': {what} have no "
-                "bfloat16 version; mixed precision of this op is not ported")
     return torch.bfloat16
 
 

@@ -1,4 +1,4 @@
-// Paged decode attention for Hopper (sm_90a), float32.
+// Paged decode attention for Hopper (sm_90a), float32 and bfloat16.
 //
 // Replaces the TPU kernel paddle_tpu/kernels/flash_attention.py:
 // _paged_attention_pallas (Pallas body _paged_kernel): one query token per
@@ -26,7 +26,7 @@
 //    V loads (float4, streaming, 1 KB a row at D 256) before it uses any,
 //    then carries its own online softmax: the running max m, the running
 //    sum l, and acc for the lane's D / 32 columns. The scores are warp
-//    reductions (ptt::dot4, ptt::warp_sum).
+//    reductions (a lane's fmaf chain, then ptt::warp_sum).
 //  * The warps' states merge in warp order through shared memory into the
 //    block's partial (m, l, acc[D]). A slot with one live split writes its
 //    output there; otherwise the block writes its partial to the scratch,
@@ -37,13 +37,126 @@
 //    (by 1 where l = 0), writes out, and sets the ticket back to 0 for the
 //    next call on the stream. No float atomics: two calls give the same
 //    bits. One launch a call.
+//
+// bfloat16 (q, the pools and the output; the TPU kernel's bf16 inputs,
+// which a decode step under Float16Transpiler feeds it): the same kernel
+// on the element type. A lane loads its D / 32 contiguous values of a K
+// or V row in one vector (16 bytes, 8 values, at D 256; 8 bytes at D 128)
+// and widens them to float32 as it uses them; the scores, the online
+// softmax, P.V, the partials in the scratch and their combine are the
+// float32 kernel's, and each output value is rounded once to bfloat16, to
+// nearest with ties to even, as the Pallas kernel rounds acc / l to q's
+// dtype. The pools' bytes are half the float32 kernel's, and so is its
+// bound.
 #include <cuda/atomic>
 
 #include <cmath>
+#include <cstdint>
 
 #include "common.cuh"
 
 namespace {
+
+typedef uint16_t bf16;  // the bits of one bfloat16
+
+// the pools' rows are read once: streaming loads; q is read by every split
+template <class V>
+__device__ __forceinline__ V ld(const V* p, bool stream) {
+  return stream ? __ldcs(p) : *p;
+}
+
+// rounded to nearest, ties to even; a NaN stays a (quiet) NaN
+__device__ __forceinline__ uint32_t narrow_bf16(float x) {
+  const uint32_t u = __float_as_uint(x);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return (u >> 16) | 0x40u;
+  return (u + 0x7fffu + ((u >> 16) & 1u)) >> 16;
+}
+
+// One D-wide row of element type T spread over a warp: a lane holds C =
+// D / 32 of its values, as Raw when loaded and as float32 once widened.
+// col4(lane, j) is the float4 column (values 4 col4 .. 4 col4 + 3 of the
+// row) of the lane's values 4 j .. 4 j + 3.
+template <class T, int D>
+struct Row;
+
+template <int D>
+struct Row<float, D> {
+  static constexpr int C = D / 32;
+  struct Raw {
+    float4 v[D / 128];
+  };
+  __device__ static int col4(int lane, int j) { return lane + 32 * j; }
+  __device__ static Raw load(const float* row, int lane, bool stream) {
+    const float4* r = reinterpret_cast<const float4*>(row);
+    Raw out;
+#pragma unroll
+    for (int w = 0; w < D / 128; ++w) out.v[w] = ld(r + lane + 32 * w, stream);
+    return out;
+  }
+  __device__ static Raw zero() {
+    Raw out;
+#pragma unroll
+    for (int w = 0; w < D / 128; ++w)
+      out.v[w] = make_float4(0.f, 0.f, 0.f, 0.f);
+    return out;
+  }
+  __device__ static void widen(const Raw& r, float (&x)[C]) {
+#pragma unroll
+    for (int w = 0; w < D / 128; ++w) {
+      x[4 * w] = r.v[w].x;
+      x[4 * w + 1] = r.v[w].y;
+      x[4 * w + 2] = r.v[w].z;
+      x[4 * w + 3] = r.v[w].w;
+    }
+  }
+  __device__ static void store4(float* row, int c, float4 v) {
+    reinterpret_cast<float4*>(row)[c] = v;
+  }
+};
+
+template <int D>
+struct Row<bf16, D> {
+  static constexpr int C = D / 32;
+  static_assert(C == 4 || C == 8, "bf16 rows are 128 or 256 wide");
+  // one 16-byte load at D 256, one 8-byte load at D 128
+  struct Raw {
+    uint32_t w[C / 2];
+  };
+  __device__ static int col4(int lane, int j) { return lane * (C / 4) + j; }
+  __device__ static Raw load(const bf16* row, int lane, bool stream) {
+    Raw out;
+    if constexpr (C == 8) {
+      const uint4 r = ld(reinterpret_cast<const uint4*>(row) + lane, stream);
+      out.w[0] = r.x;
+      out.w[1] = r.y;
+      out.w[2] = r.z;
+      out.w[3] = r.w;
+    } else {
+      const uint2 r = ld(reinterpret_cast<const uint2*>(row) + lane, stream);
+      out.w[0] = r.x;
+      out.w[1] = r.y;
+    }
+    return out;
+  }
+  __device__ static Raw zero() {
+    Raw out;
+#pragma unroll
+    for (int k = 0; k < C / 2; ++k) out.w[k] = 0u;
+    return out;
+  }
+  __device__ static void widen(const Raw& r, float (&x)[C]) {
+#pragma unroll
+    for (int k = 0; k < C / 2; ++k) {
+      x[2 * k] = __uint_as_float(r.w[k] << 16);
+      x[2 * k + 1] = __uint_as_float(r.w[k] & 0xffff0000u);
+    }
+  }
+  __device__ static void store4(bf16* row, int c, float4 v) {
+    reinterpret_cast<uint2*>(row)[c] =
+        make_uint2(narrow_bf16(v.x) | narrow_bf16(v.y) << 16,
+                   narrow_bf16(v.z) | narrow_bf16(v.w) << 16);
+  }
+};
 
 constexpr int kWarps = 4;     // warps a block
 constexpr int kThreads = kWarps * 32;
@@ -57,17 +170,17 @@ constexpr int kCombine = 8;  // partials the combining block reads at once
 // registers, 7 blocks an SM: 6% slower where every slot holds 1024 keys)
 constexpr int kBlocksPerSM = 8;
 
-template <int D>
+template <class T, int D>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-paged_split_kernel(const float* __restrict__ q,
-                   const float* __restrict__ k_pool,
-                   const float* __restrict__ v_pool,
+paged_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
+                   const T* __restrict__ v_pool,
                    const int* __restrict__ block_tables,
                    const int* __restrict__ context_lens,
-                   float* __restrict__ out, int* __restrict__ tickets,
+                   T* __restrict__ out, int* __restrict__ tickets,
                    float* __restrict__ part, int H, int NB, int BS, int MB,
                    int P, int n_split, float scale) {
-  constexpr int V4 = D / 128;  // float4 of one row a lane
+  using R = Row<T, D>;
+  constexpr int C = R::C;  // values of one row a lane
   constexpr int U = kInFlight;
 
   const int split = blockIdx.x % n_split;
@@ -76,11 +189,11 @@ paged_split_kernel(const float* __restrict__ q,
   const int h = sh % H;
   const int ctx = min(max(context_lens[slot], 0), MB * BS);
   const int k0 = split * P;
-  float4* orow = reinterpret_cast<float4*>(out + (long)sh * D);
+  T* orow = out + (long)sh * D;
   if (ctx == 0) {  // an idle slot: split 0 writes zeros
     if (split == 0)
       for (int i = threadIdx.x; i < D / 4; i += kThreads)
-        orow[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+        R::store4(orow, i, make_float4(0.f, 0.f, 0.f, 0.f));
     return;
   }
   if (k0 >= ctx) return;  // past the slot's keys
@@ -92,17 +205,14 @@ paged_split_kernel(const float* __restrict__ q,
   const long page_stride = (long)BS * row_stride;
   const int* table = block_tables + (long)slot * MB;
 
-  const float4* qrow = reinterpret_cast<const float4*>(q + (long)sh * D);
-  float4 qv[V4], acc[V4];
+  float qv[C], acc[C];
+  R::widen(R::load(q + (long)sh * D, lane, false), qv);
 #pragma unroll
-  for (int u = 0; u < V4; ++u) {
-    qv[u] = qrow[lane + 32 * u];
-    acc[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
+  for (int i = 0; i < C; ++i) acc[i] = 0.f;
   float m = -INFINITY, l = 0.f;
 
   for (int j0 = k0 + warp * U; j0 < k1; j0 += kWarps * U) {
-    float4 kr[U][V4], vr[U][V4];
+    typename R::Raw kr[U], vr[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int pos = j0 + u;
@@ -112,25 +222,20 @@ paged_split_kernel(const float* __restrict__ q,
         if (blk < 0 || blk >= NB) blk = 0;
         const long off =
             blk * page_stride + (pos % BS) * row_stride + (long)h * D;
-        const float4* krow = reinterpret_cast<const float4*>(k_pool + off);
-        const float4* vrow = reinterpret_cast<const float4*>(v_pool + off);
-#pragma unroll
-        for (int w = 0; w < V4; ++w) {
-          kr[u][w] = __ldcs(krow + lane + 32 * w);
-          vr[u][w] = __ldcs(vrow + lane + 32 * w);
-        }
+        kr[u] = R::load(k_pool + off, lane, true);
+        vr[u] = R::load(v_pool + off, lane, true);
       } else {
-#pragma unroll
-        for (int w = 0; w < V4; ++w)
-          kr[u][w] = vr[u][w] = make_float4(0.f, 0.f, 0.f, 0.f);
+        kr[u] = vr[u] = R::zero();
       }
     }
     float s[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
+      float kx[C];
+      R::widen(kr[u], kx);
       float dot = 0.f;
 #pragma unroll
-      for (int w = 0; w < V4; ++w) dot = ptt::dot4(qv[w], kr[u][w], dot);
+      for (int i = 0; i < C; ++i) dot = fmaf(qv[i], kx[i], dot);
       s[u] = dot;
     }
 #pragma unroll
@@ -143,23 +248,15 @@ paged_split_kernel(const float* __restrict__ q,
     const float alpha = (m == -INFINITY) ? 0.f : expf(m - m_new);
     l *= alpha;
 #pragma unroll
-    for (int w = 0; w < V4; ++w) {
-      acc[w].x *= alpha;
-      acc[w].y *= alpha;
-      acc[w].z *= alpha;
-      acc[w].w *= alpha;
-    }
+    for (int i = 0; i < C; ++i) acc[i] *= alpha;
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const float p = (j0 + u < k1) ? expf(s[u] - m_new) : 0.f;
       l += p;
+      float vx[C];
+      R::widen(vr[u], vx);
 #pragma unroll
-      for (int w = 0; w < V4; ++w) {
-        acc[w].x = fmaf(p, vr[u][w].x, acc[w].x);
-        acc[w].y = fmaf(p, vr[u][w].y, acc[w].y);
-        acc[w].z = fmaf(p, vr[u][w].z, acc[w].z);
-        acc[w].w = fmaf(p, vr[u][w].w, acc[w].w);
-      }
+      for (int i = 0; i < C; ++i) acc[i] = fmaf(p, vx[i], acc[i]);
     }
     m = m_new;
   }
@@ -169,7 +266,9 @@ paged_split_kernel(const float* __restrict__ q,
   __shared__ float s_m[kWarps], s_l[kWarps];
   __shared__ int s_last;
 #pragma unroll
-  for (int w = 0; w < V4; ++w) s_acc[warp][lane + 32 * w] = acc[w];
+  for (int j = 0; j < C / 4; ++j)
+    s_acc[warp][R::col4(lane, j)] = make_float4(
+        acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]);
   if (lane == 0) {
     s_m[warp] = m;
     s_l[warp] = l;
@@ -197,7 +296,7 @@ paged_split_kernel(const float* __restrict__ q,
   if (n_live == 1) {  // the slot's only live split: the output itself
     if (c < D / 4) {
       const float d = (bl == 0.f) ? 1.f : bl;
-      orow[c] = make_float4(ba.x / d, ba.y / d, ba.z / d, ba.w / d);
+      R::store4(orow, c, make_float4(ba.x / d, ba.y / d, ba.z / d, ba.w / d));
     }
     return;
   }
@@ -267,23 +366,43 @@ paged_split_kernel(const float* __restrict__ q,
   }
   if (c < D / 4) {
     const float d = (gl == 0.f) ? 1.f : gl;
-    orow[c] = make_float4(ga.x / d, ga.y / d, ga.z / d, ga.w / d);
+    R::store4(orow, c, make_float4(ga.x / d, ga.y / d, ga.z / d, ga.w / d));
   }
   if (threadIdx.x == 0) tickets[sh] = 0;
 }
 
-template <int D>
-int launch(const float* q, const float* k_pool, const float* v_pool,
-           const int* block_tables, const int* context_lens, float* out,
+template <class T, int D>
+int launch(const T* q, const T* k_pool, const T* v_pool,
+           const int* block_tables, const int* context_lens, T* out,
            int* tickets, float* part, int S, int H, int NB, int BS, int MB,
            int P, float scale, cudaStream_t stream) {
   const int n_split = (MB * BS + P - 1) / P;
   const long blocks = (long)S * H * n_split;
   if (P < 1 || blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
-  paged_split_kernel<D><<<(unsigned)blocks, kThreads, 0, stream>>>(
+  paged_split_kernel<T, D><<<(unsigned)blocks, kThreads, 0, stream>>>(
       q, k_pool, v_pool, block_tables, context_lens, out, tickets, part, H,
       NB, BS, MB, P, n_split, scale);
   return (int)cudaGetLastError();
+}
+
+template <class T>
+int dispatch(const T* q, const T* k_pool, const T* v_pool,
+             const int* block_tables, const int* context_lens, T* out,
+             int* tickets, float* part, int S, int H, int D, int NB, int BS,
+             int MB, int P, float scale, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 128:
+      return launch<T, 128>(q, k_pool, v_pool, block_tables, context_lens,
+                            out, tickets, part, S, H, NB, BS, MB, P, scale,
+                            s);
+    case 256:
+      return launch<T, 256>(q, k_pool, v_pool, block_tables, context_lens,
+                            out, tickets, part, S, H, NB, BS, MB, P, scale,
+                            s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -301,15 +420,21 @@ extern "C" int paged_decode_attention_f32(const float* q, const float* k_pool,
                                           int* tickets, float* part, int S,
                                           int H, int D, int NB, int BS, int MB,
                                           int P, float scale, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 128:
-      return launch<128>(q, k_pool, v_pool, block_tables, context_lens, out,
-                         tickets, part, S, H, NB, BS, MB, P, scale, s);
-    case 256:
-      return launch<256>(q, k_pool, v_pool, block_tables, context_lens, out,
-                         tickets, part, S, H, NB, BS, MB, P, scale, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return dispatch<float>(q, k_pool, v_pool, block_tables, context_lens, out,
+                         tickets, part, S, H, D, NB, BS, MB, P, scale,
+                         stream);
+}
+
+// As paged_decode_attention_f32 with q, the pools and out bfloat16 (their
+// bits as uint16); the scratch is float32 as there.
+extern "C" int paged_decode_attention_bf16(const bf16* q, const bf16* k_pool,
+                                           const bf16* v_pool,
+                                           const int* block_tables,
+                                           const int* context_lens, bf16* out,
+                                           int* tickets, float* part, int S,
+                                           int H, int D, int NB, int BS,
+                                           int MB, int P, float scale,
+                                           void* stream) {
+  return dispatch<bf16>(q, k_pool, v_pool, block_tables, context_lens, out,
+                        tickets, part, S, H, D, NB, BS, MB, P, scale, stream);
 }

@@ -36,10 +36,14 @@ Counterpart of ``paddle_tpu/io.py``:
 * ``export_decode_model``: a serving artifact whose buckets are the
   prefill programs ``models.transformer.transformer_lm(...,
   pos_table_len=max_context, collect_kv=kvs)`` builds, fetching the
-  logits and every layer's K/V (the JAX fetch roles), plus the JAX
-  ``decode`` section. ``ServingEngine.load_model`` serves its prefill
-  side unchanged; ``load_decode_bundle``, DecodeModel's one loader,
-  gives that prefill side and the decode-step module over its weights.
+  logits and every layer's K/V (the JAX fetch roles), the decode-step
+  program ``models.transformer.transformer_decode_step`` builds (pruned,
+  ``for_test``, in ``decode.json``, which the top-level
+  ``decode_program`` names, where the JAX bundle's ``decode`` section
+  names its ``.stablehlo`` file), plus the JAX ``decode`` section.
+  ``ServingEngine.load_model`` serves its prefill side unchanged;
+  ``load_decode_bundle``, DecodeModel's one loader, gives that prefill
+  side and the step program over the same weight tensors.
 
 ``params_from_numpy`` and ``scope_from_numpy`` take the JAX package's
 state as numpy arrays by name: the parameters of a model, or the whole
@@ -63,8 +67,8 @@ from .core.program import (Program, VarDesc, default_main_program,
 from .core.scope import Scope, global_scope
 from .core.types import (device_dtype, host_array, normalize_dtype,
                          resolve_device, torch_dtype)
-from .models.transformer import (CONFIG_KEYS, TransformerLM, param_shapes,
-                                 transformer_lm)
+from .models.transformer import (CONFIG_KEYS, param_shapes,
+                                 transformer_decode_step, transformer_lm)
 from .resilience import faults
 from .resilience import manifest as _manifest
 from .resilience.faults import FaultInjected
@@ -76,6 +80,7 @@ __all__ = ["FORMAT", "MODEL_FILENAME", "params_from_numpy",
            "save_persistables", "load_persistables", "get_inference_program",
            "save_inference_model", "load_inference_model",
            "export_serving_model", "load_serving_model", "ServingProgram",
+           "DECODE_FILENAME",
            "read_serving_meta", "export_decode_model", "load_decode_bundle",
            "save_checkpoint", "load_checkpoint", "clean_checkpoint",
            "get_latest_checkpoint_serial", "CheckpointCorruptError"]
@@ -85,6 +90,8 @@ __all__ = ["FORMAT", "MODEL_FILENAME", "params_from_numpy",
 FORMAT = "paddle_tpu_torch.serving/1"
 #: the inference model's program file, as the JAX package names it
 MODEL_FILENAME = "__model__.json"
+#: the decode bundle's step program file
+DECODE_FILENAME = "decode.json"
 SUCCESS_MARK_FILENAME = "_SUCCESS"
 CHECKPOINT_PREFIX = "checkpoint"
 
@@ -585,8 +592,10 @@ def export_decode_model(dirname: str, model_cfg: Dict, *,
     prefill program a length bucket (``transformer_lm`` on ``src_ids
     [bound]`` with ``max_len = pos_table_len = max_context`` and
     ``collect_kv``, fetching the logits and every layer's K/V under the
-    JAX roles ``logits``, ``k_i``, ``v_i``), the parameters as ``.npy``,
-    and serving.json with the JAX bucket specs and ``decode`` section.
+    JAX roles ``logits``, ``k_i``, ``v_i``), the decode step
+    (``transformer_decode_step``, fetching the logits and every layer's
+    written pools) as ``decode.json``, the parameters as ``.npy``, and
+    serving.json with the JAX bucket specs and ``decode`` section.
 
     model_cfg: vocab_size, n_layers, d_model, n_heads, d_ff, max_context.
     params: {JAX parameter name: array} (checked by params_from_numpy).
@@ -645,6 +654,19 @@ def export_decode_model(dirname: str, model_cfg: Dict, *,
         programs.append(f"prefill_len{bound}.json")
         _write_model(dirname, pruned, ["src_ids"], targets, programs[-1])
 
+    main = Program()
+    with unique_name_guard(), program_guard(main, Program()):
+        dlogits, pool_outs, dec_feed_names = transformer_decode_step(
+            vocab, n_layers=n_layers, d_model=d_model, n_heads=n_heads,
+            d_ff=cfg["d_ff"], max_context=max_context, slots=slots,
+            block_size=block_size, pool_blocks=pool_blocks,
+            max_blocks_per_seq=max_blocks_per_seq)
+    dec_targets = [dlogits.name] + [n for ko, vo in pool_outs
+                                    for n in (ko.name, vo.name)]
+    _write_model(dirname, main.clone(for_test=True).prune(
+        targets=dec_targets, feeds=dec_feed_names), dec_feed_names,
+        dec_targets, DECODE_FILENAME)
+
     pool_shape = [pool_blocks, block_size, n_heads, head_dim]
     dec_feeds = [{"name": "token_ids", "shape": [slots], "dtype": ids_dt},
                  {"name": "context_lens", "shape": [slots], "dtype": i32},
@@ -662,7 +684,7 @@ def export_decode_model(dirname: str, model_cfg: Dict, *,
         "feeds": base["feeds"], "fetch_names": fetch_roles,
         "fetches": base["fetches"], "batch_size": B,
         "buckets": buckets_meta, "var_dims": {"src_ids": [1]},
-        "programs": programs,
+        "programs": programs, "decode_program": DECODE_FILENAME,
         "decode": {
             "feeds": dec_feeds, "fetches": dec_fetches,
             "slots": slots, "block_size": block_size,
@@ -682,11 +704,12 @@ def export_decode_model(dirname: str, model_cfg: Dict, *,
 def load_decode_bundle(dirname: str, device=None, *, warmup: bool = False):
     """(serving.json metadata, the prefill side as a
     ``serving.registry.ModelVersion`` over the bundle's prefill programs,
-    the decode-step module ``TransformerLM`` over that version's weight
+    the decode step as a ``ServingProgram`` over that version's weight
     tensors, shared and not copied), on `device` (the first CUDA device
     by default). The one loader of a decode bundle: DecodeModel loads
     through it. `warmup` runs a zero batch through every prefill
-    bucket."""
+    bucket. A bundle without a step program (written before the step
+    was one) raises ValueError."""
     from .serving.registry import ModelVersion
 
     device = resolve_device(device)
@@ -695,11 +718,14 @@ def load_decode_bundle(dirname: str, device=None, *, warmup: bool = False):
         raise ValueError(f"{dirname} has no decode section in serving.json "
                          "— export it with "
                          "paddle_tpu_torch.io.export_decode_model")
+    if not meta.get("decode_program"):
+        raise ValueError(f"{dirname} has no decode-step program; re-export "
+                         "it with paddle_tpu_torch.io.export_decode_model")
     prefill = ModelVersion.load(dirname, version=1, device=device,
                                 warmup=warmup)
-    model = TransformerLM.from_tensors(meta["decode"]["model_cfg"],
-                                       prefill.state)
-    return meta, prefill, model
+    step = ServingProgram(dirname, meta["decode_program"], device,
+                          prefill.state)
+    return meta, prefill, step
 
 
 # ---------------------------------------------------------------------------

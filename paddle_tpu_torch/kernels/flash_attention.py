@@ -18,6 +18,9 @@ design does about that):
 * ``paged_decode_attention`` (csrc/paged_attention.cu) replaces the Pallas
   ``_paged_attention_pallas``: each slot's keys split across blocks, the
   partials combined in split order within the one launch;
+  ``paged_decode_attention_bf16`` is its bfloat16 instance (bf16 q and
+  pools, the softmax and P.V in float32, the output rounded once), to
+  which the float32 wrapper hands a bfloat16 CUDA tensor;
 * ``flash_attention_fwd_bf16``, ``flash_attention_bwd_dq_bf16`` and
   ``flash_attention_bwd_dkv_bf16`` (csrc/flash_attention_bf16.cu) replace
   the three flash kernels for bfloat16 inputs (mixed-precision training):
@@ -60,7 +63,8 @@ __all__ = ["DEFAULT_MASK_VALUE", "mha_reference", "flash_attention_fwd",
            "flash_attention_bwd_dkv_bf16",
            "FlashAttention", "dot_product_attention",
            "paged_attention_reference", "paged_decode_attention",
-           "paged_split_plan", "paged_kv_update"]
+           "paged_decode_attention_bf16", "paged_split_plan",
+           "paged_kv_update"]
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -551,25 +555,13 @@ def _paged_scratch_of(device: torch.device, stream: int, pairs: int,
     return ptr, ptr + 4 * tickets
 
 
-def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
-                           *, scale: Optional[float] = None) -> torch.Tensor:
-    """One query token per slot against its pages: q [S, H, D] -> [S, H, D].
-
-    CPU tensors run ``paged_attention_reference``. CUDA tensors run
-    csrc/paged_attention.cu: one launch, each slot's keys split across
-    blocks of ``paged_split_plan``'s P keys, each page read in place
-    through the block table, the splits' partials combined in split
-    order within the launch (deterministic; no float atomics). It takes
-    float32 contiguous q and pools with head_dim 128 or 256 (the TPU
-    kernel's head_dim % 128 == 0) and int32 tables and lengths; it reads
-    nothing of them on the host and allocates nothing but the output."""
-    scale = _default_scale(q, scale)
-    if not build.on_card("paged_decode_attention", q):
-        return paged_attention_reference(q, k_pool, v_pool, block_tables,
-                                         context_lens, scale=scale)
-    _check_cuda("q", q, q.device, torch.float32, 3)
-    _check_cuda("k_pool", k_pool, q.device, torch.float32, 4)
-    _check_cuda("v_pool", v_pool, q.device, torch.float32, 4)
+def _paged(wrapper, dtype: torch.dtype, q, k_pool, v_pool, block_tables,
+           context_lens, scale: float) -> torch.Tensor:
+    """Launch the paged kernel of `dtype`; count it on `wrapper`. The
+    lock covers the scratch lookup, the bind, the launch and the count."""
+    _check_cuda("q", q, q.device, dtype, 3)
+    _check_cuda("k_pool", k_pool, q.device, dtype, 4)
+    _check_cuda("v_pool", v_pool, q.device, dtype, 4)
     _check_cuda("block_tables", block_tables, q.device, torch.int32, 2)
     _check_cuda("context_lens", context_lens, q.device, torch.int32, 1)
     s_n, h, d = q.shape
@@ -585,22 +577,69 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
     if s_n == 0:
         return out
     p, n_split = paged_split_plan(mb * bs)
+    entry = {torch.float32: "paged_decode_attention_f32",
+             torch.bfloat16: "paged_decode_attention_bf16"}[dtype]
     with build.device_guard(q.device), _lock:
         stream = build.stream(q.device)
         tickets, part = _paged_scratch_of(q.device, stream, s_n * h,
                                           s_n * h * n_split * (d + 2))
-        fn = build.bind("paged_attention.cu", "paged_decode_attention_f32",
+        fn = build.bind("paged_attention.cu", entry,
                         (_P,) * 8 + (_I,) * 7 + (_F, _P))
-        build.launch("paged_decode_attention", fn, q.data_ptr(),
-                     k_pool.data_ptr(), v_pool.data_ptr(),
-                     block_tables.data_ptr(), context_lens.data_ptr(),
-                     out.data_ptr(), tickets, part, s_n, h, d, nb, bs, mb, p,
-                     scale, stream)
-        paged_decode_attention.launches += 1
+        build.launch(wrapper.__name__, fn, q.data_ptr(), k_pool.data_ptr(),
+                     v_pool.data_ptr(), block_tables.data_ptr(),
+                     context_lens.data_ptr(), out.data_ptr(), tickets, part,
+                     s_n, h, d, nb, bs, mb, p, scale, stream)
+        wrapper.launches += 1
     return out
 
 
+def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
+                           *, scale: Optional[float] = None) -> torch.Tensor:
+    """One query token per slot against its pages: q [S, H, D] -> [S, H, D].
+
+    CPU tensors run ``paged_attention_reference``. CUDA tensors run
+    csrc/paged_attention.cu: one launch, each slot's keys split across
+    blocks of ``paged_split_plan``'s P keys, each page read in place
+    through the block table, the splits' partials combined in split
+    order within the launch (deterministic; no float atomics). It takes
+    float32 contiguous q and pools with head_dim 128 or 256 (the TPU
+    kernel's head_dim % 128 == 0) and int32 tables and lengths; it reads
+    nothing of them on the host and allocates nothing but the output.
+    bfloat16 CUDA tensors go to ``paged_decode_attention_bf16``, which
+    counts the launch; any other dtype raises."""
+    scale = _default_scale(q, scale)
+    if not build.on_card("paged_decode_attention", q):
+        return paged_attention_reference(q, k_pool, v_pool, block_tables,
+                                         context_lens, scale=scale)
+    if q.dtype == torch.bfloat16:
+        return paged_decode_attention_bf16(q, k_pool, v_pool, block_tables,
+                                           context_lens, scale=scale)
+    return _paged(paged_decode_attention, torch.float32, q, k_pool, v_pool,
+                  block_tables, context_lens, scale)
+
+
 paged_decode_attention.launches = 0
+
+
+def paged_decode_attention_bf16(q, k_pool, v_pool, block_tables,
+                                context_lens, *,
+                                scale: Optional[float] = None
+                                ) -> torch.Tensor:
+    """The bfloat16 paged kernel: q [S, H, D] and the pools bfloat16, the
+    output bfloat16, rounded once from the float32 softmax and P.V. CPU
+    tensors run ``paged_attention_reference`` (which widens to float32
+    and rounds once too); CUDA tensors run csrc/paged_attention.cu's
+    bfloat16 instance under the float32 kernel's contract (contiguous,
+    16-byte aligned, head_dim 128 or 256, int32 tables and lengths)."""
+    scale = _default_scale(q, scale)
+    if not build.on_card("paged_decode_attention_bf16", q):
+        return paged_attention_reference(q, k_pool, v_pool, block_tables,
+                                         context_lens, scale=scale)
+    return _paged(paged_decode_attention_bf16, torch.bfloat16, q, k_pool,
+                  v_pool, block_tables, context_lens, scale)
+
+
+paged_decode_attention_bf16.launches = 0
 
 
 # ---------------------------------------------------------------------------

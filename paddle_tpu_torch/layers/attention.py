@@ -4,15 +4,14 @@ Counterpart of ``paddle_tpu/layers/attention.py``.
 
 * ``fused_attention`` and ``multi_head_attention`` build program ops
   (the ``scaled_dot_product_attention`` op between the fc projections),
-  with the JAX package's op types and names; the Executor runs them.
-* ``MultiHeadAttention`` is the same block as a module, as the
-  Transformer LM serves it (self-attention, named layer): four fc
-  projections whose parameters carry the JAX scope names
-  ``{name}_{q,k,v,out}_{w,b}`` with weights in Paddle's [in, out]
-  layout, so JAX weights load by name. Attention is causal. ``forward``
-  is the prefill (returning the per-head K/V for the paged cache);
-  ``decode`` is one token per slot against the paged pool
-  (models/transformer.py ``_decode_attention``).
+  and ``paged_kv_write`` and ``paged_attention`` the decode step's paged
+  ops (models/transformer.py ``_decode_attention``), with the JAX
+  package's op types and names; the Executor runs them.
+* ``MultiHeadAttention`` is the prefill block as a module
+  (self-attention, named layer): four fc projections whose parameters
+  carry the JAX scope names ``{name}_{q,k,v,out}_{w,b}`` with weights in
+  Paddle's [in, out] layout, so JAX weights load by name. Attention is
+  causal. ``forward`` returns the per-head K/V beside the output.
 """
 
 from __future__ import annotations
@@ -27,7 +26,8 @@ from ..layer_helper import LayerHelper
 from ..ops import attention_ops, nn_ops
 from ..param_attr import ParamAttr
 
-__all__ = ["fused_attention", "multi_head_attention", "MultiHeadAttention"]
+__all__ = ["fused_attention", "multi_head_attention", "paged_kv_write",
+           "paged_attention", "MultiHeadAttention"]
 
 
 def fused_attention(q, k, v, bias=None, causal=False, scale=0.0,
@@ -41,6 +41,38 @@ def fused_attention(q, k, v, bias=None, causal=False, scale=0.0,
     helper.append_op("scaled_dot_product_attention", ins, {"Out": out},
                      {"causal": bool(causal), "scale": float(scale),
                       "sp_mode": sp_mode})
+    return out
+
+
+def paged_kv_write(k_pool, v_pool, k, v, block_tables, context_lens,
+                   name=None):
+    """Write each slot's new K/V row ([S, 1, H, D]) into its page of the
+    paged pool ([NB, BS, H, D]). Returns the updated (k_pool, v_pool)
+    vars, which the decode program fetches as the next step's pools (the
+    port's op writes the fed pools in place, so they are the same
+    tensors)."""
+    helper = LayerHelper("paged_kv_write", name=name)
+    k_out = helper.create_tmp_variable(k_pool.dtype)
+    v_out = helper.create_tmp_variable(v_pool.dtype)
+    helper.append_op("paged_kv_write",
+                     {"KPool": k_pool, "VPool": v_pool, "K": k, "V": v,
+                      "BlockTables": block_tables,
+                      "ContextLens": context_lens},
+                     {"KOut": k_out, "VOut": v_out}, {})
+    return k_out, v_out
+
+
+def paged_attention(q, k_pool, v_pool, block_tables, context_lens,
+                    scale=0.0, name=None):
+    """One decode token per slot (q [S, 1, H, D]) attends through its
+    block table into the paged KV pool. Returns [S, 1, H, D]."""
+    helper = LayerHelper("paged_attention", name=name)
+    out = helper.create_tmp_variable(q.dtype)
+    helper.append_op("paged_attention",
+                     {"Q": q, "KPool": k_pool, "VPool": v_pool,
+                      "BlockTables": block_tables,
+                      "ContextLens": context_lens},
+                     {"Out": out}, {"scale": float(scale)})
     return out
 
 
@@ -142,17 +174,3 @@ class MultiHeadAttention(nn.Module):
         ctx = attention_ops.scaled_dot_product_attention(q, k, v,
                                                          causal=True)
         return self.proj(ctx.reshape(x.shape), "out"), (k, v)
-
-    def decode(self, x: torch.Tensor, k_pool: torch.Tensor,
-               v_pool: torch.Tensor, block_tables: torch.Tensor,
-               context_lens: torch.Tensor) -> torch.Tensor:
-        """x [S, 1, d_model]: write each slot's K/V row into its page (in
-        place), then attend through the block table. Every slot's row is
-        written before any slot attends, so the slots of one speculative
-        chain see each other's rows."""
-        q, k, v = (self._heads(self.proj(x, t)) for t in ("q", "k", "v"))
-        attention_ops.paged_kv_write(k_pool, v_pool, k, v, block_tables,
-                                     context_lens)
-        ctx = attention_ops.paged_attention(q, k_pool, v_pool, block_tables,
-                                            context_lens)
-        return self.proj(ctx.reshape(x.shape), "out")

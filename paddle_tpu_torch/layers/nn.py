@@ -5,8 +5,9 @@ Transformer LM and ResNet build: ``fc``, ``embedding``, ``layer_norm``,
 ``softmax_with_cross_entropy``, ``mean``, ``reshape``,
 ``elementwise_add`` (and ``_sub`` / ``_mul`` / ``_div`` / ``_max`` /
 ``_min`` / ``_pow``), ``scale``, ``clip``, ``clip_by_norm``, ``cast``,
-``slice``, ``conv2d``, ``pool2d``, ``batch_norm``, ``fused_bottleneck``,
-``cross_entropy``, ``softmax``, ``relu`` and ``topk``. Each appends ops to the default main program through
+``unsqueeze``, ``slice``, ``gather``, ``conv2d``, ``pool2d``,
+``batch_norm``, ``fused_bottleneck``, ``cross_entropy``, ``softmax``,
+``relu`` and ``topk``. Each appends ops to the default main program through
 LayerHelper, with the JAX package's op types, attrs and names, and
 returns the output VarDesc.
 """
@@ -29,7 +30,7 @@ __all__ = ["fc", "embedding", "layer_norm", "softmax_with_cross_entropy",
            "relu", "topk", "reduce_sum", "elementwise_sub",
            "elementwise_mul", "elementwise_div", "elementwise_max",
            "elementwise_min", "elementwise_pow", "scale", "clip",
-           "clip_by_norm", "cast"]
+           "clip_by_norm", "cast", "unsqueeze", "gather"]
 
 
 def _fresh_attr(attr) -> ParamAttr:
@@ -225,6 +226,17 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
 def cast(x, dtype):
     return _unary("cast", x, {"in_dtype": x.dtype, "out_dtype": dtype},
                   out_dtype=dtype)
+
+
+def unsqueeze(input, axes, name=None):
+    return _unary("unsqueeze", input, {"axes": list(axes)})
+
+
+def gather(input, index):
+    helper = LayerHelper("gather")
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op("gather", {"X": input, "Index": index}, {"Out": out})
+    return out
 
 
 def slice(input, axes, starts, ends):

@@ -13,15 +13,17 @@ so one set of weights runs in both packages and in both forms here.
 * ``transformer_lm(..., pos_table_len=max_context, collect_kv=kvs)``
   is also the prefill the decode bundle serves (io.export_decode_model):
   one program a length bucket, fetching the logits and each layer's K/V.
-* ``TransformerLM`` is the decode-step module: ``decode_step`` is
-  ``transformer_decode_step``, one token per slot against the paged
-  pools, which it updates in place. Its ``forward`` is the same prefill
-  as a module, which tests hold to the program.
+* ``transformer_decode_step`` builds the bundle's decode step: one token
+  per slot against the paged pools (the paged_kv_write and
+  paged_attention ops), which the port's ops update in place. It shares
+  the prefill's parameters by name.
+* ``TransformerLM`` is the prefill as a module over the same names,
+  which tests hold to the program.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 from torch import nn
@@ -30,12 +32,14 @@ from ..initializer import NormalInitializer
 from ..layers import io as L_io
 from ..layers import nn as L
 from ..layers import tensor as L_tensor
-from ..layers.attention import MultiHeadAttention, multi_head_attention
+from ..layers.attention import (MultiHeadAttention, multi_head_attention,
+                                paged_attention, paged_kv_write)
 from ..ops import nn_ops
 from ..param_attr import ParamAttr
 
-__all__ = ["transformer_lm", "transformer_lm_loss", "TransformerLM",
-           "param_shapes", "CONFIG_KEYS"]
+__all__ = ["transformer_lm", "transformer_lm_loss",
+           "transformer_decode_step", "TransformerLM", "param_shapes",
+           "CONFIG_KEYS"]
 
 #: the keys of a model configuration (``TransformerLM`` arguments)
 CONFIG_KEYS = ("vocab_size", "n_layers", "d_model", "n_heads", "d_ff",
@@ -138,7 +142,115 @@ def transformer_lm_loss(vocab_size=1000, seq_len=128, **kw):
 
 
 # ---------------------------------------------------------------------------
-# the serving module
+# the autoregressive decode-step program (serving/decode)
+# ---------------------------------------------------------------------------
+
+def _decode_attention(x, idx, num_heads, d_key, d_model, k_pool, v_pool,
+                      block_tables, context_lens):
+    """One layer's decode attention: project the single new token per
+    slot, write its K/V row into the paged pool, attend through the block
+    table. Parameter names match multi_head_attention(name=f"attn{idx}")
+    so the decode program shares the trained weights by name."""
+    name = f"attn{idx}"
+
+    def proj(inp, width, tag):
+        return L.fc(inp, size=width, num_flatten_dims=2,
+                    param_attr=ParamAttr(name=f"{name}_{tag}_w"),
+                    bias_attr=ParamAttr(name=f"{name}_{tag}_b"),
+                    name=f"{name}_{tag}")
+
+    q = proj(x, num_heads * d_key, "q")
+    k = proj(x, num_heads * d_key, "k")
+    v = proj(x, num_heads * d_key, "v")
+    qr = L.reshape(q, [0, 0, num_heads, d_key])
+    kr = L.reshape(k, [0, 0, num_heads, d_key])
+    vr = L.reshape(v, [0, 0, num_heads, d_key])
+    k_out, v_out = paged_kv_write(k_pool, v_pool, kr, vr, block_tables,
+                                  context_lens)
+    ctx = paged_attention(qr, k_out, v_out, block_tables, context_lens)
+    merged = L.reshape(ctx, [0, 0, num_heads * d_key])
+    return proj(merged, d_model, "out"), k_out, v_out
+
+
+def transformer_decode_step(vocab_size, *, n_layers, d_model, n_heads,
+                            d_ff, max_context, slots, block_size,
+                            pool_blocks, max_blocks_per_seq):
+    """Build the fixed-shape continuous-batching decode step: ONE new
+    token per active slot against the paged KV pool.
+
+    Feeds (all static shape; the slot axis is the batch): token_ids
+    [slots] int64, context_lens [slots] int32 (span INCLUDING the new
+    token; 0 = inactive slot), block_tables [slots, max_blocks_per_seq]
+    int32 (entries into the pool; 0 is the reserved null block), and per
+    layer k_cache_{i} / v_cache_{i} [pool_blocks, block_size, H, d_key].
+    Every slot's row is written before any slot attends, so the slots of
+    one speculative chain see each other's rows.
+
+    Returns (logits [slots, vocab], [(k_out, v_out) per layer],
+    feed_names): the pool outputs are the written pools."""
+    d_key = d_model // n_heads
+    token_ids = L_io.data("token_ids", [slots], dtype="int64",
+                          append_batch_size=False)
+    context_lens = L_io.data("context_lens", [slots], dtype="int32",
+                             append_batch_size=False)
+    block_tables = L_io.data("block_tables", [slots, max_blocks_per_seq],
+                             dtype="int32", append_batch_size=False)
+    feed_names = ["token_ids", "context_lens", "block_tables"]
+    pools = []
+    for i in range(n_layers):
+        shape = [pool_blocks, block_size, n_heads, d_key]
+        kp = L_io.data(f"k_cache_{i}", shape, dtype="float32",
+                       append_batch_size=False)
+        vp = L_io.data(f"v_cache_{i}", shape, dtype="float32",
+                       append_batch_size=False)
+        pools.append((kp, vp))
+        feed_names += [f"k_cache_{i}", f"v_cache_{i}"]
+
+    # [slots] ids -> [slots, d] rows -> [slots, 1, d]: the decode "batch"
+    # is the slot axis, the sequence axis is the single new token
+    emb = L.unsqueeze(
+        L.embedding(token_ids, [vocab_size, d_model],
+                    param_attr=ParamAttr(
+                        name="tok_emb",
+                        initializer=NormalInitializer(scale=0.02))),
+        [1])
+    pos_tab = L_tensor.create_parameter(
+        [max_context, d_model], dtype="float32", name="pos_emb",
+        default_initializer=NormalInitializer(scale=0.02))
+    one = L_tensor.fill_constant([slots], "int32", 1.0)
+    zero = L_tensor.fill_constant([slots], "int32", 0.0)
+    # the new token sits at position context_len-1; inactive slots (len
+    # 0) clamp to row 0 — their rows only ever land in the null block
+    pos_ids = L.elementwise_max(L.elementwise_sub(context_lens, one), zero)
+    x = L.elementwise_add(emb, L.unsqueeze(L.gather(pos_tab, pos_ids), [1]))
+
+    pool_outs = []
+    for i in range(n_layers):
+        ln1 = L.layer_norm(x, begin_norm_axis=2, name=f"ln1_{i}",
+                           param_attr=ParamAttr(name=f"ln1_{i}_scale"),
+                           bias_attr=ParamAttr(name=f"ln1_{i}_bias"))
+        att, k_out, v_out = _decode_attention(
+            ln1, i, n_heads, d_key, d_model, pools[i][0], pools[i][1],
+            block_tables, context_lens)
+        pool_outs.append((k_out, v_out))
+        x = L.elementwise_add(x, att)
+        ln2 = L.layer_norm(x, begin_norm_axis=2, name=f"ln2_{i}",
+                           param_attr=ParamAttr(name=f"ln2_{i}_scale"),
+                           bias_attr=ParamAttr(name=f"ln2_{i}_bias"))
+        x = L.elementwise_add(x, _ffn(ln2, d_model, d_ff, i))
+
+    x = L.layer_norm(x, begin_norm_axis=2, name="ln_f",
+                     param_attr=ParamAttr(name="ln_f_scale"),
+                     bias_attr=ParamAttr(name="ln_f_bias"))
+    logits = L.fc(x, size=vocab_size, num_flatten_dims=2,
+                  param_attr=ParamAttr(name="lm_head_w"),
+                  bias_attr=ParamAttr(name="lm_head_b"), name="lm_head")
+    logits = L.reshape(logits, [slots, vocab_size])
+    return logits, pool_outs, feed_names
+
+
+# ---------------------------------------------------------------------------
+# the prefill module
 # ---------------------------------------------------------------------------
 
 def _param(shape, device, dtype) -> nn.Parameter:
@@ -215,8 +327,7 @@ class TransformerLM(nn.Module):
     def from_tensors(cls, cfg: Dict, tensors: Dict[str, torch.Tensor]
                      ) -> "TransformerLM":
         """The module over `tensors` ({JAX name: tensor}, shared, not
-        copied): the decode step reads the same weights as the bundle's
-        prefill programs (serving/decode/engine.py)."""
+        copied)."""
         model = cls.from_config(cfg, device="meta")
         own = model.jax_named_parameters()
         if set(own) != set(tensors):
@@ -269,24 +380,3 @@ class TransformerLM(nn.Module):
             x = x + att
             x = x + blk.ffn(blk.ln(x, "ln2"))
         return self._head(x), kvs
-
-    # -- one decode step -----------------------------------------------------
-    def decode_step(self, token_ids: torch.Tensor,
-                    context_lens: torch.Tensor, block_tables: torch.Tensor,
-                    pools: Sequence[Tuple[torch.Tensor, torch.Tensor]]
-                    ) -> torch.Tensor:
-        """token_ids [slots], context_lens [slots] int32 (span INCLUDING
-        the new token; 0 = inactive slot), block_tables [slots, MB] int32,
-        pools [(k_pool, v_pool)] per layer, each [NB, BS, H, D] and
-        updated IN PLACE. Returns logits [slots, vocab]."""
-        slots = token_ids.shape[0]
-        emb = nn_ops.lookup_table(token_ids, self.tok_emb)[:, None]
-        # the new token sits at position context_len-1; inactive slots (len
-        # 0) clamp to row 0 — their rows only ever land in the null block
-        pos_ids = torch.clamp(context_lens - 1, min=0)
-        x = emb + nn_ops.gather(self.pos_emb, pos_ids)[:, None]
-        for blk, (k_pool, v_pool) in zip(self.blocks, pools):
-            x = x + blk.attn.decode(blk.ln(x, "ln1"), k_pool, v_pool,
-                                    block_tables, context_lens)
-            x = x + blk.ffn(blk.ln(x, "ln2"))
-        return self._head(x).reshape(slots, -1)

@@ -2,7 +2,8 @@
 
 Counterparts in ``paddle_tpu/ops/tensor_ops.py``: ``fill_constant``,
 ``uniform_random``, ``gaussian_random``, ``cast``, ``reshape``,
-``slice`` and ``lookup_table``. Random ops draw from the run's ``torch.Generator``
+``unsqueeze``, ``slice``, ``gather`` and ``lookup_table``. Random ops
+draw from the run's ``torch.Generator``
 (``ExecContext``), or from one seeded by the op's own nonzero ``seed``
 attr; they give other numbers than JAX's PRNG from the same seed, with the
 same distribution.
@@ -91,6 +92,23 @@ def reshape(ctx, ins, attrs):
     return {"Out": [x.reshape(shape)]}
 
 
+def _unsqueeze_infer(op, block):
+    x = block.var(op.input("X")[0])
+    out = block.var(op.output("Out")[0])
+    shape = list(x.shape)
+    for a in sorted(op.attrs["axes"]):
+        shape.insert(a, 1)
+    out.shape, out.dtype = tuple(shape), x.dtype
+
+
+@register_op("unsqueeze", infer_shape=_unsqueeze_infer)
+def unsqueeze(ctx, ins, attrs):
+    x = ins["X"][0]
+    for a in sorted(attrs["axes"]):
+        x = x.unsqueeze(a)
+    return {"Out": [x]}
+
+
 def _slice_infer(op, block):
     x = block.var(op.input("Input")[0])
     out = block.var(op.output("Out")[0])
@@ -110,6 +128,20 @@ def slice_op(ctx, ins, attrs):
     for ax, st, en in zip(attrs["axes"], attrs["starts"], attrs["ends"]):
         idx[ax] = slice(st, en)
     return {"Out": [x[tuple(idx)]]}
+
+
+def _gather_infer(op, block):
+    x = block.var(op.input("X")[0])
+    idx = block.var(op.input("Index")[0])
+    out = block.var(op.output("Out")[0])
+    out.shape = tuple(idx.shape[:1]) + tuple(x.shape[1:])
+    out.dtype = x.dtype
+
+
+@register_op("gather", infer_shape=_gather_infer)
+def gather(ctx, ins, attrs):
+    """Rows of X along axis 0 at the flattened Index."""
+    return {"Out": [nn_ops.gather(ins["X"][0], ins["Index"][0])]}
 
 
 def _lookup_infer(op, block):

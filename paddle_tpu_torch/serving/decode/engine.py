@@ -4,9 +4,10 @@ Counterpart of ``paddle_tpu/serving/decode/engine.py``. DecodeModel owns
 the device side — the bundle's prefill programs (transformer_lm with
 collect_kv, one a length bucket), served through the port's ModelVersion
 (same bucket selection, padding, scatter; the flash kernel), the
-decode-step module TransformerLM over the same weight tensors (the
-paged kernels), and the device-resident KV pools, which never
-round-trip through host numpy. DecodeScheduler owns the
+bundle's decode-step program (transformer_decode_step, an
+io.ServingProgram over the same weight tensors; the paged kernel), and
+the device-resident KV pools, which never round-trip through host
+numpy. DecodeScheduler owns the
 host side — slots, block accounting, admission, eviction. DecodeEngine
 wires them.
 """
@@ -46,7 +47,7 @@ class DecodeModel:
     def __init__(self, model_dir: str, *, device=None, warmup: bool = True):
         self.model_dir = model_dir
         self.device = resolve_device(device)
-        meta, self.prefill_model, self.model = load_decode_bundle(
+        meta, self.prefill_model, self.step = load_decode_bundle(
             model_dir, device=self.device, warmup=warmup)
         dec = meta["decode"]
         self.slots = int(dec["slots"])
@@ -133,17 +134,14 @@ class DecodeModel:
         Every slot's row is written before any slot attends, so the slots
         of one speculative chain (scheduler slot packing) see each other's
         rows."""
-        metas = self._feed_meta
-
-        def feed(a, meta):
-            return torch.from_numpy(np.ascontiguousarray(
-                a, dtype=np.dtype(meta["dtype"]))).to(self.device)
-
-        pools = list(zip(self._pools[0::2], self._pools[1::2]))
-        logits = self.model.decode_step(feed(token_ids, metas[0]),
-                                        feed(context_lens, metas[1]),
-                                        feed(block_tables, metas[2]), pools)
-        return logits.cpu().numpy()
+        feeds = {m["name"]: torch.from_numpy(np.ascontiguousarray(
+            a, dtype=np.dtype(m["dtype"]))).to(self.device)
+            for m, a in zip(self._feed_meta,
+                            (token_ids, context_lens, block_tables))}
+        # the step writes these pools in place; its pool fetches are them
+        feeds.update(zip((m["name"] for m in self._feed_meta[3:]),
+                         self._pools))
+        return self.step(feeds)[0].cpu().numpy()
 
     @torch.inference_mode()
     def permute_blocks(self, mapping: Dict[int, int]) -> None:

@@ -25,14 +25,20 @@ full of NaN, on CPU tensors:
 * every slot idle; a slot of 130 P + 7 keys, whose 131 live splits are
   more than the combining block's 128 threads.
 
-For each: the largest share of the limit (atol = rtol = 1e-5) against
-``paged_attention_reference`` (given the table with out-of-range ids set
-to 0), idle slots exactly zero, a second call the same bits (its blocks
-in another order), and the tickets back at 0. ``--split`` sets P (the
-keys a block; the wrapper's ``PAGED_SPLIT_KEYS`` by default), several
-values to sweep. Exits 1 if any case misses.
+For each, in float32 and then in bfloat16 (the same inputs rounded to
+bfloat16, through ``paged_decode_attention_bf16``, the bfloat16 instance
+of the same source): the largest share of the limit against
+``paged_attention_reference`` on the same inputs (given the table with
+out-of-range ids set to 0; float32 atol = rtol = 1e-5, bfloat16 2^-7
+max|plain| + 2^-7 |plain|, with the share of output values whose bits
+differ from the plain version's), idle slots exactly zero, a second
+call the same bits (its blocks in another order), and the tickets back
+at 0. ``--split`` sets P (the keys a block; the wrapper's
+``PAGED_SPLIT_KEYS`` by default), several values to sweep; ``--dtype``
+runs one of the two. Exits 1 if any case misses.
 
     python scripts/emulate_paged_attention_cpu.py [--split 16 64]
+        [--dtype float32|bfloat16]
 """
 
 import argparse
@@ -53,7 +59,10 @@ from paddle_tpu_torch.kernels import build  # noqa: E402
 from paddle_tpu_torch.kernels import flash_attention as fa  # noqa: E402
 
 TOL = 1e-5
+BF16_REL = 2.0 ** -7
 EMU_H = emu.EMU_H + r"""
+struct __attribute__((aligned(8))) uint2 { uint32_t x, y; };
+inline uint2 make_uint2(uint32_t a, uint32_t b) { return {a, b}; }
 template <class T> inline T __ldcs(const T* p) { return *p; }
 inline float expf(float x) { return std::exp(x); }
 namespace cuda {
@@ -164,28 +173,44 @@ def cases(split: int):
            (9, 2, 1, 128, 3 + -(-n // 4), 4, [n, 3]))
 
 
-def run(lib, split: int, name: str, spec) -> bool:
+def limit_share(got, want, bf16: bool) -> float:
+    """The largest share of the limit: 1e-5 in float32; in bfloat16
+    2^-7 max|plain| + 2^-7 |plain|, compared in float32."""
+    got, want = got.float(), want.float()
+    lim = (BF16_REL * want.abs().max() + BF16_REL * want.abs() if bf16
+           else TOL + TOL * want.abs())
+    return float(((got - want).abs() / lim.clamp_min(1e-30)).max())
+
+
+def run(lib, split: int, name: str, spec, dtype) -> bool:
     seed, s, h, d, nb, bs, lens, *rest = spec
     mb = rest[0] if rest else None
     bad = rest[1] if len(rest) > 1 else False
     args = make_case(seed, s, h, d, nb, bs, lens, mb, bad)
+    args = tuple(a.to(dtype) if a.is_floating_point() else a for a in args)
+    fn = (fa.paged_decode_attention_bf16 if dtype == torch.bfloat16
+          else fa.paged_decode_attention)
     with emulated(lib, split):
-        got = fa.paged_decode_attention(*args)
-        again = fa.paged_decode_attention(*args)
+        got = fn(*args)
+        again = fn(*args)
         buf, count = fa._paged_scratch[(args[0].device.index, 0)]
         tickets = buf[:count].view(torch.int32)
         _, n_split = fa.paged_split_plan(args[3].shape[1] * bs)
     want = expected(args)
-    share = float(((got - want).abs() / (TOL + TOL * want.abs())).max())
+    bf16 = dtype == torch.bfloat16
+    share = limit_share(got, want, bf16)
+    differ = float((got != want).float().mean())
     idle = all(bool((got[i] == 0).all()) for i, n in enumerate(lens)
                if n == 0)
     same = torch.equal(got, again)
     zero = int(tickets.abs().sum()) == 0
-    print(f"P {split}, {name}: S {s}, H {h}, D {d}, BS {bs}, MB "
-          f"{args[3].shape[1]}, lengths {lens}: {n_split} split(s) a "
-          f"(slot, head); largest share of the 1e-5 limit {share:.4f}; "
-          f"idle slots zero {idle}; a second call the same bits {same}; "
-          f"tickets back at 0 {zero}", flush=True)
+    limit = "bf16" if bf16 else "1e-5"
+    print(f"{str(dtype)[6:]} P {split}, {name}: S {s}, H {h}, D {d}, BS "
+          f"{bs}, MB {args[3].shape[1]}, lengths {lens}: {n_split} "
+          f"split(s) a (slot, head); largest share of the {limit} limit "
+          f"{share:.4f}; values whose bits differ from the plain "
+          f"version's {differ:.4f}; idle slots zero {idle}; a second call "
+          f"the same bits {same}; tickets back at 0 {zero}", flush=True)
     return share <= 1 and idle and same and zero
 
 
@@ -193,10 +218,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--split", type=int, nargs="+",
                     default=[fa.PAGED_SPLIT_KEYS])
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"))
     args = ap.parse_args()
+    dtypes = ([getattr(torch, args.dtype)] if args.dtype
+              else [torch.float32, torch.bfloat16])
     torch.set_num_threads(1)
     lib = compile_library(build.BUILD_DIR / "paged_attention_emulation")
-    ok = [run(lib, p, name, spec) for p in args.split
+    ok = [run(lib, p, name, spec, dt) for dt in dtypes for p in args.split
           for name, spec in cases(p)]
     return 0 if all(ok) else 1
 

@@ -30,8 +30,8 @@ JAX package's float32 ones.
 
 Then the port counterparts of tests/test_loop_amp.py's AMP tests, a
 bf16 fetch (eager and lazy), the Trainer's checkpoint of an AMP program,
-the refusals of ops whose kernels have no bfloat16 version (and the conv
-ops that now run under AMP), and the LSTM
+the conv ops under AMP (no op is refused: every kernel has a bfloat16
+version), and the LSTM
 under AMP: the stacked LSTM's program builds and trains (its numbers
 against the JAX package are tests/test_torch_lstm_bf16.py's), and a
 peephole ``dynamic_lstm``, which no kernel takes, runs the scan in
@@ -386,8 +386,7 @@ def test_step_contract_and_trainer_checkpoint_under_amp(tmp_path):
 def _refused_program(what):
     """(main, startup, loss, feed) of a small program whose step needs
     `what`: conv2d + batch_norm + relu (the Executor's fusion pass makes
-    it one fused_conv2d), a fused_bottleneck block, a paged_attention
-    op."""
+    it one fused_conv2d), a fused_bottleneck block."""
     tprog.reset_unique_names()
     main, startup = pt.Program(), pt.Program()
     rng = np.random.RandomState(0)
@@ -395,45 +394,30 @@ def _refused_program(what):
         img = pt.layers.data("img", [16, 8, 8])
         if what == "fused_bottleneck":
             out = pt.layers.fused_bottleneck(img, ch_out=4)
-        elif what == "fused_conv2d":
+        else:
             out = pt.layers.batch_norm(pt.layers.conv2d(
                 img, num_filters=4, filter_size=3, padding=1,
                 bias_attr=False), act="relu")
-        else:
-            out = pt.layers.fc(img, size=4)
         loss = pt.layers.mean(out)
-        if what == "paged_attention":
-            block = main.global_block
-            block.create_var("paged_out", shape=(2, 1))
-            block.append_op(what, {"Q": [loss.name]}, {"Out": ["paged_out"]})
         pt.optimizer.SGDOptimizer(learning_rate=0.1).minimize(loss)
     return main, startup, loss, {
         "img": rng.randn(2, 16, 8, 8).astype(np.float32)}
 
 
-@pytest.mark.parametrize("what", ["fused_conv2d", "fused_bottleneck",
-                                  "paged_attention"])
+@pytest.mark.parametrize("what", ["fused_conv2d", "fused_bottleneck"])
 def test_amp_refuses_ops_without_a_bf16_kernel(what, monkeypatch):
-    """Under AMP an op whose kernels have no bfloat16 version raises
-    "not ported", naming the op, when the step is built, on every device
-    (here the CPU, where the plain versions would have run); without AMP
-    the same program runs. The conv epilogue has bfloat16 kernels, so
-    fused_conv2d runs under AMP (a finite loss, float32 masters);
-    fused_bottleneck trains under AMP too, composed and where
-    PT_FUSED_BLOCK asks for the chain (always or 1): the chain has
-    bfloat16 kernels forward and backward; the paged ops stay
-    refused."""
+    """Every kernel has a bfloat16 version, so no op is refused under
+    AMP; the program runs without AMP and with it. The conv epilogue has
+    bfloat16 kernels, so fused_conv2d runs under AMP (a finite loss,
+    float32 masters); fused_bottleneck trains under AMP too, composed and
+    where PT_FUSED_BLOCK asks for the chain (always or 1): the chain has
+    bfloat16 kernels forward and backward."""
     monkeypatch.delenv("PT_FUSED_BLOCK", raising=False)
     main, startup, loss, feed = _refused_program(what)
     exe, scope = pt.Executor(pt.CPUPlace()), pt.Scope()
     exe.run(startup, scope=scope)
-    if what != "paged_attention":   # an op the port does not register
-        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
     main.amp_dtype = "bfloat16"
-    if what == "paged_attention":
-        with pytest.raises(NotImplementedError, match=f"{what}.*not ported"):
-            exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
-        return
     out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
     assert np.isfinite(out).all()
     for p in main.global_block.all_parameters():

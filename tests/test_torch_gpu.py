@@ -31,7 +31,10 @@ through the later steps), the float32 sums dw, db, dr0 and dc0 within
 bf16 conv-epilogue kernels against their plain versions on the same
 bf16 inputs: y within 2^-7 max|plain| + 2^-7 |plain|, the float32 sums
 as the float32 kernel's; a narrow bf16 ResNet against the CPU within
-tests/test_torch_resnet_bf16.py's limits.
+tests/test_torch_resnet_bf16.py's limits. The bf16 paged decode kernel
+against its plain version on the same bf16 inputs: within 2^-7
+max|plain| + 2^-7 |plain| (its one rounding, after float32 sums taken
+in another order), two calls the same bits.
 """
 
 import json
@@ -359,18 +362,12 @@ def test_paged_kernel_on_two_streams_keeps_its_tickets_apart(cuda):
             torch.testing.assert_close(out, want, **TOL)
 
 
-def test_paged_kernel_from_two_threads_matches_one_thread(cuda):
-    """Two host threads launch the paged kernel at once on the default
-    stream, as two fleet replicas' decode schedulers do in one process,
-    with the scratch dropped first so that calls grow it while the other
-    thread launches: every output has the bits of the same call from one
-    thread, and the launch count is exact."""
-    gen = torch.Generator().manual_seed(6)
-    cases = [_paged_case(gen, s, 8, 256, 300, 16,
-                         [(97 * i * s) % 1000 + 1 for i in range(s)],
-                         mb=64)
-             for s in (1, 2, 4, 8, 3, 8, 6, 5)]
-    want = [fa.paged_decode_attention(*args) for args in cases]
+def _paged_from_two_threads(cases, wrapper):
+    """Two host threads launch `wrapper` at once on the default stream
+    over `cases`, with the scratch dropped first so that calls grow it
+    while the other thread launches: every output has the bits of the
+    same call from one thread, and the launch count is exact."""
+    want = [wrapper(*args) for args in cases]
     torch.cuda.synchronize()
     fa._paged_scratch.clear()
     start = threading.Barrier(2)
@@ -380,9 +377,9 @@ def test_paged_kernel_from_two_threads_matches_one_thread(cuda):
         start.wait(30)
         for _ in range(20):
             for args in cases[k::2] + cases[1 - k::2]:
-                got[k].append((args, fa.paged_decode_attention(*args)))
+                got[k].append((args, wrapper(*args)))
 
-    n0 = fa.paged_decode_attention.launches
+    n0 = wrapper.launches
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
@@ -396,12 +393,175 @@ def test_paged_kernel_from_two_threads_matches_one_thread(cuda):
     finally:
         sys.setswitchinterval(interval)
     torch.cuda.synchronize()
-    assert fa.paged_decode_attention.launches - n0 == 2 * 20 * len(cases)
+    assert wrapper.launches - n0 == 2 * 20 * len(cases)
     by_case = {id(args): w for args, w in zip(cases, want)}
     for k in range(2):
         assert len(got[k]) == 20 * len(cases)
         for args, out in got[k]:
             assert torch.equal(out, by_case[id(args)])
+
+
+def _two_thread_cases(seed, dtype=torch.float32):
+    gen = torch.Generator().manual_seed(seed)
+    return [tuple(a.to(dtype) if a.is_floating_point() else a
+                  for a in _paged_case(gen, s, 8, 256, 300, 16,
+                                       [(97 * i * s) % 1000 + 1
+                                        for i in range(s)], mb=64))
+            for s in (1, 2, 4, 8, 3, 8, 6, 5)]
+
+
+def test_paged_kernel_from_two_threads_matches_one_thread(cuda):
+    """Two host threads launch the paged kernel at once on the default
+    stream, as two fleet replicas' decode schedulers do in one process,
+    with the scratch dropped first so that calls grow it while the other
+    thread launches: every output has the bits of the same call from one
+    thread, and the launch count is exact."""
+    _paged_from_two_threads(_two_thread_cases(6), fa.paged_decode_attention)
+
+
+# the bf16 paged kernel (q, the pools and the output bfloat16; the
+# softmax and P.V in float32, the output rounded once) against its plain
+# version on the same bf16 inputs: within 2^-7 max|plain| + 2^-7 |plain|
+# (its one rounding, after sums taken in another order)
+
+def _paged_bf16_case(gen, *a, **k):
+    return tuple(x.bfloat16() if x.is_floating_point() else x
+                 for x in _paged_case(gen, *a, **k))
+
+
+def _paged_bf16_held(args, out=None):
+    out = fa.paged_decode_attention_bf16(*args) if out is None else out
+    assert out.dtype == torch.bfloat16
+    _assert_bf16_close(out, _paged_want(args), "paged bf16")
+    return out
+
+
+@pytest.mark.parametrize("s,h,d,nb,bs,lens", [
+    (8, 8, 256, 513, 16, [1024, 1, 17, 500, 0, 999, 64, 777]),
+    (3, 2, 128, 12, 8, [13, 0, 40]),
+    (2, 1, 256, 30, 4, [65, 3]),
+])
+def test_paged_bf16_kernel_matches_plain(cuda, s, h, d, nb, bs, lens):
+    """chip_smoke.py phase 3's shape among them; the float32 wrapper
+    hands a bfloat16 tensor to the bf16 kernel; two calls the same bits."""
+    gen = torch.Generator().manual_seed(nb)
+    args = _paged_bf16_case(gen, s, h, d, nb, bs, lens)
+    n16, n32 = (fa.paged_decode_attention_bf16.launches,
+                fa.paged_decode_attention.launches)
+    out = _paged_bf16_held(args)
+    assert torch.equal(fa.paged_decode_attention(*args), out)
+    assert fa.paged_decode_attention_bf16.launches == n16 + 2
+    assert fa.paged_decode_attention.launches == n32
+    for i, n in enumerate(lens):
+        if n == 0:
+            assert bool((out[i] == 0).all())
+
+
+@pytest.mark.parametrize("d,bs", [(128, 4), (256, 8), (128, 16), (256, 16)])
+def test_paged_bf16_kernel_at_the_split_edges(cuda, d, bs):
+    p = fa.paged_split_plan(1)[0]
+    cap = -(-(3 * p + 5) // bs) * bs
+    lens = [0, 1, p - 1, p, p + 1, cap]
+    nb = 2 + sum(-(-n // bs) for n in lens)
+    gen = torch.Generator().manual_seed(d + bs)
+    args = _paged_bf16_case(gen, 6, 2, d, nb, bs, lens, mb=cap // bs)
+    out = _paged_bf16_held(args)
+    assert bool((out[0] == 0).all())
+    assert torch.equal(out, fa.paged_decode_attention_bf16(*args))
+
+
+@pytest.mark.parametrize("d", [128, 256])
+def test_paged_bf16_kernel_reads_the_null_block_for_ids_out_of_range(
+        cuda, d):
+    gen = torch.Generator().manual_seed(d)
+    p = fa.paged_split_plan(1)[0]
+    lens = [2 * p + 3, 0, p, 9]
+    q, kp, vp, tables, lens_t = _paged_bf16_case(gen, 4, 2, d, 40, 8, lens)
+    tables = tables.cpu()
+    tables[0, 1] = -3
+    tables[2, 0] = 40 + 5
+    tables[3, -1] = 7 * 40
+    out = _paged_bf16_held((q, kp, vp, tables.cuda(), lens_t))
+    assert bool((out[1] == 0).all())
+
+
+def test_paged_bf16_kernel_combines_more_splits_than_a_block_has_threads(
+        cuda):
+    p = fa.paged_split_plan(1)[0]
+    n = 130 * p + 7
+    gen = torch.Generator().manual_seed(6)
+    args = _paged_bf16_case(gen, 2, 1, 128, 3 + -(-n // 4), 4, [n, 3])
+    out = _paged_bf16_held(args)
+    assert torch.equal(out, fa.paged_decode_attention_bf16(*args))
+
+
+def test_paged_bf16_kernel_is_one_launch_a_call(cuda):
+    """At phase 3's shape: one CUDA launch a call (the profiler), the
+    float32 kernel's, no host sync and no allocation but the output."""
+    gen = torch.Generator().manual_seed(4)
+    args = _paged_bf16_case(gen, 8, 8, 256, 513, 16,
+                            [1024, 1, 17, 500, 0, 999, 64, 777], mb=64)
+    fa.paged_decode_attention_bf16(*args)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [fa.paged_decode_attention_bf16(*args) for _ in range(3)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == (
+        before + 3)
+    kernels = _kernels_of(lambda: fa.paged_decode_attention_bf16(*args), 3)
+    assert len(kernels) == 3, kernels
+    assert all("paged_split_kernel" in k for k in kernels), kernels
+    for out in outs:
+        _paged_bf16_held(args, out)
+
+
+def test_paged_bf16_kernel_from_two_threads_matches_one_thread(cuda):
+    _paged_from_two_threads(_two_thread_cases(7, torch.bfloat16),
+                            fa.paged_decode_attention_bf16)
+
+
+def test_paged_bf16_kernel_refuses_what_it_does_not_take(cuda):
+    """float16, mixed dtypes, head_dim 64, int64 tables and a pool off 16
+    bytes raise before any launch; with the plain version patched to
+    raise, a bf16 call still runs the kernel (no fallback)."""
+    gen = torch.Generator().manual_seed(8)
+    q, kp, vp, tables, lens = _paged_bf16_case(gen, 3, 2, 128, 12, 8,
+                                               [13, 0, 40])
+    n = fa.paged_decode_attention_bf16.launches
+    with pytest.raises(TypeError):
+        fa.paged_decode_attention(q.half(), kp.half(), vp.half(), tables,
+                                  lens)
+    with pytest.raises(TypeError):
+        fa.paged_decode_attention_bf16(q, kp.float(), vp, tables, lens)
+    with pytest.raises(TypeError):
+        fa.paged_decode_attention_bf16(q, kp, vp, tables.long(), lens)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.paged_decode_attention_bf16(q[..., :64].contiguous(),
+                                       kp[..., :64].contiguous(),
+                                       vp[..., :64].contiguous(), tables,
+                                       lens)
+    off = torch.empty(kp.numel() + 1, dtype=torch.bfloat16,
+                      device=kp.device)[1:].view(kp.shape)
+    off.copy_(kp)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.paged_decode_attention_bf16(q, off, vp, tables, lens)
+    assert fa.paged_decode_attention_bf16.launches == n
+    real = fa.paged_attention_reference
+    want = real(q, kp, vp, tables, lens)
+
+    def boom(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    fa.paged_attention_reference = boom
+    try:
+        out = fa.paged_decode_attention_bf16(q, kp, vp, tables, lens)
+    finally:
+        fa.paged_attention_reference = real
+    assert fa.paged_decode_attention_bf16.launches == n + 1
+    _assert_bf16_close(out, want, "paged bf16, no fallback")
 
 
 def test_wrappers_never_fall_back(cuda, monkeypatch):
