@@ -1127,7 +1127,13 @@ def kernel_class(name: str) -> str:
         return "lstm_seq_fwd (port kernel)"
     if "lstm_gemm_kernel" in n or "lstm_bwd_" in n:
         return "lstm_seq_bwd (port kernel)"
-    # the bf16 chain's kernels (csrc/fused_block_bf16.cu): templates
+    # the bf16 chain's wgmma products (csrc/abt_bf16_tc.cuh): bwd_reduce3's
+    # P and bwd_mid's tap gradients
+    if "reduce3_bf16_kernel" in n:
+        return "bwd_reduce3_bf16 (port kernel)"
+    if "taps_bf16_kernel" in n:
+        return "bwd_mid_bf16 (port kernel)"
+    # the bf16 chain's other kernels (csrc/fused_block_bf16.cu): templates
     # whose mode says which wrapper launched them
     for pat, modes in (
             (r"conv1x1_bf16_kernel<\d+, (\d)",
@@ -4695,16 +4701,17 @@ def ptxas_of(report: dict, source: str) -> dict:
 
 def bf16_chain_regs(report: dict) -> dict:
     """{bf16 chain kernel: "registers r1/r2/..., spills s1/s2/... bytes"}
-    over the instances of its CUDA kernels in csrc/fused_block_bf16.cu
-    (bwd_mid's and bwd_final's: their fold, product and tile kernels)."""
+    over the instances of its CUDA kernels in csrc/fused_block_bf16.cu and
+    csrc/abt_bf16_tc.cuh (bwd_mid's and bwd_final's: their fold, product
+    and tile kernels)."""
     match = {"conv1x1_stats_bf16": r"conv1x1_bf16_kernelILi\d+ELi0E",
              "conv1x1_bn_residual_bf16": r"conv1x1_bf16_kernelILi\d+ELi1E",
              "conv3x3_norm_stats_bf16": r"conv3x3_bf16_kernelILi\d+ELi0E",
              "norm_relu_moments_bf16": r"moments_bf16_kernel",
-             "bwd_reduce3_bf16": r"abt_bf16_kernelILi\d+ELi\d+ELi0E",
+             "bwd_reduce3_bf16": r"reduce3_bf16_kernel",
              "bwd_apply3_bf16": r"conv1x1_bf16_kernelILi\d+ELi2E",
-             "bwd_mid_bf16": r"conv3x3_bf16_kernelILi\d+ELi1E|abt_bf16_"
-                             r"kernelILi\d+ELi\d+ELi1E|fold_bf16",
+             "bwd_mid_bf16": r"conv3x3_bf16_kernelILi\d+ELi1E|"
+                             r"taps_bf16_kernel|fold_bf16",
              "bwd_final_bf16": r"conv1x1_bf16_kernelILi\d+ELi3E|abt_bf16_"
                                r"kernelILi\d+ELi\d+ELi2E|fold_bf16"}
     entries = ptxas_of(report, "fused_block_bf16.cu")
@@ -5800,7 +5807,7 @@ def main() -> int:
                         "paddle_tpu/kernels/fused_block.py:399"),
             "bwd_final": ("paddle_tpu_torch/csrc/bwd_final_tc.cuh",
                           "paddle_tpu/kernels/fused_block.py:466"),
-            "bwd_reduce3_bf16": ("paddle_tpu_torch/csrc/fused_block_bf16.cu",
+            "bwd_reduce3_bf16": ("paddle_tpu_torch/csrc/abt_bf16_tc.cuh",
                                  "paddle_tpu/kernels/fused_block.py:192"),
             "bwd_apply3_bf16": ("paddle_tpu_torch/csrc/fused_block_bf16.cu",
                                 "paddle_tpu/kernels/fused_block.py:261"),

@@ -145,12 +145,6 @@ constexpr uint32_t tile_bytes() {
   return 64u * D * sizeof(bf16);
 }
 
-// The shared address of the dynamic shared memory, rounded up to 1024
-// bytes (the 128-byte swizzle's period; each layout asks 1024 more).
-__device__ __forceinline__ uint32_t aligned_base(const void* smem) {
-  return (sm90::smem_u32(smem) + 1023u) & ~1023u;
-}
-
 // The grids of the forward and dK/dV: a block's (batch, head) and tile
 // level (0 the heaviest). Heaviest first over all (batch, head)s would
 // stream every head's K and V (the forward; Q and dO for dK/dV) once a
@@ -303,7 +297,7 @@ flash_bf16_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   using L = FwdSmem<D>;
   constexpr int NO = D / 2;  // O's accumulators a thread
   extern __shared__ float4 smem4[];
-  const uint32_t base = aligned_base(smem4);
+  const uint32_t base = sm90::aligned_base(smem4);
   const uint32_t full_q = base + L::kBar;
   const auto bar = [&](int kind, int s) {
     return full_q + 8 * (1 + kind * kStages + s);
@@ -593,7 +587,7 @@ flash_bf16_dq_kernel(const __grid_constant__ CUtensorMap tq,
   using L = DqSmem<D>;
   constexpr int NA = D / 4;  // dQ's accumulators a thread: half of D
   extern __shared__ float4 smem4[];
-  const uint32_t base = aligned_base(smem4);
+  const uint32_t base = sm90::aligned_base(smem4);
   char* const base_ptr = reinterpret_cast<char*>(smem4) +
                          (base - sm90::smem_u32(smem4));
   float4* const sP = reinterpret_cast<float4*>(base_ptr + L::kP);
@@ -883,7 +877,7 @@ flash_bf16_dkv_kernel(const __grid_constant__ CUtensorMap tq,
   using L = DkvSmem<D>;
   constexpr int NO = D / 2;  // dV's or dK's accumulators a thread
   extern __shared__ float4 smem4[];
-  const uint32_t base = aligned_base(smem4);
+  const uint32_t base = sm90::aligned_base(smem4);
   char* const base_ptr = reinterpret_cast<char*>(smem4) +
                     (base - sm90::smem_u32(smem4));
   float* const sP = reinterpret_cast<float*>(base_ptr + L::kP);

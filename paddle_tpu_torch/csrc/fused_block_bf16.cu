@@ -65,8 +65,9 @@
 // work on half their bytes.
 //
 // What the design does about it: right and simple first; the redesign for
-// speed (wgmma fed by TMA, csrc/sm90.cuh) is later work. One tile product
-// serves all four kernels: 8 warps as 2 (rows) x 4 (columns), each warp
+// speed (wgmma fed by TMA, csrc/sm90.cuh) has begun with bwd_reduce3's
+// and bwd_mid's products over N * S (csrc/abt_bf16_tc.cuh). One tile
+// product serves the rest: 8 warps as 2 (rows) x 4 (columns), each warp
 // (BM / 2) x (BN / 4), bf16 mma.sync.m16n8k16 with float32 accumulators,
 // both operands from shared memory by ldmatrix (the A rows and, for the
 // moments and the 3x3, the B rows K-contiguous; the 1x1s' x [K][columns]
@@ -105,15 +106,15 @@
 //     the taps flipped and transposed by the wrapper (c3 mode kInputGrad:
 //     h1's mask, one rounding and bn1's sums in the epilogue). da2 and da1
 //     are folded once into a bf16 scratch (fold_bf16_kernel).
-//   - P, the nine tap gradients and dW1 (ab::abt_bf16_kernel) are the
-//     moments kernel's product with two operands: a block owns a BM x BN
-//     tile of A's rows by B's rows (and, for the taps, one tap) and a
-//     split of N * S in 32-position stages, both operands [row][32
-//     positions], B's rows h normalized as they land (bwd_reduce3's h2;
-//     bwd_mid's h1 at the tap's shift of each position, 0 off the
-//     image); bwd_reduce3's A rows are g3, made from dout and out as they
-//     land, written out and summed by the blocks of column tile 0. The
-//     splits' partials go through a fixed-order pass.
+//   - dW1 (ab::abt_bf16_kernel) is the moments kernel's product with two
+//     operands: a block owns a BM x 128 tile of A's rows (da1) by B's
+//     rows (x) and a split of N * S in 32-position stages, both operands
+//     [row][32 positions]. The splits' partials go through a fixed-order
+//     pass. (Its kReduce3 and kTaps modes are no longer launched.)
+//   - P and Sum g3 (bwd_reduce3) and the nine tap gradients (bwd_mid) run
+//     on one split product on wgmma fed by TMA, csrc/abt_bf16_tc.cuh
+//     (abw::): 64-position stages of one image, the transformed operand
+//     (g3, h2; h1) made once a stage, the taps all nine in one pass.
 //   - Sums: a partial per tile (a thread's columns in order, then the
 //     row's threads in order), then fused_block.cuh's passes in fixed
 //     order. No float atomics: two calls on one input give the same bits.
@@ -125,6 +126,7 @@
 #include <cstdint>
 
 #include "fused_block.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -154,7 +156,15 @@ __device__ __forceinline__ uint32_t norm2(uint32_t v, float sc, float sh) {
               norm_bf((bf16)(v >> 16), sc, sh));
 }
 
-// ---- bf16 tensor-core product and its fragment loads
+// ---- bf16 tensor-core product and its fragment loads (and a pair's
+// rounding to bf16)
+// lo and hi rounded to bf16 (to nearest, ties to even: to_bf's rounding
+// of finite values) in one instruction, lo in the low half.
+__device__ __forceinline__ uint32_t cvt_bf2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
 // d += a b over one m16n8k16 tile: a (16 x 16, row) and b (16 x 8, col)
 // bf16, float32 accumulators.
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
@@ -1033,25 +1043,16 @@ int launch_bm(Args p, int taps, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// The tiles: BM rows of A (64 where MA <= 64, else 128) by BN rows of B
-// (kReduce3, kTaps: 64 where MB <= 64, else 128; kDW1: 128).
-template <int kMode>
-int launch(const Args& p, int taps, int wide, cudaStream_t s) {
-  const bool a64 = p.MA <= 64, b64 = kMode != kDW1 && p.MB <= 64;
-#define AB_LAUNCH(BM, BN)                                           \
-  return wide ? launch_bm<BM, BN, kMode, true>(p, taps, s)          \
-              : launch_bm<BM, BN, kMode, false>(p, taps, s)
-  if constexpr (kMode == kReduce3) {
-    if (b64) AB_LAUNCH(128, 64);
-    AB_LAUNCH(128, 128);
-  } else if constexpr (kMode == kTaps) {
-    if (a64) AB_LAUNCH(64, 64);
-    AB_LAUNCH(128, 128);
-  } else {
-    if (a64) AB_LAUNCH(64, 128);
-    AB_LAUNCH(128, 128);
-  }
-#undef AB_LAUNCH
+// bwd_final's dW1 (kDW1): BM rows of A (64 where MA <= 64, else 128) by
+// 128 rows of B. (bwd_reduce3's P and bwd_mid's tap gradients run on
+// abw::, csrc/abt_bf16_tc.cuh; the kReduce3 and kTaps modes are no longer
+// launched.)
+int launch_dw1(const Args& p, int wide, cudaStream_t s) {
+  if (p.MA <= 64)
+    return wide ? launch_bm<64, 128, kDW1, true>(p, 1, s)
+                : launch_bm<64, 128, kDW1, false>(p, 1, s);
+  return wide ? launch_bm<128, 128, kDW1, true>(p, 1, s)
+              : launch_bm<128, 128, kDW1, false>(p, 1, s);
 }
 
 // The entry points' checks of a split product.
@@ -1063,6 +1064,8 @@ inline bool ok(int N, int MA, int MB, int S, int splits) {
 }
 
 }  // namespace ab
+
+#include "abt_bf16_tc.cuh"
 
 // da = bf16(fma(g, p, a * q) + r) over [N, C, S], the folded BN backward
 // as XLA contracts the Pallas kernels' g * p + a * q + r; 4 elements a
@@ -1212,19 +1215,18 @@ extern "C" int fused_block_conv1x1_bn_residual_bf16(
 // dout, out [N, Cin, S], a2 [N, C, S] raw, sc2/sh2 [C] float32; g3 [N,
 // Cin, S]; part [splits, Cin, C + 1] scratch, red [Cin, C + 1] float32: P
 // = sum g3 h2^T in columns 0..C-1, sum g3 in column C. Split p takes the
-// 32-position pieces [p * P / splits, (p + 1) * P / splits) of N * S;
-// wide: S % 4 == 0.
+// 64-position stages [p * Q / splits, (p + 1) * Q / splits) of the Q = N *
+// ceil(S / 64) stages; Cin and C multiples of abw::group_of(S).
 extern "C" int fused_block_bwd_reduce3_bf16(
     const bf16* dout, const bf16* out, const bf16* a2, const float* sc2,
     const float* sh2, bf16* g3, float* part, float* red, int N, int Cin,
-    int C, int S, int splits, int wide, void* stream) {
-  if (!ab::ok(N, Cin, C, S, splits) || (wide && S % 4) || !aligned16(dout) ||
-      !aligned16(out) || !aligned16(a2) || !aligned16(g3))
+    int C, int S, int splits, void* stream) {
+  if (!aligned16(dout) || !aligned16(out) || !aligned16(a2) ||
+      !aligned16(g3))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const ab::Args p{dout, out, a2, sc2, sh2, g3, part, N, Cin, C, S, 1, 0,
-                   splits, 0};
-  const int e = ab::launch<ab::kReduce3>(p, 1, wide, s);
+  const int e = abw::launch_reduce3(dout, out, a2, sc2, sh2, g3, part, N, Cin,
+                                    C, S, splits, s);
   if (e != 0) return e;
   return finish_splits(part, red, (long)Cin * (C + 1), splits, s);
 }
@@ -1254,15 +1256,17 @@ extern "C" int fused_block_bwd_apply3_bf16(
 // taps_t [9, C, C] the taps flipped and transposed (taps_t[t] = taps[8 -
 // t]^T); da2 [N, C, H*W] scratch; g1 [N, C, H*W]; part [2, C, T], stats
 // [2, C] (sum g1, sum g1 x^1); wpart [splits, 9, C, C] scratch, dtaps [9,
-// C, C] float32. C % 16 == 0; T = N * ceil(H * (W + 2) / 128).
+// C, C] float32 (splits of N * ceil(H * W / 64) stages, as bwd_reduce3's).
+// C % 16 == 0; W <= abw::kTapMaxW; T = N * ceil(H * (W + 2) / 128).
 extern "C" int fused_block_bwd_mid_bf16(
     const bf16* g2, const bf16* a2, const bf16* a1, const float* sc1,
     const float* sh1, const float* p2, const float* q2, const float* r2,
     const float* inv1, const float* m1, const bf16* taps_t, bf16* da2,
     bf16* g1, float* part, float* stats, float* wpart, float* dtaps, int N,
     int C, int H, int W, int T, int splits, void* stream) {
-  if (!c3::ok(N, C, C, H, W, T) || !ab::ok(N, C, C, H * W, splits) ||
-      !aligned16(g2) || !aligned16(a2) || !aligned16(a1) ||
+  if (!c3::ok(N, C, C, H, W, T) || !abw::ok(N, C, C, H * W, splits) ||
+      W > abw::kTapMaxW || !aligned16(g2) || !aligned16(a2) ||
+      !aligned16(a1) ||
       !aligned16(taps_t) || !aligned16(da2) || !aligned16(g1))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1273,9 +1277,7 @@ extern "C" int fused_block_bwd_mid_bf16(
   if (e != 0) return e;
   e = finish_stats(part, stats, C, T, s);
   if (e != 0) return e;
-  const ab::Args p{da2, nullptr, a1, sc1, sh1, nullptr, wpart, N, C, C,
-                   H * W, W, 0, splits, 0};
-  e = ab::launch<ab::kTaps>(p, 9, H * W % 4 == 0, s);
+  e = abw::launch_taps(da2, a1, sc1, sh1, wpart, N, C, H, W, splits, s);
   if (e != 0) return e;
   return finish_splits(wpart, dtaps, 9L * C * C, splits, s);
 }
@@ -1303,7 +1305,7 @@ extern "C" int fused_block_bwd_final_bf16(
   if (e != 0) return e;
   const ab::Args p{da1, nullptr, x, nullptr, nullptr, nullptr, wpart, N, C,
                    Cin, S, 1, 0, splits, 0};
-  e = ab::launch<ab::kDW1>(p, 1, wide, s);
+  e = ab::launch_dw1(p, wide, s);
   if (e != 0) return e;
   return finish_splits(wpart, dw1, (long)C * Cin, splits, s);
 }

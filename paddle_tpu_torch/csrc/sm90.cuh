@@ -1,8 +1,9 @@
 // Hopper's asynchronous units in raw PTX, for the hand-written kernels
-// of sm_90a (csrc/flash_attention_bf16.cu): the Tensor Memory Accelerator
+// of sm_90a (csrc/flash_attention_bf16.cu, csrc/abt_bf16_tc.cuh): the
+// Tensor Memory Accelerator
 // (TMA) tile loads, mbarriers, named barriers, warpgroup matrix products
 // (wgmma.mma_async) and setmaxnreg, and the host's encoding of a tensor
-// map over a [B, S, H, D] bfloat16 tensor.
+// map over a bfloat16 tensor of four dimensions.
 //
 // The tiles these pieces move and multiply have one layout: a tile of R
 // rows of D bfloat16 values (a row one sequence position of one head) is
@@ -229,6 +230,29 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
         : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
 }
 
+// d (+)= a b over one m64n256k16 step, both operands by their descriptors.
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+        : SM90_F8(d, 0), SM90_F8(d, 8), SM90_F8(d, 16), SM90_F8(d, 24),
+          SM90_F8(d, 32), SM90_F8(d, 40), SM90_F8(d, 48), SM90_F8(d, 56),
+          SM90_F8(d, 64), SM90_F8(d, 72), SM90_F8(d, 80), SM90_F8(d, 88),
+          SM90_F8(d, 96), SM90_F8(d, 104), SM90_F8(d, 112), SM90_F8(d, 120)
+        : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
+}
+
 // d (+)= a b over one m64n32k16 step: a from registers (the A fragments of
 // the warp's 16 rows), b by its descriptor; accumulate selects d + a b.
 template <int TB>
@@ -306,14 +330,18 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&
 
 #undef SM90_F8
 
-// A tensor map over a contiguous [B, S, H, D] bfloat16 tensor at `base`,
-// dimensions (D, H, S, B) innermost first, with boxes of {64 values of D,
-// 1 head, `rows` positions, 1 batch} written with the 128-byte swizzle:
-// a box past S (or past the tensor) is zero-filled inside its own (b, h).
+// A tensor map over a bfloat16 tensor at `base` of four dimensions
+// (innermost first, dims), the byte strides of the outer three (multiples
+// of 16) and boxes of `box` values written with the 128-byte swizzle
+// (box[0] 64: one 128-byte row) or, with swizzle false, densely; a box
+// past a dimension's end is zero-filled. A box's innermost coordinate
+// must fall on 16 bytes: the card never completes one that does not.
 // Returns a CUresult (0 = encoded). The driver's entry point is found
 // through the runtime, so the library needs no -lcuda.
-inline int encode_bshd(CUtensorMap* map, const void* base, int B, int S,
-                       int H, int D, int rows) {
+inline int encode_4d(CUtensorMap* map, const void* base,
+                     const cuuint64_t (&dims)[4],
+                     const cuuint64_t (&strides)[3],
+                     const cuuint32_t (&box)[4], bool swizzle = true) {
   typedef CUresult (*Encode)(
       CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
       const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
@@ -335,16 +363,29 @@ inline int encode_bshd(CUtensorMap* map, const void* base, int B, int S,
       return (int)CUDA_ERROR_NOT_FOUND;
     encode = reinterpret_cast<Encode>(fn);
   }
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return (int)encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                     const_cast<void*>(base), dims, strides, box, unit,
+                     CU_TENSOR_MAP_INTERLEAVE_NONE,
+                     swizzle ? CU_TENSOR_MAP_SWIZZLE_128B
+                             : CU_TENSOR_MAP_SWIZZLE_NONE,
+                     CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// A tensor map over a contiguous [B, S, H, D] bfloat16 tensor at `base`,
+// dimensions (D, H, S, B) innermost first, with boxes of {64 values of D,
+// 1 head, `rows` positions, 1 batch} written with the 128-byte swizzle:
+// a box past S (or past the tensor) is zero-filled inside its own (b, h).
+// Returns a CUresult (0 = encoded). The driver's entry point is found
+// through the runtime, so the library needs no -lcuda.
+inline int encode_bshd(CUtensorMap* map, const void* base, int B, int S,
+                       int H, int D, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {2ull * D, 2ull * H * D, 2ull * S * H * D};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return (int)encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                     const_cast<void*>(base), dims, strides, box, unit,
-                     CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                     CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return encode_4d(map, base, dims, strides, box);
 }
 
 }  // namespace sm90
@@ -354,6 +395,12 @@ namespace sm90 {
 
 // Bytes of one box: 64 rows of 128 bytes.
 constexpr uint32_t kBoxBytes = 64 * 128;
+
+// The shared address of the dynamic shared memory, rounded up to 1024
+// bytes (the 128-byte swizzle's period; each layout asks 1024 more).
+__device__ __forceinline__ uint32_t aligned_base(const void* smem) {
+  return (smem_u32(smem) + 1023u) & ~1023u;
+}
 
 // The matrix descriptor of a tile at shared address `addr` with the
 // 128-byte swizzle: leading and stride byte offsets in 16-byte units.
@@ -379,7 +426,7 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int ks) {
 }
 
 // d (+)= a b over one m64nNk16 step, both operands by their descriptors,
-// N = 32, 64 or 128.
+// N = 32, 64, 128 or 256.
 template <int N, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int accumulate) {
@@ -387,8 +434,10 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
     wgmma_ss_n32<TB>(d, da, db, accumulate);
   else if constexpr (N == 64)
     wgmma_ss_n64<TB>(d, da, db, accumulate);
-  else
+  else if constexpr (N == 128)
     wgmma_ss_n128<TB>(d, da, db, accumulate);
+  else
+    wgmma_ss_n256<TB>(d, da, db, accumulate);
 }
 
 // d (+)= a b over one m64nNk16 step, a from registers, N = 32, 64, 128 or

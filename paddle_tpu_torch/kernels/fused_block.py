@@ -71,6 +71,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Tuple
 
 import torch
@@ -780,16 +781,56 @@ def _bf_moments_splits(n: int, s: int, c: int, sms: int) -> int:
     return _bf_splits(nt * (nt + 1) // 2, n, s, sms)
 
 
-def _bf_abt_blocks(kind: str, ma: int, mb: int) -> int:
-    """The blocks of a split of the bf16 backward's products A·Bᵀ over N·S
-    (csrc/fused_block_bf16.cu, ab::launch): A's ma rows in tiles of 64
-    where ma <= 64, else 128 (bwd_reduce3's g3: 128), by B's mb rows in
-    tiles of 64 where mb <= 64, else 128 (bwd_final's x: 128); the tap
-    gradients ("taps") a tile of each of the nine taps."""
-    bm = 64 if kind != "reduce3" and ma <= 64 else 128
-    bn = 128 if kind == "dw1" or mb > 64 else 64
-    tiles = -(-ma // bm) * -(-mb // bn)
-    return 9 * tiles if kind == "taps" else tiles
+def _bf_abt_blocks(ma: int, mb: int) -> int:
+    """The blocks of a split of bwd_final's dW1 (csrc/fused_block_bf16.cu,
+    ab::launch_dw1): A's ma rows in tiles of 64 where ma <= 64, else 128,
+    by B's mb rows in tiles of 128."""
+    return -(-ma // (64 if ma <= 64 else 128)) * -(-mb // 128)
+
+
+_BF_POS = 64            # positions of a stage of the wgmma products
+_BF_ABW_SPLITS = 1024   # their most splits (abw::kMaxSplits)
+_BF_TAP_MAX_W = 191     # bwd_mid's widest row (abw::kTapMaxW)
+
+
+def _bf_groups(s: int) -> int:
+    """Channels a row of the wgmma products' tensor maps (abw::group_of):
+    8 / gcd(S, 8), so that a row is a multiple of 16 bytes; each width of
+    an operand must be a multiple of it."""
+    return 8 // math.gcd(s, 8)
+
+
+def _bf_stages(n: int, s: int) -> int:
+    """The 64-position stages of N·S: ceil(S / 64) an image."""
+    return n * -(-s // _BF_POS)
+
+
+def _bf_abw_tiles(kind: str, ma: int, mb: int) -> int:
+    """The blocks of a split of a wgmma product over N·S
+    (csrc/abt_bf16_tc.cuh): bwd_reduce3 ("reduce3") 128 rows of Cin (ma)
+    by 64, 128 or 256 of C (mb: all of it up to 256); the tap gradients
+    ("taps") 64 x 64 tiles of (C, C), all nine taps a block."""
+    if kind == "reduce3":
+        bn = 64 if mb <= 64 else 128 if mb <= 128 else 256
+        return -(-ma // 128) * -(-mb // bn)
+    return -(-ma // 64) * -(-mb // 64)
+
+
+def _bf_abw_splits(tiles: int, n: int, s: int, sms: int) -> int:
+    """The splits of N·S's 64-position stages of a wgmma product whose
+    splits have `tiles` blocks each (one block an SM: its shared memory):
+    one wave that fills the SMs, at most one a stage. Split p takes stages
+    [p·Q // splits, (p + 1)·Q // splits)."""
+    return max(1, min(_bf_stages(n, s), _BF_ABW_SPLITS, sms // tiles))
+
+
+def _bf_group_widths(s: int, **widths) -> None:
+    """Refuse a width that is not a multiple of _bf_groups(S)."""
+    k = _bf_groups(s)
+    for name, c in widths.items():
+        if c % k:
+            raise ValueError(f"{name} = {c}: at S = {s} the kernel takes a "
+                             f"multiple of {k}")
 
 
 def norm_relu_moments_bf16(x: torch.Tensor, scale: torch.Tensor,
@@ -878,10 +919,11 @@ def bwd_reduce3_bf16(dout, out, a2, scale2, shift2):
     Σg3 [Cin] float32).
 
     CPU tensors run ``bwd_reduce3_reference``. CUDA tensors run the
-    kernel: bf16, contiguous, 16-byte aligned, Cin and C at most the
-    kernels' cap; g3 exact, h2 rounded to bf16 as it lands, P's bf16
-    products summed in float32 over splits of N·S (``_bf_splits``) added
-    in a fixed order (deterministic)."""
+    kernel (csrc/abt_bf16_tc.cuh): bf16, contiguous, 16-byte aligned, Cin
+    and C at most the kernels' cap and multiples of ``_bf_groups(S)``; g3
+    exact, h2 rounded to bf16 as it lands, P's bf16 products summed in
+    float32 on wgmma over splits of N·S (``_bf_abw_splits``) added in a
+    fixed order (deterministic)."""
     if not build.on_card("bwd_reduce3_bf16", dout):
         return bwd_reduce3_reference(dout, out, a2, scale2, shift2)
     _dims("dout", dout, 3)
@@ -894,19 +936,20 @@ def bwd_reduce3_bf16(dout, out, a2, scale2, shift2):
     _bf_check("a2", a2, dev, (n, c, s))
     _vectors(dev, c, scale2=scale2, shift2=shift2)
     _bf_widths(Cin=cin, C=c)
+    _bf_group_widths(s, Cin=cin, C=c)
     _bf_ns(n, s)
-    splits = _bf_splits(_bf_abt_blocks("reduce3", cin, c), n, s,
-                        build.sm_count(dev))
+    splits = _bf_abw_splits(_bf_abw_tiles("reduce3", cin, c), n, s,
+                            build.sm_count(dev))
     g3 = _bf_empty(dev, n, cin, s)
     part, red = _empty(dev, splits, cin, c + 1), _empty(dev, cin, c + 1)
     with build.device_guard(dev):
         build.launch("bwd_reduce3_bf16",
                      _bf_fn("fused_block_bwd_reduce3_bf16",
-                            (_P,) * 8 + (_I,) * 6 + (_P,)),
+                            (_P,) * 8 + (_I,) * 5 + (_P,)),
                      dout.data_ptr(), out.data_ptr(), a2.data_ptr(),
                      scale2.data_ptr(), shift2.data_ptr(), g3.data_ptr(),
                      part.data_ptr(), red.data_ptr(), n, cin, c, s, splits,
-                     int(s % 4 == 0), build.stream(dev))
+                     build.stream(dev))
     bwd_reduce3_bf16.launches += 1
     return g3, red[:, :c], red[:, c]
 
@@ -966,10 +1009,11 @@ def bwd_mid_bf16(g2, a2, a1, scale1, shift1, p2, q2, r2, inv1, m1, taps,
     CPU tensors run ``bwd_mid_reference``. CUDA tensors run the kernels
     (da2 rounded once into a scratch; the input gradient, the 3x3 over
     da2 with the taps flipped and transposed, g1 rounded once where h1 >
-    0; the tap gradients of da2 against h1 rounded to bf16 as it lands,
-    split by ``_bf_splits``): bf16, contiguous, 16-byte aligned, C a
-    multiple of 16 and at most the kernels' cap, S = h_side · (S //
-    h_side); deterministic sums."""
+    0; the nine tap gradients of da2 against h1 rounded to bf16 once, in
+    one pass on wgmma (csrc/abt_bf16_tc.cuh), split by
+    ``_bf_abw_splits``): bf16, contiguous, 16-byte aligned, C a multiple
+    of 16 and at most the kernels' cap, S = h_side · (S // h_side), rows
+    of at most 191; deterministic sums."""
     if not build.on_card("bwd_mid_bf16", g2):
         return bwd_mid_reference(g2, a2, a1, scale1, shift1, p2, q2, r2,
                                  inv1, m1, taps, h_side)
@@ -989,9 +1033,12 @@ def bwd_mid_bf16(g2, a2, a1, scale1, shift1, p2, q2, r2, inv1, m1, taps,
     _bf_widths(C=c)
     _bf_ns(n, s)
     w_side = s // h_side
+    if w_side > _BF_TAP_MAX_W:
+        raise ValueError(f"W = {w_side}: the kernel takes rows of at most "
+                         f"{_BF_TAP_MAX_W}")
     t = n * -(-h_side * (w_side + 2) // _BF_BN)
-    splits = _bf_splits(_bf_abt_blocks("taps", c, c), n, s,
-                        build.sm_count(dev))
+    splits = _bf_abw_splits(_bf_abw_tiles("taps", c, c), n, s,
+                            build.sm_count(dev))
     # the input gradient's taps: taps_t[t] = taps[8 - t]ᵀ (a fresh tensor,
     # 16-byte aligned)
     taps_t = taps.flip(0).transpose(1, 2).contiguous()
@@ -1040,8 +1087,7 @@ def bwd_final_bf16(g3, g1, a1, x, p1, q1, r1, w1):
     _vectors(dev, c, p1=p1, q1=q1, r1=r1)
     _bf_widths(Cin=cin, C=c)
     _bf_ns(n, s)
-    splits = _bf_splits(_bf_abt_blocks("dw1", c, cin), n, s,
-                        build.sm_count(dev))
+    splits = _bf_splits(_bf_abt_blocks(c, cin), n, s, build.sm_count(dev))
     w1t, lda = _bf_weight(w1.t().contiguous())
     dx, da1 = _bf_empty(dev, n, cin, s), _bf_empty(dev, n, c, s)
     wpart, dw1 = _empty(dev, splits, c, cin), _empty(dev, c, cin)

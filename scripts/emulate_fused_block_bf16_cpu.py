@@ -66,6 +66,7 @@ from paddle_tpu_torch.kernels import build  # noqa: E402
 from paddle_tpu_torch.kernels import fused_block as fb  # noqa: E402
 
 SOURCE = "fused_block_bf16.cu"
+HEADERS = ("fused_block.cuh", "sm90.cuh", "abt_bf16_tc.cuh")
 BF16_REL = 2.0 ** -7
 STATS_RTOL = 1e-5
 DASHES = "// " + "-" * 77
@@ -96,11 +97,344 @@ inline void ldsm_x4(uint32_t (&r)[4], const uint16_t* p) {
 }
 """
 
+# cvt.rn.bf16x2.f32: each of the pair rounded to nearest, ties to even
+CVT = r"""
+inline uint32_t cvt_bf2(float lo, float hi) {
+  const auto rn = [](float x) {
+    const uint32_t u = __float_as_uint(x);
+    return (u + 0x7fffu + ((u >> 16) & 1u)) >> 16;
+  };
+  return rn(lo) | rn(hi) << 16;
+}
+"""
+
 # fused_block.cuh's mask rounds its product and its sum (the CUDA
 # intrinsics)
 ROUNDED = r"""
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
+"""
+
+# csrc/sm90.cuh's block of PTX on the fibers: the models of
+# scripts/emulate_flash_bf16_cpu.py (TMA box loads writing the 128-byte
+# swizzle and landing at the first wait on their mbarrier, or at once with
+# EMU_EAGER; mbarrier phases that abort on an extra arrival or on bytes
+# not announced; named barriers; wgmma SS and RS read through their
+# descriptors and held until the wait_group that retires them, each
+# thread's accumulators summed in double), a wait yielding its fiber
+# instead of blocking a host thread, and aborting after kSpins turns (a
+# deadlock).
+SM90_FIBER = r"""// ---- Hopper's asynchronous units (emulated on the fibers)
+#include <cstdio>
+#include <deque>
+#include <map>
+typedef uint64_t cuuint64_t;
+typedef uint32_t cuuint32_t;
+struct CUtensorMap {
+  const char* base;
+  uint64_t dims[4], strides[4];
+  uint32_t box[4];
+  bool swizzle;
+};
+#define __grid_constant__
+namespace sm90 {
+constexpr long kSpins = 2000000;
+[[noreturn]] inline void emu_fail(const char* what) {
+  std::fprintf(stderr, "sm90 emulation: %s\n", what);
+  std::abort();
+}
+inline char* emu_window() {
+  return reinterpret_cast<char*>(reinterpret_cast<uintptr_t>(emu_dyn_smem) &
+                                 ~uintptr_t(1023));
+}
+inline uint32_t smem_u32(const void* p) {
+  return (uint32_t)(static_cast<const char*>(p) - emu_window());
+}
+inline uint32_t emu_swizzle(uint32_t a) { return a ^ (((a >> 7) & 7) << 4); }
+
+struct EmuBar { uint32_t count, pending; int64_t tx; uint32_t phase; };
+inline std::map<std::pair<const void*, uint32_t>, EmuBar> emu_bars;
+inline EmuBar& emu_bar(uint32_t bar) {
+  auto it = emu_bars.find({emu_cur->blk, bar});
+  if (it == emu_bars.end()) emu_fail("an mbarrier used before its init");
+  return it->second;
+}
+inline void emu_bar_step(EmuBar& b) {
+  if (b.tx < 0) emu_fail("more bytes landed than were announced");
+  if (b.pending == 0 && b.tx == 0) {
+    b.phase ^= 1;
+    b.pending = b.count;
+  }
+}
+inline void emu_bar_arrival(uint32_t bar, int64_t bytes) {
+  EmuBar& b = emu_bar(bar);
+  if (b.pending == 0) emu_fail("an arrival beyond the mbarrier's count");
+  b.tx += bytes;
+  --b.pending;
+  emu_bar_step(b);
+}
+inline void bar_init(uint32_t bar, uint32_t count) {
+  emu_bars[{emu_cur->blk, bar}] = {count, count, 0, 0};
+}
+inline void bar_init_fence() {}
+inline void bar_arrive(uint32_t bar) { emu_bar_arrival(bar, 0); }
+inline void bar_expect_tx(uint32_t bar, uint32_t bytes) {
+  emu_bar_arrival(bar, bytes);
+}
+inline void fence_proxy_async() {}
+
+struct EmuNamed { int count = 0; unsigned gen = 0; };
+inline std::map<int, EmuNamed> emu_named;
+inline void emu_named_arrival(int id, int threads, bool wait) {
+  EmuNamed& b = emu_named[id];
+  const unsigned gen = b.gen;
+  if (++b.count == threads) {
+    b.count = 0;
+    ++b.gen;
+  } else if (wait) {
+    for (long spins = 0; b.gen == gen; ++spins) {
+      if (spins > kSpins) emu_fail("a named barrier that never fills");
+      emu_yield();
+    }
+  }
+}
+inline void named_sync(int id, int threads) {
+  emu_named_arrival(id, threads, true);
+}
+inline void named_arrive(int id, int threads) {
+  emu_named_arrival(id, threads, false);
+}
+
+inline uint32_t emu_tma_copy(uint32_t dst, const CUtensorMap& map,
+                             const int (&c)[4]) {
+  const uint32_t* box = map.box;
+  uint32_t off = 0;
+  for (uint32_t i3 = 0; i3 < box[3]; ++i3)
+    for (uint32_t i2 = 0; i2 < box[2]; ++i2)
+      for (uint32_t i1 = 0; i1 < box[1]; ++i1)
+        for (uint32_t i0 = 0; i0 < box[0]; ++i0, off += 2) {
+          const int64_t x[4] = {c[0] + (int64_t)i0, c[1] + (int64_t)i1,
+                                c[2] + (int64_t)i2, c[3] + (int64_t)i3};
+          uint16_t v = 0;
+          bool in = true;
+          int64_t src = 0;
+          for (int d = 0; d < 4; ++d) {
+            in = in && x[d] >= 0 && x[d] < (int64_t)map.dims[d];
+            src += x[d] * (int64_t)map.strides[d];
+          }
+          if (in) std::memcpy(&v, map.base + src, 2);
+          std::memcpy(emu_window() + (map.swizzle ? emu_swizzle(dst + off)
+                                                  : dst + off), &v, 2);
+        }
+  return off;
+}
+struct EmuTma {
+  uint32_t dst;
+  CUtensorMap map;
+  int c[4];
+  uint32_t bar;
+  const void* blk;
+};
+inline std::vector<EmuTma> emu_tma_queue;
+inline void emu_tma_land(uint32_t bar) {
+  for (size_t i = 0; i < emu_tma_queue.size();) {
+    if (emu_tma_queue[i].bar != bar || emu_tma_queue[i].blk != emu_cur->blk) {
+      ++i;
+      continue;
+    }
+    const EmuTma op = emu_tma_queue[i];
+    emu_tma_queue.erase(emu_tma_queue.begin() + i);
+    EmuBar& b = emu_bar(bar);
+    b.tx -= emu_tma_copy(op.dst, op.map, op.c);
+    emu_bar_step(b);
+  }
+}
+inline void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                        int c0, int c1, int c2, int c3) {
+  if (dst % (map->swizzle ? 1024 : 128))
+    emu_fail("a TMA box not on 1024 bytes (swizzled) or 128 (dense)");
+  // the card never completes a box whose innermost coordinate is off 16
+  // bytes
+  if (((c0 % 8) + 8) % 8) emu_fail("a TMA box's innermost coordinate off 16 bytes");
+  emu_tma_queue.push_back({dst, *map, {c0, c1, c2, c3}, bar, emu_cur->blk});
+#ifdef EMU_EAGER
+  emu_tma_land(bar);
+#endif
+}
+// a poll that fails yields the fiber; kSpins failed polls in a row of one
+// thread abort (a deadlock)
+inline long emu_polls[1024];
+inline bool bar_try_wait(uint32_t bar, uint32_t parity) {
+  emu_tma_land(bar);
+  if (emu_bar(bar).phase != parity) {
+    emu_polls[threadIdx.x] = 0;
+    return true;
+  }
+  if (++emu_polls[threadIdx.x] > kSpins)
+    emu_fail("an mbarrier phase that never ends");
+  emu_yield();
+  return false;
+}
+inline void bar_wait(uint32_t bar, uint32_t parity) {
+  while (!bar_try_wait(bar, parity)) {
+  }
+}
+inline void tma_store_4d(const CUtensorMap*, uint32_t, int, int, int, int) {
+  emu_fail("no TMA store is modelled");
+}
+inline void bulk_commit() {}
+inline void bulk_wait_read() {}
+
+template <int N>
+inline void regs_dec() {}
+template <int N>
+inline void regs_inc() {}
+
+// wgmma: held per thread until the wait that retires its group
+struct EmuWgOp {
+  float* d;
+  int n, tb, accumulate;
+  bool rs;
+  uint64_t da, db;
+  uint32_t slot;
+};
+struct EmuWgState {
+  std::vector<EmuWgOp> open;
+  std::deque<std::vector<EmuWgOp>> groups;
+  uint32_t seq = 0;
+};
+inline EmuWgState emu_wg[1024];
+// each warpgroup's A registers of its last 256 RS products
+inline uint32_t emu_wg_a[8][256][128][4];
+inline void wg_fence() {}
+inline void wg_commit() {
+  EmuWgState& s = emu_wg[threadIdx.x];
+  s.groups.push_back(std::move(s.open));
+  s.open.clear();
+}
+inline float emu_bf16_value(uint16_t h) {
+  return __uint_as_float((uint32_t)h << 16);
+}
+inline float emu_operand(uint64_t desc, int tb, int i, int k) {
+  if ((desc >> 62) != 1) emu_fail("a descriptor without the 128-byte swizzle");
+  if ((desc >> 49) & 7) emu_fail("a descriptor with a base offset");
+  const uint32_t start = (uint32_t)(desc & 0x3fff) << 4;
+  const uint32_t lbo = (uint32_t)((desc >> 16) & 0x3fff) << 4;
+  const uint32_t sbo = (uint32_t)((desc >> 32) & 0x3fff) << 4;
+  const uint32_t a =
+      tb == 0
+          ? start + (i / 8) * sbo + (i % 8) * 128 + (k / 8) * 16 + (k % 8) * 2
+          : start + (i / 64) * lbo + (i % 64) * 2 + (k / 8) * sbo +
+                (k % 8) * 128;
+  uint16_t h;
+  std::memcpy(&h, emu_window() + emu_swizzle(a), 2);
+  return emu_bf16_value(h);
+}
+inline float emu_rs_a(int wg, uint32_t slot, int row, int k) {
+  const int holder = 32 * (row / 16) + 4 * (row % 8) + (k % 8) / 2;
+  const int reg = (row % 16) / 8 + 2 * (k / 8);
+  return emu_bf16_value(
+      (uint16_t)(emu_wg_a[wg][slot][holder][reg] >> (16 * (k & 1))));
+}
+inline void emu_wg_eval(const EmuWgOp& op) {
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int w = tid / 32, g = (tid % 32) / 4, t = tid % 4;
+  float out[128];
+  for (int j = 0; j < op.n / 8; ++j)
+    for (int e = 0; e < 4; ++e) {
+      const int row = 16 * w + g + 8 * (e >> 1), col = 8 * j + 2 * t + (e & 1);
+      double s = op.accumulate ? op.d[4 * j + e] : 0.0;
+      for (int k = 0; k < 16; ++k) {
+        const float av = op.rs ? emu_rs_a(wg, op.slot, row, k)
+                               : emu_operand(op.da, 0, row, k);
+        s += (double)av * (double)emu_operand(op.db, op.tb, col, k);
+      }
+      out[4 * j + e] = (float)s;
+    }
+  for (int i = 0; i < op.n / 2; ++i) op.d[i] = out[i];
+}
+template <int N>
+inline void wg_wait() {
+  // every thread of the warpgroup has started its products (and left its
+  // A registers)
+  named_sync(100 + threadIdx.x / 128, 128);
+  EmuWgState& s = emu_wg[threadIdx.x];
+  while (s.groups.size() > (size_t)N) {
+    for (const EmuWgOp& op : s.groups.front()) emu_wg_eval(op);
+    s.groups.pop_front();
+  }
+}
+template <int N>
+inline void fence_operands(float (&)[N]) {}
+inline void fence_operands(uint32_t (&)[4]) {}
+template <int N, int TB>
+inline void emu_wgmma_ss(float* d, uint64_t da, uint64_t db, int accumulate) {
+  emu_wg[threadIdx.x].open.push_back({d, N, TB, accumulate, false, da, db, 0});
+}
+template <int TB>
+inline void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db, int acc) {
+  emu_wgmma_ss<32, TB>(d, da, db, acc);
+}
+template <int TB>
+inline void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  emu_wgmma_ss<64, TB>(d, da, db, acc);
+}
+template <int TB>
+inline void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  emu_wgmma_ss<128, TB>(d, da, db, acc);
+}
+template <int TB>
+inline void wgmma_ss_n256(float (&d)[128], uint64_t da, uint64_t db, int acc) {
+  emu_wgmma_ss<256, TB>(d, da, db, acc);
+}
+template <int N, int TB>
+inline void emu_wgmma_rs(float* d, const uint32_t (&a)[4], uint64_t db,
+                         int accumulate) {
+  EmuWgState& s = emu_wg[threadIdx.x];
+  const uint32_t slot = s.seq++ % 256;
+  for (int r = 0; r < 4; ++r)
+    emu_wg_a[threadIdx.x / 128][slot][threadIdx.x % 128][r] = a[r];
+  s.open.push_back({d, N, TB, accumulate, true, 0, db, slot});
+}
+template <int TB>
+inline void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
+                         int acc) {
+  emu_wgmma_rs<32, TB>(d, a, db, acc);
+}
+template <int TB>
+inline void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                         int acc) {
+  emu_wgmma_rs<64, TB>(d, a, db, acc);
+}
+template <int TB>
+inline void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                          int acc) {
+  emu_wgmma_rs<128, TB>(d, a, db, acc);
+}
+template <int TB>
+inline void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
+                          uint64_t db, int acc) {
+  emu_wgmma_rs<256, TB>(d, a, db, acc);
+}
+
+inline int encode_4d(CUtensorMap* map, const void* base,
+                     const cuuint64_t (&dims)[4],
+                     const cuuint64_t (&strides)[3],
+                     const cuuint32_t (&box)[4], bool swizzle = true) {
+  for (int d = 0; d < 3; ++d)
+    if (strides[d] % 16) return 1;  // as cuTensorMapEncodeTiled does
+  if (reinterpret_cast<uintptr_t>(base) % 16 || (box[0] * 2) % 16 ||
+      (swizzle && box[0] * 2 > 128))
+    return 1;
+  *map = {static_cast<const char*>(base),
+          {dims[0], dims[1], dims[2], dims[3]},
+          {2, strides[0], strides[1], strides[2]},
+          {box[0], box[1], box[2], box[3]},
+          swizzle};
+  return 0;
+}
+
+}  // namespace sm90
 """
 
 UNIT = r"""
@@ -117,10 +451,14 @@ def rewrite(name: str) -> str:
     text = (build.CSRC / name).read_text()
     text = text.replace("#include <cuda_runtime.h>\n",
                         '#include "cuda_emu.h"\n')
-    if name == SOURCE:
-        a = text.index("// ---- bf16 tensor-core product and its fragment")
+    blocks = {SOURCE: ("// ---- bf16 tensor-core product and its fragment",
+                       lstm_bf16_emu.MMA + LDSM + CVT),
+              "sm90.cuh": ("// ---- Hopper's asynchronous units", SM90_FIBER)}
+    if name in blocks:
+        start, helpers = blocks[name]
+        a = text.index(start)
         b = text.index(DASHES, a)
-        text = text[:a] + lstm_bf16_emu.MMA + LDSM + text[b:]
+        text = text[:a] + helpers + text[b:]
     text = text.replace(
         "extern __shared__ float4 smem4[];",
         "float4* smem4 = reinterpret_cast<float4*>(emu_dyn_smem);")
@@ -146,9 +484,9 @@ def emu_header() -> str:
     return h
 
 
-def compile_library(out: Path) -> ctypes.CDLL:
+def compile_library(out: Path, eager: bool = False) -> ctypes.CDLL:
     out.mkdir(parents=True, exist_ok=True)
-    for name in ("fused_block.cuh", SOURCE):
+    for name in HEADERS + (SOURCE,):
         (out / name).write_text(rewrite(name))
     (out / "cuda_emu.h").write_text(emu_header())
     rt = lstm_emu.EMU_RT.replace(
@@ -161,8 +499,8 @@ def compile_library(out: Path) -> ctypes.CDLL:
     lib = out / "fused_block_bf16_emu.so"
     subprocess.run(["g++", "-std=c++20", "-O1", "-pthread", "-shared",
                     "-fPIC", "-ffp-contract=off", "-include", "cuda_emu.h",
-                    "-o", str(lib), "unit.cpp", "emu_rt.cpp"], cwd=out,
-                   check=True)
+                    *(["-DEMU_EAGER"] if eager else []), "-o", str(lib),
+                    "unit.cpp", "emu_rt.cpp"], cwd=out, check=True)
     return ctypes.CDLL(str(lib))
 
 
@@ -200,12 +538,14 @@ def sum_share(got, want, terms, moved=0.0):
 BWD = ("bwd_reduce3", "bwd_apply3", "bwd_mid", "bwd_final")
 
 
-def bwd_case(lib, sms, d, h, seed):
+def bwd_case(lib, sms, d, h, seed, eager=None):
     """The four bf16 backward kernels against their plain versions, on the
     inputs of one run of the plain chain's backward from a bf16
     cotangent of out and random cotangents of the six batch statistics
     (chip_smoke.chain_bwd_inputs), at phase 3's limits
-    (chip_smoke.bf16_bwd_readings): (ok, [notes], [same bits])."""
+    (chip_smoke.bf16_bwd_readings): (ok, [notes], [same bits]); with
+    `eager` (the library whose TMA loads land at once), bwd_reduce3 and
+    bwd_mid (the wgmma products) run there too, for the same bits."""
     gen = torch.Generator().manual_seed(seed + 1000)
     n, cin, s = d["x"].shape
     c = d["w1"].shape[0]
@@ -220,6 +560,10 @@ def bwd_case(lib, sms, d, h, seed):
             got = fn(*args[name])
             again = fn(*args[name])
         same.append(all(torch.equal(a, b) for a, b in zip(got, again)))
+        if eager is not None and name in ("bwd_reduce3", "bwd_mid"):
+            with lstm_emu.emulated(eager, sms):
+                landed = fn(*args[name])
+            same.append(all(torch.equal(a, b) for a, b in zip(got, landed)))
         want = getattr(fb, name + "_reference")(*args[name])
         for what, (share, differ) in cs.bf16_bwd_readings(
                 torch, fb, name, args[name], got, want).items():
@@ -229,7 +573,7 @@ def bwd_case(lib, sms, d, h, seed):
     return ok, notes, same
 
 
-def case(lib, sms, n, cin, c, h, w, seed):
+def case(lib, sms, n, cin, c, h, w, seed, eager=None):
     d = chain_inputs(n, cin, c, h, w, seed)
     x, w1, taps, w3 = d["x"], d["w1"], d["taps"], d["w3"]
     m = n * h * w
@@ -284,14 +628,15 @@ def case(lib, sms, n, cin, c, h, w, seed):
     out.append(f"conv1x1_bn_residual out {share:.4f} (differ {differ:.5f})")
     ok = ok and share <= 1 and bool(torch.isfinite(y4.float()).all())
     same = [same1, same2, same3, same4]
-    bok, bnotes, bsame = bwd_case(lib, sms, d, h, seed)
+    bok, bnotes, bsame = bwd_case(lib, sms, d, h, seed, eager)
     ok = ok and bok
     out.append("backward " + ", ".join(bnotes))
     same += bsame
-    misaligned = lib.emu_take_misaligned()
-    outside = lib.emu_take_outside()
+    misaligned = sum(x.emu_take_misaligned() for x in (lib, eager) if x)
+    outside = sum(x.emu_take_outside() for x in (lib, eager) if x)
     print(f"N {n}, Cin {cin}, C {c}, {h}x{w}: " + "; ".join(out)
-          + f"; a second call the same bits {same}; misaligned accesses "
+          + f"; a second call (and the wgmma products with TMA landing at "
+          f"once) the same bits {same}; misaligned accesses "
           f"{misaligned}; ldmatrix rows outside shared memory {outside}",
           flush=True)
     return ok and all(same) and not misaligned and not outside
@@ -305,12 +650,14 @@ def main() -> int:
     args = ap.parse_args()
     torch.set_num_threads(1)
     lib = compile_library(build.BUILD_DIR / "fused_block_bf16_emu")
+    eager = compile_library(build.BUILD_DIR / "fused_block_bf16_emu_eager",
+                            eager=True)
     ok = []
     for i, shape in enumerate(args.shapes):
         dims = [int(v) for v in shape.split(",")]
         n, cin, c, h = dims[:4]
         w = dims[4] if len(dims) > 4 else h
-        ok.append(case(lib, args.sms, n, cin, c, h, w, args.seed + i))
+        ok.append(case(lib, args.sms, n, cin, c, h, w, args.seed + i, eager))
     return 0 if all(ok) else 1
 
 

@@ -455,12 +455,62 @@ def _emulated_conv3x3(x, taps, scale, shift, h_side):
     return acc.to(x.dtype)
 
 
+def _abw_order(a, b, splits):
+    """Σ a[n, i, p] b[n, j, p] over N·S [Ma, Mb] as the wgmma products
+    (csrc/abt_bf16_tc.cuh) add it: 64-position stages of one image (0 past
+    S), each stage four k16 blocks, a block's products exactly (float64,
+    then float32) added to one float32 accumulator block after block,
+    stage after stage within a split (split p: stages [p·Q // splits, (p +
+    1)·Q // splits)), the splits' partials added in split order."""
+    n, ma, s = a.shape
+    cpi = -(-s // 64)
+    pad = cpi * 64 - s
+    ap = F.pad(a.double(), (0, pad)).reshape(n, ma, cpi, 4, 16)
+    bp = F.pad(b.double(), (0, pad)).reshape(n, b.shape[1], cpi, 4, 16)
+    blocks = torch.einsum("nicqk,njcqk->ncqij", ap, bp).float().reshape(
+        n * cpi * 4, ma, b.shape[1])
+    stages, total = n * cpi, None
+    for p in range(splits):
+        acc = torch.zeros(ma, b.shape[1])
+        for x in range(p * stages // splits, (p + 1) * stages // splits):
+            for q in range(4):
+                acc = acc + blocks[4 * x + q]
+        total = acc if total is None else total + acc
+    return total
+
+
+def _abw_g3_sum(g3, splits):
+    """Σg3 [Cin] as reduce3_bf16_kernel adds it: a thread's 8 positions of
+    a row a stage in order onto its own float32 partial, stage after
+    stage; a row's 8 partials in chunk order; the splits in order."""
+    n, cin, s = g3.shape
+    cpi = -(-s // 64)
+    gp = F.pad(g3.float(), (0, cpi * 64 - s)).reshape(n, cin, cpi, 8, 8)
+    gp = gp.permute(0, 2, 1, 3, 4).reshape(n * cpi, cin, 8, 8)
+    stages, total = n * cpi, None
+    for p in range(splits):
+        part = torch.zeros(cin, 8)
+        for x in range(p * stages // splits, (p + 1) * stages // splits):
+            for e in range(8):
+                part = part + gp[x, :, :, e]
+        row = part[:, 0]
+        for k in range(1, 8):
+            row = row + part[:, k]
+        total = row if total is None else total + row
+    return total
+
+
 @pytest.mark.parametrize("stage", [(2, 256, 64, 14), (1, 512, 128, 14)])
 def test_emulated_kernel_order_stays_within_phase3_limits(stage):
     """At the chain's widths, the kernels' order (emulated) against the
     plain versions on the same bf16 inputs: y and out within the bf16
     limit with at most FLIP_SHARE of their elements one step apart, the
-    sums of the rounded y within the flip-aware limit."""
+    sums of the rounded y within the flip-aware limit; and the backward's
+    wgmma products in their order of stages, k16 blocks and splits
+    (the splits _bf_abw_splits gives on 132 SMs): bwd_reduce3's P and Σg3
+    within STATS_RTOL of their terms of the plain version's, bwd_mid's
+    nine tap gradients within STATS_RTOL of their terms of the float64
+    product (phase 3's limits)."""
     n, cin, c, h = stage
     gen = torch.Generator().manual_seed(9)
     x = torch.rand(n, cin, h * h, generator=gen).to(BF)
@@ -500,6 +550,30 @@ def test_emulated_kernel_order_stays_within_phase3_limits(stage):
     rout = tfb.conv1x1_bn_residual_reference(ry2, x, sc2, sh2, w3, sc3, sh3)
     _hold_bf16(out, rout, "conv1x1_bn_residual")
     assert _flips(out, rout, one_step=False) <= FLIP_SHARE
+
+    args = _bwd_inputs(stage, seed=9, stat_cots=True)
+    dout, out3, a2, scale2, shift2 = args["bwd_reduce3"]
+    g3, p3, sg3 = tfb.bwd_reduce3_reference(*args["bwd_reduce3"])
+    h2 = tfb._norm_relu(a2, scale2, shift2).float()
+    splits = tfb._bf_abw_splits(tfb._bf_abw_tiles("reduce3", cin, c), n,
+                                h * h, 132)
+    _hold_sum(_abw_order(g3.float(), h2, splits), p3,
+              torch.einsum("nis,ncs->ic", g3.float().abs(), h2), what="P")
+    _hold_sum(_abw_g3_sum(g3, splits), sg3, g3.float().abs().sum(dim=(0, 2)),
+              what="Σg3")
+    g2, a2m, a1, sc1, sh1, p2, q2, r2 = args["bwd_mid"][:8]
+    da2 = tfb._unfold(g2, a2m, p2, q2, r2).to(BF).double()
+    h1 = F.pad(tfb._norm_relu(a1, sc1, sh1).double().view(n, c, h, h),
+               (1, 1, 1, 1))
+    splits = tfb._bf_abw_splits(tfb._bf_abw_tiles("taps", c, c), n, h * h,
+                                132)
+    for tap in range(9):
+        dy, dx = divmod(tap, 3)
+        hs = h1[:, :, dy:dy + h, dx:dx + h].reshape(n, c, h * h)
+        want = torch.einsum("ncs,nks->ck", da2, hs)
+        terms = torch.einsum("ncs,nks->ck", da2.abs(), hs.abs())
+        got = _abw_order(da2, hs, splits).double()
+        assert bool(((got - want).abs() <= STATS_RTOL * terms).all()), tap
 
 
 # ---------------------------------------------------------------------------
@@ -784,12 +858,15 @@ def test_bf16_bwd_mid_refuses_c_not_a_multiple_of_16(monkeypatch):
 @pytest.mark.parametrize("kind,ma,mb,blocks", [
     ("reduce3", 256, 64, 2),      # ResNet-50's three chain stages
     ("reduce3", 512, 128, 4),
-    ("reduce3", 1024, 256, 16),
+    ("reduce3", 1024, 256, 8),
     ("reduce3", 32, 16, 1),       # one tile past both ends
-    ("taps", 64, 64, 9),
-    ("taps", 128, 128, 9),
-    ("taps", 256, 256, 36),
-    ("taps", 80, 80, 9),          # C 80: one 128 x 128 tile, rows past C
+    ("reduce3", 48, 48, 1),
+    ("reduce3", 128, 512, 2),     # C past 256: two 256-row tiles
+    ("taps", 64, 64, 1),
+    ("taps", 128, 128, 4),
+    ("taps", 256, 256, 16),
+    ("taps", 80, 80, 4),          # C 80: rows past C in the last tiles
+    ("taps", 16, 16, 1),
     ("dw1", 64, 256, 2),
     ("dw1", 128, 512, 4),
     ("dw1", 256, 1024, 16),
@@ -797,44 +874,86 @@ def test_bf16_bwd_mid_refuses_c_not_a_multiple_of_16(monkeypatch):
 ])
 def test_bf16_abt_blocks_tile_a_and_b(kind, ma, mb, blocks):
     """The blocks of a split of the bf16 backward's products over N·S:
-    A's rows by B's rows in the tiles ab::launch picks (bwd_reduce3: 128
-    rows of Cin by 64 or 128 of C; the taps: 64 x 64 or 128 x 128, nine
-    taps; dW1: 64 or 128 rows of C by 128 of Cin), each row of A and B in
-    exactly one tile."""
-    assert tfb._bf_abt_blocks(kind, ma, mb) == blocks
-    bm = 128 if kind == "reduce3" or ma > 64 else 64
-    bn = 128 if kind == "dw1" or mb > 64 else 64
+    A's rows by B's rows in the tiles the kernels take (bwd_reduce3 on
+    wgmma: 128 rows of Cin by 64, 128 or 256 of C; the taps on wgmma: 64
+    x 64, all nine taps a block; dW1: 64 or 128 rows of C by 128 of
+    Cin), each row of A and B in exactly one tile."""
+    if kind == "dw1":
+        got = tfb._bf_abt_blocks(ma, mb)
+        bm, bn = (64 if ma <= 64 else 128), 128
+    else:
+        got = tfb._bf_abw_tiles(kind, ma, mb)
+        bm = 128 if kind == "reduce3" else 64
+        bn = 64 if kind == "taps" or mb <= 64 else 128 if mb <= 128 else 256
+    assert got == blocks
     tiles = [(r, c) for r in range(0, ma, bm) for c in range(0, mb, bn)]
     covered = {(i, j) for r, c in tiles for i in range(r, min(r + bm, ma))
                for j in range(c, min(c + bn, mb))}
     assert len(covered) == ma * mb
-    assert len(tiles) * (9 if kind == "taps" else 1) == blocks
+    assert len(tiles) == blocks
 
 
-@pytest.mark.parametrize("blocks,n,s,splits", [
-    (2, 128, 3136, 128),     # bwd_reduce3 at 56²: capped at 128
-    (4, 128, 784, 66),
-    (16, 128, 196, 17),
-    (9, 128, 3136, 30),      # the taps at 56²
-    (36, 128, 196, 8),
-    (2, 1, 20, 1),           # N·S 20: one piece
-    (1, 3, 49, 5),           # 147 positions: 5 pieces, one split each
+@pytest.mark.parametrize("kind,blocks,n,s,splits", [
+    ("abw", 2, 128, 3136, 66),     # bwd_reduce3 at 56², 28², 14²
+    ("abw", 4, 128, 784, 33),
+    ("abw", 8, 128, 196, 16),
+    ("abw", 1, 128, 3136, 132),    # the taps at 56² and 14²
+    ("abw", 16, 128, 196, 8),
+    ("abw", 1, 1, 20, 1),          # N·S 20: one stage
+    ("abw", 1, 3, 49, 3),          # three images of one stage each
+    ("abw", 200, 2, 3136, 1),      # more tiles than SMs: one split
+    ("dw1", 2, 128, 3136, 128),    # dW1 (32-position pieces): capped
+    ("dw1", 4, 128, 784, 66),
+    ("dw1", 16, 128, 196, 17),
+    ("dw1", 2, 1, 20, 1),          # N·S 20: one piece
+    ("dw1", 1, 3, 49, 5),          # 147 positions: 5 pieces
 ])
-def test_bf16_splits_cover_n_s(blocks, n, s, splits):
-    """The splits of a bf16 product over N·S on 132 SMs: enough that
-    splits x blocks fill two blocks an SM, at most one a 32-position
-    piece and at most 128; the entry points' rule (split p takes pieces
-    [p·P // splits, (p + 1)·P // splits)) then covers every piece once,
-    each split non-empty."""
-    got = tfb._bf_splits(blocks, n, s, 132)
+def test_bf16_splits_cover_n_s(kind, blocks, n, s, splits):
+    """The splits of a bf16 product over N·S on 132 SMs. The wgmma
+    products ("abw": one block an SM): one wave that fills the SMs, at
+    most one a 64-position stage of an image and at most 1024. dW1's:
+    enough that splits x blocks fill two blocks an SM, at most one a
+    32-position piece and at most 128. The entry points' rule (split p
+    takes [p·P // splits, (p + 1)·P // splits) of the P pieces) then
+    covers every piece once, each split non-empty."""
+    if kind == "abw":
+        got = tfb._bf_abw_splits(blocks, n, s, 132)
+        pieces = tfb._bf_stages(n, s)
+        assert pieces == n * -(-s // 64)
+        assert 1 <= got <= min(1024, pieces)
+        assert got * blocks <= 132 or got == 1
+        assert got == pieces or (got + 1) * blocks > 132
+    else:
+        got = tfb._bf_splits(blocks, n, s, 132)
+        pieces = -(-n * s // 32)
+        assert 1 <= got <= min(128, pieces)
+        assert got * blocks >= 264 or got in (128, pieces)
     assert got == splits
-    pieces = -(-n * s // 32)
-    assert 1 <= got <= min(128, pieces)
-    assert got * blocks >= 264 or got in (128, pieces)
     runs = [(p * pieces // got, (p + 1) * pieces // got) for p in range(got)]
     assert all(a < b for a, b in runs)
     assert runs[0][0] == 0 and runs[-1][1] == pieces
     assert all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
+
+
+@pytest.mark.parametrize("n,s", [(128, 3136), (128, 784), (128, 196),
+                                 (3, 49), (2, 390), (1, 20)])
+def test_bf16_abw_splits_take_every_stage_once(n, s):
+    """For every split count the wgmma products may take at N, S (1 to
+    the stages), the kernels' rule (split p runs stages [p·Q // splits,
+    (p + 1)·Q // splits) of the Q = N·ceil(S / 64)) gives every stage to
+    exactly one split, each split non-empty, and each stage lies in one
+    image (positions 64 i .. of image x // ceil(S / 64))."""
+    stages = tfb._bf_stages(n, s)
+    cpi = -(-s // 64)
+    for splits in range(1, min(stages, 300) + 1):
+        seen = [0] * stages
+        for p in range(splits):
+            lo, hi = p * stages // splits, (p + 1) * stages // splits
+            assert lo < hi
+            for x in range(lo, hi):
+                seen[x] += 1
+        assert seen == [1] * stages, splits
+    assert all(0 <= (x % cpi) * 64 < s for x in range(stages))
 
 
 # ---------------------------------------------------------------------------

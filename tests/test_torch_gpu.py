@@ -2911,6 +2911,11 @@ def _hold_bf16_bwd(name, args, got, want):
                               # apply3; S 81
     (2, 64, 128, (6, 10)),    # a non-square image
     (1, 64, 64, (3, 130)),    # rows wider than a 3x3 tile
+    (2, 1024, 256, 14),       # the third chain stage at batch 2
+    (3, 64, 64, 14),          # S 196, N·S 588: not whole 64-position
+    (1, 128, 64, 28),         # stages; S 784, N·S 784: nor here
+    (2, 16, 16, 14),          # C 16, Cin = C
+    (2, 48, 48, 28),          # C 48, Cin = C
 ])
 def test_chain_bwd_bf16_kernels_match_plain(cuda, n, cin, c, h):
     """Each bf16 backward kernel against its plain version on the inputs
@@ -3012,3 +3017,41 @@ def test_chain_bwd_bf16_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="at most"):
         fb.bwd_reduce3_bf16(dout, out, wide, vec, vec)
     assert [getattr(fb, name).launches for name in names] == before
+
+
+# ---------------------------------------------------------------------------
+# the bf16 chain's wgmma products (csrc/abt_bf16_tc.cuh): bwd_reduce3's P
+# and Σg3, bwd_mid's nine tap gradients in one pass (their shapes in
+# test_chain_bwd_bf16_kernels_match_plain)
+# ---------------------------------------------------------------------------
+
+def test_bf16_wgmma_products_fail_planted_faults(cuda):
+    """The limits hold a fault of one tap or of one split: the kernel's
+    dtaps with one tap zeroed, and P and Σg3 made by the kernel without
+    the first 64-position stage (dout zeroed there: split 0 of 8 at N 2,
+    S 196, C 64), each read above 1 against the plain version on the
+    whole input, while the kernels' own outputs read at most 1."""
+    gen = torch.Generator().manual_seed(31)
+    args = _bf16_bwd_inputs(gen, 2, 64, 64, 14)
+    assert fb._bf_abw_splits(fb._bf_abw_tiles("reduce3", 64, 64), 2, 196,
+                             build.sm_count(torch.device("cuda"))) == 8
+    readings = _smoke().bf16_bwd_readings
+    mid = args["bwd_mid"]
+    got = fb.bwd_mid_bf16(*mid)
+    want = fb.bwd_mid_reference(*mid)
+    assert readings(torch, fb, "bwd_mid", mid, got, want)["dtaps"][0] <= 1
+    dtaps = got[1].clone()
+    dtaps[4] = 0
+    faulty = (got[0], dtaps, got[2], got[3])
+    assert readings(torch, fb, "bwd_mid", mid, faulty, want)["dtaps"][0] > 1
+    r3 = list(args["bwd_reduce3"])
+    want = fb.bwd_reduce3_reference(*r3)
+    got = fb.bwd_reduce3_bf16(*r3)
+    ok = readings(torch, fb, "bwd_reduce3", r3, got, want)
+    assert ok["P"][0] <= 1 and ok["Σg3"][0] <= 1
+    dropped = list(r3)
+    dropped[0] = r3[0].clone()
+    dropped[0][0, :, :64] = 0
+    faulty = fb.bwd_reduce3_bf16(*dropped)
+    bad = readings(torch, fb, "bwd_reduce3", r3, faulty, want)
+    assert bad["P"][0] > 1 and bad["Σg3"][0] > 1
