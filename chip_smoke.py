@@ -1127,22 +1127,21 @@ def kernel_class(name: str) -> str:
         return "lstm_seq_fwd (port kernel)"
     if "lstm_gemm_kernel" in n or "lstm_bwd_" in n:
         return "lstm_seq_bwd (port kernel)"
-    # the bf16 chain's wgmma products (csrc/abt_bf16_tc.cuh): bwd_reduce3's
-    # P and bwd_mid's tap gradients
-    if "reduce3_bf16_kernel" in n:
-        return "bwd_reduce3_bf16 (port kernel)"
+    # the bf16 chain's wgmma kernels (csrc/abt_bf16_tc.cuh: bwd_mid's tap
+    # gradients and the split products, bwd_reduce3's P and bwd_final's
+    # dW1; csrc/conv1x1_bf16_tc.cuh: the 1x1 tile of conv1x1_bn_residual
+    # and bwd_final's dx) and its other kernels (csrc/fused_block_bf16.cu):
+    # templates whose mode says which wrapper launched them
     if "taps_bf16_kernel" in n:
         return "bwd_mid_bf16 (port kernel)"
-    # the bf16 chain's other kernels (csrc/fused_block_bf16.cu): templates
-    # whose mode says which wrapper launched them
     for pat, modes in (
+            (r"reduce3_bf16_kernel<\d+, (\d)", ("bwd_reduce3", "bwd_final")),
+            (r"tile1x1_bf16_kernel<\d+, (\d)",
+             ("conv1x1_bn_residual", "bwd_final")),
             (r"conv1x1_bf16_kernel<\d+, (\d)",
-             ("conv1x1_stats", "conv1x1_bn_residual", "bwd_apply3",
-              "bwd_final")),
+             ("conv1x1_stats", None, "bwd_apply3")),
             (r"conv3x3_bf16_kernel<\d+, (\d)",
-             ("conv3x3_norm_stats", "bwd_mid")),
-            (r"abt_bf16_kernel<\d+, \d+, (\d)",
-             ("bwd_reduce3", "bwd_mid", "bwd_final"))):
+             ("conv3x3_norm_stats", "bwd_mid"))):
         mode = re.search(pat, n)
         if mode:
             return f"{modes[int(mode.group(1))]}_bf16 (port kernel)"
@@ -4701,19 +4700,19 @@ def ptxas_of(report: dict, source: str) -> dict:
 
 def bf16_chain_regs(report: dict) -> dict:
     """{bf16 chain kernel: "registers r1/r2/..., spills s1/s2/... bytes"}
-    over the instances of its CUDA kernels in csrc/fused_block_bf16.cu and
-    csrc/abt_bf16_tc.cuh (bwd_mid's and bwd_final's: their fold, product
-    and tile kernels)."""
+    over the instances of its CUDA kernels in csrc/fused_block_bf16.cu,
+    csrc/abt_bf16_tc.cuh and csrc/conv1x1_bf16_tc.cuh (bwd_mid's and
+    bwd_final's: their fold, product and tile kernels)."""
     match = {"conv1x1_stats_bf16": r"conv1x1_bf16_kernelILi\d+ELi0E",
-             "conv1x1_bn_residual_bf16": r"conv1x1_bf16_kernelILi\d+ELi1E",
+             "conv1x1_bn_residual_bf16": r"tile1x1_bf16_kernelILi\d+ELi0E",
              "conv3x3_norm_stats_bf16": r"conv3x3_bf16_kernelILi\d+ELi0E",
              "norm_relu_moments_bf16": r"moments_bf16_kernel",
-             "bwd_reduce3_bf16": r"reduce3_bf16_kernel",
+             "bwd_reduce3_bf16": r"reduce3_bf16_kernelILi\d+ELi0E",
              "bwd_apply3_bf16": r"conv1x1_bf16_kernelILi\d+ELi2E",
              "bwd_mid_bf16": r"conv3x3_bf16_kernelILi\d+ELi1E|"
                              r"taps_bf16_kernel|fold_bf16",
-             "bwd_final_bf16": r"conv1x1_bf16_kernelILi\d+ELi3E|abt_bf16_"
-                               r"kernelILi\d+ELi\d+ELi2E|fold_bf16"}
+             "bwd_final_bf16": r"tile1x1_bf16_kernelILi\d+ELi1E|"
+                               r"reduce3_bf16_kernelILi\d+ELi1E|fold_bf16"}
     entries = ptxas_of(report, "fused_block_bf16.cu")
     out = {}
     for k, pat in match.items():
@@ -5797,7 +5796,7 @@ def main() -> int:
                 "paddle_tpu_torch/csrc/fused_block_bf16.cu",
                 "paddle_tpu/kernels/fused_block.py:714"),
             "conv1x1_bn_residual_bf16": (
-                "paddle_tpu_torch/csrc/fused_block_bf16.cu",
+                "paddle_tpu_torch/csrc/conv1x1_bf16_tc.cuh",
                 "paddle_tpu/kernels/fused_block.py:756"),
             "bwd_reduce3": ("paddle_tpu_torch/csrc/bwd_reduce3.cuh",
                             "paddle_tpu/kernels/fused_block.py:192"),
@@ -5813,7 +5812,7 @@ def main() -> int:
                                 "paddle_tpu/kernels/fused_block.py:261"),
             "bwd_mid_bf16": ("paddle_tpu_torch/csrc/fused_block_bf16.cu",
                              "paddle_tpu/kernels/fused_block.py:399"),
-            "bwd_final_bf16": ("paddle_tpu_torch/csrc/fused_block_bf16.cu",
+            "bwd_final_bf16": ("paddle_tpu_torch/csrc/conv1x1_bf16_tc.cuh",
                                "paddle_tpu/kernels/fused_block.py:466")}
     kernels = [dict(name=name, route="cuda", source=meta[name][0],
                     replaces=meta[name][1], launches=launches[name], **row)

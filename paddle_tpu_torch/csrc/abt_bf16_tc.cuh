@@ -1,23 +1,27 @@
 // The bf16 backward's split products A·Bᵀ over K = N·S on Hopper's
 // warpgroup products, fed by TMA (csrc/sm90.cuh): bwd_reduce3_bf16's P =
-// Σ g3 h2ᵀ and Σg3 (reduce3_bf16_kernel), and bwd_mid_bf16's nine tap
-// gradients dtaps[t] = Σ da2 h1ᵀ at tap t's shift (taps_bf16_kernel).
+// Σ g3 h2ᵀ and Σg3 (reduce3_bf16_kernel<BN, kReduce3>), bwd_final_bf16's
+// dW1 = Σ da1 xᵀ (reduce3_bf16_kernel<BN, kDW1>: the same product of raw
+// operands), and bwd_mid_bf16's nine tap gradients dtaps[t] = Σ da2 h1ᵀ at
+// tap t's shift (taps_bf16_kernel).
 // Included by csrc/fused_block_bf16.cu, whose conversions (bf, to_bf,
 // norm_bf, pack), ldmatrix (ldsm_x4) and fixed-order passes
 // (fused_block.cuh) they use.
 //
 // Replaces, in bf16, the product of paddle_tpu/kernels/fused_block.py's
-// _b1a_kernel (:160, pallas_call :192) and the tap gradients of its
+// _b1a_kernel (:160, pallas_call :192), the tap gradients of its
 // _b2_kernel (:295, pallas_call :399; the JAX kernel's nine products of
-// column-shifted da2 and row-shifted h1 at :345-369). The earlier design
-// (ab::abt_bf16_kernel, still bwd_final's dW1) ran one tap a block, read
-// da2 and a1 nine times with two-byte loads, in 32-position stages of
-// mma.sync through two buffers.
+// column-shifted da2 and row-shifted h1 at :345-369) and the dW1 of its
+// _b3_kernel (:436, pallas_call :466). The earlier design
+// (ab::abt_bf16_kernel) ran one tap a block, read da2 and a1 nine times
+// with two-byte loads, in 32-position stages of mma.sync through two
+// buffers.
 //
 // What bounds them on the H100 (ResNet-50's chain stages, batch 128):
 // reduce3 reads dout, out and a2 and writes g3, 668 / 334 / 168 MB at 56²
 // / 28² / 14² (0.1994 / 0.0998 / 0.0502 ms at 3.35 TB/s; its 13.2 GFLOP
-// are 0.0133 ms): bytes. The tap gradients read da2 and a1 once, 102.8 /
+// are 0.0133 ms): bytes. dW1 reads x and da1, 257 / 128 / 64 MB (0.0767 /
+// 0.0383 / 0.0192 ms) for the same 13.2 GFLOP: bytes. The tap gradients read da2 and a1 once, 102.8 /
 // 51.4 / 25.7 MB (0.0307 / 0.0153 / 0.0077 ms), for 29.6 GFLOP (0.0299
 // ms at 989 TFLOP/s): bytes by a hair at 56², operations at 28² and 14².
 //
@@ -67,7 +71,11 @@
 //   BN 256 in shared memory), then a row's 8 runs in order. Where Cin has
 //   several row tiles (8 at 14²), a2 is read once a row tile: the grid
 //   runs a split's row tiles side by side (blockIdx.x fastest), so that
-//   the reuse comes from L2.
+//   the reuse comes from L2. In the kDW1 mode A is x (Cin rows) and B
+//   da1 (C rows), both raw: a stage brings x and da1 alone, and where S %
+//   8 != 0 the rows of skewed boxes are moved back in place (0 past S);
+//   where S % 8 == 0 wgmma reads them as they land. Its partial is written
+//   as dW1 [C][Cin]; there is no g3 and no Σg3.
 //
 // taps_bf16_kernel: a block owns a 64 x 64 tile of (h1 channel, da2
 //   channel) for all nine taps and a split of stages. The factoring is the
@@ -184,16 +192,20 @@ __device__ __forceinline__ uint4 pack8(const bf16 (&h)[8]) {
                     pack(h[6], h[7]));
 }
 
+// The address of value x (0 .. 71) of row r of a swizzled tile: x < 64
+// in the row's 128 bytes, else in the row's 16-byte tail.
+template <class T>
+__device__ __forceinline__ T* value_at(T* tile, T* tail, int r, int x) {
+  return x < kPos ? tile + r * 128 + ((((x >> 3) ^ r) & 7) << 4) + (x & 7) * 2
+                  : tail + r * 16 + (x - kPos) * 2;
+}
+
 // Values x0 .. x0 + 7 of row r of a swizzled tile (x >= 64 from the row's
 // tail): one 16-byte load where x0 is whole chunks, else two 8-byte, four
 // 4-byte or eight 2-byte loads as x0's alignment allows.
 __device__ __forceinline__ void gather8(const char* tile, const char* tail,
                                         int r, int x0, bf16 (&h)[8]) {
-  const auto at = [&](int x) -> const char* {
-    return x < kPos ? tile + r * 128 + ((((x >> 3) ^ r) & 7) << 4) +
-                          (x & 7) * 2
-                    : tail + r * 16 + (x - kPos) * 2;
-  };
+  const auto at = [&](int x) { return value_at(tile, tail, r, x); };
   if ((x0 & 7) == 0) {
     unpack8(*reinterpret_cast<const uint4*>(at(x0)), h);
   } else if ((x0 & 3) == 0) {
@@ -518,6 +530,9 @@ constexpr int kR3Threads = 384;    // the producer warpgroup and two consumers
 constexpr int kR3ProducerRegs = 40;
 constexpr int kR3ConsumerRegs = 232;  // 40 + 2 x 232 <= 3 x 168
 constexpr int kR3Rows = 128;       // rows of Cin a block
+// the split products of reduce3_bf16_kernel: P, Σg3 and g3 (bwd_reduce3),
+// or dW1 of raw operands (bwd_final)
+enum { kReduce3 = 0, kDW1 = 1 };
 
 template <int BN>
 struct R3Smem {
@@ -534,14 +549,15 @@ struct R3Smem {
 };
 
 struct R3Args {
-  bf16* g3;             // [N, Cin, S]
-  float* part;          // [splits][Cin][C + 1]: P, then Σg3 in column C
-  const float* sc;      // h2's normalize [C]
+  bf16* g3;             // [N, Cin, S] (kReduce3)
+  float* part;          // [splits][Cin][C + 1]: P, then Σg3 in column C;
+                        // kDW1 [splits][C][Cin]
+  const float* sc;      // h2's normalize [C] (kReduce3)
   const float* sh;
   int Cin, C, S, cpi, stages, splits, rtiles, k, lk;
 };
 
-template <int BN>
+template <int BN, int kMode>
 __global__ void __launch_bounds__(kR3Threads, 1)
 reduce3_bf16_kernel(const __grid_constant__ CUtensorMap tdout,
                     const __grid_constant__ CUtensorMap tout,
@@ -588,8 +604,8 @@ reduce3_bf16_kernel(const __grid_constant__ CUtensorMap tdout,
   if (wg == 0) {
     sm90::regs_dec<kR3ProducerRegs>();
     if (tid != 0) return;
-    const uint32_t bytes =
-        2 * stage_bytes(kR3Rows, k) + stage_bytes(BN, k);
+    const uint32_t bytes = (kMode == kDW1 ? 1 : 2) * stage_bytes(kR3Rows, k) +
+                           stage_bytes(BN, k);
     for (int q = 0; q < nst; ++q) {
       const int s = q % NS;
       int n, s0;
@@ -599,8 +615,9 @@ reduce3_bf16_kernel(const __grid_constant__ CUtensorMap tdout,
       const uint32_t st = base + s * L::kStage;
       load_rows(st, st + kTd, &tdout, &tdout_tail, full(s), n, s0, cin0,
                 kR3Rows, k, S);
-      load_rows(st + kOut, st + kTo, &tout, &tout_tail, full(s), n, s0, cin0,
-                kR3Rows, k, S);
+      if (kMode == kReduce3)
+        load_rows(st + kOut, st + kTo, &tout, &tout_tail, full(s), n, s0,
+                  cin0, kR3Rows, k, S);
       load_rows(st + kA2, st + kTa, &ta2, &ta2_tail, full(s), n, s0, c0, BN,
                 k, S);
     }
@@ -613,9 +630,9 @@ reduce3_bf16_kernel(const __grid_constant__ CUtensorMap tdout,
   const int u = tid - 128, cw = u >> 7, uw = u & 127;
   const int warp = (tid / 32) & 3, g = lane >> 2, t = lane & 3;
   const int la = 7 - p.lk, lb = log2_of(BN) - p.lk;  // log2 of box rows
-  const bool first = ct == 0;  // writes g3 and Σg3
+  const bool first = kMode == kReduce3 && ct == 0;  // writes g3 and Σg3
   float* const vec = reinterpret_cast<float*>(sp + L::kVec);
-  for (int r = u; r < BN; r += 256) {
+  for (int r = u; kMode == kReduce3 && r < BN; r += 256) {
     const int ch = c0 + chan_of(r, p.lk, lb);
     vec[r] = ch < C ? __ldg(p.sc + ch) : 0.f;   // h2 0 past C
     vec[BN + r] = ch < C ? __ldg(p.sh + ch) : 0.f;
@@ -645,95 +662,120 @@ reduce3_bf16_kernel(const __grid_constant__ CUtensorMap tdout,
     const int lim = min(kPos, S - s0);
     wait(full(s), (q / NS) & 1);
     char* const st = sp + s * L::kStage;
-    // g3 = dout where out > 0 (0 past S), in place over dout, written out
-    // and summed
-#pragma unroll kUnrollG
-    for (int it = 0; it < 4; ++it) {
-      const int m = 64 * cw + (uw >> 3) + 16 * it;
-      const int sk = skew_of(m >> la, S);
-      bf16 d[8], o[8];
-      gather8(st, st + kTd, m, 8 * cc + sk, d);
-      gather8(st + kOut, st + kTo, m, 8 * cc + sk, o);
-      float run;
-      if constexpr (kRunsInSmem)
-        run = red[m * 8 + cc];
-      else
-        run = gsum[it];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        d[e] = (8 * cc + e < lim && bf(o[e]) > 0.f) ? d[e] : (bf16)0;
-        run += bf(d[e]);
-      }
-      if constexpr (kRunsInSmem)
-        red[m * 8 + cc] = run;
-      else
-        gsum[it] = run;
-      const uint4 gv = pack8(d);
-      if (k > 1) __syncwarp();
-      *reinterpret_cast<uint4*>(st + m * 128 + ((cc ^ (m & 7)) << 4)) = gv;
-      const int cin = cin0 + chan_of(m, p.lk, la);
-      if (first && (S & 7) == 0 && cin < Cin) {
-        bf16* const dst = p.g3 + ((long)n * Cin + cin) * S + s0 + 8 * cc;
-        if (8 * cc + 8 <= lim) {
-          *reinterpret_cast<uint4*>(dst) = gv;
-        } else {
+    if (kMode == kDW1) {
+      // x's and da1's rows of skewed boxes moved back in place, 0 past S
+      // (where S % 8 == 0 past S is past the map: TMA reads zeros)
+      if (k > 1) {
+#pragma unroll 1
+        for (int it = 0; it < 4 + HT; ++it) {
+          const bool ra = it < 4;
+          const int r = ra ? 64 * cw + (uw >> 3) + 16 * it
+                           : cw * (BN / 2) + (uw >> 3) + 16 * (it - 4);
+          const uint32_t off = ra ? 0u : kA2, toff = ra ? kTd : kTa;
+          bf16 v[8];
+          gather8(st + off, st + toff, r,
+                  8 * cc + skew_of(r >> (ra ? la : lb), S), v);
 #pragma unroll
           for (int e = 0; e < 8; ++e)
-            if (8 * cc + e < lim) dst[e] = d[e];
+            if (8 * cc + e >= lim) v[e] = 0;
+          __syncwarp();
+          *reinterpret_cast<uint4*>(st + off + r * 128 +
+                                    ((cc ^ (r & 7)) << 4)) = pack8(v);
         }
+        sm90::fence_proxy_async();
+        sm90::named_sync(1, 256);  // both operands are in place
       }
-    }
-    if (first && (S & 7) != 0) {
-      // rows of g3 start off 16 bytes: each row's 8 lanes write it back
-      // from the tile as two runs of 4 lanes x 8 bytes where S % 4 == 0
-      // (whole 32-byte sectors a store), else value by value
-      __syncwarp();
-#pragma unroll 1
+    } else {
+      // g3 = dout where out > 0 (0 past S), in place over dout, written out
+      // and summed
+#pragma unroll kUnrollG
       for (int it = 0; it < 4; ++it) {
         const int m = 64 * cw + (uw >> 3) + 16 * it;
+        const int sk = skew_of(m >> la, S);
+        bf16 d[8], o[8];
+        gather8(st, st + kTd, m, 8 * cc + sk, d);
+        gather8(st + kOut, st + kTo, m, 8 * cc + sk, o);
+        float run;
+        if constexpr (kRunsInSmem)
+          run = red[m * 8 + cc];
+        else
+          run = gsum[it];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          d[e] = (8 * cc + e < lim && bf(o[e]) > 0.f) ? d[e] : (bf16)0;
+          run += bf(d[e]);
+        }
+        if constexpr (kRunsInSmem)
+          red[m * 8 + cc] = run;
+        else
+          gsum[it] = run;
+        const uint4 gv = pack8(d);
+        if (k > 1) __syncwarp();
+        *reinterpret_cast<uint4*>(st + m * 128 + ((cc ^ (m & 7)) << 4)) = gv;
         const int cin = cin0 + chan_of(m, p.lk, la);
-        if (cin >= Cin) continue;
-        const char* const row = st + m * 128;
-        bf16* const dst = p.g3 + ((long)n * Cin + cin) * S + s0;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int x = (S & 3) == 0 ? 32 * h + 4 * cc : 8 * cc + 4 * h;
-          const uint2 v = *reinterpret_cast<const uint2*>(
-              row + ((((x >> 3) ^ m) & 7) << 4) + (x & 7) * 2);
-          if ((S & 3) == 0 && x + 4 <= lim) {
-            *reinterpret_cast<uint2*>(dst + x) = v;
+        if (first && (S & 7) == 0 && cin < Cin) {
+          bf16* const dst = p.g3 + ((long)n * Cin + cin) * S + s0 + 8 * cc;
+          if (8 * cc + 8 <= lim) {
+            *reinterpret_cast<uint4*>(dst) = gv;
           } else {
-            const bf16 hv[4] = {(bf16)(v.x & 0xffffu), (bf16)(v.x >> 16),
-                                (bf16)(v.y & 0xffffu), (bf16)(v.y >> 16)};
 #pragma unroll
-            for (int e = 0; e < 4; ++e)
-              if (x + e < lim) dst[x + e] = hv[e];
+            for (int e = 0; e < 8; ++e)
+              if (8 * cc + e < lim) dst[e] = d[e];
           }
         }
       }
-    }
-    // h2 = bf16(relu(fma(a2, sc2, sh2))) (0 past S and past C) in place
-#pragma unroll kUnrollH
-    for (int it = 0; it < HT; ++it) {
-      const int r = cw * (BN / 2) + (uw >> 3) + 16 * it;
-      const float sc = vec[r], sh = vec[BN + r];
-      bf16 a[8];
-      gather8(st + kA2, st + kTa, r, 8 * cc + skew_of(r >> lb, S), a);
-      uint32_t w[4];
+      if (first && (S & 7) != 0) {
+        // rows of g3 start off 16 bytes: each row's 8 lanes write it back
+        // from the tile as two runs of 4 lanes x 8 bytes where S % 4 == 0
+        // (whole 32-byte sectors a store), else value by value
+        __syncwarp();
+#pragma unroll 1
+        for (int it = 0; it < 4; ++it) {
+          const int m = 64 * cw + (uw >> 3) + 16 * it;
+          const int cin = cin0 + chan_of(m, p.lk, la);
+          if (cin >= Cin) continue;
+          const char* const row = st + m * 128;
+          bf16* const dst = p.g3 + ((long)n * Cin + cin) * S + s0;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int x = 8 * cc + 2 * i;
-        w[i] = cvt_bf2(x < lim ? relu_affine(bf(a[2 * i]), sc, sh) : 0.f,
-                       x + 1 < lim ? relu_affine(bf(a[2 * i + 1]), sc, sh)
-                                   : 0.f);
+          for (int h = 0; h < 2; ++h) {
+            const int x = (S & 3) == 0 ? 32 * h + 4 * cc : 8 * cc + 4 * h;
+            const uint2 v = *reinterpret_cast<const uint2*>(
+                row + ((((x >> 3) ^ m) & 7) << 4) + (x & 7) * 2);
+            if ((S & 3) == 0 && x + 4 <= lim) {
+              *reinterpret_cast<uint2*>(dst + x) = v;
+            } else {
+              const bf16 hv[4] = {(bf16)(v.x & 0xffffu), (bf16)(v.x >> 16),
+                                  (bf16)(v.y & 0xffffu), (bf16)(v.y >> 16)};
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                if (x + e < lim) dst[x + e] = hv[e];
+            }
+          }
+        }
       }
-      const uint4 hv = make_uint4(w[0], w[1], w[2], w[3]);
-      if (k > 1) __syncwarp();
-      *reinterpret_cast<uint4*>(st + kA2 + r * 128 + ((cc ^ (r & 7)) << 4)) =
-          hv;
+      // h2 = bf16(relu(fma(a2, sc2, sh2))) (0 past S and past C) in place
+#pragma unroll kUnrollH
+      for (int it = 0; it < HT; ++it) {
+        const int r = cw * (BN / 2) + (uw >> 3) + 16 * it;
+        const float sc = vec[r], sh = vec[BN + r];
+        bf16 a[8];
+        gather8(st + kA2, st + kTa, r, 8 * cc + skew_of(r >> lb, S), a);
+        uint32_t w[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int x = 8 * cc + 2 * i;
+          w[i] = cvt_bf2(x < lim ? relu_affine(bf(a[2 * i]), sc, sh) : 0.f,
+                         x + 1 < lim ? relu_affine(bf(a[2 * i + 1]), sc, sh)
+                                     : 0.f);
+        }
+        const uint4 hv = make_uint4(w[0], w[1], w[2], w[3]);
+        if (k > 1) __syncwarp();
+        *reinterpret_cast<uint4*>(st + kA2 + r * 128 + ((cc ^ (r & 7)) << 4)) =
+            hv;
+      }
+      sm90::fence_proxy_async();
+      sm90::named_sync(1, 256);  // both halves of h2 and g3 are in place
     }
-    sm90::fence_proxy_async();
-    sm90::named_sync(1, 256);  // both halves of h2 and g3 are in place
     const uint32_t sa = base + s * L::kStage + cw * 64 * 128;
     const uint32_t sb = base + s * L::kStage + kA2;
     sm90::fence_operands(acc);
@@ -752,7 +794,10 @@ reduce3_bf16_kernel(const __grid_constant__ CUtensorMap tdout,
   sm90::wg_wait<0>();
   sm90::fence_operands(acc);
 
-  float* const part = p.part + (long)split * Cin * (C + 1);
+  // P [Cin][C + 1], or dW1 [C][Cin]
+  const int ld = kMode == kDW1 ? 1 : C + 1, cs = kMode == kDW1 ? Cin : 1;
+  float* const part =
+      p.part + (long)split * Cin * (kMode == kDW1 ? C : C + 1);
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int cin = cin0 + chan_of(64 * cw + 16 * warp + g + 8 * hr, p.lk, la);
@@ -762,7 +807,8 @@ reduce3_bf16_kernel(const __grid_constant__ CUtensorMap tdout,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = c0 + chan_of(8 * jj + 2 * t + e, p.lk, lb);
-        if (col < C) part[(long)cin * (C + 1) + col] = acc[4 * jj + 2 * hr + e];
+        if (col < C)
+          part[(long)cin * ld + (long)col * cs] = acc[4 * jj + 2 * hr + e];
       }
   }
   if (first) {
@@ -842,17 +888,33 @@ inline int launch_taps(const bf16* da2, const bf16* a1, const float* sc,
   return (int)cudaGetLastError();
 }
 
-template <int BN>
+template <int BN, int kMode>
 int launch_reduce3_bn(const CUtensorMap (&maps)[6], const R3Args& p,
                       int ctiles, cudaStream_t s) {
-  cudaFuncSetAttribute(reduce3_bf16_kernel<BN>,
+  cudaFuncSetAttribute(reduce3_bf16_kernel<BN, kMode>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)R3Smem<BN>::kBytes);
-  reduce3_bf16_kernel<BN><<<dim3((unsigned)(p.rtiles * ctiles),
-                                 (unsigned)p.splits),
-                            kR3Threads, R3Smem<BN>::kBytes, s>>>(
+  reduce3_bf16_kernel<BN, kMode><<<dim3((unsigned)(p.rtiles * ctiles),
+                                        (unsigned)p.splits),
+                                   kR3Threads, R3Smem<BN>::kBytes, s>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], p);
   return (int)cudaGetLastError();
+}
+
+// The tile rows of C (B's) of a split product: all of C up to 256 (64,
+// 128 or 256 rows), else 256-row tiles.
+inline int b_rows(int C) { return C <= 64 ? 64 : C <= 128 ? 128 : 256; }
+
+// Σ over N·S of A's rows (Cin, 128 a tile) by B's (C, b_rows(C) a tile),
+// maps[0, 1, 2] A, A's second operand (kReduce3: out) and B, then their
+// tails, in the kernel of kMode with its grid.
+template <int kMode>
+int launch_split(const CUtensorMap (&maps)[6], const R3Args& p, int C,
+                 cudaStream_t s) {
+  const int bn = b_rows(C), ctiles = (C + bn - 1) / bn;
+  if (bn == 64) return launch_reduce3_bn<64, kMode>(maps, p, ctiles, s);
+  if (bn == 128) return launch_reduce3_bn<128, kMode>(maps, p, ctiles, s);
+  return launch_reduce3_bn<256, kMode>(maps, p, ctiles, s);
 }
 
 // g3 [N, Cin, S] and part [splits][Cin][C + 1] from dout, out [N, Cin, S]
@@ -863,7 +925,7 @@ inline int launch_reduce3(const bf16* dout, const bf16* out, const bf16* a2,
                           float* part, int N, int Cin, int C, int S,
                           int splits, cudaStream_t s) {
   if (!ok(N, Cin, C, S, splits)) return (int)cudaErrorInvalidValue;
-  const int bn = C <= 64 ? 64 : C <= 128 ? 128 : 256;
+  const int bn = b_rows(C);
   CUtensorMap maps[6];
   for (int tail = 0; tail < 2; ++tail)
     if (encode_rows(&maps[3 * tail], dout, N, Cin, S, kR3Rows, tail) ||
@@ -874,10 +936,27 @@ inline int launch_reduce3(const bf16* dout, const bf16* out, const bf16* a2,
   const R3Args p{g3, part, sc, sh, Cin, C, S, (S + kPos - 1) / kPos,
                  (int)stages_of(N, S), splits, (Cin + kR3Rows - 1) / kR3Rows,
                  k, log2_of(k)};
-  const int ctiles = (C + bn - 1) / bn;
-  if (bn == 64) return launch_reduce3_bn<64>(maps, p, ctiles, s);
-  if (bn == 128) return launch_reduce3_bn<128>(maps, p, ctiles, s);
-  return launch_reduce3_bn<256>(maps, p, ctiles, s);
+  return launch_split<kReduce3>(maps, p, C, s);
+}
+
+// part [splits][C][Cin]: dW1 = Σ da1 xᵀ of x [N, Cin, S] and da1 [N, C,
+// S], each split's stages as launch_reduce3's.
+inline int launch_dw1(const bf16* x, const bf16* da1, float* part, int N,
+                      int Cin, int C, int S, int splits, cudaStream_t s) {
+  if (!ok(N, Cin, C, S, splits)) return (int)cudaErrorInvalidValue;
+  const int bn = b_rows(C);
+  CUtensorMap maps[6];
+  for (int tail = 0; tail < 2; ++tail) {
+    if (encode_rows(&maps[3 * tail], x, N, Cin, S, kR3Rows, tail) ||
+        encode_rows(&maps[3 * tail + 2], da1, N, C, S, bn, tail))
+      return (int)cudaErrorInvalidValue;
+    maps[3 * tail + 1] = maps[3 * tail];  // no second A operand
+  }
+  const int k = group_of(S);
+  const R3Args p{nullptr, part, nullptr, nullptr, Cin, C, S,
+                 (S + kPos - 1) / kPos, (int)stages_of(N, S), splits,
+                 (Cin + kR3Rows - 1) / kR3Rows, k, log2_of(k)};
+  return launch_split<kDW1>(maps, p, C, s);
 }
 
 }  // namespace abw

@@ -51,7 +51,7 @@
 //   norm_relu_moments: a2 read, 51.4 / 25.7 / 12.8 MB, 0.0153 / 0.0077 /
 //     0.0038 ms; 1.7 GFLOP (M2 is symmetric): bytes;
 //   conv1x1_bn_residual: 462.4 / 231.2 / 115.6 MB, 0.1380 / 0.0690 /
-//     0.0345 ms: bytes.
+//     0.0345 ms: bytes (csrc/conv1x1_bf16_tc.cuh).
 //   bwd_reduce3: 668 / 334 / 168 MB, 0.1994 / 0.0998 / 0.0502 ms; 13.2
 //     GFLOP: bytes;
 //   bwd_apply3: 308 / 154 / 78 MB, 0.0920 / 0.0461 / 0.0232 ms; 16.4
@@ -65,17 +65,18 @@
 // work on half their bytes.
 //
 // What the design does about it: right and simple first; the redesign for
-// speed (wgmma fed by TMA, csrc/sm90.cuh) has begun with bwd_reduce3's
-// and bwd_mid's products over N * S (csrc/abt_bf16_tc.cuh). One tile
-// product serves the rest: 8 warps as 2 (rows) x 4 (columns), each warp
+// speed (wgmma fed by TMA, csrc/sm90.cuh) has begun with the products over
+// N * S of bwd_reduce3, bwd_mid's tap gradients and bwd_final's dW1
+// (csrc/abt_bf16_tc.cuh), and the 1x1 tile of conv1x1_bn_residual and
+// bwd_final's dx (csrc/conv1x1_bf16_tc.cuh). One tile product serves the
+// rest: 8 warps as 2 (rows) x 4 (columns), each warp
 // (BM / 2) x (BN / 4), bf16 mma.sync.m16n8k16 with float32 accumulators,
 // both operands from shared memory by ldmatrix (the A rows and, for the
 // moments and the 3x3, the B rows K-contiguous; the 1x1s' x [K][columns]
 // through ldmatrix.trans). Every operand goes through registers on its way
 // to shared memory (load, widen, normalize, round, store), because the 3x3,
 // the moments and the residual 1x1 normalize their input as it loads.
-//   - conv1x1_stats and conv1x1_bn_residual (c1::conv1x1_bf16_kernel): a
-//     block owns BM rows of M (64 where M <= 64, else 128) by 128 columns
+//   - conv1x1_stats (c1::conv1x1_bf16_kernel): a block owns BM rows of M (64 where M <= 64, else 128) by 128 columns
 //     j = n * S + s of N * S (a tile may hold the end of one image and the
 //     start of the next, so S = 196 leaves no column idle), K in stages of
 //     32 through two shared buffers, the next stage's loads in registers
@@ -101,28 +102,28 @@
 //   - The backward reuses the 1x1 and 3x3 tiles: bwd_apply3 is the 1x1
 //     over K = Cin + C, B's rows g3's, then a2's normalized as they land
 //     (c1 mode kApply3: the mask, v0, one rounding and the sums in the
-//     epilogue); bwd_final's dx the 1x1 of W1^T over da1 (kDx: + g3, one
-//     rounding); bwd_mid's input gradient the 3x3 over da2 as it lands,
+//     epilogue); bwd_mid's input gradient the 3x3 over da2 as it lands,
 //     the taps flipped and transposed by the wrapper (c3 mode kInputGrad:
 //     h1's mask, one rounding and bn1's sums in the epilogue). da2 and da1
 //     are folded once into a bf16 scratch (fold_bf16_kernel).
-//   - dW1 (ab::abt_bf16_kernel) is the moments kernel's product with two
-//     operands: a block owns a BM x 128 tile of A's rows (da1) by B's
-//     rows (x) and a split of N * S in 32-position stages, both operands
-//     [row][32 positions]. The splits' partials go through a fixed-order
-//     pass. (Its kReduce3 and kTaps modes are no longer launched.)
-//   - P and Sum g3 (bwd_reduce3) and the nine tap gradients (bwd_mid) run
-//     on one split product on wgmma fed by TMA, csrc/abt_bf16_tc.cuh
-//     (abw::): 64-position stages of one image, the transformed operand
-//     (g3, h2; h1) made once a stage, the taps all nine in one pass.
+//   - P and Sum g3 (bwd_reduce3), the nine tap gradients (bwd_mid) and
+//     dW1 = Sum da1 x^T (bwd_final) run on one split product on wgmma fed
+//     by TMA, csrc/abt_bf16_tc.cuh (abw::): 64-position stages of one
+//     image, the transformed operand (g3, h2; h1) made once a stage, the
+//     taps all nine in one pass.
+//   - conv1x1_bn_residual and bwd_final's dx (W1^T da1 + g3, one rounding)
+//     run on the 1x1 tile on wgmma fed by TMA, csrc/conv1x1_bf16_tc.cuh
+//     (t1::): W once a block, 64-position stages of B and the addend, the
+//     epilogue over the addend's tile in shared memory.
 //   - Sums: a partial per tile (a thread's columns in order, then the
 //     row's threads in order), then fused_block.cuh's passes in fixed
 //     order. No float atomics: two calls on one input give the same bits.
 // Shapes: contiguous bf16 tensors, 16-byte aligned; the 3x3's Cin (and
 // bwd_mid's C) a multiple of 16; C and Cin at most kMaxC (4096, eight times the widest C
 // of ResNet-50's blocks: the moments' split partials grow as splits x C^2,
-// 8.6 GB at 128 splits there); N * S below 2^31; each entry point refuses
-// anything else before it launches.
+// 8.6 GB at 128 splits there), the 1x1 tile's K at most t1::kMaxK (256);
+// the wgmma kernels' widths multiples of abw::group_of(S); N * S below
+// 2^31; each entry point refuses anything else before it launches.
 #include <cstdint>
 
 #include "fused_block.cuh"
@@ -247,17 +248,16 @@ namespace c1 {
 constexpr int kBN = 128, kBK = 32;
 constexpr int kAP = kBK + 8;   // A's row pitch (bf16): 80 bytes
 constexpr int kBP = kBN + 8;   // B's row pitch: 272 bytes
-// kStats: y = W x and its partial sums; kResidual: x normalized as it
-// lands, out = relu(fma(a3, sc3, sh3) + res); kApply3: B = [g3; h2], h2
+// kStats: y = W x and its partial sums; kApply3: B = [g3; h2], h2
 // normalized as it lands, g2 = bf16(acc + v0) where h2f > 0, the partial
-// sums of the rounded g2 and of g2 x^2; kDx: dx = bf16(acc + g3).
-enum { kStats = 0, kResidual = 1, kApply3 = 2, kDx = 3 };
+// sums of the rounded g2 and of g2 x^2. (Modes 1 and 3, conv1x1_bn_residual
+// and bwd_final's dx, moved to csrc/conv1x1_bf16_tc.cuh.)
+enum { kStats = 0, kApply3 = 2 };
 
 // B's rows k < K1 come from x ([N, K1, S]) as they are; rows K1 <= k < K
 // from xn ([N, K - K1, S], row k - K1) normalized by sc, sh of that row.
-// The epilogue's e (kResidual: the residual; kApply3: a2; kDx: g3) is [N,
-// M, S]; f0, f1 (kResidual: sc3, sh3; kApply3: v0) and inv, mean
-// (kApply3: x^2 = a2 * inv - mean * inv) are per output row.
+// The epilogue's e (kApply3: a2) is [N, M, S]; f0 (kApply3: v0) and inv,
+// mean (kApply3: x^2 = a2 * inv - mean * inv) are per output row.
 struct Args {
   const bf16* x;
   const bf16* xn;
@@ -266,7 +266,6 @@ struct Args {
   const float* sh;
   const bf16* e;
   const float* f0;
-  const float* f1;
   const float* inv;
   const float* mean;
   bf16* y;
@@ -284,8 +283,7 @@ template <int BM, int kMode, bool kWide>
 __global__ void __launch_bounds__(kThreads, 2)
 conv1x1_bf16_kernel(const Args a) {
   constexpr int MT = BM / 32, NT = 4, AV = BM * kBK / 8 / kThreads;
-  constexpr bool kRaw = kMode != kResidual;  // B has rows from x
-  constexpr bool kNorm = kMode == kResidual || kMode == kApply3;
+  constexpr bool kNorm = kMode == kApply3;  // B has rows normalized
   extern __shared__ float4 smem4[];
   bf16* As = reinterpret_cast<bf16*>(smem4);
   bf16* Bs = As + 2 * BM * kAP;
@@ -327,7 +325,7 @@ conv1x1_bf16_kernel(const Args a) {
     for (int i = 0; i < 4; ++i) {
       const int k = k0 + kr + 8 * i;
       uint2 v = make_uint2(0u, 0u);
-      if (kRaw && k < K1)
+      if (k < K1)
         v = read(a.x, off, (long)k * S);
       else if (kNorm && k >= K1 && k < K)
         v = read(a.xn, offn, (long)(k - K1) * S);
@@ -382,7 +380,7 @@ conv1x1_bf16_kernel(const Args a) {
 #pragma unroll
     for (int e = 0; e < 2; ++e)
       oc[j][e] = col_off(j0 + wn * (kBN / 4) + 8 * j + 2 * t + e, NS, S, M);
-  if (kMode == kStats || kMode == kApply3) {
+  {
     float* red = reinterpret_cast<float*>(smem4);  // over A, after the loop
     __syncthreads();
 #pragma unroll
@@ -426,29 +424,6 @@ conv1x1_bf16_kernel(const Args a) {
         put_row<BM>(red, lr, 4 * wn + t, s, q);
       }
     store_row_partials<BM>(a.part, M, gridDim.x, m0, blockIdx.x, red);
-  } else {
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int row = m0 + wm * (BM / 2) + 16 * i + g + 8 * hf;
-        if (row >= M) continue;
-        float s3 = 0.f, h3 = 0.f;
-        if (kMode == kResidual) s3 = __ldg(a.f0 + row), h3 = __ldg(a.f1 + row);
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            if (oc[j][e] < 0) continue;
-            const long o = oc[j][e] + (long)row * S;
-            if (kMode == kResidual) {
-              const float v = fmaf(acc[i][j][2 * hf + e], s3, h3) + bf(a.e[o]);
-              a.y[o] = to_bf(fmaxf(v, 0.f));
-            } else {
-              a.y[o] = to_bf(acc[i][j][2 * hf + e] + bf(a.e[o]));
-            }
-          }
-      }
   }
 }
 
@@ -820,252 +795,8 @@ int launch_bm(const bf16* x, const float* sc, const float* sh, float* part,
 
 }  // namespace mom
 
-namespace ab {
-
-constexpr int kBK = 32;
-constexpr int kP = kBK + 8;    // row pitch (bf16): 80 bytes
-// The backward's A · B^T over K = N * S, split: kReduce3: A = g3 =
-// dout * (out > 0), written out by the blocks of column tile 0, which add
-// sum g3 in column MB; B = h2 normalized as it lands. kTaps: A = da2, B =
-// h1 normalized as it lands at tap (dy, dx)'s shift of the position, 0
-// off the image; one tap a block. kDW1: A = da1, B = x.
-enum { kReduce3 = 0, kTaps = 1, kDW1 = 2 };
-
-struct Args {
-  const bf16* a;     // A's source [N, MA, S] (kReduce3: dout)
-  const bf16* mask;  // kReduce3: out [N, MA, S]
-  const bf16* b;     // B's source [N, MB, S]
-  const float* sc;   // B's normalize (kReduce3, kTaps), per row of B
-  const float* sh;
-  bf16* g3;          // kReduce3: g3 [N, MA, S]
-  float* part;       // [splits][taps][MA][ld], ld = MB + 1 (kReduce3) or MB
-  int N, MA, MB, S, W, pieces, splits, ntc;  // ntc: column tiles of MB
-};
-
-template <int BM, int BN>
-constexpr int smem_bytes() {
-  return 2 * (BM + BN) * kP * 2;  // two stages of A's and B's rows
-}
-
-template <int BM, int BN, int kMode, bool kWide>
-__global__ void __launch_bounds__(kThreads, 2)
-abt_bf16_kernel(const Args p) {
-  constexpr int MT = BM / 32, NT = BN / 32, RA = BM / 32, RB = BN / 32;
-  constexpr int ld_extra = kMode == kReduce3 ? 1 : 0;
-  extern __shared__ float4 smem4[];
-  bf16* As = reinterpret_cast<bf16*>(smem4);  // [2][BM][kP]
-  bf16* Bs = As + 2 * BM * kP;                // [2][BN][kP]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 1, wn = warp >> 1, g = lane >> 2, t = lane & 3;
-  const int MA = p.MA, MB = p.MB, S = p.S, W = p.W, ld = MB + ld_extra;
-  const int tiles = ((MA + BM - 1) / BM) * p.ntc;
-  const int tap = kMode == kTaps ? blockIdx.x / tiles : 0;
-  const int tile = blockIdx.x - tap * tiles;
-  const int rt = tile / p.ntc, ct = tile - rt * p.ntc;
-  const int ra = rt * BM, rb = ct * BN, split = blockIdx.y;
-  const bool first = kMode == kReduce3 && ct == 0;  // writes g3 and sum g3
-  const int dy = tap / 3 - 1, dx = tap % 3 - 1, H = S / W;
-  const long p0 = (long)split * p.pieces / p.splits;
-  const long p1 = (long)(split + 1) * p.pieces / p.splits;
-  const long NS = (long)p.N * S;
-  // this thread's loads: positions 4 pg .. 4 pg + 3 of a stage, of A's
-  // rows r0 + 32 i and B's rows r0 + 32 i
-  const int pg = tid & 7, r0 = tid >> 3;
-  uint2 xa[RA], xm[RA], xb[RB];
-  long oa[4], ob[4];   // offsets n * rows * S + s (+ the tap's shift), -1 out
-  float hsum[RA];
-#pragma unroll
-  for (int i = 0; i < RA; ++i) hsum[i] = 0.f;
-  auto read = [&](const bf16* src, const long (&o)[4], bool wide) {
-    if (wide)
-      return o[0] >= 0 ? __ldg(reinterpret_cast<const uint2*>(src + o[0]))
-                       : make_uint2(0u, 0u);
-    bf16 h[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) h[e] = o[e] >= 0 ? src[o[e]] : 0;
-    return make_uint2(pack(h[0], h[1]), pack(h[2], h[3]));
-  };
-  auto load = [&](long piece) {
-    const long j = piece * kBK + 4 * pg;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      oa[e] = col_off(j + e, NS, S, MA);
-      if (kMode == kTaps) {
-        ob[e] = -1;
-        if (oa[e] >= 0) {
-          const int sp = (int)((j + e) % S), y = sp / W, x = sp - y * W;
-          if (y + dy >= 0 && y + dy < H && x + dx >= 0 && x + dx < W)
-            ob[e] = col_off(j + e, NS, S, MB) + dy * W + dx;
-        }
-      } else {
-        ob[e] = col_off(j + e, NS, S, MB);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RA; ++i) {
-      const int r = ra + r0 + 32 * i;
-      xa[i] = xm[i] = make_uint2(0u, 0u);
-      if (r < MA) {
-        const long rs = (long)r * S;
-        const long o[4] = {oa[0] + rs, oa[1] + rs, oa[2] + rs, oa[3] + rs};
-        const long v[4] = {oa[0] >= 0 ? o[0] : -1, oa[1] >= 0 ? o[1] : -1,
-                           oa[2] >= 0 ? o[2] : -1, oa[3] >= 0 ? o[3] : -1};
-        xa[i] = read(p.a, v, kWide);
-        if (kMode == kReduce3) xm[i] = read(p.mask, v, kWide);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RB; ++i) {
-      const int r = rb + r0 + 32 * i;
-      xb[i] = make_uint2(0u, 0u);
-      if (r < MB) {
-        const long rs = (long)r * S;
-        const long v[4] = {ob[0] >= 0 ? ob[0] + rs : -1,
-                           ob[1] >= 0 ? ob[1] + rs : -1,
-                           ob[2] >= 0 ? ob[2] + rs : -1,
-                           ob[3] >= 0 ? ob[3] + rs : -1};
-        xb[i] = read(p.b, v, kWide && kMode != kTaps);
-      }
-    }
-  };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < RA; ++i) {
-      uint2 v = xa[i];
-      if (kMode == kReduce3) {
-        // g3 = dout where out > 0, else 0 (0 past N * S and past MA)
-        bf16 o[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const uint32_t d = e < 2 ? v.x : v.y, m = e < 2 ? xm[i].x : xm[i].y;
-          const bf16 db = (bf16)((e & 1) ? d >> 16 : d & 0xffffu);
-          const bf16 mb = (bf16)((e & 1) ? m >> 16 : m & 0xffffu);
-          o[e] = bf(mb) > 0.f ? db : (bf16)0;
-        }
-        v = make_uint2(pack(o[0], o[1]), pack(o[2], o[3]));
-        const int r = ra + r0 + 32 * i;
-        if (first && r < MA) {
-          const long rs = (long)r * S;
-          if (kWide) {
-            if (oa[0] >= 0)
-              *reinterpret_cast<uint2*>(p.g3 + oa[0] + rs) = v;
-          } else {
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              if (oa[e] >= 0) p.g3[oa[e] + rs] = o[e];
-          }
-#pragma unroll
-          for (int e = 0; e < 4; ++e) hsum[i] += bf(o[e]);
-        }
-      }
-      *reinterpret_cast<uint2*>(As + (buf * BM + r0 + 32 * i) * kP + 4 * pg) =
-          v;
-    }
-#pragma unroll
-    for (int i = 0; i < RB; ++i) {
-      uint2 v = xb[i];
-      const int r = rb + r0 + 32 * i;
-      if (kMode != kDW1 && r < MB) {
-        const float sc = __ldg(p.sc + r), sh = __ldg(p.sh + r);
-        bf16 o[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const uint32_t w = e < 2 ? v.x : v.y;
-          // h = 0 where B has no value (past N * S, off the image)
-          o[e] = ob[e] >= 0
-                     ? norm_bf((bf16)((e & 1) ? w >> 16 : w & 0xffffu), sc, sh)
-                     : (bf16)0;
-        }
-        v = make_uint2(pack(o[0], o[1]), pack(o[2], o[3]));
-      }
-      *reinterpret_cast<uint2*>(Bs + (buf * BN + r0 + 32 * i) * kP + 4 * pg) =
-          v;
-    }
-  };
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-  if (p0 < p1) load(p0);
-  for (long pc = p0; pc < p1; ++pc) {
-    const int buf = (int)((pc - p0) & 1);
-    store(buf);
-    __syncthreads();
-    if (pc + 1 < p1) load(pc + 1);
-    const bf16* a = As + (buf * BM + wm * (BM / 2)) * kP;
-    const bf16* b = Bs + (buf * BN + wn * (BN / 4)) * kP;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16)
-      warp_k16<MT, NT, false>(acc, a + kk, kP, b + kk, kP);
-  }
-
-  float* P = p.part + ((long)split * (kMode == kTaps ? 9 : 1) + tap) * MA * ld;
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int r = ra + wm * (BM / 2) + 16 * i + g + 8 * hf;
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = rb + wn * (BN / 4) + 8 * j + 2 * t + e;
-          if (r < MA && c < MB) P[(long)r * ld + c] = acc[i][j][2 * hf + e];
-        }
-    }
-  if (first) {
-    // sum g3 of each row: its 8 threads' sums in position-group order
-    float* red = reinterpret_cast<float*>(smem4);  // [BM][8]
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < RA; ++i) red[(r0 + 32 * i) * 8 + pg] = hsum[i];
-    __syncthreads();
-    if (tid < BM && ra + tid < MA) {
-      float sum = 0.f;
-      for (int q = 0; q < 8; ++q) sum += red[tid * 8 + q];
-      P[(long)(ra + tid) * ld + MB] = sum;
-    }
-  }
-}
-
-template <int BM, int BN, int kMode, bool kWide>
-int launch_bm(Args p, int taps, cudaStream_t s) {
-  p.ntc = (p.MB + BN - 1) / BN;
-  p.pieces = (int)(((long)p.N * p.S + kBK - 1) / kBK);
-  const int tiles = ((p.MA + BM - 1) / BM) * p.ntc;
-  const dim3 grid((unsigned)(tiles * taps), (unsigned)p.splits);
-  abt_bf16_kernel<BM, BN, kMode, kWide><<<grid, kThreads,
-                                          smem_bytes<BM, BN>(), s>>>(p);
-  return (int)cudaGetLastError();
-}
-
-// bwd_final's dW1 (kDW1): BM rows of A (64 where MA <= 64, else 128) by
-// 128 rows of B. (bwd_reduce3's P and bwd_mid's tap gradients run on
-// abw::, csrc/abt_bf16_tc.cuh; the kReduce3 and kTaps modes are no longer
-// launched.)
-int launch_dw1(const Args& p, int wide, cudaStream_t s) {
-  if (p.MA <= 64)
-    return wide ? launch_bm<64, 128, kDW1, true>(p, 1, s)
-                : launch_bm<64, 128, kDW1, false>(p, 1, s);
-  return wide ? launch_bm<128, 128, kDW1, true>(p, 1, s)
-              : launch_bm<128, 128, kDW1, false>(p, 1, s);
-}
-
-// The entry points' checks of a split product.
-inline bool ok(int N, int MA, int MB, int S, int splits) {
-  const long NS = (long)N * S;
-  return N > 0 && MA > 0 && MB > 0 && S > 0 && MA <= kMaxC && MB <= kMaxC &&
-         NS <= INT_MAX - kBK && splits > 0 && splits <= kMaxSplits &&
-         splits <= (NS + kBK - 1) / kBK;
-}
-
-}  // namespace ab
-
 #include "abt_bf16_tc.cuh"
+#include "conv1x1_bf16_tc.cuh"
 
 // da = bf16(fma(g, p, a * q) + r) over [N, C, S], the folded BN backward
 // as XLA contracts the Pallas kernels' g * p + a * q + r; 4 elements a
@@ -1139,8 +870,8 @@ extern "C" int fused_block_conv1x1_stats_bf16(const bf16* x, const bf16* w,
                                               int C, int S, int lda, int T,
                                               int wide, void* stream) {
   const c1::Args a{x,       nullptr, w,       nullptr, nullptr, nullptr,
-                   nullptr, nullptr, nullptr, nullptr, y,       part,
-                   N,       Cin,     Cin,     C,       S,       lda};
+                   nullptr, nullptr, nullptr, y,       part,    N,
+                   Cin,     Cin,     C,       S,       lda};
   if (!c1::ok(a, wide) ||
       (long)T != ((long)N * S + c1::kBN - 1) / c1::kBN)
     return (int)cudaErrorInvalidValue;
@@ -1197,19 +928,20 @@ extern "C" int fused_block_norm_relu_moments_bf16(
   return finish_splits(part, out, (long)C * (C + 1), splits, s);
 }
 
-// a2 [N, C, S] raw, x [N, Cout, S] the residual, w [rows, lda]: W3 [Cout,
-// C] at row pitch lda (a multiple of 32 >= C), zeros past Cout and C;
-// sc2/sh2 [C], sc3/sh3 [Cout] float32; out [N, Cout, S]; wide: S % 4 ==
-// 0.
+// a2 [N, C, S] raw, x [N, Cout, S] the residual, w [Cout, lda]: W3 at
+// row pitch lda (a multiple of 64 >= C), zeros past C; sc2/sh2 [C],
+// sc3/sh3 [Cout] float32; out [N, Cout, S]; C at most t1::kMaxK, C and
+// Cout multiples of abw::group_of(S); split p takes the 64-position
+// stages [p * Q / splits, (p + 1) * Q / splits) of the Q = N * ceil(S /
+// 64), in each row tile of Cout.
 extern "C" int fused_block_conv1x1_bn_residual_bf16(
     const bf16* a2, const bf16* x, const bf16* w, const float* sc2,
     const float* sh2, const float* sc3, const float* sh3, bf16* out, int N,
-    int C, int Cout, int S, int lda, int wide, void* stream) {
-  const c1::Args a{nullptr, a2,  w,       sc2,     sh2,     x,
-                   sc3,     sh3, nullptr, nullptr, out,     nullptr,
-                   N,       0,   C,       Cout,    S,       lda};
-  if (!c1::ok(a, wide) || !aligned16(x)) return (int)cudaErrorInvalidValue;
-  return c1::launch<c1::kResidual>(a, wide, static_cast<cudaStream_t>(stream));
+    int C, int Cout, int S, int lda, int splits, void* stream) {
+  if (!aligned16(a2) || !aligned16(x)) return (int)cudaErrorInvalidValue;
+  return t1::launch<t1::kResidual>(a2, x, w, sc2, sh2, sc3, sh3, out, N,
+                                   Cout, C, S, lda, splits,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 // dout, out [N, Cin, S], a2 [N, C, S] raw, sc2/sh2 [C] float32; g3 [N,
@@ -1242,8 +974,8 @@ extern "C" int fused_block_bwd_apply3_bf16(
     const bf16* w, const float* v0, const float* inv2, const float* m2,
     bf16* g2, float* part, float* stats, int N, int Cin, int C, int S,
     int lda, int T, int wide, void* stream) {
-  const c1::Args a{g3,  a2,   w,  sc2, sh2, a2,  v0, nullptr, inv2,
-                   m2,  g2,   part, N,   Cin, Cin + C, C, S,    lda};
+  const c1::Args a{g3, a2,   w, sc2, sh2,     a2, v0, inv2,
+                   m2, g2, part, N, Cin, Cin + C, C,  S, lda};
   if (!c1::ok(a, wide) || (long)T != ((long)N * S + c1::kBN - 1) / c1::kBN)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1282,33 +1014,33 @@ extern "C" int fused_block_bwd_mid_bf16(
   return finish_splits(wpart, dtaps, 9L * C * C, splits, s);
 }
 
-// g3, x [N, Cin, S], g1, a1 [N, C, S], p1, q1, r1 [C] float32; w [rows,
-// lda]: W1^T [Cin, C] at row pitch lda (a multiple of 32 >= C), its rows
-// whole row tiles (64 where Cin <= 64, else 128), zeros past Cin and C;
-// dx [N, Cin, S]; da1 [N, C, S] scratch; wpart [splits, C, Cin] scratch,
-// dw1 [C, Cin] float32; wide: S % 4 == 0.
+// g3, x [N, Cin, S], g1, a1 [N, C, S], p1, q1, r1 [C] float32; w [Cin,
+// lda]: W1^T at row pitch lda (a multiple of 64 >= C), zeros past C; dx
+// [N, Cin, S]; da1 [N, C, S] scratch; wpart [splits, C, Cin] scratch, dw1
+// [C, Cin] float32; C at most t1::kMaxK, Cin and C multiples of
+// abw::group_of(S). dx's tile takes tsplits splits of N * ceil(S / 64)
+// stages in each row tile of Cin, dW1 splits of them (as bwd_reduce3's).
 extern "C" int fused_block_bwd_final_bf16(
     const bf16* g3, const bf16* g1, const bf16* a1, const bf16* x,
     const float* p1, const float* q1, const float* r1, const bf16* w,
     bf16* dx, bf16* da1, float* wpart, float* dw1, int N, int Cin, int C,
-    int S, int lda, int splits, int wide, void* stream) {
-  const c1::Args a{da1,     nullptr, w,       nullptr, nullptr, g3,
-                   nullptr, nullptr, nullptr, nullptr, dx,      nullptr,
-                   N,       C,       C,       Cin,     S,       lda};
-  if (!c1::ok(a, wide) || !ab::ok(N, C, Cin, S, splits) || !aligned16(g3) ||
-      !aligned16(g1) || !aligned16(a1) || !aligned16(x))
+    int S, int lda, int splits, int tsplits, void* stream) {
+  if (!abw::ok(N, Cin, C, S, splits) || !aligned16(g3) || !aligned16(g1) ||
+      !aligned16(a1) || !aligned16(x) || !aligned16(da1))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int e = fold(g1, a1, p1, q1, r1, da1, N, C, S, s);
   if (e != 0) return e;
-  e = c1::launch<c1::kDx>(a, wide, s);
+  e = t1::launch<t1::kDx>(da1, g3, w, nullptr, nullptr, nullptr, nullptr, dx,
+                          N, Cin, C, S, lda, tsplits, s);
   if (e != 0) return e;
-  const ab::Args p{da1, nullptr, x, nullptr, nullptr, nullptr, wpart, N, C,
-                   Cin, S, 1, 0, splits, 0};
-  e = ab::launch_dw1(p, wide, s);
+  e = abw::launch_dw1(x, da1, wpart, N, Cin, C, S, splits, s);
   if (e != 0) return e;
   return finish_splits(wpart, dw1, (long)C * Cin, splits, s);
 }
 
-// The widest C the bf16 kernels take: the chain's gate in bf16.
+// The widest C the bf16 kernels take.
 extern "C" int fused_block_bf16_max_c() { return kMaxC; }
+
+// The widest K (C) the bf16 1x1 tile holds: the chain's gate in bf16.
+extern "C" int fused_block_bf16_conv1x1_max_k() { return t1::kMaxK; }

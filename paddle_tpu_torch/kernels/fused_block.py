@@ -573,13 +573,19 @@ def _res_grid(n: int, s: int, cout: int, sms: int) -> Tuple[int, int]:
 
 def conv1x1_max_c(dtype: torch.dtype = torch.float32) -> int:
     """The most channels C that the chain's kernels of `dtype` take on the
-    card: in float32, conv1x1_bn_residual's and bwd_final's, their K = C
-    tile and W ring in one block's shared memory (csrc/conv1x1_tc.cuh); in
-    bfloat16, the forward kernels' cap (csrc/fused_block_bf16.cu). The
-    chain's gate."""
+    card: conv1x1_bn_residual's and bwd_final's, their K = C tile and W in
+    one block's shared memory (float32: csrc/conv1x1_tc.cuh, 704; bfloat16:
+    csrc/conv1x1_bf16_tc.cuh, 256). The chain's gate."""
     if dtype == torch.bfloat16:
-        return _bf_max_c()
+        return _bf_fn("fused_block_bf16_conv1x1_max_k", ())()
     return _fn("fused_block_conv1x1_max_c", ())()
+
+
+def chain_max_w(dtype: torch.dtype = torch.float32):
+    """The widest row W that the chain's kernels of `dtype` take on the
+    card: in bfloat16, bwd_mid_bf16's tap gradients (abw::kTapMaxW, 191);
+    None in float32 (no limit). The chain's gate, beside conv1x1_max_c."""
+    return _BF_TAP_MAX_W if dtype == torch.bfloat16 else None
 
 
 def conv1x1_bn_residual(x: torch.Tensor, residual: torch.Tensor,
@@ -781,13 +787,6 @@ def _bf_moments_splits(n: int, s: int, c: int, sms: int) -> int:
     return _bf_splits(nt * (nt + 1) // 2, n, s, sms)
 
 
-def _bf_abt_blocks(ma: int, mb: int) -> int:
-    """The blocks of a split of bwd_final's dW1 (csrc/fused_block_bf16.cu,
-    ab::launch_dw1): A's ma rows in tiles of 64 where ma <= 64, else 128,
-    by B's mb rows in tiles of 128."""
-    return -(-ma // (64 if ma <= 64 else 128)) * -(-mb // 128)
-
-
 _BF_POS = 64            # positions of a stage of the wgmma products
 _BF_ABW_SPLITS = 1024   # their most splits (abw::kMaxSplits)
 _BF_TAP_MAX_W = 191     # bwd_mid's widest row (abw::kTapMaxW)
@@ -808,12 +807,46 @@ def _bf_stages(n: int, s: int) -> int:
 def _bf_abw_tiles(kind: str, ma: int, mb: int) -> int:
     """The blocks of a split of a wgmma product over N·S
     (csrc/abt_bf16_tc.cuh): bwd_reduce3 ("reduce3") 128 rows of Cin (ma)
-    by 64, 128 or 256 of C (mb: all of it up to 256); the tap gradients
-    ("taps") 64 x 64 tiles of (C, C), all nine taps a block."""
+    by 64, 128 or 256 of C (mb: all of it up to 256); bwd_final's dW1
+    ("dw1", ma = C, mb = Cin) the same kernel's tiles of x's Cin rows by
+    da1's C rows; the tap gradients ("taps") 64 x 64 tiles of (C, C), all
+    nine taps a block."""
+    if kind == "dw1":
+        ma, mb, kind = mb, ma, "reduce3"
     if kind == "reduce3":
         bn = 64 if mb <= 64 else 128 if mb <= 128 else 256
         return -(-ma // 128) * -(-mb // bn)
     return -(-ma // 64) * -(-mb // 64)
+
+
+def _bf_tile_rows(m: int, k: int) -> int:
+    """Rows of M a block of the bf16 1x1 tile (csrc/conv1x1_bf16_tc.cuh,
+    t1::rows_of): 256 where K fits beside them (K <= 128), else 128."""
+    return 128 if m <= 128 or k > 128 else 256
+
+
+def _bf_tile_splits(m: int, k: int, n: int, s: int, sms: int) -> int:
+    """The splits of N·S's 64-position stages of the 1x1 tile over M rows
+    and K channels: its row tiles side by side, one wave of blocks."""
+    return _bf_abw_splits(-(-m // _bf_tile_rows(m, k)), n, s, sms)
+
+
+def _bf_tile_weight(w: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """(w [M, K] as the 1x1 tile reads it: [M, lda] with lda = K in whole
+    64-column boxes, zero-padded where K is not; lda)."""
+    k = w.shape[1]
+    lda = -(-k // 64) * 64
+    if lda != k:
+        w = F.pad(w, (0, lda - k))
+    return w.contiguous(), lda
+
+
+def _bf_tile_k(k: int) -> None:
+    """Refuse a K past what the bf16 1x1 tile holds, before any launch."""
+    cap = conv1x1_max_c(torch.bfloat16)
+    if k > cap:
+        raise ValueError(f"C = {k}: the bfloat16 1x1 tile takes at most "
+                         f"{cap}")
 
 
 def _bf_abw_splits(tiles: int, n: int, s: int, sms: int) -> int:
@@ -879,9 +912,12 @@ def conv1x1_bn_residual_bf16(x: torch.Tensor, residual: torch.Tensor,
     block output [N, Cout, S] bf16.
 
     CPU tensors run ``conv1x1_bn_residual_reference``. CUDA tensors run
-    the kernel: bf16, contiguous, 16-byte aligned, C and Cout at most the
-    kernels' cap; h2 rounded to bf16 as it lands, a3 float32 through bn3's
-    affine and the residual add, the output rounded once."""
+    the 1x1 tile on wgmma (csrc/conv1x1_bf16_tc.cuh): bf16, contiguous,
+    16-byte aligned, C at most ``conv1x1_max_c(torch.bfloat16)``, Cout at
+    most the kernels' cap, both multiples of ``_bf_groups(S)``; h2 rounded
+    to bf16 once a stage, a3 float32 through bn3's affine and the residual
+    add, the output rounded once; the stages of N·S split by
+    ``_bf_tile_splits``."""
     if not build.on_card("conv1x1_bn_residual_bf16", x):
         return conv1x1_bn_residual_reference(x, residual, scale2, shift2, w,
                                              scale3, shift3)
@@ -896,7 +932,11 @@ def conv1x1_bn_residual_bf16(x: torch.Tensor, residual: torch.Tensor,
     _vectors(dev, c, scale2=scale2, shift2=shift2)
     _vectors(dev, cout, scale3=scale3, shift3=shift3)
     _bf_widths(C=c, Cout=cout)
-    wp, lda = _bf_weight(w)
+    _bf_tile_k(c)
+    _bf_group_widths(s, C=c, Cout=cout)
+    _bf_ns(n, s)
+    splits = _bf_tile_splits(cout, c, n, s, build.sm_count(dev))
+    wp, lda = _bf_tile_weight(w)
     out = _bf_empty(dev, n, cout, s)
     with build.device_guard(dev):
         build.launch("conv1x1_bn_residual_bf16",
@@ -905,7 +945,7 @@ def conv1x1_bn_residual_bf16(x: torch.Tensor, residual: torch.Tensor,
                      x.data_ptr(), residual.data_ptr(), wp.data_ptr(),
                      scale2.data_ptr(), shift2.data_ptr(), scale3.data_ptr(),
                      shift3.data_ptr(), out.data_ptr(), n, c, cout, s, lda,
-                     int(s % 4 == 0), build.stream(dev))
+                     splits, build.stream(dev))
     conv1x1_bn_residual_bf16.launches += 1
     return out
 
@@ -1069,9 +1109,13 @@ def bwd_final_bf16(g3, g1, a1, x, p1, q1, r1, w1):
     [C, Cin] float32).
 
     CPU tensors run ``bwd_final_reference``. CUDA tensors run the kernels
-    (da1 rounded once into a scratch; dx = W1ᵀ·da1 + g3 rounded once; dW1
-    split across blocks by ``_bf_splits``): bf16, contiguous, 16-byte
-    aligned, Cin and C at most the kernels' cap; deterministic sums."""
+    (da1 rounded once into a scratch; dx = W1ᵀ·da1 + g3 rounded once on
+    the 1x1 tile, csrc/conv1x1_bf16_tc.cuh, split by ``_bf_tile_splits``;
+    dW1 = Σ da1·xᵀ on the wgmma split product, csrc/abt_bf16_tc.cuh, split
+    by ``_bf_abw_splits`` and added in a fixed order): bf16, contiguous,
+    16-byte aligned, C at most ``conv1x1_max_c(torch.bfloat16)``, Cin at
+    most the kernels' cap, both multiples of ``_bf_groups(S)``;
+    deterministic sums."""
     if not build.on_card("bwd_final_bf16", g3):
         return bwd_final_reference(g3, g1, a1, x, p1, q1, r1, w1)
     _dims("g3", g3, 3)
@@ -1086,9 +1130,12 @@ def bwd_final_bf16(g3, g1, a1, x, p1, q1, r1, w1):
     _bf_check("w1", w1, dev, (c, cin))
     _vectors(dev, c, p1=p1, q1=q1, r1=r1)
     _bf_widths(Cin=cin, C=c)
+    _bf_tile_k(c)
+    _bf_group_widths(s, Cin=cin, C=c)
     _bf_ns(n, s)
-    splits = _bf_splits(_bf_abt_blocks(c, cin), n, s, build.sm_count(dev))
-    w1t, lda = _bf_weight(w1.t().contiguous())
+    sms = build.sm_count(dev)
+    splits = _bf_abw_splits(_bf_abw_tiles("dw1", c, cin), n, s, sms)
+    w1t, lda = _bf_tile_weight(w1.t())
     dx, da1 = _bf_empty(dev, n, cin, s), _bf_empty(dev, n, c, s)
     wpart, dw1 = _empty(dev, splits, c, cin), _empty(dev, c, cin)
     with build.device_guard(dev):
@@ -1099,8 +1146,8 @@ def bwd_final_bf16(g3, g1, a1, x, p1, q1, r1, w1):
                      x.data_ptr(), p1.data_ptr(), q1.data_ptr(),
                      r1.data_ptr(), w1t.data_ptr(), dx.data_ptr(),
                      da1.data_ptr(), wpart.data_ptr(), dw1.data_ptr(), n,
-                     cin, c, s, lda, splits, int(s % 4 == 0),
-                     build.stream(dev))
+                     cin, c, s, lda, splits,
+                     _bf_tile_splits(cin, c, n, s, sms), build.stream(dev))
     bwd_final_bf16.launches += 1
     return dx, dw1
 

@@ -15,9 +15,11 @@ default it runs the composition of the individual ops, as the JAX
 package does. With ``PT_FUSED_BLOCK=always`` on the card, the blocks
 the JAX package's gate takes (H == W, N >= 8, S >= CHAIN_MIN_S (196),
 Cin % 128 == 0, C % 64 == 0), up to the C that the card's 1x1 kernels
-take (``conv1x1_max_c``, 704), run the bottleneck chain of
-kernels/fused_block.py (``_chain_block``), forward and backward through
-its kernels; the others compose.
+take (``conv1x1_max_c``: 704 in float32, 256 in bfloat16) and, in
+bfloat16, the row W that bwd_mid_bf16 takes (``chain_max_w``, 191), run
+the bottleneck chain of kernels/fused_block.py (``_chain_block``),
+forward and backward through its kernels; the others compose, forward
+and backward.
 
 Both ops take a bfloat16 input with float32 filters (a bf16 program, or
 a float32 one under AMP): the filters follow x's float dtype, as the JAX
@@ -40,7 +42,8 @@ from ..kernels import fused_conv as _fc
 from .math_ops import harmonize
 from .nn_ops import _bn_train, _conv2d_infer, conv2d
 
-__all__ = ["chain_requested", "fused_block_enabled", "compose_block"]
+__all__ = ["chain_requested", "fused_block_enabled", "chain_takes",
+           "compose_block"]
 
 
 def chain_requested() -> bool:
@@ -100,16 +103,28 @@ def _chain_block(x, w1, w2, w3, bn_params, eps, momentum):
 CHAIN_MIN_S = 196
 
 
-def _chain_takes(x, w1) -> bool:
+def chain_takes(shape, c: int, dtype: torch.dtype, device_type: str) -> bool:
     """The JAX package's shape gate of the chain
-    (paddle_tpu/ops/fused_ops.py:212-214), on top of fused_block_enabled;
-    on the card, C within what its kernels of x's dtype take (the plain
-    versions take any)."""
-    n, cin, hh, ww = x.shape
-    c = w1.shape[0]
-    return (fused_block_enabled(x.device) and hh == ww and n >= 8
-            and hh * ww >= CHAIN_MIN_S and cin % 128 == 0 and c % 64 == 0
-            and (x.device.type == "cpu" or c <= _fb.conv1x1_max_c(x.dtype)))
+    (paddle_tpu/ops/fused_ops.py:212-214) for a block input of `shape` [N,
+    Cin, H, W] and C = `c`; on the card, also C and the row W within what
+    the chain's kernels of `dtype` take (``conv1x1_max_c``,
+    ``chain_max_w``; the plain versions on the CPU take any). The op asks
+    once a call, so a block runs the chain both ways or composes both
+    ways."""
+    n, cin, hh, ww = shape
+    if not (hh == ww and n >= 8 and hh * ww >= CHAIN_MIN_S
+            and cin % 128 == 0 and c % 64 == 0):
+        return False
+    if device_type == "cpu":
+        return True
+    w_cap = _fb.chain_max_w(dtype)
+    return (w_cap is None or ww <= w_cap) and c <= _fb.conv1x1_max_c(dtype)
+
+
+def _chain_takes(x, w1) -> bool:
+    """chain_takes on top of fused_block_enabled."""
+    return fused_block_enabled(x.device) and chain_takes(
+        tuple(x.shape), w1.shape[0], x.dtype, x.device.type)
 
 
 def _folded(w, scale, bias, mean, var, eps):

@@ -15,7 +15,14 @@ exchange of the warp's row addresses, each lane taking PTX's fragment of
 each 8 x 8 matrix; a row address off 16 bytes, or outside the block's
 shared memory, is counted, and so is an ``__ldg`` off its type's size.
 ``csrc/fused_block.cuh`` (the fixed-order passes) is rewritten the same
-way. Built with ``g++ -std=c++20`` into ``paddle_tpu_torch/_build/``.
+way. ``csrc/sm90.cuh``'s block of PTX becomes C++ models on the fibers
+(the wgmma kernels of ``csrc/abt_bf16_tc.cuh`` and
+``csrc/conv1x1_bf16_tc.cuh``): TMA box loads writing the 128-byte swizzle
+(a box whose innermost coordinate is off 16 bytes refused), TMA stores
+reading it back at the wait that retires their group (or, in a second
+build, both landing at once: the same bits), mbarriers, named barriers
+and wgmma read through its descriptors; a store never waited for is
+counted. Built with ``g++ -std=c++20`` into ``paddle_tpu_torch/_build/``.
 
 The wrappers themselves (``fused_block.conv1x1_stats_bf16``,
 ``conv3x3_norm_stats_bf16``, ``norm_relu_moments_bf16``,
@@ -42,7 +49,8 @@ whether a second call gives the same bits; and the counts of misaligned
 or stray accesses. Exits 1 if any check misses.
 
     python scripts/emulate_fused_block_bf16_cpu.py 2,32,16,8 2,128,64,14 \\
-        1,256,64,16 3,128,128,7 2,64,128,6,10 8,128,64,5 2,48,80,9
+        1,256,64,16 3,128,128,7 2,64,128,6,10 8,128,64,5 2,48,80,9 \\
+        1,64,64,3,130 1,512,256,14 2,384,128,8 1,256,80,7
 """
 
 import argparse
@@ -66,7 +74,8 @@ from paddle_tpu_torch.kernels import build  # noqa: E402
 from paddle_tpu_torch.kernels import fused_block as fb  # noqa: E402
 
 SOURCE = "fused_block_bf16.cu"
-HEADERS = ("fused_block.cuh", "sm90.cuh", "abt_bf16_tc.cuh")
+HEADERS = ("fused_block.cuh", "sm90.cuh", "abt_bf16_tc.cuh",
+           "conv1x1_bf16_tc.cuh")
 BF16_REL = 2.0 ** -7
 STATS_RTOL = 1e-5
 DASHES = "// " + "-" * 77
@@ -279,11 +288,72 @@ inline void bar_wait(uint32_t bar, uint32_t parity) {
   while (!bar_try_wait(bar, parity)) {
   }
 }
-inline void tma_store_4d(const CUtensorMap*, uint32_t, int, int, int, int) {
-  emu_fail("no TMA store is modelled");
+// TMA stores: a thread's stores since its last commit are a group; a
+// group reads its box from shared memory (through the swizzle) and writes
+// it to its coordinates, those past a dimension's end not written, at the
+// wait that retires it, or at once with EMU_EAGER: a tile changed after
+// the store, or not yet written when it is issued, gives other bits in one
+// of the two builds
+struct EmuStore {
+  CUtensorMap map;
+  uint32_t src;
+  int c[4];
+};
+struct EmuStores {
+  std::vector<EmuStore> open;
+  std::deque<std::vector<EmuStore>> groups;
+};
+inline std::map<std::pair<const void*, int>, EmuStores> emu_stores;
+inline EmuStores& emu_my_stores() {
+  return emu_stores[{emu_cur->blk, (int)threadIdx.x}];
 }
-inline void bulk_commit() {}
-inline void bulk_wait_read() {}
+inline void emu_store_copy(const EmuStore& op) {
+  const uint32_t* box = op.map.box;
+  uint32_t off = 0;
+  for (uint32_t i3 = 0; i3 < box[3]; ++i3)
+    for (uint32_t i2 = 0; i2 < box[2]; ++i2)
+      for (uint32_t i1 = 0; i1 < box[1]; ++i1)
+        for (uint32_t i0 = 0; i0 < box[0]; ++i0, off += 2) {
+          const int64_t x[4] = {op.c[0] + (int64_t)i0, op.c[1] + (int64_t)i1,
+                                op.c[2] + (int64_t)i2, op.c[3] + (int64_t)i3};
+          bool in = true;
+          int64_t dst = 0;
+          for (int d = 0; d < 4; ++d) {
+            in = in && x[d] >= 0 && x[d] < (int64_t)op.map.dims[d];
+            dst += x[d] * (int64_t)op.map.strides[d];
+          }
+          const uint32_t a = op.src + off;
+          if (in)
+            std::memcpy(const_cast<char*>(op.map.base) + dst,
+                        emu_window() + (op.map.swizzle ? emu_swizzle(a) : a),
+                        2);
+        }
+}
+inline void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0,
+                         int c1, int c2, int c3) {
+  if (src % (map->swizzle ? 1024 : 128))
+    emu_fail("a TMA store not on 1024 bytes (swizzled) or 128 (dense)");
+  if (((c0 % 8) + 8) % 8)
+    emu_fail("a TMA store's innermost coordinate off 16 bytes");
+  EmuStore op{*map, src, {c0, c1, c2, c3}};
+#ifdef EMU_EAGER
+  emu_store_copy(op);
+  op.map.box[0] = 0;  // done: its wait copies nothing
+#endif
+  emu_my_stores().open.push_back(op);
+}
+inline void bulk_commit() {
+  EmuStores& s = emu_my_stores();
+  s.groups.push_back(std::move(s.open));
+  s.open.clear();
+}
+inline void bulk_wait_read() {
+  EmuStores& s = emu_my_stores();
+  if (!s.open.empty()) emu_fail("a TMA store waited for before its commit");
+  for (const auto& group : s.groups)
+    for (const EmuStore& op : group) emu_store_copy(op);
+  s.groups.clear();
+}
 
 template <int N>
 inline void regs_dec() {}
@@ -444,6 +514,14 @@ extern "C" int emu_take_outside() {
   emu_outside = 0;
   return n;
 }
+// TMA stores never waited for (their tile's shared memory may be gone)
+extern "C" int emu_take_unwaited() {
+  int n = 0;
+  for (const auto& kv : sm90::emu_stores)
+    n += (int)(kv.second.open.size() + kv.second.groups.size());
+  sm90::emu_stores.clear();
+  return n;
+}
 """
 
 
@@ -560,7 +638,8 @@ def bwd_case(lib, sms, d, h, seed, eager=None):
             got = fn(*args[name])
             again = fn(*args[name])
         same.append(all(torch.equal(a, b) for a, b in zip(got, again)))
-        if eager is not None and name in ("bwd_reduce3", "bwd_mid"):
+        if eager is not None and name in ("bwd_reduce3", "bwd_mid",
+                                          "bwd_final"):
             with lstm_emu.emulated(eager, sms):
                 landed = fn(*args[name])
             same.append(all(torch.equal(a, b) for a, b in zip(got, landed)))
@@ -624,6 +703,10 @@ def case(lib, sms, n, cin, c, h, w, seed, eager=None):
                                   d["bet"][2])
     args = (ry2, x, sc2, sh2, w3, sc3, sh3)
     y4, same4 = run(fb.conv1x1_bn_residual_bf16, *args)
+    if eager is not None:
+        with lstm_emu.emulated(eager, sms):
+            same4 = same4 and torch.equal(
+                y4, fb.conv1x1_bn_residual_bf16(*args))
     share, differ = y_share(y4, fb.conv1x1_bn_residual_reference(*args))
     out.append(f"conv1x1_bn_residual out {share:.4f} (differ {differ:.5f})")
     ok = ok and share <= 1 and bool(torch.isfinite(y4.float()).all())
@@ -634,12 +717,14 @@ def case(lib, sms, n, cin, c, h, w, seed, eager=None):
     same += bsame
     misaligned = sum(x.emu_take_misaligned() for x in (lib, eager) if x)
     outside = sum(x.emu_take_outside() for x in (lib, eager) if x)
+    unwaited = sum(x.emu_take_unwaited() for x in (lib, eager) if x)
     print(f"N {n}, Cin {cin}, C {c}, {h}x{w}: " + "; ".join(out)
-          + f"; a second call (and the wgmma products with TMA landing at "
-          f"once) the same bits {same}; misaligned accesses "
-          f"{misaligned}; ldmatrix rows outside shared memory {outside}",
-          flush=True)
-    return ok and all(same) and not misaligned and not outside
+          + f"; a second call (and the wgmma kernels with TMA landing and "
+          f"storing at once) the same bits {same}; misaligned accesses "
+          f"{misaligned}; ldmatrix rows outside shared memory {outside}; "
+          f"TMA stores not waited for {unwaited}", flush=True)
+    return (ok and all(same) and not misaligned and not outside
+            and not unwaited)
 
 
 def main() -> int:

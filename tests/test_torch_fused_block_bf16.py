@@ -437,6 +437,22 @@ def _k16(w, x):
     return acc
 
 
+def _tile1x1_order(w, x):
+    """Σ_k w[m, k] x[n, k, s] as the bf16 1x1 tile
+    (csrc/conv1x1_bf16_tc.cuh) sums it: K in 64-channel tiles, a tile's
+    channels in its grouped tensor map's row order (channel g·i + j at row
+    j·64/g + i, g = 8 / gcd(S, 8)), the tile's four k16 blocks in that
+    order, each block's products exactly (float64, then float32) added to
+    one float32 accumulator (_k16); channels past K zero."""
+    k, s = w.shape[1], x.shape[2]
+    g, kp = tfb._bf_groups(s), -(-k // 64) * 64
+    per = 64 // g
+    order = [64 * t + (r % per) * g + r // per for t in range(kp // 64)
+             for r in range(64)]
+    return _k16(F.pad(w.float(), (0, kp - k))[:, order],
+                F.pad(x.float(), (0, 0, 0, kp - k))[:, order])
+
+
 def _emulated_conv3x3(x, taps, scale, shift, h_side):
     """The 3x3 kernel's order: 16-channel stages, the nine taps of a stage
     in order, each a k16 block into one float32 accumulator."""
@@ -510,7 +526,11 @@ def test_emulated_kernel_order_stays_within_phase3_limits(stage):
     (the splits _bf_abw_splits gives on 132 SMs): bwd_reduce3's P and Σg3
     within STATS_RTOL of their terms of the plain version's, bwd_mid's
     nine tap gradients within STATS_RTOL of their terms of the float64
-    product (phase 3's limits)."""
+    product, bwd_final's dW1 (Σ x·da1ᵀ on the same kernel) within
+    STATS_RTOL of its terms (phase 3's limits); the 1x1 tile's order of
+    k16 blocks (_tile1x1_order, its grouped channels at S 196) for
+    conv1x1_bn_residual's out and bwd_final's dx, each within the bf16
+    limit with at most FLIP_SHARE of its elements apart."""
     n, cin, c, h = stage
     gen = torch.Generator().manual_seed(9)
     x = torch.rand(n, cin, h * h, generator=gen).to(BF)
@@ -543,7 +563,7 @@ def test_emulated_kernel_order_stays_within_phase3_limits(stage):
     m2 = _k16(hh, hh.T.unsqueeze(0))[0]
     assert bool(((m2 - rm2h).abs() <= STATS_RTOL * rm2h).all())
     _, _, sc3, sh3 = tfb._bn3_fold(w3, rsum_h, rm2h, m, gam[2], bet[2])
-    a3 = _k16(w3, tfb._norm_relu(ry2, sc2, sh2))
+    a3 = _tile1x1_order(w3, tfb._norm_relu(ry2, sc2, sh2))
     out = torch.clamp_min(torch.addcmul(sh3.reshape(1, -1, 1), a3,
                                         sc3.reshape(1, -1, 1))
                           + x.float(), 0.0).to(BF)
@@ -574,6 +594,17 @@ def test_emulated_kernel_order_stays_within_phase3_limits(stage):
         terms = torch.einsum("ncs,nks->ck", da2.abs(), hs.abs())
         got = _abw_order(da2, hs, splits).double()
         assert bool(((got - want).abs() <= STATS_RTOL * terms).all()), tap
+    g3, g1, a1, xb, p1, q1, r1, w1 = args["bwd_final"]
+    rdx, rdw = tfb.bwd_final_reference(*args["bwd_final"])
+    da1 = tfb._unfold(g1, a1, p1, q1, r1).to(BF).float()
+    dx = (_tile1x1_order(w1.T, da1) + g3.float()).to(BF)
+    _hold_bf16(dx, rdx, "dx")
+    assert _flips(dx, rdx, one_step=False) <= FLIP_SHARE
+    splits = tfb._bf_abw_splits(tfb._bf_abw_tiles("dw1", c, cin), n, h * h,
+                                132)
+    _hold_sum(_abw_order(xb.float(), da1, splits).T, rdw,
+              torch.einsum("ncs,nks->ck", da1.abs(), xb.float()),
+              what="dW1")
 
 
 # ---------------------------------------------------------------------------
@@ -867,22 +898,22 @@ def test_bf16_bwd_mid_refuses_c_not_a_multiple_of_16(monkeypatch):
     ("taps", 256, 256, 16),
     ("taps", 80, 80, 4),          # C 80: rows past C in the last tiles
     ("taps", 16, 16, 1),
-    ("dw1", 64, 256, 2),
+    ("dw1", 64, 256, 2),          # dW1 (ma = C, mb = Cin) at the stages
     ("dw1", 128, 512, 4),
-    ("dw1", 256, 1024, 16),
+    ("dw1", 256, 1024, 8),
     ("dw1", 16, 48, 1),
 ])
 def test_bf16_abt_blocks_tile_a_and_b(kind, ma, mb, blocks):
     """The blocks of a split of the bf16 backward's products over N·S:
     A's rows by B's rows in the tiles the kernels take (bwd_reduce3 on
-    wgmma: 128 rows of Cin by 64, 128 or 256 of C; the taps on wgmma: 64
-    x 64, all nine taps a block; dW1: 64 or 128 rows of C by 128 of
-    Cin), each row of A and B in exactly one tile."""
+    wgmma: 128 rows of Cin by 64, 128 or 256 of C; dW1 the same kernel's
+    tiles of Cin by C; the taps on wgmma: 64 x 64, all nine taps a
+    block), each row of A and B in exactly one tile."""
+    got = tfb._bf_abw_tiles(kind, ma, mb)
     if kind == "dw1":
-        got = tfb._bf_abt_blocks(ma, mb)
-        bm, bn = (64 if ma <= 64 else 128), 128
+        bm = 64 if ma <= 64 else 128 if ma <= 128 else 256
+        bn = 128
     else:
-        got = tfb._bf_abw_tiles(kind, ma, mb)
         bm = 128 if kind == "reduce3" else 64
         bn = 64 if kind == "taps" or mb <= 64 else 128 if mb <= 128 else 256
     assert got == blocks
@@ -902,37 +933,86 @@ def test_bf16_abt_blocks_tile_a_and_b(kind, ma, mb, blocks):
     ("abw", 1, 1, 20, 1),          # N·S 20: one stage
     ("abw", 1, 3, 49, 3),          # three images of one stage each
     ("abw", 200, 2, 3136, 1),      # more tiles than SMs: one split
-    ("dw1", 2, 128, 3136, 128),    # dW1 (32-position pieces): capped
-    ("dw1", 4, 128, 784, 66),
-    ("dw1", 16, 128, 196, 17),
-    ("dw1", 2, 1, 20, 1),          # N·S 20: one piece
-    ("dw1", 1, 3, 49, 5),          # 147 positions: 5 pieces
+    ("dw1", (64, 256), 128, 3136, 66),    # dW1 on abw:: at the stages
+    ("dw1", (128, 512), 128, 784, 33),
+    ("dw1", (256, 1024), 128, 196, 16),
+    ("dw1", (16, 32), 1, 20, 1),          # N·S 20: one stage
+    ("dw1", (64, 128), 3, 49, 3),         # three images of one stage
 ])
 def test_bf16_splits_cover_n_s(kind, blocks, n, s, splits):
     """The splits of a bf16 product over N·S on 132 SMs. The wgmma
-    products ("abw": one block an SM): one wave that fills the SMs, at
-    most one a 64-position stage of an image and at most 1024. dW1's:
-    enough that splits x blocks fill two blocks an SM, at most one a
-    32-position piece and at most 128. The entry points' rule (split p
-    takes [p·P // splits, (p + 1)·P // splits) of the P pieces) then
-    covers every piece once, each split non-empty."""
-    if kind == "abw":
-        got = tfb._bf_abw_splits(blocks, n, s, 132)
-        pieces = tfb._bf_stages(n, s)
-        assert pieces == n * -(-s // 64)
-        assert 1 <= got <= min(1024, pieces)
-        assert got * blocks <= 132 or got == 1
-        assert got == pieces or (got + 1) * blocks > 132
-    else:
-        got = tfb._bf_splits(blocks, n, s, 132)
-        pieces = -(-n * s // 32)
-        assert 1 <= got <= min(128, pieces)
-        assert got * blocks >= 264 or got in (128, pieces)
+    products ("abw": one block an SM; "dw1": bwd_final's dW1, its blocks
+    the tiles of (C, Cin)): one wave that fills the SMs, at most one a
+    64-position stage of an image and at most 1024. The entry points'
+    rule (split p takes [p·P // splits, (p + 1)·P // splits) of the P
+    stages) then covers every stage once, each split non-empty."""
+    if kind == "dw1":
+        blocks = tfb._bf_abw_tiles("dw1", *blocks)
+    got = tfb._bf_abw_splits(blocks, n, s, 132)
+    pieces = tfb._bf_stages(n, s)
+    assert pieces == n * -(-s // 64)
+    assert 1 <= got <= min(1024, pieces)
+    assert got * blocks <= 132 or got == 1
+    assert got == pieces or (got + 1) * blocks > 132
     assert got == splits
     runs = [(p * pieces // got, (p + 1) * pieces // got) for p in range(got)]
     assert all(a < b for a, b in runs)
     assert runs[0][0] == 0 and runs[-1][1] == pieces
     assert all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
+
+
+@pytest.mark.parametrize("m,k,n,s,rows,splits,lda", [
+    (256, 64, 128, 3136, 256, 132, 64),    # rows 16b and 13b's dx at 56²,
+    (512, 128, 128, 784, 256, 66, 128),    # 28² and 14²: all of Cout at
+    (1024, 256, 128, 196, 128, 16, 256),   # 56², row tiles side by side
+    (80, 80, 2, 81, 128, 4, 128),          # K 80: W padded to 128
+    (384, 128, 2, 64, 256, 2, 128),        # M past 256
+    (64, 16, 1, 20, 128, 1, 64),           # one stage; K 16 padded
+])
+def test_bf16_1x1_tile_grid(m, k, n, s, rows, splits, lda):
+    """The bf16 1x1 tile's grid (csrc/conv1x1_bf16_tc.cuh): 256 rows of M
+    a block where K <= 128 (so that at 56² one block holds all of Cout),
+    else 128; its row tiles times one wave of splits of N·S's 64-position
+    stages (as the wgmma products'); W padded with zero columns to whole
+    64-column boxes."""
+    assert tfb._bf_tile_rows(m, k) == rows
+    tiles = -(-m // rows)
+    assert tfb._bf_tile_splits(m, k, n, s, 132) == splits == \
+        tfb._bf_abw_splits(tiles, n, s, 132)
+    w = torch.arange(m * k, dtype=torch.float32).reshape(m, k).to(BF)
+    wp, got = tfb._bf_tile_weight(w)
+    assert got == lda and wp.shape == (m, lda) and wp.is_contiguous()
+    assert torch.equal(wp[:, :k], w) and not bool(wp[:, k:].any())
+
+
+@pytest.mark.parametrize("dtype,device,w,takes", [
+    (BF, "cuda", 192, False),          # past bwd_mid_bf16's rows: composes
+    (BF, "cuda", 191, True),
+    (torch.float32, "cuda", 192, True),  # the float32 kernels take any W
+    (BF, "cpu", 192, True),            # the CPU: the plain versions, as
+    (torch.float32, "cpu", 192, True),  # before
+])
+def test_chain_gate_composes_bf16_rows_past_bwd_mid(monkeypatch, dtype,
+                                                    device, w, takes):
+    """The chain's gate from a shape, a dtype and a device type
+    (fused_ops.chain_takes): on the card a bf16 block whose row is wider
+    than bwd_mid_bf16 takes (chain_max_w, 191) composes, as one whose C
+    is past the 1x1 kernels' does; a bf16 block at W 191 and a float32
+    one at W 192 take the chain; the CPU takes all of them. The op asks
+    once a call, so forward and backward agree. (The kernels' C caps are
+    stubbed: there is no library here; they are asked only on the card,
+    past the row check.)"""
+    asked = []
+    monkeypatch.setattr(tfb, "conv1x1_max_c", lambda dt: asked.append(dt)
+                        or (256 if dt == BF else 704))
+    assert tfb.chain_max_w(BF) == 191 and tfb.chain_max_w() is None
+    assert tfo.chain_takes((8, 256, w, w), 64, dtype, device) is takes
+    assert asked == ([dtype] if device == "cuda" and takes else [])
+    assert not tfo.chain_takes((8, 256, w, w), 320, BF, "cuda")
+    if device == "cpu":
+        monkeypatch.setattr(tfo, "fused_block_enabled", lambda d: True)
+        assert tfo._chain_takes(torch.zeros(8, 256, w, w, dtype=dtype),
+                                torch.zeros(64, 256, 1, 1))
 
 
 @pytest.mark.parametrize("n,s", [(128, 3136), (128, 784), (128, 196),

@@ -2355,11 +2355,20 @@ def test_chain_bf16_kernels_refuse_what_they_do_not_take(cuda):
         fb.conv3x3_norm_stats_bf16(d["a"][:, :8].contiguous(),
                                    d["taps"][:, :, :8].contiguous(),
                                    d["sc"][:8], d["sh"][:8], 8)
-    cap = fb.conv1x1_max_c(torch.bfloat16)
+    cap = fb._bf_max_c()
     assert cap == 4096
     wide = torch.zeros(cap + 64, 32, dtype=torch.bfloat16, device="cuda")
     with pytest.raises(ValueError, match="at most"):
         fb.conv1x1_stats_bf16(d["x"], wide)
+    # the 1x1 tile's K (conv1x1_bn_residual's C), the chain's gate in bf16
+    k_cap = fb.conv1x1_max_c(torch.bfloat16)
+    assert k_cap == 256
+    wa = torch.zeros(2, k_cap + 64, 64, dtype=torch.bfloat16, device="cuda")
+    wv = torch.zeros(k_cap + 64, device="cuda")
+    w3 = torch.zeros(32, k_cap + 64, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="at most"):
+        fb.conv1x1_bn_residual_bf16(wa, d["x"], wv, wv, w3, d["sc3"],
+                                    d["sh3"])
     assert [getattr(fb, name).launches for name in _CHAIN_BF16] == before
 
 
@@ -3010,12 +3019,20 @@ def test_chain_bwd_bf16_kernels_refuse_what_they_do_not_take(cuda):
     mid[10] = args["bwd_mid"][10][:, :8, :8].contiguous()
     with pytest.raises(ValueError, match="multiple of 16"):
         fb.bwd_mid_bf16(*mid)
-    cap = fb.conv1x1_max_c(torch.bfloat16)
+    cap = fb._bf_max_c()
     dout, out = args["bwd_reduce3"][:2]
     wide = torch.zeros(2, cap + 64, 64, dtype=torch.bfloat16, device="cuda")
     vec = torch.zeros(cap + 64, device="cuda")
     with pytest.raises(ValueError, match="at most"):
         fb.bwd_reduce3_bf16(dout, out, wide, vec, vec)
+    # bwd_final's C is the 1x1 tile's K (dx = W1ᵀ·da1)
+    k_cap = fb.conv1x1_max_c(torch.bfloat16)
+    g3, _, _, x = args["bwd_final"][:4]
+    wa = torch.zeros(2, k_cap + 64, 64, dtype=torch.bfloat16, device="cuda")
+    wv = torch.zeros(k_cap + 64, device="cuda")
+    w1 = torch.zeros(k_cap + 64, 32, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="at most"):
+        fb.bwd_final_bf16(g3, wa, wa, x, wv, wv, wv, w1)
     assert [getattr(fb, name).launches for name in names] == before
 
 
@@ -3055,3 +3072,117 @@ def test_bf16_wgmma_products_fail_planted_faults(cuda):
     faulty = fb.bwd_reduce3_bf16(*dropped)
     bad = readings(torch, fb, "bwd_reduce3", r3, faulty, want)
     assert bad["P"][0] > 1 and bad["Σg3"][0] > 1
+
+
+# ---------------------------------------------------------------------------
+# the bf16 chain's 1x1 tile on wgmma (csrc/conv1x1_bf16_tc.cuh):
+# conv1x1_bn_residual_bf16 and bwd_final_bf16's dx (dW1 on abw::)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,cin,c,h", [
+    (2, 256, 64, 56),         # the three chain stages at batch 2
+    (2, 512, 128, 28),
+    (2, 1024, 256, 14),       # M 1024, K 256: 8 row tiles of 128
+    (4, 256, 64, 14),         # S 196: tail boxes, 8-byte write-out runs
+    (3, 128, 128, 7),         # S 49: value by value
+    (2, 64, 80, (4, 5)),      # S 20; C 80: K not whole 64-row tiles
+    (1, 64, 64, (3, 130)),    # S 390: S % 4 == 2
+    (2, 384, 128, 8),         # M 384 past 256: two 256-row tiles
+    (2, 768, 256, 8),         # M 768, K 256: six 128-row tiles
+])
+def test_bf16_1x1_tile_rows_match_plain(cuda, n, cin, c, h):
+    """Rows 16b and 13b against their plain versions on the same bf16
+    inputs: conv1x1_bn_residual_bf16's out within the bf16 limit, at most
+    1e-3 of it apart, and bwd_final_bf16's dx and dW1 at phase 3's limits
+    (_hold_bf16_bwd); a second call of each bit-identical."""
+    h, w = h if isinstance(h, tuple) else (h, h)
+    gen = torch.Generator().manual_seed(7 * n + cin + c + 3 * h + w)
+    d = _bf16_chain_inputs(_chain_case(gen, n, cin, c, h, w))
+    args = (d["a"], d["x"], d["sc"], d["sh"], d["w3"], d["sc3"], d["sh3"])
+    out = fb.conv1x1_bn_residual_bf16(*args)
+    want = fb.conv1x1_bn_residual_reference(*args)
+    _assert_bf16_close(out, want, "out")
+    assert float((out != want).float().mean()) <= 1e-3
+    assert torch.equal(fb.conv1x1_bn_residual_bf16(*args), out)
+    a = _bf16_bwd_inputs(gen, n, cin, c, h, w)["bwd_final"]
+    got = fb.bwd_final_bf16(*a)
+    _hold_bf16_bwd("bwd_final", a, got, fb.bwd_final_reference(*a))
+    again = fb.bwd_final_bf16(*a)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_bf16_1x1_tile_fails_planted_faults(cuda):
+    """The limits hold a fault of one stage of the 1x1 tile's rows: out
+    made by the kernel with a2 zeroed on the first 64-position stage, and
+    dx and dW1 with g1 zeroed there (N 2, S 196), each read above 1
+    against the plain version on the whole input, while the kernels' own
+    outputs read at most 1."""
+    gen = torch.Generator().manual_seed(32)
+    d = _bf16_chain_inputs(_chain_case(gen, 2, 64, 64, 14))
+    args = [d["a"], d["x"], d["sc"], d["sh"], d["w3"], d["sc3"], d["sh3"]]
+    want = fb.conv1x1_bn_residual_reference(*args)
+    share = _smoke().bf16_share
+    assert share(torch, fb.conv1x1_bn_residual_bf16(*args), want) <= 1
+    args[0] = d["a"].clone()
+    args[0][0, :, :64] = 0
+    assert share(torch, fb.conv1x1_bn_residual_bf16(*args), want) > 1
+    a = list(_bf16_bwd_inputs(gen, 2, 64, 64, 14)["bwd_final"])
+    want = fb.bwd_final_reference(*a)
+    readings = _smoke().bf16_bwd_readings
+    ok = readings(torch, fb, "bwd_final", a, fb.bwd_final_bf16(*a), want)
+    assert ok["dx"][0] <= 1 and ok["dW1"][0] <= 1
+    dropped = list(a)
+    dropped[1] = a[1].clone()
+    dropped[1][0, :, :64] = 0
+    bad = readings(torch, fb, "bwd_final", a, fb.bwd_final_bf16(*dropped),
+                   want)
+    assert bad["dx"][0] > 1 and bad["dW1"][0] > 1
+
+
+@pytest.mark.parametrize("w,takes", [(191, True), (192, False)])
+def test_bf16_chain_gate_keeps_rows_within_bwd_mid(cuda, monkeypatch, w,
+                                                   takes):
+    """With PT_FUSED_BLOCK=always, a bf16 block (N 8, Cin 128, C 64) at H =
+    W = 191, the widest row bwd_mid_bf16's tap gradients take, runs the
+    chain forward and backward, one launch of each bf16 chain kernel; at
+    192 the gate composes it, forward and backward, with no chain kernel
+    launched (a gate that checks only C sends it through the chain's
+    forward, and its backward raises). Either way a loss over Out
+    backpropagates without error, every gradient finite."""
+    from paddle_tpu_torch.core.registry import ExecContext, require_op
+    from paddle_tpu_torch.ops import fused_ops
+
+    monkeypatch.setenv("PT_FUSED_BLOCK", "always")
+    n, cin, c = 8, 128, 64
+    gen = torch.Generator().manual_seed(33)
+    x = torch.rand(n, cin, w, w, generator=gen).cuda().bfloat16()
+    w1 = (torch.randn(c, cin, 1, 1, generator=gen) * (2 / cin) ** 0.5).cuda()
+    w2 = (torch.randn(c, c, 3, 3, generator=gen) * (2 / (9 * c)) ** 0.5
+          ).cuda()
+    w3 = (torch.randn(cin, c, 1, 1, generator=gen) * (2 / c) ** 0.5).cuda()
+    assert fused_ops.chain_takes(tuple(x.shape), c, torch.bfloat16,
+                                 "cuda") == takes
+    assert fused_ops._chain_takes(x, w1) == takes
+    bn = [tuple(t.cuda() for t in (
+        1 + 0.2 * torch.randn(k, generator=gen),
+        0.2 * torch.randn(k, generator=gen),
+        0.1 * torch.randn(k, generator=gen),
+        torch.rand(k, generator=gen) + 0.5)) for k in (c, c, cin)]
+    leaves = [t.clone().requires_grad_(True) for t in (x, w1, w2, w3)]
+    params = [tuple(v.clone().requires_grad_(i < 2)
+                    for i, v in enumerate(p)) for p in bn]
+    names = _CHAIN_BF16 + tuple(k + "_bf16" for k in _BWD)
+    before = [getattr(fb, name).launches for name in names]
+    ctx = ExecContext(torch.Generator(), torch.device("cuda"))
+    outs = require_op("fused_bottleneck").compute(
+        ctx, _chain_op_ins(*leaves, params),
+        {"epsilon": 1e-5, "momentum": 0.9})
+    (outs["Out"][0].float()
+     * torch.randn(outs["Out"][0].shape, generator=gen).cuda()).sum(
+         ).backward()
+    torch.cuda.synchronize()
+    assert [getattr(fb, name).launches for name in names] == [
+        k + (1 if takes else 0) for k in before]
+    for t in leaves + [v for p in params for v in p[:2]]:
+        assert t.grad is not None and t.grad.dtype == t.dtype
+        assert bool(torch.isfinite(t.grad.float()).all())
